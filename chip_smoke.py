@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's main paths once on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one card, ``nvcc`` and PyTorch built for CUDA, and imports nothing
@@ -8,18 +8,34 @@ fails:
 
 1. device:  the card's name and power limit from nvidia-smi; the float32
             matmul policy.
-2. build:   compile ``pysvihmm_tpu_torch/csrc/fused_fb.cu`` with nvcc.
+2. build:   compile ``pysvihmm_tpu_torch/csrc/fused_fb.cu`` and
+            ``split_fb.cu`` with nvcc, both at once; ptxas's registers,
+            shared memory and spills for all four kernels.
 3. kernels: both fused E-step kernels against their plain PyTorch twins on
             the card, at a small shape and at B=1024, T=1000, K=64, D=8,
-            with ``emit_gamma`` True and False, under stated tolerances.
-4. slice:   5 batch-VB iterations at B=1024, T=1000, K=64, D=8 through
+            with ``emit_gamma`` True and False; the gated fused backward
+            with SVI-shaped kept-masks (B=1024, W=70, K=64, F=45); both
+            split kernels, gated and not, at a small shape, at B=1024,
+            W=70, K=64 and at B=1024, T=1000, K=64; all under stated
+            tolerances.
+4. VB:      5 batch-VB iterations at B=1024, T=1000, K=64, D=8 through
             ``method="auto"``; each kernel must launch once per iteration
             and the ELBO must be finite and non-decreasing. Then the small
             canonical fit (K=4, D=2, 20 x 200, 50 iterations) must decode
             at Hamming error <= 0.05.
-5. times:   each kernel against its twin, and the E-step of the benchmark
-            shape (need_gamma=False) on the kernel and plain routes, timed
-            with CUDA events.
+5. times:   each kernel against its twin, the E-step of the benchmark
+            shape (need_gamma=False) on the kernel and plain routes, and
+            the SVI step at B in {32, 256, 1024} on "fused", "split" and
+            "scan", timed with CUDA events; a profile of the SVI step.
+6. SVI:     windowed subchain SVI at full width (K=64, D=8, one chain of
+            T=100,000, B=1024, L=50, b=10): 20 steps through
+            ``method="auto"``, then 20 through "split"; each kernel of the
+            route launches exactly once a step, the noisy ELBO and every
+            parameter stay finite and every NIW psi has a Cholesky factor
+            after every step; one step's statistics agree across the two
+            routes on the same windows. Then the small SVI fit (K=4, D=2,
+            T=3000, B=16, 300 steps) through "auto" must decode at Hamming
+            error < 0.05.
 
 The last lines are the card line, one JSON line describing the kernels and,
 last, ``{"ok": true, "device": {...}}``.
@@ -37,6 +53,14 @@ B, T, K, D = 1024, 1000, 64, 8  # the benchmark shape (bench.py:29)
 VB_ITERS = 5
 TIMED_ITERS = 20
 MAX_REL_DROP = -1e-5  # ELBO monotonicity in float32
+SVI_T, SVI_L, SVI_BUF = 100_000, 50, 10  # scripts/bench_svi_step.py:46-53
+SVI_W = SVI_L + 2 * SVI_BUF
+SVI_STEPS = 20
+SVI_BATCHES = (32, 256, 1024)
+# The card's peaks (NVIDIA H100 SXM data sheet): HBM bytes per second and
+# float32 FLOP/s outside the tensor cores, for each kernel's least time.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def log(msg: str = "") -> None:
@@ -85,6 +109,53 @@ def compare(name, got, ref, rtol: float, atol: float) -> float:
     log(f"    {name}: max_abs_err {err:.3e} (max|ref| {scale:.3e}, bound {bound:.3e})")
     require(err <= bound, f"{name}: kernel and plain version disagree")
     return err
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes over
+    the HBM rate and the float32 operations over the peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_work(name: str, B_: int, T_: int, K_: int, F_: int = 0, gated: bool = False,
+                emit_gamma: bool = False) -> tuple[float, float]:
+    """(bytes, flops) one launch needs at these shapes: each input read once
+    and each output written once (float32), and per (t, b) the flops of the
+    recursion: a K-wide F-dot per state 2FK, a matvec 2K^2, an outer
+    product 2K^2, the emission outer product 2KF, and the elementwise work
+    (shift, exp, scalings, the two reductions) counted per state."""
+    n, k2 = B_ * T_, K_ * K_
+    per_tb = {
+        "fused_fwd_kernel": 2 * F_ * K_ + 2 * k2 + 6 * K_,
+        "fused_bwd_kernel": 4 * F_ * K_ + 4 * k2 + 8 * K_ + (2 * K_ if gated else 0),
+        "split_fwd_kernel": 2 * k2 + 6 * K_,
+        "split_bwd_kernel": 4 * k2 + 8 * K_ + (K_ if gated else 0),
+    }[name]
+    words = {
+        # feats in, W, A~, pi~; alpha, s, sh out
+        "fused_fwd_kernel": n * F_ + F_ * K_ + k2 + K_ + n * K_ + 2 * n,
+        # feats, alpha, s, sh, W, A~ (+ w, g) in; gamma0, acc, eacc (+ gamma) out
+        "fused_bwd_kernel": n * F_ + n * K_ + 2 * n + F_ * K_ + k2 + (2 * n if gated else 0)
+        + B_ * K_ + k2 + K_ * F_ + (n * K_ if emit_gamma else 0),
+        # ll, A~, pi~ in; alpha, s, sh out
+        "split_fwd_kernel": n * K_ + k2 + K_ + n * K_ + 2 * n,
+        # ll, alpha, s, sh, A~ (+ g) in; gamma, acc out
+        "split_bwd_kernel": 2 * n * K_ + 2 * n + k2 + (n if gated else 0) + n * K_ + k2,
+    }[name]
+    return 4.0 * words, float(n * per_tb)
+
+
+def svi_masks(gen, B_, W_, L_):
+    """(W, B) float32 kept-masks as SVI windows make them on the card: one
+    kept run of L steps per window at a random offset from ``gen``; window 0
+    keeps its first step and window 1 drops it (when W > L)."""
+    import torch
+
+    offs = torch.randint(0, W_ - L_ + 1, (B_,), generator=gen, device=gen.device)
+    offs[0], offs[1] = 0, W_ - L_
+    t = torch.arange(W_, device=gen.device)[:, None]
+    return ((t >= offs) & (t < offs + L_)).to(torch.float32).contiguous()
 
 
 def random_problem(gen, B_, T_, K_, D_):
@@ -175,6 +246,196 @@ def check_kernels(gen, shape):
     return fwd_err, bwd_err, (pi_t, A_t, W, feats, a_r, s_r, sh_r)
 
 
+def check_gated_fused(gen, B_, W_, K_, D_, L_):
+    """Phase 3: the gated fused backward (SVI kept-masks, emit_gamma=True)
+    against its twin on the same forward outputs, then the whole gated
+    E-step. Returns the backward's max gamma error."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+
+    log(f"  gated fused backward, (B, W, K, D) = {(B_, W_, K_, D_)}, kept runs of {L_}")
+    log_pi, log_A, W, feats = random_problem(gen, B_, W_, K_, D_)
+    w = svi_masks(gen, B_, W_, L_)
+    pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+    a_r, s_r, sh_r = ff.forward_reference(pi_t, A_t, W, feats)
+    n_bwd = ff.fused_backward.launches
+    got = ff.fused_backward(A_t, W, feats, a_r, s_r, sh_r, emit_gamma=True, weights=w)
+    torch.cuda.synchronize()
+    require(ff.fused_backward.launches == n_bwd + 1, "gated backward launch was not counted")
+    ref = ff.backward_reference(A_t, W, feats, a_r, s_r, sh_r, True, weights=w)
+    err = 0.0
+    for name, x, r, rtol, atol in zip(("gamma", "gamma0", "acc", "eacc"), got, ref,
+                                      (0.0, 0.0, 1e-4, 3e-3), (5e-5, 5e-5, 1e-3, 2e-3)):
+        e = compare(name, x, r, rtol, atol)
+        err = e if name == "gamma" else err
+    ungated = ff.fused_backward(A_t, W, feats, a_r, s_r, sh_r, emit_gamma=True)
+    torch.cuda.synchronize()
+    require(torch.equal(ungated[0], got[0]), "the gated kernel's gamma is not the ungated one")
+    fk, Sk = ff.estep_fused(log_pi, log_A, W, feats, emit_gamma=True, weights=w)
+    torch.cuda.synchronize()
+    fr, Sr = ff.estep_fused_reference(log_pi, log_A, W, feats, emit_gamma=True, weights=w)
+    compare("init_stats", fk.init_stats, fr.init_stats, 0.0, 5e-5)
+    compare("log_c", fk.log_c, fr.log_c, 2e-6, 1e-4)
+    compare("trans_stats", fk.trans_stats, fr.trans_stats, 1e-4, 1e-3)
+    compare("emit_stats", Sk, Sr, 3e-3, 2e-3)
+    return err
+
+
+def check_split(gen, B_, T_, K_, D_, gated):
+    """Phase 3: each split kernel against its twin on the same inputs (the
+    backward on the twin's forward outputs), then the whole split E-step.
+    Returns (the forward's max log_c error, the backward's max gamma error,
+    the inputs)."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import split_fb as sf
+
+    log(f"  split kernels, (B, T, K, D) = {(B_, T_, K_, D_)}, gated={gated}")
+    log_pi, log_A, W, feats = random_problem(gen, B_, T_, K_, D_)
+    ll = (feats @ W).contiguous()
+    w = svi_masks(gen, B_, T_, max(1, (5 * T_) // 7)) if gated else None
+    g = None if w is None else sf.pair_gate(w)
+    pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+    n_fwd, n_bwd = sf.split_forward.launches, sf.split_backward.launches
+    alpha, s, sh = sf.split_forward(pi_t, A_t, ll)
+    torch.cuda.synchronize()
+    require(sf.split_forward.launches == n_fwd + 1, "split forward launch was not counted")
+    a_r, s_r, sh_r = sf.split_forward_reference(pi_t, A_t, ll)
+    compare("alpha", alpha, a_r, 0.0, 5e-5)
+    compare("s", s, s_r, 0.0, 5e-5)
+    require(torch.equal(sh, sh_r), "sh is a max: kernel and twin must agree exactly")
+    fwd_err = compare("log_c", torch.log(s) + sh, torch.log(s_r) + sh_r, 2e-6, 1e-4)
+    gam, acc = sf.split_backward(A_t, ll, a_r, s_r, sh_r, g)
+    torch.cuda.synchronize()
+    require(sf.split_backward.launches == n_bwd + 1, "split backward launch was not counted")
+    gam_r, acc_r = sf.split_backward_reference(A_t, ll, a_r, s_r, sh_r, g)
+    bwd_err = compare("gamma", gam, gam_r, 0.0, 5e-5)
+    compare("acc", acc, acc_r, 1e-4, 1e-3)
+    fk = sf.estep_split(log_pi, log_A, ll, w)
+    torch.cuda.synchronize()
+    fr = sf.estep_split_reference(log_pi, log_A, ll, w)
+    compare("init_stats", fk.init_stats, fr.init_stats, 0.0, 5e-5)
+    compare("log_z", fk.log_z, fr.log_z, 2e-6, 0.0)
+    compare("trans_stats", fk.trans_stats, fr.trans_stats, 1e-4, 1e-3)
+    return fwd_err, bwd_err, (pi_t, A_t, ll, a_r, s_r, sh_r, g)
+
+
+def kernel_counts() -> dict[str, int]:
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.messages import split_fb as sf
+
+    return {"fused_fwd_kernel": ff.fused_forward.launches,
+            "fused_bwd_kernel": ff.fused_backward.launches,
+            "split_fwd_kernel": sf.split_forward.launches,
+            "split_bwd_kernel": sf.split_backward.launches}
+
+
+def reset_kernel_counts() -> None:
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.messages import split_fb as sf
+
+    ff.reset_launch_counts()
+    sf.reset_launch_counts()
+
+
+ROUTE_KERNELS = {"auto": ("fused_fwd_kernel", "fused_bwd_kernel"),
+                 "fused": ("fused_fwd_kernel", "fused_bwd_kernel"),
+                 "split": ("split_fwd_kernel", "split_bwd_kernel")}
+
+
+def require_sane_params(params, what: str) -> None:
+    """Every parameter finite and every NIW psi with a Cholesky factor (a
+    NaN on the next step is the symptom of bad statistics)."""
+    import torch
+
+    for x in (params.init, params.trans, *params.emit):
+        require(bool(torch.isfinite(x).all()), f"{what}: a non-finite parameter")
+    info = torch.linalg.cholesky_ex(params.emit.psi).info
+    require(bool((info == 0).all()), f"{what}: an NIW psi without a Cholesky factor")
+
+
+def svi_run(route, cfg, p0, prior, chain, seed, steps):
+    """Phase 6: ``steps`` SVI steps through ``route`` from p0, checked after
+    every step. Returns (final state, noisy ELBOs, the kernels' launches)."""
+    import torch
+
+    from pysvihmm_tpu_torch.distributions import GaussianNIW
+    from pysvihmm_tpu_torch.engines import svi
+
+    step = svi.make_step(GaussianNIW, cfg, chain.shape[0], method=route)
+    state = svi.init_state(p0, torch.Generator(device=chain.device).manual_seed(seed))
+    elbos = []
+    reset_kernel_counts()
+    for i in range(steps):
+        before = kernel_counts()
+        state, m = step(state, prior, chain)
+        after = kernel_counts()
+        for name in after:
+            want = 1 if name in ROUTE_KERNELS[route] else 0
+            require(after[name] - before[name] == want,
+                    f"{route} step {i}: {name} launched {after[name] - before[name]} times")
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(m["noisy_elbo"])) and bool(torch.isfinite(m["rho"])),
+                f"{route} step {i}: non-finite noisy ELBO or rho")
+        require_sane_params(state.params, f"{route} step {i}")
+        elbos.append(m["noisy_elbo"].item())
+    return state, elbos, kernel_counts()
+
+
+def svi_step_ms(route, cfg, p0, prior, chain, iters: int) -> float:
+    """Phase 5: mean ms per SVI step over ``iters`` chained steps (after two
+    warm-up steps), by CUDA events; nothing is read back in between."""
+    import torch
+
+    from pysvihmm_tpu_torch.distributions import GaussianNIW
+    from pysvihmm_tpu_torch.engines import svi
+
+    step = svi.make_step(GaussianNIW, cfg, chain.shape[0], method=route)
+    state = svi.init_state(p0, torch.Generator(device=chain.device).manual_seed(3))
+
+    def one():
+        nonlocal state
+        state, _ = step(state, prior, chain)
+
+    ms = cuda_ms(one, iters, warmup=2)
+    require_sane_params(state.params, f"timed {route} SVI")
+    return ms
+
+
+def profile_svi(cfg, p0, prior, chain, steps: int) -> None:
+    """Phase 5: torch.profiler over ``steps`` SVI steps on "auto": device
+    time by kernel and the device's busy share of the wall time (the
+    profiler's own host overhead inflates the idle share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pysvihmm_tpu_torch.distributions import GaussianNIW
+    from pysvihmm_tpu_torch.engines import svi
+
+    step = svi.make_step(GaussianNIW, cfg, chain.shape[0])
+    state = svi.init_state(p0, torch.Generator(device=chain.device).manual_seed(4))
+    state, _ = step(state, prior, chain)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = step(state, prior, chain)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device_us = {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            t = getattr(e, "self_device_time_total", None)
+            device_us[e.key] = t if t is not None else e.self_cuda_time_total
+    busy = sum(device_us.values())
+    log(f"  profile, B={cfg.batch_size}, {steps} steps on auto: wall {wall_us / 1e3:.3f} ms, "
+        f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f} %), "
+        f"{len(device_us)} kernel names")
+    for name, t in sorted(device_us.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"    {t / 1e3:9.3f} ms  {100 * t / max(busy, 1e-9):5.1f} %  {name[:90]}")
+
+
 def main() -> int:
     import torch
 
@@ -187,11 +448,17 @@ def main() -> int:
     from pysvihmm_tpu_torch.data.synthetic import gen_gaussian_dataset
     from pysvihmm_tpu_torch.distributions import GaussianNIW
     from pysvihmm_tpu_torch.distributions.niw import NIW
-    from pysvihmm_tpu_torch.engines import batch_vb
-    from pysvihmm_tpu_torch.engines.base import batch_local_step, decode, lower_bound
+    from pysvihmm_tpu_torch.engines import batch_vb, svi
+    from pysvihmm_tpu_torch.engines.base import (
+        batch_local_step,
+        decode,
+        lower_bound,
+        windowed_local_step,
+    )
     from pysvihmm_tpu_torch.eval.metrics import hamming_error
     from pysvihmm_tpu_torch.messages import fused_fb as ff
     from pysvihmm_tpu_torch.messages import resolve_method
+    from pysvihmm_tpu_torch.messages import split_fb as sf
     from pysvihmm_tpu_torch.models.hmm import HMMParams, init_params, make_prior
     from pysvihmm_tpu_torch.utils.precision import f32_matmuls
 
@@ -207,21 +474,36 @@ def main() -> int:
     log(f"precision policy: {f32_matmuls()}")
 
     log("== phase 2: build")
+    libs = ("fused_fb", "split_fb")
     t0 = time.perf_counter()
-    _build.load_library("fused_fb")
-    build_s = time.perf_counter() - t0
-    log(f"built and loaded {_build.library_path('fused_fb').name} in {build_s:.2f} s "
-        f"(nvcc {_build.build_seconds.get('fused_fb', 0.0):.2f} s)")
-    for line in _build.build_log.get("fused_fb", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"  ptxas: {line.strip()}")
+    _build.build(list(libs))
+    for name in libs:
+        _build.load_library(name)
+    log(f"built and loaded {', '.join(_build.library_path(n).name for n in libs)} in "
+        f"{time.perf_counter() - t0:.2f} s (nvcc, in parallel: "
+        + ", ".join(f"{n} {_build.build_seconds.get(n, 0.0):.2f} s" for n in libs) + ")")
+    for name in libs:
+        for line in _build.build_log.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"  ptxas ({name}): {line.strip()}")
 
     log("== phase 3: kernels against their plain versions")
     gen = torch.Generator(device=dev).manual_seed(1234)
     check_kernels(gen, (8, 50, 4, 2))
     fwd_err, bwd_err, full_inputs = check_kernels(gen, (B, T, K, D))
+    check_gated_fused(gen, 8, SVI_W, 4, 2, SVI_L)
+    check_gated_fused(gen, B, SVI_W, K, D, SVI_L)
+    split_err = {"split_fwd_kernel": 0.0, "split_bwd_kernel": 0.0}
+    for shape in ((8, 50, 4, 2), (B, SVI_W, K, D), (B, T, K, D)):
+        for gated in (False, True):
+            e_f, e_b, inputs = check_split(gen, *shape, gated)
+            if shape[1] == T and shape[0] == B:
+                split_err["split_fwd_kernel"] = max(split_err["split_fwd_kernel"], e_f)
+                split_err["split_bwd_kernel"] = max(split_err["split_bwd_kernel"], e_b)
+                if not gated:
+                    split_inputs = inputs
 
-    log("== phase 4: the slice: batch VB at B=1024, T=1000, K=64, D=8")
+    log("== phase 4: batch VB at B=1024, T=1000, K=64, D=8")
     gen = torch.Generator(device=dev).manual_seed(0)
     obs, _, _ = gen_gaussian_dataset(gen, K, D, B, T)
     prior = make_prior(K, GaussianNIW, obs_dim=D, device=dev)
@@ -229,16 +511,16 @@ def main() -> int:
     method = resolve_method("auto", obs.device)
     require(method == "fused", f'method="auto" resolved to {method!r} on the card')
     torch.cuda.synchronize()
-    ff.reset_launch_counts()
+    reset_kernel_counts()
     t0 = time.perf_counter()
     params, elbos = batch_vb.fit(p0, prior, obs, GaussianNIW, num_iters=VB_ITERS, method="auto")
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = {"fused_fwd_kernel": ff.fused_forward.launches,
-                "fused_bwd_kernel": ff.fused_backward.launches}
-    log(f"launches during the {VB_ITERS}-iteration fit: {launches}")
-    for name, n in launches.items():
-        require(n == VB_ITERS, f"{name} launched {n} times in {VB_ITERS} iterations")
+    vb_launches = kernel_counts()
+    log(f"launches during the {VB_ITERS}-iteration fit: {vb_launches}")
+    for name, n in vb_launches.items():
+        want = VB_ITERS if name in ROUTE_KERNELS["auto"] else 0
+        require(n == want, f"{name} launched {n} times in {VB_ITERS} iterations")
     e = elbos.double().cpu()
     log("ELBO per iteration: " + ", ".join(f"{x:.6e}" for x in e.tolist()))
     require(bool(torch.isfinite(e).all()), "non-finite ELBO")
@@ -272,22 +554,65 @@ def main() -> int:
     log(f"  final ELBO {el_s[-1].item():.6e}, Hamming error {ham:.4f}")
     require(ham <= 0.05, f"Hamming error {ham} > 0.05")
 
-    log("== phase 5: times (CUDA events; "
-        f"{card})")
+    log(f"== phase 5: times (CUDA events; {card})")
     pi_t, A_t, W, feats, a_r, s_r, sh_r = full_inputs
-    ms = {
-        "fused_fwd_kernel": cuda_ms(lambda: ff.fused_forward(pi_t, A_t, W, feats), 10),
-        "fused_bwd_kernel": cuda_ms(
-            lambda: ff.fused_backward(A_t, W, feats, a_r, s_r, sh_r, False), 10),
+    F = feats.shape[-1]
+    spi_t, A_s, ll, sa_r, ss_r, ssh_r, _ = split_inputs
+    timed = {
+        "fused_fwd_kernel": (lambda: ff.fused_forward(pi_t, A_t, W, feats),
+                             lambda: ff.forward_reference(pi_t, A_t, W, feats)),
+        "fused_bwd_kernel": (lambda: ff.fused_backward(A_t, W, feats, a_r, s_r, sh_r, False),
+                             lambda: ff.backward_reference(A_t, W, feats, a_r, s_r, sh_r, False)),
+        "split_fwd_kernel": (lambda: sf.split_forward(spi_t, A_s, ll),
+                             lambda: sf.split_forward_reference(spi_t, A_s, ll)),
+        "split_bwd_kernel": (lambda: sf.split_backward(A_s, ll, sa_r, ss_r, ssh_r),
+                             lambda: sf.split_backward_reference(A_s, ll, sa_r, ss_r, ssh_r)),
     }
-    plain_ms = {
-        "fused_fwd_kernel": cuda_ms(lambda: ff.forward_reference(pi_t, A_t, W, feats), 3),
+    ms, plain_ms, bounds = {}, {}, {}
+    for name, (kernel, plain) in timed.items():
+        # a longer warm-up: the first kernel timed after the light small fit
+        # read 20 % slow once with a single warm-up call
+        ms[name] = cuda_ms(kernel, 20, warmup=5)
+        plain_ms[name] = cuda_ms(plain, 3)
+        bounds[name] = bound(*kernel_work(name, B, T, K, F))
+        log(f"{name}: {ms[name]:.3f} ms, plain twin {plain_ms[name]:.3f} ms, bound "
+            f"{bounds[name][0]:.3f} ms ({bounds[name][1]}) at (B, T, K, F) = ({B}, {T}, {K}, {F})")
+
+    # what the gates cost at the same shape (kept runs of 5T/7 per sequence)
+    w_full = svi_masks(torch.Generator(device=dev).manual_seed(78), B, T, (5 * T) // 7)
+    g_full = sf.pair_gate(w_full)
+    gated_ms = {
         "fused_bwd_kernel": cuda_ms(
-            lambda: ff.backward_reference(A_t, W, feats, a_r, s_r, sh_r, False), 3),
+            lambda: ff.fused_backward(A_t, W, feats, a_r, s_r, sh_r, False, w_full), 10),
+        "split_bwd_kernel": cuda_ms(
+            lambda: sf.split_backward(A_s, ll, sa_r, ss_r, ssh_r, g_full), 10),
     }
-    for name in ms:
-        log(f"{name}: {ms[name]:.3f} ms, plain twin {plain_ms[name]:.3f} ms "
-            f"at (B, T, K, F) = ({B}, {T}, {K}, {feats.shape[-1]})")
+    for name, t_ms in gated_ms.items():
+        log(f"{name}, gated: {t_ms:.3f} ms (ungated {ms[name]:.3f} ms) at (B, T, K, F) = "
+            f"({B}, {T}, {K}, {F})")
+
+    # the SVI route's shape: W=70 windows, gated, emit_gamma on the fused route
+    gen = torch.Generator(device=dev).manual_seed(77)
+    lp_w, lA_w, W_w, f_w = random_problem(gen, B, SVI_W, K, D)
+    m_w = svi_masks(gen, B, SVI_W, SVI_L)
+    pi_w, A_w = torch.exp(lp_w).contiguous(), torch.exp(lA_w).contiguous()
+    ll_w = (f_w @ W_w).contiguous()
+    fa, fs, fsh = ff.fused_forward(pi_w, A_w, W_w, f_w)
+    sa, ss, ssh = sf.split_forward(pi_w, A_w, ll_w)
+    g_w = sf.pair_gate(m_w)
+    at_w = {
+        "fused_fwd_kernel": (lambda: ff.fused_forward(pi_w, A_w, W_w, f_w), {}),
+        "fused_bwd_kernel": (lambda: ff.fused_backward(A_w, W_w, f_w, fa, fs, fsh, True, m_w),
+                             {"gated": True, "emit_gamma": True}),
+        "split_fwd_kernel": (lambda: sf.split_forward(pi_w, A_w, ll_w), {}),
+        "split_bwd_kernel": (lambda: sf.split_backward(A_w, ll_w, sa, ss, ssh, g_w),
+                             {"gated": True}),
+    }
+    for name, (kernel, kw) in at_w.items():
+        t_ms = cuda_ms(kernel, 20)
+        b_ms, b_by = bound(*kernel_work(name, B, SVI_W, K, F, **kw))
+        log(f"{name} at the SVI shape (B, W, K, F) = ({B}, {SVI_W}, {K}, {F}), {kw or 'plain'}: "
+            f"{t_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
 
     carry = torch.zeros((), device=dev)
 
@@ -304,26 +629,106 @@ def main() -> int:
         return tot
 
     estep_ms = {}
-    for route in ("fused", "scan"):
+    for route in ("fused", "split", "scan"):
         estep_ms[route] = cuda_ms(lambda: estep(route), TIMED_ITERS, warmup=2)
         require(bool(torch.isfinite(estep(route))), f"non-finite statistics on route {route}")
         log(f"E-step route {route}: {estep_ms[route]:.3f} ms, {B / (estep_ms[route] / 1e3):.1f} "
             f"seq/s (B={B}, T={T}, K={K}, D={D}, need_gamma=False, features built per call)")
+    del obs, params
 
-    kernels = [
-        {"name": "fused_fwd_kernel", "route": "cuda",
-         "source": "pysvihmm_tpu_torch/csrc/fused_fb.cu",
-         "replaces": "pysvihmm_tpu/messages/pallas_fb.py:516",
-         "launches": launches["fused_fwd_kernel"], "max_abs_err": fwd_err,
-         "ms": ms["fused_fwd_kernel"], "plain_ms": plain_ms["fused_fwd_kernel"]},
-        {"name": "fused_bwd_kernel", "route": "cuda",
-         "source": "pysvihmm_tpu_torch/csrc/fused_fb.cu",
-         "replaces": "pysvihmm_tpu/messages/pallas_fb.py:577",
-         "launches": launches["fused_bwd_kernel"], "max_abs_err": bwd_err,
-         "ms": ms["fused_bwd_kernel"], "plain_ms": plain_ms["fused_bwd_kernel"]},
-    ]
-    log(f"total {time.perf_counter() - t_start:.1f} s; max_abs_err below: the forward's "
-        "log_c (nats) and the backward's gamma, at the full shape")
+    log(f"  flagship chain: K={K}, D={D}, one chain of T={SVI_T}")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    t0 = time.perf_counter()
+    chain = gen_gaussian_dataset(gen, K, D, 1, SVI_T)[0][0]
+    prior = make_prior(K, GaussianNIW, obs_dim=D, device=dev)
+    p0 = init_params(gen, prior, GaussianNIW, chain)
+    torch.cuda.synchronize()
+    log(f"  chain and init made in {time.perf_counter() - t0:.2f} s (set-up)")
+    for Bs in SVI_BATCHES:
+        cfg = svi.SVIConfig(batch_size=Bs, subchain_len=SVI_L, buffer=SVI_BUF)
+        line = []
+        for route in ("fused", "split", "scan"):
+            t_ms = svi_step_ms(route, cfg, p0, prior, chain, SVI_STEPS)
+            line.append(f"{route} {t_ms:.3f} ms ({Bs * SVI_W / t_ms * 1e3:.4g} window obs/s)")
+        log(f"SVI step, B={Bs}, L={SVI_L}, b={SVI_BUF}, W={SVI_W}, {SVI_STEPS} chained steps: "
+            + "; ".join(line))
+    for Bs in (SVI_BATCHES[0], SVI_BATCHES[-1]):
+        profile_svi(svi.SVIConfig(batch_size=Bs, subchain_len=SVI_L, buffer=SVI_BUF),
+                    p0, prior, chain, 10)
+
+    log(f"== phase 6: windowed SVI at K={K}, D={D}, T={SVI_T}, B={B}, L={SVI_L}, b={SVI_BUF}")
+    cfg = svi.SVIConfig(batch_size=B, subchain_len=SVI_L, buffer=SVI_BUF)
+    svi_launches = {}
+    for route in ("auto", "split"):
+        t0 = time.perf_counter()
+        state, ne, counts = svi_run(route, cfg, p0, prior, chain, seed=11, steps=SVI_STEPS)
+        log(f"  {route}: {SVI_STEPS} steps checked in {time.perf_counter() - t0:.2f} s; "
+            f"launches {counts}")
+        log(f"  {route}: noisy ELBO " + ", ".join(f"{x:.6e}" for x in ne[:3]) + " ... "
+            + ", ".join(f"{x:.6e}" for x in ne[-3:]))
+        for name in ROUTE_KERNELS[route]:
+            svi_launches[name] = counts[name]
+
+    log("  one step's statistics on both routes, same windows (the split run's final params)")
+    starts = torch.randint(0, SVI_T - SVI_L + 1, (B,), generator=gen, device=dev)
+    ws = torch.clamp(starts - SVI_BUF, 0, SVI_T - SVI_W)
+    offs = starts - ws
+    windows = svi._gather_windows(chain, ws, SVI_W)
+    pos = torch.arange(SVI_W, device=dev)[None, :]
+    maskf = ((pos >= offs[:, None]) & (pos < offs[:, None] + SVI_L)).float()
+    out = {r: windowed_local_step(state.params, GaussianNIW, windows, maskf, offs, r)
+           for r in ("fused", "split")}
+    torch.cuda.synchronize()
+    # the fused route computes ll in-kernel (an fmaf chain), the split route
+    # as one cuBLAS float32 product: another rounding of the same numbers
+    for name, a, b in zip(("n", "sum_y", "sum_yyT"), out["fused"][0], out["split"][0]):
+        compare(f"emit {name}", a, b, 3e-3, 2e-3)
+    compare("trans_stats", out["fused"][1], out["split"][1], 1e-4, 1e-3)
+    compare("gamma_at_start", out["fused"][2], out["split"][2], 0.0, 5e-5)
+    compare("log_c", out["fused"][3], out["split"][3], 2e-6, 1e-4)
+
+    log("  small SVI fit on auto: K=4, D=2, T=3000, B=16, L=50, b=10, tau=10, kappa=0.6, "
+        "300 steps")
+    o_c, z_c, _ = gen_gaussian_dataset(torch.Generator().manual_seed(5), 4, 2, 1, 3000,
+                                       mean_scale=6.0, cov_scale=0.3)
+    c_small = o_c[0].to(dev)
+    prior_c = make_prior(4, GaussianNIW, obs_dim=2, device=dev)
+    p_c = init_params(torch.Generator().manual_seed(6), prior_c, GaussianNIW, c_small)
+    cfg_c = svi.SVIConfig(batch_size=16, subchain_len=50, buffer=10, tau=10.0, kappa=0.6)
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    # the starts drawn on the host from the seed of tests/test_torch_svi.py
+    st_c, m_c = svi.fit(svi.init_state(p_c, torch.Generator().manual_seed(7)),
+                        prior_c, c_small, GaussianNIW, cfg_c, 300)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    require(kernel_counts()["fused_bwd_kernel"] == 300, "the small fit did not run the kernels")
+    require_sane_params(st_c.params, "small SVI fit")
+    ham = hamming_error(decode(st_c.params, GaussianNIW, c_small[None]), z_c, 4)
+    ne = m_c["noisy_elbo"].cpu()
+    log(f"  300 steps in {fit_s:.3f} s (host clock, synchronised); noisy ELBO first 20 mean "
+        f"{ne[:20].mean().item():.6e}, last 50 mean {ne[-50:].mean().item():.6e}; "
+        f"Hamming error {ham:.4f}")
+    require(bool(torch.isfinite(ne).all()), "non-finite noisy ELBO in the small fit")
+    require(ham < 0.05, f"Hamming error {ham} >= 0.05 after the small SVI fit")
+
+    errs = {"fused_fwd_kernel": fwd_err, "fused_bwd_kernel": bwd_err, **split_err}
+    kernels = []
+    for name, src, line in (
+        ("fused_fwd_kernel", "fused_fb.cu", 516), ("fused_bwd_kernel", "fused_fb.cu", 577),
+        ("split_fwd_kernel", "split_fb.cu", 339), ("split_bwd_kernel", "split_fb.cu", 406),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"pysvihmm_tpu_torch/csrc/{src}",
+            "replaces": f"pysvihmm_tpu/messages/pallas_fb.py:{line}",
+            "launches": svi_launches[name], "max_abs_err": errs[name],
+            "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1], "library_ms": None,
+        })
+    log(f"total {time.perf_counter() - t_start:.1f} s; in the kernels line: launches over the "
+        f"{SVI_STEPS} SVI steps of each kernel's route (phase 6); max_abs_err the forward's log_c "
+        f"(nats) and the backward's gamma at B={B}, T={T}; ms, plain_ms and bound_ms at "
+        f"(B, T, K, F) = ({B}, {T}, {K}, {F}), ungated")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

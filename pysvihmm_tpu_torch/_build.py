@@ -3,9 +3,12 @@
 Each ``csrc/<name>.cu`` is compiled into a shared library with a plain C
 interface (no PyTorch headers, so ``nvcc`` takes seconds) under
 ``build/torch_kernels/`` at the repository root, and loaded with
-:mod:`ctypes`. The library's file name carries a hash of the source and the
-compiler flags, so an edited source is rebuilt and a stale library is never
-loaded. Nothing here runs at import time.
+:mod:`ctypes`. The library's file name carries a hash of the source, of
+every ``csrc/`` header it includes (``#include "..."``, followed
+transitively) and of the compiler flags, so an edited source or header is
+rebuilt and a stale library is never loaded. :func:`build` compiles several
+sources at once, one ``nvcc`` each, all started together. Nothing here runs
+at import time.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -25,6 +29,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel, to build_log
 )
+
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_seconds: dict[str, float] = {}  # per source: wall time of the nvcc call
@@ -49,33 +55,59 @@ def _nvcc() -> str:
     )
 
 
+def sources(name: str) -> list[str]:
+    """``<name>.cu`` and the ``csrc/`` headers it includes, transitively, in
+    the order they are first met (file names relative to ``csrc/``)."""
+    found, todo = [], [f"{name}.cu"]
+    while todo:
+        f = todo.pop(0)
+        if f not in found:
+            found.append(f)
+            todo += _INCLUDE.findall((CSRC / f).read_text())
+    return found
+
+
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    h = hashlib.sha256()
+    for f in sources(name):
+        h.update(f.encode() + b"\0" + (CSRC / f).read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build(names: list[str]) -> None:
+    """Compile every ``csrc/<name>.cu`` whose library is missing, one nvcc
+    process each, all running at once; raise if any of them fails."""
+    todo = [n for n in dict.fromkeys(names) if not library_path(n).exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in todo:
+        out = library_path(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        procs[name] = (proc, tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        build_seconds[name] = time.perf_counter() - t0
+        build_log[name] = log
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its library is missing, then load it once."""
-    if name in _loaded:
-        return _loaded[name]
-    out = library_path(name)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_seconds[name] = time.perf_counter() - t0
-        build_log[name] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    lib = ctypes.CDLL(str(out))
-    _loaded[name] = lib
-    return lib
+    if name not in _loaded:
+        build([name])
+        _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return _loaded[name]

@@ -4,7 +4,10 @@ The JAX package's ``HMMParams`` (Gaussian-NIW: ``init`` (K,), ``trans``
 (K, K), ``emit`` with ``mean`` (K, D), ``kappa`` (K,), ``nu`` (K,), ``psi``
 (K, D, D)) is read by attribute, so this module needs neither JAX nor the
 JAX package: any object with those attributes whose leaves convert with
-``numpy.asarray`` will do.
+``numpy.asarray`` will do. SVI states carry their params, step count and
+adaptive step-size state the same way; the PRNG key does not cross (JAX's
+and torch's generators give different numbers), so the port's state takes a
+``torch.Generator`` seeded on its own.
 """
 
 from __future__ import annotations
@@ -13,7 +16,9 @@ import numpy as np
 import torch
 
 from .distributions.niw import NIW
+from .engines.svi import SVIState
 from .models.hmm import HMMParams
+from .utils.schedules import AdaptiveState
 
 
 def params_from_numpy(
@@ -44,4 +49,39 @@ def params_to_numpy(params: HMMParams) -> HMMParams:
         init=a(params.init),
         trans=a(params.trans),
         emit=NIW(mean=a(e.mean), kappa=a(e.kappa), nu=a(e.nu), psi=a(e.psi)),
+    )
+
+
+def svi_state_from_numpy(
+    state,
+    generator: torch.Generator,
+    device: torch.device | str = "cpu",
+    dtype: torch.dtype = torch.float32,
+) -> SVIState:
+    """A JAX-package (or NumPy-leaved) ``SVIState`` -> the port's, with
+    ``generator`` in place of the key."""
+    adapt = state.adapt
+    if adapt is not None:
+        adapt = AdaptiveState(*(
+            torch.tensor(np.asarray(x), dtype=dtype, device=device) for x in adapt
+        ))
+    return SVIState(
+        params=params_from_numpy(state.params, device=device, dtype=dtype),
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32, device=device),
+        generator=generator,
+        adapt=adapt,
+    )
+
+
+def svi_state_to_numpy(state: SVIState) -> SVIState:
+    """The port's SVI state -> the same structure with NumPy leaves (params,
+    step, adaptive state) and no generator."""
+    adapt = state.adapt
+    if adapt is not None:
+        adapt = AdaptiveState(*(x.detach().cpu().numpy() for x in adapt))
+    return SVIState(
+        params=params_to_numpy(state.params),
+        step=state.step.detach().cpu().numpy(),
+        generator=None,
+        adapt=adapt,
     )

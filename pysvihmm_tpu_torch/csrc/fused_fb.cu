@@ -20,9 +20,15 @@
 //   backward, t = T-1 .. 0, with b'_{T-1} = 1 / s_{T-1}:
 //                         g_t = a_t * b'_t,  n_t = 1 / sum_k g_t,  gamma_t = g_t n_t
 //                         d_t = (lik_t / s_{t-1}) * b'_t
-//                         acc   += outer(a_{t-1}, d_t n_t)   (wrapper forms A~ * acc)
-//                         eacc  += outer(gamma_t, f_t)
+//                         acc   += outer(a_{t-1}, d_t n_t pg_t)   (wrapper forms A~ * acc)
+//                         eacc  += outer(w_t gamma_t, f_t)
+//                         gamma0 = w_0 gamma_0
 //                         b'_{t-1} = d_t @ A~^T
+//     Gated mode (SVI windows; pallas_fb.py:693-697, :1095-1099) takes the
+//     kept-mask w (T, B) and the pair gate pg (T, B), pg_t = w_{t-1} w_t,
+//     pg_0 = 0; ungated, w = pg = 1. The gates touch the statistics only:
+//     the beta chain runs on the ungated d, buffer steps drive the chain like
+//     kept ones, and the gamma written out is the ungated one.
 //     ll_t is recomputed by the same device function as in the forward
 //     (explicit fmaf chain, same order) and shifted by the forward's own sh_t,
 //     so lik_t is bit-identical and gamma = a * b' holds up to rounding.
@@ -34,8 +40,8 @@
 // block. A~ (row-major in the forward, transposed in the backward so that
 // thread i reads row i without bank conflicts) and W sit in shared memory.
 // Arrays are time-major as the JAX wrapper takes them: feats (T, B, F),
-// alpha and gamma (T, B, K); s and sh are (B, T); gamma0 (B, K); acc (K, K);
-// eacc (K, F).
+// alpha and gamma (T, B, K), w and pg (T, B); s and sh are (B, T); gamma0
+// (B, K); acc (K, K); eacc (K, F).
 //
 // What bounds it on this card: the T-step recursion is a chain of dependent
 // K-wide matvecs with two block reductions per step, so a block is bound by
@@ -51,16 +57,18 @@
 // across blocks with one atomicAdd per entry at the end. Summation order of
 // those atomics varies from run to run.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "fb_common.cuh"
 
 namespace {
 
-constexpr int KMAX = 64;  // threads per block; largest K the kernels take
+using fbc::KMAX;
+using fbc::NT;
+using fbc::NWARP;
+using fbc::SUM_FLOOR;
+using fbc::warp_max;
+using fbc::warp_sum;
+
 constexpr int FMAX = 64;  // largest feature width F the kernels take
-constexpr int NT = KMAX;
-constexpr int NWARP = NT / 32;
-constexpr float SUM_FLOOR = 1e-38f;
 
 // One step's log-likelihood for state k: the same explicit fmaf chain in both
 // kernels, so the backward's recomputation matches the forward bit for bit.
@@ -69,18 +77,6 @@ __device__ __forceinline__ float ll_dot(const float* f, const float* W_s, int k,
   float acc = 0.f;
   for (int i = 0; i < F; ++i) acc = fmaf(f[i], W_s[i * KMAX + k], acc);
   return acc;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // W (F, K) row-major -> W_s[f * KMAX + k], zero outside (F, K).
@@ -109,10 +105,7 @@ fused_fwd_kernel(const float* __restrict__ pi, const float* __restrict__ A,
   const int lane = k & 31, warp = k >> 5;
   const bool active = k < K;
 
-  for (int idx = k; idx < KMAX * KMAX; idx += NT) {
-    const int i = idx / KMAX, j = idx % KMAX;
-    A_s[idx] = (i < K && j < K) ? A[i * K + j] : 0.f;
-  }
+  fbc::load_A(A, A_s, K, false);
   load_W(W, W_s, K, F);
   const size_t step_f = (size_t)B * F;  // feats stride of one time step
   const size_t step_k = (size_t)B * K;  // alpha stride of one time step
@@ -160,10 +153,14 @@ fused_fwd_kernel(const float* __restrict__ pi, const float* __restrict__ A,
   }
 }
 
+// GATED is a template parameter, so that the ungated instance carries no
+// trace of the gates: no loads, no multiplies, no extra live registers.
+template <bool GATED>
 __global__ void __launch_bounds__(NT)
 fused_bwd_kernel(const float* __restrict__ A, const float* __restrict__ W,
                  const float* __restrict__ feats, const float* __restrict__ alpha,
                  const float* __restrict__ s_in, const float* __restrict__ sh_in,
+                 const float* __restrict__ w_in, const float* __restrict__ pg_in,
                  float* __restrict__ gamma, float* __restrict__ gamma0,
                  float* __restrict__ acc_out, float* __restrict__ eacc_out, int T,
                  int B, int K, int F) {
@@ -179,14 +176,11 @@ fused_bwd_kernel(const float* __restrict__ A, const float* __restrict__ W,
   const int lane = k & 31, warp = k >> 5;
   const bool active = k < K;
 
-  for (int idx = k; idx < KMAX * KMAX; idx += NT) {
-    const int j = idx / KMAX, i = idx % KMAX;
-    At_s[idx] = (i < K && j < K) ? A[i * K + j] : 0.f;
-  }
+  fbc::load_A(A, At_s, K, true);
   load_W(W, W_s, K, F);
 
-  float acc[KMAX];   // column k of sum_t outer(a_{t-1}, d_t n_t)
-  float eacc[FMAX];  // row k of sum_t outer(gamma_t, f_t)
+  float acc[KMAX];   // column k of sum_t outer(a_{t-1}, d_t n_t pg_t)
+  float eacc[FMAX];  // row k of sum_t outer(w_t gamma_t, f_t)
 #pragma unroll
   for (int i = 0; i < KMAX; ++i) acc[i] = 0.f;
 #pragma unroll
@@ -205,6 +199,9 @@ fused_bwd_kernel(const float* __restrict__ A, const float* __restrict__ W,
   float s_prev = T >= 2 ? sb[T - 2] : 1.f;                            // s_{t-1}
   float sh_cur = shb[T - 1];                                          // sh_t
   float beta = 1.f / fmaxf(sb[T - 1], SUM_FLOOR);                     // b'_t
+  // kept-mask w_t and pair gate pg_t of this sequence (1 when ungated)
+  float w_cur = GATED ? w_in[(size_t)(T - 1) * B + b] : 1.f;
+  float pg_cur = GATED ? pg_in[(size_t)(T - 1) * B + b] : 1.f;
   __syncthreads();
 
   for (int t = T - 1; t >= 0; --t) {
@@ -212,10 +209,14 @@ fused_bwd_kernel(const float* __restrict__ A, const float* __restrict__ W,
     const float* f_t = f_s[t % 3];
 
     // operands of step t-1, loaded now so their latency hides behind step t
-    float f_n = 0.f, a_n = 0.f, s_n = 1.f, sh_n = 0.f;
+    float f_n = 0.f, a_n = 0.f, s_n = 1.f, sh_n = 0.f, w_n = 1.f, pg_n = 1.f;
     if (t >= 1) {
       if (k < F) f_n = fb[(size_t)(t - 1) * step_f + k];
       sh_n = shb[t - 1];
+      if (GATED) {
+        w_n = w_in[(size_t)(t - 1) * B + b];
+        pg_n = pg_in[(size_t)(t - 1) * B + b];
+      }
     }
     if (t >= 2) {
       if (active) a_n = ab[(size_t)(t - 2) * step_k + k];
@@ -239,15 +240,16 @@ fused_bwd_kernel(const float* __restrict__ A, const float* __restrict__ W,
     for (int w = 1; w < NWARP; ++w) g += red[p][w];
     const float n = 1.f / fmaxf(g, SUM_FLOOR);
     const float gam = graw * n;
+    const float gam_w = GATED ? gam * w_cur : gam;  // the statistics' gamma: kept steps
     if (active) {
       if (gamma != nullptr) gamma[((size_t)t * B + b) * K + k] = gam;
-      if (t == 0) gamma0[(size_t)b * K + k] = gam;
+      if (t == 0) gamma0[(size_t)b * K + k] = gam_w;
     }
 #pragma unroll
     for (int f = 0; f < FMAX; ++f)
-      if (f < F) eacc[f] = fmaf(gam, f_t[f], eacc[f]);
+      if (f < F) eacc[f] = fmaf(gam_w, f_t[f], eacc[f]);
     if (t >= 1) {
-      const float dn = d * n;
+      const float dn = GATED ? (d * n) * pg_cur : d * n;  // stats side; the chain keeps d
 #pragma unroll
       for (int i = 0; i < KMAX; ++i)
         if (i < K) acc[i] = fmaf(a_s[p][i], dn, acc[i]);
@@ -259,6 +261,8 @@ fused_bwd_kernel(const float* __restrict__ A, const float* __restrict__ W,
     a_prev = a_n;
     s_prev = s_n;
     sh_cur = sh_n;
+    w_cur = w_n;
+    pg_cur = pg_n;
   }
 
   if (active) {
@@ -300,15 +304,25 @@ int fused_fb_forward(const float* pi, const float* A, const float* W,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Gated when `gated` is 1: w and pg are then (T, B) device pointers, else
+// both are null and the launch is the ungated one.
 int fused_fb_backward(const float* A, const float* W, const float* feats,
                       const float* alpha, const float* s, const float* sh,
-                      float* gamma, float* gamma0, float* acc, float* eacc, int T,
-                      int B, int K, int F, int device, void* stream) {
+                      const float* w, const float* pg, float* gamma, float* gamma0,
+                      float* acc, float* eacc, int T, int B, int K, int F, int gated,
+                      int device, void* stream) {
   if (bad_shape(T, B, K, F)) return static_cast<int>(cudaErrorInvalidValue);
+  if (gated != (w != nullptr) || gated != (pg != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  fused_bwd_kernel<<<B, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      A, W, feats, alpha, s, sh, gamma, gamma0, acc, eacc, T, B, K, F);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (gated)
+    fused_bwd_kernel<true><<<B, NT, 0, st>>>(A, W, feats, alpha, s, sh, w, pg, gamma,
+                                              gamma0, acc, eacc, T, B, K, F);
+  else
+    fused_bwd_kernel<false><<<B, NT, 0, st>>>(A, W, feats, alpha, s, sh, w, pg, gamma,
+                                               gamma0, acc, eacc, T, B, K, F);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -35,3 +35,26 @@ def kl(q_alpha: torch.Tensor, p_alpha: torch.Tensor) -> torch.Tensor:
 def posterior(prior_alpha: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
     """Exact conjugate mean-field update: alpha_post = alpha_prior + E[counts]."""
     return prior_alpha + stats
+
+
+def nat_grad_step(
+    q_alpha: torch.Tensor,
+    prior_alpha: torch.Tensor,
+    stats: torch.Tensor,
+    scale: torch.Tensor | float,
+    rho: torch.Tensor | float,
+) -> torch.Tensor:
+    """Natural-gradient SVI step (Hoffman et al. 2013).
+
+    q <- (1 - rho) * q + rho * (prior + scale * stats)
+
+    ``scale`` is the unbiasedness factor turning minibatch expected counts
+    into a full-dataset estimate. With rho=1, scale=1 and full-data stats this
+    reduces exactly to :func:`posterior`.
+    """
+    return (1.0 - rho) * q_alpha + rho * (prior_alpha + scale * stats)
+
+
+def mean(alpha: torch.Tensor) -> torch.Tensor:
+    """Posterior mean point estimate (plug-in for predictive scoring)."""
+    return alpha / alpha.sum(dim=-1, keepdim=True)

@@ -21,6 +21,7 @@ class GaussianNIW:
 
     @staticmethod
     def make_prior(K: int, obs_dim: int, dtype=torch.float32, device=None, **kw) -> NIW:
+        """The NIW prior on ``device`` (the card when None)."""
         return niw.make_prior(K, obs_dim, dtype=dtype, device=device, **kw)
 
     @staticmethod
@@ -44,6 +45,10 @@ class GaussianNIW:
     @staticmethod
     def posterior(prior: NIW, stats: GaussianStats) -> NIW:
         return niw.posterior(prior, stats)
+
+    @staticmethod
+    def nat_grad_step(q: NIW, prior: NIW, stats: GaussianStats, scale, rho) -> NIW:
+        return niw.nat_grad_step(q, prior, stats, scale, rho)
 
     @staticmethod
     def kl(q: NIW, p: NIW) -> torch.Tensor:

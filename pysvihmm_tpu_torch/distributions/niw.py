@@ -18,6 +18,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.device import resolve_device
+
 
 class NIW(NamedTuple):
     """NIW parameters, leading axes broadcast (canonically (K,))."""
@@ -57,7 +59,9 @@ def make_prior(
     dtype: torch.dtype = torch.float32,
     device: torch.device | str | None = None,
 ) -> NIW:
-    """Weakly-informative NIW prior replicated over K states."""
+    """Weakly-informative NIW prior replicated over K states, on ``device``
+    (the card when None)."""
+    device = resolve_device(device)
     if mean is None:
         mean = torch.zeros((D,), dtype=dtype, device=device)
     mean = torch.as_tensor(mean, dtype=dtype, device=device).expand(K, D).clone()
@@ -86,13 +90,21 @@ def _mv_gammaln(a: torch.Tensor, D: int) -> torch.Tensor:
     ).sum(dim=-1)
 
 
+def _cholesky(psi: torch.Tensor) -> torch.Tensor:
+    """Cholesky factor of psi without a host synchronisation
+    (``torch.linalg.cholesky`` reads its error code back to the host). As in
+    JAX, a factor that does not exist comes out NaN instead of raising."""
+    chol, info = torch.linalg.cholesky_ex(psi)
+    return torch.where((info == 0)[..., None, None], chol, torch.nan)
+
+
 def _logdet_from_chol(chol: torch.Tensor) -> torch.Tensor:
     return 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(dim=-1)
 
 
 def ell_params(q: NIW) -> EllParams:
     D = q.mean.shape[-1]
-    chol = torch.linalg.cholesky(q.psi)
+    chol = _cholesky(q.psi)
     eye = torch.eye(D, dtype=q.psi.dtype, device=q.psi.device).expand(q.psi.shape)
     psi_inv = torch.cholesky_solve(eye, chol)
     P = q.nu[..., None, None] * psi_inv
@@ -179,13 +191,62 @@ def posterior(prior: NIW, stats: GaussianStats) -> NIW:
     return NIW(mean=mean_n, kappa=kappa_n, nu=nu_n, psi=psi_n)
 
 
+class NIWNat(NamedTuple):
+    eta1: torch.Tensor  # kappa * m              (..., D)
+    eta2: torch.Tensor  # kappa                  (...,)
+    eta3: torch.Tensor  # psi + kappa m m^T      (..., D, D)
+    eta4: torch.Tensor  # nu                     (...,)
+
+
+def to_natural(q: NIW) -> NIWNat:
+    return NIWNat(
+        eta1=q.kappa[..., None] * q.mean,
+        eta2=q.kappa,
+        eta3=q.psi + q.kappa[..., None, None] * _outer(q.mean),
+        eta4=q.nu,
+    )
+
+
+def from_natural(n: NIWNat) -> NIW:
+    mean = n.eta1 / n.eta2[..., None]
+    return NIW(
+        mean=mean,
+        kappa=n.eta2,
+        nu=n.eta4,
+        psi=n.eta3 - n.eta2[..., None, None] * _outer(mean),
+    )
+
+
+def nat_grad_step(
+    q: NIW,
+    prior: NIW,
+    stats: GaussianStats,
+    scale: torch.Tensor | float,
+    rho: torch.Tensor | float,
+) -> NIW:
+    """SVI natural-gradient step (pybasicbayes ``meanfield_sgdstep``).
+
+    eta <- (1-rho) eta + rho (eta_prior + scale * t(stats)), where the
+    sufficient-statistic map is t = (sum_y, n, sum_yyT, n). With rho=1,
+    scale=1 and full-data stats this equals :func:`posterior`.
+    """
+    qn, pn = to_natural(q), to_natural(prior)
+    blended = NIWNat(
+        eta1=(1.0 - rho) * qn.eta1 + rho * (pn.eta1 + scale * stats.sum_y),
+        eta2=(1.0 - rho) * qn.eta2 + rho * (pn.eta2 + scale * stats.n),
+        eta3=(1.0 - rho) * qn.eta3 + rho * (pn.eta3 + scale * stats.sum_yyT),
+        eta4=(1.0 - rho) * qn.eta4 + rho * (pn.eta4 + scale * stats.n),
+    )
+    return from_natural(blended)
+
+
 def kl(q: NIW, p: NIW) -> torch.Tensor:
     """KL(NIW_q || NIW_p) per leading element: the expected Gaussian KL on
     the mean plus the Wishart KL on the precision."""
     D = q.mean.shape[-1]
-    chol_q = torch.linalg.cholesky(q.psi)
+    chol_q = _cholesky(q.psi)
     logdet_q = _logdet_from_chol(chol_q)
-    logdet_p = _logdet_from_chol(torch.linalg.cholesky(p.psi))
+    logdet_p = _logdet_from_chol(_cholesky(p.psi))
     elogdet = _mvdigamma_half(q.nu, D) + D * math.log(2.0) - logdet_q
     psi_p = p.psi.expand(q.psi.shape)
     tr_term = torch.diagonal(

@@ -14,6 +14,8 @@ import torch
 
 from .. import messages
 from ..messages.fused_fb import estep_fused
+from ..messages.scan_fb import FBResult
+from ..messages.split_fb import estep_split
 from ..models.hmm import (
     HMMParams,
     emission_flat_stats,
@@ -49,6 +51,57 @@ def _fused_W(emission, emit_params) -> torch.Tensor:
     return emission.ell_feature_matrix(emit_params).to(torch.float32).contiguous()
 
 
+def _time_major_weights(weights: torch.Tensor | None) -> torch.Tensor | None:
+    """(B, T) kept-mask -> the kernels' (T, B) contiguous float32, or None."""
+    if weights is None:
+        return None
+    return weights.to(torch.float32).transpose(0, 1).contiguous()
+
+
+def _fused_estep(
+    params: HMMParams,
+    emission,
+    obs: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    need_gamma: bool = True,
+    prepared: torch.Tensor | None = None,
+) -> tuple[FBResult, object]:
+    """The fused route (JAX's ``_pallas_fused_estep``): returns (FBResult
+    with gamma (T, B, K) time-major, or None; emission stats), the stats
+    kept-mask-gated in-kernel when ``weights`` (B, T) is given."""
+    feats = prepare_fused_obs(params, emission, obs) if prepared is None else prepared
+    log_pi, log_A = expected_log_params(params)
+    fb, S = estep_fused(
+        log_pi, log_A, _fused_W(emission, params.emit), feats,
+        emit_gamma=need_gamma, weights=_time_major_weights(weights),
+    )
+    return fb, emission.unpack_flat_stats(params.emit, S)
+
+
+def _split_estep(
+    params: HMMParams, emission, obs: torch.Tensor, weights: torch.Tensor | None = None
+) -> tuple[FBResult, object]:
+    """The split route (JAX's ``_pallas_packed_estep``): returns (FBResult
+    with gamma (T, B, K) time-major, emission stats).
+
+    The likelihoods are one float32 ``feats @ W`` product outside the
+    kernels (JAX leaves it to XLA), time-major so no (B, T, K) transpose
+    feeds the kernels. The same feature array is the observation side of
+    the emission statistics, (w * gamma)^T @ feats, taken outside the
+    kernels as ``_packed_emission_stats`` does (engines/base.py:751-829 of
+    the JAX package)."""
+    feats = prepare_fused_obs(params, emission, obs)  # (T, B, F)
+    T, B, F = feats.shape
+    K = params.init.shape[0]
+    ll = torch.matmul(feats, _fused_W(emission, params.emit))  # (T, B, K)
+    w_tm = _time_major_weights(weights)
+    log_pi, log_A = expected_log_params(params)
+    fb = estep_split(log_pi, log_A, ll, w_tm)
+    gamma_w = fb.gamma if w_tm is None else fb.gamma * w_tm[..., None]
+    S = gamma_w.reshape(T * B, K).T @ feats.reshape(T * B, F)
+    return fb, emission.unpack_flat_stats(params.emit, S)
+
+
 def batch_local_step(
     params: HMMParams,
     emission,
@@ -62,12 +115,14 @@ def batch_local_step(
     """Full local update over a batch of sequences obs (B, T, D).
 
     Returns (summed stats, gamma (B, T, K), or None when need_gamma=False).
-    method "auto" resolves by obs' device: "fused" (the two CUDA kernels:
-    likelihoods, forward-backward and emission stats in-kernel) on CUDA,
-    "scan" (plain PyTorch over materialised likelihoods) on CPU. "fused" on
-    CPU tensors runs the kernels' plain twins. weights: optional (B, T)
-    kept-mask, taken by "scan" only; the fused kernels' gated mode is not
-    ported yet and raises.
+    method "auto" resolves by obs' device: "fused" (the two fused CUDA
+    kernels: likelihoods, forward-backward and emission stats in-kernel) on
+    CUDA, "scan" (plain PyTorch over materialised likelihoods) on CPU.
+    "split" runs the split CUDA kernels over likelihoods computed outside
+    them. The kernel routes run their kernels' plain twins on CPU tensors.
+    weights: optional (B, T) kept-mask; it gates init_stats (w_0),
+    trans_stats (pairs w_{t-1} w_t) and the emission stats on every route,
+    and never the chain: gamma comes out ungated.
 
     exact: accepted for the JAX contract (evaluation callers set it so that
     log Z comes from float32 alpha). The port stores alpha in float32
@@ -77,18 +132,11 @@ def batch_local_step(
     f32_matmuls()
     method = messages.resolve_method(method, obs.device)
 
-    if method == "fused":
-        if weights is not None:
-            raise NotImplementedError(
-                "kept-mask gating in the fused kernels is not ported yet "
-                "(ROADMAP Queue 2 item 2, open modes); use method='scan'"
-            )
-        feats = prepare_fused_obs(params, emission, obs) if prepared is None else prepared
-        log_pi, log_A = expected_log_params(params)
-        fb, S = estep_fused(
-            log_pi, log_A, _fused_W(emission, params.emit), feats, emit_gamma=need_gamma
-        )
-        emit_stats = emission.unpack_flat_stats(params.emit, S)
+    if method in ("fused", "split"):
+        if method == "fused":
+            fb, emit_stats = _fused_estep(params, emission, obs, weights, need_gamma, prepared)
+        else:
+            fb, emit_stats = _split_estep(params, emission, obs, weights)
         gamma = fb.gamma.transpose(0, 1) if need_gamma else None
     else:
         log_pi, log_A = expected_log_params(params)
@@ -104,6 +152,43 @@ def batch_local_step(
         log_z=fb.log_z.sum(),
     )
     return stats, gamma
+
+
+def windowed_local_step(
+    params: HMMParams,
+    emission,
+    windows: torch.Tensor,  # (B, W, D)
+    maskf: torch.Tensor,  # (B, W) kept-mask (0/1 floats)
+    offs: torch.Tensor,  # (B,) kept-region offset inside each window
+    method: str = "auto",
+) -> tuple[object, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Shared local step of the windowed engines (svi subchains).
+
+    Returns (emit_stats, trans_stats, gamma_at_off, log_c): emission stats
+    kept-mask-gated and summed over windows; trans_stats pair-gated and
+    summed, (K, K); gamma_at_off (B, K) = each window's smoothed marginal at
+    its kept-region offset (the initial-state stats site); log_c (B, W) per
+    step log normalisers (the mask applies to their sum).
+
+    The kernel routes keep gamma time-major (W, B, K) as the kernels write
+    it; the per-window pick gamma[offs[b], b, :] is a plain gather on it.
+    """
+    f32_matmuls()
+    method = messages.resolve_method(method, windows.device)
+    rows = torch.arange(windows.shape[0], device=windows.device)
+    if method in ("fused", "split"):
+        if method == "fused":
+            fb, emit_stats = _fused_estep(params, emission, windows, maskf, need_gamma=True)
+        else:
+            fb, emit_stats = _split_estep(params, emission, windows, maskf)
+        return emit_stats, fb.trans_stats, fb.gamma[offs, rows], fb.log_c
+
+    log_pi, log_A = expected_log_params(params)
+    ll = emission.expected_log_likelihood(params.emit, windows)
+    fb = messages.e_step_batched(log_pi, log_A, ll, weights=maskf, method=method)
+    gamma_w = fb.gamma * maskf[..., None]
+    emit_stats = emission_flat_stats(emission, params.emit, gamma_w, windows)
+    return emit_stats, fb.trans_stats, fb.gamma[rows, offs], fb.log_c
 
 
 def elbo_from_stats(

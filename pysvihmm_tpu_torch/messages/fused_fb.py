@@ -10,68 +10,49 @@ Kernels (``csrc/fused_fb.cu``; the source notes what bounds them):
   the max shifts sh.
 * ``fused_bwd_kernel`` replaces ``_bwd_kernel_fused`` (pallas_fb.py:577):
   the reverse walk recomputing ll identically, gamma, the pairwise
-  accumulator sum_t outer(alpha_{t-1}, d_t n_t) and the emission
-  accumulator sum_t outer(gamma_t, f_t).
+  accumulator sum_t outer(alpha_{t-1}, d_t n_t g_t) and the emission
+  accumulator sum_t outer(w_t gamma_t, f_t). Gated by an SVI kept-mask w
+  (T, B) and its pair gate g_t = w_{t-1} w_t when ``weights`` is given
+  (pallas_fb.py:693-697, :1014-1019, :1095-1099): the gates touch the
+  statistics only, so buffer steps still drive the chain and the gamma
+  written out is ungated.
 
 Each kernel has a launcher (:func:`fused_forward`, :func:`fused_backward`)
 and a plain PyTorch twin (:func:`forward_reference`,
-:func:`backward_reference`) computing the same function. A launcher given
+:func:`backward_reference`) computing the same function; the twins run the
+split E-step's twins (``split_fb.py``) on ll = feats @ W. A launcher given
 CPU tensors runs the twin; given CUDA tensors it launches the kernel or
 raises. :func:`estep_fused` composes the launchers and
 :func:`estep_fused_reference` the twins.
 
-This slice ports the ungated modes (``emit_gamma`` True and False). The
-kept-mask gating, the per-window gamma pick (``gamma_sel``), the in-kernel
-feature build and bf16 alpha storage are still open (ROADMAP Queue 2).
+Ported modes: ungated and gated, ``emit_gamma`` True and False. The
+per-window gamma pick (``gamma_sel``), the in-kernel feature build and bf16
+alpha storage are still open (ROADMAP Queue 2).
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from ._launch import bind, check, device_index, ptr, raise_on, runs_plain_twin, stream
 from .scan_fb import FBResult
-
-SUM_FLOOR = 1e-38  # per-sequence sum floor (pallas_fb.py:82)
+from .split_fb import exp_params, pair_gate, split_backward_reference, split_forward_reference
 
 _LIB = "fused_fb"
 
 
-def _library() -> ctypes.CDLL:
+def _library():
     """Build (at first use) and bind the kernels' C interface."""
     from .._build import load_library
 
-    lib = load_library(_LIB)
-    if not getattr(lib, "_bound", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_fb_forward.argtypes = [p] * 7 + [i] * 5 + [p]
-        lib.fused_fb_forward.restype = i
-        lib.fused_fb_backward.argtypes = [p] * 10 + [i] * 5 + [p]
-        lib.fused_fb_backward.restype = i
-        lib.fused_fb_error_string.argtypes = [i]
-        lib.fused_fb_error_string.restype = ctypes.c_char_p
-        lib.fused_fb_kmax.restype = i
-        lib.fused_fb_fmax.restype = i
-        lib._bound = True
-    return lib
-
-
-def _raise_on(lib: ctypes.CDLL, code: int, what: str) -> None:
-    if code != 0:
-        msg = lib.fused_fb_error_string(code).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
-
-
-def _check(name: str, x: torch.Tensor, shape: tuple[int, ...], device: torch.device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {x.dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    return bind(
+        load_library(_LIB),
+        {"fused_fb_forward": "ppppppp" "iiiii" "p",
+         "fused_fb_backward": "pppppppppppp" "iiiiii" "p",
+         "fused_fb_kmax": "",
+         "fused_fb_fmax": ""},
+        "fused_fb_error_string",
+    )
 
 
 def _check_kernel_limits(K: int, F: int) -> None:
@@ -86,17 +67,6 @@ def _check_kernel_limits(K: int, F: int) -> None:
         )
 
 
-def _index(dev: torch.device) -> int:
-    return dev.index if dev.index is not None else torch.cuda.current_device()
-
-
-def _runs_plain_twin(x: torch.Tensor) -> bool:
-    """True for CPU tensors, False for CUDA ones (launch the kernel)."""
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"fused E-step takes CPU or CUDA tensors, got {x.device}")
-    return x.device.type == "cpu"
-
-
 # ----------------------------------------------------------------- forward
 
 
@@ -108,19 +78,7 @@ def forward_reference(
     pi_t (K,), A_t (K, K) the exponentiated params; W (F, K); feats (T, B, F).
     Returns (alpha (T, B, K) raw stored messages, s (B, T) their per-step
     sums, sh (B, T) the max shifts)."""
-    T = feats.shape[0]
-    ll = feats @ W  # (T, B, K)
-    sh = ll.amax(dim=-1)
-    lik = torch.exp(ll - sh[..., None])
-    alpha = torch.empty_like(lik)
-    s = torch.empty_like(sh)
-    a = pi_t * lik[0]
-    alpha[0], s[0] = a, a.sum(dim=-1)
-    for t in range(1, T):
-        inv = 1.0 / torch.clamp_min(s[t - 1], SUM_FLOOR)
-        a = (a @ A_t) * (lik[t] * inv[:, None])
-        alpha[t], s[t] = a, a.sum(dim=-1)
-    return alpha, s.T.contiguous(), sh.T.contiguous()
+    return split_forward_reference(pi_t, A_t, feats @ W)
 
 
 def fused_forward(
@@ -135,22 +93,20 @@ def fused_forward(
     dev = feats.device
     for name, x, shape in (("pi_t", pi_t, (K,)), ("A_t", A_t, (K, K)),
                            ("W", W, (F, K)), ("feats", feats, (T, B, F))):
-        _check(name, x, shape, dev)
-    if _runs_plain_twin(feats):
+        check(name, x, shape, dev)
+    if runs_plain_twin(feats):
         return forward_reference(pi_t, A_t, W, feats)
     _check_kernel_limits(K, F)
     lib = _library()
     alpha = torch.empty((T, B, K), dtype=torch.float32, device=dev)
     s = torch.empty((B, T), dtype=torch.float32, device=dev)
     sh = torch.empty((B, T), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.fused_fb_forward(
-        pi_t.data_ptr(), A_t.data_ptr(), W.data_ptr(), feats.data_ptr(),
-        alpha.data_ptr(), s.data_ptr(), sh.data_ptr(),
-        T, B, K, F, _index(dev), stream,
+        ptr(pi_t), ptr(A_t), ptr(W), ptr(feats), ptr(alpha), ptr(s), ptr(sh),
+        T, B, K, F, device_index(dev), stream(dev),
     )
     fused_forward.launches += 1
-    _raise_on(lib, code, "fused_fwd_kernel")
+    raise_on(lib.fused_fb_error_string, code, "fused_fwd_kernel")
     return alpha, s, sh
 
 
@@ -168,30 +124,22 @@ def backward_reference(
     s: torch.Tensor,
     sh: torch.Tensor,
     emit_gamma: bool = False,
+    weights: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor | None, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain twin of the backward kernel.
 
-    Takes the forward's (alpha (T, B, K), s (B, T), sh (B, T)). Returns
-    (gamma (T, B, K) or None, gamma0 (B, K), acc (K, K) = sum over sequences
-    and t of outer(alpha_{t-1}, d_t n_t), eacc (K, F) = sum of
-    outer(gamma_t, f_t))."""
+    Takes the forward's (alpha (T, B, K), s (B, T), sh (B, T)) and an
+    optional kept-mask weights (T, B). Returns (gamma (T, B, K), ungated, or
+    None; gamma0 = w_0 gamma_0 (B, K); acc (K, K) = sum over sequences and t
+    of outer(alpha_{t-1}, d_t n_t g_t); eacc (K, F) = sum of
+    outer(w_t gamma_t, f_t)), with w = g = 1 when ungated."""
     T, B, F = feats.shape
     K = A_t.shape[0]
-    lik = torch.exp(feats @ W - sh.T[..., None])
-    r = 1.0 / torch.clamp_min(s, SUM_FLOOR)  # (B, T)
-    beta = r[:, T - 1, None].expand(B, K)
-    gamma = torch.empty_like(alpha)
-    acc = torch.zeros((K, K), dtype=alpha.dtype, device=alpha.device)
-    for t in range(T - 1, -1, -1):
-        graw = alpha[t] * beta
-        n = 1.0 / torch.clamp_min(graw.sum(dim=-1), SUM_FLOOR)
-        gamma[t] = graw * n[:, None]
-        if t >= 1:
-            d = (lik[t] * r[:, t - 1, None]) * beta
-            acc += alpha[t - 1].T @ (d * n[:, None])
-            beta = d @ A_t.T
-    eacc = gamma.reshape(T * B, K).T @ feats.reshape(T * B, F)
-    return (gamma if emit_gamma else None), gamma[0].clone(), acc, eacc
+    g = None if weights is None else pair_gate(weights)
+    gamma, acc = split_backward_reference(A_t, feats @ W, alpha, s, sh, g)
+    gamma_w = gamma if weights is None else gamma * weights[..., None]
+    eacc = gamma_w.reshape(T * B, K).T @ feats.reshape(T * B, F)
+    return (gamma if emit_gamma else None), gamma_w[0].clone(), acc, eacc
 
 
 def fused_backward(
@@ -202,37 +150,39 @@ def fused_backward(
     s: torch.Tensor,
     sh: torch.Tensor,
     emit_gamma: bool = False,
+    weights: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor | None, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backward kernel launcher; contract of :func:`backward_reference`.
 
     CPU tensors run the plain twin; CUDA tensors launch ``fused_bwd_kernel``
-    or raise. acc and eacc are summed across sequences with atomics, so
-    their summation order varies from run to run."""
+    (gated when ``weights`` is given) or raise. acc and eacc are summed
+    across sequences with atomics, so their summation order varies from run
+    to run."""
     T, B, F = feats.shape
     K = A_t.shape[0]
     dev = feats.device
-    for name, x, shape in (("A_t", A_t, (K, K)), ("W", W, (F, K)),
-                           ("feats", feats, (T, B, F)), ("alpha", alpha, (T, B, K)),
-                           ("s", s, (B, T)), ("sh", sh, (B, T))):
-        _check(name, x, shape, dev)
-    if _runs_plain_twin(feats):
-        return backward_reference(A_t, W, feats, alpha, s, sh, emit_gamma)
+    args = [("A_t", A_t, (K, K)), ("W", W, (F, K)), ("feats", feats, (T, B, F)),
+            ("alpha", alpha, (T, B, K)), ("s", s, (B, T)), ("sh", sh, (B, T))]
+    if weights is not None:
+        args.append(("weights", weights, (T, B)))
+    for name, x, shape in args:
+        check(name, x, shape, dev)
+    if runs_plain_twin(feats):
+        return backward_reference(A_t, W, feats, alpha, s, sh, emit_gamma, weights)
     _check_kernel_limits(K, F)
     lib = _library()
+    g = None if weights is None else pair_gate(weights)
     gamma = torch.empty((T, B, K), dtype=torch.float32, device=dev) if emit_gamma else None
     gamma0 = torch.empty((B, K), dtype=torch.float32, device=dev)
     acc = torch.zeros((K, K), dtype=torch.float32, device=dev)
     eacc = torch.zeros((K, F), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.fused_fb_backward(
-        A_t.data_ptr(), W.data_ptr(), feats.data_ptr(), alpha.data_ptr(),
-        s.data_ptr(), sh.data_ptr(),
-        gamma.data_ptr() if gamma is not None else None,
-        gamma0.data_ptr(), acc.data_ptr(), eacc.data_ptr(),
-        T, B, K, F, _index(dev), stream,
+        ptr(A_t), ptr(W), ptr(feats), ptr(alpha), ptr(s), ptr(sh),
+        ptr(weights), ptr(g), ptr(gamma), ptr(gamma0), ptr(acc), ptr(eacc),
+        T, B, K, F, int(weights is not None), device_index(dev), stream(dev),
     )
     fused_backward.launches += 1
-    _raise_on(lib, code, "fused_bwd_kernel")
+    raise_on(lib.fused_fb_error_string, code, "fused_bwd_kernel")
     return gamma, gamma0, acc, eacc
 
 
@@ -245,15 +195,6 @@ def reset_launch_counts() -> None:
 
 
 # ------------------------------------------------------------------ E-step
-
-
-def _exp_params(log_pi, log_A):
-    """pi~, A~ as contiguous float32 (exp first, then the cast, as the JAX
-    wrapper does)."""
-    return (
-        torch.exp(log_pi).to(torch.float32).contiguous(),
-        torch.exp(log_A).to(torch.float32).contiguous(),
-    )
 
 
 def _assemble(A_t, s, sh, gamma, gamma0, acc, eacc) -> tuple[FBResult, torch.Tensor]:
@@ -274,20 +215,25 @@ def estep_fused(
     W: torch.Tensor,
     feats: torch.Tensor,
     emit_gamma: bool = False,
+    weights: torch.Tensor | None = None,
 ) -> tuple[FBResult, torch.Tensor]:
     """Fused batched E-step: likelihoods + forward-backward + all stats.
 
     log_pi (K,), log_A (K, K); W (F, K) float32 feature weights with
-    ll = feats @ W; feats (T, B, F) float32, TIME-MAJOR and contiguous.
+    ll = feats @ W; feats (T, B, F) float32, TIME-MAJOR and contiguous;
+    weights: optional (T, B) float32 kept-mask (SVI windows).
     Returns (FBResult, emit_stats (K, F)). FBResult holds log_c (B, T),
-    log_z (B,), init_stats = gamma_0 (B, K), trans_stats summed over
-    sequences (K, K) and gamma (T, B, K) when ``emit_gamma`` else None.
-    emit_stats = sum over sequences and t of outer(gamma_t, f_t).
+    log_z (B,), init_stats = w_0 gamma_0 (B, K), trans_stats summed over
+    sequences and pair-gated (K, K) and gamma (T, B, K), ungated, when
+    ``emit_gamma`` else None. emit_stats = sum over sequences and t of
+    outer(w_t gamma_t, f_t).
 
     CPU tensors run the plain twins; CUDA tensors run the two kernels."""
-    pi_t, A_t = _exp_params(log_pi, log_A)
+    pi_t, A_t = exp_params(log_pi, log_A)
     alpha, s, sh = fused_forward(pi_t, A_t, W, feats)
-    gamma, gamma0, acc, eacc = fused_backward(A_t, W, feats, alpha, s, sh, emit_gamma)
+    gamma, gamma0, acc, eacc = fused_backward(
+        A_t, W, feats, alpha, s, sh, emit_gamma, weights
+    )
     return _assemble(A_t, s, sh, gamma, gamma0, acc, eacc)
 
 
@@ -297,9 +243,12 @@ def estep_fused_reference(
     W: torch.Tensor,
     feats: torch.Tensor,
     emit_gamma: bool = False,
+    weights: torch.Tensor | None = None,
 ) -> tuple[FBResult, torch.Tensor]:
     """Plain PyTorch version of :func:`estep_fused` on any device."""
-    pi_t, A_t = _exp_params(log_pi, log_A)
+    pi_t, A_t = exp_params(log_pi, log_A)
     alpha, s, sh = forward_reference(pi_t, A_t, W, feats)
-    gamma, gamma0, acc, eacc = backward_reference(A_t, W, feats, alpha, s, sh, emit_gamma)
+    gamma, gamma0, acc, eacc = backward_reference(
+        A_t, W, feats, alpha, s, sh, emit_gamma, weights
+    )
     return _assemble(A_t, s, sh, gamma, gamma0, acc, eacc)

@@ -16,6 +16,7 @@ import torch
 
 from ..distributions import dirichlet
 from ..distributions.emissions import GaussianNIW
+from ..utils.device import resolve_device
 
 
 class HMMParams(NamedTuple):
@@ -52,8 +53,10 @@ def make_prior(
     **emission_kw,
 ) -> HMMParams:
     """Symmetric Dirichlet priors and the family's weak prior, in ``dtype``
-    (default: torch's default float dtype) on ``device``."""
+    (default: torch's default float dtype) on ``device`` (default: the card;
+    pass ``device="cpu"`` for the CPU)."""
     require_ported_family(emission)
+    device = resolve_device(device)
     if dtype is None:
         dtype = torch.get_default_dtype()
     emit = GaussianNIW.make_prior(K, obs_dim, dtype=dtype, device=device, **emission_kw)

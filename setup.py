@@ -31,7 +31,7 @@ setup(
         "pysvihmm_tpu_torch.utils",
     ],
     # the port's CUDA sources, compiled with nvcc at first use
-    package_data={"pysvihmm_tpu_torch": ["csrc/*.cu"]},
+    package_data={"pysvihmm_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     ext_modules=[
         Extension(
             "pysvihmm_tpu.oracle._fb_ext",

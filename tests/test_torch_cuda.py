@@ -1,4 +1,6 @@
-"""The fused E-step's CUDA kernels against their plain PyTorch twins, on the card.
+"""The E-step's CUDA kernels against their plain PyTorch twins, on the card:
+the fused pair (gated and not) and the split pair (gated and not), and the
+engines' routes through them.
 
 Imports neither JAX nor the JAX package, so it runs on a machine that has
 only PyTorch for CUDA and nvcc:
@@ -16,12 +18,13 @@ sums over all sequences.
 import pytest
 import torch
 
-from chip_smoke import random_problem
+from chip_smoke import random_problem, svi_masks
+from pysvihmm_tpu_torch import messages
 from pysvihmm_tpu_torch.data.synthetic import gen_gaussian_dataset
 from pysvihmm_tpu_torch.distributions import GaussianNIW
-from pysvihmm_tpu_torch.engines import batch_vb
+from pysvihmm_tpu_torch.engines import batch_vb, svi
 from pysvihmm_tpu_torch.engines.base import batch_local_step
-from pysvihmm_tpu_torch.messages import fused_fb
+from pysvihmm_tpu_torch.messages import fused_fb, split_fb
 from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
 
 pytestmark = pytest.mark.cuda
@@ -73,5 +76,88 @@ def test_auto_runs_the_kernels_in_batch_vb(cuda_device):
     params, elbos = batch_vb.fit(p0, prior, obs, GaussianNIW, num_iters=3)
     assert (fused_fb.fused_forward.launches, fused_fb.fused_backward.launches) == (3, 3)
     assert bool(torch.isfinite(elbos).all())
-    with pytest.raises(NotImplementedError, match="gating"):
-        batch_local_step(params, GaussianNIW, obs, weights=torch.ones(16, 100, device=cuda_device))
+    # gated: the kernel route against the same call on CPU tensors (the twins)
+    w = svi_masks(g, 16, 100, 60).T.contiguous()  # (B, T)
+    sk, gk = batch_local_step(params, GaussianNIW, obs, weights=w)
+    torch.cuda.synchronize()
+    assert fused_fb.fused_backward.launches == 4
+    cpu = params._replace(init=params.init.cpu(), trans=params.trans.cpu(),
+                          emit=type(params.emit)(*(x.cpu() for x in params.emit)))
+    sr, gr = batch_local_step(cpu, GaussianNIW, obs.cpu(), "fused", weights=w.cpu())
+    torch.testing.assert_close(gk.cpu(), gr, rtol=0, atol=5e-5)
+    torch.testing.assert_close(sk.init.cpu(), sr.init, rtol=0, atol=5e-5)
+    torch.testing.assert_close(sk.trans.cpu(), sr.trans, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(sk.log_z.cpu(), sr.log_z, rtol=2e-6, atol=0)
+    for a, b in zip(sk.emit, sr.emit):
+        torch.testing.assert_close(a.cpu(), b, rtol=3e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("K", [4, 33, 64])
+@pytest.mark.parametrize("emit_gamma", [True, False])
+def test_gated_fused_kernels_match_plain_twins(cuda_device, K, emit_gamma):
+    B, T, D = 24, 70, 8
+    gen = torch.Generator(device=cuda_device).manual_seed(K)
+    log_pi, log_A, W, feats = random_problem(gen, B, T, K, D)
+    w = svi_masks(gen, B, T, 50)
+    before = fused_fb.fused_backward.launches
+    fk, Sk = fused_fb.estep_fused(log_pi, log_A, W, feats, emit_gamma, weights=w)
+    torch.cuda.synchronize()
+    assert fused_fb.fused_backward.launches == before + 1
+    fr, Sr = fused_fb.estep_fused_reference(log_pi, log_A, W, feats, emit_gamma, weights=w)
+    if emit_gamma:
+        torch.testing.assert_close(fk.gamma, fr.gamma, rtol=0, atol=5e-5)
+    torch.testing.assert_close(fk.init_stats, fr.init_stats, rtol=0, atol=5e-5)
+    torch.testing.assert_close(fk.log_c, fr.log_c, rtol=2e-6, atol=1e-4)
+    torch.testing.assert_close(fk.trans_stats, fr.trans_stats, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(Sk, Sr, rtol=3e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("K", [4, 33, 64])
+@pytest.mark.parametrize("gated", [False, True])
+def test_split_kernels_match_plain_twins(cuda_device, K, gated):
+    B, T, D = 24, 70, 8
+    gen = torch.Generator(device=cuda_device).manual_seed(100 + K)
+    log_pi, log_A, W, feats = random_problem(gen, B, T, K, D)
+    ll = (feats @ W).contiguous()
+    w = svi_masks(gen, B, T, 50) if gated else None
+    before = (split_fb.split_forward.launches, split_fb.split_backward.launches)
+    fk = split_fb.estep_split(log_pi, log_A, ll, w)
+    torch.cuda.synchronize()
+    assert (split_fb.split_forward.launches, split_fb.split_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    fr = split_fb.estep_split_reference(log_pi, log_A, ll, w)
+    torch.testing.assert_close(fk.gamma, fr.gamma, rtol=0, atol=5e-5)
+    torch.testing.assert_close(fk.init_stats, fr.init_stats, rtol=0, atol=5e-5)
+    torch.testing.assert_close(fk.log_c, fr.log_c, rtol=2e-6, atol=1e-4)
+    torch.testing.assert_close(fk.log_z, fr.log_z, rtol=2e-6, atol=0)
+    torch.testing.assert_close(fk.trans_stats, fr.trans_stats, rtol=1e-4, atol=1e-3)
+
+
+def test_e_step_batched_launches_the_split_kernels(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    log_pi, log_A, W, feats = random_problem(gen, 8, 40, 6, 2)
+    ll = (feats @ W).transpose(0, 1).contiguous()  # (B, T, K)
+    split_fb.reset_launch_counts()
+    fb = messages.e_step_batched(log_pi, log_A, ll)
+    torch.cuda.synchronize()
+    assert (split_fb.split_forward.launches, split_fb.split_backward.launches) == (1, 1)
+    ref = messages.e_step_batched(log_pi.cpu(), log_A.cpu(), ll.cpu(), method="split")
+    torch.testing.assert_close(fb.gamma.cpu(), ref.gamma, rtol=0, atol=5e-5)
+
+
+def test_svi_step_on_auto_launches_each_fused_kernel_once(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    obs, _, _ = gen_gaussian_dataset(g, 4, 2, 1, 2000)
+    chain = obs[0]
+    prior = make_prior(4, GaussianNIW, obs_dim=2, device=cuda_device)
+    p0 = init_params(g, prior, GaussianNIW, chain)
+    cfg = svi.SVIConfig(batch_size=16, subchain_len=50, buffer=10)
+    step = svi.make_step(GaussianNIW, cfg, chain.shape[0])
+    fused_fb.reset_launch_counts()
+    split_fb.reset_launch_counts()
+    state, m = step(svi.init_state(p0, torch.Generator(device=cuda_device).manual_seed(2)),
+                    prior, chain)
+    torch.cuda.synchronize()
+    assert (fused_fb.fused_forward.launches, fused_fb.fused_backward.launches) == (1, 1)
+    assert (split_fb.split_forward.launches, split_fb.split_backward.launches) == (0, 0)
+    assert bool(torch.isfinite(m["noisy_elbo"])) and int(state.step) == 1

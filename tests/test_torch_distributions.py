@@ -108,7 +108,8 @@ def test_niw_stats_posterior_kl(enable_x64, K, D):
     close(niw.kl(tq, tp), jniw.kl(jq, jp))
     close(niw.kl(tq, tp).sum(), oracle.niw_kl(*q.values(), *pr.values()))
     close(GaussianNIW.kl(tq, tp), JGaussianNIW.kl(jq, jp))
-    for a, b in zip(niw.make_prior(K, D, kappa=0.5, psi_scale=2.0, dtype=torch.float64),
+    for a, b in zip(niw.make_prior(K, D, kappa=0.5, psi_scale=2.0, dtype=torch.float64,
+                                   device="cpu"),
                     jniw.make_prior(K, D, kappa=0.5, psi_scale=2.0, dtype=jnp.float64)):
         close(a, b)
 
@@ -153,7 +154,8 @@ def test_hmm_params_helpers(enable_x64):
     js = jhmm.emission_flat_stats(JGaussianNIW, jq, jnp.asarray(g), jnp.asarray(y))
     for a, b in zip(ts, js):
         close(a, b)
-    tpr = hmm.make_prior(K, GaussianNIW, obs_dim=D, alpha_tran=2.0, dtype=torch.float64)
+    tpr = hmm.make_prior(K, GaussianNIW, obs_dim=D, alpha_tran=2.0, dtype=torch.float64,
+                         device="cpu")
     jpr = jhmm.make_prior(K, JGaussianNIW, obs_dim=D, alpha_tran=2.0)
     for a, b in zip((tpr.init, tpr.trans, *tpr.emit), (jpr.init, jpr.trans, *jpr.emit)):
         close(a, b)
@@ -164,4 +166,76 @@ def test_other_families_raise():
         name = "multinomial_dirichlet"
 
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        hmm.make_prior(3, Multinomial, obs_dim=2)
+        hmm.make_prior(3, Multinomial, obs_dim=2, device="cpu")
+
+
+@pytest.mark.parametrize("K,D", SHAPES)
+def test_natural_gradient_steps(enable_x64, K, D):
+    """to_natural / from_natural / nat_grad_step of the NIW and the Dirichlet
+    against JAX in f64, and the identity that rho=1 with scale 1 and
+    full-data stats is the exact conjugate posterior (niw.py:280-286)."""
+    rng = np.random.default_rng(30 + K + D)
+    tq, jq = _both(_niw(K, D, seed=7))
+    tp, jp = _both(_niw(K, D, seed=8))
+    y = rng.normal(scale=2.0, size=(60, D))
+    g = rng.dirichlet(np.ones(K), size=60)
+    ts = niw.suff_stats(torch.tensor(g), torch.tensor(y))
+    js = jniw.suff_stats(jnp.asarray(g), jnp.asarray(y))
+    for a, b in zip(niw.to_natural(tq), jniw.to_natural(jq)):
+        close(a, b)
+    for a, b, c in zip(niw.from_natural(niw.to_natural(tq)),
+                       jniw.from_natural(jniw.to_natural(jq)), tq):
+        close(a, b)
+        close(a, c)
+    for scale, rho in ((3.5, 0.3), (1.0, 1.0)):
+        for a, b in zip(GaussianNIW.nat_grad_step(tq, tp, ts, scale, rho),
+                        JGaussianNIW.nat_grad_step(jq, jp, js, scale, rho)):
+            close(a, b)
+    for a, b in zip(niw.nat_grad_step(tq, tp, ts, 1.0, 1.0), niw.posterior(tp, ts)):
+        close(a, b)
+
+    q, p, s = (rng.uniform(lo, hi, size=(K, K)) for lo, hi in ((0.2, 30), (0.5, 2), (0, 50)))
+    tq_, tp_, ts_ = (torch.tensor(x) for x in (q, p, s))
+    jq_, jp_, js_ = (jnp.asarray(x) for x in (q, p, s))
+    close(dirichlet.nat_grad_step(tq_, tp_, ts_, 2.5, 0.4),
+          jdir.nat_grad_step(jq_, jp_, js_, 2.5, 0.4))
+    close(dirichlet.nat_grad_step(tq_, tp_, ts_, 1.0, 1.0), dirichlet.posterior(tp_, ts_))
+    close(dirichlet.mean(tq_), jdir.mean(jq_))
+
+
+def test_step_size_schedules(enable_x64):
+    """power_schedule and three elastic adaptive_update steps against JAX."""
+    from pysvihmm_tpu.utils import schedules as jsched
+    from pysvihmm_tpu_torch.utils import schedules
+
+    steps = np.arange(5.0)
+    close(schedules.power_schedule(torch.tensor(steps), 10.0, 0.6),
+          jsched.power_schedule(jnp.asarray(steps), 10.0, 0.6))
+    rng = np.random.default_rng(4)
+    ts = schedules.adaptive_init(6, torch.float64, device="cpu")
+    js = jsched.adaptive_init(6, jnp.float64)
+    for _ in range(3):
+        grad = rng.normal(size=6)
+        ts, trho = schedules.adaptive_update(ts, torch.tensor(grad))
+        js, jrho = jsched.adaptive_update(js, jnp.asarray(grad))
+        close(trho, jrho)
+        for a, b in zip(ts, js):
+            close(a, b)
+
+
+def test_state_lands_on_the_card_unless_asked():
+    """make_prior with no device targets the card ("cuda"); without one it
+    raises instead of falling back to the CPU."""
+    from pysvihmm_tpu_torch.utils.device import resolve_device
+
+    assert resolve_device(None) == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        prior = hmm.make_prior(3, GaussianNIW, obs_dim=2)
+        assert {x.device.type for x in (prior.init, prior.trans, *prior.emit)} == {"cuda"}
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            hmm.make_prior(3, GaussianNIW, obs_dim=2)
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            niw.make_prior(3, 2)
+    assert hmm.make_prior(3, GaussianNIW, obs_dim=2, device="cpu").init.device.type == "cpu"

@@ -116,7 +116,7 @@ def test_canonical_small_fit_recovers_states(method):
     lower_bound equal to the step's ELBO at the same params."""
     g = torch.Generator().manual_seed(0)
     obs, z, _ = gen_gaussian_dataset(g, 4, 2, 20, 200, mean_scale=6.0, cov_scale=0.3)
-    prior = make_prior(4, GaussianNIW, obs_dim=2)
+    prior = make_prior(4, GaussianNIW, obs_dim=2, device="cpu")
     p0 = init_params(torch.Generator().manual_seed(0), prior, GaussianNIW, obs)
     params, elbos = batch_vb.fit(p0, prior, obs, GaussianNIW, num_iters=50, method=method)
     e = elbos.double()

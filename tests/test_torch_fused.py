@@ -58,12 +58,23 @@ def _problem(B, T, K, D, seed):
     return log_pi, log_A, W, feats
 
 
-def _jax_fused(log_pi, log_A, W, feats, emit_gamma):
+def _jax_fused(log_pi, log_A, W, feats, emit_gamma, weights=None):
     fb, S = pallas_estep_fused(
         jnp.asarray(log_pi), jnp.asarray(log_A), jnp.asarray(W), jnp.asarray(feats),
+        weights=None if weights is None else jnp.asarray(weights),
         interpret=True, emit_gamma=emit_gamma,
     )
     return jax.tree.map(np.asarray, fb), np.asarray(S)
+
+
+def _svi_mask(T, B, L, seed):
+    """(T, B) float32 kept-masks as SVI windows make them: one kept run of
+    L steps per window at a random offset, buffer steps 0 on both sides;
+    window 0 keeps its first step and window 1 drops it (init gating)."""
+    offs = np.random.default_rng(seed).integers(0, T - L + 1, size=B)
+    offs[0], offs[1] = 0, T - L
+    t = np.arange(T)[:, None]
+    return ((t >= offs) & (t < offs + L)).astype(np.float32)
 
 
 # (B, T, K, D, emit_gamma): the last shapes are the slice's K and D; JAX
@@ -103,6 +114,35 @@ def test_reference_matches_jax_pallas(B, T, K, D, emit_gamma):
     np.testing.assert_allclose(tS.numpy(), jS, rtol=3e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize("emit_gamma", [True, False])
+def test_gated_reference_matches_jax_pallas(emit_gamma):
+    """The gated mode (SVI kept-mask w and pair gate w_{t-1} w_t) against
+    pallas_estep_fused(weights=...), tolerances as above; and the gates
+    touch the statistics only: the chain, log_c and the gamma written out
+    are the ungated ones bit for bit (tests/test_pallas.py:284-309)."""
+    B, T, K, D = 6, 40, 8, 3
+    log_pi, log_A, W, feats = _problem(B, T, K, D, seed=11)
+    w = _svi_mask(T, B, 25, seed=12)
+    jfb, jS = _jax_fused(log_pi, log_A, W, feats, emit_gamma, weights=w)
+    args = [torch.from_numpy(a) for a in (log_pi, log_A, W, feats)]
+    tfb, tS = fused_fb.estep_fused_reference(*args, emit_gamma=emit_gamma,
+                                             weights=torch.from_numpy(w))
+    if emit_gamma:
+        np.testing.assert_allclose(tfb.gamma.numpy(), jfb.gamma.reshape(T, B, K), atol=5e-5)
+    np.testing.assert_allclose(tfb.init_stats.numpy(), jfb.init_stats, atol=5e-5)
+    np.testing.assert_allclose(tfb.trans_stats.numpy(), jfb.trans_stats, atol=1e-3)
+    np.testing.assert_allclose(tfb.log_z.numpy(), jfb.log_z, rtol=2e-6)
+    np.testing.assert_allclose(tfb.log_c.numpy(), jfb.log_c, rtol=2e-6, atol=1e-4)
+    np.testing.assert_allclose(tS.numpy(), jS, rtol=3e-3, atol=2e-3)
+
+    ufb, uS = fused_fb.estep_fused_reference(*args, emit_gamma=emit_gamma)
+    torch.testing.assert_close(tfb.log_c, ufb.log_c, rtol=0, atol=0)
+    if emit_gamma:
+        torch.testing.assert_close(tfb.gamma, ufb.gamma, rtol=0, atol=0)
+    assert tfb.init_stats[1].abs().max() == 0 and tfb.init_stats[0].sum() > 0.99
+    assert tfb.trans_stats.sum() < ufb.trans_stats.sum() and tS[:, 0].sum() < uS[:, 0].sum()
+
+
 def test_cpu_launchers_run_the_plain_twins():
     """On CPU tensors the launchers are the twins (bit-identical) and no
     kernel launch is counted."""
@@ -116,10 +156,15 @@ def test_cpu_launchers_run_the_plain_twins():
     assert fused_fb.fused_backward.launches == 0
 
 
-@pytest.mark.parametrize("bad", ["dtype", "contiguity", "shape", "device_mix"])
+@pytest.mark.parametrize("bad", ["dtype", "contiguity", "shape", "device_mix", "weights"])
 def test_launchers_reject_what_the_kernels_do_not_take(bad):
     log_pi, log_A, W, feats = (torch.from_numpy(a) for a in _problem(3, 16, 4, 2, 7))
     pi_t, A_t = torch.exp(log_pi), torch.exp(log_A)
+    if bad == "weights":
+        alpha, s, sh = fused_fb.fused_forward(pi_t, A_t, W, feats)
+        with pytest.raises(ValueError):  # (B, T) where the kernel takes (T, B)
+            fused_fb.fused_backward(A_t, W, feats, alpha, s, sh, weights=torch.ones(3, 16))
+        return
     if bad == "dtype":
         feats = feats.double()
     elif bad == "contiguity":

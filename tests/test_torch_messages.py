@@ -73,6 +73,7 @@ def test_resolve_method():
     assert messages.resolve_method("auto", torch.device("cpu")) == "scan"
     assert messages.resolve_method("auto", "cuda:0") == "fused"
     assert messages.resolve_method("fused", "cpu") == "fused"
+    assert messages.resolve_method("split", "cuda") == "split"
     assert messages.resolve_method("scan", "cuda") == "scan"
     with pytest.raises(ValueError):
         messages.resolve_method("pallas_fused", "cpu")
@@ -80,26 +81,41 @@ def test_resolve_method():
         messages.resolve_method("auto", "meta")
 
 
+def test_plan_window_never_pads():
+    """W = L + 2b on every route: JAX pads 70 to 72 for Mosaic's time tiles
+    (tests/test_svi.py:25-34), the CUDA kernels need no padding."""
+    for method in ("auto", "fused", "split", "scan"):
+        assert messages.plan_window(method, 50, 10, 10_000) == (method, 70, 10)
+    assert messages.plan_window("split", 10, 3, 16) == ("split", 16, 3)
+    with pytest.raises(ValueError, match="longer than chain"):
+        messages.plan_window("auto", 50, 10, 69)
+    with pytest.raises(ValueError, match="unknown"):
+        messages.plan_window("pallas", 50, 10, 10_000)
+
+
 def _gauss(B, T, K, D, seed):
     g = torch.Generator().manual_seed(seed)
     obs = torch.randn((B, T, D), generator=g) * 2.0
-    prior = make_prior(K, GaussianNIW, obs_dim=D)
+    prior = make_prior(K, GaussianNIW, obs_dim=D, device="cpu")
     return init_params(g, prior, GaussianNIW, obs), obs
 
 
 def test_fused_route_refuses_what_it_does_not_port():
+    """Families other than Gaussian-NIW raise on both kernel routes; gating
+    and the E-step over materialised likelihoods are ported now and run."""
     params, obs = _gauss(2, 16, 3, 2, seed=0)
-    with pytest.raises(NotImplementedError, match="gating"):
-        batch_local_step(params, GaussianNIW, obs, "fused", weights=torch.ones(2, 16))
 
     class Multinomial:
         name = "multinomial_dirichlet"
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        batch_local_step(params, Multinomial, obs, "fused")
+    for method in ("fused", "split"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+            batch_local_step(params, Multinomial, obs, method)
+        stats, _ = batch_local_step(params, GaussianNIW, obs, method, weights=torch.ones(2, 16))
+        assert bool(torch.isfinite(stats.log_z))
     lp, lA = torch.zeros(3), torch.zeros(3, 3)
-    with pytest.raises(NotImplementedError, match="split kernels"):
-        messages.e_step_batched(lp, lA, torch.zeros(1, 4, 3), method="fused")
+    fb = messages.e_step_batched(lp, lA, torch.zeros(1, 4, 3), method="fused")
+    assert fb.gamma.shape == (1, 4, 3)
 
 
 @pytest.mark.parametrize("need_gamma", [True, False])

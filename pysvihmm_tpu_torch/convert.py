@@ -7,7 +7,8 @@ JAX package: any object with those attributes whose leaves convert with
 ``numpy.asarray`` will do. SVI states carry their params, step count and
 adaptive step-size state the same way; the PRNG key does not cross (JAX's
 and torch's generators give different numbers), so the port's state takes a
-``torch.Generator`` seeded on its own.
+``torch.Generator`` seeded on its own. Like the port's other entry points,
+the converters put their tensors on the card unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -18,13 +19,16 @@ import torch
 from .distributions.niw import NIW
 from .engines.svi import SVIState
 from .models.hmm import HMMParams
+from .utils.device import resolve_device
 from .utils.schedules import AdaptiveState
 
 
 def params_from_numpy(
-    params, device: torch.device | str = "cpu", dtype: torch.dtype = torch.float32
+    params, device: torch.device | str | None = None, dtype: torch.dtype = torch.float32
 ) -> HMMParams:
-    """JAX-package (or NumPy-leaved) Gaussian-NIW params -> the port's params."""
+    """JAX-package (or NumPy-leaved) Gaussian-NIW params -> the port's params,
+    on ``device`` (the card when None)."""
+    device = resolve_device(device)
 
     def t(x):
         return torch.tensor(np.asarray(x), dtype=dtype, device=device)
@@ -55,11 +59,12 @@ def params_to_numpy(params: HMMParams) -> HMMParams:
 def svi_state_from_numpy(
     state,
     generator: torch.Generator,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
     dtype: torch.dtype = torch.float32,
 ) -> SVIState:
-    """A JAX-package (or NumPy-leaved) ``SVIState`` -> the port's, with
-    ``generator`` in place of the key."""
+    """A JAX-package (or NumPy-leaved) ``SVIState`` -> the port's, on
+    ``device`` (the card when None), with ``generator`` in place of the key."""
+    device = resolve_device(device)
     adapt = state.adapt
     if adapt is not None:
         adapt = AdaptiveState(*(

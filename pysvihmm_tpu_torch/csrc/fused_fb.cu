@@ -304,20 +304,19 @@ int fused_fb_forward(const float* pi, const float* A, const float* W,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Gated when `gated` is 1: w and pg are then (T, B) device pointers, else
-// both are null and the launch is the ungated one.
+// w and pg are null for the ungated launch, else the (T, B) kept-mask and
+// pair gate; one without the other is refused.
 int fused_fb_backward(const float* A, const float* W, const float* feats,
                       const float* alpha, const float* s, const float* sh,
                       const float* w, const float* pg, float* gamma, float* gamma0,
-                      float* acc, float* eacc, int T, int B, int K, int F, int gated,
+                      float* acc, float* eacc, int T, int B, int K, int F,
                       int device, void* stream) {
   if (bad_shape(T, B, K, F)) return static_cast<int>(cudaErrorInvalidValue);
-  if (gated != (w != nullptr) || gated != (pg != nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if ((w == nullptr) != (pg == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (gated)
+  if (w != nullptr)
     fused_bwd_kernel<true><<<B, NT, 0, st>>>(A, W, feats, alpha, s, sh, w, pg, gamma,
                                               gamma0, acc, eacc, T, B, K, F);
   else

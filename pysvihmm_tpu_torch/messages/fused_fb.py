@@ -48,7 +48,7 @@ def _library():
     return bind(
         load_library(_LIB),
         {"fused_fb_forward": "ppppppp" "iiiii" "p",
-         "fused_fb_backward": "pppppppppppp" "iiiiii" "p",
+         "fused_fb_backward": "pppppppppppp" "iiiii" "p",
          "fused_fb_kmax": "",
          "fused_fb_fmax": ""},
         "fused_fb_error_string",
@@ -179,7 +179,7 @@ def fused_backward(
     code = lib.fused_fb_backward(
         ptr(A_t), ptr(W), ptr(feats), ptr(alpha), ptr(s), ptr(sh),
         ptr(weights), ptr(g), ptr(gamma), ptr(gamma0), ptr(acc), ptr(eacc),
-        T, B, K, F, int(weights is not None), device_index(dev), stream(dev),
+        T, B, K, F, device_index(dev), stream(dev),
     )
     fused_backward.launches += 1
     raise_on(lib.fused_fb_error_string, code, "fused_bwd_kernel")

@@ -11,6 +11,8 @@ from typing import NamedTuple
 
 import torch
 
+from .device import resolve_device
+
 
 def power_schedule(step: torch.Tensor, tau: float = 1.0, kappa: float = 0.7) -> torch.Tensor:
     """rho_t = (t + tau)^(-kappa), kappa in (0.5, 1] for RM convergence."""
@@ -32,8 +34,11 @@ class AdaptiveState(NamedTuple):
 
 
 def adaptive_init(
-    param_dim: int, dtype: torch.dtype = torch.float32, device: torch.device | str = "cuda"
+    param_dim: int, dtype: torch.dtype = torch.float32, device: torch.device | str | None = None
 ) -> AdaptiveState:
+    """Zero gradient mean, unit curvature and memory 10, on ``device`` (the
+    card when None)."""
+    device = resolve_device(device)
     return AdaptiveState(
         g_bar=torch.zeros((param_dim,), dtype=dtype, device=device),
         h_bar=torch.tensor(1.0, dtype=dtype, device=device),

@@ -17,8 +17,11 @@ from pysvihmm_tpu.distributions import niw as jniw
 from pysvihmm_tpu.distributions.emissions import GaussianNIW as JGaussianNIW
 from pysvihmm_tpu.models import hmm as jhmm
 from pysvihmm_tpu.oracle import numpy_ref as oracle
+from pysvihmm_tpu_torch import convert
 from pysvihmm_tpu_torch.distributions import GaussianNIW, dirichlet, niw
+from pysvihmm_tpu_torch.engines import svi
 from pysvihmm_tpu_torch.models import hmm
+from pysvihmm_tpu_torch.utils import schedules
 
 torch.set_num_threads(1)
 
@@ -206,7 +209,6 @@ def test_natural_gradient_steps(enable_x64, K, D):
 def test_step_size_schedules(enable_x64):
     """power_schedule and three elastic adaptive_update steps against JAX."""
     from pysvihmm_tpu.utils import schedules as jsched
-    from pysvihmm_tpu_torch.utils import schedules
 
     steps = np.arange(5.0)
     close(schedules.power_schedule(torch.tensor(steps), 10.0, 0.6),
@@ -223,19 +225,52 @@ def test_step_size_schedules(enable_x64):
             close(a, b)
 
 
-def test_state_lands_on_the_card_unless_asked():
-    """make_prior with no device targets the card ("cuda"); without one it
-    raises instead of falling back to the CPU."""
+def _numpy_svi_state(K=3, D=2):
+    """A NumPy-leaved SVI state with an adaptive state, as convert.py reads it."""
+    p = convert.params_to_numpy(hmm.make_prior(K, GaussianNIW, obs_dim=D, device="cpu",
+                                               dtype=torch.float64))
+    adapt = tuple(x.numpy() for x in schedules.adaptive_init(4, torch.float64, device="cpu"))
+    return svi.SVIState(params=p, step=np.int32(2), generator=None,
+                        adapt=schedules.AdaptiveState(*adapt))
+
+
+def _devices(x) -> set[str]:
+    """The device types of the tensors in a (nested) tuple of tensors."""
+    if isinstance(x, torch.Tensor):
+        return {x.device.type}
+    if isinstance(x, (tuple, list)):
+        return set().union(*(_devices(y) for y in x))
+    return set()  # a generator, a missing adaptive state
+
+
+# Each entry point that builds state; the test calls it with and without a device.
+_BUILDERS = {
+    "hmm.make_prior": lambda **kw: hmm.make_prior(3, GaussianNIW, obs_dim=2, **kw),
+    "niw.make_prior": lambda **kw: niw.make_prior(3, 2, **kw),
+    "adaptive_init": lambda **kw: schedules.adaptive_init(4, **kw),
+    "params_from_numpy": lambda **kw: convert.params_from_numpy(_numpy_svi_state().params, **kw),
+    "svi_state_from_numpy": lambda **kw: convert.svi_state_from_numpy(
+        _numpy_svi_state(), torch.Generator(), **kw),
+}
+
+
+def test_default_device_is_the_card():
     from pysvihmm_tpu_torch.utils.device import resolve_device
 
     assert resolve_device(None) == torch.device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("name", sorted(_BUILDERS))
+def test_state_lands_on_the_card_unless_asked(name):
+    """The priors, the adaptive step-size state and the converters put their
+    tensors on the card ("cuda") when no device is given; without one they
+    raise instead of falling back to the CPU. Given device="cpu", they stay
+    on the CPU."""
+    build = _BUILDERS[name]
     if torch.cuda.is_available():
-        prior = hmm.make_prior(3, GaussianNIW, obs_dim=2)
-        assert {x.device.type for x in (prior.init, prior.trans, *prior.emit)} == {"cuda"}
+        assert _devices(build()) == {"cuda"}
     else:
         with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
-            hmm.make_prior(3, GaussianNIW, obs_dim=2)
-        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
-            niw.make_prior(3, 2)
-    assert hmm.make_prior(3, GaussianNIW, obs_dim=2, device="cpu").init.device.type == "cpu"
+            build()
+    assert _devices(build(device="cpu")) == {"cpu"}

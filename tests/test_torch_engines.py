@@ -66,7 +66,7 @@ def test_local_step_matches_jax_fused(highest_kernel_precision):
     B, T, K, D = 6, 40, 8, 3
     obs, _, jp0 = _start(B, T, K, D, seed=3)
     js, jg = jbatch_local_step(jp0, JGaussianNIW, jnp.asarray(obs), "pallas_fused")
-    ts, tg = batch_local_step(convert.params_from_numpy(jp0), GaussianNIW,
+    ts, tg = batch_local_step(convert.params_from_numpy(jp0, device="cpu"), GaussianNIW,
                               torch.from_numpy(obs), "fused")
     np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=5e-5)
     np.testing.assert_allclose(ts.init.numpy(), np.asarray(js.init), atol=5e-5)
@@ -85,8 +85,8 @@ def test_fit_matches_jax_fused(highest_kernel_precision):
     obs, jprior, jp0 = _start(B, T, K, D, seed=0)
     jfinal, jelbos = jbatch_vb.fit(jp0, jprior, jnp.asarray(obs), JGaussianNIW,
                                    num_iters=5, method="pallas_fused")
-    tfinal, telbos = batch_vb.fit(convert.params_from_numpy(jp0),
-                                  convert.params_from_numpy(jprior),
+    tfinal, telbos = batch_vb.fit(convert.params_from_numpy(jp0, device="cpu"),
+                                  convert.params_from_numpy(jprior, device="cpu"),
                                   torch.from_numpy(obs), GaussianNIW, num_iters=5,
                                   method="fused")
     np.testing.assert_allclose(telbos.numpy(), np.asarray(jelbos), rtol=1e-4)
@@ -99,9 +99,9 @@ def test_fit_matches_jax_fused(highest_kernel_precision):
 def test_convert_round_trips_exactly():
     _, jprior, jp0 = _start(2, 8, 3, 2, seed=1)
     for dtype in (torch.float32, torch.float64):
-        port = convert.params_from_numpy(jp0, dtype=dtype)
+        port = convert.params_from_numpy(jp0, device="cpu", dtype=dtype)
         back = convert.params_to_numpy(port)
-        again = convert.params_from_numpy(back, dtype=dtype)
+        again = convert.params_from_numpy(back, device="cpu", dtype=dtype)
         for a, b in zip(_leaves(back), _leaves(jp0)):
             np.testing.assert_array_equal(a, np.asarray(b).astype(a.dtype))
         for a, b in zip(_leaves(again), _leaves(port)):

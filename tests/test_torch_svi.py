@@ -79,7 +79,7 @@ def test_windowed_local_step_matches_jax(highest_kernel_precision, route, jroute
 
     jout = jwindowed_local_step(jparams, JGaussianNIW, jnp.asarray(windows),
                                 jnp.asarray(maskf), jnp.asarray(offs), jroute)
-    tout = windowed_local_step(convert.params_from_numpy(jparams), GaussianNIW,
+    tout = windowed_local_step(convert.params_from_numpy(jparams, device="cpu"), GaussianNIW,
                                torch.from_numpy(windows), torch.from_numpy(maskf),
                                torch.from_numpy(offs), route)
     emit, jemit = tout[0], jout[0]
@@ -132,9 +132,10 @@ def test_svi_step_matches_jax(highest_kernel_precision, route, jroute):
             jstate, jprior, jnp.asarray(chain))
         starts = _jax_draw(jstate.key, (cfg.batch_size,), T - cfg.subchain_len + 1)
     tdt = torch.float64 if _x64(route) else torch.float32
-    state = convert.svi_state_from_numpy(jstate, torch.Generator().manual_seed(0), dtype=tdt)
+    state = convert.svi_state_from_numpy(jstate, torch.Generator().manual_seed(0),
+                                         device="cpu", dtype=tdt)
     step = svi.make_step(GaussianNIW, cfg, T, method=route)
-    tnew, tm = step.with_starts(state, convert.params_from_numpy(jprior, dtype=tdt),
+    tnew, tm = step.with_starts(state, convert.params_from_numpy(jprior, device="cpu", dtype=tdt),
                                 torch.from_numpy(chain), torch.from_numpy(starts))
     _compare_step(tnew, tm, jnew, jm, route)
 
@@ -152,9 +153,10 @@ def test_minibatch_step_matches_jax(highest_kernel_precision, route, jroute):
             jstate, jprior, jnp.asarray(obs))
         idx = _jax_draw(jstate.key, (cfg.batch_size,), N)
     tdt = torch.float64 if _x64(route) else torch.float32
-    state = convert.svi_state_from_numpy(jstate, torch.Generator().manual_seed(0), dtype=tdt)
+    state = convert.svi_state_from_numpy(jstate, torch.Generator().manual_seed(0),
+                                         device="cpu", dtype=tdt)
     step = svi.make_minibatch_step(GaussianNIW, cfg, N, method=route)
-    tnew, tm = step.with_indices(state, convert.params_from_numpy(jprior, dtype=tdt),
+    tnew, tm = step.with_indices(state, convert.params_from_numpy(jprior, device="cpu", dtype=tdt),
                                  torch.from_numpy(obs), torch.from_numpy(idx))
     _compare_step(tnew, tm, jnew, jm, route)
 
@@ -168,8 +170,9 @@ def test_adaptive_svi_step_matches_jax(enable_x64):
     chain = _seqs(1, T, K, D, seed=10, dtype=np.float64)[0]
     jprior, jp0 = _jax_start(chain[None], K, seed=11, dtype=np.float64)
     jstate = jsvi.init_state(jp0, jax.random.PRNGKey(12), adaptive=True)
-    state = convert.svi_state_from_numpy(jstate, torch.Generator(), dtype=torch.float64)
-    prior = convert.params_from_numpy(jprior, dtype=torch.float64)
+    state = convert.svi_state_from_numpy(jstate, torch.Generator(), device="cpu",
+                                         dtype=torch.float64)
+    prior = convert.params_from_numpy(jprior, device="cpu", dtype=torch.float64)
     jstep = jsvi.make_step(JGaussianNIW, cfg, T, method="scan")
     step = svi.make_step(GaussianNIW, cfg, T, method="scan")
     for _ in range(2):
@@ -188,7 +191,7 @@ def test_svi_state_round_trips():
     jstate = jsvi.init_state(jp0, jax.random.PRNGKey(0), adaptive=True)
     jstate = jstate._replace(step=jnp.asarray(7, jnp.int32))
     gen = torch.Generator().manual_seed(3)
-    state = convert.svi_state_from_numpy(jstate, gen)
+    state = convert.svi_state_from_numpy(jstate, gen, device="cpu")
     assert state.generator is gen and int(state.step) == 7 and state.step.dtype == torch.int32
     back = convert.svi_state_to_numpy(state)
     for a, b in zip(_leaves(back.params) + list(back.adapt) + [back.step],

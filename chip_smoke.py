@@ -8,35 +8,54 @@ fails:
 
 1. device:  the card's name and power limit from nvidia-smi; the float32
             matmul policy.
-2. build:   compile ``pysvihmm_tpu_torch/csrc/fused_fb.cu`` and
-            ``split_fb.cu`` with nvcc, both at once; ptxas's registers,
-            shared memory and spills for all four kernels.
+2. build:   compile ``pysvihmm_tpu_torch/csrc/fused_fb.cu``,
+            ``split_fb.cu`` and ``duplex_fb.cu`` with nvcc, all at once;
+            ptxas's registers, shared memory and spills for all six kernels.
 3. kernels: both fused E-step kernels against their plain PyTorch twins on
             the card, at a small shape and at B=1024, T=1000, K=64, D=8,
             with ``emit_gamma`` True and False; the gated fused backward
             with SVI-shaped kept-masks (B=1024, W=70, K=64, F=45); both
             split kernels, gated and not, at a small shape, at B=1024,
-            W=70, K=64 and at B=1024, T=1000, K=64; all under stated
-            tolerances.
+            W=70, K=64 and at B=1024, T=1000, K=64; both duplex kernels at
+            a small shape (the combine's chunks of 16 steps do not divide
+            T=50) and at B=1024, T=1000, K=64 (``emit_gamma`` True and
+            False), gated at B=1024, W=70, K=64, and the chain's forward
+            against the fused forward's; all under stated tolerances.
 4. VB:      5 batch-VB iterations at B=1024, T=1000, K=64, D=8 through
             ``method="auto"``; each kernel must launch once per iteration
             and the ELBO must be finite and non-decreasing. Then the small
             canonical fit (K=4, D=2, 20 x 200, 50 iterations) must decode
-            at Hamming error <= 0.05.
+            at Hamming error <= 0.05. Then the same 5 iterations through
+            ``method="duplex"``: each duplex kernel once per iteration, no
+            other E-step kernel, and the ELBOs those of "auto".
 5. times:   each kernel against its twin, the E-step of the benchmark
             shape (need_gamma=False) on the kernel and plain routes, and
-            the SVI step at B in {32, 256, 1024} on "fused", "split" and
-            "scan", timed with CUDA events; a profile of the SVI step.
+            the SVI step at B in {32, 256, 1024} on "fused", "split",
+            "duplex" and "scan", timed with CUDA events; a profile of the
+            SVI step.
 6. SVI:     windowed subchain SVI at full width (K=64, D=8, one chain of
             T=100,000 with overlapping states, B=1024, L=50, b=10): 20
-            steps through ``method="auto"``, then 20 through "split"; each
-            kernel of the route launches exactly once a step, the noisy ELBO
-            and every parameter stay finite and every NIW psi has a Cholesky
-            factor after every step; one step's statistics agree across the
-            two routes on the same windows, with soft posteriors (median
-            max_k gamma < 0.99). Then the small SVI fit (K=4, D=2,
-            T=3000, B=16, 300 steps) through "auto" must decode at Hamming
-            error < 0.05.
+            steps through ``method="auto"``, then 20 through "split" and 20
+            through "duplex"; each kernel of the route launches exactly once
+            a step, the noisy ELBO and every parameter stay finite and every
+            NIW psi has a Cholesky factor after every step; one step's
+            statistics agree across the routes on the same windows, with
+            soft posteriors (median max_k gamma < 0.99). Then the small SVI
+            fit (K=4, D=2, T=3000, B=16, 300 steps) through "auto" must
+            decode at Hamming error < 0.05.
+7. families: the diagonal Gaussian and Poisson at K=64, D=8 and the
+            multinomial at K=32, V=64, each at B=1024, T=1000: 5 batch-VB
+            iterations on each of "fused", "split" and "duplex" (each
+            route's kernels once per iteration, ELBO finite and
+            non-decreasing, the three routes' ELBOs within a stated
+            tolerance); at the fitted params, each kernel pair's E-step
+            against its twins on the family's own features (the
+            multinomial's one-hot at F = 64, the kernels' limit) and
+            batch_local_step on each kernel route against "scan", gated
+            and not; the multinomial at V=1000 on "fused" runs the split
+            kernels and its statistics agree with "scan"'s; a one-hot width
+            above the kernels' 64 raises; and a small fit per family (best
+            ELBO of a few restarts) decodes at Hamming error <= 0.05.
 
 The last lines are the card line, one JSON line describing the kernels and,
 last, ``{"ok": true, "device": {...}}``.
@@ -58,6 +77,7 @@ SVI_T, SVI_L, SVI_BUF = 100_000, 50, 10  # scripts/bench_svi_step.py:46-53
 SVI_W = SVI_L + 2 * SVI_BUF
 SVI_STEPS = 20
 SVI_BATCHES = (32, 256, 1024)
+ELBO_RTOL = 1e-5  # one route's VB ELBO against another's (float32, other summation orders)
 # The card's peaks (NVIDIA H100 SXM data sheet): HBM bytes per second and
 # float32 FLOP/s outside the tensor cores, for each kernel's least time.
 HBM_BYTES_PER_S = 3.35e12
@@ -112,6 +132,39 @@ def compare(name, got, ref, rtol: float, atol: float) -> float:
     return err
 
 
+def compare_estep(name, fk, fr, Sk=None, Sr=None) -> None:
+    """A whole E-step on a kernel route against its plain twin's on the same
+    inputs: gamma (when the twin returns it), init_stats, log_c, log_z,
+    trans_stats and the emission statistics (when given). gamma, gamma0 and
+    init are probabilities; log_c and log_z are in nats and carry the
+    likelihood dot's rounding; trans and emit are sums over B*T terms whose
+    cross-sequence order the kernels' atomics change (relative bounds)."""
+    log(f"   {name}")
+    if fr.gamma is None:
+        require(fk.gamma is None, f"{name}: gamma returned with emit_gamma=False")
+    else:
+        compare("gamma", fk.gamma, fr.gamma, 0.0, 5e-5)
+    compare("init_stats", fk.init_stats, fr.init_stats, 0.0, 5e-5)
+    compare("log_c", fk.log_c, fr.log_c, 2e-6, 1e-4)
+    compare("log_z", fk.log_z, fr.log_z, 2e-6, 0.0)
+    compare("trans_stats", fk.trans_stats, fr.trans_stats, 1e-4, 1e-3)
+    if Sk is not None:
+        compare("emit_stats", Sk, Sr, 3e-3, 2e-3)
+
+
+def compare_local_stats(sk, ss) -> None:
+    """batch_local_step's summed statistics on a kernel route against the
+    "scan" route's: every emission statistic of the family, trans, init
+    (summed over B sequences) and log Z (summed)."""
+    emit_k = sk.emit if isinstance(sk.emit, tuple) else (sk.emit,)
+    emit_s = ss.emit if isinstance(ss.emit, tuple) else (ss.emit,)
+    for name, a, b in zip(getattr(ss.emit, "_fields", ("counts",)), emit_k, emit_s):
+        compare(f"emit {name}", a, b, 3e-3, 2e-3)
+    compare("trans_stats", sk.trans, ss.trans, 1e-4, 1e-3)
+    compare("init_stats", sk.init, ss.init, 0.0, 5e-4)
+    compare("log_z", sk.log_z, ss.log_z, 2e-6, 0.0)
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """The least time (ms) the card could take: the larger of the bytes over
     the HBM rate and the float32 operations over the peak rate."""
@@ -132,6 +185,10 @@ def kernel_work(name: str, B_: int, T_: int, K_: int, F_: int = 0, gated: bool =
         "fused_bwd_kernel": 4 * F_ * K_ + 4 * k2 + 8 * K_ + (2 * K_ if gated else 0),
         "split_fwd_kernel": 2 * k2 + 6 * K_,
         "split_bwd_kernel": 4 * k2 + 8 * K_ + (K_ if gated else 0),
+        # both recursions: an F-dot and a matvec each
+        "duplex_chain_kernel": 4 * F_ * K_ + 4 * k2 + 12 * K_,
+        # the F-dot, the pairwise and the emission outer products
+        "duplex_combine_kernel": 4 * F_ * K_ + 2 * k2 + 10 * K_ + (2 * K_ if gated else 0),
     }[name]
     words = {
         # feats in, W, A~, pi~; alpha, s, sh out
@@ -143,6 +200,11 @@ def kernel_work(name: str, B_: int, T_: int, K_: int, F_: int = 0, gated: bool =
         "split_fwd_kernel": n * K_ + k2 + K_ + n * K_ + 2 * n,
         # ll, alpha, s, sh, A~ (+ g) in; gamma, acc out
         "split_bwd_kernel": 2 * n * K_ + 2 * n + k2 + (n if gated else 0) + n * K_ + k2,
+        # feats, W, A~, pi~ in; alpha, s, sh, beta out
+        "duplex_chain_kernel": n * F_ + F_ * K_ + k2 + K_ + 2 * n * K_ + 2 * n,
+        # feats, alpha, beta, sh, W (+ w) in; gamma0, acc, eacc (+ gamma) out
+        "duplex_combine_kernel": n * F_ + 2 * n * K_ + n + F_ * K_ + (n if gated else 0)
+        + B_ * K_ + k2 + K_ * F_ + (n * K_ if emit_gamma else 0),
     }[name]
     return 4.0 * words, float(n * per_tb)
 
@@ -231,19 +293,11 @@ def check_kernels(gen, shape):
     compare("eacc", eacc, eacc_r, 3e-3, 2e-3)
 
     for emit_gamma in (True, False):
-        log(f"   estep_fused vs estep_fused_reference, emit_gamma={emit_gamma}")
         fk, Sk = ff.estep_fused(log_pi, log_A, W, feats, emit_gamma=emit_gamma)
         torch.cuda.synchronize()
         fr, Sr = ff.estep_fused_reference(log_pi, log_A, W, feats, emit_gamma=emit_gamma)
-        if emit_gamma:
-            compare("gamma", fk.gamma, fr.gamma, 0.0, 5e-5)
-        else:
-            require(fk.gamma is None, "gamma returned with emit_gamma=False")
-        compare("init_stats", fk.init_stats, fr.init_stats, 0.0, 5e-5)
-        compare("log_c", fk.log_c, fr.log_c, 2e-6, 1e-4)
-        compare("log_z", fk.log_z, fr.log_z, 2e-6, 0.0)
-        compare("trans_stats", fk.trans_stats, fr.trans_stats, 1e-4, 1e-3)
-        compare("emit_stats", Sk, Sr, 3e-3, 2e-3)
+        compare_estep(f"estep_fused vs estep_fused_reference, emit_gamma={emit_gamma}",
+                      fk, fr, Sk, Sr)
     return fwd_err, bwd_err, (pi_t, A_t, W, feats, a_r, s_r, sh_r)
 
 
@@ -276,10 +330,7 @@ def check_gated_fused(gen, B_, W_, K_, D_, L_):
     fk, Sk = ff.estep_fused(log_pi, log_A, W, feats, emit_gamma=True, weights=w)
     torch.cuda.synchronize()
     fr, Sr = ff.estep_fused_reference(log_pi, log_A, W, feats, emit_gamma=True, weights=w)
-    compare("init_stats", fk.init_stats, fr.init_stats, 0.0, 5e-5)
-    compare("log_c", fk.log_c, fr.log_c, 2e-6, 1e-4)
-    compare("trans_stats", fk.trans_stats, fr.trans_stats, 1e-4, 1e-3)
-    compare("emit_stats", Sk, Sr, 3e-3, 2e-3)
+    compare_estep("gated estep_fused vs estep_fused_reference", fk, fr, Sk, Sr)
     return err
 
 
@@ -316,33 +367,112 @@ def check_split(gen, B_, T_, K_, D_, gated):
     fk = sf.estep_split(log_pi, log_A, ll, w)
     torch.cuda.synchronize()
     fr = sf.estep_split_reference(log_pi, log_A, ll, w)
-    compare("init_stats", fk.init_stats, fr.init_stats, 0.0, 5e-5)
-    compare("log_z", fk.log_z, fr.log_z, 2e-6, 0.0)
-    compare("trans_stats", fk.trans_stats, fr.trans_stats, 1e-4, 1e-3)
+    compare_estep("estep_split vs estep_split_reference", fk, fr)
     return fwd_err, bwd_err, (pi_t, A_t, ll, a_r, s_r, sh_r, g)
 
 
+def check_duplex(gen, B_, T_, K_, D_, gated):
+    """Phase 3: each duplex kernel against its twin (the combine on the
+    twin's chain outputs, its pair at every chunk's first step read from
+    memory), the chain's forward against the fused forward kernel on the
+    same inputs, then the whole duplex E-step. Returns (the chain's max
+    log_c error, the combine's max gamma error, the inputs)."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import duplex_fb as df
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+
+    log(f"  duplex kernels, (B, T, K, D) = {(B_, T_, K_, D_)}, gated={gated}")
+    log_pi, log_A, W, feats = random_problem(gen, B_, T_, K_, D_)
+    w = svi_masks(gen, B_, T_, max(1, (5 * T_) // 7)) if gated else None
+    pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+    n_chain, n_comb = df.duplex_chain.launches, df.duplex_combine.launches
+    alpha, s, sh, beta = df.duplex_chain(pi_t, A_t, W, feats)
+    torch.cuda.synchronize()
+    require(df.duplex_chain.launches == n_chain + 1, "duplex chain launch was not counted")
+    a_r, s_r, sh_r, b_r = df.duplex_chain_reference(pi_t, A_t, W, feats)
+    log("   duplex_chain_kernel vs duplex_chain_reference")
+    compare("alpha", alpha, a_r, 0.0, 5e-5)
+    compare("s", s, s_r, 0.0, 5e-5)
+    compare("sh", sh, sh_r, 2e-6, 1e-4)
+    compare("beta", beta, b_r, 0.0, 5e-5)  # raw, <= 1 in every entry
+    chain_err = compare("log_c", torch.log(s) + sh, torch.log(s_r) + sh_r, 2e-6, 1e-4)
+    fa, fs, fsh = ff.fused_forward(pi_t, A_t, W, feats)
+    torch.cuda.synchronize()
+    same = [torch.equal(x, y) for x, y in ((alpha, fa), (s, fs), (sh, fsh))]
+    log(f"   chain forward vs fused_fwd_kernel: alpha, s, sh equal bit for bit: {same}")
+    for name, x, y in (("alpha", alpha, fa), ("s", s, fs), ("sh", sh, fsh)):
+        compare(f"{name} (vs fused_fwd_kernel)", x, y, 0.0, 5e-5 if name != "sh" else 1e-4)
+
+    log("   duplex_combine_kernel vs duplex_combine_reference (the same chain outputs in)")
+    got = df.duplex_combine(W, feats, a_r, b_r, sh_r, True, w)
+    torch.cuda.synchronize()
+    require(df.duplex_combine.launches == n_comb + 1, "duplex combine launch was not counted")
+    ref = df.duplex_combine_reference(W, feats, a_r, b_r, sh_r, True, w)
+    comb_err = 0.0
+    for name, x, r, rtol, atol in zip(("gamma", "gamma0", "acc", "eacc"), got, ref,
+                                      (0.0, 0.0, 1e-4, 3e-3), (5e-5, 5e-5, 1e-3, 2e-3)):
+        e = compare(name, x, r, rtol, atol)
+        comb_err = e if name == "gamma" else comb_err
+    if gated:
+        ungated = df.duplex_combine(W, feats, a_r, b_r, sh_r, True)
+        torch.cuda.synchronize()
+        require(torch.equal(ungated[0], got[0]), "the gated combine's gamma is not the ungated one")
+
+    for emit_gamma in (True, False):
+        fk, Sk = df.estep_duplex(log_pi, log_A, W, feats, emit_gamma=emit_gamma, weights=w)
+        torch.cuda.synchronize()
+        fr, Sr = df.estep_duplex_reference(log_pi, log_A, W, feats, emit_gamma, w)
+        compare_estep(f"estep_duplex vs estep_duplex_reference, emit_gamma={emit_gamma}",
+                      fk, fr, Sk, Sr)
+    return chain_err, comb_err, (pi_t, A_t, W, feats, a_r, s_r, sh_r, b_r)
+
+
 def kernel_counts() -> dict[str, int]:
+    from pysvihmm_tpu_torch.messages import duplex_fb as df
     from pysvihmm_tpu_torch.messages import fused_fb as ff
     from pysvihmm_tpu_torch.messages import split_fb as sf
 
     return {"fused_fwd_kernel": ff.fused_forward.launches,
             "fused_bwd_kernel": ff.fused_backward.launches,
             "split_fwd_kernel": sf.split_forward.launches,
-            "split_bwd_kernel": sf.split_backward.launches}
+            "split_bwd_kernel": sf.split_backward.launches,
+            "duplex_chain_kernel": df.duplex_chain.launches,
+            "duplex_combine_kernel": df.duplex_combine.launches}
 
 
 def reset_kernel_counts() -> None:
+    from pysvihmm_tpu_torch.messages import duplex_fb as df
     from pysvihmm_tpu_torch.messages import fused_fb as ff
     from pysvihmm_tpu_torch.messages import split_fb as sf
 
     ff.reset_launch_counts()
     sf.reset_launch_counts()
+    df.reset_launch_counts()
 
 
 ROUTE_KERNELS = {"auto": ("fused_fwd_kernel", "fused_bwd_kernel"),
                  "fused": ("fused_fwd_kernel", "fused_bwd_kernel"),
-                 "split": ("split_fwd_kernel", "split_bwd_kernel")}
+                 "split": ("split_fwd_kernel", "split_bwd_kernel"),
+                 "duplex": ("duplex_chain_kernel", "duplex_combine_kernel")}
+
+
+def require_launches(counts, route, calls: int, what: str) -> None:
+    """Each kernel of ``route`` launched ``calls`` times, every other none."""
+    for name, n in counts.items():
+        want = calls if name in ROUTE_KERNELS[route] else 0
+        require(n == want, f"{what}: {name} launched {n} times, expected {want}")
+
+
+def require_ascending(elbos, what: str) -> None:
+    """A VB ELBO history: finite and non-decreasing (relative drops above
+    MAX_REL_DROP, float32)."""
+    import torch
+
+    e = elbos.double().cpu()
+    require(bool(torch.isfinite(e).all()), f"{what}: non-finite ELBO")
+    rel = (e[1:] - e[:-1]) / e[:-1].abs()
+    require(bool((rel > MAX_REL_DROP).all()), f"{what}: ELBO decreased ({rel.min().item():.3e})")
 
 
 def require_sane_params(params, what: str) -> None:
@@ -372,10 +502,7 @@ def svi_run(route, cfg, p0, prior, chain, seed, steps):
         before = kernel_counts()
         state, m = step(state, prior, chain)
         after = kernel_counts()
-        for name in after:
-            want = 1 if name in ROUTE_KERNELS[route] else 0
-            require(after[name] - before[name] == want,
-                    f"{route} step {i}: {name} launched {after[name] - before[name]} times")
+        require_launches({k: after[k] - before[k] for k in after}, route, 1, f"{route} step {i}")
         torch.cuda.synchronize()
         require(bool(torch.isfinite(m["noisy_elbo"])) and bool(torch.isfinite(m["rho"])),
                 f"{route} step {i}: non-finite noisy ELBO or rho")
@@ -437,6 +564,188 @@ def profile_svi(cfg, p0, prior, chain, steps: int) -> None:
         log(f"    {t / 1e3:9.3f} ms  {100 * t / max(busy, 1e-9):5.1f} %  {name[:90]}")
 
 
+def family_vb(fam, obs, prior, p0, label):
+    """Phase 7: 5 VB iterations on each kernel route from p0, each route's
+    kernels once per iteration; the ELBOs non-decreasing and within
+    ELBO_RTOL of the "fused" route's. Returns (the launch counts by route,
+    the "fused" route's final params)."""
+    import torch
+
+    from pysvihmm_tpu_torch.engines import batch_vb
+
+    elbos, launches = {}, {}
+    for route in ("fused", "split", "duplex"):
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        p, e = batch_vb.fit(p0, prior, obs, fam, num_iters=VB_ITERS, method=route)
+        if route == "fused":
+            fitted = p
+        torch.cuda.synchronize()
+        launches[route] = kernel_counts()
+        require_launches(launches[route], route, VB_ITERS, f"{label} VB on {route}")
+        require_ascending(e, f"{label} VB on {route}")
+        elbos[route] = e.double().cpu()
+        log(f"  {label}, {route}: {time.perf_counter() - t0:.3f} s; ELBO "
+            + ", ".join(f"{x:.6e}" for x in elbos[route].tolist()))
+    for route in ("split", "duplex"):
+        rel = ((elbos[route] - elbos["fused"]).abs() / elbos["fused"].abs()).max().item()
+        log(f"  {label}: max relative ELBO difference {route} vs fused {rel:.3e}")
+        require(rel <= ELBO_RTOL, f"{label}: {route} and fused ELBOs differ by {rel:.3e}")
+    return launches, fitted
+
+
+def check_family_routes(fam, obs, params, gen, label) -> None:
+    """Phase 7: one family's kernel routes at full width against plain code,
+    at the params of its VB fit. Each kernel pair's E-step against its twins
+    on the family's own features and weights (the feature width F and the
+    state count K the family gives: the multinomial's one-hot is F = 64,
+    the kernels' limit, at K = 32), then batch_local_step on "fused",
+    "split" and "duplex" against "scan"; both ungated and gated with SVI-like
+    kept-masks."""
+    import torch
+
+    from pysvihmm_tpu_torch.engines.base import _fused_W, batch_local_step, prepare_fused_obs
+    from pysvihmm_tpu_torch.messages import duplex_fb as df
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.messages import split_fb as sf
+    from pysvihmm_tpu_torch.models.hmm import expected_log_params
+
+    feats = prepare_fused_obs(params, fam, obs)
+    W = _fused_W(fam, params.emit)
+    log_pi, log_A = expected_log_params(params)
+    ll = (feats @ W).contiguous()
+    T_, B_, F_ = feats.shape
+    w = svi_masks(gen, B_, T_, (5 * T_) // 7)  # (T, B), the kernels' layout
+    for weights in (None, w):
+        log(f"  {label}: kernels vs twins, (B, T, K, F) = ({B_}, {T_}, {W.shape[1]}, {F_}), "
+            f"gated={weights is not None}")
+        fk, Sk = ff.estep_fused(log_pi, log_A, W, feats, emit_gamma=True, weights=weights)
+        torch.cuda.synchronize()
+        fr, Sr = ff.estep_fused_reference(log_pi, log_A, W, feats, True, weights)
+        top = fr.gamma.max(dim=-1).values
+        log(f"   max_k gamma: median {top.median().item():.4f}, min {top.min().item():.4f}")
+        compare_estep("estep_fused vs estep_fused_reference", fk, fr, Sk, Sr)
+        fk, Sk = df.estep_duplex(log_pi, log_A, W, feats, emit_gamma=True, weights=weights)
+        torch.cuda.synchronize()
+        fr, Sr = df.estep_duplex_reference(log_pi, log_A, W, feats, True, weights)
+        compare_estep("estep_duplex vs estep_duplex_reference", fk, fr, Sk, Sr)
+        fk = sf.estep_split(log_pi, log_A, ll, weights)
+        torch.cuda.synchronize()
+        fr = sf.estep_split_reference(log_pi, log_A, ll, weights)
+        compare_estep("estep_split vs estep_split_reference", fk, fr)
+    del fk, fr, feats, ll
+    for weights in (None, w.transpose(0, 1).contiguous()):
+        ss, _ = batch_local_step(params, fam, obs, "scan", weights=weights, need_gamma=False)
+        for route in ("fused", "split", "duplex"):
+            sk, _ = batch_local_step(params, fam, obs, route, weights=weights, need_gamma=False)
+            torch.cuda.synchronize()
+            log(f"  {label}: batch_local_step on {route} vs scan, gated={weights is not None}")
+            compare_local_stats(sk, ss)
+
+
+def small_family_fit(fam, gen_fn, kw, prior_kw, iters, restarts, dev, label):
+    """Phase 7: VB on "auto" from ``restarts`` seeds on a small CPU-made
+    dataset moved to the card; the fit of best final ELBO must decode at
+    Hamming error <= 0.05 (single-seed VB can stop in a merged-state
+    optimum; JAX's tests take the best of several restarts the same way)."""
+    import torch
+
+    from pysvihmm_tpu_torch.engines import batch_vb
+    from pysvihmm_tpu_torch.engines.base import decode
+    from pysvihmm_tpu_torch.eval.metrics import hamming_error
+    from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
+
+    o, z, _ = gen_fn(torch.Generator().manual_seed(0), **kw)
+    o = o.to(dev)
+    K_ = kw["K"]
+    prior = make_prior(K_, fam, device=dev, **prior_kw)
+    best = None
+    for r in range(restarts):
+        p = init_params(torch.Generator().manual_seed(100 + r), prior, fam, o)
+        p, e = batch_vb.fit(p, prior, o, fam, num_iters=iters)
+        require_ascending(e, f"{label} small fit, restart {r}")
+        if best is None or e[-1].item() > best[1]:
+            best = (p, e[-1].item())
+    ham = hamming_error(decode(best[0], fam, o), z, K_)
+    log(f"  {label} small fit ({kw}, best of {restarts} x {iters} iterations): "
+        f"ELBO {best[1]:.6e}, Hamming error {ham:.4f}")
+    require(ham <= 0.05, f"{label}: Hamming error {ham} > 0.05 after the small fit")
+
+
+def families_phase(dev) -> dict[str, dict[str, int]]:
+    """Phase 7: the diagonal-Gaussian, Poisson and multinomial families at
+    full width on every kernel route, the large-vocabulary multinomial, and
+    a small fit per family. Returns the VB launch counts by family and route."""
+    import torch
+
+    from pysvihmm_tpu_torch.data import synthetic
+    from pysvihmm_tpu_torch.distributions import (
+        DiagonalGaussianNIG,
+        MultinomialDirichlet,
+        PoissonGamma,
+    )
+    from pysvihmm_tpu_torch.engines.base import batch_local_step
+    from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    launches = {}
+    # the diagonal Gaussian's states overlap as phase 3's do, so that its
+    # posteriors stay soft and the checks against plain code see rounding
+    for label, fam, gen_fn, size, data_kw, prior_kw in (
+        ("diag_gaussian", DiagonalGaussianNIG, synthetic.gen_diag_gaussian_dataset, D,
+         dict(mean_scale=0.5, var_scale=1.0), dict(obs_dim=D)),
+        ("poisson", PoissonGamma, synthetic.gen_poisson_dataset, D, {}, dict(obs_dim=D)),
+        ("multinomial", MultinomialDirichlet, synthetic.gen_multinomial_dataset, 64, {},
+         dict(num_symbols=64)),
+    ):
+        K_ = 32 if fam is MultinomialDirichlet else K
+        obs, _, _ = gen_fn(gen, K_, size, B, T, **data_kw)
+        prior = make_prior(K_, fam, device=dev, **prior_kw)
+        p0 = init_params(gen, prior, fam, obs)
+        log(f"  {label}: K={K_}, {'V' if fam is MultinomialDirichlet else 'D'}={size}, "
+            f"B={B}, T={T}")
+        launches[label], fitted = family_vb(fam, obs, prior, p0, label)
+        check_family_routes(fam, obs, fitted, gen, label)
+
+    log(f"  multinomial at V=1000 (K=32, B={B}, T={T}) on fused: the split kernels, against scan")
+    V_big = 1000
+    obs, _, _ = synthetic.gen_multinomial_dataset(gen, 32, V_big, B, T)
+    prior = make_prior(32, MultinomialDirichlet, num_symbols=V_big, device=dev)
+    p0 = init_params(gen, prior, MultinomialDirichlet, obs)
+    reset_kernel_counts()
+    sk, _ = batch_local_step(p0, MultinomialDirichlet, obs, "fused", need_gamma=False)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    log(f"  launches: {counts}")
+    require_launches(counts, "split", 1, "multinomial V=1000 on fused")
+    ss, _ = batch_local_step(p0, MultinomialDirichlet, obs, "scan", need_gamma=False)
+    compare_local_stats(sk, ss)
+
+    log("  multinomial at V=100: a one-hot width the fused and duplex kernels do not take")
+    obs, _, _ = synthetic.gen_multinomial_dataset(gen, 4, 100, 8, 20)
+    prior = make_prior(4, MultinomialDirichlet, num_symbols=100, device=dev)
+    p0 = init_params(gen, prior, MultinomialDirichlet, obs)
+    for route in ("fused", "duplex"):
+        try:
+            batch_local_step(p0, MultinomialDirichlet, obs, route)
+        except NotImplementedError as e:
+            log(f"    {route}: NotImplementedError: {e}")
+        else:
+            raise RuntimeError(f"V=100 on {route} did not raise")
+
+    small_family_fit(DiagonalGaussianNIG, synthetic.gen_diag_gaussian_dataset,
+                     dict(K=4, D=2, num_seqs=20, T=200, mean_scale=6.0, var_scale=0.3),
+                     dict(obs_dim=2), 50, 4, dev, "diag_gaussian")
+    small_family_fit(PoissonGamma, synthetic.gen_poisson_dataset,
+                     dict(K=4, D=8, num_seqs=20, T=200, rate_scale=25.0),
+                     dict(obs_dim=8), 50, 4, dev, "poisson")
+    small_family_fit(MultinomialDirichlet, synthetic.gen_multinomial_dataset,
+                     dict(K=4, V=16, num_seqs=20, T=200, concentration=0.1, self_prob=0.95),
+                     dict(num_symbols=16), 100, 8, dev, "multinomial")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -457,6 +766,7 @@ def main() -> int:
         windowed_local_step,
     )
     from pysvihmm_tpu_torch.eval.metrics import hamming_error
+    from pysvihmm_tpu_torch.messages import duplex_fb as df
     from pysvihmm_tpu_torch.messages import fused_fb as ff
     from pysvihmm_tpu_torch.messages import resolve_method
     from pysvihmm_tpu_torch.messages import split_fb as sf
@@ -475,7 +785,7 @@ def main() -> int:
     log(f"precision policy: {f32_matmuls()}")
 
     log("== phase 2: build")
-    libs = ("fused_fb", "split_fb")
+    libs = ("fused_fb", "split_fb", "duplex_fb")
     t0 = time.perf_counter()
     _build.build(list(libs))
     for name in libs:
@@ -503,6 +813,10 @@ def main() -> int:
                 split_err["split_bwd_kernel"] = max(split_err["split_bwd_kernel"], e_b)
                 if not gated:
                     split_inputs = inputs
+    check_duplex(gen, 8, 50, 4, 2, False)
+    check_duplex(gen, 8, 50, 4, 2, True)
+    chain_err, comb_err, duplex_inputs = check_duplex(gen, B, T, K, D, False)
+    check_duplex(gen, B, SVI_W, K, D, True)
 
     log("== phase 4: batch VB at B=1024, T=1000, K=64, D=8")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -519,9 +833,7 @@ def main() -> int:
     fit_s = time.perf_counter() - t0
     vb_launches = kernel_counts()
     log(f"launches during the {VB_ITERS}-iteration fit: {vb_launches}")
-    for name, n in vb_launches.items():
-        want = VB_ITERS if name in ROUTE_KERNELS["auto"] else 0
-        require(n == want, f"{name} launched {n} times in {VB_ITERS} iterations")
+    require_launches(vb_launches, "auto", VB_ITERS, f"{VB_ITERS}-iteration fit")
     e = elbos.double().cpu()
     log("ELBO per iteration: " + ", ".join(f"{x:.6e}" for x in e.tolist()))
     require(bool(torch.isfinite(e).all()), "non-finite ELBO")
@@ -539,6 +851,27 @@ def main() -> int:
     lb = lower_bound(params, prior, GaussianNIW, obs).item()
     require(math.isfinite(lb), "non-finite lower bound")
     log(f"lower_bound (exact) after the fit: {lb:.6e}")
+
+    log(f"  the same {VB_ITERS} iterations through method=\"duplex\"")
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    params_d, elbos_d = batch_vb.fit(p0, prior, obs, GaussianNIW, num_iters=VB_ITERS,
+                                     method="duplex")
+    torch.cuda.synchronize()
+    duplex_s = time.perf_counter() - t0
+    vb_duplex_launches = kernel_counts()
+    log(f"  launches: {vb_duplex_launches}")
+    require_launches(vb_duplex_launches, "duplex", VB_ITERS, f"{VB_ITERS}-iteration duplex fit")
+    require_ascending(elbos_d, "duplex VB")
+    ed = elbos_d.double().cpu()
+    rel = ((ed - e).abs() / e.abs()).max().item()
+    log("  ELBO per iteration: " + ", ".join(f"{x:.6e}" for x in ed.tolist())
+        + f"; max relative difference from auto {rel:.3e} ({duplex_s:.3f} s)")
+    require(rel <= ELBO_RTOL, f"duplex and auto ELBOs differ by {rel:.3e}")
+    lb_d = lower_bound(params, prior, GaussianNIW, obs, "duplex").item()
+    log(f"  lower_bound on duplex {lb_d:.6e} (fused {lb:.6e})")
+    require(abs(lb_d - lb) <= ELBO_RTOL * abs(lb), "duplex and fused lower bounds differ")
 
     log("  canonical small fit: K=4, D=2, 20 x 200, mean_scale=6, cov_scale=0.3, 50 iterations")
     g_small = torch.Generator().manual_seed(0)
@@ -559,6 +892,7 @@ def main() -> int:
     pi_t, A_t, W, feats, a_r, s_r, sh_r = full_inputs
     F = feats.shape[-1]
     spi_t, A_s, ll, sa_r, ss_r, ssh_r, _ = split_inputs
+    dpi_t, A_d, W_d, feats_d, da_r, ds_r, dsh_r, db_r = duplex_inputs
     timed = {
         "fused_fwd_kernel": (lambda: ff.fused_forward(pi_t, A_t, W, feats),
                              lambda: ff.forward_reference(pi_t, A_t, W, feats)),
@@ -568,6 +902,11 @@ def main() -> int:
                              lambda: sf.split_forward_reference(spi_t, A_s, ll)),
         "split_bwd_kernel": (lambda: sf.split_backward(A_s, ll, sa_r, ss_r, ssh_r),
                              lambda: sf.split_backward_reference(A_s, ll, sa_r, ss_r, ssh_r)),
+        "duplex_chain_kernel": (lambda: df.duplex_chain(dpi_t, A_d, W_d, feats_d),
+                                lambda: df.duplex_chain_reference(dpi_t, A_d, W_d, feats_d)),
+        "duplex_combine_kernel": (
+            lambda: df.duplex_combine(W_d, feats_d, da_r, db_r, dsh_r),
+            lambda: df.duplex_combine_reference(W_d, feats_d, da_r, db_r, dsh_r)),
     }
     ms, plain_ms, bounds = {}, {}, {}
     for name, (kernel, plain) in timed.items():
@@ -587,6 +926,8 @@ def main() -> int:
             lambda: ff.fused_backward(A_t, W, feats, a_r, s_r, sh_r, False, w_full), 10),
         "split_bwd_kernel": cuda_ms(
             lambda: sf.split_backward(A_s, ll, sa_r, ss_r, ssh_r, g_full), 10),
+        "duplex_combine_kernel": cuda_ms(
+            lambda: df.duplex_combine(W_d, feats_d, da_r, db_r, dsh_r, False, w_full), 10),
     }
     for name, t_ms in gated_ms.items():
         log(f"{name}, gated: {t_ms:.3f} ms (ungated {ms[name]:.3f} ms) at (B, T, K, F) = "
@@ -600,6 +941,7 @@ def main() -> int:
     ll_w = (f_w @ W_w).contiguous()
     fa, fs, fsh = ff.fused_forward(pi_w, A_w, W_w, f_w)
     sa, ss, ssh = sf.split_forward(pi_w, A_w, ll_w)
+    da, _, dsh, db = df.duplex_chain(pi_w, A_w, W_w, f_w)
     g_w = sf.pair_gate(m_w)
     at_w = {
         "fused_fwd_kernel": (lambda: ff.fused_forward(pi_w, A_w, W_w, f_w), {}),
@@ -608,6 +950,9 @@ def main() -> int:
         "split_fwd_kernel": (lambda: sf.split_forward(pi_w, A_w, ll_w), {}),
         "split_bwd_kernel": (lambda: sf.split_backward(A_w, ll_w, sa, ss, ssh, g_w),
                              {"gated": True}),
+        "duplex_chain_kernel": (lambda: df.duplex_chain(pi_w, A_w, W_w, f_w), {}),
+        "duplex_combine_kernel": (lambda: df.duplex_combine(W_w, f_w, da, db, dsh, True, m_w),
+                                  {"gated": True, "emit_gamma": True}),
     }
     for name, (kernel, kw) in at_w.items():
         t_ms = cuda_ms(kernel, 20)
@@ -630,7 +975,7 @@ def main() -> int:
         return tot
 
     estep_ms = {}
-    for route in ("fused", "split", "scan"):
+    for route in ("fused", "split", "duplex", "scan"):
         estep_ms[route] = cuda_ms(lambda: estep(route), TIMED_ITERS, warmup=2)
         require(bool(torch.isfinite(estep(route))), f"non-finite statistics on route {route}")
         log(f"E-step route {route}: {estep_ms[route]:.3f} ms, {B / (estep_ms[route] / 1e3):.1f} "
@@ -650,7 +995,7 @@ def main() -> int:
     for Bs in SVI_BATCHES:
         cfg = svi.SVIConfig(batch_size=Bs, subchain_len=SVI_L, buffer=SVI_BUF)
         line = []
-        for route in ("fused", "split", "scan"):
+        for route in ("fused", "split", "duplex", "scan"):
             t_ms = svi_step_ms(route, cfg, p0, prior, chain, SVI_STEPS)
             line.append(f"{route} {t_ms:.3f} ms ({Bs * SVI_W / t_ms * 1e3:.4g} window obs/s)")
         log(f"SVI step, B={Bs}, L={SVI_L}, b={SVI_BUF}, W={SVI_W}, {SVI_STEPS} chained steps: "
@@ -662,7 +1007,7 @@ def main() -> int:
     log(f"== phase 6: windowed SVI at K={K}, D={D}, T={SVI_T}, B={B}, L={SVI_L}, b={SVI_BUF}")
     cfg = svi.SVIConfig(batch_size=B, subchain_len=SVI_L, buffer=SVI_BUF)
     svi_launches = {}
-    for route in ("auto", "split"):
+    for route in ("auto", "split", "duplex"):
         t0 = time.perf_counter()
         state, ne, counts = svi_run(route, cfg, p0, prior, chain, seed=11, steps=SVI_STEPS)
         log(f"  {route}: {SVI_STEPS} steps checked in {time.perf_counter() - t0:.2f} s; "
@@ -672,7 +1017,8 @@ def main() -> int:
         for name in ROUTE_KERNELS[route]:
             svi_launches[name] = counts[name]
 
-    log("  one step's statistics on both routes, same windows (the split run's final params)")
+    log("  one step's statistics on every kernel route, same windows (the duplex run's final "
+        "params)")
     starts = torch.randint(0, SVI_T - SVI_L + 1, (B,), generator=gen, device=dev)
     ws = torch.clamp(starts - SVI_BUF, 0, SVI_T - SVI_W)
     offs = starts - ws
@@ -680,18 +1026,20 @@ def main() -> int:
     pos = torch.arange(SVI_W, device=dev)[None, :]
     maskf = ((pos >= offs[:, None]) & (pos < offs[:, None] + SVI_L)).float()
     out = {r: windowed_local_step(state.params, GaussianNIW, windows, maskf, offs, r)
-           for r in ("fused", "split")}
+           for r in ("fused", "split", "duplex")}
     top = out["split"][2].max(dim=1).values
     log(f"  max_k gamma at the window starts: min {top.min().item():.4f}, "
         f"median {top.median().item():.4f}")
     require(top.median().item() < 0.99, "phase-6 posteriors are saturated; the check sees little")
     # the fused route computes ll in-kernel (an fmaf chain), the split route
     # as one cuBLAS float32 product: another rounding of the same numbers
-    for name, a, b in zip(("n", "sum_y", "sum_yyT"), out["fused"][0], out["split"][0]):
-        compare(f"emit {name}", a, b, 3e-3, 2e-3)
-    compare("trans_stats", out["fused"][1], out["split"][1], 1e-4, 1e-3)
-    compare("gamma_at_start", out["fused"][2], out["split"][2], 0.0, 5e-5)
-    compare("log_c", out["fused"][3], out["split"][3], 2e-6, 1e-4)
+    for other in ("split", "duplex"):
+        log(f"   fused vs {other}")
+        for name, a, b in zip(("n", "sum_y", "sum_yyT"), out["fused"][0], out[other][0]):
+            compare(f"emit {name}", a, b, 3e-3, 2e-3)
+        compare("trans_stats", out["fused"][1], out[other][1], 1e-4, 1e-3)
+        compare("gamma_at_start", out["fused"][2], out[other][2], 0.0, 5e-5)
+        compare("log_c", out["fused"][3], out[other][3], 2e-6, 1e-4)
 
     log("  small SVI fit on auto: K=4, D=2, T=3000, B=16, L=50, b=10, tau=10, kappa=0.6, "
         "300 steps")
@@ -718,23 +1066,34 @@ def main() -> int:
     require(bool(torch.isfinite(ne).all()), "non-finite noisy ELBO in the small fit")
     require(ham < 0.05, f"Hamming error {ham} >= 0.05 after the small SVI fit")
 
-    errs = {"fused_fwd_kernel": fwd_err, "fused_bwd_kernel": bwd_err, **split_err}
+    log(f"== phase 7: the other emission families at B={B}, T={T}")
+    t0 = time.perf_counter()
+    fam_launches = families_phase(dev)
+    log(f"  phase 7 took {time.perf_counter() - t0:.1f} s; VB launches by family and route: "
+        + json.dumps(fam_launches))
+
+    errs = {"fused_fwd_kernel": fwd_err, "fused_bwd_kernel": bwd_err, **split_err,
+            "duplex_chain_kernel": chain_err, "duplex_combine_kernel": comb_err}
     kernels = []
-    for name, src, line in (
-        ("fused_fwd_kernel", "fused_fb.cu", 516), ("fused_bwd_kernel", "fused_fb.cu", 577),
-        ("split_fwd_kernel", "split_fb.cu", 339), ("split_bwd_kernel", "split_fb.cu", 406),
+    for name, src, replaces in (
+        ("fused_fwd_kernel", "fused_fb.cu", "pallas_fb.py:516"),
+        ("fused_bwd_kernel", "fused_fb.cu", "pallas_fb.py:577"),
+        ("split_fwd_kernel", "split_fb.cu", "pallas_fb.py:339"),
+        ("split_bwd_kernel", "split_fb.cu", "pallas_fb.py:406"),
+        ("duplex_chain_kernel", "duplex_fb.cu", "pallas_duplex.py:82"),
+        ("duplex_combine_kernel", "duplex_fb.cu", "pallas_duplex.py:175"),
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": f"pysvihmm_tpu_torch/csrc/{src}",
-            "replaces": f"pysvihmm_tpu/messages/pallas_fb.py:{line}",
+            "replaces": f"pysvihmm_tpu/messages/{replaces}",
             "launches": svi_launches[name], "max_abs_err": errs[name],
             "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "library_ms": None,
         })
     log(f"total {time.perf_counter() - t_start:.1f} s; in the kernels line: launches over the "
-        f"{SVI_STEPS} SVI steps of each kernel's route (phase 6); max_abs_err the forward's log_c "
-        f"(nats) and the backward's gamma at B={B}, T={T}; ms, plain_ms and bound_ms at "
-        f"(B, T, K, F) = ({B}, {T}, {K}, {F}), ungated")
+        f"{SVI_STEPS} SVI steps of each kernel's route (phase 6); max_abs_err the forward's and "
+        f"the chain's log_c (nats), the backward's and the combine's gamma at B={B}, T={T}; ms, "
+        f"plain_ms and bound_ms at (B, T, K, F) = ({B}, {T}, {K}, {F}), ungated")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,7 +3,7 @@
 Stochastic variational inference for Bayesian HMMs on an NVIDIA GPU. The
 JAX package ``pysvihmm_tpu`` stays beside it as the reference that every
 part of the port is tested against; this package imports neither it nor
-JAX. This slice carries batch VB over the fused E-step for Gaussian-NIW
-emissions, with the E-step's two kernels written in CUDA
-(``csrc/fused_fb.cu``, built with nvcc at first use).
+JAX. It carries batch VB and windowed subchain SVI for the four emission
+families, over E-step kernels written in CUDA (``csrc/*.cu``, built with
+nvcc at first use).
 """

@@ -61,32 +61,15 @@
 
 namespace {
 
+using fbc::FMAX;
 using fbc::KMAX;
+using fbc::ll_dot;
+using fbc::load_W;
 using fbc::NT;
 using fbc::NWARP;
 using fbc::SUM_FLOOR;
 using fbc::warp_max;
 using fbc::warp_sum;
-
-constexpr int FMAX = 64;  // largest feature width F the kernels take
-
-// One step's log-likelihood for state k: the same explicit fmaf chain in both
-// kernels, so the backward's recomputation matches the forward bit for bit.
-__device__ __forceinline__ float ll_dot(const float* f, const float* W_s, int k,
-                                        int F) {
-  float acc = 0.f;
-  for (int i = 0; i < F; ++i) acc = fmaf(f[i], W_s[i * KMAX + k], acc);
-  return acc;
-}
-
-// W (F, K) row-major -> W_s[f * KMAX + k], zero outside (F, K).
-__device__ __forceinline__ void load_W(const float* __restrict__ W, float* W_s,
-                                       int K, int F) {
-  for (int idx = threadIdx.x; idx < FMAX * KMAX; idx += NT) {
-    const int f = idx / KMAX, k = idx % KMAX;
-    W_s[idx] = (f < F && k < K) ? W[f * K + k] : 0.f;
-  }
-}
 
 __global__ void __launch_bounds__(NT)
 fused_fwd_kernel(const float* __restrict__ pi, const float* __restrict__ A,

@@ -1,5 +1,22 @@
-from . import dirichlet, niw
-from .emissions import GaussianNIW
+from . import diag_gaussian, dirichlet, niw, poisson
+from .diag_gaussian import NIG, DiagGaussianStats
+from .emissions import DiagonalGaussianNIG, GaussianNIW, MultinomialDirichlet, PoissonGamma
 from .niw import NIW, GaussianStats
+from .poisson import GammaP, PoissonStats
 
-__all__ = ["dirichlet", "niw", "GaussianNIW", "NIW", "GaussianStats"]
+__all__ = [
+    "diag_gaussian",
+    "dirichlet",
+    "niw",
+    "poisson",
+    "DiagGaussianStats",
+    "DiagonalGaussianNIG",
+    "GammaP",
+    "GaussianNIW",
+    "GaussianStats",
+    "MultinomialDirichlet",
+    "NIG",
+    "NIW",
+    "PoissonGamma",
+    "PoissonStats",
+]

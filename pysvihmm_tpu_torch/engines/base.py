@@ -13,15 +13,19 @@ from typing import NamedTuple
 import torch
 
 from .. import messages
+from ..distributions import dirichlet
+from ..distributions.emissions import MultinomialDirichlet
+from ..messages.duplex_fb import estep_duplex
 from ..messages.fused_fb import estep_fused
 from ..messages.scan_fb import FBResult
 from ..messages.split_fb import estep_split
 from ..models.hmm import (
+    ONE_HOT_MAX_V,
     HMMParams,
+    check_family,
     emission_flat_stats,
     expected_log_params,
     global_kl,
-    require_ported_family,
 )
 from ..utils.precision import f32_matmuls
 
@@ -35,20 +39,40 @@ class LocalStats(NamedTuple):
     log_z: torch.Tensor  # () summed variational log-normaliser
 
 
-def prepare_fused_obs(params: HMMParams, emission, obs: torch.Tensor) -> torch.Tensor:
-    """The fused E-step's observation side, built once.
+def _large_vocab(emission, emit_params) -> bool:
+    """A multinomial above ``ONE_HOT_MAX_V`` symbols: its fused and duplex
+    routes run the split kernels over gathered likelihoods."""
+    return emission is MultinomialDirichlet and emit_params.shape[-1] > ONE_HOT_MAX_V
 
-    Returns the time-major feature array (T, B, F) as contiguous float32.
-    It depends on the data only, so engines whose data is fixed across
+
+def prepare_fused_obs(params: HMMParams, emission, obs: torch.Tensor) -> torch.Tensor | None:
+    """The fused and duplex E-steps' observation side, built once.
+
+    Returns the time-major feature array (T, B, F) as contiguous float32:
+    the family's ``ell_features``, or for the multinomial the one-hot
+    (T, B, V) of its int observations (B, T). None for a multinomial above
+    ``ONE_HOT_MAX_V`` symbols, whose kernel routes take no features. It
+    depends on the data only, so engines whose data is fixed across
     iterations (batch VB) build it once and pass it as ``prepared=``."""
-    require_ported_family(emission)
-    feats = emission.ell_features(obs.transpose(0, 1))
+    check_family(emission)
+    obs_tm = obs.transpose(0, 1)
+    if emission is MultinomialDirichlet:
+        if _large_vocab(emission, params.emit):
+            return None
+        feats = torch.nn.functional.one_hot(obs_tm.long(), params.emit.shape[-1])
+    else:
+        feats = emission.ell_features(obs_tm)
     return feats.to(torch.float32).contiguous()
 
 
 def _fused_W(emission, emit_params) -> torch.Tensor:
-    """The fused kernels' (F, K) float32 weight matrix, rebuilt every step."""
-    return emission.ell_feature_matrix(emit_params).to(torch.float32).contiguous()
+    """The kernels' (F, K) float32 weight matrix, rebuilt every step:
+    E[log phi]^T for the multinomial (its one-hot features pick a row)."""
+    if emission is MultinomialDirichlet:
+        W = dirichlet.expected_log_probs(emit_params).T
+    else:
+        W = emission.ell_feature_matrix(emit_params)
+    return W.to(torch.float32).contiguous()
 
 
 def _time_major_weights(weights: torch.Tensor | None) -> torch.Tensor | None:
@@ -58,6 +82,11 @@ def _time_major_weights(weights: torch.Tensor | None) -> torch.Tensor | None:
     return weights.to(torch.float32).transpose(0, 1).contiguous()
 
 
+_FUSED_ESTEPS = {"fused": estep_fused, "duplex": estep_duplex}
+# the routes whose kernels take the feature array of :func:`prepare_fused_obs`
+FEATURE_ROUTES = tuple(_FUSED_ESTEPS)
+
+
 def _fused_estep(
     params: HMMParams,
     emission,
@@ -65,13 +94,18 @@ def _fused_estep(
     weights: torch.Tensor | None = None,
     need_gamma: bool = True,
     prepared: torch.Tensor | None = None,
+    method: str = "fused",
 ) -> tuple[FBResult, object]:
-    """The fused route (JAX's ``_pallas_fused_estep``): returns (FBResult
-    with gamma (T, B, K) time-major, or None; emission stats), the stats
-    kept-mask-gated in-kernel when ``weights`` (B, T) is given."""
+    """The fused and duplex routes (JAX's ``_pallas_fused_estep``, the duplex
+    one with ``PYSVIHMM_DUPLEX`` set): returns (FBResult with gamma (T, B, K)
+    time-major, or None; emission stats), the stats kept-mask-gated in-kernel
+    when ``weights`` (B, T) is given. A multinomial above ``ONE_HOT_MAX_V``
+    symbols runs the split route instead, as in JAX (engines/base.py:547)."""
+    if _large_vocab(emission, params.emit):
+        return _split_estep(params, emission, obs, weights)
     feats = prepare_fused_obs(params, emission, obs) if prepared is None else prepared
     log_pi, log_A = expected_log_params(params)
-    fb, S = estep_fused(
+    fb, S = _FUSED_ESTEPS[method](
         log_pi, log_A, _fused_W(emission, params.emit), feats,
         emit_gamma=need_gamma, weights=_time_major_weights(weights),
     )
@@ -86,16 +120,25 @@ def _split_estep(
 
     The likelihoods are one float32 ``feats @ W`` product outside the
     kernels (JAX leaves it to XLA), time-major so no (B, T, K) transpose
-    feeds the kernels. The same feature array is the observation side of
-    the emission statistics, (w * gamma)^T @ feats, taken outside the
+    feeds the kernels, and the same feature array is the observation side
+    of the emission statistics, (w * gamma)^T @ feats, taken outside the
     kernels as ``_packed_emission_stats`` does (engines/base.py:751-829 of
-    the JAX package)."""
+    the JAX package). The multinomial has no features: its likelihoods are
+    gathered, and its statistics are the one-hot product or, above
+    ``ONE_HOT_MAX_V`` symbols, a segment-sum (``emission_flat_stats``)."""
+    check_family(emission)
+    w_tm = _time_major_weights(weights)
+    log_pi, log_A = expected_log_params(params)
+    if emission is MultinomialDirichlet:
+        obs_tm = obs.transpose(0, 1)
+        ll = emission.expected_log_likelihood(params.emit, obs_tm).to(torch.float32)
+        fb = estep_split(log_pi, log_A, ll.contiguous(), w_tm)
+        gamma_w = fb.gamma if w_tm is None else fb.gamma * w_tm[..., None]
+        return fb, emission_flat_stats(emission, params.emit, gamma_w, obs_tm)
     feats = prepare_fused_obs(params, emission, obs)  # (T, B, F)
     T, B, F = feats.shape
     K = params.init.shape[0]
     ll = torch.matmul(feats, _fused_W(emission, params.emit))  # (T, B, K)
-    w_tm = _time_major_weights(weights)
-    log_pi, log_A = expected_log_params(params)
     fb = estep_split(log_pi, log_A, ll, w_tm)
     gamma_w = fb.gamma if w_tm is None else fb.gamma * w_tm[..., None]
     S = gamma_w.reshape(T * B, K).T @ feats.reshape(T * B, F)
@@ -112,14 +155,17 @@ def batch_local_step(
     prepared: torch.Tensor | None = None,
     exact: bool = False,
 ) -> tuple[LocalStats, torch.Tensor | None]:
-    """Full local update over a batch of sequences obs (B, T, D).
+    """Full local update over a batch of sequences obs (B, T, D), or int obs
+    (B, T) for the multinomial.
 
     Returns (summed stats, gamma (B, T, K), or None when need_gamma=False).
     method "auto" resolves by obs' device: "fused" (the two fused CUDA
     kernels: likelihoods, forward-backward and emission stats in-kernel) on
     CUDA, "scan" (plain PyTorch over materialised likelihoods) on CPU.
     "split" runs the split CUDA kernels over likelihoods computed outside
-    them. The kernel routes run their kernels' plain twins on CPU tensors.
+    them, "duplex" the duplex kernels (both chains in one kernel, the
+    statistics chain-free in a second). The kernel routes run their
+    kernels' plain twins on CPU tensors.
     weights: optional (B, T) kept-mask; it gates init_stats (w_0),
     trans_stats (pairs w_{t-1} w_t) and the emission stats on every route,
     and never the chain: gamma comes out ungated.
@@ -132,19 +178,20 @@ def batch_local_step(
     f32_matmuls()
     method = messages.resolve_method(method, obs.device)
 
-    if method in ("fused", "split"):
-        if method == "fused":
-            fb, emit_stats = _fused_estep(params, emission, obs, weights, need_gamma, prepared)
-        else:
-            fb, emit_stats = _split_estep(params, emission, obs, weights)
-        gamma = fb.gamma.transpose(0, 1) if need_gamma else None
-    else:
+    if method == "scan":
         log_pi, log_A = expected_log_params(params)
         ll = emission.expected_log_likelihood(params.emit, obs)  # (B, T, K)
         fb = messages.e_step_batched(log_pi, log_A, ll, weights=weights, method="scan")
         gamma_w = fb.gamma if weights is None else fb.gamma * weights[..., None]
         emit_stats = emission_flat_stats(emission, params.emit, gamma_w, obs)
         gamma = fb.gamma if need_gamma else None
+    else:
+        if method == "split":
+            fb, emit_stats = _split_estep(params, emission, obs, weights)
+        else:
+            fb, emit_stats = _fused_estep(params, emission, obs, weights, need_gamma, prepared,
+                                          method)
+        gamma = fb.gamma.transpose(0, 1) if need_gamma else None
     stats = LocalStats(
         init=fb.init_stats.sum(dim=0),
         trans=fb.trans_stats,
@@ -157,7 +204,7 @@ def batch_local_step(
 def windowed_local_step(
     params: HMMParams,
     emission,
-    windows: torch.Tensor,  # (B, W, D)
+    windows: torch.Tensor,  # (B, W, D), or (B, W) int for the multinomial
     maskf: torch.Tensor,  # (B, W) kept-mask (0/1 floats)
     offs: torch.Tensor,  # (B,) kept-region offset inside each window
     method: str = "auto",
@@ -176,16 +223,16 @@ def windowed_local_step(
     f32_matmuls()
     method = messages.resolve_method(method, windows.device)
     rows = torch.arange(windows.shape[0], device=windows.device)
-    if method in ("fused", "split"):
-        if method == "fused":
-            fb, emit_stats = _fused_estep(params, emission, windows, maskf, need_gamma=True)
-        else:
-            fb, emit_stats = _split_estep(params, emission, windows, maskf)
+    if method == "split":
+        fb, emit_stats = _split_estep(params, emission, windows, maskf)
+        return emit_stats, fb.trans_stats, fb.gamma[offs, rows], fb.log_c
+    if method in FEATURE_ROUTES:
+        fb, emit_stats = _fused_estep(params, emission, windows, maskf, method=method)
         return emit_stats, fb.trans_stats, fb.gamma[offs, rows], fb.log_c
 
     log_pi, log_A = expected_log_params(params)
     ll = emission.expected_log_likelihood(params.emit, windows)
-    fb = messages.e_step_batched(log_pi, log_A, ll, weights=maskf, method=method)
+    fb = messages.e_step_batched(log_pi, log_A, ll, weights=maskf, method="scan")
     gamma_w = fb.gamma * maskf[..., None]
     emit_stats = emission_flat_stats(emission, params.emit, gamma_w, windows)
     return emit_stats, fb.trans_stats, fb.gamma[rows, offs], fb.log_c

@@ -2,7 +2,7 @@
 ``pysvihmm_tpu/engines/batch_vb.py``).
 
 Per iteration: a full local step over all sequences, then the exact
-conjugate global update (Dirichlet and NIW posteriors). The ELBO sequence
+conjugate global update (the Dirichlet posteriors and the emission family's). The ELBO sequence
 is non-decreasing, a real invariant of coordinate-ascent VB. ``lax.scan``
 over iterations becomes a Python loop.
 """
@@ -16,15 +16,15 @@ import torch
 from .. import messages
 from ..distributions import dirichlet
 from ..models.hmm import HMMParams
-from .base import batch_local_step, elbo_from_stats, prepare_fused_obs
+from .base import FEATURE_ROUTES, batch_local_step, elbo_from_stats, prepare_fused_obs
 
 Step = Callable[..., tuple[HMMParams, torch.Tensor]]
 
 
 def make_step(emission, method: str = "auto") -> Step:
     """The coordinate-ascent step: (params, prior, obs, prepared=None) ->
-    (params', ELBO at params). ``prepared`` is the fused route's feature
-    array (:func:`prepare_fused_obs`), built once outside the loop."""
+    (params', ELBO at params). ``prepared`` is the fused and duplex routes'
+    feature array (:func:`prepare_fused_obs`), built once outside the loop."""
 
     def step(params: HMMParams, prior: HMMParams, obs: torch.Tensor, prepared=None):
         stats, _ = batch_local_step(
@@ -52,10 +52,11 @@ def fit(
     """Run ``num_iters`` coordinate-ascent iterations.
 
     Returns (final params, ELBO history (num_iters,) on obs' device). On the
-    fused route the data-only feature array is built once, outside the loop.
+    fused and duplex routes the data-only feature array is built once,
+    outside the loop.
     """
     method = messages.resolve_method(method, obs.device)
-    prepared = prepare_fused_obs(params, emission, obs) if method == "fused" else None
+    prepared = prepare_fused_obs(params, emission, obs) if method in FEATURE_ROUTES else None
     step = make_step(emission, method)
     elbos = []
     for _ in range(num_iters):

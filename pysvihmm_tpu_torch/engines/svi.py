@@ -44,7 +44,7 @@ from typing import NamedTuple
 import torch
 
 from .. import messages
-from ..distributions import dirichlet, niw
+from ..distributions import diag_gaussian, dirichlet, niw
 from ..models.hmm import HMMParams, global_kl
 from ..utils.schedules import AdaptiveState, adaptive_init, adaptive_update, power_schedule
 from .base import batch_local_step, windowed_local_step
@@ -68,13 +68,19 @@ class SVIState(NamedTuple):
     adapt: AdaptiveState | None = None  # when cfg.adaptive
 
 
+def _emit_leaves(emit) -> list[torch.Tensor]:
+    """The emission params' tensors: the fields of an NIW, NIG or GammaP, or
+    the multinomial's (K, V) tensor itself."""
+    return [emit] if isinstance(emit, torch.Tensor) else list(emit)
+
+
 def init_state(
     params: HMMParams, generator: torch.Generator, adaptive: bool = False
 ) -> SVIState:
     dev = params.init.device
     adapt = None
     if adaptive:
-        dim = sum(x.numel() for x in (params.init, params.trans, *params.emit))
+        dim = sum(x.numel() for x in (params.init, params.trans, *_emit_leaves(params.emit)))
         adapt = adaptive_init(dim, params.init.dtype, device=dev)
     return SVIState(
         params=params,
@@ -87,7 +93,12 @@ def init_state(
 def _nat_flat(params: HMMParams) -> torch.Tensor:
     """Flatten global params in NATURAL coordinates (where the conjugate SVI
     update is linear) for the adaptive-step moment estimates."""
-    leaves = [params.init, params.trans, *niw.to_natural(params.emit)]
+    emit = params.emit
+    if isinstance(emit, niw.NIW):
+        emit = niw.to_natural(emit)
+    elif isinstance(emit, diag_gaussian.NIG):
+        emit = diag_gaussian.to_natural(emit)
+    leaves = [params.init, params.trans, *_emit_leaves(emit)]
     return torch.cat([x.reshape(-1) for x in leaves])
 
 
@@ -104,9 +115,11 @@ def _resolve_rho(state: SVIState, cfg: SVIConfig, target: HMMParams | None):
 
 
 def _gather_windows(obs: torch.Tensor, window_starts: torch.Tensor, W: int) -> torch.Tensor:
-    """B windows obs[s : s+W] as ONE gather over (B, W) row indices, clipped
-    into the chain so that even a bad caller stays in bounds (JAX's
-    ``mode="clip"``). Starts are pre-clipped to [0, T-W] by the callers."""
+    """B windows obs[s : s+W] of a (T, D) float chain, or of a (T,) int chain
+    (the multinomial: windows (B, W)), as ONE gather over (B, W) row
+    indices, clipped into the chain so that even a bad caller stays in
+    bounds (JAX's ``mode="clip"``). Starts are pre-clipped to [0, T-W] by
+    the callers."""
     idx = window_starts[:, None] + torch.arange(W, device=window_starts.device)
     return obs[idx.clamp(0, obs.shape[0] - 1)]
 
@@ -143,7 +156,7 @@ def make_step(emission, cfg: SVIConfig, chain_len: int, method: str = "auto"):
         starts = starts.to(dev)
         ws = torch.clamp(starts - b_left, 0, T - W)  # clipped window starts
         offs = starts - ws  # kept-region offset inside each window
-        windows = _gather_windows(obs, ws, W)  # (B, W, D)
+        windows = _gather_windows(obs, ws, W)  # (B, W, D), or (B, W) int
 
         pos = torch.arange(W, device=dev)[None, :]
         mask = (pos >= offs[:, None]) & (pos < offs[:, None] + L)  # (B, W)

@@ -1,13 +1,17 @@
 """Message passing: the E-step layer (port of ``pysvihmm_tpu/messages``).
 
-Three implementations of the same batched E-step:
-  * ``scan``  -- :mod:`.scan_fb`, a plain loop over time in PyTorch over
-                 materialised log-likelihoods; exact, any device.
-  * ``fused`` -- :mod:`.fused_fb`, the likelihood matmul, forward-backward
-                 and every statistic in two CUDA kernels (JAX's
-                 ``"pallas_fused"``).
-  * ``split`` -- :mod:`.split_fb`, forward-backward over materialised
-                 log-likelihoods in two CUDA kernels (JAX's ``"pallas"``).
+Four implementations of the same batched E-step:
+  * ``scan``   -- :mod:`.scan_fb`, a plain loop over time in PyTorch over
+                  materialised log-likelihoods; exact, any device.
+  * ``fused``  -- :mod:`.fused_fb`, the likelihood matmul, forward-backward
+                  and every statistic in two CUDA kernels (JAX's
+                  ``"pallas_fused"``).
+  * ``split``  -- :mod:`.split_fb`, forward-backward over materialised
+                  log-likelihoods in two CUDA kernels (JAX's ``"pallas"``).
+  * ``duplex`` -- :mod:`.duplex_fb`, both chains side by side in one CUDA
+                  kernel and every statistic chain-free in a second (JAX's
+                  ``"pallas_fused"`` with ``PYSVIHMM_DUPLEX`` set; the port
+                  has no environment knobs, so it is a method here).
 The kernel routes run their kernels' plain twins on CPU tensors.
 """
 
@@ -18,14 +22,14 @@ import torch
 from .scan_fb import FBResult, backward, forward_backward, forward_with_logc
 from .split_fb import estep_split
 
-METHODS = ("scan", "fused", "split")
+METHODS = ("scan", "fused", "split", "duplex")
 
 
 def resolve_method(method: str, device: torch.device | str) -> str:
     """Resolve ``method="auto"`` by the tensors' device.
 
     "auto" is "fused" (the CUDA kernels) for CUDA tensors and "scan" for CPU
-    tensors. An explicit "scan", "fused" or "split" passes through. A
+    tensors. An explicit method of :data:`METHODS` passes through. A
     configuration the kernels do not take raises where it is launched;
     nothing falls back to "scan" on its own.
     """
@@ -70,8 +74,8 @@ def e_step_batched(
     """Batched E-step over materialised likelihoods (B, T, K).
 
     Contract: gamma (B, T, K), log_z (B,), log_c (B, T), init_stats (B, K);
-    trans_stats summed over the batch, (K, K). "fused" becomes "split" here,
-    as JAX's "pallas_fused" becomes "pallas": the likelihoods are already
+    trans_stats summed over the batch, (K, K). "fused" and "duplex" become
+    "split" here, as JAX's "pallas_fused" becomes "pallas": the likelihoods are already
     materialised, so the split kernels take them (CUDA tensors launch them;
     CPU tensors run their float32 twins on float32 copies). "scan" runs
     :func:`scan_fb.forward_backward` in the inputs' dtype.

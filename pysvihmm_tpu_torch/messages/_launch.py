@@ -1,5 +1,5 @@
 """Launcher plumbing shared by the port's CUDA kernels (``fused_fb``,
-``split_fb``): argument checks, the CPU-twin / CUDA-kernel routing, and
+``split_fb``, ``duplex_fb``): argument checks, the CPU-twin / CUDA-kernel routing, and
 raising on a CUDA error code a C launcher returns."""
 
 from __future__ import annotations

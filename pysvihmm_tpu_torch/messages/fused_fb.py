@@ -197,7 +197,9 @@ def reset_launch_counts() -> None:
 # ------------------------------------------------------------------ E-step
 
 
-def _assemble(A_t, s, sh, gamma, gamma0, acc, eacc) -> tuple[FBResult, torch.Tensor]:
+def assemble(A_t, s, sh, gamma, gamma0, acc, eacc) -> tuple[FBResult, torch.Tensor]:
+    """(FBResult, emit_stats) from the kernels' outputs; the fused and the
+    duplex E-step share it."""
     log_c = torch.log(s) + sh  # (B, T): log c_t = log s_t + sh_t
     fb = FBResult(
         gamma=gamma,
@@ -234,7 +236,7 @@ def estep_fused(
     gamma, gamma0, acc, eacc = fused_backward(
         A_t, W, feats, alpha, s, sh, emit_gamma, weights
     )
-    return _assemble(A_t, s, sh, gamma, gamma0, acc, eacc)
+    return assemble(A_t, s, sh, gamma, gamma0, acc, eacc)
 
 
 def estep_fused_reference(
@@ -251,4 +253,4 @@ def estep_fused_reference(
     gamma, gamma0, acc, eacc = backward_reference(
         A_t, W, feats, alpha, s, sh, emit_gamma, weights
     )
-    return _assemble(A_t, s, sh, gamma, gamma0, acc, eacc)
+    return assemble(A_t, s, sh, gamma, gamma0, acc, eacc)

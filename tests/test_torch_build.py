@@ -25,6 +25,7 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
 
 
 def test_both_kernel_sources_share_the_header():
-    for name in ("fused_fb", "split_fb"):
+    names = ("fused_fb", "split_fb", "duplex_fb")
+    for name in names:
         assert _build.sources(name) == [f"{name}.cu", "fb_common.cuh"]
-    assert _build.library_path("fused_fb") != _build.library_path("split_fb")
+    assert len({_build.library_path(n) for n in names}) == len(names)

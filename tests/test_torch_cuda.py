@@ -1,6 +1,6 @@
 """The E-step's CUDA kernels against their plain PyTorch twins, on the card:
-the fused pair (gated and not) and the split pair (gated and not), and the
-engines' routes through them.
+the fused pair (gated and not), the split pair (gated and not) and the
+duplex pair (gated and not), and the engines' routes through them.
 
 Imports neither JAX nor the JAX package, so it runs on a machine that has
 only PyTorch for CUDA and nvcc:
@@ -21,10 +21,11 @@ import torch
 from chip_smoke import random_problem, svi_masks
 from pysvihmm_tpu_torch import messages
 from pysvihmm_tpu_torch.data.synthetic import gen_gaussian_dataset
-from pysvihmm_tpu_torch.distributions import GaussianNIW
+from pysvihmm_tpu_torch.data.synthetic import gen_multinomial_dataset
+from pysvihmm_tpu_torch.distributions import GaussianNIW, MultinomialDirichlet
 from pysvihmm_tpu_torch.engines import batch_vb, svi
 from pysvihmm_tpu_torch.engines.base import batch_local_step
-from pysvihmm_tpu_torch.messages import fused_fb, split_fb
+from pysvihmm_tpu_torch.messages import duplex_fb, fused_fb, split_fb
 from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
 
 pytestmark = pytest.mark.cuda
@@ -161,3 +162,95 @@ def test_svi_step_on_auto_launches_each_fused_kernel_once(cuda_device):
     assert (fused_fb.fused_forward.launches, fused_fb.fused_backward.launches) == (1, 1)
     assert (split_fb.split_forward.launches, split_fb.split_backward.launches) == (0, 0)
     assert bool(torch.isfinite(m["noisy_elbo"])) and int(state.step) == 1
+
+
+@pytest.mark.parametrize("B,T,K,D", [(8, 50, 4, 2), (16, 200, 64, 8), (5, 64, 33, 9)])
+@pytest.mark.parametrize("gated", [False, True])
+def test_duplex_kernels_match_plain_twins(cuda_device, B, T, K, D, gated):
+    """Each duplex kernel against its twin (the combine on the twin's chain
+    outputs, in chunks of 16 steps that divide T=64 and not T=50 or 200),
+    the chain's forward against the fused forward kernel bit for bit, and
+    the whole duplex E-step."""
+    gen = torch.Generator(device=cuda_device).manual_seed(200 + B + K)
+    log_pi, log_A, W, feats = random_problem(gen, B, T, K, D)
+    w = svi_masks(gen, B, T, (5 * T) // 7) if gated else None
+    pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+    before = (duplex_fb.duplex_chain.launches, duplex_fb.duplex_combine.launches)
+    alpha, s, sh, beta = duplex_fb.duplex_chain(pi_t, A_t, W, feats)
+    got = duplex_fb.duplex_combine(W, feats, alpha, beta, sh, True, w)
+    torch.cuda.synchronize()
+    assert (duplex_fb.duplex_chain.launches, duplex_fb.duplex_combine.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = duplex_fb.duplex_chain_reference(pi_t, A_t, W, feats)
+    for x, r in zip((alpha, s, beta), (ref[0], ref[1], ref[3])):
+        torch.testing.assert_close(x, r, rtol=0, atol=5e-5)
+    torch.testing.assert_close(sh, ref[2], rtol=2e-6, atol=1e-4)
+    for x, r in zip((alpha, s, sh), fused_fb.fused_forward(pi_t, A_t, W, feats)):
+        assert torch.equal(x, r)
+    comb = duplex_fb.duplex_combine_reference(W, feats, alpha, beta, sh, True, w)
+    for x, r, rtol, atol in zip(got, comb, (0, 0, 1e-4, 3e-3), (5e-5, 5e-5, 1e-3, 2e-3)):
+        torch.testing.assert_close(x, r, rtol=rtol, atol=atol)
+    fk, Sk = duplex_fb.estep_duplex(log_pi, log_A, W, feats, False, w)
+    fr, Sr = duplex_fb.estep_duplex_reference(log_pi, log_A, W, feats, False, w)
+    assert fk.gamma is None
+    torch.testing.assert_close(fk.init_stats, fr.init_stats, rtol=0, atol=5e-5)
+    torch.testing.assert_close(fk.log_c, fr.log_c, rtol=2e-6, atol=1e-4)
+    torch.testing.assert_close(fk.trans_stats, fr.trans_stats, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(Sk, Sr, rtol=3e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("K,F", [(65, 10), (8, 65)])
+def test_duplex_wider_than_the_kernels_raises(cuda_device, K, F):
+    gen = torch.Generator(device=cuda_device).manual_seed(K + F)
+    A_t = torch.rand((K, K), generator=gen, device=cuda_device)
+    W = torch.rand((F, K), generator=gen, device=cuda_device)
+    feats = torch.rand((6, 2, F), generator=gen, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        duplex_fb.duplex_chain(torch.rand(K, generator=gen, device=cuda_device), A_t, W, feats)
+    alpha = torch.rand((6, 2, K), generator=gen, device=cuda_device)
+    sh = torch.rand((2, 6), generator=gen, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        duplex_fb.duplex_combine(W, feats, alpha, alpha, sh)
+
+
+@pytest.mark.parametrize("route", ["fused", "duplex"])
+def test_one_hot_wider_than_the_kernels_raises(cuda_device, route):
+    """A multinomial of 65-256 symbols: its one-hot width is above the fused
+    and duplex kernels' 64, and the launch raises instead of taking another
+    route; above 256 symbols both routes run the split kernels."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    for V, raises in ((100, True), (300, False)):
+        obs, _, _ = gen_multinomial_dataset(g, 4, V, 4, 30)
+        prior = make_prior(4, MultinomialDirichlet, num_symbols=V, device=cuda_device)
+        p0 = init_params(g, prior, MultinomialDirichlet, obs)
+        if raises:
+            with pytest.raises(NotImplementedError, match="Queue 2"):
+                batch_local_step(p0, MultinomialDirichlet, obs, route)
+            continue
+        split_fb.reset_launch_counts()
+        stats, _ = batch_local_step(p0, MultinomialDirichlet, obs, route)
+        torch.cuda.synchronize()
+        assert (split_fb.split_forward.launches, split_fb.split_backward.launches) == (1, 1)
+        ref, _ = batch_local_step(p0, MultinomialDirichlet, obs, "scan")
+        torch.testing.assert_close(stats.emit, ref.emit, rtol=3e-3, atol=2e-3)
+
+
+def test_duplex_route_runs_the_duplex_kernels(cuda_device):
+    """batch VB and an SVI step on method="duplex": each duplex kernel once
+    per call and no other E-step kernel."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    obs, _, _ = gen_gaussian_dataset(g, 4, 2, 16, 100)
+    prior = make_prior(4, GaussianNIW, obs_dim=2, device=cuda_device)
+    p0 = init_params(g, prior, GaussianNIW, obs)
+    for reset in (fused_fb, split_fb, duplex_fb):
+        reset.reset_launch_counts()
+    _, elbos = batch_vb.fit(p0, prior, obs, GaussianNIW, num_iters=3, method="duplex")
+    step = svi.make_step(GaussianNIW, svi.SVIConfig(batch_size=8, subchain_len=20, buffer=5),
+                         obs.shape[1], method="duplex")
+    state, m = step(svi.init_state(p0, torch.Generator(device=cuda_device).manual_seed(2)),
+                    prior, obs[0])
+    torch.cuda.synchronize()
+    assert (duplex_fb.duplex_chain.launches, duplex_fb.duplex_combine.launches) == (4, 4)
+    assert (fused_fb.fused_forward.launches, fused_fb.fused_backward.launches) == (0, 0)
+    assert (split_fb.split_forward.launches, split_fb.split_backward.launches) == (0, 0)
+    assert bool(torch.isfinite(elbos).all()) and bool(torch.isfinite(m["noisy_elbo"]))

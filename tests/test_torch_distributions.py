@@ -165,10 +165,12 @@ def test_hmm_params_helpers(enable_x64):
 
 
 def test_other_families_raise():
+    """A family the package does not have raises JAX's ValueError."""
+
     class Multinomial:
         name = "multinomial_dirichlet"
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(ValueError, match="unknown emission family"):
         hmm.make_prior(3, Multinomial, obs_dim=2, device="cpu")
 
 

@@ -15,6 +15,8 @@ _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 import pysvihmm_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in ("messages.duplex_fb", "distributions.diag_gaussian", "distributions.poisson"):
+    assert pkg.__name__ + "." + n in names, n
 for n in names:
     importlib.import_module(n)
 import chip_smoke
@@ -34,7 +36,7 @@ def test_port_imports_no_jax():
     proc = _run(["-c", _IMPORT_ALL], REPO)
     assert proc.returncode == 0, proc.stderr
     n, leaked = proc.stdout.strip().split(" ", 1)
-    assert int(n) >= 15  # every subpackage and module of the port
+    assert int(n) >= 18  # every subpackage and module of the port
     assert leaked == "[]"
 
 

@@ -74,6 +74,7 @@ def test_resolve_method():
     assert messages.resolve_method("auto", "cuda:0") == "fused"
     assert messages.resolve_method("fused", "cpu") == "fused"
     assert messages.resolve_method("split", "cuda") == "split"
+    assert messages.resolve_method("duplex", "cuda") == "duplex"
     assert messages.resolve_method("scan", "cuda") == "scan"
     with pytest.raises(ValueError):
         messages.resolve_method("pallas_fused", "cpu")
@@ -84,7 +85,7 @@ def test_resolve_method():
 def test_plan_window_never_pads():
     """W = L + 2b on every route: JAX pads 70 to 72 for Mosaic's time tiles
     (tests/test_svi.py:25-34), the CUDA kernels need no padding."""
-    for method in ("auto", "fused", "split", "scan"):
+    for method in ("auto", "fused", "split", "duplex", "scan"):
         assert messages.plan_window(method, 50, 10, 10_000) == (method, 70, 10)
     assert messages.plan_window("split", 10, 3, 16) == ("split", 16, 3)
     with pytest.raises(ValueError, match="longer than chain"):
@@ -101,21 +102,23 @@ def _gauss(B, T, K, D, seed):
 
 
 def test_fused_route_refuses_what_it_does_not_port():
-    """Families other than Gaussian-NIW raise on both kernel routes; gating
-    and the E-step over materialised likelihoods are ported now and run."""
+    """An emission family the package does not have raises JAX's ValueError
+    on every kernel route; gating and the E-step over materialised
+    likelihoods run ("fused" and "duplex" become "split" there)."""
     params, obs = _gauss(2, 16, 3, 2, seed=0)
 
     class Multinomial:
         name = "multinomial_dirichlet"
 
-    for method in ("fused", "split"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    for method in ("fused", "split", "duplex"):
+        with pytest.raises(ValueError, match="unknown emission family"):
             batch_local_step(params, Multinomial, obs, method)
         stats, _ = batch_local_step(params, GaussianNIW, obs, method, weights=torch.ones(2, 16))
         assert bool(torch.isfinite(stats.log_z))
     lp, lA = torch.zeros(3), torch.zeros(3, 3)
-    fb = messages.e_step_batched(lp, lA, torch.zeros(1, 4, 3), method="fused")
-    assert fb.gamma.shape == (1, 4, 3)
+    for method in ("fused", "duplex"):
+        fb = messages.e_step_batched(lp, lA, torch.zeros(1, 4, 3), method=method)
+        assert fb.gamma.shape == (1, 4, 3)
 
 
 @pytest.mark.parametrize("need_gamma", [True, False])

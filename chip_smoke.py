@@ -9,8 +9,9 @@ fails:
 1. device:  the card's name and power limit from nvidia-smi; the float32
             matmul policy.
 2. build:   compile ``pysvihmm_tpu_torch/csrc/fused_fb.cu``,
-            ``split_fb.cu`` and ``duplex_fb.cu`` with nvcc, all at once;
-            ptxas's registers, shared memory and spills for all six kernels.
+            ``split_fb.cu``, ``duplex_fb.cu`` and ``split_probe.cu`` with
+            nvcc, all at once; ptxas's registers, shared memory and spills
+            for every kernel.
 3. kernels: both fused E-step kernels against their plain PyTorch twins on
             the card, at a small shape and at B=1024, T=1000, K=64, D=8,
             with ``emit_gamma`` True and False; the gated fused backward
@@ -52,10 +53,23 @@ fails:
             against its twins on the family's own features (the
             multinomial's one-hot at F = 64, the kernels' limit) and
             batch_local_step on each kernel route against "scan", gated
-            and not; the multinomial at V=1000 on "fused" runs the split
-            kernels and its statistics agree with "scan"'s; a one-hot width
-            above the kernels' 64 raises; and a small fit per family (best
-            ELBO of a few restarts) decodes at Hamming error <= 0.05.
+            and not; features wider than the fused and duplex kernels take
+            (F > 64: the multinomial at V=1000 and V=100, K=32, and the
+            Gaussian-NIW at D=10, K=64, F=66, each at B=1024, T=1000) run
+            the split kernels once on "fused" and on "duplex", and no other
+            kernel, with statistics that agree with "scan"'s, gated and
+            not; and a small fit per family (best ELBO of a few restarts)
+            decodes at Hamming error <= 0.05.
+8. split path decomposition: the profiling script
+            ``pysvihmm_tpu_torch/scripts/debug_split.py``. Each probe kernel
+            of ``csrc/split_probe.cu`` (every micro instance) against its
+            twin at (T, B, K, C) = (16, 4, 8, 8), (24, 3, 33, 4),
+            (16, 1024, 64, 8) and (1000, 1024, 64, 8); then the script's
+            timing function over the letters f b n s 1-5 at the full shape
+            (the kernels, whose launches are counted, then the twins), one
+            line per variant with its bound and share, and the split
+            forward's time split into products, stores, likelihood loads,
+            sums and the shift and exp.
 
 The last lines are the card line, one JSON line describing the kernels and,
 last, ``{"ok": true, "device": {...}}``.
@@ -65,7 +79,6 @@ from __future__ import annotations
 
 import json
 import math
-import subprocess
 import sys
 import time
 
@@ -78,10 +91,6 @@ SVI_W = SVI_L + 2 * SVI_BUF
 SVI_STEPS = 20
 SVI_BATCHES = (32, 256, 1024)
 ELBO_RTOL = 1e-5  # one route's VB ELBO against another's (float32, other summation orders)
-# The card's peaks (NVIDIA H100 SXM data sheet): HBM bytes per second and
-# float32 FLOP/s outside the tensor cores, for each kernel's least time.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
 
 
 def log(msg: str = "") -> None:
@@ -91,31 +100,6 @@ def log(msg: str = "") -> None:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
-    """Mean milliseconds per call on the card, by CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def compare(name, got, ref, rtol: float, atol: float) -> float:
@@ -163,50 +147,6 @@ def compare_local_stats(sk, ss) -> None:
     compare("trans_stats", sk.trans, ss.trans, 1e-4, 1e-3)
     compare("init_stats", sk.init, ss.init, 0.0, 5e-4)
     compare("log_z", sk.log_z, ss.log_z, 2e-6, 0.0)
-
-
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """The least time (ms) the card could take: the larger of the bytes over
-    the HBM rate and the float32 operations over the peak rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def kernel_work(name: str, B_: int, T_: int, K_: int, F_: int = 0, gated: bool = False,
-                emit_gamma: bool = False) -> tuple[float, float]:
-    """(bytes, flops) one launch needs at these shapes: each input read once
-    and each output written once (float32), and per (t, b) the flops of the
-    recursion: a K-wide F-dot per state 2FK, a matvec 2K^2, an outer
-    product 2K^2, the emission outer product 2KF, and the elementwise work
-    (shift, exp, scalings, the two reductions) counted per state."""
-    n, k2 = B_ * T_, K_ * K_
-    per_tb = {
-        "fused_fwd_kernel": 2 * F_ * K_ + 2 * k2 + 6 * K_,
-        "fused_bwd_kernel": 4 * F_ * K_ + 4 * k2 + 8 * K_ + (2 * K_ if gated else 0),
-        "split_fwd_kernel": 2 * k2 + 6 * K_,
-        "split_bwd_kernel": 4 * k2 + 8 * K_ + (K_ if gated else 0),
-        # both recursions: an F-dot and a matvec each
-        "duplex_chain_kernel": 4 * F_ * K_ + 4 * k2 + 12 * K_,
-        # the F-dot, the pairwise and the emission outer products
-        "duplex_combine_kernel": 4 * F_ * K_ + 2 * k2 + 10 * K_ + (2 * K_ if gated else 0),
-    }[name]
-    words = {
-        # feats in, W, A~, pi~; alpha, s, sh out
-        "fused_fwd_kernel": n * F_ + F_ * K_ + k2 + K_ + n * K_ + 2 * n,
-        # feats, alpha, s, sh, W, A~ (+ w, g) in; gamma0, acc, eacc (+ gamma) out
-        "fused_bwd_kernel": n * F_ + n * K_ + 2 * n + F_ * K_ + k2 + (2 * n if gated else 0)
-        + B_ * K_ + k2 + K_ * F_ + (n * K_ if emit_gamma else 0),
-        # ll, A~, pi~ in; alpha, s, sh out
-        "split_fwd_kernel": n * K_ + k2 + K_ + n * K_ + 2 * n,
-        # ll, alpha, s, sh, A~ (+ g) in; gamma, acc out
-        "split_bwd_kernel": 2 * n * K_ + 2 * n + k2 + (n if gated else 0) + n * K_ + k2,
-        # feats, W, A~, pi~ in; alpha, s, sh, beta out
-        "duplex_chain_kernel": n * F_ + F_ * K_ + k2 + K_ + 2 * n * K_ + 2 * n,
-        # feats, alpha, beta, sh, W (+ w) in; gamma0, acc, eacc (+ gamma) out
-        "duplex_combine_kernel": n * F_ + 2 * n * K_ + n + F_ * K_ + (n if gated else 0)
-        + B_ * K_ + k2 + K_ * F_ + (n * K_ if emit_gamma else 0),
-    }[name]
-    return 4.0 * words, float(n * per_tb)
 
 
 def svi_masks(gen, B_, W_, L_):
@@ -429,26 +369,34 @@ def check_duplex(gen, B_, T_, K_, D_, gated):
 
 
 def kernel_counts() -> dict[str, int]:
+    """Launches of every kernel since the last reset, by kernel (instance)."""
     from pysvihmm_tpu_torch.messages import duplex_fb as df
     from pysvihmm_tpu_torch.messages import fused_fb as ff
     from pysvihmm_tpu_torch.messages import split_fb as sf
+    from pysvihmm_tpu_torch.messages import split_probe as sp
+    from pysvihmm_tpu_torch.utils.roofline import MICRO_KERNELS
 
     return {"fused_fwd_kernel": ff.fused_forward.launches,
             "fused_bwd_kernel": ff.fused_backward.launches,
             "split_fwd_kernel": sf.split_forward.launches,
             "split_bwd_kernel": sf.split_backward.launches,
             "duplex_chain_kernel": df.duplex_chain.launches,
-            "duplex_combine_kernel": df.duplex_combine.launches}
+            "duplex_combine_kernel": df.duplex_combine.launches,
+            "probe_fwd_nos_kernel": sp.probe_fwd_nos.launches,
+            "probe_fwd_stack_kernel": sp.probe_fwd_stack.launches,
+            **{MICRO_KERNELS[body]: n for body, n in sp.probe_micro.launches.items()}}
 
 
 def reset_kernel_counts() -> None:
     from pysvihmm_tpu_torch.messages import duplex_fb as df
     from pysvihmm_tpu_torch.messages import fused_fb as ff
     from pysvihmm_tpu_torch.messages import split_fb as sf
+    from pysvihmm_tpu_torch.messages import split_probe as sp
 
     ff.reset_launch_counts()
     sf.reset_launch_counts()
     df.reset_launch_counts()
+    sp.reset_launch_counts()
 
 
 ROUTE_KERNELS = {"auto": ("fused_fwd_kernel", "fused_bwd_kernel"),
@@ -518,6 +466,7 @@ def svi_step_ms(route, cfg, p0, prior, chain, iters: int) -> float:
 
     from pysvihmm_tpu_torch.distributions import GaussianNIW
     from pysvihmm_tpu_torch.engines import svi
+    from pysvihmm_tpu_torch.scripts.debug_split import cuda_ms
 
     step = svi.make_step(GaussianNIW, cfg, chain.shape[0], method=route)
     state = svi.init_state(p0, torch.Generator(device=chain.device).manual_seed(3))
@@ -644,6 +593,36 @@ def check_family_routes(fam, obs, params, gen, label) -> None:
             compare_local_stats(sk, ss)
 
 
+def check_wide(fam, obs, params, gen, label) -> None:
+    """Phase 7: a family whose features are wider than the fused and duplex
+    kernels take (F > FMAX = 64). On "fused" and on "duplex" each split
+    kernel launches once and no other kernel does, and the statistics agree
+    with "scan"'s, ungated and gated."""
+    import torch
+
+    from pysvihmm_tpu_torch.engines.base import (
+        batch_local_step,
+        feature_width,
+        wider_than_fused_kernels,
+    )
+
+    require(wider_than_fused_kernels(fam, params.emit, obs), f"{label}: not wider than FMAX")
+    B_, T_ = obs.shape[:2]
+    w = svi_masks(gen, B_, T_, (5 * T_) // 7).transpose(0, 1).contiguous()
+    for weights in (None, w):
+        ss, _ = batch_local_step(params, fam, obs, "scan", weights=weights, need_gamma=False)
+        for route in ("fused", "duplex"):
+            torch.cuda.synchronize()
+            reset_kernel_counts()
+            sk, _ = batch_local_step(params, fam, obs, route, weights=weights, need_gamma=False)
+            torch.cuda.synchronize()
+            counts = kernel_counts()
+            log(f"  {label}, F={feature_width(fam, params.emit, obs)}, B={B_}, T={T_}, on {route}, "
+                f"gated={weights is not None}: the split kernels, against scan")
+            require_launches(counts, "split", 1, f"{label} on {route}")
+            compare_local_stats(sk, ss)
+
+
 def small_family_fit(fam, gen_fn, kw, prior_kw, iters, restarts, dev, label):
     """Phase 7: VB on "auto" from ``restarts`` seeds on a small CPU-made
     dataset moved to the card; the fit of best final ELBO must decode at
@@ -682,10 +661,10 @@ def families_phase(dev) -> dict[str, dict[str, int]]:
     from pysvihmm_tpu_torch.data import synthetic
     from pysvihmm_tpu_torch.distributions import (
         DiagonalGaussianNIG,
+        GaussianNIW,
         MultinomialDirichlet,
         PoissonGamma,
     )
-    from pysvihmm_tpu_torch.engines.base import batch_local_step
     from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
 
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -708,31 +687,19 @@ def families_phase(dev) -> dict[str, dict[str, int]]:
         launches[label], fitted = family_vb(fam, obs, prior, p0, label)
         check_family_routes(fam, obs, fitted, gen, label)
 
-    log(f"  multinomial at V=1000 (K=32, B={B}, T={T}) on fused: the split kernels, against scan")
-    V_big = 1000
-    obs, _, _ = synthetic.gen_multinomial_dataset(gen, 32, V_big, B, T)
-    prior = make_prior(32, MultinomialDirichlet, num_symbols=V_big, device=dev)
-    p0 = init_params(gen, prior, MultinomialDirichlet, obs)
-    reset_kernel_counts()
-    sk, _ = batch_local_step(p0, MultinomialDirichlet, obs, "fused", need_gamma=False)
-    torch.cuda.synchronize()
-    counts = kernel_counts()
-    log(f"  launches: {counts}")
-    require_launches(counts, "split", 1, "multinomial V=1000 on fused")
-    ss, _ = batch_local_step(p0, MultinomialDirichlet, obs, "scan", need_gamma=False)
-    compare_local_stats(sk, ss)
-
-    log("  multinomial at V=100: a one-hot width the fused and duplex kernels do not take")
-    obs, _, _ = synthetic.gen_multinomial_dataset(gen, 4, 100, 8, 20)
-    prior = make_prior(4, MultinomialDirichlet, num_symbols=100, device=dev)
-    p0 = init_params(gen, prior, MultinomialDirichlet, obs)
-    for route in ("fused", "duplex"):
-        try:
-            batch_local_step(p0, MultinomialDirichlet, obs, route)
-        except NotImplementedError as e:
-            log(f"    {route}: NotImplementedError: {e}")
-        else:
-            raise RuntimeError(f"V=100 on {route} did not raise")
+    # features wider than the fused and duplex kernels' FMAX: those routes
+    # run the split kernels (the segment-sum above 256 symbols, the one-hot
+    # product of the statistics below; the Gaussian's F = 66 at D = 10)
+    for label, fam, size, K_, make in (
+        ("multinomial V=1000", MultinomialDirichlet, 1000, 32, synthetic.gen_multinomial_dataset),
+        ("multinomial V=100", MultinomialDirichlet, 100, 32, synthetic.gen_multinomial_dataset),
+        ("gaussian_niw D=10", GaussianNIW, 10, K,
+         lambda *a: synthetic.gen_gaussian_dataset(*a, mean_scale=0.5, cov_scale=1.0)),
+    ):
+        obs, _, _ = make(gen, K_, size, B, T)
+        kw = dict(num_symbols=size) if fam is MultinomialDirichlet else dict(obs_dim=size)
+        prior = make_prior(K_, fam, device=dev, **kw)
+        check_wide(fam, obs, init_params(gen, prior, fam, obs), gen, f"{label} (K={K_})")
 
     small_family_fit(DiagonalGaussianNIG, synthetic.gen_diag_gaussian_dataset,
                      dict(K=4, D=2, num_seqs=20, T=200, mean_scale=6.0, var_scale=0.3),
@@ -744,6 +711,127 @@ def families_phase(dev) -> dict[str, dict[str, int]]:
                      dict(K=4, V=16, num_seqs=20, T=200, concentration=0.1, self_prob=0.95),
                      dict(num_symbols=16), 100, 8, dev, "multinomial")
     return launches
+
+
+PROBE_C = 8  # steps a tile, debug_pallas_split.py:76
+# (T, B, K, C) of phase 8's checks: small, an odd K with C = 4, full B, full
+PROBE_SHAPES = ((16, 4, 8, 8), (24, 3, 33, 4), (16, 1024, 64, 8), (T, B, K, PROBE_C))
+PROBE_LETTERS = "fbns12345"  # every variant of the profiling script
+
+
+def compare_elementwise(name, got, ref, rtol: float, atol: float) -> float:
+    """Max |got - ref|; raises unless got is finite and every element is
+    within atol + rtol * |ref| (the probes' values span many decades, down
+    to subnormals, so the bound is per element)."""
+    import torch
+
+    require(got.shape == ref.shape and got.dtype == ref.dtype,
+            f"{name}: {tuple(got.shape)} {got.dtype} != {tuple(ref.shape)} {ref.dtype}")
+    g, r = got.float(), ref.float()
+    require(bool(torch.isfinite(g).all()), f"{name}: non-finite values from the kernel")
+    err = (g - r).abs()
+    worst = (err - rtol * r.abs()).max().item()
+    log(f"    {name}: max_abs_err {err.max().item():.3e}, worst excess over rtol "
+        f"{worst:.3e} (rtol {rtol:g}, atol {atol:g})")
+    require(worst <= atol, f"{name}: kernel and plain version disagree")
+    return err.max().item()
+
+
+def check_probes(dev) -> dict[str, float]:
+    """Phase 8, step 1: each probe kernel (every micro instance) against its
+    twin on the same inputs at every shape of PROBE_SHAPES, one launch each.
+    float32 to rtol 1e-5 per element with atol 1e-30 (another summation
+    order; the micro bodies' third tile is subnormal); bf16 in its own
+    dtype to rtol 1.6e-2, two bf16 ulps; "dot_only" on its written rows
+    t % C == 0 only. Returns the max abs error of each at the full shape."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import split_probe as sp
+    from pysvihmm_tpu_torch.scripts.debug_split import make_inputs
+    from pysvihmm_tpu_torch.utils.roofline import MICRO_KERNELS
+
+    errs = {}
+    for T_, B_, K_, C_ in PROBE_SHAPES:
+        log(f"  probes vs twins, (T, B, K, C) = {(T_, B_, K_, C_)}")
+        pi, A, lik = make_inputs(B_, T_, K_, dev)
+        checks = {
+            "probe_fwd_nos_kernel": (lambda: [sp.probe_fwd_nos(pi, A, lik, C_)],
+                                     lambda: [sp.probe_fwd_nos_reference(pi, A, lik, C_)],
+                                     "alpha"),
+            "probe_fwd_stack_kernel": (lambda: sp.probe_fwd_stack(pi, A, lik, C_),
+                                       lambda: sp.probe_fwd_stack_reference(pi, A, lik, C_),
+                                       "alpha s"),
+        }
+        for body, name in MICRO_KERNELS.items():
+            checks[name] = (lambda b=body: [sp.probe_micro(pi, A, lik, C_, b)],
+                            lambda b=body: [sp.probe_micro_reference(pi, A, lik, C_, b)],
+                            "alpha")
+        reset_kernel_counts()
+        for name, (kernel, plain, outs) in checks.items():
+            got = kernel()
+            torch.cuda.synchronize()
+            ref = plain()
+            rows = slice(None, None, C_) if name == MICRO_KERNELS["dot_only"] else slice(None)
+            bf16 = name == MICRO_KERNELS["dot_bf16"]
+            log(f"   {name}")
+            err = max(compare_elementwise(out, g[rows], r[rows], 1.6e-2 if bf16 else 1e-5, 1e-30)
+                      for out, g, r in zip(outs.split(), got, ref))
+            if (T_, B_) == (T, B):
+                errs[name] = err
+        counts = kernel_counts()
+        for name, n in counts.items():
+            want = 1 if name in checks else 0
+            require(n == want, f"probe checks: {name} launched {n} times, expected {want}")
+    return errs
+
+
+def probe_phase(dev) -> tuple[dict, dict, dict, dict, dict]:
+    """Phase 8: the split path's profiling script (pysvihmm_tpu_torch/
+    scripts/debug_split.py) at its full shape. Checks every probe against
+    its twin (:func:`check_probes`), then times the letters f b n s 1-5
+    through the script's own timing function, the kernels (the counted run)
+    and then their twins, and prints the breakdown of the split forward's
+    time. Returns (max abs errors, kernel ms, twin ms, bounds, launches),
+    each by kernel name."""
+    from pysvihmm_tpu_torch.scripts.debug_split import (
+        VARIANTS,
+        bound_ms,
+        make_inputs,
+        time_letters,
+    )
+
+    errs = check_probes(dev)
+    pi, A, lik = make_inputs(B, T, K, dev)
+    reset_kernel_counts()
+    ms = time_letters(PROBE_LETTERS, pi, A, lik, PROBE_C)
+    counts = kernel_counts()
+    twin = time_letters(PROBE_LETTERS, pi, A, lik, PROBE_C, plain=True, iters=1)
+    # each variant: a warm-up and 20 timed launches; "b" takes one forward more
+    runs = 1 + 20
+    for name, n in counts.items():
+        want = {"split_fwd_kernel": runs + 1}.get(name, runs)
+        if name not in {kernel for _, kernel in VARIANTS.values()}:
+            want = 0
+        require(n == want, f"phase 8 timing: {name} launched {n} times, expected {want}")
+    log(f"  launches in the timed run: {counts}")
+    by_kernel = {kernel: label for label, kernel in VARIANTS.values()}
+    kms, tms, bounds = {}, {}, {}
+    for kernel, label in by_kernel.items():
+        kms[kernel], tms[kernel] = ms[label], twin[label]
+        bounds[kernel] = bound_ms(label, B, T, K, PROBE_C)
+        b_ms, b_by = bounds[kernel]
+        log(f"{label:10s} {kernel:32s} {ms[label]:8.3f} ms, twin {twin[label]:9.3f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms[label]:.1f} % of it, at (T, B, K, C) = "
+            f"({T}, {B}, {K}, {PROBE_C})")
+    d = ms
+    store = d["dot_store"]
+    log(f"split_fwd_kernel {d['fwd']:.3f} ms = products {d['dot_only']:.3f} + stores "
+        f"{store - d['dot_only']:.3f} + lik loads and products, renorm every 4th "
+        f"{d['fwd_nos'] - store:.3f} + per-step sums {d['fwd_stack'] - d['fwd_nos']:.3f} "
+        f"+ shift, exp and per-step renorm {d['fwd'] - d['fwd_stack']:.3f}; against dot_store: "
+        f"bf16 {d['dot_bf16'] - store:+.3f}, interleaving x8 {d['chunk8'] - store:+.3f}, "
+        f"x4 {d['chunk4'] - store:+.3f}")
+    return errs, kms, tms, bounds, counts
 
 
 def main() -> int:
@@ -771,7 +859,9 @@ def main() -> int:
     from pysvihmm_tpu_torch.messages import resolve_method
     from pysvihmm_tpu_torch.messages import split_fb as sf
     from pysvihmm_tpu_torch.models.hmm import HMMParams, init_params, make_prior
+    from pysvihmm_tpu_torch.scripts.debug_split import card_line, cuda_ms
     from pysvihmm_tpu_torch.utils.precision import f32_matmuls
+    from pysvihmm_tpu_torch.utils.roofline import bound, kernel_work
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -785,7 +875,7 @@ def main() -> int:
     log(f"precision policy: {f32_matmuls()}")
 
     log("== phase 2: build")
-    libs = ("fused_fb", "split_fb", "duplex_fb")
+    libs = ("fused_fb", "split_fb", "duplex_fb", "split_probe")
     t0 = time.perf_counter()
     _build.build(list(libs))
     for name in libs:
@@ -1069,8 +1159,17 @@ def main() -> int:
     log(f"== phase 7: the other emission families at B={B}, T={T}")
     t0 = time.perf_counter()
     fam_launches = families_phase(dev)
+    launched = {fam: {route: {k: n for k, n in counts.items() if n}
+                      for route, counts in by_route.items()}
+                for fam, by_route in fam_launches.items()}
     log(f"  phase 7 took {time.perf_counter() - t0:.1f} s; VB launches by family and route: "
-        + json.dumps(fam_launches))
+        + json.dumps(launched))
+
+    log(f"== phase 8: split path decomposition (scripts/debug_split.py) at (T, B, K, C) = "
+        f"({T}, {B}, {K}, {PROBE_C})")
+    t0 = time.perf_counter()
+    probe_errs, probe_ms, probe_twin_ms, probe_bounds, probe_launches = probe_phase(dev)
+    log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
 
     errs = {"fused_fwd_kernel": fwd_err, "fused_bwd_kernel": bwd_err, **split_err,
             "duplex_chain_kernel": chain_err, "duplex_combine_kernel": comb_err}
@@ -1090,10 +1189,27 @@ def main() -> int:
             "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "library_ms": None,
         })
+    # the probes: the kernel body each replaces in scripts/debug_pallas_split.py
+    for name, line in (("probe_fwd_nos_kernel", 25), ("probe_fwd_stack_kernel", 48),
+                       ("probe_micro_kernel<DOT_ONLY>", 229),
+                       ("probe_micro_kernel<DOT_STORE>", 235),
+                       ("probe_micro_kernel<BF16>", 241),
+                       ("probe_micro_kernel<CHUNKED, 8>", 250),
+                       ("probe_micro_kernel<CHUNKED, 4>", 250)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "pysvihmm_tpu_torch/csrc/split_probe.cu",
+            "replaces": f"scripts/debug_pallas_split.py:{line}",
+            "launches": probe_launches[name], "max_abs_err": probe_errs[name],
+            "ms": probe_ms[name], "plain_ms": probe_twin_ms[name],
+            "bound_ms": probe_bounds[name][0], "bound_by": probe_bounds[name][1],
+            "library_ms": None,
+        })
     log(f"total {time.perf_counter() - t_start:.1f} s; in the kernels line: launches over the "
-        f"{SVI_STEPS} SVI steps of each kernel's route (phase 6); max_abs_err the forward's and "
-        f"the chain's log_c (nats), the backward's and the combine's gamma at B={B}, T={T}; ms, "
-        f"plain_ms and bound_ms at (B, T, K, F) = ({B}, {T}, {K}, {F}), ungated")
+        f"{SVI_STEPS} SVI steps of each kernel's route (phase 6) and, for the probes, in phase "
+        f"8's timed run; max_abs_err the forward's and the chain's log_c (nats), the backward's "
+        f"and the combine's gamma at B={B}, T={T}, each probe's alpha (and s) at (T, B, K, C) = "
+        f"({T}, {B}, {K}, {PROBE_C}); ms, plain_ms and bound_ms at (B, T, K, F) = ({B}, {T}, {K}, "
+        f"{F}), ungated, and for the probes at C={PROBE_C}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -16,11 +16,10 @@ from .. import messages
 from ..distributions import dirichlet
 from ..distributions.emissions import MultinomialDirichlet
 from ..messages.duplex_fb import estep_duplex
-from ..messages.fused_fb import estep_fused
+from ..messages.fused_fb import FMAX, estep_fused
 from ..messages.scan_fb import FBResult
 from ..messages.split_fb import estep_split
 from ..models.hmm import (
-    ONE_HOT_MAX_V,
     HMMParams,
     check_family,
     emission_flat_stats,
@@ -39,10 +38,22 @@ class LocalStats(NamedTuple):
     log_z: torch.Tensor  # () summed variational log-normaliser
 
 
-def _large_vocab(emission, emit_params) -> bool:
-    """A multinomial above ``ONE_HOT_MAX_V`` symbols: its fused and duplex
-    routes run the split kernels over gathered likelihoods."""
-    return emission is MultinomialDirichlet and emit_params.shape[-1] > ONE_HOT_MAX_V
+def feature_width(emission, emit_params, obs: torch.Tensor) -> int:
+    """F, the width of the fused and duplex kernels' feature array: V for the
+    multinomial (its one-hot), else the width of the family's
+    ``ell_features`` at obs' D, taken on one row of zeros on the host."""
+    if emission is MultinomialDirichlet:
+        return emit_params.shape[-1]
+    return emission.ell_features(torch.zeros((1, obs.shape[-1]))).shape[-1]
+
+
+def wider_than_fused_kernels(emission, emit_params, obs: torch.Tensor) -> bool:
+    """The features are wider than the fused and duplex kernels take
+    (F > ``FMAX``): a Gaussian-NIW at D >= 10 (F = 66 at D = 10), a
+    multinomial above 64 symbols. Their "fused" and "duplex" routes run the
+    split kernels instead, decided by width before any launch, on every
+    device; JAX's fused kernels take any F."""
+    return feature_width(emission, emit_params, obs) > FMAX
 
 
 def prepare_fused_obs(params: HMMParams, emission, obs: torch.Tensor) -> torch.Tensor | None:
@@ -50,19 +61,24 @@ def prepare_fused_obs(params: HMMParams, emission, obs: torch.Tensor) -> torch.T
 
     Returns the time-major feature array (T, B, F) as contiguous float32:
     the family's ``ell_features``, or for the multinomial the one-hot
-    (T, B, V) of its int observations (B, T). None for a multinomial above
-    ``ONE_HOT_MAX_V`` symbols, whose kernel routes take no features. It
-    depends on the data only, so engines whose data is fixed across
-    iterations (batch VB) build it once and pass it as ``prepared=``."""
+    (T, B, V) of its int observations (B, T). None when the features are
+    wider than the kernels take (:func:`wider_than_fused_kernels`): those
+    routes run the split kernels then. It depends on the data only, so
+    engines whose data is fixed across iterations (batch VB) build it once
+    and pass it as ``prepared=``."""
     check_family(emission)
-    obs_tm = obs.transpose(0, 1)
+    if wider_than_fused_kernels(emission, params.emit, obs):
+        return None
     if emission is MultinomialDirichlet:
-        if _large_vocab(emission, params.emit):
-            return None
-        feats = torch.nn.functional.one_hot(obs_tm.long(), params.emit.shape[-1])
-    else:
-        feats = emission.ell_features(obs_tm)
-    return feats.to(torch.float32).contiguous()
+        feats = torch.nn.functional.one_hot(obs.transpose(0, 1).long(), params.emit.shape[-1])
+        return feats.to(torch.float32).contiguous()
+    return _features(emission, obs)
+
+
+def _features(emission, obs: torch.Tensor) -> torch.Tensor:
+    """The family's ``ell_features`` of obs (B, T, D), time-major (T, B, F)
+    contiguous float32."""
+    return emission.ell_features(obs.transpose(0, 1)).to(torch.float32).contiguous()
 
 
 def _fused_W(emission, emit_params) -> torch.Tensor:
@@ -99,11 +115,14 @@ def _fused_estep(
     """The fused and duplex routes (JAX's ``_pallas_fused_estep``, the duplex
     one with ``PYSVIHMM_DUPLEX`` set): returns (FBResult with gamma (T, B, K)
     time-major, or None; emission stats), the stats kept-mask-gated in-kernel
-    when ``weights`` (B, T) is given. A multinomial above ``ONE_HOT_MAX_V``
-    symbols runs the split route instead, as in JAX (engines/base.py:547)."""
-    if _large_vocab(emission, params.emit):
-        return _split_estep(params, emission, obs, weights)
+    when ``weights`` (B, T) is given. Features wider than the kernels take
+    (:func:`wider_than_fused_kernels`) run the split route instead: JAX
+    does so above ``ONE_HOT_MAX_V`` symbols (engines/base.py:547) and
+    computes widths of 65-256 in its fused kernels, which the port's take
+    only up to ``FMAX``."""
     feats = prepare_fused_obs(params, emission, obs) if prepared is None else prepared
+    if feats is None:
+        return _split_estep(params, emission, obs, weights)
     log_pi, log_A = expected_log_params(params)
     fb, S = _FUSED_ESTEPS[method](
         log_pi, log_A, _fused_W(emission, params.emit), feats,
@@ -135,7 +154,7 @@ def _split_estep(
         fb = estep_split(log_pi, log_A, ll.contiguous(), w_tm)
         gamma_w = fb.gamma if w_tm is None else fb.gamma * w_tm[..., None]
         return fb, emission_flat_stats(emission, params.emit, gamma_w, obs_tm)
-    feats = prepare_fused_obs(params, emission, obs)  # (T, B, F)
+    feats = _features(emission, obs)  # (T, B, F)
     T, B, F = feats.shape
     K = params.init.shape[0]
     ll = torch.matmul(feats, _fused_W(emission, params.emit))  # (T, B, K)

@@ -39,6 +39,10 @@ from .scan_fb import FBResult
 from .split_fb import exp_params, pair_gate, split_backward_reference, split_forward_reference
 
 _LIB = "fused_fb"
+# the widest feature array the fused and duplex kernels take (fbc::FMAX in
+# csrc/fb_common.cuh, which both libraries report): the engines route wider
+# ones to the split kernels before any launch
+FMAX = 64
 
 
 def _library():

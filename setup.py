@@ -28,6 +28,7 @@ setup(
         "pysvihmm_tpu_torch.eval",
         "pysvihmm_tpu_torch.messages",
         "pysvihmm_tpu_torch.models",
+        "pysvihmm_tpu_torch.scripts",
         "pysvihmm_tpu_torch.utils",
     ],
     # the port's CUDA sources, compiled with nvcc at first use

@@ -25,7 +25,7 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
 
 
 def test_both_kernel_sources_share_the_header():
-    names = ("fused_fb", "split_fb", "duplex_fb")
+    names = ("fused_fb", "split_fb", "duplex_fb", "split_probe")
     for name in names:
         assert _build.sources(name) == [f"{name}.cu", "fb_common.cuh"]
     assert len({_build.library_path(n) for n in names}) == len(names)

@@ -1,6 +1,7 @@
-"""The E-step's CUDA kernels against their plain PyTorch twins, on the card:
-the fused pair (gated and not), the split pair (gated and not) and the
-duplex pair (gated and not), and the engines' routes through them.
+"""The port's CUDA kernels against their plain PyTorch twins, on the card:
+the fused pair (gated and not), the split pair (gated and not), the duplex
+pair (gated and not), the split path's probes, and the engines' routes
+through them (features wider than the fused kernels take included).
 
 Imports neither JAX nor the JAX package, so it runs on a machine that has
 only PyTorch for CUDA and nvcc:
@@ -25,8 +26,9 @@ from pysvihmm_tpu_torch.data.synthetic import gen_multinomial_dataset
 from pysvihmm_tpu_torch.distributions import GaussianNIW, MultinomialDirichlet
 from pysvihmm_tpu_torch.engines import batch_vb, svi
 from pysvihmm_tpu_torch.engines.base import batch_local_step
-from pysvihmm_tpu_torch.messages import duplex_fb, fused_fb, split_fb
+from pysvihmm_tpu_torch.messages import duplex_fb, fused_fb, split_fb, split_probe
 from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
+from pysvihmm_tpu_torch.scripts.debug_split import make_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -214,25 +216,77 @@ def test_duplex_wider_than_the_kernels_raises(cuda_device, K, F):
 
 
 @pytest.mark.parametrize("route", ["fused", "duplex"])
-def test_one_hot_wider_than_the_kernels_raises(cuda_device, route):
-    """A multinomial of 65-256 symbols: its one-hot width is above the fused
-    and duplex kernels' 64, and the launch raises instead of taking another
-    route; above 256 symbols both routes run the split kernels."""
+def test_wide_features_take_the_split_kernels(cuda_device, route):
+    """Features wider than the fused and duplex kernels take (F > FMAX): a
+    multinomial of 100 and of 300 symbols and a Gaussian-NIW at D = 10
+    (F = 66) run the split kernels once on "fused" and "duplex", and no
+    other kernel, and agree with "scan", gated and not."""
     g = torch.Generator(device=cuda_device).manual_seed(3)
-    for V, raises in ((100, True), (300, False)):
-        obs, _, _ = gen_multinomial_dataset(g, 4, V, 4, 30)
-        prior = make_prior(4, MultinomialDirichlet, num_symbols=V, device=cuda_device)
-        p0 = init_params(g, prior, MultinomialDirichlet, obs)
-        if raises:
-            with pytest.raises(NotImplementedError, match="Queue 2"):
-                batch_local_step(p0, MultinomialDirichlet, obs, route)
-            continue
-        split_fb.reset_launch_counts()
-        stats, _ = batch_local_step(p0, MultinomialDirichlet, obs, route)
-        torch.cuda.synchronize()
-        assert (split_fb.split_forward.launches, split_fb.split_backward.launches) == (1, 1)
-        ref, _ = batch_local_step(p0, MultinomialDirichlet, obs, "scan")
-        torch.testing.assert_close(stats.emit, ref.emit, rtol=3e-3, atol=2e-3)
+    for fam, size in ((MultinomialDirichlet, 100), (MultinomialDirichlet, 300), (GaussianNIW, 10)):
+        if fam is MultinomialDirichlet:
+            obs, _, _ = gen_multinomial_dataset(g, 4, size, 4, 30)
+            prior = make_prior(4, fam, num_symbols=size, device=cuda_device)
+        else:
+            obs, _, _ = gen_gaussian_dataset(g, 4, size, 4, 30)
+            prior = make_prior(4, fam, obs_dim=size, device=cuda_device)
+        p0 = init_params(g, prior, fam, obs)
+        for w in (None, svi_masks(g, 4, 30, 20).T.contiguous()):
+            for reset in (fused_fb, split_fb, duplex_fb):
+                reset.reset_launch_counts()
+            stats, _ = batch_local_step(p0, fam, obs, route, weights=w)
+            torch.cuda.synchronize()
+            assert (split_fb.split_forward.launches, split_fb.split_backward.launches) == (1, 1)
+            assert (fused_fb.fused_forward.launches, fused_fb.fused_backward.launches) == (0, 0)
+            assert (duplex_fb.duplex_chain.launches, duplex_fb.duplex_combine.launches) == (0, 0)
+            ref, _ = batch_local_step(p0, fam, obs, "scan", weights=w)
+            emit = stats.emit if isinstance(stats.emit, tuple) else (stats.emit,)
+            emit_ref = ref.emit if isinstance(ref.emit, tuple) else (ref.emit,)
+            for a, b in zip(emit, emit_ref):
+                torch.testing.assert_close(a, b, rtol=3e-3, atol=2e-3)
+            torch.testing.assert_close(stats.trans, ref.trans, rtol=1e-4, atol=1e-3)
+            torch.testing.assert_close(stats.log_z, ref.log_z, rtol=2e-6, atol=0)
+
+
+def test_fmax_is_the_kernels_own(cuda_device):
+    """The engines' routing constant is the width both libraries report."""
+    fmax = (fused_fb._library().fused_fb_fmax(), duplex_fb._library().duplex_fb_fmax())
+    assert fmax == (fused_fb.FMAX, fused_fb.FMAX)
+
+
+@pytest.mark.parametrize("T,B,K,C", [(16, 4, 8, 8), (24, 3, 33, 4), (16, 37, 64, 8)])
+def test_split_probes_match_plain_twins(cuda_device, T, B, K, C):
+    """Each probe kernel (every micro instance; B = 3 and 37 leave the
+    chunked blocks ragged) against its twin, one counted launch each:
+    float32 to rtol 1e-5 per element with atol 1e-30 (the micro bodies'
+    third tile is subnormal), bf16 in its own dtype to two ulps, "dot_only"
+    on its written rows only."""
+    pi, A, lik = make_inputs(B, T, K, cuda_device)
+    split_probe.reset_launch_counts()
+    nos = split_probe.probe_fwd_nos(pi, A, lik, C)
+    stack = split_probe.probe_fwd_stack(pi, A, lik, C)
+    micro = {b: split_probe.probe_micro(pi, A, lik, C, b) for b in split_probe.MICRO_BODIES}
+    torch.cuda.synchronize()
+    assert split_probe.probe_fwd_nos.launches == split_probe.probe_fwd_stack.launches == 1
+    assert split_probe.probe_micro.launches == dict.fromkeys(split_probe.MICRO_BODIES, 1)
+    torch.testing.assert_close(nos, split_probe.probe_fwd_nos_reference(pi, A, lik, C),
+                               rtol=1e-5, atol=1e-30)
+    for x, r in zip(stack, split_probe.probe_fwd_stack_reference(pi, A, lik, C)):
+        torch.testing.assert_close(x, r, rtol=1e-5, atol=1e-30)
+    for body, got in micro.items():
+        ref = split_probe.probe_micro_reference(pi, A, lik, C, body)
+        rows = slice(None, None, C) if body == "dot_only" else slice(None)
+        rtol = 1.6e-2 if body == "dot_bf16" else 1e-5
+        assert got.dtype == ref.dtype == split_probe.micro_dtype(body)
+        torch.testing.assert_close(got[rows], ref[rows], rtol=rtol, atol=1e-30)
+
+
+def test_split_probes_refuse_k_above_64(cuda_device):
+    pi, A, lik = make_inputs(2, 8, 65, cuda_device)
+    for call in (lambda: split_probe.probe_fwd_nos(pi, A, lik, 4),
+                 lambda: split_probe.probe_fwd_stack(pi, A, lik, 4),
+                 lambda: split_probe.probe_micro(pi, A, lik, 4, "dot_store")):
+        with pytest.raises(NotImplementedError, match="K <= 64"):
+            call()
 
 
 def test_duplex_route_runs_the_duplex_kernels(cuda_device):

@@ -14,14 +14,16 @@ fails:
             for every kernel.
 3. kernels: both fused E-step kernels against their plain PyTorch twins on
             the card, at a small shape and at B=1024, T=1000, K=64, D=8,
-            with ``emit_gamma`` True and False; the gated fused backward
-            with SVI-shaped kept-masks (B=1024, W=70, K=64, F=45); both
+            with ``emit_gamma`` True and False and the backward gated and
+            not; the gated fused backward with SVI-shaped kept-masks
+            (B=1024, W=70, K=64, F=45); both
             split kernels, gated and not, at a small shape, at B=1024,
             W=70, K=64 and at B=1024, T=1000, K=64; both duplex kernels at
             a small shape (the combine's chunks of 16 steps do not divide
             T=50) and at B=1024, T=1000, K=64 (``emit_gamma`` True and
-            False), gated at B=1024, W=70, K=64, and the chain's forward
-            against the fused forward's; all under stated tolerances.
+            False), gated at B=1024, W=70, K=64, and the chain's alpha, s
+            and sh against the fused forward's, bit for bit; all under
+            stated tolerances.
 4. VB:      5 batch-VB iterations at B=1024, T=1000, K=64, D=8 through
             ``method="auto"``; each kernel must launch once per iteration
             and the ELBO must be finite and non-decreasing. Then the small
@@ -29,11 +31,17 @@ fails:
             at Hamming error <= 0.05. Then the same 5 iterations through
             ``method="duplex"``: each duplex kernel once per iteration, no
             other E-step kernel, and the ELBOs those of "auto".
-5. times:   each kernel against its twin, the E-step of the benchmark
-            shape (need_gamma=False) on the kernel and plain routes, and
-            the SVI step at B in {32, 256, 1024} on "fused", "split",
-            "duplex" and "scan", timed with CUDA events; a profile of the
-            SVI step.
+5. times:   each kernel against its twin; the fused pair's block layout
+            (for every built S, sequences a block: registers, shared bytes,
+            spills, resident blocks an SM from the library's occupancy
+            query, waves at B=1024, time and share of the bound; the
+            default S must run in one wave and every S give the default's
+            outputs); the pair at every S for B = 2048 and 4096; the gated
+            fused pair at the SVI shape for B in {32, 256, 1024}; the
+            E-step of the benchmark shape (need_gamma=False) on the kernel
+            and plain routes, and the SVI step at B in {32, 256, 1024} on
+            "fused", "split", "duplex" and "scan", timed with CUDA events;
+            a profile of the SVI step.
 6. SVI:     windowed subchain SVI at full width (K=64, D=8, one chain of
             T=100,000 with overlapping states, B=1024, L=50, b=10): 20
             steps through ``method="auto"``, then 20 through "split" and 20
@@ -232,6 +240,18 @@ def check_kernels(gen, shape):
     compare("acc", acc, acc_r, 1e-4, 1e-3)
     compare("eacc", eacc, eacc_r, 3e-3, 2e-3)
 
+    B_, T_ = shape[:2]
+    w = svi_masks(gen, B_, T_, max(1, (5 * T_) // 7))
+    log("   gated fused_bwd_kernel vs backward_reference (kept runs of 5T/7)")
+    got = ff.fused_backward(A_t, W, feats, a_r, s_r, sh_r, emit_gamma=True, weights=w)
+    torch.cuda.synchronize()
+    ref = ff.backward_reference(A_t, W, feats, a_r, s_r, sh_r, True, weights=w)
+    for name, x, r, rtol, atol in zip(("gamma", "gamma0", "acc", "eacc"), got, ref,
+                                      (0.0, 0.0, 1e-4, 3e-3), (5e-5, 5e-5, 1e-3, 2e-3)):
+        compare(name, x, r, rtol, atol)
+    require(torch.equal(got[0], gam), "the gated kernel's gamma is not the ungated one")
+    del got, ref
+
     for emit_gamma in (True, False):
         fk, Sk = ff.estep_fused(log_pi, log_A, W, feats, emit_gamma=emit_gamma)
         torch.cuda.synchronize()
@@ -341,8 +361,7 @@ def check_duplex(gen, B_, T_, K_, D_, gated):
     torch.cuda.synchronize()
     same = [torch.equal(x, y) for x, y in ((alpha, fa), (s, fs), (sh, fsh))]
     log(f"   chain forward vs fused_fwd_kernel: alpha, s, sh equal bit for bit: {same}")
-    for name, x, y in (("alpha", alpha, fa), ("s", s, fs), ("sh", sh, fsh)):
-        compare(f"{name} (vs fused_fwd_kernel)", x, y, 0.0, 5e-5 if name != "sh" else 1e-4)
+    require(all(same), "the duplex chain's alpha, s and sh are not the fused forward's")
 
     log("   duplex_combine_kernel vs duplex_combine_reference (the same chain outputs in)")
     got = df.duplex_combine(W, feats, a_r, b_r, sh_r, True, w)
@@ -511,6 +530,121 @@ def profile_svi(cfg, p0, prior, chain, steps: int) -> None:
         f"{len(device_us)} kernel names")
     for name, t in sorted(device_us.items(), key=lambda kv: -kv[1])[:6]:
         log(f"    {t / 1e3:9.3f} ms  {100 * t / max(busy, 1e-9):5.1f} %  {name[:90]}")
+
+
+FUSED_KERNELS = {"fused_fwd_kernel": "forward", "fused_bwd_kernel": "backward"}
+
+
+def fused_layout(full_inputs, ms) -> None:
+    """Phase 5: the fused pair's block layout at the VB shape. For every
+    built S (sequences a block): the library's registers, shared bytes,
+    spills and resident blocks an SM (the CUDA occupancy calculator), the
+    waves of ceil(B/S) blocks, the time, and the outputs against the default
+    S's: alpha, s, sh, gamma and gamma0 bit for bit (each sequence's
+    arithmetic does not depend on S), acc and eacc to their tolerances. The
+    default S (``default_seqs``) must run in one wave."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.scripts.debug_split import cuda_ms
+    from pysvihmm_tpu_torch.utils.roofline import bound, kernel_work
+
+    pi_t, A_t, W, feats, a_r, s_r, sh_r = full_inputs
+    F = feats.shape[-1]
+    ref_f = ff.fused_forward(pi_t, A_t, W, feats)
+    ref_b = ff.fused_backward(A_t, W, feats, a_r, s_r, sh_r, True)
+    for name, kind in FUSED_KERNELS.items():
+        b_ms = bound(*kernel_work(name, B, T, K, F))[0]
+        chosen = ff.default_seqs(kind, B, F, feats.device)
+        for S in ff.SEQS:
+            info = ff.kernel_info(kind, S, F)
+            blocks = -(-B // S)
+            waves = blocks / (info["blocks_per_sm"] * info["sms"])
+            if name == "fused_fwd_kernel":
+                run = lambda S=S: ff._launch_forward(S, pi_t, A_t, W, feats)
+                got = run()
+                same = all(torch.equal(x, y) for x, y in zip(got, ref_f))
+            else:
+                run = lambda S=S: ff._launch_backward(S, A_t, W, feats, a_r, s_r, sh_r, False)
+                got = ff._launch_backward(S, A_t, W, feats, a_r, s_r, sh_r, True)
+                torch.cuda.synchronize()
+                same = torch.equal(got[0], ref_b[0]) and torch.equal(got[1], ref_b[1])
+                compare(f"acc, S={S} vs S={chosen}", got[2], ref_b[2], 1e-4, 1e-3)
+                compare(f"eacc, S={S} vs S={chosen}", got[3], ref_b[3], 3e-3, 2e-3)
+            del got
+            require(same, f"{name}: S={S} differs from S={chosen} where it must not")
+            t_ms = cuda_ms(run, 20, warmup=3)
+            log(f"{name} S={S}{' (default)' if S == chosen else ''}: {info['registers']} "
+                f"registers, {info['local_bytes']} spilled bytes, "
+                f"{info['static_smem'] + info['dynamic_smem']} shared bytes a block, "
+                f"{info['blocks_per_sm']} blocks an SM of {info['sms']}, {blocks} blocks = "
+                f"{waves:.3f} waves at B={B}; {t_ms:.3f} ms, bound {b_ms:.3f} ms, "
+                f"{100 * b_ms / t_ms:.1f} % of it")
+            if S == chosen:
+                default = (info["blocks_per_sm"], waves)
+                require(waves <= 1.0, f"{name}: B={B} takes {waves:.3f} waves at S={S}")
+        log(f"{name}: S={chosen}, {default[0]} blocks an SM, {default[1]:.3f} waves at B={B}; "
+            f"{ms[name]:.3f} ms (timed above), bound {b_ms:.3f} ms, "
+            f"{100 * b_ms / ms[name]:.1f} % of it")
+
+
+def fused_large_batches(gen) -> None:
+    """Phase 5: the fused pair at the VB shape for B past one wave at S = 2
+    (2048 and 4096 sequences), at every built S, the default S marked: the
+    measurements the launchers' choice of S rests on beyond B = 1024."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.scripts.debug_split import cuda_ms
+
+    for Bs in (2048, 4096):
+        lp, lA, W, feats = random_problem(gen, Bs, T, K, D)
+        pi_t, A_t = torch.exp(lp).contiguous(), torch.exp(lA).contiguous()
+        a, s, sh = ff.fused_forward(pi_t, A_t, W, feats)
+        F = feats.shape[-1]
+        c_f = ff.default_seqs("forward", Bs, F, feats.device)
+        c_b = ff.default_seqs("backward", Bs, F, feats.device)
+        parts = []
+        for S in ff.SEQS:
+            t_f = cuda_ms(lambda: ff._launch_forward(S, pi_t, A_t, W, feats), 10, warmup=2)
+            t_b = cuda_ms(lambda: ff._launch_backward(S, A_t, W, feats, a, s, sh), 10, warmup=2)
+            parts.append(f"S={S} {t_f:.3f}{'*' if S == c_f else ''} + {t_b:.3f}"
+                         f"{'*' if S == c_b else ''} ms")
+        log(f"fused pair at (B, T, K, F) = ({Bs}, {T}, {K}, {F}): " + "; ".join(parts)
+            + " (* the default S)")
+        del a, s, sh, feats
+
+
+def svi_shape_pair(gen) -> None:
+    """Phase 5: the fused pair at the SVI step's shape (W=70 windows, kept
+    runs of L, the gated backward with emit_gamma on) for B in SVI_BATCHES,
+    at every built S; the default S marked."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.scripts.debug_split import cuda_ms
+    from pysvihmm_tpu_torch.utils.roofline import bound, kernel_work
+
+    for Bs in SVI_BATCHES:
+        lp, lA, W, feats = random_problem(gen, Bs, SVI_W, K, D)
+        m = svi_masks(gen, Bs, SVI_W, SVI_L)
+        pi_t, A_t = torch.exp(lp).contiguous(), torch.exp(lA).contiguous()
+        a, s, sh = ff.fused_forward(pi_t, A_t, W, feats)
+        F = feats.shape[-1]
+        b_f = bound(*kernel_work("fused_fwd_kernel", Bs, SVI_W, K, F))[0]
+        b_b = bound(*kernel_work("fused_bwd_kernel", Bs, SVI_W, K, F, gated=True,
+                                 emit_gamma=True))[0]
+        c_f = ff.default_seqs("forward", Bs, F, feats.device)
+        c_b = ff.default_seqs("gated backward", Bs, F, feats.device)
+        parts = []
+        for S in ff.SEQS:
+            t_f = cuda_ms(lambda: ff._launch_forward(S, pi_t, A_t, W, feats), 20, warmup=3)
+            t_b = cuda_ms(lambda: ff._launch_backward(S, A_t, W, feats, a, s, sh, True, m),
+                          20, warmup=3)
+            parts.append(f"S={S} {t_f:.4f}{'*' if S == c_f else ''} + {t_b:.4f}"
+                         f"{'*' if S == c_b else ''} = {t_f + t_b:.4f} ms")
+        log(f"gated fused pair at the SVI shape (B, W, K, F) = ({Bs}, {SVI_W}, {K}, {F}), "
+            f"bounds {b_f:.4f} + {b_b:.4f} ms: " + "; ".join(parts) + " (* the default S)")
 
 
 def family_vb(fam, obs, prior, p0, label):
@@ -1007,6 +1141,9 @@ def main() -> int:
         bounds[name] = bound(*kernel_work(name, B, T, K, F))
         log(f"{name}: {ms[name]:.3f} ms, plain twin {plain_ms[name]:.3f} ms, bound "
             f"{bounds[name][0]:.3f} ms ({bounds[name][1]}) at (B, T, K, F) = ({B}, {T}, {K}, {F})")
+    fused_layout(full_inputs, ms)
+    fused_large_batches(torch.Generator(device=dev).manual_seed(80))
+    svi_shape_pair(torch.Generator(device=dev).manual_seed(79))
 
     # what the gates cost at the same shape (kept runs of 5T/7 per sequence)
     w_full = svi_masks(torch.Generator(device=dev).manual_seed(78), B, T, (5 * T) // 7)

@@ -1,9 +1,11 @@
 // Device code shared by the forward-backward kernels of fused_fb.cu,
-// split_fb.cu and duplex_fb.cu: the block layout (one block per sequence,
-// one thread per state), the per-sequence sum floor, the warp reductions,
-// the A~ and W loaders and the in-kernel likelihood dot. Each .cu still
-// builds into its own library; _build.py hashes this header into the name of
-// every library whose source includes it.
+// split_fb.cu, duplex_fb.cu and split_probe.cu: one thread per state (KMAX
+// threads), the widths the kernels take, the per-sequence sum floor and the
+// warp reductions; and, for the sources with one block per sequence, the A~
+// and W loaders and the in-kernel likelihood dot, whose fmaf order
+// fused_fb.cu's own loops keep. Each .cu still builds into its own
+// library; _build.py hashes this header into the name of every library whose
+// source includes it.
 
 #pragma once
 

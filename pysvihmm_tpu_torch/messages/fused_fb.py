@@ -15,7 +15,12 @@ Kernels (``csrc/fused_fb.cu``; the source notes what bounds them):
   (T, B) and its pair gate g_t = w_{t-1} w_t when ``weights`` is given
   (pallas_fb.py:693-697, :1014-1019, :1095-1099): the gates touch the
   statistics only, so buffer steps still drive the chain and the gamma
-  written out is ungated.
+  written out is ungated. The kernel forms the pair gate from w.
+
+A block of either kernel carries S sequences, one thread per state, each
+thread running its state of all S as interleaved chains; the launchers take
+S from :func:`seqs_per_block`, a plain function of B and the blocks of
+each instance the card holds at once (the library's occupancy query).
 
 Each kernel has a launcher (:func:`fused_forward`, :func:`fused_backward`)
 and a plain PyTorch twin (:func:`forward_reference`,
@@ -31,6 +36,9 @@ alpha storage are still open (ROADMAP Queue 2).
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -51,8 +59,9 @@ def _library():
 
     return bind(
         load_library(_LIB),
-        {"fused_fb_forward": "ppppppp" "iiiii" "p",
-         "fused_fb_backward": "pppppppppppp" "iiiii" "p",
+        {"fused_fb_forward": "ppppppp" "iiiiii" "p",
+         "fused_fb_backward": "ppppppppppp" "iiiiii" "p",
+         "fused_fb_kernel_info": "iiiip",
          "fused_fb_kmax": "",
          "fused_fb_fmax": ""},
         "fused_fb_error_string",
@@ -69,6 +78,62 @@ def _check_kernel_limits(K: int, F: int) -> None:
             f"the fused CUDA kernels take K <= {kmax} and F <= {fmax}, got K={K}, "
             f"F={F} (ROADMAP Queue 2: wider fused kernels)"
         )
+
+
+# the sequences a block the library is built for (csrc/fused_fb.cu)
+SEQS = (2, 4)
+
+
+def seqs_per_block(B: int, resident: dict[int, int]) -> int:
+    """Sequences a block S for a batch of B, given ``resident[S]``, the blocks
+    of the S instance the card holds at once (blocks an SM times SMs).
+
+    The smallest S whose ceil(B / S) blocks run in one wave, and the largest
+    when none does. Measured on the H100 (PERF.md): S = 2 is the fastest for
+    both kernels at B = 32, 256 and 1024 (two sequences a thread fill the
+    FMA pipe's latency, and the backward shares each A~ and W word it reads
+    between them); S = 4 at B = 2048, where S = 2 needs a second wave, and
+    for the backward at B = 4096. S = 1 lost to S = 2 at every B it was
+    timed at, and S = 8 everywhere (the backward spills): neither is built."""
+    for S in SEQS:
+        if -(-B // S) <= resident[S]:
+            return S
+    return SEQS[-1]
+
+
+_KERNELS = {"forward": 0, "backward": 1, "gated backward": 2}
+
+
+def kernel_info(kernel: str, S: int, F: int, device: torch.device | None = None) -> dict:
+    """What one instance of the kernels takes on the card, from the library:
+    ``kernel`` is "forward", "backward" or "gated backward", S the sequences a
+    block and F the feature width (the instance is built for F padded to 16,
+    32, 48 or 64). Returns registers (a thread), static_smem and dynamic_smem
+    (bytes a block), local_bytes (spills, a thread), blocks_per_sm (resident,
+    by the CUDA occupancy calculator) and sms (the card's)."""
+    dev = device if device is not None else torch.device("cuda")
+    return dict(_kernel_info(kernel, S, F, device_index(dev)))
+
+
+@functools.cache
+def _kernel_info(kernel: str, S: int, F: int, index: int) -> tuple:
+    out = (ctypes.c_int * 6)()
+    lib = _library()
+    code = lib.fused_fb_kernel_info(_KERNELS[kernel], S, F, index, ctypes.addressof(out))
+    raise_on(lib.fused_fb_error_string, code, f"fused_fb_kernel_info({kernel}, S={S}, F={F})")
+    keys = ("registers", "static_smem", "dynamic_smem", "local_bytes", "blocks_per_sm", "sms")
+    return tuple(zip(keys, list(out)))
+
+
+def default_seqs(kernel: str, B: int, F: int, device: torch.device) -> int:
+    """The launchers' S: :func:`seqs_per_block` on the card's own occupancy."""
+    return _default_seqs(kernel, B, F, device_index(device))
+
+
+@functools.cache
+def _default_seqs(kernel: str, B: int, F: int, index: int) -> int:
+    info = {S: dict(_kernel_info(kernel, S, F, index)) for S in SEQS}
+    return seqs_per_block(B, {S: i["blocks_per_sm"] * i["sms"] for S, i in info.items()})
 
 
 # ----------------------------------------------------------------- forward
@@ -92,6 +157,12 @@ def fused_forward(
 
     Inputs are float32 and contiguous on one device. CPU tensors run the
     plain twin; CUDA tensors launch ``fused_fwd_kernel`` or raise."""
+    return _launch_forward(None, pi_t, A_t, W, feats)
+
+
+def _launch_forward(S: int | None, pi_t, A_t, W, feats):
+    """:func:`fused_forward` with S sequences a block (one of SEQS; None for
+    :func:`default_seqs`): the card tests and chip_smoke.py's sweeps of S."""
     T, B, F = feats.shape
     K = A_t.shape[0]
     dev = feats.device
@@ -102,12 +173,14 @@ def fused_forward(
         return forward_reference(pi_t, A_t, W, feats)
     _check_kernel_limits(K, F)
     lib = _library()
+    index = device_index(dev)
+    S = S if S is not None else _default_seqs("forward", B, F, index)
     alpha = torch.empty((T, B, K), dtype=torch.float32, device=dev)
     s = torch.empty((B, T), dtype=torch.float32, device=dev)
     sh = torch.empty((B, T), dtype=torch.float32, device=dev)
     code = lib.fused_fb_forward(
         ptr(pi_t), ptr(A_t), ptr(W), ptr(feats), ptr(alpha), ptr(s), ptr(sh),
-        T, B, K, F, device_index(dev), stream(dev),
+        T, B, K, F, S, index, stream(dev),
     )
     fused_forward.launches += 1
     raise_on(lib.fused_fb_error_string, code, "fused_fwd_kernel")
@@ -159,9 +232,16 @@ def fused_backward(
     """Backward kernel launcher; contract of :func:`backward_reference`.
 
     CPU tensors run the plain twin; CUDA tensors launch ``fused_bwd_kernel``
-    (gated when ``weights`` is given) or raise. acc and eacc are summed
-    across sequences with atomics, so their summation order varies from run
-    to run."""
+    (gated when ``weights`` is given; the kernel forms the pair gate from
+    them) or raise. acc and eacc are summed across blocks with atomics, so
+    their summation order varies from run to run."""
+    return _launch_backward(None, A_t, W, feats, alpha, s, sh, emit_gamma, weights)
+
+
+def _launch_backward(S: int | None, A_t, W, feats, alpha, s, sh, emit_gamma=False,
+                     weights=None):
+    """:func:`fused_backward` with S sequences a block, as
+    :func:`_launch_forward`."""
     T, B, F = feats.shape
     K = A_t.shape[0]
     dev = feats.device
@@ -175,15 +255,17 @@ def fused_backward(
         return backward_reference(A_t, W, feats, alpha, s, sh, emit_gamma, weights)
     _check_kernel_limits(K, F)
     lib = _library()
-    g = None if weights is None else pair_gate(weights)
+    kind = "backward" if weights is None else "gated backward"
+    index = device_index(dev)
+    S = S if S is not None else _default_seqs(kind, B, F, index)
     gamma = torch.empty((T, B, K), dtype=torch.float32, device=dev) if emit_gamma else None
     gamma0 = torch.empty((B, K), dtype=torch.float32, device=dev)
     acc = torch.zeros((K, K), dtype=torch.float32, device=dev)
     eacc = torch.zeros((K, F), dtype=torch.float32, device=dev)
     code = lib.fused_fb_backward(
         ptr(A_t), ptr(W), ptr(feats), ptr(alpha), ptr(s), ptr(sh),
-        ptr(weights), ptr(g), ptr(gamma), ptr(gamma0), ptr(acc), ptr(eacc),
-        T, B, K, F, device_index(dev), stream(dev),
+        ptr(weights), ptr(gamma), ptr(gamma0), ptr(acc), ptr(eacc),
+        T, B, K, F, S, index, stream(dev),
     )
     fused_backward.launches += 1
     raise_on(lib.fused_fb_error_string, code, "fused_bwd_kernel")

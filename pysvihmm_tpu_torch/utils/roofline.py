@@ -71,8 +71,9 @@ def kernel_work(name: str, B: int, T: int, K: int, F: int = 0, gated: bool = Fal
     words = {
         # feats in, W, A~, pi~; alpha, s, sh out
         "fused_fwd_kernel": n * F + F * K + k2 + K + n * K + 2 * n,
-        # feats, alpha, s, sh, W, A~ (+ w, g) in; gamma0, acc, eacc (+ gamma) out
-        "fused_bwd_kernel": n * F + n * K + 2 * n + F * K + k2 + (2 * n if gated else 0)
+        # feats, alpha, s, sh, W, A~ (+ w, the pair gate formed in-kernel) in;
+        # gamma0, acc, eacc (+ gamma) out
+        "fused_bwd_kernel": n * F + n * K + 2 * n + F * K + k2 + (n if gated else 0)
         + B * K + k2 + K * F + (n * K if emit_gamma else 0),
         # ll, A~, pi~ in; alpha, s, sh out
         "split_fwd_kernel": n * K + k2 + K + n * K + 2 * n,

@@ -63,6 +63,77 @@ def test_kernels_match_plain_twins(cuda_device, B, T, K, D, emit_gamma):
     torch.testing.assert_close(Sk, Sr, rtol=3e-3, atol=2e-3)
 
 
+def _random_fused_inputs(gen, B, T, K, F):
+    """pi~, A~ (rows summing to 0.9), W and features of any width F."""
+    dev = gen.device
+    pi = torch.rand(K, generator=gen, device=dev) + 0.1
+    A = torch.rand((K, K), generator=gen, device=dev) + 0.1
+    W = torch.randn((F, K), generator=gen, device=dev)
+    feats = 0.5 * torch.randn((T, B, F), generator=gen, device=dev)
+    return ((pi / pi.sum()).contiguous(), (0.9 * A / A.sum(1, keepdim=True)).contiguous(),
+            W.contiguous(), feats.contiguous())
+
+
+@pytest.mark.parametrize("B", [1, 3, 37, 1025])
+@pytest.mark.parametrize("T", [1, 2])
+@pytest.mark.parametrize("K,F", [(1, 1), (33, 64), (64, 1), (64, 64)])
+def test_fused_block_layout_matches_twins(cuda_device, B, T, K, F):
+    """Every built S (sequences a block; B = 1, 3, 37 and 1025 leave the
+    last block short) against the twins, ungated and under random, all-zero
+    and all-one kept-masks, emit_gamma both ways; alpha, s, sh, gamma and
+    gamma0 equal the default S's bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(B * 7 + T * 3 + K + F)
+    pi_t, A_t, W, feats = _random_fused_inputs(gen, B, T, K, F)
+    a_r, s_r, sh_r = fused_fb.forward_reference(pi_t, A_t, W, feats)
+    masks = [None, (torch.rand((T, B), generator=gen, device=cuda_device) < 0.6).float(),
+             torch.zeros((T, B), device=cuda_device), torch.ones((T, B), device=cuda_device)]
+    first = {}
+    for S in fused_fb.SEQS:
+        fwd = fused_fb._launch_forward(S, pi_t, A_t, W, feats)
+        for x, r in zip(fwd, (a_r, s_r, sh_r)):
+            torch.testing.assert_close(x, r, rtol=2e-6, atol=5e-5)
+        first.setdefault("fwd", fwd)
+        assert all(torch.equal(x, y) for x, y in zip(fwd, first["fwd"]))
+        for i, w in enumerate(masks):
+            for emit in (True, False):
+                got = fused_fb._launch_backward(S, A_t, W, feats, a_r, s_r, sh_r, emit, w)
+                ref = fused_fb.backward_reference(A_t, W, feats, a_r, s_r, sh_r, emit, w)
+                if emit:
+                    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=5e-5)
+                else:
+                    assert got[0] is None
+                torch.testing.assert_close(got[1], ref[1], rtol=0, atol=5e-5)
+                torch.testing.assert_close(got[2], ref[2], rtol=1e-4, atol=1e-3)
+                torch.testing.assert_close(got[3], ref[3], rtol=3e-3, atol=2e-3)
+                key = (i, emit)
+                first.setdefault(key, got)
+                assert torch.equal(got[1], first[key][1])
+                if emit:
+                    assert torch.equal(got[0], first[key][0])
+
+
+@pytest.mark.parametrize("K", [33, 64])
+def test_duplex_chain_is_the_fused_forward_bit_for_bit(cuda_device, K):
+    gen = torch.Generator(device=cuda_device).manual_seed(300 + K)
+    log_pi, log_A, W, feats = random_problem(gen, 37, 40, K, 8)
+    pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+    alpha, s, sh, _ = duplex_fb.duplex_chain(pi_t, A_t, W, feats)
+    for S in fused_fb.SEQS:
+        for x, r in zip((alpha, s, sh), fused_fb._launch_forward(S, pi_t, A_t, W, feats)):
+            assert torch.equal(x, r)
+
+
+def test_fused_pair_runs_b1024_in_one_wave(cuda_device):
+    """At the VB shape (B=1024, F=45) each kernel's default S fits all
+    ceil(B/S) blocks on the card at once, by the library's occupancy query."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for kind in ("forward", "backward", "gated backward"):
+        S = fused_fb.default_seqs(kind, 1024, 45, cuda_device)
+        info = fused_fb.kernel_info(kind, S, 45, cuda_device)
+        assert info["sms"] == sms
+        assert -(-1024 // S) <= info["blocks_per_sm"] * sms, (kind, S, info)
+
+
 def test_wider_than_the_kernels_raises(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     log_pi, log_A, W, feats = random_problem(gen, 2, 8, 65, 2)

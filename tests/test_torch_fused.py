@@ -175,3 +175,32 @@ def test_launchers_reject_what_the_kernels_do_not_take(bad):
         feats = feats.to("meta")
     with pytest.raises(ValueError):
         fused_fb.fused_forward(pi_t, A_t, W, feats)
+
+
+# resident blocks of the S = 2, 4 instances: 4 an SM on the H100's 132 SMs
+# (PERF.md), and on a card of 114 SMs
+H100 = {2: 4 * 132, 4: 4 * 132}
+SMALL = {2: 4 * 114, 4: 4 * 114}
+
+
+@pytest.mark.parametrize("B,resident,S", [(1, H100, 2), (2, H100, 2), (32, H100, 2),
+                                          (256, H100, 2), (1024, H100, 2), (1056, H100, 2),
+                                          (1057, H100, 4), (2112, H100, 4), (4096, H100, 4),
+                                          (1024, SMALL, 4)])
+def test_seqs_per_block_is_the_smallest_one_wave_s(B, resident, S):
+    """The launchers' sequences a block: S = 2 (the fastest measured), down
+    to a single sequence, growing only when ceil(B / S) blocks would need a
+    second wave."""
+    assert fused_fb.seqs_per_block(B, resident) == S
+    assert S in fused_fb.SEQS
+
+
+def test_gated_backward_reads_only_the_kept_mask():
+    """The gated fused backward forms the pair gate in-kernel, so its bytes
+    count one (T, B) float32 array more than the ungated one's, not two."""
+    from pysvihmm_tpu_torch.utils.roofline import kernel_work
+
+    B, T, K, F = 1024, 70, 64, 45
+    gated = kernel_work("fused_bwd_kernel", B, T, K, F, gated=True)[0]
+    plain = kernel_work("fused_bwd_kernel", B, T, K, F)[0]
+    assert gated - plain == 4.0 * B * T

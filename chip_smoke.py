@@ -23,7 +23,13 @@ fails:
             T=50) and at B=1024, T=1000, K=64 (``emit_gamma`` True and
             False), gated at B=1024, W=70, K=64, and the chain's alpha, s
             and sh against the fused forward's, bit for bit; all under
-            stated tolerances.
+            stated tolerances. Then the large-K instances of all six
+            kernels the same way at K = 65, 128, 129 and 256 on a small
+            shape and at B=1024, T=1000, D=8 for K = 128 and 256, gated and
+            not (the duplex chain bit for bit there too); and each backward
+            kernel (fused, split, duplex combine), gated and not, 5 times on
+            one full-shape input at K = 64 and 256: acc and eacc must be the
+            same bits every time.
 4. VB:      5 batch-VB iterations at B=1024, T=1000, K=64, D=8 through
             ``method="auto"``; each kernel must launch once per iteration
             and the ELBO must be finite and non-decreasing. Then the small
@@ -41,7 +47,10 @@ fails:
             E-step of the benchmark shape (need_gamma=False) on the kernel
             and plain routes, and the SVI step at B in {32, 256, 1024} on
             "fused", "split", "duplex" and "scan", timed with CUDA events;
-            a profile of the SVI step.
+            a profile of the SVI step. Each route kernel's large-K
+            instances at K = 128 and 256 (B=1024, T=1000, F=45) against
+            its twin and bound (their registers, spills and shared bytes
+            are phase 2's ptxas lines).
 6. SVI:     windowed subchain SVI at full width (K=64, D=8, one chain of
             T=100,000 with overlapping states, B=1024, L=50, b=10): 20
             steps through ``method="auto"``, then 20 through "split" and 20
@@ -77,10 +86,20 @@ fails:
             (the kernels, whose launches are counted, then the twins), one
             line per variant with its bound and share, and the split
             forward's time split into products, stores, likelihood loads,
-            sums and the shift and exp.
+            sums and the shift and exp. The large-K probes are checked at
+            K = 65, 128 (B=1024) and 256, and at the full shape at K = 128
+            and 256, where they are timed too.
+9. large K: batch VB at K=256, B=1024, T=1000, D=8, 5 iterations on
+            "auto", "split" and "duplex" (each route's kernels once an
+            iteration, ELBO non-decreasing, the routes' ELBOs within 1e-5
+            relative, each route's local step against "scan"); then 10 SVI
+            steps on "auto" at K=128, W=70, B=1024 on a T=100,000 chain and
+            3 on "split" and "duplex", every parameter finite after every
+            step.
 
-The last lines are the card line, one JSON line describing the kernels and,
-last, ``{"ok": true, "device": {...}}``.
+The last lines are the card line, one JSON line describing the kernels (every
+kernel and instance tier: K <= 64, KP = 128, KP = 256) and, last,
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -129,8 +148,8 @@ def compare_estep(name, fk, fr, Sk=None, Sr=None) -> None:
     inputs: gamma (when the twin returns it), init_stats, log_c, log_z,
     trans_stats and the emission statistics (when given). gamma, gamma0 and
     init are probabilities; log_c and log_z are in nats and carry the
-    likelihood dot's rounding; trans and emit are sums over B*T terms whose
-    cross-sequence order the kernels' atomics change (relative bounds)."""
+    likelihood dot's rounding; trans and emit are sums over B*T terms that
+    the kernels group otherwise than the twins (relative bounds)."""
     log(f"   {name}")
     if fr.gamma is None:
         require(fk.gamma is None, f"{name}: gamma returned with emit_gamma=False")
@@ -233,8 +252,8 @@ def check_kernels(gen, shape):
     torch.cuda.synchronize()
     require(ff.fused_backward.launches == n_bwd + 1, "backward launch was not counted")
     gam_r, g0_r, acc_r, eacc_r = ff.backward_reference(A_t, W, feats, a_r, s_r, sh_r, True)
-    # gamma in probability units; acc and eacc are sums over B*T terms whose
-    # cross-sequence order the kernel's atomics change (relative bounds)
+    # gamma in probability units; acc and eacc are sums over B*T terms that
+    # the kernel groups otherwise than the twin (relative bounds)
     bwd_err = compare("gamma", gam, gam_r, 0.0, 5e-5)
     compare("gamma0", g0, g0_r, 0.0, 5e-5)
     compare("acc", acc, acc_r, 1e-4, 1e-3)
@@ -385,6 +404,74 @@ def check_duplex(gen, B_, T_, K_, D_, gated):
         compare_estep(f"estep_duplex vs estep_duplex_reference, emit_gamma={emit_gamma}",
                       fk, fr, Sk, Sr)
     return chain_err, comb_err, (pi_t, A_t, W, feats, a_r, s_r, sh_r, b_r)
+
+
+LARGE_K = (128, 256)  # the large-K tiers: 65-128 states run KP = 128, 129-256 KP = 256
+SMALL_LARGE_K = (65, 128, 129, 256)  # both ends of both tiers
+
+
+def check_large_k(gen) -> dict[tuple[str, int], float]:
+    """Phase 3 above K = 64: every route kernel against its twin at each K of
+    SMALL_LARGE_K on a small shape and at B=1024, T=1000, D=8 for each K of
+    LARGE_K, gated and not (the duplex chain's alpha, s and sh the fused
+    forward's bit for bit, a ``require``). Returns the max errors at full
+    width by (kernel, K): the forwards' log_c, the backwards' gamma."""
+    import torch
+
+    errs = {}
+    for K_ in SMALL_LARGE_K:
+        check_kernels(gen, (8, 50, K_, 2))
+        for gated in (False, True):
+            check_split(gen, 8, 50, K_, 2, gated)
+            check_duplex(gen, 8, 50, K_, 2, gated)
+    for K_ in LARGE_K:
+        e_f, e_b, _ = check_kernels(gen, (B, T, K_, D))
+        errs["fused_fwd_kernel", K_], errs["fused_bwd_kernel", K_] = e_f, e_b
+        for gated in (False, True):
+            e_f, e_b, _ = check_split(gen, B, T, K_, D, gated)
+            errs["split_fwd_kernel", K_] = max(errs.get(("split_fwd_kernel", K_), 0.0), e_f)
+            errs["split_bwd_kernel", K_] = max(errs.get(("split_bwd_kernel", K_), 0.0), e_b)
+            e_c, e_m, _ = check_duplex(gen, B, T, K_, D, gated)
+            errs["duplex_chain_kernel", K_] = max(errs.get(("duplex_chain_kernel", K_), 0.0), e_c)
+            errs["duplex_combine_kernel", K_] = max(errs.get(("duplex_combine_kernel", K_), 0.0),
+                                                    e_m)
+        torch.cuda.empty_cache()
+    return errs
+
+
+def check_repeatable(gen, K_) -> None:
+    """Phase 3: each backward kernel (the fused backward, the split backward,
+    the duplex combine), gated and not, 5 times on one input at B=1024,
+    T=1000, D=8: acc and eacc must be the same bits every time (a
+    ``require``), since the sums across blocks run in an order fixed by the
+    shapes."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import duplex_fb as df
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.messages import split_fb as sf
+
+    log_pi, log_A, W, feats = random_problem(gen, B, T, K_, D)
+    w = svi_masks(gen, B, T, (5 * T) // 7)
+    pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+    a, s, sh, beta = df.duplex_chain(pi_t, A_t, W, feats)
+    ll = (feats @ W).contiguous()
+    for weights in (None, w):
+        g = None if weights is None else sf.pair_gate(weights)
+        calls = {
+            "fused_bwd_kernel": lambda: ff.fused_backward(A_t, W, feats, a, s, sh, False, weights)[2:],
+            "split_bwd_kernel": lambda: sf.split_backward(A_t, ll, a, s, sh, g)[1:],
+            "duplex_combine_kernel": lambda: df.duplex_combine(W, feats, a, beta, sh, False,
+                                                               weights)[2:],
+        }
+        for name, call in calls.items():
+            first = [x.clone() for x in call()]
+            same = [all(torch.equal(x, y) for x, y in zip(call(), first)) for _ in range(4)]
+            torch.cuda.synchronize()
+            log(f"  {name} at (B, T, K, F) = ({B}, {T}, {K_}, {feats.shape[-1]}), gated="
+                f"{weights is not None}: acc and eacc equal bit for bit over 5 calls: {all(same)}")
+            require(all(same), f"{name}: acc or eacc changed between identical calls at K={K_}")
+    del a, beta, ll, feats
 
 
 def kernel_counts() -> dict[str, int]:
@@ -847,9 +934,145 @@ def families_phase(dev) -> dict[str, dict[str, int]]:
     return launches
 
 
+LARGE_VB_K = 256  # the large-K phase: batch VB at K=256, SVI at K=128
+LARGE_SVI_K, LARGE_SVI_STEPS, LARGE_SVI_SIDE_STEPS = 128, 10, 3
+
+
+def large_k_phase(dev) -> dict[tuple[str, int], int]:
+    """The large-K phase: batch VB at K=256, B=1024, T=1000, D=8, 5
+    iterations on "auto", "split" and "duplex" (each route's kernels once an
+    iteration, the ELBO non-decreasing, the routes' ELBOs within ELBO_RTOL,
+    each route's local step at the fitted params against "scan"); then 10
+    SVI steps on "auto" at K=128, W=70, B=1024 on a T=100,000 chain, and 3
+    on "split" and "duplex" (one launch of each route kernel a step, every
+    parameter finite after every step). Returns the launches by (kernel, K)."""
+    import torch
+
+    from pysvihmm_tpu_torch.data.synthetic import gen_gaussian_dataset
+    from pysvihmm_tpu_torch.distributions import GaussianNIW
+    from pysvihmm_tpu_torch.engines import batch_vb, svi
+    from pysvihmm_tpu_torch.engines.base import batch_local_step
+    from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
+
+    launches = {}
+    gen = torch.Generator(device=dev).manual_seed(256)
+    K_ = LARGE_VB_K
+    obs, _, _ = gen_gaussian_dataset(gen, K_, D, B, T)
+    prior = make_prior(K_, GaussianNIW, obs_dim=D, device=dev)
+    p0 = init_params(gen, prior, GaussianNIW, obs)
+    elbos, fitted = {}, {}
+    for route in ("auto", "split", "duplex"):
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        fitted[route], e = batch_vb.fit(p0, prior, obs, GaussianNIW, num_iters=VB_ITERS,
+                                        method=route)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        require_launches(counts, route, VB_ITERS, f"K={K_} VB on {route}")
+        for name in ROUTE_KERNELS[route]:
+            launches[name, K_] = counts[name]
+        require_ascending(e, f"K={K_} VB on {route}")
+        elbos[route] = e.double().cpu()
+        log(f"  K={K_}, B={B}, T={T}, D={D}, {route}: {time.perf_counter() - t0:.3f} s; ELBO "
+            + ", ".join(f"{x:.6e}" for x in elbos[route].tolist()))
+    for route in ("split", "duplex"):
+        rel = ((elbos[route] - elbos["auto"]).abs() / elbos["auto"].abs()).max().item()
+        log(f"  K={K_}: max relative ELBO difference {route} vs auto {rel:.3e}")
+        require(rel <= ELBO_RTOL, f"K={K_}: {route} and auto ELBOs differ by {rel:.3e}")
+    ss, _ = batch_local_step(fitted["auto"], GaussianNIW, obs, "scan", need_gamma=False)
+    for route in ("auto", "split", "duplex"):
+        sk, _ = batch_local_step(fitted["auto"], GaussianNIW, obs, route, need_gamma=False)
+        torch.cuda.synchronize()
+        log(f"  K={K_}: batch_local_step on {route} vs scan at the fitted params")
+        compare_local_stats(sk, ss)
+    del obs, ss, sk, fitted
+    torch.cuda.empty_cache()
+
+    K_ = LARGE_SVI_K
+    gen = torch.Generator(device=dev).manual_seed(128)
+    chain = gen_gaussian_dataset(gen, K_, D, 1, SVI_T, mean_scale=0.5, cov_scale=1.0)[0][0]
+    prior = make_prior(K_, GaussianNIW, obs_dim=D, device=dev)
+    p0 = init_params(gen, prior, GaussianNIW, chain)
+    cfg = svi.SVIConfig(batch_size=B, subchain_len=SVI_L, buffer=SVI_BUF)
+    for route, steps in (("auto", LARGE_SVI_STEPS), ("split", LARGE_SVI_SIDE_STEPS),
+                         ("duplex", LARGE_SVI_SIDE_STEPS)):
+        t0 = time.perf_counter()
+        _, ne, counts = svi_run(route, cfg, p0, prior, chain, seed=13, steps=steps)
+        for name in ROUTE_KERNELS[route]:
+            launches[name, K_] = counts[name]
+        log(f"  SVI at K={K_}, W={SVI_W}, B={B}, T={SVI_T} on {route}: {steps} steps checked in "
+            f"{time.perf_counter() - t0:.2f} s; noisy ELBO " + ", ".join(f"{x:.6e}" for x in ne))
+    return launches
+
+
+def time_route_kernels(gen) -> tuple[dict, dict, dict]:
+    """Phase 5: each route kernel at K = 64, 128 and 256 (B=1024, T=1000,
+    F=45, ungated) by CUDA events, its twin, its bound and share. Returns
+    (ms, twin ms, bounds) by (kernel, K)."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import duplex_fb as df
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.messages import split_fb as sf
+    from pysvihmm_tpu_torch.scripts.debug_split import cuda_ms
+    from pysvihmm_tpu_torch.utils.roofline import bound, kernel_work
+
+    ms, plain_ms, bounds = {}, {}, {}
+    for K_ in (K, *LARGE_K):
+        log_pi, log_A, W, feats = random_problem(gen, B, T, K_, D)
+        F_ = feats.shape[-1]
+        pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+        ll = (feats @ W).contiguous()
+        a, s, sh, beta = df.duplex_chain(pi_t, A_t, W, feats)
+        timed = {
+            "fused_fwd_kernel": (lambda: ff.fused_forward(pi_t, A_t, W, feats),
+                                 lambda: ff.forward_reference(pi_t, A_t, W, feats)),
+            "fused_bwd_kernel": (lambda: ff.fused_backward(A_t, W, feats, a, s, sh, False),
+                                 lambda: ff.backward_reference(A_t, W, feats, a, s, sh, False)),
+            "split_fwd_kernel": (lambda: sf.split_forward(pi_t, A_t, ll),
+                                 lambda: sf.split_forward_reference(pi_t, A_t, ll)),
+            "split_bwd_kernel": (lambda: sf.split_backward(A_t, ll, a, s, sh),
+                                 lambda: sf.split_backward_reference(A_t, ll, a, s, sh)),
+            "duplex_chain_kernel": (lambda: df.duplex_chain(pi_t, A_t, W, feats),
+                                    lambda: df.duplex_chain_reference(pi_t, A_t, W, feats)),
+            "duplex_combine_kernel": (
+                lambda: df.duplex_combine(W, feats, a, beta, sh),
+                lambda: df.duplex_combine_reference(W, feats, a, beta, sh)),
+        }
+        for name, (kernel, plain) in timed.items():
+            key = (name, K_)
+            # a longer warm-up: the first kernel timed after the light small fit
+            # read 20 % slow once with a single warm-up call
+            ms[key] = cuda_ms(kernel, 20, warmup=5)
+            plain_ms[key] = cuda_ms(plain, 3)
+            bounds[key] = bound(*kernel_work(name, B, T, K_, F_))
+            log(f"{tier_name(name, K_)}: {ms[key]:.3f} ms, plain twin {plain_ms[key]:.3f} ms, "
+                f"bound {bounds[key][0]:.3f} ms ({bounds[key][1]}), "
+                f"{100 * bounds[key][0] / ms[key]:.1f} % of it, at (B, T, K, F) = "
+                f"({B}, {T}, {K_}, {F_})")
+        del a, beta, ll, feats, timed
+        torch.cuda.empty_cache()
+    return ms, plain_ms, bounds
+
+
+# the large-K instance of each route kernel (csrc/*.cu), by the kernel's name
+WIDE_NAMES = {"fused_fwd_kernel": "fused_fwd_wide_kernel",
+              "fused_bwd_kernel": "fused_bwd_wide_kernel",
+              "split_fwd_kernel": "split_fwd_wide_kernel",
+              "split_bwd_kernel": "split_bwd_wide_kernel",
+              "duplex_chain_kernel": "duplex_chain_wide_kernel",
+              "duplex_combine_kernel": "duplex_combine_wide_kernel"}
+
+
 PROBE_C = 8  # steps a tile, debug_pallas_split.py:76
-# (T, B, K, C) of phase 8's checks: small, an odd K with C = 4, full B, full
-PROBE_SHAPES = ((16, 4, 8, 8), (24, 3, 33, 4), (16, 1024, 64, 8), (T, B, K, PROBE_C))
+# (T, B, K, C) of phase 8's checks: small, an odd K with C = 4, full B, full;
+# then the large-K instances at full B and K = 128, small at K = 65 and 256,
+# and at the full timed shape for both large-K tiers
+PROBE_SHAPES = ((16, 4, 8, 8), (24, 3, 33, 4), (16, 1024, 64, 8), (T, B, K, PROBE_C),
+                (16, 1024, 128, 8), (24, 5, 65, 4), (16, 9, 256, 8),
+                (T, B, 128, PROBE_C), (T, B, 256, PROBE_C))
+PROBE_TIERS = (K, *LARGE_K)  # the K the probes are timed at, one per instance tier
 PROBE_LETTERS = "fbns12345"  # every variant of the profiling script
 
 
@@ -871,13 +1094,14 @@ def compare_elementwise(name, got, ref, rtol: float, atol: float) -> float:
     return err.max().item()
 
 
-def check_probes(dev) -> dict[str, float]:
+def check_probes(dev) -> dict[tuple[str, int], float]:
     """Phase 8, step 1: each probe kernel (every micro instance) against its
     twin on the same inputs at every shape of PROBE_SHAPES, one launch each.
     float32 to rtol 1e-5 per element with atol 1e-30 (another summation
     order; the micro bodies' third tile is subnormal); bf16 in its own
     dtype to rtol 1.6e-2, two bf16 ulps; "dot_only" on its written rows
-    t % C == 0 only. Returns the max abs error of each at the full shape."""
+    t % C == 0 only. Returns the max abs error of each by (kernel, tier),
+    from the full shape (T, B, C) = (1000, 1024, 8) that phase 8 times."""
     import torch
 
     from pysvihmm_tpu_torch.messages import split_probe as sp
@@ -910,8 +1134,8 @@ def check_probes(dev) -> dict[str, float]:
             log(f"   {name}")
             err = max(compare_elementwise(out, g[rows], r[rows], 1.6e-2 if bf16 else 1e-5, 1e-30)
                       for out, g, r in zip(outs.split(), got, ref))
-            if (T_, B_) == (T, B):
-                errs[name] = err
+            if (T_, B_, C_) == (T, B, PROBE_C):
+                errs[name, tier(K_)] = err
         counts = kernel_counts()
         for name, n in counts.items():
             want = 1 if name in checks else 0
@@ -919,14 +1143,31 @@ def check_probes(dev) -> dict[str, float]:
     return errs
 
 
-def probe_phase(dev) -> tuple[dict, dict, dict, dict, dict]:
-    """Phase 8: the split path's profiling script (pysvihmm_tpu_torch/
-    scripts/debug_split.py) at its full shape. Checks every probe against
-    its twin (:func:`check_probes`), then times the letters f b n s 1-5
-    through the script's own timing function, the kernels (the counted run)
-    and then their twins, and prints the breakdown of the split forward's
-    time. Returns (max abs errors, kernel ms, twin ms, bounds, launches),
-    each by kernel name."""
+def tier(K_: int) -> int:
+    """The instance tier that takes K_ states: 64 (the first instances), or
+    the padded states KP = 128 or 256 of the large-K ones."""
+    return K if K_ <= K else 128 if K_ <= 128 else 256
+
+
+def tier_name(name: str, K_: int) -> str:
+    """The kernel instance that runs ``name`` at K_ states: the named kernel
+    up to 64, its large-K instance (csrc/*.cu) at KP = 128 or 256 above."""
+    kp = tier(K_)
+    if kp == K:
+        return name
+    if name in WIDE_NAMES:
+        return f"{WIDE_NAMES[name]}<{kp}>"
+    if name.startswith("probe_fwd_"):
+        return f"probe_fwd_wide_kernel<{kp}, {'true' if 'stack' in name else 'false'}>"
+    return name.replace("probe_micro_kernel<", "probe_micro_wide_kernel<")[:-1] + f", {kp}>"
+
+
+def probe_timing(dev, K_) -> tuple[dict, dict, dict, dict]:
+    """Phase 8, step 2, at one K: the script's timing function over the
+    letters f b n s 1-5 at (T, B, K_, C) = (1000, 1024, K_, 8), the kernels
+    (whose launches are counted) and then their twins; at K = 64 the split
+    forward's breakdown. Returns (kernel ms, twin ms, bounds, launches), each
+    by kernel name."""
     from pysvihmm_tpu_torch.scripts.debug_split import (
         VARIANTS,
         bound_ms,
@@ -934,8 +1175,7 @@ def probe_phase(dev) -> tuple[dict, dict, dict, dict, dict]:
         time_letters,
     )
 
-    errs = check_probes(dev)
-    pi, A, lik = make_inputs(B, T, K, dev)
+    pi, A, lik = make_inputs(B, T, K_, dev)
     reset_kernel_counts()
     ms = time_letters(PROBE_LETTERS, pi, A, lik, PROBE_C)
     counts = kernel_counts()
@@ -946,25 +1186,40 @@ def probe_phase(dev) -> tuple[dict, dict, dict, dict, dict]:
         want = {"split_fwd_kernel": runs + 1}.get(name, runs)
         if name not in {kernel for _, kernel in VARIANTS.values()}:
             want = 0
-        require(n == want, f"phase 8 timing: {name} launched {n} times, expected {want}")
-    log(f"  launches in the timed run: {counts}")
+        require(n == want, f"phase 8 timing at K={K_}: {name} launched {n} times, expected {want}")
+    log(f"  launches in the timed run at K={K_}: {counts}")
     by_kernel = {kernel: label for label, kernel in VARIANTS.values()}
     kms, tms, bounds = {}, {}, {}
     for kernel, label in by_kernel.items():
         kms[kernel], tms[kernel] = ms[label], twin[label]
-        bounds[kernel] = bound_ms(label, B, T, K, PROBE_C)
+        bounds[kernel] = bound_ms(label, B, T, K_, PROBE_C)
         b_ms, b_by = bounds[kernel]
-        log(f"{label:10s} {kernel:32s} {ms[label]:8.3f} ms, twin {twin[label]:9.3f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms[label]:.1f} % of it, at (T, B, K, C) = "
-            f"({T}, {B}, {K}, {PROBE_C})")
-    d = ms
-    store = d["dot_store"]
-    log(f"split_fwd_kernel {d['fwd']:.3f} ms = products {d['dot_only']:.3f} + stores "
-        f"{store - d['dot_only']:.3f} + lik loads and products, renorm every 4th "
-        f"{d['fwd_nos'] - store:.3f} + per-step sums {d['fwd_stack'] - d['fwd_nos']:.3f} "
-        f"+ shift, exp and per-step renorm {d['fwd'] - d['fwd_stack']:.3f}; against dot_store: "
-        f"bf16 {d['dot_bf16'] - store:+.3f}, interleaving x8 {d['chunk8'] - store:+.3f}, "
-        f"x4 {d['chunk4'] - store:+.3f}")
+        log(f"{label:10s} {tier_name(kernel, K_):40s} {ms[label]:8.3f} ms, twin "
+            f"{twin[label]:9.3f} ms, bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms[label]:.1f} % "
+            f"of it, at (T, B, K, C) = ({T}, {B}, {K_}, {PROBE_C})")
+    if K_ == K:
+        d = ms
+        store = d["dot_store"]
+        log(f"split_fwd_kernel {d['fwd']:.3f} ms = products {d['dot_only']:.3f} + stores "
+            f"{store - d['dot_only']:.3f} + lik loads and products, renorm every 4th "
+            f"{d['fwd_nos'] - store:.3f} + per-step sums {d['fwd_stack'] - d['fwd_nos']:.3f} "
+            f"+ shift, exp and per-step renorm {d['fwd'] - d['fwd_stack']:.3f}; against "
+            f"dot_store: bf16 {d['dot_bf16'] - store:+.3f}, interleaving x8 "
+            f"{d['chunk8'] - store:+.3f}, x4 {d['chunk4'] - store:+.3f}")
+    return kms, tms, bounds, counts
+
+
+def probe_phase(dev) -> tuple[dict, dict, dict, dict, dict]:
+    """Phase 8: the split path's profiling script (pysvihmm_tpu_torch/
+    scripts/debug_split.py). Checks every probe against its twin
+    (:func:`check_probes`), then times the letters at each K of PROBE_TIERS
+    (:func:`probe_timing`). Returns (max abs errors, kernel ms, twin ms,
+    bounds, launches), each by (kernel name, K)."""
+    errs = check_probes(dev)
+    kms, tms, bounds, counts = {}, {}, {}, {}
+    for K_ in PROBE_TIERS:
+        for out, part in zip((kms, tms, bounds, counts), probe_timing(dev, K_)):
+            out.update({(name, K_): v for name, v in part.items()})
     return errs, kms, tms, bounds, counts
 
 
@@ -1014,6 +1269,7 @@ def main() -> int:
     _build.build(list(libs))
     for name in libs:
         _build.load_library(name)
+    build_s = time.perf_counter() - t0
     log(f"built and loaded {', '.join(_build.library_path(n).name for n in libs)} in "
         f"{time.perf_counter() - t0:.2f} s (nvcc, in parallel: "
         + ", ".join(f"{n} {_build.build_seconds.get(n, 0.0):.2f} s" for n in libs) + ")")
@@ -1041,6 +1297,11 @@ def main() -> int:
     check_duplex(gen, 8, 50, 4, 2, True)
     chain_err, comb_err, duplex_inputs = check_duplex(gen, B, T, K, D, False)
     check_duplex(gen, B, SVI_W, K, D, True)
+    log(f"  above K = {K}: the large-K instances at K = {SMALL_LARGE_K} and at full width")
+    large_errs = check_large_k(gen)
+    log("  acc and eacc over repeated calls")
+    for K_ in (K, LARGE_VB_K):
+        check_repeatable(gen, K_)
 
     log("== phase 4: batch VB at B=1024, T=1000, K=64, D=8")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1115,33 +1376,10 @@ def main() -> int:
     log(f"== phase 5: times (CUDA events; {card})")
     pi_t, A_t, W, feats, a_r, s_r, sh_r = full_inputs
     F = feats.shape[-1]
-    spi_t, A_s, ll, sa_r, ss_r, ssh_r, _ = split_inputs
-    dpi_t, A_d, W_d, feats_d, da_r, ds_r, dsh_r, db_r = duplex_inputs
-    timed = {
-        "fused_fwd_kernel": (lambda: ff.fused_forward(pi_t, A_t, W, feats),
-                             lambda: ff.forward_reference(pi_t, A_t, W, feats)),
-        "fused_bwd_kernel": (lambda: ff.fused_backward(A_t, W, feats, a_r, s_r, sh_r, False),
-                             lambda: ff.backward_reference(A_t, W, feats, a_r, s_r, sh_r, False)),
-        "split_fwd_kernel": (lambda: sf.split_forward(spi_t, A_s, ll),
-                             lambda: sf.split_forward_reference(spi_t, A_s, ll)),
-        "split_bwd_kernel": (lambda: sf.split_backward(A_s, ll, sa_r, ss_r, ssh_r),
-                             lambda: sf.split_backward_reference(A_s, ll, sa_r, ss_r, ssh_r)),
-        "duplex_chain_kernel": (lambda: df.duplex_chain(dpi_t, A_d, W_d, feats_d),
-                                lambda: df.duplex_chain_reference(dpi_t, A_d, W_d, feats_d)),
-        "duplex_combine_kernel": (
-            lambda: df.duplex_combine(W_d, feats_d, da_r, db_r, dsh_r),
-            lambda: df.duplex_combine_reference(W_d, feats_d, da_r, db_r, dsh_r)),
-    }
-    ms, plain_ms, bounds = {}, {}, {}
-    for name, (kernel, plain) in timed.items():
-        # a longer warm-up: the first kernel timed after the light small fit
-        # read 20 % slow once with a single warm-up call
-        ms[name] = cuda_ms(kernel, 20, warmup=5)
-        plain_ms[name] = cuda_ms(plain, 3)
-        bounds[name] = bound(*kernel_work(name, B, T, K, F))
-        log(f"{name}: {ms[name]:.3f} ms, plain twin {plain_ms[name]:.3f} ms, bound "
-            f"{bounds[name][0]:.3f} ms ({bounds[name][1]}) at (B, T, K, F) = ({B}, {T}, {K}, {F})")
-    fused_layout(full_inputs, ms)
+    _, A_s, ll, sa_r, ss_r, ssh_r, _ = split_inputs
+    _, _, W_d, feats_d, da_r, _, dsh_r, db_r = duplex_inputs
+    ms, plain_ms, bounds = time_route_kernels(torch.Generator(device=dev).manual_seed(81))
+    fused_layout(full_inputs, {name: ms[name, K] for name in FUSED_KERNELS})
     fused_large_batches(torch.Generator(device=dev).manual_seed(80))
     svi_shape_pair(torch.Generator(device=dev).manual_seed(79))
 
@@ -1157,7 +1395,7 @@ def main() -> int:
             lambda: df.duplex_combine(W_d, feats_d, da_r, db_r, dsh_r, False, w_full), 10),
     }
     for name, t_ms in gated_ms.items():
-        log(f"{name}, gated: {t_ms:.3f} ms (ungated {ms[name]:.3f} ms) at (B, T, K, F) = "
+        log(f"{name}, gated: {t_ms:.3f} ms (ungated {ms[name, K]:.3f} ms) at (B, T, K, F) = "
             f"({B}, {T}, {K}, {F})")
 
     # the SVI route's shape: W=70 windows, gated, emit_gamma on the fused route
@@ -1308,6 +1546,13 @@ def main() -> int:
     probe_errs, probe_ms, probe_twin_ms, probe_bounds, probe_launches = probe_phase(dev)
     log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
 
+    log(f"== phase 9: large K: batch VB at K={LARGE_VB_K}, B={B}, T={T}, D={D} on auto, split "
+        f"and duplex; SVI at K={LARGE_SVI_K}, W={SVI_W}, B={B}")
+    t0 = time.perf_counter()
+    wide_launches = large_k_phase(dev)
+    log(f"  phase 9 took {time.perf_counter() - t0:.1f} s; launches by (kernel, K): "
+        + ", ".join(f"{tier_name(n, k_)} {c}" for (n, k_), c in wide_launches.items()))
+
     errs = {"fused_fwd_kernel": fwd_err, "fused_bwd_kernel": bwd_err, **split_err,
             "duplex_chain_kernel": chain_err, "duplex_combine_kernel": comb_err}
     kernels = []
@@ -1323,9 +1568,19 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"pysvihmm_tpu_torch/csrc/{src}",
             "replaces": f"pysvihmm_tpu/messages/{replaces}",
             "launches": svi_launches[name], "max_abs_err": errs[name],
-            "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
-            "bound_by": bounds[name][1], "library_ms": None,
+            "ms": ms[name, K], "plain_ms": plain_ms[name, K], "bound_ms": bounds[name, K][0],
+            "bound_by": bounds[name, K][1], "library_ms": None,
         })
+        for K_ in LARGE_K:
+            key = (name, K_)
+            kernels.append({
+                "name": tier_name(name, K_), "route": "cuda",
+                "source": f"pysvihmm_tpu_torch/csrc/{src}",
+                "replaces": f"pysvihmm_tpu/messages/{replaces}",
+                "launches": wide_launches[key], "max_abs_err": large_errs[key],
+                "ms": ms[key], "plain_ms": plain_ms[key], "bound_ms": bounds[key][0],
+                "bound_by": bounds[key][1], "library_ms": None,
+            })
     # the probes: the kernel body each replaces in scripts/debug_pallas_split.py
     for name, line in (("probe_fwd_nos_kernel", 25), ("probe_fwd_stack_kernel", 48),
                        ("probe_micro_kernel<DOT_ONLY>", 229),
@@ -1333,20 +1588,28 @@ def main() -> int:
                        ("probe_micro_kernel<BF16>", 241),
                        ("probe_micro_kernel<CHUNKED, 8>", 250),
                        ("probe_micro_kernel<CHUNKED, 4>", 250)):
-        kernels.append({
-            "name": name, "route": "cuda", "source": "pysvihmm_tpu_torch/csrc/split_probe.cu",
-            "replaces": f"scripts/debug_pallas_split.py:{line}",
-            "launches": probe_launches[name], "max_abs_err": probe_errs[name],
-            "ms": probe_ms[name], "plain_ms": probe_twin_ms[name],
-            "bound_ms": probe_bounds[name][0], "bound_by": probe_bounds[name][1],
-            "library_ms": None,
-        })
-    log(f"total {time.perf_counter() - t_start:.1f} s; in the kernels line: launches over the "
-        f"{SVI_STEPS} SVI steps of each kernel's route (phase 6) and, for the probes, in phase "
-        f"8's timed run; max_abs_err the forward's and the chain's log_c (nats), the backward's "
-        f"and the combine's gamma at B={B}, T={T}, each probe's alpha (and s) at (T, B, K, C) = "
-        f"({T}, {B}, {K}, {PROBE_C}); ms, plain_ms and bound_ms at (B, T, K, F) = ({B}, {T}, {K}, "
-        f"{F}), ungated, and for the probes at C={PROBE_C}")
+        for K_ in PROBE_TIERS:
+            key = (name, K_)
+            kernels.append({
+                "name": tier_name(name, K_), "route": "cuda",
+                "source": "pysvihmm_tpu_torch/csrc/split_probe.cu",
+                "replaces": f"scripts/debug_pallas_split.py:{line}",
+                "launches": probe_launches[key], "max_abs_err": probe_errs[key],
+                "ms": probe_ms[key], "plain_ms": probe_twin_ms[key],
+                "bound_ms": probe_bounds[key][0], "bound_by": probe_bounds[key][1],
+                "library_ms": None,
+            })
+    log(f"total {time.perf_counter() - t_start:.1f} s, the build's {build_s:.1f} s included; in "
+        f"the kernels line: launches over the {SVI_STEPS} SVI steps of each kernel's route "
+        f"(phase 6) for the K={K} instances, over phase 9's runs for the large-K ones (VB at "
+        f"K={LARGE_VB_K}: {VB_ITERS} an instance; SVI at K={LARGE_SVI_K}: {LARGE_SVI_STEPS} steps "
+        f"on auto, {LARGE_SVI_SIDE_STEPS} on split and duplex) and, for the probes, in phase 8's "
+        f"timed run at their K; max_abs_err the forward's and the chain's log_c (nats), the "
+        f"backward's and the combine's gamma at B={B}, T={T} (the largest over gated and not "
+        f"above K={K}), each probe's alpha (and s) at (T, B, C) = ({T}, {B}, {PROBE_C}) and "
+        f"the tier's K, the shape it is timed at; ms, plain_ms and "
+        f"bound_ms at (B, T, F) = ({B}, {T}, {F}) and the tier's K ({K}, "
+        f"{', '.join(map(str, LARGE_K))}), ungated, and for the probes at C={PROBE_C}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -50,14 +50,23 @@
 // of time steps), one thread per state, one barrier a step (double-buffered
 // alpha_{t-1} and partial sums, triple-buffered features), the pair at the
 // chunk's first step read from memory (a_{t-1}, b_{t-1}) instead of carried,
-// and acc (column k) and eacc (row k) in registers, added across blocks with
-// one atomicAdd per entry at the end: their summation order varies from run
-// to run. Chunks are sized so that the grid holds about 2048 blocks, at least
-// 16 steps each. Per (t, b) the pair moves about 4 (2F + 5K) bytes and does
-// about 2K (2F + 3K) flops: far below what the card streams in the time the
-// chain takes.
+// and acc (column k) and eacc (row k) in registers, written at the end to the
+// block's row of partials, which a second kernel adds in block order
+// (fb_stats.cuh): the same bits every call. Chunks are sized so that the grid
+// holds about 2048 blocks, at least 16 steps each. Per (t, b) the pair moves
+// about 4 (2F + 5K) bytes and does about 2K (2F + 3K) flops: far below what
+// the card streams in the time the chain takes.
+//
+// Above K = 64 the launchers take the large-K instances (KP = 128 or 256;
+// fb_wide.cuh): duplex_chain_wide_kernel<KP> runs the two recursions in two
+// blocks of a sequence (blockIdx.y), the forward being the fused forward's
+// own device function, so alpha, s and sh stay the fused forward's bit for
+// bit; duplex_combine_wide_kernel<KP, GATED> writes d_t ginv_{t-1} pg_t and
+// w_t gamma_t, and acc and eacc are outer products summed in a fixed order.
 
 #include "fb_common.cuh"
+#include "fb_stats.cuh"
+#include "fb_wide.cuh"
 
 namespace {
 
@@ -199,8 +208,7 @@ duplex_combine_kernel(const float* __restrict__ W, const float* __restrict__ fea
                       const float* __restrict__ alpha, const float* __restrict__ beta,
                       const float* __restrict__ sh_in, const float* __restrict__ w_in,
                       float* __restrict__ gamma, float* __restrict__ gamma0,
-                      float* __restrict__ acc_out, float* __restrict__ eacc_out, int T,
-                      int B, int K, int F, int chunk) {
+                      float* __restrict__ part, int T, int B, int K, int F, int chunk) {
   __shared__ float W_s[FMAX * KMAX];
   __shared__ float f_s[3][FMAX];       // f_t in slot t % 3
   __shared__ float a_s[2][KMAX];       // a_{t-1} in slot t & 1
@@ -315,68 +323,273 @@ duplex_combine_kernel(const float* __restrict__ W, const float* __restrict__ fea
     w_cur = w_n;
   }
 
+  // this block's row of partials (sequence-major): acc (K, K), then eacc (K, F)
   if (active) {
+    float* pb = part + ((size_t)b * gridDim.y + blockIdx.y) * (K * K + K * F);
 #pragma unroll
     for (int i = 0; i < KMAX; ++i)
-      if (i < K) atomicAdd(&acc_out[i * K + k], acc[i]);
+      if (i < K) pb[i * K + k] = acc[i];
 #pragma unroll
     for (int f = 0; f < FMAX; ++f)
-      if (f < F) atomicAdd(&eacc_out[k * F + f], eacc[f]);
+      if (f < F) pb[K * K + k * F + f] = eacc[f];
+  }
+}
+
+// The large-K chain: blockIdx.y = 0 runs the forward (the fused forward's
+// wide_forward), 1 the raw backward b_{t-1} = A~ d_t, one thread a state, on
+// A~^T rows in registers and shared memory (fb_wide.cuh).
+template <int KP>
+__global__ void __launch_bounds__(KP)
+duplex_chain_wide_kernel(const float* __restrict__ pi, const float* __restrict__ A,
+                         const float* __restrict__ W, const float* __restrict__ feats,
+                         float* __restrict__ alpha, float* __restrict__ s_out,
+                         float* __restrict__ sh_out, float* __restrict__ beta, int T, int B,
+                         int K, int F) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.x;
+  if (blockIdx.y == 0) {
+    fbw::wide_forward<KP, true>(pi, A, W, feats, alpha, s_out, sh_out, T, B, K, F, b, smem);
+    return;
+  }
+  using TT = fbw::Tier<KP>;
+  float* M_s = smem;                 // A~^T rows RR..KP-1
+  float* v_s = M_s + TT::SR * KP;    // d_t in slot t & 1
+  float* f_s = v_s + 2 * KP;         // f_t in slot t & 1
+  float* red_max = f_s + 2 * FMAX;   // [t & 1][warp]
+  float* red_sum = red_max + 2 * TT::NWARP;
+  const int k = threadIdx.x, lane = k & 31, warp = k >> 5;
+  const bool active = k < K;
+  fbw::MatCol<KP> col;
+  col.load(A, M_s, K, true, k);
+  fbw::WCol wc;
+  wc.load(W, K, F, k);
+  const size_t step_f = (size_t)B * F, step_k = (size_t)B * K;
+  const float* fb = feats + (size_t)b * F;
+  float* bb = beta + (size_t)b * K;
+  if (k < 2 * FMAX) f_s[k] = 0.f;
+  __syncthreads();
+  if (k < F) f_s[((T - 1) & 1) * FMAX + k] = fb[(size_t)(T - 1) * step_f + k];
+  __syncthreads();
+
+  float bt = active ? 1.f : 0.f;  // b_t
+  if (active) bb[(size_t)(T - 1) * step_k + k] = bt;
+  for (int t = T - 1; t >= 1; --t) {
+    const int p = t & 1;
+    const float ll = wc.ll(f_s + p * FMAX);
+    const float wm = warp_max(active ? ll : -INFINITY);
+    const float ws = warp_sum(bt);
+    if (lane == 0) {
+      red_max[p * TT::NWARP + warp] = wm;
+      red_sum[p * TT::NWARP + warp] = ws;
+    }
+    if (k < F) f_s[(p ^ 1) * FMAX + k] = fb[(size_t)(t - 1) * step_f + k];
+    __syncthreads();  // f_t is read; the maxima and sums are complete
+
+    const float m = fbw::block_max<TT::NWARP>(red_max + p * TT::NWARP);
+    const float bs = fbw::block_sum<TT::NWARP>(red_sum + p * TT::NWARP);
+    v_s[p * KP + k] = active ? pair_d(expf(ll - m), bt, bs) : 0.f;
+    __syncthreads();  // d_t is complete
+
+    const float bn = col.dot(v_s + p * KP, M_s, k);  // sum_j A~[k][j] d_t[j]
+    bt = active ? bn : 0.f;
+    if (active) bb[(size_t)(t - 1) * step_k + k] = bt;
+  }
+}
+
+// The large-K combine: duplex_combine_kernel's math, one thread a state of a
+// (sequence, chunk) block over the window t0 <= t < t1 (chunks from t0),
+// the statistics' operands written out: dn_t = d_t ginv_{t-1} pg_t (t >= 1)
+// and gw_t = w_t gamma_t, (t1 - t0, B, K) each from t0.
+template <int KP, bool GATED>
+__global__ void __launch_bounds__(KP)
+duplex_combine_wide_kernel(const float* __restrict__ W, const float* __restrict__ feats,
+                           const float* __restrict__ alpha, const float* __restrict__ beta,
+                           const float* __restrict__ sh_in, const float* __restrict__ w_in,
+                           float* __restrict__ gamma, float* __restrict__ gamma0,
+                           float* __restrict__ dn_out, float* __restrict__ gw_out, int T, int B,
+                           int K, int F, int chunk, int t0, int t1) {
+  constexpr int NW = fbw::Tier<KP>::NWARP;
+  __shared__ __align__(16) float f_s[2][FMAX];  // f_t in slot t & 1
+  __shared__ float red[2][2][NW];               // [t & 1][sum of g_t, sum of b_t][warp]
+  __shared__ float red0[NW];                    // sum of g at the chunk's first t - 1
+
+  const int b = blockIdx.x;
+  const int t_begin = t0 + blockIdx.y * chunk;
+  const int t_end = min(t1, t_begin + chunk);
+  const int k = threadIdx.x;
+  const int lane = k & 31, warp = k >> 5;
+  const bool active = k < K;
+  fbw::WCol wc;
+  wc.load(W, K, F, k);
+  const size_t step_f = (size_t)B * F, step_k = (size_t)B * K;
+  const float* fb = feats + (size_t)b * F;
+  const float* ab = alpha + (size_t)b * K;
+  const float* bb = beta + (size_t)b * K;
+  const float* shb = sh_in + (size_t)b * T;
+  if (k < 2 * FMAX) f_s[k / FMAX][k % FMAX] = 0.f;
+  __syncthreads();
+
+  float ginv_prev = 0.f, w_prev = 0.f;
+  if (t_begin >= 1) {
+    const size_t o = (size_t)(t_begin - 1) * step_k + k;
+    const float ws = warp_sum(active ? ab[o] * bb[o] : 0.f);
+    if (lane == 0) red0[warp] = ws;
+    if (GATED) w_prev = w_in[(size_t)(t_begin - 1) * B + b];
+  }
+  if (k < F) f_s[t_begin & 1][k] = fb[(size_t)t_begin * step_f + k];
+  __syncthreads();  // red0 and f_{t_begin} are complete
+  if (t_begin >= 1) ginv_prev = 1.f / fmaxf(fbw::block_sum<NW>(red0), SUM_FLOOR);
+
+  float w_cur = GATED ? w_in[(size_t)t_begin * B + b] : 1.f;
+  for (int t = t_begin; t < t_end; ++t) {
+    const int p = t & 1;
+    const float a_cur = active ? ab[(size_t)t * step_k + k] : 0.f;
+    const float b_cur = active ? bb[(size_t)t * step_k + k] : 0.f;
+    const float w_n = (GATED && t + 1 < t_end) ? w_in[(size_t)(t + 1) * B + b] : 1.f;
+    const float ll = wc.ll(f_s[p]);
+    const float lik = active ? expf(ll - shb[t]) : 0.f;
+    const float graw = a_cur * b_cur;
+    const float wg = warp_sum(graw);
+    const float wb = warp_sum(b_cur);
+    if (lane == 0) {
+      red[p][0][warp] = wg;
+      red[p][1][warp] = wb;
+    }
+    if (t + 1 < t_end && k < F) f_s[p ^ 1][k] = fb[(size_t)(t + 1) * step_f + k];
+    __syncthreads();  // f_t is read; the sums and f_{t+1} are complete
+
+    const float gs = fbw::block_sum<NW>(red[p][0]);
+    const float bs = fbw::block_sum<NW>(red[p][1]);
+    const float ginv = 1.f / fmaxf(gs, SUM_FLOOR);
+    const float gam = graw * ginv;
+    const float gam_w = GATED ? gam * w_cur : gam;  // the statistics' gamma: kept steps
+    const size_t o = ((size_t)t * B + b) * K + k;
+    const size_t ow = ((size_t)(t - t0) * B + b) * K + k;  // in the window
+    if (active) {
+      if (gamma != nullptr) gamma[o] = gam;
+      if (t == 0) gamma0[(size_t)b * K + k] = gam_w;
+      gw_out[ow] = gam_w;
+      if (t >= 1) {
+        const float d = pair_d(lik, b_cur, bs);
+        dn_out[ow] = GATED ? (d * ginv_prev) * (w_prev * w_cur) : d * ginv_prev;
+      }
+    }
+    ginv_prev = ginv;
+    w_prev = w_cur;
+    w_cur = w_n;
   }
 }
 
 bool bad_shape(int T, int B, int K, int F) {
-  return T < 1 || B < 1 || K < 1 || K > KMAX || F < 1 || F > FMAX;
+  return T < 1 || B < 1 || K < 1 || K > fbw::KWIDE || F < 1 || F > FMAX;
+}
+
+// The combine's time chunk: about 2048 blocks in all, at least 16 steps each
+// (so a short T gives chunks of 16 and a last one that is cut short).
+int combine_chunk(int T, int B) {
+  const int want = (2048 + B - 1) / B;  // chunks per sequence
+  return max(16, (T + want - 1) / want);
+}
+
+// Floats of scratch the combine takes: K <= KMAX, a row of partials a block;
+// above, a window's dn and gw and the two outer sums' partials
+// (fbs::WideStats).
+long long scratch_floats(int T, int B, int K, int F) {
+  if (K <= KMAX) {
+    const int chunk = combine_chunk(T, B);
+    return (long long)B * ((T + chunk - 1) / chunk) * (K * K + K * F);
+  }
+  return fbs::WideStats::floats(T, B, K, F);
 }
 
 }  // namespace
 
 extern "C" {
 
-int duplex_fb_kmax() { return KMAX; }
+// The largest K the launchers take (the large-K instances'), and F.
+int duplex_fb_kmax() { return fbw::KWIDE; }
 int duplex_fb_fmax() { return FMAX; }
 
 const char* duplex_fb_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Each launcher returns cudaGetLastError() right after the launch (0 = ok).
-// Pointers are device pointers of contiguous float32 tensors; the kernel
-// runs on `stream` and does not synchronise.
+// *out = the floats of scratch duplex_fb_combine takes at these shapes.
+int duplex_fb_scratch(int T, int B, int K, int F, long long* out) {
+  if (bad_shape(T, B, K, F)) return static_cast<int>(cudaErrorInvalidValue);
+  *out = scratch_floats(T, B, K, F);
+  return 0;
+}
+
+// Each launcher returns the launch's CUDA error right after it (0 = ok).
+// Pointers are device pointers of contiguous float32 tensors; the kernels
+// run on `stream` and do not synchronise.
 int duplex_fb_chain(const float* pi, const float* A, const float* W, const float* feats,
                     float* alpha, float* s, float* sh, float* beta, int T, int B, int K,
                     int F, int device, void* stream) {
   if (bad_shape(T, B, K, F)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  duplex_chain_kernel<<<B, CHAIN_NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      pi, A, W, feats, alpha, s, sh, beta, T, B, K, F);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K > KMAX) {
+    void* args[] = {&pi, &A, &W, &feats, &alpha, &s, &sh, &beta, &T, &B, &K, &F};
+    return static_cast<int>(
+        fbw::tier_of(K) == 128
+            ? fbw::launch_dyn(reinterpret_cast<const void*>(duplex_chain_wide_kernel<128>),
+                              dim3(B, 2), 128, fbw::chain_smem_bytes<128>(), st, args)
+            : fbw::launch_dyn(reinterpret_cast<const void*>(duplex_chain_wide_kernel<256>),
+                              dim3(B, 2), 256, fbw::chain_smem_bytes<256>(), st, args));
+  }
+  duplex_chain_kernel<<<B, CHAIN_NT, 0, st>>>(pi, A, W, feats, alpha, s, sh, beta, T, B, K, F);
   return static_cast<int>(cudaGetLastError());
 }
 
 // w is null for the ungated launch, else the (T, B) kept-mask. A block takes
-// `chunk` time steps: about 2048 blocks in all, at least 16 steps each (so a
-// short T gives chunks of 16 and a last one that is cut short).
+// combine_chunk(T, B) time steps. stats receives acc (K, K) and then eacc
+// (K, F), summed in a fixed order (fb_stats.cuh); scratch holds
+// duplex_fb_scratch floats. Above K = 64 the combine runs a window of time
+// steps a launch (fbs::WideStats), its blocks' chunks cut to the window.
 int duplex_fb_combine(const float* W, const float* feats, const float* alpha,
                       const float* beta, const float* sh, const float* w, float* gamma,
-                      float* gamma0, float* acc, float* eacc, int T, int B, int K, int F,
+                      float* gamma0, float* stats, float* scratch, int T, int B, int K, int F,
                       int device, void* stream) {
   if (bad_shape(T, B, K, F)) return static_cast<int>(cudaErrorInvalidValue);
-  const int want = (2048 + B - 1) / B;  // chunks per sequence
-  const int chunk = max(16, (T + want - 1) / want);
+  int chunk = combine_chunk(T, B);
   const int nchunks = (T + chunk - 1) / chunk;
   if (nchunks > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(B, nchunks);
-  if (w != nullptr)
-    duplex_combine_kernel<true><<<grid, NT, 0, st>>>(W, feats, alpha, beta, sh, w, gamma,
-                                                     gamma0, acc, eacc, T, B, K, F, chunk);
-  else
-    duplex_combine_kernel<false><<<grid, NT, 0, st>>>(W, feats, alpha, beta, sh, w, gamma,
-                                                      gamma0, acc, eacc, T, B, K, F, chunk);
-  return static_cast<int>(cudaGetLastError());
+  if (K <= KMAX) {
+    if (w != nullptr)
+      duplex_combine_kernel<true><<<grid, NT, 0, st>>>(W, feats, alpha, beta, sh, w, gamma,
+                                                       gamma0, scratch, T, B, K, F, chunk);
+    else
+      duplex_combine_kernel<false><<<grid, NT, 0, st>>>(W, feats, alpha, beta, sh, w, gamma,
+                                                        gamma0, scratch, T, B, K, F, chunk);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(
+        fbs::sum_partials(scratch, B * nchunks, K * K + K * F, stats, st));
+  }
+  const fbs::WideStats ws(scratch, T, B, K, F);
+  float *dn = ws.dn, *gw = ws.gw;
+  if (chunk > ws.steps) chunk = ws.steps;
+  const int kp = fbw::tier_of(K);
+  const void* fn =
+      kp == 128
+          ? (w != nullptr ? reinterpret_cast<const void*>(duplex_combine_wide_kernel<128, true>)
+                          : reinterpret_cast<const void*>(duplex_combine_wide_kernel<128, false>))
+          : (w != nullptr ? reinterpret_cast<const void*>(duplex_combine_wide_kernel<256, true>)
+                          : reinterpret_cast<const void*>(duplex_combine_wide_kernel<256, false>));
+  return static_cast<int>(ws.run(alpha, feats, stats, st, [&](int t0, int t1) {
+    void* args[] = {&W, &feats, &alpha, &beta, &sh, &w, &gamma, &gamma0, &dn, &gw,
+                    &T, &B,     &K,     &F,    &chunk, &t0, &t1};
+    const cudaError_t el =
+        cudaLaunchKernel(fn, dim3(B, (t1 - t0 + chunk - 1) / chunk), dim3(kp), args, 0, st);
+    return el != cudaSuccess ? el : cudaGetLastError();
+  }));
 }
 
 }  // extern "C"

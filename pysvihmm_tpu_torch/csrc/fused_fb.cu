@@ -73,9 +73,10 @@
 //     that the float4 reads are free of bank conflicts, and each word feeds
 //     S FMAs. One barrier a step (double-buffered d, a and partial sums,
 //     triple-buffered features); after it, one loop runs the beta chain, the
-//     next step's ll chain and the acc and eacc updates side by side. acc
-//     and eacc are added across blocks with one atomicAdd per entry at the
-//     end, B/S blocks of them; their summation order varies from run to run.
+//     next step's ll chain and the acc and eacc updates side by side. Each
+//     block writes its acc and eacc to a row of partials, which a second
+//     kernel adds in block order (fb_stats.cuh): the same bits every call for
+//     one S, another grouping for another S.
 //   Each step's feature row is loaded a step (backward) or two steps
 //   (forward) ahead into registers, so the global loads are off the chain.
 //   The chains stay on CUDA cores in float32 FFMA: per step the products
@@ -87,8 +88,16 @@
 // the FMA pipe about half busy; every state a thread owns needs the whole
 // a_{t-1} (and d_t, f_t) delivered to it each step, so more states a thread,
 // not more sequences, would be the next lever.
+//
+// Above K = 64 the launchers take the large-K instances instead
+// (fused_fwd_wide_kernel<KP>, fused_bwd_wide_kernel<KP, GATED>, KP = 128 or
+// 256; fb_wide.cuh holds their layout): one sequence a block, one thread a
+// state, A~ in shared memory (its first 64 rows in registers at KP = 256),
+// the statistics off the chain as outer products summed in a fixed order.
 
 #include "fb_common.cuh"
+#include "fb_stats.cuh"
+#include "fb_wide.cuh"
 
 namespace {
 
@@ -360,8 +369,8 @@ fused_bwd_kernel(const float* __restrict__ A, const float* __restrict__ W,
                  const float* __restrict__ feats, const float* __restrict__ alpha,
                  const float* __restrict__ s_in, const float* __restrict__ sh_in,
                  const float* __restrict__ w_in, float* __restrict__ gamma,
-                 float* __restrict__ gamma0, float* __restrict__ acc_out,
-                 float* __restrict__ eacc_out, int T, int B, int K, int F) {
+                 float* __restrict__ gamma0, float* __restrict__ part, int T, int B, int K,
+                 int F) {
   constexpr int WST = FP + 4;  // row stride of W's columns in shared memory
   extern __shared__ __align__(16) float smem[];
   float* A_s = smem;                  // A~[k][j] at k * AST + j
@@ -537,14 +546,41 @@ fused_bwd_kernel(const float* __restrict__ A, const float* __restrict__ W,
     }
   }
 
+  // this block's row of partials: acc (K, K), then eacc (K, F)
   if (active) {
+    float* pb = part + (size_t)blockIdx.x * (K * K + K * F);
 #pragma unroll
     for (int i = 0; i < KMAX; ++i)
-      if (i < K) atomicAdd(&acc_out[i * K + k], acc[i]);
+      if (i < K) pb[i * K + k] = acc[i];
 #pragma unroll
     for (int f = 0; f < FP; ++f)
-      if (f < F) atomicAdd(&eacc_out[k * F + f], eacc[f]);
+      if (f < F) pb[K * K + k * F + f] = eacc[f];
   }
+}
+
+template <int KP>
+__global__ void __launch_bounds__(KP)
+fused_fwd_wide_kernel(const float* __restrict__ pi, const float* __restrict__ A,
+                      const float* __restrict__ W, const float* __restrict__ feats,
+                      float* __restrict__ alpha, float* __restrict__ s_out,
+                      float* __restrict__ sh_out, int T, int B, int K, int F) {
+  extern __shared__ __align__(16) float smem[];
+  fbw::wide_forward<KP, true>(pi, A, W, feats, alpha, s_out, sh_out, T, B, K, F, blockIdx.x,
+                              smem);
+}
+
+template <int KP, bool GATED>
+__global__ void __launch_bounds__(KP)
+fused_bwd_wide_kernel(const float* __restrict__ A, const float* __restrict__ W,
+                      const float* __restrict__ feats, const float* __restrict__ alpha,
+                      const float* __restrict__ s_in, const float* __restrict__ sh_in,
+                      const float* __restrict__ w_in, float* __restrict__ gamma,
+                      float* __restrict__ gamma0, float* __restrict__ dn,
+                      float* __restrict__ gw, float* __restrict__ carry, int T, int B, int K,
+                      int F, int t0, int t1) {
+  extern __shared__ __align__(16) float smem[];
+  fbw::wide_backward<KP, true, GATED>(A, W, feats, alpha, s_in, sh_in, w_in, gamma, gamma0, dn,
+                                      gw, carry, T, B, K, F, t0, t1, blockIdx.x, smem);
 }
 
 // The built instances: S in {2, 4} sequences a block, FP = pad_f(F).
@@ -587,53 +623,106 @@ const void* kernel_of(int which, int S, int F, int* smem) {
 }
 
 bool bad_shape(int T, int B, int K, int F) {
-  return T < 1 || B < 1 || K < 1 || K > KMAX || F < 1 || F > FMAX;
+  return T < 1 || B < 1 || K < 1 || K > fbw::KWIDE || F < 1 || F > FMAX;
 }
 
-cudaError_t launch(int which, int S, int T, int B, int K, int F, int device, void* stream,
-                   void** args) {
-  if (bad_shape(T, B, K, F)) return cudaErrorInvalidValue;
+// The large-K instance of (which, K): which = 0 forward, 1 backward, 2 gated
+// backward.
+const void* wide_of(int which, int K) {
+  if (fbw::tier_of(K) == 128) {
+    if (which == 0) return reinterpret_cast<const void*>(fused_fwd_wide_kernel<128>);
+    return which == 1 ? reinterpret_cast<const void*>(fused_bwd_wide_kernel<128, false>)
+                      : reinterpret_cast<const void*>(fused_bwd_wide_kernel<128, true>);
+  }
+  if (which == 0) return reinterpret_cast<const void*>(fused_fwd_wide_kernel<256>);
+  return which == 1 ? reinterpret_cast<const void*>(fused_bwd_wide_kernel<256, false>)
+                    : reinterpret_cast<const void*>(fused_bwd_wide_kernel<256, true>);
+}
+
+// The chain kernel of (which, S, K): the S instance up to KMAX states, the
+// large-K one (one sequence a block) above.
+cudaError_t launch(int which, int S, int T, int B, int K, int F, cudaStream_t st, void** args) {
+  if (K > KMAX) {
+    const int kp = fbw::tier_of(K);
+    const int smem = kp == 128 ? fbw::chain_smem_bytes<128>() : fbw::chain_smem_bytes<256>();
+    return fbw::launch_dyn(wide_of(which, K), dim3(B), kp, smem, st, args);
+  }
   int smem = 0;
   const void* fn = kernel_of(which, S, F, &smem);
   if (fn == nullptr) return cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  e = cudaLaunchKernel(fn, dim3((B + S - 1) / S), dim3(NT), args, smem,
-                       static_cast<cudaStream_t>(stream));
+  const cudaError_t e = cudaLaunchKernel(fn, dim3((B + S - 1) / S), dim3(NT), args, smem, st);
   return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// Floats of scratch the backward takes: K <= KMAX, a row of partials a
+// block; above, a window's dn and gw, the carry and the outer sums'
+// partials (fbs::WideStats).
+long long scratch_floats(int T, int B, int K, int F, int S) {
+  if (K <= KMAX) return (long long)((B + S - 1) / S) * (K * K + K * F);
+  return fbs::WideStats::floats(T, B, K, F);
 }
 
 }  // namespace
 
 extern "C" {
 
-int fused_fb_kmax() { return KMAX; }
+// The largest K the launchers take (the large-K instances'), and F.
+int fused_fb_kmax() { return fbw::KWIDE; }
 int fused_fb_fmax() { return FMAX; }
 
 const char* fused_fb_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// *out = the floats of scratch fused_fb_backward takes at these shapes.
+int fused_fb_scratch(int T, int B, int K, int F, int S, long long* out) {
+  if (bad_shape(T, B, K, F) || S < 1) return static_cast<int>(cudaErrorInvalidValue);
+  *out = scratch_floats(T, B, K, F, S);
+  return 0;
+}
+
 // Each launcher returns the launch's CUDA error right after it (0 = ok).
-// Pointers are device pointers of contiguous float32 tensors; the kernel
-// runs on `stream` and does not synchronise. S is the sequences a block
-// (2 or 4); any other is refused.
+// Pointers are device pointers of contiguous float32 tensors; the kernels
+// run on `stream` and do not synchronise. S is the sequences a block (2 or
+// 4; any other is refused) up to K = 64, and unused above.
 int fused_fb_forward(const float* pi, const float* A, const float* W, const float* feats,
                      float* alpha, float* s, float* sh, int T, int B, int K, int F, int S,
                      int device, void* stream) {
+  if (bad_shape(T, B, K, F)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
   void* args[] = {&pi, &A, &W, &feats, &alpha, &s, &sh, &T, &B, &K, &F};
-  return static_cast<int>(launch(0, S, T, B, K, F, device, stream, args));
+  return static_cast<int>(launch(0, S, T, B, K, F, static_cast<cudaStream_t>(stream), args));
 }
 
 // w is null for the ungated launch, else the (T, B) kept-mask; the kernel
-// forms the pair gate from it.
+// forms the pair gate from it. stats receives acc (K, K) and then eacc
+// (K, F), summed in a fixed order (fb_stats.cuh); scratch holds
+// fused_fb_scratch floats. Above K = 64 the backward runs a window of time
+// steps a launch (fbs::WideStats), several launches for a long T.
 int fused_fb_backward(const float* A, const float* W, const float* feats, const float* alpha,
                       const float* s, const float* sh, const float* w, float* gamma,
-                      float* gamma0, float* acc, float* eacc, int T, int B, int K, int F,
+                      float* gamma0, float* stats, float* scratch, int T, int B, int K, int F,
                       int S, int device, void* stream) {
-  void* args[] = {&A,     &W,      &feats, &alpha, &s, &sh, &w, &gamma,
-                  &gamma0, &acc, &eacc, &T,     &B, &K, &F};
-  return static_cast<int>(launch(w != nullptr ? 2 : 1, S, T, B, K, F, device, stream, args));
+  if (bad_shape(T, B, K, F)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int which = w != nullptr ? 2 : 1;
+  if (K <= KMAX) {
+    void* args[] = {&A, &W, &feats, &alpha, &s, &sh, &w, &gamma, &gamma0, &scratch,
+                    &T, &B, &K, &F};
+    e = launch(which, S, T, B, K, F, st, args);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(fbs::sum_partials(scratch, (B + S - 1) / S, K * K + K * F, stats, st));
+  }
+  const fbs::WideStats ws(scratch, T, B, K, F);
+  float *dn = ws.dn, *gw = ws.gw, *carry = ws.carry;
+  return static_cast<int>(ws.run(alpha, feats, stats, st, [&](int t0, int t1) {
+    void* args[] = {&A, &W, &feats, &alpha, &s, &sh, &w, &gamma, &gamma0, &dn, &gw, &carry,
+                    &T, &B, &K, &F, &t0, &t1};
+    return launch(which, S, T, B, K, F, st, args);
+  }));
 }
 
 // What the instance (which, S, F) of the launchers above takes on `device`:

@@ -42,11 +42,20 @@
 // by that chain's latency. The design hides what it can behind it: the next
 // step's ll, alpha and scales are loaded one step ahead into registers, the
 // backward needs one barrier per step (double-buffered d, a and partial
-// sums), and acc stays in registers (column k of acc, K floats per thread)
-// and is added across blocks with one atomicAdd per entry at the end, so its
-// summation order varies from run to run.
+// sums), and acc stays in registers (column k of acc, K floats per thread);
+// each block writes it to its row of partials, which a second kernel adds in
+// sequence order (fb_stats.cuh): the same bits every call, and the same for
+// any grouping, since a block is one sequence.
+//
+// Above K = 64 the launchers take the large-K instances
+// (split_fwd_wide_kernel<KP>, split_bwd_wide_kernel<KP, GATED>, KP = 128 or
+// 256; fb_wide.cuh): one thread a state, A~ in shared memory (its first 64
+// rows in registers at KP = 256), acc off the chain as outer products
+// summed in a fixed order.
 
 #include "fb_common.cuh"
+#include "fb_stats.cuh"
+#include "fb_wide.cuh"
 
 namespace {
 
@@ -124,8 +133,7 @@ __global__ void __launch_bounds__(NT)
 split_bwd_kernel(const float* __restrict__ A, const float* __restrict__ ll,
                  const float* __restrict__ alpha, const float* __restrict__ s_in,
                  const float* __restrict__ sh_in, const float* __restrict__ pg_in,
-                 float* __restrict__ gamma, float* __restrict__ acc_out, int T, int B,
-                 int K) {
+                 float* __restrict__ gamma, float* __restrict__ part, int T, int B, int K) {
   __shared__ float At_s[KMAX * KMAX];  // A~[i][j] at j * KMAX + i
   __shared__ float d_s[2][KMAX];       // d_t in slot t & 1
   __shared__ float a_s[2][KMAX];       // a_{t-1} in slot t & 1
@@ -204,22 +212,64 @@ split_bwd_kernel(const float* __restrict__ A, const float* __restrict__ ll,
     pg_cur = pg_n;
   }
 
+  // this sequence's row of partials, acc (K, K)
   if (active) {
+    float* pb = part + (size_t)b * K * K;
 #pragma unroll
     for (int i = 0; i < KMAX; ++i)
-      if (i < K) atomicAdd(&acc_out[i * K + k], acc[i]);
+      if (i < K) pb[i * K + k] = acc[i];
   }
 }
 
+template <int KP>
+__global__ void __launch_bounds__(KP)
+split_fwd_wide_kernel(const float* __restrict__ pi, const float* __restrict__ A,
+                      const float* __restrict__ ll, float* __restrict__ alpha,
+                      float* __restrict__ s_out, float* __restrict__ sh_out, int T, int B,
+                      int K) {
+  extern __shared__ __align__(16) float smem[];
+  fbw::wide_forward<KP, false>(pi, A, nullptr, ll, alpha, s_out, sh_out, T, B, K, 0, blockIdx.x,
+                               smem);
+}
+
+template <int KP, bool GATED>
+__global__ void __launch_bounds__(KP)
+split_bwd_wide_kernel(const float* __restrict__ A, const float* __restrict__ ll,
+                      const float* __restrict__ alpha, const float* __restrict__ s_in,
+                      const float* __restrict__ sh_in, const float* __restrict__ pg_in,
+                      float* __restrict__ gamma, float* __restrict__ dn,
+                      float* __restrict__ carry, int T, int B, int K, int t0, int t1) {
+  extern __shared__ __align__(16) float smem[];
+  fbw::wide_backward<KP, false, GATED>(A, nullptr, ll, alpha, s_in, sh_in, pg_in, gamma,
+                                       nullptr, dn, nullptr, carry, T, B, K, 0, t0, t1,
+                                       blockIdx.x, smem);
+}
+
 bool bad_shape(int T, int B, int K) {
-  return T < 1 || B < 1 || K < 1 || K > KMAX;
+  return T < 1 || B < 1 || K < 1 || K > fbw::KWIDE;
+}
+
+// Floats of scratch the backward takes: K <= KMAX, a row of partials a
+// sequence; above, a window's dn, the carry and the outer sum's partials
+// (fbs::WideStats).
+long long scratch_floats(int T, int B, int K) {
+  if (K <= KMAX) return (long long)B * K * K;
+  return fbs::WideStats::floats(T, B, K, 0);
 }
 
 }  // namespace
 
 extern "C" {
 
-int split_fb_kmax() { return KMAX; }
+// The largest K the launchers take (the large-K instances').
+int split_fb_kmax() { return fbw::KWIDE; }
+
+// *out = the floats of scratch split_fb_backward takes at these shapes.
+int split_fb_scratch(int T, int B, int K, long long* out) {
+  if (bad_shape(T, B, K)) return static_cast<int>(cudaErrorInvalidValue);
+  *out = scratch_floats(T, B, K);
+  return 0;
+}
 
 const char* split_fb_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -234,24 +284,54 @@ int split_fb_forward(const float* pi, const float* A, const float* ll, float* al
   if (bad_shape(T, B, K)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  split_fwd_kernel<<<B, NT, 0, static_cast<cudaStream_t>(stream)>>>(pi, A, ll, alpha,
-                                                                    s, sh, T, B, K);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K > KMAX) {
+    void* args[] = {&pi, &A, &ll, &alpha, &s, &sh, &T, &B, &K};
+    return static_cast<int>(
+        fbw::tier_of(K) == 128
+            ? fbw::launch_dyn(reinterpret_cast<const void*>(split_fwd_wide_kernel<128>), dim3(B),
+                              128, fbw::chain_smem_bytes<128>(), st, args)
+            : fbw::launch_dyn(reinterpret_cast<const void*>(split_fwd_wide_kernel<256>), dim3(B),
+                              256, fbw::chain_smem_bytes<256>(), st, args));
+  }
+  split_fwd_kernel<<<B, NT, 0, st>>>(pi, A, ll, alpha, s, sh, T, B, K);
   return static_cast<int>(cudaGetLastError());
 }
 
-// pg is null for the ungated launch, else the (T, B) pair gate.
+// pg is null for the ungated launch, else the (T, B) pair gate. acc (K, K)
+// is summed in a fixed order (fb_stats.cuh); scratch holds split_fb_scratch
+// floats. Above K = 64 the backward runs a window of time steps a launch
+// (fbs::WideStats), several launches for a long T.
 int split_fb_backward(const float* A, const float* ll, const float* alpha,
                       const float* s, const float* sh, const float* pg, float* gamma,
-                      float* acc, int T, int B, int K, int device, void* stream) {
+                      float* acc, float* scratch, int T, int B, int K, int device,
+                      void* stream) {
   if (bad_shape(T, B, K)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (pg != nullptr)
-    split_bwd_kernel<true><<<B, NT, 0, st>>>(A, ll, alpha, s, sh, pg, gamma, acc, T, B, K);
-  else
-    split_bwd_kernel<false><<<B, NT, 0, st>>>(A, ll, alpha, s, sh, pg, gamma, acc, T, B, K);
-  return static_cast<int>(cudaGetLastError());
+  if (K <= KMAX) {
+    if (pg != nullptr)
+      split_bwd_kernel<true><<<B, NT, 0, st>>>(A, ll, alpha, s, sh, pg, gamma, scratch, T, B, K);
+    else
+      split_bwd_kernel<false><<<B, NT, 0, st>>>(A, ll, alpha, s, sh, pg, gamma, scratch, T, B, K);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(fbs::sum_partials(scratch, B, K * K, acc, st));
+  }
+  const fbs::WideStats ws(scratch, T, B, K, 0);
+  float *dn = ws.dn, *carry = ws.carry;
+  const int kp = fbw::tier_of(K);
+  const void* fn =
+      kp == 128 ? (pg != nullptr ? reinterpret_cast<const void*>(split_bwd_wide_kernel<128, true>)
+                                 : reinterpret_cast<const void*>(split_bwd_wide_kernel<128, false>))
+                : (pg != nullptr ? reinterpret_cast<const void*>(split_bwd_wide_kernel<256, true>)
+                                 : reinterpret_cast<const void*>(split_bwd_wide_kernel<256, false>));
+  const int smem = kp == 128 ? fbw::chain_smem_bytes<128>() : fbw::chain_smem_bytes<256>();
+  return static_cast<int>(ws.run(alpha, nullptr, acc, st, [&](int t0, int t1) {
+    void* args[] = {&A, &ll, &alpha, &s, &sh, &pg, &gamma, &dn, &carry, &T, &B, &K, &t0, &t1};
+    return fbw::launch_dyn(fn, dim3(B), kp, smem, st, args);
+  }));
 }
 
 }  // extern "C"

@@ -54,12 +54,20 @@
 // design keeps the next step's lik in a register one step ahead and
 // double-buffers a and the partial sums (one barrier per product), and
 // CHUNKED tests whether more chains per block hide more of that latency.
+//
+// Above K = 64 the launchers take the large-K instances (KP = 128 or 256),
+// on the split forward's large-K layout (fb_wide.cuh): one thread a state,
+// the matrix's first RR rows in registers and the rest in dynamic shared
+// memory. CHUNKED there keeps one thread a state and runs that state of all
+// NSEQ sequences of the block in it (NSEQ x KP threads would pass the 1024
+// a block may have at KP = 256), so each word of A feeds NSEQ chains.
 
 #include <cuda_bf16.h>
 
 #include <type_traits>
 
 #include "fb_common.cuh"
+#include "fb_wide.cuh"
 
 namespace {
 
@@ -215,8 +223,157 @@ probe_micro_kernel(const float* __restrict__ pi, const float* __restrict__ A,
   }
 }
 
+// The large-K forward probes: fwd_chain's recursion on the wide layout.
+template <int KP, bool STACK>
+__global__ void __launch_bounds__(KP)
+probe_fwd_wide_kernel(const float* __restrict__ pi, const float* __restrict__ A,
+                      const float* __restrict__ lik, float* __restrict__ alpha,
+                      float* __restrict__ s_out, int T, int B, int K, int C) {
+  using TT = fbw::Tier<KP>;
+  extern __shared__ __align__(16) float smem[];
+  float* M_s = smem;               // A rows RR..KP-1
+  float* a_s = M_s + TT::SR * KP;  // the product's operand, alternating
+  float* red = a_s + 2 * KP;       // block-sum partials, alternating
+  const int b = blockIdx.x;
+  const int k = threadIdx.x;
+  const int lane = k & 31, warp = k >> 5;
+  const bool active = k < K;
+
+  fbw::MatCol<KP> col;
+  col.load(A, M_s, K, false, k);
+  const size_t step_k = (size_t)B * K;
+  const float* lb = lik + (size_t)b * K;
+  float* ab = alpha + (size_t)b * K;
+  float l_cur = active ? lb[k] : 0.f;  // lik_t
+  float a = active ? pi[k] * l_cur : 0.f;
+  float ss = 0.f;  // STACK: sum of the previous stored a
+  int pa = 0, pr = 0;
+  __syncthreads();
+
+  // the block's sum of v, through the alternating partials
+  auto bsum = [&](float v) {
+    const float w = warp_sum(v);
+    if (lane == 0) red[pr * TT::NWARP + warp] = w;
+    __syncthreads();
+    const float r = fbw::block_sum<TT::NWARP>(red + pr * TT::NWARP);
+    pr ^= 1;
+    return r;
+  };
+  for (int t = 0; t < T; ++t) {
+    float l_next = 0.f;
+    if (t + 1 < T && active) l_next = lb[(size_t)(t + 1) * step_k + k];
+    if (t > 0) {
+      if ((t % C) % 4 == 0) a = a / (STACK ? ss : bsum(a));
+      a_s[pa * KP + k] = a;
+      __syncthreads();  // a_s[pa] is complete
+      a = col.dot(a_s + pa * KP, M_s, k) * l_cur;
+      pa ^= 1;
+    }
+    if (active) ab[(size_t)t * step_k + k] = a;
+    if (STACK) {
+      ss = bsum(a);
+      if (k == 0) s_out[(size_t)t * B + b] = ss;
+    }
+    l_cur = l_next;
+  }
+}
+
+// The large-K micro bodies: thread k holds state k of the block's NSEQ
+// sequences (1 but for CHUNKED).
+template <Body BODY, typename OUT_T, int NSEQ, int KP>
+__global__ void __launch_bounds__(KP)
+probe_micro_wide_kernel(const float* __restrict__ pi, const float* __restrict__ A,
+                        const float* __restrict__ lik, OUT_T* __restrict__ alpha, int T,
+                        int B, int K, int C) {
+  static_assert((BODY == BF16) == std::is_same<OUT_T, __nv_bfloat16>::value,
+                "BF16 stores bf16, every other body float32");
+  static_assert(NSEQ == 1 || BODY == CHUNKED, "only CHUNKED carries several sequences");
+  using TT = fbw::Tier<KP>;
+  extern __shared__ __align__(16) float smem[];
+  float* M_s = smem;               // A rows RR..KP-1
+  float* a_s = M_s + TT::SR * KP;  // [2][NSEQ][KP]
+  const int k = threadIdx.x;
+  const int b0 = blockIdx.x * NSEQ;
+
+  fbw::MatCol<KP> col;
+  col.load(A, M_s, K, false, k);
+  if (BODY == BF16) {  // the same indices this thread loaded: no barrier needed
+#pragma unroll
+    for (int i = 0; i < TT::RR; ++i) col.r[i] = round_bf16(col.r[i]);
+    for (int idx = k; idx < TT::SR * KP; idx += KP) M_s[idx] = round_bf16(M_s[idx]);
+  }
+  const size_t step_k = (size_t)B * K;
+  float a[NSEQ];
+#pragma unroll
+  for (int q = 0; q < NSEQ; ++q) {
+    const int b = b0 + q;
+    a[q] = (b < B && k < K) ? pi[k] * lik[(size_t)b * K + k] : 0.f;
+  }
+  int pa = 0;
+  __syncthreads();
+
+  for (int t0 = 0; t0 < T; t0 += C) {
+    for (int p = 0; p < C; ++p) {
+#pragma unroll
+      for (int q = 0; q < NSEQ; ++q) {
+        if (BODY == BF16) a[q] = round_bf16(a[q]);
+        a_s[(pa * NSEQ + q) * KP + k] = a[q];
+      }
+      __syncthreads();  // every chain's operand is complete
+      col.template dots<NSEQ>(a, a_s + pa * NSEQ * KP, KP, M_s, k);
+      pa ^= 1;
+      if (BODY != DOT_ONLY && k < K) {
+#pragma unroll
+        for (int q = 0; q < NSEQ; ++q) {
+          if (b0 + q >= B) continue;
+          OUT_T* ab = alpha + (size_t)(b0 + q) * K;
+          if constexpr (BODY == BF16)
+            ab[(size_t)(t0 + p) * step_k + k] = __float2bfloat16_rn(a[q]);
+          else
+            ab[(size_t)(t0 + p) * step_k + k] = a[q];
+        }
+      }
+    }
+    if constexpr (BODY == DOT_ONLY) {
+      if (k < K && b0 < B) alpha[(size_t)t0 * step_k + (size_t)b0 * K + k] = a[0];
+    }
+#pragma unroll
+    for (int q = 0; q < NSEQ; ++q) a[q] = a[q] * 1e-20f;  // the carry
+  }
+}
+
+template <int KP>
+constexpr int probe_smem_bytes(int nseq) {
+  return 4 * (fbw::Tier<KP>::SR * KP + 2 * nseq * KP + 2 * fbw::Tier<KP>::NWARP);
+}
+
+template <int KP>
+cudaError_t launch_fwd_wide(bool stack, void** args, int B, cudaStream_t st) {
+  const void* fn = stack ? reinterpret_cast<const void*>(probe_fwd_wide_kernel<KP, true>)
+                         : reinterpret_cast<const void*>(probe_fwd_wide_kernel<KP, false>);
+  return fbw::launch_dyn(fn, dim3(B), KP, probe_smem_bytes<KP>(1), st, args);
+}
+
+template <Body BODY, typename OUT_T, int NSEQ, int KP>
+cudaError_t launch_micro_wide(void** args, int B, cudaStream_t st) {
+  return fbw::launch_dyn(
+      reinterpret_cast<const void*>(probe_micro_wide_kernel<BODY, OUT_T, NSEQ, KP>),
+      dim3((B + NSEQ - 1) / NSEQ), KP, probe_smem_bytes<KP>(NSEQ), st, args);
+}
+
+template <int KP>
+cudaError_t micro_wide(int body, void** args, int B, cudaStream_t st) {
+  switch (body) {
+    case 0: return launch_micro_wide<DOT_ONLY, float, 1, KP>(args, B, st);
+    case 1: return launch_micro_wide<DOT_STORE, float, 1, KP>(args, B, st);
+    case 2: return launch_micro_wide<BF16, __nv_bfloat16, 1, KP>(args, B, st);
+    case 3: return launch_micro_wide<CHUNKED, float, 8, KP>(args, B, st);
+    default: return launch_micro_wide<CHUNKED, float, 4, KP>(args, B, st);
+  }
+}
+
 bool bad_shape(int T, int B, int K, int C) {
-  return T < 1 || B < 1 || K < 1 || K > KMAX || C < 1 || T % C != 0;
+  return T < 1 || B < 1 || K < 1 || K > fbw::KWIDE || C < 1 || T % C != 0;
 }
 
 template <Body BODY, typename OUT_T, int NSEQ>
@@ -230,7 +387,8 @@ void launch_micro(const float* pi, const float* A, const float* lik, void* alpha
 
 extern "C" {
 
-int split_probe_kmax() { return KMAX; }
+// The largest K the launchers take (the large-K instances').
+int split_probe_kmax() { return fbw::KWIDE; }
 
 const char* split_probe_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -245,8 +403,14 @@ int split_probe_fwd_nos(const float* pi, const float* A, const float* lik, float
   if (bad_shape(T, B, K, C)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  probe_fwd_nos_kernel<<<B, NT, 0, static_cast<cudaStream_t>(stream)>>>(pi, A, lik, alpha,
-                                                                        T, B, K, C);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K > KMAX) {
+    float* s = nullptr;
+    void* args[] = {&pi, &A, &lik, &alpha, &s, &T, &B, &K, &C};
+    return static_cast<int>(fbw::tier_of(K) == 128 ? launch_fwd_wide<128>(false, args, B, st)
+                                                   : launch_fwd_wide<256>(false, args, B, st));
+  }
+  probe_fwd_nos_kernel<<<B, NT, 0, st>>>(pi, A, lik, alpha, T, B, K, C);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -255,8 +419,13 @@ int split_probe_fwd_stack(const float* pi, const float* A, const float* lik, flo
   if (bad_shape(T, B, K, C)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  probe_fwd_stack_kernel<<<B, NT, 0, static_cast<cudaStream_t>(stream)>>>(pi, A, lik, alpha,
-                                                                          s, T, B, K, C);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K > KMAX) {
+    void* args[] = {&pi, &A, &lik, &alpha, &s, &T, &B, &K, &C};
+    return static_cast<int>(fbw::tier_of(K) == 128 ? launch_fwd_wide<128>(true, args, B, st)
+                                                   : launch_fwd_wide<256>(true, args, B, st));
+  }
+  probe_fwd_stack_kernel<<<B, NT, 0, st>>>(pi, A, lik, alpha, s, T, B, K, C);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -269,6 +438,11 @@ int split_probe_micro(const float* pi, const float* A, const float* lik, void* a
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K > KMAX) {
+    void* args[] = {&pi, &A, &lik, &alpha, &T, &B, &K, &C};
+    return static_cast<int>(fbw::tier_of(K) == 128 ? micro_wide<128>(body, args, B, st)
+                                                   : micro_wide<256>(body, args, B, st));
+  }
   switch (body) {
     case 0: launch_micro<DOT_ONLY, float, 1>(pi, A, lik, alpha, T, B, K, C, st); break;
     case 1: launch_micro<DOT_STORE, float, 1>(pi, A, lik, alpha, T, B, K, C, st); break;

@@ -51,6 +51,15 @@ def raise_on(error_string, code: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
 
 
+def scratch(lib, fn: str, error_string, dev: torch.device, *shape: int) -> torch.Tensor:
+    """A float32 scratch tensor on ``dev`` of the length the library's
+    ``fn(*shape, long long* out)`` reports (what a launcher needs at these
+    shapes)."""
+    out = ctypes.c_longlong(0)
+    raise_on(error_string, getattr(lib, fn)(*shape, ctypes.addressof(out)), fn)
+    return torch.empty(max(1, out.value), dtype=torch.float32, device=dev)
+
+
 def bind(lib: ctypes.CDLL, signatures: dict[str, str], error_string: str) -> ctypes.CDLL:
     """Set argtypes and restype on a freshly loaded library, once. Each
     signature spells the arguments as "p" (pointer or stream) and "i" (int);

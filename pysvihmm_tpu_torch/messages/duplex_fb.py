@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from ._launch import bind, check, device_index, ptr, raise_on, runs_plain_twin, stream
+from ._launch import bind, check, device_index, ptr, raise_on, runs_plain_twin, scratch, stream
 from .fused_fb import assemble
 from .scan_fb import FBResult
 from .split_fb import SUM_FLOOR, exp_params
@@ -51,6 +51,7 @@ def _library():
         load_library(_LIB),
         {"duplex_fb_chain": "pppppppp" "iiiii" "p",
          "duplex_fb_combine": "pppppppppp" "iiiii" "p",
+         "duplex_fb_scratch": "iiiip",
          "duplex_fb_kmax": "",
          "duplex_fb_fmax": ""},
         "duplex_fb_error_string",
@@ -63,8 +64,7 @@ def _check_kernel_limits(K: int, F: int) -> None:
     kmax, fmax = lib.duplex_fb_kmax(), lib.duplex_fb_fmax()
     if K > kmax or F > fmax:
         raise NotImplementedError(
-            f"the duplex CUDA kernels take K <= {kmax} and F <= {fmax}, got K={K}, "
-            f"F={F} (ROADMAP Queue 2: wider fused kernels)"
+            f"the duplex CUDA kernels take K <= {kmax} and F <= {fmax}, got K={K}, F={F}"
         )
 
 
@@ -186,9 +186,13 @@ def duplex_combine(
 
     CPU tensors run the plain twin; CUDA tensors launch
     ``duplex_combine_kernel`` (gated when ``weights`` is given) or raise.
-    Each block takes a chunk of time steps (16 or more); acc and eacc are
-    summed across blocks with atomics, so their summation order varies from
-    run to run."""
+    Each block takes a chunk of time steps (16 or more); above K = 64 the
+    large-K instances run. acc and eacc are summed across blocks in an order
+    fixed by the shapes (csrc/fb_stats.cuh), so repeated calls on one card
+    give the same bits. Above K = 64 the launch takes a scratch of
+    2 min(T B, max(B, 2^17)) K floats beside the sums' partials, whatever T:
+    about 0.28 GB at B = 1024, K = 256, F = 45 (the statistics a window of
+    time steps a launch)."""
     T, B, F = feats.shape
     K = alpha.shape[-1]
     dev = feats.device
@@ -204,13 +208,14 @@ def duplex_combine(
     lib = _library()
     gamma = torch.empty((T, B, K), dtype=torch.float32, device=dev) if emit_gamma else None
     gamma0 = torch.empty((B, K), dtype=torch.float32, device=dev)
-    acc = torch.zeros((K, K), dtype=torch.float32, device=dev)
-    eacc = torch.zeros((K, F), dtype=torch.float32, device=dev)
+    stats = torch.empty(K * K + K * F, dtype=torch.float32, device=dev)  # acc, then eacc
+    work = scratch(lib, "duplex_fb_scratch", lib.duplex_fb_error_string, dev, T, B, K, F)
     code = lib.duplex_fb_combine(
         ptr(W), ptr(feats), ptr(alpha), ptr(beta), ptr(sh), ptr(weights),
-        ptr(gamma), ptr(gamma0), ptr(acc), ptr(eacc),
+        ptr(gamma), ptr(gamma0), ptr(stats), ptr(work),
         T, B, K, F, device_index(dev), stream(dev),
     )
+    acc, eacc = stats[: K * K].view(K, K), stats[K * K:].view(K, F)
     duplex_combine.launches += 1
     raise_on(lib.duplex_fb_error_string, code, "duplex_combine_kernel")
     return gamma, gamma0, acc, eacc

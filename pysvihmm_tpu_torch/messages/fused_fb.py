@@ -17,10 +17,14 @@ Kernels (``csrc/fused_fb.cu``; the source notes what bounds them):
   statistics only, so buffer steps still drive the chain and the gamma
   written out is ungated. The kernel forms the pair gate from w.
 
-A block of either kernel carries S sequences, one thread per state, each
-thread running its state of all S as interleaved chains; the launchers take
-S from :func:`seqs_per_block`, a plain function of B and the blocks of
-each instance the card holds at once (the library's occupancy query).
+Up to K = 64 a block of either kernel carries S sequences, one thread per
+state, each thread running its state of all S as interleaved chains; the
+launchers take S from :func:`seqs_per_block`, a plain function of B and the
+blocks of each instance the card holds at once (the library's occupancy
+query). For 65 <= K <= 256 they launch the large-K instances
+(``fused_fwd_wide_kernel<KP>``, ``fused_bwd_wide_kernel<KP, GATED>``, KP =
+128 or 256): one sequence a block, one thread a state, the statistics
+summed off the chain. Above 256 states they raise.
 
 Each kernel has a launcher (:func:`fused_forward`, :func:`fused_backward`)
 and a plain PyTorch twin (:func:`forward_reference`,
@@ -42,7 +46,7 @@ import functools
 
 import torch
 
-from ._launch import bind, check, device_index, ptr, raise_on, runs_plain_twin, stream
+from ._launch import bind, check, device_index, ptr, raise_on, runs_plain_twin, scratch, stream
 from .scan_fb import FBResult
 from .split_fb import exp_params, pair_gate, split_backward_reference, split_forward_reference
 
@@ -61,6 +65,7 @@ def _library():
         load_library(_LIB),
         {"fused_fb_forward": "ppppppp" "iiiiii" "p",
          "fused_fb_backward": "ppppppppppp" "iiiiii" "p",
+         "fused_fb_scratch": "iiiiip",
          "fused_fb_kernel_info": "iiiip",
          "fused_fb_kmax": "",
          "fused_fb_fmax": ""},
@@ -69,14 +74,14 @@ def _library():
 
 
 def _check_kernel_limits(K: int, F: int) -> None:
-    """K and F the CUDA kernels take (one thread per state, K + F floats of
-    accumulator per thread): raise on larger ones instead of falling back."""
+    """K and F the CUDA kernels take (K <= 64 on the S-sequence instances,
+    65-256 on the large-K ones; F <= 64): raise on larger ones instead of
+    falling back."""
     lib = _library()
     kmax, fmax = lib.fused_fb_kmax(), lib.fused_fb_fmax()
     if K > kmax or F > fmax:
         raise NotImplementedError(
-            f"the fused CUDA kernels take K <= {kmax} and F <= {fmax}, got K={K}, "
-            f"F={F} (ROADMAP Queue 2: wider fused kernels)"
+            f"the fused CUDA kernels take K <= {kmax} and F <= {fmax}, got K={K}, F={F}"
         )
 
 
@@ -233,8 +238,15 @@ def fused_backward(
 
     CPU tensors run the plain twin; CUDA tensors launch ``fused_bwd_kernel``
     (gated when ``weights`` is given; the kernel forms the pair gate from
-    them) or raise. acc and eacc are summed across blocks with atomics, so
-    their summation order varies from run to run."""
+    them) or raise. acc and eacc are summed across blocks in an order fixed
+    by the shapes (csrc/fb_stats.cuh), so repeated calls on one card give
+    the same bits. Up to K = 64 the grouping follows S, so another S (another
+    B, or ``_launch_backward``'s) may round them differently; above, the
+    grouping follows (T, B, K, F) alone. Above K = 64 the launch takes a
+    scratch of 2 min(T B, max(B, 2^17)) K floats beside the carried beta
+    (B K) and the sums' partials, whatever T: about 0.28 GB at B = 1024,
+    K = 256, F = 45 (the statistics a window of time steps a launch,
+    csrc/fb_stats.cuh)."""
     return _launch_backward(None, A_t, W, feats, alpha, s, sh, emit_gamma, weights)
 
 
@@ -260,13 +272,14 @@ def _launch_backward(S: int | None, A_t, W, feats, alpha, s, sh, emit_gamma=Fals
     S = S if S is not None else _default_seqs(kind, B, F, index)
     gamma = torch.empty((T, B, K), dtype=torch.float32, device=dev) if emit_gamma else None
     gamma0 = torch.empty((B, K), dtype=torch.float32, device=dev)
-    acc = torch.zeros((K, K), dtype=torch.float32, device=dev)
-    eacc = torch.zeros((K, F), dtype=torch.float32, device=dev)
+    stats = torch.empty(K * K + K * F, dtype=torch.float32, device=dev)  # acc, then eacc
+    work = scratch(lib, "fused_fb_scratch", lib.fused_fb_error_string, dev, T, B, K, F, S)
     code = lib.fused_fb_backward(
         ptr(A_t), ptr(W), ptr(feats), ptr(alpha), ptr(s), ptr(sh),
-        ptr(weights), ptr(gamma), ptr(gamma0), ptr(acc), ptr(eacc),
+        ptr(weights), ptr(gamma), ptr(gamma0), ptr(stats), ptr(work),
         T, B, K, F, S, index, stream(dev),
     )
+    acc, eacc = stats[: K * K].view(K, K), stats[K * K:].view(K, F)
     fused_backward.launches += 1
     raise_on(lib.fused_fb_error_string, code, "fused_bwd_kernel")
     return gamma, gamma0, acc, eacc

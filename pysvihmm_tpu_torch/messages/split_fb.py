@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from ._launch import bind, check, device_index, ptr, raise_on, runs_plain_twin, stream
+from ._launch import bind, check, device_index, ptr, raise_on, runs_plain_twin, scratch, stream
 from .scan_fb import FBResult
 
 SUM_FLOOR = 1e-38  # per-sequence sum floor (pallas_fb.py:82)
@@ -48,21 +48,19 @@ def _library():
     return bind(
         load_library(_LIB),
         {"split_fb_forward": "pppppp" "iiii" "p",
-         "split_fb_backward": "pppppppp" "iiii" "p",
+         "split_fb_backward": "ppppppppp" "iiii" "p",
+         "split_fb_scratch": "iiip",
          "split_fb_kmax": ""},
         "split_fb_error_string",
     )
 
 
 def _check_kernel_limits(K: int) -> None:
-    """Raise on a K the CUDA kernels do not take (one thread per state)
-    instead of falling back."""
+    """Raise on a K the CUDA kernels do not take (K <= 64 on the first
+    instances, 65-256 on the large-K ones) instead of falling back."""
     kmax = _library().split_fb_kmax()
     if K > kmax:
-        raise NotImplementedError(
-            f"the split CUDA kernels take K <= {kmax}, got K={K} "
-            "(ROADMAP Queue 2: wider kernels)"
-        )
+        raise NotImplementedError(f"the split CUDA kernels take K <= {kmax}, got K={K}")
 
 
 def exp_params(log_pi: torch.Tensor, log_A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -185,8 +183,12 @@ def split_backward(
     """Backward kernel launcher; contract of :func:`split_backward_reference`.
 
     CPU tensors run the plain twin; CUDA tensors launch ``split_bwd_kernel``
-    or raise. acc is summed across sequences with atomics, so its summation
-    order varies from run to run."""
+    (``split_bwd_wide_kernel`` above K = 64) or raise. acc is summed across
+    sequences in an order fixed by the shapes (csrc/fb_stats.cuh), so
+    repeated calls on one card give the same bits. Above K = 64 the launch
+    takes a scratch of min(T B, max(B, 2^17)) K floats beside the carried
+    beta (B K) and the sum's partials, whatever T: about 0.14 GB at B =
+    1024, K = 256 (acc a window of time steps a launch)."""
     T, B, K = ll.shape
     dev = ll.device
     args = [("A_t", A_t, (K, K)), ("ll", ll, (T, B, K)), ("alpha", alpha, (T, B, K)),
@@ -200,10 +202,11 @@ def split_backward(
     _check_kernel_limits(K)
     lib = _library()
     gamma = torch.empty((T, B, K), dtype=torch.float32, device=dev)
-    acc = torch.zeros((K, K), dtype=torch.float32, device=dev)
+    acc = torch.empty((K, K), dtype=torch.float32, device=dev)
+    work = scratch(lib, "split_fb_scratch", lib.split_fb_error_string, dev, T, B, K)
     code = lib.split_fb_backward(
         ptr(A_t), ptr(ll), ptr(alpha), ptr(s), ptr(sh), ptr(g), ptr(gamma), ptr(acc),
-        T, B, K, device_index(dev), stream(dev),
+        ptr(work), T, B, K, device_index(dev), stream(dev),
     )
     split_backward.launches += 1
     raise_on(lib.split_fb_error_string, code, "split_bwd_kernel")

@@ -75,12 +75,11 @@ def _check(pi_t, A_t, lik, C: int) -> tuple[int, int, int]:
 
 
 def _check_kernel_limits(K: int) -> None:
-    """Raise on a K the CUDA kernels do not take (one thread per state)."""
+    """Raise on a K the CUDA kernels do not take (K <= 64 on the first
+    instances, 65-256 on the large-K ones)."""
     kmax = _library().split_probe_kmax()
     if K > kmax:
-        raise NotImplementedError(
-            f"the split probe kernels take K <= {kmax}, got K={K} (ROADMAP Queue 2: wider kernels)"
-        )
+        raise NotImplementedError(f"the split probe kernels take K <= {kmax}, got K={K}")
 
 
 # --------------------------------------------------------------- forwards

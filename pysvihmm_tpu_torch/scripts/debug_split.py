@@ -8,6 +8,8 @@ Usage, on a machine with an NVIDIA GPU and nvcc::
 
 with the JAX script's positions and defaults: B = 1024 sequences, tile_b =
 1024, C = 8 steps a tile, which = "fb", K = 64 states, and T = 1000 steps.
+K takes up to 256 states, as in the JAX script (:78): above 64 the kernels'
+large-K instances run.
 Each letter of ``which`` times one variant (:data:`VARIANTS`, in the JAX
 script's order):
 

@@ -2,11 +2,13 @@
 K=64, a Gaussian-NIW at D=8: F=45): the forward, the backward ungated and
 gated (kept runs of 5T/7), and the whole fused E-step; then one windowed SVI
 step (L=50, b=10, W=70, on one chain of T=100,000) on "auto" and on "split"
-at B = 32, 256 and 1024.
+at B = 32, 256 and 1024. Given another K (65-256, the large-K instances),
+the pair and the E-step at that K and no SVI step. Last, the device time of
+each kernel one backward call launches (torch.profiler), ungated and gated.
 
 Usage, on a machine with an NVIDIA GPU and nvcc, from the repository root::
 
-    PYTHONPATH=<checkout> python pysvihmm_tpu_torch/scripts/time_fused.py [reps]
+    PYTHONPATH=<checkout> python pysvihmm_tpu_torch/scripts/time_fused.py [reps] [K]
 
 It imports the ``pysvihmm_tpu_torch`` of ``<checkout>`` (``.`` for this one)
 and calls only what every version of the port has had since windowed SVI
@@ -41,9 +43,10 @@ SVI_T, SVI_L, SVI_BUF = 100_000, 50, 10  # chip_smoke.py's SVI shape
 SVI_BATCHES = (32, 256, 1024)
 
 
-def inputs(dev: torch.device):
+def inputs(dev: torch.device, K: int = K):
     """chip_smoke.py's E-step inputs (overlapping states, NIW parameters
-    near the generating ones), from a seeded generator on the card."""
+    near the generating ones) with K states, from a seeded generator on the
+    card."""
     gen = torch.Generator(device=dev).manual_seed(1234)
     obs, _, truth = gen_gaussian_dataset(gen, K, D, B, T, mean_scale=0.5, cov_scale=1.0)
     mu = truth.theta[0]
@@ -71,6 +74,27 @@ def report(name: str, times: list[float]) -> None:
           + f" ms (median {statistics.median(times):.3f}, min {min(times):.3f})", flush=True)
 
 
+def profile_call(name: str, fn) -> None:
+    """Device time by kernel of one call of ``fn`` (after a warm-up), from
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    parts = []
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            t = getattr(e, "self_device_time_total", None)
+            t = t if t is not None else e.self_cuda_time_total
+            parts.append((t, e.count, e.key.split("(")[0].replace("(anonymous namespace)::", "")))
+    total = sum(t for t, _, _ in parts)
+    print(f"{name}, one call, device {total / 1e3:.3f} ms: " + "; ".join(
+        f"{key} {t / 1e3:.3f} ms x{n}" for t, n, key in sorted(parts, reverse=True)), flush=True)
+
+
 def svi_steps(dev: torch.device, reps: int) -> None:
     """ms per windowed SVI step on "auto" and "split", as chip_smoke.py's
     phase 5 times it (its chain of overlapping states)."""
@@ -95,11 +119,12 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("time_fused needs an NVIDIA GPU: the kernels run only on the card")
     reps = int(argv[0]) if argv else 3
+    k = int(argv[1]) if len(argv) > 1 else K
     dev = torch.device("cuda", 0)
-    log_pi, log_A, W, feats, w = inputs(dev)
+    log_pi, log_A, W, feats, w = inputs(dev, k)
     pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
     alpha, s, sh = fused_fb.fused_forward(pi_t, A_t, W, feats)
-    print(f"package {pysvihmm_tpu_torch.__file__}; (B, T, K, F) = ({B}, {T}, {K}, "
+    print(f"package {pysvihmm_tpu_torch.__file__}; (B, T, K, F) = ({B}, {T}, {k}, "
           f"{feats.shape[-1]})", flush=True)
     runs = {
         "fused_fwd_kernel": lambda: fused_fb.fused_forward(pi_t, A_t, W, feats),
@@ -110,8 +135,11 @@ def main(argv: list[str]) -> int:
     }
     for name, fn in runs.items():
         report(name, [cuda_ms(fn, 20, warmup=3) for _ in range(reps)])
+    for name in ("fused_bwd_kernel", "fused_bwd_kernel, gated"):
+        profile_call(name, runs[name])
     del alpha, s, sh, feats, w
-    svi_steps(dev, reps)
+    if k == K:
+        svi_steps(dev, reps)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True)
     print(card.stdout.strip().splitlines()[0])

@@ -11,9 +11,9 @@ only PyTorch for CUDA and nvcc:
 Every test needs the card and skips without it (the ``cuda`` marker). The
 inputs are chip_smoke.py's: overlapping states, so posteriors spread. The
 kernels and twins compute the same float32 recursion in another summation
-order, and the kernels add acc and eacc across sequences with atomics, so
-the tolerances are those of tests/test_pallas.py:246-251, relative for the
-sums over all sequences.
+order, and acc and eacc are sums over all sequences in another grouping, so the
+tolerances are those of tests/test_pallas.py:246-251, relative for those
+sums. The kernels take K up to 256 (the large-K instances above 64).
 """
 
 import pytest
@@ -135,10 +135,98 @@ def test_fused_pair_runs_b1024_in_one_wave(cuda_device):
 
 
 def test_wider_than_the_kernels_raises(cuda_device):
+    """Just above the large-K instances' 256 states every launcher refuses
+    (no fallback to "scan" or a twin)."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    log_pi, log_A, W, feats = random_problem(gen, 2, 8, 65, 2)
-    with pytest.raises(NotImplementedError, match="K <= 64"):
-        fused_fb.estep_fused(log_pi, log_A, W, feats)
+    K = 257
+    pi_t, A_t, W, feats = _random_fused_inputs(gen, 2, 8, K, 5)
+    alpha = torch.rand((8, 2, K), generator=gen, device=cuda_device)
+    s = torch.rand((2, 8), generator=gen, device=cuda_device)
+    ll = torch.rand((8, 2, K), generator=gen, device=cuda_device)
+    for call in (lambda: fused_fb.fused_forward(pi_t, A_t, W, feats),
+                 lambda: fused_fb.fused_backward(A_t, W, feats, alpha, s, s),
+                 lambda: split_fb.split_forward(pi_t, A_t, ll),
+                 lambda: split_fb.split_backward(A_t, ll, alpha, s, s),
+                 lambda: duplex_fb.duplex_chain(pi_t, A_t, W, feats),
+                 lambda: duplex_fb.duplex_combine(W, feats, alpha, alpha, s),
+                 lambda: split_probe.probe_fwd_nos(pi_t, A_t, ll, 4)):
+        with pytest.raises(NotImplementedError, match="K <= 256"):
+            call()
+
+
+@pytest.mark.parametrize("B,T", [(5, 40), (2048, 150)])
+@pytest.mark.parametrize("K", [65, 128, 256])
+@pytest.mark.parametrize("gated", [False, True])
+def test_large_k_kernels_match_plain_twins(cuda_device, B, T, K, gated):
+    """The large-K instances of every route (fused, split, duplex) against
+    their twins, emit_gamma both ways, each launch counted; the duplex
+    chain's alpha, s and sh are the fused forward's bit for bit. At B = 2048
+    the statistics take three windows of time steps (64, 64 and 22; the
+    backward carries its beta from one to the next)."""
+    D = 3
+    gen = torch.Generator(device=cuda_device).manual_seed(400 + K)
+    log_pi, log_A, W, feats = random_problem(gen, B, T, K, D)
+    w = svi_masks(gen, B, T, (3 * T) // 4) if gated else None
+    pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+    a_r, s_r, sh_r = fused_fb.forward_reference(pi_t, A_t, W, feats)
+    before = (fused_fb.fused_forward.launches, fused_fb.fused_backward.launches)
+    fwd = fused_fb.fused_forward(pi_t, A_t, W, feats)
+    for x, r in zip(fwd, (a_r, s_r)):
+        torch.testing.assert_close(x, r, rtol=0, atol=5e-5)
+    torch.testing.assert_close(fwd[2], sh_r, rtol=2e-6, atol=1e-4)
+    for emit in (True, False):
+        got = fused_fb.fused_backward(A_t, W, feats, a_r, s_r, sh_r, emit, w)
+        ref = fused_fb.backward_reference(A_t, W, feats, a_r, s_r, sh_r, emit, w)
+        if emit:
+            torch.testing.assert_close(got[0], ref[0], rtol=0, atol=5e-5)
+        else:
+            assert got[0] is None
+        torch.testing.assert_close(got[1], ref[1], rtol=0, atol=5e-5)
+        torch.testing.assert_close(got[2], ref[2], rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(got[3], ref[3], rtol=3e-3, atol=2e-3)
+    torch.cuda.synchronize()
+    assert (fused_fb.fused_forward.launches, fused_fb.fused_backward.launches) == (
+        before[0] + 1, before[1] + 2)
+
+    ll = (feats @ W).contiguous()
+    fk = split_fb.estep_split(log_pi, log_A, ll, w)
+    fr = split_fb.estep_split_reference(log_pi, log_A, ll, w)
+    torch.testing.assert_close(fk.gamma, fr.gamma, rtol=0, atol=5e-5)
+    torch.testing.assert_close(fk.log_c, fr.log_c, rtol=2e-6, atol=1e-4)
+    torch.testing.assert_close(fk.trans_stats, fr.trans_stats, rtol=1e-4, atol=1e-3)
+
+    alpha, s, sh, beta = duplex_fb.duplex_chain(pi_t, A_t, W, feats)
+    ref = duplex_fb.duplex_chain_reference(pi_t, A_t, W, feats)
+    torch.testing.assert_close(beta, ref[3], rtol=0, atol=5e-5)
+    for x, r in zip((alpha, s, sh), fwd):
+        assert torch.equal(x, r)
+    got = duplex_fb.duplex_combine(W, feats, alpha, beta, sh, True, w)
+    comb = duplex_fb.duplex_combine_reference(W, feats, alpha, beta, sh, True, w)
+    for x, r, rtol, atol in zip(got, comb, (0, 0, 1e-4, 3e-3), (5e-5, 5e-5, 1e-3, 2e-3)):
+        torch.testing.assert_close(x, r, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("K", [64, 256])
+@pytest.mark.parametrize("gated", [False, True])
+def test_backward_statistics_repeat_bit_for_bit(cuda_device, K, gated):
+    """acc and eacc of each backward kernel (fused, split, duplex combine)
+    are the same bits over 5 calls on the same inputs: the sums across
+    blocks run in an order fixed by the shapes."""
+    B, T, D = 2048, 150, 8  # three windows of the large-K statistics
+    gen = torch.Generator(device=cuda_device).manual_seed(500 + K)
+    log_pi, log_A, W, feats = random_problem(gen, B, T, K, D)
+    w = svi_masks(gen, B, T, 100) if gated else None
+    pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+    a, s, sh, beta = duplex_fb.duplex_chain(pi_t, A_t, W, feats)
+    ll = (feats @ W).contiguous()
+    g = None if w is None else split_fb.pair_gate(w)
+    calls = {"fused": lambda: fused_fb.fused_backward(A_t, W, feats, a, s, sh, False, w)[2:],
+             "split": lambda: split_fb.split_backward(A_t, ll, a, s, sh, g)[1:],
+             "duplex": lambda: duplex_fb.duplex_combine(W, feats, a, beta, sh, False, w)[2:]}
+    for name, call in calls.items():
+        first = call()
+        for _ in range(4):
+            assert all(torch.equal(x, y) for x, y in zip(call(), first)), name
 
 
 def test_auto_runs_the_kernels_in_batch_vb(cuda_device):
@@ -272,17 +360,17 @@ def test_duplex_kernels_match_plain_twins(cuda_device, B, T, K, D, gated):
     torch.testing.assert_close(Sk, Sr, rtol=3e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("K,F", [(65, 10), (8, 65)])
+@pytest.mark.parametrize("K,F", [(257, 10), (8, 65)])
 def test_duplex_wider_than_the_kernels_raises(cuda_device, K, F):
     gen = torch.Generator(device=cuda_device).manual_seed(K + F)
     A_t = torch.rand((K, K), generator=gen, device=cuda_device)
     W = torch.rand((F, K), generator=gen, device=cuda_device)
     feats = torch.rand((6, 2, F), generator=gen, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
+    with pytest.raises(NotImplementedError, match="K <= 256 and F <= 64"):
         duplex_fb.duplex_chain(torch.rand(K, generator=gen, device=cuda_device), A_t, W, feats)
     alpha = torch.rand((6, 2, K), generator=gen, device=cuda_device)
     sh = torch.rand((2, 6), generator=gen, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
+    with pytest.raises(NotImplementedError, match="K <= 256 and F <= 64"):
         duplex_fb.duplex_combine(W, feats, alpha, alpha, sh)
 
 
@@ -324,7 +412,8 @@ def test_fmax_is_the_kernels_own(cuda_device):
     assert fmax == (fused_fb.FMAX, fused_fb.FMAX)
 
 
-@pytest.mark.parametrize("T,B,K,C", [(16, 4, 8, 8), (24, 3, 33, 4), (16, 37, 64, 8)])
+@pytest.mark.parametrize("T,B,K,C", [(16, 4, 8, 8), (24, 3, 33, 4), (16, 37, 64, 8),
+                                     (16, 5, 65, 8), (24, 11, 128, 4), (16, 9, 256, 8)])
 def test_split_probes_match_plain_twins(cuda_device, T, B, K, C):
     """Each probe kernel (every micro instance; B = 3 and 37 leave the
     chunked blocks ragged) against its twin, one counted launch each:
@@ -351,12 +440,12 @@ def test_split_probes_match_plain_twins(cuda_device, T, B, K, C):
         torch.testing.assert_close(got[rows], ref[rows], rtol=rtol, atol=1e-30)
 
 
-def test_split_probes_refuse_k_above_64(cuda_device):
-    pi, A, lik = make_inputs(2, 8, 65, cuda_device)
+def test_split_probes_refuse_k_above_256(cuda_device):
+    pi, A, lik = make_inputs(2, 8, 257, cuda_device)
     for call in (lambda: split_probe.probe_fwd_nos(pi, A, lik, 4),
                  lambda: split_probe.probe_fwd_stack(pi, A, lik, 4),
                  lambda: split_probe.probe_micro(pi, A, lik, 4, "dot_store")):
-        with pytest.raises(NotImplementedError, match="K <= 64"):
+        with pytest.raises(NotImplementedError, match="K <= 256"):
             call()
 
 

@@ -19,11 +19,16 @@ fails:
             (B=1024, W=70, K=64, F=45); both
             split kernels, gated and not, at a small shape, at B=1024,
             W=70, K=64 and at B=1024, T=1000, K=64; both duplex kernels at
-            a small shape (the combine's chunks of 16 steps do not divide
+            a small shape (the combine's stages of 8 steps do not divide
             T=50) and at B=1024, T=1000, K=64 (``emit_gamma`` True and
             False), gated at B=1024, W=70, K=64, and the chain's alpha, s
-            and sh against the fused forward's, bit for bit; all under
-            stated tolerances. Then the large-K instances of all six
+            and sh against the fused forward's, bit for bit; the duplex
+            kernels again at the combine's tile edges (T = 1, T and B not
+            multiples of its 8 x 8 tiles, windows of the large-K statistics
+            whose edges cut a block's chunk at K = 256), gated and not, and
+            the chain at every S against the fused forward at every S, bit
+            for bit, at B = 1, 3, 32, 1024 and 2048; all under stated
+            tolerances. Then the large-K instances of all six
             kernels the same way at K = 65, 128, 129 and 256 on a small
             shape and at B=1024, T=1000, D=8 for K = 128 and 256, gated and
             not (the duplex chain bit for bit there too); and each backward
@@ -42,7 +47,9 @@ fails:
             spills, resident blocks an SM from the library's occupancy
             query, waves at B=1024, time and share of the bound; the
             default S must run in one wave and every S give the default's
-            outputs); the pair at every S for B = 2048 and 4096; the gated
+            outputs); the same for the duplex chain (waves of its 2
+            ceil(B/S) blocks) and the combine's registers, shared bytes and
+            blocks an SM; the pair at every S for B = 2048 and 4096; the gated
             fused pair at the SVI shape for B in {32, 256, 1024}; the
             E-step of the benchmark shape (need_gamma=False) on the kernel
             and plain routes, and the SVI step at B in {32, 256, 1024} on
@@ -179,11 +186,13 @@ def compare_local_stats(sk, ss) -> None:
 def svi_masks(gen, B_, W_, L_):
     """(W, B) float32 kept-masks as SVI windows make them on the card: one
     kept run of L steps per window at a random offset from ``gen``; window 0
-    keeps its first step and window 1 drops it (when W > L)."""
+    keeps its first step and window 1, where B > 1, drops it (when W > L)."""
     import torch
 
     offs = torch.randint(0, W_ - L_ + 1, (B_,), generator=gen, device=gen.device)
-    offs[0], offs[1] = 0, W_ - L_
+    offs[0] = 0
+    if B_ > 1:
+        offs[1] = W_ - L_
     t = torch.arange(W_, device=gen.device)[:, None]
     return ((t >= offs) & (t < offs + L_)).to(torch.float32).contiguous()
 
@@ -404,6 +413,43 @@ def check_duplex(gen, B_, T_, K_, D_, gated):
         compare_estep(f"estep_duplex vs estep_duplex_reference, emit_gamma={emit_gamma}",
                       fk, fr, Sk, Sr)
     return chain_err, comb_err, (pi_t, A_t, W, feats, a_r, s_r, sh_r, b_r)
+
+
+# (B, T, K) at the duplex combine's tile edges: T = 1, T and B not multiples
+# of its 8 x 8 tiles, and at K = 256 windows of the large-K statistics (131
+# steps at B = 1000, 64 at B = 2048) whose edges cut a block's chunk
+COMBINE_EDGES = ((1, 1, 64), (13, 19, 64), (9, 23, 33), (7, 9, 128), (1000, 300, 256),
+                 (2048, 150, 256))
+CHAIN_BATCHES = (1, 3, 32, 1024, 2048)  # the last block short, one wave and two at S = 2
+
+
+def check_duplex_edges(gen) -> None:
+    """Phase 3: the duplex kernels against their twins at COMBINE_EDGES,
+    gated and not (D = 3), and the chain at every S against the fused
+    forward at every S, alpha, s and sh bit for bit and beta the same bits
+    at every S, at CHAIN_BATCHES (T = 40, K = 64)."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import duplex_fb as df
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+
+    for B_, T_, K_ in COMBINE_EDGES:
+        for gated in (False, True):
+            check_duplex(gen, B_, T_, K_, 3, gated)
+    for B_ in CHAIN_BATCHES:
+        log_pi, log_A, W, feats = random_problem(gen, B_, 40, K, D)
+        pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+        first = df.duplex_chain(pi_t, A_t, W, feats)
+        same = []
+        for S in ff.SEQS:
+            got = df._launch_chain(S, pi_t, A_t, W, feats)
+            fwd = ff._launch_forward(S, pi_t, A_t, W, feats)
+            same.append(all(torch.equal(x, y) for x, y in zip(got[:3], fwd))
+                        and torch.equal(got[3], first[3]))
+        torch.cuda.synchronize()
+        log(f"  duplex chain at (B, T, K, D) = ({B_}, 40, {K}, {D}), S in {ff.SEQS}: alpha, s, "
+            f"sh the fused forward's and beta the same at every S, bit for bit: {same}")
+        require(all(same), f"the duplex chain at B={B_} is not the fused forward's bit for bit")
 
 
 LARGE_K = (128, 256)  # the large-K tiers: 65-128 states run KP = 128, 129-256 KP = 256
@@ -673,6 +719,53 @@ def fused_layout(full_inputs, ms) -> None:
         log(f"{name}: S={chosen}, {default[0]} blocks an SM, {default[1]:.3f} waves at B={B}; "
             f"{ms[name]:.3f} ms (timed above), bound {b_ms:.3f} ms, "
             f"{100 * b_ms / ms[name]:.1f} % of it")
+
+
+def duplex_layout(duplex_inputs, chain_ms: float) -> None:
+    """Phase 5: the duplex chain's block layout at the VB shape. For every
+    built S: the library's registers, shared bytes, spills and resident
+    blocks an SM, the waves of 2 ceil(B/S) blocks (a forward and a backward
+    block a group), the time and share of the bound, and the outputs against
+    the default S's, bit for bit. Then the combine's instances (ungated and
+    gated): registers, shared bytes, spills, blocks an SM and the blocks of
+    the launch."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import duplex_fb as df
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.scripts.debug_split import cuda_ms
+    from pysvihmm_tpu_torch.utils.roofline import bound, kernel_work
+
+    pi_t, A_t, W, feats = duplex_inputs[:4]
+    F = feats.shape[-1]
+    b_ms = bound(*kernel_work("duplex_chain_kernel", B, T, K, F))[0]
+    chosen = df.default_seqs(B, F, feats.device)
+    ref = df.duplex_chain(pi_t, A_t, W, feats)
+    for S in ff.SEQS:
+        info = df.kernel_info("chain", S, F)
+        blocks = 2 * -(-B // S)
+        waves = blocks / (info["blocks_per_sm"] * info["sms"])
+        got = df._launch_chain(S, pi_t, A_t, W, feats)
+        torch.cuda.synchronize()
+        require(all(torch.equal(x, y) for x, y in zip(got, ref)),
+                f"duplex_chain_kernel: S={S} differs from S={chosen}")
+        del got
+        t_ms = cuda_ms(lambda S=S: df._launch_chain(S, pi_t, A_t, W, feats), 20, warmup=3)
+        log(f"duplex_chain_kernel S={S}{' (default)' if S == chosen else ''}: "
+            f"{info['registers']} registers, {info['local_bytes']} spilled bytes, "
+            f"{info['static_smem'] + info['dynamic_smem']} shared bytes a block, "
+            f"{info['blocks_per_sm']} blocks an SM of {info['sms']}, {blocks} blocks = "
+            f"{waves:.3f} waves at B={B}; {t_ms:.3f} ms, bound {b_ms:.3f} ms, "
+            f"{100 * b_ms / t_ms:.1f} % of it")
+    log(f"duplex_chain_kernel: S={chosen} at B={B}; {chain_ms:.3f} ms (timed above), "
+        f"{100 * b_ms / chain_ms:.1f} % of the bound")
+    groups = -(-B // 8)
+    for kind in ("combine", "gated combine"):
+        info = df.kernel_info(kind, 0, F)
+        log(f"duplex_combine_kernel ({kind}, K <= {K}, F={F}): {info['registers']} registers, "
+            f"{info['local_bytes']} spilled bytes, {info['static_smem'] + info['dynamic_smem']} "
+            f"shared bytes a block of {info['threads']} threads, {info['blocks_per_sm']} blocks "
+            f"an SM of {info['sms']}; {groups} groups of 8 sequences at B={B}")
 
 
 def fused_large_batches(gen) -> None:
@@ -1062,7 +1155,7 @@ WIDE_NAMES = {"fused_fwd_kernel": "fused_fwd_wide_kernel",
               "split_fwd_kernel": "split_fwd_wide_kernel",
               "split_bwd_kernel": "split_bwd_wide_kernel",
               "duplex_chain_kernel": "duplex_chain_wide_kernel",
-              "duplex_combine_kernel": "duplex_combine_wide_kernel"}
+              "duplex_combine_kernel": "duplex_combine_kernel"}
 
 
 PROBE_C = 8  # steps a tile, debug_pallas_split.py:76
@@ -1297,6 +1390,7 @@ def main() -> int:
     check_duplex(gen, 8, 50, 4, 2, True)
     chain_err, comb_err, duplex_inputs = check_duplex(gen, B, T, K, D, False)
     check_duplex(gen, B, SVI_W, K, D, True)
+    check_duplex_edges(gen)
     log(f"  above K = {K}: the large-K instances at K = {SMALL_LARGE_K} and at full width")
     large_errs = check_large_k(gen)
     log("  acc and eacc over repeated calls")
@@ -1380,6 +1474,7 @@ def main() -> int:
     _, _, W_d, feats_d, da_r, _, dsh_r, db_r = duplex_inputs
     ms, plain_ms, bounds = time_route_kernels(torch.Generator(device=dev).manual_seed(81))
     fused_layout(full_inputs, {name: ms[name, K] for name in FUSED_KERNELS})
+    duplex_layout(duplex_inputs, ms["duplex_chain_kernel", K])
     fused_large_batches(torch.Generator(device=dev).manual_seed(80))
     svi_shape_pair(torch.Generator(device=dev).manual_seed(79))
 

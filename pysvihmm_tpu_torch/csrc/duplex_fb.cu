@@ -8,63 +8,83 @@
 //
 // What is computed (the TPU kernels' math, without their time tiles, lane
 // packing and tile-edge carries); lik_t = exp(ll_t - max_k ll_t) with
-// ll_t = f_t . W (fbc::ll_dot, the fused kernels' fmaf chain):
+// ll_t = f_t . W (the fused kernels' fmaf chain over f in order):
 //   chain, forward, t = 0 .. T-1 (the fused forward's recursion):
 //                         a_0 = pi~ * lik_0
 //                         a_t = (a_{t-1} @ A~) * (lik_t / s_{t-1})
 //                         s_t = sum_k a_t,  sh_t = max_k ll_t
 //   chain, backward, t = T-1 .. 1, raw beta (normalisation deferred):
 //                         b_{T-1} = 1
-//                         d_t = (lik_t / sum_k b_t) * b_t
-//                         b_{t-1} = A~ d_t
-//     The two recursions are independent: one block per sequence, threads
-//     0..63 walk forward and 64..127 walk backward, each half on its own
-//     named barrier (bar.sync 1 / 2, 64 threads), so neither waits on the
-//     other and the scheduler fills one chain's stalls with the other's work
-//     (the TPU got this by interleaving both steps in one loop). Writes raw
-//     a_t, s_t, sh_t and raw b_t.
+//                         e_t = lik_t * b_t
+//                         b_{t-1} = (A~ e_t) * (1 / sum_k b_t)
+//     The scale is applied after the matvec, as the forward applies
+//     1 / s_{t-1} after its own, so the matvec does not wait for the sum.
+//     Writes raw a_t, s_t, sh_t and raw b_t.
 //   combine, chain-free, for every t:
 //                         g_t = a_t * b_t,  ginv_t = 1 / sum_k g_t,  gamma_t = g_t ginv_t
+//                         d_t = e_t * (1 / sum_k b_t)   (pallas_duplex.py:249)
 //                         acc  += outer(a_{t-1}, d_t ginv_{t-1} pg_t)   (t >= 1;
 //                                 the wrapper forms A~ * acc)
 //                         eacc += outer(w_t gamma_t, f_t)
 //                         gamma0 = w_0 gamma_0
-//     with d_t as in the chain. The xi normaliser of the pair (t-1, t) is
-//     sum(a_{t-1} * A~ d_t) = sum(a_{t-1} * b_{t-1}) = 1 / ginv_{t-1}, so no
-//     scale array crosses the kernels (pallas_duplex.py:19-29). It holds
-//     only if d_t here is the d_t that built b_{t-1}: ll_t comes from the
-//     same ll_dot, the shift is the forward's sh_t (the same max of the same
-//     numbers), and sum_k b_t is reduced in the same order as in the chain.
+//     The xi normaliser of the pair (t-1, t) is sum(a_{t-1} * A~ d_t) =
+//     sum(a_{t-1} * b_{t-1}) = 1 / ginv_{t-1}, so no scale array crosses the
+//     kernels (pallas_duplex.py:19-29). It holds to the last bit only if
+//     d_t here is the e_t and scale that built b_{t-1}: ll_t comes from the
+//     same fmaf chain, the shift is the forward's sh_t (the same max of the
+//     same numbers), and sum_k b_t is reduced in the chain's order (each
+//     warp's butterfly over 32 states, then the warps in order).
 //     Gated mode (SVI windows) takes the kept-mask w (T, B) and forms the
 //     pair gate pg_t = w_{t-1} w_t (pg_0 = 0) itself; ungated, w = pg = 1.
 //     The gates touch the statistics only: gamma written out is ungated.
 //     Every per-sequence sum is floored at SUM_FLOOR (pallas_fb.py:82).
 //
-// Layout and what bounds it on this card. The chain kernel is two dependent
-// K-wide matvecs per step, one per half, each with block reductions: bound by
-// the latency of the chain, like the fused forward, and the second chain
-// rides in the first one's stalls. A~ sits in shared memory once with row
-// stride KMAX + 1, so the forward's column reads and the backward's row reads
-// are both free of bank conflicts; with W that is 33 KB, under the 48 KB of
-// static shared memory. The combine has no chain: a grid of (sequence, chunk
-// of time steps), one thread per state, one barrier a step (double-buffered
-// alpha_{t-1} and partial sums, triple-buffered features), the pair at the
-// chunk's first step read from memory (a_{t-1}, b_{t-1}) instead of carried,
-// and acc (column k) and eacc (row k) in registers, written at the end to the
-// block's row of partials, which a second kernel adds in block order
-// (fb_stats.cuh): the same bits every call. Chunks are sized so that the grid
-// holds about 2048 blocks, at least 16 steps each. Per (t, b) the pair moves
-// about 4 (2F + 5K) bytes and does about 2K (2F + 3K) flops: far below what
-// the card streams in the time the chain takes.
+// The chain, K <= 64: duplex_chain_kernel<S, FP> on a grid of (ceil(B/S), 2)
+// blocks of 64 threads in fb_seqs.cuh's layout (S sequences a block, thread
+// k running state k of all S). blockIdx.y = 0 runs fbseq::seq_forward, the
+// fused forward's own function, so alpha, s and sh are the fused forward's
+// bit for bit; blockIdx.y = 1 runs the backward on the same scheme: row k of
+// A~ and column k of W in registers, loaded once; e_t of the S sequences
+// read from shared memory as float4 broadcasts, each feeding S FMAs; ll_{t-1}
+// and its max computed a step ahead in the matvec's loop; step T-1 peeled;
+// one barrier a step. Both halves are chains of dependent K-wide products,
+// bound by latency, not bytes or FLOPs; the two directions run side by side
+// when 2 ceil(B/S) blocks fit one wave (the wrapper picks S from the card's
+// occupancy). Above K = 64 duplex_chain_wide_kernel<KP> runs the two
+// recursions in two blocks of a sequence on fb_wide.cuh's layout (its
+// forward fbw::wide_forward, the fused large-K forward's).
 //
-// Above K = 64 the launchers take the large-K instances (KP = 128 or 256;
-// fb_wide.cuh): duplex_chain_wide_kernel<KP> runs the two recursions in two
-// blocks of a sequence (blockIdx.y), the forward being the fused forward's
-// own device function, so alpha, s and sh stay the fused forward's bit for
-// bit; duplex_combine_wide_kernel<KP, GATED> writes d_t ginv_{t-1} pg_t and
-// w_t gamma_t, and acc and eacc are outer products summed in a fixed order.
+// The combine has no chain: every (t, b) row needs only a_t, b_t, f_t, sh_t
+// and the pair's ginv_{t-1}. duplex_combine_kernel<KP, FP, GATED> takes a
+// tile of 8 sequences (one a warp; lane j of a warp holds states j, j + 32,
+// ...) by a chunk of time steps. Each warp walks its sequence two rows at a
+// time (coalesced loads of the K-wide alpha and beta rows, the feature row
+// into shared memory for the likelihood's broadcast, W's columns as rows of
+// shared memory read as float4) and carries ginv and w from one row to the
+// next, so no barrier is tied to a time step. Per row it writes gamma,
+// gamma0 and forms dn_t = d_t ginv_{t-1} pg_t and gw_t = w_t gamma_t.
+//   K <= 64 (KP = 64): the rows of a stage of 8 time steps x 8 sequences
+//     land in shared memory (a_{t-1}, dn_t, gw_t, f_t), and after one
+//     barrier all 256 threads add them into acc and eacc as register-blocked
+//     outer products: thread (ty, tx) of 16 x 16 owns a 4 x 4 block of acc
+//     and 4 x FP/16 of eacc, reads its operands as float4 (each load feeding
+//     4 FMAs) and keeps the sums in registers over the whole chunk; a second
+//     barrier frees the stage buffers. Each block writes one row of
+//     partials, which fbs::sum_partials adds in block order.
+//   K = 65..256 (KP = 128, 256): the rows write dn and gw for a window of
+//     time steps (fbs::WideStats), and the outer sums of fb_stats.cuh add
+//     them.
+// The grid is (ceil(B/8), chunks), the chunks cut so that the launch holds
+// at most about COMBINE_BLOCKS blocks, one wave at 2 blocks an SM: a function
+// of (T, B) only, so the sums run in the same order on every card and call.
+// What bounds the K <= 64 combine:
+// per (t, b) about 2K (2F + K) + 10K flops (the likelihood dot, the two outer
+// products) against 4 (F + 2K) bytes in, so FLOPs by a little (FMAs at 67
+// TFLOP/s); the design keeps the FMA pipe fed with few shared-memory loads
+// per FMA.
 
 #include "fb_common.cuh"
+#include "fb_seqs.cuh"
 #include "fb_stats.cuh"
 #include "fb_wide.cuh"
 
@@ -72,272 +92,191 @@ namespace {
 
 using fbc::FMAX;
 using fbc::KMAX;
-using fbc::ll_dot;
 using fbc::NT;
 using fbc::NWARP;
 using fbc::SUM_FLOOR;
 using fbc::warp_max;
 using fbc::warp_sum;
+using fbseq::block_max;
+using fbseq::block_sum;
+using fbseq::FeatRows;
+using fbseq::fma4;
+using fbseq::ld4;
+using fbseq::ld4s;
+using fbseq::pad_f;
+using fbseq::warp_sums_maxes;
 
-constexpr int HALF = KMAX;          // threads of one chain
-constexpr int CHAIN_NT = 2 * HALF;  // the chain kernel's block
-constexpr int AST = KMAX + 1;       // row stride of A~ in the chain kernel's shared memory
-
-// A barrier of one half of the chain kernel's block (64 threads).
-__device__ __forceinline__ void half_sync(int id) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(HALF) : "memory");
+// The backward message before its scale, e_t = lik_t b_t, and the scale
+// 1 / sum_k b_t: the chain forms b_{t-1} = (A~ e_t) * back_scale and the
+// combine d_t = e_t * back_scale, the same expressions in both kernels.
+__device__ __forceinline__ float pair_e(float lik, float b) { return lik * b; }
+__device__ __forceinline__ float back_scale(float bsum) {
+  return 1.f / fmaxf(bsum, SUM_FLOOR);
 }
 
-// The backward message d_t, the same expression in both kernels.
-__device__ __forceinline__ float pair_d(float lik, float b, float bsum) {
-  return (lik * (1.f / fmaxf(bsum, SUM_FLOOR))) * b;
-}
+// The raw backward recursion of the S sequences of block blk (the layout of
+// fbseq::seq_forward, reversed in time): f_t in slot t & 1, e_t in slot
+// t & 1, the partial sums of b_t in slot t & 1 and the partial maxima of
+// ll_t in slot t & 1. Writes beta (T, B, K). Every thread of the block calls
+// it.
+template <int S, int FP>
+__device__ __forceinline__ void seq_backward(const float* __restrict__ A,
+                                             const float* __restrict__ W,
+                                             const float* __restrict__ feats,
+                                             float* __restrict__ beta, int T, int B, int K,
+                                             int F, int blk) {
+  __shared__ __align__(16) float f_s[2][S * FP];    // f_t in slot t & 1
+  __shared__ __align__(16) float e_s[2][S * KMAX];  // e_t in slot t & 1, zero beyond K
+  __shared__ float red_max[2][NWARP * S];           // partial max of ll_t, slot t & 1
+  __shared__ float red_sum[2][NWARP * S];           // partial sum of b_t, slot t & 1
 
-__global__ void __launch_bounds__(CHAIN_NT)
-duplex_chain_kernel(const float* __restrict__ pi, const float* __restrict__ A,
-                    const float* __restrict__ W, const float* __restrict__ feats,
-                    float* __restrict__ alpha, float* __restrict__ s_out,
-                    float* __restrict__ sh_out, float* __restrict__ beta, int T, int B,
-                    int K, int F) {
-  __shared__ float A_s[KMAX * AST];   // A~[i][j] at i * AST + j
-  __shared__ float W_s[FMAX * KMAX];
-  __shared__ float v_s[2][KMAX];      // per half: a_{t-1} (forward) or d_t (backward)
-  __shared__ float f_s[2][FMAX];      // per half: this step's feature row
-  __shared__ float red_max[2][NWARP];
-  __shared__ float red_sum[2][NWARP];
-
-  const int b = blockIdx.x;
-  const int h = threadIdx.x / HALF;  // 0: forward, 1: backward
-  const int k = threadIdx.x % HALF;
-  const int lane = k & 31, warp = k >> 5;
-  const bool active = k < K;
-
-  fbc::load_A(A, A_s, K, false, AST, CHAIN_NT);
-  fbc::load_W(W, W_s, K, F, CHAIN_NT);
-  const size_t step_f = (size_t)B * F;  // feats stride of one time step
-  const size_t step_k = (size_t)B * K;  // alpha / beta stride of one time step
-  const float* fb = feats + (size_t)b * F;
-  float* v = v_s[h];
-  float* f = f_s[h];
-  float* rmax = red_max[h];
-  float* rsum = red_sum[h];
-  if (k < F) f[k] = fb[(size_t)(h == 0 ? 0 : T - 1) * step_f + k];
-  v[k] = 0.f;
-  __syncthreads();  // the only barrier of the whole block
-
-  if (h == 0) {
-    // forward: fused_fwd_kernel's loop (fused_fb.cu) on this half's barrier
-    float* ab = alpha + (size_t)b * K;
-    const float pik = active ? pi[k] : 0.f;
-    float inv = 1.f;  // 1 / s_{t-1}
-    for (int t = 0; t < T; ++t) {
-      float f_next = 0.f;
-      if (t + 1 < T && k < F) f_next = fb[(size_t)(t + 1) * step_f + k];
-
-      const float ll = ll_dot(f, W_s, k, F);
-      float u = 0.f;
-      if (t > 0) {
-        for (int i = 0; i < K; ++i) u = fmaf(v[i], A_s[i * AST + k], u);
-      }
-      const float wm = warp_max(active ? ll : -INFINITY);
-      if (lane == 0) rmax[warp] = wm;
-      half_sync(1);  // v and f are read; rmax is complete
-
-      float m = rmax[0];
-#pragma unroll
-      for (int w = 1; w < NWARP; ++w) m = fmaxf(m, rmax[w]);
-      const float lik = expf(ll - m);
-      const float a = active ? (t == 0 ? pik * lik : u * (lik * inv)) : 0.f;
-      v[k] = a;
-      if (k < F) f[k] = f_next;
-      if (active) ab[(size_t)t * step_k + k] = a;
-      const float ws = warp_sum(a);
-      if (lane == 0) rsum[warp] = ws;
-      half_sync(1);  // v, f and rsum are complete
-
-      float s = rsum[0];
-#pragma unroll
-      for (int w = 1; w < NWARP; ++w) s += rsum[w];
-      inv = 1.f / fmaxf(s, SUM_FLOOR);
-      if (k == 0) {
-        s_out[(size_t)b * T + t] = s;
-        sh_out[(size_t)b * T + t] = m;
-      }
-    }
-  } else {
-    // backward: raw b_t, the per-sequence sum folded into the next d
-    float* bb = beta + (size_t)b * K;
-    float bt = active ? 1.f : 0.f;  // b_t
-    if (active) bb[(size_t)(T - 1) * step_k + k] = bt;
-    for (int t = T - 1; t >= 1; --t) {
-      float f_next = 0.f;
-      if (k < F) f_next = fb[(size_t)(t - 1) * step_f + k];
-
-      const float ll = ll_dot(f, W_s, k, F);
-      const float wm = warp_max(active ? ll : -INFINITY);
-      const float ws = warp_sum(bt);
-      if (lane == 0) {
-        rmax[warp] = wm;
-        rsum[warp] = ws;
-      }
-      half_sync(2);  // f is read; rmax and rsum are complete
-
-      float m = rmax[0], bs = rsum[0];
-#pragma unroll
-      for (int w = 1; w < NWARP; ++w) {
-        m = fmaxf(m, rmax[w]);
-        bs += rsum[w];
-      }
-      v[k] = active ? pair_d(expf(ll - m), bt, bs) : 0.f;
-      if (k < F) f[k] = f_next;
-      half_sync(2);  // v (d_t) and f are complete
-
-      float bn = 0.f;
-      for (int j = 0; j < K; ++j) bn = fmaf(A_s[k * AST + j], v[j], bn);
-      bt = active ? bn : 0.f;
-      if (active) bb[(size_t)(t - 1) * step_k + k] = bt;
-    }
-  }
-}
-
-// GATED is a template parameter, as in fused_bwd_kernel: the ungated instance
-// carries no trace of the gates.
-template <bool GATED>
-__global__ void __launch_bounds__(NT)
-duplex_combine_kernel(const float* __restrict__ W, const float* __restrict__ feats,
-                      const float* __restrict__ alpha, const float* __restrict__ beta,
-                      const float* __restrict__ sh_in, const float* __restrict__ w_in,
-                      float* __restrict__ gamma, float* __restrict__ gamma0,
-                      float* __restrict__ part, int T, int B, int K, int F, int chunk) {
-  __shared__ float W_s[FMAX * KMAX];
-  __shared__ float f_s[3][FMAX];       // f_t in slot t % 3
-  __shared__ float a_s[2][KMAX];       // a_{t-1} in slot t & 1
-  __shared__ float red[2][2][NWARP];   // [t & 1][sum of g_t, sum of b_t][warp]
-  __shared__ float red0[NWARP];        // sum of g at the chunk's first t - 1
-
-  const int b = blockIdx.x;
-  const int t_begin = blockIdx.y * chunk;
-  const int t_end = min(T, t_begin + chunk);
+  const int b0 = blk * S;
+  const int ns = min(S, B - b0);
   const int k = threadIdx.x;
   const int lane = k & 31, warp = k >> 5;
   const bool active = k < K;
 
-  fbc::load_W(W, W_s, K, F);
-
-  float acc[KMAX];   // column k of sum_t outer(a_{t-1}, d_t ginv_{t-1} pg_t)
-  float eacc[FMAX];  // row k of sum_t outer(w_t gamma_t, f_t)
+  float Arow[KMAX];  // row k of A~
+  float Wcol[FP];    // column k of W
 #pragma unroll
-  for (int i = 0; i < KMAX; ++i) acc[i] = 0.f;
+  for (int i = 0; i < KMAX; ++i) Arow[i] = (active && i < K) ? A[k * K + i] : 0.f;
 #pragma unroll
-  for (int f = 0; f < FMAX; ++f) eacc[f] = 0.f;
+  for (int f = 0; f < FP; ++f) Wcol[f] = (active && f < F) ? W[f * K + k] : 0.f;
 
-  const size_t step_f = (size_t)B * F;
-  const size_t step_k = (size_t)B * K;
-  const float* fb = feats + (size_t)b * F;
-  const float* ab = alpha + (size_t)b * K;
-  const float* bb = beta + (size_t)b * K;
-  const float* shb = sh_in + (size_t)b * T;
-
-  // The pair (t_begin - 1, t_begin) is this block's: a_{t-1}, 1 / sum(g_{t-1})
-  // and w_{t-1} are read and recomputed here, nothing is carried across blocks.
-  float a_prev = 0.f, ginv_prev = 0.f, w_prev = 0.f;
-  if (t_begin >= 1) {
-    const size_t o = (size_t)(t_begin - 1) * step_k + k;
-    a_prev = active ? ab[o] : 0.f;
-    const float ws = warp_sum(a_prev * (active ? bb[o] : 0.f));
-    if (lane == 0) red0[warp] = ws;
-    if (GATED) w_prev = w_in[(size_t)(t_begin - 1) * B + b];
+  for (int i = k; i < 2 * S * FP; i += NT) f_s[i / (S * FP)][i % (S * FP)] = 0.f;
+  for (int i = k; i < 2 * S * KMAX; i += NT) e_s[i / (S * KMAX)][i % (S * KMAX)] = 0.f;
+  const size_t step_f = (size_t)B * F;  // feats stride of one time step
+  const size_t step_k = (size_t)B * K;  // beta stride of one time step
+  const float* fb = feats + (size_t)b0 * F;
+  float* bb = beta + (size_t)b0 * K + k;
+  FeatRows<S, FP> rows(k, ns, F);
+  __syncthreads();  // the zeroed slots before the rows land in them
+  rows.load(fb + (size_t)(T - 1) * step_f);
+  rows.store(f_s[(T - 1) & 1]);
+  if (T > 1) {
+    rows.load(fb + (size_t)(T - 2) * step_f);
+    rows.store(f_s[(T - 2) & 1]);
   }
-  if (k < F) f_s[t_begin % 3][k] = fb[(size_t)t_begin * step_f + k];
-  __syncthreads();  // red0 and f_{t_begin} are complete
-  if (t_begin >= 1) {
-    float g = red0[0];
+  if (T > 2) rows.load(fb + (size_t)(T - 3) * step_f);  // f_{T-3}, stored in step T-1
+  __syncthreads();
+
+  float ll[S];   // ll_{t-1} in the loop
+  float lik[S];  // lik_t
+  float b[S];    // b_t
+  float sm[S], mx[S];
+
+  // step T-1 (b_{T-1} = 1, lik_{T-1}), then ll_{T-2}; the loop runs the steps
+  // t <= T-1, each forming b_{t-1}, so that the matvec and the next ll are
+  // both live in every iteration
 #pragma unroll
-    for (int w = 1; w < NWARP; ++w) g += red0[w];
-    ginv_prev = 1.f / fmaxf(g, SUM_FLOOR);
+  for (int s = 0; s < S; ++s) ll[s] = 0.f;
+#pragma unroll
+  for (int f4 = 0; f4 < FP / 4; ++f4) {
+    float4 y[S];
+    ld4s<S>(y, f_s[(T - 1) & 1] + 4 * f4, FP);
+    fma4<S>(ll, y, Wcol[4 * f4], Wcol[4 * f4 + 1], Wcol[4 * f4 + 2], Wcol[4 * f4 + 3]);
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s) mx[s] = active ? ll[s] : -INFINITY;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) mx[s] = fmaxf(mx[s], __shfl_xor_sync(fbseq::FULL, mx[s], o));
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) red_max[(T - 1) & 1][warp * S + s] = mx[s];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const float m = block_max<S>(red_max[(T - 1) & 1], s);
+    lik[s] = active ? expf(ll[s] - m) : 0.f;
+    b[s] = active ? 1.f : 0.f;
+    if (active && s < ns) bb[(size_t)(T - 1) * step_k + (size_t)s * K] = b[s];
+    ll[s] = 0.f;
+  }
+#pragma unroll
+  for (int f4 = 0; f4 < FP / 4; ++f4) {  // ll_{T-2} (a stale row when T = 1: unused)
+    float4 y[S];
+    ld4s<S>(y, f_s[(T - 2) & 1] + 4 * f4, FP);
+    fma4<S>(ll, y, Wcol[4 * f4], Wcol[4 * f4 + 1], Wcol[4 * f4 + 2], Wcol[4 * f4 + 3]);
   }
 
-  float a_cur = active ? ab[(size_t)t_begin * step_k + k] : 0.f;  // a_t
-  float b_cur = active ? bb[(size_t)t_begin * step_k + k] : 0.f;  // b_t
-  float sh_cur = shb[t_begin];
-  float w_cur = GATED ? w_in[(size_t)t_begin * B + b] : 1.f;
-
-  for (int t = t_begin; t < t_end; ++t) {
+  for (int t = T - 1; t >= 1; --t) {
     const int p = t & 1;
-    const float* f_t = f_s[t % 3];
-
-    // operands of step t+1, loaded now so their latency hides behind step t
-    float f_n = 0.f, a_n = 0.f, b_n = 0.f, sh_n = 0.f, w_n = 1.f;
-    if (t + 1 < t_end) {
-      if (k < F) f_n = fb[(size_t)(t + 1) * step_f + k];
-      if (active) {
-        a_n = ab[(size_t)(t + 1) * step_k + k];
-        b_n = bb[(size_t)(t + 1) * step_k + k];
-      }
-      sh_n = shb[t + 1];
-      if (GATED) w_n = w_in[(size_t)(t + 1) * B + b];
+    // b_t, lik_t and ll_{t-1} are in registers: store e_t, reduce sum b_t and
+    // max ll_{t-1}, one barrier
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      e_s[p][s * KMAX + k] = pair_e(lik[s], b[s]);
+      sm[s] = b[s];
+      mx[s] = active ? ll[s] : -INFINITY;
     }
-
-    const float ll = ll_dot(f_t, W_s, k, F);
-    const float lik = active ? expf(ll - sh_cur) : 0.f;
-    const float graw = a_cur * b_cur;
-    a_s[p][k] = a_prev;
-    if (t + 1 < t_end && k < F) f_s[(t + 1) % 3][k] = f_n;
-    const float wg = warp_sum(graw);
-    const float wb = warp_sum(b_cur);
+    warp_sums_maxes<S>(sm, mx);
     if (lane == 0) {
-      red[p][0][warp] = wg;
-      red[p][1][warp] = wb;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        red_sum[p][warp * S + s] = sm[s];
+        red_max[p ^ 1][warp * S + s] = mx[s];
+      }
     }
-    __syncthreads();  // a_s[p], red[p] and f_{t+1} are complete
+    if (t >= 2) {  // f_{t-2} into f_t's slot; f_{t-3} into registers
+      rows.store(f_s[p]);
+      if (t >= 3) rows.load(fb + (size_t)(t - 3) * step_f);
+    }
+    __syncthreads();  // e_t, f_{t-2} and both partials are complete
 
-    float gs = red[p][0][0], bs = red[p][1][0];
+    float scale[S];
 #pragma unroll
-    for (int w = 1; w < NWARP; ++w) {
-      gs += red[p][0][w];
-      bs += red[p][1][w];
+    for (int s = 0; s < S; ++s) {
+      scale[s] = back_scale(block_sum<S>(red_sum[p], s));
+      const float m = block_max<S>(red_max[p ^ 1], s);  // sh_{t-1}
+      lik[s] = active ? expf(ll[s] - m) : 0.f;           // lik_{t-1}
     }
-    const float ginv = 1.f / fmaxf(gs, SUM_FLOOR);
-    const float gam = graw * ginv;
-    const float gam_w = GATED ? gam * w_cur : gam;  // the statistics' gamma: kept steps
-    if (active) {
-      if (gamma != nullptr) gamma[((size_t)t * B + b) * K + k] = gam;
-      if (t == 0) gamma0[(size_t)b * K + k] = gam_w;
-    }
-#pragma unroll
-    for (int f = 0; f < FMAX; ++f)
-      if (f < F) eacc[f] = fmaf(gam_w, f_t[f], eacc[f]);
-    if (t >= 1) {
-      const float d = active ? pair_d(lik, b_cur, bs) : 0.f;
-      const float dn = GATED ? (d * ginv_prev) * (w_prev * w_cur) : d * ginv_prev;
-#pragma unroll
-      for (int i = 0; i < KMAX; ++i)
-        if (i < K) acc[i] = fmaf(a_s[p][i], dn, acc[i]);
-    }
-    a_prev = a_cur;
-    ginv_prev = ginv;
-    w_prev = w_cur;
-    a_cur = a_n;
-    b_cur = b_n;
-    sh_cur = sh_n;
-    w_cur = w_n;
-  }
 
-  // this block's row of partials (sequence-major): acc (K, K), then eacc (K, F)
-  if (active) {
-    float* pb = part + ((size_t)b * gridDim.y + blockIdx.y) * (K * K + K * F);
+    // u = A~ e_t (row k, j = 0..KMAX-1 in order) and ll_{t-2} = f_{t-2} . W:
+    // 2S independent fmaf chains in one loop (at t < 2 a stale row: unused)
+    float u[S];
 #pragma unroll
-    for (int i = 0; i < KMAX; ++i)
-      if (i < K) pb[i * K + k] = acc[i];
+    for (int s = 0; s < S; ++s) u[s] = ll[s] = 0.f;
+    const float* ep = e_s[p];  // e_t
+    const float* fp = f_s[p];  // f_{t-2}
 #pragma unroll
-    for (int f = 0; f < FMAX; ++f)
-      if (f < F) pb[K * K + k * F + f] = eacc[f];
+    for (int i4 = 0; i4 < KMAX / 4; ++i4) {
+      float4 x[S];
+      ld4s<S>(x, ep + 4 * i4, KMAX);
+      if (4 * i4 < FP) {
+        float4 y[S];
+        ld4s<S>(y, fp + 4 * i4, FP);
+        fma4<S>(ll, y, Wcol[4 * i4], Wcol[4 * i4 + 1], Wcol[4 * i4 + 2], Wcol[4 * i4 + 3]);
+      }
+      fma4<S>(u, x, Arow[4 * i4], Arow[4 * i4 + 1], Arow[4 * i4 + 2], Arow[4 * i4 + 3]);
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      b[s] = active ? u[s] * scale[s] : 0.f;  // b_{t-1}
+      if (active && s < ns) bb[(size_t)(t - 1) * step_k + (size_t)s * K] = b[s];
+    }
   }
 }
 
+template <int S, int FP>
+__global__ void __launch_bounds__(NT)
+duplex_chain_kernel(const float* __restrict__ pi, const float* __restrict__ A,
+                    const float* __restrict__ W, const float* __restrict__ feats,
+                    float* __restrict__ alpha, float* __restrict__ s_out,
+                    float* __restrict__ sh_out, float* __restrict__ beta, int T, int B, int K,
+                    int F) {
+  if (blockIdx.y == 0)
+    fbseq::seq_forward<S, FP>(pi, A, W, feats, alpha, s_out, sh_out, T, B, K, F, blockIdx.x);
+  else
+    seq_backward<S, FP>(A, W, feats, beta, T, B, K, F, blockIdx.x);
+}
+
 // The large-K chain: blockIdx.y = 0 runs the forward (the fused forward's
-// wide_forward), 1 the raw backward b_{t-1} = A~ d_t, one thread a state, on
-// A~^T rows in registers and shared memory (fb_wide.cuh).
+// wide_forward), 1 the raw backward b_{t-1} = (A~ e_t) / sum_k b_t, one
+// thread a state, on A~^T rows in registers and shared memory (fb_wide.cuh).
 template <int KP>
 __global__ void __launch_bounds__(KP)
 duplex_chain_wide_kernel(const float* __restrict__ pi, const float* __restrict__ A,
@@ -353,7 +292,7 @@ duplex_chain_wide_kernel(const float* __restrict__ pi, const float* __restrict__
   }
   using TT = fbw::Tier<KP>;
   float* M_s = smem;                 // A~^T rows RR..KP-1
-  float* v_s = M_s + TT::SR * KP;    // d_t in slot t & 1
+  float* v_s = M_s + TT::SR * KP;    // e_t in slot t & 1
   float* f_s = v_s + 2 * KP;         // f_t in slot t & 1
   float* red_max = f_s + 2 * FMAX;   // [t & 1][warp]
   float* red_sum = red_max + 2 * TT::NWARP;
@@ -386,97 +325,369 @@ duplex_chain_wide_kernel(const float* __restrict__ pi, const float* __restrict__
     __syncthreads();  // f_t is read; the maxima and sums are complete
 
     const float m = fbw::block_max<TT::NWARP>(red_max + p * TT::NWARP);
-    const float bs = fbw::block_sum<TT::NWARP>(red_sum + p * TT::NWARP);
-    v_s[p * KP + k] = active ? pair_d(expf(ll - m), bt, bs) : 0.f;
-    __syncthreads();  // d_t is complete
+    const float scale = back_scale(fbw::block_sum<TT::NWARP>(red_sum + p * TT::NWARP));
+    v_s[p * KP + k] = active ? pair_e(expf(ll - m), bt) : 0.f;
+    __syncthreads();  // e_t is complete
 
-    const float bn = col.dot(v_s + p * KP, M_s, k);  // sum_j A~[k][j] d_t[j]
+    const float bn = col.dot(v_s + p * KP, M_s, k) * scale;  // sum_j A~[k][j] e_t[j] / sum b_t
     bt = active ? bn : 0.f;
     if (active) bb[(size_t)(t - 1) * step_k + k] = bt;
   }
 }
 
-// The large-K combine: duplex_combine_kernel's math, one thread a state of a
-// (sequence, chunk) block over the window t0 <= t < t1 (chunks from t0),
-// the statistics' operands written out: dn_t = d_t ginv_{t-1} pg_t (t >= 1)
-// and gw_t = w_t gamma_t, (t1 - t0, B, K) each from t0.
-template <int KP, bool GATED>
-__global__ void __launch_bounds__(KP)
-duplex_combine_wide_kernel(const float* __restrict__ W, const float* __restrict__ feats,
-                           const float* __restrict__ alpha, const float* __restrict__ beta,
-                           const float* __restrict__ sh_in, const float* __restrict__ w_in,
-                           float* __restrict__ gamma, float* __restrict__ gamma0,
-                           float* __restrict__ dn_out, float* __restrict__ gw_out, int T, int B,
-                           int K, int F, int chunk, int t0, int t1) {
-  constexpr int NW = fbw::Tier<KP>::NWARP;
-  __shared__ __align__(16) float f_s[2][FMAX];  // f_t in slot t & 1
-  __shared__ float red[2][2][NW];               // [t & 1][sum of g_t, sum of b_t][warp]
-  __shared__ float red0[NW];                    // sum of g at the chunk's first t - 1
+// ----------------------------------------------------------------- combine
 
-  const int b = blockIdx.x;
-  const int t_begin = t0 + blockIdx.y * chunk;
-  const int t_end = min(t1, t_begin + chunk);
-  const int k = threadIdx.x;
-  const int lane = k & 31, warp = k >> 5;
-  const bool active = k < K;
-  fbw::WCol wc;
-  wc.load(W, K, F, k);
-  const size_t step_f = (size_t)B * F, step_k = (size_t)B * K;
-  const float* fb = feats + (size_t)b * F;
-  const float* ab = alpha + (size_t)b * K;
-  const float* bb = beta + (size_t)b * K;
-  const float* shb = sh_in + (size_t)b * T;
-  if (k < 2 * FMAX) f_s[k / FMAX][k % FMAX] = 0.f;
-  __syncthreads();
+constexpr int CNT = 256;           // threads of a combine block
+constexpr int CW = CNT / 32;       // its warps: the block's sequences, one a warp
+constexpr int CTT = 8;             // time steps a stage of the K <= 64 combine
+constexpr int COMBINE_BLOCKS = 264;  // the most blocks a combine launch aims at (2 an SM
+                                     // x 132 SMs, one wave on the H100; a constant, so
+                                     // the chunks do not depend on the card)
 
-  float ginv_prev = 0.f, w_prev = 0.f;
-  if (t_begin >= 1) {
-    const size_t o = (size_t)(t_begin - 1) * step_k + k;
-    const float ws = warp_sum(active ? ab[o] * bb[o] : 0.f);
-    if (lane == 0) red0[warp] = ws;
-    if (GATED) w_prev = w_in[(size_t)(t_begin - 1) * B + b];
-  }
-  if (k < F) f_s[t_begin & 1][k] = fb[(size_t)t_begin * step_f + k];
-  __syncthreads();  // red0 and f_{t_begin} are complete
-  if (t_begin >= 1) ginv_prev = 1.f / fmaxf(fbw::block_sum<NW>(red0), SUM_FLOOR);
+// The combine's shared memory in floats: W's columns as rows of FP + 4
+// floats (conflict-free float4 reads by state), then, K <= 64, a stage's
+// a_{t-1} rows (CTT + 1 slots), dn and gw rows and feature rows, [slot][warp]
+// each; above, two feature rows a warp.
+template <int KP, int FP>
+constexpr int combine_smem_floats() {
+  return KP * (FP + 4) + (KP == KMAX ? (CTT + 1) * CW * KMAX + 2 * CTT * CW * KMAX + CTT * CW * FP
+                                     : CW * 2 * FP);
+}
 
-  float w_cur = GATED ? w_in[(size_t)t_begin * B + b] : 1.f;
-  for (int t = t_begin; t < t_end; ++t) {
-    const int p = t & 1;
-    const float a_cur = active ? ab[(size_t)t * step_k + k] : 0.f;
-    const float b_cur = active ? bb[(size_t)t * step_k + k] : 0.f;
-    const float w_n = (GATED && t + 1 < t_end) ? w_in[(size_t)(t + 1) * B + b] : 1.f;
-    const float ll = wc.ll(f_s[p]);
-    const float lik = active ? expf(ll - shb[t]) : 0.f;
-    const float graw = a_cur * b_cur;
-    const float wg = warp_sum(graw);
-    const float wb = warp_sum(b_cur);
-    if (lane == 0) {
-      red[p][0][warp] = wg;
-      red[p][1][warp] = wb;
+// What a warp reads of two consecutive rows (t, b) and (t + 1, b) of one
+// sequence (valid when okb and t + r < t_end): lane l holds the states
+// l + 32 j of a_t and b_t and the feature floats l + 32 i; a warp loads the
+// next pair while it computes this one, so the loads' latency hides behind
+// the work.
+template <int KP, int FP>
+struct RowLoad {
+  static constexpr int J = KP / 32;
+  static constexpr int FL = (FP + 31) / 32;
+  bool valid[2];
+  float a[2][J], bv[2][J], f[2][FL], sh[2], w[2];
+};
+
+template <int KP, int FP, bool GATED>
+__device__ __forceinline__ void load_rows(RowLoad<KP, FP>& in, const float* __restrict__ feats,
+                                          const float* __restrict__ alpha,
+                                          const float* __restrict__ beta,
+                                          const float* __restrict__ sh_in,
+                                          const float* __restrict__ w_in, int t, int t_end,
+                                          bool okb, int b, int T, int B, int K, int F) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int tr = t + r;
+    const bool valid = okb && tr < t_end;
+    in.valid[r] = valid;
+    const size_t row = ((size_t)tr * B + b) * K;
+#pragma unroll
+    for (int j = 0; j < RowLoad<KP, FP>::J; ++j) {
+      const int k = lane + 32 * j;
+      const bool ok = valid && k < K;
+      in.a[r][j] = ok ? alpha[row + k] : 0.f;
+      in.bv[r][j] = ok ? beta[row + k] : 0.f;
     }
-    if (t + 1 < t_end && k < F) f_s[p ^ 1][k] = fb[(size_t)(t + 1) * step_f + k];
-    __syncthreads();  // f_t is read; the sums and f_{t+1} are complete
+    const float* frow = feats + ((size_t)tr * B + b) * F;
+#pragma unroll
+    for (int i = 0; i < RowLoad<KP, FP>::FL; ++i) {
+      const int f = lane + 32 * i;
+      in.f[r][i] = (valid && f < F) ? frow[f] : 0.f;
+    }
+    in.sh[r] = valid ? sh_in[(size_t)b * T + tr] : 0.f;
+    in.w[r] = GATED ? (valid ? w_in[(size_t)tr * B + b] : 0.f) : 1.f;
+  }
+}
 
-    const float gs = fbw::block_sum<NW>(red[p][0]);
-    const float bs = fbw::block_sum<NW>(red[p][1]);
-    const float ginv = 1.f / fmaxf(gs, SUM_FLOOR);
-    const float gam = graw * ginv;
-    const float gam_w = GATED ? gam * w_cur : gam;  // the statistics' gamma: kept steps
-    const size_t o = ((size_t)t * B + b) * K + k;
-    const size_t ow = ((size_t)(t - t0) * B + b) * K + k;  // in the window
-    if (active) {
-      if (gamma != nullptr) gamma[o] = gam;
-      if (t == 0) gamma0[(size_t)b * K + k] = gam_w;
-      gw_out[ow] = gam_w;
-      if (t >= 1) {
-        const float d = pair_d(lik, b_cur, bs);
-        dn_out[ow] = GATED ? (d * ginv_prev) * (w_prev * w_cur) : d * ginv_prev;
+// One warp's share of the two rows: dn = d_t ginv_{t-1} pg_t (0 at t = 0)
+// and gw = w_t gamma_t, 0 for an invalid row or state.
+template <int KP>
+struct RowPair {
+  static constexpr int J = KP / 32;
+  float dn[2][J];
+  float gw[2][J];
+};
+
+// The sum over a row's states in the chain's order: each group of 32 (a warp
+// of the chain's block) by the butterfly of fbc::warp_sum -- every lane ends
+// with the same bits, float addition being commutative -- then the groups in
+// order. v[n][j] holds lane l's state l + 32 j of the n-th sum.
+template <int N, int J>
+__device__ __forceinline__ void row_sums(float (&v)[N][J], float (&out)[N]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) v[n][j] += __shfl_xor_sync(fbseq::FULL, v[n][j], o);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    float s = v[n][0];
+#pragma unroll
+    for (int j = 1; j < J; ++j) s += v[n][j];
+    out[n] = s;
+  }
+}
+
+// The rows (t, b), (t + 1, b) of `in` by one warp: gamma (when not null) and
+// gamma0 written, dn and gw into `out`. fr[r] is the warp's shared row for
+// f_{t+r} (FP floats, 16-byte aligned), left holding it (zero beyond F).
+// ginv_prev and w_prev carry ginv_{t-1} and w_{t-1} in and ginv_{t+1} and
+// w_{t+1} out.
+template <int KP, int FP, bool GATED>
+__device__ __forceinline__ void row_pair(RowPair<KP>& out, const RowLoad<KP, FP>& in,
+                                         const float* W_s, float* const (&fr)[2],
+                                         float* __restrict__ gamma, float* __restrict__ gamma0,
+                                         int t, int b, int B, int K, float& ginv_prev,
+                                         float& w_prev) {
+  constexpr int J = KP / 32;
+  constexpr int WST = FP + 4;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int i = 0; i < RowLoad<KP, FP>::FL; ++i)
+      if (lane + 32 * i < FP) fr[r][lane + 32 * i] = in.f[r][i];
+  __syncwarp();  // the feature rows are complete
+
+  // ll = f_t . W[:, k], the fmaf chain over f = 0..FP-1 in order
+  float ll[2][J];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int j = 0; j < J; ++j) ll[r][j] = 0.f;
+#pragma unroll
+  for (int f4 = 0; f4 < FP / 4; ++f4) {
+    float4 y[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) y[r] = ld4(fr[r] + 4 * f4);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float4 wv = ld4(W_s + (lane + 32 * j) * WST + 4 * f4);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        ll[r][j] = fmaf(y[r].x, wv.x, ll[r][j]);
+        ll[r][j] = fmaf(y[r].y, wv.y, ll[r][j]);
+        ll[r][j] = fmaf(y[r].z, wv.z, ll[r][j]);
+        ll[r][j] = fmaf(y[r].w, wv.w, ll[r][j]);
+      }
+    }
+  }
+
+  // sum g_t and sum b_t of both rows, in the chain's order
+  float v[4][J], sums[4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      v[r][j] = in.a[r][j] * in.bv[r][j];
+      v[2 + r][j] = in.bv[r][j];
+    }
+  row_sums<4, J>(v, sums);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int tr = t + r;
+    const float ginv = 1.f / fmaxf(sums[r], SUM_FLOOR);
+    const float scale = back_scale(sums[2 + r]);
+    const size_t row = ((size_t)tr * B + b) * K;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int k = lane + 32 * j;
+      const bool ok = in.valid[r] && k < K;
+      const float gam = (in.a[r][j] * in.bv[r][j]) * ginv;
+      const float gw = GATED ? gam * in.w[r] : gam;  // the statistics' gamma: kept steps
+      float dn = 0.f;
+      if (tr >= 1) {
+        const float lik = expf(ll[r][j] - in.sh[r]);
+        const float d = pair_e(lik, in.bv[r][j]) * scale;
+        dn = GATED ? (d * ginv_prev) * (w_prev * in.w[r]) : d * ginv_prev;
+      }
+      out.gw[r][j] = ok ? gw : 0.f;
+      out.dn[r][j] = ok ? dn : 0.f;
+      if (ok) {
+        if (gamma != nullptr) gamma[row + k] = gam;
+        if (tr == 0) gamma0[(size_t)b * K + k] = gw;
       }
     }
     ginv_prev = ginv;
-    w_prev = w_cur;
-    w_cur = w_n;
+    w_prev = in.w[r];
+  }
+}
+
+// ginv_{t-1} and w_{t-1} of sequence b at the row before a chunk's first
+// (t >= 1), and a_{t-1} into a_prev: read and recomputed, nothing is carried
+// across blocks.
+template <int KP, bool GATED>
+__device__ __forceinline__ void halo_row(float (&a_prev)[KP / 32], float& ginv_prev, float& w_prev,
+                                         const float* __restrict__ alpha,
+                                         const float* __restrict__ beta,
+                                         const float* __restrict__ w_in, int t, bool okb, int b,
+                                         int B, int K) {
+  constexpr int J = KP / 32;
+  const int lane = threadIdx.x & 31;
+  const size_t row = ((size_t)t * B + b) * K;
+  float v[1][J], sum[1];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int k = lane + 32 * j;
+    const bool ok = okb && k < K;
+    a_prev[j] = ok ? alpha[row + k] : 0.f;
+    v[0][j] = a_prev[j] * (ok ? beta[row + k] : 0.f);
+  }
+  row_sums<1, J>(v, sum);
+  ginv_prev = 1.f / fmaxf(sum[0], SUM_FLOOR);
+  w_prev = (GATED && okb) ? w_in[(size_t)t * B + b] : 0.f;
+}
+
+// The combine over the rows t0 <= t < t1 of its blocks: block (x, y) takes
+// sequences 8x .. 8x+7 and time steps [t0 + y chunk, t0 + (y + 1) chunk).
+// KP = 64: acc and eacc in-kernel, one row of partials a block in part;
+// KP = 128, 256: dn and gw of the window into dn_out and gw_out, (t1 - t0,
+// B, K) each from t0.
+template <int KP, int FP, bool GATED>
+__global__ void __launch_bounds__(CNT, KP == KMAX ? 2 : 1)
+duplex_combine_kernel(const float* __restrict__ W, const float* __restrict__ feats,
+                      const float* __restrict__ alpha, const float* __restrict__ beta,
+                      const float* __restrict__ sh_in, const float* __restrict__ w_in,
+                      float* __restrict__ gamma, float* __restrict__ gamma0,
+                      float* __restrict__ part, float* __restrict__ dn_out,
+                      float* __restrict__ gw_out, int T, int B, int K, int F, int chunk, int t0,
+                      int t1) {
+  constexpr int J = KP / 32;
+  constexpr int WST = FP + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* W_s = smem;  // W[f][k] at k * WST + f, zero outside (F, K)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.x * CW + warp;
+  const bool okb = b < B;
+  const int t_begin = t0 + blockIdx.y * chunk;
+  const int t_end = min(t1, t_begin + chunk);
+
+  for (int idx = tid; idx < KP * WST; idx += CNT) {
+    const int k = idx / WST, f = idx % WST;
+    W_s[idx] = (k < K && f < F) ? W[f * K + k] : 0.f;
+  }
+  float a_prev[J], ginv_prev = 0.f, w_prev = 0.f;
+#pragma unroll
+  for (int j = 0; j < J; ++j) a_prev[j] = 0.f;
+  if (t_begin >= 1)
+    halo_row<KP, GATED>(a_prev, ginv_prev, w_prev, alpha, beta, w_in, t_begin - 1, okb, b, B, K);
+
+  if constexpr (KP == KMAX) {
+    float* a_s = W_s + KMAX * WST;             // a_{t-1} of stage row i at (i CW + warp) KMAX
+    float* dn_s = a_s + (CTT + 1) * CW * KMAX;  // dn_t at (i CW + warp) KMAX
+    float* gw_s = dn_s + CTT * CW * KMAX;       // gw_t
+    float* f_s = gw_s + CTT * CW * KMAX;        // f_t at (i CW + warp) FP
+    const int ty = tid / 16, tx = tid % 16;
+    constexpr int FC = FP / 16;  // eacc columns a thread: f = tx + 16 c
+    float acc[4][4], eacc[4][FC];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
+#pragma unroll
+      for (int c = 0; c < FC; ++c) eacc[a][c] = 0.f;
+    }
+    __syncthreads();  // W_s is complete
+
+    RowLoad<KP, FP> cur, nxt;
+    load_rows<KP, FP, GATED>(cur, feats, alpha, beta, sh_in, w_in, t_begin, t_end, okb, b, T, B,
+                             K, F);
+    for (int ts = t_begin; ts < t_end; ts += CTT) {
+      // the rows: warp w walks sequence b over the stage's CTT steps
+#pragma unroll
+      for (int j = 0; j < J; ++j) a_s[warp * KMAX + lane + 32 * j] = a_prev[j];
+#pragma unroll
+      for (int i = 0; i < CTT; i += 2) {
+        load_rows<KP, FP, GATED>(nxt, feats, alpha, beta, sh_in, w_in, ts + i + 2, t_end, okb, b,
+                                 T, B, K, F);
+        RowPair<KP> rp;
+        float* const fr[2] = {f_s + (i * CW + warp) * FP, f_s + ((i + 1) * CW + warp) * FP};
+        row_pair<KP, FP, GATED>(rp, cur, W_s, fr, gamma, gamma0, ts + i, b, B, K, ginv_prev,
+                                w_prev);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int o = ((i + r) * CW + warp) * KMAX + lane;
+#pragma unroll
+          for (int j = 0; j < J; ++j) {
+            a_s[o + CW * KMAX + 32 * j] = cur.a[r][j];  // slot i + r + 1
+            dn_s[o + 32 * j] = rp.dn[r][j];
+            gw_s[o + 32 * j] = rp.gw[r][j];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < J; ++j) a_prev[j] = cur.a[1][j];
+        cur = nxt;
+      }
+      __syncthreads();  // the stage's rows are complete
+
+      // acc += a_{t-1} (x) dn_t and eacc += gw_t (x) f_t over the stage's rows
+#pragma unroll 4
+      for (int row = 0; row < CTT * CW; ++row) {
+        const float4 xv = ld4(a_s + row * KMAX + 4 * ty);
+        const float4 yv = ld4(dn_s + row * KMAX + 4 * tx);
+        const float4 gv = ld4(gw_s + row * KMAX + 4 * ty);
+        const float x[4] = {xv.x, xv.y, xv.z, xv.w};
+        const float y[4] = {yv.x, yv.y, yv.z, yv.w};
+        const float g[4] = {gv.x, gv.y, gv.z, gv.w};
+        float fv[FC];
+#pragma unroll
+        for (int c = 0; c < FC; ++c) fv[c] = f_s[row * FP + tx + 16 * c];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(x[a], y[c], acc[a][c]);
+#pragma unroll
+          for (int c = 0; c < FC; ++c) eacc[a][c] = fmaf(g[a], fv[c], eacc[a][c]);
+        }
+      }
+      __syncthreads();  // the stage buffers are free again
+    }
+
+    // this block's row of partials: acc (K, K), then eacc (K, F)
+    float* pb = part + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * (K * K + K * F);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int i = 4 * ty + a;
+      if (i >= K) continue;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (4 * tx + c < K) pb[i * K + 4 * tx + c] = acc[a][c];
+#pragma unroll
+      for (int c = 0; c < FC; ++c)
+        if (tx + 16 * c < F) pb[K * K + i * F + tx + 16 * c] = eacc[a][c];
+    }
+  } else {
+    float* f_s = W_s + KP * WST;  // two feature rows a warp
+    float* const fr[2] = {f_s + (2 * warp) * FP, f_s + (2 * warp + 1) * FP};
+    __syncthreads();  // W_s is complete
+    RowLoad<KP, FP> cur, nxt;
+    load_rows<KP, FP, GATED>(cur, feats, alpha, beta, sh_in, w_in, t_begin, t_end, okb, b, T, B,
+                             K, F);
+    for (int t = t_begin; t < t_end; t += 2) {
+      load_rows<KP, FP, GATED>(nxt, feats, alpha, beta, sh_in, w_in, t + 2, t_end, okb, b, T, B,
+                               K, F);
+      RowPair<KP> rp;
+      row_pair<KP, FP, GATED>(rp, cur, W_s, fr, gamma, gamma0, t, b, B, K, ginv_prev, w_prev);
+      cur = nxt;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (!okb || t + r >= t_end) continue;
+        const size_t ow = ((size_t)(t + r - t0) * B + b) * K;  // in the window
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int k = lane + 32 * j;
+          if (k < K) {
+            gw_out[ow + k] = rp.gw[r][j];
+            if (t + r >= 1) dn_out[ow + k] = rp.dn[r][j];
+          }
+        }
+      }
+      __syncwarp();  // the feature rows are read before the next pair's land
+    }
   }
 }
 
@@ -484,11 +695,14 @@ bool bad_shape(int T, int B, int K, int F) {
   return T < 1 || B < 1 || K < 1 || K > fbw::KWIDE || F < 1 || F > FMAX;
 }
 
-// The combine's time chunk: about 2048 blocks in all, at least 16 steps each
-// (so a short T gives chunks of 16 and a last one that is cut short).
-int combine_chunk(int T, int B) {
-  const int want = (2048 + B - 1) / B;  // chunks per sequence
-  return max(16, (T + want - 1) / want);
+// The time steps a combine block takes of `steps` (a multiple of `mult`): the
+// launch holds at most about COMBINE_BLOCKS blocks of CW sequences (more only
+// where the groups alone outnumber them), whatever the card.
+int combine_chunk(int steps, int B, int mult) {
+  const int groups = (B + CW - 1) / CW;
+  const int want = max(1, COMBINE_BLOCKS / groups);  // chunks a group
+  const int chunk = (steps + want - 1) / want;
+  return (chunk + mult - 1) / mult * mult;
 }
 
 // Floats of scratch the combine takes: K <= KMAX, a row of partials a block;
@@ -496,10 +710,64 @@ int combine_chunk(int T, int B) {
 // (fbs::WideStats).
 long long scratch_floats(int T, int B, int K, int F) {
   if (K <= KMAX) {
-    const int chunk = combine_chunk(T, B);
-    return (long long)B * ((T + chunk - 1) / chunk) * (K * K + K * F);
+    const int chunk = combine_chunk(T, B, CTT);
+    return (long long)((B + CW - 1) / CW) * ((T + chunk - 1) / chunk) * (K * K + K * F);
   }
   return fbs::WideStats::floats(T, B, K, F);
+}
+
+// The chain instance of (S, F): the S-sequence kernel at FP = pad_f(F).
+template <int S>
+const void* chain_fp(int fp) {
+  switch (fp) {
+    case 16: return reinterpret_cast<const void*>(duplex_chain_kernel<S, 16>);
+    case 32: return reinterpret_cast<const void*>(duplex_chain_kernel<S, 32>);
+    case 48: return reinterpret_cast<const void*>(duplex_chain_kernel<S, 48>);
+    default: return reinterpret_cast<const void*>(duplex_chain_kernel<S, 64>);
+  }
+}
+
+const void* chain_of(int S, int F) {
+  switch (S) {
+    case 2: return chain_fp<2>(pad_f(F));
+    case 4: return chain_fp<4>(pad_f(F));
+    default: return nullptr;
+  }
+}
+
+template <bool GATED>
+const void* combine_fp(int fp) {
+  switch (fp) {
+    case 16: return reinterpret_cast<const void*>(duplex_combine_kernel<KMAX, 16, GATED>);
+    case 32: return reinterpret_cast<const void*>(duplex_combine_kernel<KMAX, 32, GATED>);
+    case 48: return reinterpret_cast<const void*>(duplex_combine_kernel<KMAX, 48, GATED>);
+    default: return reinterpret_cast<const void*>(duplex_combine_kernel<KMAX, 64, GATED>);
+  }
+}
+
+template <int FP>
+constexpr int combine_bytes_fp() {
+  return 4 * combine_smem_floats<KMAX, FP>();
+}
+
+// The combine instance of (K, F, gated) and its dynamic shared bytes in
+// *smem: KP = 64 at FP = pad_f(F) up to K = 64, KP = 128 or 256 at FP = FMAX
+// above.
+const void* combine_of(int K, int F, bool gated, int* smem) {
+  if (K <= KMAX) {
+    const int fp = pad_f(F);
+    *smem = fp == 16 ? combine_bytes_fp<16>() : fp == 32 ? combine_bytes_fp<32>()
+          : fp == 48 ? combine_bytes_fp<48>() : combine_bytes_fp<64>();
+    return gated ? combine_fp<true>(fp) : combine_fp<false>(fp);
+  }
+  if (fbw::tier_of(K) == 128) {
+    *smem = 4 * combine_smem_floats<128, FMAX>();
+    return gated ? reinterpret_cast<const void*>(duplex_combine_kernel<128, FMAX, true>)
+                 : reinterpret_cast<const void*>(duplex_combine_kernel<128, FMAX, false>);
+  }
+  *smem = 4 * combine_smem_floats<256, FMAX>();
+  return gated ? reinterpret_cast<const void*>(duplex_combine_kernel<256, FMAX, true>)
+               : reinterpret_cast<const void*>(duplex_combine_kernel<256, FMAX, false>);
 }
 
 }  // namespace
@@ -523,16 +791,17 @@ int duplex_fb_scratch(int T, int B, int K, int F, long long* out) {
 
 // Each launcher returns the launch's CUDA error right after it (0 = ok).
 // Pointers are device pointers of contiguous float32 tensors; the kernels
-// run on `stream` and do not synchronise.
+// run on `stream` and do not synchronise. S is the sequences a block of the
+// chain (2 or 4; any other is refused) up to K = 64, and unused above.
 int duplex_fb_chain(const float* pi, const float* A, const float* W, const float* feats,
                     float* alpha, float* s, float* sh, float* beta, int T, int B, int K,
-                    int F, int device, void* stream) {
+                    int F, int S, int device, void* stream) {
   if (bad_shape(T, B, K, F)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  void* args[] = {&pi, &A, &W, &feats, &alpha, &s, &sh, &beta, &T, &B, &K, &F};
   if (K > KMAX) {
-    void* args[] = {&pi, &A, &W, &feats, &alpha, &s, &sh, &beta, &T, &B, &K, &F};
     return static_cast<int>(
         fbw::tier_of(K) == 128
             ? fbw::launch_dyn(reinterpret_cast<const void*>(duplex_chain_wide_kernel<128>),
@@ -540,56 +809,77 @@ int duplex_fb_chain(const float* pi, const float* A, const float* W, const float
             : fbw::launch_dyn(reinterpret_cast<const void*>(duplex_chain_wide_kernel<256>),
                               dim3(B, 2), 256, fbw::chain_smem_bytes<256>(), st, args));
   }
-  duplex_chain_kernel<<<B, CHAIN_NT, 0, st>>>(pi, A, W, feats, alpha, s, sh, beta, T, B, K, F);
-  return static_cast<int>(cudaGetLastError());
+  const void* fn = chain_of(S, F);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  e = cudaLaunchKernel(fn, dim3((B + S - 1) / S, 2), dim3(NT), args, 0, st);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// w is null for the ungated launch, else the (T, B) kept-mask. A block takes
-// combine_chunk(T, B) time steps. stats receives acc (K, K) and then eacc
-// (K, F), summed in a fixed order (fb_stats.cuh); scratch holds
-// duplex_fb_scratch floats. Above K = 64 the combine runs a window of time
-// steps a launch (fbs::WideStats), its blocks' chunks cut to the window.
+// w is null for the ungated launch, else the (T, B) kept-mask. stats
+// receives acc (K, K) and then eacc (K, F), summed in a fixed order
+// (fb_stats.cuh); scratch holds duplex_fb_scratch floats. Above K = 64 the
+// combine runs a window of time steps a launch (fbs::WideStats), its
+// blocks' chunks cut from the window.
 int duplex_fb_combine(const float* W, const float* feats, const float* alpha,
                       const float* beta, const float* sh, const float* w, float* gamma,
                       float* gamma0, float* stats, float* scratch, int T, int B, int K, int F,
                       int device, void* stream) {
   if (bad_shape(T, B, K, F)) return static_cast<int>(cudaErrorInvalidValue);
-  int chunk = combine_chunk(T, B);
-  const int nchunks = (T + chunk - 1) / chunk;
-  if (nchunks > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(B, nchunks);
+  int smem = 0;
+  const void* fn = combine_of(K, F, w != nullptr, &smem);
+  const int groups = (B + CW - 1) / CW;
   if (K <= KMAX) {
-    if (w != nullptr)
-      duplex_combine_kernel<true><<<grid, NT, 0, st>>>(W, feats, alpha, beta, sh, w, gamma,
-                                                       gamma0, scratch, T, B, K, F, chunk);
-    else
-      duplex_combine_kernel<false><<<grid, NT, 0, st>>>(W, feats, alpha, beta, sh, w, gamma,
-                                                        gamma0, scratch, T, B, K, F, chunk);
-    e = cudaGetLastError();
+    int chunk = combine_chunk(T, B, CTT), t0 = 0, t1 = T;
+    const int nchunks = (T + chunk - 1) / chunk;
+    float *dn = nullptr, *gw = nullptr;
+    void* args[] = {&W,  &feats, &alpha, &beta, &sh,    &w,  &gamma, &gamma0, &scratch,
+                    &dn, &gw,    &T,     &B,    &K,     &F,  &chunk, &t0,     &t1};
+    e = fbw::launch_dyn(fn, dim3(groups, nchunks), CNT, smem, st, args);
     if (e != cudaSuccess) return static_cast<int>(e);
-    return static_cast<int>(
-        fbs::sum_partials(scratch, B * nchunks, K * K + K * F, stats, st));
+    return static_cast<int>(fbs::sum_partials(scratch, groups * nchunks, K * K + K * F, stats, st));
   }
   const fbs::WideStats ws(scratch, T, B, K, F);
-  float *dn = ws.dn, *gw = ws.gw;
-  if (chunk > ws.steps) chunk = ws.steps;
-  const int kp = fbw::tier_of(K);
-  const void* fn =
-      kp == 128
-          ? (w != nullptr ? reinterpret_cast<const void*>(duplex_combine_wide_kernel<128, true>)
-                          : reinterpret_cast<const void*>(duplex_combine_wide_kernel<128, false>))
-          : (w != nullptr ? reinterpret_cast<const void*>(duplex_combine_wide_kernel<256, true>)
-                          : reinterpret_cast<const void*>(duplex_combine_wide_kernel<256, false>));
+  float *dn = ws.dn, *gw = ws.gw, *part = nullptr;
+  int chunk = combine_chunk(ws.steps, B, 2);
   return static_cast<int>(ws.run(alpha, feats, stats, st, [&](int t0, int t1) {
-    void* args[] = {&W, &feats, &alpha, &beta, &sh, &w, &gamma, &gamma0, &dn, &gw,
-                    &T, &B,     &K,     &F,    &chunk, &t0, &t1};
-    const cudaError_t el =
-        cudaLaunchKernel(fn, dim3(B, (t1 - t0 + chunk - 1) / chunk), dim3(kp), args, 0, st);
-    return el != cudaSuccess ? el : cudaGetLastError();
+    void* args[] = {&W,  &feats, &alpha, &beta, &sh, &w, &gamma, &gamma0, &part,
+                    &dn, &gw,    &T,     &B,    &K,  &F, &chunk, &t0,     &t1};
+    return fbw::launch_dyn(fn, dim3(groups, (t1 - t0 + chunk - 1) / chunk), CNT, smem, st, args);
   }));
+}
+
+// What the instance (which, S, F) of the launchers above takes on `device`
+// (K <= 64): out[0] registers a thread, out[1] static and out[2] dynamic
+// shared bytes a block, out[3] local (spilled) bytes a thread, out[4]
+// resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// out[5] the device's SMs, out[6] threads a block. which = 0 the chain (S
+// sequences a block), 1 the combine, 2 the gated combine (S unused).
+int duplex_fb_kernel_info(int which, int S, int F, int device, int* out) {
+  if (F < 1 || F > FMAX || which < 0 || which > 2) return static_cast<int>(cudaErrorInvalidValue);
+  int smem = 0;
+  const void* fn = which == 0 ? chain_of(S, F) : combine_of(KMAX, F, which == 2, &smem);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int nt = which == 0 ? NT : CNT;
+  cudaError_t e = cudaSetDevice(device);
+  if (e == cudaSuccess && smem > 0)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
+  int blocks = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, nt, smem);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.sharedSizeBytes);
+  out[2] = smem;
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  out[4] = blocks;
+  out[5] = sms;
+  out[6] = nt;
+  return 0;
 }
 
 }  // extern "C"

@@ -8,18 +8,26 @@ Kernels (``csrc/duplex_fb.cu``; the source notes what bounds them):
   per sequence, the fused forward's recursion (raw alpha, its per-step sums
   s, the max shifts sh) and, independently, the raw backward messages
 
-      b_{T-1} = 1,   d_t = lik_t * b_t / sum_k b_t,   b_{t-1} = A~ d_t
+      b_{T-1} = 1,   b_{t-1} = (A~ (lik_t * b_t)) / sum_k b_t
 
-  (normalisation deferred, pallas_duplex.py:146-167), with
-  lik_t = exp(ll_t - max_k ll_t) and ll_t = f_t @ W in-kernel.
+  (normalisation deferred, pallas_duplex.py:146-167; the scale applied
+  after the product, as the forward applies 1 / s_{t-1}), with
+  lik_t = exp(ll_t - max_k ll_t) and ll_t = f_t @ W in-kernel. Up to
+  K = 64 a block carries S sequences (the fused forward's layout, one
+  block a direction): :func:`default_seqs` picks S from the card's
+  occupancy so that the 2 ceil(B / S) blocks run in one wave where they
+  can.
 * ``duplex_combine_kernel`` replaces ``_combine_kernel``
   (pallas_duplex.py:175): with no chain at all, gamma_t = a_t b_t / sum,
   the pairwise accumulator sum_t outer(a_{t-1}, d_t pg_t / sum(a_{t-1}
-  b_{t-1})) (the scale-cancelling identity of pallas_duplex.py:19-29) and
-  the emission accumulator sum_t outer(w_t gamma_t, f_t). Gated by an SVI
-  kept-mask w (T, B) when ``weights`` is given; the pair gate
-  pg_t = w_{t-1} w_t (pg_0 = 0) is formed in the kernel from w, and the
-  gates touch the statistics only.
+  b_{t-1})) with d_t = lik_t b_t / sum_k b_t (the scale-cancelling identity
+  of pallas_duplex.py:19-29) and the emission accumulator
+  sum_t outer(w_t gamma_t, f_t). A block takes a tile of 8 sequences by a
+  chunk of time steps, a warp a sequence's rows; up to K = 64 the tile's
+  rows are added into acc and eacc as register-blocked outer products.
+  Gated by an SVI kept-mask w (T, B) when ``weights`` is given; the pair
+  gate pg_t = w_{t-1} w_t (pg_0 = 0) is formed in the kernel from w, and
+  the gates touch the statistics only.
 
 Each kernel has a launcher (:func:`duplex_chain`, :func:`duplex_combine`)
 with a launch counter and a plain PyTorch twin
@@ -33,10 +41,13 @@ launchers and :func:`estep_duplex_reference` the twins, with the contract of
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from ._launch import bind, check, device_index, ptr, raise_on, runs_plain_twin, scratch, stream
-from .fused_fb import assemble
+from .fused_fb import SEQS, assemble, seqs_per_block
 from .scan_fb import FBResult
 from .split_fb import SUM_FLOOR, exp_params
 
@@ -49,9 +60,10 @@ def _library():
 
     return bind(
         load_library(_LIB),
-        {"duplex_fb_chain": "pppppppp" "iiiii" "p",
+        {"duplex_fb_chain": "pppppppp" "iiiiii" "p",
          "duplex_fb_combine": "pppppppppp" "iiiii" "p",
          "duplex_fb_scratch": "iiiip",
+         "duplex_fb_kernel_info": "iiiip",
          "duplex_fb_kmax": "",
          "duplex_fb_fmax": ""},
         "duplex_fb_error_string",
@@ -66,6 +78,44 @@ def _check_kernel_limits(K: int, F: int) -> None:
         raise NotImplementedError(
             f"the duplex CUDA kernels take K <= {kmax} and F <= {fmax}, got K={K}, F={F}"
         )
+
+
+_KERNELS = {"chain": 0, "combine": 1, "gated combine": 2}
+
+
+def kernel_info(kernel: str, S: int, F: int, device: torch.device | None = None) -> dict:
+    """What one K <= 64 instance takes on the card, from the library:
+    ``kernel`` is "chain", "combine" or "gated combine", S the chain's
+    sequences a block (unused for the combine) and F the feature width (the
+    instance is built for F padded to 16, 32, 48 or 64). Returns registers
+    (a thread), static_smem and dynamic_smem (bytes a block), local_bytes
+    (spills, a thread), blocks_per_sm (resident, by the CUDA occupancy
+    calculator), sms (the card's) and threads (a block)."""
+    dev = device if device is not None else torch.device("cuda")
+    return dict(_kernel_info(kernel, S, F, device_index(dev)))
+
+
+@functools.cache
+def _kernel_info(kernel: str, S: int, F: int, index: int) -> tuple:
+    out = (ctypes.c_int * 7)()
+    lib = _library()
+    code = lib.duplex_fb_kernel_info(_KERNELS[kernel], S, F, index, ctypes.addressof(out))
+    raise_on(lib.duplex_fb_error_string, code, f"duplex_fb_kernel_info({kernel}, S={S}, F={F})")
+    keys = ("registers", "static_smem", "dynamic_smem", "local_bytes", "blocks_per_sm", "sms",
+            "threads")
+    return tuple(zip(keys, list(out)))
+
+
+def default_seqs(B: int, F: int, device: torch.device) -> int:
+    """The chain launcher's S: ``fused_fb.seqs_per_block`` on the card's own
+    occupancy, with 2 blocks (a forward and a backward) a group of S."""
+    return _default_seqs(B, F, device_index(device))
+
+
+@functools.cache
+def _default_seqs(B: int, F: int, index: int) -> int:
+    info = {S: dict(_kernel_info("chain", S, F, index)) for S in SEQS}
+    return seqs_per_block(B, {S: i["blocks_per_sm"] * i["sms"] for S, i in info.items()}, 2)
 
 
 def _inv_sum(x: torch.Tensor) -> torch.Tensor:
@@ -84,8 +134,9 @@ def duplex_chain_reference(
     pi_t (K,), A_t (K, K) the exponentiated params; W (F, K); feats
     (T, B, F). Returns (alpha (T, B, K) raw forward messages, s (B, T) their
     per-step sums, sh (B, T) the max shifts, beta (T, B, K) raw backward
-    messages). Step j advances the forward to t = j and the backward to
-    t = T-1-j, as the TPU kernel interleaves them."""
+    messages, b_{t-1} = (A~ (lik_t b_t)) / sum_k b_t). Step j advances the
+    forward to t = j and the backward to t = T-1-j, as the TPU kernel
+    interleaves them."""
     ll = feats @ W
     T = ll.shape[0]
     sh = ll.amax(dim=-1)  # (T, B)
@@ -97,8 +148,8 @@ def duplex_chain_reference(
     for j in range(1, T):
         a = (a @ A_t) * (lik[j] * _inv_sum(alpha[j - 1]))
         alpha[j] = a
-        t = T - j  # the backward's step: d_t builds b_{t-1}
-        b = ((lik[t] * _inv_sum(b)) * b) @ A_t.T
+        t = T - j  # the backward's step: lik_t b_t builds b_{t-1}
+        b = ((lik[t] * b) @ A_t.T) * _inv_sum(b)
         beta[t - 1] = b
     return alpha, alpha.sum(dim=-1).T.contiguous(), sh.T.contiguous(), beta
 
@@ -110,6 +161,12 @@ def duplex_chain(
 
     Inputs are float32 and contiguous on one device. CPU tensors run the
     plain twin; CUDA tensors launch ``duplex_chain_kernel`` or raise."""
+    return _launch_chain(None, pi_t, A_t, W, feats)
+
+
+def _launch_chain(S: int | None, pi_t, A_t, W, feats):
+    """:func:`duplex_chain` with S sequences a block (one of SEQS; None for
+    :func:`default_seqs`): the card tests and chip_smoke.py's sweeps of S."""
     T, B, F = feats.shape
     K = A_t.shape[0]
     dev = feats.device
@@ -120,13 +177,16 @@ def duplex_chain(
         return duplex_chain_reference(pi_t, A_t, W, feats)
     _check_kernel_limits(K, F)
     lib = _library()
+    index = device_index(dev)
+    if S is None:  # unused above K = 64 (the large-K chain: a sequence a block)
+        S = _default_seqs(B, F, index) if K <= 64 else SEQS[0]
     alpha = torch.empty((T, B, K), dtype=torch.float32, device=dev)
     beta = torch.empty((T, B, K), dtype=torch.float32, device=dev)
     s = torch.empty((B, T), dtype=torch.float32, device=dev)
     sh = torch.empty((B, T), dtype=torch.float32, device=dev)
     code = lib.duplex_fb_chain(
         ptr(pi_t), ptr(A_t), ptr(W), ptr(feats), ptr(alpha), ptr(s), ptr(sh), ptr(beta),
-        T, B, K, F, device_index(dev), stream(dev),
+        T, B, K, F, S, index, stream(dev),
     )
     duplex_chain.launches += 1
     raise_on(lib.duplex_fb_error_string, code, "duplex_chain_kernel")
@@ -161,7 +221,7 @@ def duplex_combine_reference(
     g = alpha * beta
     ginv = _inv_sum(g)  # (T, B, 1)
     gamma = g * ginv
-    d = (lik * _inv_sum(beta)) * beta
+    d = (lik * beta) * _inv_sum(beta)
     dn = d[1:] * ginv[:-1]
     if weights is None:
         gamma_w = gamma
@@ -186,10 +246,12 @@ def duplex_combine(
 
     CPU tensors run the plain twin; CUDA tensors launch
     ``duplex_combine_kernel`` (gated when ``weights`` is given) or raise.
-    Each block takes a chunk of time steps (16 or more); above K = 64 the
-    large-K instances run. acc and eacc are summed across blocks in an order
-    fixed by the shapes (csrc/fb_stats.cuh), so repeated calls on one card
-    give the same bits. Above K = 64 the launch takes a scratch of
+    Each block takes 8 sequences by a chunk of time steps, the chunks cut
+    so that a launch holds at most about 264 blocks (more only where
+    ceil(B / 8) exceeds that); above K = 64 the instances at 128 or 256
+    padded states run. acc and eacc are summed across blocks in
+    an order fixed by the shapes (csrc/fb_stats.cuh), so repeated calls on
+    one card give the same bits. Above K = 64 the launch takes a scratch of
     2 min(T B, max(B, 2^17)) K floats beside the sums' partials, whatever T:
     about 0.28 GB at B = 1024, K = 256, F = 45 (the statistics a window of
     time steps a launch)."""

@@ -89,19 +89,21 @@ def _check_kernel_limits(K: int, F: int) -> None:
 SEQS = (2, 4)
 
 
-def seqs_per_block(B: int, resident: dict[int, int]) -> int:
+def seqs_per_block(B: int, resident: dict[int, int], per_group: int = 1) -> int:
     """Sequences a block S for a batch of B, given ``resident[S]``, the blocks
-    of the S instance the card holds at once (blocks an SM times SMs).
+    of the S instance the card holds at once (blocks an SM times SMs), and
+    the blocks a group of S sequences takes (2 for the duplex chain: a
+    forward and a backward block).
 
-    The smallest S whose ceil(B / S) blocks run in one wave, and the largest
-    when none does. Measured on the H100 (PERF.md): S = 2 is the fastest for
+    The smallest S whose per_group ceil(B / S) blocks run in one wave, and
+    the largest when none does. Measured on the H100 (PERF.md): S = 2 is the fastest for
     both kernels at B = 32, 256 and 1024 (two sequences a thread fill the
     FMA pipe's latency, and the backward shares each A~ and W word it reads
     between them); S = 4 at B = 2048, where S = 2 needs a second wave, and
     for the backward at B = 4096. S = 1 lost to S = 2 at every B it was
     timed at, and S = 8 everywhere (the backward spills): neither is built."""
     for S in SEQS:
-        if -(-B // S) <= resident[S]:
+        if per_group * -(-B // S) <= resident[S]:
             return S
     return SEQS[-1]
 

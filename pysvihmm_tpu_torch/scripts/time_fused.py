@@ -24,6 +24,7 @@ Without a card it raises.
 
 from __future__ import annotations
 
+import hashlib
 import statistics
 import subprocess
 import sys
@@ -89,10 +90,19 @@ def profile_call(name: str, fn) -> None:
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
             t = getattr(e, "self_device_time_total", None)
             t = t if t is not None else e.self_cuda_time_total
-            parts.append((t, e.count, e.key.split("(")[0].replace("(anonymous namespace)::", "")))
+            parts.append((t, e.count, e.key.replace("(anonymous namespace)::", "").split("(")[0]))
     total = sum(t for t, _, _ in parts)
     print(f"{name}, one call, device {total / 1e3:.3f} ms: " + "; ".join(
         f"{key} {t / 1e3:.3f} ms x{n}" for t, n, key in sorted(parts, reverse=True)), flush=True)
+
+
+def digest(*xs: torch.Tensor) -> str:
+    """sha256 of the tensors' bytes, in order: two checkouts' outputs on the
+    same inputs compare bit for bit by their digests."""
+    h = hashlib.sha256()
+    for x in xs:
+        h.update(x.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def svi_steps(dev: torch.device, reps: int) -> None:
@@ -125,7 +135,8 @@ def main(argv: list[str]) -> int:
     pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
     alpha, s, sh = fused_fb.fused_forward(pi_t, A_t, W, feats)
     print(f"package {pysvihmm_tpu_torch.__file__}; (B, T, K, F) = ({B}, {T}, {k}, "
-          f"{feats.shape[-1]})", flush=True)
+          f"{feats.shape[-1]}); fused_fwd_kernel's alpha, s, sh: sha256 {digest(alpha, s, sh)}",
+          flush=True)
     runs = {
         "fused_fwd_kernel": lambda: fused_fb.fused_forward(pi_t, A_t, W, feats),
         "fused_bwd_kernel": lambda: fused_fb.fused_backward(A_t, W, feats, alpha, s, sh),

@@ -112,15 +112,66 @@ def test_fused_block_layout_matches_twins(cuda_device, B, T, K, F):
                     assert torch.equal(got[0], first[key][0])
 
 
+@pytest.mark.parametrize("B", [1, 3, 32, 1024, 2048])
 @pytest.mark.parametrize("K", [33, 64])
-def test_duplex_chain_is_the_fused_forward_bit_for_bit(cuda_device, K):
-    gen = torch.Generator(device=cuda_device).manual_seed(300 + K)
-    log_pi, log_A, W, feats = random_problem(gen, 37, 40, K, 8)
+def test_duplex_chain_is_the_fused_forward_bit_for_bit(cuda_device, B, K):
+    """The chain at every built S (sequences a block; B = 1 and 3 leave the
+    last block short, 2048 takes more than a wave) gives the fused forward's
+    alpha, s and sh bit for bit, and its beta agrees with the twin's; every
+    S gives the same beta bits (each sequence's arithmetic does not depend
+    on S)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(300 + K + B)
+    log_pi, log_A, W, feats = random_problem(gen, B, 40, K, 8)
     pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
-    alpha, s, sh, _ = duplex_fb.duplex_chain(pi_t, A_t, W, feats)
+    ref_beta = duplex_fb.duplex_chain_reference(pi_t, A_t, W, feats)[3]
+    first = duplex_fb.duplex_chain(pi_t, A_t, W, feats)
     for S in fused_fb.SEQS:
+        alpha, s, sh, beta = duplex_fb._launch_chain(S, pi_t, A_t, W, feats)
         for x, r in zip((alpha, s, sh), fused_fb._launch_forward(S, pi_t, A_t, W, feats)):
             assert torch.equal(x, r)
+        assert torch.equal(beta, first[3])
+        torch.testing.assert_close(beta, ref_beta, rtol=0, atol=5e-5)
+
+
+@pytest.mark.parametrize("B,T,K", [(1, 1, 64), (3, 1, 8), (13, 19, 64), (9, 23, 33), (7, 9, 128),
+                                   (1000, 300, 256), (2048, 150, 256)])
+@pytest.mark.parametrize("gated", [False, True])
+def test_duplex_combine_tile_edges(cuda_device, B, T, K, gated):
+    """The combine against its twin at the edges of its tiles (8 sequences
+    by chunks of time steps, stages of 8 steps up to K = 64): T = 1, T and B
+    not multiples of 8, and at K = 256 windows of the large-K statistics
+    whose edges fall inside a block's chunk (131 steps at B = 1000, 64 at
+    2048); emit_gamma both ways."""
+    gen = torch.Generator(device=cuda_device).manual_seed(600 + B + T + K)
+    log_pi, log_A, W, feats = random_problem(gen, B, T, K, 3)
+    w = svi_masks(gen, B, T, max(1, (3 * T) // 4)) if gated else None
+    pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+    a, s, sh, beta = duplex_fb.duplex_chain_reference(pi_t, A_t, W, feats)
+    for emit in (True, False):
+        before = duplex_fb.duplex_combine.launches
+        got = duplex_fb.duplex_combine(W, feats, a, beta, sh, emit, w)
+        torch.cuda.synchronize()
+        assert duplex_fb.duplex_combine.launches == before + 1
+        ref = duplex_fb.duplex_combine_reference(W, feats, a, beta, sh, emit, w)
+        if emit:
+            torch.testing.assert_close(got[0], ref[0], rtol=0, atol=5e-5)
+        else:
+            assert got[0] is None
+        for x, r, rtol, atol in zip(got[1:], ref[1:], (0, 1e-4, 3e-3), (5e-5, 1e-3, 2e-3)):
+            torch.testing.assert_close(x, r, rtol=rtol, atol=atol)
+
+
+def test_duplex_chain_runs_several_sequences_a_block(cuda_device):
+    """The chain's default S at the VB shape is one of the built S >= 2, by
+    the library's occupancy query, and its 2 ceil(B/S) blocks run in one
+    wave where some S allows it."""
+    F = 45
+    info = {S: duplex_fb.kernel_info("chain", S, F, cuda_device) for S in fused_fb.SEQS}
+    S = duplex_fb.default_seqs(1024, F, cuda_device)
+    assert S in fused_fb.SEQS and S >= 2
+    fits = [x for x in fused_fb.SEQS
+            if 2 * -(-1024 // x) <= info[x]["blocks_per_sm"] * info[x]["sms"]]
+    assert S == (fits[0] if fits else fused_fb.SEQS[-1]), info
 
 
 def test_fused_pair_runs_b1024_in_one_wave(cuda_device):
@@ -329,9 +380,9 @@ def test_svi_step_on_auto_launches_each_fused_kernel_once(cuda_device):
 @pytest.mark.parametrize("gated", [False, True])
 def test_duplex_kernels_match_plain_twins(cuda_device, B, T, K, D, gated):
     """Each duplex kernel against its twin (the combine on the twin's chain
-    outputs, in chunks of 16 steps that divide T=64 and not T=50 or 200),
-    the chain's forward against the fused forward kernel bit for bit, and
-    the whole duplex E-step."""
+    outputs, in stages of 8 steps that divide T=64 and not T=50), the
+    chain's forward against the fused forward kernel bit for bit, and the
+    whole duplex E-step."""
     gen = torch.Generator(device=cuda_device).manual_seed(200 + B + K)
     log_pi, log_A, W, feats = random_problem(gen, B, T, K, D)
     w = svi_masks(gen, B, T, (5 * T) // 7) if gated else None

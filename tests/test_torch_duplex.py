@@ -25,6 +25,7 @@ from pysvihmm_tpu.engines.base import batch_local_step as jbatch_local_step
 from pysvihmm_tpu.engines.base import windowed_local_step as jwindowed_local_step
 from pysvihmm_tpu.messages.pallas_duplex import pallas_estep_duplex
 from pysvihmm_tpu.models import hmm as jhmm
+from pysvihmm_tpu.oracle import numpy_ref as oracle
 from pysvihmm_tpu_torch import convert
 from pysvihmm_tpu_torch.distributions import GaussianNIW
 from pysvihmm_tpu_torch.engines import batch_vb
@@ -93,6 +94,37 @@ def _both(args, emit_gamma=False, weights=None):
 @pytest.mark.parametrize("K,D,T,B", [(64, 8, 64, 32), (16, 2, 33, 24), (32, 5, 200, 64)])
 def test_reference_matches_jax_duplex(K, D, T, B):
     _assert_parity(*_both(_problem(K, D, T, B)))
+
+
+@pytest.mark.parametrize("K,D,T,B", [(4, 2, 1, 1), (8, 2, 7, 5), (16, 3, 1, 9), (5, 2, 9, 1)])
+def test_reference_matches_jax_duplex_at_edges(K, D, T, B):
+    """T = 1, B = 1 and odd T B (the CUDA combine's tile edges), gated,
+    gamma emitted."""
+    _assert_parity(*_both(_problem(K, D, T, B, seed=11), emit_gamma=True, weights=_mask(T, B)))
+
+
+def test_chain_and_combine_match_the_f64_oracle():
+    """The twins' raw beta, normalised, and the combine's trans_stats = A~ *
+    acc against the f64 oracle's normalised beta and summed xi, sequence by
+    sequence: the backward's scale 1 / sum_k b_t, applied after the product,
+    leaves beta and the xi identity exact up to float32 rounding."""
+    log_pi, log_A, W, feats = _problem(6, 2, 40, 3, seed=4)
+    W = 4.0 * W  # peaked likelihoods, so that the scales vary along the chain
+    lp, lA, tW, tf = (torch.from_numpy(a) for a in (log_pi, log_A, W, feats))
+    pi_t, A_t = torch.exp(lp), torch.exp(lA)
+    a, s, sh, beta = duplex_fb.duplex_chain_reference(pi_t, A_t, tW, tf)
+    _, _, acc, _ = duplex_fb.duplex_combine_reference(tW, tf, a, beta, sh)
+    xi = np.zeros((6, 6))
+    for b in range(feats.shape[1]):
+        ll = feats[:, b].astype(np.float64) @ W.astype(np.float64)
+        _, ob, _, oxi, _ = oracle.forward_backward(log_pi.astype(np.float64),
+                                                   log_A.astype(np.float64), ll)
+        pb = beta[:, b].double().numpy()
+        assert (pb[-1] == 1).all()  # b_{T-1} = 1, as the oracle's
+        pb = pb[:-1] / pb[:-1].sum(-1, keepdims=True)
+        np.testing.assert_allclose(pb, ob[:-1], rtol=1e-4, atol=1e-6)
+        xi += oxi
+    np.testing.assert_allclose((A_t * acc).double().numpy(), xi, rtol=1e-4, atol=1e-5)
 
 
 def test_reference_emit_gamma_matches_jax_duplex():

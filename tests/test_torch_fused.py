@@ -194,15 +194,17 @@ H100 = {2: 4 * 132, 4: 4 * 132}
 SMALL = {2: 4 * 114, 4: 4 * 114}
 
 
-@pytest.mark.parametrize("B,resident,S", [(1, H100, 2), (2, H100, 2), (32, H100, 2),
-                                          (256, H100, 2), (1024, H100, 2), (1056, H100, 2),
-                                          (1057, H100, 4), (2112, H100, 4), (4096, H100, 4),
-                                          (1024, SMALL, 4)])
-def test_seqs_per_block_is_the_smallest_one_wave_s(B, resident, S):
+@pytest.mark.parametrize("B,resident,per_group,S", [
+    (1, H100, 1, 2), (2, H100, 1, 2), (32, H100, 1, 2), (256, H100, 1, 2), (1024, H100, 1, 2),
+    (1056, H100, 1, 2), (1057, H100, 1, 4), (2112, H100, 1, 4), (4096, H100, 1, 4),
+    (1024, SMALL, 1, 4),
+    # the duplex chain: a forward and a backward block a group of S sequences
+    (528, H100, 2, 2), (529, H100, 2, 4), (1024, H100, 2, 4), (4096, H100, 2, 4)])
+def test_seqs_per_block_is_the_smallest_one_wave_s(B, resident, per_group, S):
     """The launchers' sequences a block: S = 2 (the fastest measured), down
-    to a single sequence, growing only when ceil(B / S) blocks would need a
-    second wave."""
-    assert fused_fb.seqs_per_block(B, resident) == S
+    to a single sequence, growing only when per_group ceil(B / S) blocks
+    would need a second wave."""
+    assert fused_fb.seqs_per_block(B, resident, per_group) == S
     assert S in fused_fb.SEQS
 
 

@@ -31,10 +31,14 @@ fails:
             tolerances. Then the large-K instances of all six
             kernels the same way at K = 65, 128, 129 and 256 on a small
             shape and at B=1024, T=1000, D=8 for K = 128 and 256, gated and
-            not (the duplex chain bit for bit there too); and each backward
-            kernel (fused, split, duplex combine), gated and not, 5 times on
-            one full-shape input at K = 64 and 256: acc and eacc must be the
-            same bits every time.
+            not (the duplex chain bit for bit there too); the large-K fused
+            pair at every built S (sequences a block: 1, 2, 4, 8) at that
+            full shape, K = 128 and 256: alpha, s, sh, gamma, gamma0, acc
+            and eacc (ungated and gated) the same bits at every S, and the
+            duplex chain's alpha, s and sh those of the forward; and each
+            backward kernel (fused, split, duplex combine), gated and not,
+            5 times on one full-shape input at K = 64 and 256: acc and eacc
+            must be the same bits every time.
 4. VB:      5 batch-VB iterations at B=1024, T=1000, K=64, D=8 through
             ``method="auto"``; each kernel must launch once per iteration
             and the ELBO must be finite and non-decreasing. Then the small
@@ -49,7 +53,11 @@ fails:
             default S must run in one wave and every S give the default's
             outputs); the same for the duplex chain (waves of its 2
             ceil(B/S) blocks) and the combine's registers, shared bytes and
-            blocks an SM; the pair at every S for B = 2048 and 4096; the gated
+            blocks an SM; the large-K fused pair at K = 128 and 256 for every
+            (KP, S) and kernel (forward, backward, gated backward):
+            registers, spills, static and dynamic shared bytes, blocks an
+            SM, waves at B=1024, time and share of the bound (the default S
+            in one wave); the pair at every S for B = 2048 and 4096; the gated
             fused pair at the SVI shape for B in {32, 256, 1024}; the
             E-step of the benchmark shape (need_gamma=False) on the kernel
             and plain routes, and the SVI step at B in {32, 256, 1024} on
@@ -485,6 +493,50 @@ def check_large_k(gen) -> dict[tuple[str, int], float]:
     return errs
 
 
+def check_wide_seqs(gen) -> None:
+    """Phase 3: the large-K fused pair at every built S (sequences a block,
+    ``fused_fb.WIDE_SEQS``) at B=1024, T=1000, D=8 for each K of LARGE_K: the
+    forward's alpha, s and sh, and the backward's gamma, gamma0, acc and
+    eacc (emit_gamma, ungated and gated), must be the same bits at every S
+    (each sequence's arithmetic and the statistics' order do not depend on
+    S), and the duplex chain's alpha, s and sh those of the forward; all
+    ``require``s."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import duplex_fb as df
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+
+    for K_ in LARGE_K:
+        log_pi, log_A, W, feats = random_problem(gen, B, T, K_, D)
+        w = svi_masks(gen, B, T, (5 * T) // 7)
+        pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+        ref = None
+        for S in ff.WIDE_SEQS:
+            fwd = ff._launch_forward(S, pi_t, A_t, W, feats)
+            if ref is None:
+                ref = {"fwd": fwd}
+            outs = {"fwd": fwd}
+            for name, weights in (("bwd", None), ("gated bwd", w)):
+                outs[name] = ff._launch_backward(S, A_t, W, feats, *ref["fwd"], True, weights)
+                ref.setdefault(name, outs[name])
+            torch.cuda.synchronize()
+            same = {name: all(torch.equal(x, y) for x, y in zip(got, ref[name]))
+                    for name, got in outs.items()}
+            del outs, fwd
+            log(f"  fused pair at (B, T, K, F) = ({B}, {T}, {K_}, {feats.shape[-1]}), S={S}: "
+                f"the same bits as S={ff.WIDE_SEQS[0]} (alpha, s, sh; gamma, gamma0, acc, eacc "
+                f"ungated and gated): {same}")
+            require(all(same.values()), f"the large-K fused pair at K={K_}, S={S} differs "
+                                        f"from S={ff.WIDE_SEQS[0]}")
+        chain = df.duplex_chain(pi_t, A_t, W, feats)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(chain[:3], ref["fwd"]))
+        log(f"  duplex chain at K={K_}: alpha, s, sh the fused forward's at every S: {same}")
+        require(same, f"the duplex chain at K={K_} is not the fused forward's bit for bit")
+        del chain, ref, feats, w
+        torch.cuda.empty_cache()
+
+
 def check_repeatable(gen, K_) -> None:
     """Phase 3: each backward kernel (the fused backward, the split backward,
     the duplex combine), gated and not, 5 times on one input at B=1024,
@@ -766,6 +818,55 @@ def duplex_layout(duplex_inputs, chain_ms: float) -> None:
             f"{info['local_bytes']} spilled bytes, {info['static_smem'] + info['dynamic_smem']} "
             f"shared bytes a block of {info['threads']} threads, {info['blocks_per_sm']} blocks "
             f"an SM of {info['sms']}; {groups} groups of 8 sequences at B={B}")
+
+
+def wide_layout(gen) -> None:
+    """Phase 5: the large-K fused pair's block layout at B=1024, T=1000, D=8
+    for each K of LARGE_K. For every built S (``fused_fb.WIDE_SEQS``) and
+    kernel (forward, backward, gated backward): the library's registers,
+    spills, static and dynamic shared bytes and resident blocks an SM, the
+    waves of ceil(B/S) blocks, the time (CUDA events) and share of the bound.
+    The default S must run in one wave."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.scripts.debug_split import cuda_ms
+    from pysvihmm_tpu_torch.utils.roofline import bound, kernel_work
+
+    for K_ in LARGE_K:
+        log_pi, log_A, W, feats = random_problem(gen, B, T, K_, D)
+        w = svi_masks(gen, B, T, (5 * T) // 7)
+        pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+        F_ = feats.shape[-1]
+        a, s, sh = ff.fused_forward(pi_t, A_t, W, feats)
+        runs = {
+            "forward": (lambda S: ff._launch_forward(S, pi_t, A_t, W, feats),
+                        "fused_fwd_kernel", {}),
+            "backward": (lambda S: ff._launch_backward(S, A_t, W, feats, a, s, sh),
+                         "fused_bwd_kernel", {}),
+            "gated backward": (
+                lambda S: ff._launch_backward(S, A_t, W, feats, a, s, sh, False, w),
+                "fused_bwd_kernel", {"gated": True}),
+        }
+        for kind, (run, name, kw) in runs.items():
+            b_ms = bound(*kernel_work(name, B, T, K_, F_, **kw))[0]
+            chosen = ff.default_seqs(kind, B, F_, feats.device, K=K_)
+            for S in ff.WIDE_SEQS:
+                info = ff.kernel_info(kind, S, F_, K=K_)
+                blocks = -(-B // S)
+                waves = blocks / (info["blocks_per_sm"] * info["sms"])
+                t_ms = cuda_ms(lambda: run(S), 10, warmup=2)
+                log(f"{tier_name(name, K_)} {kind} S={S}{' (default)' if S == chosen else ''}: "
+                    f"{info['registers']} registers, {info['local_bytes']} spilled bytes, "
+                    f"{info['static_smem']} static + {info['dynamic_smem']} dynamic shared bytes "
+                    f"a block of {info['threads']} threads, {info['blocks_per_sm']} blocks an SM "
+                    f"of {info['sms']}, {blocks} blocks = {waves:.3f} waves at B={B}; "
+                    f"{t_ms:.3f} ms, bound {b_ms:.3f} ms, {100 * b_ms / t_ms:.1f} % of it")
+                if S == chosen:
+                    require(waves <= 1.0, f"{name} at K={K_}: B={B} takes {waves:.3f} waves at "
+                                          f"S={S}")
+        del a, s, sh, feats, w, runs
+        torch.cuda.empty_cache()
 
 
 def fused_large_batches(gen) -> None:
@@ -1393,6 +1494,8 @@ def main() -> int:
     check_duplex_edges(gen)
     log(f"  above K = {K}: the large-K instances at K = {SMALL_LARGE_K} and at full width")
     large_errs = check_large_k(gen)
+    log(f"  the large-K fused pair at every S at full width, K = {LARGE_K}")
+    check_wide_seqs(gen)
     log("  acc and eacc over repeated calls")
     for K_ in (K, LARGE_VB_K):
         check_repeatable(gen, K_)
@@ -1475,6 +1578,7 @@ def main() -> int:
     ms, plain_ms, bounds = time_route_kernels(torch.Generator(device=dev).manual_seed(81))
     fused_layout(full_inputs, {name: ms[name, K] for name in FUSED_KERNELS})
     duplex_layout(duplex_inputs, ms["duplex_chain_kernel", K])
+    wide_layout(torch.Generator(device=dev).manual_seed(82))
     fused_large_batches(torch.Generator(device=dev).manual_seed(80))
     svi_shape_pair(torch.Generator(device=dev).manual_seed(79))
 

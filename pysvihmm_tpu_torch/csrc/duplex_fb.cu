@@ -52,7 +52,7 @@
 // when 2 ceil(B/S) blocks fit one wave (the wrapper picks S from the card's
 // occupancy). Above K = 64 duplex_chain_wide_kernel<KP> runs the two
 // recursions in two blocks of a sequence on fb_wide.cuh's layout (its
-// forward fbw::wide_forward, the fused large-K forward's).
+// forward fbw::seqs_forward at S = 1, the fused large-K forward's).
 //
 // The combine has no chain: every (t, b) row needs only a_t, b_t, f_t, sh_t
 // and the pair's ginv_{t-1}. duplex_combine_kernel<KP, FP, GATED> takes a
@@ -275,7 +275,7 @@ duplex_chain_kernel(const float* __restrict__ pi, const float* __restrict__ A,
 }
 
 // The large-K chain: blockIdx.y = 0 runs the forward (the fused forward's
-// wide_forward), 1 the raw backward b_{t-1} = (A~ e_t) / sum_k b_t, one
+// seqs_forward at S = 1), 1 the raw backward b_{t-1} = (A~ e_t) / sum_k b_t, one
 // thread a state, on A~^T rows in registers and shared memory (fb_wide.cuh).
 template <int KP>
 __global__ void __launch_bounds__(KP)
@@ -287,7 +287,7 @@ duplex_chain_wide_kernel(const float* __restrict__ pi, const float* __restrict__
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x;
   if (blockIdx.y == 0) {
-    fbw::wide_forward<KP, true>(pi, A, W, feats, alpha, s_out, sh_out, T, B, K, F, b, smem);
+    fbw::seqs_forward<KP, 1, true>(pi, A, W, feats, alpha, s_out, sh_out, T, B, K, F, b, smem);
     return;
   }
   using TT = fbw::Tier<KP>;

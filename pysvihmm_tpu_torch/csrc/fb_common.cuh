@@ -30,6 +30,41 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+constexpr unsigned FULL = 0xffffffffu;
+
+// The butterflies of warp_sum and warp_max for S sequences at once, their
+// shuffles interleaved: each sequence's sum (max) is taken in the same order
+// as warp_sum's (warp_max's), bit for bit.
+template <int S>
+__device__ __forceinline__ void warp_sums(float (&v)[S]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) v[s] += __shfl_xor_sync(FULL, v[s], o);
+  }
+}
+
+template <int S>
+__device__ __forceinline__ void warp_maxes(float (&m)[S]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) m[s] = fmaxf(m[s], __shfl_xor_sync(FULL, m[s], o));
+  }
+}
+
+template <int S>
+__device__ __forceinline__ void warp_sums_maxes(float (&v)[S], float (&m)[S]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      v[s] += __shfl_xor_sync(FULL, v[s], o);
+      m[s] = fmaxf(m[s], __shfl_xor_sync(FULL, m[s], o));
+    }
+  }
+}
+
 // A~ (K, K) row-major into shared memory, zero outside (K, K), with row
 // stride `stride`: row-major (A_s[i * stride + j] = A~[i][j]) for the
 // forward's a @ A~, or transposed (A_s[j * stride + i] = A~[i][j]) for the

@@ -63,31 +63,9 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-constexpr unsigned FULL = 0xffffffffu;
-
-// The butterflies of fbc::warp_sum and fbc::warp_max for S sequences at
-// once, their shuffles interleaved: each sequence's sum is added in the
-// same order as warp_sum's, bit for bit.
-template <int S>
-__device__ __forceinline__ void warp_sums(float (&v)[S]) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-    for (int s = 0; s < S; ++s) v[s] += __shfl_xor_sync(FULL, v[s], o);
-  }
-}
-
-template <int S>
-__device__ __forceinline__ void warp_sums_maxes(float (&v)[S], float (&m)[S]) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      v[s] += __shfl_xor_sync(FULL, v[s], o);
-      m[s] = fmaxf(m[s], __shfl_xor_sync(FULL, m[s], o));
-    }
-  }
-}
+using fbc::FULL;
+using fbc::warp_sums;
+using fbc::warp_sums_maxes;
 
 // The block's sum (or max) of one sequence from the per-warp partials
 // red[warp * S + s]: warp 0's, then warp 1's added, as the duplex chain does.

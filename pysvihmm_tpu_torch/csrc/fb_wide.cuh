@@ -1,25 +1,36 @@
 // The large-K layout of the forward-backward kernels (65 <= K <= 256),
 // shared by fused_fb.cu, split_fb.cu, duplex_fb.cu and split_probe.cu.
 //
-// An instance is built for KP = 128 or 256 padded states: one block a
-// sequence (the duplex chain: a block a direction), one thread a state (KP
-// threads, those with k >= K idle but in every barrier and shuffle). Three
-// numbers shape it: A~ in float32 takes 64 KB at KP = 128 and 256 KB at 256,
-// a block may use 227 KB of shared memory, and a thread 255 registers. So a
-// thread keeps the first RR rows of the matrix its matvec reads (A~ for the
-// forward, A~^T for the backward) in registers -- RR = 0 at KP = 128, 64 at
-// KP = 256, column k of those rows -- and the other rows lie in dynamic
-// shared memory, 192 KB at most; W's column k (FMAX floats) stays in
-// registers. The matvec is one fmaf chain over i = 0..KP-1 in order (the
-// rows in registers, then those in shared memory) over zero padding, and
-// the per-step sums and maxima are each warp's butterfly, then the warps'
-// partials added in warp order: the forward device function below is the
-// fused forward's and the duplex chain's at these K, so their alpha, s and
-// sh agree bit for bit, and the backward recomputes ll by the same chain.
+// An instance is built for KP = 128 or 256 padded states and S sequences a
+// block: one thread a state (KP threads, those with k >= K idle but in every
+// barrier and shuffle), thread k running state k of all S sequences as S
+// interleaved chains (the fused pair takes S = 1, 2, 4 or 8, picked so that
+// ceil(B / S) blocks fill the card in one wave; the split pair and the
+// duplex chain S = 1). Three numbers shape it: A~ in float32 takes 64 KB at
+// KP = 128 and 256 KB at 256, a block may use 227 KB of shared memory, and
+// a thread 255 registers. So a thread keeps the first RR rows of the matrix
+// its matvec reads (A~ for the forward, A~^T for the backward) in registers
+// -- RR = 0 at KP = 128, 64 at KP = 256, column k of those rows -- and the
+// other rows lie in dynamic shared memory, 192 KB at most, beside two slots
+// of the S vectors a_{t-1} (d_t) and feature rows (16 + 4 KB at KP = 256, S
+// = 8: 217 KB a block, one block an SM); W's column k (FMAX floats) stays in
+// registers. Each word of the matrix and of W a thread reads in a step feeds
+// S independent FMAs, one a sequence; what each step reads per thread is S
+// KP / 4 broadcast float4 loads of a_{t-1} (d_t) and S ceil(F / 4) of the
+// feature rows, beside SR conflict-free loads of its column.
+//
+// Per sequence the arithmetic does not depend on S: the matvec is one fmaf
+// chain over i = 0..KP-1 in order (the rows in registers, then those in
+// shared memory) over zero padding, and the per-step sums and maxima are
+// each warp's butterfly, then the warps' partials added in warp order. The
+// forward device function below is the fused forward's at every S and the
+// duplex chain's, so their alpha, s and sh agree bit for bit, and the
+// backward recomputes ll by the same chain.
 //
 // The statistics leave the chain at these K (fb_stats.cuh): the backward
 // writes d_t n_t pg_t and w_t gamma_t for a window of time steps a launch,
-// and outer products summed in a fixed order form acc and eacc.
+// and outer products summed in a fixed order form acc and eacc, an order
+// that depends on (T, B, K, F) alone, not on S.
 
 #pragma once
 
@@ -31,8 +42,6 @@ namespace fbw {
 
 using fbc::FMAX;
 using fbc::SUM_FLOOR;
-using fbc::warp_max;
-using fbc::warp_sum;
 
 template <int KP>
 struct Tier {
@@ -132,19 +141,38 @@ struct WCol {
 #pragma unroll
     for (int f = 0; f < FMAX; ++f) w[f] = (k < K && f < F) ? W[f * K + k] : 0.f;
   }
-  // ll = f . W[:, k], the fmaf chain over f = 0..FMAX-1 in order (the row
-  // f_s in shared memory, zero beyond F, 16-byte aligned)
-  __device__ __forceinline__ float ll(const float* f_s) const {
-    float acc = 0.f;
+  // out[s] = f_s[s] . W[:, k] for S feature rows f_s + s * fstride (zero
+  // beyond F, 16-byte aligned): for each the fmaf chain over f = 0..FMAX-1 in
+  // order, each word of W feeding S chains. For S > 1 the chains stop after
+  // nf4 groups of 4 (nf4 = ceil(F / 4)): the rest would add fmaf(0, 0, acc)
+  // == acc, the same bits, unless acc is -0 (every product so far rounding
+  // to zero from below), which that padding would turn into +0. A single
+  // chain runs to FMAX without a branch, as the one-sequence layout did: the
+  // branch made the S = 1 forward 6 % and backward up to 29 % slower on the
+  // H100 (PERF.md).
+  template <int S>
+  __device__ __forceinline__ void lls(float (&out)[S], const float* f_s, int fstride,
+                                      int nf4) const {
+#pragma unroll
+    for (int s = 0; s < S; ++s) out[s] = 0.f;
 #pragma unroll
     for (int f4 = 0; f4 < FMAX / 4; ++f4) {
-      const float4 y = ld4(f_s + 4 * f4);
-      acc = fmaf(y.x, w[4 * f4], acc);
-      acc = fmaf(y.y, w[4 * f4 + 1], acc);
-      acc = fmaf(y.z, w[4 * f4 + 2], acc);
-      acc = fmaf(y.w, w[4 * f4 + 3], acc);
+      if (S > 1 && f4 >= nf4) break;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const float4 y = ld4(f_s + s * fstride + 4 * f4);
+        out[s] = fmaf(y.x, w[4 * f4], out[s]);
+        out[s] = fmaf(y.y, w[4 * f4 + 1], out[s]);
+        out[s] = fmaf(y.z, w[4 * f4 + 2], out[s]);
+        out[s] = fmaf(y.w, w[4 * f4 + 3], out[s]);
+      }
     }
-    return acc;
+  }
+  // ll = f . W[:, k], the same chain to FMAX for the row f_s
+  __device__ __forceinline__ float ll(const float* f_s) const {
+    float out[1];
+    lls<1>(out, f_s, 0, FMAX / 4);
+    return out[0];
   }
 };
 
@@ -165,31 +193,65 @@ __device__ __forceinline__ float block_max(const float* red) {
   return v;
 }
 
-// Dynamic shared memory of wide_forward, wide_backward and the duplex chain's
-// backward half, in bytes (the largest of the three).
-template <int KP>
+
+// Dynamic shared memory of seqs_forward and seqs_backward at S sequences a
+// block, in bytes: A~'s shared rows, two slots of the S vectors a_t (d_t) and
+// of the S feature rows, two of the per-sequence partials (two kinds). At S
+// = 1 it is also the duplex chain's backward half's.
+template <int KP, int S = 1>
 constexpr int chain_smem_bytes() {
-  return 4 * (Tier<KP>::SR * KP + 2 * KP + 2 * FMAX + 4 * Tier<KP>::NWARP);
+  return 4 * (Tier<KP>::SR * KP + 2 * S * KP + 2 * S * FMAX + 4 * S * Tier<KP>::NWARP);
 }
 
-// The forward recursion of sequence b (fused_fb.cu's math): ll_t = f_t . W
-// (FEATS; feats (T, B, F)) or read from ll (T, B, K); sh_t = max_k ll_t,
-// lik_t = exp(ll_t - sh_t), a_0 = pi~ lik_0, a_t = (a_{t-1} @ A~) (lik_t /
-// s_{t-1}), s_t = sum_k a_t. Writes raw alpha (T, B, K), s and sh (B, T).
-template <int KP, bool FEATS>
-__device__ void wide_forward(const float* __restrict__ pi, const float* __restrict__ A,
+// The feature rows of step t of a block's sequences, feats[t, b0 .. b0+ns-1, :]
+// (ns * F contiguous floats from row), into a slot [S][FMAX] whose padding
+// (beyond F, and the missing sequences') stays zero. One sequence takes one
+// guarded load a thread (F <= FMAX < KP): at KP = 256 the strided loop in
+// its place made the S = 1 forward 7 % and backward 25 % slower on the H100
+// (PERF.md), a step of one sequence being a latency-bound chain.
+template <int S>
+__device__ __forceinline__ void feat_rows(float* slot, const float* __restrict__ row, int ns,
+                                          int F, int k, int nt) {
+  if (S == 1) {
+    if (k < F) slot[k] = row[k];
+    return;
+  }
+  for (int e = k; e < ns * F; e += nt) {
+    const int s = e / F;
+    slot[s * FMAX + e - s * F] = row[e];
+  }
+}
+
+// The forward recursion of the S sequences of block blk, b0 = blk S .. b0+S-1
+// (the last block may hold fewer; the missing ones run on zeros and write
+// nothing): ll_t = f_t . W (FEATS; feats (T, B, F)) or read from ll (T, B,
+// K); sh_t = max_k ll_t, lik_t = exp(ll_t - sh_t), a_0 = pi~ lik_0, a_t =
+// (a_{t-1} @ A~) (lik_t / s_{t-1}), s_t = sum_k a_t. Writes raw alpha (T, B,
+// K), s and sh (B, T). Thread k runs state k of all S sequences: each word
+// of A~ (and of W) it reads in a step feeds S chains, and each chain is one
+// sequence's arithmetic as at S = 1 (the matvec over i in order, the sums
+// each warp's butterfly, then the warps in order), so alpha, s and sh do
+// not depend on S. Two barriers a step. Every thread of the block calls it.
+// At S = 1 the block's one sequence always exists (B blocks), and here and
+// in seqs_backward the compiler is told so: with ns a run-time value the
+// S = 1 backward at KP = 256 took 26 % longer on the H100 (PERF.md).
+template <int KP, int S, bool FEATS>
+__device__ void seqs_forward(const float* __restrict__ pi, const float* __restrict__ A,
                              const float* __restrict__ W, const float* __restrict__ src,
                              float* __restrict__ alpha, float* __restrict__ s_out,
-                             float* __restrict__ sh_out, int T, int B, int K, int F, int b,
+                             float* __restrict__ sh_out, int T, int B, int K, int F, int blk,
                              float* smem) {
   using TT = Tier<KP>;
-  float* M_s = smem;                     // A~ rows RR..KP-1
-  float* a_s = M_s + TT::SR * KP;        // a_t in slot t & 1
-  float* f_s = a_s + 2 * KP;             // f_t in slot t & 1
-  float* red_max = f_s + 2 * FMAX;       // [t & 1][warp]
-  float* red_sum = red_max + 2 * TT::NWARP;
+  constexpr int NW = TT::NWARP;
+  float* M_s = smem;                       // A~ rows RR..KP-1
+  float* a_s = M_s + TT::SR * KP;          // a_t in slot t & 1, [S][KP] each
+  float* f_s = a_s + 2 * S * KP;           // f_t in slot t & 1, [S][FMAX] each
+  float* red_max = f_s + 2 * S * FMAX;     // [t & 1][S][warp]
+  float* red_sum = red_max + 2 * S * NW;
   const int k = threadIdx.x, lane = k & 31, warp = k >> 5;
   const bool active = k < K;
+  const int b0 = blk * S, ns = S == 1 ? 1 : min(S, B - b0);  // sequences held
+  const int nf4 = (F + 3) / 4;
 
   MatCol<KP> col;
   col.load(A, M_s, K, false, k);
@@ -197,51 +259,83 @@ __device__ void wide_forward(const float* __restrict__ pi, const float* __restri
   if (FEATS) wc.load(W, K, F, k);
   const float pik = active ? pi[k] : 0.f;
   const size_t step_f = (size_t)B * F, step_k = (size_t)B * K;
-  const float* fb = src + (size_t)b * (FEATS ? F : K);
-  float* ab = alpha + (size_t)b * K;
-  for (int i = k; i < 2 * KP; i += KP) a_s[i] = 0.f;
-  if (k < 2 * FMAX) f_s[k] = 0.f;
+  const float* fb = src + (size_t)b0 * (FEATS ? F : K);
+  float* ab = alpha + (size_t)b0 * K + k;
+  for (int i = k; i < 2 * S * KP; i += KP) a_s[i] = 0.f;
+  for (int i = k; i < 2 * S * FMAX; i += KP) f_s[i] = 0.f;
   __syncthreads();
-  if (FEATS && k < F) f_s[k] = fb[k];
-  float l_next = (!FEATS && active) ? fb[k] : -INFINITY;
+  if (FEATS) feat_rows<S>(f_s, fb, ns, F, k, KP);
+  float l_next[S];  // not FEATS: ll_t, read a step ahead
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+    l_next[s] = (!FEATS && active && s < ns) ? fb[(size_t)s * K + k] : 0.f;
   __syncthreads();
 
-  float inv = 1.f;  // 1 / s_{t-1}
+  float inv[S];  // 1 / s_{t-1}
+#pragma unroll
+  for (int s = 0; s < S; ++s) inv[s] = 1.f;
   for (int t = 0; t < T; ++t) {
     const int p = t & 1;
-    float ll;
+    float ll[S];
     if (FEATS) {
-      ll = wc.ll(f_s + p * FMAX);
+      wc.lls<S>(ll, f_s + p * S * FMAX, FMAX, nf4);
     } else {
-      ll = l_next;
-      if (t + 1 < T && active) l_next = fb[(size_t)(t + 1) * step_k + k];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        ll[s] = l_next[s];
+        if (t + 1 < T && active && s < ns) l_next[s] = fb[(size_t)(t + 1) * step_k + s * K + k];
+      }
     }
-    const float u = t > 0 ? col.dot(a_s + (p ^ 1) * KP, M_s, k) : 0.f;
-    const float wm = warp_max(active ? ll : -INFINITY);
-    if (lane == 0) red_max[p * TT::NWARP + warp] = wm;
-    if (FEATS && t + 1 < T && k < F) f_s[(p ^ 1) * FMAX + k] = fb[(size_t)(t + 1) * step_f + k];
+    float u[S];
+    if (t > 0) {
+      col.template dots<S>(u, a_s + (p ^ 1) * S * KP, KP, M_s, k);
+    } else {
+#pragma unroll
+      for (int s = 0; s < S; ++s) u[s] = 0.f;
+    }
+    float wm[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) wm[s] = active ? ll[s] : -INFINITY;
+    fbc::warp_maxes<S>(wm);
+    if (lane == 0) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) red_max[(p * S + s) * NW + warp] = wm[s];
+    }
+    if (FEATS && t + 1 < T)
+      feat_rows<S>(f_s + (p ^ 1) * S * FMAX, fb + (size_t)(t + 1) * step_f, ns, F, k, KP);
     __syncthreads();  // a_{t-1} and f_t are read; the maxima are complete
 
-    const float m = block_max<TT::NWARP>(red_max + p * TT::NWARP);
-    const float lik = active ? expf(ll - m) : 0.f;
-    const float a = active ? (t == 0 ? pik * lik : u * (lik * inv)) : 0.f;
-    a_s[p * KP + k] = a;
-    if (active) ab[(size_t)t * step_k + k] = a;
-    const float ws = warp_sum(a);
-    if (lane == 0) red_sum[p * TT::NWARP + warp] = ws;
+    float m[S], ws[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      m[s] = block_max<NW>(red_max + (p * S + s) * NW);
+      const float lik = active ? expf(ll[s] - m[s]) : 0.f;
+      const float a = active ? (t == 0 ? pik * lik : u[s] * (lik * inv[s])) : 0.f;
+      a_s[(p * S + s) * KP + k] = a;
+      if (active && s < ns) ab[(size_t)t * step_k + (size_t)s * K] = a;
+      ws[s] = a;
+    }
+    fbc::warp_sums<S>(ws);
+    if (lane == 0) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) red_sum[(p * S + s) * NW + warp] = ws[s];
+    }
     __syncthreads();  // a_t and the sums are complete
 
-    const float s = block_sum<TT::NWARP>(red_sum + p * TT::NWARP);
-    inv = 1.f / fmaxf(s, SUM_FLOOR);
-    if (k == 0) {
-      s_out[(size_t)b * T + t] = s;
-      sh_out[(size_t)b * T + t] = m;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const float sum = block_sum<NW>(red_sum + (p * S + s) * NW);
+      inv[s] = 1.f / fmaxf(sum, SUM_FLOOR);
+      if (k == s && s < ns) {
+        s_out[(size_t)(b0 + s) * T + t] = sum;
+        sh_out[(size_t)(b0 + s) * T + t] = m[s];
+      }
     }
   }
 }
 
-// The backward recursion of sequence b over the window t = t1-1 .. t0,
-// b'_{T-1} = 1 / s_{T-1}:
+// The backward recursion of the S sequences of block blk (as seqs_forward)
+// over the window t = t1-1 .. t0, b'_{T-1} = 1 / s_{T-1}:
 //   g_t = a_t b'_t, n_t = 1 / sum_k g_t, gamma_t = g_t n_t,
 //   d_t = (lik_t / s_{t-1}) b'_t, b'_{t-1} = d_t @ A~^T,
 // with lik_t re-derived from ll_t (FEATS: f_t . W by the forward's chain,
@@ -252,85 +346,129 @@ __device__ void wide_forward(const float* __restrict__ pi, const float* __restri
 // gamma_t to gw, (t1 - t0, B, K) each from t0; gamma0 = w_0 gamma_0 and
 // gamma (when not null), ungated. FEATS: g is the kept-mask w and pg_t =
 // w_{t-1} w_t (the fused backward); else g is the pair gate pg itself and
-// gamma is always written (the split backward). Ungated: g null.
-template <int KP, bool FEATS, bool GATED>
-__device__ void wide_backward(const float* __restrict__ A, const float* __restrict__ W,
+// gamma is always written (the split backward). Ungated: g null. Each word
+// of A~^T (and of W) a thread reads in a step feeds S chains, each the
+// one-sequence arithmetic, so nothing it writes depends on S. One barrier a
+// step.
+template <int KP, int S, bool FEATS, bool GATED>
+__device__ void seqs_backward(const float* __restrict__ A, const float* __restrict__ W,
                               const float* __restrict__ src, const float* __restrict__ alpha,
                               const float* __restrict__ s_in, const float* __restrict__ sh_in,
                               const float* __restrict__ g, float* __restrict__ gamma,
                               float* __restrict__ gamma0, float* __restrict__ dn_out,
                               float* __restrict__ gw_out, float* __restrict__ carry, int T,
-                              int B, int K, int F, int t0, int t1, int b, float* smem) {
+                              int B, int K, int F, int t0, int t1, int blk, float* smem) {
   using TT = Tier<KP>;
+  constexpr int NW = TT::NWARP;
   float* M_s = smem;                     // A~^T rows RR..KP-1
-  float* d_s = M_s + TT::SR * KP;        // d_t in slot t & 1
-  float* f_s = d_s + 2 * KP;             // f_t in slot t & 1
-  float* red = f_s + 2 * FMAX;           // partial sums of g_t, [t & 1][warp]
+  float* d_s = M_s + TT::SR * KP;        // d_t in slot t & 1, [S][KP] each
+  float* f_s = d_s + 2 * S * KP;         // f_t in slot t & 1, [S][FMAX] each
+  float* red = f_s + 2 * S * FMAX;       // partial sums of g_t, [t & 1][S][warp]
   const int k = threadIdx.x, lane = k & 31, warp = k >> 5;
   const bool active = k < K;
+  const int b0 = blk * S, ns = S == 1 ? 1 : min(S, B - b0);  // sequences held
+  const int nf4 = (F + 3) / 4;
 
   MatCol<KP> col;
   col.load(A, M_s, K, true, k);
   WCol wc;
   if (FEATS) wc.load(W, K, F, k);
   const size_t step_f = (size_t)B * F, step_k = (size_t)B * K;
-  const float* fb = src + (size_t)b * (FEATS ? F : K);
-  const float* ab = alpha + (size_t)b * K + k;
-  const float* sb = s_in + (size_t)b * T;
-  const float* shb = sh_in + (size_t)b * T;
-  if (k < 2 * FMAX) f_s[k] = 0.f;
+  const float* fb = src + (size_t)b0 * (FEATS ? F : K);
+  const float* ab = alpha + (size_t)b0 * K + k;
+  for (int i = k; i < 2 * S * FMAX; i += KP) f_s[i] = 0.f;
   __syncthreads();
-  if (FEATS && k < F) f_s[((t1 - 1) & 1) * FMAX + k] = fb[(size_t)(t1 - 1) * step_f + k];
+  if (FEATS)
+    feat_rows<S>(f_s + ((t1 - 1) & 1) * S * FMAX, fb + (size_t)(t1 - 1) * step_f, ns, F, k, KP);
   __syncthreads();
 
-  float a_cur = active ? ab[(size_t)(t1 - 1) * step_k] : 0.f;  // a_t
-  // b'_t; an idle state's is 0 in the one recursion (its column of A~^T is)
-  float beta = t1 == T ? 1.f / fmaxf(sb[T - 1], SUM_FLOOR)
-                       : (active ? carry[(size_t)b * K + k] : 0.f);
-  float g_cur = GATED ? g[(size_t)(t1 - 1) * B + b] : 1.f;  // w_t (FEATS) or pg_t
+  // per sequence: a_t, b'_t (an idle state's is 0 in the one recursion: its
+  // column of A~^T is; a missing sequence's 0) and w_t (FEATS) or pg_t
+  float a_cur[S], beta[S], g_cur[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const bool ok = s < ns;
+    const int b = b0 + s;
+    a_cur[s] = (ok && active) ? ab[(size_t)(t1 - 1) * step_k + (size_t)s * K] : 0.f;
+    beta[s] = !ok ? 0.f
+                  : t1 == T ? 1.f / fmaxf(s_in[(size_t)b * T + T - 1], SUM_FLOOR)
+                            : (active ? carry[(size_t)b * K + k] : 0.f);
+    g_cur[s] = GATED ? (ok ? g[(size_t)(t1 - 1) * B + b] : 0.f) : 1.f;
+  }
   // one step; Z (t == 0) is a compile-time flag, so that the steps t >= 1
   // run without a branch on t (step 0 is peeled off the loop)
   auto step = [&](const int t, auto z) {
     constexpr bool Z = decltype(z)::value;
     const int p = t & 1;
-    const float ll = FEATS ? wc.ll(f_s + p * FMAX)
-                           : (active ? fb[(size_t)t * step_k + k] : 0.f);
-    const float a_prev = (active && !Z) ? ab[(size_t)(t - 1) * step_k] : 0.f;
-    const float g_prev = (GATED && !Z) ? g[(size_t)(t - 1) * B + b] : 1.f;
-    const float lik = active ? expf(ll - shb[t]) : 0.f;
-    const float graw = a_cur * beta;
-    const float d = !Z ? (lik * (1.f / fmaxf(sb[t - 1], SUM_FLOOR))) * beta : 0.f;
-    d_s[p * KP + k] = d;
-    const float ws = warp_sum(graw);
-    if (lane == 0) red[p * TT::NWARP + warp] = ws;
-    if (FEATS && !Z && k < F) f_s[(p ^ 1) * FMAX + k] = fb[(size_t)(t - 1) * step_f + k];
+    float ll[S];
+    if (FEATS) {
+      wc.lls<S>(ll, f_s + p * S * FMAX, FMAX, nf4);
+    } else {
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        ll[s] = (active && s < ns) ? fb[(size_t)t * step_k + s * K + k] : 0.f;
+    }
+    float a_prev[S], g_prev[S], graw[S], d[S], gs[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const bool ok = s < ns;
+      const int b = b0 + s;
+      a_prev[s] = (ok && active && !Z) ? ab[(size_t)(t - 1) * step_k + (size_t)s * K] : 0.f;
+      g_prev[s] = (GATED && !Z) ? (ok ? g[(size_t)(t - 1) * B + b] : 0.f) : 1.f;
+      const float sh = ok ? sh_in[(size_t)b * T + t] : 0.f;
+      const float sp = (ok && !Z) ? s_in[(size_t)b * T + t - 1] : 1.f;
+      const float lik = active ? expf(ll[s] - sh) : 0.f;
+      graw[s] = a_cur[s] * beta[s];
+      d[s] = !Z ? (lik * (1.f / fmaxf(sp, SUM_FLOOR))) * beta[s] : 0.f;
+      d_s[(p * S + s) * KP + k] = d[s];
+      gs[s] = graw[s];
+    }
+    fbc::warp_sums<S>(gs);
+    if (lane == 0) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) red[(p * S + s) * NW + warp] = gs[s];
+    }
+    if (FEATS && !Z)
+      feat_rows<S>(f_s + (p ^ 1) * S * FMAX, fb + (size_t)(t - 1) * step_f, ns, F, k, KP);
     __syncthreads();  // d_t, the partial sums and f_{t-1} are complete
 
-    const float n = 1.f / fmaxf(block_sum<TT::NWARP>(red + p * TT::NWARP), SUM_FLOOR);
-    const float gam = graw * n;
-    const size_t o = ((size_t)t * B + b) * K + k;
-    const size_t ow = ((size_t)(t - t0) * B + b) * K + k;  // in the window
-    if (active) {
-      if (gamma != nullptr) gamma[o] = gam;
-      if (FEATS) {
-        const float gw = GATED ? gam * g_cur : gam;  // the statistics' gamma: kept steps
-        gw_out[ow] = gw;
-        if (Z) gamma0[(size_t)b * K + k] = gw;
-      }
-      if (!Z) {
-        // stats side, pair-gated; the chain keeps d
-        float dn = d * n;
-        if (GATED) dn = FEATS ? dn * (g_prev * g_cur) : dn * g_cur;
-        dn_out[ow] = dn;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int b = b0 + s;
+      const float n = 1.f / fmaxf(block_sum<NW>(red + (p * S + s) * NW), SUM_FLOOR);
+      const float gam = graw[s] * n;
+      const size_t o = ((size_t)t * B + b) * K + k;
+      const size_t ow = ((size_t)(t - t0) * B + b) * K + k;  // in the window
+      if (active && s < ns) {
+        if (gamma != nullptr) gamma[o] = gam;
+        if (FEATS) {
+          const float gw = GATED ? gam * g_cur[s] : gam;  // the statistics' gamma: kept steps
+          gw_out[ow] = gw;
+          if (Z) gamma0[(size_t)b * K + k] = gw;
+        }
+        if (!Z) {
+          // stats side, pair-gated; the chain keeps d
+          float dn = d[s] * n;
+          if (GATED) dn = FEATS ? dn * (g_prev[s] * g_cur[s]) : dn * g_cur[s];
+          dn_out[ow] = dn;
+        }
       }
     }
-    if (!Z) beta = col.dot(d_s + p * KP, M_s, k);  // b'_{t-1}[k] = sum_j d_t[j] A~[k][j]
-    a_cur = a_prev;
-    g_cur = g_prev;
+    // b'_{t-1}[k] = sum_j d_t[j] A~[k][j], for the S sequences at once
+    if (!Z) col.template dots<S>(beta, d_s + p * S * KP, KP, M_s, k);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      a_cur[s] = a_prev[s];
+      g_cur[s] = g_prev[s];
+    }
   };
   for (int t = t1 - 1; t >= (t0 > 0 ? t0 : 1); --t) step(t, std::false_type{});
   if (t0 == 0) step(0, std::true_type{});
-  if (t0 > 0 && active) carry[(size_t)b * K + k] = beta;  // b'_{t0-1}
+  if (t0 > 0 && active) {
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      if (s < ns) carry[(size_t)(b0 + s) * K + k] = beta[s];  // b'_{t0-1}
+  }
 }
 
 }  // namespace fbw

@@ -91,10 +91,20 @@
 // not more sequences, would be the next lever.
 //
 // Above K = 64 the launchers take the large-K instances instead
-// (fused_fwd_wide_kernel<KP>, fused_bwd_wide_kernel<KP, GATED>, KP = 128 or
-// 256; fb_wide.cuh holds their layout): one sequence a block, one thread a
-// state, A~ in shared memory (its first 64 rows in registers at KP = 256),
-// the statistics off the chain as outer products summed in a fixed order.
+// (fused_fwd_wide_kernel<KP, S>, fused_bwd_wide_kernel<KP, S, GATED>, KP =
+// 128 or 256, S = 1, 2, 4 or 8; fb_wide.cuh holds their layout): S
+// sequences a block over one copy of A~ (in shared memory, its first 64
+// rows in registers at KP = 256), one thread a state, the statistics off the
+// chain as outer products summed in a fixed order. A step and SM at KP =
+// 256, S = 8 holds S KP^2 FMAs of the matvec (about 4,100 cycles on 128
+// lanes), 192 KB of A~ read from shared memory (1,536 cycles at 128 bytes a
+// cycle) and S KP / 4 broadcast float4 loads of a_{t-1} a thread (4,096 warp
+// loads); measured on the H100, those loads set the time, about 3 cycles
+// each (PERF.md), so more states a thread is the next lever. The
+// one-sequence layout ran one 256-long dependent chain a thread and 7.8
+// waves at B = 1024; S sequences interleave S chains, and S is picked so
+// that B = 1024 runs in one wave (S = 8 at KP = 256: 128 blocks, one an SM),
+// while a small B keeps S = 1 and its blocks.
 
 #include "fb_common.cuh"
 #include "fb_seqs.cuh"
@@ -332,18 +342,19 @@ fused_bwd_kernel(const float* __restrict__ A, const float* __restrict__ W,
   }
 }
 
-template <int KP>
+// The large-K pair: fb_wide.cuh's S-sequence chains at KP padded states.
+template <int KP, int S>
 __global__ void __launch_bounds__(KP)
 fused_fwd_wide_kernel(const float* __restrict__ pi, const float* __restrict__ A,
                       const float* __restrict__ W, const float* __restrict__ feats,
                       float* __restrict__ alpha, float* __restrict__ s_out,
                       float* __restrict__ sh_out, int T, int B, int K, int F) {
   extern __shared__ __align__(16) float smem[];
-  fbw::wide_forward<KP, true>(pi, A, W, feats, alpha, s_out, sh_out, T, B, K, F, blockIdx.x,
-                              smem);
+  fbw::seqs_forward<KP, S, true>(pi, A, W, feats, alpha, s_out, sh_out, T, B, K, F, blockIdx.x,
+                                 smem);
 }
 
-template <int KP, bool GATED>
+template <int KP, int S, bool GATED>
 __global__ void __launch_bounds__(KP)
 fused_bwd_wide_kernel(const float* __restrict__ A, const float* __restrict__ W,
                       const float* __restrict__ feats, const float* __restrict__ alpha,
@@ -353,8 +364,8 @@ fused_bwd_wide_kernel(const float* __restrict__ A, const float* __restrict__ W,
                       float* __restrict__ gw, float* __restrict__ carry, int T, int B, int K,
                       int F, int t0, int t1) {
   extern __shared__ __align__(16) float smem[];
-  fbw::wide_backward<KP, true, GATED>(A, W, feats, alpha, s_in, sh_in, w_in, gamma, gamma0, dn,
-                                      gw, carry, T, B, K, F, t0, t1, blockIdx.x, smem);
+  fbw::seqs_backward<KP, S, true, GATED>(A, W, feats, alpha, s_in, sh_in, w_in, gamma, gamma0,
+                                         dn, gw, carry, T, B, K, F, t0, t1, blockIdx.x, smem);
 }
 
 // The built instances: S in {2, 4} sequences a block, FP = pad_f(F).
@@ -400,31 +411,44 @@ bool bad_shape(int T, int B, int K, int F) {
   return T < 1 || B < 1 || K < 1 || K > fbw::KWIDE || F < 1 || F > FMAX;
 }
 
-// The large-K instance of (which, K): which = 0 forward, 1 backward, 2 gated
-// backward.
-const void* wide_of(int which, int K) {
-  if (fbw::tier_of(K) == 128) {
-    if (which == 0) return reinterpret_cast<const void*>(fused_fwd_wide_kernel<128>);
-    return which == 1 ? reinterpret_cast<const void*>(fused_bwd_wide_kernel<128, false>)
-                      : reinterpret_cast<const void*>(fused_bwd_wide_kernel<128, true>);
-  }
-  if (which == 0) return reinterpret_cast<const void*>(fused_fwd_wide_kernel<256>);
-  return which == 1 ? reinterpret_cast<const void*>(fused_bwd_wide_kernel<256, false>)
-                    : reinterpret_cast<const void*>(fused_bwd_wide_kernel<256, true>);
+// The large-K instance of (which, KP, S), its dynamic shared memory in
+// *smem: S in {1, 2, 4, 8} sequences a block. Null for an S not built.
+template <int KP, int S>
+const void* wide_at(int which, int* smem) {
+  *smem = fbw::chain_smem_bytes<KP, S>();
+  if (which == 0) return reinterpret_cast<const void*>(fused_fwd_wide_kernel<KP, S>);
+  return which == 1 ? reinterpret_cast<const void*>(fused_bwd_wide_kernel<KP, S, false>)
+                    : reinterpret_cast<const void*>(fused_bwd_wide_kernel<KP, S, true>);
 }
 
-// The chain kernel of (which, S, K): the S instance up to KMAX states, the
-// large-K one (one sequence a block) above.
-cudaError_t launch(int which, int S, int T, int B, int K, int F, cudaStream_t st, void** args) {
-  if (K > KMAX) {
-    const int kp = fbw::tier_of(K);
-    const int smem = kp == 128 ? fbw::chain_smem_bytes<128>() : fbw::chain_smem_bytes<256>();
-    return fbw::launch_dyn(wide_of(which, K), dim3(B), kp, smem, st, args);
+template <int KP>
+const void* wide_of(int which, int S, int* smem) {
+  switch (S) {
+    case 1: return wide_at<KP, 1>(which, smem);
+    case 2: return wide_at<KP, 2>(which, smem);
+    case 4: return wide_at<KP, 4>(which, smem);
+    case 8: return wide_at<KP, 8>(which, smem);
+    default: *smem = 0; return nullptr;
   }
+}
+
+// The kernel of (which, S, K, F) and its dynamic shared memory: the S
+// instance at FP = pad_f(F) up to KMAX states, the large-K one at KP =
+// tier_of(K) above. Null for an S not built.
+const void* instance(int which, int S, int K, int F, int* smem) {
+  if (K <= KMAX) return kernel_of(which, S, F, smem);
+  return fbw::tier_of(K) == 128 ? wide_of<128>(which, S, smem) : wide_of<256>(which, S, smem);
+}
+
+// The chain kernel of (which, S, K): ceil(B / S) blocks of KMAX threads up
+// to KMAX states, of KP threads above.
+cudaError_t launch(int which, int S, int T, int B, int K, int F, cudaStream_t st, void** args) {
   int smem = 0;
-  const void* fn = kernel_of(which, S, F, &smem);
+  const void* fn = instance(which, S, K, F, &smem);
   if (fn == nullptr) return cudaErrorInvalidValue;
-  const cudaError_t e = cudaLaunchKernel(fn, dim3((B + S - 1) / S), dim3(NT), args, smem, st);
+  const dim3 grid((B + S - 1) / S);
+  if (K > KMAX) return fbw::launch_dyn(fn, grid, fbw::tier_of(K), smem, st, args);
+  const cudaError_t e = cudaLaunchKernel(fn, grid, dim3(NT), args, smem, st);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
@@ -457,8 +481,8 @@ int fused_fb_scratch(int T, int B, int K, int F, int S, long long* out) {
 
 // Each launcher returns the launch's CUDA error right after it (0 = ok).
 // Pointers are device pointers of contiguous float32 tensors; the kernels
-// run on `stream` and do not synchronise. S is the sequences a block (2 or
-// 4; any other is refused) up to K = 64, and unused above.
+// run on `stream` and do not synchronise. S is the sequences a block: 2 or
+// 4 up to K = 64, 1, 2, 4 or 8 above; any other is refused.
 int fused_fb_forward(const float* pi, const float* A, const float* W, const float* feats,
                      float* alpha, float* s, float* sh, int T, int B, int K, int F, int S,
                      int device, void* stream) {
@@ -499,20 +523,26 @@ int fused_fb_backward(const float* A, const float* W, const float* feats, const 
   }));
 }
 
-// What the instance (which, S, F) of the launchers above takes on `device`:
-// out[0] registers a thread, out[1] static and out[2] dynamic shared bytes a
-// block, out[3] local (spilled) bytes a thread, out[4] resident blocks an SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[5] the device's SMs.
-// which = 0 forward, 1 backward, 2 gated backward.
-int fused_fb_kernel_info(int which, int S, int F, int device, int* out) {
+// What the instance (which, S, K, F) of the launchers above takes on
+// `device`: out[0] registers a thread, out[1] static and out[2] dynamic
+// shared bytes a block, out[3] local (spilled) bytes a thread, out[4]
+// resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// out[5] the device's SMs, out[6] threads a block. which = 0 forward, 1
+// backward, 2 gated backward; K > 64 names the large-K instance of its KP.
+int fused_fb_kernel_info(int which, int S, int K, int F, int device, int* out) {
+  if (bad_shape(1, 1, K, F) || which < 0 || which > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
   int smem = 0;
-  const void* fn = kernel_of(which, S, F, &smem);
-  if (fn == nullptr || F < 1 || F > FMAX) return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn = instance(which, S, K, F, &smem);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int nt = K > KMAX ? fbw::tier_of(K) : NT;
   cudaError_t e = cudaSetDevice(device);
+  if (e == cudaSuccess && smem > 0)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   cudaFuncAttributes attr;
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
   int blocks = 0, sms = 0;
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, NT, smem);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, nt, smem);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return static_cast<int>(e);
   out[0] = attr.numRegs;
@@ -521,6 +551,7 @@ int fused_fb_kernel_info(int which, int S, int F, int device, int* out) {
   out[3] = static_cast<int>(attr.localSizeBytes);
   out[4] = blocks;
   out[5] = sms;
+  out[6] = nt;
   return 0;
 }
 

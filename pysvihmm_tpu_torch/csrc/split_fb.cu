@@ -228,8 +228,8 @@ split_fwd_wide_kernel(const float* __restrict__ pi, const float* __restrict__ A,
                       float* __restrict__ s_out, float* __restrict__ sh_out, int T, int B,
                       int K) {
   extern __shared__ __align__(16) float smem[];
-  fbw::wide_forward<KP, false>(pi, A, nullptr, ll, alpha, s_out, sh_out, T, B, K, 0, blockIdx.x,
-                               smem);
+  fbw::seqs_forward<KP, 1, false>(pi, A, nullptr, ll, alpha, s_out, sh_out, T, B, K, 0,
+                                  blockIdx.x, smem);
 }
 
 template <int KP, bool GATED>
@@ -240,9 +240,9 @@ split_bwd_wide_kernel(const float* __restrict__ A, const float* __restrict__ ll,
                       float* __restrict__ gamma, float* __restrict__ dn,
                       float* __restrict__ carry, int T, int B, int K, int t0, int t1) {
   extern __shared__ __align__(16) float smem[];
-  fbw::wide_backward<KP, false, GATED>(A, nullptr, ll, alpha, s_in, sh_in, pg_in, gamma,
-                                       nullptr, dn, nullptr, carry, T, B, K, 0, t0, t1,
-                                       blockIdx.x, smem);
+  fbw::seqs_backward<KP, 1, false, GATED>(A, nullptr, ll, alpha, s_in, sh_in, pg_in, gamma,
+                                          nullptr, dn, nullptr, carry, T, B, K, 0, t0, t1,
+                                          blockIdx.x, smem);
 }
 
 bool bad_shape(int T, int B, int K) {

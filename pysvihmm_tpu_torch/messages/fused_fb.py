@@ -22,9 +22,11 @@ state, each thread running its state of all S as interleaved chains; the
 launchers take S from :func:`seqs_per_block`, a plain function of B and the
 blocks of each instance the card holds at once (the library's occupancy
 query). For 65 <= K <= 256 they launch the large-K instances
-(``fused_fwd_wide_kernel<KP>``, ``fused_bwd_wide_kernel<KP, GATED>``, KP =
-128 or 256): one sequence a block, one thread a state, the statistics
-summed off the chain. Above 256 states they raise.
+(``fused_fwd_wide_kernel<KP, S>``, ``fused_bwd_wide_kernel<KP, S, GATED>``,
+KP = 128 or 256 padded states, S in :data:`WIDE_SEQS`): S sequences a block
+over one copy of A~, one thread a state, S by the same rule, and the
+statistics summed off the chain in an order that does not depend on S, so
+every output is the same bits at every S. Above 256 states they raise.
 
 Each kernel has a launcher (:func:`fused_forward`, :func:`fused_backward`)
 and a plain PyTorch twin (:func:`forward_reference`,
@@ -66,7 +68,7 @@ def _library():
         {"fused_fb_forward": "ppppppp" "iiiiii" "p",
          "fused_fb_backward": "ppppppppppp" "iiiiii" "p",
          "fused_fb_scratch": "iiiiip",
-         "fused_fb_kernel_info": "iiiip",
+         "fused_fb_kernel_info": "iiiiip",
          "fused_fb_kmax": "",
          "fused_fb_fmax": ""},
         "fused_fb_error_string",
@@ -85,62 +87,100 @@ def _check_kernel_limits(K: int, F: int) -> None:
         )
 
 
-# the sequences a block the library is built for (csrc/fused_fb.cu)
+# the sequences a block the library is built for (csrc/fused_fb.cu): up to
+# K = 64, and above (the large-K instances)
 SEQS = (2, 4)
+WIDE_SEQS = (1, 2, 4, 8)
+KMAX_SEQS = 64  # the largest K of the SEQS instances
 
 
-def seqs_per_block(B: int, resident: dict[int, int], per_group: int = 1) -> int:
+def built_seqs(K: int) -> tuple[int, ...]:
+    """The S values the library holds instances of at K states."""
+    return SEQS if K <= KMAX_SEQS else WIDE_SEQS
+
+
+def seqs_per_block(B: int, resident: dict[int, int], per_group: int = 1,
+                   seqs: tuple[int, ...] = SEQS) -> int:
     """Sequences a block S for a batch of B, given ``resident[S]``, the blocks
     of the S instance the card holds at once (blocks an SM times SMs), and
     the blocks a group of S sequences takes (2 for the duplex chain: a
     forward and a backward block).
 
-    The smallest S whose per_group ceil(B / S) blocks run in one wave, and
-    the largest when none does. Measured on the H100 (PERF.md): S = 2 is the fastest for
-    both kernels at B = 32, 256 and 1024 (two sequences a thread fill the
-    FMA pipe's latency, and the backward shares each A~ and W word it reads
+    The smallest S of ``seqs`` (the built values, ascending) whose
+    per_group ceil(B / S) blocks run in one wave, and the largest when none
+    does. For the large-K instances (``seqs`` = WIDE_SEQS) that keeps a
+    block a sequence for a small B, and carries S sequences over one copy
+    of A~ where B would need more waves: S = 8 at KP = 256 and S = 4 at KP =
+    128 for B = 1024, each the fastest S measured there (PERF.md). Up to K =
+    64, measured on the H100 (PERF.md): S = 2 is the fastest for both
+    kernels at B = 32, 256 and 1024 (two sequences a thread fill the FMA
+    pipe's latency, and the backward shares each A~ and W word it reads
     between them); S = 4 at B = 2048, where S = 2 needs a second wave, and
     for the backward at B = 4096. S = 1 lost to S = 2 at every B it was
-    timed at, and S = 8 everywhere (the backward spills): neither is built."""
-    for S in SEQS:
+    timed at, and S = 8 everywhere (the backward spills): neither is built
+    for K <= 64."""
+    for S in seqs:
         if per_group * -(-B // S) <= resident[S]:
             return S
-    return SEQS[-1]
+    return seqs[-1]
 
 
 _KERNELS = {"forward": 0, "backward": 1, "gated backward": 2}
 
 
-def kernel_info(kernel: str, S: int, F: int, device: torch.device | None = None) -> dict:
+def kernel_info(kernel: str, S: int, F: int, device: torch.device | None = None,
+                K: int = KMAX_SEQS) -> dict:
     """What one instance of the kernels takes on the card, from the library:
     ``kernel`` is "forward", "backward" or "gated backward", S the sequences a
-    block and F the feature width (the instance is built for F padded to 16,
-    32, 48 or 64). Returns registers (a thread), static_smem and dynamic_smem
-    (bytes a block), local_bytes (spills, a thread), blocks_per_sm (resident,
-    by the CUDA occupancy calculator) and sms (the card's)."""
+    block, F the feature width and K the states (up to 64 the instance built
+    for F padded to 16, 32, 48 or 64; above, the large-K instance of K's
+    padded state count, 128 or 256). Returns registers (a thread),
+    static_smem and dynamic_smem (bytes a block), local_bytes (spills, a
+    thread), blocks_per_sm (resident, by the CUDA occupancy calculator), sms
+    (the card's) and threads (a block)."""
     dev = device if device is not None else torch.device("cuda")
-    return dict(_kernel_info(kernel, S, F, device_index(dev)))
+    return dict(_kernel_info(kernel, S, F, _tier(K), device_index(dev)))
+
+
+def _tier(K: int) -> int:
+    """The K the instance that takes K is known by: 64 up to 64 states, else
+    its padded state count (128 or 256)."""
+    return KMAX_SEQS if K <= KMAX_SEQS else 128 if K <= 128 else 256
 
 
 @functools.cache
-def _kernel_info(kernel: str, S: int, F: int, index: int) -> tuple:
-    out = (ctypes.c_int * 6)()
+def _kernel_info(kernel: str, S: int, F: int, K: int, index: int) -> tuple:
+    out = (ctypes.c_int * 7)()
     lib = _library()
-    code = lib.fused_fb_kernel_info(_KERNELS[kernel], S, F, index, ctypes.addressof(out))
-    raise_on(lib.fused_fb_error_string, code, f"fused_fb_kernel_info({kernel}, S={S}, F={F})")
-    keys = ("registers", "static_smem", "dynamic_smem", "local_bytes", "blocks_per_sm", "sms")
+    code = lib.fused_fb_kernel_info(_KERNELS[kernel], S, K, F, index, ctypes.addressof(out))
+    raise_on(lib.fused_fb_error_string, code,
+             f"fused_fb_kernel_info({kernel}, S={S}, K={K}, F={F})")
+    keys = ("registers", "static_smem", "dynamic_smem", "local_bytes", "blocks_per_sm", "sms",
+            "threads")
     return tuple(zip(keys, list(out)))
 
 
-def default_seqs(kernel: str, B: int, F: int, device: torch.device) -> int:
-    """The launchers' S: :func:`seqs_per_block` on the card's own occupancy."""
-    return _default_seqs(kernel, B, F, device_index(device))
+def default_seqs(kernel: str, B: int, F: int, device: torch.device, K: int = KMAX_SEQS) -> int:
+    """The launchers' S: :func:`seqs_per_block` over the instances built for
+    K (:func:`built_seqs`) on the card's own occupancy."""
+    return _default_seqs(kernel, B, F, _tier(K), device_index(device))
 
 
 @functools.cache
-def _default_seqs(kernel: str, B: int, F: int, index: int) -> int:
-    info = {S: dict(_kernel_info(kernel, S, F, index)) for S in SEQS}
-    return seqs_per_block(B, {S: i["blocks_per_sm"] * i["sms"] for S, i in info.items()})
+def _default_seqs(kernel: str, B: int, F: int, K: int, index: int) -> int:
+    seqs = built_seqs(K)
+    info = {S: dict(_kernel_info(kernel, S, F, K, index)) for S in seqs}
+    return seqs_per_block(B, {S: i["blocks_per_sm"] * i["sms"] for S, i in info.items()},
+                          seqs=seqs)
+
+
+def _seqs(kernel: str, S: int | None, B: int, K: int, F: int, index: int) -> int:
+    """S for a launch: the default when None, else a built one or raise."""
+    if S is None:
+        return _default_seqs(kernel, B, F, _tier(K), index)
+    if S not in built_seqs(K):
+        raise ValueError(f"no {kernel} instance with S={S} at K={K}: built {built_seqs(K)}")
+    return S
 
 
 # ----------------------------------------------------------------- forward
@@ -168,8 +208,9 @@ def fused_forward(
 
 
 def _launch_forward(S: int | None, pi_t, A_t, W, feats):
-    """:func:`fused_forward` with S sequences a block (one of SEQS; None for
-    :func:`default_seqs`): the card tests and chip_smoke.py's sweeps of S."""
+    """:func:`fused_forward` with S sequences a block (one of
+    :func:`built_seqs` at this K; None for :func:`default_seqs`): the card
+    tests and chip_smoke.py's sweeps of S."""
     T, B, F = feats.shape
     K = A_t.shape[0]
     dev = feats.device
@@ -181,7 +222,7 @@ def _launch_forward(S: int | None, pi_t, A_t, W, feats):
     _check_kernel_limits(K, F)
     lib = _library()
     index = device_index(dev)
-    S = S if S is not None else _default_seqs("forward", B, F, index)
+    S = _seqs("forward", S, B, K, F, index)
     alpha = torch.empty((T, B, K), dtype=torch.float32, device=dev)
     s = torch.empty((B, T), dtype=torch.float32, device=dev)
     sh = torch.empty((B, T), dtype=torch.float32, device=dev)
@@ -271,7 +312,7 @@ def _launch_backward(S: int | None, A_t, W, feats, alpha, s, sh, emit_gamma=Fals
     lib = _library()
     kind = "backward" if weights is None else "gated backward"
     index = device_index(dev)
-    S = S if S is not None else _default_seqs(kind, B, F, index)
+    S = _seqs(kind, S, B, K, F, index)
     gamma = torch.empty((T, B, K), dtype=torch.float32, device=dev) if emit_gamma else None
     gamma0 = torch.empty((B, K), dtype=torch.float32, device=dev)
     stats = torch.empty(K * K + K * F, dtype=torch.float32, device=dev)  # acc, then eacc

@@ -257,12 +257,63 @@ def test_large_k_kernels_match_plain_twins(cuda_device, B, T, K, gated):
         torch.testing.assert_close(x, r, rtol=rtol, atol=atol)
 
 
+@pytest.mark.parametrize("B", [1, 3, 1024, 2048])
+@pytest.mark.parametrize("K", [65, 128, 129, 256])
+@pytest.mark.parametrize("gated", [False, True])
+def test_large_k_pair_is_the_same_bits_at_every_s(cuda_device, B, K, gated):
+    """Every built S of the large-K fused pair (sequences a block over one
+    copy of A~; B = 1 and 3 leave the last block short, 2048 takes two waves
+    at S = 8 and KP = 256) against the twins, emit_gamma both ways; alpha, s,
+    sh, gamma, gamma0, acc and eacc are the same bits at every S (each
+    sequence's arithmetic and the statistics' order do not depend on S), and
+    the duplex chain's alpha, s and sh are the forward's. At B = 1024 and
+    2048 the statistics take three windows of time steps."""
+    T = 300 if B <= 1024 else 150
+    gen = torch.Generator(device=cuda_device).manual_seed(700 + K + B)
+    log_pi, log_A, W, feats = random_problem(gen, B, T, K, 3)
+    w = svi_masks(gen, B, T, (3 * T) // 4) if gated else None
+    pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+    a_r, s_r, sh_r = fused_fb.forward_reference(pi_t, A_t, W, feats)
+    ref = fused_fb.backward_reference(A_t, W, feats, a_r, s_r, sh_r, True, w)
+    first = None
+    for S in fused_fb.WIDE_SEQS:
+        fwd = fused_fb._launch_forward(S, pi_t, A_t, W, feats)
+        for x, r in zip(fwd, (a_r, s_r)):
+            torch.testing.assert_close(x, r, rtol=0, atol=5e-5)
+        torch.testing.assert_close(fwd[2], sh_r, rtol=2e-6, atol=1e-4)
+        got = fused_fb._launch_backward(S, A_t, W, feats, a_r, s_r, sh_r, True, w)
+        for x, r, rtol, atol in zip(got, ref, (0, 0, 1e-4, 3e-3), (5e-5, 5e-5, 1e-3, 2e-3)):
+            torch.testing.assert_close(x, r, rtol=rtol, atol=atol)
+        lean = fused_fb._launch_backward(S, A_t, W, feats, a_r, s_r, sh_r, False, w)
+        assert lean[0] is None
+        assert all(torch.equal(x, y) for x, y in zip(lean[1:], got[1:]))
+        first = first or (fwd, got)
+        assert all(torch.equal(x, y) for x, y in zip(fwd + got, first[0] + first[1])), S
+    chain = duplex_fb.duplex_chain(pi_t, A_t, W, feats)
+    assert all(torch.equal(x, y) for x, y in zip(chain[:3], first[0]))
+
+
+@pytest.mark.parametrize("K", [128, 256])
+def test_large_k_pair_runs_b1024_in_one_wave(cuda_device, K):
+    """At the VB shape (B=1024, F=45) the large-K pair's default S fits all
+    ceil(B/S) blocks on the card at once, by the library's occupancy query,
+    and B=32 (the small SVI batch) keeps a block a sequence."""
+    for kind in ("forward", "backward", "gated backward"):
+        S = fused_fb.default_seqs(kind, 1024, 45, cuda_device, K=K)
+        info = fused_fb.kernel_info(kind, S, 45, cuda_device, K=K)
+        assert S in fused_fb.WIDE_SEQS and info["threads"] == K
+        assert -(-1024 // S) <= info["blocks_per_sm"] * info["sms"], (kind, S, info)
+        assert fused_fb.default_seqs(kind, 32, 45, cuda_device, K=K) == 1
+
+
 @pytest.mark.parametrize("K", [64, 256])
 @pytest.mark.parametrize("gated", [False, True])
 def test_backward_statistics_repeat_bit_for_bit(cuda_device, K, gated):
     """acc and eacc of each backward kernel (fused, split, duplex combine)
     are the same bits over 5 calls on the same inputs: the sums across
-    blocks run in an order fixed by the shapes."""
+    blocks run in an order fixed by the shapes. The fused backward at its
+    default S and, above K = 64, at every built S, which all give the same
+    bits there."""
     B, T, D = 2048, 150, 8  # three windows of the large-K statistics
     gen = torch.Generator(device=cuda_device).manual_seed(500 + K)
     log_pi, log_A, W, feats = random_problem(gen, B, T, K, D)
@@ -274,10 +325,17 @@ def test_backward_statistics_repeat_bit_for_bit(cuda_device, K, gated):
     calls = {"fused": lambda: fused_fb.fused_backward(A_t, W, feats, a, s, sh, False, w)[2:],
              "split": lambda: split_fb.split_backward(A_t, ll, a, s, sh, g)[1:],
              "duplex": lambda: duplex_fb.duplex_combine(W, feats, a, beta, sh, False, w)[2:]}
+    if K > 64:
+        for S in fused_fb.WIDE_SEQS:
+            calls[f"fused S={S}"] = lambda S=S: fused_fb._launch_backward(
+                S, A_t, W, feats, a, s, sh, False, w)[2:]
+    firsts = {}
     for name, call in calls.items():
-        first = call()
+        first = firsts[name] = call()
         for _ in range(4):
             assert all(torch.equal(x, y) for x, y in zip(call(), first)), name
+    for S in fused_fb.WIDE_SEQS if K > 64 else ():
+        assert all(torch.equal(x, y) for x, y in zip(firsts[f"fused S={S}"], firsts["fused"])), S
 
 
 def test_auto_runs_the_kernels_in_batch_vb(cuda_device):

@@ -192,6 +192,11 @@ def test_launchers_reject_what_the_kernels_do_not_take(bad):
 # (PERF.md), and on a card of 114 SMs
 H100 = {2: 4 * 132, 4: 4 * 132}
 SMALL = {2: 4 * 114, 4: 4 * 114}
+# the large-K instances (S = 1, 2, 4, 8) on the H100 by their shared memory:
+# at KP = 256 one block an SM at every S (199-217 KB); at KP = 128 three (67-72
+# KB), two at S = 8 (78 KB)
+WIDE256 = {1: 132, 2: 132, 4: 132, 8: 132}
+WIDE128 = {1: 3 * 132, 2: 3 * 132, 4: 3 * 132, 8: 2 * 132}
 
 
 @pytest.mark.parametrize("B,resident,per_group,S", [
@@ -199,13 +204,34 @@ SMALL = {2: 4 * 114, 4: 4 * 114}
     (1056, H100, 1, 2), (1057, H100, 1, 4), (2112, H100, 1, 4), (4096, H100, 1, 4),
     (1024, SMALL, 1, 4),
     # the duplex chain: a forward and a backward block a group of S sequences
-    (528, H100, 2, 2), (529, H100, 2, 4), (1024, H100, 2, 4), (4096, H100, 2, 4)])
+    (528, H100, 2, 2), (529, H100, 2, 4), (1024, H100, 2, 4), (4096, H100, 2, 4),
+    # the large-K pair: a block a sequence while B fits one wave, then S
+    # sequences over one copy of A~ (S = 8 at KP = 256 for B = 1024)
+    (1, WIDE256, 1, 1), (32, WIDE256, 1, 1), (1024, WIDE256, 1, 8), (2048, WIDE256, 1, 8),
+    (1, WIDE128, 1, 1), (32, WIDE128, 1, 1), (1024, WIDE128, 1, 4), (2048, WIDE128, 1, 8)])
 def test_seqs_per_block_is_the_smallest_one_wave_s(B, resident, per_group, S):
-    """The launchers' sequences a block: S = 2 (the fastest measured), down
-    to a single sequence, growing only when per_group ceil(B / S) blocks
-    would need a second wave."""
-    assert fused_fb.seqs_per_block(B, resident, per_group) == S
-    assert S in fused_fb.SEQS
+    """The launchers' sequences a block over the instances ``resident``
+    counts (S = 2, 4 up to K = 64; S = 1, 2, 4, 8 above): the smallest S
+    (S = 2, the fastest measured, up to K = 64; a single sequence above)
+    whose per_group ceil(B / S) blocks run in one wave, the largest when
+    none does."""
+    seqs = tuple(sorted(resident))
+    assert seqs in (fused_fb.SEQS, fused_fb.WIDE_SEQS)
+    assert fused_fb.seqs_per_block(B, resident, per_group, seqs) == S
+    assert S in seqs
+
+
+def test_built_seqs_follow_k():
+    """K <= 64 takes the S = 2, 4 instances, 65-256 the large-K ones at S =
+    1, 2, 4, 8, and the S of a launch is one of them (ValueError else, no
+    fallback), checked before anything is launched."""
+    assert fused_fb.built_seqs(64) == (2, 4)
+    assert fused_fb.built_seqs(65) == fused_fb.built_seqs(256) == (1, 2, 4, 8)
+    with pytest.raises(ValueError, match="S=3"):
+        fused_fb._seqs("forward", 3, 1024, 128, 45, 0)
+    with pytest.raises(ValueError, match="S=1"):
+        fused_fb._seqs("backward", 1, 1024, 64, 45, 0)
+    assert fused_fb._seqs("gated backward", 8, 1024, 256, 45, 0) == 8
 
 
 def test_gated_backward_reads_only_the_kept_mask():

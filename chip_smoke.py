@@ -37,8 +37,13 @@ fails:
             and eacc (ungated and gated) the same bits at every S, and the
             duplex chain's alpha, s and sh those of the forward; and each
             backward kernel (fused, split, duplex combine), gated and not,
-            5 times on one full-shape input at K = 64 and 256: acc and eacc
-            must be the same bits every time.
+            5 times on one full-shape input at K = 64, 128 and 256: acc and
+            eacc must be the same bits every time. Last, the precision gate
+            of the large-K outer sums (3xTF32 on the tensor cores): on every
+            window of one backward at B=1024, T=1000, D=8, K = 128 and 256
+            (the operands from plain PyTorch), acc's and eacc's max |err| /
+            max |ref| against float64 at most twice float32 torch.matmul's
+            (TF32 off), and the same bits over 5 calls.
 4. VB:      5 batch-VB iterations at B=1024, T=1000, K=64, D=8 through
             ``method="auto"``; each kernel must launch once per iteration
             and the ELBO must be finite and non-decreasing. Then the small
@@ -65,7 +70,9 @@ fails:
             a profile of the SVI step. Each route kernel's large-K
             instances at K = 128 and 256 (B=1024, T=1000, F=45) against
             its twin and bound (their registers, spills and shared bytes
-            are phase 2's ptxas lines).
+            are phase 2's ptxas lines). The large-K outer sums alone over
+            the products of one backward at K = 128 and 256, beside one
+            torch.matmul a product in float32 (and TF32, for reference).
 6. SVI:     windowed subchain SVI at full width (K=64, D=8, one chain of
             T=100,000 with overlapping states, B=1024, L=50, b=10): 20
             steps through ``method="auto"``, then 20 through "split" and 20
@@ -110,10 +117,12 @@ fails:
             relative, each route's local step against "scan"); then 10 SVI
             steps on "auto" at K=128, W=70, B=1024 on a T=100,000 chain and
             3 on "split" and "duplex", every parameter finite after every
-            step.
+            step; the outer sums launched once a window for acc and once for
+            eacc in every backward of those runs.
 
 The last lines are the card line, one JSON line describing the kernels (every
-kernel and instance tier: K <= 64, KP = 128, KP = 256) and, last,
+kernel and instance tier: K <= 64, KP = 128, KP = 256; the outer sums at K =
+128 and 256, the one entry with a library call) and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -572,6 +581,139 @@ def check_repeatable(gen, K_) -> None:
     del a, beta, ll, feats
 
 
+WIDE_ROWS = 1 << 17  # (t, b) rows a window of the large-K statistics (csrc/fb_stats.cuh)
+OUTER_NAME = "outer_partial_kernel"  # the outer sums' kernel (+ sum_partials_kernel)
+OUTER_RATIO = 2.0  # the outer sums' error against float64, at most this times float32 matmul's
+
+
+def stat_windows(A_t, W, feats, alpha, s, sh):
+    """The operands the large-K backward's outer sums take, window by window,
+    from plain PyTorch: windows of WIDE_ROWS // B steps, the last first
+    (``fb_stats.cuh::WideStats``), each a pair ((X, Y) of acc, (X, Y) of
+    eacc): acc over the window's steps t >= 1, X = alpha_{t-1} and Y = d_t
+    n_t (the split backward twin's dn); eacc over its steps, X = gamma_t and
+    Y = f_t; rows (t, b) in order, ungated."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages.split_fb import SUM_FLOOR
+
+    T_, B_, F_ = feats.shape
+    K_ = A_t.shape[0]
+    lik = torch.exp(feats @ W - sh.T[..., None])
+    r = 1.0 / torch.clamp_min(s, SUM_FLOOR)
+    beta = r[:, T_ - 1, None].expand(B_, K_)
+    dn, gamma = torch.zeros_like(alpha), torch.empty_like(alpha)
+    for t in range(T_ - 1, -1, -1):  # split_fb.split_backward_reference's recursion
+        graw = alpha[t] * beta
+        n = 1.0 / torch.clamp_min(graw.sum(dim=-1), SUM_FLOOR)
+        gamma[t] = graw * n[:, None]
+        if t >= 1:
+            d = (lik[t] * r[:, t - 1, None]) * beta
+            dn[t] = d * n[:, None]
+            beta = d @ A_t.T
+    steps = max(1, min(T_, WIDE_ROWS // B_))
+    wins = []
+    for t1 in range(T_, 0, -steps):
+        t0 = max(0, t1 - steps)
+        ta = max(t0, 1)
+        wins.append(((alpha[ta - 1:t1 - 1].reshape(-1, K_), dn[ta:t1].reshape(-1, K_)),
+                     (gamma[t0:t1].reshape(-1, K_), feats[t0:t1].reshape(-1, F_))))
+    return wins
+
+
+def outer_errors(X, Y) -> tuple[float, float, float]:
+    """(the kernel's max |err| / max |ref|, float32 torch.matmul's, the
+    kernel's max |err|) of X^T Y against float64 on the same operands."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+
+    ref = X.double().T @ Y.double()
+    got, mm = ff.outer_sum(X, Y), torch.matmul(X.T, Y)
+    scale = ref.abs().max().item()
+    err = (got.double() - ref).abs().max().item()
+    return err / scale, (mm.double() - ref).abs().max().item() / scale, err
+
+
+def check_outer_sums(gen) -> dict[int, float]:
+    """Phase 3, the precision gate of the large-K outer sums (3xTF32 on the
+    tensor cores), at B=1024, T=1000, D=8 (F=45) for each K of LARGE_K, on
+    the windows one backward sums (:func:`stat_windows` of the fused
+    forward's outputs): on every window, acc's and eacc's max |err| / max
+    |ref| against float64 at most OUTER_RATIO times float32 torch.matmul's
+    (TF32 off) on the same operands; and five calls on one window the same
+    bits. Returns acc's largest max |err| by K."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+
+    errs = {}
+    for K_ in LARGE_K:
+        log_pi, log_A, W, feats = random_problem(gen, B, T, K_, D)
+        pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+        wins = stat_windows(A_t, W, feats, *ff.fused_forward(pi_t, A_t, W, feats))
+        worst = {}
+        for w, pair in enumerate(wins):
+            for name, (X, Y) in zip(("acc", "eacc"), pair):
+                e_k, e_m, e_abs = outer_errors(X, Y)
+                log(f"    K={K_}, window {w} ({X.shape[0]} rows), {name}: kernel {e_k:.3e}, "
+                    f"float32 matmul {e_m:.3e} (of max|ref|), ratio {e_k / max(e_m, 1e-30):.2f}")
+                require(e_k <= OUTER_RATIO * e_m,
+                        f"K={K_}, window {w}, {name}: the outer sums' error {e_k:.3e} is above "
+                        f"{OUTER_RATIO} x float32 matmul's {e_m:.3e}")
+                prev = worst.get(name, (0.0, 0.0, 0.0))
+                worst[name] = tuple(max(a, b) for a, b in zip(prev, (e_k, e_m, e_abs)))
+        for name, (e_k, e_m, _) in worst.items():
+            log(f"  K={K_}, {name} over {len(wins)} windows: kernel at most {e_k:.3e}, float32 "
+                f"matmul at most {e_m:.3e} of max|ref| against float64")
+        errs[K_] = worst["acc"][2]
+        for name, (X, Y) in zip(("acc", "eacc"), wins[0]):
+            first = ff.outer_sum(X, Y)
+            same = all(torch.equal(ff.outer_sum(X, Y), first) for _ in range(4))
+            torch.cuda.synchronize()
+            log(f"  K={K_}, {name} of window 0: the same bits over 5 calls: {same}")
+            require(same, f"the outer sums changed between identical calls at K={K_}")
+        del wins, feats
+        torch.cuda.empty_cache()
+    return errs
+
+
+def time_outer_sums(gen) -> tuple[dict, dict, dict, dict]:
+    """Phase 5: the outer sums alone over every window of one backward (acc
+    and eacc, :func:`stat_windows`) at B=1024, T=1000, F=45 for each K of
+    LARGE_K, by CUDA events, beside their twin and one torch.matmul(X.T, Y)
+    a window in float32 (TF32 off, the yardstick; TF32 on is logged for
+    reference). Returns (ms, twin ms, matmul ms, bounds) by K."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.scripts.debug_split import cuda_ms
+    from pysvihmm_tpu_torch.utils.precision import f32_matmuls
+    from pysvihmm_tpu_torch.utils.roofline import bound, kernel_work
+
+    ms, plain_ms, lib_ms, bounds = {}, {}, {}, {}
+    for K_ in LARGE_K:
+        log_pi, log_A, W, feats = random_problem(gen, B, T, K_, D)
+        pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+        wins = stat_windows(A_t, W, feats, *ff.fused_forward(pi_t, A_t, W, feats))
+        pairs = [xy for pair in wins for xy in pair]
+        ms[K_] = cuda_ms(lambda: [ff.outer_sum(X, Y) for X, Y in pairs], 20, warmup=3)
+        plain_ms[K_] = cuda_ms(lambda: [ff.outer_sum_reference(X, Y) for X, Y in pairs], 20)
+        lib_ms[K_] = cuda_ms(lambda: [torch.matmul(X.T, Y) for X, Y in pairs], 20)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32_ms = cuda_ms(lambda: [torch.matmul(X.T, Y) for X, Y in pairs], 20)
+        f32_matmuls()
+        bounds[K_] = bound(*kernel_work("outer_sums", B, T, K_, feats.shape[-1]))
+        log(f"outer sums (outer_partial_kernel + sum_partials_kernel), the {len(pairs)} products "
+            f"of one backward at (B, T, K, F) = ({B}, {T}, {K_}, {feats.shape[-1]}): "
+            f"{ms[K_]:.3f} ms, twin {plain_ms[K_]:.3f} ms, torch.matmul float32 {lib_ms[K_]:.3f} "
+            f"ms (TF32 {tf32_ms:.3f} ms, reference only), bound {bounds[K_][0]:.3f} ms "
+            f"({bounds[K_][1]}), {100 * bounds[K_][0] / ms[K_]:.1f} % of it")
+        del wins, pairs, feats
+        torch.cuda.empty_cache()
+    return ms, plain_ms, lib_ms, bounds
+
+
 def kernel_counts() -> dict[str, int]:
     """Launches of every kernel since the last reset, by kernel (instance)."""
     from pysvihmm_tpu_torch.messages import duplex_fb as df
@@ -601,6 +743,7 @@ def reset_kernel_counts() -> None:
     sf.reset_launch_counts()
     df.reset_launch_counts()
     sp.reset_launch_counts()
+    ff.outer_launches(clear=True)
 
 
 ROUTE_KERNELS = {"auto": ("fused_fwd_kernel", "fused_bwd_kernel"),
@@ -1139,16 +1282,24 @@ def large_k_phase(dev) -> dict[tuple[str, int], int]:
     each route's local step at the fitted params against "scan"); then 10
     SVI steps on "auto" at K=128, W=70, B=1024 on a T=100,000 chain, and 3
     on "split" and "duplex" (one launch of each route kernel a step, every
-    parameter finite after every step). Returns the launches by (kernel, K)."""
+    parameter finite after every step). The outer sums must launch once a
+    window for acc and once for eacc (acc only on "split") in every backward
+    of those runs. Returns the launches by (kernel, K), the outer sums' under
+    OUTER_NAME."""
     import torch
 
     from pysvihmm_tpu_torch.data.synthetic import gen_gaussian_dataset
     from pysvihmm_tpu_torch.distributions import GaussianNIW
     from pysvihmm_tpu_torch.engines import batch_vb, svi
     from pysvihmm_tpu_torch.engines.base import batch_local_step
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
     from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
 
-    launches = {}
+    def outer_want(route, T_, calls):
+        windows = -(-T_ // max(1, min(T_, WIDE_ROWS // B)))
+        return calls * windows * (1 if route == "split" else 2)
+
+    launches = {(OUTER_NAME, K_): 0 for K_ in LARGE_K}
     gen = torch.Generator(device=dev).manual_seed(256)
     K_ = LARGE_VB_K
     obs, _, _ = gen_gaussian_dataset(gen, K_, D, B, T)
@@ -1166,6 +1317,10 @@ def large_k_phase(dev) -> dict[tuple[str, int], int]:
         require_launches(counts, route, VB_ITERS, f"K={K_} VB on {route}")
         for name in ROUTE_KERNELS[route]:
             launches[name, K_] = counts[name]
+        n_outer, want = ff.outer_launches(), outer_want(route, T, VB_ITERS)
+        require(n_outer == want, f"K={K_} VB on {route}: the outer sums launched {n_outer} "
+                                 f"times, expected {want}")
+        launches[OUTER_NAME, K_] += n_outer
         require_ascending(e, f"K={K_} VB on {route}")
         elbos[route] = e.double().cpu()
         log(f"  K={K_}, B={B}, T={T}, D={D}, {route}: {time.perf_counter() - t0:.3f} s; ELBO "
@@ -1195,6 +1350,10 @@ def large_k_phase(dev) -> dict[tuple[str, int], int]:
         _, ne, counts = svi_run(route, cfg, p0, prior, chain, seed=13, steps=steps)
         for name in ROUTE_KERNELS[route]:
             launches[name, K_] = counts[name]
+        n_outer, want = ff.outer_launches(), outer_want(route, SVI_W, steps)
+        require(n_outer == want, f"SVI at K={K_} on {route}: the outer sums launched {n_outer} "
+                                 f"times, expected {want}")
+        launches[OUTER_NAME, K_] += n_outer
         log(f"  SVI at K={K_}, W={SVI_W}, B={B}, T={SVI_T} on {route}: {steps} steps checked in "
             f"{time.perf_counter() - t0:.2f} s; noisy ELBO " + ", ".join(f"{x:.6e}" for x in ne))
     return launches
@@ -1347,6 +1506,8 @@ def tier_name(name: str, K_: int) -> str:
     """The kernel instance that runs ``name`` at K_ states: the named kernel
     up to 64, its large-K instance (csrc/*.cu) at KP = 128 or 256 above."""
     kp = tier(K_)
+    if name == OUTER_NAME:
+        return f"{name} (K={K_})"
     if kp == K:
         return name
     if name in WIDE_NAMES:
@@ -1497,8 +1658,11 @@ def main() -> int:
     log(f"  the large-K fused pair at every S at full width, K = {LARGE_K}")
     check_wide_seqs(gen)
     log("  acc and eacc over repeated calls")
-    for K_ in (K, LARGE_VB_K):
+    for K_ in (K, *LARGE_K):
         check_repeatable(gen, K_)
+    log(f"  the large-K outer sums (3xTF32) against float64 on one backward's windows, K = "
+        f"{LARGE_K}: at most {OUTER_RATIO} x float32 torch.matmul's error")
+    outer_errs = check_outer_sums(gen)
 
     log("== phase 4: batch VB at B=1024, T=1000, K=64, D=8")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1579,6 +1743,8 @@ def main() -> int:
     fused_layout(full_inputs, {name: ms[name, K] for name in FUSED_KERNELS})
     duplex_layout(duplex_inputs, ms["duplex_chain_kernel", K])
     wide_layout(torch.Generator(device=dev).manual_seed(82))
+    outer_ms, outer_plain_ms, outer_lib_ms, outer_bounds = time_outer_sums(
+        torch.Generator(device=dev).manual_seed(83))
     fused_large_batches(torch.Generator(device=dev).manual_seed(80))
     svi_shape_pair(torch.Generator(device=dev).manual_seed(79))
 
@@ -1780,6 +1946,19 @@ def main() -> int:
                 "ms": ms[key], "plain_ms": plain_ms[key], "bound_ms": bounds[key][0],
                 "bound_by": bounds[key][1], "library_ms": None,
             })
+    # the large-K statistics' outer sums, which every large-K backward and the
+    # duplex combine launch (pallas_fb.py:664, `outer_acc`, is the sum they
+    # replace); times over the products of one backward, against one
+    # torch.matmul a product
+    for K_ in LARGE_K:
+        kernels.append({
+            "name": tier_name(OUTER_NAME, K_), "route": "cuda",
+            "source": "pysvihmm_tpu_torch/csrc/fb_stats.cuh",
+            "replaces": "pysvihmm_tpu/messages/pallas_fb.py:664",
+            "launches": wide_launches[OUTER_NAME, K_], "max_abs_err": outer_errs[K_],
+            "ms": outer_ms[K_], "plain_ms": outer_plain_ms[K_], "bound_ms": outer_bounds[K_][0],
+            "bound_by": outer_bounds[K_][1], "library_ms": outer_lib_ms[K_],
+        })
     # the probes: the kernel body each replaces in scripts/debug_pallas_split.py
     for name, line in (("probe_fwd_nos_kernel", 25), ("probe_fwd_stack_kernel", 48),
                        ("probe_micro_kernel<DOT_ONLY>", 229),
@@ -1808,7 +1987,10 @@ def main() -> int:
         f"above K={K}), each probe's alpha (and s) at (T, B, C) = ({T}, {B}, {PROBE_C}) and "
         f"the tier's K, the shape it is timed at; ms, plain_ms and "
         f"bound_ms at (B, T, F) = ({B}, {T}, {F}) and the tier's K ({K}, "
-        f"{', '.join(map(str, LARGE_K))}), ungated, and for the probes at C={PROBE_C}")
+        f"{', '.join(map(str, LARGE_K))}), ungated, and for the probes at C={PROBE_C}; the "
+        f"outer sums: launches over phase 9's VB (K={LARGE_VB_K}) and SVI (K={LARGE_SVI_K}) "
+        f"runs, max_abs_err acc's largest against float64 over one backward's windows, ms "
+        f"over that backward's products, library_ms one float32 torch.matmul a product")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -105,6 +105,11 @@ def build(names: list[str]) -> None:
         raise RuntimeError("\n".join(failed))
 
 
+def loaded_library(name: str) -> ctypes.CDLL | None:
+    """The library of ``csrc/<name>.cu`` if it is loaded, else None (no build)."""
+    return _loaded.get(name)
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its library is missing, then load it once."""
     if name not in _loaded:

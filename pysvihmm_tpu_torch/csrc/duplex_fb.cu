@@ -815,6 +815,12 @@ int duplex_fb_chain(const float* pi, const float* A, const float* W, const float
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
+// Launches of the outer sums' kernel (fbs::outer_sum) by this library's
+// large-K launcher since the count was last cleared; clears it when `clear`.
+int duplex_fb_outer_launches(int clear) {
+  return fbs::outer_launches(clear != 0);
+}
+
 // w is null for the ungated launch, else the (T, B) kept-mask. stats
 // receives acc (K, K) and then eacc (K, F), summed in a fixed order
 // (fb_stats.cuh); scratch holds duplex_fb_scratch floats. Above K = 64 the

@@ -12,10 +12,11 @@
 //     beside the rest), so they write the statistics' two operands a step
 //     instead (the gated d_t n_t and w_t gamma_t), a window of time steps at
 //     a time (WideStats), and outer_sum() forms sum_n X[n] (x) Y[n] over the
-//     window's (t, b) rows as a tiled product: a chunk of rows a block, rows
-//     in order inside it, the chunks' partials added in chunk order to what
-//     the windows before gave. The windows and chunks follow from the shapes
-//     alone, and the scratch from (B, K, F), not T.
+//     window's (t, b) rows as a tiled product on the tensor cores (3xTF32,
+//     below): a chunk of rows a block, rows in order inside it, the chunks'
+//     partials added in chunk order to what the windows before gave. The
+//     windows and chunks follow from the shapes alone, and the scratch from
+//     (B, K, F), not T.
 
 #pragma once
 
@@ -55,60 +56,250 @@ inline cudaError_t sum_partials(const float* part, int n, int len, float* out, c
   return cudaGetLastError();
 }
 
-constexpr int OT = 64;   // edge of an output tile of outer_partial_kernel
-constexpr int ON = 16;   // rows a stage
-constexpr int OUTER_NT = 256;  // threads: 16 x 16, 4 x 4 outputs each
-constexpr int OUTER_BLOCKS = 528;  // blocks a product aims at (4 x 132 SMs; a constant, so
-                                   // the chunks do not depend on the card)
+// ---------------------------------------------------------------------------
+// The outer sums, on the tensor cores at 3xTF32.
+//
+// outer_sum() forms part[c] = X[chunk c]^T Y[chunk c] for row-major X (N, I)
+// and Y (N, J): the large-K statistics acc = sum outer(a_{t-1}, dn_t) and
+// eacc = sum outer(gw_t, f_t). The JAX kernels take the same sums on the
+// matrix unit (pysvihmm_tpu/messages/pallas_fb.py:664 `outer_acc`, used at
+// :678 in _bwd_kernel_fused; pallas_duplex.py:233-260 in _combine_kernel) at
+// their "bf16x3" tier, three passes over hi / lo split operands
+// (pallas_fb.py:241). Here the counterpart is 3xTF32: each float x splits
+// into big = tf32(x) and small = tf32(x - big) (to nearest), and
+// mma.sync.m16n8k8 adds small.big + big.small, then big.big, into float32
+// accumulators, as CUTLASS's OpMultiplyAddFastF32 orders them. A tf32 part
+// keeps 11 significant bits against bf16's 8.
+//
+// What bounds it on this card: at K = 256, B = 1024, T = 1000, F = 45 the
+// sums read 3.33 GB and do 3 x 157.7 GFLOP of TF32 products, 0.99 ms of
+// bytes and 0.96 ms at the 495 TFLOP/s TF32 peak, so both; but that peak is
+// wgmma's, and wgmma takes TF32 operands K-major only, where these are
+// M- and N-major (the contraction runs over the rows n of row-major X and
+// Y). mma.sync takes them as loaded, at a lower peak, and each mma needs
+// its operands' split, loads and sums issued beside it, so issue slots and
+// the mma pipe set the pace together. The design:
+//   * output tiles of 128 x 128 (J > 64; 8 warps of 64 x 32, 4 x 4 mma
+//     tiles) or 128 x 64 (J <= 64, eacc; 8 warps of 32 x 32), one block an
+//     SM, so each split of an operand feeds 2 to 4 mma a pass and K = 256
+//     reads each row of acc's operands twice;
+//   * a ring of OSTAGES stages of ON rows in shared memory filled by
+//     cp.async (16 bytes where a row pitch and the base are 16-byte aligned,
+//     4 bytes elsewhere: K = 65 or 129, F = 45), the loads of stage s + 3 in
+//     flight while stage s is multiplied; rows as loaded, xs[n][i] and
+//     ys[n][j], the row pitch 8 words past a multiple of 32, so that the
+//     fragment reads (lane g = lane / 4, t = lane % 4: A xs[t][g], xs[t][g +
+//     8], xs[t + 4][g], xs[t + 4][g + 8]; B ys[t][g], ys[t + 4][g]) are free
+//     of bank conflicts;
+//   * the split in four integer and float operations a value, not cvt;
+//   * the tensor cores' float32 sums truncate, so each step of 8 rows (its
+//     three passes) starts a fresh mma sum, which is then added into a
+//     second set of registers by FADD, in step order: on operands of one
+//     sign the truncation would otherwise bias the sums by a few 1e-7.
+// A fixed order: the chunks follow from (N, I, J) alone (OUTER_BLOCKS is a
+// constant, not the card's SM count), a block takes its rows in stage order,
+// and sum_partials adds the chunks' partials in chunk order, so the sums are
+// the same bits on every call and whatever produced the same operands.
+
+constexpr int ON = 32;             // rows a stage
+constexpr int OSTAGES = 4;         // stages in the ring
+constexpr int OUTER_BLOCKS = 132;  // blocks a product aims at (one an SM on an H100; a
+                                   // constant, so the chunks do not depend on the card)
+
+// An output tile of WI x WJ warps, each a patch of MT x NTL mma tiles (16
+// rows of i by 8 columns of j each).
+template <int WI, int WJ, int MT, int NTL>
+struct OuterTile {
+  static constexpr int MI = 16 * MT, MJ = 8 * NTL;   // a warp's patch
+  static constexpr int TI = MI * WI, TJ = MJ * WJ;   // the tile
+  static constexpr int NT = 32 * WI * WJ;            // threads
+  static constexpr int M = MT, N = NTL;
+  static constexpr int PX = TI + 8, PY = TJ + 8;     // row pitches, 8 mod 32 words
+  static constexpr int STAGE = ON * (PX + PY);       // floats a stage
+  static constexpr int SMEM = OSTAGES * STAGE * 4;   // bytes of the ring
+  static_assert(PX % 32 == 8 && PY % 32 == 8, "conflict-free fragment reads");
+};
+using WideTile = OuterTile<2, 4, 4, 4>;    // 128 x 128 (64 x 32 a warp), for J > 64
+using NarrowTile = OuterTile<4, 2, 2, 4>;  // 128 x 64 (32 x 32 a warp), for J <= 64 (eacc)
+
+// V floats (1 or 4) from src to shared dst, zeros where !valid (src is then
+// not read).
+template <int V>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 4 * V : 0;
+  if constexpr (V == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int PENDING>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// x to tf32, to nearest (ties away from zero) on the magnitude's bits: what
+// cvt.rna.tf32.f32 gives for finite x, in two integer operations (ptxas
+// expands that cvt into four on sm_90a, an add, a compare, a select and a
+// mask).
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small to about 2^-22 relative, both tf32 (their bits as b32);
+// x - big is exact in float32.
+__device__ __forceinline__ void split_tf32(float x, unsigned& big, unsigned& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// c += a b on one m16n8k8 tile (A row-major 16 x 8, B column-major 8 x 8).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One operand's share of a stage: W columns of ON rows, V floats a copy, Q
+// copies a row, the block's NT threads R rows at a time. A thread's copies
+// sit at one column c0 of rows r0, r0 + R, ...: the row offsets in global
+// and shared memory are a constant stride apart, so a copy costs a multiply
+// and a compare beside the cp.async.
+template <int NT, int W, int V, int P>
+struct Slab {
+  static constexpr int Q = W / V, R = NT / Q;
+  static_assert(NT % Q == 0 && ON % R == 0, "whole rows a pass");
+  int r0, c0;
+  bool col_ok;
+
+  __device__ Slab(int origin, int width) : r0(threadIdx.x / Q), c0((threadIdx.x % Q) * V) {
+    col_ok = origin + c0 < width;
+  }
+
+  // The stage whose first row is src (at the tile's first column), `rows`
+  // of its ON rows in the chunk, into dst (the slab in shared memory).
+  __device__ __forceinline__ void copy(float* dst, const float* src, int ld, int rows) const {
+#pragma unroll
+    for (int k = 0; k < ON / R; ++k) {
+      const int r = r0 + k * R;
+      const bool ok = col_ok && r < rows;
+      cp_async<V>(dst + r * P + c0, ok ? src + (long long)r * ld + c0 : src, ok);
+    }
+  }
+};
 
 // part[c][i][j] = sum over the rows n of chunk c, in order, of X[n][i] Y[n][j],
-// for X (N, I) and Y (N, J) row-major; one 64 x 64 tile of (i, j) a block.
-__global__ void __launch_bounds__(OUTER_NT)
+// for X (N, I) and Y (N, J) row-major; one tile of (i, j) a block. VX and VY
+// are the floats a copy of X and Y moves (4: rows and bases 16-byte aligned).
+template <class Tile, int VX, int VY>
+__global__ void __launch_bounds__(Tile::NT, 1)
 outer_partial_kernel(const float* __restrict__ X, const float* __restrict__ Y, long long N,
                      int I, int J, long long chunk, float* __restrict__ part) {
-  __shared__ __align__(16) float xs[ON][OT];
-  __shared__ __align__(16) float ys[ON][OT];
-  const int i0 = blockIdx.x * OT, j0 = blockIdx.y * OT;
+  constexpr int WI = Tile::TI / Tile::MI, MT = Tile::M, NTL = Tile::N;
+  extern __shared__ __align__(16) float ring[];
+  const int i0 = blockIdx.x * Tile::TI, j0 = blockIdx.y * Tile::TJ;
   const long long n0 = (long long)blockIdx.z * chunk;
-  const long long n1 = n0 + chunk < N ? n0 + chunk : N;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
+  const int rows = static_cast<int>((n0 + chunk < N ? chunk : N - n0));  // the chunk's
+  const int stages = (rows + ON - 1) / ON;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int ib = (warp % WI) * Tile::MI, jb = (warp / WI) * Tile::MJ;  // the warp's patch
+  // a patch wholly outside (I, J) skips the products; a patch in part
+  // outside multiplies the zeros the copies put there (a guard a tile costs
+  // more, in registers, than the products it saves)
+  const bool idle = I - i0 - ib <= 0 || J - j0 - jb <= 0;
+  const Slab<Tile::NT, Tile::TI, VX, Tile::PX> xslab(i0, I);
+  const Slab<Tile::NT, Tile::TJ, VY, Tile::PY> yslab(j0, J);
+  const float* xc = X + n0 * I + i0;  // the chunk's first row, at the tile's columns
+  const float* yc = Y + n0 * J + j0;
+  auto load = [&](int s) {
+    float* xs = ring + (s % OSTAGES) * Tile::STAGE;
+    xslab.copy(xs, xc + (long long)s * ON * I, I, rows - s * ON);
+    yslab.copy(xs + ON * Tile::PX, yc + (long long)s * ON * J, J, rows - s * ON);
+  };
 
-  for (long long nb = n0; nb < n1; nb += ON) {
-    for (int q = threadIdx.x; q < ON * OT; q += OUTER_NT) {
-      const int r = q / OT, col = q % OT;
-      const long long n = nb + r;
-      xs[r][col] = (n < n1 && i0 + col < I) ? X[n * I + i0 + col] : 0.f;
-      ys[r][col] = (n < n1 && j0 + col < J) ? Y[n * J + j0 + col] : 0.f;
-    }
-    __syncthreads();
+  float sum[MT][NTL][4];
 #pragma unroll
-    for (int r = 0; r < ON; ++r) {
-      const float4 xv = *reinterpret_cast<const float4*>(&xs[r][ty * 4]);
-      const float4 yv = *reinterpret_cast<const float4*>(&ys[r][tx * 4]);
-      const float x[4] = {xv.x, xv.y, xv.z, xv.w};
-      const float y[4] = {yv.x, yv.y, yv.z, yv.w};
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+    for (int n = 0; n < NTL; ++n)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(x[a], y[c], acc[a][c]);
-    }
-    __syncthreads();
+      for (int e = 0; e < 4; ++e) sum[m][n][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < OSTAGES - 1; ++s) {
+    if (s < stages) load(s);
+    cp_commit();
   }
+  for (int s = 0; s < stages; ++s) {
+    cp_wait<OSTAGES - 2>();  // stage s has landed (this thread's copies)
+    __syncthreads();         // everyone's, and the slot of stage s - 1 is free
+    if (s + OSTAGES - 1 < stages) load(s + OSTAGES - 1);
+    cp_commit();
+    if (idle) continue;
+    const float* xs = ring + (s % OSTAGES) * Tile::STAGE + ib + g;
+    const float* ys = ring + (s % OSTAGES) * Tile::STAGE + ON * Tile::PX + jb + g;
+#pragma unroll
+    for (int k = 0; k < ON / 8; ++k) {  // a step of 8 rows
+      const int r0 = 8 * k + t, r1 = r0 + 4;
+      unsigned ab[MT][4], as[MT][4], bb[NTL][2], bs[NTL][2];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        split_tf32(xs[r0 * Tile::PX + 16 * m], ab[m][0], as[m][0]);
+        split_tf32(xs[r0 * Tile::PX + 16 * m + 8], ab[m][1], as[m][1]);
+        split_tf32(xs[r1 * Tile::PX + 16 * m], ab[m][2], as[m][2]);
+        split_tf32(xs[r1 * Tile::PX + 16 * m + 8], ab[m][3], as[m][3]);
+      }
+#pragma unroll
+      for (int n = 0; n < NTL; ++n) {
+        split_tf32(ys[r0 * Tile::PY + 8 * n], bb[n][0], bs[n][0]);
+        split_tf32(ys[r1 * Tile::PY + 8 * n], bb[n][1], bs[n][1]);
+      }
+      float c[MT][NTL][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NTL; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c[m][n][e] = 0.f;
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NTL; ++n) mma_tf32(c[m][n], as[m], bb[n]);
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NTL; ++n) mma_tf32(c[m][n], ab[m], bs[n]);
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NTL; ++n) mma_tf32(c[m][n], ab[m], bb[n]);
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NTL; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sum[m][n][e] += c[m][n][e];
+    }
+  }
+
+  // c[e] of tile (m, n): row g (e < 2) or g + 8, column 2t + e % 2
   float* pc = part + (size_t)blockIdx.z * I * J;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + ty * 4 + a;
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = j0 + tx * 4 + c;
-      if (i < I && j < J) pc[(size_t)i * J + j] = acc[a][c];
-    }
-  }
+    for (int n = 0; n < NTL; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + ib + 16 * m + g + (e < 2 ? 0 : 8);
+        const int j = j0 + jb + 8 * n + 2 * t + e % 2;
+        if (i < I && j < J) pc[(size_t)i * J + j] = sum[m][n][e];
+      }
 }
 
 // How outer_sum cuts N rows: `chunks` blocks of `chunk` rows along N for each
@@ -119,10 +310,15 @@ struct OuterPlan {
   int chunks;
 };
 
+// The tile that takes J columns: 128 x 64 up to 64 (eacc), else 128 x 128.
+inline bool narrow_tile(int J) { return J <= NarrowTile::TJ; }
+
 // Chunks wanted along N: OUTER_BLOCKS blocks over the output tiles, at most
 // one a stage of ON rows.
 inline long long outer_want(long long N, int I, int J) {
-  const long long tiles = (long long)((I + OT - 1) / OT) * ((J + OT - 1) / OT);
+  const int ti = narrow_tile(J) ? NarrowTile::TI : WideTile::TI;
+  const int tj = narrow_tile(J) ? NarrowTile::TJ : WideTile::TJ;
+  const long long tiles = (long long)((I + ti - 1) / ti) * ((J + tj - 1) / tj);
   const long long stages = (N + ON - 1) / ON;
   long long want = (OUTER_BLOCKS + tiles - 1) / tiles;
   if (want > stages) want = stages;
@@ -141,16 +337,54 @@ inline long long outer_scratch(long long N, int I, int J) {
   return N <= 0 ? 0 : outer_want(N, I, J) * I * J;
 }
 
+// Launches of outer_partial_kernel by this library since the count was last
+// cleared: one a call of outer_sum with rows (the library exports it). Of
+// internal linkage, so that each library keeps its own count.
+namespace {
+long long outer_launch_count = 0;
+}
+
+// The count, cleared when `clear` (each library exports this).
+inline int outer_launches(bool clear) {
+  const long long n = outer_launch_count;
+  if (clear) outer_launch_count = 0;
+  return static_cast<int>(n);
+}
+
+template <class Tile, int VX, int VY>
+cudaError_t outer_launch(const float* X, const float* Y, long long N, int I, int J,
+                         const OuterPlan& p, float* part, cudaStream_t st) {
+  const void* fn = reinterpret_cast<const void*>(outer_partial_kernel<Tile, VX, VY>);
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       Tile::SMEM);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((I + Tile::TI - 1) / Tile::TI, (J + Tile::TJ - 1) / Tile::TJ, p.chunks);
+  outer_partial_kernel<Tile, VX, VY><<<grid, Tile::NT, Tile::SMEM, st>>>(X, Y, N, I, J,
+                                                                          p.chunk, part);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) ++outer_launch_count;
+  return e;
+}
+
+// 16-byte copies need every row start and the base on 16 bytes.
+inline bool rows_of_16_bytes(const float* p, int cols) {
+  return cols % 4 == 0 && reinterpret_cast<unsigned long long>(p) % 16 == 0;
+}
+
 // out (I, J) = sum_n X[n] (x) Y[n] over N rows, in the fixed order above,
 // added to out's own value when `add`; part holds outer_scratch(N, I, J)
-// floats.
+// floats. The copies' width does not change a bit of the result.
 inline cudaError_t outer_sum(const float* X, const float* Y, long long N, int I, int J,
                              float* part, float* out, bool add, cudaStream_t st) {
   const OuterPlan p = outer_plan(N, I, J);
   if (p.chunks > 0) {
-    const dim3 grid((I + OT - 1) / OT, (J + OT - 1) / OT, p.chunks);
-    outer_partial_kernel<<<grid, OUTER_NT, 0, st>>>(X, Y, N, I, J, p.chunk, part);
-    const cudaError_t e = cudaGetLastError();
+    const bool vx = rows_of_16_bytes(X, I);
+    const cudaError_t e =
+        narrow_tile(J)
+            ? (vx ? outer_launch<NarrowTile, 4, 1>(X, Y, N, I, J, p, part, st)
+                  : outer_launch<NarrowTile, 1, 1>(X, Y, N, I, J, p, part, st))
+            : (vx && rows_of_16_bytes(Y, J) ? outer_launch<WideTile, 4, 4>(X, Y, N, I, J, p, part, st)
+                                            : outer_launch<WideTile, 1, 1>(X, Y, N, I, J, p, part, st));
     if (e != cudaSuccess) return e;
   }
   return sum_partials(part, p.chunks, I * J, out, st, add);

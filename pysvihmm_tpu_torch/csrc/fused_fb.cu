@@ -523,6 +523,33 @@ int fused_fb_backward(const float* A, const float* W, const float* feats, const 
   }));
 }
 
+// The large-K statistics' outer sums alone (fbs::outer_sum, which the
+// backward kernels' launchers here and in split_fb.cu and duplex_fb.cu run):
+// out (I, J) = X^T Y for row-major X (N, I) and Y (N, J), 3xTF32 on the
+// tensor cores, summed in an order fixed by (N, I, J). scratch holds
+// fused_fb_outer_scratch floats.
+int fused_fb_outer_scratch(int N, int I, int J, long long* out) {
+  if (N < 1 || I < 1 || J < 1) return static_cast<int>(cudaErrorInvalidValue);
+  *out = fbs::outer_scratch(N, I, J);
+  return 0;
+}
+
+int fused_fb_outer_sum(const float* X, const float* Y, float* scratch, float* out, int N, int I,
+                       int J, int device, void* stream) {
+  if (N < 1 || I < 1 || J < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(
+      fbs::outer_sum(X, Y, N, I, J, scratch, out, false, static_cast<cudaStream_t>(stream)));
+}
+
+// Launches of the outer sums' kernel by this library (the large-K backward
+// and fused_fb_outer_sum) since the count was last cleared; clears it when
+// `clear`.
+int fused_fb_outer_launches(int clear) {
+  return fbs::outer_launches(clear != 0);
+}
+
 // What the instance (which, S, K, F) of the launchers above takes on
 // `device`: out[0] registers a thread, out[1] static and out[2] dynamic
 // shared bytes a block, out[3] local (spilled) bytes a thread, out[4]

@@ -298,6 +298,12 @@ int split_fb_forward(const float* pi, const float* A, const float* ll, float* al
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launches of the outer sums' kernel (fbs::outer_sum) by this library's
+// large-K launcher since the count was last cleared; clears it when `clear`.
+int split_fb_outer_launches(int clear) {
+  return fbs::outer_launches(clear != 0);
+}
+
 // pg is null for the ungated launch, else the (T, B) pair gate. acc (K, K)
 // is summed in a fixed order (fb_stats.cuh); scratch holds split_fb_scratch
 // floats. Above K = 64 the backward runs a window of time steps a launch

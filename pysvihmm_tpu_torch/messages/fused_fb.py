@@ -36,6 +36,12 @@ CPU tensors runs the twin; given CUDA tensors it launches the kernel or
 raises. :func:`estep_fused` composes the launchers and
 :func:`estep_fused_reference` the twins.
 
+:func:`outer_sum` (twin :func:`outer_sum_reference`) runs the large-K
+statistics' outer sums alone (``csrc/fb_stats.cuh``, 3xTF32 on the tensor
+cores), which the large-K backward and combine launchers of all three
+libraries run on each window; :func:`outer_launches` reads the libraries'
+counts of that kernel's launches.
+
 Ported modes: ungated and gated, ``emit_gamma`` True and False. The
 per-window gamma pick (``gamma_sel``), the in-kernel feature build and bf16
 alpha storage are still open (ROADMAP Queue 2).
@@ -69,6 +75,9 @@ def _library():
          "fused_fb_backward": "ppppppppppp" "iiiiii" "p",
          "fused_fb_scratch": "iiiiip",
          "fused_fb_kernel_info": "iiiiip",
+         "fused_fb_outer_scratch": "iiip",
+         "fused_fb_outer_sum": "pppp" "iiii" "p",
+         "fused_fb_outer_launches": "i",
          "fused_fb_kmax": "",
          "fused_fb_fmax": ""},
         "fused_fb_error_string",
@@ -334,6 +343,75 @@ fused_backward.launches = 0
 def reset_launch_counts() -> None:
     fused_forward.launches = 0
     fused_backward.launches = 0
+    outer_sum.launches = 0
+
+
+# ------------------------------------------------------------- outer sums
+
+OUTER_MAX = 256  # the widest operand: K states (acc), at most 64 features (eacc)
+# the libraries whose large-K launchers run the outer sums (csrc/fb_stats.cuh)
+OUTER_LIBS = ("fused_fb", "split_fb", "duplex_fb")
+
+
+def outer_sum_reference(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the outer sums: X^T Y (I, J) for X (N, I), Y (N, J)."""
+    return X.T @ Y
+
+
+def outer_sum(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """The large-K statistics' outer sums alone: sum over the rows n of
+    outer(X[n], Y[n]) = X^T Y, (I, J), for float32 X (N, I) and Y (N, J),
+    contiguous on one device, N >= 1 and 1 <= I, J <= 256.
+
+    The kernel (``csrc/fb_stats.cuh::outer_partial_kernel``) is the one the
+    large-K backward kernels and the duplex combine run on each window of
+    their statistics (acc: X the alpha rows, Y the gated d n; eacc: X the
+    weighted gamma rows, Y the features), in the counterpart of the
+    reference's "bf16x3" tier: 3xTF32 on the tensor cores, float32 sums in
+    an order fixed by (N, I, J), so repeated calls give the same bits. CPU
+    tensors run :func:`outer_sum_reference`; CUDA tensors launch the kernel
+    or raise."""
+    if X.dim() != 2 or Y.dim() != 2:
+        raise ValueError(f"X and Y must be 2-D, got {tuple(X.shape)} and {tuple(Y.shape)}")
+    (N, I), J = X.shape, Y.shape[1]
+    dev = X.device
+    check("X", X, (N, I), dev)
+    check("Y", Y, (N, J), dev)
+    if N < 1 or not (1 <= I <= OUTER_MAX and 1 <= J <= OUTER_MAX):
+        raise ValueError(f"outer_sum takes N >= 1 rows and 1 to {OUTER_MAX} columns, got "
+                         f"X {tuple(X.shape)}, Y {tuple(Y.shape)}")
+    if runs_plain_twin(X):
+        return outer_sum_reference(X, Y)
+    lib = _library()
+    out = torch.empty((I, J), dtype=torch.float32, device=dev)
+    work = scratch(lib, "fused_fb_outer_scratch", lib.fused_fb_error_string, dev, N, I, J)
+    index = device_index(dev)
+    code = lib.fused_fb_outer_sum(ptr(X), ptr(Y), ptr(work), ptr(out), N, I, J, index,
+                                  stream(dev))
+    outer_sum.launches += 1
+    raise_on(lib.fused_fb_error_string, code, "outer_partial_kernel")
+    return out
+
+
+outer_sum.launches = 0
+
+
+def outer_launches(clear: bool = False) -> int:
+    """Launches of the outer sums' kernel since the counts were last
+    cleared, over the libraries loaded so far (:data:`OUTER_LIBS`): each
+    library counts where it launches the kernel, inside the large-K
+    backward and combine launchers and in :func:`outer_sum`. Clears the
+    counts when ``clear``."""
+    from .._build import loaded_library
+
+    total = 0
+    for name in OUTER_LIBS:
+        lib = loaded_library(name)
+        if lib is not None:
+            fn = getattr(lib, f"{name}_outer_launches")
+            fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+            total += fn(int(clear))
+    return total
 
 
 # ------------------------------------------------------------------ E-step

@@ -5,8 +5,10 @@ step (L=50, b=10, W=70, on one chain of T=100,000) on "auto" and on "split"
 at B = 32, 256 and 1024. Given another K (65-256, the large-K instances),
 the pair and the E-step at that K, the pair at one sequence a block (S = 1,
 what a small batch runs), the split pair on ll = feats @ W beside them, and
-no SVI step. Last, the device time of each kernel one backward
-call launches (torch.profiler), ungated and gated.
+no SVI step. Then the device time of each kernel one backward
+call launches (torch.profiler), ungated and gated; at K > 64 last the
+backward's outer sums alone (``fused_fb.outer_sum``, where the checkout
+has it) beside torch.matmul on the same products, float32 and TF32.
 
 Usage, on a machine with an NVIDIA GPU and nvcc, from the repository root::
 
@@ -113,6 +115,33 @@ def digest(*xs: torch.Tensor) -> str:
     return h.hexdigest()[:16]
 
 
+def outer_products(alpha: torch.Tensor, feats: torch.Tensor, reps: int) -> None:
+    """The large-K backward's outer sums alone: the products X^T Y of its
+    windows of 2^17 / B steps (acc: (T - 1) B rows of K by K, eacc: T B rows
+    of K by F), by ``fused_fb.outer_sum`` where the checkout has it and by
+    torch.matmul in float32 (TF32 off, the yardstick) and in TF32. Operands
+    of the backward's shapes: alpha's rows stand in for d n and gamma (the
+    time does not depend on the values)."""
+    T_, B_, k = alpha.shape
+    steps = max(1, min(T_, (1 << 17) // B_))
+    pairs = []
+    for t1 in range(T_, 0, -steps):
+        t0 = max(0, t1 - steps)
+        ta = max(t0, 1)
+        pairs.append((alpha[ta - 1:t1 - 1].reshape(-1, k), alpha[ta:t1].reshape(-1, k)))
+        pairs.append((alpha[t0:t1].reshape(-1, k), feats[t0:t1].reshape(-1, feats.shape[-1])))
+    runs = {"torch.matmul(X.T, Y), float32": lambda: [torch.matmul(x.T, y) for x, y in pairs]}
+    if hasattr(fused_fb, "outer_sum"):
+        runs["outer_sum"] = lambda: [fused_fb.outer_sum(x, y) for x, y in pairs]
+    for name, fn in runs.items():
+        report(f"{name} over the {len(pairs)} products of one backward",
+               [cuda_ms(fn, 20, warmup=3) for _ in range(reps)])
+    torch.backends.cuda.matmul.allow_tf32 = True
+    report(f"torch.matmul(X.T, Y), TF32 (reference only) over the {len(pairs)} products",
+           [cuda_ms(runs["torch.matmul(X.T, Y), float32"], 20, warmup=3) for _ in range(reps)])
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def svi_steps(dev: torch.device, reps: int) -> None:
     """ms per windowed SVI step on "auto" and "split", as chip_smoke.py's
     phase 5 times it (its chain of overlapping states)."""
@@ -176,6 +205,8 @@ def main(argv: list[str]) -> int:
         report(name, [cuda_ms(fn, 20, warmup=3) for _ in range(reps)])
     for name in ("fused_bwd_kernel", "fused_bwd_kernel, gated"):
         profile_call(name, runs[name])
+    if k != K:
+        outer_products(alpha, feats, reps)
     del alpha, s, sh, feats, w, runs
     if k == K:
         svi_steps(dev, reps)

@@ -9,10 +9,13 @@ from __future__ import annotations
 
 # The card's peaks (NVIDIA H100 SXM data sheet, dense, at the 700 W limit):
 # HBM bytes per second, float32 FLOP/s outside the tensor cores, and bf16
-# FLOP/s of the tensor cores (the peak for bf16 operands).
+# and TF32 FLOP/s of the tensor cores (the peaks for those operands).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
+# float32 products at 3xTF32 (csrc/fb_stats.cuh): three TF32 products each
+TF32X3_FLOP_PER_S = TF32_FLOP_PER_S / 3
 
 # the probe kernels of csrc/split_probe.cu, by the micro body they run
 MICRO_KERNELS = {
@@ -41,8 +44,20 @@ def kernel_work(name: str, B: int, T: int, K: int, F: int = 0, gated: bool = Fal
     reductions) counted per state. The forward probes renormalise at the
     steps t > 0 with (t % C) % 4 == 0 (debug_pallas_split.py:41-46), the
     micro probes scale their carry once a tile. Only the BF16 probe counts
-    at the bf16 peak."""
+    at the bf16 peak.
+
+    "outer_sums" is the large-K statistics' outer sums of one backward
+    (``csrc/fb_stats.cuh``): acc = sum over the (T - 1) B rows t >= 1 of
+    outer(a_{t-1}, dn_t) and, when F > 0, eacc = sum over the T B rows of
+    outer(gw_t, f_t): their operands read once, acc and eacc written once,
+    2 K^2 + 2 K F flops a row, at the 3xTF32 rate (three TF32 products a
+    float32 one)."""
     n, k2 = B * T, K * K
+    if name == "outer_sums":
+        rows_a, rows_e = (T - 1) * B, (T * B if F > 0 else 0)
+        words = 2 * rows_a * K + rows_e * (K + F) + k2 + K * F
+        flops = 2 * rows_a * k2 + 2 * rows_e * K * F
+        return 4.0 * words, float(flops), TF32X3_FLOP_PER_S
     tiles = T // C
     renorms = tiles * ((C - 1) // 4 + 1) - 1  # per sequence: t > 0 with (t % C) % 4 == 0
     micro = {kernel: body for body, kernel in MICRO_KERNELS.items()}

@@ -13,7 +13,9 @@ inputs are chip_smoke.py's: overlapping states, so posteriors spread. The
 kernels and twins compute the same float32 recursion in another summation
 order, and acc and eacc are sums over all sequences in another grouping, so the
 tolerances are those of tests/test_pallas.py:246-251, relative for those
-sums. The kernels take K up to 256 (the large-K instances above 64).
+sums. The kernels take K up to 256 (the large-K instances above 64); the
+large-K statistics' outer sums run on the tensor cores at 3xTF32 and are
+held to float64 beside float32 torch.matmul.
 """
 
 import pytest
@@ -306,7 +308,7 @@ def test_large_k_pair_runs_b1024_in_one_wave(cuda_device, K):
         assert fused_fb.default_seqs(kind, 32, 45, cuda_device, K=K) == 1
 
 
-@pytest.mark.parametrize("K", [64, 256])
+@pytest.mark.parametrize("K", [64, 128, 256])
 @pytest.mark.parametrize("gated", [False, True])
 def test_backward_statistics_repeat_bit_for_bit(cuda_device, K, gated):
     """acc and eacc of each backward kernel (fused, split, duplex combine)
@@ -336,6 +338,76 @@ def test_backward_statistics_repeat_bit_for_bit(cuda_device, K, gated):
             assert all(torch.equal(x, y) for x, y in zip(call(), first)), name
     for S in fused_fb.WIDE_SEQS if K > 64 else ():
         assert all(torch.equal(x, y) for x, y in zip(firsts[f"fused S={S}"], firsts["fused"])), S
+
+
+# the row counts of the outer sums' checks: one row, under a stage, not a
+# whole number of stages, the SVI window at W = 70 (B = 1024) and a full
+# window of the large-K statistics (2^17 rows)
+OUTER_ROWS = (1, 17, 1000, 71680, 1 << 17)
+BACKWARD_ROWS = 71680  # from here on, rows as many as a backward's windows hold
+
+
+@pytest.mark.parametrize("N", OUTER_ROWS)
+@pytest.mark.parametrize("J", [1, 45, 64, 65, 256])
+@pytest.mark.parametrize("I", [65, 128, 129, 256])
+def test_outer_sum_against_float64(cuda_device, I, J, N):
+    """The large-K statistics' outer sums (3xTF32 on the tensor cores)
+    against float64 X^T Y, with operands like the backward's: X >= 0 (alpha
+    rows, gamma rows), Y >= 0 where J > 64 (acc's d n) and signed up to 64
+    columns (eacc's features). At the rows a backward's windows hold, the
+    error relative to max |ref| is at most twice float32 torch.matmul's on
+    the same operands (TF32 off): chip_smoke.py's gate. Below that the
+    split's own error, up to about 3 x 2^-22 of each |x y|, can exceed
+    twice float32's one rounding, so there the bound adds 2^-20 of the
+    largest sum of |x y|. K = 65, 129 and F = 45
+    rows are not 16-byte aligned and take the 4-byte copies. A second call
+    gives the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(I * 1000 + J + N)
+    X = torch.rand((N, I), generator=gen, device=cuda_device)
+    Y = (torch.rand if J > 64 else torch.randn)((N, J), generator=gen, device=cuda_device)
+    before = fused_fb.outer_sum.launches
+    got = fused_fb.outer_sum(X, Y)
+    assert fused_fb.outer_sum.launches == before + 1
+    assert torch.equal(fused_fb.outer_sum(X, Y), got)
+    ref = X.double().T @ Y.double()
+    scale = ref.abs().max().item()
+    err = (got.double() - ref).abs().max().item() / scale
+    err_mm = (torch.matmul(X.T, Y).double() - ref).abs().max().item() / scale
+    allowed = 2 * err_mm
+    if N < BACKWARD_ROWS:
+        allowed += 2.0 ** -20 * (X.double().abs().T @ Y.double().abs()).max().item() / scale
+    assert err <= allowed, (err, err_mm)
+
+
+def test_outer_sum_copy_width_keeps_the_bits(cuda_device):
+    """A base off 16 bytes takes the 4-byte copies where an aligned one
+    takes 16-byte copies: the same bits either way."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    buf = torch.rand(5000 * 128 + 1, generator=gen, device=cuda_device)
+    X, Y = buf[1:].view(5000, 128), torch.rand((5000, 128), generator=gen, device=cuda_device)
+    assert torch.equal(fused_fb.outer_sum(X, Y), fused_fb.outer_sum(X.clone(), Y))
+    Z = torch.randn((5000, 45), generator=gen, device=cuda_device)
+    assert torch.equal(fused_fb.outer_sum(X, Z), fused_fb.outer_sum(X.clone(), Z))
+
+
+@pytest.mark.parametrize("K", [128, 256])
+def test_large_k_backward_launches_the_outer_sums_a_window(cuda_device, K):
+    """Each large-K backward runs the outer sums once a window of its
+    statistics for acc and once for eacc (acc only on the split backward):
+    at B = 2048, T = 150 three windows; the libraries count the launches."""
+    B, T, D = 2048, 150, 3
+    gen = torch.Generator(device=cuda_device).manual_seed(600 + K)
+    log_pi, log_A, W, feats = random_problem(gen, B, T, K, D)
+    pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+    a, s, sh, beta = duplex_fb.duplex_chain(pi_t, A_t, W, feats)
+    ll = (feats @ W).contiguous()
+    fused_fb.outer_launches(clear=True)
+    fused_fb.fused_backward(A_t, W, feats, a, s, sh)
+    assert fused_fb.outer_launches(clear=True) == 6
+    split_fb.split_backward(A_t, ll, a, s, sh)
+    assert fused_fb.outer_launches(clear=True) == 3
+    duplex_fb.duplex_combine(W, feats, a, beta, sh)
+    assert fused_fb.outer_launches(clear=True) == 6
 
 
 def test_auto_runs_the_kernels_in_batch_vb(cuda_device):

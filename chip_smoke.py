@@ -38,7 +38,12 @@ fails:
             duplex chain's alpha, s and sh those of the forward; and each
             backward kernel (fused, split, duplex combine), gated and not,
             5 times on one full-shape input at K = 64, 128 and 256: acc and
-            eacc must be the same bits every time. Last, the precision gate
+            eacc must be the same bits every time. The split pair at every
+            built S (sequences a block, ``split_fb.built_seqs``) against its
+            twins, gated and not, at B = 1, 3, 32, 1024, 2048 and K = 64,
+            128, 129, 256 (T = 300, 150 at B = 2048: three windows of the
+            large-K statistics): every output the same bits at every S and
+            over the backward's five calls at each S. Last, the precision gate
             of the large-K outer sums (3xTF32 on the tensor cores): on every
             window of one backward at B=1024, T=1000, D=8, K = 128 and 256
             (the operands from plain PyTorch), acc's and eacc's max |err| /
@@ -62,7 +67,10 @@ fails:
             (KP, S) and kernel (forward, backward, gated backward):
             registers, spills, static and dynamic shared bytes, blocks an
             SM, waves at B=1024, time and share of the bound (the default S
-            in one wave); the pair at every S for B = 2048 and 4096; the gated
+            in one wave); the split pair the same way at K = 64, 128 and 256
+            (every built S of the forward, the backward and the gated
+            backward; the default S in one wave); the pair at every S for B =
+            2048 and 4096; the gated
             fused pair at the SVI shape for B in {32, 256, 1024}; the
             E-step of the benchmark shape (need_gamma=False) on the kernel
             and plain routes, and the SVI step at B in {32, 256, 1024} on
@@ -97,8 +105,16 @@ fails:
             Gaussian-NIW at D=10, K=64, F=66, each at B=1024, T=1000) run
             the split kernels once on "fused" and on "duplex", and no other
             kernel, with statistics that agree with "scan"'s, gated and
-            not; and a small fit per family (best ELBO of a few restarts)
-            decodes at Hamming error <= 0.05.
+            not; the wide-feature path on "auto", timed by CUDA events
+            against "scan": batch VB's E-step for the Gaussian-NIW at D = 10
+            (F = 66; K = 64 and 256) and the multinomial at V = 1000 and V =
+            100 (K = 64) at B=1024, T=1000, each split kernel once an E-step
+            and the statistics those of "scan" (the device time of one call
+            by kernel from torch.profiler), and windowed SVI steps for the
+            multinomial at V = 100, K = 64, W = 70, B = 1024 (the gated split
+            backward, each split kernel once a step, one step's statistics
+            against "scan"'s); and a small fit per family (best ELBO of a
+            few restarts) decodes at Hamming error <= 0.05.
 8. split path decomposition: the profiling script
             ``pysvihmm_tpu_torch/scripts/debug_split.py``. Each probe kernel
             of ``csrc/split_probe.cu`` (every micro instance) against its
@@ -121,8 +137,9 @@ fails:
             eacc in every backward of those runs.
 
 The last lines are the card line, one JSON line describing the kernels (every
-kernel and instance tier: K <= 64, KP = 128, KP = 256; the outer sums at K =
-128 and 256, the one entry with a library call) and, last,
+kernel and instance tier: K <= 64, KP = 128, KP = 256, the split rows with
+the S their times ran at; the outer sums at K = 128 and 256, the one entry
+with a library call) and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -352,7 +369,6 @@ def check_split(gen, B_, T_, K_, D_, gated):
     log_pi, log_A, W, feats = random_problem(gen, B_, T_, K_, D_)
     ll = (feats @ W).contiguous()
     w = svi_masks(gen, B_, T_, max(1, (5 * T_) // 7)) if gated else None
-    g = None if w is None else sf.pair_gate(w)
     pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
     n_fwd, n_bwd = sf.split_forward.launches, sf.split_backward.launches
     alpha, s, sh = sf.split_forward(pi_t, A_t, ll)
@@ -363,17 +379,17 @@ def check_split(gen, B_, T_, K_, D_, gated):
     compare("s", s, s_r, 0.0, 5e-5)
     require(torch.equal(sh, sh_r), "sh is a max: kernel and twin must agree exactly")
     fwd_err = compare("log_c", torch.log(s) + sh, torch.log(s_r) + sh_r, 2e-6, 1e-4)
-    gam, acc = sf.split_backward(A_t, ll, a_r, s_r, sh_r, g)
+    gam, acc = sf.split_backward(A_t, ll, a_r, s_r, sh_r, w)
     torch.cuda.synchronize()
     require(sf.split_backward.launches == n_bwd + 1, "split backward launch was not counted")
-    gam_r, acc_r = sf.split_backward_reference(A_t, ll, a_r, s_r, sh_r, g)
+    gam_r, acc_r = sf.split_backward_reference(A_t, ll, a_r, s_r, sh_r, w)
     bwd_err = compare("gamma", gam, gam_r, 0.0, 5e-5)
     compare("acc", acc, acc_r, 1e-4, 1e-3)
     fk = sf.estep_split(log_pi, log_A, ll, w)
     torch.cuda.synchronize()
     fr = sf.estep_split_reference(log_pi, log_A, ll, w)
     compare_estep("estep_split vs estep_split_reference", fk, fr)
-    return fwd_err, bwd_err, (pi_t, A_t, ll, a_r, s_r, sh_r, g)
+    return fwd_err, bwd_err, (pi_t, A_t, ll, a_r, s_r, sh_r, w)
 
 
 def check_duplex(gen, B_, T_, K_, D_, gated):
@@ -546,6 +562,75 @@ def check_wide_seqs(gen) -> None:
         torch.cuda.empty_cache()
 
 
+# (B, K) of the split pair's checks at every S: one sequence, the last block
+# short, a small SVI batch, one wave and two; both tiers at their ends and a
+# K that is not a power of two; T takes three windows of the large-K
+# statistics at B = 1024 and 2048
+SPLIT_SEQ_B = (1, 3, 32, 1024, 2048)
+SPLIT_SEQ_K = (64, 128, 129, 256)
+SPLIT_KINDS = ("forward", "backward", "gated backward")
+
+
+def check_split_seqs(gen) -> None:
+    """Phase 3: each split instance at every built S (``split_fb.built_seqs``)
+    against its twins, ungated and gated, for B in SPLIT_SEQ_B and K in
+    SPLIT_SEQ_K (T = 300, 150 at B = 2048; D = 3). ``require``s: alpha, s, sh,
+    gamma and acc the same bits at every S (each sequence's arithmetic and
+    acc's order do not depend on S), and each backward's five calls at each
+    S the same bits."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import split_fb as sf
+
+    def within(name, got, ref, rtol, atol):
+        err = (got - ref).abs().max().item()
+        require(bool(torch.isfinite(got).all()) and err <= atol + rtol * ref.abs().max().item(),
+                f"{name}: kernel and plain version disagree ({err:.3e})")
+        return err
+
+    for K_ in SPLIT_SEQ_K:
+        for B_ in SPLIT_SEQ_B:
+            T_ = 150 if B_ > 1024 else 300
+            log_pi, log_A, W, feats = random_problem(gen, B_, T_, K_, 3)
+            ll = (feats @ W).contiguous()
+            del feats
+            w = svi_masks(gen, B_, T_, (3 * T_) // 4)
+            pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+            ref = sf.split_forward_reference(pi_t, A_t, ll)
+            errs, first = {}, {}
+            for kind, weights in zip(SPLIT_KINDS, (None, None, w)):
+                ref_b = None if kind == "forward" else sf.split_backward_reference(
+                    A_t, ll, *ref, weights)
+                for S in sf.built_seqs(kind, K_):
+                    if kind == "forward":
+                        got = sf.split_forward(pi_t, A_t, ll, S=S)
+                        torch.cuda.synchronize()
+                        e = max(within("alpha", got[0], ref[0], 0.0, 5e-5),
+                                within("s", got[1], ref[1], 0.0, 5e-5))
+                        require(torch.equal(got[2], ref[2]), "sh is a max: kernel and twin agree")
+                    else:
+                        calls = [sf.split_backward(A_t, ll, *ref, weights, S=S) for _ in range(5)]
+                        torch.cuda.synchronize()
+                        got = calls[0]
+                        require(all(torch.equal(x, y) for c in calls[1:] for x, y in zip(c, got)),
+                                f"split {kind} at K={K_}, B={B_}, S={S}: five calls differ")
+                        e = within("gamma", got[0], ref_b[0], 0.0, 5e-5)
+                        within("acc", got[1], ref_b[1], 1e-4, 1e-3)
+                        del calls
+                    errs[kind] = max(errs.get(kind, 0.0), e)
+                    first.setdefault(kind, got)
+                    require(all(torch.equal(x, y) for x, y in zip(got, first[kind])),
+                            f"split {kind} at K={K_}, B={B_}: S={S} differs from "
+                            f"S={sf.built_seqs(kind, K_)[0]}")
+                    del got
+            log(f"  split pair at (B, T, K) = ({B_}, {T_}, {K_}): every S the same bits, the "
+                "backward's five calls the same bits; " + ", ".join(
+                    f"{kind} S={sf.built_seqs(kind, K_)} max err {e:.2e}"
+                    for kind, e in errs.items()))
+            del ref, ll, first
+        torch.cuda.empty_cache()
+
+
 def check_repeatable(gen, K_) -> None:
     """Phase 3: each backward kernel (the fused backward, the split backward,
     the duplex combine), gated and not, 5 times on one input at B=1024,
@@ -564,10 +649,9 @@ def check_repeatable(gen, K_) -> None:
     a, s, sh, beta = df.duplex_chain(pi_t, A_t, W, feats)
     ll = (feats @ W).contiguous()
     for weights in (None, w):
-        g = None if weights is None else sf.pair_gate(weights)
         calls = {
             "fused_bwd_kernel": lambda: ff.fused_backward(A_t, W, feats, a, s, sh, False, weights)[2:],
-            "split_bwd_kernel": lambda: sf.split_backward(A_t, ll, a, s, sh, g)[1:],
+            "split_bwd_kernel": lambda: sf.split_backward(A_t, ll, a, s, sh, weights)[1:],
             "duplex_combine_kernel": lambda: df.duplex_combine(W, feats, a, beta, sh, False,
                                                                weights)[2:],
         }
@@ -775,10 +859,12 @@ def require_sane_params(params, what: str) -> None:
     NaN on the next step is the symptom of bad statistics)."""
     import torch
 
-    for x in (params.init, params.trans, *params.emit):
+    emit = params.emit if isinstance(params.emit, tuple) else (params.emit,)
+    for x in (params.init, params.trans, *emit):
         require(bool(torch.isfinite(x).all()), f"{what}: a non-finite parameter")
-    info = torch.linalg.cholesky_ex(params.emit.psi).info
-    require(bool((info == 0).all()), f"{what}: an NIW psi without a Cholesky factor")
+    if hasattr(params.emit, "psi"):
+        info = torch.linalg.cholesky_ex(params.emit.psi).info
+        require(bool((info == 0).all()), f"{what}: an NIW psi without a Cholesky factor")
 
 
 def svi_run(route, cfg, p0, prior, chain, seed, steps):
@@ -1012,6 +1098,51 @@ def wide_layout(gen) -> None:
         torch.cuda.empty_cache()
 
 
+def split_layout(gen) -> None:
+    """Phase 5: the split pair's block layout at B=1024, T=1000 for K = 64,
+    128 and 256. For every built S (``split_fb.built_seqs``) and kernel
+    (forward, backward, gated backward): the library's registers, spills,
+    static and dynamic shared bytes and resident blocks an SM, the waves of
+    ceil(B/S) blocks, the time (CUDA events) and share of the bound. The
+    default S must run in one wave."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import split_fb as sf
+    from pysvihmm_tpu_torch.scripts.debug_split import cuda_ms
+    from pysvihmm_tpu_torch.utils.roofline import bound, kernel_work
+
+    for K_ in (K, *LARGE_K):
+        log_pi, log_A, W, feats = random_problem(gen, B, T, K_, D)
+        ll = (feats @ W).contiguous()
+        del feats
+        w = svi_masks(gen, B, T, (5 * T) // 7)
+        pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+        fwd = sf.split_forward(pi_t, A_t, ll)
+        runs = {"forward": lambda S: sf.split_forward(pi_t, A_t, ll, S=S),
+                "backward": lambda S: sf.split_backward(A_t, ll, *fwd, S=S),
+                "gated backward": lambda S: sf.split_backward(A_t, ll, *fwd, w, S=S)}
+        for kind, run in runs.items():
+            name = "split_fwd_kernel" if kind == "forward" else "split_bwd_kernel"
+            b_ms = bound(*kernel_work(name, B, T, K_, 0, gated=kind == "gated backward"))[0]
+            chosen = sf.default_seqs(kind, B, ll.device, K=K_)
+            for S in sf.built_seqs(kind, K_):
+                info = sf.kernel_info(kind, S, ll.device, K=K_)
+                blocks = -(-B // S)
+                waves = blocks / (info["blocks_per_sm"] * info["sms"])
+                t_ms = cuda_ms(lambda: run(S), 10, warmup=2)
+                log(f"{tier_name(name, K_)} {kind} S={S}{' (default)' if S == chosen else ''}: "
+                    f"{info['registers']} registers, {info['local_bytes']} spilled bytes, "
+                    f"{info['static_smem']} static + {info['dynamic_smem']} dynamic shared bytes "
+                    f"a block of {info['threads']} threads, {info['blocks_per_sm']} blocks an SM "
+                    f"of {info['sms']}, {blocks} blocks = {waves:.3f} waves at B={B}; "
+                    f"{t_ms:.3f} ms, bound {b_ms:.3f} ms, {100 * b_ms / t_ms:.1f} % of it")
+                if S == chosen:
+                    require(waves <= 1.0, f"split {kind} at K={K_}: B={B} takes {waves:.3f} "
+                                          f"waves at the default S={S}")
+        del fwd, ll, w, runs
+        torch.cuda.empty_cache()
+
+
 def fused_large_batches(gen) -> None:
     """Phase 5: the fused pair at the VB shape for B past one wave at S = 2
     (2048 and 4096 sequences), at every built S, the default S marked: the
@@ -1181,6 +1312,122 @@ def check_wide(fam, obs, params, gen, label) -> None:
             compare_local_stats(sk, ss)
 
 
+# the wide-feature path on "auto" (F > 64: the split kernels), timed: (label,
+# family, D or V, K); the multinomial at V = 1000 takes the segment-sum
+# statistics, at V = 100 the one-hot product
+WIDE_PATH = (("gaussian_niw D=10", "niw", 10, K), ("gaussian_niw D=10", "niw", 10, 256),
+             ("multinomial V=1000", "multinomial", 1000, K),
+             ("multinomial V=100", "multinomial", 100, K))
+WIDE_SVI_V = 100  # the windowed SVI steps on the wide path: the multinomial at V = 100, K = 64
+
+
+def wide_path_phase(dev) -> dict[str, float]:
+    """Phase 7: the wide-feature path on "auto", timed by CUDA events against
+    "scan". For each case of WIDE_PATH at B=1024, T=1000: batch VB's E-step
+    (batch_local_step, need_gamma=False) on "auto" launches each split kernel
+    once and no other kernel, its statistics agree with "scan"'s, and both
+    routes are timed, with the device time of one "auto" call by kernel
+    (torch.profiler). Then windowed SVI steps on "auto" for the multinomial
+    at V = WIDE_SVI_V, K = 64, W = 70, B = 1024 (the gated split backward):
+    each split kernel once a step, every parameter finite, one step's local
+    statistics against "scan"'s on the same windows, and the step timed on
+    both routes. Returns ms by case."""
+    import torch
+
+    from pysvihmm_tpu_torch.data import synthetic
+    from pysvihmm_tpu_torch.distributions import GaussianNIW, MultinomialDirichlet
+    from pysvihmm_tpu_torch.engines import svi
+    from pysvihmm_tpu_torch.engines.base import (
+        batch_local_step,
+        feature_width,
+        windowed_local_step,
+    )
+    from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
+    from pysvihmm_tpu_torch.scripts.debug_split import cuda_ms
+    from pysvihmm_tpu_torch.scripts.time_fused import profile_call
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    ms = {}
+    for label, family, size, K_ in WIDE_PATH:
+        if family == "niw":
+            fam, kw = GaussianNIW, dict(obs_dim=size)
+            obs = synthetic.gen_gaussian_dataset(gen, K_, size, B, T, mean_scale=0.5,
+                                                 cov_scale=1.0)[0]
+        else:
+            fam, kw = MultinomialDirichlet, dict(num_symbols=size)
+            obs = synthetic.gen_multinomial_dataset(gen, K_, size, B, T)[0]
+        prior = make_prior(K_, fam, device=dev, **kw)
+        params = init_params(gen, prior, fam, obs)
+        F_ = feature_width(fam, params.emit, obs)
+        ss, _ = batch_local_step(params, fam, obs, "scan", need_gamma=False)
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        sk, _ = batch_local_step(params, fam, obs, "auto", need_gamma=False)
+        torch.cuda.synchronize()
+        require_launches(kernel_counts(), "split", 1, f"{label}, K={K_}, E-step on auto")
+        log(f"  {label}, K={K_}, F={F_}, B={B}, T={T}: the E-step on auto (each split kernel "
+            "once) against scan")
+        compare_local_stats(sk, ss)
+        del sk, ss
+        t_auto = cuda_ms(lambda: batch_local_step(params, fam, obs, "auto", need_gamma=False),
+                         10, warmup=2)
+        t_scan = cuda_ms(lambda: batch_local_step(params, fam, obs, "scan", need_gamma=False),
+                         2, warmup=1)
+        ms[f"{label}, K={K_}"] = t_auto
+        log(f"  {label}, K={K_}: E-step on auto {t_auto:.3f} ms ({B / t_auto * 1e3:.1f} seq/s), "
+            f"on scan {t_scan:.3f} ms")
+        profile_call(f"  {label}, K={K_}, one E-step on auto",
+                     lambda: batch_local_step(params, fam, obs, "auto", need_gamma=False))
+        del obs, params
+        torch.cuda.empty_cache()
+
+    V_ = WIDE_SVI_V
+    chain = synthetic.gen_multinomial_dataset(gen, K, V_, 1, SVI_T)[0][0]
+    prior = make_prior(K, MultinomialDirichlet, num_symbols=V_, device=dev)
+    p0 = init_params(gen, prior, MultinomialDirichlet, chain)
+    cfg = svi.SVIConfig(batch_size=B, subchain_len=SVI_L, buffer=SVI_BUF)
+    step = svi.make_step(MultinomialDirichlet, cfg, chain.shape[0], method="auto")
+    state = svi.init_state(p0, torch.Generator(device=dev).manual_seed(21))
+    reset_kernel_counts()
+    for i in range(5):
+        before = kernel_counts()
+        state, m = step(state, prior, chain)
+        after = kernel_counts()
+        require_launches({k: after[k] - before[k] for k in after}, "split", 1,
+                         f"multinomial V={V_} SVI step {i} on auto")
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(m["noisy_elbo"])), f"multinomial SVI step {i}: non-finite")
+        require_sane_params(state.params, f"multinomial V={V_} SVI step {i}")
+    starts = torch.randint(0, SVI_T - SVI_L + 1, (B,), generator=gen, device=dev)
+    ws = torch.clamp(starts - SVI_BUF, 0, SVI_T - SVI_W)
+    offs = starts - ws
+    windows = svi._gather_windows(chain, ws, SVI_W)
+    pos = torch.arange(SVI_W, device=dev)[None, :]
+    maskf = ((pos >= offs[:, None]) & (pos < offs[:, None] + SVI_L)).float()
+    got = windowed_local_step(state.params, MultinomialDirichlet, windows, maskf, offs, "auto")
+    ref = windowed_local_step(state.params, MultinomialDirichlet, windows, maskf, offs, "scan")
+    log(f"  multinomial V={V_}, K={K}: one SVI step's local statistics on auto vs scan, "
+        f"W={SVI_W}, B={B}")
+    compare("emit counts", got[0], ref[0], 3e-3, 2e-3)
+    compare("trans_stats", got[1], ref[1], 1e-4, 1e-3)
+    compare("gamma_at_start", got[2], ref[2], 0.0, 5e-5)
+    compare("log_c", got[3], ref[3], 2e-6, 1e-4)
+    for route in ("auto", "scan"):
+        step_r = svi.make_step(MultinomialDirichlet, cfg, chain.shape[0], method=route)
+        st = svi.init_state(p0, torch.Generator(device=dev).manual_seed(22))
+
+        def one():
+            nonlocal st
+            st, _ = step_r(st, prior, chain)
+
+        ms[f"multinomial V={V_} SVI step on {route}"] = cuda_ms(one, 20, warmup=2)
+        require_sane_params(st.params, f"timed multinomial SVI on {route}")
+    log(f"  multinomial V={V_}, K={K}, W={SVI_W}, B={B}: SVI step on auto "
+        f"{ms[f'multinomial V={V_} SVI step on auto']:.3f} ms, on scan "
+        f"{ms[f'multinomial V={V_} SVI step on scan']:.3f} ms (chained steps, CUDA events)")
+    return ms
+
+
 def small_family_fit(fam, gen_fn, kw, prior_kw, iters, restarts, dev, label):
     """Phase 7: VB on "auto" from ``restarts`` seeds on a small CPU-made
     dataset moved to the card; the fit of best final ELBO must decode at
@@ -1258,6 +1505,9 @@ def families_phase(dev) -> dict[str, dict[str, int]]:
         kw = dict(num_symbols=size) if fam is MultinomialDirichlet else dict(obs_dim=size)
         prior = make_prior(K_, fam, device=dev, **kw)
         check_wide(fam, obs, init_params(gen, prior, fam, obs), gen, f"{label} (K={K_})")
+
+    log("  the wide-feature path on auto, timed")
+    wide_path_phase(dev)
 
     small_family_fit(DiagonalGaussianNIG, synthetic.gen_diag_gaussian_dataset,
                      dict(K=4, D=2, num_seqs=20, T=200, mean_scale=6.0, var_scale=0.3),
@@ -1657,6 +1907,8 @@ def main() -> int:
     large_errs = check_large_k(gen)
     log(f"  the large-K fused pair at every S at full width, K = {LARGE_K}")
     check_wide_seqs(gen)
+    log(f"  the split pair at every S: B = {SPLIT_SEQ_B}, K = {SPLIT_SEQ_K}, gated and not")
+    check_split_seqs(gen)
     log("  acc and eacc over repeated calls")
     for K_ in (K, *LARGE_K):
         check_repeatable(gen, K_)
@@ -1743,6 +1995,7 @@ def main() -> int:
     fused_layout(full_inputs, {name: ms[name, K] for name in FUSED_KERNELS})
     duplex_layout(duplex_inputs, ms["duplex_chain_kernel", K])
     wide_layout(torch.Generator(device=dev).manual_seed(82))
+    split_layout(torch.Generator(device=dev).manual_seed(84))
     outer_ms, outer_plain_ms, outer_lib_ms, outer_bounds = time_outer_sums(
         torch.Generator(device=dev).manual_seed(83))
     fused_large_batches(torch.Generator(device=dev).manual_seed(80))
@@ -1750,12 +2003,11 @@ def main() -> int:
 
     # what the gates cost at the same shape (kept runs of 5T/7 per sequence)
     w_full = svi_masks(torch.Generator(device=dev).manual_seed(78), B, T, (5 * T) // 7)
-    g_full = sf.pair_gate(w_full)
     gated_ms = {
         "fused_bwd_kernel": cuda_ms(
             lambda: ff.fused_backward(A_t, W, feats, a_r, s_r, sh_r, False, w_full), 10),
         "split_bwd_kernel": cuda_ms(
-            lambda: sf.split_backward(A_s, ll, sa_r, ss_r, ssh_r, g_full), 10),
+            lambda: sf.split_backward(A_s, ll, sa_r, ss_r, ssh_r, w_full), 10),
         "duplex_combine_kernel": cuda_ms(
             lambda: df.duplex_combine(W_d, feats_d, da_r, db_r, dsh_r, False, w_full), 10),
     }
@@ -1772,13 +2024,12 @@ def main() -> int:
     fa, fs, fsh = ff.fused_forward(pi_w, A_w, W_w, f_w)
     sa, ss, ssh = sf.split_forward(pi_w, A_w, ll_w)
     da, _, dsh, db = df.duplex_chain(pi_w, A_w, W_w, f_w)
-    g_w = sf.pair_gate(m_w)
     at_w = {
         "fused_fwd_kernel": (lambda: ff.fused_forward(pi_w, A_w, W_w, f_w), {}),
         "fused_bwd_kernel": (lambda: ff.fused_backward(A_w, W_w, f_w, fa, fs, fsh, True, m_w),
                              {"gated": True, "emit_gamma": True}),
         "split_fwd_kernel": (lambda: sf.split_forward(pi_w, A_w, ll_w), {}),
-        "split_bwd_kernel": (lambda: sf.split_backward(A_w, ll_w, sa, ss, ssh, g_w),
+        "split_bwd_kernel": (lambda: sf.split_backward(A_w, ll_w, sa, ss, ssh, m_w),
                              {"gated": True}),
         "duplex_chain_kernel": (lambda: df.duplex_chain(pi_w, A_w, W_w, f_w), {}),
         "duplex_combine_kernel": (lambda: df.duplex_combine(W_w, f_w, da, db, dsh, True, m_w),
@@ -1929,12 +2180,16 @@ def main() -> int:
         ("duplex_chain_kernel", "duplex_fb.cu", "pallas_duplex.py:82"),
         ("duplex_combine_kernel", "duplex_fb.cu", "pallas_duplex.py:175"),
     ):
+        # the split rows name the S (sequences a block) their times ran at
+        split_kind = "forward" if "fwd" in name else "backward"
+        seqs = {K_: sf.default_seqs(split_kind, B, dev, K=K_) for K_ in (K, *LARGE_K)}
         kernels.append({
             "name": name, "route": "cuda", "source": f"pysvihmm_tpu_torch/csrc/{src}",
             "replaces": f"pysvihmm_tpu/messages/{replaces}",
             "launches": svi_launches[name], "max_abs_err": errs[name],
             "ms": ms[name, K], "plain_ms": plain_ms[name, K], "bound_ms": bounds[name, K][0],
             "bound_by": bounds[name, K][1], "library_ms": None,
+            **({"S": seqs[K]} if name.startswith("split") else {}),
         })
         for K_ in LARGE_K:
             key = (name, K_)
@@ -1945,6 +2200,7 @@ def main() -> int:
                 "launches": wide_launches[key], "max_abs_err": large_errs[key],
                 "ms": ms[key], "plain_ms": plain_ms[key], "bound_ms": bounds[key][0],
                 "bound_by": bounds[key][1], "library_ms": None,
+                **({"S": seqs[K_]} if name.startswith("split") else {}),
             })
     # the large-K statistics' outer sums, which every large-K backward and the
     # duplex combine launch (pallas_fb.py:664, `outer_acc`, is the sum they

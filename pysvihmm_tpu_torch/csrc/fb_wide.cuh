@@ -4,9 +4,9 @@
 // An instance is built for KP = 128 or 256 padded states and S sequences a
 // block: one thread a state (KP threads, those with k >= K idle but in every
 // barrier and shuffle), thread k running state k of all S sequences as S
-// interleaved chains (the fused pair takes S = 1, 2, 4 or 8, picked so that
-// ceil(B / S) blocks fill the card in one wave; the split pair and the
-// duplex chain S = 1). Three numbers shape it: A~ in float32 takes 64 KB at
+// interleaved chains (the fused and the split pair take S = 1, 2, 4 or 8,
+// picked so that ceil(B / S) blocks fill the card in one wave; the duplex
+// chain S = 1). Three numbers shape it: A~ in float32 takes 64 KB at
 // KP = 128 and 256 KB at 256, a block may use 227 KB of shared memory, and
 // a thread 255 registers. So a thread keeps the first RR rows of the matrix
 // its matvec reads (A~ for the forward, A~^T for the backward) in registers
@@ -338,18 +338,19 @@ __device__ void seqs_forward(const float* __restrict__ pi, const float* __restri
 // over the window t = t1-1 .. t0, b'_{T-1} = 1 / s_{T-1}:
 //   g_t = a_t b'_t, n_t = 1 / sum_k g_t, gamma_t = g_t n_t,
 //   d_t = (lik_t / s_{t-1}) b'_t, b'_{t-1} = d_t @ A~^T,
-// with lik_t re-derived from ll_t (FEATS: f_t . W by the forward's chain,
-// else read) and the forward's sh_t. A window below T starts from the
+// with lik_t re-derived from ll_t (FEATS: f_t . W by the forward's chain;
+// else read from ll (T, B, K), with sh_t and s_{t-1}, a step before it is
+// needed) and the forward's sh_t. A window below T starts from the
 // b'_{t1-1} that the window above left in carry (B, K), and one above 0
 // leaves b'_{t0-1} there: the chain is the one recursion over all T, bit
 // for bit. Writes dn_t = d_t n_t pg_t (t >= 1) to dn and, FEATS, w_t
 // gamma_t to gw, (t1 - t0, B, K) each from t0; gamma0 = w_0 gamma_0 and
-// gamma (when not null), ungated. FEATS: g is the kept-mask w and pg_t =
-// w_{t-1} w_t (the fused backward); else g is the pair gate pg itself and
-// gamma is always written (the split backward). Ungated: g null. Each word
-// of A~^T (and of W) a thread reads in a step feeds S chains, each the
-// one-sequence arithmetic, so nothing it writes depends on S. One barrier a
-// step.
+// gamma (when not null), ungated. Gated, g is the kept-mask w and the pair
+// gate pg_t = w_{t-1} w_t is formed here; ungated, g is null. Not FEATS
+// (the split backward) gamma is always written and gw and gamma0 are not.
+// Each word of A~^T (and of W) a thread reads in a step feeds S chains,
+// each the one-sequence arithmetic, so nothing it writes depends on S. One
+// barrier a step.
 template <int KP, int S, bool FEATS, bool GATED>
 __device__ void seqs_backward(const float* __restrict__ A, const float* __restrict__ W,
                               const float* __restrict__ src, const float* __restrict__ alpha,
@@ -383,7 +384,7 @@ __device__ void seqs_backward(const float* __restrict__ A, const float* __restri
   __syncthreads();
 
   // per sequence: a_t, b'_t (an idle state's is 0 in the one recursion: its
-  // column of A~^T is; a missing sequence's 0) and w_t (FEATS) or pg_t
+  // column of A~^T is; a missing sequence's 0) and w_t
   float a_cur[S], beta[S], g_cur[S];
 #pragma unroll
   for (int s = 0; s < S; ++s) {
@@ -395,18 +396,41 @@ __device__ void seqs_backward(const float* __restrict__ A, const float* __restri
                             : (active ? carry[(size_t)b * K + k] : 0.f);
     g_cur[s] = GATED ? (ok ? g[(size_t)(t1 - 1) * B + b] : 0.f) : 1.f;
   }
+  // not FEATS: ll_t, sh_t, s_{t-1} and (gated) w_{t-1} of the step to come,
+  // read in the step before it (the window's first step's here): the
+  // kept-mask misses every cache (its stride is B), and read in its own step
+  // it made the one-sequence gated instance at KP = 256 take 26 % longer at
+  // B = 32, W = 70 on the H100 (PERF.md)
+  float l_nx[S], sh_nx[S], sp_nx[S], gp_nx[S];
+  auto read_ahead = [&](const int t) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const bool ok = s < ns;
+      const int b = b0 + s;
+      l_nx[s] = (ok && active) ? fb[(size_t)t * step_k + s * K + k] : 0.f;
+      sh_nx[s] = ok ? sh_in[(size_t)b * T + t] : 0.f;
+      sp_nx[s] = (ok && t >= 1) ? s_in[(size_t)b * T + t - 1] : 1.f;
+      if (GATED) gp_nx[s] = (ok && t >= 1) ? g[(size_t)(t - 1) * B + b] : 0.f;
+    }
+  };
+  if constexpr (!FEATS) read_ahead(t1 - 1);
   // one step; Z (t == 0) is a compile-time flag, so that the steps t >= 1
   // run without a branch on t (step 0 is peeled off the loop)
   auto step = [&](const int t, auto z) {
     constexpr bool Z = decltype(z)::value;
     const int p = t & 1;
-    float ll[S];
-    if (FEATS) {
+    float ll[S], shs[S], sps[S], gps[S];
+    if constexpr (FEATS) {
       wc.lls<S>(ll, f_s + p * S * FMAX, FMAX, nf4);
     } else {
 #pragma unroll
-      for (int s = 0; s < S; ++s)
-        ll[s] = (active && s < ns) ? fb[(size_t)t * step_k + s * K + k] : 0.f;
+      for (int s = 0; s < S; ++s) {
+        ll[s] = l_nx[s];
+        shs[s] = sh_nx[s];
+        sps[s] = sp_nx[s];
+        gps[s] = gp_nx[s];
+      }
+      if (!Z) read_ahead(t - 1);
     }
     float a_prev[S], g_prev[S], graw[S], d[S], gs[S];
 #pragma unroll
@@ -414,9 +438,10 @@ __device__ void seqs_backward(const float* __restrict__ A, const float* __restri
       const bool ok = s < ns;
       const int b = b0 + s;
       a_prev[s] = (ok && active && !Z) ? ab[(size_t)(t - 1) * step_k + (size_t)s * K] : 0.f;
-      g_prev[s] = (GATED && !Z) ? (ok ? g[(size_t)(t - 1) * B + b] : 0.f) : 1.f;
-      const float sh = ok ? sh_in[(size_t)b * T + t] : 0.f;
-      const float sp = (ok && !Z) ? s_in[(size_t)b * T + t - 1] : 1.f;
+      g_prev[s] = (GATED && !Z) ? (!FEATS ? gps[s] : ok ? g[(size_t)(t - 1) * B + b] : 0.f)
+                                : 1.f;
+      const float sh = !FEATS ? shs[s] : ok ? sh_in[(size_t)b * T + t] : 0.f;
+      const float sp = !FEATS ? sps[s] : (ok && !Z) ? s_in[(size_t)b * T + t - 1] : 1.f;
       const float lik = active ? expf(ll[s] - sh) : 0.f;
       graw[s] = a_cur[s] * beta[s];
       d[s] = !Z ? (lik * (1.f / fmaxf(sp, SUM_FLOOR))) * beta[s] : 0.f;
@@ -449,7 +474,7 @@ __device__ void seqs_backward(const float* __restrict__ A, const float* __restri
         if (!Z) {
           // stats side, pair-gated; the chain keeps d
           float dn = d[s] * n;
-          if (GATED) dn = FEATS ? dn * (g_prev[s] * g_cur[s]) : dn * g_cur[s];
+          if (GATED) dn = dn * (g_prev[s] * g_cur[s]);
           dn_out[ow] = dn;
         }
       }

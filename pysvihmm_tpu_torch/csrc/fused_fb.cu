@@ -69,15 +69,16 @@
 //     loop as the matvec (step 0 is peeled off, so that both chains are live
 //     in every iteration and interleave), so the matvec never waits for a
 //     reduction of its own step.
-//   backward: column k of acc and row k of eacc take K + F registers, so A~
-//     (row k) and W (column k) are read from shared memory, padded rows so
-//     that the float4 reads are free of bank conflicts, and each word feeds
-//     S FMAs. One barrier a step (double-buffered d, a and partial sums,
-//     triple-buffered features); after it, one loop runs the beta chain, the
-//     next step's ll chain and the acc and eacc updates side by side. Each
-//     block writes its acc and eacc to a row of partials, which a second
-//     kernel adds in block order (fb_stats.cuh): the same bits every call for
-//     one S, another grouping for another S.
+//   backward (fbseq::seq_stats_backward, which the split backward runs on read
+//     likelihoods): column k of acc and row k of eacc take K + F registers, so
+//     A~ (row k) and W (column k) are read from shared memory, padded rows so
+//     that the float4 reads are free of bank conflicts, and each word feeds S
+//     FMAs. One barrier a step (double-buffered d, a and partial sums, triple-
+//     buffered features); after it, one loop runs the beta chain, the next
+//     step's ll chain and the acc and eacc updates side by side. Each block
+//     writes its acc and eacc to a row of partials, which a second kernel adds
+//     in block order (fb_stats.cuh): the same bits every call for one S, another
+//     grouping for another S.
 //   Each step's feature row is loaded a step (backward) or two steps
 //   (forward) ahead into registers, so the global loads are off the chain.
 //   The chains stay on CUDA cores in float32 FFMA: per step the products
@@ -116,18 +117,7 @@ namespace {
 using fbc::FMAX;
 using fbc::KMAX;
 using fbc::NT;
-using fbc::NWARP;
-using fbc::SUM_FLOOR;
-
-constexpr int AST = KMAX + 4;  // row stride of A~ in the backward's shared memory
-
-using fbseq::block_sum;
-using fbseq::fma4;
-using fbseq::FeatRows;
-using fbseq::ld4;
-using fbseq::ld4s;
 using fbseq::pad_f;
-using fbseq::warp_sums;
 
 // The forward: fb_seqs.cuh's seq_forward, which the duplex chain runs too.
 template <int S, int FP>
@@ -139,14 +129,10 @@ fused_fwd_kernel(const float* __restrict__ pi, const float* __restrict__ A,
   fbseq::seq_forward<S, FP>(pi, A, W, feats, alpha, s_out, sh_out, T, B, K, F, blockIdx.x);
 }
 
-// The backward's dynamic shared memory, in bytes: A~ rows, W columns, three
-// feature slots, two of d and of a_{t-1}, two of the partial sums.
-constexpr int bwd_smem_bytes(int S, int FP) {
-  return 4 * (KMAX * AST + KMAX * (FP + 4) + 3 * S * FP + 4 * S * KMAX + 2 * NWARP * S);
-}
-
-// GATED is a template parameter, so that the ungated instance carries no
-// trace of the gates: no loads, no multiplies, no extra live registers.
+// The backward: fb_seqs.cuh's seq_stats_backward with the features, which
+// the split backward runs on read likelihoods. GATED is a template
+// parameter, so that the ungated instance carries no trace of the gates: no
+// loads, no multiplies, no extra live registers.
 template <int S, int FP, bool GATED>
 __global__ void __launch_bounds__(NT)
 fused_bwd_kernel(const float* __restrict__ A, const float* __restrict__ W,
@@ -155,191 +141,9 @@ fused_bwd_kernel(const float* __restrict__ A, const float* __restrict__ W,
                  const float* __restrict__ w_in, float* __restrict__ gamma,
                  float* __restrict__ gamma0, float* __restrict__ part, int T, int B, int K,
                  int F) {
-  constexpr int WST = FP + 4;  // row stride of W's columns in shared memory
   extern __shared__ __align__(16) float smem[];
-  float* A_s = smem;                  // A~[k][j] at k * AST + j
-  float* W_s = A_s + KMAX * AST;      // W[f][k] at k * WST + f
-  float* f_s = W_s + KMAX * WST;      // f_t in slot t % 3, [S][FP] each
-  float* d_s = f_s + 3 * S * FP;      // d_t in slot t & 1, [S][KMAX] each
-  float* a_s = d_s + 2 * S * KMAX;    // a_{t-1} in slot t & 1
-  float* red = a_s + 2 * S * KMAX;    // partial sums of g_t in slot t & 1, [NWARP][S]
-
-  const int b0 = blockIdx.x * S;
-  const int ns = min(S, B - b0);
-  const int k = threadIdx.x;
-  const int lane = k & 31, warp = k >> 5;
-  const bool active = k < K;
-
-  for (int idx = k; idx < KMAX * KMAX; idx += NT) {
-    const int r = idx / KMAX, c = idx % KMAX;
-    A_s[r * AST + c] = (r < K && c < K) ? A[r * K + c] : 0.f;
-  }
-  for (int idx = k; idx < KMAX * FP; idx += NT) {
-    const int r = idx / FP, c = idx % FP;
-    W_s[r * WST + c] = (r < K && c < F) ? W[c * K + r] : 0.f;
-  }
-  for (int i = k; i < 3 * S * FP; i += NT) f_s[i] = 0.f;
-
-  float acc[KMAX];  // column k of sum_t outer(a_{t-1}, d_t n_t pg_t)
-  float eacc[FP];   // row k of sum_t outer(w_t gamma_t, f_t)
-#pragma unroll
-  for (int i = 0; i < KMAX; ++i) acc[i] = 0.f;
-#pragma unroll
-  for (int f = 0; f < FP; ++f) eacc[f] = 0.f;
-
-  const size_t step_f = (size_t)B * F;
-  const size_t step_k = (size_t)B * K;
-  const float* fb = feats + (size_t)b0 * F;
-  const float* ab = alpha + (size_t)b0 * K + k;
-
-  // per sequence: a_t, a_{t-1}, s_{t-1}, sh_t, b'_t and the kept-mask w_t
-  float a_cur[S], a_prev[S], s_prev[S], sh_cur[S], beta[S], w_cur[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const bool ok = s < ns;
-    const float* sb = s_in + (size_t)(b0 + s) * T;
-    a_cur[s] = (ok && active) ? ab[(size_t)(T - 1) * step_k + (size_t)s * K] : 0.f;
-    a_prev[s] = (ok && active && T >= 2) ? ab[(size_t)(T - 2) * step_k + (size_t)s * K] : 0.f;
-    s_prev[s] = (ok && T >= 2) ? sb[T - 2] : 1.f;
-    sh_cur[s] = ok ? sh_in[(size_t)(b0 + s) * T + T - 1] : 0.f;
-    beta[s] = 1.f / fmaxf(ok ? sb[T - 1] : 1.f, SUM_FLOOR);
-    w_cur[s] = GATED ? (ok ? w_in[(size_t)(T - 1) * B + b0 + s] : 0.f) : 1.f;
-  }
-  FeatRows<S, FP> rows(k, ns, F);
-  __syncthreads();  // the zeroed slots before the rows land in them
-  rows.load(fb + (size_t)(T - 1) * step_f);
-  rows.store(f_s + ((T - 1) % 3) * S * FP);
-  if (T >= 2) rows.load(fb + (size_t)(T - 2) * step_f);  // f_{T-2}, stored in step T-1
-  __syncthreads();
-
-  // ll_{T-1}: the forward's fmaf chain, column k of W from shared memory;
-  // every later ll_{t-1} is computed in step t beside the beta chain
-  float ll[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) ll[s] = 0.f;
-#pragma unroll
-  for (int f4 = 0; f4 < FP / 4; ++f4) {
-    const float4 wv = ld4(W_s + k * WST + 4 * f4);
-    float4 y[S];
-    ld4s<S>(y, f_s + ((T - 1) % 3) * S * FP + 4 * f4, FP);
-    fma4<S>(ll, y, wv.x, wv.y, wv.z, wv.w);
-  }
-
-  for (int t = T - 1; t >= 0; --t) {
-    const int p = t & 1;
-    const float* ft = f_s + (t % 3) * S * FP;        // f_t
-    float* fn = f_s + ((t + 2) % 3) * S * FP;        // f_{t-1}
-    float* dp = d_s + p * S * KMAX;
-    float* ap = a_s + p * S * KMAX;
-    float* rp = red + p * NWARP * S;
-
-    // operands of step t-1, loaded now so their latency hides behind step t
-    float a_n[S], s_n[S], sh_n[S], w_n[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const bool ok = s < ns;
-      a_n[s] = (ok && active && t >= 2) ? ab[(size_t)(t - 2) * step_k + (size_t)s * K] : 0.f;
-      s_n[s] = (ok && t >= 2) ? s_in[(size_t)(b0 + s) * T + t - 2] : 1.f;
-      sh_n[s] = (ok && t >= 1) ? sh_in[(size_t)(b0 + s) * T + t - 1] : 0.f;
-      w_n[s] = GATED ? ((ok && t >= 1) ? w_in[(size_t)(t - 1) * B + b0 + s] : 0.f) : 1.f;
-    }
-
-    float graw[S], d[S], gs[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const float lik = active ? expf(ll[s] - sh_cur[s]) : 0.f;
-      graw[s] = a_cur[s] * beta[s];
-      d[s] = t >= 1 ? (lik * (1.f / fmaxf(s_prev[s], SUM_FLOOR))) * beta[s] : 0.f;
-      dp[s * KMAX + k] = d[s];
-      ap[s * KMAX + k] = a_prev[s];
-      gs[s] = graw[s];
-    }
-    warp_sums<S>(gs);
-    if (lane == 0) {
-#pragma unroll
-      for (int s = 0; s < S; ++s) rp[warp * S + s] = gs[s];
-    }
-    if (t >= 1) {  // f_{t-1} into its slot; f_{t-2} into registers
-      rows.store(fn);
-      if (t >= 2) rows.load(fb + (size_t)(t - 2) * step_f);
-    }
-    __syncthreads();  // d_t, a_{t-1}, the partial sums and f_{t-1} are complete
-
-    float gw[S], dn[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const float n = s < ns ? 1.f / fmaxf(block_sum<S>(rp, s), SUM_FLOOR) : 0.f;
-      const float gam = graw[s] * n;
-      gw[s] = GATED ? gam * w_cur[s] : gam;  // the statistics' gamma: kept steps
-      if (active && s < ns) {
-        if (gamma != nullptr) gamma[((size_t)t * B + b0 + s) * K + k] = gam;
-        if (t == 0) gamma0[(size_t)(b0 + s) * K + k] = gw[s];
-      }
-      // stats side, with the pair gate w_{t-1} w_t; the chain keeps d (0 at t = 0)
-      dn[s] = GATED ? (d[s] * n) * (w_n[s] * w_cur[s]) : d[s] * n;
-    }
-
-    // b'_{t-1}[k] = sum_j d_t[j] A~[k][j] (j = 0..K-1 in order) and ll_{t-1}:
-    // 2S independent fmaf chains in one loop, beside acc += outer(a_{t-1},
-    // dn_t) and eacc += outer(gw_t, f_t). At t = 0 the chains' results are
-    // unused (f_{t-1}'s slot is stale) and dn = 0, so acc is unchanged.
-    float bn[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) bn[s] = ll[s] = 0.f;
-#pragma unroll
-    for (int i4 = 0; i4 < KMAX / 4; ++i4) {
-      const float4 av = ld4(A_s + k * AST + 4 * i4);
-      float4 x[S];
-      ld4s<S>(x, dp + 4 * i4, KMAX);
-      if (4 * i4 < FP) {
-        const float4 wv = ld4(W_s + k * WST + 4 * i4);
-        float4 z[S];
-        ld4s<S>(z, fn + 4 * i4, FP);
-        fma4<S>(ll, z, wv.x, wv.y, wv.z, wv.w);
-      }
-      fma4<S>(bn, x, av.x, av.y, av.z, av.w);
-      float4 y[S];
-      ld4s<S>(y, ap + 4 * i4, KMAX);
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        acc[4 * i4] = fmaf(y[s].x, dn[s], acc[4 * i4]);
-        acc[4 * i4 + 1] = fmaf(y[s].y, dn[s], acc[4 * i4 + 1]);
-        acc[4 * i4 + 2] = fmaf(y[s].z, dn[s], acc[4 * i4 + 2]);
-        acc[4 * i4 + 3] = fmaf(y[s].w, dn[s], acc[4 * i4 + 3]);
-      }
-      if (4 * i4 < FP) {
-        float4 e[S];
-        ld4s<S>(e, ft + 4 * i4, FP);
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          eacc[4 * i4] = fmaf(gw[s], e[s].x, eacc[4 * i4]);
-          eacc[4 * i4 + 1] = fmaf(gw[s], e[s].y, eacc[4 * i4 + 1]);
-          eacc[4 * i4 + 2] = fmaf(gw[s], e[s].z, eacc[4 * i4 + 2]);
-          eacc[4 * i4 + 3] = fmaf(gw[s], e[s].w, eacc[4 * i4 + 3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      beta[s] = bn[s];
-      a_cur[s] = a_prev[s];
-      a_prev[s] = a_n[s];
-      s_prev[s] = s_n[s];
-      sh_cur[s] = sh_n[s];
-      w_cur[s] = w_n[s];
-    }
-  }
-
-  // this block's row of partials: acc (K, K), then eacc (K, F)
-  if (active) {
-    float* pb = part + (size_t)blockIdx.x * (K * K + K * F);
-#pragma unroll
-    for (int i = 0; i < KMAX; ++i)
-      if (i < K) pb[i * K + k] = acc[i];
-#pragma unroll
-    for (int f = 0; f < FP; ++f)
-      if (f < F) pb[K * K + k * F + f] = eacc[f];
-  }
+  fbseq::seq_stats_backward<S, FP, true, GATED>(A, W, feats, alpha, s_in, sh_in, w_in, gamma,
+                                                gamma0, part, T, B, K, F, blockIdx.x, smem);
 }
 
 // The large-K pair: fb_wide.cuh's S-sequence chains at KP padded states.
@@ -398,7 +202,7 @@ const void* kernel_of(int which, int S, int F, int* smem) {
 #define FB_CASE(SS)                                                    \
   case SS:                                                             \
     if (which == 0) return fwd_of<SS>(fp);                             \
-    *smem = bwd_smem_bytes(SS, fp);                                    \
+    *smem = fbseq::stats_smem_bytes(SS, fp, true);                     \
     return which == 1 ? bwd_of<SS, false>(fp) : bwd_of<SS, true>(fp);
     FB_CASE(2)
     FB_CASE(4)

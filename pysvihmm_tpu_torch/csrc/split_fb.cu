@@ -21,17 +21,44 @@
 //                         d_t = (exp(ll_t - sh_t) / s_{t-1}) * b'_t
 //                         acc += outer(a_{t-1}, d_t n_t pg_t)   (wrapper forms A~ * acc)
 //                         b'_{t-1} = d_t @ A~^T
-//     The optional pair gate pg (T, B), pg_t = w_{t-1} w_t (pallas_fb.py:1243-
-//     1256), touches acc only: the beta chain runs on the ungated d and gamma
-//     is written ungated (the wrapper gates init_stats with w_0). lik_t is
+//     The optional kept-mask w (T, B) gives the pair gate pg_t = w_{t-1} w_t
+//     (pallas_fb.py:1243-1256), which the kernel forms; it touches acc only:
+//     the beta chain runs on the ungated d and gamma is written ungated (the
+//     wrapper gates init_stats with w_0). lik_t is
 //     re-derived from the stored ll_t and the forward's own sh_t, so it is
 //     bit-identical to the forward's. Every per-sequence sum is floored at
 //     SUM_FLOOR (pallas_fb.py:82). beta and xi never reach device memory.
 //
-// Layout: as fused_fb.cu, one block per sequence and one thread per state
-// (K <= KMAX = 64), the whole T loop inside the block, A~ in shared memory
-// (row-major forward, transposed backward). Arrays are time-major: ll, alpha
-// and gamma (T, B, K), pg (T, B); s and sh are (B, T); acc (K, K).
+// Layout (fb_seqs.cuh up to K = 64, fb_wide.cuh above): a block carries S
+// sequences, one thread per state, the whole T loop inside the block, and
+// thread k runs state k of all S sequences as S interleaved chains, so that
+// every word of A~ it reads feeds S FMAs. Arrays are time-major: ll, alpha
+// and gamma (T, B, K), w (T, B); s and sh are (B, T); acc (K, K).
+//   K <= 64: split_fwd_kernel<S> is fbseq::seq_forward, the fused forward's
+//     function, reading ll_t instead of forming f_t . W (column k of A~ in
+//     registers, a_{t-1} of the S sequences read as float4 broadcasts, one
+//     barrier a step); split_bwd_kernel<S, GATED> is fbseq::seq_stats_backward,
+//     the fused backward's function without W and eacc (row k of A~ mostly
+//     in registers, d_t and a_{t-1} of the S sequences as float4
+//     broadcasts, one barrier a step). Both read their rows (ll, alpha and
+//     the kept-mask) several steps ahead through a ring in shared memory that
+//     each thread fills for itself with cp.async: a step here is shorter than
+//     device memory's latency. Each sequence keeps its own column k of acc in
+//     registers (S K of them) and writes it to its row of partials, which a
+//     second kernel adds in sequence order (fb_stats.cuh): acc's bits do not
+//     depend on S, and every output is the one-sequence-a-block kernel's bit
+//     for bit (the matvec and sums in the same order, over zero padding). So
+//     S is built only where S K accumulators fit a thread's registers: S = 2
+//     for the backward, 2 and 4 for the forward (SEQS in split_fb.py).
+//   K = 65..256: split_fwd_wide_kernel<KP, S> and split_bwd_wide_kernel<KP, S,
+//     GATED> (KP = 128 or 256, S = 1, 2, 4, 8) run fbw::seqs_forward and
+//     seqs_backward on read likelihoods: one copy of A~ a block (in shared
+//     memory, its first 64 rows in registers at KP = 256), acc off the chain
+//     as outer products summed in an order fixed by (T, B, K), so every
+//     output is the same bits at every S.
+// The launchers take S from the caller (the wrapper picks it by the one-wave
+// rule of fused_fb.py from split_fb_kernel_info's occupancy) and refuse an S
+// not built.
 //
 // What bounds it on this card: per (t, b) the forward moves 8K bytes (ll in,
 // alpha out) for about 2K^2 flops, and the backward 12K bytes (ll and alpha
@@ -39,21 +66,12 @@
 // least time of about 0.16 ms (bytes) forward and 0.25 ms (flops) backward,
 // while each block walks a chain of T dependent steps, each a K-wide matvec
 // and one or two block reductions: like the fused pair, the kernels are bound
-// by that chain's latency. The design hides what it can behind it: the next
-// step's ll, alpha and scales are loaded one step ahead into registers, the
-// backward needs one barrier per step (double-buffered d, a and partial
-// sums), and acc stays in registers (column k of acc, K floats per thread);
-// each block writes it to its row of partials, which a second kernel adds in
-// sequence order (fb_stats.cuh): the same bits every call, and the same for
-// any grouping, since a block is one sequence.
-//
-// Above K = 64 the launchers take the large-K instances
-// (split_fwd_wide_kernel<KP>, split_bwd_wide_kernel<KP, GATED>, KP = 128 or
-// 256; fb_wide.cuh): one thread a state, A~ in shared memory (its first 64
-// rows in registers at KP = 256), acc off the chain as outer products
-// summed in a fixed order.
+// by that chain's latency and by the shared-memory loads each step issues
+// (PERF.md: at K = 64 the backward issues about 90 of them a step and
+// thread, 64 of them float4 broadcasts).
 
 #include "fb_common.cuh"
+#include "fb_seqs.cuh"
 #include "fb_stats.cuh"
 #include "fb_wide.cuh"
 
@@ -61,188 +79,110 @@ namespace {
 
 using fbc::KMAX;
 using fbc::NT;
-using fbc::NWARP;
-using fbc::SUM_FLOOR;
-using fbc::warp_max;
-using fbc::warp_sum;
 
+// The feature width the ll-mode instances of fb_seqs.cuh are built for: they
+// read no feature, so it sizes nothing that is used.
+constexpr int LL_FP = 4;
+
+template <int S>
 __global__ void __launch_bounds__(NT)
 split_fwd_kernel(const float* __restrict__ pi, const float* __restrict__ A,
                  const float* __restrict__ ll, float* __restrict__ alpha,
-                 float* __restrict__ s_out, float* __restrict__ sh_out, int T, int B,
-                 int K) {
-  __shared__ float A_s[KMAX * KMAX];  // A~[i][k] at i * KMAX + k
-  __shared__ float a_s[KMAX];         // a_{t-1}
-  __shared__ float red_max[NWARP];
-  __shared__ float red_sum[NWARP];
-
-  const int b = blockIdx.x;
-  const int k = threadIdx.x;
-  const int lane = k & 31, warp = k >> 5;
-  const bool active = k < K;
-
-  fbc::load_A(A, A_s, K, false);
-  const size_t step_k = (size_t)B * K;  // stride of one time step
-  const float* lb = ll + (size_t)b * K;
-  float* ab = alpha + (size_t)b * K;
-  a_s[k] = 0.f;
-  const float pik = active ? pi[k] : 0.f;
-  float l_cur = active ? lb[k] : -INFINITY;  // ll_t
-  __syncthreads();
-
-  float inv = 1.f;  // 1 / s_{t-1}
-  for (int t = 0; t < T; ++t) {
-    float l_next = -INFINITY;
-    if (t + 1 < T && active) l_next = lb[(size_t)(t + 1) * step_k + k];
-
-    float u = 0.f;
-    if (t > 0) {
-      for (int i = 0; i < K; ++i) u = fmaf(a_s[i], A_s[i * KMAX + k], u);
-    }
-    const float wm = warp_max(l_cur);
-    if (lane == 0) red_max[warp] = wm;
-    __syncthreads();  // a_s is read; red_max is complete
-
-    float m = red_max[0];
-#pragma unroll
-    for (int w = 1; w < NWARP; ++w) m = fmaxf(m, red_max[w]);
-    const float lik = active ? expf(l_cur - m) : 0.f;
-    const float a = active ? (t == 0 ? pik * lik : u * (lik * inv)) : 0.f;
-    a_s[k] = a;
-    if (active) ab[(size_t)t * step_k + k] = a;
-    const float ws = warp_sum(a);
-    if (lane == 0) red_sum[warp] = ws;
-    __syncthreads();  // a_s and red_sum are complete
-
-    float s = red_sum[0];
-#pragma unroll
-    for (int w = 1; w < NWARP; ++w) s += red_sum[w];
-    inv = 1.f / fmaxf(s, SUM_FLOOR);
-    if (k == 0) {
-      s_out[(size_t)b * T + t] = s;
-      sh_out[(size_t)b * T + t] = m;
-    }
-    l_cur = l_next;
-  }
+                 float* __restrict__ s_out, float* __restrict__ sh_out, int T, int B, int K) {
+  fbseq::seq_forward<S, LL_FP, false>(pi, A, nullptr, ll, alpha, s_out, sh_out, T, B, K, 0,
+                                      blockIdx.x);
 }
 
 // GATED is a template parameter, as in fused_fb.cu: the ungated instance
-// carries no trace of the gate.
-template <bool GATED>
+// carries no trace of the gate. w is the kept-mask (T, B); the kernel forms
+// the pair gate.
+template <int S, bool GATED>
 __global__ void __launch_bounds__(NT)
 split_bwd_kernel(const float* __restrict__ A, const float* __restrict__ ll,
                  const float* __restrict__ alpha, const float* __restrict__ s_in,
-                 const float* __restrict__ sh_in, const float* __restrict__ pg_in,
+                 const float* __restrict__ sh_in, const float* __restrict__ w_in,
                  float* __restrict__ gamma, float* __restrict__ part, int T, int B, int K) {
-  __shared__ float At_s[KMAX * KMAX];  // A~[i][j] at j * KMAX + i
-  __shared__ float d_s[2][KMAX];       // d_t in slot t & 1
-  __shared__ float a_s[2][KMAX];       // a_{t-1} in slot t & 1
-  __shared__ float red[2][NWARP];
-
-  const int b = blockIdx.x;
-  const int k = threadIdx.x;
-  const int lane = k & 31, warp = k >> 5;
-  const bool active = k < K;
-
-  fbc::load_A(A, At_s, K, true);
-
-  float acc[KMAX];  // column k of sum_t outer(a_{t-1}, d_t n_t pg_t)
-#pragma unroll
-  for (int i = 0; i < KMAX; ++i) acc[i] = 0.f;
-
-  const size_t step_k = (size_t)B * K;
-  const float* lb = ll + (size_t)b * K;
-  const float* ab = alpha + (size_t)b * K;
-  const float* sb = s_in + (size_t)b * T;
-  const float* shb = sh_in + (size_t)b * T;
-
-  float l_cur = active ? lb[(size_t)(T - 1) * step_k + k] : 0.f;       // ll_t
-  float a_cur = active ? ab[(size_t)(T - 1) * step_k + k] : 0.f;       // a_t
-  float a_prev = (T >= 2 && active) ? ab[(size_t)(T - 2) * step_k + k] : 0.f;
-  float s_prev = T >= 2 ? sb[T - 2] : 1.f;                            // s_{t-1}
-  float sh_cur = shb[T - 1];                                          // sh_t
-  float pg_cur = GATED ? pg_in[(size_t)(T - 1) * B + b] : 1.f;        // pg_t
-  float beta = 1.f / fmaxf(sb[T - 1], SUM_FLOOR);                     // b'_t
-  __syncthreads();
-
-  for (int t = T - 1; t >= 0; --t) {
-    const int p = t & 1;
-
-    // operands of step t-1, loaded now so their latency hides behind step t
-    float l_n = 0.f, a_n = 0.f, s_n = 1.f, sh_n = 0.f, pg_n = 1.f;
-    if (t >= 1) {
-      if (active) l_n = lb[(size_t)(t - 1) * step_k + k];
-      sh_n = shb[t - 1];
-      if (GATED) pg_n = pg_in[(size_t)(t - 1) * B + b];
-    }
-    if (t >= 2) {
-      if (active) a_n = ab[(size_t)(t - 2) * step_k + k];
-      s_n = sb[t - 2];
-    }
-
-    const float lik = active ? expf(l_cur - sh_cur) : 0.f;
-    const float graw = a_cur * beta;
-    float d = 0.f;
-    if (t >= 1) d = (lik * (1.f / fmaxf(s_prev, SUM_FLOOR))) * beta;
-    d_s[p][k] = d;
-    a_s[p][k] = a_prev;
-    const float ws = warp_sum(graw);
-    if (lane == 0) red[p][warp] = ws;
-    __syncthreads();  // d_s[p], a_s[p] and red[p] are complete
-
-    float g = red[p][0];
-#pragma unroll
-    for (int w = 1; w < NWARP; ++w) g += red[p][w];
-    const float n = 1.f / fmaxf(g, SUM_FLOOR);
-    if (active) gamma[((size_t)t * B + b) * K + k] = graw * n;
-    if (t >= 1) {
-      const float dn = GATED ? (d * n) * pg_cur : d * n;  // stats side; the chain keeps d
-#pragma unroll
-      for (int i = 0; i < KMAX; ++i)
-        if (i < K) acc[i] = fmaf(a_s[p][i], dn, acc[i]);
-      float bn = 0.f;
-      for (int j = 0; j < K; ++j) bn = fmaf(d_s[p][j], At_s[j * KMAX + k], bn);
-      beta = bn;
-    }
-    l_cur = l_n;
-    a_cur = a_prev;
-    a_prev = a_n;
-    s_prev = s_n;
-    sh_cur = sh_n;
-    pg_cur = pg_n;
-  }
-
-  // this sequence's row of partials, acc (K, K)
-  if (active) {
-    float* pb = part + (size_t)b * K * K;
-#pragma unroll
-    for (int i = 0; i < KMAX; ++i)
-      if (i < K) pb[i * K + k] = acc[i];
-  }
+  extern __shared__ __align__(16) float smem[];
+  fbseq::seq_stats_backward<S, LL_FP, false, GATED>(A, nullptr, ll, alpha, s_in, sh_in, w_in,
+                                                    gamma, nullptr, part, T, B, K, 0,
+                                                    blockIdx.x, smem);
 }
 
-template <int KP>
+template <int KP, int S>
 __global__ void __launch_bounds__(KP)
 split_fwd_wide_kernel(const float* __restrict__ pi, const float* __restrict__ A,
                       const float* __restrict__ ll, float* __restrict__ alpha,
                       float* __restrict__ s_out, float* __restrict__ sh_out, int T, int B,
                       int K) {
   extern __shared__ __align__(16) float smem[];
-  fbw::seqs_forward<KP, 1, false>(pi, A, nullptr, ll, alpha, s_out, sh_out, T, B, K, 0,
+  fbw::seqs_forward<KP, S, false>(pi, A, nullptr, ll, alpha, s_out, sh_out, T, B, K, 0,
                                   blockIdx.x, smem);
 }
 
-template <int KP, bool GATED>
+template <int KP, int S, bool GATED>
 __global__ void __launch_bounds__(KP)
 split_bwd_wide_kernel(const float* __restrict__ A, const float* __restrict__ ll,
                       const float* __restrict__ alpha, const float* __restrict__ s_in,
-                      const float* __restrict__ sh_in, const float* __restrict__ pg_in,
+                      const float* __restrict__ sh_in, const float* __restrict__ w_in,
                       float* __restrict__ gamma, float* __restrict__ dn,
                       float* __restrict__ carry, int T, int B, int K, int t0, int t1) {
   extern __shared__ __align__(16) float smem[];
-  fbw::seqs_backward<KP, 1, false, GATED>(A, nullptr, ll, alpha, s_in, sh_in, pg_in, gamma,
+  fbw::seqs_backward<KP, S, false, GATED>(A, nullptr, ll, alpha, s_in, sh_in, w_in, gamma,
                                           nullptr, dn, nullptr, carry, T, B, K, 0, t0, t1,
                                           blockIdx.x, smem);
+}
+
+// The instance of (which, S, K): which = 0 forward, 1 backward, 2 gated
+// backward; its dynamic shared memory in *smem. Up to KMAX states S = 2 or 4
+// (forward) and 2 (backward); above, S = 1, 2, 4 or 8 at KP = tier_of(K).
+// Null for an S not built.
+const void* narrow_of(int which, int S, int* smem) {
+  *smem = which == 0 ? 0 : fbseq::stats_smem_bytes(S, LL_FP, false);
+  if (which == 0) {
+    if (S == 2) return reinterpret_cast<const void*>(split_fwd_kernel<2>);
+    if (S == 4) return reinterpret_cast<const void*>(split_fwd_kernel<4>);
+    return nullptr;
+  }
+  if (S != 2) return nullptr;
+  return which == 1 ? reinterpret_cast<const void*>(split_bwd_kernel<2, false>)
+                    : reinterpret_cast<const void*>(split_bwd_kernel<2, true>);
+}
+
+template <int KP, int S>
+const void* wide_at(int which, int* smem) {
+  *smem = fbw::chain_smem_bytes<KP, S>();
+  if (which == 0) return reinterpret_cast<const void*>(split_fwd_wide_kernel<KP, S>);
+  return which == 1 ? reinterpret_cast<const void*>(split_bwd_wide_kernel<KP, S, false>)
+                    : reinterpret_cast<const void*>(split_bwd_wide_kernel<KP, S, true>);
+}
+
+template <int KP>
+const void* wide_of(int which, int S, int* smem) {
+  switch (S) {
+    case 1: return wide_at<KP, 1>(which, smem);
+    case 2: return wide_at<KP, 2>(which, smem);
+    case 4: return wide_at<KP, 4>(which, smem);
+    case 8: return wide_at<KP, 8>(which, smem);
+    default: *smem = 0; return nullptr;
+  }
+}
+
+const void* instance(int which, int S, int K, int* smem) {
+  if (K <= KMAX) return narrow_of(which, S, smem);
+  return fbw::tier_of(K) == 128 ? wide_of<128>(which, S, smem) : wide_of<256>(which, S, smem);
+}
+
+// The kernel of (which, S, K) on ceil(B / S) blocks of KMAX threads up to
+// KMAX states (under 48 KB of shared memory), of KP threads above; an S not
+// built is refused.
+cudaError_t launch(int which, int S, int B, int K, cudaStream_t st, void** args) {
+  int smem = 0;
+  const void* fn = instance(which, S, K, &smem);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  const dim3 grid((B + S - 1) / S);
+  if (K > KMAX) return fbw::launch_dyn(fn, grid, fbw::tier_of(K), smem, st, args);
+  const cudaError_t e = cudaLaunchKernel(fn, grid, dim3(NT), args, smem, st);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 bool bad_shape(int T, int B, int K) {
@@ -250,8 +190,8 @@ bool bad_shape(int T, int B, int K) {
 }
 
 // Floats of scratch the backward takes: K <= KMAX, a row of partials a
-// sequence; above, a window's dn, the carry and the outer sum's partials
-// (fbs::WideStats).
+// sequence (whatever S); above, a window's dn, the carry and the outer sum's
+// partials (fbs::WideStats).
 long long scratch_floats(int T, int B, int K) {
   if (K <= KMAX) return (long long)B * K * K;
   return fbs::WideStats::floats(T, B, K, 0);
@@ -275,27 +215,19 @@ const char* split_fb_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Each launcher returns cudaGetLastError() right after the launch (0 = ok).
-// Pointers are device pointers of contiguous float32 tensors; the kernel
-// runs on `stream` and does not synchronise.
+// Each launcher returns the launch's CUDA error right after it (0 = ok).
+// Pointers are device pointers of contiguous float32 tensors; the kernels
+// run on `stream` and do not synchronise. S is the sequences a block: 2 or 4
+// (forward) and 2 (backward) up to K = 64, 1, 2, 4 or 8 above; any other is
+// refused.
 int split_fb_forward(const float* pi, const float* A, const float* ll, float* alpha,
-                     float* s, float* sh, int T, int B, int K, int device,
+                     float* s, float* sh, int T, int B, int K, int S, int device,
                      void* stream) {
   if (bad_shape(T, B, K)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (K > KMAX) {
-    void* args[] = {&pi, &A, &ll, &alpha, &s, &sh, &T, &B, &K};
-    return static_cast<int>(
-        fbw::tier_of(K) == 128
-            ? fbw::launch_dyn(reinterpret_cast<const void*>(split_fwd_wide_kernel<128>), dim3(B),
-                              128, fbw::chain_smem_bytes<128>(), st, args)
-            : fbw::launch_dyn(reinterpret_cast<const void*>(split_fwd_wide_kernel<256>), dim3(B),
-                              256, fbw::chain_smem_bytes<256>(), st, args));
-  }
-  split_fwd_kernel<<<B, NT, 0, st>>>(pi, A, ll, alpha, s, sh, T, B, K);
-  return static_cast<int>(cudaGetLastError());
+  void* args[] = {&pi, &A, &ll, &alpha, &s, &sh, &T, &B, &K};
+  return static_cast<int>(launch(0, S, B, K, static_cast<cudaStream_t>(stream), args));
 }
 
 // Launches of the outer sums' kernel (fbs::outer_sum) by this library's
@@ -304,40 +236,66 @@ int split_fb_outer_launches(int clear) {
   return fbs::outer_launches(clear != 0);
 }
 
-// pg is null for the ungated launch, else the (T, B) pair gate. acc (K, K)
-// is summed in a fixed order (fb_stats.cuh); scratch holds split_fb_scratch
+// w is null for the ungated launch, else the (T, B) kept-mask; the kernel
+// forms the pair gate from it. acc (K, K) is summed in a fixed order
+// (fb_stats.cuh) that does not depend on S; scratch holds split_fb_scratch
 // floats. Above K = 64 the backward runs a window of time steps a launch
 // (fbs::WideStats), several launches for a long T.
 int split_fb_backward(const float* A, const float* ll, const float* alpha,
-                      const float* s, const float* sh, const float* pg, float* gamma,
-                      float* acc, float* scratch, int T, int B, int K, int device,
+                      const float* s, const float* sh, const float* w, float* gamma,
+                      float* acc, float* scratch, int T, int B, int K, int S, int device,
                       void* stream) {
   if (bad_shape(T, B, K)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int which = w != nullptr ? 2 : 1;
   if (K <= KMAX) {
-    if (pg != nullptr)
-      split_bwd_kernel<true><<<B, NT, 0, st>>>(A, ll, alpha, s, sh, pg, gamma, scratch, T, B, K);
-    else
-      split_bwd_kernel<false><<<B, NT, 0, st>>>(A, ll, alpha, s, sh, pg, gamma, scratch, T, B, K);
-    e = cudaGetLastError();
+    void* args[] = {&A, &ll, &alpha, &s, &sh, &w, &gamma, &scratch, &T, &B, &K};
+    e = launch(which, S, B, K, st, args);
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(fbs::sum_partials(scratch, B, K * K, acc, st));
   }
+  int smem = 0;
+  if (instance(which, S, K, &smem) == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const fbs::WideStats ws(scratch, T, B, K, 0);
   float *dn = ws.dn, *carry = ws.carry;
-  const int kp = fbw::tier_of(K);
-  const void* fn =
-      kp == 128 ? (pg != nullptr ? reinterpret_cast<const void*>(split_bwd_wide_kernel<128, true>)
-                                 : reinterpret_cast<const void*>(split_bwd_wide_kernel<128, false>))
-                : (pg != nullptr ? reinterpret_cast<const void*>(split_bwd_wide_kernel<256, true>)
-                                 : reinterpret_cast<const void*>(split_bwd_wide_kernel<256, false>));
-  const int smem = kp == 128 ? fbw::chain_smem_bytes<128>() : fbw::chain_smem_bytes<256>();
   return static_cast<int>(ws.run(alpha, nullptr, acc, st, [&](int t0, int t1) {
-    void* args[] = {&A, &ll, &alpha, &s, &sh, &pg, &gamma, &dn, &carry, &T, &B, &K, &t0, &t1};
-    return fbw::launch_dyn(fn, dim3(B), kp, smem, st, args);
+    void* args[] = {&A, &ll, &alpha, &s, &sh, &w, &gamma, &dn, &carry, &T, &B, &K, &t0, &t1};
+    return launch(which, S, B, K, st, args);
   }));
+}
+
+// What the instance (which, S, K) of the launchers above takes on `device`:
+// out[0] registers a thread, out[1] static and out[2] dynamic shared bytes a
+// block, out[3] local (spilled) bytes a thread, out[4] resident blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[5] the device's SMs,
+// out[6] threads a block. which = 0 forward, 1 backward, 2 gated backward;
+// K > 64 names the large-K instance of its KP.
+int split_fb_kernel_info(int which, int S, int K, int device, int* out) {
+  if (bad_shape(1, 1, K) || which < 0 || which > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int smem = 0;
+  const void* fn = instance(which, S, K, &smem);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int nt = K > KMAX ? fbw::tier_of(K) : NT;
+  cudaError_t e = cudaSetDevice(device);
+  if (e == cudaSuccess && smem > 0)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
+  int blocks = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, nt, smem);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.sharedSizeBytes);
+  out[2] = smem;
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  out[4] = blocks;
+  out[5] = sms;
+  out[6] = nt;
+  return 0;
 }
 
 }  // extern "C"

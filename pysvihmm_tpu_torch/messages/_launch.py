@@ -9,6 +9,13 @@ import ctypes
 import torch
 
 
+def instance_tier(K: int) -> int:
+    """The K a library's ``*_kernel_info`` knows the instance that takes K
+    states by: 64 up to 64 (the S-sequence instances), else the padded state
+    count of the large-K instance, 128 or 256 (csrc/fb_wide.cuh)."""
+    return 64 if K <= 64 else 128 if K <= 128 else 256
+
+
 def check(name: str, x: torch.Tensor, shape: tuple[int, ...], device: torch.device) -> None:
     """Raise unless ``x`` is a contiguous float32 tensor of ``shape`` on ``device``."""
     if x.device != device:

@@ -54,9 +54,19 @@ import functools
 
 import torch
 
-from ._launch import bind, check, device_index, ptr, raise_on, runs_plain_twin, scratch, stream
+from ._launch import (
+    bind,
+    check,
+    device_index,
+    instance_tier,
+    ptr,
+    raise_on,
+    runs_plain_twin,
+    scratch,
+    stream,
+)
 from .scan_fb import FBResult
-from .split_fb import exp_params, pair_gate, split_backward_reference, split_forward_reference
+from .split_fb import exp_params, split_backward_reference, split_forward_reference
 
 _LIB = "fused_fb"
 # the widest feature array the fused and duplex kernels take (fbc::FMAX in
@@ -148,13 +158,7 @@ def kernel_info(kernel: str, S: int, F: int, device: torch.device | None = None,
     thread), blocks_per_sm (resident, by the CUDA occupancy calculator), sms
     (the card's) and threads (a block)."""
     dev = device if device is not None else torch.device("cuda")
-    return dict(_kernel_info(kernel, S, F, _tier(K), device_index(dev)))
-
-
-def _tier(K: int) -> int:
-    """The K the instance that takes K is known by: 64 up to 64 states, else
-    its padded state count (128 or 256)."""
-    return KMAX_SEQS if K <= KMAX_SEQS else 128 if K <= 128 else 256
+    return dict(_kernel_info(kernel, S, F, instance_tier(K), device_index(dev)))
 
 
 @functools.cache
@@ -172,7 +176,7 @@ def _kernel_info(kernel: str, S: int, F: int, K: int, index: int) -> tuple:
 def default_seqs(kernel: str, B: int, F: int, device: torch.device, K: int = KMAX_SEQS) -> int:
     """The launchers' S: :func:`seqs_per_block` over the instances built for
     K (:func:`built_seqs`) on the card's own occupancy."""
-    return _default_seqs(kernel, B, F, _tier(K), device_index(device))
+    return _default_seqs(kernel, B, F, instance_tier(K), device_index(device))
 
 
 @functools.cache
@@ -186,7 +190,7 @@ def _default_seqs(kernel: str, B: int, F: int, K: int, index: int) -> int:
 def _seqs(kernel: str, S: int | None, B: int, K: int, F: int, index: int) -> int:
     """S for a launch: the default when None, else a built one or raise."""
     if S is None:
-        return _default_seqs(kernel, B, F, _tier(K), index)
+        return _default_seqs(kernel, B, F, instance_tier(K), index)
     if S not in built_seqs(K):
         raise ValueError(f"no {kernel} instance with S={S} at K={K}: built {built_seqs(K)}")
     return S
@@ -269,8 +273,7 @@ def backward_reference(
     outer(w_t gamma_t, f_t)), with w = g = 1 when ungated."""
     T, B, F = feats.shape
     K = A_t.shape[0]
-    g = None if weights is None else pair_gate(weights)
-    gamma, acc = split_backward_reference(A_t, feats @ W, alpha, s, sh, g)
+    gamma, acc = split_backward_reference(A_t, feats @ W, alpha, s, sh, weights)
     gamma_w = gamma if weights is None else gamma * weights[..., None]
     eacc = gamma_w.reshape(T * B, K).T @ feats.reshape(T * B, F)
     return (gamma if emit_gamma else None), gamma_w[0].clone(), acc, eacc

@@ -11,9 +11,23 @@ Kernels (``csrc/split_fb.cu``; the source notes what bounds them):
   step, the stored raw alpha and its per-step sums s.
 * ``split_bwd_kernel`` replaces ``_bwd_kernel`` (pallas_fb.py:406): the
   reverse walk, gamma, and the pairwise accumulator
-  sum_t outer(alpha_{t-1}, d_t n_t g_t) with an optional pair gate g. It
-  computes no emission statistics; the engines take those outside, as
-  gamma^T @ features (engines/base.py::_split_estep).
+  sum_t outer(alpha_{t-1}, d_t n_t g_t) with an optional pair gate g_t =
+  w_{t-1} w_t, which the kernel forms from the kept-mask w. It computes no
+  emission statistics; the engines take those outside, as gamma^T @ features
+  (engines/base.py::_split_estep).
+
+A block of either kernel carries S sequences, one thread per state, each
+thread running its state of all S as interleaved chains over one copy of A~
+(the fused pair's layouts: ``fb_seqs.cuh`` up to K = 64, ``fb_wide.cuh``
+above). The launchers take S from :func:`default_seqs`, the fused pair's
+one-wave rule (``fused_fb.seqs_per_block``) over this library's own
+instances (:func:`built_seqs`) and the card's occupancy
+(:func:`kernel_info`), or from the caller (``S=``); an S not built raises
+``ValueError``. Every output is the same bits at every S, and so at every
+B: each sequence's arithmetic does not depend on S, and acc is summed in an
+order fixed by (T, B, K) (up to K = 64 each sequence keeps its own partial
+sums, added in sequence order; above, outer products over windows of time
+steps). Above 256 states the launchers raise.
 
 Each kernel has a launcher (:func:`split_forward`, :func:`split_backward`)
 with a launch counter and a plain PyTorch twin
@@ -31,9 +45,22 @@ pair-gated and summed over sequences.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
-from ._launch import bind, check, device_index, ptr, raise_on, runs_plain_twin, scratch, stream
+from ._launch import (
+    bind,
+    check,
+    device_index,
+    instance_tier,
+    ptr,
+    raise_on,
+    runs_plain_twin,
+    scratch,
+    stream,
+)
 from .scan_fb import FBResult
 
 SUM_FLOOR = 1e-38  # per-sequence sum floor (pallas_fb.py:82)
@@ -47,9 +74,10 @@ def _library():
 
     return bind(
         load_library(_LIB),
-        {"split_fb_forward": "pppppp" "iiii" "p",
-         "split_fb_backward": "ppppppppp" "iiii" "p",
+        {"split_fb_forward": "pppppp" "iiiii" "p",
+         "split_fb_backward": "ppppppppp" "iiiii" "p",
          "split_fb_scratch": "iiip",
+         "split_fb_kernel_info": "iiiip",
          "split_fb_kmax": ""},
         "split_fb_error_string",
     )
@@ -61,6 +89,77 @@ def _check_kernel_limits(K: int) -> None:
     kmax = _library().split_fb_kmax()
     if K > kmax:
         raise NotImplementedError(f"the split CUDA kernels take K <= {kmax}, got K={K}")
+
+
+# the sequences a block the library is built for (csrc/split_fb.cu): up to K
+# = 64 by kernel (each sequence's column of acc takes K registers of a
+# backward thread, so only S = 2 fits there), and above, every kernel's
+# large-K instances
+SEQS = {"forward": (2, 4), "backward": (2,), "gated backward": (2,)}
+WIDE_SEQS = (1, 2, 4, 8)
+KMAX_SEQS = 64  # the largest K of the SEQS instances
+_KERNELS = {"forward": 0, "backward": 1, "gated backward": 2}
+
+
+def built_seqs(kernel: str, K: int) -> tuple[int, ...]:
+    """The S values the library holds instances of for ``kernel`` ("forward",
+    "backward" or "gated backward") at K states, ascending."""
+    return SEQS[kernel] if K <= KMAX_SEQS else WIDE_SEQS
+
+
+def kernel_info(kernel: str, S: int, device: torch.device | None = None,
+                K: int = KMAX_SEQS) -> dict:
+    """What one instance of the kernels takes on the card, from the library:
+    ``kernel`` is "forward", "backward" or "gated backward", S the sequences a
+    block and K the states (up to 64 the K <= 64 instance; above, the
+    large-K instance of K's padded state count, 128 or 256). Returns
+    registers (a thread), static_smem and dynamic_smem (bytes a block),
+    local_bytes (spills, a thread), blocks_per_sm (resident, by the CUDA
+    occupancy calculator), sms (the card's) and threads (a block)."""
+    dev = device if device is not None else torch.device("cuda")
+    return dict(_kernel_info(kernel, S, instance_tier(K), device_index(dev)))
+
+
+@functools.cache
+def _kernel_info(kernel: str, S: int, K: int, index: int) -> tuple:
+    out = (ctypes.c_int * 7)()
+    lib = _library()
+    code = lib.split_fb_kernel_info(_KERNELS[kernel], S, K, index, ctypes.addressof(out))
+    raise_on(lib.split_fb_error_string, code, f"split_fb_kernel_info({kernel}, S={S}, K={K})")
+    keys = ("registers", "static_smem", "dynamic_smem", "local_bytes", "blocks_per_sm", "sms",
+            "threads")
+    return tuple(zip(keys, list(out)))
+
+
+def default_seqs(kernel: str, B: int, device: torch.device, K: int = KMAX_SEQS) -> int:
+    """The launchers' S: ``fused_fb.seqs_per_block`` (the smallest built S
+    whose ceil(B / S) blocks run in one wave) over this library's instances
+    for ``kernel`` at K (:func:`built_seqs`) on the card's own occupancy."""
+    return _default_seqs(kernel, B, instance_tier(K), device_index(device))
+
+
+@functools.cache
+def _default_seqs(kernel: str, B: int, K: int, index: int) -> int:
+    from .fused_fb import seqs_per_block  # fused_fb imports this module
+
+    seqs = built_seqs(kernel, K)
+    info = {S: dict(_kernel_info(kernel, S, K, index)) for S in seqs}
+    return seqs_per_block(B, {S: i["blocks_per_sm"] * i["sms"] for S, i in info.items()},
+                          seqs=seqs)
+
+
+def check_seqs(kernel: str, S: int | None, K: int) -> None:
+    """Raise ``ValueError`` unless S is None or one of :func:`built_seqs`
+    (no fallback to another S); the launchers check it on every device."""
+    if S is not None and S not in built_seqs(kernel, K):
+        raise ValueError(f"no split {kernel} instance with S={S} at K={K}: built "
+                         f"{built_seqs(kernel, K)}")
+
+
+def _seqs(kernel: str, S: int | None, B: int, K: int, index: int) -> int:
+    """S for a launch: the default when None, else a built one or raise."""
+    check_seqs(kernel, S, K)
+    return _default_seqs(kernel, B, instance_tier(K), index) if S is None else S
 
 
 def exp_params(log_pi: torch.Tensor, log_A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -106,26 +205,31 @@ def split_forward_reference(
 
 
 def split_forward(
-    pi_t: torch.Tensor, A_t: torch.Tensor, ll: torch.Tensor
+    pi_t: torch.Tensor, A_t: torch.Tensor, ll: torch.Tensor, S: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Forward kernel launcher; contract of :func:`split_forward_reference`.
 
     Inputs are float32 and contiguous on one device. CPU tensors run the
-    plain twin; CUDA tensors launch ``split_fwd_kernel`` or raise."""
+    plain twin; CUDA tensors launch ``split_fwd_kernel`` with S sequences a
+    block (:func:`default_seqs` when None; one of :func:`built_seqs`, else
+    ``ValueError``) or raise. The outputs do not depend on S."""
     T, B, K = ll.shape
     dev = ll.device
     for name, x, shape in (("pi_t", pi_t, (K,)), ("A_t", A_t, (K, K)), ("ll", ll, (T, B, K))):
         check(name, x, shape, dev)
+    check_seqs("forward", S, K)
     if runs_plain_twin(ll):
         return split_forward_reference(pi_t, A_t, ll)
     _check_kernel_limits(K)
     lib = _library()
+    index = device_index(dev)
+    S = _seqs("forward", S, B, K, index)
     alpha = torch.empty((T, B, K), dtype=torch.float32, device=dev)
     s = torch.empty((B, T), dtype=torch.float32, device=dev)
     sh = torch.empty((B, T), dtype=torch.float32, device=dev)
     code = lib.split_fb_forward(
         ptr(pi_t), ptr(A_t), ptr(ll), ptr(alpha), ptr(s), ptr(sh),
-        T, B, K, device_index(dev), stream(dev),
+        T, B, K, S, index, stream(dev),
     )
     split_forward.launches += 1
     raise_on(lib.split_fb_error_string, code, "split_fwd_kernel")
@@ -144,15 +248,17 @@ def split_backward_reference(
     alpha: torch.Tensor,
     s: torch.Tensor,
     sh: torch.Tensor,
-    g: torch.Tensor | None = None,
+    w: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of the backward kernel.
 
     Takes the forward's (alpha (T, B, K), s (B, T), sh (B, T)) and the
-    optional pair gate g (T, B). Returns (gamma (T, B, K), ungated; acc
-    (K, K) = sum over sequences and t of outer(alpha_{t-1}, d_t n_t g_t)).
-    The beta chain runs on the ungated d."""
+    optional kept-mask w (T, B). Returns (gamma (T, B, K), ungated; acc
+    (K, K) = sum over sequences and t of outer(alpha_{t-1}, d_t n_t g_t),
+    g = :func:`pair_gate` (w), g = 1 ungated). The beta chain runs on the
+    ungated d."""
     T, B, K = ll.shape
+    g = None if w is None else pair_gate(w)
     lik = torch.exp(ll - sh.T[..., None])
     r = 1.0 / torch.clamp_min(s, SUM_FLOOR)  # (B, T)
     beta = r[:, T - 1, None].expand(B, K)
@@ -178,35 +284,43 @@ def split_backward(
     alpha: torch.Tensor,
     s: torch.Tensor,
     sh: torch.Tensor,
-    g: torch.Tensor | None = None,
+    w: torch.Tensor | None = None,
+    S: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Backward kernel launcher; contract of :func:`split_backward_reference`.
 
     CPU tensors run the plain twin; CUDA tensors launch ``split_bwd_kernel``
-    (``split_bwd_wide_kernel`` above K = 64) or raise. acc is summed across
-    sequences in an order fixed by the shapes (csrc/fb_stats.cuh), so
-    repeated calls on one card give the same bits. Above K = 64 the launch
-    takes a scratch of min(T B, max(B, 2^17)) K floats beside the carried
-    beta (B K) and the sum's partials, whatever T: about 0.14 GB at B =
-    1024, K = 256 (acc a window of time steps a launch)."""
+    (``split_bwd_wide_kernel`` above K = 64; gated when the kept-mask ``w``
+    is given, the kernel forming the pair gate from it) with S sequences a
+    block (:func:`default_seqs` when None; one of :func:`built_seqs`, else
+    ``ValueError``), or raise. acc is summed across sequences in an order
+    fixed by (T, B, K) alone (csrc/fb_stats.cuh): the same bits at every S
+    and over repeated calls on one card. Above K = 64 the launch takes a
+    scratch of min(T B, max(B, 2^17)) K floats beside the carried beta (B K)
+    and the sum's partials, whatever T: about 0.14 GB at B = 1024, K = 256
+    (acc a window of time steps a launch)."""
     T, B, K = ll.shape
     dev = ll.device
     args = [("A_t", A_t, (K, K)), ("ll", ll, (T, B, K)), ("alpha", alpha, (T, B, K)),
             ("s", s, (B, T)), ("sh", sh, (B, T))]
-    if g is not None:
-        args.append(("g", g, (T, B)))
+    if w is not None:
+        args.append(("w", w, (T, B)))
     for name, x, shape in args:
         check(name, x, shape, dev)
+    kind = "backward" if w is None else "gated backward"
+    check_seqs(kind, S, K)
     if runs_plain_twin(ll):
-        return split_backward_reference(A_t, ll, alpha, s, sh, g)
+        return split_backward_reference(A_t, ll, alpha, s, sh, w)
     _check_kernel_limits(K)
     lib = _library()
+    index = device_index(dev)
+    S = _seqs(kind, S, B, K, index)
     gamma = torch.empty((T, B, K), dtype=torch.float32, device=dev)
     acc = torch.empty((K, K), dtype=torch.float32, device=dev)
     work = scratch(lib, "split_fb_scratch", lib.split_fb_error_string, dev, T, B, K)
     code = lib.split_fb_backward(
-        ptr(A_t), ptr(ll), ptr(alpha), ptr(s), ptr(sh), ptr(g), ptr(gamma), ptr(acc),
-        ptr(work), T, B, K, device_index(dev), stream(dev),
+        ptr(A_t), ptr(ll), ptr(alpha), ptr(s), ptr(sh), ptr(w), ptr(gamma), ptr(acc),
+        ptr(work), T, B, K, S, index, stream(dev),
     )
     split_backward.launches += 1
     raise_on(lib.split_fb_error_string, code, "split_bwd_kernel")
@@ -248,8 +362,7 @@ def estep_split(
     twins; CUDA tensors run the two kernels."""
     pi_t, A_t = exp_params(log_pi, log_A)
     alpha, s, sh = split_forward(pi_t, A_t, ll)
-    g = None if weights is None else pair_gate(weights)
-    gamma, acc = split_backward(A_t, ll, alpha, s, sh, g)
+    gamma, acc = split_backward(A_t, ll, alpha, s, sh, weights)
     return _assemble(A_t, s, sh, gamma, acc, weights)
 
 
@@ -262,6 +375,5 @@ def estep_split_reference(
     """Plain PyTorch version of :func:`estep_split` on any device."""
     pi_t, A_t = exp_params(log_pi, log_A)
     alpha, s, sh = split_forward_reference(pi_t, A_t, ll)
-    g = None if weights is None else pair_gate(weights)
-    gamma, acc = split_backward_reference(A_t, ll, alpha, s, sh, g)
+    gamma, acc = split_backward_reference(A_t, ll, alpha, s, sh, weights)
     return _assemble(A_t, s, sh, gamma, acc, weights)

@@ -3,9 +3,9 @@ K=64, a Gaussian-NIW at D=8: F=45): the forward, the backward ungated and
 gated (kept runs of 5T/7), and the whole fused E-step; then one windowed SVI
 step (L=50, b=10, W=70, on one chain of T=100,000) on "auto" and on "split"
 at B = 32, 256 and 1024. Given another K (65-256, the large-K instances),
-the pair and the E-step at that K, the pair at one sequence a block (S = 1,
-what a small batch runs), the split pair on ll = feats @ W beside them, and
-no SVI step. Then the device time of each kernel one backward
+the pair and the E-step at that K and the pair at one sequence a block (S =
+1, what a small batch runs), and no SVI step (``time_split.py`` times the
+split pair). Then the device time of each kernel one backward
 call launches (torch.profiler), ungated and gated; at K > 64 last the
 backward's outer sums alone (``fused_fb.outer_sum``, where the checkout
 has it) beside torch.matmul on the same products, float32 and TF32.
@@ -17,18 +17,18 @@ Usage, on a machine with an NVIDIA GPU and nvcc, from the repository root::
 It imports the ``pysvihmm_tpu_torch`` of ``<checkout>`` (``.`` for this one)
 and calls only what every version of the port has had since windowed SVI
 was ported (``fused_forward``, ``fused_backward``, ``estep_fused`` with
-their default arguments, ``svi.make_step``, ``split_forward``,
-``split_backward``) and, at K > 64, ``_launch_forward`` /
-``_launch_backward`` (since the fused pair took S), so the same file times
+their default arguments, ``svi.make_step``) and, at K > 64,
+``_launch_forward`` / ``_launch_backward`` (since the fused pair took S),
+so the same file times
 an earlier checkout too: two checkouts are compared in one call, in turns. Each
 line gives ms per launch (per step for SVI, chained steps with nothing read
 back) by CUDA events, 20 launches after 3 warm-ups, ``reps`` times (default
 3), and their median and minimum (the host-bound SVI step varies by up to 2x
 from one rep to the next); the last line is the card's name and power limit.
 The first lines carry sha256 digests of the outputs on the same seeded
-inputs: the forward's (alpha, s, sh), the backward's (gamma, gamma0, acc,
-eacc) with ``emit_gamma``, ungated and gated, and at K > 64 the split
-pair's (alpha, s, sh, gamma, acc), so two checkouts' bits compare.
+inputs: the forward's (alpha, s, sh) and the backward's (gamma, gamma0,
+acc, eacc) with ``emit_gamma``, ungated and gated, so two checkouts' bits
+compare.
 Without a card it raises.
 """
 
@@ -45,7 +45,7 @@ import pysvihmm_tpu_torch
 from pysvihmm_tpu_torch.data.synthetic import gen_gaussian_dataset
 from pysvihmm_tpu_torch.distributions import GaussianNIW, dirichlet, niw
 from pysvihmm_tpu_torch.engines import svi
-from pysvihmm_tpu_torch.messages import fused_fb, split_fb
+from pysvihmm_tpu_torch.messages import fused_fb
 from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
 from pysvihmm_tpu_torch.scripts.debug_split import cuda_ms
 
@@ -193,14 +193,6 @@ def main(argv: list[str]) -> int:
             1, A_t, W, feats, alpha, s, sh)
         runs["fused_bwd_kernel, S=1, gated"] = lambda: fused_fb._launch_backward(
             1, A_t, W, feats, alpha, s, sh, False, w)
-        ll = (feats @ W).contiguous()
-        sa, ss, ssh = split_fb.split_forward(pi_t, A_t, ll)
-        sg, sacc = split_fb.split_backward(A_t, ll, sa, ss, ssh)
-        print(f"split_fwd_kernel's alpha, s, sh, split_bwd_kernel's gamma, acc: sha256 "
-              f"{digest(sa, ss, ssh, sg, sacc)}", flush=True)
-        del sg, sacc
-        runs["split_fwd_kernel"] = lambda: split_fb.split_forward(pi_t, A_t, ll)
-        runs["split_bwd_kernel"] = lambda: split_fb.split_backward(A_t, ll, sa, ss, ssh)
     for name, fn in runs.items():
         report(name, [cuda_ms(fn, 20, warmup=3) for _ in range(reps)])
     for name in ("fused_bwd_kernel", "fused_bwd_kernel, gated"):

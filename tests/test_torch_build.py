@@ -26,12 +26,12 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
 
 def test_both_kernel_sources_share_the_header():
     """Every source includes the shared device code and the large-K layout;
-    the three route sources also the fixed-order statistics, and the fused
-    and duplex sources the S-sequences-a-block layout of their K <= 64
-    chains (one forward for both)."""
+    the three route sources also the fixed-order statistics and the
+    S-sequences-a-block layout of their K <= 64 chains (one forward for all
+    three, one backward for the fused and split pairs)."""
     names = ("fused_fb", "split_fb", "duplex_fb", "split_probe")
     for name in names:
-        seqs = ["fb_seqs.cuh"] if name in ("fused_fb", "duplex_fb") else []
+        seqs = ["fb_seqs.cuh"] if name != "split_probe" else []
         stats = [] if name == "split_probe" else ["fb_stats.cuh"]
         assert _build.sources(name) == [f"{name}.cu", "fb_common.cuh", *seqs, *stats,
                                         "fb_wide.cuh"]

@@ -308,14 +308,15 @@ def test_large_k_pair_runs_b1024_in_one_wave(cuda_device, K):
         assert fused_fb.default_seqs(kind, 32, 45, cuda_device, K=K) == 1
 
 
-@pytest.mark.parametrize("K", [64, 128, 256])
+@pytest.mark.parametrize("K", [64, 128, 256, 129])
 @pytest.mark.parametrize("gated", [False, True])
 def test_backward_statistics_repeat_bit_for_bit(cuda_device, K, gated):
     """acc and eacc of each backward kernel (fused, split, duplex combine)
     are the same bits over 5 calls on the same inputs: the sums across
     blocks run in an order fixed by the shapes. The fused backward at its
     default S and, above K = 64, at every built S, which all give the same
-    bits there."""
+    bits there; the split backward at every built S, the same bits at every
+    K (acc's sums do not depend on S)."""
     B, T, D = 2048, 150, 8  # three windows of the large-K statistics
     gen = torch.Generator(device=cuda_device).manual_seed(500 + K)
     log_pi, log_A, W, feats = random_problem(gen, B, T, K, D)
@@ -323,14 +324,16 @@ def test_backward_statistics_repeat_bit_for_bit(cuda_device, K, gated):
     pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
     a, s, sh, beta = duplex_fb.duplex_chain(pi_t, A_t, W, feats)
     ll = (feats @ W).contiguous()
-    g = None if w is None else split_fb.pair_gate(w)
     calls = {"fused": lambda: fused_fb.fused_backward(A_t, W, feats, a, s, sh, False, w)[2:],
-             "split": lambda: split_fb.split_backward(A_t, ll, a, s, sh, g)[1:],
+             "split": lambda: split_fb.split_backward(A_t, ll, a, s, sh, w)[1:],
              "duplex": lambda: duplex_fb.duplex_combine(W, feats, a, beta, sh, False, w)[2:]}
     if K > 64:
         for S in fused_fb.WIDE_SEQS:
             calls[f"fused S={S}"] = lambda S=S: fused_fb._launch_backward(
                 S, A_t, W, feats, a, s, sh, False, w)[2:]
+    split_seqs = split_fb.built_seqs("backward" if w is None else "gated backward", K)
+    for S in split_seqs:
+        calls[f"split S={S}"] = lambda S=S: split_fb.split_backward(A_t, ll, a, s, sh, w, S=S)
     firsts = {}
     for name, call in calls.items():
         first = firsts[name] = call()
@@ -338,6 +341,63 @@ def test_backward_statistics_repeat_bit_for_bit(cuda_device, K, gated):
             assert all(torch.equal(x, y) for x, y in zip(call(), first)), name
     for S in fused_fb.WIDE_SEQS if K > 64 else ():
         assert all(torch.equal(x, y) for x, y in zip(firsts[f"fused S={S}"], firsts["fused"])), S
+    for S in split_seqs:
+        assert all(torch.equal(x, y) for x, y in zip(firsts[f"split S={S}"][1:], firsts["split"]))
+
+
+@pytest.mark.parametrize("B", [1, 3, 37, 1024])
+@pytest.mark.parametrize("K", [8, 64, 65, 129, 256])
+@pytest.mark.parametrize("gated", [False, True])
+def test_split_pair_at_every_s_matches_twins(cuda_device, B, K, gated):
+    """Every built S of both split kernels (split_fb.built_seqs: up to K = 64
+    the S-sequence instances, above the large-K ones; B = 1 and 3 leave the
+    last block short) against the twins, gated and not, each launch counted;
+    alpha, s, sh, gamma and acc are the same bits at every S, and the
+    backward's five calls the same bits. At B = 1024 the large-K statistics
+    take two windows of time steps."""
+    T = 150 if B == 1024 else 90
+    gen = torch.Generator(device=cuda_device).manual_seed(900 + K + B)
+    log_pi, log_A, W, feats = random_problem(gen, B, T, K, 3)
+    ll = (feats @ W).contiguous()
+    w = svi_masks(gen, B, T, (3 * T) // 4) if gated else None
+    pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+    fr = split_fb.split_forward_reference(pi_t, A_t, ll)
+    first = None
+    for S in split_fb.built_seqs("forward", K):
+        n = split_fb.split_forward.launches
+        fwd = split_fb.split_forward(pi_t, A_t, ll, S=S)
+        torch.cuda.synchronize()
+        assert split_fb.split_forward.launches == n + 1
+        for x, r in zip(fwd[:2], fr[:2]):
+            torch.testing.assert_close(x, r, rtol=0, atol=5e-5)
+        assert torch.equal(fwd[2], fr[2])
+        first = first or fwd
+        assert all(torch.equal(x, y) for x, y in zip(fwd, first)), S
+    br = split_fb.split_backward_reference(A_t, ll, *fr, w)
+    first = None
+    for S in split_fb.built_seqs("backward" if w is None else "gated backward", K):
+        n = split_fb.split_backward.launches
+        got = [split_fb.split_backward(A_t, ll, *fr, w, S=S) for _ in range(5)]
+        torch.cuda.synchronize()
+        assert split_fb.split_backward.launches == n + 5
+        torch.testing.assert_close(got[0][0], br[0], rtol=0, atol=5e-5)
+        torch.testing.assert_close(got[0][1], br[1], rtol=1e-4, atol=1e-3)
+        first = first or got[0]
+        assert all(torch.equal(x, y) for c in got for x, y in zip(c, first)), S
+
+
+@pytest.mark.parametrize("K", [64, 128, 256])
+def test_split_pair_runs_b1024_in_one_wave(cuda_device, K):
+    """At B=1024 each split kernel's default S (by the one-wave rule over the
+    library's occupancy) fits all ceil(B/S) blocks on the card at once, and
+    B=32 (the small SVI batch) takes the smallest S built."""
+    for kind in ("forward", "backward", "gated backward"):
+        S = split_fb.default_seqs(kind, 1024, cuda_device, K=K)
+        info = split_fb.kernel_info(kind, S, cuda_device, K=K)
+        assert S in split_fb.built_seqs(kind, K) and info["local_bytes"] == 0, (kind, info)
+        assert info["threads"] == (64 if K <= 64 else K)
+        assert -(-1024 // S) <= info["blocks_per_sm"] * info["sms"], (kind, S, info)
+        assert split_fb.default_seqs(kind, 32, cuda_device, K=K) == split_fb.built_seqs(kind, K)[0]
 
 
 # the row counts of the outer sums' checks: one row, under a stage, not a
@@ -555,12 +615,13 @@ def test_duplex_wider_than_the_kernels_raises(cuda_device, K, F):
         duplex_fb.duplex_combine(W, feats, alpha, alpha, sh)
 
 
-@pytest.mark.parametrize("route", ["fused", "duplex"])
+@pytest.mark.parametrize("route", ["fused", "duplex", "auto"])
 def test_wide_features_take_the_split_kernels(cuda_device, route):
     """Features wider than the fused and duplex kernels take (F > FMAX): a
     multinomial of 100 and of 300 symbols and a Gaussian-NIW at D = 10
-    (F = 66) run the split kernels once on "fused" and "duplex", and no
-    other kernel, and agree with "scan", gated and not."""
+    (F = 66) run the split kernels once on "fused", "duplex" and "auto" (the
+    card's "fused"), and no other kernel, and agree with "scan", gated and
+    not."""
     g = torch.Generator(device=cuda_device).manual_seed(3)
     for fam, size in ((MultinomialDirichlet, 100), (MultinomialDirichlet, 300), (GaussianNIW, 10)):
         if fam is MultinomialDirichlet:

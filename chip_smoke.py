@@ -27,15 +27,17 @@ fails:
             multiples of its 8 x 8 tiles, windows of the large-K statistics
             whose edges cut a block's chunk at K = 256), gated and not, and
             the chain at every S against the fused forward at every S, bit
-            for bit, at B = 1, 3, 32, 1024 and 2048; all under stated
-            tolerances. Then the large-K instances of all six
+            for bit, at B = 1, 3, 32, 1024 and 2048 and K = 64, 65, 128,
+            129 and 256 (the large-K chain built for S = 1, 2, 4, 8); all
+            under stated tolerances. Then the large-K instances of all six
             kernels the same way at K = 65, 128, 129 and 256 on a small
             shape and at B=1024, T=1000, D=8 for K = 128 and 256, gated and
             not (the duplex chain bit for bit there too); the large-K fused
             pair at every built S (sequences a block: 1, 2, 4, 8) at that
             full shape, K = 128 and 256: alpha, s, sh, gamma, gamma0, acc
             and eacc (ungated and gated) the same bits at every S, and the
-            duplex chain's alpha, s and sh those of the forward; and each
+            duplex chain at every S: alpha, s and sh those of the forward
+            at that S, beta the same bits at every S; and each
             backward kernel (fused, split, duplex combine), gated and not,
             5 times on one full-shape input at K = 64, 128 and 256: acc and
             eacc must be the same bits every time. The split pair at every
@@ -67,7 +69,10 @@ fails:
             (KP, S) and kernel (forward, backward, gated backward):
             registers, spills, static and dynamic shared bytes, blocks an
             SM, waves at B=1024, time and share of the bound (the default S
-            in one wave); the split pair the same way at K = 64, 128 and 256
+            in one wave); the large-K duplex chain the same way at K = 128
+            and 256 (waves of its 2 ceil(B/S) blocks; the default S the
+            one-wave rule's pick, which at KP = 256 takes two waves); the
+            split pair the same way at K = 64, 128 and 256
             (every built S of the forward, the backward and the gated
             backward; the default S in one wave); the pair at every S for B =
             2048 and 4096; the gated
@@ -137,8 +142,8 @@ fails:
             eacc in every backward of those runs.
 
 The last lines are the card line, one JSON line describing the kernels (every
-kernel and instance tier: K <= 64, KP = 128, KP = 256, the split rows with
-the S their times ran at; the outer sums at K = 128 and 256, the one entry
+kernel and instance tier: K <= 64, KP = 128, KP = 256, the split and duplex
+chain rows with the S their times ran at; the outer sums at K = 128 and 256, the one entry
 with a library call) and, last,
 ``{"ok": true, "device": {...}}``.
 """
@@ -458,9 +463,10 @@ CHAIN_BATCHES = (1, 3, 32, 1024, 2048)  # the last block short, one wave and two
 
 def check_duplex_edges(gen) -> None:
     """Phase 3: the duplex kernels against their twins at COMBINE_EDGES,
-    gated and not (D = 3), and the chain at every S against the fused
-    forward at every S, alpha, s and sh bit for bit and beta the same bits
-    at every S, at CHAIN_BATCHES (T = 40, K = 64)."""
+    gated and not (D = 3), and the chain at every built S against the fused
+    forward at that S, alpha, s and sh bit for bit and beta the same bits
+    at every S, at CHAIN_BATCHES (T = 40, K = 64 and each K of
+    SMALL_LARGE_K)."""
     import torch
 
     from pysvihmm_tpu_torch.messages import duplex_fb as df
@@ -469,20 +475,23 @@ def check_duplex_edges(gen) -> None:
     for B_, T_, K_ in COMBINE_EDGES:
         for gated in (False, True):
             check_duplex(gen, B_, T_, K_, 3, gated)
-    for B_ in CHAIN_BATCHES:
-        log_pi, log_A, W, feats = random_problem(gen, B_, 40, K, D)
-        pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
-        first = df.duplex_chain(pi_t, A_t, W, feats)
-        same = []
-        for S in ff.SEQS:
-            got = df._launch_chain(S, pi_t, A_t, W, feats)
-            fwd = ff._launch_forward(S, pi_t, A_t, W, feats)
-            same.append(all(torch.equal(x, y) for x, y in zip(got[:3], fwd))
-                        and torch.equal(got[3], first[3]))
-        torch.cuda.synchronize()
-        log(f"  duplex chain at (B, T, K, D) = ({B_}, 40, {K}, {D}), S in {ff.SEQS}: alpha, s, "
-            f"sh the fused forward's and beta the same at every S, bit for bit: {same}")
-        require(all(same), f"the duplex chain at B={B_} is not the fused forward's bit for bit")
+    for K_ in (K, *SMALL_LARGE_K):
+        for B_ in CHAIN_BATCHES:
+            log_pi, log_A, W, feats = random_problem(gen, B_, 40, K_, D)
+            pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+            first = df.duplex_chain(pi_t, A_t, W, feats)
+            same = []
+            for S in df.built_seqs(K_):
+                got = df._launch_chain(S, pi_t, A_t, W, feats)
+                fwd = ff._launch_forward(S, pi_t, A_t, W, feats)
+                same.append(all(torch.equal(x, y) for x, y in zip(got[:3], fwd))
+                            and torch.equal(got[3], first[3]))
+            torch.cuda.synchronize()
+            log(f"  duplex chain at (B, T, K, D) = ({B_}, 40, {K_}, {D}), S in "
+                f"{df.built_seqs(K_)}: alpha, s, sh the fused forward's and beta the same at "
+                f"every S, bit for bit: {same}")
+            require(all(same), f"the duplex chain at B={B_}, K={K_} is not the fused forward's "
+                               "bit for bit")
 
 
 LARGE_K = (128, 256)  # the large-K tiers: 65-128 states run KP = 128, 129-256 KP = 256
@@ -519,13 +528,15 @@ def check_large_k(gen) -> dict[tuple[str, int], float]:
 
 
 def check_wide_seqs(gen) -> None:
-    """Phase 3: the large-K fused pair at every built S (sequences a block,
-    ``fused_fb.WIDE_SEQS``) at B=1024, T=1000, D=8 for each K of LARGE_K: the
-    forward's alpha, s and sh, and the backward's gamma, gamma0, acc and
-    eacc (emit_gamma, ungated and gated), must be the same bits at every S
-    (each sequence's arithmetic and the statistics' order do not depend on
-    S), and the duplex chain's alpha, s and sh those of the forward; all
-    ``require``s."""
+    """Phase 3: the large-K fused pair and duplex chain at every built S
+    (sequences a block, ``fused_fb.WIDE_SEQS``) at B=1024, T=1000, D=8 for
+    each K of LARGE_K: the forward's alpha, s and sh, and the backward's
+    gamma, gamma0, acc and eacc (emit_gamma, ungated and gated), must be the
+    same bits at every S (each sequence's arithmetic and the statistics'
+    order do not depend on S), the duplex chain's alpha, s and sh at each S
+    those of the fused forward at that S and its beta the same bits at
+    every S; then the default chain's alpha, s and sh those of the forward;
+    all ``require``s."""
     import torch
 
     from pysvihmm_tpu_torch.messages import duplex_fb as df
@@ -547,16 +558,29 @@ def check_wide_seqs(gen) -> None:
             torch.cuda.synchronize()
             same = {name: all(torch.equal(x, y) for x, y in zip(got, ref[name]))
                     for name, got in outs.items()}
-            del outs, fwd
+            del outs
             log(f"  fused pair at (B, T, K, F) = ({B}, {T}, {K_}, {feats.shape[-1]}), S={S}: "
                 f"the same bits as S={ff.WIDE_SEQS[0]} (alpha, s, sh; gamma, gamma0, acc, eacc "
                 f"ungated and gated): {same}")
             require(all(same.values()), f"the large-K fused pair at K={K_}, S={S} differs "
                                         f"from S={ff.WIDE_SEQS[0]}")
+            chain = df._launch_chain(S, pi_t, A_t, W, feats)
+            ref.setdefault("beta", chain[3])
+            torch.cuda.synchronize()
+            same = [all(torch.equal(x, y) for x, y in zip(chain[:3], fwd)),
+                    torch.equal(chain[3], ref["beta"])]
+            del chain, fwd
+            log(f"  duplex chain at K={K_}, S={S}: alpha, s, sh the fused forward's at S={S}, "
+                f"beta the bits of S={ff.WIDE_SEQS[0]}: {same}")
+            require(all(same), f"the duplex chain at K={K_}, S={S} is not the fused forward's "
+                               f"or its beta differs from S={ff.WIDE_SEQS[0]}")
         chain = df.duplex_chain(pi_t, A_t, W, feats)
         torch.cuda.synchronize()
-        same = all(torch.equal(x, y) for x, y in zip(chain[:3], ref["fwd"]))
-        log(f"  duplex chain at K={K_}: alpha, s, sh the fused forward's at every S: {same}")
+        same = (all(torch.equal(x, y) for x, y in zip(chain[:3], ref["fwd"]))
+                and torch.equal(chain[3], ref["beta"]))
+        log(f"  duplex chain at K={K_}, the default S="
+            f"{df.default_seqs(B, feats.shape[-1], feats.device, K=K_)}: alpha, s, sh the fused "
+            f"forward's and beta the bits of every S: {same}")
         require(same, f"the duplex chain at K={K_} is not the fused forward's bit for bit")
         del chain, ref, feats, w
         torch.cuda.empty_cache()
@@ -1047,6 +1071,48 @@ def duplex_layout(duplex_inputs, chain_ms: float) -> None:
             f"{info['local_bytes']} spilled bytes, {info['static_smem'] + info['dynamic_smem']} "
             f"shared bytes a block of {info['threads']} threads, {info['blocks_per_sm']} blocks "
             f"an SM of {info['sms']}; {groups} groups of 8 sequences at B={B}")
+
+
+def duplex_wide_layout(gen) -> None:
+    """Phase 5: the large-K duplex chain's block layout at B=1024, T=1000,
+    D=8 for each K of LARGE_K. For every built S (``duplex_fb.built_seqs``):
+    the library's registers, spills, static and dynamic shared bytes and
+    resident blocks an SM, the waves of 2 ceil(B/S) blocks (a forward and a
+    backward block a group), the time (CUDA events) and share of the bound.
+    The default S must be the one-wave rule's pick over those instances
+    (``fused_fb.seqs_per_block``, two blocks a group)."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import duplex_fb as df
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.scripts.debug_split import cuda_ms
+    from pysvihmm_tpu_torch.utils.roofline import bound, kernel_work
+
+    name = "duplex_chain_kernel"
+    for K_ in LARGE_K:
+        log_pi, log_A, W, feats = random_problem(gen, B, T, K_, D)
+        pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+        F_ = feats.shape[-1]
+        b_ms = bound(*kernel_work(name, B, T, K_, F_))[0]
+        chosen = df.default_seqs(B, F_, feats.device, K=K_)
+        seqs = df.built_seqs(K_)
+        infos = {S: df.kernel_info("chain", S, F_, K=K_) for S in seqs}
+        rule = ff.seqs_per_block(B, {S: i["blocks_per_sm"] * i["sms"] for S, i in infos.items()},
+                                 2, seqs)
+        require(chosen == rule, f"{name} at K={K_}: the default S={chosen} is not the rule's "
+                                f"S={rule}")
+        for S, info in infos.items():
+            blocks = 2 * -(-B // S)
+            waves = blocks / (info["blocks_per_sm"] * info["sms"])
+            t_ms = cuda_ms(lambda: df._launch_chain(S, pi_t, A_t, W, feats), 10, warmup=2)
+            log(f"{tier_name(name, K_)} S={S}{' (default)' if S == chosen else ''}: "
+                f"{info['registers']} registers, {info['local_bytes']} spilled bytes, "
+                f"{info['static_smem']} static + {info['dynamic_smem']} dynamic shared bytes "
+                f"a block of {info['threads']} threads, {info['blocks_per_sm']} blocks an SM "
+                f"of {info['sms']}, {blocks} blocks = {waves:.3f} waves at B={B}; "
+                f"{t_ms:.3f} ms, bound {b_ms:.3f} ms, {100 * b_ms / t_ms:.1f} % of it")
+        del feats
+        torch.cuda.empty_cache()
 
 
 def wide_layout(gen) -> None:
@@ -1995,6 +2061,7 @@ def main() -> int:
     fused_layout(full_inputs, {name: ms[name, K] for name in FUSED_KERNELS})
     duplex_layout(duplex_inputs, ms["duplex_chain_kernel", K])
     wide_layout(torch.Generator(device=dev).manual_seed(82))
+    duplex_wide_layout(torch.Generator(device=dev).manual_seed(85))
     split_layout(torch.Generator(device=dev).manual_seed(84))
     outer_ms, outer_plain_ms, outer_lib_ms, outer_bounds = time_outer_sums(
         torch.Generator(device=dev).manual_seed(83))
@@ -2180,16 +2247,19 @@ def main() -> int:
         ("duplex_chain_kernel", "duplex_fb.cu", "pallas_duplex.py:82"),
         ("duplex_combine_kernel", "duplex_fb.cu", "pallas_duplex.py:175"),
     ):
-        # the split rows name the S (sequences a block) their times ran at
+        # the split and duplex chain rows name the S (sequences a block)
+        # their times ran at
         split_kind = "forward" if "fwd" in name else "backward"
-        seqs = {K_: sf.default_seqs(split_kind, B, dev, K=K_) for K_ in (K, *LARGE_K)}
+        seqs = {K_: (df.default_seqs(B, F, dev, K=K_) if name == "duplex_chain_kernel"
+                     else sf.default_seqs(split_kind, B, dev, K=K_)) for K_ in (K, *LARGE_K)}
+        with_s = name.startswith("split") or name == "duplex_chain_kernel"
         kernels.append({
             "name": name, "route": "cuda", "source": f"pysvihmm_tpu_torch/csrc/{src}",
             "replaces": f"pysvihmm_tpu/messages/{replaces}",
             "launches": svi_launches[name], "max_abs_err": errs[name],
             "ms": ms[name, K], "plain_ms": plain_ms[name, K], "bound_ms": bounds[name, K][0],
             "bound_by": bounds[name, K][1], "library_ms": None,
-            **({"S": seqs[K]} if name.startswith("split") else {}),
+            **({"S": seqs[K]} if with_s else {}),
         })
         for K_ in LARGE_K:
             key = (name, K_)
@@ -2200,7 +2270,7 @@ def main() -> int:
                 "launches": wide_launches[key], "max_abs_err": large_errs[key],
                 "ms": ms[key], "plain_ms": plain_ms[key], "bound_ms": bounds[key][0],
                 "bound_by": bounds[key][1], "library_ms": None,
-                **({"S": seqs[K_]} if name.startswith("split") else {}),
+                **({"S": seqs[K_]} if with_s else {}),
             })
     # the large-K statistics' outer sums, which every large-K backward and the
     # duplex combine launch (pallas_fb.py:664, `outer_acc`, is the sum they

@@ -50,9 +50,17 @@
 // one barrier a step. Both halves are chains of dependent K-wide products,
 // bound by latency, not bytes or FLOPs; the two directions run side by side
 // when 2 ceil(B/S) blocks fit one wave (the wrapper picks S from the card's
-// occupancy). Above K = 64 duplex_chain_wide_kernel<KP> runs the two
-// recursions in two blocks of a sequence on fb_wide.cuh's layout (its
-// forward fbw::seqs_forward at S = 1, the fused large-K forward's).
+// occupancy). Above K = 64 duplex_chain_wide_kernel<KP, S> (KP = 128 or
+// 256 padded states, S = 1, 2, 4 or 8) runs the same scheme on fb_wide.cuh's
+// layout: a forward and a backward block for each S sequences, the forward
+// fbw::seqs_forward (the fused large-K forward's at the same S) and the
+// backward seqs_raw_backward, thread k running state k of all S on column k
+// of A~^T, so each word of A~^T and W read in a step feeds S FMAs; beta is
+// the same bits at every S. A step of either half at KP = 256, S = 8 holds S
+// KP^2 FMAs and S KP / 4 broadcast float4 loads a thread, the fused
+// forward's work; one block an SM at KP = 256 (218 KB of shared memory at S
+// = 8), so the 2 ceil(B/S) blocks of B = 1024 take two waves there and one
+// at KP = 128, S = 8 (2 blocks an SM).
 //
 // The combine has no chain: every (t, b) row needs only a_t, b_t, f_t, sh_t
 // and the pair's ginv_{t-1}. duplex_combine_kernel<KP, FP, GATED> takes a
@@ -95,8 +103,6 @@ using fbc::KMAX;
 using fbc::NT;
 using fbc::NWARP;
 using fbc::SUM_FLOOR;
-using fbc::warp_max;
-using fbc::warp_sum;
 using fbseq::block_max;
 using fbseq::block_sum;
 using fbseq::FeatRows;
@@ -274,10 +280,99 @@ duplex_chain_kernel(const float* __restrict__ pi, const float* __restrict__ A,
     seq_backward<S, FP>(A, W, feats, beta, T, B, K, F, blockIdx.x);
 }
 
-// The large-K chain: blockIdx.y = 0 runs the forward (the fused forward's
-// seqs_forward at S = 1), 1 the raw backward b_{t-1} = (A~ e_t) / sum_k b_t, one
-// thread a state, on A~^T rows in registers and shared memory (fb_wide.cuh).
-template <int KP>
+// The raw backward recursion of the S sequences of block blk on
+// fb_wide.cuh's layout (65 <= K <= 256; the layout of fbw::seqs_backward,
+// blocks and missing sequences as fbw::seqs_forward), t = T-1 .. 1:
+// b_{T-1} = 1, e_t = lik_t b_t, b_{t-1} = (A~ e_t) * back_scale(sum_k b_t),
+// with ll_t = f_t . W by the forward's chain (WCol) and lik_t = exp(ll_t -
+// max_k ll_t), the max taken here over the same numbers as the forward's sh_t.
+// Writes beta (T, B, K). Thread k runs state k of all S sequences on column
+// k of A~^T (MatCol, rows in registers and shared memory): each word of A~^T
+// and of W it reads in a step feeds S chains, one a sequence, and each chain
+// is the one-sequence arithmetic (the matvec over i = 0..KP-1 in order, the
+// sums and maxima each warp's butterfly, then the warps in order), so beta
+// does not depend on S. Two barriers a step. Every thread of the block calls
+// it.
+template <int KP, int S>
+__device__ void seqs_raw_backward(const float* __restrict__ A, const float* __restrict__ W,
+                                  const float* __restrict__ feats, float* __restrict__ beta,
+                                  int T, int B, int K, int F, int blk, float* smem) {
+  using TT = fbw::Tier<KP>;
+  constexpr int NW = TT::NWARP;
+  float* M_s = smem;                     // A~^T rows RR..KP-1
+  float* e_s = M_s + TT::SR * KP;        // e_t in slot t & 1, [S][KP] each
+  float* f_s = e_s + 2 * S * KP;         // f_t in slot t & 1, [S][FMAX] each
+  float* red_max = f_s + 2 * S * FMAX;   // partial maxima of ll_t, [t & 1][S][warp]
+  float* red_sum = red_max + 2 * S * NW;  // partial sums of b_t, [t & 1][S][warp]
+  const int k = threadIdx.x, lane = k & 31, warp = k >> 5;
+  const bool active = k < K;
+  const int b0 = blk * S, ns = S == 1 ? 1 : min(S, B - b0);  // sequences held
+  const int nf4 = (F + 3) / 4;
+
+  fbw::MatCol<KP> col;
+  col.load(A, M_s, K, true, k);
+  fbw::WCol wc;
+  wc.load(W, K, F, k);
+  const size_t step_f = (size_t)B * F, step_k = (size_t)B * K;
+  const float* fb = feats + (size_t)b0 * F;
+  float* bb = beta + (size_t)b0 * K + k;
+  for (int i = k; i < 2 * S * FMAX; i += KP) f_s[i] = 0.f;
+  __syncthreads();
+  fbw::feat_rows<S>(f_s + ((T - 1) & 1) * S * FMAX, fb + (size_t)(T - 1) * step_f, ns, F, k, KP);
+  __syncthreads();
+
+  float bt[S];  // b_t
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    bt[s] = active ? 1.f : 0.f;
+    if (active && s < ns) bb[(size_t)(T - 1) * step_k + (size_t)s * K] = bt[s];
+  }
+  for (int t = T - 1; t >= 1; --t) {
+    const int p = t & 1;
+    float ll[S], wm[S], ws[S];
+    wc.lls<S>(ll, f_s + p * S * FMAX, FMAX, nf4);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      wm[s] = active ? ll[s] : -INFINITY;
+      ws[s] = bt[s];
+    }
+    fbc::warp_maxes<S>(wm);
+    fbc::warp_sums<S>(ws);
+    if (lane == 0) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        red_max[(p * S + s) * NW + warp] = wm[s];
+        red_sum[(p * S + s) * NW + warp] = ws[s];
+      }
+    }
+    fbw::feat_rows<S>(f_s + (p ^ 1) * S * FMAX, fb + (size_t)(t - 1) * step_f, ns, F, k, KP);
+    __syncthreads();  // f_t is read; the maxima and sums are complete
+
+    float scale[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const float m = fbw::block_max<NW>(red_max + (p * S + s) * NW);
+      scale[s] = back_scale(fbw::block_sum<NW>(red_sum + (p * S + s) * NW));
+      e_s[(p * S + s) * KP + k] = active ? pair_e(expf(ll[s] - m), bt[s]) : 0.f;
+    }
+    __syncthreads();  // e_t is complete
+
+    // b_{t-1}[k] = sum_j A~[k][j] e_t[j] / sum_k b_t, for the S sequences at once
+    float u[S];
+    col.template dots<S>(u, e_s + p * S * KP, KP, M_s, k);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      bt[s] = active ? u[s] * scale[s] : 0.f;
+      if (active && s < ns) bb[(size_t)(t - 1) * step_k + (size_t)s * K] = bt[s];
+    }
+  }
+}
+
+// The large-K chain on a grid of (ceil(B/S), 2) blocks of KP threads, S
+// sequences a block: blockIdx.y = 0 runs the forward (fbw::seqs_forward, the
+// fused large-K forward's own function at the same S), 1 the raw backward
+// above.
+template <int KP, int S>
 __global__ void __launch_bounds__(KP)
 duplex_chain_wide_kernel(const float* __restrict__ pi, const float* __restrict__ A,
                          const float* __restrict__ W, const float* __restrict__ feats,
@@ -285,54 +380,11 @@ duplex_chain_wide_kernel(const float* __restrict__ pi, const float* __restrict__
                          float* __restrict__ sh_out, float* __restrict__ beta, int T, int B,
                          int K, int F) {
   extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.x;
-  if (blockIdx.y == 0) {
-    fbw::seqs_forward<KP, 1, true>(pi, A, W, feats, alpha, s_out, sh_out, T, B, K, F, b, smem);
-    return;
-  }
-  using TT = fbw::Tier<KP>;
-  float* M_s = smem;                 // A~^T rows RR..KP-1
-  float* v_s = M_s + TT::SR * KP;    // e_t in slot t & 1
-  float* f_s = v_s + 2 * KP;         // f_t in slot t & 1
-  float* red_max = f_s + 2 * FMAX;   // [t & 1][warp]
-  float* red_sum = red_max + 2 * TT::NWARP;
-  const int k = threadIdx.x, lane = k & 31, warp = k >> 5;
-  const bool active = k < K;
-  fbw::MatCol<KP> col;
-  col.load(A, M_s, K, true, k);
-  fbw::WCol wc;
-  wc.load(W, K, F, k);
-  const size_t step_f = (size_t)B * F, step_k = (size_t)B * K;
-  const float* fb = feats + (size_t)b * F;
-  float* bb = beta + (size_t)b * K;
-  if (k < 2 * FMAX) f_s[k] = 0.f;
-  __syncthreads();
-  if (k < F) f_s[((T - 1) & 1) * FMAX + k] = fb[(size_t)(T - 1) * step_f + k];
-  __syncthreads();
-
-  float bt = active ? 1.f : 0.f;  // b_t
-  if (active) bb[(size_t)(T - 1) * step_k + k] = bt;
-  for (int t = T - 1; t >= 1; --t) {
-    const int p = t & 1;
-    const float ll = wc.ll(f_s + p * FMAX);
-    const float wm = warp_max(active ? ll : -INFINITY);
-    const float ws = warp_sum(bt);
-    if (lane == 0) {
-      red_max[p * TT::NWARP + warp] = wm;
-      red_sum[p * TT::NWARP + warp] = ws;
-    }
-    if (k < F) f_s[(p ^ 1) * FMAX + k] = fb[(size_t)(t - 1) * step_f + k];
-    __syncthreads();  // f_t is read; the maxima and sums are complete
-
-    const float m = fbw::block_max<TT::NWARP>(red_max + p * TT::NWARP);
-    const float scale = back_scale(fbw::block_sum<TT::NWARP>(red_sum + p * TT::NWARP));
-    v_s[p * KP + k] = active ? pair_e(expf(ll - m), bt) : 0.f;
-    __syncthreads();  // e_t is complete
-
-    const float bn = col.dot(v_s + p * KP, M_s, k) * scale;  // sum_j A~[k][j] e_t[j] / sum b_t
-    bt = active ? bn : 0.f;
-    if (active) bb[(size_t)(t - 1) * step_k + k] = bt;
-  }
+  if (blockIdx.y == 0)
+    fbw::seqs_forward<KP, S, true>(pi, A, W, feats, alpha, s_out, sh_out, T, B, K, F,
+                                   blockIdx.x, smem);
+  else
+    seqs_raw_backward<KP, S>(A, W, feats, beta, T, B, K, F, blockIdx.x, smem);
 }
 
 // ----------------------------------------------------------------- combine
@@ -716,7 +768,8 @@ long long scratch_floats(int T, int B, int K, int F) {
   return fbs::WideStats::floats(T, B, K, F);
 }
 
-// The chain instance of (S, F): the S-sequence kernel at FP = pad_f(F).
+// The chain instance of (S, F) up to K = 64: the S-sequence kernel at FP =
+// pad_f(F).
 template <int S>
 const void* chain_fp(int fp) {
   switch (fp) {
@@ -727,7 +780,30 @@ const void* chain_fp(int fp) {
   }
 }
 
-const void* chain_of(int S, int F) {
+template <int KP, int S>
+const void* wide_chain_at(int* smem) {
+  *smem = fbw::chain_smem_bytes<KP, S>();
+  return reinterpret_cast<const void*>(duplex_chain_wide_kernel<KP, S>);
+}
+
+template <int KP>
+const void* wide_chain_of(int S, int* smem) {
+  switch (S) {
+    case 1: return wide_chain_at<KP, 1>(smem);
+    case 2: return wide_chain_at<KP, 2>(smem);
+    case 4: return wide_chain_at<KP, 4>(smem);
+    case 8: return wide_chain_at<KP, 8>(smem);
+    default: *smem = 0; return nullptr;
+  }
+}
+
+// The chain instance of (S, K, F) and its dynamic shared bytes in *smem: S
+// in {2, 4} up to K = 64, in {1, 2, 4, 8} at KP = tier_of(K) above. Null for
+// an S not built.
+const void* chain_of(int S, int K, int F, int* smem) {
+  if (K > KMAX)
+    return fbw::tier_of(K) == 128 ? wide_chain_of<128>(S, smem) : wide_chain_of<256>(S, smem);
+  *smem = 0;
   switch (S) {
     case 2: return chain_fp<2>(pad_f(F));
     case 4: return chain_fp<4>(pad_f(F));
@@ -792,26 +868,21 @@ int duplex_fb_scratch(int T, int B, int K, int F, long long* out) {
 // Each launcher returns the launch's CUDA error right after it (0 = ok).
 // Pointers are device pointers of contiguous float32 tensors; the kernels
 // run on `stream` and do not synchronise. S is the sequences a block of the
-// chain (2 or 4; any other is refused) up to K = 64, and unused above.
+// chain: 2 or 4 up to K = 64, 1, 2, 4 or 8 above; any other is refused.
 int duplex_fb_chain(const float* pi, const float* A, const float* W, const float* feats,
                     float* alpha, float* s, float* sh, float* beta, int T, int B, int K,
                     int F, int S, int device, void* stream) {
   if (bad_shape(T, B, K, F)) return static_cast<int>(cudaErrorInvalidValue);
+  int smem = 0;
+  const void* fn = chain_of(S, K, F, &smem);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   void* args[] = {&pi, &A, &W, &feats, &alpha, &s, &sh, &beta, &T, &B, &K, &F};
-  if (K > KMAX) {
-    return static_cast<int>(
-        fbw::tier_of(K) == 128
-            ? fbw::launch_dyn(reinterpret_cast<const void*>(duplex_chain_wide_kernel<128>),
-                              dim3(B, 2), 128, fbw::chain_smem_bytes<128>(), st, args)
-            : fbw::launch_dyn(reinterpret_cast<const void*>(duplex_chain_wide_kernel<256>),
-                              dim3(B, 2), 256, fbw::chain_smem_bytes<256>(), st, args));
-  }
-  const void* fn = chain_of(S, F);
-  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  e = cudaLaunchKernel(fn, dim3((B + S - 1) / S, 2), dim3(NT), args, 0, st);
+  const dim3 grid((B + S - 1) / S, 2);
+  if (K > KMAX) return static_cast<int>(fbw::launch_dyn(fn, grid, fbw::tier_of(K), smem, st, args));
+  e = cudaLaunchKernel(fn, grid, dim3(NT), args, 0, st);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -857,18 +928,20 @@ int duplex_fb_combine(const float* W, const float* feats, const float* alpha,
   }));
 }
 
-// What the instance (which, S, F) of the launchers above takes on `device`
-// (K <= 64): out[0] registers a thread, out[1] static and out[2] dynamic
+// What the instance (which, S, K, F) of the launchers above takes on
+// `device`: out[0] registers a thread, out[1] static and out[2] dynamic
 // shared bytes a block, out[3] local (spilled) bytes a thread, out[4]
 // resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
 // out[5] the device's SMs, out[6] threads a block. which = 0 the chain (S
-// sequences a block), 1 the combine, 2 the gated combine (S unused).
-int duplex_fb_kernel_info(int which, int S, int F, int device, int* out) {
-  if (F < 1 || F > FMAX || which < 0 || which > 2) return static_cast<int>(cudaErrorInvalidValue);
+// sequences a block), 1 the combine, 2 the gated combine (S unused); K > 64
+// names the large-K instance of its KP.
+int duplex_fb_kernel_info(int which, int S, int K, int F, int device, int* out) {
+  if (bad_shape(1, 1, K, F) || which < 0 || which > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
   int smem = 0;
-  const void* fn = which == 0 ? chain_of(S, F) : combine_of(KMAX, F, which == 2, &smem);
+  const void* fn = which == 0 ? chain_of(S, K, F, &smem) : combine_of(K, F, which == 2, &smem);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const int nt = which == 0 ? NT : CNT;
+  const int nt = which != 0 ? CNT : K > KMAX ? fbw::tier_of(K) : NT;
   cudaError_t e = cudaSetDevice(device);
   if (e == cudaSuccess && smem > 0)
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

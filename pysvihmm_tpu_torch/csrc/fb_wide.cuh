@@ -4,20 +4,21 @@
 // An instance is built for KP = 128 or 256 padded states and S sequences a
 // block: one thread a state (KP threads, those with k >= K idle but in every
 // barrier and shuffle), thread k running state k of all S sequences as S
-// interleaved chains (the fused and the split pair take S = 1, 2, 4 or 8,
-// picked so that ceil(B / S) blocks fill the card in one wave; the duplex
-// chain S = 1). Three numbers shape it: A~ in float32 takes 64 KB at
-// KP = 128 and 256 KB at 256, a block may use 227 KB of shared memory, and
-// a thread 255 registers. So a thread keeps the first RR rows of the matrix
-// its matvec reads (A~ for the forward, A~^T for the backward) in registers
-// -- RR = 0 at KP = 128, 64 at KP = 256, column k of those rows -- and the
-// other rows lie in dynamic shared memory, 192 KB at most, beside two slots
-// of the S vectors a_{t-1} (d_t) and feature rows (16 + 4 KB at KP = 256, S
-// = 8: 217 KB a block, one block an SM); W's column k (FMAX floats) stays in
-// registers. Each word of the matrix and of W a thread reads in a step feeds
-// S independent FMAs, one a sequence; what each step reads per thread is S
-// KP / 4 broadcast float4 loads of a_{t-1} (d_t) and S ceil(F / 4) of the
-// feature rows, beside SR conflict-free loads of its column.
+// interleaved chains (S = 1, 2, 4 or 8: the fused and the split pair pick S
+// so that ceil(B / S) blocks fill the card in one wave, the duplex chain so
+// that its 2 ceil(B / S) do where they can). Three numbers shape it: A~ in
+// float32 takes 64 KB at KP = 128 and 256 KB at 256, a block may use 227 KB
+// of shared memory, and a thread 255 registers. So a thread keeps the first
+// RR rows of the matrix its matvec reads (A~ for the forward, A~^T for the
+// backward) in registers -- RR = 0 at KP = 128, 64 at KP = 256, column k of
+// those rows -- and the other rows lie in dynamic shared memory, 192 KB at
+// most, beside two slots of the S vectors a_{t-1} (d_t) and feature rows (16
+// + 4 KB at KP = 256, S = 8: 217 KB a block, one block an SM); W's column k
+// (FMAX floats) stays in registers. Each word of the matrix and of W a
+// thread reads in a step feeds S independent FMAs, one a sequence; what each
+// step reads per thread is S KP / 4 broadcast float4 loads of a_{t-1} (d_t)
+// and S ceil(F / 4) of the feature rows, beside SR conflict-free loads of
+// its column.
 //
 // Per sequence the arithmetic does not depend on S: the matvec is one fmaf
 // chain over i = 0..KP-1 in order (the rows in registers, then those in
@@ -25,7 +26,8 @@
 // each warp's butterfly, then the warps' partials added in warp order. The
 // forward device function below is the fused forward's at every S and the
 // duplex chain's, so their alpha, s and sh agree bit for bit, and the
-// backward recomputes ll by the same chain.
+// backward (and the duplex chain's raw backward) recomputes ll by the same
+// chain.
 //
 // The statistics leave the chain at these K (fb_stats.cuh): the backward
 // writes d_t n_t pg_t and w_t gamma_t for a window of time steps a launch,
@@ -168,12 +170,6 @@ struct WCol {
       }
     }
   }
-  // ll = f . W[:, k], the same chain to FMAX for the row f_s
-  __device__ __forceinline__ float ll(const float* f_s) const {
-    float out[1];
-    lls<1>(out, f_s, 0, FMAX / 4);
-    return out[0];
-  }
 };
 
 // The block's sum (max) of the per-warp partials red[0 .. NW-1], in warp order.
@@ -196,8 +192,8 @@ __device__ __forceinline__ float block_max(const float* red) {
 
 // Dynamic shared memory of seqs_forward and seqs_backward at S sequences a
 // block, in bytes: A~'s shared rows, two slots of the S vectors a_t (d_t) and
-// of the S feature rows, two of the per-sequence partials (two kinds). At S
-// = 1 it is also the duplex chain's backward half's.
+// of the S feature rows, two of the per-sequence partials (two kinds); also
+// the duplex chain's backward half's (duplex_fb.cu::seqs_raw_backward).
 template <int KP, int S = 1>
 constexpr int chain_smem_bytes() {
   return 4 * (Tier<KP>::SR * KP + 2 * S * KP + 2 * S * FMAX + 4 * S * Tier<KP>::NWARP);

@@ -12,11 +12,12 @@ Kernels (``csrc/duplex_fb.cu``; the source notes what bounds them):
 
   (normalisation deferred, pallas_duplex.py:146-167; the scale applied
   after the product, as the forward applies 1 / s_{t-1}), with
-  lik_t = exp(ll_t - max_k ll_t) and ll_t = f_t @ W in-kernel. Up to
-  K = 64 a block carries S sequences (the fused forward's layout, one
-  block a direction): :func:`default_seqs` picks S from the card's
-  occupancy so that the 2 ceil(B / S) blocks run in one wave where they
-  can.
+  lik_t = exp(ll_t - max_k ll_t) and ll_t = f_t @ W in-kernel. A block
+  carries S sequences (the fused forward's layout, one block a direction;
+  up to K = 64 ``duplex_chain_kernel``, S = 2 or 4, above
+  ``duplex_chain_wide_kernel``, S = 1, 2, 4 or 8): :func:`default_seqs`
+  picks S from the card's occupancy so that the 2 ceil(B / S) blocks run
+  in one wave where they can. Every output is the same bits at every S.
 * ``duplex_combine_kernel`` replaces ``_combine_kernel``
   (pallas_duplex.py:175): with no chain at all, gamma_t = a_t b_t / sum,
   the pairwise accumulator sum_t outer(a_{t-1}, d_t pg_t / sum(a_{t-1}
@@ -46,8 +47,18 @@ import functools
 
 import torch
 
-from ._launch import bind, check, device_index, ptr, raise_on, runs_plain_twin, scratch, stream
-from .fused_fb import SEQS, assemble, seqs_per_block
+from ._launch import (
+    bind,
+    check,
+    device_index,
+    instance_tier,
+    ptr,
+    raise_on,
+    runs_plain_twin,
+    scratch,
+    stream,
+)
+from .fused_fb import assemble, built_seqs, seqs_per_block
 from .scan_fb import FBResult
 from .split_fb import SUM_FLOOR, exp_params
 
@@ -63,7 +74,7 @@ def _library():
         {"duplex_fb_chain": "pppppppp" "iiiiii" "p",
          "duplex_fb_combine": "pppppppppp" "iiiii" "p",
          "duplex_fb_scratch": "iiiip",
-         "duplex_fb_kernel_info": "iiiip",
+         "duplex_fb_kernel_info": "iiiiip",
          "duplex_fb_kmax": "",
          "duplex_fb_fmax": ""},
         "duplex_fb_error_string",
@@ -83,39 +94,48 @@ def _check_kernel_limits(K: int, F: int) -> None:
 _KERNELS = {"chain": 0, "combine": 1, "gated combine": 2}
 
 
-def kernel_info(kernel: str, S: int, F: int, device: torch.device | None = None) -> dict:
-    """What one K <= 64 instance takes on the card, from the library:
-    ``kernel`` is "chain", "combine" or "gated combine", S the chain's
-    sequences a block (unused for the combine) and F the feature width (the
-    instance is built for F padded to 16, 32, 48 or 64). Returns registers
-    (a thread), static_smem and dynamic_smem (bytes a block), local_bytes
-    (spills, a thread), blocks_per_sm (resident, by the CUDA occupancy
-    calculator), sms (the card's) and threads (a block)."""
+def kernel_info(kernel: str, S: int, F: int, device: torch.device | None = None,
+                K: int = 64) -> dict:
+    """What one instance takes on the card, from the library: ``kernel`` is
+    "chain", "combine" or "gated combine", S the chain's sequences a block
+    (one of :func:`built_seqs`; unused for the combine), F the feature width
+    and K the states (up to 64 the instance built for F padded to 16, 32, 48
+    or 64; above, the large-K instance of K's padded state count, 128 or
+    256). Returns registers (a thread), static_smem and dynamic_smem (bytes
+    a block), local_bytes (spills, a thread), blocks_per_sm (resident, by
+    the CUDA occupancy calculator), sms (the card's) and threads (a
+    block)."""
     dev = device if device is not None else torch.device("cuda")
-    return dict(_kernel_info(kernel, S, F, device_index(dev)))
+    return dict(_kernel_info(kernel, S, F, instance_tier(K), device_index(dev)))
 
 
 @functools.cache
-def _kernel_info(kernel: str, S: int, F: int, index: int) -> tuple:
+def _kernel_info(kernel: str, S: int, F: int, K: int, index: int) -> tuple:
     out = (ctypes.c_int * 7)()
     lib = _library()
-    code = lib.duplex_fb_kernel_info(_KERNELS[kernel], S, F, index, ctypes.addressof(out))
-    raise_on(lib.duplex_fb_error_string, code, f"duplex_fb_kernel_info({kernel}, S={S}, F={F})")
+    code = lib.duplex_fb_kernel_info(_KERNELS[kernel], S, K, F, index, ctypes.addressof(out))
+    raise_on(lib.duplex_fb_error_string, code,
+             f"duplex_fb_kernel_info({kernel}, S={S}, K={K}, F={F})")
     keys = ("registers", "static_smem", "dynamic_smem", "local_bytes", "blocks_per_sm", "sms",
             "threads")
     return tuple(zip(keys, list(out)))
 
 
-def default_seqs(B: int, F: int, device: torch.device) -> int:
-    """The chain launcher's S: ``fused_fb.seqs_per_block`` on the card's own
-    occupancy, with 2 blocks (a forward and a backward) a group of S."""
-    return _default_seqs(B, F, device_index(device))
+def default_seqs(B: int, F: int, device: torch.device, K: int = 64) -> int:
+    """The chain launcher's S: ``fused_fb.seqs_per_block`` over the chain's
+    instances built for K (:func:`built_seqs`, the fused pair's S) on the
+    card's own occupancy, with 2 blocks (a forward and a backward) a group
+    of S: at B = 1024 S = 4 at K = 64 and 8 above (one wave at KP = 128,
+    none fits one at KP = 256)."""
+    return _default_seqs(B, F, instance_tier(K), device_index(device))
 
 
 @functools.cache
-def _default_seqs(B: int, F: int, index: int) -> int:
-    info = {S: dict(_kernel_info("chain", S, F, index)) for S in SEQS}
-    return seqs_per_block(B, {S: i["blocks_per_sm"] * i["sms"] for S, i in info.items()}, 2)
+def _default_seqs(B: int, F: int, K: int, index: int) -> int:
+    seqs = built_seqs(K)
+    info = {S: dict(_kernel_info("chain", S, F, K, index)) for S in seqs}
+    return seqs_per_block(B, {S: i["blocks_per_sm"] * i["sms"] for S, i in info.items()}, 2,
+                          seqs)
 
 
 def _inv_sum(x: torch.Tensor) -> torch.Tensor:
@@ -165,21 +185,25 @@ def duplex_chain(
 
 
 def _launch_chain(S: int | None, pi_t, A_t, W, feats):
-    """:func:`duplex_chain` with S sequences a block (one of SEQS; None for
-    :func:`default_seqs`): the card tests and chip_smoke.py's sweeps of S."""
+    """:func:`duplex_chain` with S sequences a block (one of
+    :func:`built_seqs` at this K, else ``ValueError`` on every device before
+    anything runs; None for :func:`default_seqs`): the card tests and
+    chip_smoke.py's sweeps of S."""
     T, B, F = feats.shape
     K = A_t.shape[0]
     dev = feats.device
     for name, x, shape in (("pi_t", pi_t, (K,)), ("A_t", A_t, (K, K)),
                            ("W", W, (F, K)), ("feats", feats, (T, B, F))):
         check(name, x, shape, dev)
+    if S is not None and S not in built_seqs(K):
+        raise ValueError(f"no duplex chain instance with S={S} at K={K}: built {built_seqs(K)}")
     if runs_plain_twin(feats):
         return duplex_chain_reference(pi_t, A_t, W, feats)
     _check_kernel_limits(K, F)
     lib = _library()
     index = device_index(dev)
-    if S is None:  # unused above K = 64 (the large-K chain: a sequence a block)
-        S = _default_seqs(B, F, index) if K <= 64 else SEQS[0]
+    if S is None:
+        S = _default_seqs(B, F, instance_tier(K), index)
     alpha = torch.empty((T, B, K), dtype=torch.float32, device=dev)
     beta = torch.empty((T, B, K), dtype=torch.float32, device=dev)
     s = torch.empty((B, T), dtype=torch.float32, device=dev)

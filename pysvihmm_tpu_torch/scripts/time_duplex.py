@@ -1,11 +1,13 @@
 """Time the duplex E-step pair on the card at the VB shape (B=1024, T=1000,
 a Gaussian-NIW at D=8: F=45) for K = 64 and any other K given (up to 256):
-the chain, the combine ungated and gated (kept runs of 5T/7) and the whole
-duplex E-step, each with its share of the kernel's bound
+the chain (also at B=32), the combine ungated and gated (kept runs of 5T/7)
+and the whole duplex E-step, each with its share of the kernel's bound
 (``utils/roofline.py``); then each call's kernels by device time
 (torch.profiler), which parts the combine at K > 64 into its row phase and
 its outer sums. At K = 64 also the SVI shape (the first W=70 steps, kept
-runs of L=50, the combine gated with ``emit_gamma``).
+runs of L=50, the combine gated with ``emit_gamma``). At K > 64, where the
+checkout's chain is built for several sequences a block above 64 states
+(``duplex_fb.built_seqs``), the chain at every built S too.
 
 Usage, on a machine with an NVIDIA GPU and nvcc, from the repository root::
 
@@ -17,9 +19,10 @@ with the signatures they have had since the duplex route was ported, with
 ``time_fused.py``'s inputs, so the same file times an earlier checkout too:
 two checkouts are compared in one call, in turns. Each line gives ms per
 launch by CUDA events, 20 launches after 3 warm-ups, ``reps`` times
-(default 3), and their median and minimum; the first line of each K the
-sha256 of the chain's outputs, so that two checkouts' bits compare; the
-last line is the card's name and power limit. Without a card it raises.
+(default 3), and their median and minimum; the first lines of each K the
+sha256 of the chain's outputs (at every built S above K = 64) and of
+``estep_duplex``'s, so that two checkouts' bits compare; the last line is
+the card's name and power limit. Without a card it raises.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from pysvihmm_tpu_torch.scripts.time_fused import B, T, inputs, profile_call
 from pysvihmm_tpu_torch.utils.roofline import bound, kernel_work
 
 SVI_W, SVI_L = 70, 50  # chip_smoke.py's SVI window and kept run
+SMALL_B = 32  # the smallest batch chip_smoke.py times the SVI step at
 
 
 def digest(*xs: torch.Tensor) -> str:
@@ -56,6 +60,15 @@ def report(name: str, times: list[float], bound_ms: float) -> None:
           f"{100 * bound_ms / med:.1f} % of it)", flush=True)
 
 
+def chain_seqs(k: int) -> tuple[int, ...]:
+    """The chain's built S at K = k above 64 states where the checkout has
+    them (``duplex_fb.built_seqs``; an earlier one ran a sequence a block
+    there), else none."""
+    if k <= 64 or not hasattr(duplex_fb, "built_seqs"):
+        return ()
+    return duplex_fb.built_seqs(k)
+
+
 def time_at(k: int, reps: int, dev: torch.device) -> None:
     log_pi, log_A, W, feats, w = inputs(dev, k)
     F = feats.shape[-1]
@@ -64,6 +77,26 @@ def time_at(k: int, reps: int, dev: torch.device) -> None:
     print(f"package {pysvihmm_tpu_torch.__file__}; (B, T, K, F) = ({B}, {T}, {k}, {F}); "
           f"duplex_chain_kernel's alpha, s, sh: sha256 {digest(a, s, sh)}, beta: "
           f"{digest(beta)}", flush=True)
+    fb, eacc = duplex_fb.estep_duplex(log_pi, log_A, W, feats)
+    print(f"estep_duplex's log_c, log_z, trans_stats, init_stats, emit_stats: sha256 "
+          f"{digest(fb.log_c, fb.log_z, fb.trans_stats, fb.init_stats, eacc)}", flush=True)
+    del fb, eacc
+    # a small batch (the first SMALL_B sequences): the default S is the
+    # smallest built, a block a sequence above 64 states
+    fs = feats[:, :SMALL_B].contiguous()
+    report(f"duplex_chain_kernel at B={SMALL_B}",
+           [cuda_ms(lambda: duplex_fb.duplex_chain(pi_t, A_t, W, fs), 20, warmup=3)
+            for _ in range(reps)], bound(*kernel_work("duplex_chain_kernel", SMALL_B, T, k, F))[0])
+    del fs
+    chain_b = bound(*kernel_work("duplex_chain_kernel", B, T, k, F))[0]
+    for S in chain_seqs(k):
+        out = duplex_fb._launch_chain(S, pi_t, A_t, W, feats)
+        print(f"duplex_chain_kernel S={S}: alpha, s, sh: sha256 {digest(*out[:3])}, beta: "
+              f"{digest(out[3])}", flush=True)
+        del out
+        report(f"duplex_chain_kernel S={S}",
+               [cuda_ms(lambda: duplex_fb._launch_chain(S, pi_t, A_t, W, feats), 20, warmup=3)
+                for _ in range(reps)], chain_b)
     runs = {
         "duplex_chain_kernel": (lambda: duplex_fb.duplex_chain(pi_t, A_t, W, feats), {}),
         "duplex_combine_kernel": (lambda: duplex_fb.duplex_combine(W, feats, a, beta, sh), {}),

@@ -18,6 +18,8 @@ large-K statistics' outer sums run on the tensor cores at 3xTF32 and are
 held to float64 beside float32 torch.matmul.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -115,19 +117,19 @@ def test_fused_block_layout_matches_twins(cuda_device, B, T, K, F):
 
 
 @pytest.mark.parametrize("B", [1, 3, 32, 1024, 2048])
-@pytest.mark.parametrize("K", [33, 64])
+@pytest.mark.parametrize("K", [33, 64, 65, 128, 129, 256])
 def test_duplex_chain_is_the_fused_forward_bit_for_bit(cuda_device, B, K):
     """The chain at every built S (sequences a block; B = 1 and 3 leave the
-    last block short, 2048 takes more than a wave) gives the fused forward's
-    alpha, s and sh bit for bit, and its beta agrees with the twin's; every
-    S gives the same beta bits (each sequence's arithmetic does not depend
-    on S)."""
+    last block short, 2048 takes more than a wave; K = 65-256 the large-K
+    instances) gives the fused forward's alpha, s and sh at that S bit for
+    bit, and its beta agrees with the twin's; every S gives the same beta
+    bits (each sequence's arithmetic does not depend on S)."""
     gen = torch.Generator(device=cuda_device).manual_seed(300 + K + B)
     log_pi, log_A, W, feats = random_problem(gen, B, 40, K, 8)
     pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
     ref_beta = duplex_fb.duplex_chain_reference(pi_t, A_t, W, feats)[3]
     first = duplex_fb.duplex_chain(pi_t, A_t, W, feats)
-    for S in fused_fb.SEQS:
+    for S in duplex_fb.built_seqs(K):
         alpha, s, sh, beta = duplex_fb._launch_chain(S, pi_t, A_t, W, feats)
         for x, r in zip((alpha, s, sh), fused_fb._launch_forward(S, pi_t, A_t, W, feats)):
             assert torch.equal(x, r)
@@ -174,6 +176,22 @@ def test_duplex_chain_runs_several_sequences_a_block(cuda_device):
     fits = [x for x in fused_fb.SEQS
             if 2 * -(-1024 // x) <= info[x]["blocks_per_sm"] * info[x]["sms"]]
     assert S == (fits[0] if fits else fused_fb.SEQS[-1]), info
+
+
+@pytest.mark.parametrize("K", [128, 256])
+def test_large_k_duplex_chain_layout(cuda_device, K):
+    """Above K = 64 the chain's default S at the VB shape (B=1024, F=45) is
+    the one-wave rule's pick over the library's occupancy query (the
+    smallest built S whose 2 ceil(B/S) blocks fit one wave, else the
+    largest), and no built S takes fewer waves."""
+    F, B = 45, 1024
+    seqs = duplex_fb.built_seqs(K)
+    info = {S: duplex_fb.kernel_info("chain", S, F, cuda_device, K=K) for S in seqs}
+    waves = {S: 2 * -(-B // S) / (i["blocks_per_sm"] * i["sms"]) for S, i in info.items()}
+    S = duplex_fb.default_seqs(B, F, cuda_device, K=K)
+    fits = [x for x in seqs if waves[x] <= 1]
+    assert S == (fits[0] if fits else seqs[-1]), info
+    assert math.ceil(waves[S]) == min(math.ceil(w) for w in waves.values()), (waves, info)
 
 
 def test_fused_pair_runs_b1024_in_one_wave(cuda_device):

@@ -203,6 +203,77 @@ def test_launchers_reject_what_the_kernels_do_not_take(bad):
         duplex_fb.duplex_chain(pi_t, A_t, W, feats)
 
 
+# resident blocks an SM of each chain instance on the H100 (132 SMs), by
+# instance tier, from duplex_fb_kernel_info (PERF.md; chip_smoke.py phase 5):
+# up to K = 64 S = 2 and 4; at KP = 128 three blocks an SM (two at S = 8, by
+# shared memory), at KP = 256 one
+H100_SMS = 132
+CHAIN_BLOCKS = {64: {2: 4, 4: 4}, 128: {1: 3, 2: 3, 4: 3, 8: 2}, 256: {1: 1, 2: 1, 4: 1, 8: 1}}
+# the default S by K for B = 1, 32, 1024, 2048: a small batch keeps the
+# smallest built S; B = 1024 runs its 2 ceil(B / S) blocks in one wave at S =
+# 4 (K = 64) and 8 (KP = 128); where no S fits one wave, the largest
+CHAIN_DEFAULT = {64: (2, 2, 4, 4), 128: (1, 1, 8, 8), 256: (1, 1, 8, 8)}
+
+
+@pytest.mark.parametrize("K", [64, 128, 256])
+@pytest.mark.parametrize("B", [1, 32, 1024, 2048])
+def test_chain_default_seqs_is_the_one_wave_rule(monkeypatch, K, B):
+    """duplex_fb.default_seqs is fused_fb.seqs_per_block over the chain's
+    instances (built_seqs) and their resident blocks, with a forward and a
+    backward block a group of S, which the test gives as the H100's (the
+    library's occupancy query needs the card): the smallest built S whose 2
+    ceil(B / S) blocks run in one wave, else the largest."""
+    blocks = CHAIN_BLOCKS[K]
+    assert tuple(blocks) == duplex_fb.built_seqs(K)
+
+    def info(kernel, S, F, K_, index):
+        assert (kernel, F, K_, index) == ("chain", 45, K, 0) and S in blocks
+        return (("blocks_per_sm", blocks[S]), ("sms", H100_SMS))
+
+    monkeypatch.setattr(duplex_fb, "_kernel_info", info)
+    duplex_fb._default_seqs.cache_clear()
+    try:
+        S = duplex_fb.default_seqs(B, 45, torch.device("cuda", 0), K=K)
+    finally:
+        duplex_fb._default_seqs.cache_clear()
+    assert S == CHAIN_DEFAULT[K][(1, 32, 1024, 2048).index(B)]
+    resident = {s: n * H100_SMS for s, n in blocks.items()}
+    assert S == fused_fb.seqs_per_block(B, resident, per_group=2, seqs=duplex_fb.built_seqs(K))
+
+
+def test_chain_built_seqs_follow_k():
+    """The chain is built for S = 2, 4 up to K = 64 and S = 1, 2, 4, 8 above
+    (the large-K instances), at every K of each tier."""
+    assert duplex_fb.built_seqs(1) == duplex_fb.built_seqs(64) == (2, 4)
+    assert duplex_fb.built_seqs(65) == duplex_fb.built_seqs(128) == (1, 2, 4, 8)
+    assert duplex_fb.built_seqs(129) == duplex_fb.built_seqs(256) == (1, 2, 4, 8)
+
+
+@pytest.mark.parametrize("S,K", [(1, 64), (8, 33), (3, 129), (16, 129), (0, 256), (3, 65)])
+def test_chain_launcher_refuses_an_s_not_built(S, K):
+    """An S the library holds no chain instance of raises ValueError on
+    every device, before anything runs: no fallback to another S or to the
+    twin."""
+    lp, lA, W, feats = (torch.from_numpy(a) for a in _problem(K, 2, 5, 3, seed=K + S))
+    pi_t, A_t = torch.exp(lp), torch.exp(lA)
+    with pytest.raises(ValueError, match=f"S={S}"):
+        duplex_fb._launch_chain(S, pi_t, A_t, W, feats)
+
+
+@pytest.mark.parametrize("K", [64, 129])
+def test_cpu_chain_takes_every_built_s(K):
+    """On CPU tensors every built S runs the plain twin: alpha, s, sh and
+    beta the twin's bits, and no launch counted."""
+    lp, lA, W, feats = (torch.from_numpy(a) for a in _problem(K, 2, 6, 5, seed=K))
+    pi_t, A_t = torch.exp(lp), torch.exp(lA)
+    want = duplex_fb.duplex_chain_reference(pi_t, A_t, W, feats)
+    before = duplex_fb.duplex_chain.launches
+    for S in duplex_fb.built_seqs(K):
+        got = duplex_fb._launch_chain(S, pi_t, A_t, W, feats)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert duplex_fb.duplex_chain.launches == before
+
+
 # ------------------------------------------------------------ the engines
 
 

@@ -140,6 +140,21 @@ fails:
             3 on "split" and "duplex", every parameter finite after every
             step; the outer sums launched once a window for acc and once for
             eacc in every backward of those runs.
+10. engines: the engines and decoders beyond batch VB and SVI at K=64,
+            D=8 on the card. Batch SGD, 5 iterations at B=1024, T=1000 on
+            "auto" (one fused pair an iteration, finite ELBOs, step 0 with
+            rho = 1 batch VB's step to 1e-5 relative); Viterbi decoding and
+            predictive scoring (plug-in and exact) at its params against
+            float64 on the CPU (path scores and values to 1e-5 relative);
+            3 blocked-Gibbs sweeps at B=1024, T=1000 and one sweep fed the
+            same draws on the card and in float64 on the CPU (at least
+            99.9 % of the paths the same, theta to 1e-4 relative);
+            meta-observation SVI on a T=100,000 chain of overlapping states,
+            Lm=50, b=10, M=1024 (W=70): 10 steps on "auto", one gated fused
+            pair a step, sane params, one block set's statistics on "auto"
+            against "scan"; select_buffer at L=50 with 1024 probes (the
+            split pair only); best-of-4 batch-VB restarts (the index
+            returned is the argmax of the final ELBOs).
 
 The last lines are the card line, one JSON line describing the kernels (every
 kernel and instance tier: K <= 64, KP = 128, KP = 256, the split and duplex
@@ -1675,6 +1690,255 @@ def large_k_phase(dev) -> dict[tuple[str, int], int]:
     return launches
 
 
+ENGINE_SWEEPS = 3  # phase 10: Gibbs sweeps at B=1024, T=1000
+ENGINE_META_STEPS = 10  # phase 10: meta-observation steps (M = B blocks of SVI_L)
+ENGINE_SGD_RTOL = 1e-5  # batch SGD's step 0 (rho = 1) against batch VB's step
+GIBBS_SAME_Z = 0.999  # the card's fed sweep against float64 on the CPU: paths
+GIBBS_THETA_RTOL = 1e-4  # ... and theta, max |err| / max |ref| a leaf
+DECODE_RTOL = 1e-5  # Viterbi path scores and predictive values against float64
+
+
+def cpu64(x):
+    """A tensor, or a (named) tuple of them, on the CPU with floats in float64."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().double() if x.is_floating_point() else x.detach().cpu()
+    vals = [cpu64(v) for v in x]
+    return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+
+
+def path_scores(log_pi, log_A, ll, z):
+    """log p(z, y) of paths z (B, T) under (log_pi, log_A, ll (B, T, K)), per
+    sequence."""
+    emit = ll.gather(2, z[..., None])[..., 0].sum(dim=1)
+    return log_pi[z[:, 0]] + log_A[z[:, :-1], z[:, 1:]].sum(dim=1) + emit
+
+
+def flat_leaves(x) -> list:
+    """The tensors of a tensor or of (named) tuples of them, depth first."""
+    return [y for v in x for y in flat_leaves(v)] if isinstance(x, tuple) else [x]
+
+
+def rel_max_err(got, ref) -> float:
+    """max |got - ref| / max |ref| over the leaves of two like structures,
+    each leaf on its own; ``got`` must be finite."""
+    import torch
+
+    err = 0.0
+    for a, b in zip(flat_leaves(cpu64(got)), flat_leaves(cpu64(ref)), strict=True):
+        require(bool(torch.isfinite(a).all()), "a non-finite value")
+        err = max(err, (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30))
+    return err
+
+
+def device_busy(fn) -> tuple[float, float, int]:
+    """One call of fn under torch.profiler: (wall ms, device busy ms, kernel
+    launches). The profiler's own host overhead inflates the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy, launches = 0.0, 0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            t = getattr(e, "self_device_time_total", None)
+            busy += (t if t is not None else e.self_cuda_time_total) / 1e3
+            launches += e.count
+    return wall, busy, launches
+
+
+def engines_phase(dev) -> dict[str, float]:
+    """Phase 10: the engines and decoders of PR 12 at bench.py's width (K=64,
+    D=8), everything built on the card. Batch SGD (5 iterations at B=1024,
+    T=1000 on "auto": one fused pair an iteration, finite ELBOs, step 0
+    the batch-VB step); meta-observation SVI on the phase-6 kind of chain
+    (T=100,000, Lm=50, b=10, M=1024, W=70: 10 steps on "auto", one gated
+    fused pair a step, sane params; one with_blocks' statistics on "auto"
+    against "scan"); 3 Gibbs sweeps at B=1024, T=1000 and one fed sweep
+    against float64 on the CPU; Viterbi and predictive scoring against
+    float64 on the CPU; best-of-4 batch VB restarts; select_buffer at the
+    SVI shape. Returns the host-clock times (ms, synchronised) it logs."""
+    import torch
+
+    from pysvihmm_tpu_torch.data.synthetic import gen_gaussian_dataset
+    from pysvihmm_tpu_torch.distributions import GaussianNIW, dirichlet
+    from pysvihmm_tpu_torch.engines import batch_sgd, batch_vb, gibbs, metaobs, svi
+    from pysvihmm_tpu_torch.engines.base import predictive_log_likelihood, viterbi_decode
+    from pysvihmm_tpu_torch.messages import scan_fb
+    from pysvihmm_tpu_torch.models.hmm import (
+        emission_flat_stats,
+        expected_log_params,
+        init_params,
+        make_prior,
+    )
+
+    def clock(fn, warm=False):
+        """fn's result and its ms; with ``warm``, after one untimed call."""
+        if warm:
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def busy(name, fn):
+        wall, dev_ms, n = device_busy(fn)
+        log(f"    {name} under torch.profiler: wall {wall:.1f} ms, device busy {dev_ms:.2f} ms "
+            f"({100 * dev_ms / wall:.1f} %), {n} kernel launches")
+
+    times = {}
+    gen = torch.Generator(device=dev).manual_seed(1210)
+    obs, _, _ = gen_gaussian_dataset(gen, K, D, B, T)
+    prior = make_prior(K, GaussianNIW, obs_dim=D, device=dev)
+    p0 = init_params(gen, prior, GaussianNIW, obs)
+
+    log(f"  batch SGD: {VB_ITERS} iterations at B={B}, T={T}, K={K}, D={D} on auto")
+    reset_kernel_counts()
+    (sgd, elbos), ms = clock(lambda: batch_sgd.fit_state(batch_sgd.init_state(p0), prior, obs,
+                                                         GaussianNIW, VB_ITERS))
+    require_launches(kernel_counts(), "auto", VB_ITERS, "batch SGD")
+    require(bool(torch.isfinite(elbos).all()), "batch SGD: a non-finite ELBO")
+    require_sane_params(sgd.params, "batch SGD")
+    times["batch SGD iteration"] = ms / VB_ITERS
+    first, _ = batch_sgd.make_step(GaussianNIW)(batch_sgd.init_state(p0), prior, obs)
+    vb, _ = batch_vb.make_step(GaussianNIW)(p0, prior, obs)
+    err = rel_max_err(first.params, vb)
+    log(f"  {ms:.1f} ms ({ms / VB_ITERS:.2f} ms an iteration, the feature build included); ELBO "
+        + ", ".join(f"{x:.6e}" for x in elbos.double().cpu().tolist())
+        + f"; step 0 against batch VB's step: max rel err {err:.3e}")
+    require(err <= ENGINE_SGD_RTOL, f"batch SGD step 0 differs from batch VB's by {err:.3e}")
+
+    log("  Viterbi and predictive scoring at the SGD params against float64 on the CPU")
+    params = sgd.params
+    path, ms = clock(lambda: viterbi_decode(params, GaussianNIW, obs), warm=True)
+    times["viterbi_decode"] = ms
+    busy("viterbi_decode", lambda: viterbi_decode(params, GaussianNIW, obs))
+    p64, o64 = cpu64(params), cpu64(obs)
+    lp, lA = expected_log_params(p64)
+    ll = GaussianNIW.expected_log_likelihood(p64.emit, o64)
+    t0 = time.perf_counter()
+    ref_path = scan_fb.viterbi(lp, lA, ll)
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    got, ref = path_scores(lp, lA, ll, path.cpu()), path_scores(lp, lA, ll, ref_path)
+    rel = ((got - ref).abs() / ref.abs()).max().item()
+    same = (path.cpu() == ref_path).double().mean().item()
+    log(f"  viterbi_decode: {ms:.1f} ms on the card, {cpu_ms:.1f} ms float64 on the CPU; path "
+        f"scores max rel diff {rel:.3e} ({100 * same:.4f} % of positions the same state)")
+    require(bool((got <= ref + 1e-9 * ref.abs()).all()), "a card path scores above the MAP")
+    require(rel <= DECODE_RTOL, f"Viterbi path scores differ by {rel:.3e}")
+    del ll, ref_path
+    for exact in (False, True):
+        val, ms = clock(lambda: predictive_log_likelihood(params, GaussianNIW, obs, exact=exact),
+                        warm=True)
+        ref = predictive_log_likelihood(p64, GaussianNIW, o64, exact=exact).item()
+        rel = abs(val.item() - ref) / abs(ref)
+        times[f"predictive exact={exact}"] = ms
+        log(f"  predictive_log_likelihood(exact={exact}): {val.item():.9e} in {ms:.1f} ms; "
+            f"float64 CPU {ref:.9e}, rel diff {rel:.3e}")
+        require(math.isfinite(val.item()) and rel <= DECODE_RTOL,
+                f"predictive exact={exact}: rel diff {rel:.3e}")
+
+    log(f"  Gibbs: {ENGINE_SWEEPS} sweeps at B={B}, T={T}")
+    sweep = gibbs.make_sweep(GaussianNIW, K)
+    gstate = gibbs.init_state(torch.Generator(device=dev).manual_seed(1211), prior, GaussianNIW,
+                              obs, K)
+    sweep_ms = []
+    for i in range(ENGINE_SWEEPS):
+        (gstate, gm), ms = clock(lambda: sweep(gstate, prior, obs))
+        sweep_ms.append(ms)
+        mll = gm["marginal_loglik"].item()
+        require(math.isfinite(mll), f"Gibbs sweep {i}: non-finite marginal log-likelihood")
+        require(all(bool(torch.isfinite(x).all()) for x in flat_leaves(gstate.theta)),
+                f"Gibbs sweep {i}: a non-finite parameter")
+        log(f"    sweep {i}: {ms:.1f} ms, marginal log-likelihood {mll:.6e}")
+    times["Gibbs sweep"] = min(sweep_ms)
+    busy("a Gibbs sweep", lambda: sweep(gstate, prior, obs))
+    # one fed sweep on the card and in float64 on the CPU, draws made on the card
+    g = torch.Generator(device=dev).manual_seed(1212)
+    init_c, trans_c, oh = gibbs._count_stats(gstate.z, K, torch.float32)
+    post = GaussianNIW.posterior(prior.emit, emission_flat_stats(GaussianNIW, prior.emit, oh, obs))
+    draws = gibbs.GibbsDraws(scan_fb.gumbel(g, (B, T, K), torch.float32),
+                             dirichlet.log_gamma(g, prior.init + init_c),
+                             dirichlet.log_gamma(g, prior.trans + trans_c),
+                             GaussianNIW.sample_draws(g, post))
+    del oh
+    card, _ = sweep.with_draws(gstate, prior, obs, draws)
+    t0 = time.perf_counter()
+    cpu, _ = gibbs.make_sweep(GaussianNIW, K).with_draws(
+        gibbs.GibbsState(gstate.z.cpu(), cpu64(gstate.theta), torch.Generator()), cpu64(prior),
+        o64, cpu64(draws))
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    same = (card.z.cpu() == cpu.z).double().mean().item()
+    errs = [rel_max_err(a, b) for a, b in zip(flat_leaves(card.theta), flat_leaves(cpu.theta))]
+    err = max(errs)
+    log(f"  fed sweep: {100 * same:.4f} % of positions the same state as float64 on the CPU "
+        f"({cpu_ms:.0f} ms there); theta max rel err {err:.3e} (pi, A, mu, sigma: "
+        + ", ".join(f"{e:.2e}" for e in errs) + ")")
+    require(same >= GIBBS_SAME_Z, f"the fed Gibbs sweep's paths agree on {same:.6f} only")
+    require(err <= GIBBS_THETA_RTOL, f"the fed Gibbs sweep's theta differs by {err:.3e}")
+    del obs, o64, draws, card, cpu, gstate
+    torch.cuda.empty_cache()
+
+    log(f"  meta-observation SVI: T={SVI_T}, Lm={SVI_L}, b={SVI_BUF}, M={B} (W={SVI_W}), "
+        f"{ENGINE_META_STEPS} steps on auto")
+    chain = gen_gaussian_dataset(gen, K, D, 1, SVI_T, mean_scale=0.5, cov_scale=1.0)[0][0]
+    p_c = init_params(gen, prior, GaussianNIW, chain)
+    cfg = metaobs.MetaObsConfig(minibatch=B, block_len=SVI_L, buffer=SVI_BUF)
+    step = metaobs.make_step(GaussianNIW, cfg, SVI_T)
+    state = svi.init_state(p_c, torch.Generator(device=dev).manual_seed(1213))
+    reset_kernel_counts()
+    step_ms = []
+    for i in range(ENGINE_META_STEPS):
+        before = kernel_counts()
+        (state, m), ms = clock(lambda: step(state, prior, chain))
+        after = kernel_counts()
+        require_launches({k: after[k] - before[k] for k in after}, "auto", 1, f"metaobs step {i}")
+        require(bool(torch.isfinite(m["noisy_elbo"])), f"metaobs step {i}: non-finite noisy ELBO")
+        require_sane_params(state.params, f"metaobs step {i}")
+        step_ms.append(ms)
+    times["metaobs step"] = min(step_ms)
+    log(f"  {ENGINE_META_STEPS} steps: min {min(step_ms):.2f} ms, median "
+        f"{sorted(step_ms)[len(step_ms) // 2]:.2f} ms a step; noisy ELBO {m['noisy_elbo']:.6e}")
+    ids = torch.randperm(SVI_T // SVI_L, generator=gen, device=dev)[:B]
+    log("  one with_blocks' statistics on auto against scan, same block ids")
+    compare_local_stats(step.block_stats(state.params, chain, ids),
+                        metaobs.make_step(GaussianNIW, cfg, SVI_T, "scan").block_stats(
+                            state.params, chain, ids))
+
+    log(f"  select_buffer at the SVI shape: L={SVI_L}, {B} probes, tol 1e-3, on the chain "
+        "above at the metaobs params")
+    reset_kernel_counts()
+    b_sel, ms = clock(lambda: svi.select_buffer(state.params, chain, GaussianNIW, SVI_L,
+                                                torch.Generator(device=dev).manual_seed(1214),
+                                                probes=B))
+    counts = {k: n for k, n in kernel_counts().items() if n}
+    require(set(counts) <= {"split_fwd_kernel", "split_bwd_kernel"} and counts,
+            f"select_buffer launched {counts}")
+    times["select_buffer"] = ms
+    log(f"  b = {b_sel} in {ms:.1f} ms; launches {counts} (two E-steps a candidate b)")
+    del chain
+
+    log("  batch VB restarts: best of 4 at K=4, D=2, 20 x 200, 20 iterations on auto")
+    o_s, _, _ = gen_gaussian_dataset(torch.Generator(device=dev).manual_seed(1215), 4, 2, 20, 200,
+                                     mean_scale=6.0, cov_scale=0.3)
+    prior_s = make_prior(4, GaussianNIW, obs_dim=2, device=dev)
+    (best, e_r, idx), ms = clock(lambda: batch_vb.fit_restarts(
+        torch.Generator(device=dev).manual_seed(1216), prior_s, o_s, GaussianNIW, 20, 4))
+    final = e_r[:, -1].double().cpu()
+    log(f"  {ms:.0f} ms; final ELBOs " + ", ".join(f"{x:.6e}" for x in final.tolist())
+        + f"; best {idx}")
+    require(idx == int(torch.argmax(final)), f"fit_restarts returned {idx}, not the argmax")
+    require_sane_params(best, "the best restart")
+    return times
+
+
 def time_route_kernels(gen) -> tuple[dict, dict, dict]:
     """Phase 5: each route kernel at K = 64, 128 and 256 (B=1024, T=1000,
     F=45, ungated) by CUDA events, its twin, its bound and share. Returns
@@ -2235,6 +2499,12 @@ def main() -> int:
     wide_launches = large_k_phase(dev)
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s; launches by (kernel, K): "
         + ", ".join(f"{tier_name(n, k_)} {c}" for (n, k_), c in wide_launches.items()))
+
+    log(f"== phase 10: the other engines and decoders at B={B}, T={T}, K={K}, D={D}")
+    t0 = time.perf_counter()
+    engine_ms = engines_phase(dev)
+    log(f"  phase 10 took {time.perf_counter() - t0:.1f} s; ms (host clock, synchronised; "
+        f"{card}): " + json.dumps({k: round(v, 3) for k, v in engine_ms.items()}))
 
     errs = {"fused_fwd_kernel": fwd_err, "fused_bwd_kernel": bwd_err, **split_err,
             "duplex_chain_kernel": chain_err, "duplex_combine_kernel": comb_err}

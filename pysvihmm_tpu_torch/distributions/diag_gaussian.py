@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.device import resolve_device
+from .dirichlet import lgamma_diff, standard_gamma
 
 
 class NIG(NamedTuple):
@@ -181,3 +182,52 @@ def kl(q: NIG, p: NIG) -> torch.Tensor:
 def mean_params(q: NIG) -> tuple[torch.Tensor, torch.Tensor]:
     """Posterior-mean point estimate (E[mu], E[sigma2]) for plug-in scoring."""
     return q.mean, q.b / torch.clamp_min(q.a - 1.0, 1e-2)
+
+
+def sample_draws(
+    generator: torch.Generator, q: NIG
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The draws :func:`sample_params` consumes, on the generator's device:
+    Gamma(a, 1) of a's shape and standard normals of the mean's."""
+    g = standard_gamma(generator, q.a)
+    eps = torch.randn(q.mean.shape, generator=generator, dtype=q.mean.dtype,
+                      device=q.mean.device)
+    return g, eps
+
+
+def params_from_draws(
+    q: NIG, g: torch.Tensor, eps: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mu, sigma2) from the draws: precision g / b, mu = m + eps sqrt(sigma2 / kappa)."""
+    sigma2 = 1.0 / (g / q.b)
+    return q.mean + eps * torch.sqrt(sigma2 / q.kappa), sigma2
+
+
+def sample_params(generator: torch.Generator, q: NIG) -> tuple[torch.Tensor, torch.Tensor]:
+    """Draw (mu, sigma2) ~ NIG(q) per leading element (the Gibbs engine)."""
+    return params_from_draws(q, *sample_draws(generator, q))
+
+
+def predictive_log_likelihood(q: NIG, y: torch.Tensor) -> torch.Tensor:
+    """Exact NIG posterior predictive: per dimension a Student-t
+    t_{2a}(m, b (kappa + 1) / (a kappa)), product over dimensions.
+    y (..., D), q leading (K,) -> (..., K)."""
+    nu = 2.0 * q.a  # (K, D)
+    s2 = q.b * (q.kappa + 1.0) / (q.a * q.kappa)
+    diff2 = (y[..., None, :] - q.mean) ** 2  # (..., K, D)
+    return (
+        lgamma_diff((nu + 1.0) / 2.0, nu / 2.0)
+        - 0.5 * torch.log(nu * math.pi * s2)
+        - 0.5 * (nu + 1.0) * torch.log1p(diff2 / (nu * s2))
+    ).sum(dim=-1)
+
+
+def diag_gaussian_log_likelihood(
+    mu: torch.Tensor, sigma2: torch.Tensor, y: torch.Tensor
+) -> torch.Tensor:
+    """log N(y_t | mu_k, diag sigma2_k): y (..., D), mu (K, D) -> (..., K).
+    The squared distance sum_d (y_d - mu_kd)^2 / sigma2_kd is expanded into
+    products with (D, K) weights, so no (..., K, D) intermediate is built."""
+    prec = 1.0 / sigma2
+    quad = (y * y) @ prec.T - 2.0 * (y @ (mu * prec).T) + (mu * mu * prec).sum(dim=-1)
+    return -0.5 * (torch.log(2.0 * math.pi * sigma2).sum(dim=-1) + quad)

@@ -16,6 +16,13 @@ Families:
 Families with ``ell_features`` / ``ell_feature_matrix`` run on the kernel
 routes through one (T, B, F) feature array, and ``unpack_flat_stats`` turns
 the kernels' (K, F) accumulator into the family's statistics.
+
+Every family also scores observations under point parameters
+(``point_log_likelihood``) and under the exact posterior predictive
+(``predictive_log_likelihood``), and draws point parameters from its
+posterior for the Gibbs engine: ``sample_params(generator, q)`` is
+``params_from_draws(q, sample_draws(generator, q))``, so a caller can feed
+the draws (a tuple of tensors) that another sampler made.
 """
 
 from __future__ import annotations
@@ -68,6 +75,34 @@ class GaussianNIW:
     @staticmethod
     def kl(q: NIW, p: NIW) -> torch.Tensor:
         return niw.kl(q, p).sum()
+
+    @staticmethod
+    def mean_params(q: NIW) -> tuple[torch.Tensor, torch.Tensor]:
+        return niw.mean_params(q)
+
+    @staticmethod
+    def point_log_likelihood(theta, y: torch.Tensor) -> torch.Tensor:
+        """theta = (mu (K, D), sigma (K, D, D)); y (..., D) -> (..., K)."""
+        mu, sigma = theta
+        return niw.gaussian_log_likelihood(mu, sigma, y)
+
+    @staticmethod
+    def predictive_log_likelihood(params: NIW, y: torch.Tensor) -> torch.Tensor:
+        """Exact posterior predictive (Student-t, integrates out mu and Sigma)."""
+        return niw.predictive_log_likelihood(params, y)
+
+    @staticmethod
+    def sample_draws(generator: torch.Generator, q: NIW) -> tuple:
+        """The Bartlett draws (chi2, normals, eps) on the generator's device."""
+        return niw.sample_draws(generator, q)
+
+    @staticmethod
+    def params_from_draws(q: NIW, draws: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+        return niw.params_from_draws(q, *draws)
+
+    @staticmethod
+    def sample_params(generator: torch.Generator, q: NIW) -> tuple[torch.Tensor, torch.Tensor]:
+        return niw.sample_params(generator, q)
 
     @staticmethod
     def sample_obs(
@@ -143,6 +178,30 @@ class DiagonalGaussianNIG:
         return diag_gaussian.mean_params(q)
 
     @staticmethod
+    def point_log_likelihood(theta, y: torch.Tensor) -> torch.Tensor:
+        """theta = (mu (K, D), sigma2 (K, D)); y (..., D) -> (..., K)."""
+        mu, sigma2 = theta
+        return diag_gaussian.diag_gaussian_log_likelihood(mu, sigma2, y)
+
+    @staticmethod
+    def predictive_log_likelihood(params: NIG, y: torch.Tensor) -> torch.Tensor:
+        """Exact posterior predictive (a product of per-dimension Student-t)."""
+        return diag_gaussian.predictive_log_likelihood(params, y)
+
+    @staticmethod
+    def sample_draws(generator: torch.Generator, q: NIG) -> tuple:
+        """(Gamma(a, 1), standard normals) on the generator's device."""
+        return diag_gaussian.sample_draws(generator, q)
+
+    @staticmethod
+    def params_from_draws(q: NIG, draws: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+        return diag_gaussian.params_from_draws(q, *draws)
+
+    @staticmethod
+    def sample_params(generator: torch.Generator, q: NIG) -> tuple[torch.Tensor, torch.Tensor]:
+        return diag_gaussian.sample_params(generator, q)
+
+    @staticmethod
     def sample_obs(
         generator: torch.Generator, theta: tuple[torch.Tensor, torch.Tensor], z: torch.Tensor
     ) -> torch.Tensor:
@@ -192,6 +251,30 @@ class MultinomialDirichlet:
     @staticmethod
     def mean_params(q: torch.Tensor) -> torch.Tensor:
         return dirichlet.mean(q)
+
+    @staticmethod
+    def point_log_likelihood(theta: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """theta = phi (K, V) simplex rows; y int (...,) -> (..., K)."""
+        return torch.log(theta).T[y.long()]
+
+    @staticmethod
+    def predictive_log_likelihood(params: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Exact single-symbol Dirichlet-multinomial predictive: the posterior
+        mean probabilities gathered at y."""
+        return torch.log(dirichlet.mean(params)).T[y.long()]
+
+    @staticmethod
+    def sample_draws(generator: torch.Generator, q: torch.Tensor) -> tuple:
+        """(log Gamma(q, 1),) on the generator's device."""
+        return (dirichlet.log_gamma(generator, q),)
+
+    @staticmethod
+    def params_from_draws(q: torch.Tensor, draws: tuple) -> torch.Tensor:
+        return dirichlet.from_log_gamma(*draws)
+
+    @staticmethod
+    def sample_params(generator: torch.Generator, q: torch.Tensor) -> torch.Tensor:
+        return dirichlet.sample(generator, q)
 
     @staticmethod
     def sample_obs(
@@ -257,6 +340,29 @@ class PoissonGamma:
     @staticmethod
     def mean_params(q: GammaP) -> torch.Tensor:
         return poisson.mean_params(q)
+
+    @staticmethod
+    def point_log_likelihood(theta: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """theta = lambda (K, D) rates; y (..., D) -> (..., K)."""
+        return poisson.poisson_log_likelihood(theta, y)
+
+    @staticmethod
+    def predictive_log_likelihood(params: GammaP, y: torch.Tensor) -> torch.Tensor:
+        """Exact posterior predictive (a product of per-dimension negative binomials)."""
+        return poisson.predictive_log_likelihood(params, y)
+
+    @staticmethod
+    def sample_draws(generator: torch.Generator, q: GammaP) -> tuple:
+        """(Gamma(a, 1),) on the generator's device."""
+        return poisson.sample_draws(generator, q)
+
+    @staticmethod
+    def params_from_draws(q: GammaP, draws: tuple) -> torch.Tensor:
+        return poisson.params_from_draws(q, *draws)
+
+    @staticmethod
+    def sample_params(generator: torch.Generator, q: GammaP) -> torch.Tensor:
+        return poisson.sample_params(generator, q)
 
     @staticmethod
     def sample_obs(

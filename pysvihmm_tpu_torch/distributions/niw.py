@@ -19,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.device import resolve_device
+from .dirichlet import lgamma_diff, standard_gamma
 
 
 class NIW(NamedTuple):
@@ -270,3 +271,91 @@ def kl(q: NIW, p: NIW) -> torch.Tensor:
     ratio = p.kappa / q.kappa
     kl_normal = 0.5 * (p.kappa * quad + D * (ratio - 1.0 - torch.log(ratio)))
     return kl_wishart + kl_normal
+
+
+def mean_params(q: NIW) -> tuple[torch.Tensor, torch.Tensor]:
+    """Posterior-mean point estimate (E[mu], E[Sigma]) for plug-in scoring."""
+    D = q.mean.shape[-1]
+    denom = torch.clamp_min(q.nu - D - 1.0, 1e-2)
+    return q.mean, q.psi / denom[..., None, None]
+
+
+def _inverse(chol: torch.Tensor) -> torch.Tensor:
+    """The inverse of the matrices whose Cholesky factors are ``chol``."""
+    eye = torch.eye(chol.shape[-1], dtype=chol.dtype, device=chol.device).expand(chol.shape)
+    return torch.cholesky_solve(eye, chol)
+
+
+def _mahalanobis(y: torch.Tensor, mean: torch.Tensor, prec: torch.Tensor) -> torch.Tensor:
+    """(y - m_k)^T P_k (y - m_k) for y (..., D), mean (K, D), prec (K, D, D)
+    -> (..., K), expanded into products with the pair features
+    (y^T P y - 2 y^T P m + m^T P m), so no (..., K, D) intermediate is built."""
+    K, D = mean.shape
+    pm = torch.einsum("kde,ke->kd", prec, mean)
+    return (_pair_features(y) @ prec.reshape(K, D * D).T - 2.0 * (y @ pm.T)
+            + (mean * pm).sum(dim=-1))
+
+
+def gaussian_log_likelihood(mu: torch.Tensor, sigma: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """log N(y_t | mu_k, Sigma_k): y (..., D), mu (K, D), sigma (K, D, D) -> (..., K)."""
+    D = mu.shape[-1]
+    chol = _cholesky(sigma)
+    quad = _mahalanobis(y, mu, _inverse(chol))
+    return -0.5 * (D * math.log(2.0 * math.pi) + _logdet_from_chol(chol) + quad)
+
+
+def predictive_log_likelihood(q: NIW, y: torch.Tensor) -> torch.Tensor:
+    """Exact NIW posterior predictive, a multivariate Student-t
+    t_{nu'}(m, Psi (kappa + 1) / (kappa nu')) with nu' = nu - D + 1 (Murphy,
+    "Conjugate Bayesian analysis of the Gaussian", eq. 232).
+    y (..., D), q leading (K,) -> (..., K)."""
+    D = q.mean.shape[-1]
+    nu_p = q.nu - D + 1.0  # (K,)
+    S = q.psi * ((q.kappa + 1.0) / (q.kappa * nu_p))[..., None, None]
+    chol = _cholesky(S)
+    quad = _mahalanobis(y, q.mean, _inverse(chol))
+    return (
+        lgamma_diff((nu_p + D) / 2.0, nu_p / 2.0)
+        - 0.5 * D * torch.log(nu_p * math.pi)
+        - 0.5 * _logdet_from_chol(chol)
+        - 0.5 * (nu_p + D) * torch.log1p(quad / nu_p)
+    )
+
+
+def sample_draws(
+    generator: torch.Generator, q: NIW
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The Bartlett draws :func:`sample_params` consumes, on the generator's
+    device: chi2 (..., D) with chi2_i ~ chi2(nu - i), standard normals
+    (..., D, D) for the strict lower triangle and (..., D) for the mean."""
+    D = q.mean.shape[-1]
+    i = torch.arange(D, dtype=q.nu.dtype, device=q.nu.device)
+    chi2 = 2.0 * standard_gamma(generator, (q.nu[..., None] - i) / 2.0)
+    normals = torch.randn(q.psi.shape, generator=generator, dtype=q.mean.dtype,
+                          device=q.mean.device)
+    eps = torch.randn(q.mean.shape, generator=generator, dtype=q.mean.dtype,
+                      device=q.mean.device)
+    return chi2, normals, eps
+
+
+def params_from_draws(
+    q: NIW, chi2: torch.Tensor, normals: torch.Tensor, eps: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mu, Sigma) from the Bartlett draws: Sigma^-1 ~ Wishart(Psi^-1, nu) as
+    (C A)(C A)^T with A lower triangular (sqrt(chi2) on the diagonal, the
+    normals below it) and C = chol(Psi)^-T; Sigma symmetrised; then
+    mu = m + chol(Sigma) eps / sqrt(kappa)."""
+    A = torch.tril(normals, -1) + torch.diag_embed(torch.sqrt(chi2))
+    chol_psi = _cholesky(q.psi)
+    eye = torch.eye(q.psi.shape[-1], dtype=q.psi.dtype, device=q.psi.device).expand(q.psi.shape)
+    C = torch.linalg.solve_triangular(chol_psi.transpose(-1, -2), eye, upper=True)
+    CA = C @ A
+    sigma = torch.linalg.inv_ex(CA @ CA.transpose(-1, -2)).inverse
+    sigma = 0.5 * (sigma + sigma.transpose(-1, -2))
+    mu = q.mean + (_cholesky(sigma) @ eps[..., None])[..., 0] / torch.sqrt(q.kappa)[..., None]
+    return mu, sigma
+
+
+def sample_params(generator: torch.Generator, q: NIW) -> tuple[torch.Tensor, torch.Tensor]:
+    """Draw (mu, Sigma) ~ NIW(q) per leading element (the Gibbs engine)."""
+    return params_from_draws(q, *sample_draws(generator, q))

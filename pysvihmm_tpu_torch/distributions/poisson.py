@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.device import resolve_device
+from .dirichlet import lgamma_diff, standard_gamma
 
 
 class GammaP(NamedTuple):
@@ -124,3 +125,39 @@ def kl(q: GammaP, p: GammaP) -> torch.Tensor:
 def mean_params(q: GammaP) -> torch.Tensor:
     """Posterior-mean rates E[lambda] = a / b for plug-in scoring."""
     return q.a / q.b
+
+
+def poisson_log_likelihood(lam: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """log Poisson(y_t | lambda_k): y (..., D), lam (K, D) -> (..., K)."""
+    return y @ torch.log(lam).T - lam.sum(dim=-1) - _log_factorial_sum(y)
+
+
+def predictive_log_likelihood(q: GammaP, y: torch.Tensor) -> torch.Tensor:
+    """Exact Gamma-Poisson posterior predictive: per dimension a negative
+    binomial NB(r = a, p = b / (b + 1)), product over dimensions.
+    y (..., D) -> (..., K). log(b / (1 + b)) is taken as -log1p(1 / b): at
+    the posterior's b ~ 1e4 the difference log b - log1p(b) would keep two
+    float32 digits."""
+    yk = y[..., None, :]  # (..., 1, D) against (K, D)
+    return (
+        lgamma_diff(yk + q.a, q.a)
+        - torch.lgamma(yk + 1.0)
+        - q.a * torch.log1p(1.0 / q.b)
+        - yk * torch.log1p(q.b)
+    ).sum(dim=-1)
+
+
+def sample_draws(generator: torch.Generator, q: GammaP) -> tuple[torch.Tensor]:
+    """The draws :func:`sample_params` consumes: Gamma(a, 1) of a's shape, on
+    the generator's device."""
+    return (standard_gamma(generator, q.a),)
+
+
+def params_from_draws(q: GammaP, g: torch.Tensor) -> torch.Tensor:
+    """lambda = g / b from Gamma(a, 1) draws g: a draw of Gamma(a, b)."""
+    return g / q.b
+
+
+def sample_params(generator: torch.Generator, q: GammaP) -> torch.Tensor:
+    """Draw lambda ~ Gamma(a, b) per leading element (the Gibbs engine)."""
+    return params_from_draws(q, *sample_draws(generator, q))

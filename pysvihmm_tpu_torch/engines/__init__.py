@@ -1,3 +1,3 @@
-from . import base, batch_vb
+from . import base, batch_sgd, batch_vb, gibbs, metaobs, svi
 
-__all__ = ["base", "batch_vb"]
+__all__ = ["base", "batch_sgd", "batch_vb", "gibbs", "metaobs", "svi"]

@@ -278,3 +278,33 @@ def decode(
     """Posterior-marginal state decode: argmax_k gamma_tk per sequence (B, T)."""
     _, gamma = batch_local_step(params, emission, obs, method)
     return torch.argmax(gamma, dim=-1)
+
+
+def viterbi_decode(params: HMMParams, emission, obs: torch.Tensor) -> torch.Tensor:
+    """MAP state paths (B, T) int64 under the variational-mean parameters
+    (E[log pi], E[log A] and the expected log-likelihoods)."""
+    f32_matmuls()
+    log_pi, log_A = expected_log_params(params)
+    ll = emission.expected_log_likelihood(params.emit, obs)
+    return messages.viterbi(log_pi, log_A, ll)
+
+
+def predictive_log_likelihood(
+    params: HMMParams, emission, obs: torch.Tensor, exact: bool = False
+) -> torch.Tensor:
+    """Held-out predictive log-likelihood of obs (B, T, ...), summed, by the
+    forward filter under the posterior-mean pi and A.
+
+    exact=False: the emissions scored under the posterior-mean point
+    parameters (the reference's plug-in). exact=True: under the exact
+    posterior predictive (Student-t, negative binomial or
+    Dirichlet-multinomial), integrating out phi per observation.
+    """
+    f32_matmuls()
+    log_pi = torch.log(dirichlet.mean(params.init))
+    log_A = torch.log(dirichlet.mean(params.trans))
+    if exact:
+        ll = emission.predictive_log_likelihood(params.emit, obs)
+    else:
+        ll = emission.point_log_likelihood(emission.mean_params(params.emit), obs)
+    return messages.forward(log_pi, log_A, ll)[1].sum()

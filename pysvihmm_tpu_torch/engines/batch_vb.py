@@ -15,7 +15,8 @@ import torch
 
 from .. import messages
 from ..distributions import dirichlet
-from ..models.hmm import HMMParams
+from ..models.hmm import HMMParams, init_params
+from ..utils.device import check_generator, restart_generators
 from .base import FEATURE_ROUTES, batch_local_step, elbo_from_stats, prepare_fused_obs
 
 Step = Callable[..., tuple[HMMParams, torch.Tensor]]
@@ -63,3 +64,44 @@ def fit(
         params, elbo = step(params, prior, obs, prepared=prepared)
         elbos.append(elbo)
     return params, torch.stack(elbos)
+
+
+def fit_restarts_from(
+    inits: list[HMMParams],
+    prior: HMMParams,
+    obs: torch.Tensor,
+    emission,
+    num_iters: int = 100,
+    method: str = "auto",
+) -> tuple[HMMParams, torch.Tensor, int]:
+    """One :func:`fit` from each initial params, one after another (JAX vmaps
+    them); the winner by final ELBO. Returns (best params, ELBO histories
+    (R, num_iters), best index); ``elbos[best, -1]`` is the winning ELBO."""
+    finals, elbos = [], []
+    for p0 in inits:
+        p, e = fit(p0, prior, obs, emission, num_iters, method)
+        finals.append(p)
+        elbos.append(e)
+    elbos = torch.stack(elbos)
+    best = int(torch.argmax(elbos[:, -1]))
+    return finals[best], elbos, best
+
+
+def fit_restarts(
+    generator: torch.Generator,
+    prior: HMMParams,
+    obs: torch.Tensor,
+    emission,
+    num_iters: int = 100,
+    num_restarts: int = 8,
+    method: str = "auto",
+) -> tuple[HMMParams, torch.Tensor, int]:
+    """Best-of-N-seeds batch VB. Coordinate ascent is deterministic given its
+    init, and a single seed can stop in a merged-state optimum; each restart
+    draws its init from its own generator
+    (:func:`utils.device.restart_generators`) on ``generator``'s device,
+    which must be obs'. See :func:`fit_restarts_from`."""
+    check_generator(generator, obs.device)
+    inits = [init_params(g, prior, emission, obs)
+             for g in restart_generators(generator, num_restarts)]
+    return fit_restarts_from(inits, prior, obs, emission, num_iters, method)

@@ -33,8 +33,9 @@ Design notes:
     tests/test_svi.py unbiasedness assertions deliberately.
 
 Multi-sequence datasets (minibatches over sequences) are handled by
-:func:`make_minibatch_step`. ``fit_restarts`` and ``select_buffer`` are
-still to be ported (ROADMAP Queue 1 item 6).
+:func:`make_minibatch_step`. :func:`fit_restarts` takes the best of several
+seeds by the exact lower bound, and :func:`select_buffer` chooses the
+buffer length b by the paper's doubling test (§3.2).
 """
 
 from __future__ import annotations
@@ -45,9 +46,10 @@ import torch
 
 from .. import messages
 from ..distributions import diag_gaussian, dirichlet, niw
-from ..models.hmm import HMMParams, global_kl
+from ..models.hmm import HMMParams, expected_log_params, global_kl, init_params
+from ..utils.device import check_generator, restart_generators
 from ..utils.schedules import AdaptiveState, adaptive_init, adaptive_update, power_schedule
-from .base import batch_local_step, windowed_local_step
+from .base import batch_local_step, lower_bound, windowed_local_step
 
 
 class SVIConfig(NamedTuple):
@@ -267,3 +269,105 @@ def fit_minibatch(
     """Run num_steps minibatch-of-sequences SVI updates over obs (N, T, D)."""
     step = make_minibatch_step(emission, cfg, obs.shape[0], method)
     return _run(step, state, prior, obs, num_steps)
+
+
+def fit_restarts_from(
+    inits: list[HMMParams],
+    generators: list[torch.Generator],
+    prior: HMMParams,
+    obs: torch.Tensor,
+    emission,
+    cfg: SVIConfig,
+    num_steps: int,
+    method: str = "auto",
+) -> tuple[SVIState, torch.Tensor, int]:
+    """One SVI fit on the chain obs (T, D) from each initial params, each
+    drawing its subchains from its own generator; the winner by the EXACT
+    full-chain lower bound at its final params (the noisy ELBO is too noisy
+    to rank restarts). Returns (best final state, exact final ELBOs (R,),
+    best index)."""
+    states, elbos = [], []
+    for p0, gen in zip(inits, generators, strict=True):
+        check_generator(gen, obs.device)
+        st, _ = fit(init_state(p0, gen, adaptive=cfg.adaptive), prior, obs, emission, cfg,
+                    num_steps, method)
+        states.append(st)
+        elbos.append(lower_bound(st.params, prior, emission, obs[None], method))
+    elbos = torch.stack(elbos)
+    best = int(torch.argmax(elbos))
+    return states[best], elbos, best
+
+
+def fit_restarts(
+    generator: torch.Generator,
+    prior: HMMParams,
+    obs: torch.Tensor,
+    emission,
+    cfg: SVIConfig,
+    num_steps: int,
+    num_restarts: int = 8,
+    method: str = "auto",
+) -> tuple[SVIState, torch.Tensor, int]:
+    """Best-of-N-seeds single-chain SVI: restarts differ by init and by
+    subchain draws, each from its own generator
+    (:func:`utils.device.restart_generators`), and run one after another
+    (JAX vmaps them). See :func:`fit_restarts_from`."""
+    check_generator(generator, obs.device)
+    gens = restart_generators(generator, num_restarts)
+    inits = [init_params(g, prior, emission, obs) for g in gens]
+    return fit_restarts_from(inits, gens, prior, obs, emission, cfg, num_steps, method)
+
+
+def _buffer_gap(
+    params: HMMParams, chain: torch.Tensor, emission, L: int, b: int, starts: torch.Tensor
+) -> torch.Tensor:
+    """max |gamma_b - gamma_2b| over the kept L steps of the windows of
+    length L + 4b at ``starts``: the marginals with buffer b (the middle
+    L + 2b steps of each window) against those with buffer 2b (the whole
+    window). Both E-steps run through ``messages.e_step_batched`` on "auto",
+    the split kernels on the card. Returns a 0-d tensor on chain's device."""
+    b2 = 2 * b
+    log_pi, log_A = expected_log_params(params)
+    wins = _gather_windows(chain, starts, L + 2 * b2)
+    ll2 = emission.expected_log_likelihood(params.emit, wins)
+    ll1 = ll2[:, b2 - b : b2 - b + L + 2 * b].contiguous()
+    g2 = messages.e_step_batched(log_pi, log_A, ll2).gamma[:, b2 : b2 + L]
+    g1 = messages.e_step_batched(log_pi, log_A, ll1).gamma[:, b : b + L]
+    return (g1 - g2).abs().max()
+
+
+def select_buffer(
+    params: HMMParams,
+    chain: torch.Tensor,
+    emission,
+    subchain_len: int,
+    generator: torch.Generator,
+    tol: float = 1e-3,
+    b_init: int = 1,
+    b_max: int | None = None,
+    probes: int = 8,
+) -> int:
+    """Adaptive buffer length (Foti et al. 2014 §3.2).
+
+    The error of buffered subchain marginals decays geometrically in the
+    buffer b. Starting from ``b_init``, compare the kept-region marginals
+    with buffer b against those with 2b on ``probes`` random subchains
+    (:func:`_buffer_gap`); when they agree to ``tol`` (max-abs over gamma),
+    b is enough, else double it. Starts are drawn on the generator's device,
+    which must be the chain's; each candidate reads one number back to the
+    host. Run once against the current params before (or during) training.
+    """
+    check_generator(generator, chain.device)
+    T, L = chain.shape[0], subchain_len
+    if b_max is None:
+        b_max = max(1, min(L, (T - L) // 4, 64))
+    b = max(1, b_init)
+    while True:
+        W2 = L + 4 * b
+        if 2 * b > b_max or W2 > T:
+            return min(b, b_max)
+        starts = torch.randint(0, T - W2 + 1, (probes,), generator=generator,
+                               device=generator.device)
+        if float(_buffer_gap(params, chain, emission, L, b, starts)) < tol:
+            return b
+        b = 2 * b

@@ -19,7 +19,18 @@ from __future__ import annotations
 
 import torch
 
-from .scan_fb import FBResult, backward, forward_backward, forward_with_logc
+from .scan_fb import (
+    FBResult,
+    backward,
+    ffbs_from_gumbel,
+    ffbs_sample,
+    forward,
+    forward_backward,
+    forward_filter_log,
+    forward_with_logc,
+    log_normalizer,
+    viterbi,
+)
 from .split_fb import estep_split
 
 METHODS = ("scan", "fused", "split", "duplex")
@@ -89,13 +100,62 @@ def e_step_batched(
     return fb._replace(gamma=fb.gamma.transpose(0, 1))
 
 
+def e_step_grad(log_pi: torch.Tensor, log_A: torch.Tensor, log_lik: torch.Tensor) -> FBResult:
+    """The E-step as gradients of the log-normaliser over log_lik (B, T, K):
+    d log Z / d log_lik = gamma, d / d log_A = sum_t xi_t (summed over the
+    batch), d / d log_pi = gamma_0 (per sequence: log_pi is broadcast to
+    (B, K) first). The max shift is detached (:func:`scan_fb._normalize_loglik`)."""
+    B = log_lik.shape[0]
+    with torch.enable_grad():
+        lp = log_pi.detach().expand(B, -1).clone().requires_grad_(True)
+        lA = log_A.detach().clone().requires_grad_(True)
+        ll = log_lik.detach().clone().requires_grad_(True)
+        _, log_z, log_c = forward_with_logc(lp, lA, ll)
+        # T = 1 leaves log_A out of the graph: its gradient is then zeros
+        init, trans, gamma = torch.autograd.grad(log_z.sum(), (lp, lA, ll), allow_unused=True,
+                                                 materialize_grads=True)
+    return FBResult(gamma=gamma, log_z=log_z.detach(), trans_stats=trans, init_stats=init,
+                    log_c=log_c.detach())
+
+
+def e_step(
+    log_pi: torch.Tensor,
+    log_A: torch.Tensor,
+    log_lik: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    method: str = "scan",
+) -> FBResult:
+    """One batched E-step over log_lik (B, T, K) by the plain methods:
+    "scan" (:func:`scan_fb.forward_backward`) or "grad" (:func:`e_step_grad`,
+    which takes no weights). JAX's "assoc" and "blocked" are not ported yet
+    (ROADMAP Queue 1 item 6) and raise."""
+    if method == "scan":
+        return forward_backward(log_pi, log_A, log_lik, weights)
+    if method == "grad":
+        if weights is not None:
+            raise ValueError("grad e-step does not support buffer weights")
+        return e_step_grad(log_pi, log_A, log_lik)
+    if method in ("assoc", "blocked"):
+        raise NotImplementedError(
+            f"e_step method {method!r} is not ported yet (ROADMAP Queue 1 item 6)")
+    raise ValueError(f"unknown e_step method: {method}")
+
+
 __all__ = [
     "FBResult",
     "METHODS",
     "backward",
+    "e_step",
     "e_step_batched",
+    "e_step_grad",
+    "ffbs_from_gumbel",
+    "ffbs_sample",
+    "forward",
     "forward_backward",
+    "forward_filter_log",
     "forward_with_logc",
+    "log_normalizer",
     "plan_window",
     "resolve_method",
+    "viterbi",
 ]

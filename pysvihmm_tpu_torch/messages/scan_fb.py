@@ -3,7 +3,10 @@
 
 The exact plain path: every kernel of the port is checked against it. Each
 step is a (B, K) @ (K, K) product plus elementwise rescaling; ``lax.scan``
-becomes a Python loop, ``vmap`` the leading batch axis.
+becomes a Python loop, ``vmap`` the leading batch axis. The decoders and
+the sampler live here too: Viterbi, the log-space filter and
+forward-filter backward-sampling (FFBS), which JAX also runs as plain
+scans, with no kernel.
 
 Math (normalised space with per-step scaling constants):
 
@@ -22,6 +25,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from ..utils.device import check_generator
 
 
 class FBResult(NamedTuple):
@@ -43,9 +48,20 @@ class FBResult(NamedTuple):
 
 
 def _normalize_loglik(log_lik: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-step max shift: (lik in [0, 1], shifts (..., T))."""
-    m = log_lik.amax(dim=-1)
+    """Per-step max shift: (lik in [0, 1], shifts (..., T)). The shift is
+    detached, as JAX's ``stop_gradient``: log Z does not depend on it."""
+    m = log_lik.detach().amax(dim=-1)
     return torch.exp(log_lik - m[..., None]), m
+
+
+def forward(
+    log_pi: torch.Tensor, log_A: torch.Tensor, log_lik: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Normalised forward recursion over log_lik (B, T, K): (alpha (B, T, K),
+    log_z (B,)). Differentiable: d log_z / d log_lik = gamma, d / d log_A =
+    sum_t xi_t, d / d log_pi = gamma_0 (:func:`messages.e_step_grad`)."""
+    alpha, log_z, _ = forward_with_logc(log_pi, log_A, log_lik)
+    return alpha, log_z
 
 
 def forward_with_logc(
@@ -122,3 +138,83 @@ def forward_backward(
         init_stats=w[:, 0, None] * gamma[:, 0],
         log_c=log_c,
     )
+
+
+def log_normalizer(
+    log_pi: torch.Tensor, log_A: torch.Tensor, log_lik: torch.Tensor
+) -> torch.Tensor:
+    """log p~(y) per sequence (B,) from the forward pass alone; the autodiff
+    generating function."""
+    return forward(log_pi, log_A, log_lik)[1]
+
+
+def viterbi(log_pi: torch.Tensor, log_A: torch.Tensor, log_lik: torch.Tensor) -> torch.Tensor:
+    """MAP state paths (B, T) int64 by a max-plus forward loop and a
+    backtrace; ties go to the lowest state, as ``jnp.argmax``. The scores
+    are shifted by their maximum every step: no argmax sees the shift, and
+    float32 scores keep their precision over long chains."""
+    delta = log_pi + log_lik[:, 0]  # (B, K)
+    args = []
+    for t in range(1, log_lik.shape[1]):
+        best, arg = (delta[:, :, None] + log_A).max(dim=1)  # (B, K, K): from i to j
+        args.append(arg)
+        delta = best + log_lik[:, t]
+        delta = delta - delta.amax(dim=-1, keepdim=True)
+    z = torch.argmax(delta, dim=-1)
+    path = [z]
+    for arg in reversed(args):
+        z = arg.gather(1, z[:, None])[:, 0]
+        path.append(z)
+    return torch.stack(path[::-1], dim=1)
+
+
+def forward_filter_log(
+    log_pi: torch.Tensor, log_A: torch.Tensor, log_lik: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Log-space filtered marginals log alpha (B, T, K) and log_z (B,) by a
+    logsumexp recursion, for FFBS and evaluation."""
+    la = log_pi + log_lik[:, 0]
+    las = [la]
+    for t in range(1, log_lik.shape[1]):
+        la = torch.logsumexp(la[:, :, None] + log_A, dim=1) + log_lik[:, t]
+        las.append(la)
+    return torch.stack(las, dim=1), torch.logsumexp(la, dim=-1)
+
+
+def gumbel(generator: torch.Generator, shape, dtype: torch.dtype) -> torch.Tensor:
+    """Standard Gumbel noise -log(-log U), U uniform in [tiny, 1) as JAX's
+    ``gumbel`` draws it, made on the generator's device."""
+    u = torch.rand(shape, generator=generator, dtype=dtype, device=generator.device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(dtype).tiny)))
+
+
+def ffbs_from_gumbel(
+    log_pi: torch.Tensor, log_A: torch.Tensor, log_lik: torch.Tensor, noise: torch.Tensor
+) -> torch.Tensor:
+    """Forward-filter backward-sample with the Gumbel noise (B, T, K) given:
+    z_t = argmax(logits_t + noise_t), JAX's ``categorical``, so JAX's noise
+    gives JAX's path. Returns (B, T) int64.
+
+    The filter is the normalised forward (:func:`forward`): its log differs
+    from JAX's log-space filter (:func:`forward_filter_log`) by a constant
+    a step, which no argmax sees, and stays of order one where the log-space
+    filter grows with t, so float32 logits keep their precision."""
+    log_alpha = torch.log(forward(log_pi, log_A, log_lik)[0])
+    T = log_lik.shape[1]
+    z = torch.argmax(noise[:, T - 1] + log_alpha[:, T - 1], dim=-1)
+    path = [z]
+    for t in range(T - 2, -1, -1):
+        logits = log_alpha[:, t] + log_A.T[z]  # log_A[:, z_next] per sequence
+        z = torch.argmax(noise[:, t] + logits, dim=-1)
+        path.append(z)
+    return torch.stack(path[::-1], dim=1)
+
+
+def ffbs_sample(
+    generator: torch.Generator, log_pi: torch.Tensor, log_A: torch.Tensor, log_lik: torch.Tensor
+) -> torch.Tensor:
+    """One posterior draw of the state paths (B, T) int64: Gumbel noise
+    (B, T, K) drawn on the generator's device, which must be log_lik's, then
+    :func:`ffbs_from_gumbel`."""
+    check_generator(generator, log_lik.device)
+    return ffbs_from_gumbel(log_pi, log_A, log_lik, gumbel(generator, log_lik.shape, log_lik.dtype))

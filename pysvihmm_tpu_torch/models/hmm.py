@@ -31,6 +31,26 @@ from ..utils.device import resolve_device
 ONE_HOT_MAX_V = 256
 
 
+# The one string -> family mapping of the configuration layer and scripts.
+EMISSION_FAMILIES = {
+    "gaussian": GaussianNIW,
+    "diag_gaussian": DiagonalGaussianNIG,
+    "multinomial": MultinomialDirichlet,
+    "poisson": PoissonGamma,
+}
+
+
+def resolve_emission(name: str):
+    """The emission family of a configuration string; raises ``ValueError``
+    on unknown names."""
+    try:
+        return EMISSION_FAMILIES[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown emission family {name!r}; expected one of {sorted(EMISSION_FAMILIES)}"
+        ) from None
+
+
 class HMMParams(NamedTuple):
     """Variational posterior q(pi) q(A) q(phi), also used for the prior.
 

@@ -728,3 +728,72 @@ def test_duplex_route_runs_the_duplex_kernels(cuda_device):
     assert (fused_fb.fused_forward.launches, fused_fb.fused_backward.launches) == (0, 0)
     assert (split_fb.split_forward.launches, split_fb.split_backward.launches) == (0, 0)
     assert bool(torch.isfinite(elbos).all()) and bool(torch.isfinite(m["noisy_elbo"]))
+
+
+def test_gibbs_sweep_on_cuda_matches_cpu(cuda_device):
+    """A Gibbs sweep on the card: drawn on the card's generator (a CPU
+    generator with card data raises), and fed the same draws it gives the
+    paths and theta of the float64 sweep on the CPU."""
+    from chip_smoke import cpu64, rel_max_err
+    from pysvihmm_tpu_torch.distributions import dirichlet
+    from pysvihmm_tpu_torch.engines import gibbs
+    from pysvihmm_tpu_torch.messages.scan_fb import gumbel
+    from pysvihmm_tpu_torch.models.hmm import emission_flat_stats
+
+    K, B, T = 4, 16, 100
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    obs, _, _ = gen_gaussian_dataset(g, K, 2, B, T, mean_scale=4.0, cov_scale=0.3)
+    prior = make_prior(K, GaussianNIW, obs_dim=2, device=cuda_device)
+    with pytest.raises(ValueError, match="generator on cpu"):
+        gibbs.init_state(torch.Generator(), prior, GaussianNIW, obs, K)
+    state, _ = gibbs.run(gibbs.init_state(g, prior, GaussianNIW, obs, K), prior, obs,
+                         GaussianNIW, K, 3)
+    _, trans_c, oh = gibbs._count_stats(state.z, K, torch.float32)
+    post = GaussianNIW.posterior(prior.emit, emission_flat_stats(GaussianNIW, prior.emit, oh, obs))
+    draws = gibbs.GibbsDraws(gumbel(g, (B, T, K), torch.float32),
+                             dirichlet.log_gamma(g, prior.init + oh[:, 0].sum(0)),
+                             dirichlet.log_gamma(g, prior.trans + trans_c),
+                             GaussianNIW.sample_draws(g, post))
+    sweep = gibbs.make_sweep(GaussianNIW, K)
+    card, _ = sweep.with_draws(state, prior, obs, draws)
+    cpu, _ = sweep.with_draws(gibbs.GibbsState(state.z.cpu(), cpu64(state.theta), None),
+                              cpu64(prior), cpu64(obs), cpu64(draws))
+    assert card.z.device.type == "cuda"
+    assert torch.equal(card.z.cpu(), cpu.z)
+    assert rel_max_err(card.theta, cpu.theta) < 1e-4
+
+
+def test_metaobs_step_on_cuda_matches_cpu(cuda_device):
+    """A meta-observation step on the card's "auto" (the gated fused pair,
+    once each) against the kernels' twins and "scan" on the CPU, on the
+    same blocks; the step draws its blocks on the card's generator."""
+    from pysvihmm_tpu_torch.convert import params_from_numpy, params_to_numpy
+    from pysvihmm_tpu_torch.engines import metaobs
+
+    def on_cpu(p):
+        return params_from_numpy(params_to_numpy(p), device="cpu")
+
+    def leaves(p):
+        return [p.init, p.trans, *p.emit]
+
+    K, D, T = 4, 2, 2000
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    chain = gen_gaussian_dataset(g, K, D, 1, T, mean_scale=0.5, cov_scale=1.0)[0][0]
+    prior = make_prior(K, GaussianNIW, obs_dim=D, device=cuda_device)
+    p0 = init_params(g, prior, GaussianNIW, chain)
+    cfg = metaobs.MetaObsConfig(minibatch=12, block_len=50, buffer=10)
+    ids = torch.randperm(T // 50, generator=g, device=cuda_device)[:12]
+    fused_fb.reset_launch_counts()
+    step = metaobs.make_step(GaussianNIW, cfg, T)
+    card, m = step.with_blocks(svi.init_state(p0, g), prior, chain, ids)
+    torch.cuda.synchronize()
+    assert (fused_fb.fused_forward.launches, fused_fb.fused_backward.launches) == (1, 1)
+    for route in ("fused", "scan"):
+        ref, rm = metaobs.make_step(GaussianNIW, cfg, T, route).with_blocks(
+            svi.init_state(on_cpu(p0), torch.Generator()), on_cpu(prior), chain.cpu(), ids.cpu())
+        for a, b in zip(leaves(card.params), leaves(ref.params), strict=True):
+            torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=1e-4)
+        torch.testing.assert_close(m["noisy_elbo"].cpu(), rm["noisy_elbo"], rtol=2e-5, atol=0)
+    state, _ = step(svi.init_state(p0, torch.Generator(device=cuda_device).manual_seed(7)), prior,
+                    chain)
+    assert int(state.step) == 1

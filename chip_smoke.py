@@ -155,6 +155,27 @@ fails:
             against "scan"; select_buffer at L=50 with 1024 probes (the
             split pair only); best-of-4 batch-VB restarts (the index
             returned is the argmax of the final ELBOs).
+11. surface: the training loop and the user surface at K=64, D=8.
+            Windowed SVI through ``engines/trainer.py`` on the phase-6
+            chain (B=1024, L=50, b=10, "auto"): 20 steps uninterrupted
+            against 11 with checkpoints every 4 and a fresh state resumed
+            to 20, with power and adaptive step sizes; every leaf (params,
+            step, adaptive state, generator state) the same sha256. The
+            streamed step (``parallel.make_dp_streamed_svi_step``, adaptive)
+            over a .npy corpus of 4096 x 1000 x 8 streamed by
+            ``data/loader.py`` (4 batches of 1024 an epoch): 10 steps
+            against 5 and a resume across the epoch boundary, the same
+            sha256; the prefetched batches the resident corpus' bits; ms a
+            step streamed and resident, torch.profiler's busy share. The
+            CLI in-process (``__main__.main``): ``experiment`` with each of
+            the five engines (JSONL records finite, Hamming in [0, 1], the
+            svi checkpoint restored) and ``baseline --scale 1 --configs
+            1,2,3`` (its asserts). The compat classes: VBHMM at B=1024,
+            T=1000 (one fused pair an iteration, ELBO non-decreasing), the
+            small canonical fit (Hamming <= 0.05), SVIHMM(buffer="auto")
+            (select_buffer's split pair only, then the fused pair a step)
+            and a GibbsHMM sweep at B=1024. hamming_error_long at T=10^7,
+            K=64 equal to hamming_error on the CPU.
 
 The last lines are the card line, one JSON line describing the kernels (every
 kernel and instance tier: K <= 64, KP = 128, KP = 256, the split and duplex
@@ -167,7 +188,9 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import sys
+import tempfile
 import time
 
 B, T, K, D = 1024, 1000, 64, 8  # the benchmark shape (bench.py:29)
@@ -1939,6 +1962,271 @@ def engines_phase(dev) -> dict[str, float]:
     return times
 
 
+SURFACE_STEPS, SURFACE_KILL, SURFACE_EVERY = 20, 11, 4  # phase 11: windowed-SVI kill-and-resume
+STREAM_N, STREAM_T, STREAM_STEPS, STREAM_KILL = 4096, 1000, 10, 5  # phase 11: the streamed run
+HAMMING_T = 10**7  # phase 11: hamming_error_long's labels
+CLI_ITERS = {"batch_vb": 4, "batch_sgd": 4, "svi": 10, "metaobs": 10, "gibbs": 2}
+
+
+def state_digests(state) -> dict[str, str]:
+    """sha256 of every leaf of a state (checkpoint.flatten's paths: params,
+    step, adaptive state, the generator's state and device type)."""
+    import hashlib
+
+    import torch
+
+    from pysvihmm_tpu_torch.utils.checkpoint import flatten
+
+    return {k: hashlib.sha256(v.numpy().tobytes()).hexdigest()[:16]
+            if isinstance(v, torch.Tensor) else v for k, v in flatten(state).items()}
+
+
+def require_same_state(ref, got, what: str) -> None:
+    a, b = state_digests(ref), state_digests(got)
+    require(a == b, f"{what}: leaves differ: "
+            + ", ".join(k for k in a if a[k] != b.get(k)))
+    log(f"    {what}: all {len(a)} leaves the same bits (sha256 of params.emit.psi "
+        f"{a['params.emit.psi']}, generator {a['generator']})")
+
+
+def surface_phase(dev, tmp: str) -> dict[str, float]:
+    """Phase 11: the training loop and the user surface at K=64, D=8 on the
+    card, scratch files under ``tmp``. Windowed SVI (the phase-6 chain,
+    B=1024, L=50, b=10 on "auto") killed at step 11 of 20 and resumed from
+    its checkpoint, power and adaptive step sizes: the uninterrupted run's
+    bits. The streamed step over a .npy corpus of 4096 x 1000 (4 batches of
+    1024 an epoch, adaptive) killed at 5 of 10 and resumed across the epoch
+    boundary: the same bits; the prefetched stream's batches those of the
+    resident corpus; ms a step streamed and resident, and the device's busy
+    share of the streamed steps. The CLI in-process: ``experiment`` with
+    every engine and ``baseline --scale 1 --configs 1,2,3``. The compat
+    classes: VBHMM at bench.py's shape (one fused pair an iteration), the
+    small canonical fit, SVIHMM(buffer="auto") (the split pair in
+    select_buffer) and one GibbsHMM sweep. hamming_error_long at T = 10^7
+    against hamming_error on the CPU. Returns the times it logs (ms)."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+    import torch
+
+    from pysvihmm_tpu_torch import __main__ as cli
+    from pysvihmm_tpu_torch import compat
+    from pysvihmm_tpu_torch.data.loader import ShardedSequenceLoader
+    from pysvihmm_tpu_torch.data.synthetic import gen_gaussian_dataset
+    from pysvihmm_tpu_torch.distributions import GaussianNIW
+    from pysvihmm_tpu_torch.engines import svi, trainer
+    from pysvihmm_tpu_torch.eval.metrics import hamming_error, hamming_error_long
+    from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
+    from pysvihmm_tpu_torch.parallel import make_dp_streamed_svi_step
+    from pysvihmm_tpu_torch.utils import checkpoint
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    times = {}
+    gen = torch.Generator(device=dev).manual_seed(1301)
+    prior = make_prior(K, GaussianNIW, obs_dim=D, device=dev)
+
+    log(f"  windowed SVI kill-and-resume: T={SVI_T}, B={B}, L={SVI_L}, b={SVI_BUF} on auto; "
+        f"{SURFACE_STEPS} steps against {SURFACE_KILL}, checkpoints every {SURFACE_EVERY}, "
+        f"then a fresh state resumed to {SURFACE_STEPS}")
+    chain = gen_gaussian_dataset(gen, K, D, 1, SVI_T, mean_scale=0.5, cov_scale=1.0)[0][0]
+    p0 = init_params(gen, prior, GaussianNIW, chain)
+    for adaptive in (False, True):
+        cfg = svi.SVIConfig(batch_size=B, subchain_len=SVI_L, buffer=SVI_BUF, adaptive=adaptive)
+        step = svi.make_step(GaussianNIW, cfg, SVI_T)
+
+        def fresh():
+            return svi.init_state(p0, torch.Generator(device=dev).manual_seed(1302), adaptive)
+
+        reset_kernel_counts()
+        ref, ms = clock(lambda: trainer.train(step, fresh(), prior, chain, SURFACE_STEPS,
+                                              watchdog_every=5))
+        require_launches(kernel_counts(), "auto", SURFACE_STEPS, f"SVI adaptive={adaptive}")
+        require_sane_params(ref.params, f"SVI adaptive={adaptive}")
+        d = os.path.join(tmp, f"svi_{adaptive}")
+        killed = trainer.train(step, fresh(), prior, chain, SURFACE_KILL, checkpoint_dir=d,
+                               checkpoint_every=SURFACE_EVERY, watchdog_every=5)
+        require(int(killed.step) == SURFACE_KILL, "the killed run stopped elsewhere")
+        require(sorted(os.listdir(d)) == ["ckpt_11.pt", "ckpt_4.pt", "ckpt_8.pt"],
+                f"checkpoints {sorted(os.listdir(d))}")
+        resumed, ms_r = clock(lambda: trainer.train(step, fresh(), prior, chain, SURFACE_STEPS,
+                                                    checkpoint_dir=d,
+                                                    checkpoint_every=SURFACE_EVERY,
+                                                    watchdog_every=5))
+        require(int(resumed.step) == SURFACE_STEPS, "the resumed run stopped elsewhere")
+        times[f"SVI step, adaptive={adaptive}"] = ms / SURFACE_STEPS
+        log(f"    adaptive={adaptive}: {SURFACE_STEPS} steps in {ms:.1f} ms "
+            f"({ms / SURFACE_STEPS:.2f} ms a step, the trainer's watchdog every 5); the resume "
+            f"(restore + {SURFACE_STEPS - SURFACE_KILL} steps + 3 checkpoint writes) {ms_r:.1f} ms")
+        require_same_state(ref, resumed, f"SVI adaptive={adaptive}, resumed against uninterrupted")
+    del chain
+
+    log(f"  streamed kill-and-resume: a .npy corpus of N={STREAM_N} x T={STREAM_T} x D={D}, "
+        f"batch_per_host={B}, adaptive; {STREAM_STEPS} steps against {STREAM_KILL} + resume")
+    obs, _, _ = gen_gaussian_dataset(gen, K, D, STREAM_N, STREAM_T)
+    path = os.path.join(tmp, "corpus.npy")
+    t0 = time.perf_counter()
+    np.save(path, obs.cpu().numpy())
+    log(f"    {os.path.getsize(path) / 1e6:.1f} MB written in {time.perf_counter() - t0:.2f} s "
+        "(set-up)")
+    loader = ShardedSequenceLoader.from_npy(path, dev, batch_per_host=B, seed=5)
+    require(loader.batches_per_epoch() == STREAM_N // B, "batches an epoch")
+    cfg = svi.SVIConfig(batch_size=B, tau=5.0, kappa=0.6, adaptive=True)
+    step = make_dp_streamed_svi_step(GaussianNIW, cfg, num_seqs=STREAM_N)
+    p_s = init_params(gen, prior, GaussianNIW, obs[:B])
+
+    def fresh_s():
+        return svi.init_state(p_s, torch.Generator(device=dev).manual_seed(1303), adaptive=True)
+
+    trainer.train_streamed(step, fresh_s(), prior, loader, 2)  # warm: pinned pool, streams
+    reset_kernel_counts()
+    ref, ms = clock(lambda: trainer.train_streamed(step, fresh_s(), prior, loader, STREAM_STEPS))
+    require_launches(kernel_counts(), "auto", STREAM_STEPS, "streamed steps")
+    require_sane_params(ref.params, "streamed steps")
+    times["streamed step"] = ms / STREAM_STEPS
+    d = os.path.join(tmp, "streamed")
+    trainer.train_streamed(step, fresh_s(), prior, loader, STREAM_KILL, checkpoint_dir=d,
+                           checkpoint_every=4)
+    resumed = trainer.train_streamed(step, fresh_s(), prior, loader, STREAM_STEPS,
+                                     checkpoint_dir=d, checkpoint_every=4)
+    require_same_state(ref, resumed, "streamed, resumed at 5 across the epoch boundary at 4")
+
+    # the same steps on the resident corpus: the batches gathered on the card
+    orders = [torch.from_numpy(loader.epoch_order(e)).to(dev) for e in range(3)]
+    resident = [obs[orders[s // 4][(s % 4) * B:(s % 4 + 1) * B]] for s in range(STREAM_STEPS)]
+    stream = loader.stream(0)
+    for s in range(STREAM_STEPS):
+        require(torch.equal(next(stream), resident[s]),
+                f"prefetched batch {s} differs from the resident corpus' batch")
+    stream.close()
+    log(f"    the prefetched stream's {STREAM_STEPS} batches: the resident corpus' bits")
+
+    def resident_steps():
+        st = fresh_s()
+        for s in range(STREAM_STEPS):
+            st, _ = step(st, prior, obs[orders[s // 4][(s % 4) * B:(s % 4 + 1) * B]])
+        return st
+
+    res_state, ms_res = clock(resident_steps)
+    require_same_state(ref, res_state, "resident steps against streamed")
+    times["resident step"] = ms_res / STREAM_STEPS
+    wall, busy_ms, n = device_busy(lambda: trainer.train_streamed(step, fresh_s(), prior, loader,
+                                                                  STREAM_STEPS))
+    times["streamed busy share"] = busy_ms / wall
+    log(f"    {STREAM_STEPS} steps: streamed {ms:.1f} ms ({ms / STREAM_STEPS:.2f} ms a step), "
+        f"resident {ms_res:.1f} ms ({ms_res / STREAM_STEPS:.2f} ms a step); streamed under "
+        f"torch.profiler: wall {wall:.1f} ms, device busy {busy_ms:.2f} ms "
+        f"({100 * busy_ms / wall:.1f} %), {n} device events")
+    del obs, resident, loader
+
+    log(f"  the CLI in-process: experiment with every engine at K={K}, D={D} (64 x 500 "
+        "synthetic sequences), then baseline --scale 1 --configs 1,2,3")
+    for engine, iters in CLI_ITERS.items():
+        jsonl = os.path.join(tmp, f"{engine}.jsonl")
+        argv = ["experiment", "--engine", engine, "--K", str(K), "--obs-dim", str(D),
+                "--num-iters", str(iters), "--log-every", "1", "--log-path", jsonl]
+        if engine != "gibbs":
+            argv += ["--pred-ll-every", str(iters // 2)]
+        if engine == "svi":
+            argv += ["--svi-batch-size", str(B), "--checkpoint-dir", os.path.join(tmp, "cli_ck")]
+        with contextlib.redirect_stderr(io.StringIO()):  # the logger's echo
+            rc, ms = clock(lambda: cli.main(argv))
+        require(rc == 0, f"experiment {engine} returned {rc}")
+        recs = [json.loads(x) for x in open(jsonl).read().splitlines()]
+        done = recs[-1]
+        require(done.get("event") == "done", f"experiment {engine}: no done record")
+        values = [v for r in recs for k, v in r.items() if isinstance(v, float)]
+        require(all(math.isfinite(v) for v in values), f"experiment {engine}: a non-finite value")
+        require(0.0 <= done["hamming"] <= 1.0, f"experiment {engine}: Hamming {done['hamming']}")
+        want_none = {"final_elbo"} if engine == "gibbs" else set()
+        if engine == "gibbs":
+            want_none.add("final_pred_ll")
+        require(all((done[k] is None) == (k in want_none) for k in ("final_elbo", "final_pred_ll")),
+                f"experiment {engine}: done record {done}")
+        times[f"experiment {engine}"] = ms
+        log(f"    {engine} ({iters} iterations): {ms:.0f} ms, Hamming {done['hamming']:.4f}, "
+            f"final ELBO {done['final_elbo']}, final pred-LL {done['final_pred_ll']}")
+    ck = checkpoint.latest_step_path(os.path.join(tmp, "cli_ck"))
+    require(ck is not None and ck.endswith(f"ckpt_{CLI_ITERS['svi']}.pt"), f"svi checkpoint {ck}")
+    target = svi.init_state(init_params(gen, prior, GaussianNIW), torch.Generator(device=dev))
+    restored = checkpoint.restore(ck, target)
+    require(int(restored.step) == CLI_ITERS["svi"], "the CLI checkpoint's step")
+    require_sane_params(restored.params, "the CLI checkpoint")
+    log(f"    {ck.rsplit('/', 1)[-1]} restored: step {int(restored.step)}, generator on "
+        f"{restored.generator.device}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc, ms = clock(lambda: cli.main(["baseline", "--scale", "1", "--configs", "1,2,3"]))
+    require(rc == 0, f"baseline returned {rc}")
+    times["baseline 1,2,3 at scale 1"] = ms
+    for line in out.getvalue().splitlines():
+        log(f"    baseline: {line}")
+    log(f"    baseline: {ms / 1e3:.1f} s, every config's check held")
+
+    log(f"  compat: VBHMM at B={B}, T={T}, K={K}, D={D}, {VB_ITERS} iterations")
+    obs, _, _ = gen_gaussian_dataset(gen, K, D, B, T)
+    m = compat.VBHMM(obs, K=K)
+    reset_kernel_counts()
+    _, ms = clock(lambda: m.infer(maxit=VB_ITERS, tol=0.0))
+    require_launches(kernel_counts(), "auto", VB_ITERS, "compat VBHMM")
+    require_ascending(torch.tensor(m.elbo_history, dtype=torch.float64), "compat VBHMM")
+    times["compat VBHMM iteration"] = ms / VB_ITERS
+    log(f"    {ms:.1f} ms ({ms / VB_ITERS:.2f} ms an iteration, one fused pair each); ELBO "
+        + ", ".join(f"{x:.6e}" for x in m.elbo_history))
+    g = compat.GibbsHMM(obs, K=K)
+    _, ms = clock(lambda: g.infer(maxit=1))
+    require(math.isfinite(g.elbo_history[0]) and g.decode().shape == (B, T), "compat GibbsHMM")
+    times["compat GibbsHMM sweep"] = ms
+    log(f"    GibbsHMM: one sweep at B={B}, T={T} in {ms:.1f} ms, marginal log-likelihood "
+        f"{g.elbo_history[0]:.6e}")
+    del obs, m, g
+    o_s, z_s, _ = gen_gaussian_dataset(torch.Generator().manual_seed(0), 4, 2, 20, 200,
+                                       mean_scale=6.0, cov_scale=0.3)
+    m = compat.VBHMM(o_s.numpy(), K=4).infer(maxit=50)
+    ham = m.hamming_dist(z_s.numpy())
+    log(f"    VBHMM small canonical fit (K=4, D=2, 20 x 200, 50 iterations): "
+        f"{len(m.elbo_history)} iterations (tol stop), Hamming error {ham:.4f}")
+    require(ham <= 0.05, f"compat VBHMM small fit: Hamming error {ham}")
+    chain = gen_gaussian_dataset(gen, K, D, 1, SVI_T, mean_scale=0.5, cov_scale=1.0)[0][0]
+    reset_kernel_counts()
+    (m, ms) = clock(lambda: compat.SVIHMM(chain, K=K, batch_size=B, subchain_len=SVI_L,
+                                          buffer="auto"))
+    counts = {k: n for k, n in kernel_counts().items() if n}
+    require(set(counts) == {"split_fwd_kernel", "split_bwd_kernel"},
+            f"SVIHMM(buffer='auto') launched {counts}")
+    reset_kernel_counts()
+    _, ms_i = clock(lambda: m.infer(maxit=5))
+    require_launches(kernel_counts(), "auto", 5, "compat SVIHMM")
+    require_sane_params(m.params, "compat SVIHMM")
+    times["compat SVIHMM select_buffer"] = ms
+    log(f"    SVIHMM(buffer='auto') on the phase-6 chain: b = {m.cfg.buffer} in {ms:.1f} ms "
+        f"(launches {counts}); 5 steps {ms_i:.1f} ms")
+    del chain
+
+    log(f"  hamming_error_long at T={HAMMING_T}, K={K} against hamming_error on the CPU")
+    true = torch.randint(0, K, (HAMMING_T,), generator=gen, device=dev)
+    perm = torch.randperm(K, generator=gen, device=dev)
+    noise = torch.rand(HAMMING_T, generator=gen, device=dev) < 0.2
+    est = torch.where(noise, torch.randint(0, K, (HAMMING_T,), generator=gen, device=dev),
+                      perm[true])
+    h_long, ms = clock(lambda: hamming_error_long(est, true, K))
+    t0 = time.perf_counter()
+    h_ref = hamming_error(est.cpu(), true.cpu(), K)
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    times["hamming_error_long"] = ms
+    log(f"    {h_long!r} in {ms:.1f} ms on the card; hamming_error {h_ref!r} in {cpu_ms:.0f} ms "
+        "on the CPU")
+    require(h_long == h_ref, "hamming_error_long differs from hamming_error")
+    return times
+
+
 def time_route_kernels(gen) -> tuple[dict, dict, dict]:
     """Phase 5: each route kernel at K = 64, 128 and 256 (B=1024, T=1000,
     F=45, ungated) by CUDA events, its twin, its bound and share. Returns
@@ -2505,6 +2793,15 @@ def main() -> int:
     engine_ms = engines_phase(dev)
     log(f"  phase 10 took {time.perf_counter() - t0:.1f} s; ms (host clock, synchronised; "
         f"{card}): " + json.dumps({k: round(v, 3) for k, v in engine_ms.items()}))
+
+    log(f"== phase 11: the training loop and the user surface at K={K}, D={D} ({card})")
+    t0 = time.perf_counter()
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        surface_ms = surface_phase(dev, tmp)
+    log(f"  phase 11 took {time.perf_counter() - t0:.1f} s; ms (host clock, synchronised; "
+        f"{card}): " + json.dumps({k: round(v, 4) for k, v in surface_ms.items()}))
 
     errs = {"fused_fwd_kernel": fwd_err, "fused_bwd_kernel": bwd_err, **split_err,
             "duplex_chain_kernel": chain_err, "duplex_combine_kernel": comb_err}

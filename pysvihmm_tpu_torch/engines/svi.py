@@ -204,16 +204,17 @@ def make_minibatch_step(emission, cfg: SVIConfig, num_seqs: int, method: str = "
     B sequences drawn with replacement per step, stats scaled by N/B; with
     B=N and rho=1 it is batch natural-gradient VB. Returns step(state, prior,
     obs) -> (state', metrics) with ``step.with_indices(state, prior, obs,
-    idx)`` taking the (B,) sequence indices instead of drawing them.
+    idx)`` taking the (B,) sequence indices instead of drawing them, and
+    ``step.with_batch(state, prior, batch)`` taking the (B, T, ...) batch
+    itself (a streamed corpus' batch, ``parallel.make_dp_streamed_svi_step``).
     """
     B, N = cfg.batch_size, num_seqs
     scale = N / B
     scales = (scale, scale, scale)
 
-    def with_indices(state: SVIState, prior: HMMParams, obs: torch.Tensor, idx: torch.Tensor):
+    def with_batch(state: SVIState, prior: HMMParams, batch: torch.Tensor):
         params = state.params
         dtype = params.init.dtype
-        batch = obs[idx.to(obs.device)]
         stats, _ = batch_local_step(params, emission, batch, method, need_gamma=False)
         local = (stats.init.to(dtype), stats.trans.to(dtype), stats.emit)
         target = None
@@ -225,12 +226,16 @@ def make_minibatch_step(emission, cfg: SVIConfig, num_seqs: int, method: str = "
         metrics = {"rho": rho, "noisy_elbo": noisy_elbo}
         return SVIState(new_params, state.step + 1, state.generator, new_adapt), metrics
 
+    def with_indices(state: SVIState, prior: HMMParams, obs: torch.Tensor, idx: torch.Tensor):
+        return with_batch(state, prior, obs[idx.to(obs.device)])
+
     def step(state: SVIState, prior: HMMParams, obs: torch.Tensor):
         gen = state.generator
         idx = torch.randint(0, N, (B,), generator=gen, device=gen.device)
         return with_indices(state, prior, obs, idx)
 
     step.with_indices = with_indices
+    step.with_batch = with_batch
     return step
 
 

@@ -36,3 +36,22 @@ def hamming_error(est, true, K: int) -> float:
     est, true = _flat_int(est), _flat_int(true)
     perm = best_permutation(est, true, K)
     return float(np.mean(perm[est] != true))
+
+
+def hamming_error_long(est, true, K: int) -> float:
+    """Matched Hamming error for decodes of T = 10M+ steps that stay on
+    their device.
+
+    The K x K confusion matrix is ONE ``torch.bincount`` over est * K + true
+    on the labels' device, in int64 (no int32 overflow at any T); only that
+    matrix goes to the host for the assignment. est, true: (T,) int tensors
+    on one device, or arrays. Returns the same value as :func:`hamming_error`.
+    """
+    import torch
+
+    est = torch.as_tensor(est).reshape(-1).long()
+    true = torch.as_tensor(true, device=est.device).reshape(-1).long()
+    conf = torch.bincount(est * K + true, minlength=K * K).cpu().numpy().reshape(K, K)
+    rows, cols = linear_sum_assignment(-conf)
+    total = int(conf.sum())
+    return float((total - int(conf[rows, cols].sum())) / total)

@@ -32,3 +32,13 @@ def restart_generators(generator: torch.Generator, n: int) -> list[torch.Generat
     host read of n seeds): one for each restart of a best-of-N fit."""
     seeds = torch.randint(0, 2**62, (n,), generator=generator, device=generator.device)
     return [torch.Generator(device=generator.device).manual_seed(int(x)) for x in seeds.tolist()]
+
+
+def process_rank_world() -> tuple[int, int]:
+    """(rank, world size) of this process: torch.distributed's when a process
+    group is up, else (0, 1) (JAX's ``process_index`` / ``process_count``)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1

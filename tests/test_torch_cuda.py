@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch twins, on the card:
 the fused pair (gated and not), the split pair (gated and not), the duplex
 pair (gated and not), the split path's probes, and the engines' routes
-through them (features wider than the fused kernels take included).
+through them (features wider than the fused kernels take included); the
+trainer's kill-and-resume on the kernel routes, checkpoints of card state
+and the loader's prefetched batches.
 
 Imports neither JAX nor the JAX package, so it runs on a machine that has
 only PyTorch for CUDA and nvcc:
@@ -20,19 +22,22 @@ held to float64 beside float32 torch.matmul.
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
-from chip_smoke import random_problem, svi_masks
+from chip_smoke import random_problem, state_digests, svi_masks
 from pysvihmm_tpu_torch import messages
+from pysvihmm_tpu_torch.data.loader import ShardedSequenceLoader
 from pysvihmm_tpu_torch.data.synthetic import gen_gaussian_dataset
 from pysvihmm_tpu_torch.data.synthetic import gen_multinomial_dataset
 from pysvihmm_tpu_torch.distributions import GaussianNIW, MultinomialDirichlet
-from pysvihmm_tpu_torch.engines import batch_vb, svi
+from pysvihmm_tpu_torch.engines import batch_vb, svi, trainer
 from pysvihmm_tpu_torch.engines.base import batch_local_step
 from pysvihmm_tpu_torch.messages import duplex_fb, fused_fb, split_fb, split_probe
 from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
 from pysvihmm_tpu_torch.scripts.debug_split import make_inputs
+from pysvihmm_tpu_torch.utils import checkpoint
 
 pytestmark = pytest.mark.cuda
 
@@ -797,3 +802,74 @@ def test_metaobs_step_on_cuda_matches_cpu(cuda_device):
     state, _ = step(svi.init_state(p0, torch.Generator(device=cuda_device).manual_seed(7)), prior,
                     chain)
     assert int(state.step) == 1
+
+
+@pytest.mark.parametrize("route", ["fused", "split"])
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_trainer_kill_resume_is_bitexact_on_the_card(cuda_device, tmp_path, route, adaptive):
+    """K=64 windowed SVI through the trainer: killed at 7 of 12 steps
+    (checkpoints every 3) and resumed from a fresh state, the uninterrupted
+    run's bits in every leaf, the CUDA generator's state included."""
+    gen = torch.Generator(device=cuda_device).manual_seed(131)
+    chain = gen_gaussian_dataset(gen, 64, 8, 1, 5000, mean_scale=0.5, cov_scale=1.0)[0][0]
+    prior = make_prior(64, GaussianNIW, obs_dim=8, device=cuda_device)
+    p0 = init_params(gen, prior, GaussianNIW, chain)
+    cfg = svi.SVIConfig(batch_size=64, subchain_len=50, buffer=10, adaptive=adaptive)
+    step = svi.make_step(GaussianNIW, cfg, chain.shape[0], method=route)
+
+    def fresh():
+        return svi.init_state(p0, torch.Generator(device=cuda_device).manual_seed(7), adaptive)
+
+    ref = trainer.train(step, fresh(), prior, chain, 12)
+    trainer.train(step, fresh(), prior, chain, 7, checkpoint_dir=str(tmp_path), checkpoint_every=3)
+    resumed = trainer.train(step, fresh(), prior, chain, 12, checkpoint_dir=str(tmp_path),
+                            checkpoint_every=3)
+    assert int(resumed.step) == 12
+    assert state_digests(ref) == state_digests(resumed)
+
+
+def test_checkpoint_restores_on_the_card(cuda_device, tmp_path):
+    """A state written from the card comes back on the card: every tensor on
+    its target's device, the generator a new CUDA generator with the saved
+    state, drawing what the saved one would."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    chain = gen_gaussian_dataset(gen, 4, 2, 1, 400)[0][0]
+    prior = make_prior(4, GaussianNIW, obs_dim=2, device=cuda_device)
+    p0 = init_params(gen, prior, GaussianNIW, chain)
+    cfg = svi.SVIConfig(batch_size=8, subchain_len=20, buffer=5, adaptive=True)
+    state, _ = svi.fit(svi.init_state(p0, torch.Generator(device=cuda_device).manual_seed(4),
+                                      adaptive=True), prior, chain, GaussianNIW, cfg, 5)
+    path = str(tmp_path / "c.pt")
+    checkpoint.save(path, state)
+    fresh = svi.init_state(p0, torch.Generator(device=cuda_device).manual_seed(9), adaptive=True)
+    restored = checkpoint.restore(path, fresh)
+    assert restored.params.emit.psi.device.type == "cuda" and restored.step.device.type == "cuda"
+    assert restored.generator.device.type == "cuda" and restored.generator is not fresh.generator
+    assert torch.equal(restored.generator.get_state(), state.generator.get_state())
+    assert state_digests(restored) == state_digests(state)
+    draw = torch.randint(0, 10**6, (16,), generator=restored.generator, device=cuda_device)
+    assert torch.equal(draw, torch.randint(0, 10**6, (16,), generator=state.generator,
+                                           device=cuda_device))
+    with pytest.raises(ValueError, match="cuda generator"):  # into a CPU generator
+        checkpoint.restore(path, svi.init_state(p0, torch.Generator(), adaptive=True))
+
+
+def test_prefetched_batches_equal_the_resident_corpus(cuda_device, tmp_path):
+    """The loader's stream on the card (pinned gathers copied on its own
+    stream, each batch's copy ordered before its use) gives the bits of the
+    same rows gathered from the corpus on the card, across epochs and from
+    a resumed position."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    obs = torch.randn((512, 300, 8), generator=gen, device=cuda_device)
+    path = str(tmp_path / "corpus.npy")
+    np.save(path, obs.cpu().numpy())
+    loader = ShardedSequenceLoader.from_npy(path, cuda_device, batch_per_host=128, seed=2)
+    assert loader.batches_per_epoch() == 4
+    for start in (0, 3):
+        stream = loader.stream(start)
+        for s in range(start, start + 9):
+            rows = torch.from_numpy(loader.epoch_order(s // 4)[(s % 4) * 128:(s % 4 + 1) * 128])
+            batch = next(stream)
+            assert batch.device.type == "cuda"
+            assert torch.equal(batch * 1.0, obs[rows.to(cuda_device)])
+        stream.close()

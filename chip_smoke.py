@@ -177,6 +177,24 @@ fails:
             and a GibbsHMM sweep at B=1024. hamming_error_long at T=10^7,
             K=64 equal to hamming_error on the CPU.
 
+12. long chains: the long-chain tiers (plain PyTorch, as in JAX: no
+            kernel) on config 4's Gaussian chain, K=64, D=8. At T = 10^5
+            ``long_chain_local_stats`` "fused", "twophase" and "assoc" and
+            ``batch_local_step`` "assoc" and "blocked" against the fused
+            kernels at B = 1 (log Z to 1e-5 relative, init, trans and each
+            emission leaf to 1e-4 of its max) and log Z against the
+            two-phase tier in float64 (1e-6); at T = 10^6 the fused tier with
+            stored and rematerialised alphas, statistics and decode the same
+            sha256; at T = 10^5 ``long_chain_decode`` against argmax gamma
+            of the fused pair (99.99 %, the rest ties); at T = 10^7 the fused
+            E-step timed, its three phases apart (phase 2 as CUDA graphs and
+            eagerly, the same bits), torch.profiler's busy share, 3
+            long-chain VB iterations (ELBO non-decreasing), the decode at
+            the generating params (Hamming <= 0.05) and the time-minor
+            layout against time-major (1e-6, both sha256 and times); then a
+            multinomial chain, K=32, V=64, T = 5 x 10^7 (int32 tokens, block
+            1024): the E-step's time, log Z finite, the decode's Hamming.
+
 The last lines are the card line, one JSON line describing the kernels (every
 kernel and instance tier: K <= 64, KP = 128, KP = 256, the split and duplex
 chain rows with the S their times ran at; the outer sums at K = 128 and 256, the one entry
@@ -2227,6 +2245,310 @@ def surface_phase(dev, tmp: str) -> dict[str, float]:
     return times
 
 
+LC_K, LC_D, LC_BLOCK = 64, 8, 256  # phase 12: config 4's chain, long_chain_local_stats' block
+LC_T_EXACT, LC_T_REMAT, LC_T_SCALE = 10**5, 10**6, 10**7
+LC_MULTI_K, LC_MULTI_V, LC_MULTI_T, LC_MULTI_BLOCK = 32, 64, 5 * 10**7, 1024
+LC_VB_ITERS = 3
+LC_LOGZ_RTOL = 1e-5  # each float32 tier's log Z against the fused kernels' at B = 1
+LC_LEAF_RTOL = 1e-4  # init, trans and each emission leaf: max |err| / the leaf's max
+LC_F64_RTOL = 1e-6  # each float32 log Z against the float64 two-phase tier's
+LC_DECODE_AGREE = 0.9999  # the streaming decode against argmax gamma of the fused pair
+LC_TIE = 1e-3  # ... and where they differ, gamma's two values at most this apart
+LC_LAYOUT_RTOL = 1e-6  # time-minor against time-major statistics
+LC_FLOOR_HAMMING = 0.05  # the decode at the generating params (the Bayes floor)
+
+
+def digest(x) -> str:
+    """sha256 of the bytes of a tensor or of the leaves of a (named) tuple."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for leaf in flat_leaves(x):
+        h.update(leaf.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def tree_to(x, **kw):
+    """A tensor, or a (named) tuple of them, through ``Tensor.to(**kw)``."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.to(**kw)
+    vals = [tree_to(v, **kw) for v in x]
+    return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+
+
+def synced_s(fn):
+    """(result, seconds) of fn on the host clock between two synchronises."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def kineto_busy(fn) -> tuple[float, float, int]:
+    """:func:`device_busy` for calls of some 10^5 kernels: one call of fn
+    under torch.profiler (the card's activity only), the device time summed
+    over the profiler's raw events instead of its parsed function events,
+    which take about a minute to build at 3 x 10^5 kernels. (wall ms, device
+    busy ms, kernel launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    dev = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return wall, sum(e.duration_ns() for e in dev) / 1e6, len(dev)
+
+
+def lc_stats_err(got, ref) -> tuple[float, float]:
+    """(log Z's relative error, the largest leaf error relative to the
+    leaf's max over init, trans and the emission statistics)."""
+    lz = abs(float(got.log_z) - float(ref.log_z)) / abs(float(ref.log_z))
+    return lz, rel_max_err((got.init, got.trans, got.emit), (ref.init, ref.trans, ref.emit))
+
+
+def store_remat_digests(dev, T_: int) -> tuple[str, str, str, str]:
+    """``forward_backward_fused_twophase`` on a Gaussian chain of T_ steps
+    (K=64, D=8) with store_alphas True and False, statistics and decode:
+    (the stored run's statistics and decode sha256, the rematerialised
+    run's)."""
+    import torch
+
+    from pysvihmm_tpu_torch.distributions import GaussianNIW
+    from pysvihmm_tpu_torch.engines.base import _long_chain_ell_fn
+    from pysvihmm_tpu_torch.messages.stream_fused import forward_backward_fused_twophase
+    from pysvihmm_tpu_torch.models.hmm import (
+        emission_flat_stats,
+        expected_log_params,
+        init_params,
+        make_prior,
+    )
+    from pysvihmm_tpu_torch.scripts.run_fused_scale import make_chain
+
+    obs, _, _ = make_chain("gaussian", T_, LC_K, LC_D, 0, seed=4)
+    chain = torch.from_numpy(obs).to(dev)
+    prior = make_prior(LC_K, GaussianNIW, obs_dim=LC_D, device=dev)
+    p = init_params(torch.Generator(dev).manual_seed(5), prior, GaussianNIW, chain[:100_000])
+    log_pi, log_A = expected_log_params(p)
+    out = []
+    for store in (True, False):
+        r = forward_backward_fused_twophase(
+            log_pi, log_A, chain, _long_chain_ell_fn(p, GaussianNIW), store_alphas=store,
+            stat_fn=lambda g, y: emission_flat_stats(GaussianNIW, p.emit, g, y),
+            stat_init=GaussianNIW.zero_stats(p.emit), emit_argmax=True)
+        require(r.z.shape == (T_,) and r.z.dtype == torch.int32, "the decode's shape or dtype")
+        out += [digest((r.log_z, r.init_stats, r.trans_stats, r.acc)), digest(r.z)]
+    return tuple(out)
+
+
+def longchain_phase(dev) -> dict[str, float]:
+    """Phase 12: the long-chain tiers on the card (config 4's Gaussian chain,
+    K=64, D=8). (a) At T = 10^5 every float32 tier against the fused
+    kernels at B = 1 (log Z to 1e-5, each leaf to 1e-4 of its max) and log Z
+    against the two-phase tier in float64 (1e-6); (b) the fused tier at T =
+    10^6 with stored and rematerialised alphas, the same sha256; (c) the
+    streaming decode at T = 10^5 against argmax gamma of the fused pair;
+    (d) at T = 10^7 the fused tier's E-step (its phases timed apart, phase 2
+    as CUDA graphs and eagerly, the same bits), 3 long-chain VB iterations,
+    the decode at the generating params, the card's busy share and the
+    time-minor layout; (e) a multinomial chain, K=32, V=64, T = 5 x 10^7.
+    Returns times in ms (host clock, synchronised)."""
+    import torch
+
+    from pysvihmm_tpu_torch.distributions import GaussianNIW, MultinomialDirichlet
+    from pysvihmm_tpu_torch.engines import batch_vb
+    from pysvihmm_tpu_torch.engines.base import (
+        _long_chain_ell_fn,
+        batch_local_step,
+        long_chain_decode,
+        long_chain_local_stats,
+    )
+    from pysvihmm_tpu_torch.eval.metrics import hamming_error_long
+    from pysvihmm_tpu_torch.messages import blocked as blk
+    from pysvihmm_tpu_torch.messages import stream_fused as sfz
+    from pysvihmm_tpu_torch.models.hmm import (
+        emission_flat_stats,
+        expected_log_params,
+        init_params,
+        make_prior,
+    )
+    from pysvihmm_tpu_torch.scripts.run_fused_scale import bayes_floor_params, make_chain
+
+    ms: dict[str, float] = {}
+    t_phase = time.perf_counter()
+
+    # (a) exactness at T = 10^5
+    obs, _, _ = make_chain("gaussian", LC_T_EXACT, LC_K, LC_D, 0, seed=8)
+    chain = torch.from_numpy(obs).to(dev)
+    prior = make_prior(LC_K, GaussianNIW, obs_dim=LC_D, device=dev)
+    p = init_params(torch.Generator(dev).manual_seed(9), prior, GaussianNIW, chain)
+    ref, gamma = batch_local_step(p, GaussianNIW, chain[None], method="fused", need_gamma=True)
+    p64 = tree_to(p, dtype=torch.float64)
+    lz64 = float(long_chain_local_stats(p64, GaussianNIW, chain.double(), LC_BLOCK,
+                                        impl="twophase").log_z)
+    log(f"  (a) [{time.perf_counter() - t_phase:.1f} s] T={LC_T_EXACT}: the fused kernels at B = 1 log Z {float(ref.log_z):.6f}, "
+        f"two-phase in float64 {lz64:.6f}")
+    tiers = {f"long_chain[{impl}]": (lambda impl=impl: long_chain_local_stats(
+        p, GaussianNIW, chain, LC_BLOCK, impl=impl)) for impl in ("fused", "twophase", "assoc")}
+    tiers.update({f"batch_local_step[{m}]": (lambda m=m: batch_local_step(
+        p, GaussianNIW, chain[None], method=m, need_gamma=False)[0])
+        for m in ("assoc", "blocked")})
+    for name, fn in tiers.items():
+        got, s = synced_s(fn)
+        lz_err, leaf_err = lc_stats_err(got, ref)
+        lz64_err = abs(float(got.log_z) - lz64) / abs(lz64)
+        log(f"    {name}: {1e3 * s:.1f} ms; log Z rel err {lz_err:.2e} (fused kernels), "
+            f"{lz64_err:.2e} (float64); leaves {leaf_err:.2e} of their max")
+        require(lz_err <= LC_LOGZ_RTOL and leaf_err <= LC_LEAF_RTOL and lz64_err <= LC_F64_RTOL,
+                f"phase 12 (a): {name} disagrees with the fused kernels or float64")
+        ms[f"exact_{name}"] = 1e3 * s
+    ref_err64 = abs(float(ref.log_z) - lz64) / abs(lz64)
+    require(ref_err64 <= LC_F64_RTOL, f"phase 12 (a): the fused kernels' log Z {ref_err64:.2e} "
+            "from float64")
+
+    # (c) the streaming decode against argmax gamma of the fused pair
+    z, s = synced_s(lambda: long_chain_decode(p, GaussianNIW, chain))
+    g = gamma[0]
+    z_ref = g.argmax(dim=-1)
+    diff = torch.nonzero(z.long() != z_ref)[:, 0]
+    agree = 1.0 - diff.numel() / LC_T_EXACT
+    gap = (g[diff, z_ref[diff]] - g[diff, z.long()[diff]]).abs().max().item() if diff.numel() \
+        else 0.0
+    log(f"  (c) [{time.perf_counter() - t_phase:.1f} s] long_chain_decode at T={LC_T_EXACT}: {1e3 * s:.1f} ms, {100 * agree:.4f} % of "
+        f"steps argmax gamma of the fused pair; the {diff.numel()} others gamma gaps <= {gap:.2e}")
+    require(agree >= LC_DECODE_AGREE and gap <= LC_TIE, "phase 12 (c): decode differs beyond ties")
+    ms["decode_1e5"] = 1e3 * s
+
+    # (b) stored and rematerialised alphas at T = 10^6
+    d = store_remat_digests(dev, LC_T_REMAT)
+    log(f"  (b) [{time.perf_counter() - t_phase:.1f} s] T={LC_T_REMAT}: stored alphas stats {d[0]} decode {d[1]}; rematerialised stats "
+        f"{d[2]} decode {d[3]}")
+    require(d[0] == d[2] and d[1] == d[3], "phase 12 (b): store and remat differ")
+
+    # (d) scale: Gaussian K=64, D=8, T = 10^7, "fused", block 256
+    t0 = time.perf_counter()
+    obs, z_true, tp = make_chain("gaussian", LC_T_SCALE, LC_K, LC_D, 0, seed=0)
+    ms["gen_1e7_host"] = 1e3 * (time.perf_counter() - t0)
+    chain = torch.from_numpy(obs).to(dev)
+    del obs
+    p = init_params(torch.Generator(dev).manual_seed(2), prior, GaussianNIW, chain[:100_000])
+    estep = lambda c=chain, tm=False: long_chain_local_stats(  # noqa: E731
+        p, GaussianNIW, c, LC_BLOCK, impl="fused", time_minor=tm)
+    estep()
+    torch.cuda.reset_peak_memory_stats(dev)
+    st, s = synced_s(estep)
+    ms["estep_1e7"] = 1e3 * s
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    require(math.isfinite(float(st.log_z)), "phase 12 (d): non-finite log Z")
+    # the E-step's phases apart, on the same inputs as the call above
+    log_pi, log_A = expected_log_params(p)
+    A = torch.exp(log_A)
+    lik_fn = sfz._lik_factory(_long_chain_ell_fn(p, GaussianNIW), torch.float32)
+    S = LC_BLOCK
+    n_trans = LC_T_SCALE - 1
+    pad = blk._pad_count(n_trans, S)
+    nB = (n_trans + pad) // S
+    obs_blocks = sfz._transition_rows(chain, False, nB, S, pad)
+    valid = (torch.arange(n_trans + pad, device=dev) < n_trans).reshape(nB, S)
+    Q, s1 = synced_s(lambda: sfz._block_products_fused(A, obs_blocks, valid, nB, S, lik_fn))
+    lik0, sh0 = lik_fn(chain[:1])
+    a0 = torch.exp(log_pi) * lik0[0]
+    alpha0 = a0 / a0.sum()
+    seeds_g, s2g = synced_s(lambda: blk.boundary_seeds(Q, alpha0, graphs=True))
+    seeds_e, s2e = synced_s(lambda: blk.boundary_seeds(Q, alpha0, graphs=False))
+    same = digest(seeds_g) == digest(seeds_e)
+    del Q
+    sweeps, s3 = synced_s(lambda: sfz._seeded_sweeps(
+        A, lik_fn, obs_blocks, valid, *seeds_g, 8, time_minor=False, store_alphas=False,
+        stat_fn=lambda g, y: emission_flat_stats(GaussianNIW, p.emit, g, y),
+        stat_init=GaussianNIW.zero_stats(p.emit)))
+    log_z3 = float(torch.log(a0.sum()) + sh0[0] + sweeps[0])
+    require(abs(log_z3 - float(st.log_z)) <= LC_LOGZ_RTOL * abs(float(st.log_z)),
+            "phase 12 (d): phase 3 alone does not give the E-step's log Z")
+    log(f"  (d) [{time.perf_counter() - t_phase:.1f} s] T={LC_T_SCALE}, K={LC_K}, D={LC_D}, block {S} ({nB} blocks): data on the host "
+        f"{ms['gen_1e7_host'] / 1e3:.1f} s; the fused E-step {1e3 * s:.1f} ms "
+        f"({LC_T_SCALE / s:,.0f} steps/s, peak {peak:.2f} GiB): phase 1 {1e3 * s1:.1f} ms, "
+        f"phase 2 {1e3 * s2g:.1f} ms as CUDA graphs of {blk.GRAPH_STEPS} steps "
+        f"({1e3 * s2e:.1f} ms eagerly; the same bits: {same}, sha256 {digest(seeds_g)}), "
+        f"phase 3 {1e3 * s3:.1f} ms (each timed alone on the E-step's inputs)")
+    require(same, "phase 12 (d): graph replay and the eager loop differ")
+    ms.update({"phase1_1e7": 1e3 * s1, "phase2_graphs_1e7": 1e3 * s2g,
+               "phase2_eager_1e7": 1e3 * s2e, "phase3_1e7": 1e3 * s3})
+    del obs_blocks, seeds_g, seeds_e, sweeps
+    wall, busy, launches = kineto_busy(estep)
+    log(f"    [{time.perf_counter() - t_phase:.1f} s] torch.profiler over one E-step: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+        f"({100 * busy / wall:.1f} %), {launches} kernel launches")
+    ms["estep_busy_share_pct"] = 100 * busy / wall
+
+    step = batch_vb.make_long_chain_step(GaussianNIW, block_size=LC_BLOCK)
+    params, elbos, walls = p, [], []
+    for _ in range(LC_VB_ITERS):
+        (params, e), s = synced_s(lambda q=params: step(q, prior, chain))
+        elbos.append(e)
+        walls.append(s)
+    require_ascending(torch.stack(elbos), "phase 12 (d): long-chain VB")
+    log(f"    [{time.perf_counter() - t_phase:.1f} s] {LC_VB_ITERS} long-chain VB iterations: ELBO "
+        + " -> ".join(f"{float(e):.6e}" for e in elbos)
+        + ", s an iteration " + ", ".join(f"{w:.3f}" for w in walls))
+    ms["vb_iter_1e7"] = 1e3 * min(walls)
+
+    z_star, s = synced_s(lambda: long_chain_decode(bayes_floor_params(tp, "gaussian", dev),
+                                                   GaussianNIW, chain))
+    ham = hamming_error_long(z_star, torch.from_numpy(z_true).to(dev), LC_K)
+    log(f"    [{time.perf_counter() - t_phase:.1f} s] long_chain_decode at the generating params: {1e3 * s:.1f} ms, Hamming {ham:.6f}")
+    require(ham <= LC_FLOOR_HAMMING, f"phase 12 (d): the Bayes-floor decode's Hamming {ham}")
+    ms["decode_1e7"] = 1e3 * s
+
+    chain_fm = chain.T.contiguous()
+    st_tm, s_tm = synced_s(lambda: estep(chain_fm, True))
+    st_tmj, s_tmj = synced_s(estep)
+    lz_err, leaf_err = lc_stats_err(st_tm, st_tmj)
+    log(f"    [{time.perf_counter() - t_phase:.1f} s] time-minor (D, T) against time-major: {1e3 * s_tm:.1f} against {1e3 * s_tmj:.1f} "
+        f"ms; log Z {lz_err:.2e}, leaves {leaf_err:.2e}; sha256 time-minor {digest(st_tm)}, "
+        f"time-major {digest(st_tmj)}")
+    require(lz_err <= LC_LAYOUT_RTOL and leaf_err <= LC_LAYOUT_RTOL,
+            "phase 12 (d): the layouts' statistics differ")
+    ms["estep_1e7_time_minor"], ms["estep_1e7_time_major"] = 1e3 * s_tm, 1e3 * s_tmj
+    del chain, chain_fm, z_star
+
+    # (e) the multinomial, K=32, V=64, T = 5 x 10^7, block 1024
+    t0 = time.perf_counter()
+    tokens, z_true, tp = make_chain("multinomial", LC_MULTI_T, LC_MULTI_K, 0, LC_MULTI_V, seed=0)
+    ms["gen_multi_host"] = 1e3 * (time.perf_counter() - t0)
+    chain = torch.from_numpy(tokens).to(dev)  # int32, as JAX's tokens
+    del tokens
+    mprior = make_prior(LC_MULTI_K, MultinomialDirichlet, num_symbols=LC_MULTI_V, device=dev)
+    p = init_params(torch.Generator(dev).manual_seed(2), mprior, MultinomialDirichlet,
+                    chain[:100_000])
+    mstep = lambda: long_chain_local_stats(  # noqa: E731
+        p, MultinomialDirichlet, chain, LC_MULTI_BLOCK, impl="fused")
+    mstep()
+    st, s = synced_s(mstep)
+    require(math.isfinite(float(st.log_z)), "phase 12 (e): non-finite log Z")
+    z_star, sd = synced_s(lambda: long_chain_decode(
+        bayes_floor_params(tp, "multinomial", dev), MultinomialDirichlet, chain,
+        block_size=LC_MULTI_BLOCK))
+    ham = hamming_error_long(z_star, torch.from_numpy(z_true).to(dev), LC_MULTI_K)
+    require(0.0 <= ham < 1.0, "phase 12 (e): Hamming out of range")
+    log(f"  (e) [{time.perf_counter() - t_phase:.1f} s] multinomial K={LC_MULTI_K}, V={LC_MULTI_V}, T={LC_MULTI_T} ({chain.dtype} tokens), "
+        f"block {LC_MULTI_BLOCK}: data on the host {ms['gen_multi_host'] / 1e3:.1f} s; E-step "
+        f"{1e3 * s:.1f} ms ({LC_MULTI_T / s:,.0f} steps/s), log Z {float(st.log_z):.6e}; decode at "
+        f"the generating params {1e3 * sd:.1f} ms, Hamming {ham:.6f}")
+    ms.update({"estep_multi_5e7": 1e3 * s, "decode_multi_5e7": 1e3 * sd})
+    del chain, z_star
+    log(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return ms
+
+
 def time_route_kernels(gen) -> tuple[dict, dict, dict]:
     """Phase 5: each route kernel at K = 64, 128 and 256 (B=1024, T=1000,
     F=45, ungated) by CUDA events, its twin, its bound and share. Returns
@@ -2803,6 +3125,12 @@ def main() -> int:
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s; ms (host clock, synchronised; "
         f"{card}): " + json.dumps({k: round(v, 4) for k, v in surface_ms.items()}))
 
+    log(f"== phase 12: the long-chain tiers at K={LC_K}, D={LC_D}, T up to {LC_T_SCALE} and the "
+        f"multinomial at T={LC_MULTI_T} ({card})")
+    longchain_ms = longchain_phase(dev)
+    log("  phase 12 ms (host clock, synchronised): "
+        + json.dumps({k: round(v, 3) for k, v in longchain_ms.items()}))
+
     errs = {"fused_fwd_kernel": fwd_err, "fused_bwd_kernel": bwd_err, **split_err,
             "duplex_chain_kernel": chain_err, "duplex_combine_kernel": comb_err}
     kernels = []
@@ -2885,7 +3213,8 @@ def main() -> int:
         f"runs, max_abs_err acc's largest against float64 over one backward's windows, ms "
         f"over that backward's products, library_ms one float32 torch.matmul a product")
     log(card)
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernels, "note": "the long-chain tiers (phase 12) are plain "
+                    "PyTorch, as JAX's are plain XLA: they add no kernel to this line"}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -90,7 +90,7 @@ def parse_config(argv: list[str] | None = None) -> Config:
     """Build a Config from CLI flags (--k, --svi-batch-size, --engine, ...).
 
     Raises ``ValueError`` for a ``--method`` the port does not have (JAX's
-    "pallas", "pallas_fused", "assoc", "blocked", ...) and
+    "pallas", "pallas_fused", "grad", ...) and
     ``NotImplementedError`` for ``--mesh-devices`` above 1 (ROADMAP Queue 1
     item 7)."""
     cfg = Config()

@@ -65,6 +65,14 @@ class GaussianNIW:
         return niw.suff_stats(gamma, y)
 
     @staticmethod
+    def zero_stats(params: NIW) -> GaussianStats:
+        """The zero accumulator of the statistics (the streaming tiers' start)."""
+        K, D = params.mean.shape[-2], params.mean.shape[-1]
+        z = dict(dtype=params.mean.dtype, device=params.mean.device)
+        return GaussianStats(n=torch.zeros((K,), **z), sum_y=torch.zeros((K, D), **z),
+                             sum_yyT=torch.zeros((K, D, D), **z))
+
+    @staticmethod
     def posterior(prior: NIW, stats: GaussianStats) -> NIW:
         return niw.posterior(prior, stats)
 
@@ -162,6 +170,14 @@ class DiagonalGaussianNIG:
         return diag_gaussian.suff_stats(gamma, y)
 
     @staticmethod
+    def zero_stats(params: NIG) -> DiagGaussianStats:
+        """The zero accumulator of the statistics (the streaming tiers' start)."""
+        K, D = params.mean.shape[-2], params.mean.shape[-1]
+        z = dict(dtype=params.mean.dtype, device=params.mean.device)
+        return DiagGaussianStats(n=torch.zeros((K,), **z), sum_y=torch.zeros((K, D), **z),
+                                 sum_y2=torch.zeros((K, D), **z))
+
+    @staticmethod
     def posterior(prior: NIG, stats: DiagGaussianStats) -> NIG:
         return diag_gaussian.posterior(prior, stats)
 
@@ -235,6 +251,11 @@ class MultinomialDirichlet:
     def expected_log_likelihood(params: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """y int (...,) -> (..., K) by gathering E[log phi_{k, y_t}]."""
         return dirichlet.expected_log_probs(params).T[y.long()]
+
+    @staticmethod
+    def zero_stats(params: torch.Tensor) -> torch.Tensor:
+        """The zero accumulator of the (K, V) counts."""
+        return torch.zeros_like(params)
 
     @staticmethod
     def posterior(prior: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
@@ -324,6 +345,13 @@ class PoissonGamma:
     @staticmethod
     def suff_stats(gamma: torch.Tensor, y: torch.Tensor) -> PoissonStats:
         return poisson.suff_stats(gamma, y)
+
+    @staticmethod
+    def zero_stats(params: GammaP) -> PoissonStats:
+        """The zero accumulator of the statistics (the streaming tiers' start)."""
+        K, D = params.a.shape[-2], params.a.shape[-1]
+        z = dict(dtype=params.a.dtype, device=params.a.device)
+        return PoissonStats(n=torch.zeros((K,), **z), sum_y=torch.zeros((K, D), **z))
 
     @staticmethod
     def posterior(prior: GammaP, stats: PoissonStats) -> GammaP:

@@ -15,10 +15,12 @@ import torch
 from .. import messages
 from ..distributions import dirichlet
 from ..distributions.emissions import MultinomialDirichlet
+from ..messages.blocked import forward_backward_blocked_stream, forward_backward_blocked_twophase
 from ..messages.duplex_fb import estep_duplex
 from ..messages.fused_fb import FMAX, estep_fused
 from ..messages.scan_fb import FBResult
 from ..messages.split_fb import estep_split
+from ..messages.stream_fused import forward_backward_fused_twophase
 from ..models.hmm import (
     HMMParams,
     check_family,
@@ -180,7 +182,8 @@ def batch_local_step(
     Returns (summed stats, gamma (B, T, K), or None when need_gamma=False).
     method "auto" resolves by obs' device: "fused" (the two fused CUDA
     kernels: likelihoods, forward-backward and emission stats in-kernel) on
-    CUDA, "scan" (plain PyTorch over materialised likelihoods) on CPU.
+    CUDA, "scan" (plain PyTorch over materialised likelihoods) on CPU;
+    "assoc" and "blocked" are the other plain methods of ``messages.e_step``.
     "split" runs the split CUDA kernels over likelihoods computed outside
     them, "duplex" the duplex kernels (both chains in one kernel, the
     statistics chain-free in a second). The kernel routes run their
@@ -197,10 +200,10 @@ def batch_local_step(
     f32_matmuls()
     method = messages.resolve_method(method, obs.device)
 
-    if method == "scan":
+    if method in messages.PLAIN_METHODS:
         log_pi, log_A = expected_log_params(params)
         ll = emission.expected_log_likelihood(params.emit, obs)  # (B, T, K)
-        fb = messages.e_step_batched(log_pi, log_A, ll, weights=weights, method="scan")
+        fb = messages.e_step_batched(log_pi, log_A, ll, weights=weights, method=method)
         gamma_w = fb.gamma if weights is None else fb.gamma * weights[..., None]
         emit_stats = emission_flat_stats(emission, params.emit, gamma_w, obs)
         gamma = fb.gamma if need_gamma else None
@@ -251,10 +254,99 @@ def windowed_local_step(
 
     log_pi, log_A = expected_log_params(params)
     ll = emission.expected_log_likelihood(params.emit, windows)
-    fb = messages.e_step_batched(log_pi, log_A, ll, weights=maskf, method="scan")
+    fb = messages.e_step_batched(log_pi, log_A, ll, weights=maskf, method=method)
     gamma_w = fb.gamma * maskf[..., None]
     emit_stats = emission_flat_stats(emission, params.emit, gamma_w, windows)
     return emit_stats, fb.trans_stats, fb.gamma[rows, offs], fb.log_c
+
+
+LONG_CHAIN_IMPLS = ("fused", "twophase", "assoc")
+
+
+def long_chain_local_stats(
+    params: HMMParams,
+    emission,
+    chain: torch.Tensor,
+    block_size: int = 256,
+    impl: str = "fused",
+    time_minor: bool = False,
+) -> LocalStats:
+    """Exact full-chain local statistics of ONE very long chain, streaming.
+
+    The statistics of ``batch_local_step(params, emission, chain[None],
+    method="blocked", need_gamma=False)[0]``, but gamma and the per-step
+    K x K matrices never exist: the emission statistics are summed inside
+    the backward sweep, so a K = 64 chain of 10^7+ steps fits the card.
+
+    impl: "fused" (default; :func:`messages.stream_fused.
+    forward_backward_fused_twophase`: likelihoods computed a chunk at a time
+    from the raw observations, so no (T, K) array exists), "twophase"
+    (:func:`messages.blocked.forward_backward_blocked_twophase` over the
+    (T, K) log-likelihoods) or "assoc"
+    (:func:`messages.blocked.forward_backward_blocked_stream`, the
+    associative-scan tier). JAX's ``PYSVIHMM_STREAM_IMPL`` variable is this
+    argument only: the port reads no environment knobs.
+
+    chain: (T, D) floats or (T,) int tokens; with time_minor=True (impl
+    "fused" only) the chain arrives feature-major, (D, T)."""
+    if impl not in LONG_CHAIN_IMPLS:
+        raise ValueError(f"unknown long-chain impl {impl!r}; expected one of {LONG_CHAIN_IMPLS}")
+    if time_minor and impl != "fused":
+        # the other tiers take a (T, K) likelihood of a TIME-MAJOR chain
+        raise ValueError(f"time_minor=True requires impl='fused' (got impl={impl!r})")
+    f32_matmuls()
+    check_family(emission)
+
+    def stat_fn(g, y):
+        return emission_flat_stats(emission, params.emit, g, y)
+
+    log_pi, log_A = expected_log_params(params)
+    if impl == "fused":
+        r = forward_backward_fused_twophase(
+            log_pi, log_A, chain, _long_chain_ell_fn(params, emission),
+            block_size=block_size, stat_fn=stat_fn,
+            stat_init=emission.zero_stats(params.emit), time_minor=time_minor,
+        )
+    else:
+        fb_stream = (forward_backward_blocked_twophase if impl == "twophase"
+                     else forward_backward_blocked_stream)
+        ll = emission.expected_log_likelihood(params.emit, chain)  # (T, K)
+        r = fb_stream(log_pi, log_A, ll, block_size=block_size, stat_xs=chain,
+                      stat_fn=stat_fn, stat_init=emission.zero_stats(params.emit))
+    return LocalStats(init=r.init_stats, trans=r.trans_stats, emit=r.acc, log_z=r.log_z)
+
+
+def _long_chain_ell_fn(params: HMMParams, emission):
+    """The streaming tiers' per-chunk expected log-likelihood: one
+    ``ell_features(rows) @ W`` product for the families with a feature form
+    (JAX runs it at its 3-pass "high" tier; the port in float32), else the
+    family's ``expected_log_likelihood``."""
+    if hasattr(emission, "ell_features"):
+        W = emission.ell_feature_matrix(params.emit)
+        return lambda rows: emission.ell_features(rows) @ W
+    return lambda rows: emission.expected_log_likelihood(params.emit, rows)
+
+
+def long_chain_decode(
+    params: HMMParams,
+    emission,
+    chain: torch.Tensor,
+    block_size: int = 1024,
+    chunks: int = 8,
+    time_minor: bool = False,
+) -> torch.Tensor:
+    """Posterior-marginal decode of ONE long chain, streaming: (T,) int32.
+
+    :func:`decode`'s argmax_k gamma_tk, but gamma never exists: the fused
+    streaming tier's backward sweep emits each step's argmax
+    (``emit_argmax``), so the decode reaches the streaming E-step's scale."""
+    f32_matmuls()
+    check_family(emission)
+    log_pi, log_A = expected_log_params(params)
+    return forward_backward_fused_twophase(
+        log_pi, log_A, chain, _long_chain_ell_fn(params, emission), block_size=block_size,
+        chunks=chunks, emit_argmax=True, time_minor=time_minor,
+    ).z
 
 
 def elbo_from_stats(

@@ -17,7 +17,13 @@ from .. import messages
 from ..distributions import dirichlet
 from ..models.hmm import HMMParams, init_params
 from ..utils.device import check_generator, restart_generators
-from .base import FEATURE_ROUTES, batch_local_step, elbo_from_stats, prepare_fused_obs
+from .base import (
+    FEATURE_ROUTES,
+    batch_local_step,
+    elbo_from_stats,
+    long_chain_local_stats,
+    prepare_fused_obs,
+)
 
 Step = Callable[..., tuple[HMMParams, torch.Tensor]]
 
@@ -31,6 +37,28 @@ def make_step(emission, method: str = "auto") -> Step:
         stats, _ = batch_local_step(
             params, emission, obs, method, need_gamma=False, prepared=prepared
         )
+        elbo = elbo_from_stats(params, prior, emission, stats.log_z)
+        new_params = HMMParams(
+            init=dirichlet.posterior(prior.init, stats.init),
+            trans=dirichlet.posterior(prior.trans, stats.trans),
+            emit=emission.posterior(prior.emit, stats.emit),
+        )
+        return new_params, elbo
+
+    return step
+
+
+def make_long_chain_step(emission, block_size: int = 256, impl: str = "fused",
+                         time_minor: bool = False) -> Step:
+    """The coordinate-ascent step on ONE very long chain: (params, prior,
+    chain) -> (params', ELBO at params), chain (T, D), (T,) int tokens or,
+    time_minor, (D, T). The E-step streams through
+    :func:`engines.base.long_chain_local_stats` (default the
+    likelihood-fused tier), so neither gamma nor a (T, K) array exists."""
+
+    def step(params: HMMParams, prior: HMMParams, chain: torch.Tensor):
+        stats = long_chain_local_stats(params, emission, chain, block_size, impl=impl,
+                                       time_minor=time_minor)
         elbo = elbo_from_stats(params, prior, emission, stats.log_z)
         new_params = HMMParams(
             init=dirichlet.posterior(prior.init, stats.init),

@@ -1,8 +1,13 @@
 """Message passing: the E-step layer (port of ``pysvihmm_tpu/messages``).
 
-Four implementations of the same batched E-step:
+Six implementations of the same batched E-step:
   * ``scan``   -- :mod:`.scan_fb`, a plain loop over time in PyTorch over
                   materialised log-likelihoods; exact, any device.
+  * ``assoc``  -- :mod:`.assoc_fb`, prefix and suffix products of the
+                  per-step matrices by an associative scan: O(T K^3) work,
+                  O(log T) depth. Plain PyTorch, as JAX's is plain XLA.
+  * ``blocked``-- :mod:`.blocked`, the associative scan inside blocks of
+                  256 steps, the boundary messages carried across blocks.
   * ``fused``  -- :mod:`.fused_fb`, the likelihood matmul, forward-backward
                   and every statistic in two CUDA kernels (JAX's
                   ``"pallas_fused"``).
@@ -12,7 +17,14 @@ Four implementations of the same batched E-step:
                   kernel and every statistic chain-free in a second (JAX's
                   ``"pallas_fused"`` with ``PYSVIHMM_DUPLEX`` set; the port
                   has no environment knobs, so it is a method here).
-The kernel routes run their kernels' plain twins on CPU tensors.
+The kernel routes run their kernels' plain twins on CPU tensors. "auto"
+never picks "assoc" or "blocked", as in JAX.
+
+One very long chain takes the streaming tiers instead, which reduce the
+statistics without gamma: :func:`.blocked.forward_backward_blocked_stream`,
+:func:`.blocked.forward_backward_blocked_twophase` and
+:func:`.stream_fused.forward_backward_fused_twophase` (through
+``engines.base.long_chain_local_stats``).
 """
 
 from __future__ import annotations
@@ -31,16 +43,20 @@ from .scan_fb import (
     log_normalizer,
     viterbi,
 )
+from .assoc_fb import forward_backward_assoc, log_normalizer_assoc
+from .blocked import forward_backward_blocked, forward_backward_blocked_stream
 from .split_fb import estep_split
 
-METHODS = ("scan", "fused", "split", "duplex")
+METHODS = ("scan", "fused", "split", "duplex", "assoc", "blocked")
+PLAIN_METHODS = ("scan", "assoc", "blocked")  # the methods of :func:`e_step`, any device
 
 
 def resolve_method(method: str, device: torch.device | str) -> str:
     """Resolve ``method="auto"`` by the tensors' device.
 
     "auto" is "fused" (the CUDA kernels) for CUDA tensors and "scan" for CPU
-    tensors. An explicit method of :data:`METHODS` passes through. A
+    tensors; it never picks "assoc" or "blocked". An explicit method of
+    :data:`METHODS` passes through. A
     configuration the kernels do not take raises where it is launched;
     nothing falls back to "scan" on its own.
     """
@@ -85,37 +101,47 @@ def e_step_batched(
     """Batched E-step over materialised likelihoods (B, T, K).
 
     Contract: gamma (B, T, K), log_z (B,), log_c (B, T), init_stats (B, K);
-    trans_stats summed over the batch, (K, K). "fused" and "duplex" become
+    trans_stats summed over the batch, (K, K). "scan", "assoc" and "blocked"
+    run :func:`e_step` in the inputs' dtype. "fused" and "duplex" become
     "split" here, as JAX's "pallas_fused" becomes "pallas": the likelihoods are already
     materialised, so the split kernels take them (CUDA tensors launch them;
-    CPU tensors run their float32 twins on float32 copies). "scan" runs
-    :func:`scan_fb.forward_backward` in the inputs' dtype.
+    CPU tensors run their float32 twins on float32 copies).
     """
     method = resolve_method(method, log_lik.device)
-    if method == "scan":
-        return forward_backward(log_pi, log_A, log_lik, weights)
+    if method in PLAIN_METHODS:
+        return e_step(log_pi, log_A, log_lik, weights, method)
     ll = log_lik.to(torch.float32).transpose(0, 1).contiguous()
     w = None if weights is None else weights.to(torch.float32).transpose(0, 1).contiguous()
     fb = estep_split(log_pi, log_A, ll, w)
     return fb._replace(gamma=fb.gamma.transpose(0, 1))
 
 
-def e_step_grad(log_pi: torch.Tensor, log_A: torch.Tensor, log_lik: torch.Tensor) -> FBResult:
+def e_step_grad(log_pi: torch.Tensor, log_A: torch.Tensor, log_lik: torch.Tensor,
+                method: str = "scan") -> FBResult:
     """The E-step as gradients of the log-normaliser over log_lik (B, T, K):
     d log Z / d log_lik = gamma, d / d log_A = sum_t xi_t (summed over the
     batch), d / d log_pi = gamma_0 (per sequence: log_pi is broadcast to
-    (B, K) first). The max shift is detached (:func:`scan_fb._normalize_loglik`)."""
+    (B, K) first). The max shift is detached (:func:`scan_fb._normalize_loglik`).
+
+    method "scan" differentiates the forward recursion (and returns its
+    log_c); "assoc" differentiates :func:`log_normalizer_assoc`, through the
+    associative scan, and returns log_c None, as JAX does."""
+    if method not in ("scan", "assoc"):
+        raise ValueError(f"e_step_grad method must be 'scan' or 'assoc', got {method!r}")
     B = log_lik.shape[0]
     with torch.enable_grad():
         lp = log_pi.detach().expand(B, -1).clone().requires_grad_(True)
         lA = log_A.detach().clone().requires_grad_(True)
         ll = log_lik.detach().clone().requires_grad_(True)
-        _, log_z, log_c = forward_with_logc(lp, lA, ll)
+        if method == "scan":
+            _, log_z, log_c = forward_with_logc(lp, lA, ll)
+        else:
+            log_z, log_c = log_normalizer_assoc(lp, lA, ll), None
         # T = 1 leaves log_A out of the graph: its gradient is then zeros
         init, trans, gamma = torch.autograd.grad(log_z.sum(), (lp, lA, ll), allow_unused=True,
                                                  materialize_grads=True)
     return FBResult(gamma=gamma, log_z=log_z.detach(), trans_stats=trans, init_stats=init,
-                    log_c=log_c.detach())
+                    log_c=None if log_c is None else log_c.detach())
 
 
 def e_step(
@@ -126,24 +152,27 @@ def e_step(
     method: str = "scan",
 ) -> FBResult:
     """One batched E-step over log_lik (B, T, K) by the plain methods:
-    "scan" (:func:`scan_fb.forward_backward`) or "grad" (:func:`e_step_grad`,
-    which takes no weights). JAX's "assoc" and "blocked" are not ported yet
-    (ROADMAP Queue 1 item 6) and raise."""
+    "scan" (:func:`scan_fb.forward_backward`), "assoc"
+    (:func:`assoc_fb.forward_backward_assoc`), "blocked"
+    (:func:`blocked.forward_backward_blocked`, blocks of 256 steps) or
+    "grad" (:func:`e_step_grad`, which takes no weights)."""
     if method == "scan":
         return forward_backward(log_pi, log_A, log_lik, weights)
+    if method == "assoc":
+        return forward_backward_assoc(log_pi, log_A, log_lik, weights)
+    if method == "blocked":
+        return forward_backward_blocked(log_pi, log_A, log_lik, weights)
     if method == "grad":
         if weights is not None:
             raise ValueError("grad e-step does not support buffer weights")
         return e_step_grad(log_pi, log_A, log_lik)
-    if method in ("assoc", "blocked"):
-        raise NotImplementedError(
-            f"e_step method {method!r} is not ported yet (ROADMAP Queue 1 item 6)")
     raise ValueError(f"unknown e_step method: {method}")
 
 
 __all__ = [
     "FBResult",
     "METHODS",
+    "PLAIN_METHODS",
     "backward",
     "e_step",
     "e_step_batched",
@@ -152,9 +181,13 @@ __all__ = [
     "ffbs_sample",
     "forward",
     "forward_backward",
+    "forward_backward_assoc",
+    "forward_backward_blocked",
+    "forward_backward_blocked_stream",
     "forward_filter_log",
     "forward_with_logc",
     "log_normalizer",
+    "log_normalizer_assoc",
     "plan_window",
     "resolve_method",
     "viterbi",

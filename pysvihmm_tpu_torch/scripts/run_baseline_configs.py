@@ -8,13 +8,17 @@ the full size):
   2  Gaussian K=16, one chain, subchain SVI B=32 L=50    (single-device SVI)
   3  Multinomial K=32, V=48, minibatch SVI + pred-LL     (discrete)
 
+  4  Gaussian K=64, D=8, one chain of T = max(10000, 100000 scale): the
+     exact long-chain E-step (engines.base.long_chain_local_stats, block
+     256), timed warm, then subchain SVI on the same chain (B=32 L=50 b=10)
+
 Each asserts its quality bar: config 1 a non-decreasing ELBO and Hamming
 error < 0.05, config 2 Hamming error < 0.15, config 3 a held-out predictive
-log-likelihood above the uniform model's. Configs 4 (the long chain's exact
-time-tiled E-step) and 5 (data parallelism over a device mesh) are not
-ported yet (ROADMAP Queue 1 items 6 and 7) and raise.
+log-likelihood above the uniform model's, config 4 a finite log Z. Config
+5 (data parallelism over a device mesh) is not ported yet (ROADMAP Queue 1
+item 7) and raises.
 
-    python -m pysvihmm_tpu_torch baseline --scale 1 --configs 1,2,3 [--device cpu]
+    python -m pysvihmm_tpu_torch baseline --scale 1 --configs 1,2,3,4 [--device cpu]
 """
 
 from __future__ import annotations
@@ -29,13 +33,11 @@ import torch
 from ..data.synthetic import gen_gaussian_dataset, gen_multinomial_dataset
 from ..distributions import GaussianNIW, MultinomialDirichlet
 from ..engines import batch_vb, svi
-from ..engines.base import decode, predictive_log_likelihood
+from ..engines.base import decode, long_chain_local_stats, predictive_log_likelihood
 from ..eval.metrics import hamming_error
 from ..models.hmm import init_params, make_prior
 
 NOT_PORTED = {
-    4: "config 4 (the long chain's exact time-tiled E-step) is not ported yet "
-       "(ROADMAP Queue 1 item 6)",
     5: "config 5 (data-parallel SVI over a device mesh) is not ported yet "
        "(ROADMAP Queue 1 item 7)",
 }
@@ -115,6 +117,29 @@ def main(argv=None) -> int:
                "pred_ll_exact_per_obs": pl_exact, "uniform_baseline": uniform,
                "wall_s": round(time.perf_counter() - t0, 2)})
         _check(pl_mean > uniform, f"config 3: pred-LL {pl_mean} <= uniform {uniform}")
+
+    if 4 in which:
+        K, D, T = 64, 8, max(10000, int(100_000 * s))
+        obs, z, _ = gen_gaussian_dataset(gen(8), K, D, 1, T, mean_scale=8.0, cov_scale=0.3)
+        chain = obs[0]
+        prior = make_prior(K, GaussianNIW, obs_dim=D, device=dev)
+        p0 = init_params(gen(9), prior, GaussianNIW, chain)
+        # the exact full-chain E-step through the streaming tier, timed warm;
+        # reading log Z waits for the device
+        float(long_chain_local_stats(p0, GaussianNIW, chain, block_size=256).log_z)
+        t0 = time.perf_counter()
+        exact_logz = float(long_chain_local_stats(p0, GaussianNIW, chain, block_size=256).log_z)
+        wall_exact = time.perf_counter() - t0
+        # SVI on the same chain (the algorithmic long-context answer)
+        cfg = svi.SVIConfig(batch_size=32, subchain_len=50, buffer=10, tau=10.0, kappa=0.6)
+        state, _ = svi.fit(svi.init_state(p0, gen(10)), prior, chain, GaussianNIW, cfg,
+                           num_steps=max(200, int(2000 * s)))
+        err = hamming_error(decode(state.params, GaussianNIW, chain[None]), z, K)
+        _emit({"config": 4, "T": T, "exact_blocked_logz": exact_logz,
+               "exact_path": "long_chain_local_stats[warm]",
+               "exact_wall_s": round(wall_exact, 4), "svi_hamming": err,
+               "wall_s": round(time.perf_counter() - t0, 2)})
+        _check(math.isfinite(exact_logz), f"config 4: log Z {exact_logz}")
 
     _emit({"event": "all_configs_done", "configs": sorted(which)})
     return 0

@@ -54,10 +54,25 @@ def test_parse_config_is_jax_field_for_field(argv):
     assert mine.run.device == "cuda"
 
 
-@pytest.mark.parametrize("method", ["pallas", "pallas_fused", "assoc", "blocked", "grad"])
+@pytest.mark.parametrize("method", ["pallas", "pallas_fused", "grad"])
 def test_jax_only_methods_raise_with_the_ports_names(method):
     with pytest.raises(ValueError, match="fused.*split.*duplex"):
         parse_config(["--method", method])
+
+
+@pytest.mark.parametrize("method", ["assoc", "blocked"])
+def test_experiment_runs_assoc_and_blocked(tmp_path, method):
+    """--method assoc and --method blocked are the port's: batch VB through
+    ``experiment`` for a few iterations, every ELBO finite."""
+    log = tmp_path / "run.jsonl"
+    assert parse_config(["--method", method]).run.method == method
+    assert cli.main(["experiment", "--engine", "batch_vb", "--K", "3", "--device", "cpu",
+                     "--num-iters", "4", "--log-every", "1", "--method", method,
+                     "--log-path", str(log)]) == 0
+    recs = _records(log)
+    elbos = [r["elbo"] for r in recs if "elbo" in r]
+    assert len(elbos) == 4 and all(math.isfinite(e) for e in elbos)
+    assert recs[-1]["event"] == "done" and math.isfinite(recs[-1]["final_elbo"])
 
 
 def test_mesh_devices_above_one_raise():
@@ -142,10 +157,22 @@ def test_baseline_configs_1_2_3_on_cpu(capsys):
     assert recs[-1] == {"event": "all_configs_done", "configs": [1, 2, 3]}
 
 
-@pytest.mark.parametrize("config,item", [("4", "item 6"), ("5", "item 7"), ("1,5", "item 7")])
+@pytest.mark.parametrize("config,item", [("4,5", "item 7"), ("5", "item 7"), ("1,5", "item 7")])
 def test_baseline_configs_4_and_5_raise(config, item):
+    """Config 5 is not ported: it raises before any config runs, 4 or not."""
     with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
         run_baseline_configs.main(["--configs", config, "--device", "cpu"])
+
+
+def test_baseline_config_4_on_cpu(capsys):
+    """Config 4 at a small scale: the exact long-chain E-step's log Z is
+    finite and SVI's Hamming error on the chain lies in [0, 1]."""
+    assert cli.main(["baseline", "--scale", "0.01", "--configs", "4", "--device", "cpu"]) == 0
+    recs = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    rec = recs[0]
+    assert rec["config"] == 4 and rec["T"] == 10_000
+    assert math.isfinite(rec["exact_blocked_logz"]) and 0.0 <= rec["svi_hamming"] <= 1.0
+    assert recs[-1] == {"event": "all_configs_done", "configs": [4]}
 
 
 @pytest.mark.parametrize("K,T,noise", [(4, 1000, 0.1), (64, 100_000, 0.3), (7, 5, 0.0)])

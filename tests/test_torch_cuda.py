@@ -3,7 +3,8 @@ the fused pair (gated and not), the split pair (gated and not), the duplex
 pair (gated and not), the split path's probes, and the engines' routes
 through them (features wider than the fused kernels take included); the
 trainer's kill-and-resume on the kernel routes, checkpoints of card state
-and the loader's prefetched batches.
+and the loader's prefetched batches; the long-chain tiers' stored and
+rematerialised alphas and their boundary recursions replayed as CUDA graphs.
 
 Imports neither JAX nor the JAX package, so it runs on a machine that has
 only PyTorch for CUDA and nvcc:
@@ -26,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import random_problem, state_digests, svi_masks
+from chip_smoke import digest, random_problem, state_digests, store_remat_digests, svi_masks
 from pysvihmm_tpu_torch import messages
 from pysvihmm_tpu_torch.data.loader import ShardedSequenceLoader
 from pysvihmm_tpu_torch.data.synthetic import gen_gaussian_dataset
@@ -873,3 +874,25 @@ def test_prefetched_batches_equal_the_resident_corpus(cuda_device, tmp_path):
             assert batch.device.type == "cuda"
             assert torch.equal(batch * 1.0, obs[rows.to(cuda_device)])
         stream.close()
+
+
+def test_long_chain_store_and_remat_same_bits(cuda_device):
+    """The fused streaming tier at T = 10^5 (K=64, D=8) with stored and with
+    rematerialised alphas: statistics and decode the same sha256
+    (chip_smoke.py phase 12 (b) at a tenth of its length)."""
+    d = store_remat_digests(cuda_device, 10**5)
+    assert d[0] == d[2] and d[1] == d[3]
+
+
+@pytest.mark.parametrize("n_blocks", [1, 1023, 1024, 2500])
+def test_boundary_seeds_graphs_match_the_eager_loop(cuda_device, n_blocks):
+    """Phase 2's recursions replayed as CUDA graphs of GRAPH_STEPS steps (the
+    tail eagerly) give the eager loop's bits, in both directions."""
+    from pysvihmm_tpu_torch.messages import blocked
+
+    gen = torch.Generator(device=cuda_device).manual_seed(n_blocks)
+    Q = torch.rand((n_blocks, 64, 64), generator=gen, device=cuda_device)
+    a0 = torch.rand(64, generator=gen, device=cuda_device)
+    graphed = blocked.boundary_seeds(Q, a0 / a0.sum(), graphs=True)
+    eager = blocked.boundary_seeds(Q, a0 / a0.sum(), graphs=False)
+    assert digest(graphed) == digest(eager)

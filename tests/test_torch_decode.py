@@ -132,15 +132,26 @@ def test_e_step_grad_matches_jax(enable_x64, B, T, K):
     assert not lp.requires_grad and fb.gamma.grad_fn is None
 
 
-def test_e_step_methods():
-    lp, lA, ll = (torch.from_numpy(x) for x in _problem(2, 6, 3, seed=1))
+def test_e_step_methods(enable_x64):
+    """Every method of e_step; "assoc" and "blocked" (with weights) give JAX's
+    vmapped e_step of the same name."""
+    log_pi, log_A, log_lik = _problem(2, 6, 3, seed=1)
+    lp, lA, ll = (torch.from_numpy(x) for x in (log_pi, log_A, log_lik))
     w = torch.ones(2, 6, dtype=ll.dtype)
+    w[0, 2] = 0.0
     assert messages.e_step(lp, lA, ll, w, method="scan").gamma.shape == (2, 6, 3)
     with pytest.raises(ValueError, match="weights"):
         messages.e_step(lp, lA, ll, w, method="grad")
     for method in ("assoc", "blocked"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            messages.e_step(lp, lA, ll, method=method)
+        got = messages.e_step(lp, lA, ll, w, method=method)
+        want = jax.vmap(lambda l, ww, m=method: jmessages.e_step(
+            jnp.asarray(log_pi), jnp.asarray(log_A), l, ww, method=m))(
+            jnp.asarray(log_lik), jnp.asarray(w.numpy()))
+        for f in ("gamma", "log_z", "log_c", "init_stats"):
+            np.testing.assert_allclose(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                       rtol=1e-10, atol=1e-10)
+        np.testing.assert_allclose(got.trans_stats.numpy(), np.asarray(want.trans_stats).sum(0),
+                                   rtol=1e-10, atol=1e-10)
     with pytest.raises(ValueError, match="unknown"):
         messages.e_step(lp, lA, ll, method="pallas")
 

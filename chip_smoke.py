@@ -195,6 +195,30 @@ fails:
             multinomial chain, K=32, V=64, T = 5 x 10^7 (int32 tokens, block
             1024): the E-step's time, log Z finite, the decode's Hamming.
 
+13. parallel: the parallel paths (``parallel/``, the time- and state-sharded
+            tiers: plain PyTorch, no kernel of their own; the data-parallel
+            steps run the fused pair on every rank). (a) NCCL in a world of
+            one in this process at B=1024, T=1000, K=64, D=8 on "auto":
+            ``sharded_local_step`` and 5 DP VB iterations the same sha256 as
+            ``batch_local_step`` and batch VB's step; the minibatch,
+            streamed and metaobs steps on the same indices, batch and blocks
+            the single-process steps' bits, then 10 steps each (the fused
+            pair once a step, params finite, every psi factorises); the
+            collective-isolation reading of bench_scaling.py (t_local /
+            t_psum). (b) Four gloo ranks spawned on the one card (the
+            kernels built here, loaded there): DP VB at B=1024, 256 a rank,
+            against (a) (ELBOs 1e-5 relative, statistics 1e-4 of each
+            leaf's max); time-sharded streaming VB on phase 12's T = 10^7
+            chain in 4 tiles (log Z against phase 12's to 1e-5, 3
+            iterations non-decreasing, the decode at the generating params
+            Hamming <= 0.05); state-sharded forward-backward at K=256,
+            T=1024 (64 states a rank) against the fused kernels at B = 1 and
+            a VB step against batch VB's; the (2, 2) (data, time) batched
+            forward-backward at B=64, T=4096 against the fused kernels; the
+            streamed trainer over a .npy corpus killed at 5 of 10 steps and
+            resumed on every rank (the same sha256). A rank that raises or
+            outlives 300 s fails the phase. One card measures no scaling.
+
 The last lines are the card line, one JSON line describing the kernels (every
 kernel and instance tier: K <= 64, KP = 128, KP = 256, the split and duplex
 chain rows with the S their times ran at; the outer sums at K = 128 and 256, the one entry
@@ -2350,7 +2374,7 @@ def store_remat_digests(dev, T_: int) -> tuple[str, str, str, str]:
     return tuple(out)
 
 
-def longchain_phase(dev) -> dict[str, float]:
+def longchain_phase(dev, share: str | None = None) -> tuple[dict[str, float], dict]:
     """Phase 12: the long-chain tiers on the card (config 4's Gaussian chain,
     K=64, D=8). (a) At T = 10^5 every float32 tier against the fused
     kernels at B = 1 (log Z to 1e-5, each leaf to 1e-4 of its max) and log Z
@@ -2361,7 +2385,10 @@ def longchain_phase(dev) -> dict[str, float]:
     as CUDA graphs and eagerly, the same bits), 3 long-chain VB iterations,
     the decode at the generating params, the card's busy share and the
     time-minor layout; (e) a multinomial chain, K=32, V=64, T = 5 x 10^7.
-    Returns times in ms (host clock, synchronised)."""
+    Returns times in ms (host clock, synchronised) and, with a ``share``
+    directory, what phase 13 needs of (d): the chain and its states saved
+    there, the E-step's params, its log Z and the generating params."""
+    import numpy as np
     import torch
 
     from pysvihmm_tpu_torch.distributions import GaussianNIW, MultinomialDirichlet
@@ -2439,7 +2466,6 @@ def longchain_phase(dev) -> dict[str, float]:
     obs, z_true, tp = make_chain("gaussian", LC_T_SCALE, LC_K, LC_D, 0, seed=0)
     ms["gen_1e7_host"] = 1e3 * (time.perf_counter() - t0)
     chain = torch.from_numpy(obs).to(dev)
-    del obs
     p = init_params(torch.Generator(dev).manual_seed(2), prior, GaussianNIW, chain[:100_000])
     estep = lambda c=chain, tm=False: long_chain_local_stats(  # noqa: E731
         p, GaussianNIW, c, LC_BLOCK, impl="fused", time_minor=tm)
@@ -2449,6 +2475,15 @@ def longchain_phase(dev) -> dict[str, float]:
     ms["estep_1e7"] = 1e3 * s
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     require(math.isfinite(float(st.log_z)), "phase 12 (d): non-finite log Z")
+    shared = {}
+    if share is not None:
+        shared = {"chain": os.path.join(share, "lc_chain.npy"),
+                  "z_true": os.path.join(share, "lc_z.npy"), "p": tree_to(p, device="cpu"),
+                  "floor": tree_to(bayes_floor_params(tp, "gaussian", "cpu"), device="cpu"),
+                  "log_z": float(st.log_z)}
+        np.save(shared["chain"], obs)
+        np.save(shared["z_true"], z_true)
+    del obs
     # the E-step's phases apart, on the same inputs as the call above
     log_pi, log_A = expected_log_params(p)
     A = torch.exp(log_A)
@@ -2546,6 +2581,399 @@ def longchain_phase(dev) -> dict[str, float]:
     ms.update({"estep_multi_5e7": 1e3 * s, "decode_multi_5e7": 1e3 * sd})
     del chain, z_star
     log(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return ms, shared
+
+
+PAR_WORLD = 4  # phase 13 (b): gloo ranks sharing the one card
+PAR_VB_ITERS = 5
+PAR_STEPS = 10  # the minibatch, streamed and metaobs steps of (a)
+PAR_SVI_B = 256  # sequences a minibatch / streamed step in (a)
+PAR_ELBO_RTOL = 1e-5  # (b)'s DP VB ELBOs against (a)'s
+PAR_STAT_RTOL = 1e-4  # ... and each statistic: max |err| / the leaf's max
+PAR_LC_T, PAR_LC_ITERS = LC_T_SCALE, 3  # the time-sharded streaming VB's chain and iterations
+# the state-sharded tier: 4 all-reduces a step, each some 4 ms with four
+# ranks time-sliced on one H100 (66 s a pass at T = 4096), so T is sized
+# for the phase's budget
+PAR_SS_K, PAR_SS_T = 256, 1024
+PAR_2D_B, PAR_2D_T = 64, 4096  # the (data, time) batched forward-backward
+PAR_CORPUS_N = 2048  # the streamed trainer's corpus: N x T x D, B sequences a step
+PAR_KILL = 5
+PAR_TIMEOUT_S = 300.0  # a rank's run and every collective; then the phase fails
+
+
+def tree_scale(x, c):
+    """A tensor, or a (named) tuple of them, times c."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x * c
+    vals = [tree_scale(v, c) for v in x]
+    return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+
+
+def collective_isolation(step, local_step, args, iters: int = 10) -> tuple[float, float]:
+    """(ms of the data-parallel step, ms of its twin with the all-reduce
+    replaced by a local scale): bench_scaling.py's reading, t_local / t_psum
+    the share of a step left to scaling. Host clock, synchronised, the
+    minimum over iters."""
+    import torch
+
+    out = []
+    for fn in (step, local_step):
+        fn(*args)
+        best = float("inf")
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        out.append(1e3 * best)
+    return out[0], out[1]
+
+
+def parallel_world_of_one(dev, tmp: str) -> dict:
+    """Phase 13 (a): NCCL in a world of one, in this process, at bench.py's
+    shape on "auto" (the fused pair). Every data-parallel step against the
+    single-process step on the same batch, indices or blocks: the same
+    sha256; the fused pair once a step; the collective-isolation reading.
+    Returns what (b) is held to and the times (ms)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pysvihmm_tpu_torch.data.synthetic import gen_gaussian_dataset
+    from pysvihmm_tpu_torch.distributions import GaussianNIW
+    from pysvihmm_tpu_torch.engines import batch_vb, metaobs, svi
+    from pysvihmm_tpu_torch.engines.base import batch_local_step, elbo_from_stats
+    from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
+    from pysvihmm_tpu_torch.parallel import (
+        make_dp_metaobs_step,
+        make_dp_minibatch_svi_step,
+        make_dp_streamed_svi_step,
+        make_dp_vb_step,
+        make_mesh,
+        shard_batch,
+        sharded_local_step,
+    )
+
+    out: dict = {"ms": {}}
+    gen = torch.Generator(device=dev).manual_seed(1313)
+    obs, _, _ = gen_gaussian_dataset(gen, K, D, B, T)
+    prior = make_prior(K, GaussianNIW, obs_dim=D, device=dev)
+    p0 = init_params(gen, prior, GaussianNIW, obs)
+    np.save(os.path.join(tmp, "obs.npy"), obs.cpu().numpy())
+    out["p0"], out["obs"] = tree_to(p0, device="cpu"), os.path.join(tmp, "obs.npy")
+
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "nccl1"),
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        mesh = make_mesh(1, "cuda")
+        shard = shard_batch(obs, mesh)
+        reset_kernel_counts()
+        s_dp = sharded_local_step(p0, GaussianNIW, shard, mesh)
+        s_1 = batch_local_step(p0, GaussianNIW, obs, need_gamma=False)[0]
+        require_launches(kernel_counts(), "auto", 2, "(a) local steps")
+        require(digest(s_dp) == digest(s_1), "(a) sharded_local_step differs from "
+                "batch_local_step")
+        out["stats"] = tree_to(s_dp, device="cpu")
+
+        reset_kernel_counts()
+        step, step1 = make_dp_vb_step(GaussianNIW, mesh), batch_vb.make_step(GaussianNIW)
+        p, q, elbos, elbos1 = p0, p0, [], []
+        for _ in range(PAR_VB_ITERS):
+            p, e = step(p, prior, shard)
+            q, e1 = step1(q, prior, obs)
+            elbos.append(e)
+            elbos1.append(e1)
+        require_launches(kernel_counts(), "auto", 2 * PAR_VB_ITERS, "(a) DP VB and batch VB")
+        require(digest((p, torch.stack(elbos))) == digest((q, torch.stack(elbos1))),
+                "(a) DP VB differs from batch VB")
+        require_ascending(torch.stack(elbos), "(a) DP VB")
+        out["elbos"] = torch.stack(elbos).cpu()
+        log(f"  (a) NCCL, a world of one, B={B}, T={T}, K={K}, D={D}, auto: sharded_local_step "
+            f"= batch_local_step (sha256 {digest(s_dp)}); {PAR_VB_ITERS} DP VB iterations = batch "
+            f"VB's (sha256 {digest(p)}), ELBO " + " -> ".join(f"{float(e):.6e}" for e in elbos))
+
+        # the steps' statistics: the single-process step's on the same input
+        cfg = svi.SVIConfig(batch_size=PAR_SVI_B, tau=5.0, kappa=0.6, adaptive=True)
+        s0 = svi.init_state(p0, torch.Generator(dev).manual_seed(5), adaptive=True)
+        idx = torch.randint(0, B, (PAR_SVI_B,), generator=gen, device=dev)
+        mb = make_dp_minibatch_svi_step(GaussianNIW, cfg, B, mesh)
+        base = svi.make_minibatch_step(GaussianNIW, cfg, B)
+        require_same_state(base.with_indices(s0, prior, obs, idx)[0],
+                           mb.with_indices(s0, prior, shard, idx)[0], "(a) minibatch on indices")
+        stream = make_dp_streamed_svi_step(GaussianNIW, cfg, B, mesh)
+        require_same_state(base.with_batch(s0, prior, obs[:PAR_SVI_B])[0],
+                           stream(s0, prior, obs[:PAR_SVI_B])[0], "(a) streamed on a batch")
+        chain = gen_gaussian_dataset(gen, K, D, 1, SVI_T, mean_scale=0.5, cov_scale=1.0)[0][0]
+        mcfg = metaobs.MetaObsConfig(minibatch=B, block_len=SVI_L, buffer=SVI_BUF)
+        meta = make_dp_metaobs_step(GaussianNIW, mcfg, SVI_T, mesh)
+        ids = torch.randperm(SVI_T // SVI_L, generator=gen, device=dev)[:B]
+        require_same_state(metaobs.make_step(GaussianNIW, mcfg, SVI_T).with_blocks(
+            s0, prior, chain, ids)[0], meta.with_blocks(s0, prior, chain, ids)[0],
+            "(a) metaobs on blocks")
+
+        for name, fn, data in (("minibatch", mb, shard), ("metaobs", meta, chain),
+                               ("streamed", stream, None)):
+            st = s0
+            reset_kernel_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(PAR_STEPS):
+                x = data if data is not None else obs[(i % 4) * PAR_SVI_B:(i % 4 + 1) * PAR_SVI_B]
+                st, m = fn(st, prior, x)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / PAR_STEPS
+            require_launches(kernel_counts(), "auto", PAR_STEPS, f"(a) {name} steps")
+            require_sane_params(st.params, f"(a) {name} steps")
+            require(bool(torch.isfinite(m["noisy_elbo"])), f"(a) {name}: non-finite noisy ELBO")
+            out["ms"][f"{name}_step"] = ms
+            log(f"    {PAR_STEPS} {name} steps on auto: {ms:.2f} ms a step, the fused pair once "
+                f"a step, params finite, every psi factorises")
+
+        def local_vb(p_, pr, o):  # the all-reduce replaced by a local scale
+            st_ = tree_scale(batch_local_step(p_, GaussianNIW, o, need_gamma=False)[0], 1)
+            return batch_vb.conjugate_update(GaussianNIW, pr, st_), elbo_from_stats(
+                p_, pr, GaussianNIW, st_.log_z)
+
+        t_psum, t_local = collective_isolation(step, local_vb, (p0, prior, shard))
+        out["ms"].update(dp_vb_step=t_psum, dp_vb_local=t_local)
+        log(f"    collective isolation (bench_scaling.py): the DP VB step {t_psum:.3f} ms with "
+            f"the NCCL all-reduce, {t_local:.3f} ms with a local scale: t_local / t_psum = "
+            f"{t_local / t_psum:.4f} (a world of one: no scaling is measured)")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def parallel_rank(rank: int, world: int, a: dict) -> dict:
+    """Phase 13 (b): one gloo rank on the shared card (a spawned process that
+    loads the kernels the parent built). Returns its results and times."""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from pysvihmm_tpu_torch.data.loader import ShardedSequenceLoader
+    from pysvihmm_tpu_torch.distributions import GaussianNIW
+    from pysvihmm_tpu_torch.engines import svi, trainer
+    from pysvihmm_tpu_torch.messages import (
+        state_sharded_forward_backward,
+        time_sharded_forward_backward_batched,
+    )
+    from pysvihmm_tpu_torch.models.hmm import expected_log_params, make_prior
+    from pysvihmm_tpu_torch.parallel import (
+        collectives,
+        make_dp_streamed_svi_step,
+        make_dp_vb_step,
+        make_mesh,
+        make_ss_vb_step,
+        make_time_mesh,
+        make_ts_stream_vb_step,
+        run_vb_scan,
+        shard_params_by_state,
+        sharded_local_step,
+        time_sharded_decode,
+        time_sharded_stream_stats,
+    )
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    out: dict = {"ms": {}}
+
+    def timed(name, fn):
+        res, s = synced_s(fn)
+        out["ms"][name] = 1e3 * s
+        return res
+
+    def rows(path, n):
+        return torch.from_numpy(np.load(path, mmap_mode="r")[rank * n:(rank + 1) * n].copy())
+
+    # data-parallel VB, B / world sequences a rank
+    mesh = make_mesh(world, "cuda")
+    obs = rows(a["obs"], B // world).to(dev)
+    prior = make_prior(K, GaussianNIW, obs_dim=D, device=dev)
+    p0 = tree_to(a["p0"], device=dev)
+    reset_kernel_counts()
+    out["stats"] = tree_to(timed("dp_local_step", lambda: sharded_local_step(
+        p0, GaussianNIW, obs, mesh)), device="cpu")
+    step = make_dp_vb_step(GaussianNIW, mesh)
+    p, elbos = timed("dp_vb", lambda: run_vb_scan(step, p0, prior, obs, PAR_VB_ITERS))
+    require_launches(kernel_counts(), "auto", PAR_VB_ITERS + 1, f"rank {rank}: DP VB")
+    out["elbos"] = elbos.cpu()
+    del obs
+
+    # time-sharded streaming VB on config 4's chain: this rank's tile
+    tmesh = make_time_mesh(world, "cuda")
+    tile = rows(a["chain"], PAR_LC_T // world).to(dev)
+    p_lc = tree_to(a["p_lc"], device=dev)
+    lc_prior = make_prior(LC_K, GaussianNIW, obs_dim=LC_D, device=dev)
+    out["lc_log_z"] = float(timed("ts_stream_stats", lambda: time_sharded_stream_stats(
+        p_lc, GaussianNIW, tile, tmesh, block_size=LC_BLOCK)).log_z)
+    ts_step = make_ts_stream_vb_step(GaussianNIW, tmesh, block_size=LC_BLOCK)
+    _, lc_elbos = timed("ts_stream_vb", lambda: run_vb_scan(ts_step, p_lc, lc_prior, tile,
+                                                            PAR_LC_ITERS))
+    out["lc_elbos"] = lc_elbos.cpu()
+    out["lc_z"] = timed("ts_decode", lambda: time_sharded_decode(
+        tree_to(a["floor"], device=dev), GaussianNIW, tile, tmesh)).cpu().numpy()
+    del tile
+
+    # state-sharded forward-backward and VB at K = 256: this rank's K / world states
+    smesh = make_mesh(world, "cuda", axis="state")
+    p256 = tree_to(a["p256"], device=dev)
+    chain = a["ss_chain"].to(dev)
+    Kd = PAR_SS_K // world
+    blk = slice(rank * Kd, (rank + 1) * Kd)
+    log_pi, log_A = expected_log_params(p256)
+    pb = shard_params_by_state(p256, smesh)
+    fb = timed("ss_fb", lambda: state_sharded_forward_backward(
+        log_pi[blk], log_A[blk], GaussianNIW.expected_log_likelihood(pb.emit, chain), smesh))
+    out["ss"] = {"log_z": float(fb.log_z), "trans": fb.trans_stats.cpu()}
+    ss_prior = make_prior(PAR_SS_K, GaussianNIW, obs_dim=D, device=dev)
+    _, ss_elbo = timed("ss_vb", lambda: make_ss_vb_step(GaussianNIW, smesh)(
+        pb, shard_params_by_state(ss_prior, smesh), chain))
+    out["ss_elbo"] = float(ss_elbo)
+
+    # the (data, time) = (2, 2) batched forward-backward
+    m2 = init_device_mesh("cuda", (2, world // 2), mesh_dim_names=("data", "time"))
+    bi, ti = (collectives.axis_index(m2.get_group(x)) for x in ("data", "time"))
+    nb, nt = PAR_2D_B // 2, PAR_2D_T // (world // 2)
+    o2 = a["obs2"][bi * nb:(bi + 1) * nb, ti * nt:(ti + 1) * nt].to(dev)
+    p2 = tree_to(a["p2"], device=dev)
+    lp2, lA2 = expected_log_params(p2)
+    r = timed("fb_2d", lambda: time_sharded_forward_backward_batched(
+        lp2, lA2, GaussianNIW.expected_log_likelihood(p2.emit, o2), m2))
+    out["b2"] = {"bi": bi, "ti": ti, "log_z": r.log_z.cpu(), "init": r.init_stats.cpu(),
+                 "trans": r.trans_stats.cpu()}
+
+    # the streamed trainer killed and resumed across the ranks
+    cfg = svi.SVIConfig(batch_size=B, tau=5.0, kappa=0.6, adaptive=True)
+
+    def run(num_steps, **kw):
+        loader = ShardedSequenceLoader.from_npy(a["corpus"], dev, B // world, seed=3)
+        state = svi.init_state(p0, torch.Generator(dev).manual_seed(4), adaptive=True)
+        return trainer.train_streamed(make_dp_streamed_svi_step(GaussianNIW, cfg, PAR_CORPUS_N),
+                                      state, prior, loader, num_steps, **kw)
+
+    ref = timed("trainer_uninterrupted", lambda: run(PAR_STEPS))
+    run(PAR_KILL, checkpoint_dir=a["ckpt"], checkpoint_every=2)
+    got = run(PAR_STEPS, checkpoint_dir=a["ckpt"], checkpoint_every=2)
+    out["trainer"] = (state_digests(ref), state_digests(got))
+    return out
+
+
+def parallel_phase(dev, tmp: str, lc: dict) -> dict[str, float]:
+    """Phase 13: the parallel paths. (a) NCCL in a world of one in this
+    process (:func:`parallel_world_of_one`); (b) four gloo ranks on the one
+    card, spawned (:func:`parallel_rank`): data-parallel VB at B=1024 (256 a
+    rank) against (a) (ELBOs to 1e-5 relative, statistics to 1e-4 of each
+    leaf's max: the fused backward groups its sums by S, and S follows the
+    per-rank B); time-sharded streaming VB on phase 12's T = 10^7 chain in 4
+    tiles (log Z against phase 12's to 1e-5, 3 iterations non-decreasing,
+    the decode at the generating params Hamming <= 0.05); state-sharded
+    forward-backward at K=256, T=1024 (64 states a rank) against the fused
+    kernels at B = 1 (log Z 1e-5, trans 1e-4 of its max) and a VB step
+    against batch VB's (ELBO 1e-5); the (2, 2) (data, time) batched forward-backward at B=64,
+    T=4096 against the fused kernels; the streamed trainer killed at 5 of
+    10 steps and resumed (the same sha256). A rank that raises, or a run past
+    PAR_TIMEOUT_S, fails the phase. One card measures no scaling: the ranks
+    share it, and gloo stages every collective through the host. Returns
+    the times (ms)."""
+    import numpy as np
+    import torch
+
+    from pysvihmm_tpu_torch.data.synthetic import gen_gaussian_dataset
+    from pysvihmm_tpu_torch.distributions import GaussianNIW
+    from pysvihmm_tpu_torch.engines import batch_vb
+    from pysvihmm_tpu_torch.engines.base import batch_local_step
+    from pysvihmm_tpu_torch.eval.metrics import hamming_error_long
+    from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
+    from pysvihmm_tpu_torch.parallel import spawn_local
+
+    t_phase = time.perf_counter()
+    a_res = parallel_world_of_one(dev, tmp)
+    ms = {f"a_{k}": v for k, v in a_res["ms"].items()}
+    log(f"  (a) took {time.perf_counter() - t_phase:.1f} s")
+
+    # (b)'s inputs, and their single-process references on the card
+    gen = torch.Generator(device=dev).manual_seed(1414)
+    ss_chain = gen_gaussian_dataset(gen, PAR_SS_K, D, 1, PAR_SS_T)[0][0]
+    ss_prior = make_prior(PAR_SS_K, GaussianNIW, obs_dim=D, device=dev)
+    p256 = init_params(gen, ss_prior, GaussianNIW, ss_chain)
+    ss_ref = batch_local_step(p256, GaussianNIW, ss_chain[None], method="fused",
+                              need_gamma=False)[0]
+    ss_ref_elbo = float(batch_vb.make_step(GaussianNIW, "fused")(p256, ss_prior,
+                                                                 ss_chain[None])[1])
+    obs2, _, _ = gen_gaussian_dataset(gen, K, D, PAR_2D_B, PAR_2D_T)
+    p2 = init_params(gen, make_prior(K, GaussianNIW, obs_dim=D, device=dev), GaussianNIW, obs2)
+    ref2 = batch_local_step(p2, GaussianNIW, obs2, method="fused", need_gamma=False)[0]
+    corpus = gen_gaussian_dataset(gen, K, D, PAR_CORPUS_N, T)[0]
+    np.save(os.path.join(tmp, "corpus.npy"), corpus.cpu().numpy())
+    del corpus
+    args = {"obs": a_res["obs"], "p0": a_res["p0"], "chain": lc["chain"], "p_lc": lc["p"],
+            "floor": lc["floor"], "p256": tree_to(p256, device="cpu"),
+            "ss_chain": ss_chain.cpu(), "p2": tree_to(p2, device="cpu"), "obs2": obs2.cpu(),
+            "corpus": os.path.join(tmp, "corpus.npy"), "ckpt": os.path.join(tmp, "ckpt13")}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_local(parallel_rank, PAR_WORLD, args, backend="gloo", timeout=PAR_TIMEOUT_S)
+    ms["b_spawned_s"] = 1e3 * (time.perf_counter() - t0)
+    per_rank = {k: max(r["ms"][k] for r in ranks) for k in ranks[0]["ms"]}
+    log(f"  (b) {PAR_WORLD} gloo ranks on the card ran in {ms['b_spawned_s'] / 1e3:.1f} s "
+        "(spawn, imports and every check); the slowest rank's ms: "
+        + json.dumps({k: round(v, 1) for k, v in per_rank.items()}))
+    ms.update({f"b_{k}": v for k, v in per_rank.items()})
+
+    for r in ranks[1:]:
+        require(digest(r["elbos"]) == digest(ranks[0]["elbos"]), "(b) DP VB: ranks differ")
+    e_err = rel_max_err(ranks[0]["elbos"], a_res["elbos"])
+    s_err = rel_max_err(ranks[0]["stats"], a_res["stats"])
+    log(f"    DP VB, B={B} ({B // PAR_WORLD} a rank): ELBOs {e_err:.2e} from (a)'s, the local "
+        f"step's statistics {s_err:.2e} of each leaf's max")
+    require(e_err <= PAR_ELBO_RTOL and s_err <= PAR_STAT_RTOL, "(b) DP VB differs from (a)")
+
+    lz = ranks[0]["lc_log_z"]
+    lz_err = abs(lz - lc["log_z"]) / abs(lc["log_z"])
+    ham = hamming_error_long(torch.from_numpy(np.concatenate([r["lc_z"] for r in ranks])).to(dev),
+                             torch.from_numpy(np.load(lc["z_true"])).to(dev), LC_K)
+    log(f"    time-sharded streaming VB, T={PAR_LC_T} in {PAR_WORLD} tiles: log Z {lz:.6e}, "
+        f"{lz_err:.2e} from phase 12's one-rank E-step; ELBO "
+        + " -> ".join(f"{float(e):.6e}" for e in ranks[0]["lc_elbos"])
+        + f"; the decode at the generating params Hamming {ham:.6f}")
+    require(lz_err <= LC_LOGZ_RTOL, "(b) time-sharded log Z differs from phase 12's")
+    require_ascending(ranks[0]["lc_elbos"], "(b) time-sharded streaming VB")
+    require(ham <= LC_FLOOR_HAMMING, f"(b) time-sharded decode Hamming {ham}")
+
+    ss_lz = ranks[0]["ss"]["log_z"]
+    ss_lz_err = abs(ss_lz - float(ss_ref.log_z)) / abs(float(ss_ref.log_z))
+    tr_err = rel_max_err(torch.cat([r["ss"]["trans"] for r in ranks]), ss_ref.trans)
+    elbo_err = abs(ranks[0]["ss_elbo"] - ss_ref_elbo) / abs(ss_ref_elbo)
+    log(f"    state-sharded, K={PAR_SS_K}, T={PAR_SS_T}, {PAR_SS_K // PAR_WORLD} states a rank: "
+        f"log Z {ss_lz_err:.2e} from the fused kernels' at B = 1, trans {tr_err:.2e} of its max; "
+        f"a VB step's ELBO {ranks[0]['ss_elbo']:.6e}, {elbo_err:.2e} from batch VB's on the "
+        "fused kernels")
+    require(ss_lz_err <= LC_LOGZ_RTOL and tr_err <= PAR_STAT_RTOL and elbo_err <= PAR_ELBO_RTOL,
+            "(b) the state-sharded tier differs from the fused kernels")
+
+    by = {(r["b2"]["bi"], r["b2"]["ti"]): r["b2"] for r in ranks}
+    lz2 = sum(float(by[(i, 0)]["log_z"].double().sum()) for i in range(2))
+    init2 = sum(by[(i, 0)]["init"].sum(dim=0) for i in range(2))
+    lz2_err = abs(lz2 - float(ref2.log_z)) / abs(float(ref2.log_z))
+    tr2_err = rel_max_err(ranks[0]["b2"]["trans"], ref2.trans)
+    in2_err = rel_max_err(init2, ref2.init)
+    log(f"    (data, time) = (2, 2) batched forward-backward, B={PAR_2D_B}, T={PAR_2D_T}: log Z "
+        f"{lz2_err:.2e}, trans {tr2_err:.2e}, init {in2_err:.2e} from the fused kernels'")
+    require(lz2_err <= LC_LOGZ_RTOL and tr2_err <= PAR_STAT_RTOL and in2_err <= PAR_STAT_RTOL,
+            "(b) the 2-D tier differs from the fused kernels")
+
+    for rank, r in enumerate(ranks):
+        ref, got = r["trainer"]
+        require(ref == got, f"(b) rank {rank}: the resumed trainer differs: "
+                + ", ".join(k for k in ref if ref[k] != got.get(k)))
+    log(f"    the streamed trainer over a {PAR_CORPUS_N} x {T} x {D} corpus, killed at "
+        f"{PAR_KILL} of {PAR_STEPS} steps and resumed on every rank: the uninterrupted run's "
+        f"sha256 (psi {ranks[0]['trainer'][0]['params.emit.psi']})")
+    log(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s")
     return ms
 
 
@@ -3125,11 +3553,18 @@ def main() -> int:
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s; ms (host clock, synchronised; "
         f"{card}): " + json.dumps({k: round(v, 4) for k, v in surface_ms.items()}))
 
-    log(f"== phase 12: the long-chain tiers at K={LC_K}, D={LC_D}, T up to {LC_T_SCALE} and the "
-        f"multinomial at T={LC_MULTI_T} ({card})")
-    longchain_ms = longchain_phase(dev)
-    log("  phase 12 ms (host clock, synchronised): "
-        + json.dumps({k: round(v, 3) for k, v in longchain_ms.items()}))
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        log(f"== phase 12: the long-chain tiers at K={LC_K}, D={LC_D}, T up to {LC_T_SCALE} and "
+            f"the multinomial at T={LC_MULTI_T} ({card})")
+        longchain_ms, lc_share = longchain_phase(dev, share=tmp)
+        log("  phase 12 ms (host clock, synchronised): "
+            + json.dumps({k: round(v, 3) for k, v in longchain_ms.items()}))
+
+        log(f"== phase 13: the parallel paths: NCCL in a world of one, then {PAR_WORLD} gloo "
+            f"ranks sharing the card ({card})")
+        parallel_ms = parallel_phase(dev, tmp, lc_share)
+        log("  phase 13 ms (host clock, synchronised; one card measures no scaling): "
+            + json.dumps({k: round(v, 3) for k, v in parallel_ms.items()}))
 
     errs = {"fused_fwd_kernel": fwd_err, "fused_bwd_kernel": bwd_err, **split_err,
             "duplex_chain_kernel": chain_err, "duplex_combine_kernel": comb_err}

@@ -46,7 +46,7 @@ class RunConfig:
     num_iters: int = 100
     method: str = "auto"  # e-step route: auto | scan | fused | split | duplex
     seed: int = 0
-    mesh_devices: int = 0  # 0 = all; the port runs one process on one device
+    mesh_devices: int = 0  # 0 = all; parsed and not read, as in JAX
     checkpoint_dir: str = ""
     checkpoint_every: int = 0
     log_every: int = 10
@@ -90,9 +90,8 @@ def parse_config(argv: list[str] | None = None) -> Config:
     """Build a Config from CLI flags (--k, --svi-batch-size, --engine, ...).
 
     Raises ``ValueError`` for a ``--method`` the port does not have (JAX's
-    "pallas", "pallas_fused", "grad", ...) and
-    ``NotImplementedError`` for ``--mesh-devices`` above 1 (ROADMAP Queue 1
-    item 7)."""
+    "pallas", "pallas_fused", "grad", ...). ``--mesh-devices`` is parsed and
+    not acted on, as in JAX: the experiment runner is one process."""
     cfg = Config()
     parser = argparse.ArgumentParser(description="pysvihmm_tpu_torch runner")
     _add_dataclass_args(parser, cfg.model, "")
@@ -108,8 +107,4 @@ def parse_config(argv: list[str] | None = None) -> Config:
     if cfg.run.method not in ("auto", *METHODS):
         raise ValueError(f"--method {cfg.run.method!r} is not a method of the port; expected "
                          f"one of {('auto', *METHODS)}")
-    if cfg.run.mesh_devices not in (0, 1):
-        raise NotImplementedError(
-            f"--mesh-devices {cfg.run.mesh_devices}: data parallelism over several devices is "
-            "not ported yet (ROADMAP Queue 1 item 7)")
     return cfg

@@ -28,6 +28,17 @@ from .base import (
 Step = Callable[..., tuple[HMMParams, torch.Tensor]]
 
 
+def conjugate_update(emission, prior: HMMParams, stats) -> HMMParams:
+    """The exact conjugate global update from summed :class:`~.base.LocalStats`
+    (the Dirichlet posteriors and the emission family's); every batch-VB
+    step ends with it, the sharded ones of ``parallel`` too."""
+    return HMMParams(
+        init=dirichlet.posterior(prior.init, stats.init),
+        trans=dirichlet.posterior(prior.trans, stats.trans),
+        emit=emission.posterior(prior.emit, stats.emit),
+    )
+
+
 def make_step(emission, method: str = "auto") -> Step:
     """The coordinate-ascent step: (params, prior, obs, prepared=None) ->
     (params', ELBO at params). ``prepared`` is the fused and duplex routes'
@@ -38,12 +49,7 @@ def make_step(emission, method: str = "auto") -> Step:
             params, emission, obs, method, need_gamma=False, prepared=prepared
         )
         elbo = elbo_from_stats(params, prior, emission, stats.log_z)
-        new_params = HMMParams(
-            init=dirichlet.posterior(prior.init, stats.init),
-            trans=dirichlet.posterior(prior.trans, stats.trans),
-            emit=emission.posterior(prior.emit, stats.emit),
-        )
-        return new_params, elbo
+        return conjugate_update(emission, prior, stats), elbo
 
     return step
 
@@ -60,12 +66,7 @@ def make_long_chain_step(emission, block_size: int = 256, impl: str = "fused",
         stats = long_chain_local_stats(params, emission, chain, block_size, impl=impl,
                                        time_minor=time_minor)
         elbo = elbo_from_stats(params, prior, emission, stats.log_z)
-        new_params = HMMParams(
-            init=dirichlet.posterior(prior.init, stats.init),
-            trans=dirichlet.posterior(prior.trans, stats.trans),
-            emit=emission.posterior(prior.emit, stats.emit),
-        )
-        return new_params, elbo
+        return conjugate_update(emission, prior, stats), elbo
 
     return step
 

@@ -45,11 +45,12 @@ def make_step(emission, cfg: MetaObsConfig, chain_len: int, method: str = "auto"
 
     Returns step(state, prior, obs) -> (state', metrics dict), with
     ``step.with_blocks(state, prior, obs, block_ids)`` taking the (M,)
-    distinct block ids instead of drawing them, and
+    distinct block ids instead of drawing them,
     ``step.block_stats(params, obs, block_ids)`` the blocks' summed
     statistics (:class:`LocalStats`, ``log_z`` the kept-region log
-    normaliser mass) before any scaling. The window is W = Lm + 2b on every
-    route (``messages.plan_window``).
+    normaliser mass) before any scaling, and ``step.update(state, prior,
+    stats)`` the natural-gradient step from the statistics of M blocks. The
+    window is W = Lm + 2b on every route (``messages.plan_window``).
     """
     M, Lm, b = cfg.minibatch, cfg.block_len, cfg.buffer
     T = chain_len
@@ -83,15 +84,17 @@ def make_step(emission, cfg: MetaObsConfig, chain_len: int, method: str = "auto"
             log_z=(log_c.to(dtype) * maskf).sum(),
         )
 
-    def with_blocks(state: SVIState, prior: HMMParams, obs: torch.Tensor, block_ids: torch.Tensor):
+    def update(state: SVIState, prior: HMMParams, st: LocalStats):
         params = state.params
-        st = block_stats(params, obs, block_ids)
         rho = power_schedule(state.step.to(params.init.dtype), cfg.tau, cfg.kappa)
         new_params = _natural_update(emission, params, prior, (st.init, st.trans, st.emit),
                                      scales, rho)
         noisy_elbo = scale_emit * st.log_z - global_kl(params, prior, emission)
         metrics = {"rho": rho, "noisy_elbo": noisy_elbo}
         return SVIState(new_params, state.step + 1, state.generator, state.adapt), metrics
+
+    def with_blocks(state: SVIState, prior: HMMParams, obs: torch.Tensor, block_ids: torch.Tensor):
+        return update(state, prior, block_stats(state.params, obs, block_ids))
 
     def step(state: SVIState, prior: HMMParams, obs: torch.Tensor):
         gen = state.generator
@@ -101,6 +104,7 @@ def make_step(emission, cfg: MetaObsConfig, chain_len: int, method: str = "auto"
 
     step.with_blocks = with_blocks
     step.block_stats = block_stats
+    step.update = update
     return step
 
 

@@ -204,18 +204,20 @@ def make_minibatch_step(emission, cfg: SVIConfig, num_seqs: int, method: str = "
     B sequences drawn with replacement per step, stats scaled by N/B; with
     B=N and rho=1 it is batch natural-gradient VB. Returns step(state, prior,
     obs) -> (state', metrics) with ``step.with_indices(state, prior, obs,
-    idx)`` taking the (B,) sequence indices instead of drawing them, and
+    idx)`` taking the (B,) sequence indices instead of drawing them,
     ``step.with_batch(state, prior, batch)`` taking the (B, T, ...) batch
-    itself (a streamed corpus' batch, ``parallel.make_dp_streamed_svi_step``).
+    itself (a streamed corpus' batch) and ``step.update(state, prior,
+    stats)`` the natural-gradient step from a batch's summed
+    :class:`~.base.LocalStats` (the data-parallel steps of ``parallel`` sum
+    them over processes first).
     """
     B, N = cfg.batch_size, num_seqs
     scale = N / B
     scales = (scale, scale, scale)
 
-    def with_batch(state: SVIState, prior: HMMParams, batch: torch.Tensor):
+    def update(state: SVIState, prior: HMMParams, stats):
         params = state.params
         dtype = params.init.dtype
-        stats, _ = batch_local_step(params, emission, batch, method, need_gamma=False)
         local = (stats.init.to(dtype), stats.trans.to(dtype), stats.emit)
         target = None
         if cfg.adaptive:
@@ -225,6 +227,10 @@ def make_minibatch_step(emission, cfg: SVIConfig, num_seqs: int, method: str = "
         noisy_elbo = scale * stats.log_z.to(dtype) - global_kl(params, prior, emission)
         metrics = {"rho": rho, "noisy_elbo": noisy_elbo}
         return SVIState(new_params, state.step + 1, state.generator, new_adapt), metrics
+
+    def with_batch(state: SVIState, prior: HMMParams, batch: torch.Tensor):
+        stats, _ = batch_local_step(state.params, emission, batch, method, need_gamma=False)
+        return update(state, prior, stats)
 
     def with_indices(state: SVIState, prior: HMMParams, obs: torch.Tensor, idx: torch.Tensor):
         return with_batch(state, prior, obs[idx.to(obs.device)])
@@ -236,6 +242,7 @@ def make_minibatch_step(emission, cfg: SVIConfig, num_seqs: int, method: str = "
 
     step.with_indices = with_indices
     step.with_batch = with_batch
+    step.update = update
     return step
 
 

@@ -13,8 +13,11 @@ Wraps any (state, prior, data) -> (state, metrics) step function with:
     ``FloatingPointError`` with the step and the metrics (no other step
     reads anything back).
 
-Writes happen on rank 0 only where a ``torch.distributed`` process group is
-up (the state is replicated; one copy suffices); every process restores.
+Several processes (a ``torch.distributed`` process group) pass the same
+shared ``checkpoint_dir``: writes happen on rank 0 only (the state is
+replicated; one copy suffices), and every process restores, before its
+first collective, the step that rank 0 found latest and broadcast, so that
+no process re-enters the collectives at another step than the others.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import math
 from collections.abc import Callable, Iterator
 from typing import Any
 
+from ..parallel import collectives
 from ..utils import checkpoint
 from ..utils.device import process_rank_world
 from ..utils.logging import MetricsLogger
@@ -36,11 +40,13 @@ def _save(checkpoint_dir: str, step: int, state: Any) -> None:
 
 
 def _resume(state: Any, checkpoint_dir: str | None, resume: bool) -> Any:
-    if checkpoint_dir and resume:
-        latest = checkpoint.latest_step_path(checkpoint_dir)
-        if latest is not None:
-            return checkpoint.restore(latest, state)
-    return state
+    if not (checkpoint_dir and resume):
+        return state
+    latest = checkpoint.latest_step(checkpoint_dir) if process_rank_world()[0] == 0 else None
+    step = collectives.broadcast_int(-1 if latest is None else latest, collectives.world_group())
+    if step < 0:
+        return state
+    return checkpoint.restore(checkpoint.step_path(checkpoint_dir, step), state)
 
 
 def _loop(

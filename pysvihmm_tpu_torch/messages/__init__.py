@@ -24,7 +24,9 @@ One very long chain takes the streaming tiers instead, which reduce the
 statistics without gamma: :func:`.blocked.forward_backward_blocked_stream`,
 :func:`.blocked.forward_backward_blocked_twophase` and
 :func:`.stream_fused.forward_backward_fused_twophase` (through
-``engines.base.long_chain_local_stats``).
+``engines.base.long_chain_local_stats``). Over a mesh of processes, the
+time-sharded tiers (:mod:`.time_sharded`) cut one chain into a tile a
+process, and :mod:`.state_sharded` cuts the states into blocks.
 """
 
 from __future__ import annotations
@@ -46,6 +48,8 @@ from .scan_fb import (
 from .assoc_fb import forward_backward_assoc, log_normalizer_assoc
 from .blocked import forward_backward_blocked, forward_backward_blocked_stream
 from .split_fb import estep_split
+from .state_sharded import state_sharded_forward_backward
+from .time_sharded import time_sharded_forward_backward, time_sharded_forward_backward_batched
 
 METHODS = ("scan", "fused", "split", "duplex", "assoc", "blocked")
 PLAIN_METHODS = ("scan", "assoc", "blocked")  # the methods of :func:`e_step`, any device
@@ -190,5 +194,8 @@ __all__ = [
     "log_normalizer_assoc",
     "plan_window",
     "resolve_method",
+    "state_sharded_forward_backward",
+    "time_sharded_forward_backward",
+    "time_sharded_forward_backward_batched",
     "viterbi",
 ]

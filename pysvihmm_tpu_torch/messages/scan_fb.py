@@ -86,12 +86,14 @@ def forward_with_logc(
     return torch.stack(alphas, dim=1), log_c.sum(dim=-1), log_c
 
 
-def backward(log_A: torch.Tensor, log_lik: torch.Tensor) -> torch.Tensor:
-    """Normalised backward messages beta (B, T, K): all ones at t = T-1,
-    each earlier step summing to 1."""
+def backward(log_A: torch.Tensor, log_lik: torch.Tensor,
+             beta_last: torch.Tensor | None = None) -> torch.Tensor:
+    """Normalised backward messages beta (B, T, K): ``beta_last`` (default all
+    ones) at t = T-1, each earlier step summing to 1. The time-sharded tiles
+    seed beta_last with their boundary message."""
     A = torch.exp(log_A)
     lik, _ = _normalize_loglik(log_lik)
-    beta = torch.ones_like(lik[:, 0])
+    beta = torch.ones_like(lik[:, 0]) if beta_last is None else beta_last.expand_as(lik[:, 0])
     betas = [beta]
     for t in range(log_lik.shape[1] - 1, 0, -1):
         b = (lik[:, t] * beta) @ A.T

@@ -12,23 +12,34 @@ the full size):
      exact long-chain E-step (engines.base.long_chain_local_stats, block
      256), timed warm, then subchain SVI on the same chain (B=32 L=50 b=10)
 
+  5  Gaussian K=8, D=4, N = max(4 n, 1024 scale) seqs x T=128 over the
+     world's data mesh of n processes: data-parallel minibatch SVI
+     (parallel.make_dp_minibatch_svi_step, 4 seqs a process a step, the
+     elastic step size)
+
 Each asserts its quality bar: config 1 a non-decreasing ELBO and Hamming
 error < 0.05, config 2 Hamming error < 0.15, config 3 a held-out predictive
-log-likelihood above the uniform model's, config 4 a finite log Z. Config
-5 (data parallelism over a device mesh) is not ported yet (ROADMAP Queue 1
-item 7) and raises.
+log-likelihood above the uniform model's, config 4 a finite log Z, config 5
+Hamming error < 0.15. Config 5 runs over the job's process group (started
+from the environment by ``parallel.initialize_distributed``, e.g. under
+``torchrun``; each process on ``cuda:LOCAL_RANK``), or over a group of this
+one process; only rank 0 prints.
 
-    python -m pysvihmm_tpu_torch baseline --scale 1 --configs 1,2,3,4 [--device cpu]
+    python -m pysvihmm_tpu_torch baseline --scale 1 --configs 1,2,3,4,5 [--device cpu]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import os
+import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..data.synthetic import gen_gaussian_dataset, gen_multinomial_dataset
 from ..distributions import GaussianNIW, MultinomialDirichlet
@@ -36,15 +47,37 @@ from ..engines import batch_vb, svi
 from ..engines.base import decode, long_chain_local_stats, predictive_log_likelihood
 from ..eval.metrics import hamming_error
 from ..models.hmm import init_params, make_prior
-
-NOT_PORTED = {
-    5: "config 5 (data-parallel SVI over a device mesh) is not ported yet "
-       "(ROADMAP Queue 1 item 7)",
-}
+from ..parallel import (
+    initialize_distributed,
+    make_dp_minibatch_svi_step,
+    make_mesh,
+    shard_batch,
+)
 
 
 def _emit(rec) -> None:
-    print(json.dumps(rec), flush=True)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps(rec), flush=True)
+
+
+@contextlib.contextmanager
+def _world(dev: torch.device):
+    """The process group config 5 runs over: the job's, when the environment
+    names one, else a group of this process alone for the call."""
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    initialize_distributed(backend=backend)
+    if dist.is_initialized():
+        if dev.type == "cuda" and "LOCAL_RANK" in os.environ:
+            torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        yield
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, init_method="file://" + os.path.join(tmp, "pg"),
+                                world_size=1, rank=0)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -60,8 +93,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
     which = {int(x) for x in args.configs.split(",")}
-    for c in sorted(which & set(NOT_PORTED)):
-        raise NotImplementedError(NOT_PORTED[c])
     s, dev = args.scale, torch.device(args.device)
 
     def gen(seed: int) -> torch.Generator:
@@ -140,6 +171,31 @@ def main(argv=None) -> int:
                "exact_wall_s": round(wall_exact, 4), "svi_hamming": err,
                "wall_s": round(time.perf_counter() - t0, 2)})
         _check(math.isfinite(exact_logz), f"config 4: log Z {exact_logz}")
+
+    if 5 in which:
+        with _world(dev):
+            n = dist.get_world_size()
+            K, D, T = 8, 4, 128
+            N = max(4 * n, int(1024 * s))
+            N -= N % n
+            obs, z, _ = gen_gaussian_dataset(gen(11), K, D, N, T, mean_scale=6.0,
+                                             cov_scale=0.3)
+            prior = make_prior(K, GaussianNIW, obs_dim=D, device=dev)
+            p0 = init_params(gen(12), prior, GaussianNIW, obs)
+            mesh = make_mesh(n, dev.type)
+            cfg = svi.SVIConfig(batch_size=4 * n, tau=5.0, kappa=0.6, adaptive=True)
+            step = make_dp_minibatch_svi_step(GaussianNIW, cfg, num_seqs=N, mesh=mesh)
+            state = svi.init_state(p0, gen(13), adaptive=True)
+            shard = shard_batch(obs, mesh)
+            steps = max(500, int(2000 * s))
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state, metrics = step(state, prior, shard)
+            err = hamming_error(decode(state.params, GaussianNIW, obs), z, K)
+            _emit({"config": 5, "processes": n, "N": N, "steps": steps,
+                   "elastic_rho": float(metrics["rho"]), "hamming": err,
+                   "wall_s": round(time.perf_counter() - t0, 2)})
+            _check(err < 0.15, f"config 5: Hamming {err}")
 
     _emit({"event": "all_configs_done", "configs": sorted(which)})
     return 0

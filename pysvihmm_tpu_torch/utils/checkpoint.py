@@ -11,16 +11,25 @@ path and its device type under ``{path}.device``; restoring puts that state
 into a new generator on the target generator's device, so the restored run
 draws what the saved one would have. Writes are atomic (a ``.tmp`` file,
 then ``os.replace``), so a preempted process never leaves a torn
-checkpoint. JAX's ``OrbaxCheckpointer``, the multi-host tier, is not
-ported (ROADMAP Queue 1 item 7).
+checkpoint.
+
+:class:`DistributedCheckpointer` is the multi-process tier (JAX's
+``OrbaxCheckpointer``) on ``torch.distributed.checkpoint``: every process
+takes part in each save and restore, writes run in the background, and a
+step becomes visible only once all of it is written.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 from typing import Any
 
 import torch
+import torch.distributed as dist
+import torch.distributed.checkpoint as dcp
+
+from ..parallel.collectives import broadcast_int
 
 SUFFIX = ".pt"
 _DEVICE = ".device"  # the key suffix of a generator's device type
@@ -116,12 +125,15 @@ def restore(path: str, target: Any) -> Any:
     target generator's device (``target`` itself is not changed). Raises
     ``ValueError`` on a missing entry, an extra entry, a shape that differs
     or a generator saved from another device type."""
-    flat = torch.load(path, map_location="cpu", weights_only=True)
+    return _unflatten(torch.load(path, map_location="cpu", weights_only=True), target, path)
+
+
+def _unflatten(flat: dict[str, Any], target: Any, source: str) -> Any:
     used: set[str] = set()
     state = _rebuild(target, "", flat, used)
     extra = sorted(set(flat) - used)
     if extra:
-        raise ValueError(f"checkpoint {path} has entries the target lacks: {extra}")
+        raise ValueError(f"checkpoint {source} has entries the target lacks: {extra}")
     return state
 
 
@@ -137,21 +149,137 @@ def _steps(directory: str, prefix: str) -> dict[int, str]:
     return found
 
 
+def latest_step(directory: str, prefix: str = "ckpt_") -> int | None:
+    """The highest step of the ``{prefix}{step}.pt`` files, or None."""
+    found = _steps(directory, prefix) if os.path.isdir(directory) else {}
+    return max(found) if found else None
+
+
+def step_path(directory: str, step: int, prefix: str = "ckpt_") -> str:
+    """The file :func:`save_step` writes for ``step``."""
+    return os.path.join(directory, f"{prefix}{step}{SUFFIX}")
+
+
 def latest_step_path(directory: str, prefix: str = "ckpt_") -> str | None:
     """The highest-step checkpoint file ``{prefix}{step}.pt``, or None."""
-    if not os.path.isdir(directory):
-        return None
-    found = _steps(directory, prefix)
-    return found[max(found)] if found else None
+    step = latest_step(directory, prefix)
+    return None if step is None else step_path(directory, step, prefix)
 
 
 def save_step(directory: str, step: int, state: Any, prefix: str = "ckpt_", keep: int = 3) -> str:
     """Save ``state`` as ``{prefix}{step}.pt`` and keep only the ``keep``
     newest step files."""
     os.makedirs(directory, exist_ok=True)
-    path = os.path.join(directory, f"{prefix}{step}{SUFFIX}")
+    path = step_path(directory, step, prefix)
     save(path, state)
     found = _steps(directory, prefix)
     for s in sorted(found)[:-keep]:
         os.remove(found[s])
     return path
+
+
+def _encode(flat: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """:func:`flatten`'s dict with each generator's device type (a string) as
+    a uint8 tensor of its characters: ``torch.distributed.checkpoint`` then
+    stores tensors only, and reads them back without unpickling."""
+    return {k: torch.tensor(list(v.encode()), dtype=torch.uint8) if isinstance(v, str) else v
+            for k, v in flat.items()}
+
+
+def _decode(flat: dict[str, torch.Tensor]) -> dict[str, Any]:
+    return {k: bytes(v.tolist()).decode() if k.endswith(_DEVICE) else v for k, v in flat.items()}
+
+
+class DistributedCheckpointer:
+    """Step-numbered checkpoints of a state across processes on
+    ``torch.distributed.checkpoint`` (JAX's ``OrbaxCheckpointer``, the
+    multi-host tier)::
+
+        ckpt = DistributedCheckpointer(directory, keep=3)
+        ckpt.save(step, state)            # asynchronous
+        state = ckpt.restore(state_like)  # the latest step
+        ckpt.close()                      # waits for the last write
+
+    Every process of the job constructs it and calls each method with the
+    same arguments (a save and a restore are collective); without a process
+    group it is one process's. The state is :func:`flatten`'s dict (a
+    generator as its state and device type). A step is written into
+    ``step_<n>.tmp`` and renamed to ``step_<n>`` by process 0 once the whole
+    write has finished, so :meth:`latest_step` never sees a torn step; the
+    newest ``keep`` steps are kept. The writes of a save run in a thread
+    (``dcp.async_save``) while the caller goes on, over a gloo group of
+    their own so that they never interleave with the caller's collectives;
+    the next save, :meth:`restore` and :meth:`close` wait for them."""
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = os.path.abspath(directory)
+        self.keep = keep
+        self._group = dist.new_group(backend="gloo") if dist.is_initialized() else None
+        self._rank = dist.get_rank() if dist.is_initialized() else 0
+        self._pending: tuple[Any, int] | None = None
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{step}")
+
+    def save(self, step: int, state: Any) -> None:
+        """Start writing ``state`` as step ``step`` (the previous save is
+        finished first)."""
+        self._finish()
+        future = dcp.async_save(_encode(flatten(state)), checkpoint_id=self._path(step) + ".tmp",
+                                process_group=self._group, no_dist=self._group is None)
+        self._pending = (future, step)
+
+    def _finish(self) -> None:
+        """Wait for the pending save (raising its error), then on process 0
+        make it visible and drop the steps beyond ``keep``."""
+        if self._pending is None:
+            return
+        future, step = self._pending
+        self._pending = None
+        future.result()
+        if self._rank != 0:
+            return
+        final = self._path(step)
+        if os.path.isdir(final):
+            shutil.rmtree(final)
+        os.replace(final + ".tmp", final)
+        for old in sorted(self._steps())[:-self.keep]:
+            shutil.rmtree(self._path(old))
+
+    def _steps(self) -> list[int]:
+        steps = []
+        for name in os.listdir(self.directory):
+            if name.startswith("step_") and not name.endswith(".tmp"):
+                try:
+                    steps.append(int(name[len("step_"):]))
+                except ValueError:
+                    continue
+        return steps
+
+    def latest_step(self) -> int | None:
+        """The newest finished step in the directory, or None."""
+        steps = self._steps()
+        return max(steps) if steps else None
+
+    def restore(self, target: Any, step: int | None = None) -> Any:
+        """Load a step (default: process 0's latest, the same on every
+        process) into the structure of ``target``, as :func:`restore` does.
+        Raises ``FileNotFoundError`` when there is none."""
+        self._finish()
+        if step is None:
+            latest = self.latest_step() if self._rank == 0 else None
+            step = broadcast_int(-1 if latest is None else latest, self._group)
+            if step < 0:
+                raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        path = self._path(step)
+        meta = dcp.FileSystemReader(path).read_metadata()
+        flat = {k: torch.empty(m.size, dtype=m.properties.dtype)
+                for k, m in meta.state_dict_metadata.items()}
+        dcp.load(flat, checkpoint_id=path, process_group=self._group,
+                 no_dist=self._group is None)
+        return _unflatten(_decode(flat), target, path)
+
+    def close(self) -> None:
+        """Finish the pending save."""
+        self._finish()

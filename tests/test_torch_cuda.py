@@ -4,7 +4,9 @@ pair (gated and not), the split path's probes, and the engines' routes
 through them (features wider than the fused kernels take included); the
 trainer's kill-and-resume on the kernel routes, checkpoints of card state
 and the loader's prefetched batches; the long-chain tiers' stored and
-rematerialised alphas and their boundary recursions replayed as CUDA graphs.
+rematerialised alphas and their boundary recursions replayed as CUDA graphs;
+the data-parallel VB step in spawned process groups on the card (NCCL in a
+world of one, two gloo ranks).
 
 Imports neither JAX nor the JAX package, so it runs on a machine that has
 only PyTorch for CUDA and nvcc:
@@ -37,6 +39,7 @@ from pysvihmm_tpu_torch.engines import batch_vb, svi, trainer
 from pysvihmm_tpu_torch.engines.base import batch_local_step
 from pysvihmm_tpu_torch.messages import duplex_fb, fused_fb, split_fb, split_probe
 from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
+from pysvihmm_tpu_torch.parallel import make_dp_vb_step, make_mesh, shard_batch, spawn_local
 from pysvihmm_tpu_torch.scripts.debug_split import make_inputs
 from pysvihmm_tpu_torch.utils import checkpoint
 
@@ -896,3 +899,60 @@ def test_boundary_seeds_graphs_match_the_eager_loop(cuda_device, n_blocks):
     graphed = blocked.boundary_seeds(Q, a0 / a0.sum(), graphs=True)
     eager = blocked.boundary_seeds(Q, a0 / a0.sum(), graphs=False)
     assert digest(graphed) == digest(eager)
+
+
+def _dp_vb_problem():
+    """Phase 13's DP VB problem, small: B=64 sequences, T=200, K=16, D=4, on
+    the card, with its single-process VB step's result."""
+    gen = torch.Generator(device="cuda").manual_seed(1515)
+    obs, _, _ = gen_gaussian_dataset(gen, 16, 4, 64, 200)
+    prior = make_prior(16, GaussianNIW, obs_dim=4, device="cuda")
+    p0 = init_params(gen, prior, GaussianNIW, obs)
+    return obs, prior, p0
+
+
+def _dp_vb_rank(rank, world):
+    """One rank of a group on the card: one DP VB step on its B / world rows
+    (a spawned process; the kernels are loaded, not built)."""
+    torch.cuda.set_device(0)
+    obs, prior, p0 = _dp_vb_problem()
+    mesh = make_mesh(world, "cuda")
+    fused_fb.reset_launch_counts()
+    p1, elbo = make_dp_vb_step(GaussianNIW, mesh)(p0, prior, shard_batch(obs, mesh))
+    torch.cuda.synchronize()
+    launches = (fused_fb.fused_forward.launches, fused_fb.fused_backward.launches)
+    return {"params": [x.cpu() for x in (p1.init, p1.trans, *p1.emit)], "elbo": elbo.cpu(),
+            "digest": digest((p1, elbo)), "launches": launches}
+
+
+def _single_vb():
+    obs, prior, p0 = _dp_vb_problem()
+    p1, elbo = batch_vb.make_step(GaussianNIW)(p0, prior, obs)
+    return p1, elbo
+
+
+def test_dp_vb_nccl_world_of_one_is_single_process(cuda_device):
+    """NCCL in a world of one (a spawned process, so that no process group
+    outlives the test): the DP VB step's bits are the single-process step's,
+    the fused pair launched once."""
+    p1, elbo = _single_vb()
+    (got,) = spawn_local(_dp_vb_rank, 1, backend="nccl", timeout=120.0)
+    assert got["launches"] == (1, 1)
+    assert got["digest"] == digest((p1, elbo))
+
+
+def test_dp_vb_two_gloo_ranks_on_the_card(cuda_device):
+    """Two gloo ranks sharing the card, 32 sequences each: the ELBO and every
+    parameter within the float32 data-parallel tolerance of the
+    single-process step (rtol 2e-4, atol 1e-5; the NIW psi to 2e-4 of its
+    largest entry, its update's float32 cancellation), the same bits on both
+    ranks."""
+    p1, elbo = _single_vb()
+    ranks = spawn_local(_dp_vb_rank, 2, backend="gloo", timeout=120.0)
+    assert ranks[0]["digest"] == ranks[1]["digest"]
+    assert all(r["launches"] == (1, 1) for r in ranks)
+    torch.testing.assert_close(ranks[0]["elbo"], elbo.cpu(), rtol=2e-4, atol=0)
+    for a, b in zip(ranks[0]["params"], (p1.init, p1.trans, *p1.emit), strict=True):
+        b = b.cpu()
+        atol = 2e-4 * b.abs().max().item() if b.dim() == 3 else 1e-5
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=atol)

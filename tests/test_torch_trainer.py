@@ -289,10 +289,23 @@ class TestStreamedTrainer:
             assert psi_err["port"] <= 4 * psi_err["jax"], psi_err
         assert int(state.step) == int(jstate.step) == 3
 
-    def test_streamed_step_refuses_several_processes(self, monkeypatch):
-        monkeypatch.setattr(data_parallel, "process_rank_world", lambda: (0, 2))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            make_dp_streamed_svi_step(GaussianNIW, svi.SVIConfig(), 64)
+    def test_streamed_step_refuses_several_processes(self):
+        """The streamed step no longer refuses several processes: with no mesh
+        it sums the statistics over the world's process group when one is up
+        (tests/test_torch_parallel.py runs that in gloo groups of 2 and 4),
+        and with none it is the single-process minibatch step's
+        ``with_batch``, bit for bit."""
+        chain, _, prior, p0 = _chain_problem()
+        batch = chain[:200].reshape(4, 50, 2)
+        cfg = svi.SVIConfig(batch_size=4, adaptive=True)
+        a = b = svi.init_state(p0, _gen(3), adaptive=True)
+        step = make_dp_streamed_svi_step(GaussianNIW, cfg, 64)
+        base = svi.make_minibatch_step(GaussianNIW, cfg, 64)
+        assert data_parallel.collectives.world_group() is None
+        for _ in range(2):
+            a, _ = step(a, prior, batch)
+            b, _ = base.with_batch(b, prior, batch)
+        _same_state(a, b)
 
 
 class TestAdaptiveStepSize:

@@ -218,6 +218,27 @@ fails:
             streamed trainer over a .npy corpus killed at 5 of 10 steps and
             resumed on every rank (the same sha256). A rank that raises or
             outlives 300 s fails the phase. One card measures no scaling.
+14. kernel modes: the fused kernels' three modes (``in_kernel_feats``,
+            ``gamma_sel``, bf16-stored alpha). (a) NIW and NIG at D=8 on the
+            raw observations: the fused pair at every built S, the duplex
+            chain at every built S and the combine, gated and not,
+            emit_gamma both ways, at K = 64, 65, 128, 256 and B = 1, 3,
+            1024 (T = 1000, 300 at K = 256), every output the array mode's
+            on ``ell_features(obs)`` by sha256, and the default S against
+            the twins in the mode. (b) The gated fused backward at W=70,
+            B = 32, 256, 1024, K = 64 and 128 with the pick at each window's
+            kept offset: emit_gamma's gamma there bit for bit, acc, eacc
+            and the E-step's log_c those without the pick. (c) bf16 alpha:
+            float32's alpha rounded bit for bit at every S, s the rounded
+            sums, statistics and log Z in JAX's band, ``exact=True`` the
+            float32 bits; config 4's windowed SVI with bf16 alpha (params
+            finite and psi factorisable after every step, Hamming printed).
+            The main path in the modes: VB with in-kernel features for both
+            Gaussian families on "fused" and "duplex" (the array mode's
+            ELBOs bit for bit) and SVI with the pick (the gather's params).
+            (d) Times by CUDA events: each mode's kernels beside their
+            twins and bounds, bench.py's E-step array against in-kernel at
+            K = 64, 128, 256, the SVI step with and without the pick.
 
 The last lines are the card line, one JSON line describing the kernels (every
 kernel and instance tier: K <= 64, KP = 128, KP = 256, the split and duplex
@@ -932,6 +953,8 @@ def reset_kernel_counts() -> None:
     df.reset_launch_counts()
     sp.reset_launch_counts()
     ff.outer_launches(clear=True)
+    for name in ff.PREP_KERNELS:
+        ff.prep_launches(name, clear=True)
 
 
 ROUTE_KERNELS = {"auto": ("fused_fwd_kernel", "fused_bwd_kernel"),
@@ -2977,6 +3000,711 @@ def parallel_phase(dev, tmp: str, lc: dict) -> dict[str, float]:
     return ms
 
 
+# ---------------------------------------------------------------- phase 14
+
+MODE_D = 8  # the observations' width of phase 14 (NIW F = 45, NIG F = 17)
+MODE_KINDS = ("niw", "nig")
+MODE_KS = (64, 65, 128, 256)  # both tiers, both ends of the first large-K one
+MODE_BS = (1, 3, 1024)
+SEL_BS, SEL_KS = SVI_BATCHES, (64, 128)  # (b): the gamma pick at the SVI shape
+BF16_PROBE_STEPS = 20  # (c): config 4's windowed SVI with bf16 alpha
+MODE_VB_ITERS = 3  # the main path in the modes: VB iterations a family and route
+MODE_SVI_STEPS = 10  # and SVI steps with the gamma pick
+MODE_WIDE_K = 128  # the main path's large-K runs in the modes (the operand kernels)
+MODE_REPS, MODE_ITERS = 7, 5  # (d): the median of MODE_REPS means of MODE_ITERS calls
+# the kernels line's rows of the modes: (row, kernel, mode, source, replaces)
+MODE_ROWS = (
+    ("fused_fwd_kernel<niw>", "fused_fwd_kernel", "niw", "fused_fb.cu", "pallas_fb.py:516"),
+    ("fused_bwd_kernel<niw>", "fused_bwd_kernel", "niw", "fused_fb.cu", "pallas_fb.py:577"),
+    ("fused_fwd_kernel<nig>", "fused_fwd_kernel", "nig", "fused_fb.cu", "pallas_fb.py:516"),
+    ("fused_bwd_kernel<nig>", "fused_bwd_kernel", "nig", "fused_fb.cu", "pallas_fb.py:577"),
+    ("fused_bwd_kernel<gamma_sel>", "fused_bwd_kernel", "gamma_sel", "fused_fb.cu",
+     "pallas_fb.py:577"),
+    ("fused_fwd_kernel<bf16 alpha>", "fused_fwd_kernel", "bf16", "fused_fb.cu",
+     "pallas_fb.py:516"),
+    ("fused_bwd_kernel<bf16 alpha>", "fused_bwd_kernel", "bf16", "fused_fb.cu",
+     "pallas_fb.py:577"),
+    ("duplex_chain_kernel<niw>", "duplex_chain_kernel", "niw", "duplex_fb.cu",
+     "pallas_duplex.py:82"),
+    ("duplex_combine_kernel<niw>", "duplex_combine_kernel", "niw", "duplex_fb.cu",
+     "pallas_duplex.py:175"),
+    ("duplex_chain_kernel<nig>", "duplex_chain_kernel", "nig", "duplex_fb.cu",
+     "pallas_duplex.py:82"),
+    ("duplex_combine_kernel<nig>", "duplex_combine_kernel", "nig", "duplex_fb.cu",
+     "pallas_duplex.py:175"),
+)
+
+
+def mode_T(K_: int) -> int:
+    """T of phase 14 (a) at K_: 300 at K = 256, where B = 1024 then cuts
+    three windows of the large-K statistics (128, 128 and 44 steps)."""
+    return 300 if K_ == 256 else T
+
+
+def mode_problem(gen, B_, T_, K_, D_, kind):
+    """E-step inputs of a built feature kind from the seeded ``gen``:
+    (log_pi, log_A, W (F, K), obs (T, B, D)) float32 on the card, the raw
+    observations time-major. W of a posterior near the generating states:
+    random_problem's NIW for "niw", a diagonal NIG for "nig"."""
+    import torch
+
+    from pysvihmm_tpu_torch.data.synthetic import gen_gaussian_dataset
+    from pysvihmm_tpu_torch.distributions import diag_gaussian, dirichlet, niw
+
+    dev = gen.device
+    obs, _, truth = gen_gaussian_dataset(gen, K_, D_, B_, T_, mean_scale=0.5, cov_scale=1.0)
+    mu = truth.theta[0]
+
+    def u(*shape, lo=0.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    mean = mu + 0.3 * torch.randn(mu.shape, generator=gen, device=dev)
+    if kind == "niw":
+        q = niw.NIW(mean=mean, kappa=u(K_, lo=2.0, hi=20.0), nu=D_ + 2.0 + u(K_, lo=3.0, hi=20.0),
+                    psi=5.0 * (u(K_, 1, 1, lo=0.5, hi=2.0) * torch.eye(D_, device=dev) + 0.1))
+        W = niw.ell_feature_matrix(q)
+    else:
+        q = diag_gaussian.NIG(mean=mean, kappa=u(K_, D_, lo=2.0, hi=20.0),
+                              a=u(K_, D_, lo=3.0, hi=20.0), b=u(K_, D_, lo=2.0, hi=10.0))
+        W = diag_gaussian.ell_feature_matrix(q)
+    log_pi = dirichlet.expected_log_probs(u(K_, lo=1.0, hi=3.0))
+    log_A = dirichlet.expected_log_probs(u(K_, K_, lo=1.0, hi=3.0)
+                                         + 5.0 * torch.eye(K_, device=dev))
+    return (log_pi, log_A, W.to(torch.float32).contiguous(),
+            obs.transpose(0, 1).to(torch.float32).contiguous())
+
+
+def same_bits(a, b) -> bool:
+    """Two kernels' outputs (tensors or tuples of them, None for a gamma not
+    emitted) hold the same bits, compared on the card: each pair of leaves
+    of one dtype and shape, viewed as integers of their width (so -0 and +0
+    differ, and a NaN equals only its own bits)."""
+    import torch
+
+    xs, ys = flat_leaves(tuple(a)), flat_leaves(tuple(b))
+    if len(xs) != len(ys):
+        return False
+    for x, y in zip(xs, ys):
+        if x is None or y is None:
+            if x is not y:
+                return False
+            continue
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+        if not torch.equal(x.contiguous().view(ints), y.contiguous().view(ints)):
+            return False
+    return True
+
+
+def require_same(what: str, a, b) -> None:
+    require(same_bits(a, b), f"{what}: not the same bits")
+
+
+def check_mode_features(gen, kind, K_, B_, T_, twins: bool = True) -> dict[str, float]:
+    """Phase 14 (a) at one shape: the fused pair at every built S, the
+    duplex chain at every built S and the combine, each on the raw
+    observations of ``kind`` against the array mode on ``ell_features(obs)``
+    (gated and not, emit_gamma both ways), bit for bit; with ``twins`` the
+    default S against the plain twins in the mode. Returns the twins' max
+    errors: the forward's and the chain's log_c, the backward's and the
+    combine's gamma (0 without twins)."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import duplex_fb as df
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.messages.split_fb import exp_params
+
+    log_pi, log_A, W, obs = mode_problem(gen, B_, T_, K_, MODE_D, kind)
+    feats = ff.build_features(obs, kind)
+    pi_t, A_t = exp_params(log_pi, log_A)
+    w = svi_masks(gen, B_, T_, max(1, (5 * T_) // 7))
+    fwd = None
+    for S in ff.built_seqs(K_):
+        fwd = ff._launch_forward(S, pi_t, A_t, W, feats)
+        require_same(f"fused forward {kind} K={K_} B={B_} S={S}", fwd,
+                     ff._launch_forward(S, pi_t, A_t, W, obs, kind))
+        for wg in (None, w):
+            for emit in (True, False):
+                require_same(f"fused backward {kind} K={K_} B={B_} S={S} gated={wg is not None} "
+                             f"emit_gamma={emit}",
+                             ff._launch_backward(S, A_t, W, feats, *fwd, emit, wg),
+                             ff._launch_backward(S, A_t, W, obs, *fwd, emit, wg, kind))
+    for S in df.built_seqs(K_):
+        chain = df._launch_chain(S, pi_t, A_t, W, feats)
+        require_same(f"duplex chain {kind} K={K_} B={B_} S={S}", chain,
+                     df._launch_chain(S, pi_t, A_t, W, obs, kind))
+    a_c, _, sh_c, b_c = chain
+    for wg in (None, w):
+        for emit in (True, False):
+            require_same(f"duplex combine {kind} K={K_} B={B_} gated={wg is not None} "
+                         f"emit_gamma={emit}",
+                         df.duplex_combine(W, feats, a_c, b_c, sh_c, emit, wg),
+                         df.duplex_combine(W, obs, a_c, b_c, sh_c, emit, wg, kind))
+    torch.cuda.synchronize()
+    errs = {"fwd": 0.0, "bwd": 0.0, "chain": 0.0, "combine": 0.0}
+    if not twins:
+        return errs
+    log(f"   {kind} K={K_} B={B_} T={T_}: the default S against the twins")
+    alpha, s, sh = ff.fused_forward(pi_t, A_t, W, obs, kind)
+    a_r, s_r, sh_r = ff.forward_reference(pi_t, A_t, W, obs, kind)
+    compare("alpha", alpha, a_r, 0.0, 5e-5)
+    errs["fwd"] = compare("log_c", torch.log(s) + sh, torch.log(s_r) + sh_r, 2e-6, 1e-4)
+    got = ff.fused_backward(A_t, W, obs, a_r, s_r, sh_r, True, w, kind)
+    ref = ff.backward_reference(A_t, W, obs, a_r, s_r, sh_r, True, w, kind)
+    for name, x, r, rtol, atol in zip(("gamma", "gamma0", "acc", "eacc"), got, ref,
+                                      (0.0, 0.0, 1e-4, 3e-3), (5e-5, 5e-5, 1e-3, 2e-3)):
+        e = compare(name, x, r, rtol, atol)
+        errs["bwd"] = e if name == "gamma" else errs["bwd"]
+    alpha, s, sh, beta = df.duplex_chain(pi_t, A_t, W, obs, kind)
+    a_r, s_r, sh_r, b_r = df.duplex_chain_reference(pi_t, A_t, W, obs, kind)
+    compare("chain beta", beta, b_r, 0.0, 5e-5)
+    errs["chain"] = compare("chain log_c", torch.log(s) + sh, torch.log(s_r) + sh_r, 2e-6, 1e-4)
+    got = df.duplex_combine(W, obs, a_r, b_r, sh_r, True, w, kind)
+    ref = df.duplex_combine_reference(W, obs, a_r, b_r, sh_r, True, w, kind)
+    for name, x, r, rtol, atol in zip(("gamma", "gamma0", "acc", "eacc"), got, ref,
+                                      (0.0, 0.0, 1e-4, 3e-3), (5e-5, 5e-5, 1e-3, 2e-3)):
+        e = compare(f"combine {name}", x, r, rtol, atol)
+        errs["combine"] = e if name == "gamma" else errs["combine"]
+    return errs
+
+
+def check_gamma_sel(gen, B_, K_) -> float:
+    """Phase 14 (b) at one shape: the gated fused backward with the pick at
+    each window's kept offset gives the emit_gamma run's gamma gathered
+    there, bit for bit, and its acc and eacc are the run's without the pick;
+    the E-step's log_c likewise (s and sh are the forward's). Returns the
+    pick's max error against the twin's."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.messages.split_fb import exp_params
+
+    W_, L_ = SVI_W, SVI_L
+    log_pi, log_A, W, obs = mode_problem(gen, B_, W_, K_, MODE_D, "niw")
+    feats = ff.build_features(obs, "niw")
+    offs = torch.randint(0, W_ - L_ + 1, (B_,), generator=gen, device=gen.device)
+    t = torch.arange(W_, device=gen.device)[:, None]
+    w = ((t >= offs) & (t < offs + L_)).to(torch.float32).contiguous()
+    pi_t, A_t = exp_params(log_pi, log_A)
+    fwd = ff.fused_forward(pi_t, A_t, W, feats)
+    full = ff.fused_backward(A_t, W, feats, *fwd, True, w)
+    plain = ff.fused_backward(A_t, W, feats, *fwd, False, w)
+    picked = ff.fused_backward(A_t, W, feats, *fwd, False, w, gamma_sel=offs)
+    rows = torch.arange(B_, device=gen.device)
+    require(picked[0] is None, "(b): gamma written with the pick")
+    require(torch.equal(picked[1], full[0][offs, rows]),
+            f"(b) B={B_} K={K_}: the pick is not emit_gamma's gamma at offs")
+    require(same_bits(picked[2:], plain[2:]),
+            f"(b) B={B_} K={K_}: acc and eacc differ with the pick")
+    fk, Sk = ff.estep_fused(log_pi, log_A, W, obs, weights=w, gamma_sel=offs,
+                            in_kernel_feats="niw")
+    fp, Sp = ff.estep_fused(log_pi, log_A, W, feats, weights=w)
+    require(torch.equal(fk.log_c, fp.log_c) and torch.equal(Sk, Sp)
+            and torch.equal(fk.trans_stats, fp.trans_stats),
+            f"(b) B={B_} K={K_}: the E-step's log_c or statistics differ with the pick")
+    ref = ff.backward_reference(A_t, W, feats, *fwd, False, w, gamma_sel=offs)
+    return compare(f"pick B={B_} K={K_}", picked[1], ref[1], 0.0, 5e-5)
+
+
+def check_bf16_alpha(gen, B_, T_, K_) -> dict[str, float]:
+    """Phase 14 (c) at one shape: the bf16-stored alpha is the float32
+    kernel's rounded, bit for bit (the chain carries float32), s the sum of
+    the rounded values (against the twin's sum), sh the float32 run's;
+    statistics and log Z within JAX's band of float32
+    (tests/test_precision.py:251-270); ``exact=True`` gives the float32 bits.
+    Returns the forward's alpha and the backward's gamma errors against the
+    bf16 twins."""
+    import torch
+
+    from pysvihmm_tpu_torch.distributions import GaussianNIW
+    from pysvihmm_tpu_torch.engines.base import batch_local_step
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.messages.split_fb import exp_params
+    from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
+
+    log_pi, log_A, W, obs = mode_problem(gen, B_, T_, K_, MODE_D, "niw")
+    pi_t, A_t = exp_params(log_pi, log_A)
+    for S in ff.built_seqs(K_):
+        a32, s32, sh32 = ff._launch_forward(S, pi_t, A_t, W, obs, "niw")
+        a16, s16, sh16 = ff._launch_forward(S, pi_t, A_t, W, obs, "niw", torch.bfloat16)
+        require(a16.dtype == torch.bfloat16 and torch.equal(a16, a32.to(torch.bfloat16)),
+                f"(c) K={K_} S={S}: the stored alpha is not float32's rounded")
+        require(torch.equal(sh16, sh32), f"(c) K={K_} S={S}: sh differs")
+    compare("s: the sum of the rounded alpha", s16, a16.float().sum(-1).T, 1e-6, 0.0)
+    a_r, s_r, sh_r = ff.forward_reference(pi_t, A_t, W, obs, "niw", torch.bfloat16)
+    # the kernel's and the twin's float32 alpha differ by their summation
+    # order (~1e-8), so near a rounding boundary their bf16 values differ by
+    # one bf16 ulp: 2^-8 of the largest alpha
+    errs = {"fwd": compare("bf16 alpha against the twin", a16.float(), a_r.float(), 2.0 ** -8,
+                           5e-5)}
+    got = ff.fused_backward(A_t, W, obs, a16, s16, sh16, True, None, "niw")
+    ref = ff.backward_reference(A_t, W, obs, a16, s16, sh16, True, None, "niw")
+    for name, x, r, rtol, atol in zip(("gamma", "gamma0", "acc", "eacc"), got, ref,
+                                      (0.0, 0.0, 1e-4, 3e-3), (5e-5, 5e-5, 1e-3, 2e-3)):
+        e = compare(f"bf16 {name}", x, r, rtol, atol)
+        errs["bwd"] = e if name == "gamma" else errs.get("bwd", 0.0)
+    bf, bS = ff.estep_fused(log_pi, log_A, W, obs, in_kernel_feats="niw",
+                            alpha_dtype=torch.bfloat16)
+    f32, fS = ff.estep_fused(log_pi, log_A, W, obs, in_kernel_feats="niw")
+    dz = abs(bf.log_z.double().sum().item() - f32.log_z.double().sum().item())
+    rel_z = dz / abs(f32.log_z.double().sum().item())
+    rel_s = ((bS - fS).abs().max() / fS.abs().max()).item()
+    rel_t = ((bf.trans_stats - f32.trans_stats).abs().max() / f32.trans_stats.abs().max()).item()
+    log(f"   bf16 against float32 at K={K_}: log Z {rel_z:.3e}, emit {rel_s:.3e}, trans "
+        f"{rel_t:.3e} relative (JAX's band: log Z < 1e-3, the statistics < 2e-2)")
+    require(rel_z < 1e-3 and rel_s < 2e-2 and rel_t < 2e-2, "(c): bf16 alpha outside the band")
+    y = obs.transpose(0, 1).contiguous()
+    prior = make_prior(K_, GaussianNIW, obs_dim=MODE_D, device=gen.device)
+    p = init_params(gen, prior, GaussianNIW, y)
+    ex = batch_local_step(p, GaussianNIW, y, "fused", need_gamma=False, exact=True,
+                          bf16_alpha=True)[0]
+    ref32 = batch_local_step(p, GaussianNIW, y, "fused", need_gamma=False)[0]
+    require(same_bits(ex, ref32), "(c): exact=True is not float32's bits")
+    return errs
+
+
+def median_ms(fn) -> float:
+    """The median over MODE_REPS of the mean ms of MODE_ITERS calls (CUDA
+    events, one warm-up call first)."""
+    from pysvihmm_tpu_torch.scripts.debug_split import cuda_ms
+
+    xs = sorted(cuda_ms(fn, MODE_ITERS, warmup=1 if i == 0 else 0) for i in range(MODE_REPS))
+    return xs[len(xs) // 2]
+
+
+def modes_main_path(dev) -> tuple[dict, float]:
+    """The main path in the modes, the counts set to 0 just before and read
+    just after: batch VB (B, T, K, D = 1024, 1000, 64, 8) with in-kernel
+    features for both Gaussian families on "fused" and "duplex" (the ELBOs
+    the array mode's, bit for bit), then windowed SVI at B = 1024 with the
+    gamma pick (the parameters the gather's, bit for bit); then at K =
+    MODE_WIDE_K, where the statistics' operands are made a window at a
+    time, VB on "duplex" with in-kernel NIW features (the array mode's
+    ELBOs, bit for bit) and windowed SVI on "fused" with in-kernel NIW
+    features and bf16 alpha (every parameter finite and factorisable).
+    Returns the launches by (kernel, mode), and by name for the operand
+    kernels, and the set-up seconds."""
+    import torch
+
+    from pysvihmm_tpu_torch.data.synthetic import gen_diag_gaussian_dataset, gen_gaussian_dataset
+    from pysvihmm_tpu_torch.distributions import DiagonalGaussianNIG, GaussianNIW
+    from pysvihmm_tpu_torch.engines import batch_vb, svi
+    from pysvihmm_tpu_torch.engines.base import prepare_fused_obs
+    from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
+
+    t0 = time.perf_counter()
+    data = {}
+    for fam, make, kw in ((GaussianNIW, gen_gaussian_dataset, {"cov_scale": 1.0}),
+                          (DiagonalGaussianNIG, gen_diag_gaussian_dataset, {"var_scale": 1.0})):
+        g = torch.Generator(device=dev).manual_seed(41)
+        obs = make(g, K, MODE_D, B, T, mean_scale=0.5, **kw)[0]
+        prior = make_prior(K, fam, obs_dim=MODE_D, device=dev)
+        data[fam] = (obs, prior, init_params(g, prior, fam, obs))
+    g = torch.Generator(device=dev).manual_seed(42)
+    chain = gen_gaussian_dataset(g, K, MODE_D, 1, SVI_T, mean_scale=0.5, cov_scale=1.0)[0][0]
+    prior_c = make_prior(K, GaussianNIW, obs_dim=MODE_D, device=dev)
+    p_c = init_params(g, prior_c, GaussianNIW, chain)
+    g = torch.Generator(device=dev).manual_seed(51)
+    obs_w = gen_gaussian_dataset(g, MODE_WIDE_K, MODE_D, B, T, mean_scale=0.5,
+                                 cov_scale=1.0)[0]
+    prior_w = make_prior(MODE_WIDE_K, GaussianNIW, obs_dim=MODE_D, device=dev)
+    data_w = (obs_w, prior_w, init_params(g, prior_w, GaussianNIW, obs_w))
+    chain_w = gen_gaussian_dataset(g, MODE_WIDE_K, MODE_D, 1, SVI_T, mean_scale=0.5,
+                                   cov_scale=1.0)[0][0]
+    p_cw = init_params(g, prior_w, GaussianNIW, chain_w)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def vb(fam, route, ik, problem=None):
+        obs, prior, p = problem or data[fam]
+        step = batch_vb.make_step(fam, route, in_kernel_feats=ik)
+        prepared = prepare_fused_obs(p, fam, obs, in_kernel_feats=ik)
+        elbos = []
+        for _ in range(MODE_VB_ITERS):
+            p, e = step(p, prior, obs, prepared)
+            elbos.append(e)
+        return torch.stack(elbos)
+
+    cfg = svi.SVIConfig(batch_size=B, subchain_len=SVI_L, buffer=SVI_BUF)
+
+    def svi_steps(pick):
+        step = svi.make_step(GaussianNIW, cfg, SVI_T, "fused", gamma_sel=pick)
+        state = svi.init_state(p_c, torch.Generator(device=dev).manual_seed(43))
+        for _ in range(MODE_SVI_STEPS):
+            state, _ = step(state, prior_c, chain)
+        return state.params
+
+    def svi_wide():
+        step = svi.make_step(GaussianNIW, cfg, SVI_T, "fused", in_kernel_feats=True,
+                             bf16_alpha=True)
+        state = svi.init_state(p_cw, torch.Generator(device=dev).manual_seed(52))
+        for i in range(MODE_SVI_STEPS):
+            state, _ = step(state, prior_w, chain_w)
+            require_sane_params(state.params, f"(main path) K={MODE_WIDE_K} SVI step {i} with "
+                                "in-kernel features and bf16 alpha")
+
+    reset_kernel_counts()
+    with_modes = {(fam, route): vb(fam, route, True) for fam in data
+                  for route in ("fused", "duplex")}
+    picked = svi_steps(True)
+    wide_elbos = vb(GaussianNIW, "duplex", True, data_w)
+    svi_wide()
+    torch.cuda.synchronize()
+    counts = {}
+    for kernel, fn in mode_launchers().items():
+        for mode, n in fn.mode_launches.items():
+            counts[kernel, mode] = n
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+
+    for name in ff.PREP_KERNELS:
+        counts[name] = ff.prep_launches(name)
+    log(f"  the main path in the modes: launches by (kernel, mode) {counts}")
+    require(torch.equal(wide_elbos, vb(GaussianNIW, "duplex", False, data_w)),
+            f"(main path) K={MODE_WIDE_K} duplex: the in-kernel VB ELBOs are not the array "
+            "mode's")
+    log(f"   GaussianNIW duplex at K={MODE_WIDE_K}: {MODE_VB_ITERS} VB iterations with in-kernel "
+        f"features, ELBO {wide_elbos[-1].item():.6e}, the array mode's bit for bit; "
+        f"{MODE_SVI_STEPS} SVI steps on fused with in-kernel features and bf16 alpha, finite "
+        "and factorisable")
+    for (fam, route), e in with_modes.items():
+        ref = vb(fam, route, False)
+        require_ascending(e, f"(main path) {fam.__name__} {route} in-kernel VB")
+        require(torch.equal(e, ref), f"(main path) {fam.__name__} {route}: the in-kernel VB "
+                "ELBOs are not the array mode's")
+        log(f"   {fam.__name__} {route}: {MODE_VB_ITERS} VB iterations with in-kernel features, "
+            f"ELBO {e[-1].item():.6e}, the array mode's bit for bit")
+    require(same_bits(picked, svi_steps(False)),
+            "(main path) SVI with the gamma pick is not the gather's, bit for bit")
+    log(f"   {MODE_SVI_STEPS} SVI steps at B={B} with the gamma pick: the gather's parameters "
+        "bit for bit")
+    return counts, setup_s
+
+
+def mode_launchers() -> dict:
+    from pysvihmm_tpu_torch.messages import duplex_fb as df
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+
+    return {"fused_fwd_kernel": ff.fused_forward, "fused_bwd_kernel": ff.fused_backward,
+            "duplex_chain_kernel": df.duplex_chain, "duplex_combine_kernel": df.duplex_combine}
+
+
+def bf16_probe(dev) -> str:
+    """Phase 14 (c): config 4's windowed-SVI probe with bf16 alpha (K = 64,
+    D = 8, one chain of SVI_T steps, B = 1024, L, b as phase 6): every
+    parameter finite and every NIW psi factorisable after each of
+    BF16_PROBE_STEPS steps, and the Hamming error of the final posterior's
+    decode beside the float32 run's. Returns a summary line."""
+    import torch
+
+    from pysvihmm_tpu_torch.data.synthetic import gen_gaussian_dataset
+    from pysvihmm_tpu_torch.distributions import GaussianNIW
+    from pysvihmm_tpu_torch.engines import svi
+    from pysvihmm_tpu_torch.engines.base import decode
+    from pysvihmm_tpu_torch.eval.metrics import hamming_error
+    from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
+
+    g = torch.Generator(device=dev).manual_seed(44)
+    obs, z, _ = gen_gaussian_dataset(g, K, MODE_D, 1, SVI_T)
+    chain = obs[0]
+    prior = make_prior(K, GaussianNIW, obs_dim=MODE_D, device=dev)
+    p0 = init_params(g, prior, GaussianNIW, chain)
+    cfg = svi.SVIConfig(batch_size=B, subchain_len=SVI_L, buffer=SVI_BUF)
+    hams = {}
+    for bf16 in (True, False):
+        step = svi.make_step(GaussianNIW, cfg, SVI_T, "fused", bf16_alpha=bf16)
+        state = svi.init_state(p0, torch.Generator(device=dev).manual_seed(45))
+        for i in range(BF16_PROBE_STEPS):
+            state, m = step(state, prior, chain)
+            require(bool(torch.isfinite(m["noisy_elbo"])), f"(c) probe step {i}: noisy ELBO")
+            require_sane_params(state.params, f"(c) probe step {i} bf16={bf16}")
+        torch.cuda.synchronize()
+        hams[bf16] = hamming_error(decode(state.params, GaussianNIW, chain[None]), z, K)
+    line = (f"config-4 probe, {BF16_PROBE_STEPS} windowed SVI steps at K={K}, D={MODE_D}, "
+            f"T={SVI_T}, B={B}: finite and factorisable after every step; Hamming bf16 alpha "
+            f"{hams[True]:.4f}, float32 {hams[False]:.4f}")
+    log(f"  {line}")
+    return line
+
+
+def time_modes(dev) -> tuple[dict, dict, dict, list[str]]:
+    """Phase 14 (d): by CUDA events, the median of MODE_REPS means of
+    MODE_ITERS calls, at (B, T, K, D) = (1024, 1000, 64, 8): each mode's
+    kernels, their plain twins and their bounds; bench.py's E-step on
+    "fused" and "duplex", array against in-kernel features at K = 64, 128,
+    256; the SVI step at SVI_BATCHES with and without the gamma pick; the
+    fused pair with float32 and bf16 alpha. Returns (ms, plain_ms, bounds)
+    by row of MODE_ROWS (and the array mode's kernels) and the log lines."""
+    import torch
+
+    from pysvihmm_tpu_torch.data.synthetic import gen_gaussian_dataset
+    from pysvihmm_tpu_torch.distributions import GaussianNIW
+    from pysvihmm_tpu_torch.distributions.niw import NIW
+    from pysvihmm_tpu_torch.engines import svi
+    from pysvihmm_tpu_torch.engines.base import batch_local_step
+    from pysvihmm_tpu_torch.messages import duplex_fb as df
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.messages.split_fb import exp_params
+    from pysvihmm_tpu_torch.models.hmm import HMMParams, init_params, make_prior
+    from pysvihmm_tpu_torch.scripts.debug_split import cuda_ms
+    from pysvihmm_tpu_torch.utils.roofline import bound, kernel_work
+
+    ms, plain_ms, bounds, lines = {}, {}, {}, []
+    gen = torch.Generator(device=dev).manual_seed(46)
+    for kind in (None, *MODE_KINDS):
+        log_pi, log_A, W, obs = mode_problem(gen, B, T, K, MODE_D, kind or "niw")
+        F_ = W.shape[0]
+        src = obs if kind else ff.build_features(obs, "niw")
+        Dk = MODE_D if kind else 0
+        pi_t, A_t = exp_params(log_pi, log_A)
+        fwd = ff.fused_forward(pi_t, A_t, W, src, kind)
+        chain = df.duplex_chain(pi_t, A_t, W, src, kind)
+        a_c, _, sh_c, b_c = chain
+        runs = {
+            "fused_fwd_kernel": (lambda: ff.fused_forward(pi_t, A_t, W, src, kind),
+                                 lambda: ff.forward_reference(pi_t, A_t, W, src, kind), {}),
+            "fused_bwd_kernel": (lambda: ff.fused_backward(A_t, W, src, *fwd, False, None, kind),
+                                 lambda: ff.backward_reference(A_t, W, src, *fwd, False, None,
+                                                               kind), {}),
+            "duplex_chain_kernel": (lambda: df.duplex_chain(pi_t, A_t, W, src, kind),
+                                    lambda: df.duplex_chain_reference(pi_t, A_t, W, src, kind),
+                                    {}),
+            "duplex_combine_kernel": (
+                lambda: df.duplex_combine(W, src, a_c, b_c, sh_c, False, None, kind),
+                lambda: df.duplex_combine_reference(W, src, a_c, b_c, sh_c, False, None, kind),
+                {}),
+        }
+        if kind == "niw":
+            a16 = ff.fused_forward(pi_t, A_t, W, src, kind, torch.bfloat16)
+            runs["fused_fwd_kernel<bf16 alpha>"] = (
+                lambda: ff.fused_forward(pi_t, A_t, W, src, kind, torch.bfloat16),
+                lambda: ff.forward_reference(pi_t, A_t, W, src, kind, torch.bfloat16),
+                {"bf16_alpha": True})
+            runs["fused_bwd_kernel<bf16 alpha>"] = (
+                lambda: ff.fused_backward(A_t, W, src, *a16, False, None, kind),
+                lambda: ff.backward_reference(A_t, W, src, *a16, False, None, kind),
+                {"bf16_alpha": True})
+        for name, (kernel, twin, kw) in runs.items():
+            row = name if "<" in name else (f"{name}<{kind}>" if kind else name)
+            base = name.split("<")[0]
+            ms[row] = median_ms(kernel)
+            plain_ms[row] = cuda_ms(twin, 1, warmup=1)
+            bounds[row] = bound(*kernel_work(base, B, T, K, F_, D=Dk, **kw))
+            lines.append(f"{row} at (B, T, K, F) = ({B}, {T}, {K}, {F_}): {ms[row]:.4f} ms, "
+                         f"twin {plain_ms[row]:.2f} ms, bound {bounds[row][0]:.4f} ms "
+                         f"({bounds[row][1]})")
+            log(f"  {lines[-1]}")
+        del fwd, chain, a_c, b_c, sh_c
+        torch.cuda.empty_cache()
+
+    # the gamma pick at the SVI shape: the gated backward, W = 70, K = 64
+    log_pi, log_A, W, obs = mode_problem(gen, B, SVI_W, K, MODE_D, "niw")
+    feats = ff.build_features(obs, "niw")
+    offs = torch.randint(0, SVI_W - SVI_L + 1, (B,), generator=gen, device=dev)
+    tt = torch.arange(SVI_W, device=dev)[:, None]
+    w = ((tt >= offs) & (tt < offs + SVI_L)).to(torch.float32).contiguous()
+    pi_t, A_t = exp_params(log_pi, log_A)
+    fwd = ff.fused_forward(pi_t, A_t, W, feats)
+    rows = torch.arange(B, device=dev)
+    row = "fused_bwd_kernel<gamma_sel>"
+    ms[row] = median_ms(lambda: ff.fused_backward(A_t, W, feats, *fwd, False, w, gamma_sel=offs))
+    gather_ms = median_ms(lambda: ff.fused_backward(A_t, W, feats, *fwd, True, w)[0][offs, rows])
+    plain_ms[row] = cuda_ms(lambda: ff.backward_reference(A_t, W, feats, *fwd, False, w,
+                                                          gamma_sel=offs), 1, warmup=1)
+    bounds[row] = bound(*kernel_work("fused_bwd_kernel", B, SVI_W, K, W.shape[0], gated=True))
+    lines.append(f"{row} at the SVI shape (B, W, K, F) = ({B}, {SVI_W}, {K}, {W.shape[0]}), "
+                 f"gated: {ms[row]:.4f} ms against emit_gamma and the gather {gather_ms:.4f} ms; "
+                 f"twin {plain_ms[row]:.2f} ms, bound {bounds[row][0]:.4f} ms ({bounds[row][1]})")
+    log(f"  {lines[-1]}")
+
+    carry = torch.zeros((), device=dev)
+    for K_ in (K, *LARGE_K):
+        g = torch.Generator(device=dev).manual_seed(47)
+        obs = gen_gaussian_dataset(g, K_, MODE_D, B, T)[0]
+        prior = make_prior(K_, GaussianNIW, obs_dim=MODE_D, device=dev)
+        params = init_params(g, prior, GaussianNIW, obs)
+
+        def estep(route, ik, bf16=False):
+            # bench.py:62-84: perturb every parameter group, consume every stat
+            nonlocal carry
+            eps = carry * 1e-30
+            p = HMMParams(init=params.init + eps, trans=params.trans + eps,
+                          emit=NIW(*(x + eps for x in params.emit)))
+            stats, _ = batch_local_step(p, GaussianNIW, obs, route, need_gamma=False,
+                                        in_kernel_feats=ik, bf16_alpha=bf16)
+            tot = stats.log_z + stats.trans.sum() + stats.init.sum()
+            tot = tot + sum(x.sum() for x in stats.emit)
+            carry = tot * 0.0 + carry
+            return tot
+
+        parts = []
+        for route in ("fused", "duplex"):
+            for ik in (False, True):
+                t_ms = median_ms(lambda: estep(route, ik))
+                parts.append(f"{route} {'in-kernel' if ik else 'array'} {t_ms:.3f} ms")
+                ms[f"estep {route} {'in-kernel' if ik else 'array'} K={K_}"] = t_ms
+        if K_ == K:
+            t_ms = median_ms(lambda: estep("fused", True, True))
+            parts.append(f"fused in-kernel, bf16 alpha {t_ms:.3f} ms")
+        lines.append(f"bench.py's E-step at (B, T, K, D) = ({B}, {T}, {K_}, {MODE_D}), "
+                     "need_gamma=False, features (array) or observations (in-kernel) prepared "
+                     "per call: " + "; ".join(parts))
+        log(f"  {lines[-1]}")
+        del obs, params
+        torch.cuda.empty_cache()
+
+    g = torch.Generator(device=dev).manual_seed(48)
+    chain = gen_gaussian_dataset(g, K, MODE_D, 1, SVI_T, mean_scale=0.5, cov_scale=1.0)[0][0]
+    prior = make_prior(K, GaussianNIW, obs_dim=MODE_D, device=dev)
+    p0 = init_params(g, prior, GaussianNIW, chain)
+    for Bs in SVI_BATCHES:
+        cfg = svi.SVIConfig(batch_size=Bs, subchain_len=SVI_L, buffer=SVI_BUF)
+        parts = []
+        for pick in (False, True):
+            step = svi.make_step(GaussianNIW, cfg, SVI_T, "fused", gamma_sel=pick)
+            state = [svi.init_state(p0, torch.Generator(device=dev).manual_seed(49))]
+
+            def one():
+                state[0] = step(state[0], prior, chain)[0]
+
+            t_ms = median_ms(one)
+            ms[f"svi B={Bs} gamma_sel={pick}"] = t_ms
+            parts.append(f"{'gamma_sel' if pick else 'gather'} {t_ms:.3f} ms")
+        lines.append(f"SVI step on fused at B={Bs}, L={SVI_L}, b={SVI_BUF}: " + "; ".join(parts))
+        log(f"  {lines[-1]}")
+    f32 = ms["fused_fwd_kernel<niw>"] + ms["fused_bwd_kernel<niw>"]
+    b16 = ms["fused_fwd_kernel<bf16 alpha>"] + ms["fused_bwd_kernel<bf16 alpha>"]
+    lines.append(f"the fused pair with in-kernel NIW features at (B, T, K, D) = ({B}, {T}, {K}, "
+                 f"{MODE_D}): float32 alpha {f32:.4f} ms, bf16 alpha {b16:.4f} ms")
+    log(f"  {lines[-1]}")
+    return ms, plain_ms, bounds, lines
+
+
+# the kernels line's rows of the large-K statistics' operand kernels in the
+# modes: (kernel, replaces)
+OPERAND_ROWS = (("build_feats_kernel", "pallas_fb.py:287"), ("widen_kernel", "pallas_fb.py:656"))
+
+
+def operand_kernels(dev) -> tuple[dict, list[str]]:
+    """Phase 14 (d): the large-K statistics' two operand kernels at the
+    shapes the main path's K = MODE_WIDE_K SVI step gives them (one window:
+    B = 1024 windows of W = SVI_W steps): build_feats_kernel over the W B
+    observation rows of D = MODE_D for both kinds, widen_kernel over the
+    (W - 1) B rows of K bf16 alphas (acc's rows t >= 1). Each output is its
+    twin's bit for bit; timed by CUDA events (NIW for the build) beside the
+    twin and, for the widening, the one PyTorch call that computes it
+    (``.to(torch.float32)``, which is also its twin). Returns the kernels
+    line's numbers by kernel and the log lines."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.utils.roofline import bound, kernel_work
+
+    gen = torch.Generator(device=dev).manual_seed(53)
+    rows, a_rows = SVI_W * B, (SVI_W - 1) * B
+    obs = torch.randn((rows, MODE_D), generator=gen, device=dev)
+    a16 = torch.rand((a_rows, MODE_WIDE_K), generator=gen, device=dev).to(torch.bfloat16)
+    errs = {}
+    for kind in MODE_KINDS:
+        got, ref = ff.feature_rows(obs, kind), ff.build_features(obs, kind)
+        require_same(f"(d) build_feats_kernel {kind}", (got,), (ref,))
+        errs[kind] = (got - ref).abs().max().item()
+    wide = ff.widen_alpha(a16)
+    require_same("(d) widen_kernel", (wide,), (a16.to(torch.float32),))
+    F_ = ff.feature_width("niw", MODE_D)
+    build = {"ms": median_ms(lambda: ff.feature_rows(obs, "niw")),
+             "plain_ms": median_ms(lambda: ff.build_features(obs, "niw")), "library_ms": None,
+             "max_abs_err": max(errs.values())}
+    build["bound_ms"], build["bound_by"] = bound(*kernel_work("build_feats_kernel", rows, 1, 0,
+                                                              F_, D=MODE_D))
+    lib_ms = median_ms(lambda: a16.to(torch.float32))
+    widen = {"ms": median_ms(lambda: ff.widen_alpha(a16)), "plain_ms": lib_ms,
+             "library_ms": lib_ms, "max_abs_err": (wide - a16.to(torch.float32)).abs().max().item()}
+    widen["bound_ms"], widen["bound_by"] = bound(*kernel_work("widen_kernel", a_rows, 1,
+                                                              MODE_WIDE_K))
+    lines = [f"build_feats_kernel over one window's {rows} rows (NIW, D = {MODE_D} -> F = {F_}; "
+             f"both kinds the twin's bits): {build['ms']:.4f} ms, twin {build['plain_ms']:.4f} "
+             f"ms, bound {build['bound_ms']:.4f} ms ({build['bound_by']})",
+             f"widen_kernel over one window's {a_rows} x {MODE_WIDE_K} bf16 alphas (the twin's "
+             f"bits): {widen['ms']:.4f} ms, .to(torch.float32) {lib_ms:.4f} ms, bound "
+             f"{widen['bound_ms']:.4f} ms ({widen['bound_by']})"]
+    for line in lines:
+        log(f"  {line}")
+    return {"build_feats_kernel": build, "widen_kernel": widen}, lines
+
+
+def kernel_modes_phase(dev) -> tuple[list[dict], list[str]]:
+    """Phase 14: the fused kernels' three modes -- in-kernel NIW and NIG
+    features on the fused pair and the duplex kernels, the fused backward's
+    in-kernel gamma pick and bf16-stored alpha -- against the array mode,
+    the emit-gamma run and float32 bit for bit and against their twins
+    ((a)-(c)), the main path run in the modes, config 4's probe with bf16
+    alpha, and their times (d). Returns the kernels line's rows of the modes
+    and the timing lines."""
+    t_phase = time.perf_counter()
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(50)
+    errs = {}
+    log(f"  (a) in-kernel features, K in {MODE_KS}, B in {MODE_BS}, T = {T} ({mode_T(256)} at "
+        f"K = 256): every built S, gated and not, emit_gamma both ways, bit for bit against "
+        "the array mode; the default S against the twins")
+    for kind in MODE_KINDS:
+        for K_ in MODE_KS:
+            for B_ in MODE_BS:
+                e = check_mode_features(gen, kind, K_, B_, mode_T(K_))
+                if (K_, B_) == (K, B):
+                    errs[kind] = e
+    log(f"  (a) took {time.perf_counter() - t_phase:.1f} s")
+    log(f"  (b) the gamma pick: the gated fused backward at W={SVI_W}, B in {SEL_BS}, K in "
+        f"{SEL_KS}")
+    sel_err = 0.0
+    for K_ in SEL_KS:
+        for B_ in SEL_BS:
+            e = check_gamma_sel(gen, B_, K_)
+            sel_err = e if (K_, B_) == (K, B) else sel_err
+    log(f"  (c) bf16 alpha at (B, T) = ({B}, {T}), K = {K} and 128")
+    bf16_err = check_bf16_alpha(gen, B, T, K)
+    check_bf16_alpha(gen, B, mode_T(128), 128)
+    bf16_probe(dev)
+    log(f"  (a)-(c) took {time.perf_counter() - t_phase:.1f} s")
+    counts, setup_s = modes_main_path(dev)
+    log(f"  the main path took {time.perf_counter() - t_phase:.1f} s ({setup_s:.1f} s of it the "
+        "data on the card)")
+    ms, plain_ms, bounds, lines = time_modes(dev)
+    operands, operand_lines = operand_kernels(dev)
+    lines += operand_lines
+    max_err = {"fused_fwd_kernel<niw>": errs["niw"]["fwd"],
+               "fused_bwd_kernel<niw>": errs["niw"]["bwd"],
+               "fused_fwd_kernel<nig>": errs["nig"]["fwd"],
+               "fused_bwd_kernel<nig>": errs["nig"]["bwd"],
+               "fused_bwd_kernel<gamma_sel>": sel_err,
+               "fused_fwd_kernel<bf16 alpha>": bf16_err["fwd"],
+               "fused_bwd_kernel<bf16 alpha>": bf16_err["bwd"],
+               "duplex_chain_kernel<niw>": errs["niw"]["chain"],
+               "duplex_combine_kernel<niw>": errs["niw"]["combine"],
+               "duplex_chain_kernel<nig>": errs["nig"]["chain"],
+               "duplex_combine_kernel<nig>": errs["nig"]["combine"]}
+    rows = []
+    for row, kernel, mode, src, replaces in MODE_ROWS:
+        n = counts.get((kernel, mode), 0)
+        require(n > 0, f"phase 14: {row} was not launched on the main path")
+        rows.append({"name": row, "route": "cuda", "source": f"pysvihmm_tpu_torch/csrc/{src}",
+                     "replaces": f"pysvihmm_tpu/messages/{replaces}", "launches": n,
+                     "max_abs_err": max_err[row], "ms": ms[row], "plain_ms": plain_ms[row],
+                     "bound_ms": bounds[row][0], "bound_by": bounds[row][1],
+                     "library_ms": None})
+    for kernel, replaces in OPERAND_ROWS:
+        n = counts.get(kernel, 0)
+        require(n > 0, f"phase 14: {kernel} was not launched on the main path")
+        rows.append({"name": kernel, "route": "cuda",
+                     "source": "pysvihmm_tpu_torch/csrc/fb_stats.cuh",
+                     "replaces": f"pysvihmm_tpu/messages/{replaces}", "launches": n,
+                     **operands[kernel]})
+    log(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return rows, lines
+
+
 def time_route_kernels(gen) -> tuple[dict, dict, dict]:
     """Phase 5: each route kernel at K = 64, 128 and 256 (B=1024, T=1000,
     F=45, ungated) by CUDA events, its twin, its bound and share. Returns
@@ -3566,6 +4294,14 @@ def main() -> int:
         log("  phase 13 ms (host clock, synchronised; one card measures no scaling): "
             + json.dumps({k: round(v, 3) for k, v in parallel_ms.items()}))
 
+    log(f"== phase 14: kernel modes: in-kernel NIW and NIG features on the fused pair and the "
+        f"duplex kernels, the fused backward's gamma pick, bf16-stored alpha ({card})")
+    mode_rows, mode_lines = kernel_modes_phase(dev)
+    log("  phase 14 times (CUDA events, median of "
+        f"{MODE_REPS} means of {MODE_ITERS} calls; {card}):")
+    for line in mode_lines:
+        log(f"    {line}")
+
     errs = {"fused_fwd_kernel": fwd_err, "fused_bwd_kernel": bwd_err, **split_err,
             "duplex_chain_kernel": chain_err, "duplex_combine_kernel": comb_err}
     kernels = []
@@ -3633,6 +4369,7 @@ def main() -> int:
                 "bound_ms": probe_bounds[key][0], "bound_by": probe_bounds[key][1],
                 "library_ms": None,
             })
+    kernels.extend(mode_rows)
     log(f"total {time.perf_counter() - t_start:.1f} s, the build's {build_s:.1f} s included; in "
         f"the kernels line: launches over the {SVI_STEPS} SVI steps of each kernel's route "
         f"(phase 6) for the K={K} instances, over phase 9's runs for the large-K ones (VB at "
@@ -3646,7 +4383,11 @@ def main() -> int:
         f"{', '.join(map(str, LARGE_K))}), ungated, and for the probes at C={PROBE_C}; the "
         f"outer sums: launches over phase 9's VB (K={LARGE_VB_K}) and SVI (K={LARGE_SVI_K}) "
         f"runs, max_abs_err acc's largest against float64 over one backward's windows, ms "
-        f"over that backward's products, library_ms one float32 torch.matmul a product")
+        f"over that backward's products, library_ms one float32 torch.matmul a product; the "
+        f"modes' rows (phase 14): launches over its main-path run (VB with in-kernel features, "
+        f"SVI with the gamma pick, the bf16 probe), max_abs_err against the twins at (B, T, K) = "
+        f"({B}, {T}, {K}), ms the median of {MODE_REPS} means of {MODE_ITERS} calls there (the "
+        f"gamma pick's at the SVI shape, W={SVI_W})")
     log(card)
     log(json.dumps({"kernels": kernels, "note": "the long-chain tiers (phase 12) are plain "
                     "PyTorch, as JAX's are plain XLA: they add no kernel to this line"}))

@@ -1,14 +1,15 @@
 """Build the port's CUDA sources with ``nvcc`` at first use and load them.
 
-Each ``csrc/<name>.cu`` is compiled into a shared library with a plain C
-interface (no PyTorch headers, so ``nvcc`` takes seconds) under
+Each library ``<name>`` is compiled from ``csrc/<name>.cu`` and the other
+translation units :data:`UNITS` names for it into a shared library with a
+plain C interface (no PyTorch headers, so ``nvcc`` takes seconds) under
 ``build/torch_kernels/`` at the repository root, and loaded with
-:mod:`ctypes`. The library's file name carries a hash of the source, of
-every ``csrc/`` header it includes (``#include "..."``, followed
+:mod:`ctypes`. The library's file name carries a hash of its units, of
+every ``csrc/`` header they include (``#include "..."``, followed
 transitively) and of the compiler flags, so an edited source or header is
-rebuilt and a stale library is never loaded. :func:`build` compiles several
-sources at once, one ``nvcc`` each, all started together. Nothing here runs
-at import time.
+rebuilt and a stale library is never loaded. :func:`build` compiles every
+unit of several libraries at once, one ``nvcc -c`` each, all started
+together, then links each library. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -20,21 +21,35 @@ import re
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *GENCODE,
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel, to build_log
+    # the optimiser's passes on as many threads as the host has cores: the
+    # fused and duplex sources hold every feature kind's instances (about
+    # 150 and 110 s on one thread each, 62 s for the three chain sources at
+    # once with this flag on an 8-core host; PERF.md)
+    "-split-compile=0",
 )
+LINK_FLAGS = ("-shared", *GENCODE)
+
+# the translation units of a library beyond csrc/<name>.cu, each compiled by
+# its own nvcc at the same time: the fused pair's modes' instances
+# (fused_fb_modes.cu) double the fused library's instances, and as a second
+# unit they build beside the default ones instead of after them (PERF.md)
+UNITS = {"fused_fb": ("fused_fb", "fused_fb_modes")}
 
 _INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
 _loaded: dict[str, ctypes.CDLL] = {}
-build_seconds: dict[str, float] = {}  # per source: wall time of the nvcc call
-build_log: dict[str, str] = {}  # per source: what nvcc and ptxas printed
+build_seconds: dict[str, float] = {}  # per library: wall time of its units' nvcc and the link
+build_log: dict[str, str] = {}  # per library: what nvcc and ptxas printed
 
 
 def _nvcc() -> str:
@@ -67,38 +82,65 @@ def sources(name: str) -> list[str]:
     return found
 
 
+def units(name: str) -> tuple[str, ...]:
+    """The translation units of library ``name``: ``csrc/<unit>.cu`` each."""
+    return UNITS.get(name, (name,))
+
+
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+    """Where library ``name``, built from its :func:`units`, lives."""
     h = hashlib.sha256()
-    for f in sources(name):
-        h.update(f.encode() + b"\0" + (CSRC / f).read_bytes() + b"\0")
-    h.update(" ".join(NVCC_FLAGS).encode())
+    for unit in units(name):
+        for f in sources(unit):
+            h.update(f.encode() + b"\0" + (CSRC / f).read_bytes() + b"\0")
+    h.update(" ".join((*NVCC_FLAGS, "|", *LINK_FLAGS)).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd: list[str]) -> tuple[int, str, float]:
+    """(exit code, output, wall seconds) of one compiler process."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc.returncode, proc.stdout, time.perf_counter() - t0
+
+
 def build(names: list[str]) -> None:
-    """Compile every ``csrc/<name>.cu`` whose library is missing, one nvcc
-    process each, all running at once; raise if any of them fails."""
+    """Build every library of ``names`` that is missing: each unit of each
+    compiled to an object by its own ``nvcc -c``, all running at once, then
+    each library linked from its objects; raise if any step fails."""
     todo = [n for n in dict.fromkeys(names) if not library_path(n).exists()]
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    procs = {}
+    tag = f"{os.getpid()}.tmp"
+    objs = {(n, u): library_path(n).with_suffix(f".{u}.{tag}.o") for n in todo for u in units(n)}
+    cmds = {key: [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / f"{key[1]}.cu")]
+            for key, obj in objs.items()}
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        done = dict(zip(cmds, pool.map(_run, cmds.values())))
+    failed = []
     for name in todo:
         out = library_path(name)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        procs[name] = (proc, tmp, out, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
-        build_seconds[name] = time.perf_counter() - t0
-        build_log[name] = log
-        if proc.returncode != 0:
+        tmp = out.with_suffix(f".{tag}")
+        compiled = [done[name, u] for u in units(name)]
+        logs = [log for _, log, _ in compiled]
+        seconds = max(s for _, _, s in compiled)
+        errors = [f"nvcc failed on {u}.cu (exit {code}):\n{log}"
+                  for u, (code, log, _) in zip(units(name), compiled) if code != 0]
+        if not errors:
+            code, log, s = _run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                                 *(str(objs[name, u]) for u in units(name))])
+            logs.append(log)
+            seconds += s
+            if code != 0:
+                errors.append(f"nvcc failed to link {name} (exit {code}):\n{log}")
+        build_log[name], build_seconds[name] = "".join(logs), seconds
+        for u in units(name):
+            objs[name, u].unlink(missing_ok=True)
+        if errors:
             tmp.unlink(missing_ok=True)
-            failed.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{log}")
+            failed += errors
         else:
             os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     if failed:

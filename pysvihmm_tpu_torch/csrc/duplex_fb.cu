@@ -62,6 +62,13 @@
 // = 8), so the 2 ceil(B/S) blocks of B = 1024 take two waves there and one
 // at KP = 128, S = 8 (2 blocks an SM).
 //
+// Both kernels take the fused pair's built feature kinds (KIND; pallas_duplex.py
+// :290, `in_kernel_feats`): the chain's blocks build their rows as
+// seq_forward does, the combine's warps load each feature's factors with
+// the row and form it where the row is stored (LaneFeats), and above K = 64
+// eacc's operand is built a window at a time (fbs::WideStats); every output
+// is the array mode's bit for bit. alpha stays float32 here, as in JAX.
+//
 // The combine has no chain: every (t, b) row needs only a_t, b_t, f_t, sh_t
 // and the pair's ginv_{t-1}. duplex_combine_kernel<KP, FP, GATED> takes a
 // tile of 8 sequences (one a warp; lane j of a warp holds states j, j + 32,
@@ -105,7 +112,6 @@ using fbc::NWARP;
 using fbc::SUM_FLOOR;
 using fbseq::block_max;
 using fbseq::block_sum;
-using fbseq::FeatRows;
 using fbseq::fma4;
 using fbseq::ld4;
 using fbseq::ld4s;
@@ -123,9 +129,10 @@ __device__ __forceinline__ float back_scale(float bsum) {
 // The raw backward recursion of the S sequences of block blk (the layout of
 // fbseq::seq_forward, reversed in time): f_t in slot t & 1, e_t in slot
 // t & 1, the partial sums of b_t in slot t & 1 and the partial maxima of
-// ll_t in slot t & 1. Writes beta (T, B, K). Every thread of the block calls
-// it.
-template <int S, int FP>
+// ll_t in slot t & 1. feats holds the feature array, or for a built KIND the
+// raw observations (the rows built as seq_forward's). Writes beta (T, B,
+// K). Every thread of the block calls it.
+template <int S, int FP, int KIND>
 __device__ __forceinline__ void seq_backward(const float* __restrict__ A,
                                              const float* __restrict__ W,
                                              const float* __restrict__ feats,
@@ -151,11 +158,12 @@ __device__ __forceinline__ void seq_backward(const float* __restrict__ A,
 
   for (int i = k; i < 2 * S * FP; i += NT) f_s[i / (S * FP)][i % (S * FP)] = 0.f;
   for (int i = k; i < 2 * S * KMAX; i += NT) e_s[i / (S * KMAX)][i % (S * KMAX)] = 0.f;
-  const size_t step_f = (size_t)B * F;  // feats stride of one time step
+  const int in_w = fbc::obs_dim(KIND, F);  // floats of a (t, b) row of feats
+  const size_t step_f = (size_t)B * in_w;  // feats stride of one time step
   const size_t step_k = (size_t)B * K;  // beta stride of one time step
-  const float* fb = feats + (size_t)b0 * F;
+  const float* fb = feats + (size_t)b0 * in_w;
   float* bb = beta + (size_t)b0 * K + k;
-  FeatRows<S, FP> rows(k, ns, F);
+  fbseq::RowsOf<S, FP, true, KIND> rows(k, ns, F);
   __syncthreads();  // the zeroed slots before the rows land in them
   rows.load(fb + (size_t)(T - 1) * step_f);
   rows.store(f_s[(T - 1) & 1]);
@@ -267,7 +275,7 @@ __device__ __forceinline__ void seq_backward(const float* __restrict__ A,
   }
 }
 
-template <int S, int FP>
+template <int S, int FP, int KIND>
 __global__ void __launch_bounds__(NT)
 duplex_chain_kernel(const float* __restrict__ pi, const float* __restrict__ A,
                     const float* __restrict__ W, const float* __restrict__ feats,
@@ -275,9 +283,10 @@ duplex_chain_kernel(const float* __restrict__ pi, const float* __restrict__ A,
                     float* __restrict__ sh_out, float* __restrict__ beta, int T, int B, int K,
                     int F) {
   if (blockIdx.y == 0)
-    fbseq::seq_forward<S, FP>(pi, A, W, feats, alpha, s_out, sh_out, T, B, K, F, blockIdx.x);
+    fbseq::seq_forward<S, FP, true, KIND>(pi, A, W, feats, alpha, s_out, sh_out, T, B, K, F,
+                                          blockIdx.x);
   else
-    seq_backward<S, FP>(A, W, feats, beta, T, B, K, F, blockIdx.x);
+    seq_backward<S, FP, KIND>(A, W, feats, beta, T, B, K, F, blockIdx.x);
 }
 
 // The raw backward recursion of the S sequences of block blk on
@@ -291,9 +300,9 @@ duplex_chain_kernel(const float* __restrict__ pi, const float* __restrict__ A,
 // and of W it reads in a step feeds S chains, one a sequence, and each chain
 // is the one-sequence arithmetic (the matvec over i = 0..KP-1 in order, the
 // sums and maxima each warp's butterfly, then the warps in order), so beta
-// does not depend on S. Two barriers a step. Every thread of the block calls
-// it.
-template <int KP, int S>
+// does not depend on S. Two barriers a step. A built KIND reads the raw
+// observations (fbw::feat_rows). Every thread of the block calls it.
+template <int KP, int S, int KIND>
 __device__ void seqs_raw_backward(const float* __restrict__ A, const float* __restrict__ W,
                                   const float* __restrict__ feats, float* __restrict__ beta,
                                   int T, int B, int K, int F, int blk, float* smem) {
@@ -313,12 +322,14 @@ __device__ void seqs_raw_backward(const float* __restrict__ A, const float* __re
   col.load(A, M_s, K, true, k);
   fbw::WCol wc;
   wc.load(W, K, F, k);
-  const size_t step_f = (size_t)B * F, step_k = (size_t)B * K;
-  const float* fb = feats + (size_t)b0 * F;
+  const int D = fbc::obs_dim(KIND, F);  // floats of a (t, b) row of feats
+  const size_t step_f = (size_t)B * D, step_k = (size_t)B * K;
+  const float* fb = feats + (size_t)b0 * D;
   float* bb = beta + (size_t)b0 * K + k;
   for (int i = k; i < 2 * S * FMAX; i += KP) f_s[i] = 0.f;
   __syncthreads();
-  fbw::feat_rows<S>(f_s + ((T - 1) & 1) * S * FMAX, fb + (size_t)(T - 1) * step_f, ns, F, k, KP);
+  fbw::feat_rows<S, KIND>(f_s + ((T - 1) & 1) * S * FMAX, fb + (size_t)(T - 1) * step_f, ns, F,
+                          k, KP, D);
   __syncthreads();
 
   float bt[S];  // b_t
@@ -345,7 +356,8 @@ __device__ void seqs_raw_backward(const float* __restrict__ A, const float* __re
         red_sum[(p * S + s) * NW + warp] = ws[s];
       }
     }
-    fbw::feat_rows<S>(f_s + (p ^ 1) * S * FMAX, fb + (size_t)(t - 1) * step_f, ns, F, k, KP);
+    fbw::feat_rows<S, KIND>(f_s + (p ^ 1) * S * FMAX, fb + (size_t)(t - 1) * step_f, ns, F, k,
+                            KP, D);
     __syncthreads();  // f_t is read; the maxima and sums are complete
 
     float scale[S];
@@ -372,7 +384,7 @@ __device__ void seqs_raw_backward(const float* __restrict__ A, const float* __re
 // sequences a block: blockIdx.y = 0 runs the forward (fbw::seqs_forward, the
 // fused large-K forward's own function at the same S), 1 the raw backward
 // above.
-template <int KP, int S>
+template <int KP, int S, int KIND>
 __global__ void __launch_bounds__(KP)
 duplex_chain_wide_kernel(const float* __restrict__ pi, const float* __restrict__ A,
                          const float* __restrict__ W, const float* __restrict__ feats,
@@ -381,10 +393,10 @@ duplex_chain_wide_kernel(const float* __restrict__ pi, const float* __restrict__
                          int K, int F) {
   extern __shared__ __align__(16) float smem[];
   if (blockIdx.y == 0)
-    fbw::seqs_forward<KP, S, true>(pi, A, W, feats, alpha, s_out, sh_out, T, B, K, F,
-                                   blockIdx.x, smem);
+    fbw::seqs_forward<KP, S, true, KIND>(pi, A, W, feats, alpha, s_out, sh_out, T, B, K, F,
+                                         blockIdx.x, smem);
   else
-    seqs_raw_backward<KP, S>(A, W, feats, beta, T, B, K, F, blockIdx.x, smem);
+    seqs_raw_backward<KP, S, KIND>(A, W, feats, beta, T, B, K, F, blockIdx.x, smem);
 }
 
 // ----------------------------------------------------------------- combine
@@ -416,16 +428,38 @@ struct RowLoad {
   static constexpr int J = KP / 32;
   static constexpr int FL = (FP + 31) / 32;
   bool valid[2];
-  float a[2][J], bv[2][J], f[2][FL], sh[2], w[2];
+  float a[2][J], bv[2][J], f[2][FL], g[2][FL], sh[2], w[2];  // g: a built feature's 2nd factor
 };
 
-template <int KP, int FP, bool GATED>
-__device__ __forceinline__ void load_rows(RowLoad<KP, FP>& in, const float* __restrict__ feats,
+// Where lane l's features l + 32 i of a built kind come from (fbc::feat_src;
+// ia = ja = -1 beyond F as for the constant), fixed for the kernel.
+template <int FP>
+struct LaneFeats {
+  static constexpr int FL = (FP + 31) / 32;
+  int ia[FL], ja[FL];
+
+  __device__ LaneFeats(int kind, int D, int F) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int i = 0; i < FL; ++i) {
+      ia[i] = ja[i] = -1;
+      if (kind != fbc::FEATS_ARRAY && lane + 32 * i < F)
+        fbc::feat_src(kind, D, lane + 32 * i, ia[i], ja[i]);
+    }
+  }
+};
+
+// feats holds the feature array, or for a built KIND the raw observations
+// (D floats a row): then f holds each feature's first factor (1 for the
+// constant) and g its second, multiplied where the row is stored (row_pair).
+template <int KP, int FP, bool GATED, int KIND>
+__device__ __forceinline__ void load_rows(RowLoad<KP, FP>& in, const LaneFeats<FP>& lf,
+                                          const float* __restrict__ feats,
                                           const float* __restrict__ alpha,
                                           const float* __restrict__ beta,
                                           const float* __restrict__ sh_in,
                                           const float* __restrict__ w_in, int t, int t_end,
-                                          bool okb, int b, int T, int B, int K, int F) {
+                                          bool okb, int b, int T, int B, int K, int F, int D) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -440,11 +474,16 @@ __device__ __forceinline__ void load_rows(RowLoad<KP, FP>& in, const float* __re
       in.a[r][j] = ok ? alpha[row + k] : 0.f;
       in.bv[r][j] = ok ? beta[row + k] : 0.f;
     }
-    const float* frow = feats + ((size_t)tr * B + b) * F;
+    const float* frow = feats + ((size_t)tr * B + b) * D;
 #pragma unroll
     for (int i = 0; i < RowLoad<KP, FP>::FL; ++i) {
       const int f = lane + 32 * i;
-      in.f[r][i] = (valid && f < F) ? frow[f] : 0.f;
+      if (KIND == fbc::FEATS_ARRAY) {
+        in.f[r][i] = (valid && f < F) ? frow[f] : 0.f;
+      } else {
+        in.f[r][i] = !(valid && f < F) ? 0.f : lf.ia[i] >= 0 ? frow[lf.ia[i]] : 1.f;
+        in.g[r][i] = (valid && lf.ja[i] >= 0) ? frow[lf.ja[i]] : 0.f;
+      }
     }
     in.sh[r] = valid ? sh_in[(size_t)b * T + tr] : 0.f;
     in.w[r] = GATED ? (valid ? w_in[(size_t)tr * B + b] : 0.f) : 1.f;
@@ -487,13 +526,13 @@ __device__ __forceinline__ void row_sums(float (&v)[N][J], float (&out)[N]) {
 // gamma0 written, dn and gw into `out`. fr[r] is the warp's shared row for
 // f_{t+r} (FP floats, 16-byte aligned), left holding it (zero beyond F).
 // ginv_prev and w_prev carry ginv_{t-1} and w_{t-1} in and ginv_{t+1} and
-// w_{t+1} out.
-template <int KP, int FP, bool GATED>
+// w_{t+1} out. A built KIND's features are formed here from their factors.
+template <int KP, int FP, bool GATED, int KIND>
 __device__ __forceinline__ void row_pair(RowPair<KP>& out, const RowLoad<KP, FP>& in,
-                                         const float* W_s, float* const (&fr)[2],
-                                         float* __restrict__ gamma, float* __restrict__ gamma0,
-                                         int t, int b, int B, int K, float& ginv_prev,
-                                         float& w_prev) {
+                                         const LaneFeats<FP>& lf, const float* W_s,
+                                         float* const (&fr)[2], float* __restrict__ gamma,
+                                         float* __restrict__ gamma0, int t, int b, int B, int K,
+                                         float& ginv_prev, float& w_prev) {
   constexpr int J = KP / 32;
   constexpr int WST = FP + 4;
   const int lane = threadIdx.x & 31;
@@ -501,7 +540,10 @@ __device__ __forceinline__ void row_pair(RowPair<KP>& out, const RowLoad<KP, FP>
   for (int r = 0; r < 2; ++r)
 #pragma unroll
     for (int i = 0; i < RowLoad<KP, FP>::FL; ++i)
-      if (lane + 32 * i < FP) fr[r][lane + 32 * i] = in.f[r][i];
+      if (lane + 32 * i < FP)
+        fr[r][lane + 32 * i] = KIND == fbc::FEATS_ARRAY
+                                   ? in.f[r][i]
+                                   : fbc::feat_of(in.f[r][i], in.g[r][i], lf.ja[i] >= 0);
   __syncwarp();  // the feature rows are complete
 
   // ll = f_t . W[:, k], the fmaf chain over f = 0..FP-1 in order
@@ -599,7 +641,7 @@ __device__ __forceinline__ void halo_row(float (&a_prev)[KP / 32], float& ginv_p
 // KP = 64: acc and eacc in-kernel, one row of partials a block in part;
 // KP = 128, 256: dn and gw of the window into dn_out and gw_out, (t1 - t0,
 // B, K) each from t0.
-template <int KP, int FP, bool GATED>
+template <int KP, int FP, bool GATED, int KIND>
 __global__ void __launch_bounds__(CNT, KP == KMAX ? 2 : 1)
 duplex_combine_kernel(const float* __restrict__ W, const float* __restrict__ feats,
                       const float* __restrict__ alpha, const float* __restrict__ beta,
@@ -617,6 +659,8 @@ duplex_combine_kernel(const float* __restrict__ W, const float* __restrict__ fea
   const bool okb = b < B;
   const int t_begin = t0 + blockIdx.y * chunk;
   const int t_end = min(t1, t_begin + chunk);
+  const int D = fbc::obs_dim(KIND, F);  // floats of a (t, b) row of feats
+  const LaneFeats<FP> lf(KIND, D, F);
 
   for (int idx = tid; idx < KP * WST; idx += CNT) {
     const int k = idx / WST, f = idx % WST;
@@ -646,20 +690,20 @@ duplex_combine_kernel(const float* __restrict__ W, const float* __restrict__ fea
     __syncthreads();  // W_s is complete
 
     RowLoad<KP, FP> cur, nxt;
-    load_rows<KP, FP, GATED>(cur, feats, alpha, beta, sh_in, w_in, t_begin, t_end, okb, b, T, B,
-                             K, F);
+    load_rows<KP, FP, GATED, KIND>(cur, lf, feats, alpha, beta, sh_in, w_in, t_begin, t_end, okb,
+                                   b, T, B, K, F, D);
     for (int ts = t_begin; ts < t_end; ts += CTT) {
       // the rows: warp w walks sequence b over the stage's CTT steps
 #pragma unroll
       for (int j = 0; j < J; ++j) a_s[warp * KMAX + lane + 32 * j] = a_prev[j];
 #pragma unroll
       for (int i = 0; i < CTT; i += 2) {
-        load_rows<KP, FP, GATED>(nxt, feats, alpha, beta, sh_in, w_in, ts + i + 2, t_end, okb, b,
-                                 T, B, K, F);
+        load_rows<KP, FP, GATED, KIND>(nxt, lf, feats, alpha, beta, sh_in, w_in, ts + i + 2,
+                                       t_end, okb, b, T, B, K, F, D);
         RowPair<KP> rp;
         float* const fr[2] = {f_s + (i * CW + warp) * FP, f_s + ((i + 1) * CW + warp) * FP};
-        row_pair<KP, FP, GATED>(rp, cur, W_s, fr, gamma, gamma0, ts + i, b, B, K, ginv_prev,
-                                w_prev);
+        row_pair<KP, FP, GATED, KIND>(rp, cur, lf, W_s, fr, gamma, gamma0, ts + i, b, B, K,
+                                      ginv_prev, w_prev);
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int o = ((i + r) * CW + warp) * KMAX + lane;
@@ -717,13 +761,14 @@ duplex_combine_kernel(const float* __restrict__ W, const float* __restrict__ fea
     float* const fr[2] = {f_s + (2 * warp) * FP, f_s + (2 * warp + 1) * FP};
     __syncthreads();  // W_s is complete
     RowLoad<KP, FP> cur, nxt;
-    load_rows<KP, FP, GATED>(cur, feats, alpha, beta, sh_in, w_in, t_begin, t_end, okb, b, T, B,
-                             K, F);
+    load_rows<KP, FP, GATED, KIND>(cur, lf, feats, alpha, beta, sh_in, w_in, t_begin, t_end, okb,
+                                   b, T, B, K, F, D);
     for (int t = t_begin; t < t_end; t += 2) {
-      load_rows<KP, FP, GATED>(nxt, feats, alpha, beta, sh_in, w_in, t + 2, t_end, okb, b, T, B,
-                               K, F);
+      load_rows<KP, FP, GATED, KIND>(nxt, lf, feats, alpha, beta, sh_in, w_in, t + 2, t_end, okb,
+                                     b, T, B, K, F, D);
       RowPair<KP> rp;
-      row_pair<KP, FP, GATED>(rp, cur, W_s, fr, gamma, gamma0, t, b, B, K, ginv_prev, w_prev);
+      row_pair<KP, FP, GATED, KIND>(rp, cur, lf, W_s, fr, gamma, gamma0, t, b, B, K, ginv_prev,
+                                    w_prev);
       cur = nxt;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -757,67 +802,83 @@ int combine_chunk(int steps, int B, int mult) {
   return (chunk + mult - 1) / mult * mult;
 }
 
+// A feature kind the kernels take, whose width F is.
+bool bad_kind(int kind, int F) {
+  return kind < fbc::FEATS_ARRAY || kind > fbc::FEATS_NIG || fbc::obs_dim(kind, F) < 1;
+}
+
 // Floats of scratch the combine takes: K <= KMAX, a row of partials a block;
-// above, a window's dn and gw and the two outer sums' partials
-// (fbs::WideStats).
-long long scratch_floats(int T, int B, int K, int F) {
+// above, a window's dn and gw, the two outer sums' partials and (a built
+// kind) the window's feature rows (fbs::WideStats).
+long long scratch_floats(int T, int B, int K, int F, int kind) {
   if (K <= KMAX) {
     const int chunk = combine_chunk(T, B, CTT);
     return (long long)((B + CW - 1) / CW) * ((T + chunk - 1) / chunk) * (K * K + K * F);
   }
-  return fbs::WideStats::floats(T, B, K, F);
+  return fbs::WideStats::floats(T, B, K, F, kind);
 }
 
-// The chain instance of (S, F) up to K = 64: the S-sequence kernel at FP =
-// pad_f(F).
-template <int S>
+// The chain instance of (S, F, KIND) up to K = 64: the S-sequence kernel at
+// FP = pad_f(F).
+template <int S, int KIND>
 const void* chain_fp(int fp) {
   switch (fp) {
-    case 16: return reinterpret_cast<const void*>(duplex_chain_kernel<S, 16>);
-    case 32: return reinterpret_cast<const void*>(duplex_chain_kernel<S, 32>);
-    case 48: return reinterpret_cast<const void*>(duplex_chain_kernel<S, 48>);
-    default: return reinterpret_cast<const void*>(duplex_chain_kernel<S, 64>);
+    case 16: return reinterpret_cast<const void*>(duplex_chain_kernel<S, 16, KIND>);
+    case 32: return reinterpret_cast<const void*>(duplex_chain_kernel<S, 32, KIND>);
+    case 48: return reinterpret_cast<const void*>(duplex_chain_kernel<S, 48, KIND>);
+    default: return reinterpret_cast<const void*>(duplex_chain_kernel<S, 64, KIND>);
   }
 }
 
-template <int KP, int S>
+template <int KP, int S, int KIND>
 const void* wide_chain_at(int* smem) {
   *smem = fbw::chain_smem_bytes<KP, S>();
-  return reinterpret_cast<const void*>(duplex_chain_wide_kernel<KP, S>);
+  return reinterpret_cast<const void*>(duplex_chain_wide_kernel<KP, S, KIND>);
 }
 
-template <int KP>
+template <int KP, int KIND>
 const void* wide_chain_of(int S, int* smem) {
   switch (S) {
-    case 1: return wide_chain_at<KP, 1>(smem);
-    case 2: return wide_chain_at<KP, 2>(smem);
-    case 4: return wide_chain_at<KP, 4>(smem);
-    case 8: return wide_chain_at<KP, 8>(smem);
+    case 1: return wide_chain_at<KP, 1, KIND>(smem);
+    case 2: return wide_chain_at<KP, 2, KIND>(smem);
+    case 4: return wide_chain_at<KP, 4, KIND>(smem);
+    case 8: return wide_chain_at<KP, 8, KIND>(smem);
     default: *smem = 0; return nullptr;
   }
 }
 
-// The chain instance of (S, K, F) and its dynamic shared bytes in *smem: S
-// in {2, 4} up to K = 64, in {1, 2, 4, 8} at KP = tier_of(K) above. Null for
-// an S not built.
-const void* chain_of(int S, int K, int F, int* smem) {
+// The chain instance of (S, K, F, KIND) and its dynamic shared bytes in
+// *smem: S in {2, 4} up to K = 64, in {1, 2, 4, 8} at KP = tier_of(K)
+// above. Null for an S not built.
+template <int KIND>
+const void* chain_kind(int S, int K, int F, int* smem) {
   if (K > KMAX)
-    return fbw::tier_of(K) == 128 ? wide_chain_of<128>(S, smem) : wide_chain_of<256>(S, smem);
+    return fbw::tier_of(K) == 128 ? wide_chain_of<128, KIND>(S, smem)
+                                  : wide_chain_of<256, KIND>(S, smem);
   *smem = 0;
   switch (S) {
-    case 2: return chain_fp<2>(pad_f(F));
-    case 4: return chain_fp<4>(pad_f(F));
+    case 2: return chain_fp<2, KIND>(pad_f(F));
+    case 4: return chain_fp<4, KIND>(pad_f(F));
     default: return nullptr;
   }
 }
 
-template <bool GATED>
+const void* chain_of(int S, int K, int F, int kind, int* smem) {
+  switch (kind) {
+    case fbc::FEATS_ARRAY: return chain_kind<fbc::FEATS_ARRAY>(S, K, F, smem);
+    case fbc::FEATS_NIW: return chain_kind<fbc::FEATS_NIW>(S, K, F, smem);
+    case fbc::FEATS_NIG: return chain_kind<fbc::FEATS_NIG>(S, K, F, smem);
+    default: *smem = 0; return nullptr;
+  }
+}
+
+template <bool GATED, int KIND>
 const void* combine_fp(int fp) {
   switch (fp) {
-    case 16: return reinterpret_cast<const void*>(duplex_combine_kernel<KMAX, 16, GATED>);
-    case 32: return reinterpret_cast<const void*>(duplex_combine_kernel<KMAX, 32, GATED>);
-    case 48: return reinterpret_cast<const void*>(duplex_combine_kernel<KMAX, 48, GATED>);
-    default: return reinterpret_cast<const void*>(duplex_combine_kernel<KMAX, 64, GATED>);
+    case 16: return reinterpret_cast<const void*>(duplex_combine_kernel<KMAX, 16, GATED, KIND>);
+    case 32: return reinterpret_cast<const void*>(duplex_combine_kernel<KMAX, 32, GATED, KIND>);
+    case 48: return reinterpret_cast<const void*>(duplex_combine_kernel<KMAX, 48, GATED, KIND>);
+    default: return reinterpret_cast<const void*>(duplex_combine_kernel<KMAX, 64, GATED, KIND>);
   }
 }
 
@@ -826,24 +887,38 @@ constexpr int combine_bytes_fp() {
   return 4 * combine_smem_floats<KMAX, FP>();
 }
 
-// The combine instance of (K, F, gated) and its dynamic shared bytes in
-// *smem: KP = 64 at FP = pad_f(F) up to K = 64, KP = 128 or 256 at FP = FMAX
-// above.
-const void* combine_of(int K, int F, bool gated, int* smem) {
+template <int KP, int KIND>
+const void* combine_wide(bool gated) {
+  return gated ? reinterpret_cast<const void*>(duplex_combine_kernel<KP, FMAX, true, KIND>)
+               : reinterpret_cast<const void*>(duplex_combine_kernel<KP, FMAX, false, KIND>);
+}
+
+// The combine instance of (K, F, gated, KIND) and its dynamic shared bytes
+// in *smem: KP = 64 at FP = pad_f(F) up to K = 64, KP = 128 or 256 at FP =
+// FMAX above.
+template <int KIND>
+const void* combine_kind(int K, int F, bool gated, int* smem) {
   if (K <= KMAX) {
     const int fp = pad_f(F);
     *smem = fp == 16 ? combine_bytes_fp<16>() : fp == 32 ? combine_bytes_fp<32>()
           : fp == 48 ? combine_bytes_fp<48>() : combine_bytes_fp<64>();
-    return gated ? combine_fp<true>(fp) : combine_fp<false>(fp);
+    return gated ? combine_fp<true, KIND>(fp) : combine_fp<false, KIND>(fp);
   }
   if (fbw::tier_of(K) == 128) {
     *smem = 4 * combine_smem_floats<128, FMAX>();
-    return gated ? reinterpret_cast<const void*>(duplex_combine_kernel<128, FMAX, true>)
-                 : reinterpret_cast<const void*>(duplex_combine_kernel<128, FMAX, false>);
+    return combine_wide<128, KIND>(gated);
   }
   *smem = 4 * combine_smem_floats<256, FMAX>();
-  return gated ? reinterpret_cast<const void*>(duplex_combine_kernel<256, FMAX, true>)
-               : reinterpret_cast<const void*>(duplex_combine_kernel<256, FMAX, false>);
+  return combine_wide<256, KIND>(gated);
+}
+
+const void* combine_of(int K, int F, bool gated, int kind, int* smem) {
+  switch (kind) {
+    case fbc::FEATS_ARRAY: return combine_kind<fbc::FEATS_ARRAY>(K, F, gated, smem);
+    case fbc::FEATS_NIW: return combine_kind<fbc::FEATS_NIW>(K, F, gated, smem);
+    case fbc::FEATS_NIG: return combine_kind<fbc::FEATS_NIG>(K, F, gated, smem);
+    default: *smem = 0; return nullptr;
+  }
 }
 
 }  // namespace
@@ -859,9 +934,9 @@ const char* duplex_fb_error_string(int code) {
 }
 
 // *out = the floats of scratch duplex_fb_combine takes at these shapes.
-int duplex_fb_scratch(int T, int B, int K, int F, long long* out) {
-  if (bad_shape(T, B, K, F)) return static_cast<int>(cudaErrorInvalidValue);
-  *out = scratch_floats(T, B, K, F);
+int duplex_fb_scratch(int T, int B, int K, int F, int kind, long long* out) {
+  if (bad_shape(T, B, K, F) || bad_kind(kind, F)) return static_cast<int>(cudaErrorInvalidValue);
+  *out = scratch_floats(T, B, K, F, kind);
   return 0;
 }
 
@@ -869,12 +944,15 @@ int duplex_fb_scratch(int T, int B, int K, int F, long long* out) {
 // Pointers are device pointers of contiguous float32 tensors; the kernels
 // run on `stream` and do not synchronise. S is the sequences a block of the
 // chain: 2 or 4 up to K = 64, 1, 2, 4 or 8 above; any other is refused.
+// kind names what feats holds, as fused_fb.cu's launchers take it: the
+// (T, B, F) feature array, or the raw (T, B, D) observations of a built
+// kind, F its width at D (an F no D gives is refused).
 int duplex_fb_chain(const float* pi, const float* A, const float* W, const float* feats,
                     float* alpha, float* s, float* sh, float* beta, int T, int B, int K,
-                    int F, int S, int device, void* stream) {
-  if (bad_shape(T, B, K, F)) return static_cast<int>(cudaErrorInvalidValue);
+                    int F, int S, int kind, int device, void* stream) {
+  if (bad_shape(T, B, K, F) || bad_kind(kind, F)) return static_cast<int>(cudaErrorInvalidValue);
   int smem = 0;
-  const void* fn = chain_of(S, K, F, &smem);
+  const void* fn = chain_of(S, K, F, kind, &smem);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -892,6 +970,13 @@ int duplex_fb_outer_launches(int clear) {
   return fbs::outer_launches(clear != 0);
 }
 
+// Launches of the large-K combine's operand kernels (fbs::build_feats,
+// which = 0; fbs::widen, 1, which this library never runs) since the count
+// was last cleared; clears it when `clear`.
+int duplex_fb_prep_launches(int which, int clear) {
+  return fbs::prep_launches(which, clear != 0);
+}
+
 // w is null for the ungated launch, else the (T, B) kept-mask. stats
 // receives acc (K, K) and then eacc (K, F), summed in a fixed order
 // (fb_stats.cuh); scratch holds duplex_fb_scratch floats. Above K = 64 the
@@ -900,13 +985,13 @@ int duplex_fb_outer_launches(int clear) {
 int duplex_fb_combine(const float* W, const float* feats, const float* alpha,
                       const float* beta, const float* sh, const float* w, float* gamma,
                       float* gamma0, float* stats, float* scratch, int T, int B, int K, int F,
-                      int device, void* stream) {
-  if (bad_shape(T, B, K, F)) return static_cast<int>(cudaErrorInvalidValue);
+                      int kind, int device, void* stream) {
+  if (bad_shape(T, B, K, F) || bad_kind(kind, F)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int smem = 0;
-  const void* fn = combine_of(K, F, w != nullptr, &smem);
+  const void* fn = combine_of(K, F, w != nullptr, kind, &smem);
   const int groups = (B + CW - 1) / CW;
   if (K <= KMAX) {
     int chunk = combine_chunk(T, B, CTT), t0 = 0, t1 = T;
@@ -918,10 +1003,10 @@ int duplex_fb_combine(const float* W, const float* feats, const float* alpha,
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(fbs::sum_partials(scratch, groups * nchunks, K * K + K * F, stats, st));
   }
-  const fbs::WideStats ws(scratch, T, B, K, F);
+  const fbs::WideStats ws(scratch, T, B, K, F, kind);
   float *dn = ws.dn, *gw = ws.gw, *part = nullptr;
   int chunk = combine_chunk(ws.steps, B, 2);
-  return static_cast<int>(ws.run(alpha, feats, stats, st, [&](int t0, int t1) {
+  return static_cast<int>(ws.run(alpha, nullptr, feats, stats, st, [&](int t0, int t1) {
     void* args[] = {&W,  &feats, &alpha, &beta, &sh, &w, &gamma, &gamma0, &part,
                     &dn, &gw,    &T,     &B,    &K,  &F, &chunk, &t0,     &t1};
     return fbw::launch_dyn(fn, dim3(groups, (t1 - t0 + chunk - 1) / chunk), CNT, smem, st, args);
@@ -934,12 +1019,13 @@ int duplex_fb_combine(const float* W, const float* feats, const float* alpha,
 // resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
 // out[5] the device's SMs, out[6] threads a block. which = 0 the chain (S
 // sequences a block), 1 the combine, 2 the gated combine (S unused); K > 64
-// names the large-K instance of its KP.
-int duplex_fb_kernel_info(int which, int S, int K, int F, int device, int* out) {
-  if (bad_shape(1, 1, K, F) || which < 0 || which > 2)
+// names the large-K instance of its KP; kind the feature kind.
+int duplex_fb_kernel_info(int which, int S, int K, int F, int kind, int device, int* out) {
+  if (bad_shape(1, 1, K, F) || bad_kind(kind, F) || which < 0 || which > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   int smem = 0;
-  const void* fn = which == 0 ? chain_of(S, K, F, &smem) : combine_of(K, F, which == 2, &smem);
+  const void* fn = which == 0 ? chain_of(S, K, F, kind, &smem)
+                              : combine_of(K, F, which == 2, kind, &smem);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int nt = which != 0 ? CNT : K > KMAX ? fbw::tier_of(K) : NT;
   cudaError_t e = cudaSetDevice(device);

@@ -1,12 +1,15 @@
 // Device code shared by the forward-backward kernels of fused_fb.cu,
 // split_fb.cu, duplex_fb.cu and split_probe.cu: one thread per state (KMAX
 // threads), the widths the kernels take, the per-sequence sum floor and the
-// warp reductions; and, for the sources with one block per sequence, the A~
-// loader. Each .cu still builds into its own library; _build.py hashes this
-// header into the name of every library whose source includes it.
+// warp reductions; the feature kinds (the feature array, or the features
+// built on the chip from a Gaussian family's raw observations); and, for the
+// sources with one block per sequence, the A~ loader. Each .cu still builds
+// into its own library; _build.py hashes this header into the name of every
+// library whose source includes it.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -17,6 +20,74 @@ constexpr int NT = KMAX;
 constexpr int NWARP = NT / 32;
 constexpr int FMAX = 64;  // largest feature width F the in-kernel likelihood takes
 constexpr float SUM_FLOOR = 1e-38f;  // per-sequence sum floor (pallas_fb.py:82)
+
+// What the fused and duplex kernels read a (t, b) row of: the (T, B, F)
+// feature array (FEATS_ARRAY), or a Gaussian family's raw (T, B, D)
+// observations, from which they build the features on the chip
+// (pallas_fb.py:287 `_build_feats`): [1, y, triu(y y^T) row-major]
+// (FEATS_NIW, distributions/niw.py::ell_features) or [1, y, y * y]
+// (FEATS_NIG, distributions/diag_gaussian.py::ell_features).
+constexpr int FEATS_ARRAY = 0;
+constexpr int FEATS_NIW = 1;
+constexpr int FEATS_NIG = 2;
+
+// The feature width of `kind` at D observation dimensions (D for the array).
+__host__ __device__ constexpr int feat_width(int kind, int D) {
+  return kind == FEATS_NIW ? 1 + D + D * (D + 1) / 2 : kind == FEATS_NIG ? 1 + 2 * D : D;
+}
+
+// The floats of one input row: D, whose features are F wide, for a built
+// kind (-1 when no D gives F); F for the array.
+__host__ __device__ inline int obs_dim(int kind, int F) {
+  if (kind == FEATS_ARRAY) return F;
+  for (int D = 1; feat_width(kind, D) <= F; ++D)
+    if (feat_width(kind, D) == F) return D;
+  return -1;
+}
+
+// Where feature f of a built row comes from: the constant 1 (ia < 0), y[ia]
+// (ja < 0) or y[ia] y[ja] (ia <= ja), in ell_features' order.
+__host__ __device__ inline void feat_src(int kind, int D, int f, int& ia, int& ja) {
+  ia = ja = -1;
+  if (f == 0) return;
+  if (f <= D) {
+    ia = f - 1;
+    return;
+  }
+  int q = f - 1 - D;
+  if (kind == FEATS_NIG) {
+    ia = ja = q;
+    return;
+  }
+  int i = 0;
+  while (q >= D - i) {
+    q -= D - i;
+    ++i;
+  }
+  ia = i;
+  ja = i + q;
+}
+
+// A built feature from its factors: x alone, or one float32 product rounded
+// and kept as it is (__fmul_rn is never contracted into an FMA), so that a
+// built row holds the bits of ell_features' float32 output.
+__device__ __forceinline__ float feat_of(float x, float y, bool product) {
+  return product ? __fmul_rn(x, y) : x;
+}
+
+// Feature f of the observation row y (D floats).
+template <int KIND>
+__device__ __forceinline__ float feat_at(const float* __restrict__ y, int D, int f) {
+  int ia, ja;
+  feat_src(KIND, D, f, ia, ja);
+  return ia < 0 ? 1.f : feat_of(y[ia], ja < 0 ? 0.f : y[ja], ja >= 0);
+}
+
+// alpha as the kernels store it: float32, or bf16 (round to nearest) where
+// a16 is not null; the chain itself always carries float32.
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll

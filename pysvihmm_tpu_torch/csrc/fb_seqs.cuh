@@ -13,8 +13,10 @@
 // all run this one function, so the duplex chain's alpha, s and sh are the
 // fused forward's bit for bit. seq_stats_backward is the backward with the
 // statistics, the body of fused_bwd_kernel<S, FP, GATED> and (FEATS =
-// false) of split_bwd_kernel<S, GATED>. The helpers keep the numerics every
-// kernel shares: ll_t as the fmaf chain over f = 0..FP-1 in order over zero
+// false) of split_bwd_kernel<S, GATED>. With FEATS, KIND names what the
+// rows are read from: the feature array, or the raw observations whose
+// features ObsRows builds (the fused pair's and the duplex chain's
+// in-kernel mode). The helpers keep the numerics every kernel shares: ll_t as the fmaf chain over f = 0..FP-1 in order over zero
 // padding, sums and maxima as each warp's butterfly (fbc::warp_sum's order)
 // and then warp 0's plus warp 1's.
 
@@ -84,6 +86,48 @@ struct FeatRows {
   }
 };
 
+// FeatRows' counterpart for a built kind (fbc::FEATS_NIW, FEATS_NIG): one
+// step's raw observation rows of the block's sequences (ns * D contiguous
+// floats) into the same shared slot [S][FP], each feature built where it is
+// stored (zero beyond F, and for missing sequences). Thread k builds the
+// features k, k + NT, ... of the S rows: load() asks for their factors,
+// store() forms the products, so that the loads' latency hides behind a step
+// as FeatRows' does.
+template <int S, int FP, int KIND>
+struct ObsRows {
+  static constexpr int R = (S * FP + NT - 1) / NT;
+  int off[R];  // where feature k + NT r goes in the slot, -1 for none
+  int src[R];  // its factors' offsets in the rows, (ia + 1) | (ja + 1) << 16 (fbc::feat_src)
+  float x[R], y[R];
+
+  __device__ ObsRows(int k, int ns, int F) {
+    const int D = fbc::obs_dim(KIND, F);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int e = k + NT * r;
+      const int s = e / F, f = e - s * F;
+      int ia = -1, ja = -1;
+      if (e < ns * F) fbc::feat_src(KIND, D, f, ia, ja);
+      off[r] = e < ns * F ? s * FP + f : -1;
+      src[r] = (ia < 0 ? 0 : ia + s * D + 1) | ((ja < 0 ? 0 : ja + s * D + 1) << 16);
+      x[r] = y[r] = 0.f;
+    }
+  }
+  __device__ __forceinline__ void load(const float* __restrict__ row) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int ia = (src[r] & 0xffff) - 1, ja = (src[r] >> 16) - 1;
+      x[r] = ia >= 0 ? row[ia] : 1.f;
+      y[r] = ja >= 0 ? row[ja] : 0.f;
+    }
+  }
+  __device__ __forceinline__ void store(float* slot) const {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (off[r] >= 0) slot[off[r]] = fbc::feat_of(x[r], y[r], (src[r] >> 16) != 0);
+  }
+};
+
 // FeatRows' stand-in where no feature is read (the ll mode, FEATS = false):
 // every move is a no-op.
 struct NoRows {
@@ -92,8 +136,13 @@ struct NoRows {
   __device__ __forceinline__ void store(float*) const {}
 };
 
-template <int S, int FP, bool FEATS>
-using RowsOf = typename std::conditional<FEATS, FeatRows<S, FP>, NoRows>::type;
+// The rows of (FEATS, KIND): none (the ll mode), the feature array's, or
+// rows built from the observations.
+template <int S, int FP, bool FEATS, int KIND = fbc::FEATS_ARRAY>
+using RowsOf = typename std::conditional<
+    !FEATS, NoRows,
+    typename std::conditional<KIND == fbc::FEATS_ARRAY, FeatRows<S, FP>,
+                              ObsRows<S, FP, KIND>>::type>::type;
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -150,20 +199,30 @@ __device__ __forceinline__ void ld4s(float4 (&x)[S], const float* base, int stri
 // step ahead: FEATS, computed as f . W in the same loop as the matvec (step 0
 // is peeled off, so that both chains are live in every iteration and
 // interleave); else read from ll (T, B, K), `src`, FWD_AHEAD steps before it
-// is needed (W and F unused, FP no width: no feature is read). Writes raw alpha
-// (T, B, K), s and sh (B, T). Every thread of the block calls it.
-template <int S, int FP, bool FEATS = true>
+// is needed (W and F unused, FP no width: no feature is read). FEATS reads
+// the feature array (KIND = FEATS_ARRAY) or builds the rows from the raw
+// (T, B, D) observations in `src` (ObsRows; D from F and KIND). Writes raw
+// alpha (T, B, K) -- float32 into alpha, or, ABF, rounded to bf16 into
+// alpha16 (the chain carries float32 all the same) -- s and sh (B, T); s
+// sums the values stored, so with bf16 the rounded ones (pallas_fb.py:311
+// `_emit_scales`). ABF is a template parameter, so that the float32
+// instances carry no trace of it (as a run-time pointer it made the K = 64
+// fused forward 23 % slower on the H100, PERF.md). Every thread of the
+// block calls it.
+template <int S, int FP, bool FEATS = true, int KIND = fbc::FEATS_ARRAY, bool ABF = false>
 __device__ __forceinline__ void seq_forward(const float* __restrict__ pi,
                                             const float* __restrict__ A,
                                             const float* __restrict__ W,
                                             const float* __restrict__ src,
                                             float* __restrict__ alpha, float* __restrict__ s_out,
                                             float* __restrict__ sh_out, int T, int B, int K,
-                                            int F, int blk) {
+                                            int F, int blk,
+                                            __nv_bfloat16* __restrict__ alpha16 = nullptr) {
   __shared__ __align__(16) float f_s[2][FEATS ? S * FP : 4];  // f_t in slot t & 1
   __shared__ __align__(16) float a_s[2][S * KMAX];  // a_t in slot t & 1, zero beyond K
   __shared__ float red_max[2][NWARP * S];           // partial max of ll_t, slot t & 1
   __shared__ float red_sum[2][NWARP * S];           // partial sum of a_t, slot t & 1
+  __shared__ float red_sr[2][NWARP * S];            // (bf16) partial sum of the stored a_t
   __shared__ float l_s[FEATS ? 1 : FWD_AHEAD * S * KMAX];  // ll_t in slot t % FWD_AHEAD
 
   const int b0 = blk * S;
@@ -186,10 +245,11 @@ __device__ __forceinline__ void seq_forward(const float* __restrict__ pi,
     for (int i = k; i < 2 * S * FP; i += NT) f_s[i / (S * FP)][i % (S * FP)] = 0.f;
   }
   for (int i = k; i < 2 * S * KMAX; i += NT) a_s[i / (S * KMAX)][i % (S * KMAX)] = 0.f;
-  const size_t step_f = (size_t)B * F;  // feats stride of one time step
+  const int in_w = FEATS ? fbc::obs_dim(KIND, F) : K;  // floats of a (t, b) row of src
+  const size_t step_f = (size_t)B * in_w;  // feats (obs) stride of one time step
   const size_t step_k = (size_t)B * K;  // alpha (and ll) stride of one time step
-  const float* fb = src + (size_t)b0 * (FEATS ? F : K);
-  float* ab = alpha + (size_t)b0 * K + k;
+  const float* fb = src + (size_t)b0 * in_w;
+  const size_t a_base = (size_t)b0 * K + k;
   // the ll mode: ll_t of the block's sequences (state k of each, 0 past T),
   // asked for FWD_AHEAD steps before it is read, one cp.async group a step
   auto ll_ask = [&](int t) {
@@ -210,7 +270,7 @@ __device__ __forceinline__ void seq_forward(const float* __restrict__ pi,
   if constexpr (!FEATS) {
     for (int t = 0; t < FWD_AHEAD; ++t) ll_ask(t);
   }
-  RowsOf<S, FP, FEATS> rows(k, ns, F);
+  RowsOf<S, FP, FEATS, KIND> rows(k, ns, F);
   __syncthreads();  // the zeroed slots before the rows land in them
   if constexpr (FEATS) {
     rows.load(fb);
@@ -277,7 +337,13 @@ __device__ __forceinline__ void seq_forward(const float* __restrict__ pi,
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       a_s[p][s * KMAX + k] = a[s];
-      if (active && s < ns) ab[(size_t)t * step_k + (size_t)s * K] = a[s];
+      if (active && s < ns) {
+        const size_t o = a_base + (size_t)t * step_k + (size_t)s * K;
+        if constexpr (ABF)
+          alpha16[o] = __float2bfloat16_rn(a[s]);
+        else
+          alpha[o] = a[s];
+      }
       sm[s] = a[s];
       mx[s] = active ? ll[s] : -INFINITY;
     }
@@ -287,6 +353,16 @@ __device__ __forceinline__ void seq_forward(const float* __restrict__ pi,
       for (int s = 0; s < S; ++s) {
         red_sum[p][warp * S + s] = sm[s];
         red_max[p ^ 1][warp * S + s] = mx[s];
+      }
+    }
+    if constexpr (ABF) {  // s_t: the sum of the stored, rounded a_t
+      float sr[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s) sr[s] = fbc::bf16_round(a[s]);
+      fbc::warp_sums<S>(sr);
+      if (lane == 0) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) red_sr[p][warp * S + s] = sr[s];
       }
     }
     if (FEATS && t + 2 < T) {  // f_{t+2} into f_t's slot; f_{t+3} into registers
@@ -301,7 +377,7 @@ __device__ __forceinline__ void seq_forward(const float* __restrict__ pi,
       const float sum = block_sum<S>(red_sum[p], s);
       inv[s] = 1.f / fmaxf(sum, SUM_FLOOR);
       if (k == s && s < ns) {
-        s_out[(size_t)(b0 + s) * T + t] = sum;
+        s_out[(size_t)(b0 + s) * T + t] = ABF ? block_sum<S>(red_sr[p], s) : sum;
         sh_out[(size_t)(b0 + s) * T + t] = m[s];
       }
       m[s] = block_max<S>(red_max[p ^ 1], s);  // sh_{t+1}
@@ -366,14 +442,24 @@ constexpr int stats_smem_bytes(int S, int FP, bool feats) {
 // partials (K, K) at b0 + s, so that acc's sums do not depend on S, and there
 // is no eacc and no gamma0. Gated, w (T, B) is the kept-mask and the pair gate
 // pg_t = w_{t-1} w_t is formed here; it touches the statistics only. gamma
-// (ungated) is written when not null. Every thread of the block calls it.
-template <int S, int FP, bool FEATS, bool GATED>
+// (ungated) is written when not null. FEATS also takes the built kinds (src
+// the raw observations, rows built as seq_forward's) and, MODES, two
+// run-time pointers, null when unused: alpha16, alpha stored as bf16 (in
+// place of alpha: read and widened, the replay factors 1 / s then the sums
+// of those same rounded values), and sel (B,), the per-sequence time pick
+// (pallas_fb.py:608 `sel_mode`): gamma0 then takes each sequence's ungated
+// gamma at t = sel[b] (zeros for a pick outside 0 .. T-1) in place of w_0
+// gamma_0. Without MODES neither is read, so the default instances carry
+// no trace of them. Every thread of the block calls it.
+template <int S, int FP, bool FEATS, bool GATED, int KIND = fbc::FEATS_ARRAY,
+          bool MODES = false>
 __device__ __forceinline__ void seq_stats_backward(
     const float* __restrict__ A, const float* __restrict__ W, const float* __restrict__ src,
     const float* __restrict__ alpha, const float* __restrict__ s_in,
     const float* __restrict__ sh_in, const float* __restrict__ w_in, float* __restrict__ gamma,
     float* __restrict__ gamma0, float* __restrict__ part, int T, int B, int K, int F, int blk,
-    float* smem) {
+    float* smem, const __nv_bfloat16* __restrict__ alpha16 = nullptr,
+    const int* __restrict__ sel = nullptr) {
   constexpr int WST = FP + 4;            // row stride of W's columns in shared memory
   constexpr int AG = FEATS ? 1 : S;      // acc's sums: one a block, or one a sequence
   float* A_s = smem;                              // A~[k][j] at k * AST + j
@@ -417,25 +503,37 @@ __device__ __forceinline__ void seq_stats_backward(
     for (int f = 0; f < FP; ++f) eacc[f] = 0.f;
   }
 
-  const size_t step_f = (size_t)B * F;
+  const int in_w = FEATS ? fbc::obs_dim(KIND, F) : K;  // floats of a (t, b) row of src
+  const size_t step_f = (size_t)B * in_w;
   const size_t step_k = (size_t)B * K;
-  const float* fb = src + (size_t)b0 * (FEATS ? F : K);
-  const float* ab = alpha + (size_t)b0 * K + k;
+  const float* fb = src + (size_t)b0 * in_w;
+  const float* ab = MODES && alpha16 != nullptr ? nullptr : alpha + (size_t)b0 * K + k;
+  const __nv_bfloat16* ab16 = MODES && alpha16 != nullptr ? alpha16 + (size_t)b0 * K + k
+                                                                   : nullptr;
+  // a_t of sequence s (FEATS reads, as stored: float32 or bf16 widened)
+  auto a_at = [&](int t, int s) {
+    const size_t o = (size_t)t * step_k + (size_t)s * K;
+    if constexpr (MODES) return ab16 != nullptr ? __bfloat162float(ab16[o]) : ab[o];
+    return ab[o];
+  };
 
-  // per sequence: a_t, a_{t-1}, s_{t-1}, sh_t, b'_t and the kept-mask w_t
+  // per sequence: a_t, a_{t-1}, s_{t-1}, sh_t, b'_t, the kept-mask w_t and
+  // (sel) the time pick
   float a_cur[S], a_prev[S], s_prev[S], sh_cur[S], beta[S], w_cur[S];
+  int pick[S];
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     const bool ok = s < ns;
     const float* sb = s_in + (size_t)(b0 + s) * T;
-    a_cur[s] = (ok && active) ? ab[(size_t)(T - 1) * step_k + (size_t)s * K] : 0.f;
-    a_prev[s] = (ok && active && T >= 2) ? ab[(size_t)(T - 2) * step_k + (size_t)s * K] : 0.f;
+    a_cur[s] = (ok && active) ? a_at(T - 1, s) : 0.f;
+    a_prev[s] = (ok && active && T >= 2) ? a_at(T - 2, s) : 0.f;
+    pick[s] = (MODES && sel != nullptr && ok) ? sel[b0 + s] : -1;
     s_prev[s] = (ok && T >= 2) ? sb[T - 2] : 1.f;
     sh_cur[s] = ok ? sh_in[(size_t)(b0 + s) * T + T - 1] : 0.f;
     beta[s] = 1.f / fmaxf(ok ? sb[T - 1] : 1.f, SUM_FLOOR);
     w_cur[s] = GATED ? (ok ? w_in[(size_t)(T - 1) * B + b0 + s] : 0.f) : 1.f;
   }
-  RowsOf<S, FP, FEATS> rows(k, ns, F);
+  RowsOf<S, FP, FEATS, KIND> rows(k, ns, F);
   __syncthreads();  // the zeroed slots before the rows land in them
   if constexpr (FEATS) {
     rows.load(fb + (size_t)(T - 1) * step_f);
@@ -518,7 +616,7 @@ __device__ __forceinline__ void seq_stats_backward(
     for (int s = 0; s < S; ++s) {
       const bool ok = s < ns;
       if constexpr (FEATS) {
-        a_n[s] = (ok && active && t >= 2) ? ab[(size_t)(t - 2) * step_k + (size_t)s * K] : 0.f;
+        a_n[s] = (ok && active && t >= 2) ? a_at(t - 2, s) : 0.f;
         w_n[s] = GATED ? ((ok && t >= 1) ? w_in[(size_t)(t - 1) * B + b0 + s] : 0.f) : 1.f;
       }
       s_n[s] = (ok && t >= 2) ? s_in[(size_t)(b0 + s) * T + t - 2] : 1.f;
@@ -554,7 +652,16 @@ __device__ __forceinline__ void seq_stats_backward(
       gw[s] = GATED ? gam * w_cur[s] : gam;  // the statistics' gamma: kept steps
       if (active && s < ns) {
         if (gamma != nullptr) gamma[((size_t)t * B + b0 + s) * K + k] = gam;
-        if (FEATS && t == 0) gamma0[(size_t)(b0 + s) * K + k] = gw[s];
+        if (FEATS) {
+          float* g0 = gamma0 + (size_t)(b0 + s) * K + k;
+          if (!MODES || sel == nullptr) {
+            if (t == 0) *g0 = gw[s];
+          } else if (t == pick[s]) {
+            *g0 = gam;  // the pick: ungated
+          } else if (t == 0 && (pick[s] < 0 || pick[s] >= T)) {
+            *g0 = 0.f;
+          }
+        }
       }
       // stats side, with the pair gate w_{t-1} w_t; the chain keeps d (0 at t = 0)
       dn[s] = GATED ? (d[s] * n) * (w_n[s] * w_cur[s]) : d[s] * n;

@@ -20,7 +20,10 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "fb_common.cuh"
 
 namespace fbs {
 
@@ -29,8 +32,10 @@ constexpr int SUM_UNROLL = 16;  // loads a thread keeps in flight
 
 // out[e] = part[0][e] + part[1][e] + ... + part[n-1][e], in that order, for
 // e < len (0 when n = 0), added to out[e]'s own value first when `add`; part
-// is (n, len) row-major.
-__global__ void __launch_bounds__(SUM_NT)
+// is (n, len) row-major. Of internal linkage, as the other kernels here
+// that are not templates, so that two translation units of one library
+// (fused_fb.cu and fused_fb_modes.cu) may both include this header.
+static __global__ void __launch_bounds__(SUM_NT)
 sum_partials_kernel(const float* __restrict__ part, int n, int len, bool add,
                     float* __restrict__ out) {
   const int e = blockIdx.x * SUM_NT + threadIdx.x;
@@ -338,11 +343,15 @@ inline long long outer_scratch(long long N, int I, int J) {
 }
 
 // Launches of outer_partial_kernel by this library since the count was last
-// cleared: one a call of outer_sum with rows (the library exports it). Of
-// internal linkage, so that each library keeps its own count.
-namespace {
-long long outer_launch_count = 0;
-}
+// cleared: one a call of outer_sum with rows (the library exports it); and
+// of the operand kernels below, build_feats_kernel [0] and widen_kernel [1],
+// one a call of build_feats or widen with rows. Inline, so that the
+// translation units of one library share one count, and hidden from the
+// library's exports, so that each library keeps its own.
+#define FBS_LIBRARY_LOCAL __attribute__((visibility("hidden")))
+FBS_LIBRARY_LOCAL inline long long outer_launch_count = 0;
+FBS_LIBRARY_LOCAL inline long long prep_launch_count[2] = {0, 0};
+#undef FBS_LIBRARY_LOCAL
 
 // The count, cleared when `clear` (each library exports this).
 inline int outer_launches(bool clear) {
@@ -391,6 +400,62 @@ inline cudaError_t outer_sum(const float* X, const float* Y, long long N, int I,
 }
 
 constexpr long long WIDE_ROWS = 1 << 17;  // (t, b) rows a window of the large-K statistics
+constexpr int PREP_NT = 256;              // threads of the operand kernels below
+
+// out (rows, F) = the built features of the observation rows obs (rows, D),
+// one thread a feature (fbc::feat_at: the same float32 bits as the chain
+// kernels' rows and ell_features').
+template <int KIND>
+__global__ void __launch_bounds__(PREP_NT)
+build_feats_kernel(const float* __restrict__ obs, float* __restrict__ out, long long rows, int D,
+                   int F) {
+  const long long e = (long long)blockIdx.x * PREP_NT + threadIdx.x;
+  if (e >= rows * F) return;
+  const long long r = e / F;
+  out[e] = fbc::feat_at<KIND>(obs + r * D, D, static_cast<int>(e - r * F));
+}
+
+// out[e] = a16[e] widened to float32, e < n.
+static __global__ void __launch_bounds__(PREP_NT)
+widen_kernel(const __nv_bfloat16* __restrict__ a16, float* __restrict__ out, long long n) {
+  const long long e = (long long)blockIdx.x * PREP_NT + threadIdx.x;
+  if (e < n) out[e] = __bfloat162float(a16[e]);
+}
+
+inline unsigned prep_blocks(long long n) { return static_cast<unsigned>((n + PREP_NT - 1) / PREP_NT); }
+
+// The window's eacc operand built from the observations (kind FEATS_NIW or
+// FEATS_NIG), rows (t, b) of obs (rows, D) into out (rows, F).
+inline cudaError_t build_feats(int kind, const float* obs, float* out, long long rows, int D,
+                               int F, cudaStream_t st) {
+  if (rows <= 0) return cudaSuccess;
+  if (kind == fbc::FEATS_NIW)
+    build_feats_kernel<fbc::FEATS_NIW><<<prep_blocks(rows * F), PREP_NT, 0, st>>>(obs, out, rows,
+                                                                                D, F);
+  else
+    build_feats_kernel<fbc::FEATS_NIG><<<prep_blocks(rows * F), PREP_NT, 0, st>>>(obs, out, rows,
+                                                                                D, F);
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) ++prep_launch_count[0];
+  return e;
+}
+
+inline cudaError_t widen(const __nv_bfloat16* a16, float* out, long long n, cudaStream_t st) {
+  if (n <= 0) return cudaSuccess;
+  widen_kernel<<<prep_blocks(n), PREP_NT, 0, st>>>(a16, out, n);
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) ++prep_launch_count[1];
+  return e;
+}
+
+// The count of build_feats_kernel (which = 0) or widen_kernel (1), cleared
+// when `clear` (the fused and duplex libraries export this).
+inline int prep_launches(int which, bool clear) {
+  long long& c = prep_launch_count[which != 0];
+  const long long n = c;
+  if (clear) c = 0;
+  return static_cast<int>(n);
+}
 
 // The large-K statistics, a window of time steps at a time. For the steps
 // t0 <= t < t1 of a window the kernel (the backward or the duplex combine)
@@ -402,54 +467,79 @@ constexpr long long WIDE_ROWS = 1 << 17;  // (t, b) rows a window of the large-K
 // one first: the backward's order, and it carries b'_{t0-1} from a window to
 // the next in `carry` (B, K). So the scratch takes 2 WIDE_ROWS K floats at
 // most (2 B K where B > WIDE_ROWS) beside the carry and the partials,
-// whatever T.
+// whatever T. Two operands may not lie in device memory as the sums read
+// them, and are then made a window at a time into the scratch before its
+// sums: alpha stored as bf16 (`abf`) is widened to float32 for acc, and
+// with a built feature kind (fbc::FEATS_NIW, FEATS_NIG; `kind`) eacc's
+// feature rows are built from the observations (build_feats), the rows the
+// chain kernels build, so the sums see the array mode's operands bit for bit.
 struct WideStats {
-  int T, B, K, F, steps;
+  int T, B, K, F, steps, kind;
+  bool abf;
   float* dn;
   float* gw;
   float* carry;
   float* part_a;
   float* part_e;
+  float* xa;  // abf: the window's alpha rows, widened
+  float* yf;  // built kind: the window's feature rows
 
   static int window(int T, int B) {
     const long long s = WIDE_ROWS / B;
     return s < 1 ? 1 : s > T ? T : static_cast<int>(s);
   }
 
-  static long long floats(int T, int B, int K, int F) {
+  static long long floats(int T, int B, int K, int F, int kind = fbc::FEATS_ARRAY,
+                          bool abf = false) {
     const long long n = (long long)window(T, B) * B;
     return (F > 0 ? 2 : 1) * n * K + (long long)B * K + outer_scratch(n, K, K) +
-           (F > 0 ? outer_scratch(n, K, F) : 0);
+           (F > 0 ? outer_scratch(n, K, F) : 0) + (abf ? n * K : 0) +
+           (F > 0 && kind != fbc::FEATS_ARRAY ? n * F : 0);
   }
 
-  WideStats(float* scratch, int T_, int B_, int K_, int F_)
-      : T(T_), B(B_), K(K_), F(F_), steps(window(T_, B_)) {
+  WideStats(float* scratch, int T_, int B_, int K_, int F_, int kind_ = fbc::FEATS_ARRAY,
+            bool abf_ = false)
+      : T(T_), B(B_), K(K_), F(F_), steps(window(T_, B_)), kind(kind_), abf(abf_) {
     const long long n = (long long)steps * B;
     dn = scratch;
     gw = F > 0 ? dn + n * K : nullptr;
     carry = dn + (F > 0 ? 2 : 1) * n * K;
     part_a = carry + (long long)B * K;
     part_e = part_a + outer_scratch(n, K, K);
+    xa = part_e + (F > 0 ? outer_scratch(n, K, F) : 0);
+    yf = xa + (abf ? n * K : 0);
   }
 
   // For each window [t0, t1), the last first: launch(t0, t1) writes its dn
   // and gw, then its sums go into stats: acc (K, K), then eacc (K, F) right
-  // after it when F > 0.
+  // after it when F > 0. alpha is float32 (alpha16 null) or bf16 (alpha
+  // null); src holds the feature array, or for a built kind the raw
+  // observations (T, B, D).
   template <class Launch>
-  cudaError_t run(const float* alpha, const float* feats, float* stats, cudaStream_t st,
-                  Launch launch) const {
+  cudaError_t run(const float* alpha, const __nv_bfloat16* alpha16, const float* src,
+                  float* stats, cudaStream_t st, Launch launch) const {
     const size_t step_k = (size_t)B * K;
+    const int D = fbc::obs_dim(kind, F);
     for (int t1 = T; t1 > 0; t1 -= steps) {
       const int t0 = t1 > steps ? t1 - steps : 0;
       const bool add = t1 < T;
       cudaError_t e = launch(t0, t1);
       if (e != cudaSuccess) return e;
       const int ta = t0 > 0 ? t0 : 1;  // acc's rows: t >= 1
-      e = outer_sum(alpha + (ta - 1) * step_k, dn + (ta - t0) * step_k,
-                    (long long)(t1 - ta) * B, K, K, part_a, stats, add, st);
-      if (e == cudaSuccess && F > 0)
-        e = outer_sum(gw, feats + (size_t)t0 * B * F, (long long)(t1 - t0) * B, K, F, part_e,
-                      stats + K * K, add, st);
+      const long long na = (long long)(t1 - ta) * B;
+      const float* X = alpha != nullptr ? alpha + (ta - 1) * step_k : xa;
+      if (alpha == nullptr) e = widen(alpha16 + (ta - 1) * step_k, xa, na * K, st);
+      if (e == cudaSuccess)
+        e = outer_sum(X, dn + (ta - t0) * step_k, na, K, K, part_a, stats, add, st);
+      if (e == cudaSuccess && F > 0) {
+        const long long nr = (long long)(t1 - t0) * B;
+        const float* Y = src + (size_t)t0 * B * D;
+        if (kind != fbc::FEATS_ARRAY) {
+          e = build_feats(kind, Y, yf, nr, D, F, st);
+          Y = yf;
+        }
+        if (e == cudaSuccess) e = outer_sum(gw, Y, nr, K, F, part_e, stats + K * K, add, st);
+      }
       if (e != cudaSuccess) return e;
     }
     return cudaSuccess;

@@ -196,7 +196,7 @@ __device__ __forceinline__ float block_max(const float* red) {
 // the duplex chain's backward half's (duplex_fb.cu::seqs_raw_backward).
 template <int KP, int S = 1>
 constexpr int chain_smem_bytes() {
-  return 4 * (Tier<KP>::SR * KP + 2 * S * KP + 2 * S * FMAX + 4 * S * Tier<KP>::NWARP);
+  return 4 * (Tier<KP>::SR * KP + 2 * S * KP + 2 * S * FMAX + 6 * S * Tier<KP>::NWARP);
 }
 
 // The feature rows of step t of a block's sequences, feats[t, b0 .. b0+ns-1, :]
@@ -204,17 +204,21 @@ constexpr int chain_smem_bytes() {
 // (beyond F, and the missing sequences') stays zero. One sequence takes one
 // guarded load a thread (F <= FMAX < KP): at KP = 256 the strided loop in
 // its place made the S = 1 forward 7 % and backward 25 % slower on the H100
-// (PERF.md), a step of one sequence being a latency-bound chain.
-template <int S>
+// (PERF.md), a step of one sequence being a latency-bound chain. A built
+// KIND (fbc::FEATS_NIW, FEATS_NIG) reads the raw observation rows (ns * D
+// floats from row) and builds each feature where it is stored
+// (fbc::feat_at: ell_features' float32 bits).
+template <int S, int KIND = fbc::FEATS_ARRAY>
 __device__ __forceinline__ void feat_rows(float* slot, const float* __restrict__ row, int ns,
-                                          int F, int k, int nt) {
+                                          int F, int k, int nt, int D = 0) {
   if (S == 1) {
-    if (k < F) slot[k] = row[k];
+    if (k < F) slot[k] = KIND == fbc::FEATS_ARRAY ? row[k] : fbc::feat_at<KIND>(row, D, k);
     return;
   }
   for (int e = k; e < ns * F; e += nt) {
     const int s = e / F;
-    slot[s * FMAX + e - s * F] = row[e];
+    slot[s * FMAX + e - s * F] =
+        KIND == fbc::FEATS_ARRAY ? row[e] : fbc::feat_at<KIND>(row + s * D, D, e - s * F);
   }
 }
 
@@ -230,13 +234,16 @@ __device__ __forceinline__ void feat_rows(float* slot, const float* __restrict__
 // not depend on S. Two barriers a step. Every thread of the block calls it.
 // At S = 1 the block's one sequence always exists (B blocks), and here and
 // in seqs_backward the compiler is told so: with ns a run-time value the
-// S = 1 backward at KP = 256 took 26 % longer on the H100 (PERF.md).
-template <int KP, int S, bool FEATS>
+// S = 1 backward at KP = 256 took 26 % longer on the H100 (PERF.md). FEATS
+// with a built KIND reads the raw (T, B, D) observations (feat_rows); ABF
+// stores alpha rounded to bf16 into alpha16, the chain carrying float32,
+// and s sums the rounded values (as seq_forward).
+template <int KP, int S, bool FEATS, int KIND = fbc::FEATS_ARRAY, bool ABF = false>
 __device__ void seqs_forward(const float* __restrict__ pi, const float* __restrict__ A,
                              const float* __restrict__ W, const float* __restrict__ src,
                              float* __restrict__ alpha, float* __restrict__ s_out,
                              float* __restrict__ sh_out, int T, int B, int K, int F, int blk,
-                             float* smem) {
+                             float* smem, __nv_bfloat16* __restrict__ alpha16 = nullptr) {
   using TT = Tier<KP>;
   constexpr int NW = TT::NWARP;
   float* M_s = smem;                       // A~ rows RR..KP-1
@@ -244,6 +251,7 @@ __device__ void seqs_forward(const float* __restrict__ pi, const float* __restri
   float* f_s = a_s + 2 * S * KP;           // f_t in slot t & 1, [S][FMAX] each
   float* red_max = f_s + 2 * S * FMAX;     // [t & 1][S][warp]
   float* red_sum = red_max + 2 * S * NW;
+  float* red_sr = red_sum + 2 * S * NW;    // (bf16) partial sums of the stored a_t
   const int k = threadIdx.x, lane = k & 31, warp = k >> 5;
   const bool active = k < K;
   const int b0 = blk * S, ns = S == 1 ? 1 : min(S, B - b0);  // sequences held
@@ -254,13 +262,15 @@ __device__ void seqs_forward(const float* __restrict__ pi, const float* __restri
   WCol wc;
   if (FEATS) wc.load(W, K, F, k);
   const float pik = active ? pi[k] : 0.f;
-  const size_t step_f = (size_t)B * F, step_k = (size_t)B * K;
-  const float* fb = src + (size_t)b0 * (FEATS ? F : K);
-  float* ab = alpha + (size_t)b0 * K + k;
+  const int D = fbc::obs_dim(KIND, F);         // built kinds: the observations' width
+  const int in_w = FEATS ? D : K;              // floats of a (t, b) row of src
+  const size_t step_f = (size_t)B * in_w, step_k = (size_t)B * K;
+  const float* fb = src + (size_t)b0 * in_w;
+  const size_t a_base = (size_t)b0 * K + k;
   for (int i = k; i < 2 * S * KP; i += KP) a_s[i] = 0.f;
   for (int i = k; i < 2 * S * FMAX; i += KP) f_s[i] = 0.f;
   __syncthreads();
-  if (FEATS) feat_rows<S>(f_s, fb, ns, F, k, KP);
+  if (FEATS) feat_rows<S, KIND>(f_s, fb, ns, F, k, KP, D);
   float l_next[S];  // not FEATS: ll_t, read a step ahead
 #pragma unroll
   for (int s = 0; s < S; ++s)
@@ -298,7 +308,8 @@ __device__ void seqs_forward(const float* __restrict__ pi, const float* __restri
       for (int s = 0; s < S; ++s) red_max[(p * S + s) * NW + warp] = wm[s];
     }
     if (FEATS && t + 1 < T)
-      feat_rows<S>(f_s + (p ^ 1) * S * FMAX, fb + (size_t)(t + 1) * step_f, ns, F, k, KP);
+      feat_rows<S, KIND>(f_s + (p ^ 1) * S * FMAX, fb + (size_t)(t + 1) * step_f, ns, F, k, KP,
+                         D);
     __syncthreads();  // a_{t-1} and f_t are read; the maxima are complete
 
     float m[S], ws[S];
@@ -308,13 +319,29 @@ __device__ void seqs_forward(const float* __restrict__ pi, const float* __restri
       const float lik = active ? expf(ll[s] - m[s]) : 0.f;
       const float a = active ? (t == 0 ? pik * lik : u[s] * (lik * inv[s])) : 0.f;
       a_s[(p * S + s) * KP + k] = a;
-      if (active && s < ns) ab[(size_t)t * step_k + (size_t)s * K] = a;
+      if (active && s < ns) {
+        const size_t o = a_base + (size_t)t * step_k + (size_t)s * K;
+        if constexpr (ABF)
+          alpha16[o] = __float2bfloat16_rn(a);
+        else
+          alpha[o] = a;
+      }
       ws[s] = a;
     }
     fbc::warp_sums<S>(ws);
     if (lane == 0) {
 #pragma unroll
       for (int s = 0; s < S; ++s) red_sum[(p * S + s) * NW + warp] = ws[s];
+    }
+    if constexpr (ABF) {  // s_t: the sum of the stored, rounded a_t
+      float sr[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s) sr[s] = fbc::bf16_round(a_s[(p * S + s) * KP + k]);
+      fbc::warp_sums<S>(sr);
+      if (lane == 0) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) red_sr[(p * S + s) * NW + warp] = sr[s];
+      }
     }
     __syncthreads();  // a_t and the sums are complete
 
@@ -323,7 +350,8 @@ __device__ void seqs_forward(const float* __restrict__ pi, const float* __restri
       const float sum = block_sum<NW>(red_sum + (p * S + s) * NW);
       inv[s] = 1.f / fmaxf(sum, SUM_FLOOR);
       if (k == s && s < ns) {
-        s_out[(size_t)(b0 + s) * T + t] = sum;
+        s_out[(size_t)(b0 + s) * T + t] =
+            ABF ? block_sum<NW>(red_sr + (p * S + s) * NW) : sum;
         sh_out[(size_t)(b0 + s) * T + t] = m[s];
       }
     }
@@ -346,15 +374,22 @@ __device__ void seqs_forward(const float* __restrict__ pi, const float* __restri
 // (the split backward) gamma is always written and gw and gamma0 are not.
 // Each word of A~^T (and of W) a thread reads in a step feeds S chains,
 // each the one-sequence arithmetic, so nothing it writes depends on S. One
-// barrier a step.
-template <int KP, int S, bool FEATS, bool GATED>
+// barrier a step. FEATS also takes the built kinds (src the raw
+// observations) and, MODES, as fbseq::seq_stats_backward: alpha16 (alpha
+// stored as bf16, widened where read) and the time pick sel (B,), gamma0
+// then each sequence's ungated gamma at t = sel[b] (zeros for a pick
+// outside 0 .. T-1) in place of w_0 gamma_0.
+template <int KP, int S, bool FEATS, bool GATED, int KIND = fbc::FEATS_ARRAY,
+          bool MODES = false>
 __device__ void seqs_backward(const float* __restrict__ A, const float* __restrict__ W,
                               const float* __restrict__ src, const float* __restrict__ alpha,
                               const float* __restrict__ s_in, const float* __restrict__ sh_in,
                               const float* __restrict__ g, float* __restrict__ gamma,
                               float* __restrict__ gamma0, float* __restrict__ dn_out,
                               float* __restrict__ gw_out, float* __restrict__ carry, int T,
-                              int B, int K, int F, int t0, int t1, int blk, float* smem) {
+                              int B, int K, int F, int t0, int t1, int blk, float* smem,
+                              const __nv_bfloat16* __restrict__ alpha16 = nullptr,
+                              const int* __restrict__ sel = nullptr) {
   using TT = Tier<KP>;
   constexpr int NW = TT::NWARP;
   float* M_s = smem;                     // A~^T rows RR..KP-1
@@ -370,23 +405,35 @@ __device__ void seqs_backward(const float* __restrict__ A, const float* __restri
   col.load(A, M_s, K, true, k);
   WCol wc;
   if (FEATS) wc.load(W, K, F, k);
-  const size_t step_f = (size_t)B * F, step_k = (size_t)B * K;
-  const float* fb = src + (size_t)b0 * (FEATS ? F : K);
-  const float* ab = alpha + (size_t)b0 * K + k;
+  const int D = fbc::obs_dim(KIND, F);  // built kinds: the observations' width
+  const int in_w = FEATS ? D : K;       // floats of a (t, b) row of src
+  const size_t step_f = (size_t)B * in_w, step_k = (size_t)B * K;
+  const float* fb = src + (size_t)b0 * in_w;
+  const float* ab = MODES && alpha16 != nullptr ? nullptr : alpha + (size_t)b0 * K + k;
+  const __nv_bfloat16* ab16 = MODES && alpha16 != nullptr ? alpha16 + (size_t)b0 * K + k
+                                                                   : nullptr;
+  auto a_at = [&](int t, int s) {  // a_t of sequence s as stored, widened
+    const size_t o = (size_t)t * step_k + (size_t)s * K;
+    if constexpr (MODES) return ab16 != nullptr ? __bfloat162float(ab16[o]) : ab[o];
+    return ab[o];
+  };
   for (int i = k; i < 2 * S * FMAX; i += KP) f_s[i] = 0.f;
   __syncthreads();
   if (FEATS)
-    feat_rows<S>(f_s + ((t1 - 1) & 1) * S * FMAX, fb + (size_t)(t1 - 1) * step_f, ns, F, k, KP);
+    feat_rows<S, KIND>(f_s + ((t1 - 1) & 1) * S * FMAX, fb + (size_t)(t1 - 1) * step_f, ns, F,
+                       k, KP, D);
   __syncthreads();
 
   // per sequence: a_t, b'_t (an idle state's is 0 in the one recursion: its
-  // column of A~^T is; a missing sequence's 0) and w_t
+  // column of A~^T is; a missing sequence's 0), w_t and (sel) the time pick
   float a_cur[S], beta[S], g_cur[S];
+  int pick[S];
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     const bool ok = s < ns;
     const int b = b0 + s;
-    a_cur[s] = (ok && active) ? ab[(size_t)(t1 - 1) * step_k + (size_t)s * K] : 0.f;
+    a_cur[s] = (ok && active) ? a_at(t1 - 1, s) : 0.f;
+    pick[s] = (MODES && sel != nullptr && ok) ? sel[b] : -1;
     beta[s] = !ok ? 0.f
                   : t1 == T ? 1.f / fmaxf(s_in[(size_t)b * T + T - 1], SUM_FLOOR)
                             : (active ? carry[(size_t)b * K + k] : 0.f);
@@ -433,7 +480,7 @@ __device__ void seqs_backward(const float* __restrict__ A, const float* __restri
     for (int s = 0; s < S; ++s) {
       const bool ok = s < ns;
       const int b = b0 + s;
-      a_prev[s] = (ok && active && !Z) ? ab[(size_t)(t - 1) * step_k + (size_t)s * K] : 0.f;
+      a_prev[s] = (ok && active && !Z) ? a_at(t - 1, s) : 0.f;
       g_prev[s] = (GATED && !Z) ? (!FEATS ? gps[s] : ok ? g[(size_t)(t - 1) * B + b] : 0.f)
                                 : 1.f;
       const float sh = !FEATS ? shs[s] : ok ? sh_in[(size_t)b * T + t] : 0.f;
@@ -450,7 +497,8 @@ __device__ void seqs_backward(const float* __restrict__ A, const float* __restri
       for (int s = 0; s < S; ++s) red[(p * S + s) * NW + warp] = gs[s];
     }
     if (FEATS && !Z)
-      feat_rows<S>(f_s + (p ^ 1) * S * FMAX, fb + (size_t)(t - 1) * step_f, ns, F, k, KP);
+      feat_rows<S, KIND>(f_s + (p ^ 1) * S * FMAX, fb + (size_t)(t - 1) * step_f, ns, F, k, KP,
+                         D);
     __syncthreads();  // d_t, the partial sums and f_{t-1} are complete
 
 #pragma unroll
@@ -465,7 +513,14 @@ __device__ void seqs_backward(const float* __restrict__ A, const float* __restri
         if (FEATS) {
           const float gw = GATED ? gam * g_cur[s] : gam;  // the statistics' gamma: kept steps
           gw_out[ow] = gw;
-          if (Z) gamma0[(size_t)b * K + k] = gw;
+          float* g0 = gamma0 + (size_t)b * K + k;
+          if (!MODES || sel == nullptr) {
+            if (Z) *g0 = gw;
+          } else if (t == pick[s]) {
+            *g0 = gam;  // the pick: ungated
+          } else if (Z && (pick[s] < 0 || pick[s] >= T)) {
+            *g0 = 0.f;
+          }
         }
         if (!Z) {
           // stats side, pair-gated; the chain keeps d

@@ -91,6 +91,29 @@
 // a_{t-1} (and d_t, f_t) delivered to it each step, so more states a thread,
 // not more sequences, would be the next lever.
 //
+// Modes (pallas_estep_fused's): a built feature kind (KIND, fbc::FEATS_NIW
+// or FEATS_NIG; pallas_fb.py:287 `_build_feats`) has both kernels read the
+// raw (T, B, D) observations and build each step's feature rows where they
+// are stored in shared memory (fbseq::ObsRows, fbw::feat_rows), each
+// product one float32 multiply kept as it is, so the rows hold
+// ell_features' bits and every output is the array mode's; above K = 64 the
+// statistics' eacc operand is built a window at a time into the scratch
+// (fbs::WideStats). alpha16 stores alpha as bf16 (pallas_fb.py:198
+// `_alpha_store_dtype`): the chain carries float32, s sums the rounded
+// values, and the backward reads them back, its replay factors 1 / s from
+// those same numbers. sel, the backward's per-sequence time pick
+// (pallas_fb.py:608 `sel_mode`), puts each sequence's ungated gamma at
+// t = sel[b] where gamma0 goes, with no gamma written. KIND is a template
+// parameter (every FP instance for each kind), and so is a second switch:
+// each kernel has a default instance, which carries no trace of the two
+// other modes, and a modes' instance (the forward's stores bf16 alpha, the
+// backward's takes alpha16 and sel as run-time pointers, either null); as
+// run-time pointers in the default instances they made the K = 64 forward
+// 23 % and the K = 128 backward 15 % slower on the H100 (PERF.md). The
+// kernels and their instance tables are in fused_fb_kernels.cuh; this unit
+// compiles the default instances, fused_fb_modes.cu the modes', each by its
+// own nvcc at once.
+//
 // Above K = 64 the launchers take the large-K instances instead
 // (fused_fwd_wide_kernel<KP, S>, fused_bwd_wide_kernel<KP, S, GATED>, KP =
 // 128 or 256, S = 1, 2, 4 or 8; fb_wide.cuh holds their layout): S
@@ -111,144 +134,37 @@
 #include "fb_seqs.cuh"
 #include "fb_stats.cuh"
 #include "fb_wide.cuh"
+#include "fused_fb_kernels.cuh"
 
 namespace {
 
 using fbc::FMAX;
 using fbc::KMAX;
 using fbc::NT;
-using fbseq::pad_f;
-
-// The forward: fb_seqs.cuh's seq_forward, which the duplex chain runs too.
-template <int S, int FP>
-__global__ void __launch_bounds__(NT)
-fused_fwd_kernel(const float* __restrict__ pi, const float* __restrict__ A,
-                 const float* __restrict__ W, const float* __restrict__ feats,
-                 float* __restrict__ alpha, float* __restrict__ s_out,
-                 float* __restrict__ sh_out, int T, int B, int K, int F) {
-  fbseq::seq_forward<S, FP>(pi, A, W, feats, alpha, s_out, sh_out, T, B, K, F, blockIdx.x);
-}
-
-// The backward: fb_seqs.cuh's seq_stats_backward with the features, which
-// the split backward runs on read likelihoods. GATED is a template
-// parameter, so that the ungated instance carries no trace of the gates: no
-// loads, no multiplies, no extra live registers.
-template <int S, int FP, bool GATED>
-__global__ void __launch_bounds__(NT)
-fused_bwd_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                 const float* __restrict__ feats, const float* __restrict__ alpha,
-                 const float* __restrict__ s_in, const float* __restrict__ sh_in,
-                 const float* __restrict__ w_in, float* __restrict__ gamma,
-                 float* __restrict__ gamma0, float* __restrict__ part, int T, int B, int K,
-                 int F) {
-  extern __shared__ __align__(16) float smem[];
-  fbseq::seq_stats_backward<S, FP, true, GATED>(A, W, feats, alpha, s_in, sh_in, w_in, gamma,
-                                                gamma0, part, T, B, K, F, blockIdx.x, smem);
-}
-
-// The large-K pair: fb_wide.cuh's S-sequence chains at KP padded states.
-template <int KP, int S>
-__global__ void __launch_bounds__(KP)
-fused_fwd_wide_kernel(const float* __restrict__ pi, const float* __restrict__ A,
-                      const float* __restrict__ W, const float* __restrict__ feats,
-                      float* __restrict__ alpha, float* __restrict__ s_out,
-                      float* __restrict__ sh_out, int T, int B, int K, int F) {
-  extern __shared__ __align__(16) float smem[];
-  fbw::seqs_forward<KP, S, true>(pi, A, W, feats, alpha, s_out, sh_out, T, B, K, F, blockIdx.x,
-                                 smem);
-}
-
-template <int KP, int S, bool GATED>
-__global__ void __launch_bounds__(KP)
-fused_bwd_wide_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                      const float* __restrict__ feats, const float* __restrict__ alpha,
-                      const float* __restrict__ s_in, const float* __restrict__ sh_in,
-                      const float* __restrict__ w_in, float* __restrict__ gamma,
-                      float* __restrict__ gamma0, float* __restrict__ dn,
-                      float* __restrict__ gw, float* __restrict__ carry, int T, int B, int K,
-                      int F, int t0, int t1) {
-  extern __shared__ __align__(16) float smem[];
-  fbw::seqs_backward<KP, S, true, GATED>(A, W, feats, alpha, s_in, sh_in, w_in, gamma, gamma0,
-                                         dn, gw, carry, T, B, K, F, t0, t1, blockIdx.x, smem);
-}
-
-// The built instances: S in {2, 4} sequences a block, FP = pad_f(F).
-template <int S>
-const void* fwd_of(int fp) {
-  switch (fp) {
-    case 16: return reinterpret_cast<const void*>(fused_fwd_kernel<S, 16>);
-    case 32: return reinterpret_cast<const void*>(fused_fwd_kernel<S, 32>);
-    case 48: return reinterpret_cast<const void*>(fused_fwd_kernel<S, 48>);
-    default: return reinterpret_cast<const void*>(fused_fwd_kernel<S, 64>);
-  }
-}
-
-template <int S, bool GATED>
-const void* bwd_of(int fp) {
-  switch (fp) {
-    case 16: return reinterpret_cast<const void*>(fused_bwd_kernel<S, 16, GATED>);
-    case 32: return reinterpret_cast<const void*>(fused_bwd_kernel<S, 32, GATED>);
-    case 48: return reinterpret_cast<const void*>(fused_bwd_kernel<S, 48, GATED>);
-    default: return reinterpret_cast<const void*>(fused_bwd_kernel<S, 64, GATED>);
-  }
-}
-
-// The kernel of (which, S, F): which = 0 forward, 1 backward, 2 gated
-// backward; its dynamic shared memory in *smem. Null for an S not built.
-const void* kernel_of(int which, int S, int F, int* smem) {
-  const int fp = pad_f(F);
-  *smem = 0;
-  switch (S) {
-#define FB_CASE(SS)                                                    \
-  case SS:                                                             \
-    if (which == 0) return fwd_of<SS>(fp);                             \
-    *smem = fbseq::stats_smem_bytes(SS, fp, true);                     \
-    return which == 1 ? bwd_of<SS, false>(fp) : bwd_of<SS, true>(fp);
-    FB_CASE(2)
-    FB_CASE(4)
-#undef FB_CASE
-    default: return nullptr;
-  }
-}
 
 bool bad_shape(int T, int B, int K, int F) {
   return T < 1 || B < 1 || K < 1 || K > fbw::KWIDE || F < 1 || F > FMAX;
 }
 
-// The large-K instance of (which, KP, S), its dynamic shared memory in
-// *smem: S in {1, 2, 4, 8} sequences a block. Null for an S not built.
-template <int KP, int S>
-const void* wide_at(int which, int* smem) {
-  *smem = fbw::chain_smem_bytes<KP, S>();
-  if (which == 0) return reinterpret_cast<const void*>(fused_fwd_wide_kernel<KP, S>);
-  return which == 1 ? reinterpret_cast<const void*>(fused_bwd_wide_kernel<KP, S, false>)
-                    : reinterpret_cast<const void*>(fused_bwd_wide_kernel<KP, S, true>);
+// A feature kind the kernels take, whose width F is (a built kind's F must
+// be its width at some D).
+bool bad_kind(int kind, int F) {
+  return kind < fbc::FEATS_ARRAY || kind > fbc::FEATS_NIG || fbc::obs_dim(kind, F) < 1;
 }
 
-template <int KP>
-const void* wide_of(int which, int S, int* smem) {
-  switch (S) {
-    case 1: return wide_at<KP, 1>(which, smem);
-    case 2: return wide_at<KP, 2>(which, smem);
-    case 4: return wide_at<KP, 4>(which, smem);
-    case 8: return wide_at<KP, 8>(which, smem);
-    default: *smem = 0; return nullptr;
-  }
+// modes: the forward stores bf16 alpha, or the backward takes bf16 alpha or
+// the pick.
+const void* instance(int which, int S, int K, int F, int kind, bool modes, int* smem) {
+  return modes ? fbf::modes_instance(which, S, K, F, kind, smem)
+               : fbf::instance_m<false>(which, S, K, F, kind, smem);
 }
 
-// The kernel of (which, S, K, F) and its dynamic shared memory: the S
-// instance at FP = pad_f(F) up to KMAX states, the large-K one at KP =
-// tier_of(K) above. Null for an S not built.
-const void* instance(int which, int S, int K, int F, int* smem) {
-  if (K <= KMAX) return kernel_of(which, S, F, smem);
-  return fbw::tier_of(K) == 128 ? wide_of<128>(which, S, smem) : wide_of<256>(which, S, smem);
-}
-
-// The chain kernel of (which, S, K): ceil(B / S) blocks of KMAX threads up
-// to KMAX states, of KP threads above.
-cudaError_t launch(int which, int S, int T, int B, int K, int F, cudaStream_t st, void** args) {
+// The chain kernel of (which, S, K, kind): ceil(B / S) blocks of KMAX
+// threads up to KMAX states, of KP threads above.
+cudaError_t launch(int which, int S, int T, int B, int K, int F, int kind, bool modes,
+                   cudaStream_t st, void** args) {
   int smem = 0;
-  const void* fn = instance(which, S, K, F, &smem);
+  const void* fn = instance(which, S, K, F, kind, modes, &smem);
   if (fn == nullptr) return cudaErrorInvalidValue;
   const dim3 grid((B + S - 1) / S);
   if (K > KMAX) return fbw::launch_dyn(fn, grid, fbw::tier_of(K), smem, st, args);
@@ -257,11 +173,12 @@ cudaError_t launch(int which, int S, int T, int B, int K, int F, cudaStream_t st
 }
 
 // Floats of scratch the backward takes: K <= KMAX, a row of partials a
-// block; above, a window's dn and gw, the carry and the outer sums'
-// partials (fbs::WideStats).
-long long scratch_floats(int T, int B, int K, int F, int S) {
+// block; above, a window's dn and gw, the carry, the outer sums' partials
+// and (bf16 alpha, a built kind) the window's widened alpha and built
+// feature rows (fbs::WideStats).
+long long scratch_floats(int T, int B, int K, int F, int S, int kind, bool abf) {
   if (K <= KMAX) return (long long)((B + S - 1) / S) * (K * K + K * F);
-  return fbs::WideStats::floats(T, B, K, F);
+  return fbs::WideStats::floats(T, B, K, F, kind, abf);
 }
 
 }  // namespace
@@ -276,54 +193,72 @@ const char* fused_fb_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// *out = the floats of scratch fused_fb_backward takes at these shapes.
-int fused_fb_scratch(int T, int B, int K, int F, int S, long long* out) {
-  if (bad_shape(T, B, K, F) || S < 1) return static_cast<int>(cudaErrorInvalidValue);
-  *out = scratch_floats(T, B, K, F, S);
+// *out = the floats of scratch fused_fb_backward takes at these shapes, for
+// the feature kind and alpha's storage (abf: bf16).
+int fused_fb_scratch(int T, int B, int K, int F, int S, int kind, int abf, long long* out) {
+  if (bad_shape(T, B, K, F) || bad_kind(kind, F) || S < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *out = scratch_floats(T, B, K, F, S, kind, abf != 0);
   return 0;
 }
 
 // Each launcher returns the launch's CUDA error right after it (0 = ok).
-// Pointers are device pointers of contiguous float32 tensors; the kernels
-// run on `stream` and do not synchronise. S is the sequences a block: 2 or
-// 4 up to K = 64, 1, 2, 4 or 8 above; any other is refused.
-int fused_fb_forward(const float* pi, const float* A, const float* W, const float* feats,
-                     float* alpha, float* s, float* sh, int T, int B, int K, int F, int S,
-                     int device, void* stream) {
-  if (bad_shape(T, B, K, F)) return static_cast<int>(cudaErrorInvalidValue);
+// Pointers are device pointers of contiguous tensors; the kernels run on
+// `stream` and do not synchronise. S is the sequences a block: 2 or 4 up to
+// K = 64, 1, 2, 4 or 8 above; any other is refused. kind names what src
+// holds: the (T, B, F) float32 feature array (fbc::FEATS_ARRAY), or the raw
+// (T, B, D) float32 observations whose features the kernels build, F =
+// feat_width(kind, D) wide (FEATS_NIW, FEATS_NIG); an F no D gives, or one
+// above FMAX, is refused. alpha is stored float32 into alpha or, where
+// alpha16 is not null (alpha then null), as bf16 into alpha16.
+int fused_fb_forward(const float* pi, const float* A, const float* W, const float* src,
+                     float* alpha, void* alpha16, float* s, float* sh, int T, int B, int K,
+                     int F, int S, int kind, int device, void* stream) {
+  if (bad_shape(T, B, K, F) || bad_kind(kind, F) || (alpha == nullptr) == (alpha16 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  void* args[] = {&pi, &A, &W, &feats, &alpha, &s, &sh, &T, &B, &K, &F};
-  return static_cast<int>(launch(0, S, T, B, K, F, static_cast<cudaStream_t>(stream), args));
+  __nv_bfloat16* a16 = static_cast<__nv_bfloat16*>(alpha16);
+  void* args[] = {&pi, &A, &W, &src, &alpha, &a16, &s, &sh, &T, &B, &K, &F};
+  return static_cast<int>(
+      launch(0, S, T, B, K, F, kind, a16 != nullptr, static_cast<cudaStream_t>(stream), args));
 }
 
 // w is null for the ungated launch, else the (T, B) kept-mask; the kernel
 // forms the pair gate from it. stats receives acc (K, K) and then eacc
 // (K, F), summed in a fixed order (fb_stats.cuh); scratch holds
 // fused_fb_scratch floats. Above K = 64 the backward runs a window of time
-// steps a launch (fbs::WideStats), several launches for a long T.
-int fused_fb_backward(const float* A, const float* W, const float* feats, const float* alpha,
-                      const float* s, const float* sh, const float* w, float* gamma,
-                      float* gamma0, float* stats, float* scratch, int T, int B, int K, int F,
-                      int S, int device, void* stream) {
-  if (bad_shape(T, B, K, F)) return static_cast<int>(cudaErrorInvalidValue);
+// steps a launch (fbs::WideStats), several launches for a long T. src,
+// kind, alpha and alpha16 as fused_fb_forward's (alpha as stored there).
+// sel, where not null, is the (B,) int32 time pick: gamma0 then takes each
+// sequence's ungated gamma at t = sel[b] (zeros for a pick outside 0 ..
+// T-1) in place of w_0 gamma_0; it is refused together with gamma.
+int fused_fb_backward(const float* A, const float* W, const float* src, const float* alpha,
+                      const void* alpha16, const float* s, const float* sh, const float* w,
+                      const int* sel, float* gamma, float* gamma0, float* stats, float* scratch,
+                      int T, int B, int K, int F, int S, int kind, int device, void* stream) {
+  if (bad_shape(T, B, K, F) || bad_kind(kind, F) || (alpha == nullptr) == (alpha16 == nullptr) ||
+      (sel != nullptr && gamma != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* a16 = static_cast<const __nv_bfloat16*>(alpha16);
   const int which = w != nullptr ? 2 : 1;
+  const bool modes = a16 != nullptr || sel != nullptr;
   if (K <= KMAX) {
-    void* args[] = {&A, &W, &feats, &alpha, &s, &sh, &w, &gamma, &gamma0, &scratch,
+    void* args[] = {&A, &W, &src, &alpha, &a16, &s, &sh, &w, &sel, &gamma, &gamma0, &scratch,
                     &T, &B, &K, &F};
-    e = launch(which, S, T, B, K, F, st, args);
+    e = launch(which, S, T, B, K, F, kind, modes, st, args);
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(fbs::sum_partials(scratch, (B + S - 1) / S, K * K + K * F, stats, st));
   }
-  const fbs::WideStats ws(scratch, T, B, K, F);
+  const fbs::WideStats ws(scratch, T, B, K, F, kind, a16 != nullptr);
   float *dn = ws.dn, *gw = ws.gw, *carry = ws.carry;
-  return static_cast<int>(ws.run(alpha, feats, stats, st, [&](int t0, int t1) {
-    void* args[] = {&A, &W, &feats, &alpha, &s, &sh, &w, &gamma, &gamma0, &dn, &gw, &carry,
-                    &T, &B, &K, &F, &t0, &t1};
-    return launch(which, S, T, B, K, F, st, args);
+  return static_cast<int>(ws.run(alpha, a16, src, stats, st, [&](int t0, int t1) {
+    void* args[] = {&A, &W, &src, &alpha, &a16, &s, &sh, &w, &sel, &gamma, &gamma0, &dn, &gw,
+                    &carry, &T, &B, &K, &F, &t0, &t1};
+    return launch(which, S, T, B, K, F, kind, modes, st, args);
   }));
 }
 
@@ -354,17 +289,51 @@ int fused_fb_outer_launches(int clear) {
   return fbs::outer_launches(clear != 0);
 }
 
-// What the instance (which, S, K, F) of the launchers above takes on
+// The large-K backward's two operand kernels alone (fbs::build_feats and
+// fbs::widen, which fbs::WideStats runs on each window): out (rows, F) =
+// the built features of kind (fbc::FEATS_NIW or FEATS_NIG) of the
+// observation rows obs (rows, D), F = feat_width(kind, D); out (n) = a16
+// (n) bf16 widened to float32.
+int fused_fb_build_feats(const float* obs, float* out, long long rows, int D, int F, int kind,
+                         int device, void* stream) {
+  if (rows < 1 || D < 1 || kind == fbc::FEATS_ARRAY || bad_kind(kind, F) ||
+      fbc::obs_dim(kind, F) != D)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(
+      fbs::build_feats(kind, obs, out, rows, D, F, static_cast<cudaStream_t>(stream)));
+}
+
+int fused_fb_widen(const void* a16, float* out, long long n, int device, void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(fbs::widen(static_cast<const __nv_bfloat16*>(a16), out, n,
+                                     static_cast<cudaStream_t>(stream)));
+}
+
+// Launches of build_feats_kernel (which = 0) or widen_kernel (1) by this
+// library (the large-K backward and the two entry points above) since the
+// count was last cleared; clears it when `clear`.
+int fused_fb_prep_launches(int which, int clear) {
+  return fbs::prep_launches(which, clear != 0);
+}
+
+// What the instance (which, S, K, F, kind) of the launchers above takes on
 // `device`: out[0] registers a thread, out[1] static and out[2] dynamic
 // shared bytes a block, out[3] local (spilled) bytes a thread, out[4]
 // resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
 // out[5] the device's SMs, out[6] threads a block. which = 0 forward, 1
-// backward, 2 gated backward; K > 64 names the large-K instance of its KP.
-int fused_fb_kernel_info(int which, int S, int K, int F, int device, int* out) {
-  if (bad_shape(1, 1, K, F) || which < 0 || which > 2)
+// backward, 2 gated backward; K > 64 names the large-K instance of its KP;
+// modes the modes' instance (the launchers' with bf16 alpha or the pick),
+// else the default one.
+int fused_fb_kernel_info(int which, int S, int K, int F, int kind, int modes, int device,
+                         int* out) {
+  if (bad_shape(1, 1, K, F) || bad_kind(kind, F) || which < 0 || which > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   int smem = 0;
-  const void* fn = instance(which, S, K, F, &smem);
+  const void* fn = instance(which, S, K, F, kind, modes != 0, &smem);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int nt = K > KMAX ? fbw::tier_of(K) : NT;
   cudaError_t e = cudaSetDevice(device);

@@ -260,7 +260,7 @@ int split_fb_backward(const float* A, const float* ll, const float* alpha,
   if (instance(which, S, K, &smem) == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const fbs::WideStats ws(scratch, T, B, K, 0);
   float *dn = ws.dn, *carry = ws.carry;
-  return static_cast<int>(ws.run(alpha, nullptr, acc, st, [&](int t0, int t1) {
+  return static_cast<int>(ws.run(alpha, nullptr, nullptr, acc, st, [&](int t0, int t1) {
     void* args[] = {&A, &ll, &alpha, &s, &sh, &w, &gamma, &dn, &carry, &T, &B, &K, &t0, &t1};
     return launch(which, S, B, K, st, args);
   }));

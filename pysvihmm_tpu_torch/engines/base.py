@@ -14,10 +14,11 @@ import torch
 
 from .. import messages
 from ..distributions import dirichlet
-from ..distributions.emissions import MultinomialDirichlet
+from ..distributions.emissions import DiagonalGaussianNIG, GaussianNIW, MultinomialDirichlet
 from ..messages.blocked import forward_backward_blocked_stream, forward_backward_blocked_twophase
 from ..messages.duplex_fb import estep_duplex
 from ..messages.fused_fb import FMAX, estep_fused
+from ..messages.fused_fb import feature_width as kind_feature_width
 from ..messages.scan_fb import FBResult
 from ..messages.split_fb import estep_split
 from ..messages.stream_fused import forward_backward_fused_twophase
@@ -58,17 +59,58 @@ def wider_than_fused_kernels(emission, emit_params, obs: torch.Tensor) -> bool:
     return feature_width(emission, emit_params, obs) > FMAX
 
 
-def prepare_fused_obs(params: HMMParams, emission, obs: torch.Tensor) -> torch.Tensor | None:
+# the families whose features the fused and duplex kernels build from the
+# raw observations (``in_kernel_feats``), by the kernels' kind
+_BUILT_KINDS = {GaussianNIW: "niw", DiagonalGaussianNIG: "nig"}
+
+
+def in_kernel_kind(emission) -> str:
+    """The kernels' feature kind of a family that builds its features on
+    the chip: "niw" for the Gaussian-NIW, "nig" for the diagonal Gaussian
+    (JAX's ``PYSVIHMM_INKERNEL_FEATS``, engines/base.py:357-361). Any other
+    family raises ``ValueError``: the port never falls back to the array
+    silently."""
+    if emission not in _BUILT_KINDS:
+        raise ValueError(f"in_kernel_feats takes the Gaussian-NIW or the diagonal Gaussian, "
+                         f"got {getattr(emission, '__name__', emission)}")
+    return _BUILT_KINDS[emission]
+
+
+def check_kernel_modes(method: str, in_kernel_feats: bool = False, gamma_sel: bool = False,
+                       bf16_alpha: bool = False) -> None:
+    """Raise ``ValueError`` for a kernel mode the resolved route does not
+    run: the in-kernel features on "fused" and "duplex" only, the in-kernel
+    gamma pick and bf16 alpha on "fused" only (the duplex stores alpha in
+    float32 and has no pick, as JAX's does)."""
+    if in_kernel_feats and method not in FEATURE_ROUTES:
+        raise ValueError(f"in_kernel_feats runs on {FEATURE_ROUTES}, not on {method!r}")
+    for name, on in (("gamma_sel", gamma_sel), ("bf16_alpha", bf16_alpha)):
+        if on and method != "fused":
+            raise ValueError(f"{name} requires the fused kernels, not {method!r}")
+
+
+def prepare_fused_obs(params: HMMParams, emission, obs: torch.Tensor,
+                      in_kernel_feats: bool = False) -> torch.Tensor | None:
     """The fused and duplex E-steps' observation side, built once.
 
     Returns the time-major feature array (T, B, F) as contiguous float32:
     the family's ``ell_features``, or for the multinomial the one-hot
     (T, B, V) of its int observations (B, T). None when the features are
     wider than the kernels take (:func:`wider_than_fused_kernels`): those
-    routes run the split kernels then. It depends on the data only, so
+    routes run the split kernels then. With ``in_kernel_feats`` the raw
+    observations (T, B, D) instead, whose features the kernels build; a
+    family without a built kind (:func:`in_kernel_kind`), or features wider
+    than ``FMAX``, raise ``ValueError``. It depends on the data only, so
     engines whose data is fixed across iterations (batch VB) build it once
     and pass it as ``prepared=``."""
     check_family(emission)
+    if in_kernel_feats:
+        kind = in_kernel_kind(emission)
+        F = kind_feature_width(kind, obs.shape[-1])
+        if F > FMAX:
+            raise ValueError(f"in-kernel {kind!r} features at D={obs.shape[-1]} are {F} wide; "
+                             f"the kernels build at most {FMAX}")
+        return obs.transpose(0, 1).to(torch.float32).contiguous()
     if wider_than_fused_kernels(emission, params.emit, obs):
         return None
     if emission is MultinomialDirichlet:
@@ -113,6 +155,9 @@ def _fused_estep(
     need_gamma: bool = True,
     prepared: torch.Tensor | None = None,
     method: str = "fused",
+    in_kernel_feats: bool = False,
+    gamma_sel: torch.Tensor | None = None,
+    alpha_dtype: torch.dtype = torch.float32,
 ) -> tuple[FBResult, object]:
     """The fused and duplex routes (JAX's ``_pallas_fused_estep``, the duplex
     one with ``PYSVIHMM_DUPLEX`` set): returns (FBResult with gamma (T, B, K)
@@ -121,14 +166,35 @@ def _fused_estep(
     (:func:`wider_than_fused_kernels`) run the split route instead: JAX
     does so above ``ONE_HOT_MAX_V`` symbols (engines/base.py:547) and
     computes widths of 65-256 in its fused kernels, which the port's take
-    only up to ``FMAX``."""
-    feats = prepare_fused_obs(params, emission, obs) if prepared is None else prepared
+    only up to ``FMAX``. The split route has neither the pick nor bf16
+    alpha, so ``gamma_sel`` or a bf16 ``alpha_dtype`` on such features
+    raises ``ValueError``.
+
+    The kernel modes (:func:`check_kernel_modes`): ``in_kernel_feats`` has
+    the kernels build the features from the raw observations (``prepared``
+    then the raw (T, B, D) of ``prepare_fused_obs(..., in_kernel_feats=
+    True)``); ``gamma_sel`` (B,) has the fused backward pick each
+    sequence's gamma at that step into FBResult.init_stats, with no gamma
+    written; ``alpha_dtype`` is the fused forward's alpha storage."""
+    check_kernel_modes(method, in_kernel_feats, gamma_sel is not None,
+                       alpha_dtype != torch.float32)
+    feats = (prepare_fused_obs(params, emission, obs, in_kernel_feats) if prepared is None
+             else prepared)
     if feats is None:
+        if gamma_sel is not None or alpha_dtype != torch.float32:
+            raise ValueError(
+                f"gamma_sel and bf16 alpha run in the fused kernels, which take features up "
+                f"to {FMAX} wide; these are {feature_width(emission, params.emit, obs)} wide")
         return _split_estep(params, emission, obs, weights)
     log_pi, log_A = expected_log_params(params)
+    modes = {"in_kernel_feats": in_kernel_kind(emission) if in_kernel_feats else None,
+             "gamma_sel": gamma_sel}
+    if method == "fused":
+        modes["alpha_dtype"] = alpha_dtype
     fb, S = _FUSED_ESTEPS[method](
         log_pi, log_A, _fused_W(emission, params.emit), feats,
-        emit_gamma=need_gamma, weights=_time_major_weights(weights),
+        emit_gamma=need_gamma and gamma_sel is None, weights=_time_major_weights(weights),
+        **modes,
     )
     return fb, emission.unpack_flat_stats(params.emit, S)
 
@@ -175,6 +241,8 @@ def batch_local_step(
     need_gamma: bool = True,
     prepared: torch.Tensor | None = None,
     exact: bool = False,
+    in_kernel_feats: bool = False,
+    bf16_alpha: bool = False,
 ) -> tuple[LocalStats, torch.Tensor | None]:
     """Full local update over a batch of sequences obs (B, T, D), or int obs
     (B, T) for the multinomial.
@@ -192,13 +260,22 @@ def batch_local_step(
     trans_stats (pairs w_{t-1} w_t) and the emission stats on every route,
     and never the chain: gamma comes out ungated.
 
-    exact: accepted for the JAX contract (evaluation callers set it so that
-    log Z comes from float32 alpha). The port stores alpha in float32
-    always, so it changes nothing yet.
+    The kernel modes, off by default (JAX reaches them through
+    ``PYSVIHMM_INKERNEL_FEATS`` and ``PYSVIHMM_BF16_ALPHA``):
+    ``in_kernel_feats`` has the "fused" and "duplex" kernels build the
+    Gaussian families' features from the raw observations (the same bits as
+    the feature array); ``bf16_alpha`` stores the "fused" forward's alpha
+    as bf16. Another route, a family without a built kind, or features
+    wider than the fused kernels take, raise ``ValueError``
+    (:func:`check_kernel_modes`, :func:`in_kernel_kind`).
+
+    exact: evaluation callers set it so that log Z comes from float32
+    alpha: it pins float32 storage, whatever ``bf16_alpha``.
     """
-    del exact  # alpha is float32 on every route of the port
     f32_matmuls()
     method = messages.resolve_method(method, obs.device)
+    check_kernel_modes(method, in_kernel_feats, bf16_alpha=bf16_alpha)
+    alpha_dtype = torch.bfloat16 if bf16_alpha and not exact else torch.float32
 
     if method in messages.PLAIN_METHODS:
         log_pi, log_A = expected_log_params(params)
@@ -212,7 +289,7 @@ def batch_local_step(
             fb, emit_stats = _split_estep(params, emission, obs, weights)
         else:
             fb, emit_stats = _fused_estep(params, emission, obs, weights, need_gamma, prepared,
-                                          method)
+                                          method, in_kernel_feats, alpha_dtype=alpha_dtype)
         gamma = fb.gamma.transpose(0, 1) if need_gamma else None
     stats = LocalStats(
         init=fb.init_stats.sum(dim=0),
@@ -230,6 +307,9 @@ def windowed_local_step(
     maskf: torch.Tensor,  # (B, W) kept-mask (0/1 floats)
     offs: torch.Tensor,  # (B,) kept-region offset inside each window
     method: str = "auto",
+    in_kernel_feats: bool = False,
+    gamma_sel: bool = False,
+    bf16_alpha: bool = False,
 ) -> tuple[object, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Shared local step of the windowed engines (svi subchains).
 
@@ -241,16 +321,27 @@ def windowed_local_step(
 
     The kernel routes keep gamma time-major (W, B, K) as the kernels write
     it; the per-window pick gamma[offs[b], b, :] is a plain gather on it.
+    With ``gamma_sel`` ("fused" only; JAX's ``PYSVIHMM_GAMMA_SEL``) the
+    fused backward picks it in-kernel and writes no gamma; features wider
+    than the fused kernels take then raise ``ValueError``, as does
+    ``bf16_alpha`` on them.
+    ``in_kernel_feats`` and ``bf16_alpha`` as :func:`batch_local_step`'s.
     """
     f32_matmuls()
     method = messages.resolve_method(method, windows.device)
+    check_kernel_modes(method, in_kernel_feats, gamma_sel, bf16_alpha)
     rows = torch.arange(windows.shape[0], device=windows.device)
     if method == "split":
         fb, emit_stats = _split_estep(params, emission, windows, maskf)
         return emit_stats, fb.trans_stats, fb.gamma[offs, rows], fb.log_c
     if method in FEATURE_ROUTES:
-        fb, emit_stats = _fused_estep(params, emission, windows, maskf, method=method)
-        return emit_stats, fb.trans_stats, fb.gamma[offs, rows], fb.log_c
+        alpha_dtype = torch.bfloat16 if bf16_alpha else torch.float32
+        fb, emit_stats = _fused_estep(params, emission, windows, maskf, method=method,
+                                      in_kernel_feats=in_kernel_feats,
+                                      gamma_sel=offs if gamma_sel else None,
+                                      alpha_dtype=alpha_dtype)
+        pick = fb.init_stats if gamma_sel else fb.gamma[offs, rows]
+        return emit_stats, fb.trans_stats, pick, fb.log_c
 
     log_pi, log_A = expected_log_params(params)
     ll = emission.expected_log_likelihood(params.emit, windows)

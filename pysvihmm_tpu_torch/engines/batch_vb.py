@@ -39,14 +39,19 @@ def conjugate_update(emission, prior: HMMParams, stats) -> HMMParams:
     )
 
 
-def make_step(emission, method: str = "auto") -> Step:
+def make_step(emission, method: str = "auto", in_kernel_feats: bool = False,
+              bf16_alpha: bool = False) -> Step:
     """The coordinate-ascent step: (params, prior, obs, prepared=None) ->
     (params', ELBO at params). ``prepared`` is the fused and duplex routes'
-    feature array (:func:`prepare_fused_obs`), built once outside the loop."""
+    feature array (:func:`prepare_fused_obs`, with ``in_kernel_feats`` its
+    raw observations), built once outside the loop. ``in_kernel_feats`` and
+    ``bf16_alpha`` are the kernel modes of ``base.batch_local_step``, passed
+    down as ``method`` is."""
 
     def step(params: HMMParams, prior: HMMParams, obs: torch.Tensor, prepared=None):
         stats, _ = batch_local_step(
-            params, emission, obs, method, need_gamma=False, prepared=prepared
+            params, emission, obs, method, need_gamma=False, prepared=prepared,
+            in_kernel_feats=in_kernel_feats, bf16_alpha=bf16_alpha,
         )
         elbo = elbo_from_stats(params, prior, emission, stats.log_z)
         return conjugate_update(emission, prior, stats), elbo

@@ -137,12 +137,16 @@ def _natural_update(emission, params, prior, stats, scales, rho) -> HMMParams:
     )
 
 
-def make_step(emission, cfg: SVIConfig, chain_len: int, method: str = "auto"):
+def make_step(emission, cfg: SVIConfig, chain_len: int, method: str = "auto",
+              in_kernel_feats: bool = False, gamma_sel: bool = False,
+              bf16_alpha: bool = False):
     """Build the SVI step for a single chain of length T.
 
     Returns step(state, prior, obs) -> (state', metrics dict) with
     ``step.with_starts(state, prior, obs, starts)`` taking the (B,) subchain
-    starts in [0, T-L] instead of drawing them.
+    starts in [0, T-L] instead of drawing them. ``in_kernel_feats``,
+    ``gamma_sel`` and ``bf16_alpha`` are the kernel modes of
+    ``base.windowed_local_step``, passed down as ``method`` is.
     """
     B, L, b = cfg.batch_size, cfg.subchain_len, cfg.buffer
     T = chain_len
@@ -165,7 +169,8 @@ def make_step(emission, cfg: SVIConfig, chain_len: int, method: str = "auto"):
         maskf = mask.to(dtype)
 
         emit_stats, trans_stats, gamma_at_start, log_c = windowed_local_step(
-            params, emission, windows, maskf, offs, method
+            params, emission, windows, maskf, offs, method, in_kernel_feats, gamma_sel,
+            bf16_alpha
         )
 
         # Initial-state stats: gamma at the chain start, only for windows

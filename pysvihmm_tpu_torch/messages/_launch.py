@@ -16,12 +16,13 @@ def instance_tier(K: int) -> int:
     return 64 if K <= 64 else 128 if K <= 128 else 256
 
 
-def check(name: str, x: torch.Tensor, shape: tuple[int, ...], device: torch.device) -> None:
-    """Raise unless ``x`` is a contiguous float32 tensor of ``shape`` on ``device``."""
+def check(name: str, x: torch.Tensor, shape: tuple[int, ...], device: torch.device,
+          dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on ``device``."""
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {x.dtype}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
     if tuple(x.shape) != shape:
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
     if not x.is_contiguous():
@@ -69,11 +70,11 @@ def scratch(lib, fn: str, error_string, dev: torch.device, *shape: int) -> torch
 
 def bind(lib: ctypes.CDLL, signatures: dict[str, str], error_string: str) -> ctypes.CDLL:
     """Set argtypes and restype on a freshly loaded library, once. Each
-    signature spells the arguments as "p" (pointer or stream) and "i" (int);
-    those functions return an int. ``error_string`` names the library's
+    signature spells the arguments as "p" (pointer or stream), "i" (int)
+    and "l" (long long); those functions return an int. ``error_string`` names the library's
     ``const char* (int)`` wrapper of ``cudaGetErrorString``."""
     if not getattr(lib, "_bound", False):
-        kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+        kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong}
         for fn, sig in signatures.items():
             getattr(lib, fn).argtypes = [kinds[c] for c in sig]
             getattr(lib, fn).restype = ctypes.c_int

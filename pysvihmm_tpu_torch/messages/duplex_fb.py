@@ -38,6 +38,14 @@ the fused twins. A launcher given CPU tensors runs the twin; given CUDA
 tensors it launches the kernel or raises. :func:`estep_duplex` composes the
 launchers and :func:`estep_duplex_reference` the twins, with the contract of
 ``fused_fb.estep_fused``.
+
+Both kernels take ``in_kernel_feats`` "niw" or "nig" as the fused pair does
+(pallas_duplex.py:290, :349, :444): ``feats`` is then a Gaussian family's
+raw observations (T, B, D), the features built on the chip with
+``ell_features``' bits, so every output is the array mode's bit for bit.
+The duplex stores alpha in float32 always, as JAX's does, and has no time
+pick: ``gamma_sel`` raises ``ValueError``, as JAX's ``_pallas_fused_estep``
+does on the duplex route.
 """
 
 from __future__ import annotations
@@ -58,7 +66,15 @@ from ._launch import (
     scratch,
     stream,
 )
-from .fused_fb import assemble, built_seqs, seqs_per_block
+from .fused_fb import (
+    assemble,
+    build_features,
+    built_seqs,
+    check_modes,
+    count_mode,
+    kind_code,
+    seqs_per_block,
+)
 from .scan_fb import FBResult
 from .split_fb import SUM_FLOOR, exp_params
 
@@ -71,10 +87,10 @@ def _library():
 
     return bind(
         load_library(_LIB),
-        {"duplex_fb_chain": "pppppppp" "iiiiii" "p",
-         "duplex_fb_combine": "pppppppppp" "iiiii" "p",
-         "duplex_fb_scratch": "iiiip",
-         "duplex_fb_kernel_info": "iiiiip",
+        {"duplex_fb_chain": "pppppppp" "iiiiiii" "p",
+         "duplex_fb_combine": "pppppppppp" "iiiiii" "p",
+         "duplex_fb_scratch": "iiiiip",
+         "duplex_fb_kernel_info": "iiiiiip",
          "duplex_fb_kmax": "",
          "duplex_fb_fmax": ""},
         "duplex_fb_error_string",
@@ -95,45 +111,49 @@ _KERNELS = {"chain": 0, "combine": 1, "gated combine": 2}
 
 
 def kernel_info(kernel: str, S: int, F: int, device: torch.device | None = None,
-                K: int = 64) -> dict:
+                K: int = 64, in_kernel_feats: str | None = None) -> dict:
     """What one instance takes on the card, from the library: ``kernel`` is
     "chain", "combine" or "gated combine", S the chain's sequences a block
     (one of :func:`built_seqs`; unused for the combine), F the feature width
     and K the states (up to 64 the instance built for F padded to 16, 32, 48
     or 64; above, the large-K instance of K's padded state count, 128 or
-    256). Returns registers (a thread), static_smem and dynamic_smem (bytes
-    a block), local_bytes (spills, a thread), blocks_per_sm (resident, by
-    the CUDA occupancy calculator), sms (the card's) and threads (a
-    block)."""
+    256), for the feature kind ``in_kernel_feats``. Returns registers (a
+    thread), static_smem and dynamic_smem (bytes a block), local_bytes
+    (spills, a thread), blocks_per_sm (resident, by the CUDA occupancy
+    calculator), sms (the card's) and threads (a block)."""
     dev = device if device is not None else torch.device("cuda")
-    return dict(_kernel_info(kernel, S, F, instance_tier(K), device_index(dev)))
+    return dict(_kernel_info(kernel, S, F, instance_tier(K), device_index(dev),
+                             kind_code(in_kernel_feats)))
 
 
 @functools.cache
-def _kernel_info(kernel: str, S: int, F: int, K: int, index: int) -> tuple:
+def _kernel_info(kernel: str, S: int, F: int, K: int, index: int, kind: int = 0) -> tuple:
     out = (ctypes.c_int * 7)()
     lib = _library()
-    code = lib.duplex_fb_kernel_info(_KERNELS[kernel], S, K, F, index, ctypes.addressof(out))
+    code = lib.duplex_fb_kernel_info(_KERNELS[kernel], S, K, F, kind, index,
+                                     ctypes.addressof(out))
     raise_on(lib.duplex_fb_error_string, code,
-             f"duplex_fb_kernel_info({kernel}, S={S}, K={K}, F={F})")
+             f"duplex_fb_kernel_info({kernel}, S={S}, K={K}, F={F}, kind={kind})")
     keys = ("registers", "static_smem", "dynamic_smem", "local_bytes", "blocks_per_sm", "sms",
             "threads")
     return tuple(zip(keys, list(out)))
 
 
-def default_seqs(B: int, F: int, device: torch.device, K: int = 64) -> int:
+def default_seqs(B: int, F: int, device: torch.device, K: int = 64,
+                 in_kernel_feats: str | None = None) -> int:
     """The chain launcher's S: ``fused_fb.seqs_per_block`` over the chain's
     instances built for K (:func:`built_seqs`, the fused pair's S) on the
     card's own occupancy, with 2 blocks (a forward and a backward) a group
     of S: at B = 1024 S = 4 at K = 64 and 8 above (one wave at KP = 128,
     none fits one at KP = 256)."""
-    return _default_seqs(B, F, instance_tier(K), device_index(device))
+    return _default_seqs(B, F, instance_tier(K), device_index(device),
+                         kind_code(in_kernel_feats))
 
 
 @functools.cache
-def _default_seqs(B: int, F: int, K: int, index: int) -> int:
+def _default_seqs(B: int, F: int, K: int, index: int, kind: int = 0) -> int:
     seqs = built_seqs(K)
-    info = {S: dict(_kernel_info("chain", S, F, K, index)) for S in seqs}
+    info = {S: dict(_kernel_info("chain", S, F, K, index, kind)) for S in seqs}
     return seqs_per_block(B, {S: i["blocks_per_sm"] * i["sms"] for S, i in info.items()}, 2,
                           seqs)
 
@@ -147,17 +167,18 @@ def _inv_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 def duplex_chain_reference(
-    pi_t: torch.Tensor, A_t: torch.Tensor, W: torch.Tensor, feats: torch.Tensor
+    pi_t: torch.Tensor, A_t: torch.Tensor, W: torch.Tensor, feats: torch.Tensor,
+    in_kernel_feats: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain twin of the chain kernel.
 
     pi_t (K,), A_t (K, K) the exponentiated params; W (F, K); feats
-    (T, B, F). Returns (alpha (T, B, K) raw forward messages, s (B, T) their
+    (T, B, F), or a built kind's raw observations (T, B, D). Returns (alpha (T, B, K) raw forward messages, s (B, T) their
     per-step sums, sh (B, T) the max shifts, beta (T, B, K) raw backward
     messages, b_{t-1} = (A~ (lik_t b_t)) / sum_k b_t). Step j advances the
     forward to t = j and the backward to t = T-1-j, as the TPU kernel
     interleaves them."""
-    ll = feats @ W
+    ll = build_features(feats, in_kernel_feats) @ W
     T = ll.shape[0]
     sh = ll.amax(dim=-1)  # (T, B)
     lik = torch.exp(ll - sh[..., None])
@@ -175,49 +196,54 @@ def duplex_chain_reference(
 
 
 def duplex_chain(
-    pi_t: torch.Tensor, A_t: torch.Tensor, W: torch.Tensor, feats: torch.Tensor
+    pi_t: torch.Tensor, A_t: torch.Tensor, W: torch.Tensor, feats: torch.Tensor,
+    in_kernel_feats: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Chain kernel launcher; contract of :func:`duplex_chain_reference`.
 
     Inputs are float32 and contiguous on one device. CPU tensors run the
     plain twin; CUDA tensors launch ``duplex_chain_kernel`` or raise."""
-    return _launch_chain(None, pi_t, A_t, W, feats)
+    return _launch_chain(None, pi_t, A_t, W, feats, in_kernel_feats)
 
 
-def _launch_chain(S: int | None, pi_t, A_t, W, feats):
+def _launch_chain(S: int | None, pi_t, A_t, W, feats, in_kernel_feats=None):
     """:func:`duplex_chain` with S sequences a block (one of
     :func:`built_seqs` at this K, else ``ValueError`` on every device before
     anything runs; None for :func:`default_seqs`): the card tests and
     chip_smoke.py's sweeps of S."""
-    T, B, F = feats.shape
+    T, B, Fin = feats.shape
     K = A_t.shape[0]
     dev = feats.device
+    F = check_modes(W, feats, in_kernel_feats)
     for name, x, shape in (("pi_t", pi_t, (K,)), ("A_t", A_t, (K, K)),
-                           ("W", W, (F, K)), ("feats", feats, (T, B, F))):
+                           ("W", W, (F, K)), ("feats", feats, (T, B, Fin))):
         check(name, x, shape, dev)
     if S is not None and S not in built_seqs(K):
         raise ValueError(f"no duplex chain instance with S={S} at K={K}: built {built_seqs(K)}")
     if runs_plain_twin(feats):
-        return duplex_chain_reference(pi_t, A_t, W, feats)
+        return duplex_chain_reference(pi_t, A_t, W, feats, in_kernel_feats)
     _check_kernel_limits(K, F)
     lib = _library()
     index = device_index(dev)
+    kind = kind_code(in_kernel_feats)
     if S is None:
-        S = _default_seqs(B, F, instance_tier(K), index)
+        S = _default_seqs(B, F, instance_tier(K), index, kind)
     alpha = torch.empty((T, B, K), dtype=torch.float32, device=dev)
     beta = torch.empty((T, B, K), dtype=torch.float32, device=dev)
     s = torch.empty((B, T), dtype=torch.float32, device=dev)
     sh = torch.empty((B, T), dtype=torch.float32, device=dev)
     code = lib.duplex_fb_chain(
         ptr(pi_t), ptr(A_t), ptr(W), ptr(feats), ptr(alpha), ptr(s), ptr(sh), ptr(beta),
-        T, B, K, F, S, index, stream(dev),
+        T, B, K, F, S, kind, index, stream(dev),
     )
     duplex_chain.launches += 1
+    count_mode(duplex_chain, in_kernel_feats)
     raise_on(lib.duplex_fb_error_string, code, "duplex_chain_kernel")
     return alpha, s, sh, beta
 
 
 duplex_chain.launches = 0
+duplex_chain.mode_launches = {}
 
 
 # ----------------------------------------------------------------- combine
@@ -231,6 +257,7 @@ def duplex_combine_reference(
     sh: torch.Tensor,
     emit_gamma: bool = False,
     weights: torch.Tensor | None = None,
+    in_kernel_feats: str | None = None,
 ) -> tuple[torch.Tensor | None, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain twin of the combine kernel, over all t at once.
 
@@ -238,7 +265,9 @@ def duplex_combine_reference(
     an optional kept-mask weights (T, B). Returns (gamma (T, B, K), ungated,
     or None; gamma0 = w_0 gamma_0 (B, K); acc (K, K) = sum over sequences and
     t >= 1 of outer(a_{t-1}, d_t pg_t / sum(a_{t-1} b_{t-1})); eacc (K, F)
-    = sum of outer(w_t gamma_t, f_t)), with w = pg = 1 when ungated."""
+    = sum of outer(w_t gamma_t, f_t)), with w = pg = 1 when ungated; feats
+    as the chain's."""
+    feats = build_features(feats, in_kernel_feats)
     T, B, F = feats.shape
     K = alpha.shape[-1]
     lik = torch.exp(feats @ W - sh.T[..., None])
@@ -265,6 +294,7 @@ def duplex_combine(
     sh: torch.Tensor,
     emit_gamma: bool = False,
     weights: torch.Tensor | None = None,
+    in_kernel_feats: str | None = None,
 ) -> tuple[torch.Tensor | None, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Combine kernel launcher; contract of :func:`duplex_combine_reference`.
 
@@ -279,40 +309,47 @@ def duplex_combine(
     2 min(T B, max(B, 2^17)) K floats beside the sums' partials, whatever T:
     about 0.28 GB at B = 1024, K = 256, F = 45 (the statistics a window of
     time steps a launch)."""
-    T, B, F = feats.shape
+    T, B, Fin = feats.shape
     K = alpha.shape[-1]
     dev = feats.device
-    args = [("W", W, (F, K)), ("feats", feats, (T, B, F)), ("alpha", alpha, (T, B, K)),
+    F = check_modes(W, feats, in_kernel_feats)
+    args = [("W", W, (F, K)), ("feats", feats, (T, B, Fin)), ("alpha", alpha, (T, B, K)),
             ("beta", beta, (T, B, K)), ("sh", sh, (B, T))]
     if weights is not None:
         args.append(("weights", weights, (T, B)))
     for name, x, shape in args:
         check(name, x, shape, dev)
     if runs_plain_twin(feats):
-        return duplex_combine_reference(W, feats, alpha, beta, sh, emit_gamma, weights)
+        return duplex_combine_reference(W, feats, alpha, beta, sh, emit_gamma, weights,
+                                        in_kernel_feats)
     _check_kernel_limits(K, F)
     lib = _library()
+    kind = kind_code(in_kernel_feats)
     gamma = torch.empty((T, B, K), dtype=torch.float32, device=dev) if emit_gamma else None
     gamma0 = torch.empty((B, K), dtype=torch.float32, device=dev)
     stats = torch.empty(K * K + K * F, dtype=torch.float32, device=dev)  # acc, then eacc
-    work = scratch(lib, "duplex_fb_scratch", lib.duplex_fb_error_string, dev, T, B, K, F)
+    work = scratch(lib, "duplex_fb_scratch", lib.duplex_fb_error_string, dev, T, B, K, F, kind)
     code = lib.duplex_fb_combine(
         ptr(W), ptr(feats), ptr(alpha), ptr(beta), ptr(sh), ptr(weights),
         ptr(gamma), ptr(gamma0), ptr(stats), ptr(work),
-        T, B, K, F, device_index(dev), stream(dev),
+        T, B, K, F, kind, device_index(dev), stream(dev),
     )
     acc, eacc = stats[: K * K].view(K, K), stats[K * K:].view(K, F)
     duplex_combine.launches += 1
+    count_mode(duplex_combine, in_kernel_feats)
     raise_on(lib.duplex_fb_error_string, code, "duplex_combine_kernel")
     return gamma, gamma0, acc, eacc
 
 
 duplex_combine.launches = 0
+duplex_combine.mode_launches = {}
 
 
 def reset_launch_counts() -> None:
     duplex_chain.launches = 0
     duplex_combine.launches = 0
+    duplex_chain.mode_launches.clear()
+    duplex_combine.mode_launches.clear()
 
 
 # ------------------------------------------------------------------ E-step
@@ -325,17 +362,29 @@ def estep_duplex(
     feats: torch.Tensor,
     emit_gamma: bool = False,
     weights: torch.Tensor | None = None,
+    gamma_sel: torch.Tensor | None = None,
+    in_kernel_feats: str | None = None,
 ) -> tuple[FBResult, torch.Tensor]:
     """Duplex batched E-step, with the contract of ``fused_fb.estep_fused``:
-    log_pi (K,), log_A (K, K); W (F, K) and feats (T, B, F) float32,
-    time-major and contiguous; weights an optional (T, B) float32 kept-mask.
-    Returns (FBResult, emit_stats (K, F)).
+    log_pi (K,), log_A (K, K); W (F, K) and feats (T, B, F) float32 (with
+    ``in_kernel_feats`` the raw observations (T, B, D)), time-major and
+    contiguous; weights an optional (T, B) float32 kept-mask.
+    Returns (FBResult, emit_stats (K, F)). ``gamma_sel`` raises
+    ``ValueError``: the duplex kernels have no time pick.
 
     CPU tensors run the plain twins; CUDA tensors run the two kernels."""
+    _check_duplex_modes(W, feats, emit_gamma, gamma_sel, in_kernel_feats)
     pi_t, A_t = exp_params(log_pi, log_A)
-    alpha, s, sh, beta = duplex_chain(pi_t, A_t, W, feats)
-    gamma, gamma0, acc, eacc = duplex_combine(W, feats, alpha, beta, sh, emit_gamma, weights)
+    alpha, s, sh, beta = duplex_chain(pi_t, A_t, W, feats, in_kernel_feats)
+    gamma, gamma0, acc, eacc = duplex_combine(W, feats, alpha, beta, sh, emit_gamma, weights,
+                                              in_kernel_feats)
     return assemble(A_t, s, sh, gamma, gamma0, acc, eacc)
+
+
+def _check_duplex_modes(W, feats, emit_gamma, gamma_sel, in_kernel_feats) -> None:
+    if gamma_sel is not None:
+        raise ValueError("gamma_sel requires the fused kernels")
+    check_modes(W, feats, in_kernel_feats, emit_gamma)
 
 
 def estep_duplex_reference(
@@ -345,11 +394,14 @@ def estep_duplex_reference(
     feats: torch.Tensor,
     emit_gamma: bool = False,
     weights: torch.Tensor | None = None,
+    gamma_sel: torch.Tensor | None = None,
+    in_kernel_feats: str | None = None,
 ) -> tuple[FBResult, torch.Tensor]:
     """Plain PyTorch version of :func:`estep_duplex` on any device."""
+    _check_duplex_modes(W, feats, emit_gamma, gamma_sel, in_kernel_feats)
     pi_t, A_t = exp_params(log_pi, log_A)
-    alpha, s, sh, beta = duplex_chain_reference(pi_t, A_t, W, feats)
+    alpha, s, sh, beta = duplex_chain_reference(pi_t, A_t, W, feats, in_kernel_feats)
     gamma, gamma0, acc, eacc = duplex_combine_reference(
-        W, feats, alpha, beta, sh, emit_gamma, weights
+        W, feats, alpha, beta, sh, emit_gamma, weights, in_kernel_feats
     )
     return assemble(A_t, s, sh, gamma, gamma0, acc, eacc)

@@ -40,11 +40,33 @@ raises. :func:`estep_fused` composes the launchers and
 statistics' outer sums alone (``csrc/fb_stats.cuh``, 3xTF32 on the tensor
 cores), which the large-K backward and combine launchers of all three
 libraries run on each window; :func:`outer_launches` reads the libraries'
-counts of that kernel's launches.
+counts of that kernel's launches. :func:`feature_rows` and
+:func:`widen_alpha` run the two kernels that make those sums' operands in
+the modes below (a window's built feature rows, its bf16 alpha widened),
+and :func:`prep_launches` reads their counts.
 
-Ported modes: ungated and gated, ``emit_gamma`` True and False. The
-per-window gamma pick (``gamma_sel``), the in-kernel feature build and bf16
-alpha storage are still open (ROADMAP Queue 2).
+Modes, all of ``pallas_estep_fused``'s: ungated and gated, ``emit_gamma``
+True and False, and
+
+* ``in_kernel_feats`` "niw" or "nig" (pallas_fb.py:287 ``_build_feats``):
+  ``feats`` holds a Gaussian family's raw observations (T, B, D), and both
+  kernels build each step's features [1, y, triu(y y^T)] or [1, y, y * y]
+  on the chip, each product one float32 multiply kept as it is, so that the
+  rows are ``ell_features(obs)``'s bits and every output is the array
+  mode's bit for bit; only D floats a step and sequence cross device memory
+  instead of F;
+* ``gamma_sel`` (B,) (pallas_fb.py:608 ``sel_mode``): the backward writes
+  each sequence's ungated gamma at t = gamma_sel[b] to the (B, K) output
+  that otherwise holds w_0 gamma_0 (the windowed engines' per-window pick),
+  and no (T, B, K) gamma; it requires ``emit_gamma=False``;
+* ``alpha_dtype=torch.bfloat16`` (pallas_fb.py:198 ``_alpha_store_dtype``):
+  the forward stores alpha rounded to bf16 while its chain carries float32,
+  and s sums the rounded values, so the backward's replay factors 1 / s and
+  the alpha it reads are the same stored numbers.
+
+The twins take the same arguments: they build ``ell_features`` of the
+observations, round alpha through ``.to(torch.bfloat16)`` where the kernel
+stores it, and gather the pick.
 """
 
 from __future__ import annotations
@@ -74,6 +96,73 @@ _LIB = "fused_fb"
 # ones to the split kernels before any launch
 FMAX = 64
 
+# what the kernels read a (t, b) row of (fbc::FEATS_* in csrc/fb_common.cuh):
+# the feature array (None), or the raw observations of a Gaussian family
+# whose features the kernels build ("niw", "nig")
+FEATURE_KINDS = {None: 0, "niw": 1, "nig": 2}
+ALPHA_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def kind_code(in_kernel_feats: str | None) -> int:
+    """The libraries' code of a feature kind; ``ValueError`` on another."""
+    if in_kernel_feats not in FEATURE_KINDS:
+        raise ValueError(f"unknown in-kernel feature kind {in_kernel_feats!r}; expected one "
+                         f"of {tuple(FEATURE_KINDS)}")
+    return FEATURE_KINDS[in_kernel_feats]
+
+
+def feature_width(in_kernel_feats: str | None, D: int) -> int:
+    """F of a built kind at D observation dims: 1 + D + D (D + 1) / 2 for
+    "niw", 1 + 2 D for "nig"; D itself (the array's width) for None."""
+    kind_code(in_kernel_feats)
+    if in_kernel_feats == "niw":
+        return 1 + D + D * (D + 1) // 2
+    return 1 + 2 * D if in_kernel_feats == "nig" else D
+
+
+def build_features(obs: torch.Tensor, in_kernel_feats: str | None) -> torch.Tensor:
+    """The feature rows a built kind's kernels form from obs (..., D), as a
+    contiguous float32 array (..., F): the family's ``ell_features`` of the
+    float32 observations; obs itself for None."""
+    from ..distributions import diag_gaussian, niw
+
+    if in_kernel_feats is None:
+        return obs
+    build = niw.ell_features if kind_code(in_kernel_feats) == 1 else diag_gaussian.ell_features
+    return build(obs.to(torch.float32)).contiguous()
+
+
+def check_modes(W: torch.Tensor, src: torch.Tensor, in_kernel_feats: str | None,
+                emit_gamma: bool = False, gamma_sel: torch.Tensor | None = None,
+                alpha_dtype: torch.dtype = torch.float32) -> int:
+    """F for a launch in these modes, or ``ValueError`` where JAX raises
+    (``pallas_estep_fused``: W's rows not the kind's width, ``gamma_sel``
+    with ``emit_gamma``) and where the kernels take no such mode (a built
+    kind wider than :data:`FMAX`, another alpha dtype); on every device."""
+    F = feature_width(in_kernel_feats, src.shape[-1])
+    if W.shape[0] != F:
+        raise ValueError(f"W rows {W.shape[0]} != feature width {F}")
+    if in_kernel_feats is not None and F > FMAX:
+        raise ValueError(f"in-kernel {in_kernel_feats!r} features of D={src.shape[-1]} are "
+                         f"{F} wide; the kernels build at most {FMAX}")
+    if gamma_sel is not None and emit_gamma:
+        raise ValueError("gamma_sel requires emit_gamma=False")
+    if alpha_dtype not in ALPHA_DTYPES:
+        raise ValueError(f"alpha is stored as one of {ALPHA_DTYPES}, got {alpha_dtype}")
+    return F
+
+
+def _sel_int32(gamma_sel: torch.Tensor | None, B: int, dev: torch.device):
+    """The (B,) time pick as the kernel takes it: contiguous int32 on dev."""
+    if gamma_sel is None:
+        return None
+    if tuple(gamma_sel.shape) != (B,) or gamma_sel.is_floating_point():
+        raise ValueError(f"gamma_sel must be a ({B},) integer tensor, got "
+                         f"{tuple(gamma_sel.shape)} {gamma_sel.dtype}")
+    if gamma_sel.device != dev:
+        raise ValueError(f"gamma_sel is on {gamma_sel.device}, expected {dev}")
+    return gamma_sel.to(torch.int32).contiguous()
+
 
 def _library():
     """Build (at first use) and bind the kernels' C interface."""
@@ -81,13 +170,16 @@ def _library():
 
     return bind(
         load_library(_LIB),
-        {"fused_fb_forward": "ppppppp" "iiiiii" "p",
-         "fused_fb_backward": "ppppppppppp" "iiiiii" "p",
-         "fused_fb_scratch": "iiiiip",
-         "fused_fb_kernel_info": "iiiiip",
+        {"fused_fb_forward": "pppppppp" "iiiiiii" "p",
+         "fused_fb_backward": "ppppppppppppp" "iiiiiii" "p",
+         "fused_fb_scratch": "iiiiiiip",
+         "fused_fb_kernel_info": "iiiiiiip",
          "fused_fb_outer_scratch": "iiip",
          "fused_fb_outer_sum": "pppp" "iiii" "p",
          "fused_fb_outer_launches": "i",
+         "fused_fb_build_feats": "pp" "l" "iiii" "p",
+         "fused_fb_widen": "pp" "l" "i" "p",
+         "fused_fb_prep_launches": "ii",
          "fused_fb_kmax": "",
          "fused_fb_fmax": ""},
         "fused_fb_error_string",
@@ -148,49 +240,61 @@ _KERNELS = {"forward": 0, "backward": 1, "gated backward": 2}
 
 
 def kernel_info(kernel: str, S: int, F: int, device: torch.device | None = None,
-                K: int = KMAX_SEQS) -> dict:
+                K: int = KMAX_SEQS, in_kernel_feats: str | None = None,
+                modes: bool = False) -> dict:
     """What one instance of the kernels takes on the card, from the library:
     ``kernel`` is "forward", "backward" or "gated backward", S the sequences a
     block, F the feature width and K the states (up to 64 the instance built
     for F padded to 16, 32, 48 or 64; above, the large-K instance of K's
-    padded state count, 128 or 256). Returns registers (a thread),
-    static_smem and dynamic_smem (bytes a block), local_bytes (spills, a
-    thread), blocks_per_sm (resident, by the CUDA occupancy calculator), sms
-    (the card's) and threads (a block)."""
+    padded state count, 128 or 256), for the feature kind
+    ``in_kernel_feats``; ``modes`` names the modes' instance (the forward
+    that stores bf16 alpha, the backward that takes it or the gamma pick),
+    else the default one. Returns registers (a thread), static_smem and
+    dynamic_smem (bytes a block), local_bytes (spills, a thread),
+    blocks_per_sm (resident, by the CUDA occupancy calculator), sms (the
+    card's) and threads (a block)."""
     dev = device if device is not None else torch.device("cuda")
-    return dict(_kernel_info(kernel, S, F, instance_tier(K), device_index(dev)))
+    return dict(_kernel_info(kernel, S, F, instance_tier(K), device_index(dev),
+                             kind_code(in_kernel_feats), modes))
 
 
 @functools.cache
-def _kernel_info(kernel: str, S: int, F: int, K: int, index: int) -> tuple:
+def _kernel_info(kernel: str, S: int, F: int, K: int, index: int, kind: int = 0,
+                 modes: bool = False) -> tuple:
     out = (ctypes.c_int * 7)()
     lib = _library()
-    code = lib.fused_fb_kernel_info(_KERNELS[kernel], S, K, F, index, ctypes.addressof(out))
+    code = lib.fused_fb_kernel_info(_KERNELS[kernel], S, K, F, kind, int(modes), index,
+                                    ctypes.addressof(out))
     raise_on(lib.fused_fb_error_string, code,
-             f"fused_fb_kernel_info({kernel}, S={S}, K={K}, F={F})")
+             f"fused_fb_kernel_info({kernel}, S={S}, K={K}, F={F}, kind={kind}, modes={modes})")
     keys = ("registers", "static_smem", "dynamic_smem", "local_bytes", "blocks_per_sm", "sms",
             "threads")
     return tuple(zip(keys, list(out)))
 
 
-def default_seqs(kernel: str, B: int, F: int, device: torch.device, K: int = KMAX_SEQS) -> int:
+def default_seqs(kernel: str, B: int, F: int, device: torch.device, K: int = KMAX_SEQS,
+                 in_kernel_feats: str | None = None, modes: bool = False) -> int:
     """The launchers' S: :func:`seqs_per_block` over the instances built for
-    K (:func:`built_seqs`) on the card's own occupancy."""
-    return _default_seqs(kernel, B, F, instance_tier(K), device_index(device))
+    K (:func:`built_seqs`), the feature kind and the default or the modes'
+    instance (as :func:`kernel_info`) on the card's own occupancy."""
+    return _default_seqs(kernel, B, F, instance_tier(K), device_index(device),
+                         kind_code(in_kernel_feats), modes)
 
 
 @functools.cache
-def _default_seqs(kernel: str, B: int, F: int, K: int, index: int) -> int:
+def _default_seqs(kernel: str, B: int, F: int, K: int, index: int, kind: int = 0,
+                  modes: bool = False) -> int:
     seqs = built_seqs(K)
-    info = {S: dict(_kernel_info(kernel, S, F, K, index)) for S in seqs}
+    info = {S: dict(_kernel_info(kernel, S, F, K, index, kind, modes)) for S in seqs}
     return seqs_per_block(B, {S: i["blocks_per_sm"] * i["sms"] for S, i in info.items()},
                           seqs=seqs)
 
 
-def _seqs(kernel: str, S: int | None, B: int, K: int, F: int, index: int) -> int:
+def _seqs(kernel: str, S: int | None, B: int, K: int, F: int, index: int, kind: int = 0,
+          modes: bool = False) -> int:
     """S for a launch: the default when None, else a built one or raise."""
     if S is None:
-        return _default_seqs(kernel, B, F, instance_tier(K), index)
+        return _default_seqs(kernel, B, F, instance_tier(K), index, kind, modes)
     if S not in built_seqs(K):
         raise ValueError(f"no {kernel} instance with S={S} at K={K}: built {built_seqs(K)}")
     return S
@@ -200,55 +304,82 @@ def _seqs(kernel: str, S: int | None, B: int, K: int, F: int, index: int) -> int
 
 
 def forward_reference(
-    pi_t: torch.Tensor, A_t: torch.Tensor, W: torch.Tensor, feats: torch.Tensor
+    pi_t: torch.Tensor, A_t: torch.Tensor, W: torch.Tensor, feats: torch.Tensor,
+    in_kernel_feats: str | None = None, alpha_dtype: torch.dtype = torch.float32,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain twin of the forward kernel.
 
-    pi_t (K,), A_t (K, K) the exponentiated params; W (F, K); feats (T, B, F).
-    Returns (alpha (T, B, K) raw stored messages, s (B, T) their per-step
-    sums, sh (B, T) the max shifts)."""
-    return split_forward_reference(pi_t, A_t, feats @ W)
+    pi_t (K,), A_t (K, K) the exponentiated params; W (F, K); feats (T, B, F),
+    or the raw observations (T, B, D) of a built kind ``in_kernel_feats``.
+    Returns (alpha (T, B, K) raw stored messages, in ``alpha_dtype``; s
+    (B, T) their per-step sums, of the stored values; sh (B, T) the max
+    shifts). The chain carries float32 whatever alpha's storage."""
+    f = build_features(feats, in_kernel_feats)
+    alpha, s, sh = split_forward_reference(pi_t, A_t, f @ W)
+    if alpha_dtype == torch.float32:
+        return alpha, s, sh
+    alpha = alpha.to(alpha_dtype)
+    return alpha, alpha.to(torch.float32).sum(dim=-1).T.contiguous(), sh
 
 
 def fused_forward(
-    pi_t: torch.Tensor, A_t: torch.Tensor, W: torch.Tensor, feats: torch.Tensor
+    pi_t: torch.Tensor, A_t: torch.Tensor, W: torch.Tensor, feats: torch.Tensor,
+    in_kernel_feats: str | None = None, alpha_dtype: torch.dtype = torch.float32,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Forward kernel launcher; contract of :func:`forward_reference`.
 
     Inputs are float32 and contiguous on one device. CPU tensors run the
     plain twin; CUDA tensors launch ``fused_fwd_kernel`` or raise."""
-    return _launch_forward(None, pi_t, A_t, W, feats)
+    return _launch_forward(None, pi_t, A_t, W, feats, in_kernel_feats, alpha_dtype)
 
 
-def _launch_forward(S: int | None, pi_t, A_t, W, feats):
+def _launch_forward(S: int | None, pi_t, A_t, W, feats, in_kernel_feats=None,
+                    alpha_dtype=torch.float32):
     """:func:`fused_forward` with S sequences a block (one of
     :func:`built_seqs` at this K; None for :func:`default_seqs`): the card
     tests and chip_smoke.py's sweeps of S."""
-    T, B, F = feats.shape
+    T, B, Fin = feats.shape
     K = A_t.shape[0]
     dev = feats.device
+    F = check_modes(W, feats, in_kernel_feats, alpha_dtype=alpha_dtype)
     for name, x, shape in (("pi_t", pi_t, (K,)), ("A_t", A_t, (K, K)),
-                           ("W", W, (F, K)), ("feats", feats, (T, B, F))):
+                           ("W", W, (F, K)), ("feats", feats, (T, B, Fin))):
         check(name, x, shape, dev)
     if runs_plain_twin(feats):
-        return forward_reference(pi_t, A_t, W, feats)
+        return forward_reference(pi_t, A_t, W, feats, in_kernel_feats, alpha_dtype)
     _check_kernel_limits(K, F)
     lib = _library()
     index = device_index(dev)
-    S = _seqs("forward", S, B, K, F, index)
-    alpha = torch.empty((T, B, K), dtype=torch.float32, device=dev)
+    kind = kind_code(in_kernel_feats)
+    S = _seqs("forward", S, B, K, F, index, kind, alpha_dtype == torch.bfloat16)
+    alpha = torch.empty((T, B, K), dtype=alpha_dtype, device=dev)
+    a32, a16 = (alpha, None) if alpha_dtype == torch.float32 else (None, alpha)
     s = torch.empty((B, T), dtype=torch.float32, device=dev)
     sh = torch.empty((B, T), dtype=torch.float32, device=dev)
     code = lib.fused_fb_forward(
-        ptr(pi_t), ptr(A_t), ptr(W), ptr(feats), ptr(alpha), ptr(s), ptr(sh),
-        T, B, K, F, S, index, stream(dev),
+        ptr(pi_t), ptr(A_t), ptr(W), ptr(feats), ptr(a32), ptr(a16), ptr(s), ptr(sh),
+        T, B, K, F, S, kind, index, stream(dev),
     )
     fused_forward.launches += 1
+    count_mode(fused_forward, in_kernel_feats, alpha_dtype=alpha_dtype)
     raise_on(lib.fused_fb_error_string, code, "fused_fwd_kernel")
     return alpha, s, sh
 
 
 fused_forward.launches = 0
+
+
+def count_mode(fn, in_kernel_feats, gamma_sel=None, alpha_dtype=torch.float32) -> None:
+    """Add one to a launcher's ``mode_launches`` for each mode its launch ran
+    in (the fused and the duplex launchers')."""
+    for mode, on in ((in_kernel_feats, in_kernel_feats is not None),
+                     ("gamma_sel", gamma_sel is not None),
+                     ("bf16", alpha_dtype == torch.bfloat16)):
+        if on:
+            fn.mode_launches[mode] = fn.mode_launches.get(mode, 0) + 1
+
+
+fused_forward.mode_launches = {}
 
 
 # ---------------------------------------------------------------- backward
@@ -263,20 +394,32 @@ def backward_reference(
     sh: torch.Tensor,
     emit_gamma: bool = False,
     weights: torch.Tensor | None = None,
+    in_kernel_feats: str | None = None,
+    gamma_sel: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor | None, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain twin of the backward kernel.
 
-    Takes the forward's (alpha (T, B, K), s (B, T), sh (B, T)) and an
-    optional kept-mask weights (T, B). Returns (gamma (T, B, K), ungated, or
-    None; gamma0 = w_0 gamma_0 (B, K); acc (K, K) = sum over sequences and t
-    of outer(alpha_{t-1}, d_t n_t g_t); eacc (K, F) = sum of
-    outer(w_t gamma_t, f_t)), with w = g = 1 when ungated."""
-    T, B, F = feats.shape
+    Takes the forward's (alpha (T, B, K), float32 or bf16 as stored, s
+    (B, T), sh (B, T)), an optional kept-mask weights (T, B) and feats as
+    the forward's. Returns (gamma (T, B, K), ungated, or None; gamma0 =
+    w_0 gamma_0 (B, K), or with ``gamma_sel`` (B,) each sequence's ungated
+    gamma at t = gamma_sel[b] (zeros outside 0 .. T-1); acc (K, K) = sum
+    over sequences and t of outer(alpha_{t-1}, d_t n_t g_t); eacc (K, F) =
+    sum of outer(w_t gamma_t, f_t)), with w = g = 1 when ungated."""
+    f = build_features(feats, in_kernel_feats)
+    T, B, F = f.shape
     K = A_t.shape[0]
-    gamma, acc = split_backward_reference(A_t, feats @ W, alpha, s, sh, weights)
+    gamma, acc = split_backward_reference(A_t, f @ W, alpha.to(torch.float32), s, sh, weights)
     gamma_w = gamma if weights is None else gamma * weights[..., None]
-    eacc = gamma_w.reshape(T * B, K).T @ feats.reshape(T * B, F)
-    return (gamma if emit_gamma else None), gamma_w[0].clone(), acc, eacc
+    eacc = gamma_w.reshape(T * B, K).T @ f.reshape(T * B, F)
+    if gamma_sel is None:
+        gamma0 = gamma_w[0].clone()
+    else:
+        sel = gamma_sel.to(device=gamma.device, dtype=torch.long)
+        inside = (sel >= 0) & (sel < T)
+        gamma0 = gamma[sel.clamp(0, T - 1), torch.arange(B, device=gamma.device)]
+        gamma0 = torch.where(inside[:, None], gamma0, torch.zeros_like(gamma0))
+    return (gamma if emit_gamma else None), gamma0, acc, eacc
 
 
 def fused_backward(
@@ -288,6 +431,8 @@ def fused_backward(
     sh: torch.Tensor,
     emit_gamma: bool = False,
     weights: torch.Tensor | None = None,
+    in_kernel_feats: str | None = None,
+    gamma_sel: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor | None, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backward kernel launcher; contract of :func:`backward_reference`.
 
@@ -301,52 +446,68 @@ def fused_backward(
     scratch of 2 min(T B, max(B, 2^17)) K floats beside the carried beta
     (B K) and the sums' partials, whatever T: about 0.28 GB at B = 1024,
     K = 256, F = 45 (the statistics a window of time steps a launch,
-    csrc/fb_stats.cuh)."""
-    return _launch_backward(None, A_t, W, feats, alpha, s, sh, emit_gamma, weights)
+    csrc/fb_stats.cuh); bf16 alpha and a built kind add a window's widened
+    alpha and feature rows."""
+    return _launch_backward(None, A_t, W, feats, alpha, s, sh, emit_gamma, weights,
+                            in_kernel_feats, gamma_sel)
 
 
 def _launch_backward(S: int | None, A_t, W, feats, alpha, s, sh, emit_gamma=False,
-                     weights=None):
+                     weights=None, in_kernel_feats=None, gamma_sel=None):
     """:func:`fused_backward` with S sequences a block, as
     :func:`_launch_forward`."""
-    T, B, F = feats.shape
+    T, B, Fin = feats.shape
     K = A_t.shape[0]
     dev = feats.device
-    args = [("A_t", A_t, (K, K)), ("W", W, (F, K)), ("feats", feats, (T, B, F)),
-            ("alpha", alpha, (T, B, K)), ("s", s, (B, T)), ("sh", sh, (B, T))]
+    F = check_modes(W, feats, in_kernel_feats, emit_gamma, gamma_sel, alpha.dtype)
+    args = [("A_t", A_t, (K, K)), ("W", W, (F, K)), ("feats", feats, (T, B, Fin)),
+            ("s", s, (B, T)), ("sh", sh, (B, T))]
     if weights is not None:
         args.append(("weights", weights, (T, B)))
     for name, x, shape in args:
         check(name, x, shape, dev)
+    check("alpha", alpha, (T, B, K), dev, alpha.dtype)
+    sel = _sel_int32(gamma_sel, B, dev)
     if runs_plain_twin(feats):
-        return backward_reference(A_t, W, feats, alpha, s, sh, emit_gamma, weights)
+        return backward_reference(A_t, W, feats, alpha, s, sh, emit_gamma, weights,
+                                  in_kernel_feats, sel)
     _check_kernel_limits(K, F)
     lib = _library()
-    kind = "backward" if weights is None else "gated backward"
+    kernel = "backward" if weights is None else "gated backward"
     index = device_index(dev)
-    S = _seqs(kind, S, B, K, F, index)
+    kind = kind_code(in_kernel_feats)
+    bf16 = alpha.dtype == torch.bfloat16
+    S = _seqs(kernel, S, B, K, F, index, kind, bf16 or sel is not None)
     gamma = torch.empty((T, B, K), dtype=torch.float32, device=dev) if emit_gamma else None
     gamma0 = torch.empty((B, K), dtype=torch.float32, device=dev)
     stats = torch.empty(K * K + K * F, dtype=torch.float32, device=dev)  # acc, then eacc
-    work = scratch(lib, "fused_fb_scratch", lib.fused_fb_error_string, dev, T, B, K, F, S)
+    work = scratch(lib, "fused_fb_scratch", lib.fused_fb_error_string, dev, T, B, K, F, S, kind,
+                   int(bf16))
+    a32, a16 = (None, alpha) if bf16 else (alpha, None)
     code = lib.fused_fb_backward(
-        ptr(A_t), ptr(W), ptr(feats), ptr(alpha), ptr(s), ptr(sh),
-        ptr(weights), ptr(gamma), ptr(gamma0), ptr(stats), ptr(work),
-        T, B, K, F, S, index, stream(dev),
+        ptr(A_t), ptr(W), ptr(feats), ptr(a32), ptr(a16), ptr(s), ptr(sh),
+        ptr(weights), ptr(sel), ptr(gamma), ptr(gamma0), ptr(stats), ptr(work),
+        T, B, K, F, S, kind, index, stream(dev),
     )
     acc, eacc = stats[: K * K].view(K, K), stats[K * K:].view(K, F)
     fused_backward.launches += 1
+    count_mode(fused_backward, in_kernel_feats, sel, alpha.dtype)
     raise_on(lib.fused_fb_error_string, code, "fused_bwd_kernel")
     return gamma, gamma0, acc, eacc
 
 
 fused_backward.launches = 0
+fused_backward.mode_launches = {}
 
 
 def reset_launch_counts() -> None:
     fused_forward.launches = 0
     fused_backward.launches = 0
+    fused_forward.mode_launches.clear()
+    fused_backward.mode_launches.clear()
     outer_sum.launches = 0
+    feature_rows.launches = 0
+    widen_alpha.launches = 0
 
 
 # ------------------------------------------------------------- outer sums
@@ -417,6 +578,85 @@ def outer_launches(clear: bool = False) -> int:
     return total
 
 
+# ----------------------------------------------- the large-K operand kernels
+
+# the operand kernels of the large-K statistics (csrc/fb_stats.cuh), by the
+# libraries' index, and the libraries that run them: the fused backward both,
+# the duplex combine the feature build
+PREP_KERNELS = {"build_feats_kernel": 0, "widen_kernel": 1}
+PREP_LIBS = ("fused_fb", "duplex_fb")
+
+
+def feature_rows(obs: torch.Tensor, in_kernel_feats: str) -> torch.Tensor:
+    """The built features of observation rows obs (N, D), float32 (N, F):
+    ``csrc/fb_stats.cuh::build_feats_kernel``, which the large-K fused
+    backward and duplex combine run on each window of their statistics in
+    a built kind, there the eacc sums' feature operand. One thread a
+    feature, each product one float32 multiply kept as it is, so the rows
+    are :func:`build_features`' (its plain twin's) bits. CPU tensors run the
+    twin; CUDA tensors launch the kernel or raise."""
+    if in_kernel_feats is None or obs.dim() != 2:
+        raise ValueError(f"feature_rows takes a built kind and (N, D) rows, got "
+                         f"{in_kernel_feats!r} and {tuple(obs.shape)}")
+    N, D = obs.shape
+    F = feature_width(in_kernel_feats, D)
+    check("obs", obs, (N, D), obs.device)
+    if runs_plain_twin(obs):
+        return build_features(obs, in_kernel_feats)
+    lib = _library()
+    out = torch.empty((N, F), dtype=torch.float32, device=obs.device)
+    index = device_index(obs.device)
+    code = lib.fused_fb_build_feats(ptr(obs), ptr(out), N, D, F, kind_code(in_kernel_feats),
+                                    index, stream(obs.device))
+    feature_rows.launches += 1
+    raise_on(lib.fused_fb_error_string, code, "build_feats_kernel")
+    return out
+
+
+def widen_alpha(alpha: torch.Tensor) -> torch.Tensor:
+    """bf16 alpha widened to float32, same shape:
+    ``csrc/fb_stats.cuh::widen_kernel``, which the large-K fused backward
+    runs on each window of stored bf16 alpha, there the acc sums' alpha
+    operand. Plain twin: ``alpha.to(torch.float32)``. CPU tensors run the
+    twin; CUDA tensors launch the kernel or raise."""
+    if alpha.dtype != torch.bfloat16 or alpha.numel() < 1:
+        raise ValueError(f"widen_alpha takes a non-empty bf16 tensor, got {alpha.dtype} "
+                         f"{tuple(alpha.shape)}")
+    check("alpha", alpha, tuple(alpha.shape), alpha.device, torch.bfloat16)
+    if runs_plain_twin(alpha):
+        return alpha.to(torch.float32)
+    lib = _library()
+    out = torch.empty(alpha.shape, dtype=torch.float32, device=alpha.device)
+    index = device_index(alpha.device)
+    code = lib.fused_fb_widen(ptr(alpha), ptr(out), alpha.numel(), index, stream(alpha.device))
+    widen_alpha.launches += 1
+    raise_on(lib.fused_fb_error_string, code, "widen_kernel")
+    return out
+
+
+feature_rows.launches = 0
+widen_alpha.launches = 0
+
+
+def prep_launches(kernel: str, clear: bool = False) -> int:
+    """Launches of one operand kernel (:data:`PREP_KERNELS`) since the
+    counts were last cleared, over the libraries loaded so far
+    (:data:`PREP_LIBS`): each library counts where it launches the kernel,
+    inside the large-K backward and combine launchers and in
+    :func:`feature_rows` and :func:`widen_alpha`. Clears that count when
+    ``clear``."""
+    from .._build import loaded_library
+
+    total = 0
+    for name in PREP_LIBS:
+        lib = loaded_library(name)
+        if lib is not None:
+            fn = getattr(lib, f"{name}_prep_launches")
+            fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+            total += fn(PREP_KERNELS[kernel], int(clear))
+    return total
+
+
 # ------------------------------------------------------------------ E-step
 
 
@@ -441,23 +681,33 @@ def estep_fused(
     feats: torch.Tensor,
     emit_gamma: bool = False,
     weights: torch.Tensor | None = None,
+    gamma_sel: torch.Tensor | None = None,
+    in_kernel_feats: str | None = None,
+    alpha_dtype: torch.dtype = torch.float32,
 ) -> tuple[FBResult, torch.Tensor]:
     """Fused batched E-step: likelihoods + forward-backward + all stats.
 
     log_pi (K,), log_A (K, K); W (F, K) float32 feature weights with
-    ll = feats @ W; feats (T, B, F) float32, TIME-MAJOR and contiguous;
-    weights: optional (T, B) float32 kept-mask (SVI windows).
+    ll = feats @ W; feats (T, B, F) float32, TIME-MAJOR and contiguous, or
+    with ``in_kernel_feats`` "niw" / "nig" the raw observations (T, B, D)
+    whose features the kernels build; weights: optional (T, B) float32
+    kept-mask (SVI windows).
     Returns (FBResult, emit_stats (K, F)). FBResult holds log_c (B, T),
-    log_z (B,), init_stats = w_0 gamma_0 (B, K), trans_stats summed over
-    sequences and pair-gated (K, K) and gamma (T, B, K), ungated, when
-    ``emit_gamma`` else None. emit_stats = sum over sequences and t of
-    outer(w_t gamma_t, f_t).
+    log_z (B,), init_stats = w_0 gamma_0 (B, K) -- with ``gamma_sel`` (B,)
+    each sequence's ungated gamma at t = gamma_sel[b] instead --,
+    trans_stats summed over sequences and pair-gated (K, K) and gamma
+    (T, B, K), ungated, when ``emit_gamma`` else None. emit_stats = sum over
+    sequences and t of outer(w_t gamma_t, f_t). ``alpha_dtype`` is the
+    stored alpha's (torch.bfloat16 rounds it; evaluation callers keep
+    float32). The mode checks (:func:`check_modes`) raise ``ValueError``
+    before anything runs.
 
     CPU tensors run the plain twins; CUDA tensors run the two kernels."""
+    check_modes(W, feats, in_kernel_feats, emit_gamma, gamma_sel, alpha_dtype)
     pi_t, A_t = exp_params(log_pi, log_A)
-    alpha, s, sh = fused_forward(pi_t, A_t, W, feats)
+    alpha, s, sh = fused_forward(pi_t, A_t, W, feats, in_kernel_feats, alpha_dtype)
     gamma, gamma0, acc, eacc = fused_backward(
-        A_t, W, feats, alpha, s, sh, emit_gamma, weights
+        A_t, W, feats, alpha, s, sh, emit_gamma, weights, in_kernel_feats, gamma_sel
     )
     return assemble(A_t, s, sh, gamma, gamma0, acc, eacc)
 
@@ -469,11 +719,15 @@ def estep_fused_reference(
     feats: torch.Tensor,
     emit_gamma: bool = False,
     weights: torch.Tensor | None = None,
+    gamma_sel: torch.Tensor | None = None,
+    in_kernel_feats: str | None = None,
+    alpha_dtype: torch.dtype = torch.float32,
 ) -> tuple[FBResult, torch.Tensor]:
     """Plain PyTorch version of :func:`estep_fused` on any device."""
+    check_modes(W, feats, in_kernel_feats, emit_gamma, gamma_sel, alpha_dtype)
     pi_t, A_t = exp_params(log_pi, log_A)
-    alpha, s, sh = forward_reference(pi_t, A_t, W, feats)
+    alpha, s, sh = forward_reference(pi_t, A_t, W, feats, in_kernel_feats, alpha_dtype)
     gamma, gamma0, acc, eacc = backward_reference(
-        A_t, W, feats, alpha, s, sh, emit_gamma, weights
+        A_t, W, feats, alpha, s, sh, emit_gamma, weights, in_kernel_feats, gamma_sel
     )
     return assemble(A_t, s, sh, gamma, gamma0, acc, eacc)

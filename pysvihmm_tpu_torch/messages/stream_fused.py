@@ -198,6 +198,18 @@ def _seeded_sweeps(
     return torch.stack(logc_chunks).sum(), b[0], acc_tr, acc, z_buf
 
 
+STORE_ALPHAS_BYTES = 2 << 30  # the most the stored (T, K) filtered messages may take
+
+
+def stores_alphas(T: int, K: int, dtype: torch.dtype) -> bool:
+    """The default of ``store_alphas``: store the (T, K) filtered messages
+    when they take at most :data:`STORE_ALPHAS_BYTES` in ``dtype`` (the
+    likelihoods'), else rematerialise them. JAX's rule counts 4 bytes an
+    entry whatever the dtype (``pysvihmm_tpu/messages/stream_fused.py:213``),
+    which lets float64 messages reach twice the cap."""
+    return T * K * dtype.itemsize <= STORE_ALPHAS_BYTES
+
+
 @torch.no_grad()
 def forward_backward_fused_twophase(
     log_pi: torch.Tensor,
@@ -225,8 +237,9 @@ def forward_backward_fused_twophase(
     (lowered to divide S), which sets the transient footprint T K / chunks
     and, under rematerialisation, the checkpoint count. store_alphas: True
     stores all (T, K) filtered messages between the sweeps, False
-    rematerialises each chunk's from its checkpoint; None (JAX's rule)
-    stores while T K 4 bytes stay within 2 GiB. The two give the same bits.
+    rematerialises each chunk's from its checkpoint; None
+    (:func:`stores_alphas`) stores while they take at most 2 GiB in the
+    likelihoods' dtype. The two give the same bits.
 
     stat_fn(gamma (n_blocks, K), rows) is summed over all time steps, its
     operand ``stat_xs`` (default the observations, which then share their
@@ -250,7 +263,7 @@ def forward_backward_fused_twophase(
     if stat_xs is None:
         stat_xs = obs
     if store_alphas is None:
-        store_alphas = T * K * 4 <= 2 << 30
+        store_alphas = stores_alphas(T, K, dtype)
     dev = obs.device
 
     lik0, sh0 = lik_fn(rows0)

@@ -35,7 +35,8 @@ def bound(nbytes: float, flops: float, flop_rate: float = F32_FLOP_PER_S) -> tup
 
 
 def kernel_work(name: str, B: int, T: int, K: int, F: int = 0, gated: bool = False,
-                emit_gamma: bool = False, C: int = 8) -> tuple[float, float, float]:
+                emit_gamma: bool = False, C: int = 8, D: int = 0,
+                bf16_alpha: bool = False) -> tuple[float, float, float]:
     """(bytes, flops, peak FLOP/s) one launch needs at these shapes: each
     input read once and each output written once (float32, the BF16 probe's
     alpha bf16), and per (t, b) the flops of the recursion: a K-wide F-dot
@@ -51,8 +52,25 @@ def kernel_work(name: str, B: int, T: int, K: int, F: int = 0, gated: bool = Fal
     outer(a_{t-1}, dn_t) and, when F > 0, eacc = sum over the T B rows of
     outer(gw_t, f_t): their operands read once, acc and eacc written once,
     2 K^2 + 2 K F flops a row, at the 3xTF32 rate (three TF32 products a
-    float32 one)."""
+    float32 one).
+
+    The fused and duplex kernels' modes: D > 0 (in-kernel features) reads
+    the D-wide observation rows in place of the F-wide feature rows and adds
+    the build's products, F - 1 - D a row in each kernel that builds them
+    (both halves of the duplex chain); ``bf16_alpha`` (the fused pair) moves
+    alpha as 2-byte words, written by the forward and read by the
+    backward.
+
+    The large-K statistics' operand kernels of those modes, over the B T
+    rows (t, b) of one window: "build_feats_kernel" reads D floats a row,
+    writes its F features and does their F - 1 - D products;
+    "widen_kernel" reads K bf16 words a row and writes K float32 ones
+    (no arithmetic)."""
     n, k2 = B * T, K * K
+    if name == "build_feats_kernel":
+        return 4.0 * n * (D + F), float(n * (F - 1 - D)), F32_FLOP_PER_S
+    if name == "widen_kernel":
+        return 6.0 * n * K, 0.0, F32_FLOP_PER_S
     if name == "outer_sums":
         rows_a, rows_e = (T - 1) * B, (T * B if F > 0 else 0)
         words = 2 * rows_a * K + rows_e * (K + F) + k2 + K * F
@@ -105,8 +123,14 @@ def kernel_work(name: str, B: int, T: int, K: int, F: int = 0, gated: bool = Fal
         "probe_fwd_stack_kernel": n * K + k2 + K + n * K + n,
     }[name]
     flops = n * per_tb
+    nbytes = 4.0 * words
+    if D > 0:  # observation rows in, the features built on the chip
+        nbytes -= 4.0 * n * (F - D)
+        flops += n * (F - 1 - D) * (2 if name == "duplex_chain_kernel" else 1)
+    if bf16_alpha and name in ("fused_fwd_kernel", "fused_bwd_kernel"):
+        nbytes -= 2.0 * n * K
     if name == "probe_fwd_nos_kernel":
         flops += B * renorms * 2 * K  # a sum and a division per state
     elif name == "probe_fwd_stack_kernel":
         flops += B * renorms * K  # a division per state
-    return 4.0 * words, float(flops), F32_FLOP_PER_S
+    return nbytes, float(flops), F32_FLOP_PER_S

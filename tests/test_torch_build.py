@@ -33,6 +33,32 @@ def test_both_kernel_sources_share_the_header():
     for name in names:
         seqs = ["fb_seqs.cuh"] if name != "split_probe" else []
         stats = [] if name == "split_probe" else ["fb_stats.cuh"]
+        own = ["fused_fb_kernels.cuh"] if name == "fused_fb" else []
         assert _build.sources(name) == [f"{name}.cu", "fb_common.cuh", *seqs, *stats,
-                                        "fb_wide.cuh"]
+                                        "fb_wide.cuh", *own]
     assert len({_build.library_path(n) for n in names}) == len(names)
+    assert _build.units("fused_fb") == ("fused_fb", "fused_fb_modes")
+    assert _build.sources("fused_fb_modes") == [
+        "fused_fb_modes.cu", "fused_fb_kernels.cuh", "fb_common.cuh", "fb_seqs.cuh",
+        "fb_stats.cuh", "fb_wide.cuh"]
+
+
+def test_library_path_follows_every_unit(tmp_path, monkeypatch):
+    """A library of several translation units (the fused pair's default and
+    modes' instances) hashes each unit and what each includes; a source of
+    one library alone is its only unit."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "UNITS", {"k": ("k", "k_more")})
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n')
+    (tmp_path / "k_more.cu").write_text('#include "m.cuh"\n')
+    (tmp_path / "a.cuh").write_text("// a\n")
+    (tmp_path / "m.cuh").write_text("// m\n")
+    (tmp_path / "j.cu").write_text("// j\n")
+    assert _build.units("k") == ("k", "k_more") and _build.units("j") == ("j",)
+    path = _build.library_path("k")
+    assert path.name.startswith("libk_")
+    (tmp_path / "m.cuh").write_text("// m, edited\n")
+    edited = _build.library_path("k")
+    assert edited != path
+    (tmp_path / "k_more.cu").write_text('#include "m.cuh"\n// edited\n')
+    assert _build.library_path("k") not in (path, edited)

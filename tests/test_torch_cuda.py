@@ -6,7 +6,9 @@ trainer's kill-and-resume on the kernel routes, checkpoints of card state
 and the loader's prefetched batches; the long-chain tiers' stored and
 rematerialised alphas and their boundary recursions replayed as CUDA graphs;
 the data-parallel VB step in spawned process groups on the card (NCCL in a
-world of one, two gloo ranks).
+world of one, two gloo ranks); the fused and duplex kernels' modes (in-kernel
+NIW and NIG features, the gamma pick, bf16-stored alpha) at one small shape
+a tier, by chip_smoke.py phase 14's checks.
 
 Imports neither JAX nor the JAX package, so it runs on a machine that has
 only PyTorch for CUDA and nvcc:
@@ -29,7 +31,16 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import digest, random_problem, state_digests, store_remat_digests, svi_masks
+from chip_smoke import (
+    check_bf16_alpha,
+    check_gamma_sel,
+    check_mode_features,
+    digest,
+    random_problem,
+    state_digests,
+    store_remat_digests,
+    svi_masks,
+)
 from pysvihmm_tpu_torch import messages
 from pysvihmm_tpu_torch.data.loader import ShardedSequenceLoader
 from pysvihmm_tpu_torch.data.synthetic import gen_gaussian_dataset
@@ -956,3 +967,114 @@ def test_dp_vb_two_gloo_ranks_on_the_card(cuda_device):
         b = b.cpu()
         atol = 2e-4 * b.abs().max().item() if b.dim() == 3 else 1e-5
         torch.testing.assert_close(a, b, rtol=2e-4, atol=atol)
+
+
+# (K, B, T) a tier for the modes: at K = 256, B = 2048 cuts T = 150 into three
+# windows of the large-K statistics (64, 64 and 22 steps)
+MODE_SHAPES = [(64, 3, 40), (128, 5, 24), (256, 2048, 150)]
+
+
+@pytest.mark.parametrize("kind", ["niw", "nig"])
+@pytest.mark.parametrize("K,B,T", MODE_SHAPES)
+def test_in_kernel_features_are_the_array_modes_bits(cuda_device, kind, K, B, T):
+    """chip_smoke.py phase 14 (a) at one shape a tier: the fused pair and the
+    duplex chain at every built S and the combine, gated and not, on the raw
+    observations, every output the array mode's by sha256; the default S
+    within the twins' tolerances."""
+    check_mode_features(torch.Generator(device=cuda_device).manual_seed(K + B), kind, K, B, T)
+
+
+@pytest.mark.parametrize("K", [64, 128])
+def test_gamma_pick_is_the_emitted_gamma(cuda_device, K):
+    """Phase 14 (b): the gated backward's pick at W = 70 is the emit_gamma
+    run's gamma at the offsets, bit for bit, acc and eacc unchanged."""
+    check_gamma_sel(torch.Generator(device=cuda_device).manual_seed(K), 32, K)
+
+
+@pytest.mark.parametrize("K", [64, 128])
+def test_bf16_alpha_is_float32_alpha_rounded(cuda_device, K):
+    """Phase 14 (c): the stored bf16 alpha is float32's rounded at every S,
+    the statistics within JAX's band, exact=True float32's bits."""
+    check_bf16_alpha(torch.Generator(device=cuda_device).manual_seed(K + 1), 16, 200, K)
+
+
+def test_mode_launchers_refuse_bad_combinations(cuda_device):
+    """The libraries refuse what JAX raises on and what no kernel takes: the
+    pick together with gamma, a built kind's width no D gives, alpha in
+    both dtypes or neither (cudaErrorInvalidValue)."""
+    lib = fused_fb._library()
+    T, B, K, F = 4, 2, 4, 45
+    f = lambda *shape: torch.zeros(shape, device=cuda_device)  # noqa: E731
+    A, W, obs, s, sh = f(K, K), f(F, K), f(T, B, 8), f(B, T), f(B, T)
+    alpha, gamma, g0, st = f(T, B, K), f(T, B, K), f(B, K), f(K * K + K * F)
+    sel = torch.zeros(B, dtype=torch.int32, device=cuda_device)
+    work = f(1 << 16)
+    p = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    idx, stream = cuda_device.index or 0, torch.cuda.current_stream().cuda_stream
+    for a32, sl, gm, FF, kind in ((alpha, sel, gamma, F, 1), (alpha, None, None, 44, 1),
+                                  (None, None, None, F, 1), (alpha, None, None, F, 3)):
+        code = lib.fused_fb_backward(p(A), p(W), p(obs), p(a32), None, p(s), p(sh), None, p(sl),
+                                     p(gm), p(g0), p(st), p(work), T, B, K, FF, 2, kind, idx,
+                                     stream)
+        assert code != 0
+    assert lib.fused_fb_forward(p(A[0]), p(A), p(W), p(obs), p(alpha), p(alpha), p(s), p(sh),
+                                T, B, K, F, 2, 1, idx, stream) != 0
+    assert duplex_fb._library().duplex_fb_chain(p(A[0]), p(A), p(W), p(obs), p(alpha), p(s),
+                                                p(sh), p(alpha), T, B, K, 44, 2, 1, idx,
+                                                stream) != 0
+
+
+@pytest.mark.parametrize("kernel", ["niw", "nig", "widen"])
+def test_operand_kernels_are_their_twins_bits(cuda_device, kernel):
+    """The large-K statistics' operand kernels alone: build_feats_kernel's
+    rows are ``ell_features``' bits, widen_kernel's floats the bf16 values;
+    each launch counted by its library."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    fused_fb.prep_launches("build_feats_kernel", clear=True)
+    fused_fb.prep_launches("widen_kernel", clear=True)
+    if kernel == "widen":
+        a = torch.rand((1000, 130), generator=g, device=cuda_device).to(torch.bfloat16)
+        got, want, name = fused_fb.widen_alpha(a), a.float(), "widen_kernel"
+    else:
+        y = torch.randn((3001, 8), generator=g, device=cuda_device)
+        got, want = fused_fb.feature_rows(y, kernel), fused_fb.build_features(y, kernel)
+        name = "build_feats_kernel"
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert fused_fb.prep_launches(name) == 1
+
+
+def test_large_k_modes_launch_the_operand_kernels(cuda_device):
+    """Above K = 64 the fused backward in a built kind with bf16 alpha
+    builds each window's feature rows and widens its alpha (one launch each
+    a window), the duplex combine builds the rows; the default instances'
+    launches launch neither."""
+    K, B, T = 128, 2048, 150  # windows of 64, 64 and 22 steps
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    log_pi = torch.log_softmax(torch.randn(K, generator=g, device=cuda_device), 0)
+    log_A = torch.log_softmax(torch.randn((K, K), generator=g, device=cuda_device), 1)
+    obs = torch.randn((T, B, 3), generator=g, device=cuda_device)
+    W = 0.1 * torch.randn((10, K), generator=g, device=cuda_device)
+    for name in fused_fb.PREP_KERNELS:
+        fused_fb.prep_launches(name, clear=True)
+    fused_fb.estep_fused(log_pi, log_A, W, fused_fb.build_features(obs, "niw"))
+    assert [fused_fb.prep_launches(n) for n in fused_fb.PREP_KERNELS] == [0, 0]
+    fused_fb.estep_fused(log_pi, log_A, W, obs, in_kernel_feats="niw",
+                         alpha_dtype=torch.bfloat16)
+    assert [fused_fb.prep_launches(n, clear=True) for n in fused_fb.PREP_KERNELS] == [3, 3]
+    duplex_fb.estep_duplex(log_pi, log_A, W, obs, in_kernel_feats="niw")
+    assert [fused_fb.prep_launches(n) for n in fused_fb.PREP_KERNELS] == [3, 0]
+
+
+@pytest.mark.parametrize("K", [64, 128])
+def test_modes_instances_report_their_own_occupancy(cuda_device, K):
+    """kernel_info and default_seqs query the modes' instance (bf16 alpha,
+    the pick) when asked, the default one otherwise: both built, each S a
+    built one."""
+    for kernel in ("forward", "backward", "gated backward"):
+        for S in fused_fb.built_seqs(K):
+            for modes in (False, True):
+                info = fused_fb.kernel_info(kernel, S, 45, cuda_device, K=K, modes=modes)
+                assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+        for modes in (False, True):
+            S = fused_fb.default_seqs(kernel, 1024, 45, cuda_device, K=K, modes=modes)
+            assert S in fused_fb.built_seqs(K)

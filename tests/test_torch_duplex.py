@@ -226,8 +226,8 @@ def test_chain_default_seqs_is_the_one_wave_rule(monkeypatch, K, B):
     blocks = CHAIN_BLOCKS[K]
     assert tuple(blocks) == duplex_fb.built_seqs(K)
 
-    def info(kernel, S, F, K_, index):
-        assert (kernel, F, K_, index) == ("chain", 45, K, 0) and S in blocks
+    def info(kernel, S, F, K_, index, kind=0):
+        assert (kernel, F, K_, index, kind) == ("chain", 45, K, 0, 0) and S in blocks
         return (("blocks_per_sm", blocks[S]), ("sms", H100_SMS))
 
     monkeypatch.setattr(duplex_fb, "_kernel_info", info)

@@ -446,3 +446,24 @@ def test_fast_state_sampler():
     true[:500] = (true[:500] + 1) % 4  # a tenth mismatched
     assert hamming_error_long(torch.from_numpy(est), torch.from_numpy(true), 4) == \
         hamming_error(est, true, 4)
+
+
+@pytest.mark.parametrize("dtype, T, K, stores", [
+    # float64 at 2^28 < T K <= 2^29 takes 2-4 GiB: rematerialise (JAX's
+    # 4-byte rule would store it)
+    (torch.float64, 2**22, 64 + 1, False),
+    (torch.float64, 2**23, 64, False),
+    (torch.float32, 2**22, 64 + 1, True),
+    (torch.float32, 2**23, 64, True),
+    # either side of each dtype's boundary
+    (torch.float64, 2**22, 64, True),
+    (torch.float32, 2**23, 64 + 1, False),
+    (torch.float64, 2**28, 1, True),
+    (torch.float64, 2**28 + 1, 1, False),
+])
+def test_store_alphas_rule_counts_the_dtype(dtype, T, K, stores):
+    """The default of ``store_alphas`` counts the likelihoods' element size,
+    checked without allocating: the stored messages stay within 2 GiB in
+    every dtype."""
+    assert stream_fused.stores_alphas(T, K, dtype) is stores
+    assert (T * K * dtype.itemsize <= stream_fused.STORE_ALPHAS_BYTES) is stores

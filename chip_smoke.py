@@ -105,21 +105,24 @@ fails:
             against its twins on the family's own features (the
             multinomial's one-hot at F = 64, the kernels' limit) and
             batch_local_step on each kernel route against "scan", gated
-            and not; features wider than the fused and duplex kernels take
-            (F > 64: the multinomial at V=1000 and V=100, K=32, and the
-            Gaussian-NIW at D=10, K=64, F=66, each at B=1024, T=1000) run
-            the split kernels once on "fused" and on "duplex", and no other
-            kernel, with statistics that agree with "scan"'s, gated and
-            not; the wide-feature path on "auto", timed by CUDA events
-            against "scan": batch VB's E-step for the Gaussian-NIW at D = 10
-            (F = 66; K = 64 and 256) and the multinomial at V = 1000 and V =
-            100 (K = 64) at B=1024, T=1000, each split kernel once an E-step
-            and the statistics those of "scan" (the device time of one call
+            and not; features wider than 64 (the multinomial at V=1000 and
+            V=100, K=32, and the Gaussian-NIW at D=10, K=64, F=66, each at
+            B=1024, T=1000), routed as JAX routes them: "fused" runs the
+            fused pair (its WF instances) but above 256 symbols the split
+            kernels, "duplex" and "split" the split kernels, each route's
+            kernels once and no other kernel, with statistics that agree
+            with "scan"'s, gated and not; the wide-feature path on "auto",
+            timed by CUDA events beside explicit "split" and "scan": batch
+            VB's E-step for the Gaussian-NIW at D = 10 (F = 66; K = 64 and
+            256) and the multinomial at V = 1000 and V = 100 (K = 64) at
+            B=1024, T=1000, each kernel of the route once an E-step and the
+            statistics those of "scan" (the device time of one "auto" call
             by kernel from torch.profiler), and windowed SVI steps for the
-            multinomial at V = 100, K = 64, W = 70, B = 1024 (the gated split
-            backward, each split kernel once a step, one step's statistics
-            against "scan"'s); and a small fit per family (best ELBO of a
-            few restarts) decodes at Hamming error <= 0.05.
+            multinomial at V = 100, K = 64, W = 70, B = 1024 (the gated fused
+            backward, each fused kernel once a step, one step's statistics
+            on "auto" and "split" against "scan"'s); and a small fit per
+            family (best ELBO of a few restarts) decodes at Hamming error
+            <= 0.05.
 8. split path decomposition: the profiling script
             ``pysvihmm_tpu_torch/scripts/debug_split.py``. Each probe kernel
             of ``csrc/split_probe.cu`` (every micro instance) against its
@@ -239,6 +242,28 @@ fails:
             (d) Times by CUDA events: each mode's kernels beside their
             twins and bounds, bench.py's E-step array against in-kernel at
             K = 64, 128, 256, the SVI step with and without the pick.
+15. wide features: the fused pair at F > 64 (its WF instances: W^T in
+            shared memory up to K = 64 and eacc summed off the chain, W read
+            from L2 above) and the split pair's bf16 alpha. (a) At F = 65,
+            66, 100, 153, 256, 300 (NIG D=32, NIW D=10, one-hot V=100, NIW
+            D=16, one-hot V=256, NIW D=23), K = 64 and 256 at B = 1024 and
+            K = 4 and 128 at B = 3 (T = 150): every S that fits the card,
+            alpha, s, sh, gamma, gamma0 and eacc the same bits at every S
+            (acc too above K = 64) and over a second call, a built kind's
+            outputs the array mode's, the pick emit_gamma's gamma, bf16
+            alpha float32's rounded, bit for bit; the default S against the
+            twins, bf16 in JAX's band. (b) The split pair's bf16 alpha at K
+            = 64, 128, 256: float32's rounded at every S, against the bf16
+            twins, ``exact=True`` float32's bits. The main path on "auto" at
+            B=1024, T=1000: the E-step for the Gaussian-NIW at D=10 (K = 64
+            and 256, and in-kernel at 64), the multinomial at V=100 and at
+            V=1000 with bf16 alpha (the split pair), windowed SVI at V=100
+            with and without the pick and bf16 alpha; every instance counted.
+            (d) Times: the WF pair at F = 66-300 (K = 64) and 66, 256 (K =
+            128, 256), ungated and gated, beside twins, bounds and the split
+            route's E-step; in-kernel NIW at D = 10, 16, 23; the pick at W =
+            70; bf16 against float32 (the fused pair at F = 66, the split
+            pair at K = 64 and 256).
 
 The last lines are the card line, one JSON line describing the kernels (every
 kernel and instance tier: K <= 64, KP = 128, KP = 256, the split and duplex
@@ -1452,10 +1477,12 @@ def check_family_routes(fam, obs, params, gen, label) -> None:
 
 
 def check_wide(fam, obs, params, gen, label) -> None:
-    """Phase 7: a family whose features are wider than the fused and duplex
-    kernels take (F > FMAX = 64). On "fused" and on "duplex" each split
-    kernel launches once and no other kernel does, and the statistics agree
-    with "scan"'s, ungated and gated."""
+    """Phase 7: a family whose features are wider than 64 (the duplex
+    kernels' limit), routed as JAX routes them: "fused" runs the fused pair
+    (its WF instances) but for a multinomial above 256 symbols, which runs
+    the split kernels; "duplex" the split kernels; "split" its own. Each
+    route's kernels launch once and no other kernel does, and the
+    statistics agree with "scan"'s, ungated and gated."""
     import torch
 
     from pysvihmm_tpu_torch.engines.base import (
@@ -1463,27 +1490,30 @@ def check_wide(fam, obs, params, gen, label) -> None:
         feature_width,
         wider_than_fused_kernels,
     )
+    from pysvihmm_tpu_torch.messages.fused_fb import FMAX
 
-    require(wider_than_fused_kernels(fam, params.emit, obs), f"{label}: not wider than FMAX")
+    F_ = feature_width(fam, params.emit, obs)
+    require(F_ > FMAX, f"{label}: not wider than FMAX")
+    fused = "split" if wider_than_fused_kernels(fam, params.emit, obs) else "fused"
     B_, T_ = obs.shape[:2]
     w = svi_masks(gen, B_, T_, (5 * T_) // 7).transpose(0, 1).contiguous()
     for weights in (None, w):
         ss, _ = batch_local_step(params, fam, obs, "scan", weights=weights, need_gamma=False)
-        for route in ("fused", "duplex"):
+        for route, runs in (("fused", fused), ("duplex", "split"), ("split", "split")):
             torch.cuda.synchronize()
             reset_kernel_counts()
             sk, _ = batch_local_step(params, fam, obs, route, weights=weights, need_gamma=False)
             torch.cuda.synchronize()
             counts = kernel_counts()
-            log(f"  {label}, F={feature_width(fam, params.emit, obs)}, B={B_}, T={T_}, on {route}, "
-                f"gated={weights is not None}: the split kernels, against scan")
-            require_launches(counts, "split", 1, f"{label} on {route}")
+            log(f"  {label}, F={F_}, B={B_}, T={T_}, on {route}, gated={weights is not None}: "
+                f"the {runs} kernels, against scan")
+            require_launches(counts, runs, 1, f"{label} on {route}")
             compare_local_stats(sk, ss)
 
 
-# the wide-feature path on "auto" (F > 64: the split kernels), timed: (label,
-# family, D or V, K); the multinomial at V = 1000 takes the segment-sum
-# statistics, at V = 100 the one-hot product
+# the wide-feature path on "auto" (F > 64: the fused pair, the split kernels
+# above 256 symbols), timed beside "split": (label, family, D or V, K); the
+# multinomial at V = 1000 takes the segment-sum statistics
 WIDE_PATH = (("gaussian_niw D=10", "niw", 10, K), ("gaussian_niw D=10", "niw", 10, 256),
              ("multinomial V=1000", "multinomial", 1000, K),
              ("multinomial V=100", "multinomial", 100, K))
@@ -1491,16 +1521,18 @@ WIDE_SVI_V = 100  # the windowed SVI steps on the wide path: the multinomial at 
 
 
 def wide_path_phase(dev) -> dict[str, float]:
-    """Phase 7: the wide-feature path on "auto", timed by CUDA events against
-    "scan". For each case of WIDE_PATH at B=1024, T=1000: batch VB's E-step
-    (batch_local_step, need_gamma=False) on "auto" launches each split kernel
-    once and no other kernel, its statistics agree with "scan"'s, and both
-    routes are timed, with the device time of one "auto" call by kernel
-    (torch.profiler). Then windowed SVI steps on "auto" for the multinomial
-    at V = WIDE_SVI_V, K = 64, W = 70, B = 1024 (the gated split backward):
-    each split kernel once a step, every parameter finite, one step's local
-    statistics against "scan"'s on the same windows, and the step timed on
-    both routes. Returns ms by case."""
+    """Phase 7: the wide-feature path on "auto", timed by CUDA events beside
+    explicit "split" and "scan". For each case of WIDE_PATH at B=1024,
+    T=1000: batch VB's E-step (batch_local_step, need_gamma=False) on "auto"
+    launches each fused kernel once (each split kernel for the multinomial
+    above 256 symbols) and no other kernel, and "split" each split kernel
+    once; both agree with "scan"'s statistics, all three routes are timed,
+    with the device time of one "auto" call by kernel (torch.profiler).
+    Then windowed SVI steps on "auto" for the multinomial at V =
+    WIDE_SVI_V, K = 64, W = 70, B = 1024 (the gated fused backward): each
+    fused kernel once a step, every parameter finite, one step's local
+    statistics on "auto" and "split" against "scan"'s on the same windows,
+    and the step timed on "auto", "split" and "scan". Returns ms by case."""
     import torch
 
     from pysvihmm_tpu_torch.data import synthetic
@@ -1509,6 +1541,7 @@ def wide_path_phase(dev) -> dict[str, float]:
     from pysvihmm_tpu_torch.engines.base import (
         batch_local_step,
         feature_width,
+        wider_than_fused_kernels,
         windowed_local_step,
     )
     from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
@@ -1528,23 +1561,29 @@ def wide_path_phase(dev) -> dict[str, float]:
         prior = make_prior(K_, fam, device=dev, **kw)
         params = init_params(gen, prior, fam, obs)
         F_ = feature_width(fam, params.emit, obs)
+        auto = "split" if wider_than_fused_kernels(fam, params.emit, obs) else "fused"
         ss, _ = batch_local_step(params, fam, obs, "scan", need_gamma=False)
-        torch.cuda.synchronize()
-        reset_kernel_counts()
-        sk, _ = batch_local_step(params, fam, obs, "auto", need_gamma=False)
-        torch.cuda.synchronize()
-        require_launches(kernel_counts(), "split", 1, f"{label}, K={K_}, E-step on auto")
-        log(f"  {label}, K={K_}, F={F_}, B={B}, T={T}: the E-step on auto (each split kernel "
-            "once) against scan")
-        compare_local_stats(sk, ss)
-        del sk, ss
+        for route, runs in (("auto", auto), ("split", "split")):
+            torch.cuda.synchronize()
+            reset_kernel_counts()
+            sk, _ = batch_local_step(params, fam, obs, route, need_gamma=False)
+            torch.cuda.synchronize()
+            require_launches(kernel_counts(), runs, 1, f"{label}, K={K_}, E-step on {route}")
+            log(f"  {label}, K={K_}, F={F_}, B={B}, T={T}: the E-step on {route} (each {runs} "
+                "kernel once) against scan")
+            compare_local_stats(sk, ss)
+            del sk
+        del ss
         t_auto = cuda_ms(lambda: batch_local_step(params, fam, obs, "auto", need_gamma=False),
                          10, warmup=2)
+        t_split = cuda_ms(lambda: batch_local_step(params, fam, obs, "split", need_gamma=False),
+                          10, warmup=2)
         t_scan = cuda_ms(lambda: batch_local_step(params, fam, obs, "scan", need_gamma=False),
                          2, warmup=1)
         ms[f"{label}, K={K_}"] = t_auto
-        log(f"  {label}, K={K_}: E-step on auto {t_auto:.3f} ms ({B / t_auto * 1e3:.1f} seq/s), "
-            f"on scan {t_scan:.3f} ms")
+        ms[f"{label}, K={K_} on split"] = t_split
+        log(f"  {label}, K={K_}: E-step on auto ({auto}) {t_auto:.3f} ms ({B / t_auto * 1e3:.1f} "
+            f"seq/s), on split {t_split:.3f} ms, on scan {t_scan:.3f} ms")
         profile_call(f"  {label}, K={K_}, one E-step on auto",
                      lambda: batch_local_step(params, fam, obs, "auto", need_gamma=False))
         del obs, params
@@ -1562,7 +1601,7 @@ def wide_path_phase(dev) -> dict[str, float]:
         before = kernel_counts()
         state, m = step(state, prior, chain)
         after = kernel_counts()
-        require_launches({k: after[k] - before[k] for k in after}, "split", 1,
+        require_launches({k: after[k] - before[k] for k in after}, "auto", 1,
                          f"multinomial V={V_} SVI step {i} on auto")
         torch.cuda.synchronize()
         require(bool(torch.isfinite(m["noisy_elbo"])), f"multinomial SVI step {i}: non-finite")
@@ -1573,15 +1612,16 @@ def wide_path_phase(dev) -> dict[str, float]:
     windows = svi._gather_windows(chain, ws, SVI_W)
     pos = torch.arange(SVI_W, device=dev)[None, :]
     maskf = ((pos >= offs[:, None]) & (pos < offs[:, None] + SVI_L)).float()
-    got = windowed_local_step(state.params, MultinomialDirichlet, windows, maskf, offs, "auto")
     ref = windowed_local_step(state.params, MultinomialDirichlet, windows, maskf, offs, "scan")
-    log(f"  multinomial V={V_}, K={K}: one SVI step's local statistics on auto vs scan, "
-        f"W={SVI_W}, B={B}")
-    compare("emit counts", got[0], ref[0], 3e-3, 2e-3)
-    compare("trans_stats", got[1], ref[1], 1e-4, 1e-3)
-    compare("gamma_at_start", got[2], ref[2], 0.0, 5e-5)
-    compare("log_c", got[3], ref[3], 2e-6, 1e-4)
-    for route in ("auto", "scan"):
+    for route in ("auto", "split"):
+        got = windowed_local_step(state.params, MultinomialDirichlet, windows, maskf, offs, route)
+        log(f"  multinomial V={V_}, K={K}: one SVI step's local statistics on {route} vs scan, "
+            f"W={SVI_W}, B={B}")
+        compare("emit counts", got[0], ref[0], 3e-3, 2e-3)
+        compare("trans_stats", got[1], ref[1], 1e-4, 1e-3)
+        compare("gamma_at_start", got[2], ref[2], 0.0, 5e-5)
+        compare("log_c", got[3], ref[3], 2e-6, 1e-4)
+    for route in ("auto", "split", "scan"):
         step_r = svi.make_step(MultinomialDirichlet, cfg, chain.shape[0], method=route)
         st = svi.init_state(p0, torch.Generator(device=dev).manual_seed(22))
 
@@ -1592,7 +1632,8 @@ def wide_path_phase(dev) -> dict[str, float]:
         ms[f"multinomial V={V_} SVI step on {route}"] = cuda_ms(one, 20, warmup=2)
         require_sane_params(st.params, f"timed multinomial SVI on {route}")
     log(f"  multinomial V={V_}, K={K}, W={SVI_W}, B={B}: SVI step on auto "
-        f"{ms[f'multinomial V={V_} SVI step on auto']:.3f} ms, on scan "
+        f"{ms[f'multinomial V={V_} SVI step on auto']:.3f} ms, on split "
+        f"{ms[f'multinomial V={V_} SVI step on split']:.3f} ms, on scan "
         f"{ms[f'multinomial V={V_} SVI step on scan']:.3f} ms (chained steps, CUDA events)")
     return ms
 
@@ -1661,9 +1702,9 @@ def families_phase(dev) -> dict[str, dict[str, int]]:
         launches[label], fitted = family_vb(fam, obs, prior, p0, label)
         check_family_routes(fam, obs, fitted, gen, label)
 
-    # features wider than the fused and duplex kernels' FMAX: those routes
-    # run the split kernels (the segment-sum above 256 symbols, the one-hot
-    # product of the statistics below; the Gaussian's F = 66 at D = 10)
+    # features wider than 64: "fused" runs the fused pair's WF instances but
+    # above 256 symbols (the split kernels, a segment-sum of the statistics),
+    # "duplex" the split kernels (the Gaussian's F = 66 at D = 10)
     for label, fam, size, K_, make in (
         ("multinomial V=1000", MultinomialDirichlet, 1000, 32, synthetic.gen_multinomial_dataset),
         ("multinomial V=100", MultinomialDirichlet, 100, 32, synthetic.gen_multinomial_dataset),
@@ -3705,6 +3746,617 @@ def kernel_modes_phase(dev) -> tuple[list[dict], list[str]]:
     return rows, lines
 
 
+# ---------------------------------------------------------------- phase 15
+# The fused pair at every feature width (the WF instances, F > 64), the
+# split pair's bf16 alpha. The widths: (kind, D or V) -> F = 65 (NIG D = 32),
+# 66 (NIW D = 10), 100 (one-hot V = 100), 153 (NIW D = 16), 256 (one-hot V =
+# 256), 300 (NIW D = 23), 820 (NIW D = 39, full-covariance 39-dim MFCCs: up
+# to K = 64 W^T no longer fits shared memory, and its last groups come from
+# L2).
+WF_CASES = (("nig", 32), ("niw", 10), ("onehot", 100), ("niw", 16), ("onehot", 256),
+            ("niw", 23), ("niw", 39))
+WF_KS = (4, 64, 128, 256)
+WF_BS = (1, 3, 1024)
+WF_T = 150  # B = 1024 cuts it into two windows of the statistics (128 and 22 steps)
+
+
+def wf_problem(gen, B_, T_, K_, kind, size):
+    """E-step inputs at a width of WF_CASES from the seeded ``gen``: (log_pi,
+    log_A, W (F, K), src, feats, in_kernel_feats). A built kind's src is the
+    raw (T, B, D) observations (mode_problem) and feats their
+    ``ell_features``; "onehot" is the (T, B, V) one-hot of symbols from
+    sticky states (src = feats, no built kind) with W = E[log phi]^T of a
+    Dirichlet posterior near the generating one."""
+    import torch
+
+    from pysvihmm_tpu_torch.data.synthetic import gen_multinomial_dataset
+    from pysvihmm_tpu_torch.distributions import dirichlet
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+
+    if kind != "onehot":
+        log_pi, log_A, W, obs = mode_problem(gen, B_, T_, K_, size, kind)
+        return log_pi, log_A, W, obs, ff.build_features(obs, kind), kind
+    dev = gen.device
+    obs, _, truth = gen_multinomial_dataset(gen, K_, size, B_, T_)
+    conc = 50.0 * truth.theta[0] + 0.5 + torch.rand((K_, size), generator=gen, device=dev)
+    W = dirichlet.expected_log_probs(conc).T.to(torch.float32).contiguous()
+    feats = torch.nn.functional.one_hot(obs.transpose(0, 1).long(), size)
+    feats = feats.to(torch.float32).contiguous()
+
+    def u(*shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    log_pi = dirichlet.expected_log_probs(u(K_, lo=1.0, hi=3.0))
+    log_A = dirichlet.expected_log_probs(u(K_, K_, lo=1.0, hi=3.0)
+                                         + 5.0 * torch.eye(K_, device=dev))
+    return log_pi, log_A, W, feats, feats, None
+
+
+def wf_seqs(K_, F_, ik, dev) -> list[int]:
+    """The built S of the fused pair at (K, F) whose forward and backward
+    (gated and not, default and modes' instances) the card holds a block of:
+    the WF instances' shared memory grows with F."""
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+
+    return [S for S in ff.built_seqs(K_)
+            if all(ff.kernel_info(k, S, F_, dev, K=K_, in_kernel_feats=ik,
+                                  modes=m)["blocks_per_sm"] > 0
+                   for k in ("forward", "backward", "gated backward") for m in (False, True))]
+
+
+def check_wide_f(gen, K_, kind, size, B_, T_=WF_T, twins: bool = True) -> dict[str, float]:
+    """Phase 15 (a) at one shape: the fused pair's WF instances at every S
+    that fits. Bit for bit: alpha, s and sh the same at every S; gamma,
+    gamma0 and eacc the same at every S (acc too above K = 64, where it is
+    summed off the chain), gated and not, emit_gamma both ways, and acc and
+    eacc the same over a second call; a built kind's outputs on the raw
+    observations the array mode's; the pick (gated) emit_gamma's gamma at
+    the offsets, acc and eacc unchanged; bf16 alpha float32's rounded, sh
+    unchanged, the bf16 backward repeatable. With ``twins`` the default S
+    against the plain twins run in float64 on the same inputs
+    (tests/test_pallas.py's tolerances; bf16 alpha within 2^-8 of float64's
+    alpha) and bf16's statistics and log Z within JAX's band of float32's. Returns the twins' max errors: the forward's log_c and the
+    backward's gamma, each mode's too."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.messages.split_fb import exp_params
+
+    dev = gen.device
+    log_pi, log_A, W, src, feats, ik = wf_problem(gen, B_, T_, K_, kind, size)
+    F_ = W.shape[0]
+    pi_t, A_t = exp_params(log_pi, log_A)
+    w = svi_masks(gen, B_, T_, max(1, (5 * T_) // 7))
+    offs = torch.randint(0, T_, (B_,), generator=gen, device=dev)
+    rows = torch.arange(B_, device=dev)
+    seqs = wf_seqs(K_, F_, ik, dev)
+    require(len(seqs) > 0, f"(a) K={K_} F={F_}: no S fits the card")
+    what = f"(a) {kind} F={F_} K={K_} B={B_}"
+    first_fwd, first_bwd = None, {}
+    for S in seqs:
+        fwd = ff._launch_forward(S, pi_t, A_t, W, feats)
+        if first_fwd is None:
+            first_fwd = fwd
+        require_same(f"{what} forward S={S} vs S={seqs[0]}", fwd, first_fwd)
+        if ik:
+            require_same(f"{what} in-kernel forward S={S}",
+                         ff._launch_forward(S, pi_t, A_t, W, src, ik), fwd)
+        outs = {}
+        for wg in (None, w):
+            for emit in (True, False):
+                key = (wg is not None, emit)
+                out = ff._launch_backward(S, A_t, W, feats, *fwd, emit, wg)
+                outs[key] = out
+                tag = f"{what} backward S={S} gated={key[0]} emit_gamma={emit}"
+                require_same(f"{tag}: a second call", out,
+                             ff._launch_backward(S, A_t, W, feats, *fwd, emit, wg))
+                if ik:
+                    require_same(f"{tag} in-kernel", out,
+                                 ff._launch_backward(S, A_t, W, src, *fwd, emit, wg, ik))
+                ref = first_bwd.setdefault(key, out)
+                same = (0, 1, 2, 3) if K_ > 64 else (0, 1, 3)
+                require_same(f"{tag} vs S={seqs[0]}", [out[i] for i in same],
+                             [ref[i] for i in same])
+        picked = ff._launch_backward(S, A_t, W, src, *fwd, False, w, ik, offs)
+        full = outs[True, True]
+        require(picked[0] is None and torch.equal(picked[1], full[0][offs, rows]),
+                f"{what} S={S}: the pick is not emit_gamma's gamma at the offsets")
+        require_same(f"{what} S={S}: acc and eacc with the pick", picked[2:],
+                     outs[True, False][2:])
+        fwd16 = ff._launch_forward(S, pi_t, A_t, W, src, ik, torch.bfloat16)
+        require(fwd16[0].dtype == torch.bfloat16 and torch.equal(fwd16[0],
+                                                                 fwd[0].to(torch.bfloat16)),
+                f"{what} S={S}: bf16 alpha is not float32's rounded")
+        require(torch.equal(fwd16[2], fwd[2]), f"{what} S={S}: sh differs with bf16 alpha")
+        b16 = ff._launch_backward(S, A_t, W, src, *fwd16, False, w, ik)
+        require_same(f"{what} S={S}: the bf16 backward, a second call", b16,
+                     ff._launch_backward(S, A_t, W, src, *fwd16, False, w, ik))
+    torch.cuda.synchronize()
+    errs = {}
+    if not twins:
+        return errs
+    log(f"   {what} T={T_}: S in {seqs} bit for bit; the default S against the twins")
+    alpha, s, sh = ff.fused_forward(pi_t, A_t, W, src, ik)
+    a_r, s_r, sh_r = ff.forward_reference(pi_t, A_t, W, src, ik)
+    # the twins run in float64 on the same inputs (a built kind's float32
+    # feature rows, which the kernels form bit for bit): at F = 820 the
+    # float32 twin's own f @ W errs by as much as alpha's tolerance
+    d = lambda *xs: [None if x is None else x.double() for x in xs]  # noqa: E731
+    a_o, s_o, sh_o = ff.forward_reference(*d(pi_t, A_t, W, feats))
+    compare("alpha", alpha, a_o, 0.0, 5e-5)
+    errs["fwd"] = compare("log_c", torch.log(s) + sh, torch.log(s_o) + sh_o, 2e-6, 1e-4)
+    for wg in (None, w):
+        got = ff.fused_backward(A_t, W, src, a_r, s_r, sh_r, True, wg, ik)
+        ref = ff.backward_reference(*d(A_t, W, feats, a_r, s_r, sh_r), True, *d(wg))
+        for name, x, r, rtol, atol in zip(("gamma", "gamma0", "acc", "eacc"), got, ref,
+                                          (0.0, 0.0, 1e-4, 3e-3), (5e-5, 5e-5, 1e-3, 2e-3)):
+            e = compare(f"{name} gated={wg is not None}", x, r, rtol, atol)
+            if name == "gamma":
+                errs["bwd"] = max(errs.get("bwd", 0.0), e)
+    got = ff.fused_backward(A_t, W, src, a_r, s_r, sh_r, False, w, ik, offs)
+    ref = ff.backward_reference(*d(A_t, W, feats, a_r, s_r, sh_r), False, *d(w), None, offs)
+    errs["pick"] = compare("the pick", got[1], ref[1], 0.0, 5e-5)
+    a16, s16, sh16 = ff.fused_forward(pi_t, A_t, W, src, ik, torch.bfloat16)
+    # float32's alpha rounded (bit for bit above): within half a bf16 ulp, at
+    # most 2^-8 of its value, of that alpha, itself within 5e-5 of float64's
+    errs["bf16 fwd"] = compare("bf16 alpha", a16.float(), a_o, 2.0 ** -8, 5e-5)
+    compare("s: the sum of the rounded alpha", s16, a16.float().sum(-1).T, 1e-6, 0.0)
+    got = ff.fused_backward(A_t, W, src, a16, s16, sh16, True, None, ik)
+    ref = ff.backward_reference(*d(A_t, W, feats, a16, s16, sh16), True, None)
+    errs["bf16 bwd"] = compare("bf16 gamma", got[0], ref[0], 0.0, 5e-5)
+    bf, bS = ff.estep_fused(log_pi, log_A, W, src, in_kernel_feats=ik, alpha_dtype=torch.bfloat16)
+    f32, fS = ff.estep_fused(log_pi, log_A, W, src, in_kernel_feats=ik)
+    rel_z = abs(bf.log_z.double().sum().item() - f32.log_z.double().sum().item()) / abs(
+        f32.log_z.double().sum().item())
+    rel_s = ((bS - fS).abs().max() / fS.abs().max()).item()
+    rel_t = ((bf.trans_stats - f32.trans_stats).abs().max() / f32.trans_stats.abs().max()).item()
+    log(f"    bf16 against float32: log Z {rel_z:.3e}, emit {rel_s:.3e}, trans {rel_t:.3e} "
+        "relative (JAX's band: log Z < 1e-3, the statistics < 2e-2)")
+    require(rel_z < 1e-3 and rel_s < 2e-2 and rel_t < 2e-2, f"{what}: bf16 outside the band")
+    return errs
+
+
+SPLIT_BF16_KS = (64, 128, 256)
+
+
+def check_split_bf16(gen, K_, B_, T_) -> dict[str, float]:
+    """Phase 15 (b) at one shape: the split pair with bf16 alpha at every
+    built S, gated and not. Bit for bit: the stored alpha float32's rounded,
+    sh float32's, s, gamma and acc the same at every S and over a second
+    call. Against the bf16 twins (the default S): alpha within one bf16 ulp,
+    s the sum of the rounded values, gamma and acc at the float32 twins'
+    tolerances; log Z and trans within JAX's band of float32's. Returns the
+    forward's alpha and the backward's gamma errors."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import split_fb as sf
+    from pysvihmm_tpu_torch.messages.split_fb import exp_params
+
+    log_pi, log_A, W, feats = random_problem(gen, B_, T_, K_, D)
+    ll = (feats @ W).contiguous()
+    pi_t, A_t = exp_params(log_pi, log_A)
+    w = svi_masks(gen, B_, T_, max(1, (5 * T_) // 7))
+    what = f"(b) split K={K_} B={B_} T={T_}"
+    first = {}
+    for S in sf.built_seqs("forward", K_):
+        a32, s32, sh32 = sf.split_forward(pi_t, A_t, ll, S)
+        a16, s16, sh16 = sf.split_forward(pi_t, A_t, ll, S, torch.bfloat16)
+        require(a16.dtype == torch.bfloat16 and torch.equal(a16, a32.to(torch.bfloat16)),
+                f"{what} S={S}: bf16 alpha is not float32's rounded")
+        require(torch.equal(sh16, sh32), f"{what} S={S}: sh differs")
+        require_same(f"{what} forward S={S}", (a16, s16),
+                     first.setdefault("fwd", (a16, s16)))
+    for wg in (None, w):
+        kind = "backward" if wg is None else "gated backward"
+        for S in sf.built_seqs(kind, K_):
+            out = sf.split_backward(A_t, ll, a16, s16, sh16, wg, S)
+            require_same(f"{what} {kind} S={S}: a second call", out,
+                         sf.split_backward(A_t, ll, a16, s16, sh16, wg, S))
+            require_same(f"{what} {kind} S={S}", out, first.setdefault(kind, out))
+    torch.cuda.synchronize()
+    log(f"   {what}: every S bit for bit; against the bf16 twins")
+    a_r, s_r, sh_r = sf.split_forward_reference(pi_t, A_t, ll, torch.bfloat16)
+    errs = {"fwd": compare("bf16 alpha", a16.float(), a_r.float(), 2.0 ** -8, 5e-5)}
+    compare("s: the sum of the rounded alpha", s16, a16.float().sum(-1).T, 1e-6, 0.0)
+    g, acc = sf.split_backward(A_t, ll, a16, s16, sh16, w)
+    g_r, acc_r = sf.split_backward_reference(A_t, ll, a16, s16, sh16, w)
+    errs["bwd"] = compare("bf16 gamma", g, g_r, 0.0, 5e-5)
+    compare("bf16 acc", acc, acc_r, 1e-4, 1e-3)
+    bf = sf.estep_split(log_pi, log_A, ll, w, torch.bfloat16)
+    f32 = sf.estep_split(log_pi, log_A, ll, w)
+    rel_z = abs(bf.log_z.double().sum().item() - f32.log_z.double().sum().item()) / abs(
+        f32.log_z.double().sum().item())
+    rel_t = ((bf.trans_stats - f32.trans_stats).abs().max() / f32.trans_stats.abs().max()).item()
+    log(f"    bf16 against float32: log Z {rel_z:.3e}, trans {rel_t:.3e} relative")
+    require(rel_z < 1e-3 and rel_t < 2e-2, f"{what}: bf16 outside JAX's band")
+    return errs
+
+
+def check_split_exact(gen, dev) -> None:
+    """Phase 15 (b): ``exact=True`` with ``bf16_alpha=True`` on the split
+    route (and on "fused" at V > 256, the split pair) gives float32's bits
+    (log Z, trans and init; the multinomial's emission counts, a
+    segment-sum by ``index_add_`` whose float atomics add in no fixed order,
+    to 1e-6 of the largest: two float32 runs, whose gamma is the same bits,
+    differ there too, and the log shows by how much) and launches no bf16
+    instance; without ``exact`` the bf16 instances run."""
+    import torch
+
+    from pysvihmm_tpu_torch.data.synthetic import gen_gaussian_dataset, gen_multinomial_dataset
+    from pysvihmm_tpu_torch.distributions import GaussianNIW, MultinomialDirichlet
+    from pysvihmm_tpu_torch.engines.base import batch_local_step
+    from pysvihmm_tpu_torch.messages import split_fb as sf
+    from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
+
+    y = gen_gaussian_dataset(gen, K, D, 64, 100, mean_scale=0.5, cov_scale=1.0)[0]
+    prior = make_prior(K, GaussianNIW, obs_dim=D, device=dev)
+    p = init_params(gen, prior, GaussianNIW, y)
+    sym = gen_multinomial_dataset(gen, 32, 300, 64, 100)[0]
+    prior_m = make_prior(32, MultinomialDirichlet, num_symbols=300, device=dev)
+    p_m = init_params(gen, prior_m, MultinomialDirichlet, sym)
+    for route, fam, pp, data in (("split", GaussianNIW, p, y),
+                                 ("fused", MultinomialDirichlet, p_m, sym)):
+        sf.reset_launch_counts()
+        ex = batch_local_step(pp, fam, data, route, need_gamma=False, exact=True,
+                              bf16_alpha=True)[0]
+        ref = batch_local_step(pp, fam, data, route, need_gamma=False)[0]
+        chain = (ex.log_z, ex.trans, ex.init), (ref.log_z, ref.trans, ref.init)
+        require(same_bits(*chain), f"(b) exact=True on {route} ({fam.__name__}) is not "
+                "float32's bits")
+        if fam is GaussianNIW:
+            require(same_bits(ex.emit, ref.emit), f"(b) exact=True on {route}: emit differs")
+        else:
+            again = batch_local_step(pp, fam, data, route, need_gamma=False)[0]
+            require(same_bits((again.log_z, again.trans, again.init), chain[1]),
+                    "(b) float32 on fused at V = 300 does not repeat its chain's bits")
+            rel = [((x.emit - ref.emit).abs().max() / ref.emit.abs().max()).item()
+                   for x in (again, ex)]
+            log(f"   emission counts at V = 300, relative to float32's: a second float32 run "
+                f"{rel[0]:.3e} ({'the same' if same_bits(again.emit, ref.emit) else 'not the same'}"
+                f" bits), exact=True with bf16_alpha {rel[1]:.3e}")
+            compare("exact=True: emission counts", ex.emit, ref.emit, 1e-6, 0.0)
+        require(sf.split_forward.bf16_launches == 0, f"(b) exact=True on {route} stored bf16")
+        bf = batch_local_step(pp, fam, data, route, need_gamma=False, bf16_alpha=True)[0]
+        torch.cuda.synchronize()
+        require(sf.split_forward.bf16_launches == 1 and sf.split_backward.bf16_launches == 1,
+                f"(b) bf16_alpha on {route} ({fam.__name__}) did not run the bf16 split pair")
+        require(not same_bits(bf, ref), f"(b) bf16_alpha on {route} changed nothing")
+    log("   exact=True with bf16_alpha on split and on fused at V = 300: float32's bits")
+
+
+# the timed shapes of phase 15 (d), at B = 1024, T = 1000: (K, kind, D or V);
+# F = 66, 100, 153, 256, 300, 820 at K = 64, 66 and 256 at K = 128 and 256
+WF_TIMED = ((64, "niw", 10), (64, "onehot", 100), (64, "niw", 16), (64, "onehot", 256),
+            (64, "niw", 23), (64, "niw", 39), (128, "niw", 10), (128, "onehot", 256),
+            (256, "niw", 10), (256, "onehot", 256))
+WF_INKERNEL_D = (10, 16, 23)  # the in-kernel NIW timed (F = 66, 153, 300)
+WF_V, WF_BIG_V = 100, 1000  # the multinomials of the main path: the fused pair, the split pair
+WF_SVI_STEPS = 5  # windowed SVI steps a variant on the main path
+# the kernels line's rows of phase 15: (row, launcher, tier, mode, source, replaces)
+WF_ROWS = (
+    ("fused_fwd_wf_kernel", "fused_fwd_kernel", 64, None, "fused_fb_wide.cu", "pallas_fb.py:516"),
+    ("fused_bwd_wf_kernel", "fused_bwd_kernel", 64, None, "fused_fb_wide.cu", "pallas_fb.py:577"),
+    ("fused_fwd_wide_wf_kernel<KP=256>", "fused_fwd_kernel", 256, None, "fused_fb_wide.cu",
+     "pallas_fb.py:516"),
+    ("fused_bwd_wide_wf_kernel<KP=256>", "fused_bwd_kernel", 256, None, "fused_fb_wide.cu",
+     "pallas_fb.py:577"),
+    ("fused_fwd_wf_kernel<niw>", "fused_fwd_kernel", 64, "niw", "fused_fb_wide.cu",
+     "pallas_fb.py:516"),
+    ("fused_bwd_wf_kernel<niw>", "fused_bwd_kernel", 64, "niw", "fused_fb_wide.cu",
+     "pallas_fb.py:577"),
+    ("fused_bwd_wf_kernel<gamma_sel>", "fused_bwd_kernel", 64, "gamma_sel",
+     "fused_fb_wide_modes.cu", "pallas_fb.py:577"),
+    ("fused_fwd_wf_kernel<bf16 alpha>", "fused_fwd_kernel", 64, "bf16", "fused_fb_wide_modes.cu",
+     "pallas_fb.py:516"),
+    ("fused_bwd_wf_kernel<bf16 alpha>", "fused_bwd_kernel", 64, "bf16", "fused_fb_wide_modes.cu",
+     "pallas_fb.py:577"),
+    ("split_fwd_kernel<bf16 alpha>", "split_fwd_kernel", 64, "bf16", "split_fb.cu",
+     "pallas_fb.py:339"),
+    ("split_bwd_kernel<bf16 alpha>", "split_bwd_kernel", 64, "bf16", "split_fb.cu",
+     "pallas_fb.py:406"),
+)
+
+
+def wf_counts() -> dict:
+    """Launches since the last reset: the fused pair's WF instances by (kernel,
+    tier), their modes by (kernel, mode), the split pair's bf16 instances by
+    (kernel, "bf16")."""
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.messages import split_fb as sf
+
+    counts = {}
+    for name, fn in (("fused_fwd_kernel", ff.fused_forward),
+                     ("fused_bwd_kernel", ff.fused_backward)):
+        counts.update({(name, t): n for t, n in fn.wf_launches.items()})
+        counts.update({(name, m): n for m, n in fn.wf_mode_launches.items()})
+    counts["split_fwd_kernel", "bf16"] = sf.split_forward.bf16_launches
+    counts["split_bwd_kernel", "bf16"] = sf.split_backward.bf16_launches
+    return counts
+
+
+def wf_main_path(dev) -> tuple[dict, float]:
+    """Phase 15's main path on "auto" at full width, the counts set to 0
+    just before and read just after: batch VB's E-step (batch_local_step,
+    need_gamma=False) at B = 1024, T = 1000 for the Gaussian-NIW at D = 10
+    (F = 66) at K = 64 and 256, with in-kernel features at K = 64, and the
+    multinomial at V = WF_V (the fused pair) and WF_BIG_V with bf16 alpha
+    (the split pair) at K = 64; windowed SVI on the V = WF_V multinomial at
+    W = SVI_W, B = 1024, WF_SVI_STEPS steps gathering gamma and as many
+    with the pick and bf16 alpha. Then each E-step against "scan" and every
+    SVI parameter finite. Returns the launches (wf_counts) and the set-up
+    seconds."""
+    import torch
+
+    from pysvihmm_tpu_torch.data import synthetic
+    from pysvihmm_tpu_torch.distributions import GaussianNIW, MultinomialDirichlet
+    from pysvihmm_tpu_torch.engines import svi
+    from pysvihmm_tpu_torch.engines.base import batch_local_step
+    from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(60)
+    cases = []
+    for label, fam, size, K_, kw in (
+        ("gaussian_niw D=10", GaussianNIW, 10, K, {}),
+        ("gaussian_niw D=10", GaussianNIW, 10, 256, {}),
+        ("gaussian_niw D=10, in-kernel", GaussianNIW, 10, K, {"in_kernel_feats": True}),
+        (f"multinomial V={WF_V}", MultinomialDirichlet, WF_V, K, {}),
+        (f"multinomial V={WF_BIG_V}, bf16 alpha", MultinomialDirichlet, WF_BIG_V, K,
+         {"bf16_alpha": True}),
+    ):
+        if fam is GaussianNIW:
+            obs = synthetic.gen_gaussian_dataset(gen, K_, size, B, T, mean_scale=0.5,
+                                                 cov_scale=1.0)[0]
+            prior = make_prior(K_, fam, obs_dim=size, device=dev)
+        else:
+            obs = synthetic.gen_multinomial_dataset(gen, K_, size, B, T)[0]
+            prior = make_prior(K_, fam, num_symbols=size, device=dev)
+        cases.append((f"{label}, K={K_}", fam, obs, init_params(gen, prior, fam, obs), kw))
+    chain = synthetic.gen_multinomial_dataset(gen, K, WF_V, 1, SVI_T)[0][0]
+    prior_c = make_prior(K, MultinomialDirichlet, num_symbols=WF_V, device=dev)
+    p_c = init_params(gen, prior_c, MultinomialDirichlet, chain)
+    cfg = svi.SVIConfig(batch_size=B, subchain_len=SVI_L, buffer=SVI_BUF)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    reset_kernel_counts()
+    stats = [batch_local_step(p, fam, obs, "auto", need_gamma=False, **kw)[0]
+             for _, fam, obs, p, kw in cases]
+    finals = {}
+    for modes in ({}, {"gamma_sel": True, "bf16_alpha": True}):
+        step = svi.make_step(MultinomialDirichlet, cfg, SVI_T, "auto", **modes)
+        state = svi.init_state(p_c, torch.Generator(device=dev).manual_seed(61))
+        for _ in range(WF_SVI_STEPS):
+            state, m = step(state, prior_c, chain)
+        finals[bool(modes)] = (state, m)
+    torch.cuda.synchronize()
+    counts = wf_counts()
+    log(f"  the main path: launches {counts}")
+    for (label, fam, obs, p, kw), st in zip(cases, stats):
+        ref = batch_local_step(p, fam, obs, "scan", need_gamma=False)[0]
+        log(f"   {label} ({kw or 'plain'}): the E-step on auto against scan")
+        if kw.get("bf16_alpha"):  # JAX's band of float32
+            rel = abs(st.log_z.item() - ref.log_z.item()) / abs(ref.log_z.item())
+            rel_t = ((st.trans - ref.trans).abs().max() / ref.trans.abs().max()).item()
+            log(f"    bf16 alpha: log Z {rel:.3e}, trans {rel_t:.3e} relative to float32 scan")
+            require(rel < 1e-3 and rel_t < 2e-2, f"{label}: bf16 alpha outside JAX's band")
+        else:
+            compare_local_stats(st, ref)
+    for picked, (state, m) in finals.items():
+        require(bool(torch.isfinite(m["noisy_elbo"])), "(main path) SVI: non-finite ELBO")
+        require_sane_params(state.params, f"(main path) SVI V={WF_V} pick={picked}")
+    log(f"   {WF_SVI_STEPS} SVI steps at V={WF_V}, W={SVI_W}, B={B} with and without the pick "
+        "and bf16 alpha: every parameter finite")
+    return counts, setup_s
+
+
+def wf_time(dev) -> tuple[dict, list[str]]:
+    """Phase 15 (d), by CUDA events (median_ms) at B = 1024, T = 1000: the
+    fused pair's WF instances at every WF_TIMED shape, ungated and gated,
+    beside their twins, their bounds and the split route's E-step on the
+    same inputs (ll = feats @ W, the split pair, eacc as gamma^T feats);
+    the in-kernel NIW at WF_INKERNEL_D; the pick at W = SVI_W against
+    emit_gamma and the gather; bf16 alpha against float32 on the fused pair
+    at F = 66 and the split pair at K = 64 and 256. Returns the rows' numbers
+    (WF_ROWS) and the log lines."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.messages import split_fb as sf
+    from pysvihmm_tpu_torch.messages.split_fb import exp_params
+    from pysvihmm_tpu_torch.scripts.debug_split import cuda_ms
+    from pysvihmm_tpu_torch.utils.roofline import bound, kernel_work
+
+    gen = torch.Generator(device=dev).manual_seed(62)
+    rows, lines = {}, []
+
+    def row(name, ms, plain, work):
+        b_ms, b_by = bound(*work)
+        rows[name] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
+        return f"{ms:.4f} ms (twin {plain:.3f} ms, bound {b_ms:.4f} ms, {b_by})"
+
+    def split_route(log_pi, log_A, W, feats, w=None, alpha_dtype=torch.float32):
+        ll = torch.matmul(feats, W)
+        fb = sf.estep_split(log_pi, log_A, ll, w, alpha_dtype)
+        T_, B_, F_ = feats.shape
+        return fb, fb.gamma.reshape(T_ * B_, -1).T @ feats.reshape(T_ * B_, F_)
+
+    for K_, kind, size in WF_TIMED:
+        log_pi, log_A, W, src, feats, ik = wf_problem(gen, B, T, K_, kind, size)
+        F_ = W.shape[0]
+        pi_t, A_t = exp_params(log_pi, log_A)
+        w = svi_masks(gen, B, T, (5 * T) // 7)
+        fwd = ff.fused_forward(pi_t, A_t, W, feats)
+        t_f = median_ms(lambda: ff.fused_forward(pi_t, A_t, W, feats))
+        t_b = median_ms(lambda: ff.fused_backward(A_t, W, feats, *fwd))
+        t_g = median_ms(lambda: ff.fused_backward(A_t, W, feats, *fwd, False, w))
+        p_f = cuda_ms(lambda: ff.forward_reference(pi_t, A_t, W, feats), 2, warmup=1)
+        p_b = cuda_ms(lambda: ff.backward_reference(A_t, W, feats, *fwd), 2, warmup=1)
+        e_fused = median_ms(lambda: ff.estep_fused(log_pi, log_A, W, feats))
+        e_split = median_ms(lambda: split_route(log_pi, log_A, W, feats))
+        S_f = ff.default_seqs("forward", B, F_, dev, K=K_)
+        S_b = ff.default_seqs("backward", B, F_, dev, K=K_)
+        tier = "" if K_ <= 64 else f"<KP={K_}>"
+        name = "fused_{}_wf_kernel" if K_ <= 64 else "fused_{}_wide_wf_kernel"
+        fr = row(name.format("fwd") + tier + f" F={F_}", t_f, p_f,
+                 kernel_work("fused_fwd_kernel", B, T, K_, F_))
+        br = row(name.format("bwd") + tier + f" F={F_}", t_b, p_b,
+                 kernel_work("fused_bwd_kernel", B, T, K_, F_))
+        b_g, by_g = bound(*kernel_work("fused_bwd_kernel", B, T, K_, F_, gated=True))
+        lines.append(f"K={K_}, F={F_} ({kind} {size}), S={S_f}/{S_b}: forward {fr}; backward "
+                     f"{br}; gated backward {t_g:.4f} ms (bound {b_g:.4f} ms, {by_g}); the "
+                     f"E-step fused {e_fused:.4f} ms, split route {e_split:.4f} ms")
+        log(f"  {lines[-1]}")
+        del fwd, feats, src
+        torch.cuda.empty_cache()
+
+    for D_ in WF_INKERNEL_D:
+        log_pi, log_A, W, obs = mode_problem(gen, B, T, K, D_, "niw")
+        F_ = W.shape[0]
+        pi_t, A_t = exp_params(log_pi, log_A)
+        feats = ff.build_features(obs, "niw")
+        fwd = ff.fused_forward(pi_t, A_t, W, obs, "niw")
+        t_f = median_ms(lambda: ff.fused_forward(pi_t, A_t, W, obs, "niw"))
+        t_b = median_ms(lambda: ff.fused_backward(A_t, W, obs, *fwd, False, None, "niw"))
+        a_f = median_ms(lambda: ff.fused_forward(pi_t, A_t, W, feats))
+        a_b = median_ms(lambda: ff.fused_backward(A_t, W, feats, *fwd))
+        line = f"in-kernel NIW D={D_} (F={F_}), K={K}: "
+        if D_ == 10:  # the kernels line's rows
+            p_f = cuda_ms(lambda: ff.forward_reference(pi_t, A_t, W, obs, "niw"), 2, warmup=1)
+            p_b = cuda_ms(lambda: ff.backward_reference(A_t, W, obs, *fwd, False, None, "niw"),
+                          2, warmup=1)
+            fr = row("fused_fwd_wf_kernel<niw>", t_f, p_f,
+                     kernel_work("fused_fwd_kernel", B, T, K, F_, D=D_))
+            br = row("fused_bwd_wf_kernel<niw>", t_b, p_b,
+                     kernel_work("fused_bwd_kernel", B, T, K, F_, D=D_))
+            line += f"forward {fr}; backward {br}"
+        else:
+            line += f"forward {t_f:.4f} ms, backward {t_b:.4f} ms"
+        lines.append(line + f"; the array mode {a_f:.4f} / {a_b:.4f} ms")
+        log(f"  {lines[-1]}")
+        del fwd, feats, obs
+        torch.cuda.empty_cache()
+
+    # the pick at the main path's SVI shape: V = WF_V, K = 64, W = SVI_W
+    log_pi, log_A, W, src, feats, _ = wf_problem(gen, B, SVI_W, K, "onehot", WF_V)
+    F_ = W.shape[0]
+    pi_t, A_t = exp_params(log_pi, log_A)
+    offs = torch.randint(0, SVI_W - SVI_L + 1, (B,), generator=gen, device=dev)
+    t_ = torch.arange(SVI_W, device=dev)[:, None]
+    m_w = ((t_ >= offs) & (t_ < offs + SVI_L)).to(torch.float32).contiguous()
+    rws = torch.arange(B, device=dev)
+    fwd = ff.fused_forward(pi_t, A_t, W, feats)
+    t_p = median_ms(lambda: ff.fused_backward(A_t, W, feats, *fwd, False, m_w, None, offs))
+    t_e = median_ms(lambda: ff.fused_backward(A_t, W, feats, *fwd, True, m_w))
+    t_gather = median_ms(lambda: ff.fused_backward(A_t, W, feats, *fwd, True, m_w)[0][offs, rws])
+    p_p = cuda_ms(lambda: ff.backward_reference(A_t, W, feats, *fwd, False, m_w, None, offs), 2,
+                  warmup=1)
+    pr = row("fused_bwd_wf_kernel<gamma_sel>", t_p, p_p,
+             kernel_work("fused_bwd_kernel", B, SVI_W, K, F_, gated=True))
+    lines.append(f"the pick at V={WF_V} (F={F_}), K={K}, W={SVI_W}, B={B}, gated: {pr}; "
+                 f"emit_gamma {t_e:.4f} ms, emit_gamma and the gather {t_gather:.4f} ms")
+    log(f"  {lines[-1]}")
+
+    # bf16 against float32: the fused pair at F = 66, the split pair at K = 64, 256
+    log_pi, log_A, W, src, feats, _ = wf_problem(gen, B, T, K, "niw", 10)
+    F_ = W.shape[0]
+    pi_t, A_t = exp_params(log_pi, log_A)
+    f32 = ff.fused_forward(pi_t, A_t, W, feats)
+    b16 = ff.fused_forward(pi_t, A_t, W, feats, None, torch.bfloat16)
+    t16 = (median_ms(lambda: ff.fused_forward(pi_t, A_t, W, feats, None, torch.bfloat16)),
+           median_ms(lambda: ff.fused_backward(A_t, W, feats, *b16)))
+    t32 = (median_ms(lambda: ff.fused_forward(pi_t, A_t, W, feats)),
+           median_ms(lambda: ff.fused_backward(A_t, W, feats, *f32)))
+    p16 = (cuda_ms(lambda: ff.forward_reference(pi_t, A_t, W, feats, None, torch.bfloat16), 2,
+                   warmup=1),
+           cuda_ms(lambda: ff.backward_reference(A_t, W, feats, *b16), 2, warmup=1))
+    fr = row("fused_fwd_wf_kernel<bf16 alpha>", t16[0], p16[0],
+             kernel_work("fused_fwd_kernel", B, T, K, F_, bf16_alpha=True))
+    br = row("fused_bwd_wf_kernel<bf16 alpha>", t16[1], p16[1],
+             kernel_work("fused_bwd_kernel", B, T, K, F_, bf16_alpha=True))
+    lines.append(f"bf16 alpha, the fused pair at F={F_}, K={K}: forward {fr}, backward {br}; "
+                 f"float32 {t32[0]:.4f} / {t32[1]:.4f} ms")
+    log(f"  {lines[-1]}")
+    del f32, b16, feats, src
+    for K_ in (K, 256):
+        log_pi, log_A, W, feats = random_problem(gen, B, T, K_, D)
+        ll = (feats @ W).contiguous()
+        pi_t, A_t = exp_params(log_pi, log_A)
+        a32 = sf.split_forward(pi_t, A_t, ll)
+        a16 = sf.split_forward(pi_t, A_t, ll, alpha_dtype=torch.bfloat16)
+        t16 = (median_ms(lambda: sf.split_forward(pi_t, A_t, ll, alpha_dtype=torch.bfloat16)),
+               median_ms(lambda: sf.split_backward(A_t, ll, *a16)))
+        t32 = (median_ms(lambda: sf.split_forward(pi_t, A_t, ll)),
+               median_ms(lambda: sf.split_backward(A_t, ll, *a32)))
+        p16 = (cuda_ms(lambda: sf.split_forward_reference(pi_t, A_t, ll, torch.bfloat16), 2,
+                       warmup=1),
+               cuda_ms(lambda: sf.split_backward_reference(A_t, ll, *a16), 2, warmup=1))
+        tier = "" if K_ <= 64 else f"<KP={K_}>"
+        fr = row(f"split_fwd_kernel{tier}<bf16 alpha>", t16[0], p16[0],
+                 kernel_work("split_fwd_kernel", B, T, K_, bf16_alpha=True))
+        br = row(f"split_bwd_kernel{tier}<bf16 alpha>", t16[1], p16[1],
+                 kernel_work("split_bwd_kernel", B, T, K_, bf16_alpha=True))
+        lines.append(f"bf16 alpha, the split pair at K={K_}: forward {fr}, backward {br}; "
+                     f"float32 {t32[0]:.4f} / {t32[1]:.4f} ms")
+        log(f"  {lines[-1]}")
+        del a32, a16, ll, feats
+        torch.cuda.empty_cache()
+    return rows, lines
+
+
+def wide_f_phase(dev) -> tuple[list[dict], list[str]]:
+    """Phase 15: the fused pair at every feature width and the split pair's
+    bf16 alpha. (a) the WF instances (check_wide_f) at every WF_CASES width,
+    K = 64 and 256 at B = 1024 and K = 4 and 128 at B = 3; (b) the split
+    pair's bf16 alpha at K = 64, 128, 256 (check_split_bf16) and exact=True
+    (check_split_exact); the main path at full width (wf_main_path); (d)
+    the times (wf_time). Returns the kernels line's rows and the timing
+    lines."""
+    t_phase = time.perf_counter()
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(63)
+    errs = {}
+    log(f"  (a) the WF instances at F = 65-820 (WF_CASES), K = 64 and 256 at B = {B}, K = 4 "
+        f"and 128 at B = 3, T = {WF_T}")
+    for kind, size in WF_CASES:
+        for K_, B_ in ((K, B), (256, B), (4, 3), (128, 3)):
+            e = check_wide_f(gen, K_, kind, size, B_)
+            errs[kind, size, K_, B_] = e
+    log(f"  (a) took {time.perf_counter() - t_phase:.1f} s")
+    log(f"  (b) the split pair's bf16 alpha at K = {SPLIT_BF16_KS}, B = {B}, T = {WF_T}")
+    split_errs = {K_: check_split_bf16(gen, K_, B, WF_T) for K_ in SPLIT_BF16_KS}
+    check_split_exact(gen, dev)
+    counts, setup_s = wf_main_path(dev)
+    log(f"  (a), (b) and the main path took {time.perf_counter() - t_phase:.1f} s ({setup_s:.1f} "
+        "s of it the data on the card)")
+    times, lines = wf_time(dev)
+    e66 = errs["niw", 10, K, B]
+    max_err = {"fused_fwd_wf_kernel": e66["fwd"], "fused_bwd_wf_kernel": e66["bwd"],
+               "fused_fwd_wide_wf_kernel<KP=256>": errs["niw", 10, 256, B]["fwd"],
+               "fused_bwd_wide_wf_kernel<KP=256>": errs["niw", 10, 256, B]["bwd"],
+               "fused_fwd_wf_kernel<niw>": e66["fwd"], "fused_bwd_wf_kernel<niw>": e66["bwd"],
+               "fused_bwd_wf_kernel<gamma_sel>": errs["onehot", WF_V, K, B]["pick"],
+               "fused_fwd_wf_kernel<bf16 alpha>": e66["bf16 fwd"],
+               "fused_bwd_wf_kernel<bf16 alpha>": e66["bf16 bwd"],
+               "split_fwd_kernel<bf16 alpha>": split_errs[K]["fwd"],
+               "split_bwd_kernel<bf16 alpha>": split_errs[K]["bwd"]}
+    timed = {"fused_fwd_wf_kernel": "fused_fwd_wf_kernel F=66",
+             "fused_bwd_wf_kernel": "fused_bwd_wf_kernel F=66",
+             "fused_fwd_wide_wf_kernel<KP=256>": "fused_fwd_wide_wf_kernel<KP=256> F=66",
+             "fused_bwd_wide_wf_kernel<KP=256>": "fused_bwd_wide_wf_kernel<KP=256> F=66"}
+    rows = []
+    for name, kernel, tier, mode, src, replaces in WF_ROWS:
+        n = counts.get((kernel, mode if mode is not None else tier), 0)
+        require(n > 0, f"phase 15: {name} was not launched on the main path")
+        rows.append({"name": name, "route": "cuda", "source": f"pysvihmm_tpu_torch/csrc/{src}",
+                     "replaces": f"pysvihmm_tpu/messages/{replaces}", "launches": n,
+                     "max_abs_err": max_err[name], **times[timed.get(name, name)],
+                     "library_ms": None})
+    log(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return rows, lines
+
+
 def time_route_kernels(gen) -> tuple[dict, dict, dict]:
     """Phase 5: each route kernel at K = 64, 128 and 256 (B=1024, T=1000,
     F=45, ungated) by CUDA events, its twin, its bound and share. Returns
@@ -4302,6 +4954,14 @@ def main() -> int:
     for line in mode_lines:
         log(f"    {line}")
 
+    log(f"== phase 15: the fused pair at every feature width (F = 65-820, K up to 256, every "
+        f"kind and mode) and the split pair's bf16 alpha ({card})")
+    wf_rows, wf_lines = wide_f_phase(dev)
+    log(f"  phase 15 times (CUDA events, median of {MODE_REPS} means of {MODE_ITERS} calls; "
+        f"twins 2 calls; {card}):")
+    for line in wf_lines:
+        log(f"    {line}")
+
     errs = {"fused_fwd_kernel": fwd_err, "fused_bwd_kernel": bwd_err, **split_err,
             "duplex_chain_kernel": chain_err, "duplex_combine_kernel": comb_err}
     kernels = []
@@ -4370,6 +5030,7 @@ def main() -> int:
                 "library_ms": None,
             })
     kernels.extend(mode_rows)
+    kernels.extend(wf_rows)
     log(f"total {time.perf_counter() - t_start:.1f} s, the build's {build_s:.1f} s included; in "
         f"the kernels line: launches over the {SVI_STEPS} SVI steps of each kernel's route "
         f"(phase 6) for the K={K} instances, over phase 9's runs for the large-K ones (VB at "
@@ -4387,7 +5048,12 @@ def main() -> int:
         f"modes' rows (phase 14): launches over its main-path run (VB with in-kernel features, "
         f"SVI with the gamma pick, the bf16 probe), max_abs_err against the twins at (B, T, K) = "
         f"({B}, {T}, {K}), ms the median of {MODE_REPS} means of {MODE_ITERS} calls there (the "
-        f"gamma pick's at the SVI shape, W={SVI_W})")
+        f"gamma pick's at the SVI shape, W={SVI_W}); the WF rows (phase 15): launches over its "
+        f"main-path run (the E-steps at F = 66 and 100 on auto, K = 64 and 256, in-kernel NIW at "
+        f"D = 10, the V = {WF_V} SVI steps with the pick and bf16 alpha, the V = {WF_BIG_V} "
+        f"split pair with bf16 alpha), max_abs_err against the twins at B = {B}, T = {WF_T} "
+        f"(F = 66, the pick's at V = {WF_V}), ms at (B, T) = ({B}, {T}) and F = 66 (the pick's "
+        f"at V = {WF_V}, W = {SVI_W}; the split pair's at F = {F})")
     log(card)
     log(json.dumps({"kernels": kernels, "note": "the long-chain tiers (phase 12) are plain "
                     "PyTorch, as JAX's are plain XLA: they add no kernel to this line"}))

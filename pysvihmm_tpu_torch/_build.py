@@ -41,9 +41,11 @@ LINK_FLAGS = ("-shared", *GENCODE)
 
 # the translation units of a library beyond csrc/<name>.cu, each compiled by
 # its own nvcc at the same time: the fused pair's modes' instances
-# (fused_fb_modes.cu) double the fused library's instances, and as a second
-# unit they build beside the default ones instead of after them (PERF.md)
-UNITS = {"fused_fb": ("fused_fb", "fused_fb_modes")}
+# (fused_fb_modes.cu) double the fused library's instances, and its
+# instances for features wider than 64 (fused_fb_wide.cu, and their modes'
+# in fused_fb_wide_modes.cu) add as many again; as units of their own they
+# build beside the default ones instead of after them (PERF.md)
+UNITS = {"fused_fb": ("fused_fb", "fused_fb_modes", "fused_fb_wide", "fused_fb_wide_modes")}
 
 _INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 

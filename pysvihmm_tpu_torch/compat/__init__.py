@@ -148,7 +148,7 @@ class VBHMM(_HMMBase):
             self.params = params
             return self
         method = messages.resolve_method(method, self.obs.device)
-        prepared = (prepare_fused_obs(self.params, self.emission, self.obs)
+        prepared = (prepare_fused_obs(self.params, self.emission, self.obs, method=method)
                     if method in FEATURE_ROUTES else None)
         step = batch_vb.make_step(self.emission, method)
         params, elbos = self.params, []

@@ -450,7 +450,11 @@ constexpr int stats_smem_bytes(int S, int FP, bool feats) {
 // (pallas_fb.py:608 `sel_mode`): gamma0 then takes each sequence's ungated
 // gamma at t = sel[b] (zeros for a pick outside 0 .. T-1) in place of w_0
 // gamma_0. Without MODES neither is read, so the default instances carry
-// no trace of them. Every thread of the block calls it.
+// no trace of them. Not FEATS (the split backward), MODES means that alpha
+// is stored as bf16 (alpha16, never null then; sel unused): the ring's
+// slots take, for each element, the aligned 32-bit word that holds it (a
+// bf16 pair; cp.async moves 4 bytes at least), and the element's half is
+// widened where it is read. Every thread of the block calls it.
 template <int S, int FP, bool FEATS, bool GATED, int KIND = fbc::FEATS_ARRAY,
           bool MODES = false>
 __device__ __forceinline__ void seq_stats_backward(
@@ -508,6 +512,7 @@ __device__ __forceinline__ void seq_stats_backward(
   const size_t step_k = (size_t)B * K;
   const float* fb = src + (size_t)b0 * in_w;
   const float* ab = MODES && alpha16 != nullptr ? nullptr : alpha + (size_t)b0 * K + k;
+  const size_t n_alpha = (size_t)T * step_k;  // alpha's elements (the ring's bf16 words)
   const __nv_bfloat16* ab16 = MODES && alpha16 != nullptr ? alpha16 + (size_t)b0 * K + k
                                                                    : nullptr;
   // a_t of sequence s (FEATS reads, as stored: float32 or bf16 widened)
@@ -577,8 +582,15 @@ __device__ __forceinline__ void seq_stats_backward(
       const bool ok = s < ns;
       fbs::cp_async<1>(slot + s * KMAX, fb + (size_t)j * step_k + (size_t)s * K + k,
                        ok && active && j >= 0);
-      fbs::cp_async<1>(slot + (S + s) * KMAX, ab + (size_t)(j - 1) * step_k + (size_t)s * K,
-                       ok && active && j >= 1);
+      if constexpr (MODES) {  // the word of a_{j-1}'s bf16 element
+        const size_t o = (size_t)(j - 1) * step_k + (size_t)(b0 + s) * K + k;
+        const bool in = ok && active && j >= 1;
+        fbs::cp_async_n(slot + (S + s) * KMAX, in ? alpha16 + (o & ~(size_t)1) : alpha16,
+                        !in ? 0 : (o | 1) < n_alpha ? 4 : 2);
+      } else {
+        fbs::cp_async<1>(slot + (S + s) * KMAX, ab + (size_t)(j - 1) * step_k + (size_t)s * K,
+                         ok && active && j >= 1);
+      }
       if (GATED)
         fbs::cp_async<1>(slot + (2 * S + s) * KMAX, w_in + (size_t)j * B + b0 + s, ok && j >= 0);
     }
@@ -608,6 +620,11 @@ __device__ __forceinline__ void seq_stats_backward(
       for (int s = 0; s < S; ++s) {
         l_n[s] = slot[s * KMAX];
         a_n[s] = slot[(S + s) * KMAX];
+        if constexpr (MODES) {  // a_{t-2}: its half of the word, widened
+          const size_t o = (size_t)(t - 2) * step_k + (size_t)(b0 + s) * K + k;
+          const unsigned u = __float_as_uint(a_n[s]);
+          a_n[s] = __uint_as_float((o & 1) ? (u & 0xffff0000u) : (u << 16));
+        }
         w_n[s] = GATED ? slot[(2 * S + s) * KMAX] : 1.f;
       }
       ask(i + BWD_AHEAD);

@@ -139,6 +139,13 @@ __device__ __forceinline__ void cp_async(float* dst, const float* src, bool vali
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n));
 }
 
+// 4 bytes from src to shared dst, of which the first `bytes` (0, 2 or 4)
+// are read and the rest zero-filled; src 4-byte aligned.
+__device__ __forceinline__ void cp_async_n(float* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 template <int PENDING>
@@ -473,8 +480,14 @@ inline int prep_launches(int which, bool clear) {
 // with a built feature kind (fbc::FEATS_NIW, FEATS_NIG; `kind`) eacc's
 // feature rows are built from the observations (build_feats), the rows the
 // chain kernels build, so the sums see the array mode's operands bit for bit.
+//
+// With `blocks` > 0 (the fused backward up to K = 64 at F > FMAX) acc stays
+// in the chain, a row of partials a block (`part_a`, blocks rows of K K
+// floats, which the kernel reads back and writes each window and the caller
+// adds in block order after the last): then there is no dn, no acc sum and
+// no widened alpha, and only eacc's sums run here.
 struct WideStats {
-  int T, B, K, F, steps, kind;
+  int T, B, K, F, steps, kind, blocks;
   bool abf;
   float* dn;
   float* gw;
@@ -490,22 +503,25 @@ struct WideStats {
   }
 
   static long long floats(int T, int B, int K, int F, int kind = fbc::FEATS_ARRAY,
-                          bool abf = false) {
+                          bool abf = false, int blocks = 0) {
     const long long n = (long long)window(T, B) * B;
-    return (F > 0 ? 2 : 1) * n * K + (long long)B * K + outer_scratch(n, K, K) +
-           (F > 0 ? outer_scratch(n, K, F) : 0) + (abf ? n * K : 0) +
+    const bool chain = blocks > 0;
+    return (chain ? 0 : n * K) + (F > 0 ? n * K : 0) + (long long)B * K +
+           (chain ? (long long)blocks * K * K : outer_scratch(n, K, K)) +
+           (F > 0 ? outer_scratch(n, K, F) : 0) + (abf && !chain ? n * K : 0) +
            (F > 0 && kind != fbc::FEATS_ARRAY ? n * F : 0);
   }
 
   WideStats(float* scratch, int T_, int B_, int K_, int F_, int kind_ = fbc::FEATS_ARRAY,
-            bool abf_ = false)
-      : T(T_), B(B_), K(K_), F(F_), steps(window(T_, B_)), kind(kind_), abf(abf_) {
+            bool abf_ = false, int blocks_ = 0)
+      : T(T_), B(B_), K(K_), F(F_), steps(window(T_, B_)), kind(kind_), blocks(blocks_),
+        abf(abf_ && blocks_ == 0) {
     const long long n = (long long)steps * B;
-    dn = scratch;
-    gw = F > 0 ? dn + n * K : nullptr;
-    carry = dn + (F > 0 ? 2 : 1) * n * K;
+    dn = blocks > 0 ? nullptr : scratch;
+    gw = F > 0 ? scratch + (blocks > 0 ? 0 : n * K) : nullptr;
+    carry = scratch + (blocks > 0 ? 0 : n * K) + (F > 0 ? n * K : 0);
     part_a = carry + (long long)B * K;
-    part_e = part_a + outer_scratch(n, K, K);
+    part_e = part_a + (blocks > 0 ? (long long)blocks * K * K : outer_scratch(n, K, K));
     xa = part_e + (F > 0 ? outer_scratch(n, K, F) : 0);
     yf = xa + (abf ? n * K : 0);
   }
@@ -525,12 +541,14 @@ struct WideStats {
       const bool add = t1 < T;
       cudaError_t e = launch(t0, t1);
       if (e != cudaSuccess) return e;
-      const int ta = t0 > 0 ? t0 : 1;  // acc's rows: t >= 1
-      const long long na = (long long)(t1 - ta) * B;
-      const float* X = alpha != nullptr ? alpha + (ta - 1) * step_k : xa;
-      if (alpha == nullptr) e = widen(alpha16 + (ta - 1) * step_k, xa, na * K, st);
-      if (e == cudaSuccess)
-        e = outer_sum(X, dn + (ta - t0) * step_k, na, K, K, part_a, stats, add, st);
+      if (blocks == 0) {
+        const int ta = t0 > 0 ? t0 : 1;  // acc's rows: t >= 1
+        const long long na = (long long)(t1 - ta) * B;
+        const float* X = alpha != nullptr ? alpha + (ta - 1) * step_k : xa;
+        if (alpha == nullptr) e = widen(alpha16 + (ta - 1) * step_k, xa, na * K, st);
+        if (e == cudaSuccess)
+          e = outer_sum(X, dn + (ta - t0) * step_k, na, K, K, part_a, stats, add, st);
+      }
       if (e == cudaSuccess && F > 0) {
         const long long nr = (long long)(t1 - t0) * B;
         const float* Y = src + (size_t)t0 * B * D;

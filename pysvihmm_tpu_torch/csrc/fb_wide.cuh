@@ -33,6 +33,18 @@
 // writes d_t n_t pg_t and w_t gamma_t for a window of time steps a launch,
 // and outer products summed in a fixed order form acc and eacc, an order
 // that depends on (T, B, K, F) alone, not on S.
+//
+// Features wider than FMAX (the fused pair's WF instances): W's column k no
+// longer fits a thread's registers, nor W beside A~ in shared memory (at KP =
+// 256 A~'s shared rows take 192 of 227 KB). So each step reads it from
+// device memory, where L2 keeps it (F K floats, 0.3 MB at F = 300, K = 256):
+// thread k the words W[f][k], a warp 128 contiguous bytes a feature, each
+// word feeding S chains (WGlobal). The feature slots take 4 ceil(F / 4)
+// floats a sequence, and the rows are moved by a strided loop
+// (feat_rows<..., true>). ll_t is summed in blocks of 64 features, as the
+// K <= 64 WF instances sum it (fb_seqs_wf.cuh): the first block's fmaf
+// chain, then each later block's own chain added in order; in the forward
+// and the backward alike.
 
 #pragma once
 
@@ -172,6 +184,64 @@ struct WCol {
   }
 };
 
+// Column k of W (F, K) row-major read from device memory at each use (the
+// WF instances), zero beyond F (or K).
+struct WGlobal {
+  const float* __restrict__ w;  // W + k, null for an idle state
+  int K, F;
+  __device__ void load(const float* __restrict__ W, int K_, int F_, int k) {
+    w = k < K_ ? W + k : nullptr;
+    K = K_;
+    F = F_;
+  }
+  __device__ __forceinline__ float at(int f) const {
+    return (w != nullptr && f < F) ? __ldg(w + (size_t)f * K) : 0.f;
+  }
+  // acc[s] += the groups [f0, f1) of f_s[s] . W[:, k], each word of W
+  // feeding S chains.
+  template <int S>
+  __device__ __forceinline__ void span(float (&acc)[S], const float* f_s, int fstride, int f0,
+                                       int f1) const {
+#pragma unroll 4
+    for (int f4 = f0; f4 < f1; ++f4) {
+      const float c0 = at(4 * f4), c1 = at(4 * f4 + 1), c2 = at(4 * f4 + 2), c3 = at(4 * f4 + 3);
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const float4 y = ld4(f_s + s * fstride + 4 * f4);
+        acc[s] = fmaf(y.x, c0, acc[s]);
+        acc[s] = fmaf(y.y, c1, acc[s]);
+        acc[s] = fmaf(y.z, c2, acc[s]);
+        acc[s] = fmaf(y.w, c3, acc[s]);
+      }
+    }
+  }
+  // out[s] = f_s[s] . W[:, k] over f = 0 .. 4 nf4 - 1 (to the padded width)
+  // in blocks of 16 groups: the first block's chain in out, each later
+  // block's from zero, added in order.
+  template <int S>
+  __device__ __forceinline__ void lls(float (&out)[S], const float* f_s, int fstride,
+                                      int nf4) const {
+    constexpr int BLK = FMAX / 4;
+#pragma unroll
+    for (int s = 0; s < S; ++s) out[s] = 0.f;
+    span<S>(out, f_s, fstride, 0, min(BLK, nf4));
+    for (int b = BLK; b < nf4; b += BLK) {
+      float part[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s) part[s] = 0.f;
+      span<S>(part, f_s, fstride, b, min(b + BLK, nf4));
+#pragma unroll
+      for (int s = 0; s < S; ++s) out[s] += part[s];
+    }
+  }
+};
+
+// The feature slot's stride a sequence: FMAX, or (WF) F padded to a group of 4.
+template <bool WF>
+__host__ __device__ constexpr int slot_stride(int F) {
+  return WF ? 4 * ((F + 3) / 4) : FMAX;
+}
+
 // The block's sum (max) of the per-warp partials red[0 .. NW-1], in warp order.
 template <int NW>
 __device__ __forceinline__ float block_sum(const float* red) {
@@ -199,6 +269,13 @@ constexpr int chain_smem_bytes() {
   return 4 * (Tier<KP>::SR * KP + 2 * S * KP + 2 * S * FMAX + 6 * S * Tier<KP>::NWARP);
 }
 
+// The same for the WF instances at F features: their slots are F wide.
+template <int KP, int S>
+inline int chain_smem_bytes_wf(int F) {
+  return 4 * (Tier<KP>::SR * KP + 2 * S * KP + 2 * S * slot_stride<true>(F) +
+              6 * S * Tier<KP>::NWARP);
+}
+
 // The feature rows of step t of a block's sequences, feats[t, b0 .. b0+ns-1, :]
 // (ns * F contiguous floats from row), into a slot [S][FMAX] whose padding
 // (beyond F, and the missing sequences') stays zero. One sequence takes one
@@ -208,9 +285,18 @@ constexpr int chain_smem_bytes() {
 // KIND (fbc::FEATS_NIW, FEATS_NIG) reads the raw observation rows (ns * D
 // floats from row) and builds each feature where it is stored
 // (fbc::feat_at: ell_features' float32 bits).
-template <int S, int KIND = fbc::FEATS_ARRAY>
+// WF: any F, slots `stride` floats a sequence, by a strided loop at every S.
+template <int S, int KIND = fbc::FEATS_ARRAY, bool WF = false>
 __device__ __forceinline__ void feat_rows(float* slot, const float* __restrict__ row, int ns,
-                                          int F, int k, int nt, int D = 0) {
+                                          int F, int k, int nt, int D = 0, int stride = FMAX) {
+  if (WF) {
+    for (int e = k; e < ns * F; e += nt) {
+      const int s = e / F;
+      slot[s * stride + e - s * F] =
+          KIND == fbc::FEATS_ARRAY ? row[e] : fbc::feat_at<KIND>(row + s * D, D, e - s * F);
+    }
+    return;
+  }
   if (S == 1) {
     if (k < F) slot[k] = KIND == fbc::FEATS_ARRAY ? row[k] : fbc::feat_at<KIND>(row, D, k);
     return;
@@ -237,8 +323,10 @@ __device__ __forceinline__ void feat_rows(float* slot, const float* __restrict__
 // S = 1 backward at KP = 256 took 26 % longer on the H100 (PERF.md). FEATS
 // with a built KIND reads the raw (T, B, D) observations (feat_rows); ABF
 // stores alpha rounded to bf16 into alpha16, the chain carrying float32,
-// and s sums the rounded values (as seq_forward).
-template <int KP, int S, bool FEATS, int KIND = fbc::FEATS_ARRAY, bool ABF = false>
+// and s sums the rounded values (as seq_forward). WF takes any F (W read
+// from device memory, WGlobal; slots F wide).
+template <int KP, int S, bool FEATS, int KIND = fbc::FEATS_ARRAY, bool ABF = false,
+          bool WF = false>
 __device__ void seqs_forward(const float* __restrict__ pi, const float* __restrict__ A,
                              const float* __restrict__ W, const float* __restrict__ src,
                              float* __restrict__ alpha, float* __restrict__ s_out,
@@ -246,10 +334,11 @@ __device__ void seqs_forward(const float* __restrict__ pi, const float* __restri
                              float* smem, __nv_bfloat16* __restrict__ alpha16 = nullptr) {
   using TT = Tier<KP>;
   constexpr int NW = TT::NWARP;
+  const int fs = slot_stride<WF>(F);     // floats of a sequence's feature row
   float* M_s = smem;                       // A~ rows RR..KP-1
   float* a_s = M_s + TT::SR * KP;          // a_t in slot t & 1, [S][KP] each
-  float* f_s = a_s + 2 * S * KP;           // f_t in slot t & 1, [S][FMAX] each
-  float* red_max = f_s + 2 * S * FMAX;     // [t & 1][S][warp]
+  float* f_s = a_s + 2 * S * KP;           // f_t in slot t & 1, [S][fs] each
+  float* red_max = f_s + 2 * S * fs;       // [t & 1][S][warp]
   float* red_sum = red_max + 2 * S * NW;
   float* red_sr = red_sum + 2 * S * NW;    // (bf16) partial sums of the stored a_t
   const int k = threadIdx.x, lane = k & 31, warp = k >> 5;
@@ -259,7 +348,7 @@ __device__ void seqs_forward(const float* __restrict__ pi, const float* __restri
 
   MatCol<KP> col;
   col.load(A, M_s, K, false, k);
-  WCol wc;
+  typename std::conditional<WF, WGlobal, WCol>::type wc;
   if (FEATS) wc.load(W, K, F, k);
   const float pik = active ? pi[k] : 0.f;
   const int D = fbc::obs_dim(KIND, F);         // built kinds: the observations' width
@@ -268,9 +357,9 @@ __device__ void seqs_forward(const float* __restrict__ pi, const float* __restri
   const float* fb = src + (size_t)b0 * in_w;
   const size_t a_base = (size_t)b0 * K + k;
   for (int i = k; i < 2 * S * KP; i += KP) a_s[i] = 0.f;
-  for (int i = k; i < 2 * S * FMAX; i += KP) f_s[i] = 0.f;
+  for (int i = k; i < 2 * S * fs; i += KP) f_s[i] = 0.f;
   __syncthreads();
-  if (FEATS) feat_rows<S, KIND>(f_s, fb, ns, F, k, KP, D);
+  if (FEATS) feat_rows<S, KIND, WF>(f_s, fb, ns, F, k, KP, D, fs);
   float l_next[S];  // not FEATS: ll_t, read a step ahead
 #pragma unroll
   for (int s = 0; s < S; ++s)
@@ -284,7 +373,7 @@ __device__ void seqs_forward(const float* __restrict__ pi, const float* __restri
     const int p = t & 1;
     float ll[S];
     if (FEATS) {
-      wc.lls<S>(ll, f_s + p * S * FMAX, FMAX, nf4);
+      wc.template lls<S>(ll, f_s + p * S * fs, fs, nf4);
     } else {
 #pragma unroll
       for (int s = 0; s < S; ++s) {
@@ -308,8 +397,8 @@ __device__ void seqs_forward(const float* __restrict__ pi, const float* __restri
       for (int s = 0; s < S; ++s) red_max[(p * S + s) * NW + warp] = wm[s];
     }
     if (FEATS && t + 1 < T)
-      feat_rows<S, KIND>(f_s + (p ^ 1) * S * FMAX, fb + (size_t)(t + 1) * step_f, ns, F, k, KP,
-                         D);
+      feat_rows<S, KIND, WF>(f_s + (p ^ 1) * S * fs, fb + (size_t)(t + 1) * step_f, ns, F, k,
+                             KP, D, fs);
     __syncthreads();  // a_{t-1} and f_t are read; the maxima are complete
 
     float m[S], ws[S];
@@ -378,9 +467,9 @@ __device__ void seqs_forward(const float* __restrict__ pi, const float* __restri
 // observations) and, MODES, as fbseq::seq_stats_backward: alpha16 (alpha
 // stored as bf16, widened where read) and the time pick sel (B,), gamma0
 // then each sequence's ungated gamma at t = sel[b] (zeros for a pick
-// outside 0 .. T-1) in place of w_0 gamma_0.
+// outside 0 .. T-1) in place of w_0 gamma_0. WF as seqs_forward's.
 template <int KP, int S, bool FEATS, bool GATED, int KIND = fbc::FEATS_ARRAY,
-          bool MODES = false>
+          bool MODES = false, bool WF = false>
 __device__ void seqs_backward(const float* __restrict__ A, const float* __restrict__ W,
                               const float* __restrict__ src, const float* __restrict__ alpha,
                               const float* __restrict__ s_in, const float* __restrict__ sh_in,
@@ -392,10 +481,11 @@ __device__ void seqs_backward(const float* __restrict__ A, const float* __restri
                               const int* __restrict__ sel = nullptr) {
   using TT = Tier<KP>;
   constexpr int NW = TT::NWARP;
+  const int fs = slot_stride<WF>(F);   // floats of a sequence's feature row
   float* M_s = smem;                     // A~^T rows RR..KP-1
   float* d_s = M_s + TT::SR * KP;        // d_t in slot t & 1, [S][KP] each
-  float* f_s = d_s + 2 * S * KP;         // f_t in slot t & 1, [S][FMAX] each
-  float* red = f_s + 2 * S * FMAX;       // partial sums of g_t, [t & 1][S][warp]
+  float* f_s = d_s + 2 * S * KP;         // f_t in slot t & 1, [S][fs] each
+  float* red = f_s + 2 * S * fs;         // partial sums of g_t, [t & 1][S][warp]
   const int k = threadIdx.x, lane = k & 31, warp = k >> 5;
   const bool active = k < K;
   const int b0 = blk * S, ns = S == 1 ? 1 : min(S, B - b0);  // sequences held
@@ -403,7 +493,7 @@ __device__ void seqs_backward(const float* __restrict__ A, const float* __restri
 
   MatCol<KP> col;
   col.load(A, M_s, K, true, k);
-  WCol wc;
+  typename std::conditional<WF, WGlobal, WCol>::type wc;
   if (FEATS) wc.load(W, K, F, k);
   const int D = fbc::obs_dim(KIND, F);  // built kinds: the observations' width
   const int in_w = FEATS ? D : K;       // floats of a (t, b) row of src
@@ -417,11 +507,11 @@ __device__ void seqs_backward(const float* __restrict__ A, const float* __restri
     if constexpr (MODES) return ab16 != nullptr ? __bfloat162float(ab16[o]) : ab[o];
     return ab[o];
   };
-  for (int i = k; i < 2 * S * FMAX; i += KP) f_s[i] = 0.f;
+  for (int i = k; i < 2 * S * fs; i += KP) f_s[i] = 0.f;
   __syncthreads();
   if (FEATS)
-    feat_rows<S, KIND>(f_s + ((t1 - 1) & 1) * S * FMAX, fb + (size_t)(t1 - 1) * step_f, ns, F,
-                       k, KP, D);
+    feat_rows<S, KIND, WF>(f_s + ((t1 - 1) & 1) * S * fs, fb + (size_t)(t1 - 1) * step_f, ns,
+                           F, k, KP, D, fs);
   __syncthreads();
 
   // per sequence: a_t, b'_t (an idle state's is 0 in the one recursion: its
@@ -464,7 +554,7 @@ __device__ void seqs_backward(const float* __restrict__ A, const float* __restri
     const int p = t & 1;
     float ll[S], shs[S], sps[S], gps[S];
     if constexpr (FEATS) {
-      wc.lls<S>(ll, f_s + p * S * FMAX, FMAX, nf4);
+      wc.template lls<S>(ll, f_s + p * S * fs, fs, nf4);
     } else {
 #pragma unroll
       for (int s = 0; s < S; ++s) {
@@ -497,8 +587,8 @@ __device__ void seqs_backward(const float* __restrict__ A, const float* __restri
       for (int s = 0; s < S; ++s) red[(p * S + s) * NW + warp] = gs[s];
     }
     if (FEATS && !Z)
-      feat_rows<S, KIND>(f_s + (p ^ 1) * S * FMAX, fb + (size_t)(t - 1) * step_f, ns, F, k, KP,
-                         D);
+      feat_rows<S, KIND, WF>(f_s + (p ^ 1) * S * fs, fb + (size_t)(t - 1) * step_f, ns, F, k,
+                             KP, D, fs);
     __syncthreads();  // d_t, the partial sums and f_{t-1} are complete
 
 #pragma unroll

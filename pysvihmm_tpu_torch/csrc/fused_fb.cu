@@ -114,6 +114,22 @@
 // compiles the default instances, fused_fb_modes.cu the modes', each by its
 // own nvcc at once.
 //
+// Features wider than FMAX = 64 (a Gaussian-NIW at D >= 10, a multinomial
+// of 65-256 symbols; JAX's fused kernels take any F) run the WF instances,
+// F a run-time loop bound (fused_fb_kernels.cuh; built by fused_fb_wide.cu
+// and fused_fb_wide_modes.cu). Up to K = 64 (fb_seqs_wf.cuh) W^T lies in
+// shared memory (the groups of features beyond what fits there, from L2)
+// and the rows arrive by cp.async two steps ahead; eacc leaves
+// the chain as the large-K statistics' does (w_t gamma_t a window of time
+// steps a launch, the 3xTF32 outer sums), while acc stays in registers,
+// carried between the windows through the blocks' rows of partials. Above
+// K = 64 (fb_wide.cuh's WF flag) A~ fills shared memory and W is read from
+// device memory (L2) at each step. Either way ll_t is summed in blocks of
+// 64 features (one fmaf chain a block, the blocks added in order), the
+// forward's and the backward's alike. Which S fit depends on
+// F there (the feature slots grow with it): the occupancy query reports no
+// resident block for an S whose shared memory the card cannot give.
+//
 // Above K = 64 the launchers take the large-K instances instead
 // (fused_fwd_wide_kernel<KP, S>, fused_bwd_wide_kernel<KP, S, GATED>, KP =
 // 128 or 256, S = 1, 2, 4 or 8; fb_wide.cuh holds their layout): S
@@ -143,7 +159,7 @@ using fbc::KMAX;
 using fbc::NT;
 
 bool bad_shape(int T, int B, int K, int F) {
-  return T < 1 || B < 1 || K < 1 || K > fbw::KWIDE || F < 1 || F > FMAX;
+  return T < 1 || B < 1 || K < 1 || K > fbw::KWIDE || F < 1;
 }
 
 // A feature kind the kernels take, whose width F is (a built kind's F must
@@ -153,8 +169,11 @@ bool bad_kind(int kind, int F) {
 }
 
 // modes: the forward stores bf16 alpha, or the backward takes bf16 alpha or
-// the pick.
+// the pick. F > FMAX: the WF instances.
 const void* instance(int which, int S, int K, int F, int kind, bool modes, int* smem) {
+  if (F > FMAX)
+    return modes ? fbf::wf_modes_instance(which, S, K, F, kind, smem)
+                 : fbf::wf_default_instance(which, S, K, F, kind, smem);
   return modes ? fbf::modes_instance(which, S, K, F, kind, smem)
                : fbf::instance_m<false>(which, S, K, F, kind, smem);
 }
@@ -168,16 +187,21 @@ cudaError_t launch(int which, int S, int T, int B, int K, int F, int kind, bool 
   if (fn == nullptr) return cudaErrorInvalidValue;
   const dim3 grid((B + S - 1) / S);
   if (K > KMAX) return fbw::launch_dyn(fn, grid, fbw::tier_of(K), smem, st, args);
+  if (F > FMAX) return fbw::launch_dyn(fn, grid, NT, smem, st, args);
   const cudaError_t e = cudaLaunchKernel(fn, grid, dim3(NT), args, smem, st);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 // Floats of scratch the backward takes: K <= KMAX, a row of partials a
-// block; above, a window's dn and gw, the carry, the outer sums' partials
-// and (bf16 alpha, a built kind) the window's widened alpha and built
-// feature rows (fbs::WideStats).
+// block (at F > FMAX a row of acc partials a block beside a window's gw, the
+// carry, eacc's outer-sum partials and a built kind's feature rows); above,
+// a window's dn and gw, the carry, the outer sums' partials and (bf16
+// alpha, a built kind) the window's widened alpha and built feature rows
+// (fbs::WideStats).
 long long scratch_floats(int T, int B, int K, int F, int S, int kind, bool abf) {
-  if (K <= KMAX) return (long long)((B + S - 1) / S) * (K * K + K * F);
+  const int blocks = (B + S - 1) / S;
+  if (K <= KMAX && F <= FMAX) return (long long)blocks * (K * K + K * F);
+  if (K <= KMAX) return fbs::WideStats::floats(T, B, K, F, kind, abf, blocks);
   return fbs::WideStats::floats(T, B, K, F, kind, abf);
 }
 
@@ -185,9 +209,9 @@ long long scratch_floats(int T, int B, int K, int F, int S, int kind, bool abf) 
 
 extern "C" {
 
-// The largest K the launchers take (the large-K instances'), and F.
+// The largest K the launchers take (the large-K instances'). They take any
+// F whose instance's shared memory the card can give.
 int fused_fb_kmax() { return fbw::KWIDE; }
-int fused_fb_fmax() { return FMAX; }
 
 const char* fused_fb_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -208,8 +232,9 @@ int fused_fb_scratch(int T, int B, int K, int F, int S, int kind, int abf, long 
 // K = 64, 1, 2, 4 or 8 above; any other is refused. kind names what src
 // holds: the (T, B, F) float32 feature array (fbc::FEATS_ARRAY), or the raw
 // (T, B, D) float32 observations whose features the kernels build, F =
-// feat_width(kind, D) wide (FEATS_NIW, FEATS_NIG); an F no D gives, or one
-// above FMAX, is refused. alpha is stored float32 into alpha or, where
+// feat_width(kind, D) wide (FEATS_NIW, FEATS_NIG); an F no D gives is
+// refused, and so is an S whose shared memory at this F the card cannot
+// give (the launch's error). alpha is stored float32 into alpha or, where
 // alpha16 is not null (alpha then null), as bf16 into alpha16.
 int fused_fb_forward(const float* pi, const float* A, const float* W, const float* src,
                      float* alpha, void* alpha16, float* s, float* sh, int T, int B, int K,
@@ -246,12 +271,24 @@ int fused_fb_backward(const float* A, const float* W, const float* src, const fl
   const __nv_bfloat16* a16 = static_cast<const __nv_bfloat16*>(alpha16);
   const int which = w != nullptr ? 2 : 1;
   const bool modes = a16 != nullptr || sel != nullptr;
-  if (K <= KMAX) {
+  if (K <= KMAX && F <= FMAX) {
     void* args[] = {&A, &W, &src, &alpha, &a16, &s, &sh, &w, &sel, &gamma, &gamma0, &scratch,
                     &T, &B, &K, &F};
     e = launch(which, S, T, B, K, F, kind, modes, st, args);
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(fbs::sum_partials(scratch, (B + S - 1) / S, K * K + K * F, stats, st));
+  }
+  if (K <= KMAX) {  // F > FMAX: acc in the chain, eacc a window at a time
+    const int blocks = (B + S - 1) / S;
+    const fbs::WideStats ws(scratch, T, B, K, F, kind, a16 != nullptr, blocks);
+    float *part = ws.part_a, *gw = ws.gw, *carry = ws.carry;
+    e = ws.run(alpha, a16, src, stats, st, [&](int t0, int t1) {
+      void* args[] = {&A, &W, &src, &alpha, &a16, &s, &sh, &w, &sel, &gamma, &gamma0, &part, &gw,
+                      &carry, &T, &B, &K, &F, &t0, &t1};
+      return launch(which, S, T, B, K, F, kind, modes, st, args);
+    });
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(fbs::sum_partials(part, blocks, K * K, stats, st));
   }
   const fbs::WideStats ws(scratch, T, B, K, F, kind, a16 != nullptr);
   float *dn = ws.dn, *gw = ws.gw, *carry = ws.carry;
@@ -327,7 +364,8 @@ int fused_fb_prep_launches(int which, int clear) {
 // out[5] the device's SMs, out[6] threads a block. which = 0 forward, 1
 // backward, 2 gated backward; K > 64 names the large-K instance of its KP;
 // modes the modes' instance (the launchers' with bf16 alpha or the pick),
-// else the default one.
+// else the default one; F > FMAX the WF instance, whose shared memory grows
+// with F: out[4] is 0 where the card cannot give it.
 int fused_fb_kernel_info(int which, int S, int K, int F, int kind, int modes, int device,
                          int* out) {
   if (bad_shape(1, 1, K, F) || bad_kind(kind, F) || which < 0 || which > 2)
@@ -337,12 +375,17 @@ int fused_fb_kernel_info(int which, int S, int K, int F, int kind, int modes, in
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int nt = K > KMAX ? fbw::tier_of(K) : NT;
   cudaError_t e = cudaSetDevice(device);
-  if (e == cudaSuccess && smem > 0)
-    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   cudaFuncAttributes attr;
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
+  int optin = 0;
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  const bool fits = e == cudaSuccess && smem + static_cast<int>(attr.sharedSizeBytes) <= optin;
+  if (fits && smem > 0)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int blocks = 0, sms = 0;
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, nt, smem);
+  if (e == cudaSuccess && fits)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, nt, smem);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return static_cast<int>(e);
   out[0] = attr.numRegs;

@@ -60,6 +60,17 @@
 // rule of fused_fb.py from split_fb_kernel_info's occupancy) and refuse an S
 // not built.
 //
+// bf16-stored alpha (pallas_fb.py:1213, `_alpha_store_dtype()` on the split
+// forward's alpha): ABF, a template switch on every instance of both
+// kernels, as the fused pair's. The forward stores alpha rounded to bf16
+// while its chain carries float32, and s sums the rounded values
+// (fbseq::seq_forward, fbw::seqs_forward); the backward reads those words
+// back, its replay factors 1 / s from the same numbers. Up to K = 64 its
+// ring of rows takes, for each alpha element, the aligned 32-bit word that
+// holds it (cp.async moves 4 bytes at least) and widens its half where it is
+// read; above, acc's outer sums get each window's alpha widened to float32
+// (fbs::widen, as the fused backward's).
+//
 // What bounds it on this card: per (t, b) the forward moves 8K bytes (ll in,
 // alpha out) for about 2K^2 flops, and the backward 12K bytes (ll and alpha
 // in, gamma out) for about 4K^2 flops. At K=64, B=1024, T=1000 that is a
@@ -84,100 +95,112 @@ using fbc::NT;
 // read no feature, so it sizes nothing that is used.
 constexpr int LL_FP = 4;
 
-template <int S>
+template <int S, bool ABF>
 __global__ void __launch_bounds__(NT)
 split_fwd_kernel(const float* __restrict__ pi, const float* __restrict__ A,
                  const float* __restrict__ ll, float* __restrict__ alpha,
-                 float* __restrict__ s_out, float* __restrict__ sh_out, int T, int B, int K) {
-  fbseq::seq_forward<S, LL_FP, false>(pi, A, nullptr, ll, alpha, s_out, sh_out, T, B, K, 0,
-                                      blockIdx.x);
+                 __nv_bfloat16* __restrict__ alpha16, float* __restrict__ s_out,
+                 float* __restrict__ sh_out, int T, int B, int K) {
+  fbseq::seq_forward<S, LL_FP, false, fbc::FEATS_ARRAY, ABF>(
+      pi, A, nullptr, ll, alpha, s_out, sh_out, T, B, K, 0, blockIdx.x, alpha16);
 }
 
 // GATED is a template parameter, as in fused_fb.cu: the ungated instance
 // carries no trace of the gate. w is the kept-mask (T, B); the kernel forms
 // the pair gate.
-template <int S, bool GATED>
+// ABF: alpha16 (bf16 alpha) in place of alpha, read through the ring.
+template <int S, bool GATED, bool ABF>
 __global__ void __launch_bounds__(NT)
 split_bwd_kernel(const float* __restrict__ A, const float* __restrict__ ll,
-                 const float* __restrict__ alpha, const float* __restrict__ s_in,
-                 const float* __restrict__ sh_in, const float* __restrict__ w_in,
-                 float* __restrict__ gamma, float* __restrict__ part, int T, int B, int K) {
+                 const float* __restrict__ alpha, const __nv_bfloat16* __restrict__ alpha16,
+                 const float* __restrict__ s_in, const float* __restrict__ sh_in,
+                 const float* __restrict__ w_in, float* __restrict__ gamma,
+                 float* __restrict__ part, int T, int B, int K) {
   extern __shared__ __align__(16) float smem[];
-  fbseq::seq_stats_backward<S, LL_FP, false, GATED>(A, nullptr, ll, alpha, s_in, sh_in, w_in,
-                                                    gamma, nullptr, part, T, B, K, 0,
-                                                    blockIdx.x, smem);
+  fbseq::seq_stats_backward<S, LL_FP, false, GATED, fbc::FEATS_ARRAY, ABF>(
+      A, nullptr, ll, alpha, s_in, sh_in, w_in, gamma, nullptr, part, T, B, K, 0, blockIdx.x,
+      smem, alpha16);
 }
 
-template <int KP, int S>
+template <int KP, int S, bool ABF>
 __global__ void __launch_bounds__(KP)
 split_fwd_wide_kernel(const float* __restrict__ pi, const float* __restrict__ A,
                       const float* __restrict__ ll, float* __restrict__ alpha,
-                      float* __restrict__ s_out, float* __restrict__ sh_out, int T, int B,
-                      int K) {
+                      __nv_bfloat16* __restrict__ alpha16, float* __restrict__ s_out,
+                      float* __restrict__ sh_out, int T, int B, int K) {
   extern __shared__ __align__(16) float smem[];
-  fbw::seqs_forward<KP, S, false>(pi, A, nullptr, ll, alpha, s_out, sh_out, T, B, K, 0,
-                                  blockIdx.x, smem);
+  fbw::seqs_forward<KP, S, false, fbc::FEATS_ARRAY, ABF>(pi, A, nullptr, ll, alpha, s_out,
+                                                         sh_out, T, B, K, 0, blockIdx.x, smem,
+                                                         alpha16);
 }
 
-template <int KP, int S, bool GATED>
+template <int KP, int S, bool GATED, bool ABF>
 __global__ void __launch_bounds__(KP)
 split_bwd_wide_kernel(const float* __restrict__ A, const float* __restrict__ ll,
-                      const float* __restrict__ alpha, const float* __restrict__ s_in,
-                      const float* __restrict__ sh_in, const float* __restrict__ w_in,
-                      float* __restrict__ gamma, float* __restrict__ dn,
-                      float* __restrict__ carry, int T, int B, int K, int t0, int t1) {
+                      const float* __restrict__ alpha, const __nv_bfloat16* __restrict__ alpha16,
+                      const float* __restrict__ s_in, const float* __restrict__ sh_in,
+                      const float* __restrict__ w_in, float* __restrict__ gamma,
+                      float* __restrict__ dn, float* __restrict__ carry, int T, int B, int K,
+                      int t0, int t1) {
   extern __shared__ __align__(16) float smem[];
-  fbw::seqs_backward<KP, S, false, GATED>(A, nullptr, ll, alpha, s_in, sh_in, w_in, gamma,
-                                          nullptr, dn, nullptr, carry, T, B, K, 0, t0, t1,
-                                          blockIdx.x, smem);
+  fbw::seqs_backward<KP, S, false, GATED, fbc::FEATS_ARRAY, ABF>(
+      A, nullptr, ll, alpha, s_in, sh_in, w_in, gamma, nullptr, dn, nullptr, carry, T, B, K, 0,
+      t0, t1, blockIdx.x, smem, alpha16, nullptr);
 }
 
-// The instance of (which, S, K): which = 0 forward, 1 backward, 2 gated
+// The instance of (which, S, K, ABF): which = 0 forward, 1 backward, 2 gated
 // backward; its dynamic shared memory in *smem. Up to KMAX states S = 2 or 4
 // (forward) and 2 (backward); above, S = 1, 2, 4 or 8 at KP = tier_of(K).
 // Null for an S not built.
+template <bool ABF>
 const void* narrow_of(int which, int S, int* smem) {
   *smem = which == 0 ? 0 : fbseq::stats_smem_bytes(S, LL_FP, false);
   if (which == 0) {
-    if (S == 2) return reinterpret_cast<const void*>(split_fwd_kernel<2>);
-    if (S == 4) return reinterpret_cast<const void*>(split_fwd_kernel<4>);
+    if (S == 2) return reinterpret_cast<const void*>(split_fwd_kernel<2, ABF>);
+    if (S == 4) return reinterpret_cast<const void*>(split_fwd_kernel<4, ABF>);
     return nullptr;
   }
   if (S != 2) return nullptr;
-  return which == 1 ? reinterpret_cast<const void*>(split_bwd_kernel<2, false>)
-                    : reinterpret_cast<const void*>(split_bwd_kernel<2, true>);
+  return which == 1 ? reinterpret_cast<const void*>(split_bwd_kernel<2, false, ABF>)
+                    : reinterpret_cast<const void*>(split_bwd_kernel<2, true, ABF>);
 }
 
-template <int KP, int S>
+template <int KP, int S, bool ABF>
 const void* wide_at(int which, int* smem) {
   *smem = fbw::chain_smem_bytes<KP, S>();
-  if (which == 0) return reinterpret_cast<const void*>(split_fwd_wide_kernel<KP, S>);
-  return which == 1 ? reinterpret_cast<const void*>(split_bwd_wide_kernel<KP, S, false>)
-                    : reinterpret_cast<const void*>(split_bwd_wide_kernel<KP, S, true>);
+  if (which == 0) return reinterpret_cast<const void*>(split_fwd_wide_kernel<KP, S, ABF>);
+  return which == 1 ? reinterpret_cast<const void*>(split_bwd_wide_kernel<KP, S, false, ABF>)
+                    : reinterpret_cast<const void*>(split_bwd_wide_kernel<KP, S, true, ABF>);
 }
 
-template <int KP>
+template <int KP, bool ABF>
 const void* wide_of(int which, int S, int* smem) {
   switch (S) {
-    case 1: return wide_at<KP, 1>(which, smem);
-    case 2: return wide_at<KP, 2>(which, smem);
-    case 4: return wide_at<KP, 4>(which, smem);
-    case 8: return wide_at<KP, 8>(which, smem);
+    case 1: return wide_at<KP, 1, ABF>(which, smem);
+    case 2: return wide_at<KP, 2, ABF>(which, smem);
+    case 4: return wide_at<KP, 4, ABF>(which, smem);
+    case 8: return wide_at<KP, 8, ABF>(which, smem);
     default: *smem = 0; return nullptr;
   }
 }
 
-const void* instance(int which, int S, int K, int* smem) {
-  if (K <= KMAX) return narrow_of(which, S, smem);
-  return fbw::tier_of(K) == 128 ? wide_of<128>(which, S, smem) : wide_of<256>(which, S, smem);
+template <bool ABF>
+const void* instance_abf(int which, int S, int K, int* smem) {
+  if (K <= KMAX) return narrow_of<ABF>(which, S, smem);
+  return fbw::tier_of(K) == 128 ? wide_of<128, ABF>(which, S, smem)
+                                : wide_of<256, ABF>(which, S, smem);
 }
 
-// The kernel of (which, S, K) on ceil(B / S) blocks of KMAX threads up to
-// KMAX states (under 48 KB of shared memory), of KP threads above; an S not
-// built is refused.
-cudaError_t launch(int which, int S, int B, int K, cudaStream_t st, void** args) {
+const void* instance(int which, int S, int K, bool abf, int* smem) {
+  return abf ? instance_abf<true>(which, S, K, smem) : instance_abf<false>(which, S, K, smem);
+}
+
+// The kernel of (which, S, K, abf) on ceil(B / S) blocks of KMAX threads up
+// to KMAX states (under 48 KB of shared memory), of KP threads above; an S
+// not built is refused.
+cudaError_t launch(int which, int S, int B, int K, bool abf, cudaStream_t st, void** args) {
   int smem = 0;
-  const void* fn = instance(which, S, K, &smem);
+  const void* fn = instance(which, S, K, abf, &smem);
   if (fn == nullptr) return cudaErrorInvalidValue;
   const dim3 grid((B + S - 1) / S);
   if (K > KMAX) return fbw::launch_dyn(fn, grid, fbw::tier_of(K), smem, st, args);
@@ -190,11 +213,11 @@ bool bad_shape(int T, int B, int K) {
 }
 
 // Floats of scratch the backward takes: K <= KMAX, a row of partials a
-// sequence (whatever S); above, a window's dn, the carry and the outer sum's
-// partials (fbs::WideStats).
-long long scratch_floats(int T, int B, int K) {
+// sequence (whatever S); above, a window's dn, the carry, the outer sum's
+// partials and (abf) the window's widened alpha (fbs::WideStats).
+long long scratch_floats(int T, int B, int K, bool abf) {
   if (K <= KMAX) return (long long)B * K * K;
-  return fbs::WideStats::floats(T, B, K, 0);
+  return fbs::WideStats::floats(T, B, K, 0, fbc::FEATS_ARRAY, abf);
 }
 
 }  // namespace
@@ -204,10 +227,11 @@ extern "C" {
 // The largest K the launchers take (the large-K instances').
 int split_fb_kmax() { return fbw::KWIDE; }
 
-// *out = the floats of scratch split_fb_backward takes at these shapes.
-int split_fb_scratch(int T, int B, int K, long long* out) {
+// *out = the floats of scratch split_fb_backward takes at these shapes, for
+// alpha's storage (abf: bf16).
+int split_fb_scratch(int T, int B, int K, int abf, long long* out) {
   if (bad_shape(T, B, K)) return static_cast<int>(cudaErrorInvalidValue);
-  *out = scratch_floats(T, B, K);
+  *out = scratch_floats(T, B, K, abf != 0);
   return 0;
 }
 
@@ -219,15 +243,19 @@ const char* split_fb_error_string(int code) {
 // Pointers are device pointers of contiguous float32 tensors; the kernels
 // run on `stream` and do not synchronise. S is the sequences a block: 2 or 4
 // (forward) and 2 (backward) up to K = 64, 1, 2, 4 or 8 above; any other is
-// refused.
+// refused. alpha is stored float32 into alpha or, where alpha16 is not null
+// (alpha then null), as bf16 into alpha16.
 int split_fb_forward(const float* pi, const float* A, const float* ll, float* alpha,
-                     float* s, float* sh, int T, int B, int K, int S, int device,
+                     void* alpha16, float* s, float* sh, int T, int B, int K, int S, int device,
                      void* stream) {
-  if (bad_shape(T, B, K)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(T, B, K) || (alpha == nullptr) == (alpha16 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  void* args[] = {&pi, &A, &ll, &alpha, &s, &sh, &T, &B, &K};
-  return static_cast<int>(launch(0, S, B, K, static_cast<cudaStream_t>(stream), args));
+  __nv_bfloat16* a16 = static_cast<__nv_bfloat16*>(alpha16);
+  void* args[] = {&pi, &A, &ll, &alpha, &a16, &s, &sh, &T, &B, &K};
+  return static_cast<int>(
+      launch(0, S, B, K, a16 != nullptr, static_cast<cudaStream_t>(stream), args));
 }
 
 // Launches of the outer sums' kernel (fbs::outer_sum) by this library's
@@ -240,30 +268,42 @@ int split_fb_outer_launches(int clear) {
 // forms the pair gate from it. acc (K, K) is summed in a fixed order
 // (fb_stats.cuh) that does not depend on S; scratch holds split_fb_scratch
 // floats. Above K = 64 the backward runs a window of time steps a launch
-// (fbs::WideStats), several launches for a long T.
-int split_fb_backward(const float* A, const float* ll, const float* alpha,
+// (fbs::WideStats), several launches for a long T. alpha and alpha16 as
+// split_fb_forward's (alpha as stored there).
+int split_fb_backward(const float* A, const float* ll, const float* alpha, const void* alpha16,
                       const float* s, const float* sh, const float* w, float* gamma,
                       float* acc, float* scratch, int T, int B, int K, int S, int device,
                       void* stream) {
-  if (bad_shape(T, B, K)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(T, B, K) || (alpha == nullptr) == (alpha16 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int which = w != nullptr ? 2 : 1;
+  const __nv_bfloat16* a16 = static_cast<const __nv_bfloat16*>(alpha16);
+  const bool abf = a16 != nullptr;
   if (K <= KMAX) {
-    void* args[] = {&A, &ll, &alpha, &s, &sh, &w, &gamma, &scratch, &T, &B, &K};
-    e = launch(which, S, B, K, st, args);
+    void* args[] = {&A, &ll, &alpha, &a16, &s, &sh, &w, &gamma, &scratch, &T, &B, &K};
+    e = launch(which, S, B, K, abf, st, args);
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(fbs::sum_partials(scratch, B, K * K, acc, st));
   }
   int smem = 0;
-  if (instance(which, S, K, &smem) == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const fbs::WideStats ws(scratch, T, B, K, 0);
+  if (instance(which, S, K, abf, &smem) == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const fbs::WideStats ws(scratch, T, B, K, 0, fbc::FEATS_ARRAY, abf);
   float *dn = ws.dn, *carry = ws.carry;
-  return static_cast<int>(ws.run(alpha, nullptr, nullptr, acc, st, [&](int t0, int t1) {
-    void* args[] = {&A, &ll, &alpha, &s, &sh, &w, &gamma, &dn, &carry, &T, &B, &K, &t0, &t1};
-    return launch(which, S, B, K, st, args);
+  return static_cast<int>(ws.run(alpha, a16, nullptr, acc, st, [&](int t0, int t1) {
+    void* args[] = {&A, &ll, &alpha, &a16, &s, &sh, &w, &gamma, &dn, &carry, &T, &B, &K, &t0,
+                    &t1};
+    return launch(which, S, B, K, abf, st, args);
   }));
+}
+
+// Launches of fbs::widen_kernel by this library's large-K backward (bf16
+// alpha) since the count was last cleared; clears it when `clear`.
+int split_fb_prep_launches(int which, int clear) {
+  return fbs::prep_launches(which, clear != 0);
 }
 
 // What the instance (which, S, K) of the launchers above takes on `device`:
@@ -271,12 +311,12 @@ int split_fb_backward(const float* A, const float* ll, const float* alpha,
 // block, out[3] local (spilled) bytes a thread, out[4] resident blocks an SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[5] the device's SMs,
 // out[6] threads a block. which = 0 forward, 1 backward, 2 gated backward;
-// K > 64 names the large-K instance of its KP.
-int split_fb_kernel_info(int which, int S, int K, int device, int* out) {
+// K > 64 names the large-K instance of its KP; abf the bf16-alpha one.
+int split_fb_kernel_info(int which, int S, int K, int abf, int device, int* out) {
   if (bad_shape(1, 1, K) || which < 0 || which > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   int smem = 0;
-  const void* fn = instance(which, S, K, &smem);
+  const void* fn = instance(which, S, K, abf != 0, &smem);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int nt = K > KMAX ? fbw::tier_of(K) : NT;
   cudaError_t e = cudaSetDevice(device);

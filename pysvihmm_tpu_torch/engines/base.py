@@ -23,6 +23,7 @@ from ..messages.scan_fb import FBResult
 from ..messages.split_fb import estep_split
 from ..messages.stream_fused import forward_backward_fused_twophase
 from ..models.hmm import (
+    ONE_HOT_MAX_V,
     HMMParams,
     check_family,
     emission_flat_stats,
@@ -51,12 +52,26 @@ def feature_width(emission, emit_params, obs: torch.Tensor) -> int:
 
 
 def wider_than_fused_kernels(emission, emit_params, obs: torch.Tensor) -> bool:
-    """The features are wider than the fused and duplex kernels take
-    (F > ``FMAX``): a Gaussian-NIW at D >= 10 (F = 66 at D = 10), a
-    multinomial above 64 symbols. Their "fused" and "duplex" routes run the
-    split kernels instead, decided by width before any launch, on every
-    device; JAX's fused kernels take any F."""
-    return feature_width(emission, emit_params, obs) > FMAX
+    """JAX's rule (``_pallas_fused_estep``, engines/base.py:547 of the JAX
+    package): only a multinomial above ``ONE_HOT_MAX_V`` = 256 symbols
+    leaves the fused kernels, whose one-hot features would then outweigh the
+    gathered likelihoods; its "fused" (and "auto") route runs the split
+    kernels. Every other family runs the fused pair at any F (above
+    ``FMAX`` on its WF instances, up to a ceiling set by their feature
+    slots in shared memory: about F = 4,200 at K = 256, 6,100 up to K =
+    64, where the launchers raise). Decided before any launch, on every
+    device."""
+    return emission is MultinomialDirichlet and emit_params.shape[-1] > ONE_HOT_MAX_V
+
+
+def wider_than_duplex_kernels(emission, emit_params, obs: torch.Tensor) -> bool:
+    """The features are wider than the duplex kernels take (F > ``FMAX`` =
+    64: a Gaussian-NIW at D >= 10, a diagonal Gaussian at D >= 32, a Poisson
+    at D >= 65, a multinomial above 64 symbols), or leave the fused kernels
+    (:func:`wider_than_fused_kernels`): "duplex" then runs the split kernels.
+    JAX's duplex kernels take any F; these take F <= 64."""
+    return (wider_than_fused_kernels(emission, emit_params, obs)
+            or feature_width(emission, emit_params, obs) > FMAX)
 
 
 # the families whose features the fused and duplex kernels build from the
@@ -76,42 +91,62 @@ def in_kernel_kind(emission) -> str:
     return _BUILT_KINDS[emission]
 
 
+# the routes whose kernels store bf16 alpha: the fused pair and the split pair
+# (JAX's `_alpha_store_dtype()` on both; the duplex stores float32, as JAX's)
+BF16_ROUTES = ("fused", "split")
+
+
 def check_kernel_modes(method: str, in_kernel_feats: bool = False, gamma_sel: bool = False,
                        bf16_alpha: bool = False) -> None:
     """Raise ``ValueError`` for a kernel mode the resolved route does not
     run: the in-kernel features on "fused" and "duplex" only, the in-kernel
-    gamma pick and bf16 alpha on "fused" only (the duplex stores alpha in
-    float32 and has no pick, as JAX's does)."""
+    gamma pick on "fused" only (the duplex has no pick, as JAX's has not),
+    bf16 alpha on "fused" and "split" (the duplex stores alpha in float32,
+    as JAX's does)."""
     if in_kernel_feats and method not in FEATURE_ROUTES:
         raise ValueError(f"in_kernel_feats runs on {FEATURE_ROUTES}, not on {method!r}")
-    for name, on in (("gamma_sel", gamma_sel), ("bf16_alpha", bf16_alpha)):
-        if on and method != "fused":
-            raise ValueError(f"{name} requires the fused kernels, not {method!r}")
+    if gamma_sel and method != "fused":
+        raise ValueError(f"gamma_sel requires the fused kernels, not {method!r}")
+    if bf16_alpha and method not in BF16_ROUTES:
+        raise ValueError(f"bf16_alpha requires the fused or the split kernels, not {method!r}")
 
 
-def prepare_fused_obs(params: HMMParams, emission, obs: torch.Tensor,
-                      in_kernel_feats: bool = False) -> torch.Tensor | None:
-    """The fused and duplex E-steps' observation side, built once.
-
-    Returns the time-major feature array (T, B, F) as contiguous float32:
-    the family's ``ell_features``, or for the multinomial the one-hot
-    (T, B, V) of its int observations (B, T). None when the features are
-    wider than the kernels take (:func:`wider_than_fused_kernels`): those
-    routes run the split kernels then. With ``in_kernel_feats`` the raw
-    observations (T, B, D) instead, whose features the kernels build; a
-    family without a built kind (:func:`in_kernel_kind`), or features wider
-    than ``FMAX``, raise ``ValueError``. It depends on the data only, so
-    engines whose data is fixed across iterations (batch VB) build it once
-    and pass it as ``prepared=``."""
-    check_family(emission)
+def check_duplex_width(emission, obs: torch.Tensor, in_kernel_feats: bool) -> None:
+    """Raise ``ValueError`` for in-kernel features wider than the duplex
+    kernels build (``FMAX``): "duplex" runs the split kernels at such
+    widths, which build no features."""
     if in_kernel_feats:
         kind = in_kernel_kind(emission)
         F = kind_feature_width(kind, obs.shape[-1])
         if F > FMAX:
             raise ValueError(f"in-kernel {kind!r} features at D={obs.shape[-1]} are {F} wide; "
-                             f"the kernels build at most {FMAX}")
+                             f"the duplex kernels build at most {FMAX}")
+
+
+def prepare_fused_obs(params: HMMParams, emission, obs: torch.Tensor,
+                      in_kernel_feats: bool = False, method: str = "fused") -> torch.Tensor | None:
+    """The fused and duplex E-steps' observation side, built once.
+
+    Returns the time-major feature array (T, B, F) as contiguous float32:
+    the family's ``ell_features``, or for the multinomial the one-hot
+    (T, B, V) of its int observations (B, T). None when ``method``'s route
+    runs the split kernels on these features (a multinomial above
+    ``ONE_HOT_MAX_V`` symbols, :func:`wider_than_fused_kernels`; on
+    "duplex" also F > ``FMAX``, :func:`wider_than_duplex_kernels`). With
+    ``in_kernel_feats`` the raw observations (T, B, D) instead, whose
+    features the kernels build; a family without a built kind
+    (:func:`in_kernel_kind`), or on "duplex" features wider than ``FMAX``,
+    raise ``ValueError``. It depends on the data only, so engines whose data
+    is fixed across iterations (batch VB) build it once and pass it as
+    ``prepared=``."""
+    check_family(emission)
+    if in_kernel_feats:
+        in_kernel_kind(emission)
+        if method == "duplex":
+            check_duplex_width(emission, obs, in_kernel_feats)
         return obs.transpose(0, 1).to(torch.float32).contiguous()
-    if wider_than_fused_kernels(emission, params.emit, obs):
+    wide = wider_than_duplex_kernels if method == "duplex" else wider_than_fused_kernels
+    if wide(emission, params.emit, obs):
         return None
     if emission is MultinomialDirichlet:
         feats = torch.nn.functional.one_hot(obs.transpose(0, 1).long(), params.emit.shape[-1])
@@ -162,13 +197,13 @@ def _fused_estep(
     """The fused and duplex routes (JAX's ``_pallas_fused_estep``, the duplex
     one with ``PYSVIHMM_DUPLEX`` set): returns (FBResult with gamma (T, B, K)
     time-major, or None; emission stats), the stats kept-mask-gated in-kernel
-    when ``weights`` (B, T) is given. Features wider than the kernels take
-    (:func:`wider_than_fused_kernels`) run the split route instead: JAX
-    does so above ``ONE_HOT_MAX_V`` symbols (engines/base.py:547) and
-    computes widths of 65-256 in its fused kernels, which the port's take
-    only up to ``FMAX``. The split route has neither the pick nor bf16
-    alpha, so ``gamma_sel`` or a bf16 ``alpha_dtype`` on such features
-    raises ``ValueError``.
+    when ``weights`` (B, T) is given. A multinomial above ``ONE_HOT_MAX_V``
+    symbols runs the split route instead, as JAX's does (engines/base.py:547;
+    :func:`wider_than_fused_kernels`), its alpha in ``alpha_dtype``; the
+    split kernels have no pick, so ``gamma_sel`` there raises ``ValueError``.
+    Every other width runs the fused pair. "duplex" runs the split route at
+    F > ``FMAX`` too (:func:`wider_than_duplex_kernels`), until its kernels
+    take wider features.
 
     The kernel modes (:func:`check_kernel_modes`): ``in_kernel_feats`` has
     the kernels build the features from the raw observations (``prepared``
@@ -178,14 +213,20 @@ def _fused_estep(
     written; ``alpha_dtype`` is the fused forward's alpha storage."""
     check_kernel_modes(method, in_kernel_feats, gamma_sel is not None,
                        alpha_dtype != torch.float32)
-    feats = (prepare_fused_obs(params, emission, obs, in_kernel_feats) if prepared is None
-             else prepared)
+    check_family(emission)
+    if method == "duplex":
+        check_duplex_width(emission, obs, in_kernel_feats)
+        if wider_than_duplex_kernels(emission, params.emit, obs):
+            return _split_estep(params, emission, obs, weights)
+    feats = (prepare_fused_obs(params, emission, obs, in_kernel_feats, method)
+             if prepared is None else prepared)
     if feats is None:
-        if gamma_sel is not None or alpha_dtype != torch.float32:
+        if gamma_sel is not None:
             raise ValueError(
-                f"gamma_sel and bf16 alpha run in the fused kernels, which take features up "
-                f"to {FMAX} wide; these are {feature_width(emission, params.emit, obs)} wide")
-        return _split_estep(params, emission, obs, weights)
+                f"gamma_sel runs in the fused kernels, which a multinomial of more than "
+                f"{ONE_HOT_MAX_V} symbols leaves for the split kernels (V = "
+                f"{params.emit.shape[-1]}), as JAX's does")
+        return _split_estep(params, emission, obs, weights, alpha_dtype)
     log_pi, log_A = expected_log_params(params)
     modes = {"in_kernel_feats": in_kernel_kind(emission) if in_kernel_feats else None,
              "gamma_sel": gamma_sel}
@@ -200,10 +241,12 @@ def _fused_estep(
 
 
 def _split_estep(
-    params: HMMParams, emission, obs: torch.Tensor, weights: torch.Tensor | None = None
+    params: HMMParams, emission, obs: torch.Tensor, weights: torch.Tensor | None = None,
+    alpha_dtype: torch.dtype = torch.float32,
 ) -> tuple[FBResult, object]:
     """The split route (JAX's ``_pallas_packed_estep``): returns (FBResult
-    with gamma (T, B, K) time-major, emission stats).
+    with gamma (T, B, K) time-major, emission stats); ``alpha_dtype`` the
+    split forward's alpha storage (JAX's ``_alpha_store_dtype()``).
 
     The likelihoods are one float32 ``feats @ W`` product outside the
     kernels (JAX leaves it to XLA), time-major so no (B, T, K) transpose
@@ -219,14 +262,14 @@ def _split_estep(
     if emission is MultinomialDirichlet:
         obs_tm = obs.transpose(0, 1)
         ll = emission.expected_log_likelihood(params.emit, obs_tm).to(torch.float32)
-        fb = estep_split(log_pi, log_A, ll.contiguous(), w_tm)
+        fb = estep_split(log_pi, log_A, ll.contiguous(), w_tm, alpha_dtype)
         gamma_w = fb.gamma if w_tm is None else fb.gamma * w_tm[..., None]
         return fb, emission_flat_stats(emission, params.emit, gamma_w, obs_tm)
     feats = _features(emission, obs)  # (T, B, F)
     T, B, F = feats.shape
     K = params.init.shape[0]
     ll = torch.matmul(feats, _fused_W(emission, params.emit))  # (T, B, K)
-    fb = estep_split(log_pi, log_A, ll, w_tm)
+    fb = estep_split(log_pi, log_A, ll, w_tm, alpha_dtype)
     gamma_w = fb.gamma if w_tm is None else fb.gamma * w_tm[..., None]
     S = gamma_w.reshape(T * B, K).T @ feats.reshape(T * B, F)
     return fb, emission.unpack_flat_stats(params.emit, S)
@@ -264,10 +307,11 @@ def batch_local_step(
     ``PYSVIHMM_INKERNEL_FEATS`` and ``PYSVIHMM_BF16_ALPHA``):
     ``in_kernel_feats`` has the "fused" and "duplex" kernels build the
     Gaussian families' features from the raw observations (the same bits as
-    the feature array); ``bf16_alpha`` stores the "fused" forward's alpha
-    as bf16. Another route, a family without a built kind, or features
-    wider than the fused kernels take, raise ``ValueError``
-    (:func:`check_kernel_modes`, :func:`in_kernel_kind`).
+    the feature array); ``bf16_alpha`` stores the "fused" or "split"
+    forward's alpha as bf16 (a multinomial above 256 symbols on "fused":
+    the split forward's, as JAX's). Another route, a family without a built
+    kind, or on "duplex" features wider than its kernels build, raise
+    ``ValueError`` (:func:`check_kernel_modes`, :func:`in_kernel_kind`).
 
     exact: evaluation callers set it so that log Z comes from float32
     alpha: it pins float32 storage, whatever ``bf16_alpha``.
@@ -286,7 +330,7 @@ def batch_local_step(
         gamma = fb.gamma if need_gamma else None
     else:
         if method == "split":
-            fb, emit_stats = _split_estep(params, emission, obs, weights)
+            fb, emit_stats = _split_estep(params, emission, obs, weights, alpha_dtype)
         else:
             fb, emit_stats = _fused_estep(params, emission, obs, weights, need_gamma, prepared,
                                           method, in_kernel_feats, alpha_dtype=alpha_dtype)
@@ -322,20 +366,20 @@ def windowed_local_step(
     The kernel routes keep gamma time-major (W, B, K) as the kernels write
     it; the per-window pick gamma[offs[b], b, :] is a plain gather on it.
     With ``gamma_sel`` ("fused" only; JAX's ``PYSVIHMM_GAMMA_SEL``) the
-    fused backward picks it in-kernel and writes no gamma; features wider
-    than the fused kernels take then raise ``ValueError``, as does
-    ``bf16_alpha`` on them.
+    fused backward picks it in-kernel and writes no gamma; a multinomial
+    above 256 symbols, which runs the split kernels, then raises
+    ``ValueError``.
     ``in_kernel_feats`` and ``bf16_alpha`` as :func:`batch_local_step`'s.
     """
     f32_matmuls()
     method = messages.resolve_method(method, windows.device)
     check_kernel_modes(method, in_kernel_feats, gamma_sel, bf16_alpha)
     rows = torch.arange(windows.shape[0], device=windows.device)
+    alpha_dtype = torch.bfloat16 if bf16_alpha else torch.float32
     if method == "split":
-        fb, emit_stats = _split_estep(params, emission, windows, maskf)
+        fb, emit_stats = _split_estep(params, emission, windows, maskf, alpha_dtype)
         return emit_stats, fb.trans_stats, fb.gamma[offs, rows], fb.log_c
     if method in FEATURE_ROUTES:
-        alpha_dtype = torch.bfloat16 if bf16_alpha else torch.float32
         fb, emit_stats = _fused_estep(params, emission, windows, maskf, method=method,
                                       in_kernel_feats=in_kernel_feats,
                                       gamma_sel=offs if gamma_sel else None,

@@ -67,7 +67,7 @@ def fit_state(
     (num_iters,) on obs' device). On the fused and duplex routes the
     data-only feature array is built once, outside the loop."""
     method = messages.resolve_method(method, obs.device)
-    prepared = (prepare_fused_obs(state.params, emission, obs)
+    prepared = (prepare_fused_obs(state.params, emission, obs, method=method)
                 if method in FEATURE_ROUTES else None)
     step = make_step(emission, tau, kappa, method)
     elbos = []

@@ -91,7 +91,8 @@ def fit(
     outside the loop.
     """
     method = messages.resolve_method(method, obs.device)
-    prepared = prepare_fused_obs(params, emission, obs) if method in FEATURE_ROUTES else None
+    prepared = (prepare_fused_obs(params, emission, obs, method=method)
+                if method in FEATURE_ROUTES else None)
     step = make_step(emission, method)
     elbos = []
     for _ in range(num_iters):

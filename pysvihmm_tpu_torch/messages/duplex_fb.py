@@ -67,6 +67,7 @@ from ._launch import (
     stream,
 )
 from .fused_fb import (
+    FMAX,
     assemble,
     build_features,
     built_seqs,
@@ -214,7 +215,7 @@ def _launch_chain(S: int | None, pi_t, A_t, W, feats, in_kernel_feats=None):
     T, B, Fin = feats.shape
     K = A_t.shape[0]
     dev = feats.device
-    F = check_modes(W, feats, in_kernel_feats)
+    F = check_modes(W, feats, in_kernel_feats, fmax=FMAX)
     for name, x, shape in (("pi_t", pi_t, (K,)), ("A_t", A_t, (K, K)),
                            ("W", W, (F, K)), ("feats", feats, (T, B, Fin))):
         check(name, x, shape, dev)
@@ -312,7 +313,7 @@ def duplex_combine(
     T, B, Fin = feats.shape
     K = alpha.shape[-1]
     dev = feats.device
-    F = check_modes(W, feats, in_kernel_feats)
+    F = check_modes(W, feats, in_kernel_feats, fmax=FMAX)
     args = [("W", W, (F, K)), ("feats", feats, (T, B, Fin)), ("alpha", alpha, (T, B, K)),
             ("beta", beta, (T, B, K)), ("sh", sh, (B, T))]
     if weights is not None:
@@ -384,7 +385,7 @@ def estep_duplex(
 def _check_duplex_modes(W, feats, emit_gamma, gamma_sel, in_kernel_feats) -> None:
     if gamma_sel is not None:
         raise ValueError("gamma_sel requires the fused kernels")
-    check_modes(W, feats, in_kernel_feats, emit_gamma)
+    check_modes(W, feats, in_kernel_feats, emit_gamma, fmax=FMAX)
 
 
 def estep_duplex_reference(

@@ -21,7 +21,13 @@ Up to K = 64 a block of either kernel carries S sequences, one thread per
 state, each thread running its state of all S as interleaved chains; the
 launchers take S from :func:`seqs_per_block`, a plain function of B and the
 blocks of each instance the card holds at once (the library's occupancy
-query). For 65 <= K <= 256 they launch the large-K instances
+query). Features wider than :data:`FMAX` run the WF instances of either
+tier (``csrc/fb_seqs_wf.cuh`` up to K = 64, ``fb_wide.cuh``'s WF flag
+above), F a run-time bound: every F whose instance's shared memory the card
+gives, as JAX's fused kernels take any F (up to K = 64 the groups of W^T
+beyond what shared memory holds are read from L2, so only the feature
+slots bound F: about 6,100 there, 4,200 at K = 256); up to K = 64 their
+eacc leaves the chain as the large-K statistics' does. For 65 <= K <= 256 they launch the large-K instances
 (``fused_fwd_wide_kernel<KP, S>``, ``fused_bwd_wide_kernel<KP, S, GATED>``,
 KP = 128 or 256 padded states, S in :data:`WIDE_SEQS`): S sequences a block
 over one copy of A~, one thread a state, S by the same rule, and the
@@ -88,19 +94,24 @@ from ._launch import (
     stream,
 )
 from .scan_fb import FBResult
-from .split_fb import exp_params, split_backward_reference, split_forward_reference
+from .split_fb import (
+    check_alpha_dtype,
+    exp_params,
+    split_backward_reference,
+    split_forward_reference,
+)
 
 _LIB = "fused_fb"
-# the widest feature array the fused and duplex kernels take (fbc::FMAX in
-# csrc/fb_common.cuh, which both libraries report): the engines route wider
-# ones to the split kernels before any launch
+# the widest feature array of the fused pair's first instances and the
+# widest the duplex kernels take (fbc::FMAX in csrc/fb_common.cuh, which the
+# duplex library reports): the fused pair runs wider ones on its WF
+# instances, the engines send them to the split kernels on "duplex"
 FMAX = 64
 
 # what the kernels read a (t, b) row of (fbc::FEATS_* in csrc/fb_common.cuh):
 # the feature array (None), or the raw observations of a Gaussian family
 # whose features the kernels build ("niw", "nig")
 FEATURE_KINDS = {None: 0, "niw": 1, "nig": 2}
-ALPHA_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def kind_code(in_kernel_feats: str | None) -> int:
@@ -134,21 +145,21 @@ def build_features(obs: torch.Tensor, in_kernel_feats: str | None) -> torch.Tens
 
 def check_modes(W: torch.Tensor, src: torch.Tensor, in_kernel_feats: str | None,
                 emit_gamma: bool = False, gamma_sel: torch.Tensor | None = None,
-                alpha_dtype: torch.dtype = torch.float32) -> int:
+                alpha_dtype: torch.dtype = torch.float32, fmax: int | None = None) -> int:
     """F for a launch in these modes, or ``ValueError`` where JAX raises
     (``pallas_estep_fused``: W's rows not the kind's width, ``gamma_sel``
     with ``emit_gamma``) and where the kernels take no such mode (a built
-    kind wider than :data:`FMAX`, another alpha dtype); on every device."""
+    kind wider than ``fmax``, the duplex kernels' limit, None for the fused
+    pair's any F; another alpha dtype); on every device."""
     F = feature_width(in_kernel_feats, src.shape[-1])
     if W.shape[0] != F:
         raise ValueError(f"W rows {W.shape[0]} != feature width {F}")
-    if in_kernel_feats is not None and F > FMAX:
+    if in_kernel_feats is not None and fmax is not None and F > fmax:
         raise ValueError(f"in-kernel {in_kernel_feats!r} features of D={src.shape[-1]} are "
-                         f"{F} wide; the kernels build at most {FMAX}")
+                         f"{F} wide; the kernels build at most {fmax}")
     if gamma_sel is not None and emit_gamma:
         raise ValueError("gamma_sel requires emit_gamma=False")
-    if alpha_dtype not in ALPHA_DTYPES:
-        raise ValueError(f"alpha is stored as one of {ALPHA_DTYPES}, got {alpha_dtype}")
+    check_alpha_dtype(alpha_dtype)
     return F
 
 
@@ -180,22 +191,18 @@ def _library():
          "fused_fb_build_feats": "pp" "l" "iiii" "p",
          "fused_fb_widen": "pp" "l" "i" "p",
          "fused_fb_prep_launches": "ii",
-         "fused_fb_kmax": "",
-         "fused_fb_fmax": ""},
+         "fused_fb_kmax": ""},
         "fused_fb_error_string",
     )
 
 
-def _check_kernel_limits(K: int, F: int) -> None:
-    """K and F the CUDA kernels take (K <= 64 on the S-sequence instances,
-    65-256 on the large-K ones; F <= 64): raise on larger ones instead of
-    falling back."""
-    lib = _library()
-    kmax, fmax = lib.fused_fb_kmax(), lib.fused_fb_fmax()
-    if K > kmax or F > fmax:
-        raise NotImplementedError(
-            f"the fused CUDA kernels take K <= {kmax} and F <= {fmax}, got K={K}, F={F}"
-        )
+def _check_kernel_limits(K: int) -> None:
+    """K the CUDA kernels take (K <= 64 on the S-sequence instances, 65-256
+    on the large-K ones, at any F): raise on a larger one instead of falling
+    back."""
+    kmax = _library().fused_fb_kmax()
+    if K > kmax:
+        raise NotImplementedError(f"the fused CUDA kernels take K <= {kmax}, got K={K}")
 
 
 # the sequences a block the library is built for (csrc/fused_fb.cu): up to
@@ -219,7 +226,8 @@ def seqs_per_block(B: int, resident: dict[int, int], per_group: int = 1,
 
     The smallest S of ``seqs`` (the built values, ascending) whose
     per_group ceil(B / S) blocks run in one wave, and the largest when none
-    does. For the large-K instances (``seqs`` = WIDE_SEQS) that keeps a
+    does, among those the card holds a block of (a WF instance's shared
+    memory grows with F: at F = 300 and K = 256, S = 8 does not fit). For the large-K instances (``seqs`` = WIDE_SEQS) that keeps a
     block a sequence for a small B, and carries S sequences over one copy
     of A~ where B would need more waves: S = 8 at KP = 256 and S = 4 at KP =
     128 for B = 1024, each the fastest S measured there (PERF.md). Up to K =
@@ -230,10 +238,13 @@ def seqs_per_block(B: int, resident: dict[int, int], per_group: int = 1,
     for the backward at B = 4096. S = 1 lost to S = 2 at every B it was
     timed at, and S = 8 everywhere (the backward spills): neither is built
     for K <= 64."""
-    for S in seqs:
+    fits = [S for S in seqs if resident[S] > 0]
+    if not fits:
+        raise ValueError(f"no instance of S in {seqs} fits the card: resident blocks {resident}")
+    for S in fits:
         if per_group * -(-B // S) <= resident[S]:
             return S
-    return seqs[-1]
+    return fits[-1]
 
 
 _KERNELS = {"forward": 0, "backward": 1, "gated backward": 2}
@@ -245,14 +256,16 @@ def kernel_info(kernel: str, S: int, F: int, device: torch.device | None = None,
     """What one instance of the kernels takes on the card, from the library:
     ``kernel`` is "forward", "backward" or "gated backward", S the sequences a
     block, F the feature width and K the states (up to 64 the instance built
-    for F padded to 16, 32, 48 or 64; above, the large-K instance of K's
-    padded state count, 128 or 256), for the feature kind
+    for F padded to 16, 32, 48 or 64, or above 64 the WF instance at F;
+    above, the large-K instance of K's padded state count, 128 or 256, WF
+    above F = 64), for the feature kind
     ``in_kernel_feats``; ``modes`` names the modes' instance (the forward
     that stores bf16 alpha, the backward that takes it or the gamma pick),
     else the default one. Returns registers (a thread), static_smem and
     dynamic_smem (bytes a block), local_bytes (spills, a thread),
-    blocks_per_sm (resident, by the CUDA occupancy calculator), sms (the
-    card's) and threads (a block)."""
+    blocks_per_sm (resident, by the CUDA occupancy calculator; 0 where the
+    card cannot give a WF instance its shared memory at F), sms (the card's)
+    and threads (a block)."""
     dev = device if device is not None else torch.device("cuda")
     return dict(_kernel_info(kernel, S, F, instance_tier(K), device_index(dev),
                              kind_code(in_kernel_feats), modes))
@@ -315,11 +328,7 @@ def forward_reference(
     (B, T) their per-step sums, of the stored values; sh (B, T) the max
     shifts). The chain carries float32 whatever alpha's storage."""
     f = build_features(feats, in_kernel_feats)
-    alpha, s, sh = split_forward_reference(pi_t, A_t, f @ W)
-    if alpha_dtype == torch.float32:
-        return alpha, s, sh
-    alpha = alpha.to(alpha_dtype)
-    return alpha, alpha.to(torch.float32).sum(dim=-1).T.contiguous(), sh
+    return split_forward_reference(pi_t, A_t, f @ W, alpha_dtype)
 
 
 def fused_forward(
@@ -347,7 +356,7 @@ def _launch_forward(S: int | None, pi_t, A_t, W, feats, in_kernel_feats=None,
         check(name, x, shape, dev)
     if runs_plain_twin(feats):
         return forward_reference(pi_t, A_t, W, feats, in_kernel_feats, alpha_dtype)
-    _check_kernel_limits(K, F)
+    _check_kernel_limits(K)
     lib = _library()
     index = device_index(dev)
     kind = kind_code(in_kernel_feats)
@@ -362,6 +371,7 @@ def _launch_forward(S: int | None, pi_t, A_t, W, feats, in_kernel_feats=None,
     )
     fused_forward.launches += 1
     count_mode(fused_forward, in_kernel_feats, alpha_dtype=alpha_dtype)
+    count_wide(fused_forward, K, F, in_kernel_feats, alpha_dtype=alpha_dtype)
     raise_on(lib.fused_fb_error_string, code, "fused_fwd_kernel")
     return alpha, s, sh
 
@@ -369,17 +379,31 @@ def _launch_forward(S: int | None, pi_t, A_t, W, feats, in_kernel_feats=None,
 fused_forward.launches = 0
 
 
-def count_mode(fn, in_kernel_feats, gamma_sel=None, alpha_dtype=torch.float32) -> None:
-    """Add one to a launcher's ``mode_launches`` for each mode its launch ran
-    in (the fused and the duplex launchers')."""
+def count_mode(fn, in_kernel_feats, gamma_sel=None, alpha_dtype=torch.float32,
+               counts: dict | None = None) -> None:
+    """Add one to a launcher's ``mode_launches`` (or to ``counts``) for each
+    mode its launch ran in (the fused and the duplex launchers')."""
+    counts = fn.mode_launches if counts is None else counts
     for mode, on in ((in_kernel_feats, in_kernel_feats is not None),
                      ("gamma_sel", gamma_sel is not None),
                      ("bf16", alpha_dtype == torch.bfloat16)):
         if on:
-            fn.mode_launches[mode] = fn.mode_launches.get(mode, 0) + 1
+            counts[mode] = counts.get(mode, 0) + 1
+
+
+def count_wide(fn, K, F, in_kernel_feats, gamma_sel=None, alpha_dtype=torch.float32) -> None:
+    """A launch of a WF instance (F > FMAX): one more in the launcher's
+    ``wf_launches`` under its tier (64, 128 or 256 states, as
+    ``_launch.instance_tier``) and in ``wf_mode_launches`` for each mode."""
+    if F > FMAX:
+        tier = instance_tier(K)
+        fn.wf_launches[tier] = fn.wf_launches.get(tier, 0) + 1
+        count_mode(fn, in_kernel_feats, gamma_sel, alpha_dtype, fn.wf_mode_launches)
 
 
 fused_forward.mode_launches = {}
+fused_forward.wf_launches = {}
+fused_forward.wf_mode_launches = {}
 
 
 # ---------------------------------------------------------------- backward
@@ -409,7 +433,8 @@ def backward_reference(
     f = build_features(feats, in_kernel_feats)
     T, B, F = f.shape
     K = A_t.shape[0]
-    gamma, acc = split_backward_reference(A_t, f @ W, alpha.to(torch.float32), s, sh, weights)
+    wide = torch.promote_types(alpha.dtype, torch.float32)  # bf16 read as float32
+    gamma, acc = split_backward_reference(A_t, f @ W, alpha.to(wide), s, sh, weights)
     gamma_w = gamma if weights is None else gamma * weights[..., None]
     eacc = gamma_w.reshape(T * B, K).T @ f.reshape(T * B, F)
     if gamma_sel is None:
@@ -471,7 +496,7 @@ def _launch_backward(S: int | None, A_t, W, feats, alpha, s, sh, emit_gamma=Fals
     if runs_plain_twin(feats):
         return backward_reference(A_t, W, feats, alpha, s, sh, emit_gamma, weights,
                                   in_kernel_feats, sel)
-    _check_kernel_limits(K, F)
+    _check_kernel_limits(K)
     lib = _library()
     kernel = "backward" if weights is None else "gated backward"
     index = device_index(dev)
@@ -492,19 +517,24 @@ def _launch_backward(S: int | None, A_t, W, feats, alpha, s, sh, emit_gamma=Fals
     acc, eacc = stats[: K * K].view(K, K), stats[K * K:].view(K, F)
     fused_backward.launches += 1
     count_mode(fused_backward, in_kernel_feats, sel, alpha.dtype)
+    count_wide(fused_backward, K, F, in_kernel_feats, sel, alpha.dtype)
     raise_on(lib.fused_fb_error_string, code, "fused_bwd_kernel")
     return gamma, gamma0, acc, eacc
 
 
 fused_backward.launches = 0
 fused_backward.mode_launches = {}
+fused_backward.wf_launches = {}
+fused_backward.wf_mode_launches = {}
 
 
 def reset_launch_counts() -> None:
     fused_forward.launches = 0
     fused_backward.launches = 0
-    fused_forward.mode_launches.clear()
-    fused_backward.mode_launches.clear()
+    for fn in (fused_forward, fused_backward):
+        fn.mode_launches.clear()
+        fn.wf_launches.clear()
+        fn.wf_mode_launches.clear()
     outer_sum.launches = 0
     feature_rows.launches = 0
     widen_alpha.launches = 0
@@ -512,7 +542,7 @@ def reset_launch_counts() -> None:
 
 # ------------------------------------------------------------- outer sums
 
-OUTER_MAX = 256  # the widest operand: K states (acc), at most 64 features (eacc)
+OUTER_MAX = 256  # the widest X: K states (acc and eacc); Y takes any F (eacc's features)
 # the libraries whose large-K launchers run the outer sums (csrc/fb_stats.cuh)
 OUTER_LIBS = ("fused_fb", "split_fb", "duplex_fb")
 
@@ -525,7 +555,7 @@ def outer_sum_reference(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
 def outer_sum(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     """The large-K statistics' outer sums alone: sum over the rows n of
     outer(X[n], Y[n]) = X^T Y, (I, J), for float32 X (N, I) and Y (N, J),
-    contiguous on one device, N >= 1 and 1 <= I, J <= 256.
+    contiguous on one device, N >= 1, 1 <= I <= 256 and J >= 1.
 
     The kernel (``csrc/fb_stats.cuh::outer_partial_kernel``) is the one the
     large-K backward kernels and the duplex combine run on each window of
@@ -541,8 +571,9 @@ def outer_sum(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     dev = X.device
     check("X", X, (N, I), dev)
     check("Y", Y, (N, J), dev)
-    if N < 1 or not (1 <= I <= OUTER_MAX and 1 <= J <= OUTER_MAX):
-        raise ValueError(f"outer_sum takes N >= 1 rows and 1 to {OUTER_MAX} columns, got "
+    if N < 1 or not (1 <= I <= OUTER_MAX and J >= 1):
+        raise ValueError(f"outer_sum takes N >= 1 rows, 1 to {OUTER_MAX} columns of X and at "
+                         f"least one of Y, got "
                          f"X {tuple(X.shape)}, Y {tuple(Y.shape)}")
     if runs_plain_twin(X):
         return outer_sum_reference(X, Y)
@@ -582,9 +613,9 @@ def outer_launches(clear: bool = False) -> int:
 
 # the operand kernels of the large-K statistics (csrc/fb_stats.cuh), by the
 # libraries' index, and the libraries that run them: the fused backward both,
-# the duplex combine the feature build
+# the duplex combine the feature build, the split backward the widening
 PREP_KERNELS = {"build_feats_kernel": 0, "widen_kernel": 1}
-PREP_LIBS = ("fused_fb", "duplex_fb")
+PREP_LIBS = ("fused_fb", "duplex_fb", "split_fb")
 
 
 def feature_rows(obs: torch.Tensor, in_kernel_feats: str) -> torch.Tensor:

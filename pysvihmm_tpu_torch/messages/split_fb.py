@@ -36,6 +36,12 @@ launcher given CPU tensors runs the twin; given CUDA tensors it launches the
 kernel or raises. The twins are also the chain of the fused E-step's twins
 (``fused_fb.py`` runs them on ll = feats @ W).
 
+bf16-stored alpha (``alpha_dtype=torch.bfloat16``; JAX's
+``_alpha_store_dtype()``, pallas_fb.py:198-230, :1213): the forward stores
+alpha rounded to bf16 while its chain carries float32, s sums the rounded
+values, and the backward reads the stored words back, so its replay factors
+1 / s and the alpha it reads are the same numbers; the twins round alike.
+
 Contract of :func:`estep_split`: log-likelihoods ``ll`` (T, B, K) float32,
 TIME-MAJOR and contiguous, and an optional kept-mask ``weights`` (T, B).
 Returns an ``FBResult`` with gamma (T, B, K) (ungated), log_c (B, T), log_z
@@ -64,6 +70,7 @@ from ._launch import (
 from .scan_fb import FBResult
 
 SUM_FLOOR = 1e-38  # per-sequence sum floor (pallas_fb.py:82)
+ALPHA_DTYPES = (torch.float32, torch.bfloat16)  # alpha's storage
 
 _LIB = "split_fb"
 
@@ -74,10 +81,11 @@ def _library():
 
     return bind(
         load_library(_LIB),
-        {"split_fb_forward": "pppppp" "iiiii" "p",
-         "split_fb_backward": "ppppppppp" "iiiii" "p",
-         "split_fb_scratch": "iiip",
-         "split_fb_kernel_info": "iiiip",
+        {"split_fb_forward": "ppppppp" "iiiii" "p",
+         "split_fb_backward": "pppppppppp" "iiiii" "p",
+         "split_fb_scratch": "iiiip",
+         "split_fb_kernel_info": "iiiiip",
+         "split_fb_prep_launches": "ii",
          "split_fb_kmax": ""},
         "split_fb_error_string",
     )
@@ -108,42 +116,47 @@ def built_seqs(kernel: str, K: int) -> tuple[int, ...]:
 
 
 def kernel_info(kernel: str, S: int, device: torch.device | None = None,
-                K: int = KMAX_SEQS) -> dict:
+                K: int = KMAX_SEQS, bf16: bool = False) -> dict:
     """What one instance of the kernels takes on the card, from the library:
     ``kernel`` is "forward", "backward" or "gated backward", S the sequences a
     block and K the states (up to 64 the K <= 64 instance; above, the
-    large-K instance of K's padded state count, 128 or 256). Returns
+    large-K instance of K's padded state count, 128 or 256); ``bf16`` the
+    instance that stores (reads) bf16 alpha. Returns
     registers (a thread), static_smem and dynamic_smem (bytes a block),
     local_bytes (spills, a thread), blocks_per_sm (resident, by the CUDA
     occupancy calculator), sms (the card's) and threads (a block)."""
     dev = device if device is not None else torch.device("cuda")
-    return dict(_kernel_info(kernel, S, instance_tier(K), device_index(dev)))
+    return dict(_kernel_info(kernel, S, instance_tier(K), device_index(dev), bf16))
 
 
 @functools.cache
-def _kernel_info(kernel: str, S: int, K: int, index: int) -> tuple:
+def _kernel_info(kernel: str, S: int, K: int, index: int, bf16: bool = False) -> tuple:
     out = (ctypes.c_int * 7)()
     lib = _library()
-    code = lib.split_fb_kernel_info(_KERNELS[kernel], S, K, index, ctypes.addressof(out))
-    raise_on(lib.split_fb_error_string, code, f"split_fb_kernel_info({kernel}, S={S}, K={K})")
+    code = lib.split_fb_kernel_info(_KERNELS[kernel], S, K, int(bf16), index,
+                                    ctypes.addressof(out))
+    raise_on(lib.split_fb_error_string, code,
+             f"split_fb_kernel_info({kernel}, S={S}, K={K}, bf16={bf16})")
     keys = ("registers", "static_smem", "dynamic_smem", "local_bytes", "blocks_per_sm", "sms",
             "threads")
     return tuple(zip(keys, list(out)))
 
 
-def default_seqs(kernel: str, B: int, device: torch.device, K: int = KMAX_SEQS) -> int:
+def default_seqs(kernel: str, B: int, device: torch.device, K: int = KMAX_SEQS,
+                 bf16: bool = False) -> int:
     """The launchers' S: ``fused_fb.seqs_per_block`` (the smallest built S
     whose ceil(B / S) blocks run in one wave) over this library's instances
-    for ``kernel`` at K (:func:`built_seqs`) on the card's own occupancy."""
-    return _default_seqs(kernel, B, instance_tier(K), device_index(device))
+    for ``kernel`` at K (:func:`built_seqs`; ``bf16`` alpha's) on the card's
+    own occupancy."""
+    return _default_seqs(kernel, B, instance_tier(K), device_index(device), bf16)
 
 
 @functools.cache
-def _default_seqs(kernel: str, B: int, K: int, index: int) -> int:
+def _default_seqs(kernel: str, B: int, K: int, index: int, bf16: bool = False) -> int:
     from .fused_fb import seqs_per_block  # fused_fb imports this module
 
     seqs = built_seqs(kernel, K)
-    info = {S: dict(_kernel_info(kernel, S, K, index)) for S in seqs}
+    info = {S: dict(_kernel_info(kernel, S, K, index, bf16)) for S in seqs}
     return seqs_per_block(B, {S: i["blocks_per_sm"] * i["sms"] for S, i in info.items()},
                           seqs=seqs)
 
@@ -156,10 +169,17 @@ def check_seqs(kernel: str, S: int | None, K: int) -> None:
                          f"{built_seqs(kernel, K)}")
 
 
-def _seqs(kernel: str, S: int | None, B: int, K: int, index: int) -> int:
+def _seqs(kernel: str, S: int | None, B: int, K: int, index: int, bf16: bool = False) -> int:
     """S for a launch: the default when None, else a built one or raise."""
     check_seqs(kernel, S, K)
-    return _default_seqs(kernel, B, instance_tier(K), index) if S is None else S
+    return _default_seqs(kernel, B, instance_tier(K), index, bf16) if S is None else S
+
+
+def check_alpha_dtype(alpha_dtype: torch.dtype) -> None:
+    """Raise ``ValueError`` for an alpha storage the kernels have no
+    instance of (float32 and bf16 they have)."""
+    if alpha_dtype not in ALPHA_DTYPES:
+        raise ValueError(f"alpha is stored as one of {ALPHA_DTYPES}, got {alpha_dtype}")
 
 
 def exp_params(log_pi: torch.Tensor, log_A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -183,13 +203,17 @@ def pair_gate(weights: torch.Tensor) -> torch.Tensor:
 
 
 def split_forward_reference(
-    pi_t: torch.Tensor, A_t: torch.Tensor, ll: torch.Tensor
+    pi_t: torch.Tensor, A_t: torch.Tensor, ll: torch.Tensor,
+    alpha_dtype: torch.dtype = torch.float32,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain twin of the forward kernel.
 
     pi_t (K,), A_t (K, K) the exponentiated params; ll (T, B, K)
-    log-likelihoods. Returns (alpha (T, B, K) raw stored messages, s (B, T)
-    their per-step sums, sh (B, T) the max shifts)."""
+    log-likelihoods. Returns (alpha (T, B, K) raw stored messages, in
+    ``alpha_dtype``; s (B, T) their per-step sums, of the stored values; sh
+    (B, T) the max shifts). The chain carries float32 whatever alpha's
+    storage: bf16 alpha is float32's rounded."""
+    check_alpha_dtype(alpha_dtype)
     T = ll.shape[0]
     sh = ll.amax(dim=-1)
     lik = torch.exp(ll - sh[..., None])
@@ -201,42 +225,52 @@ def split_forward_reference(
         inv = 1.0 / torch.clamp_min(s[t - 1], SUM_FLOOR)
         a = (a @ A_t) * (lik[t] * inv[:, None])
         alpha[t], s[t] = a, a.sum(dim=-1)
+    if alpha_dtype != torch.float32:
+        alpha = alpha.to(alpha_dtype)
+        s = alpha.to(torch.float32).sum(dim=-1)
     return alpha, s.T.contiguous(), sh.T.contiguous()
 
 
 def split_forward(
-    pi_t: torch.Tensor, A_t: torch.Tensor, ll: torch.Tensor, S: int | None = None
+    pi_t: torch.Tensor, A_t: torch.Tensor, ll: torch.Tensor, S: int | None = None,
+    alpha_dtype: torch.dtype = torch.float32,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Forward kernel launcher; contract of :func:`split_forward_reference`.
 
     Inputs are float32 and contiguous on one device. CPU tensors run the
-    plain twin; CUDA tensors launch ``split_fwd_kernel`` with S sequences a
-    block (:func:`default_seqs` when None; one of :func:`built_seqs`, else
+    plain twin; CUDA tensors launch ``split_fwd_kernel`` (its bf16-alpha
+    instance for ``alpha_dtype=torch.bfloat16``) with S sequences a block
+    (:func:`default_seqs` when None; one of :func:`built_seqs`, else
     ``ValueError``) or raise. The outputs do not depend on S."""
     T, B, K = ll.shape
     dev = ll.device
     for name, x, shape in (("pi_t", pi_t, (K,)), ("A_t", A_t, (K, K)), ("ll", ll, (T, B, K))):
         check(name, x, shape, dev)
     check_seqs("forward", S, K)
+    check_alpha_dtype(alpha_dtype)
     if runs_plain_twin(ll):
-        return split_forward_reference(pi_t, A_t, ll)
+        return split_forward_reference(pi_t, A_t, ll, alpha_dtype)
     _check_kernel_limits(K)
     lib = _library()
     index = device_index(dev)
-    S = _seqs("forward", S, B, K, index)
-    alpha = torch.empty((T, B, K), dtype=torch.float32, device=dev)
+    bf16 = alpha_dtype == torch.bfloat16
+    S = _seqs("forward", S, B, K, index, bf16)
+    alpha = torch.empty((T, B, K), dtype=alpha_dtype, device=dev)
+    a32, a16 = (None, alpha) if bf16 else (alpha, None)
     s = torch.empty((B, T), dtype=torch.float32, device=dev)
     sh = torch.empty((B, T), dtype=torch.float32, device=dev)
     code = lib.split_fb_forward(
-        ptr(pi_t), ptr(A_t), ptr(ll), ptr(alpha), ptr(s), ptr(sh),
+        ptr(pi_t), ptr(A_t), ptr(ll), ptr(a32), ptr(a16), ptr(s), ptr(sh),
         T, B, K, S, index, stream(dev),
     )
     split_forward.launches += 1
+    split_forward.bf16_launches += bf16
     raise_on(lib.split_fb_error_string, code, "split_fwd_kernel")
     return alpha, s, sh
 
 
 split_forward.launches = 0
+split_forward.bf16_launches = 0  # of them, the bf16-alpha instance's
 
 
 # ---------------------------------------------------------------- backward
@@ -252,12 +286,13 @@ def split_backward_reference(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of the backward kernel.
 
-    Takes the forward's (alpha (T, B, K), s (B, T), sh (B, T)) and the
-    optional kept-mask w (T, B). Returns (gamma (T, B, K), ungated; acc
+    Takes the forward's (alpha (T, B, K), float32 or bf16 as stored, s
+    (B, T), sh (B, T)) and the optional kept-mask w (T, B). Returns (gamma (T, B, K), ungated; acc
     (K, K) = sum over sequences and t of outer(alpha_{t-1}, d_t n_t g_t),
     g = :func:`pair_gate` (w), g = 1 ungated). The beta chain runs on the
     ungated d."""
     T, B, K = ll.shape
+    alpha = alpha.to(torch.promote_types(alpha.dtype, torch.float32))  # bf16 read as float32
     g = None if w is None else pair_gate(w)
     lik = torch.exp(ll - sh.T[..., None])
     r = 1.0 / torch.clamp_min(s, SUM_FLOOR)  # (B, T)
@@ -291,22 +326,25 @@ def split_backward(
 
     CPU tensors run the plain twin; CUDA tensors launch ``split_bwd_kernel``
     (``split_bwd_wide_kernel`` above K = 64; gated when the kept-mask ``w``
-    is given, the kernel forming the pair gate from it) with S sequences a
+    is given, the kernel forming the pair gate from it; the bf16-alpha
+    instance when alpha is bf16) with S sequences a
     block (:func:`default_seqs` when None; one of :func:`built_seqs`, else
     ``ValueError``), or raise. acc is summed across sequences in an order
     fixed by (T, B, K) alone (csrc/fb_stats.cuh): the same bits at every S
     and over repeated calls on one card. Above K = 64 the launch takes a
     scratch of min(T B, max(B, 2^17)) K floats beside the carried beta (B K)
     and the sum's partials, whatever T: about 0.14 GB at B = 1024, K = 256
-    (acc a window of time steps a launch)."""
+    (acc a window of time steps a launch; with bf16 alpha a window's alpha
+    widened beside it)."""
     T, B, K = ll.shape
     dev = ll.device
-    args = [("A_t", A_t, (K, K)), ("ll", ll, (T, B, K)), ("alpha", alpha, (T, B, K)),
-            ("s", s, (B, T)), ("sh", sh, (B, T))]
+    args = [("A_t", A_t, (K, K)), ("ll", ll, (T, B, K)), ("s", s, (B, T)), ("sh", sh, (B, T))]
     if w is not None:
         args.append(("w", w, (T, B)))
     for name, x, shape in args:
         check(name, x, shape, dev)
+    check_alpha_dtype(alpha.dtype)
+    check("alpha", alpha, (T, B, K), dev, alpha.dtype)
     kind = "backward" if w is None else "gated backward"
     check_seqs(kind, S, K)
     if runs_plain_twin(ll):
@@ -314,25 +352,31 @@ def split_backward(
     _check_kernel_limits(K)
     lib = _library()
     index = device_index(dev)
-    S = _seqs(kind, S, B, K, index)
+    bf16 = alpha.dtype == torch.bfloat16
+    S = _seqs(kind, S, B, K, index, bf16)
     gamma = torch.empty((T, B, K), dtype=torch.float32, device=dev)
     acc = torch.empty((K, K), dtype=torch.float32, device=dev)
-    work = scratch(lib, "split_fb_scratch", lib.split_fb_error_string, dev, T, B, K)
+    work = scratch(lib, "split_fb_scratch", lib.split_fb_error_string, dev, T, B, K, int(bf16))
+    a32, a16 = (None, alpha) if bf16 else (alpha, None)
     code = lib.split_fb_backward(
-        ptr(A_t), ptr(ll), ptr(alpha), ptr(s), ptr(sh), ptr(w), ptr(gamma), ptr(acc),
+        ptr(A_t), ptr(ll), ptr(a32), ptr(a16), ptr(s), ptr(sh), ptr(w), ptr(gamma), ptr(acc),
         ptr(work), T, B, K, S, index, stream(dev),
     )
     split_backward.launches += 1
+    split_backward.bf16_launches += bf16
     raise_on(lib.split_fb_error_string, code, "split_bwd_kernel")
     return gamma, acc
 
 
 split_backward.launches = 0
+split_backward.bf16_launches = 0  # of them, the bf16-alpha instance's
 
 
 def reset_launch_counts() -> None:
     split_forward.launches = 0
     split_backward.launches = 0
+    split_forward.bf16_launches = 0
+    split_backward.bf16_launches = 0
 
 
 # ------------------------------------------------------------------ E-step
@@ -355,13 +399,15 @@ def estep_split(
     log_A: torch.Tensor,
     ll: torch.Tensor,
     weights: torch.Tensor | None = None,
+    alpha_dtype: torch.dtype = torch.float32,
 ) -> FBResult:
     """Split batched E-step over log-likelihoods ll (T, B, K) float32,
     time-major and contiguous, with an optional kept-mask weights (T, B)
-    float32. Contract in the module docstring. CPU tensors run the plain
-    twins; CUDA tensors run the two kernels."""
+    float32; ``alpha_dtype`` the stored alpha's (torch.bfloat16 rounds it;
+    evaluation callers keep float32). Contract in the module docstring. CPU
+    tensors run the plain twins; CUDA tensors run the two kernels."""
     pi_t, A_t = exp_params(log_pi, log_A)
-    alpha, s, sh = split_forward(pi_t, A_t, ll)
+    alpha, s, sh = split_forward(pi_t, A_t, ll, alpha_dtype=alpha_dtype)
     gamma, acc = split_backward(A_t, ll, alpha, s, sh, weights)
     return _assemble(A_t, s, sh, gamma, acc, weights)
 
@@ -371,9 +417,10 @@ def estep_split_reference(
     log_A: torch.Tensor,
     ll: torch.Tensor,
     weights: torch.Tensor | None = None,
+    alpha_dtype: torch.dtype = torch.float32,
 ) -> FBResult:
     """Plain PyTorch version of :func:`estep_split` on any device."""
     pi_t, A_t = exp_params(log_pi, log_A)
-    alpha, s, sh = split_forward_reference(pi_t, A_t, ll)
+    alpha, s, sh = split_forward_reference(pi_t, A_t, ll, alpha_dtype)
     gamma, acc = split_backward_reference(A_t, ll, alpha, s, sh, weights)
     return _assemble(A_t, s, sh, gamma, acc, weights)

@@ -57,9 +57,12 @@ def kernel_work(name: str, B: int, T: int, K: int, F: int = 0, gated: bool = Fal
     The fused and duplex kernels' modes: D > 0 (in-kernel features) reads
     the D-wide observation rows in place of the F-wide feature rows and adds
     the build's products, F - 1 - D a row in each kernel that builds them
-    (both halves of the duplex chain); ``bf16_alpha`` (the fused pair) moves
-    alpha as 2-byte words, written by the forward and read by the
-    backward.
+    (both halves of the duplex chain); ``bf16_alpha`` (the fused and the
+    split pair) moves alpha as 2-byte words, written by the forward and
+    read by the backward. The fused pair's counts hold at any F: above F =
+    64 its instances (WF) write w_t gamma_t to a scratch window and read it
+    back for eacc's sums, traffic of the method and not of the function,
+    which the bound does not count.
 
     The large-K statistics' operand kernels of those modes, over the B T
     rows (t, b) of one window: "build_feats_kernel" reads D floats a row,
@@ -127,7 +130,8 @@ def kernel_work(name: str, B: int, T: int, K: int, F: int = 0, gated: bool = Fal
     if D > 0:  # observation rows in, the features built on the chip
         nbytes -= 4.0 * n * (F - D)
         flops += n * (F - 1 - D) * (2 if name == "duplex_chain_kernel" else 1)
-    if bf16_alpha and name in ("fused_fwd_kernel", "fused_bwd_kernel"):
+    if bf16_alpha and name in ("fused_fwd_kernel", "fused_bwd_kernel", "split_fwd_kernel",
+                               "split_bwd_kernel"):
         nbytes -= 2.0 * n * K
     if name == "probe_fwd_nos_kernel":
         flops += B * renorms * 2 * K  # a sum and a division per state

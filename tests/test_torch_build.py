@@ -28,19 +28,22 @@ def test_both_kernel_sources_share_the_header():
     """Every source includes the shared device code and the large-K layout;
     the three route sources also the fixed-order statistics and the
     S-sequences-a-block layout of their K <= 64 chains (one forward for all
-    three, one backward for the fused and split pairs)."""
+    three, one backward for the fused and split pairs); the fused library's
+    units also its kernels' tables and the any-width K <= 64 layout."""
     names = ("fused_fb", "split_fb", "duplex_fb", "split_probe")
     for name in names:
         seqs = ["fb_seqs.cuh"] if name != "split_probe" else []
         stats = [] if name == "split_probe" else ["fb_stats.cuh"]
-        own = ["fused_fb_kernels.cuh"] if name == "fused_fb" else []
+        own = ["fused_fb_kernels.cuh", "fb_seqs_wf.cuh"] if name == "fused_fb" else []
         assert _build.sources(name) == [f"{name}.cu", "fb_common.cuh", *seqs, *stats,
                                         "fb_wide.cuh", *own]
     assert len({_build.library_path(n) for n in names}) == len(names)
-    assert _build.units("fused_fb") == ("fused_fb", "fused_fb_modes")
-    assert _build.sources("fused_fb_modes") == [
-        "fused_fb_modes.cu", "fused_fb_kernels.cuh", "fb_common.cuh", "fb_seqs.cuh",
-        "fb_stats.cuh", "fb_wide.cuh"]
+    assert _build.units("fused_fb") == ("fused_fb", "fused_fb_modes", "fused_fb_wide",
+                                        "fused_fb_wide_modes")
+    for unit in _build.units("fused_fb")[1:]:
+        assert _build.sources(unit) == [
+            f"{unit}.cu", "fused_fb_kernels.cuh", "fb_common.cuh", "fb_seqs.cuh",
+            "fb_seqs_wf.cuh", "fb_stats.cuh", "fb_wide.cuh"]
 
 
 def test_library_path_follows_every_unit(tmp_path, monkeypatch):

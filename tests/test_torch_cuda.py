@@ -8,7 +8,9 @@ rematerialised alphas and their boundary recursions replayed as CUDA graphs;
 the data-parallel VB step in spawned process groups on the card (NCCL in a
 world of one, two gloo ranks); the fused and duplex kernels' modes (in-kernel
 NIW and NIG features, the gamma pick, bf16-stored alpha) at one small shape
-a tier, by chip_smoke.py phase 14's checks.
+a tier, by chip_smoke.py phase 14's checks; the fused pair's instances at
+features wider than 64 (F = 65 to 300) in every kind and mode, and the
+split pair's bf16-stored alpha, by phase 15's.
 
 Imports neither JAX nor the JAX package, so it runs on a machine that has
 only PyTorch for CUDA and nvcc:
@@ -32,9 +34,15 @@ import pytest
 import torch
 
 from chip_smoke import (
+    WF_BS,
+    WF_CASES,
+    WF_KS,
     check_bf16_alpha,
     check_gamma_sel,
     check_mode_features,
+    check_split_bf16,
+    check_split_exact,
+    check_wide_f,
     digest,
     random_problem,
     state_digests,
@@ -653,13 +661,15 @@ def test_duplex_wider_than_the_kernels_raises(cuda_device, K, F):
         duplex_fb.duplex_combine(W, feats, alpha, alpha, sh)
 
 
-@pytest.mark.parametrize("route", ["fused", "duplex", "auto"])
+@pytest.mark.parametrize("route", ["fused", "duplex", "auto", "split"])
 def test_wide_features_take_the_split_kernels(cuda_device, route):
-    """Features wider than the fused and duplex kernels take (F > FMAX): a
-    multinomial of 100 and of 300 symbols and a Gaussian-NIW at D = 10
-    (F = 66) run the split kernels once on "fused", "duplex" and "auto" (the
-    card's "fused"), and no other kernel, and agree with "scan", gated and
-    not."""
+    """Features wider than 64 (a multinomial of 100 and of 300 symbols, a
+    Gaussian-NIW at D = 10, F = 66), routed as JAX routes them: on "fused"
+    and "auto" (the card's "fused") the fused pair at F = 66 and 100 and
+    the split kernels above 256 symbols; on "duplex" the split kernels at
+    every such width (its kernels take F <= 64); on "split" the split
+    kernels. One launch of each kernel of the route, no other E-step
+    kernel, and the statistics those of "scan", gated and not."""
     g = torch.Generator(device=cuda_device).manual_seed(3)
     for fam, size in ((MultinomialDirichlet, 100), (MultinomialDirichlet, 300), (GaussianNIW, 10)):
         if fam is MultinomialDirichlet:
@@ -674,8 +684,11 @@ def test_wide_features_take_the_split_kernels(cuda_device, route):
                 reset.reset_launch_counts()
             stats, _ = batch_local_step(p0, fam, obs, route, weights=w)
             torch.cuda.synchronize()
-            assert (split_fb.split_forward.launches, split_fb.split_backward.launches) == (1, 1)
-            assert (fused_fb.fused_forward.launches, fused_fb.fused_backward.launches) == (0, 0)
+            fused = route in ("fused", "auto") and size != 300
+            n = (1, 1) if fused else (0, 0)
+            assert (fused_fb.fused_forward.launches, fused_fb.fused_backward.launches) == n
+            n = (0, 0) if fused else (1, 1)
+            assert (split_fb.split_forward.launches, split_fb.split_backward.launches) == n
             assert (duplex_fb.duplex_chain.launches, duplex_fb.duplex_combine.launches) == (0, 0)
             ref, _ = batch_local_step(p0, fam, obs, "scan", weights=w)
             emit = stats.emit if isinstance(stats.emit, tuple) else (stats.emit,)
@@ -687,9 +700,15 @@ def test_wide_features_take_the_split_kernels(cuda_device, route):
 
 
 def test_fmax_is_the_kernels_own(cuda_device):
-    """The engines' routing constant is the width both libraries report."""
-    fmax = (fused_fb._library().fused_fb_fmax(), duplex_fb._library().duplex_fb_fmax())
-    assert fmax == (fused_fb.FMAX, fused_fb.FMAX)
+    """The engines' routing constant for "duplex" is the width its library
+    reports; the fused library reports none (it takes any F) and the fused
+    launchers run F = 65 on the card."""
+    assert duplex_fb._library().duplex_fb_fmax() == fused_fb.FMAX
+    assert not hasattr(fused_fb._library(), "fused_fb_fmax")
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    pi_t, A_t, W, feats = _random_fused_inputs(gen, 3, 10, 8, fused_fb.FMAX + 1)
+    alpha, s, sh = fused_fb.fused_forward(pi_t, A_t, W, feats)
+    assert bool(torch.isfinite(fused_fb.fused_backward(A_t, W, feats, alpha, s, sh)[2]).all())
 
 
 @pytest.mark.parametrize("T,B,K,C", [(16, 4, 8, 8), (24, 3, 33, 4), (16, 37, 64, 8),
@@ -1078,3 +1097,31 @@ def test_modes_instances_report_their_own_occupancy(cuda_device, K):
         for modes in (False, True):
             S = fused_fb.default_seqs(kernel, 1024, 45, cuda_device, K=K, modes=modes)
             assert S in fused_fb.built_seqs(K)
+
+
+@pytest.mark.parametrize("B", WF_BS)
+@pytest.mark.parametrize("K", WF_KS)
+@pytest.mark.parametrize("kind,size", WF_CASES)
+def test_wide_f_instances_match_twins(cuda_device, kind, size, K, B):
+    """chip_smoke.py phase 15 (a) at one shape: the fused pair's instances
+    for features wider than 64 (F = 65, 66, 100, 153, 256, 300, 820) at every S
+    that fits, every output bit for bit across S and over a second call
+    (acc up to K = 64 excepted across S: summed a block at a time), a
+    built kind's the array mode's, the pick emit_gamma's gamma, bf16 alpha
+    float32's rounded; the default S against the twins."""
+    check_wide_f(torch.Generator(device=cuda_device).manual_seed(K + B + size), K, kind, size, B)
+
+
+@pytest.mark.parametrize("B", [3, 1024])
+@pytest.mark.parametrize("K", [64, 128, 256])
+def test_split_bf16_alpha_is_float32_alpha_rounded(cuda_device, K, B):
+    """Phase 15 (b): the split pair's bf16 alpha is float32's rounded at
+    every S, the backward the same bits at every S and over a second call,
+    both within the bf16 twins' tolerances and JAX's band of float32."""
+    check_split_bf16(torch.Generator(device=cuda_device).manual_seed(K + B), K, B, 150)
+
+
+def test_split_bf16_exact_pins_float32(cuda_device):
+    """Phase 15 (b): exact=True with bf16_alpha on "split", and on "fused"
+    for a multinomial of 300 symbols (the split pair), is float32's bits."""
+    check_split_exact(torch.Generator(device=cuda_device).manual_seed(15), cuda_device)

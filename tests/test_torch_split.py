@@ -182,8 +182,8 @@ def test_default_seqs_is_the_one_wave_rule(monkeypatch, kind, K, B):
     blocks = SPLIT_BLOCKS[kind, K]
     assert tuple(blocks) == split_fb.built_seqs(kind, K)
 
-    def info(kernel, S, K_, index):
-        assert (kernel, K_, index) == (kind, K, 0) and S in blocks
+    def info(kernel, S, K_, index, bf16=False):
+        assert (kernel, K_, index, bf16) == (kind, K, 0, False) and S in blocks
         return (("blocks_per_sm", blocks[S]), ("sms", H100_SMS))
 
     monkeypatch.setattr(split_fb, "_kernel_info", info)

@@ -2417,6 +2417,19 @@ def kineto_busy(fn) -> tuple[float, float, int]:
     return wall, sum(e.duration_ns() for e in dev) / 1e6, len(dev)
 
 
+def device_ms(fn, calls: int = 50) -> float:
+    """The card's busy ms a call of fn, a call that launches one kernel,
+    over `calls` calls after a warm-up (torch.profiler, kineto_busy): for a
+    kernel so short that the host's launch takes longer, which CUDA events
+    around a run of launches would time instead. The busy time is divided
+    by the kernels the profiler recorded, which may be one short of
+    `calls`."""
+    fn()
+    _, busy, n = kineto_busy(lambda: [fn() for _ in range(calls)])
+    require(0 < n <= calls, f"device_ms: the profiler recorded {n} kernels of {calls} calls")
+    return busy / n
+
+
 def lc_stats_err(got, ref) -> tuple[float, float]:
     """(log Z's relative error, the largest leaf error relative to the
     leaf's max over init, trans and the emission statistics)."""
@@ -3678,17 +3691,25 @@ def operand_kernels(dev) -> tuple[dict, list[str]]:
              "max_abs_err": max(errs.values())}
     build["bound_ms"], build["bound_by"] = bound(*kernel_work("build_feats_kernel", rows, 1, 0,
                                                               F_, D=MODE_D))
-    lib_ms = median_ms(lambda: a16.to(torch.float32))
-    widen = {"ms": median_ms(lambda: ff.widen_alpha(a16)), "plain_ms": lib_ms,
-             "library_ms": lib_ms, "max_abs_err": (wide - a16.to(torch.float32)).abs().max().item()}
+    # the widening takes less device time than its launch takes on the host,
+    # so both it and .to are timed on the card (torch.profiler's kernel time,
+    # the median of MODE_REPS runs); CUDA events around their launches too
+    lib_ms = sorted(device_ms(lambda: a16.to(torch.float32)) for _ in range(MODE_REPS))
+    lib_ms = lib_ms[len(lib_ms) // 2]
+    wide_ms = sorted(device_ms(lambda: ff.widen_alpha(a16)) for _ in range(MODE_REPS))
+    widen = {"ms": wide_ms[len(wide_ms) // 2], "plain_ms": lib_ms, "library_ms": lib_ms,
+             "max_abs_err": (wide - a16.to(torch.float32)).abs().max().item()}
     widen["bound_ms"], widen["bound_by"] = bound(*kernel_work("widen_kernel", a_rows, 1,
                                                               MODE_WIDE_K))
+    ev = (median_ms(lambda: ff.widen_alpha(a16)), median_ms(lambda: a16.to(torch.float32)))
     lines = [f"build_feats_kernel over one window's {rows} rows (NIW, D = {MODE_D} -> F = {F_}; "
              f"both kinds the twin's bits): {build['ms']:.4f} ms, twin {build['plain_ms']:.4f} "
              f"ms, bound {build['bound_ms']:.4f} ms ({build['bound_by']})",
              f"widen_kernel over one window's {a_rows} x {MODE_WIDE_K} bf16 alphas (the twin's "
-             f"bits): {widen['ms']:.4f} ms, .to(torch.float32) {lib_ms:.4f} ms, bound "
-             f"{widen['bound_ms']:.4f} ms ({widen['bound_by']})"]
+             f"bits), device time: {widen['ms']:.4f} ms, .to(torch.float32) {lib_ms:.4f} ms "
+             f"({widen['ms'] / lib_ms:.2f}x its time), bound {widen['bound_ms']:.4f} ms "
+             f"({widen['bound_by']}; {100 * widen['bound_ms'] / widen['ms']:.0f} % of it); CUDA "
+             f"events around the launches {ev[0]:.4f} / {ev[1]:.4f} ms"]
     for line in lines:
         log(f"  {line}")
     return {"build_feats_kernel": build, "widen_kernel": widen}, lines
@@ -3826,16 +3847,20 @@ def wf_seqs(K_, F_, ik, dev) -> list[int]:
 
 def check_wide_f(gen, K_, kind, size, B_, T_=WF_T, twins: bool = True) -> dict[str, float]:
     """Phase 15 (a) at one shape: the fused pair's WF instances at every S
-    that fits. Bit for bit: alpha, s and sh the same at every S; gamma,
-    gamma0 and eacc the same at every S (acc too above K = 64, where it is
-    summed off the chain), gated and not, emit_gamma both ways, and acc and
-    eacc the same over a second call; a built kind's outputs on the raw
-    observations the array mode's; the pick (gated) emit_gamma's gamma at
-    the offsets, acc and eacc unchanged; bf16 alpha float32's rounded, sh
-    unchanged, the bf16 backward repeatable. With ``twins`` the default S
-    against the plain twins run in float64 on the same inputs
-    (tests/test_pallas.py's tolerances; bf16 alpha within 2^-8 of float64's
-    alpha) and bf16's statistics and log Z within JAX's band of float32's. Returns the twins' max errors: the forward's log_c and the
+    that fits. Bit for bit: alpha, s and sh the same at every S; gamma and
+    gamma0 the same at every S, and acc and eacc too above K = 64 (summed
+    off the chain) and eacc in the window tier (the outer sums; the tiled
+    tier sums eacc a block at a time, so its grouping follows S, as acc's),
+    gated and not, emit_gamma both ways, and acc and eacc the same over a
+    second call; a built kind's outputs on the raw observations the array
+    mode's; the pick (gated) emit_gamma's gamma at the offsets, acc and
+    eacc unchanged; bf16 alpha float32's rounded, sh unchanged, the bf16
+    backward repeatable. With ``twins`` the forward, the pick and bf16 at
+    the default S, and the backward's gamma, gamma0, acc and eacc at every
+    S, gated and not, against the plain twins run in float64 on the same
+    inputs (tests/test_pallas.py's tolerances; bf16 alpha within 2^-8 of
+    float64's alpha), and bf16's statistics and log Z within JAX's band of
+    float32's. Returns the twins' max errors: the forward's log_c and the
     backward's gamma, each mode's too."""
     import torch
 
@@ -3852,6 +3877,12 @@ def check_wide_f(gen, K_, kind, size, B_, T_=WF_T, twins: bool = True) -> dict[s
     seqs = wf_seqs(K_, F_, ik, dev)
     require(len(seqs) > 0, f"(a) K={K_} F={F_}: no S fits the card")
     what = f"(a) {kind} F={F_} K={K_} B={B_}"
+    # across S: gamma and gamma0 everywhere, acc above K = 64 (summed off the
+    # chain), eacc above K = 64 and in the window tier (the outer sums);
+    # the tiled tier sums eacc a block at a time, as acc, so its grouping
+    # follows S
+    windowed = K_ > 64 or all(ff.wf_backward_tier(S, K_, F_) == "window" for S in seqs)
+    same = (0, 1, 2, 3) if K_ > 64 else (0, 1, 3) if windowed else (0, 1)
     first_fwd, first_bwd = None, {}
     for S in seqs:
         fwd = ff._launch_forward(S, pi_t, A_t, W, feats)
@@ -3874,7 +3905,6 @@ def check_wide_f(gen, K_, kind, size, B_, T_=WF_T, twins: bool = True) -> dict[s
                     require_same(f"{tag} in-kernel", out,
                                  ff._launch_backward(S, A_t, W, src, *fwd, emit, wg, ik))
                 ref = first_bwd.setdefault(key, out)
-                same = (0, 1, 2, 3) if K_ > 64 else (0, 1, 3)
                 require_same(f"{tag} vs S={seqs[0]}", [out[i] for i in same],
                              [ref[i] for i in same])
         picked = ff._launch_backward(S, A_t, W, src, *fwd, False, w, ik, offs)
@@ -3895,7 +3925,8 @@ def check_wide_f(gen, K_, kind, size, B_, T_=WF_T, twins: bool = True) -> dict[s
     errs = {}
     if not twins:
         return errs
-    log(f"   {what} T={T_}: S in {seqs} bit for bit; the default S against the twins")
+    log(f"   {what} T={T_}: S in {seqs} bit for bit; against the twins (the backward at "
+        "every S, the rest at the default S)")
     alpha, s, sh = ff.fused_forward(pi_t, A_t, W, src, ik)
     a_r, s_r, sh_r = ff.forward_reference(pi_t, A_t, W, src, ik)
     # the twins run in float64 on the same inputs (a built kind's float32
@@ -3906,13 +3937,17 @@ def check_wide_f(gen, K_, kind, size, B_, T_=WF_T, twins: bool = True) -> dict[s
     compare("alpha", alpha, a_o, 0.0, 5e-5)
     errs["fwd"] = compare("log_c", torch.log(s) + sh, torch.log(s_o) + sh_o, 2e-6, 1e-4)
     for wg in (None, w):
-        got = ff.fused_backward(A_t, W, src, a_r, s_r, sh_r, True, wg, ik)
         ref = ff.backward_reference(*d(A_t, W, feats, a_r, s_r, sh_r), True, *d(wg))
-        for name, x, r, rtol, atol in zip(("gamma", "gamma0", "acc", "eacc"), got, ref,
-                                          (0.0, 0.0, 1e-4, 3e-3), (5e-5, 5e-5, 1e-3, 2e-3)):
-            e = compare(f"{name} gated={wg is not None}", x, r, rtol, atol)
-            if name == "gamma":
-                errs["bwd"] = max(errs.get("bwd", 0.0), e)
+        # every S: acc and eacc group by the block's S up to K = 64, and the
+        # default S (fused_backward's) is one of them
+        for S in seqs:
+            got = ff._launch_backward(S, A_t, W, src, a_r, s_r, sh_r, True, wg, ik)
+            for name, x, r, rtol, atol in zip(("gamma", "gamma0", "acc", "eacc"), got, ref,
+                                              (0.0, 0.0, 1e-4, 3e-3), (5e-5, 5e-5, 1e-3, 2e-3)):
+                e = compare(f"{name} S={S} gated={wg is not None}", x, r, rtol, atol)
+                if name == "gamma":
+                    errs["bwd"] = max(errs.get("bwd", 0.0), e)
+        del ref
     got = ff.fused_backward(A_t, W, src, a_r, s_r, sh_r, False, w, ik, offs)
     ref = ff.backward_reference(*d(A_t, W, feats, a_r, s_r, sh_r), False, *d(w), None, offs)
     errs["pick"] = compare("the pick", got[1], ref[1], 0.0, 5e-5)
@@ -4056,7 +4091,10 @@ WF_SVI_STEPS = 5  # windowed SVI steps a variant on the main path
 # the kernels line's rows of phase 15: (row, launcher, tier, mode, source, replaces)
 WF_ROWS = (
     ("fused_fwd_wf_kernel", "fused_fwd_kernel", 64, None, "fused_fb_wide.cu", "pallas_fb.py:516"),
-    ("fused_bwd_wf_kernel", "fused_bwd_kernel", 64, None, "fused_fb_wide.cu", "pallas_fb.py:577"),
+    ("fused_bwd_wf_kernel", "fused_bwd_kernel", "tiled", None, "fused_fb_wide.cu",
+     "pallas_fb.py:577"),
+    ("fused_bwd_wf_window_kernel", "fused_bwd_kernel", "window", None, "fused_fb_wide.cu",
+     "pallas_fb.py:577"),
     ("fused_fwd_wide_wf_kernel<KP=256>", "fused_fwd_kernel", 256, None, "fused_fb_wide.cu",
      "pallas_fb.py:516"),
     ("fused_bwd_wide_wf_kernel<KP=256>", "fused_bwd_kernel", 256, None, "fused_fb_wide.cu",
@@ -4080,8 +4118,9 @@ WF_ROWS = (
 
 def wf_counts() -> dict:
     """Launches since the last reset: the fused pair's WF instances by (kernel,
-    tier), their modes by (kernel, mode), the split pair's bf16 instances by
-    (kernel, "bf16")."""
+    tier: the states' 64, 128 or 256, and up to K = 64 the backward's
+    "tiled" or "window"), their modes by (kernel, mode), the split pair's
+    bf16 instances by (kernel, "bf16")."""
     from pysvihmm_tpu_torch.messages import fused_fb as ff
     from pysvihmm_tpu_torch.messages import split_fb as sf
 
@@ -4101,38 +4140,47 @@ def wf_main_path(dev) -> tuple[dict, float]:
     need_gamma=False) at B = 1024, T = 1000 for the Gaussian-NIW at D = 10
     (F = 66) at K = 64 and 256, with in-kernel features at K = 64, and the
     multinomial at V = WF_V (the fused pair) and WF_BIG_V with bf16 alpha
-    (the split pair) at K = 64; windowed SVI on the V = WF_V multinomial at
-    W = SVI_W, B = 1024, WF_SVI_STEPS steps gathering gamma and as many
-    with the pick and bf16 alpha. Then each E-step against "scan" and every
-    SVI parameter finite. Returns the launches (wf_counts) and the set-up
-    seconds."""
+    (the split pair) at K = 64; the NIW at D = 39 (F = 820, 39-dimensional
+    MFCCs: the WF backward's window tier) at K = 64, T = WF_T; windowed SVI
+    on the V = WF_V multinomial at W = SVI_W, B = 1024, WF_SVI_STEPS steps
+    gathering gamma and as many with the pick and bf16 alpha. Each K = 64
+    E-step at F > 64 on the tiled tier launches one backward chain kernel,
+    no outer sum and no feature build; the F = 820 one a chain kernel and
+    an outer sum for each window of 2^17 / B steps. Then each E-step
+    against "scan" and every SVI parameter finite. Returns the launches
+    (wf_counts) and the set-up seconds."""
     import torch
 
     from pysvihmm_tpu_torch.data import synthetic
     from pysvihmm_tpu_torch.distributions import GaussianNIW, MultinomialDirichlet
     from pysvihmm_tpu_torch.engines import svi
     from pysvihmm_tpu_torch.engines.base import batch_local_step
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
     from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(60)
     cases = []
-    for label, fam, size, K_, kw in (
-        ("gaussian_niw D=10", GaussianNIW, 10, K, {}),
-        ("gaussian_niw D=10", GaussianNIW, 10, 256, {}),
-        ("gaussian_niw D=10, in-kernel", GaussianNIW, 10, K, {"in_kernel_feats": True}),
-        (f"multinomial V={WF_V}", MultinomialDirichlet, WF_V, K, {}),
-        (f"multinomial V={WF_BIG_V}, bf16 alpha", MultinomialDirichlet, WF_BIG_V, K,
-         {"bf16_alpha": True}),
+    # (label, family, D or V, K, T, options, the chain launches one E-step
+    # makes on the WF backward's tier up to K = 64: None elsewhere)
+    for label, fam, size, K_, T_, kw, chain in (
+        ("gaussian_niw D=10", GaussianNIW, 10, K, T, {}, 1),
+        ("gaussian_niw D=10", GaussianNIW, 10, 256, T, {}, None),
+        ("gaussian_niw D=10, in-kernel", GaussianNIW, 10, K, T, {"in_kernel_feats": True}, 1),
+        (f"multinomial V={WF_V}", MultinomialDirichlet, WF_V, K, T, {}, 1),
+        (f"multinomial V={WF_BIG_V}, bf16 alpha", MultinomialDirichlet, WF_BIG_V, K, T,
+         {"bf16_alpha": True}, None),
+        ("gaussian_niw D=39", GaussianNIW, 39, K, WF_T, {}, -(-WF_T // ((1 << 17) // B))),
     ):
         if fam is GaussianNIW:
-            obs = synthetic.gen_gaussian_dataset(gen, K_, size, B, T, mean_scale=0.5,
+            obs = synthetic.gen_gaussian_dataset(gen, K_, size, B, T_, mean_scale=0.5,
                                                  cov_scale=1.0)[0]
             prior = make_prior(K_, fam, obs_dim=size, device=dev)
         else:
-            obs = synthetic.gen_multinomial_dataset(gen, K_, size, B, T)[0]
+            obs = synthetic.gen_multinomial_dataset(gen, K_, size, B, T_)[0]
             prior = make_prior(K_, fam, num_symbols=size, device=dev)
-        cases.append((f"{label}, K={K_}", fam, obs, init_params(gen, prior, fam, obs), kw))
+        cases.append((f"{label}, K={K_}", fam, obs, init_params(gen, prior, fam, obs), kw,
+                      chain))
     chain = synthetic.gen_multinomial_dataset(gen, K, WF_V, 1, SVI_T)[0][0]
     prior_c = make_prior(K, MultinomialDirichlet, num_symbols=WF_V, device=dev)
     p_c = init_params(gen, prior_c, MultinomialDirichlet, chain)
@@ -4141,8 +4189,14 @@ def wf_main_path(dev) -> tuple[dict, float]:
     setup_s = time.perf_counter() - t0
 
     reset_kernel_counts()
-    stats = [batch_local_step(p, fam, obs, "auto", need_gamma=False, **kw)[0]
-             for _, fam, obs, p, kw in cases]
+    ff.backward_launches(clear=True)
+    stats, per_case = [], []
+    for _, fam, obs, p, kw, _ in cases:
+        before = (ff.backward_launches(), ff.outer_launches(),
+                  ff.prep_launches("build_feats_kernel"))
+        stats.append(batch_local_step(p, fam, obs, "auto", need_gamma=False, **kw)[0])
+        per_case.append((ff.backward_launches() - before[0], ff.outer_launches() - before[1],
+                         ff.prep_launches("build_feats_kernel") - before[2]))
     finals = {}
     for modes in ({}, {"gamma_sel": True, "bf16_alpha": True}):
         step = svi.make_step(MultinomialDirichlet, cfg, SVI_T, "auto", **modes)
@@ -4153,7 +4207,16 @@ def wf_main_path(dev) -> tuple[dict, float]:
     torch.cuda.synchronize()
     counts = wf_counts()
     log(f"  the main path: launches {counts}")
-    for (label, fam, obs, p, kw), st in zip(cases, stats):
+    for (label, _, obs, _, _, chain), (n_chain, n_outer, n_build) in zip(cases, per_case):
+        log(f"   {label}: backward chain launches {n_chain}, outer sums {n_outer}, feature "
+            f"builds {n_build}")
+        if chain is None:
+            continue
+        windows = chain > 1  # the window tier: eacc's outer sums a window
+        require(n_chain == chain and n_outer == (chain if windows else 0) and n_build == 0,
+                f"(main path) {label}: the WF backward made {n_chain} chain launches, "
+                f"{n_outer} outer sums and {n_build} feature builds")
+    for (label, fam, obs, p, kw, _), st in zip(cases, stats):
         ref = batch_local_step(p, fam, obs, "scan", need_gamma=False)[0]
         log(f"   {label} ({kw or 'plain'}): the E-step on auto against scan")
         if kw.get("bf16_alpha"):  # JAX's band of float32
@@ -4216,11 +4279,38 @@ def wf_time(dev) -> tuple[dict, list[str]]:
         br = row(name.format("bwd") + tier + f" F={F_}", t_b, p_b,
                  kernel_work("fused_bwd_kernel", B, T, K_, F_))
         b_g, by_g = bound(*kernel_work("fused_bwd_kernel", B, T, K_, F_, gated=True))
-        lines.append(f"K={K_}, F={F_} ({kind} {size}), S={S_f}/{S_b}: forward {fr}; backward "
-                     f"{br}; gated backward {t_g:.4f} ms (bound {b_g:.4f} ms, {by_g})")
+        line = (f"K={K_}, F={F_} ({kind} {size}), S={S_f}/{S_b}: forward {fr}; backward {br}; "
+                f"gated backward {t_g:.4f} ms (bound {b_g:.4f} ms, {by_g})")
+        if K_ <= 64:  # the redesigned backward's tier, beside the split route's backward
+            ll = (feats @ W).contiguous()
+            sfwd = sf.split_forward(pi_t, A_t, ll)
+            t_s = median_ms(lambda: sf.split_backward(A_t, ll, *sfwd))
+            info = ff.kernel_info("backward", S_b, F_, dev)
+            line += (f"; the {ff.wf_backward_tier(S_b, K_, F_)} tier ({info['registers']} "
+                     f"registers, {info['local_bytes']} spilled bytes, {info['dynamic_smem']} "
+                     f"shared bytes, {info['threads']} threads and {info['blocks_per_sm']} "
+                     f"blocks an SM); the split route's backward {t_s:.4f} ms")
+            del ll, sfwd
+        lines.append(line)
         log(f"  {lines[-1]}")
         del fwd, feats, src
         torch.cuda.empty_cache()
+
+    # the WF backward's window tier, at F = 820 (NIW D = 39), K = 64
+    log_pi, log_A, W, src, feats, _ = wf_problem(gen, B, T, K, "niw", 39)
+    F_ = W.shape[0]
+    pi_t, A_t = exp_params(log_pi, log_A)
+    fwd = ff.fused_forward(pi_t, A_t, W, feats)
+    t_b = median_ms(lambda: ff.fused_backward(A_t, W, feats, *fwd))
+    p_b = cuda_ms(lambda: ff.backward_reference(A_t, W, feats, *fwd), 2, warmup=1)
+    br = row(f"fused_bwd_wf_window_kernel F={F_}", t_b, p_b,
+             kernel_work("fused_bwd_kernel", B, T, K, F_))
+    S_b = ff.default_seqs("backward", B, F_, dev, K=K)
+    lines.append(f"K={K}, F={F_} (niw 39), S={S_b}: the backward's "
+                 f"{ff.wf_backward_tier(S_b, K, F_)} tier {br}")
+    log(f"  {lines[-1]}")
+    del fwd, feats, src
+    torch.cuda.empty_cache()
 
     for D_ in WF_INKERNEL_D:
         log_pi, log_A, W, obs = mode_problem(gen, B, T, K, D_, "niw")
@@ -4345,6 +4435,7 @@ def wide_f_phase(dev) -> tuple[list[dict], list[str]]:
     times, lines = wf_time(dev)
     e66 = errs["niw", 10, K, B]
     max_err = {"fused_fwd_wf_kernel": e66["fwd"], "fused_bwd_wf_kernel": e66["bwd"],
+               "fused_bwd_wf_window_kernel": errs["niw", 39, K, B]["bwd"],
                "fused_fwd_wide_wf_kernel<KP=256>": errs["niw", 10, 256, B]["fwd"],
                "fused_bwd_wide_wf_kernel<KP=256>": errs["niw", 10, 256, B]["bwd"],
                "fused_fwd_wf_kernel<niw>": e66["fwd"], "fused_bwd_wf_kernel<niw>": e66["bwd"],
@@ -4355,6 +4446,7 @@ def wide_f_phase(dev) -> tuple[list[dict], list[str]]:
                "split_bwd_kernel<bf16 alpha>": split_errs[K]["bwd"]}
     timed = {"fused_fwd_wf_kernel": "fused_fwd_wf_kernel F=66",
              "fused_bwd_wf_kernel": "fused_bwd_wf_kernel F=66",
+             "fused_bwd_wf_window_kernel": "fused_bwd_wf_window_kernel F=820",
              "fused_fwd_wide_wf_kernel<KP=256>": "fused_fwd_wide_wf_kernel<KP=256> F=66",
              "fused_bwd_wide_wf_kernel<KP=256>": "fused_bwd_wide_wf_kernel<KP=256> F=66"}
     rows = []

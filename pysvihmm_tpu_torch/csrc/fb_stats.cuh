@@ -23,6 +23,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
 #include "fb_common.cuh"
 
 namespace fbs {
@@ -422,12 +424,53 @@ build_feats_kernel(const float* __restrict__ obs, float* __restrict__ out, long 
   out[e] = fbc::feat_at<KIND>(obs + r * D, D, static_cast<int>(e - r * F));
 }
 
-// out[e] = a16[e] widened to float32, e < n.
+// out[e] = a16[e] widened to float32, e < n: exact, so every bit is the
+// twin's (.to(torch.float32)). Bound by bytes (2 read and 4 written a value;
+// 54 MB, 0.0162 ms at 3.35 TB/s, on the main path's window of 69 x 1024
+// rows of 128). Each thread widens eight values at a time, one 16-byte load
+// and two 16-byte stores (four 8-byte or eight 4-byte ones where out is
+// offset otherwise from a16, which the launcher reads off the pointers:
+// `ow` floats a store), over a grid sized to the card and strided across
+// the vectors; the values before the first 16-byte boundary of a16 (the
+// head: WideStats passes alpha16 + (ta - 1) B K, which is not on 16 bytes
+// when B K is not a multiple of 8) and those after the last whole vector
+// (the tail) take a thread each.
 static __global__ void __launch_bounds__(PREP_NT)
-widen_kernel(const __nv_bfloat16* __restrict__ a16, float* __restrict__ out, long long n) {
-  const long long e = (long long)blockIdx.x * PREP_NT + threadIdx.x;
-  if (e < n) out[e] = __bfloat162float(a16[e]);
+widen_kernel(const __nv_bfloat16* __restrict__ a16, float* __restrict__ out, long long n,
+             int head, int ow) {
+  const long long nv = (n - head) / 8;  // whole vectors after the head
+  const long long tail = head + 8 * nv;
+  const long long id = (long long)blockIdx.x * PREP_NT + threadIdx.x;
+  const long long stride = (long long)gridDim.x * PREP_NT;
+  if (id < head) out[id] = __bfloat162float(a16[id]);
+  if (id < n - tail) out[tail + id] = __bfloat162float(a16[tail + id]);
+  const uint4* src = reinterpret_cast<const uint4*>(a16 + head);
+  float* dst = out + head;
+  for (long long v = id; v < nv; v += stride) {
+    const uint4 u = __ldg(src + v);
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+    float x[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // a bf16 is the high half of its float32
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+    float* o = dst + 8 * v;
+    if (ow == 4) {
+      reinterpret_cast<float4*>(o)[0] = make_float4(x[0], x[1], x[2], x[3]);
+      reinterpret_cast<float4*>(o)[1] = make_float4(x[4], x[5], x[6], x[7]);
+    } else if (ow == 2) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        reinterpret_cast<float2*>(o)[i] = make_float2(x[2 * i], x[2 * i + 1]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) o[i] = x[i];
+    }
+  }
 }
+
+constexpr int WIDEN_BLOCKS_PER_SM = 8;  // the widening's grid: blocks an SM at most (2,048 threads)
 
 inline unsigned prep_blocks(long long n) { return static_cast<unsigned>((n + PREP_NT - 1) / PREP_NT); }
 
@@ -449,8 +492,19 @@ inline cudaError_t build_feats(int kind, const float* obs, float* out, long long
 
 inline cudaError_t widen(const __nv_bfloat16* a16, float* out, long long n, cudaStream_t st) {
   if (n <= 0) return cudaSuccess;
-  widen_kernel<<<prep_blocks(n), PREP_NT, 0, st>>>(a16, out, n);
-  const cudaError_t e = cudaGetLastError();
+  const unsigned long long pa = reinterpret_cast<unsigned long long>(a16);
+  const long long head = std::min<long long>(n, ((16 - pa % 16) % 16) / 2);
+  const unsigned long long po = reinterpret_cast<unsigned long long>(out + head);
+  const int ow = po % 16 == 0 ? 4 : po % 8 == 0 ? 2 : 1;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const long long need = std::max<long long>(prep_blocks((n - head) / 8), 1);
+  const unsigned grid =
+      static_cast<unsigned>(std::min<long long>(need, (long long)sms * WIDEN_BLOCKS_PER_SM));
+  widen_kernel<<<grid, PREP_NT, 0, st>>>(a16, out, n, static_cast<int>(head), ow);
+  e = cudaGetLastError();
   if (e == cudaSuccess) ++prep_launch_count[1];
   return e;
 }

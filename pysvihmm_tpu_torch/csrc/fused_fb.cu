@@ -117,12 +117,17 @@
 // Features wider than FMAX = 64 (a Gaussian-NIW at D >= 10, a multinomial
 // of 65-256 symbols; JAX's fused kernels take any F) run the WF instances,
 // F a run-time loop bound (fused_fb_kernels.cuh; built by fused_fb_wide.cu
-// and fused_fb_wide_modes.cu). Up to K = 64 (fb_seqs_wf.cuh) W^T lies in
-// shared memory (the groups of features beyond what fits there, from L2)
-// and the rows arrive by cp.async two steps ahead; eacc leaves
-// the chain as the large-K statistics' does (w_t gamma_t a window of time
-// steps a launch, the 3xTF32 outer sums), while acc stays in registers,
-// carried between the windows through the blocks' rows of partials. Above
+// and fused_fb_wide_modes.cu). Up to K = 64 (fb_seqs_wf.cuh) the forward
+// holds W^T in shared memory (the groups of features beyond what fits
+// there, from L2) and its rows arrive by cp.async two steps ahead. The
+// backward's tiled tier (up to about F = 310) runs the chain beside two or
+// four tile warps, which compute ll a window of steps ahead and add eacc a
+// window behind in shared memory, one launch over T, a row of acc
+// partials a chain group and of eacc a block; its window tier (wider F) has eacc
+// leave the chain as the large-K statistics' does (w_t gamma_t a window of
+// time steps a launch, the 3xTF32 outer sums), while acc stays in
+// registers, carried between the windows through the blocks' rows of
+// partials. Above
 // K = 64 (fb_wide.cuh's WF flag) A~ fills shared memory and W is read from
 // device memory (L2) at each step. Either way ll_t is summed in blocks of
 // 64 features (one fmaf chain a block, the blocks added in order), the
@@ -178,29 +183,60 @@ const void* instance(int which, int S, int K, int F, int kind, bool modes, int* 
                : fbf::instance_m<false>(which, S, K, F, kind, smem);
 }
 
-// The chain kernel of (which, S, K, kind): ceil(B / S) blocks of KMAX
-// threads up to KMAX states, of KP threads above.
+// The threads a block of the chain kernel (which, S, K, F): KMAX up to KMAX
+// states (the chain groups' and the tile warps' in the WF backward's tiled
+// tier), KP above.
+int threads_of(int which, int S, int K, int F) {
+  if (K > KMAX) return fbw::tier_of(K);
+  return which != 0 && fbf::wf_tiled(S, K, F) ? fbf::wf_tiled_plan(S, F).threads() : NT;
+}
+
+// The chain groups of S sequences a block of (which, S, K, F) runs: G in the
+// WF backward's tiled tier, else 1.
+int groups_of(int which, int S, int K, int F) {
+  return which != 0 && fbf::wf_tiled(S, K, F) ? fbf::wf_tiled_plan(S, F).groups : 1;
+}
+
+// Launches of the backward's chain kernels since the count was last
+// cleared (fused_fb_backward_launches).
+long long backward_launch_count = 0;
+
+// The chain kernel of (which, S, K, kind): ceil(B / (S G)) blocks of
+// threads_of threads, G = groups_of.
 cudaError_t launch(int which, int S, int T, int B, int K, int F, int kind, bool modes,
                    cudaStream_t st, void** args) {
   int smem = 0;
   const void* fn = instance(which, S, K, F, kind, modes, &smem);
   if (fn == nullptr) return cudaErrorInvalidValue;
-  const dim3 grid((B + S - 1) / S);
-  if (K > KMAX) return fbw::launch_dyn(fn, grid, fbw::tier_of(K), smem, st, args);
-  if (F > FMAX) return fbw::launch_dyn(fn, grid, NT, smem, st, args);
-  const cudaError_t e = cudaLaunchKernel(fn, grid, dim3(NT), args, smem, st);
-  return e != cudaSuccess ? e : cudaGetLastError();
+  const int per_block = S * groups_of(which, S, K, F);
+  const dim3 grid((B + per_block - 1) / per_block);
+  const int nt = threads_of(which, S, K, F);
+  cudaError_t e;
+  if (K > KMAX || F > FMAX) {
+    e = fbw::launch_dyn(fn, grid, nt, smem, st, args);
+  } else {
+    e = cudaLaunchKernel(fn, grid, dim3(nt), args, smem, st);
+    if (e == cudaSuccess) e = cudaGetLastError();
+  }
+  if (e == cudaSuccess && which != 0) ++backward_launch_count;
+  return e;
 }
 
 // Floats of scratch the backward takes: K <= KMAX, a row of partials a
-// block (at F > FMAX a row of acc partials a block beside a window's gw, the
-// carry, eacc's outer-sum partials and a built kind's feature rows); above,
+// block (at F > FMAX the same in the tiled tier, and in the window tier a
+// row of acc partials a block beside a window's gw, the carry, eacc's
+// outer-sum partials and a built kind's feature rows); above,
 // a window's dn and gw, the carry, the outer sums' partials and (bf16
 // alpha, a built kind) the window's widened alpha and built feature rows
 // (fbs::WideStats).
 long long scratch_floats(int T, int B, int K, int F, int S, int kind, bool abf) {
   const int blocks = (B + S - 1) / S;
   if (K <= KMAX && F <= FMAX) return (long long)blocks * (K * K + K * F);
+  if (fbf::wf_tiled(S, K, F)) {  // a row of acc a chain group, of eacc a block
+    const int G = fbf::wf_tiled_plan(S, F).groups;
+    const long long nb = (B + S * G - 1) / (S * G);
+    return nb * G * K * K + nb * K * F;
+  }
   if (K <= KMAX) return fbs::WideStats::floats(T, B, K, F, kind, abf, blocks);
   return fbs::WideStats::floats(T, B, K, F, kind, abf);
 }
@@ -252,8 +288,9 @@ int fused_fb_forward(const float* pi, const float* A, const float* W, const floa
 // w is null for the ungated launch, else the (T, B) kept-mask; the kernel
 // forms the pair gate from it. stats receives acc (K, K) and then eacc
 // (K, F), summed in a fixed order (fb_stats.cuh); scratch holds
-// fused_fb_scratch floats. Above K = 64 the backward runs a window of time
-// steps a launch (fbs::WideStats), several launches for a long T. src,
+// fused_fb_scratch floats. Above K = 64, and up to it in the WF window tier,
+// the backward runs a window of time steps a launch (fbs::WideStats),
+// several launches for a long T. src,
 // kind, alpha and alpha16 as fused_fb_forward's (alpha as stored there).
 // sel, where not null, is the (B,) int32 time pick: gamma0 then takes each
 // sequence's ungated gamma at t = sel[b] (zeros for a pick outside 0 ..
@@ -271,14 +308,24 @@ int fused_fb_backward(const float* A, const float* W, const float* src, const fl
   const __nv_bfloat16* a16 = static_cast<const __nv_bfloat16*>(alpha16);
   const int which = w != nullptr ? 2 : 1;
   const bool modes = a16 != nullptr || sel != nullptr;
-  if (K <= KMAX && F <= FMAX) {
+  if (K <= KMAX && (F <= FMAX || fbf::wf_tiled(S, K, F))) {
     void* args[] = {&A, &W, &src, &alpha, &a16, &s, &sh, &w, &sel, &gamma, &gamma0, &scratch,
                     &T, &B, &K, &F};
     e = launch(which, S, T, B, K, F, kind, modes, st, args);
     if (e != cudaSuccess) return static_cast<int>(e);
-    return static_cast<int>(fbs::sum_partials(scratch, (B + S - 1) / S, K * K + K * F, stats, st));
+    if (F <= FMAX)
+      return static_cast<int>(
+          fbs::sum_partials(scratch, (B + S - 1) / S, K * K + K * F, stats, st));
+    // the tiled tier: acc's rows a group (the first ceil(B / S), an S-sequence
+    // block's each), then eacc's a block
+    const int G = fbf::wf_tiled_plan(S, F).groups;
+    const int nb = (B + S * G - 1) / (S * G);
+    e = fbs::sum_partials(scratch, (B + S - 1) / S, K * K, stats, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(fbs::sum_partials(scratch + (size_t)nb * G * K * K, nb, K * F,
+                                              stats + K * K, st));
   }
-  if (K <= KMAX) {  // F > FMAX: acc in the chain, eacc a window at a time
+  if (K <= KMAX) {  // the WF window tier: acc in the chain, eacc a window at a time
     const int blocks = (B + S - 1) / S;
     const fbs::WideStats ws(scratch, T, B, K, F, kind, a16 != nullptr, blocks);
     float *part = ws.part_a, *gw = ws.gw, *carry = ws.carry;
@@ -350,6 +397,22 @@ int fused_fb_widen(const void* a16, float* out, long long n, int device, void* s
                                      static_cast<cudaStream_t>(stream)));
 }
 
+// Launches of the backward's chain kernels (every tier, one a window where
+// the backward runs windows) since the count was last cleared; clears it
+// when `clear`.
+int fused_fb_backward_launches(int clear) {
+  const long long n = backward_launch_count;
+  if (clear != 0) backward_launch_count = 0;
+  return static_cast<int>(n);
+}
+
+// 1 where the backward (S, K, F) runs the WF instances' tiled tier (K <= 64,
+// F > FMAX and its shared memory within fbwf::SMEM_CAP: every feature kind
+// alike), else 0.
+int fused_fb_wf_tiled(int S, int K, int F) {
+  return fbf::wf_tiled(S, K, F) ? 1 : 0;
+}
+
 // Launches of build_feats_kernel (which = 0) or widen_kernel (1) by this
 // library (the large-K backward and the two entry points above) since the
 // count was last cleared; clears it when `clear`.
@@ -361,11 +424,12 @@ int fused_fb_prep_launches(int which, int clear) {
 // `device`: out[0] registers a thread, out[1] static and out[2] dynamic
 // shared bytes a block, out[3] local (spilled) bytes a thread, out[4]
 // resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// out[5] the device's SMs, out[6] threads a block. which = 0 forward, 1
-// backward, 2 gated backward; K > 64 names the large-K instance of its KP;
-// modes the modes' instance (the launchers' with bf16 alpha or the pick),
-// else the default one; F > FMAX the WF instance, whose shared memory grows
-// with F: out[4] is 0 where the card cannot give it.
+// out[5] the device's SMs, out[6] threads a block, out[7] chain groups of S
+// sequences a block (G in the WF backward's tiled tier, else 1). which = 0
+// forward, 1 backward, 2 gated backward; K > 64 names the large-K instance
+// of its KP; modes the modes' instance (the launchers' with bf16 alpha or
+// the pick), else the default one; F > FMAX the WF instance, whose shared
+// memory grows with F: out[4] is 0 where the card cannot give it.
 int fused_fb_kernel_info(int which, int S, int K, int F, int kind, int modes, int device,
                          int* out) {
   if (bad_shape(1, 1, K, F) || bad_kind(kind, F) || which < 0 || which > 2)
@@ -373,7 +437,7 @@ int fused_fb_kernel_info(int which, int S, int K, int F, int kind, int modes, in
   int smem = 0;
   const void* fn = instance(which, S, K, F, kind, modes != 0, &smem);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const int nt = K > KMAX ? fbw::tier_of(K) : NT;
+  const int nt = threads_of(which, S, K, F);
   cudaError_t e = cudaSetDevice(device);
   cudaFuncAttributes attr;
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
@@ -395,6 +459,7 @@ int fused_fb_kernel_info(int which, int S, int K, int F, int kind, int modes, in
   out[4] = blocks;
   out[5] = sms;
   out[6] = nt;
+  out[7] = groups_of(which, S, K, F);
   return 0;
 }
 

@@ -88,10 +88,13 @@ fused_bwd_wide_kernel(const float* __restrict__ A, const float* __restrict__ W,
 }
 
 // The WF instances, at any F. Up to K = 64: fbwf's forward, which takes the
-// forward's arguments, and its backward over a window [t0, t1) of time
-// steps, which takes the large-K backward's (its `part` in the place of dn:
-// the block's rows of acc partials, read back and written each window; gw
-// the window's w_t gamma_t; carry b'_{t0-1}).
+// forward's arguments, and its backward in two tiers (fb_seqs_wf.cuh):
+// the tiled one, which takes the F <= FMAX backward's arguments (one launch;
+// a row of acc partials a chain group, of eacc a block) in blocks of
+// fbwf::tiled_plan, and the window one over a window [t0, t1) of time steps, which
+// takes the large-K backward's (its `part` in the place of dn: the block's
+// rows of acc partials, read back and written each window; gw the window's
+// w_t gamma_t; carry b'_{t0-1}).
 template <int S, int KIND, bool ABF>
 __global__ void __launch_bounds__(NT)
 fused_fwd_wf_kernel(const float* __restrict__ pi, const float* __restrict__ A,
@@ -105,15 +108,31 @@ fused_fwd_wf_kernel(const float* __restrict__ pi, const float* __restrict__ A,
 }
 
 template <int S, bool GATED, int KIND, bool MODES>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(fbwf::tiled_max_threads<S>())
 fused_bwd_wf_kernel(const float* __restrict__ A, const float* __restrict__ W,
                     const float* __restrict__ src, const float* __restrict__ alpha,
                     const __nv_bfloat16* __restrict__ alpha16, const float* __restrict__ s_in,
                     const float* __restrict__ sh_in, const float* __restrict__ w_in,
                     const int* __restrict__ sel, float* __restrict__ gamma,
-                    float* __restrict__ gamma0, float* __restrict__ part,
-                    float* __restrict__ gw, float* __restrict__ carry, int T, int B, int K,
-                    int F, int t0, int t1) {
+                    float* __restrict__ gamma0, float* __restrict__ part, int T, int B, int K,
+                    int F) {
+  extern __shared__ __align__(16) float smem[];
+  fbwf::seq_backward_tiled<S, GATED, KIND, MODES>(A, W, src, alpha, alpha16, s_in, sh_in, w_in,
+                                                  sel, gamma, gamma0, part, T, B, K, F,
+                                                  blockIdx.x, smem);
+}
+
+template <int S, bool GATED, int KIND, bool MODES>
+__global__ void __launch_bounds__(NT)
+fused_bwd_wf_window_kernel(const float* __restrict__ A, const float* __restrict__ W,
+                           const float* __restrict__ src, const float* __restrict__ alpha,
+                           const __nv_bfloat16* __restrict__ alpha16,
+                           const float* __restrict__ s_in, const float* __restrict__ sh_in,
+                           const float* __restrict__ w_in, const int* __restrict__ sel,
+                           float* __restrict__ gamma, float* __restrict__ gamma0,
+                           float* __restrict__ part, float* __restrict__ gw,
+                           float* __restrict__ carry, int T, int B, int K, int F, int t0,
+                           int t1) {
   extern __shared__ __align__(16) float smem[];
   fbwf::seq_backward_wf<S, GATED, KIND, MODES>(A, W, src, alpha, alpha16, s_in, sh_in, w_in,
                                                sel, gamma, gamma0, gw, carry, part, T, B, K,
@@ -154,16 +173,35 @@ fused_bwd_wide_wf_kernel(const float* __restrict__ A, const float* __restrict__ 
 
 // The WF instance of (which, S, K, F, KIND, M) and its dynamic shared memory
 // at F: S in {2, 4} up to K = 64, {1, 2, 4, 8} above, as the instances for F
-// <= FMAX. Null for an S not built.
+// <= FMAX; up to K = 64 the backward's tier by fbwf::tiled_fits. Null for an
+// S not built.
 template <int S, int KIND, bool M>
 const void* wf_at(int which, int F, int* smem) {
   if (which == 0) {
     *smem = fbwf::forward_smem<S, KIND>(F);
     return reinterpret_cast<const void*>(fused_fwd_wf_kernel<S, KIND, M>);
   }
+  if (fbwf::tiled_fits<S>(F)) {
+    *smem = fbwf::tiled_smem<S>(F);
+    return which == 1 ? reinterpret_cast<const void*>(fused_bwd_wf_kernel<S, false, KIND, M>)
+                      : reinterpret_cast<const void*>(fused_bwd_wf_kernel<S, true, KIND, M>);
+  }
   *smem = fbwf::backward_smem<S, KIND>(F);
-  return which == 1 ? reinterpret_cast<const void*>(fused_bwd_wf_kernel<S, false, KIND, M>)
-                    : reinterpret_cast<const void*>(fused_bwd_wf_kernel<S, true, KIND, M>);
+  return which == 1
+             ? reinterpret_cast<const void*>(fused_bwd_wf_window_kernel<S, false, KIND, M>)
+             : reinterpret_cast<const void*>(fused_bwd_wf_window_kernel<S, true, KIND, M>);
+}
+
+// Whether the backward (S, K, F) is the WF instance's tiled tier (up to K =
+// 64 at F > FMAX, where fbwf::tiled_fits; every feature kind alike), which
+// takes the F <= FMAX backward's arguments in blocks of wf_tiled_plan.
+inline bool wf_tiled(int S, int K, int F) {
+  if (K > KMAX || F <= fbc::FMAX) return false;
+  return S == 2 ? fbwf::tiled_fits<2>(F) : S == 4 ? fbwf::tiled_fits<4>(F) : false;
+}
+
+inline fbwf::TiledPlan wf_tiled_plan(int S, int F) {
+  return S == 2 ? fbwf::tiled_plan<2>(F) : fbwf::tiled_plan<4>(F);
 }
 
 template <int KP, int S, int KIND, bool M>

@@ -26,8 +26,12 @@ tier (``csrc/fb_seqs_wf.cuh`` up to K = 64, ``fb_wide.cuh``'s WF flag
 above), F a run-time bound: every F whose instance's shared memory the card
 gives, as JAX's fused kernels take any F (up to K = 64 the groups of W^T
 beyond what shared memory holds are read from L2, so only the feature
-slots bound F: about 6,100 there, 4,200 at K = 256); up to K = 64 their
-eacc leaves the chain as the large-K statistics' does. For 65 <= K <= 256 they launch the large-K instances
+slots bound F: about 6,100 there, 4,200 at K = 256). Up to K = 64 the WF
+backward has two tiers (:func:`wf_backward_tier`): the tiled one (up to
+about F = 310) computes ll a window of steps ahead of the chain and adds
+eacc a window behind it on two or four more warps a block, eacc in shared memory,
+one launch over T; past it the window tier has eacc leave the chain as the
+large-K statistics' does. For 65 <= K <= 256 they launch the large-K instances
 (``fused_fwd_wide_kernel<KP, S>``, ``fused_bwd_wide_kernel<KP, S, GATED>``,
 KP = 128 or 256 padded states, S in :data:`WIDE_SEQS`): S sequences a block
 over one copy of A~, one thread a state, S by the same rule, and the
@@ -186,6 +190,8 @@ def _library():
          "fused_fb_build_feats": "pp" "l" "iiii" "p",
          "fused_fb_widen": "pp" "l" "i" "p",
          "fused_fb_prep_launches": "ii",
+         "fused_fb_backward_launches": "i",
+         "fused_fb_wf_tiled": "iii",
          "fused_fb_kmax": ""},
         "fused_fb_error_string",
     )
@@ -259,8 +265,10 @@ def kernel_info(kernel: str, S: int, F: int, device: torch.device | None = None,
     else the default one. Returns registers (a thread), static_smem and
     dynamic_smem (bytes a block), local_bytes (spills, a thread),
     blocks_per_sm (resident, by the CUDA occupancy calculator; 0 where the
-    card cannot give a WF instance its shared memory at F), sms (the card's)
-    and threads (a block)."""
+    card cannot give a WF instance its shared memory at F), sms (the card's),
+    threads (a block) and groups (the chain groups of S sequences a block
+    runs: in the WF backward's tiled tier at S = 2, 2 up to F = 116 and 4
+    above, else 1)."""
     dev = device if device is not None else torch.device("cuda")
     return dict(_kernel_info(kernel, S, F, instance_tier(K), device_index(dev),
                              kind_code(in_kernel_feats), modes))
@@ -269,14 +277,14 @@ def kernel_info(kernel: str, S: int, F: int, device: torch.device | None = None,
 @functools.cache
 def _kernel_info(kernel: str, S: int, F: int, K: int, index: int, kind: int = 0,
                  modes: bool = False) -> tuple:
-    out = (ctypes.c_int * 7)()
+    out = (ctypes.c_int * 8)()
     lib = _library()
     code = lib.fused_fb_kernel_info(_KERNELS[kernel], S, K, F, kind, int(modes), index,
                                     ctypes.addressof(out))
     raise_on(lib.fused_fb_error_string, code,
              f"fused_fb_kernel_info({kernel}, S={S}, K={K}, F={F}, kind={kind}, modes={modes})")
     keys = ("registers", "static_smem", "dynamic_smem", "local_bytes", "blocks_per_sm", "sms",
-            "threads")
+            "threads", "groups")
     return tuple(zip(keys, list(out)))
 
 
@@ -294,8 +302,10 @@ def _default_seqs(kernel: str, B: int, F: int, K: int, index: int, kind: int = 0
                   modes: bool = False) -> int:
     seqs = built_seqs(K)
     info = {S: dict(_kernel_info(kernel, S, F, K, index, kind, modes)) for S in seqs}
-    return seqs_per_block(B, {S: i["blocks_per_sm"] * i["sms"] for S, i in info.items()},
-                          seqs=seqs)
+    # resident chain groups of S sequences (a block runs several in the WF
+    # backward's tiled tier)
+    return seqs_per_block(
+        B, {S: i["blocks_per_sm"] * i["groups"] * i["sms"] for S, i in info.items()}, seqs=seqs)
 
 
 def _seqs(kernel: str, S: int | None, B: int, K: int, F: int, index: int, kind: int = 0,
@@ -386,13 +396,18 @@ def count_mode(fn, in_kernel_feats, gamma_sel=None, alpha_dtype=torch.float32,
             counts[mode] = counts.get(mode, 0) + 1
 
 
-def count_wide(fn, K, F, in_kernel_feats, gamma_sel=None, alpha_dtype=torch.float32) -> None:
+def count_wide(fn, K, F, in_kernel_feats, gamma_sel=None, alpha_dtype=torch.float32,
+               width_tier: str | None = None) -> None:
     """A launch of a WF instance (F > FMAX): one more in the launcher's
     ``wf_launches`` under its tier (64, 128 or 256 states, as
-    ``_launch.instance_tier``) and in ``wf_mode_launches`` for each mode."""
+    ``_launch.instance_tier``), under ``width_tier`` (the backward's up to
+    K = 64: "tiled" or "window", :func:`wf_backward_tier`) where given, and
+    in ``wf_mode_launches`` for each mode."""
     if F > FMAX:
         tier = instance_tier(K)
         fn.wf_launches[tier] = fn.wf_launches.get(tier, 0) + 1
+        if width_tier is not None:
+            fn.wf_launches[width_tier] = fn.wf_launches.get(width_tier, 0) + 1
         count_mode(fn, in_kernel_feats, gamma_sel, alpha_dtype, fn.wf_mode_launches)
 
 
@@ -512,7 +527,8 @@ def _launch_backward(S: int | None, A_t, W, feats, alpha, s, sh, emit_gamma=Fals
     acc, eacc = stats[: K * K].view(K, K), stats[K * K:].view(K, F)
     fused_backward.launches += 1
     count_mode(fused_backward, in_kernel_feats, sel, alpha.dtype)
-    count_wide(fused_backward, K, F, in_kernel_feats, sel, alpha.dtype)
+    width_tier = _wf_backward_tier(S, K, F) if F > FMAX and K <= KMAX_SEQS else None
+    count_wide(fused_backward, K, F, in_kernel_feats, sel, alpha.dtype, width_tier)
     raise_on(lib.fused_fb_error_string, code, "fused_bwd_kernel")
     return gamma, gamma0, acc, eacc
 
@@ -521,6 +537,40 @@ fused_backward.launches = 0
 fused_backward.mode_launches = {}
 fused_backward.wf_launches = {}
 fused_backward.wf_mode_launches = {}
+
+
+def wf_backward_tier(S: int, K: int, F: int) -> str:
+    """The tier of the fused backward's WF instance with S sequences a block
+    at K <= 64 states and F > :data:`FMAX` features (of any kind), as the
+    library chooses it before launch from (S, F) alone: "tiled" where its
+    shared memory (eacc, the feature and likelihood rings beside the
+    chain's arrays) fits a block (up to F = 316 at S = 4, 308 at S = 2),
+    else "window"; the launches count under it in
+    ``fused_backward.wf_launches``. Needs the library (the card's build)."""
+    if K > KMAX_SEQS or F <= FMAX:
+        raise ValueError(f"the WF backward's tiers are for K <= {KMAX_SEQS} and F > {FMAX}, "
+                         f"got K={K}, F={F}")
+    return _wf_backward_tier(S, K, F)
+
+
+@functools.cache
+def _wf_backward_tier(S: int, K: int, F: int) -> str:
+    return "tiled" if _library().fused_fb_wf_tiled(S, K, F) else "window"
+
+
+def backward_launches(clear: bool = False) -> int:
+    """Launches of the backward's chain kernels by the library since the
+    count was last cleared: one a call up to K = 64 (the WF tiled tier
+    included), one a window of time steps above and in the WF window tier.
+    Clears the count when ``clear``. 0 before the library is loaded."""
+    from .._build import loaded_library
+
+    lib = loaded_library(_LIB)
+    if lib is None:
+        return 0
+    fn = lib.fused_fb_backward_launches
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(int(clear))
 
 
 def reset_launch_counts() -> None:

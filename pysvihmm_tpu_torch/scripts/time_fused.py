@@ -10,9 +10,22 @@ call launches (torch.profiler), ungated and gated; at K > 64 last the
 backward's outer sums alone (``fused_fb.outer_sum``, where the checkout
 has it) beside torch.matmul on the same products, float32 and TF32.
 
+Given feature widths (a comma-separated list of ``niw:D``, a Gaussian-NIW
+at D dimensions, F = 1 + D + D (D + 1) / 2, and ``onehot:V``, the one-hot
+rows of V symbols, F = V), it times instead, at K (up to 64) and each
+width: the pair and the backward gated, each backward's kernels by
+torch.profiler, and the digests of the forward's outputs and, at S = 2 and
+4 (acc's grouping follows S), of the backward's gamma and gamma0, acc and
+eacc (ungated and gated), each S with eacc's largest difference from the
+float64 twin on the same inputs, relative to the largest |eacc| (eacc's
+bits follow the summation's grouping, which a redesign may change). Last,
+either way, ``fused_fb.widen_alpha`` (where the checkout has it) beside
+``.to(torch.float32)`` on the large-K SVI step's window of bf16 alpha (69 x
+1024 rows of 128).
+
 Usage, on a machine with an NVIDIA GPU and nvcc, from the repository root::
 
-    PYTHONPATH=<checkout> python pysvihmm_tpu_torch/scripts/time_fused.py [reps] [K]
+    PYTHONPATH=<checkout> python pysvihmm_tpu_torch/scripts/time_fused.py [reps] [K] [widths]
 
 It imports the ``pysvihmm_tpu_torch`` of ``<checkout>`` (``.`` for this one)
 and calls only what every version of the port has had since windowed SVI
@@ -81,6 +94,38 @@ def inputs(dev: torch.device, K: int = K, D: int = D):
     return log_pi, log_A, W, feats, w
 
 
+def onehot_inputs(dev: torch.device, K: int, V: int):
+    """chip_smoke.py phase 15's multinomial inputs at V symbols: the (T, B,
+    V) one-hot rows of symbols from sticky states and W = E[log phi]^T of a
+    Dirichlet posterior near the generating one; the parameters and the
+    kept-mask as :func:`inputs`'."""
+    from pysvihmm_tpu_torch.data.synthetic import gen_multinomial_dataset
+
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    obs, _, truth = gen_multinomial_dataset(gen, K, V, B, T)
+    conc = 50.0 * truth.theta[0] + 0.5 + torch.rand((K, V), generator=gen, device=dev)
+    W = dirichlet.expected_log_probs(conc).T.to(torch.float32).contiguous()
+    feats = torch.nn.functional.one_hot(obs.transpose(0, 1).long(), V).to(torch.float32)
+    u = lambda *shape, lo, hi: lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)  # noqa: E731
+    log_pi = dirichlet.expected_log_probs(u(K, lo=1.0, hi=3.0))
+    log_A = dirichlet.expected_log_probs(u(K, K, lo=1.0, hi=3.0) + 5.0 * torch.eye(K, device=dev))
+    offs = torch.randint(0, T - (5 * T) // 7 + 1, (B,), generator=gen, device=dev)
+    t = torch.arange(T, device=dev)[:, None]
+    w = ((t >= offs) & (t < offs + (5 * T) // 7)).to(torch.float32).contiguous()
+    return log_pi, log_A, W, feats.contiguous(), w
+
+
+def parse_widths(arg: str) -> list[tuple[str, int]]:
+    """``niw:10,onehot:100`` -> [("niw", 10), ("onehot", 100)]."""
+    out = []
+    for item in arg.split(","):
+        kind, size = item.split(":")
+        if kind not in ("niw", "onehot"):
+            raise ValueError(f"a width is niw:D or onehot:V, got {item!r}")
+        out.append((kind, int(size)))
+    return out
+
+
 def report(name: str, times: list[float]) -> None:
     print(f"{name}: " + " / ".join(f"{x:.3f}" for x in times)
           + f" ms (median {statistics.median(times):.3f}, min {min(times):.3f})", flush=True)
@@ -143,6 +188,63 @@ def outer_products(alpha: torch.Tensor, feats: torch.Tensor, reps: int) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def wide_width(dev: torch.device, k: int, kind: str, size: int, reps: int) -> None:
+    """The fused pair at one feature width above 64 (``kind`` "niw" at D =
+    size, "onehot" at V = size): digests, eacc against float64, times and
+    each backward's kernels (the module docstring)."""
+    make = inputs if kind == "niw" else onehot_inputs
+    log_pi, log_A, W, feats, w = make(dev, k, size)
+    pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+    F = feats.shape[-1]
+    alpha, s, sh = fused_fb.fused_forward(pi_t, A_t, W, feats)
+    tag = f"{kind}:{size} (F = {F}), K = {k}"
+    print(f"{tag}: fused_fwd_kernel's alpha, s, sh: sha256 {digest(alpha, s, sh)}", flush=True)
+    d = lambda x: None if x is None else x.double()  # noqa: E731
+    for name, weights in (("fused_bwd_kernel", None), ("fused_bwd_kernel, gated", w)):
+        ref = fused_fb.backward_reference(d(A_t), d(W), d(feats), d(alpha), d(s), d(sh), False,
+                                          d(weights))[3]
+        for S in (2, 4):  # acc's and eacc's grouping follow S: compare at each
+            g, g0, acc, eacc = fused_fb._launch_backward(S, A_t, W, feats, alpha, s, sh, True,
+                                                         weights)
+            rel = ((eacc.double() - ref).abs().max() / ref.abs().max()).item()
+            print(f"{tag}: {name}, S={S}: gamma, gamma0 sha256 {digest(g, g0)}, acc "
+                  f"{digest(acc)}, eacc {digest(eacc)}; max |eacc - float64| / max |float64| "
+                  f"= {rel:.3e}", flush=True)
+            del g, g0, acc, eacc
+        del ref
+    runs = {
+        "fused_fwd_kernel": lambda: fused_fb.fused_forward(pi_t, A_t, W, feats),
+        "fused_bwd_kernel": lambda: fused_fb.fused_backward(A_t, W, feats, alpha, s, sh),
+        "fused_bwd_kernel, gated": lambda: fused_fb.fused_backward(A_t, W, feats, alpha, s,
+                                                                   sh, False, w),
+    }
+    for name, fn in runs.items():
+        report(f"{tag}: {name}", [cuda_ms(fn, 20, warmup=3) for _ in range(reps)])
+    for name in ("fused_bwd_kernel", "fused_bwd_kernel, gated"):
+        profile_call(f"{tag}: {name}", runs[name])
+
+
+def widen_window(dev: torch.device, reps: int) -> None:
+    """widen_alpha (where the checkout has it) beside .to(torch.float32) on
+    the large-K SVI step's window of bf16 alpha: 69 x 1024 rows of 128, by
+    CUDA events around runs of launches and by the device time of 50 calls
+    (torch.profiler): the kernels are shorter than a launch on the host."""
+    gen = torch.Generator(device=dev).manual_seed(53)
+    a16 = torch.rand((69 * 1024, 128), generator=gen, device=dev).to(torch.bfloat16)
+    runs = {".to(torch.float32)": lambda: a16.to(torch.float32)}
+    if hasattr(fused_fb, "widen_alpha"):
+        same = torch.equal(fused_fb.widen_alpha(a16).view(torch.int32),
+                           a16.to(torch.float32).view(torch.int32))
+        print(f"widen_alpha over {tuple(a16.shape)} bf16: the twin's bits: {same}", flush=True)
+        runs["widen_alpha"] = lambda: fused_fb.widen_alpha(a16)
+    for name, fn in runs.items():
+        report(f"{name} over {tuple(a16.shape)} bf16, CUDA events", [cuda_ms(fn, 50, warmup=5)
+                                                                     for _ in range(reps)])
+        # the kernel is shorter than its launch on the host: its device time
+        profile_call(f"{name} over {tuple(a16.shape)} bf16, 50 calls",
+                     lambda fn=fn: [fn() for _ in range(50)])
+
+
 def svi_steps(dev: torch.device, reps: int) -> None:
     """ms per windowed SVI step on "auto" and "split", as chip_smoke.py's
     phase 5 times it (its chain of overlapping states)."""
@@ -169,6 +271,13 @@ def main(argv: list[str]) -> int:
     reps = int(argv[0]) if argv else 3
     k = int(argv[1]) if len(argv) > 1 else K
     dev = torch.device("cuda", 0)
+    if len(argv) > 2:
+        print(f"package {pysvihmm_tpu_torch.__file__}; (B, T) = ({B}, {T})", flush=True)
+        for kind, size in parse_widths(argv[2]):
+            wide_width(dev, k, kind, size, reps)
+            torch.cuda.empty_cache()
+        widen_window(dev, reps)
+        return card_line()
     log_pi, log_A, W, feats, w = inputs(dev, k)
     pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
     alpha, s, sh = fused_fb.fused_forward(pi_t, A_t, W, feats)
@@ -203,6 +312,12 @@ def main(argv: list[str]) -> int:
     del alpha, s, sh, feats, w, runs
     if k == K:
         svi_steps(dev, reps)
+    widen_window(dev, reps)
+    return card_line()
+
+
+def card_line() -> int:
+    """Print the card's name and power limit (nvidia-smi); returns 0."""
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True)
     print(card.stdout.strip().splitlines()[0])

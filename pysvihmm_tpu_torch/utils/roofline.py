@@ -60,9 +60,13 @@ def kernel_work(name: str, B: int, T: int, K: int, F: int = 0, gated: bool = Fal
     (both halves of the duplex chain); ``bf16_alpha`` (the fused and the
     split pair) moves alpha as 2-byte words, written by the forward and
     read by the backward. The fused pair's counts hold at any F: above F =
-    64 its instances (WF) write w_t gamma_t to a scratch window and read it
-    back for eacc's sums, traffic of the method and not of the function,
-    which the bound does not count.
+    64 its instances (WF) up to K = 64 compute ll on tile warps a window of
+    steps ahead of the chain and add eacc in shared memory a window behind
+    it, reading each window's feature rows once (the backward's tiled tier,
+    up to about F = 310); past that width, and above K = 64, they write w_t
+    gamma_t to a scratch window and read it back for eacc's sums, traffic
+    of the method and not of the function, which the bound does not
+    count.
 
     The large-K statistics' operand kernels of those modes, over the B T
     rows (t, b) of one window: "build_feats_kernel" reads D floats a row,

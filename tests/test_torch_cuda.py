@@ -51,6 +51,7 @@ from chip_smoke import (
     state_digests,
     store_remat_digests,
     svi_masks,
+    wf_problem,
 )
 from pysvihmm_tpu_torch import messages
 from pysvihmm_tpu_torch.data.loader import ShardedSequenceLoader
@@ -1124,6 +1125,68 @@ def test_modes_instances_report_their_own_occupancy(cuda_device, K):
             assert S in fused_fb.built_seqs(K)
 
 
+@pytest.mark.parametrize("n,offset", [(1, 0), (5, 3), (7, 0), (1003, 0), (1003, 2), (1003, 3),
+                                      (1003, 4), (69 * 1024 * 128, 0), (69 * 1024 * 128 - 8, 3)])
+def test_widen_kernel_is_to_float32_at_any_length_and_alignment(cuda_device, n, offset):
+    """widen_kernel (``fused_fb.widen_alpha``) bit for bit
+    ``.to(torch.float32)``, one launch a call: fewer than 8 values, lengths
+    not a multiple of 8, views whose start lies `offset` bf16 words past a
+    16-byte boundary (the head the kernel widens a value a thread, and
+    outputs offset by 4, 8 or 12 bytes from the loads: its 4-, 8- and
+    16-byte stores), and the main path's window of 69 x 1024 rows of 128;
+    signed zeros and infinities among the values."""
+    g = torch.Generator(device=cuda_device).manual_seed(n + offset)
+    base = torch.randn(n + offset, generator=g, device=cuda_device)
+    base[::7] = -0.0
+    base[1::11] = float("inf")
+    base[2::13] = -float("inf")
+    a = base.to(torch.bfloat16)[offset:]
+    assert (a.data_ptr() % 16 != 0) == (offset % 8 != 0)
+    fused_fb.prep_launches("widen_kernel", clear=True)
+    got = fused_fb.widen_alpha(a)
+    assert torch.equal(got.view(torch.int32), a.to(torch.float32).view(torch.int32))
+    assert fused_fb.prep_launches("widen_kernel") == 1
+
+
+@pytest.mark.parametrize("kind,size,T", [("niw", 10, 1000), ("onehot", 256, 1000),
+                                         ("niw", 23, 1000), ("niw", 39, 150)])
+def test_wf_backward_makes_one_chain_launch_and_no_operand_round_trip(cuda_device, kind, size,
+                                                                       T):
+    """Up to K = 64 the WF backward's tiled tier (F = 66, 256, and 300 on
+    its windows of 8 rows) makes one
+    chain launch a call over all of T and launches no outer_partial_kernel,
+    no build_feats_kernel and no widen_kernel, ungated and gated, with bf16
+    alpha and, for the NIW, on the raw observations; the window tier (F =
+    820) one chain launch and one outer sum a window of 2^17 / B steps (two
+    at T = 150), a feature build a window on the raw observations."""
+    B_, K_ = 1024, 64
+    g = torch.Generator(device=cuda_device).manual_seed(size)
+    log_pi, log_A, W, src, feats, ik = wf_problem(g, B_, T, K_, kind, size)
+    F = W.shape[0]
+    pi_t, A_t = split_fb.exp_params(log_pi, log_A)
+    w = svi_masks(g, B_, T, (5 * T) // 7)
+    S = fused_fb.default_seqs("backward", B_, F, cuda_device)
+    tiled = fused_fb.wf_backward_tier(S, K_, F) == "tiled"
+    assert tiled == (F < 400)
+    windows = -(-T // ((1 << 17) // B_))
+    fwd = fused_fb.fused_forward(pi_t, A_t, W, feats)
+    fwd16 = fused_fb.fused_forward(pi_t, A_t, W, feats, None, torch.bfloat16)
+    calls = [(feats, fwd, None, None), (feats, fwd, w, None), (feats, fwd16, w, None)]
+    if ik:
+        calls.append((src, fwd, None, ik))
+    for x, f, wg, mode in calls:
+        fused_fb.backward_launches(clear=True)
+        fused_fb.outer_launches(clear=True)
+        for name in fused_fb.PREP_KERNELS:
+            fused_fb.prep_launches(name, clear=True)
+        fused_fb.fused_backward(A_t, W, x, *f, False, wg, mode)
+        torch.cuda.synchronize()
+        got = (fused_fb.backward_launches(), fused_fb.outer_launches(),
+               fused_fb.prep_launches("build_feats_kernel"), fused_fb.prep_launches("widen_kernel"))
+        want = (1, 0, 0, 0) if tiled else (windows, windows, windows if mode else 0, 0)
+        assert got == want, (kind, size, wg is not None, f[0].dtype, mode)
+
+
 @pytest.mark.parametrize("B", WF_BS)
 @pytest.mark.parametrize("K", WF_KS)
 @pytest.mark.parametrize("kind,size", WF_CASES)
@@ -1131,9 +1194,10 @@ def test_wide_f_instances_match_twins(cuda_device, kind, size, K, B):
     """chip_smoke.py phase 15 (a) at one shape: the fused pair's instances
     for features wider than 64 (F = 65, 66, 100, 153, 256, 300, 820) at every S
     that fits, every output bit for bit across S and over a second call
-    (acc up to K = 64 excepted across S: summed a block at a time), a
+    (up to K = 64 acc excepted across S, and eacc in the backward's tiled
+    tier: summed a block at a time), a
     built kind's the array mode's, the pick emit_gamma's gamma, bf16 alpha
-    float32's rounded; the default S against the twins."""
+    float32's rounded; the backward at every S against the twins."""
     check_wide_f(torch.Generator(device=cuda_device).manual_seed(K + B + size), K, kind, size, B)
 
 

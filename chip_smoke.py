@@ -2417,17 +2417,30 @@ def kineto_busy(fn) -> tuple[float, float, int]:
     return wall, sum(e.duration_ns() for e in dev) / 1e6, len(dev)
 
 
+PROFILER_TRIES = 3  # device_ms: profiler runs before it falls back to CUDA events
+
+
 def device_ms(fn, calls: int = 50) -> float:
     """The card's busy ms a call of fn, a call that launches one kernel,
     over `calls` calls after a warm-up (torch.profiler, kineto_busy): for a
     kernel so short that the host's launch takes longer, which CUDA events
     around a run of launches would time instead. The busy time is divided
     by the kernels the profiler recorded, which may be one short of
-    `calls`."""
+    `calls`. The profiler now and then records no kernel at all: it is
+    then run again, up to PROFILER_TRIES times, and after that the call is
+    timed by CUDA events around the run of launches (an upper bound, the
+    launch gaps included), which the log says."""
+    from pysvihmm_tpu_torch.scripts.debug_split import cuda_ms
+
     fn()
-    _, busy, n = kineto_busy(lambda: [fn() for _ in range(calls)])
-    require(0 < n <= calls, f"device_ms: the profiler recorded {n} kernels of {calls} calls")
-    return busy / n
+    for _ in range(PROFILER_TRIES):
+        _, busy, n = kineto_busy(lambda: [fn() for _ in range(calls)])
+        require(n <= calls, f"device_ms: the profiler recorded {n} kernels of {calls} calls")
+        if n:
+            return busy / n
+    log(f"  device_ms: the profiler recorded no kernel in {PROFILER_TRIES} runs of {calls} "
+        "calls; timed by CUDA events instead")
+    return cuda_ms(fn, calls, warmup=0)
 
 
 def lc_stats_err(got, ref) -> tuple[float, float]:
@@ -4091,6 +4104,7 @@ WF_SVI_STEPS = 5  # windowed SVI steps a variant on the main path
 # the kernels line's rows of phase 15: (row, launcher, tier, mode, source, replaces)
 WF_ROWS = (
     ("fused_fwd_wf_kernel", "fused_fwd_kernel", 64, None, "fused_fb_wide.cu", "pallas_fb.py:516"),
+    ("ll_tile_kernel<64>", "ll_tile_kernel<64>", 64, None, "fb_stats.cuh", "pallas_fb.py:516"),
     ("fused_bwd_wf_kernel", "fused_bwd_kernel", "tiled", None, "fused_fb_wide.cu",
      "pallas_fb.py:577"),
     ("fused_bwd_wf_window_kernel", "fused_bwd_kernel", "window", None, "fused_fb_wide.cu",
@@ -4099,6 +4113,7 @@ WF_ROWS = (
      "pallas_fb.py:516"),
     ("fused_bwd_wide_wf_kernel<KP=256>", "fused_bwd_kernel", 256, None, "fused_fb_wide.cu",
      "pallas_fb.py:577"),
+    ("ll_tile_kernel<128>", "ll_tile_kernel<128>", 256, None, "fb_stats.cuh", "pallas_fb.py:577"),
     ("fused_fwd_wf_kernel<niw>", "fused_fwd_kernel", 64, "niw", "fused_fb_wide.cu",
      "pallas_fb.py:516"),
     ("fused_bwd_wf_kernel<niw>", "fused_bwd_kernel", 64, "niw", "fused_fb_wide.cu",
@@ -4120,7 +4135,10 @@ def wf_counts() -> dict:
     """Launches since the last reset: the fused pair's WF instances by (kernel,
     tier: the states' 64, 128 or 256, and up to K = 64 the backward's
     "tiled" or "window"), their modes by (kernel, mode), the split pair's
-    bf16 instances by (kernel, "bf16")."""
+    bf16 instances by (kernel, "bf16"), the WF likelihood tiles by
+    ("ll_tile_kernel<64>", 64) (the forward's up to K = 64) and
+    ("ll_tile_kernel<128>", 256) (the backward's above, at either KP; the
+    library's counts)."""
     from pysvihmm_tpu_torch.messages import fused_fb as ff
     from pysvihmm_tpu_torch.messages import split_fb as sf
 
@@ -4131,6 +4149,8 @@ def wf_counts() -> dict:
         counts.update({(name, m): n for m, n in fn.wf_mode_launches.items()})
     counts["split_fwd_kernel", "bf16"] = sf.split_forward.bf16_launches
     counts["split_bwd_kernel", "bf16"] = sf.split_backward.bf16_launches
+    counts["ll_tile_kernel<64>", 64] = ff.prep_launches("ll_tile_kernel<64>")
+    counts["ll_tile_kernel<128>", 256] = ff.prep_launches("ll_tile_kernel<128>")
     return counts
 
 
@@ -4146,7 +4166,9 @@ def wf_main_path(dev) -> tuple[dict, float]:
     gathering gamma and as many with the pick and bf16 alpha. Each K = 64
     E-step at F > 64 on the tiled tier launches one backward chain kernel,
     no outer sum and no feature build; the F = 820 one a chain kernel and
-    an outer sum for each window of 2^17 / B steps. Then each E-step
+    an outer sum for each window of 2^17 / B steps; the K = 256 one a
+    likelihood tile (128 states) and a chain kernel a window; every forward
+    at K = 64, F > 64 one likelihood tile (64 states). Then each E-step
     against "scan" and every SVI parameter finite. Returns the launches
     (wf_counts) and the set-up seconds."""
     import torch
@@ -4192,11 +4214,13 @@ def wf_main_path(dev) -> tuple[dict, float]:
     ff.backward_launches(clear=True)
     stats, per_case = [], []
     for _, fam, obs, p, kw, _ in cases:
+        tiles = ("ll_tile_kernel<64>", "ll_tile_kernel<128>")
         before = (ff.backward_launches(), ff.outer_launches(),
-                  ff.prep_launches("build_feats_kernel"))
+                  ff.prep_launches("build_feats_kernel"), *map(ff.prep_launches, tiles))
         stats.append(batch_local_step(p, fam, obs, "auto", need_gamma=False, **kw)[0])
         per_case.append((ff.backward_launches() - before[0], ff.outer_launches() - before[1],
-                         ff.prep_launches("build_feats_kernel") - before[2]))
+                         ff.prep_launches("build_feats_kernel") - before[2],
+                         *(ff.prep_launches(n) - b for n, b in zip(tiles, before[3:]))))
     finals = {}
     for modes in ({}, {"gamma_sel": True, "bf16_alpha": True}):
         step = svi.make_step(MultinomialDirichlet, cfg, SVI_T, "auto", **modes)
@@ -4207,9 +4231,19 @@ def wf_main_path(dev) -> tuple[dict, float]:
     torch.cuda.synchronize()
     counts = wf_counts()
     log(f"  the main path: launches {counts}")
-    for (label, _, obs, _, _, chain), (n_chain, n_outer, n_build) in zip(cases, per_case):
+    for (label, _, obs, _, _, chain), (n_chain, n_outer, n_build, n64, n128) in zip(cases,
+                                                                                   per_case):
         log(f"   {label}: backward chain launches {n_chain}, outer sums {n_outer}, feature "
-            f"builds {n_build}")
+            f"builds {n_build}, likelihood tiles {n64} (64 states) and {n128} (128)")
+        if "K=256" in label:  # a likelihood tile and a chain launch a window (obs (B, T, D))
+            windows = -(-obs.shape[1] // ((1 << 17) // obs.shape[0]))
+            require((n64, n128, n_chain) == (0, windows, windows),
+                    f"(main path) {label}: {n64} + {n128} likelihood tiles and {n_chain} chain "
+                    f"launches over {windows} windows")
+        else:  # the forward's tile at F > 64 (not the V = 1000 case: the split pair)
+            want = 0 if "V=1000" in label else 1
+            require((n64, n128) == (want, 0),
+                    f"(main path) {label}: {n64} + {n128} likelihood tiles, expected {want}")
         if chain is None:
             continue
         windows = chain > 1  # the window tier: eacc's outer sums a window
@@ -4238,7 +4272,10 @@ def wf_time(dev) -> tuple[dict, list[str]]:
     """Phase 15 (d), by CUDA events (median_ms) at B = 1024, T = 1000: the
     fused pair's WF instances at every WF_TIMED shape, ungated and gated,
     beside their twins and their bounds (phase 16 (c) times the fused and
-    split-route E-steps there beside the duplex one); the in-kernel NIW at
+    split-route E-steps there beside the duplex one); at F = 66 the
+    likelihood tile on the K = 64 forward's rows and on one window of the
+    K = 256 backward, against its float64 twin (to 1e-5 of the largest
+    |ll|) and beside torch.matmul; the in-kernel NIW at
     WF_INKERNEL_D; the pick at W = SVI_W against
     emit_gamma and the gather; bf16 alpha against float32 on the fused pair
     at F = 66 and the split pair at K = 64 and 256. Returns the rows' numbers
@@ -4286,11 +4323,30 @@ def wf_time(dev) -> tuple[dict, list[str]]:
             sfwd = sf.split_forward(pi_t, A_t, ll)
             t_s = median_ms(lambda: sf.split_backward(A_t, ll, *sfwd))
             info = ff.kernel_info("backward", S_b, F_, dev)
-            line += (f"; the {ff.wf_backward_tier(S_b, K_, F_)} tier ({info['registers']} "
-                     f"registers, {info['local_bytes']} spilled bytes, {info['dynamic_smem']} "
-                     f"shared bytes, {info['threads']} threads and {info['blocks_per_sm']} "
-                     f"blocks an SM); the split route's backward {t_s:.4f} ms")
+            t_sf = median_ms(lambda: sf.split_forward(pi_t, A_t, ll))
+            info = ff.kernel_info("backward", S_b, F_, dev)
+            line += (f"; the backward's {ff.wf_backward_tier(S_b, K_, F_)} tier "
+                     f"({info['registers']} registers, {info['local_bytes']} spilled bytes, "
+                     f"{info['dynamic_smem']} shared bytes, {info['threads']} threads and "
+                     f"{info['blocks_per_sm']} blocks an SM); the split route's forward "
+                     f"{t_sf:.4f} ms and backward {t_s:.4f} ms")
             del ll, sfwd
+        if F_ == 66 and K_ in (64, 256):  # the likelihood tiles at the main path's shapes
+            # the forward's over all T B rows up to K = 64, the backward's over one
+            # window above
+            X = feats.reshape(-1, F_) if K_ == 64 else feats[:(1 << 17) // B].reshape(-1, F_)
+            tname = "ll_tile_kernel<64>" if K_ == 64 else "ll_tile_kernel<128>"
+            got = ff.likelihood_tile(X, W)
+            # float32 sums of F products against float64: to 1e-5 of the largest |ll|
+            err = compare(f"{tname} against its twin in float64", got,
+                          ff.likelihood_tile_reference(X.double(), W.double()), 1e-5, 1e-4)
+            t_ll = median_ms(lambda: ff.likelihood_tile(X, W))
+            p_ll = median_ms(lambda: ff.likelihood_tile_reference(X, W))
+            lib_ll = median_ms(lambda: torch.matmul(X, W))
+            lr = row(tname, t_ll, p_ll, kernel_work("ll_tile_kernel", X.shape[0], 1, K_, F_))
+            rows[tname].update(max_abs_err=err, library_ms=lib_ll)
+            line += (f"; {tname} over {X.shape[0]} rows {lr}, torch.matmul {lib_ll:.4f} ms")
+            del X, got
         lines.append(line)
         log(f"  {lines[-1]}")
         del fwd, feats, src
@@ -4301,12 +4357,13 @@ def wf_time(dev) -> tuple[dict, list[str]]:
     F_ = W.shape[0]
     pi_t, A_t = exp_params(log_pi, log_A)
     fwd = ff.fused_forward(pi_t, A_t, W, feats)
+    t_f = median_ms(lambda: ff.fused_forward(pi_t, A_t, W, feats))
     t_b = median_ms(lambda: ff.fused_backward(A_t, W, feats, *fwd))
     p_b = cuda_ms(lambda: ff.backward_reference(A_t, W, feats, *fwd), 2, warmup=1)
     br = row(f"fused_bwd_wf_window_kernel F={F_}", t_b, p_b,
              kernel_work("fused_bwd_kernel", B, T, K, F_))
     S_b = ff.default_seqs("backward", B, F_, dev, K=K)
-    lines.append(f"K={K}, F={F_} (niw 39), S={S_b}: the backward's "
+    lines.append(f"K={K}, F={F_} (niw 39), S={S_b}: the forward {t_f:.4f} ms; the backward's "
                  f"{ff.wf_backward_tier(S_b, K, F_)} tier {br}")
     log(f"  {lines[-1]}")
     del fwd, feats, src
@@ -4435,6 +4492,8 @@ def wide_f_phase(dev) -> tuple[list[dict], list[str]]:
     times, lines = wf_time(dev)
     e66 = errs["niw", 10, K, B]
     max_err = {"fused_fwd_wf_kernel": e66["fwd"], "fused_bwd_wf_kernel": e66["bwd"],
+               "ll_tile_kernel<64>": times["ll_tile_kernel<64>"]["max_abs_err"],
+               "ll_tile_kernel<128>": times["ll_tile_kernel<128>"]["max_abs_err"],
                "fused_bwd_wf_window_kernel": errs["niw", 39, K, B]["bwd"],
                "fused_fwd_wide_wf_kernel<KP=256>": errs["niw", 10, 256, B]["fwd"],
                "fused_bwd_wide_wf_kernel<KP=256>": errs["niw", 10, 256, B]["bwd"],
@@ -4455,8 +4514,8 @@ def wide_f_phase(dev) -> tuple[list[dict], list[str]]:
         require(n > 0, f"phase 15: {name} was not launched on the main path")
         rows.append({"name": name, "route": "cuda", "source": f"pysvihmm_tpu_torch/csrc/{src}",
                      "replaces": f"pysvihmm_tpu/messages/{replaces}", "launches": n,
-                     "max_abs_err": max_err[name], **times[timed.get(name, name)],
-                     "library_ms": None})
+                     "library_ms": None, **times[timed.get(name, name)],
+                     "max_abs_err": max_err[name]})
     log(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s")
     return rows, lines
 
@@ -5514,7 +5573,10 @@ def main() -> int:
         f"D = 10, the V = {WF_V} SVI steps with the pick and bf16 alpha, the V = {WF_BIG_V} "
         f"split pair with bf16 alpha), max_abs_err against the twins at B = {B}, T = {WF_T} "
         f"(F = 66, the pick's at V = {WF_V}), ms at (B, T) = ({B}, {T}) and F = 66 (the pick's "
-        f"at V = {WF_V}, W = {SVI_W}; the split pair's at F = {F}); the duplex WF rows (phase "
+        f"at V = {WF_V}, W = {SVI_W}; the split pair's at F = {F}); the likelihood tiles "
+        f"(phase 15): max_abs_err against their float64 twins and ms at F = 66 on the forward's "
+        f"{B * T} rows (64 states) and on one window of the K = 256 backward (128 states), "
+        f"library_ms one float32 torch.matmul of the same rows and W; the duplex WF rows (phase "
         f"16): launches over its main-path run on duplex (VB for the NIW at D = 10, K = 64 and "
         f"256 and in-kernel at 64, {DWF_VB_ITERS} iterations each; {WF_SVI_STEPS} SVI steps at V "
         f"= {WF_V}), max_abs_err against the float64 twins at B = {B}, T = {WF_T}, F = 66 (the "

@@ -106,8 +106,9 @@
 // kernels take any F) run the WF instances, F a run-time loop bound,
 // compiled by duplex_fb_wide.cu. The chain: up to K = 64
 // duplex_chain_wf_kernel<S, KIND>, whose forward block runs fbwf::
-// seq_forward_wf (the fused WF forward's own function at the same S, so
-// alpha, s and sh are its bits) and whose backward block runs the raw
+// seq_forward_wf (whose alpha, s and sh are the fused WF forward's bits:
+// that forward sums the same ll_t by fbs::ll_tile, then runs the same
+// recursion) and whose backward block runs the raw
 // backward on the same layout (W^T's first groups in shared memory, the rest
 // from L2, the rows two steps ahead by cp.async, row k of A~ in registers),
 // ll_t summed as the forward sums it, in blocks of 64 features; above,

@@ -333,7 +333,7 @@ __device__ __forceinline__ void seq_raw_backward_wf(const float* __restrict__ A,
 
 // The WF chain up to K = 64 on a grid of (ceil(B/S), 2) blocks of NT
 // threads: blockIdx.y = 0 runs fbwf::seq_forward_wf (the fused WF forward's
-// own function at the same S), 1 the raw backward above; both halves take
+// bits at the same S), 1 the raw backward above; both halves take
 // the forward's dynamic shared memory (fbwf::forward_smem).
 template <int S, int KIND>
 __global__ void __launch_bounds__(NT)

@@ -1,13 +1,17 @@
 // The fused pair's chain kernels up to K = 64 at any feature width F (the
-// instances fused_fb_wide*.cu build for F > fbc::FMAX; fb_seqs.cuh holds the
-// layout this follows, and its instances for F <= FMAX).
+// backward's instances fused_fb_wide*.cu build for F > fbc::FMAX, and the
+// forward the duplex WF chain runs; fb_seqs.cuh holds the layout this
+// follows, and its instances for F <= FMAX). The fused forward itself at F
+// > FMAX sums ll with fbs::ll_tile first and runs fb_seqs.cuh's seq_forward
+// on it (its ll mode, the split forward's): seq_forward_wf's bits, so the
+// duplex WF chain's alpha, s and sh stay the fused forward's.
 //
 // What changes with the width. fb_seqs.cuh keeps column k of W (the
 // forward) and row k of eacc (the backward) in registers and pads F to one
 // of four compiled widths; neither scales past 64 features. Here F is a
 // run-time loop bound over groups of four features (nf4 = ceil(F / 4)).
 //
-// The forward (seq_forward_wf):
+// The forward (seq_forward_wf, the duplex WF chain's):
 //   * W lies in dynamic shared memory, k-major, row k of W^T at k * wst with
 //     wst = 4 (nws | 1): an odd number of 16-byte groups a row, so that the
 //     float4 reads of 32 threads at 32 rows are free of bank conflicts. 64 x

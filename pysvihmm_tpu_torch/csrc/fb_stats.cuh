@@ -353,13 +353,14 @@ inline long long outer_scratch(long long N, int I, int J) {
 
 // Launches of outer_partial_kernel by this library since the count was last
 // cleared: one a call of outer_sum with rows (the library exports it); and
-// of the operand kernels below, build_feats_kernel [0] and widen_kernel [1],
-// one a call of build_feats or widen with rows. Inline, so that the
-// translation units of one library share one count, and hidden from the
-// library's exports, so that each library keeps its own.
+// of the operand kernels below, build_feats_kernel [0], widen_kernel [1] and
+// ll_tile_kernel, its 64-state tile [2] and its 128-state one [3], one a
+// call of build_feats, widen or ll_tile with rows.
+// Inline, so that the translation units of one library share one count, and
+// hidden from the library's exports, so that each library keeps its own.
 #define FBS_LIBRARY_LOCAL __attribute__((visibility("hidden")))
 FBS_LIBRARY_LOCAL inline long long outer_launch_count = 0;
-FBS_LIBRARY_LOCAL inline long long prep_launch_count[2] = {0, 0};
+FBS_LIBRARY_LOCAL inline long long prep_launch_count[4] = {0, 0, 0, 0};
 #undef FBS_LIBRARY_LOCAL
 
 // The count, cleared when `clear` (each library exports this).
@@ -509,10 +510,219 @@ inline cudaError_t widen(const __nv_bfloat16* a16, float* out, long long n, cuda
   return e;
 }
 
-// The count of build_feats_kernel (which = 0) or widen_kernel (1), cleared
-// when `clear` (the fused and duplex libraries export this).
+// ---------------------------------------------------------------------------
+// The likelihood tile of the fused pair's WF instances: out (N, K) = X (N,
+// F) . W (F, K), W row-major, X the feature rows of N (t, b) rows: the
+// array's, or for a built kind (fbc::FEATS_NIW, FEATS_NIG) each feature
+// built from the raw observation rows (N, D) where it is staged (fbc::
+// feat_at: ell_features' float32 bits). It is the ll half of the TPU's
+// fused kernels, where ll is one tile matmul of a block of steps
+// (pysvihmm_tpu/messages/pallas_fb.py:516 _fwd_kernel_fused, :577
+// _bwd_kernel_fused; their pallas_calls :958, :1060 are the chains'): the
+// forward up to K = 64 sums the likelihoods of all T steps with it and its
+// chain reads them as the split forward does (fbseq::seq_forward's ll
+// mode), and the backward above K = 64 those of each window of its
+// statistics (fbs::WideStats), read by fbw::seqs_backward's LL chain. Both
+// chains thus keep F products a state and step off their serial path,
+// where up to K = 64 tile warps beside the chain (slower, as measured:
+// PERF.md) and at KP = 256 shared memory (A~ takes 192 of 227 KB) could
+// not hold them.
+//
+// Each element is the chains' own sum (fbw::WGlobal::lls, fbwf::ll_from):
+// over f = 0 .. 4 ceil(F / 4) - 1 (zero beyond F) in blocks of 64 features,
+// each block's fmaf chain from zero in feature order, the blocks added in
+// order; so lik_t is the fused kernels' own bits and every output theirs.
+//
+// What bounds it on this card: 2 N K F flops in float32 FFMA (tensor cores
+// would round the features below float32) against 4 (N F + F K + N K)
+// bytes; at K = 256, F = 66 on a window of 2^17 rows, 4.4 GFLOP (0.066 ms
+// at 67 TFLOP/s) against 168 MB (0.050 ms at 3.35 TB/s), so the FMA pipe.
+// The design is a register-blocked SGEMM tile: blocks of LT_BM rows by BN
+// states (64 up to K = 64, else 128), 256 threads each computing 8 rows by
+// BN / 16 states (groups of 4 states 64 apart, so that a warp's float4
+// reads of W are free of bank conflicts), so that every float4 of X or of
+// W read from shared memory feeds 16 or 32 FMAs; the features pass in
+// chunks of LT_BK, staged in two shared-memory slots (X transposed, its row
+// pitch 4 words past LT_BM) from registers loaded a chunk ahead. Each
+// 64-feature block sums into `part` in registers, which at the block's end
+// goes into the running total, kept in shared memory (a thread's values,
+// LT_NT apart) so that registers hold one set of sums.
+constexpr int LT_BM = 128, LT_BK = 16, LT_NT = 256;
+constexpr int LT_XP = LT_BM + 4;  // the pitch of X's transposed rows in shared memory
+constexpr int LT_BLK = 64;        // features a block of ll's sum (fbc::FMAX)
+
+// The tile's states a block at K states, and its dynamic shared memory.
+__host__ __device__ constexpr int lt_bn(int K) { return K <= 64 ? 64 : 128; }
+
+template <int BN>
+__host__ __device__ constexpr int lt_smem() {
+  return 4 * (2 * LT_BK * LT_XP + 2 * LT_BK * BN + 8 * (BN / 16) * LT_NT);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+template <int KIND, int BN>
+__global__ void __launch_bounds__(LT_NT, 2)
+ll_tile_kernel(const float* __restrict__ X, const float* __restrict__ W, float* __restrict__ out,
+               long long N, int F, int K, int D, bool vec) {
+  constexpr int H = BN / 64;                                       // groups of 4 states a thread
+  constexpr int XL = LT_BM * LT_BK / LT_NT, WL = LT_BK * BN / LT_NT;  // loads a thread
+  extern __shared__ __align__(16) float lt_smem_[];
+  float* xs = lt_smem_;                 // [2][LT_BK][LT_XP]
+  float* ws = xs + 2 * LT_BK * LT_XP;   // [2][LT_BK][BN]
+  float* tots = ws + 2 * LT_BK * BN;    // [8 * 4 H][LT_NT]: the running totals
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const long long r0 = (long long)blockIdx.x * LT_BM;
+  const int n0 = blockIdx.y * BN;
+  const int fend = 4 * ((F + 3) / 4);  // the chains' padded end
+  const int chunks = (fend + LT_BK - 1) / LT_BK;
+  // this thread's loads: X rows xrow + 16 i (feature xf of each), W rows
+  // wf + (LT_NT / BN) i (state wn of each)
+  const int xrow = tid / LT_BK, xf = tid % LT_BK, wf = tid / BN, wn = n0 + tid % BN;
+  float xr[XL], wr[WL];
+#define LT_FETCH(c)                                                                   \
+  {                                                                                   \
+    const int f_ = (c) * LT_BK + xf;                                                  \
+    int ia = -1, ja = -1; /* a built feature's factors */                             \
+    if (KIND != fbc::FEATS_ARRAY && f_ < F) fbc::feat_src(KIND, D, f_, ia, ja);       \
+    _Pragma("unroll") for (int i = 0; i < XL; ++i) {                                  \
+      const long long r = r0 + xrow + i * (LT_NT / LT_BK);                            \
+      float v = 0.f;                                                                  \
+      if (r < N && f_ < F) {                                                          \
+        if (KIND == fbc::FEATS_ARRAY) {                                               \
+          v = X[r * F + f_];                                                          \
+        } else {                                                                      \
+          const float* y = X + r * D;                                                 \
+          v = ia < 0 ? 1.f : fbc::feat_of(y[ia], ja < 0 ? 0.f : y[ja], ja >= 0);      \
+        }                                                                             \
+      }                                                                               \
+      xr[i] = v;                                                                      \
+    }                                                                                 \
+    _Pragma("unroll") for (int i = 0; i < WL; ++i) {                                  \
+      const int f = (c) * LT_BK + wf + i * (LT_NT / BN);                              \
+      wr[i] = (f < F && wn < K) ? W[(size_t)f * K + wn] : 0.f;                        \
+    }                                                                                 \
+  }
+#define LT_STAGE(slot)                                                                \
+  {                                                                                   \
+    _Pragma("unroll") for (int i = 0; i < XL; ++i)                                    \
+        xs[(slot) * LT_BK * LT_XP + xf * LT_XP + xrow + i * (LT_NT / LT_BK)] = xr[i]; \
+    _Pragma("unroll") for (int i = 0; i < WL; ++i)                                    \
+        ws[(slot) * LT_BK * BN + tid + i * LT_NT] = wr[i];                            \
+  }
+
+  float part[8][4 * H];
+  LT_FETCH(0)
+  LT_STAGE(0)
+  __syncthreads();
+  for (int c = 0; c < chunks; ++c) {
+    const int f0 = c * LT_BK, kk_end = min(LT_BK, fend - f0);
+    if (c + 1 < chunks) LT_FETCH(c + 1)
+    if (f0 % LT_BLK == 0) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int j = 0; j < 4 * H; ++j) part[r][j] = 0.f;
+    }
+    const float* xp = xs + (c & 1) * LT_BK * LT_XP + ty * 8;
+    const float* wp = ws + (c & 1) * LT_BK * BN + tx * 4;
+#pragma unroll
+    for (int kk = 0; kk < LT_BK; ++kk) {
+      if (kk % 4 == 0 && kk >= kk_end) break;  // kk_end is a multiple of 4
+      const float4 xa = ld4(xp + kk * LT_XP), xb = ld4(xp + kk * LT_XP + 4);
+      const float x[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+      float w[4 * H];
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        const float4 wv = ld4(wp + kk * BN + 64 * h);
+        w[4 * h] = wv.x;
+        w[4 * h + 1] = wv.y;
+        w[4 * h + 2] = wv.z;
+        w[4 * h + 3] = wv.w;
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int j = 0; j < 4 * H; ++j) part[r][j] = fmaf(x[r], w[j], part[r][j]);
+    }
+    if ((f0 + LT_BK) % LT_BLK == 0 || c + 1 == chunks) {  // a block's end: into the totals
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int j = 0; j < 4 * H; ++j) {
+          float* t = tots + (4 * H * r + j) * LT_NT + tid;
+          *t = f0 < LT_BLK ? part[r][j] : *t + part[r][j];
+        }
+    }
+    if (c + 1 < chunks) LT_STAGE((c + 1) & 1)
+    __syncthreads();
+  }
+#undef LT_FETCH
+#undef LT_STAGE
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const long long row = r0 + ty * 8 + r;
+    if (row >= N) break;
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const int n = n0 + 64 * h + tx * 4;
+      const float* t = tots + (4 * H * r + 4 * h) * LT_NT + tid;
+      float* o = out + row * K + n;
+      if (vec && n + 3 < K) {
+        *reinterpret_cast<float4*>(o) = make_float4(t[0], t[LT_NT], t[2 * LT_NT], t[3 * LT_NT]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (n + j < K) o[j] = t[j * LT_NT];
+      }
+    }
+  }
+}
+
+template <int KIND, int BN>
+cudaError_t ll_tile_launch(const float* X, const float* W, float* out, long long N, int F, int K,
+                           int D, bool vec, cudaStream_t st) {
+  const void* fn = reinterpret_cast<const void*>(ll_tile_kernel<KIND, BN>);
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       lt_smem<BN>());
+  if (e != cudaSuccess) return e;
+  const dim3 grid(static_cast<unsigned>((N + LT_BM - 1) / LT_BM), (K + BN - 1) / BN);
+  ll_tile_kernel<KIND, BN><<<grid, LT_NT, lt_smem<BN>(), st>>>(X, W, out, N, F, K, D, vec);
+  return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t ll_tile_of(int kind, const float* X, const float* W, float* out, long long N, int F,
+                       int K, int D, bool vec, cudaStream_t st) {
+  switch (kind) {
+    case fbc::FEATS_NIW: return ll_tile_launch<fbc::FEATS_NIW, BN>(X, W, out, N, F, K, D, vec, st);
+    case fbc::FEATS_NIG: return ll_tile_launch<fbc::FEATS_NIG, BN>(X, W, out, N, F, K, D, vec, st);
+    default: return ll_tile_launch<fbc::FEATS_ARRAY, BN>(X, W, out, N, F, K, D, vec, st);
+  }
+}
+
+// The likelihood tile over N rows (none for N = 0) of src: the feature
+// array (N, F), or the raw observation rows (N, D) of a built kind; one
+// launch, counted.
+inline cudaError_t ll_tile(const float* src, const float* W, float* out, long long N, int F,
+                           int K, int kind, cudaStream_t st) {
+  if (N <= 0) return cudaSuccess;
+  const bool vec = K % 4 == 0 && reinterpret_cast<unsigned long long>(out) % 16 == 0;
+  const int D = fbc::obs_dim(kind, F);
+  const cudaError_t e = lt_bn(K) == 64 ? ll_tile_of<64>(kind, src, W, out, N, F, K, D, vec, st)
+                                       : ll_tile_of<128>(kind, src, W, out, N, F, K, D, vec, st);
+  if (e == cudaSuccess) ++prep_launch_count[lt_bn(K) == 64 ? 2 : 3];
+  return e;
+}
+
+// The count of build_feats_kernel (which = 0), widen_kernel (1) or
+// ll_tile_kernel's 64- (2) or 128-state tile (3), cleared when `clear` (the
+// fused, duplex and split libraries export this; only the fused one
+// launches the last two).
 inline int prep_launches(int which, bool clear) {
-  long long& c = prep_launch_count[which != 0];
+  long long& c = prep_launch_count[which < 0 || which > 3 ? 0 : which];
   const long long n = c;
   if (clear) c = 0;
   return static_cast<int>(n);
@@ -535,6 +745,12 @@ inline int prep_launches(int which, bool clear) {
 // feature rows are built from the observations (build_feats), the rows the
 // chain kernels build, so the sums see the array mode's operands bit for bit.
 //
+// With `lls` (the fused backward above K = 64 at F > FMAX) the scratch
+// holds a window's likelihoods too (n K floats, `ll`), which the caller's
+// `prep` sums from the window's feature rows (built first, for a built
+// kind) before the launch (fbs::ll_tile), its chain then reading them;
+// eacc's sums take the same rows.
+//
 // With `blocks` > 0 (the fused backward up to K = 64 at F > FMAX) acc stays
 // in the chain, a row of partials a block (`part_a`, blocks rows of K K
 // floats, which the kernel reads back and writes each window and the caller
@@ -550,6 +766,7 @@ struct WideStats {
   float* part_e;
   float* xa;  // abf: the window's alpha rows, widened
   float* yf;  // built kind: the window's feature rows
+  float* ll;  // lls: the window's likelihoods (else null)
 
   static int window(int T, int B) {
     const long long s = WIDE_ROWS / B;
@@ -557,17 +774,17 @@ struct WideStats {
   }
 
   static long long floats(int T, int B, int K, int F, int kind = fbc::FEATS_ARRAY,
-                          bool abf = false, int blocks = 0) {
+                          bool abf = false, int blocks = 0, bool lls = false) {
     const long long n = (long long)window(T, B) * B;
     const bool chain = blocks > 0;
     return (chain ? 0 : n * K) + (F > 0 ? n * K : 0) + (long long)B * K +
            (chain ? (long long)blocks * K * K : outer_scratch(n, K, K)) +
            (F > 0 ? outer_scratch(n, K, F) : 0) + (abf && !chain ? n * K : 0) +
-           (F > 0 && kind != fbc::FEATS_ARRAY ? n * F : 0);
+           (F > 0 && kind != fbc::FEATS_ARRAY ? n * F : 0) + (lls ? n * K : 0);
   }
 
   WideStats(float* scratch, int T_, int B_, int K_, int F_, int kind_ = fbc::FEATS_ARRAY,
-            bool abf_ = false, int blocks_ = 0)
+            bool abf_ = false, int blocks_ = 0, bool lls = false)
       : T(T_), B(B_), K(K_), F(F_), steps(window(T_, B_)), kind(kind_), blocks(blocks_),
         abf(abf_ && blocks_ == 0) {
     const long long n = (long long)steps * B;
@@ -578,22 +795,36 @@ struct WideStats {
     part_e = part_a + (blocks > 0 ? (long long)blocks * K * K : outer_scratch(n, K, K));
     xa = part_e + (F > 0 ? outer_scratch(n, K, F) : 0);
     yf = xa + (abf ? n * K : 0);
+    ll = lls ? yf + (F > 0 && kind != fbc::FEATS_ARRAY ? n * F : 0) : nullptr;
   }
 
-  // For each window [t0, t1), the last first: launch(t0, t1) writes its dn
-  // and gw, then its sums go into stats: acc (K, K), then eacc (K, F) right
-  // after it when F > 0. alpha is float32 (alpha16 null) or bf16 (alpha
-  // null); src holds the feature array, or for a built kind the raw
-  // observations (T, B, D).
-  template <class Launch>
+  // For each window [t0, t1), the last first: its feature rows (built for a
+  // built kind), prep(Y, rows) on them (the likelihoods, with lls), then
+  // launch(t0, t1) writes its dn and gw, and its sums go into stats: acc
+  // (K, K), then eacc (K, F) right after it when F > 0. alpha is float32
+  // (alpha16 null) or bf16 (alpha null); src holds the feature array, or
+  // for a built kind the raw observations (T, B, D).
+  struct NoPrep {
+    cudaError_t operator()(const float*, long long) const { return cudaSuccess; }
+  };
+
+  template <class Launch, class Prep = NoPrep>
   cudaError_t run(const float* alpha, const __nv_bfloat16* alpha16, const float* src,
-                  float* stats, cudaStream_t st, Launch launch) const {
+                  float* stats, cudaStream_t st, Launch launch, Prep prep = {}) const {
     const size_t step_k = (size_t)B * K;
     const int D = fbc::obs_dim(kind, F);
     for (int t1 = T; t1 > 0; t1 -= steps) {
       const int t0 = t1 > steps ? t1 - steps : 0;
       const bool add = t1 < T;
-      cudaError_t e = launch(t0, t1);
+      const long long nr = (long long)(t1 - t0) * B;
+      const float* Y = F > 0 ? src + (size_t)t0 * B * D : nullptr;  // the window's rows
+      cudaError_t e = cudaSuccess;
+      if (F > 0 && kind != fbc::FEATS_ARRAY) {
+        e = build_feats(kind, Y, yf, nr, D, F, st);
+        Y = yf;
+      }
+      if (e == cudaSuccess) e = prep(Y, nr);
+      if (e == cudaSuccess) e = launch(t0, t1);
       if (e != cudaSuccess) return e;
       if (blocks == 0) {
         const int ta = t0 > 0 ? t0 : 1;  // acc's rows: t >= 1
@@ -603,15 +834,8 @@ struct WideStats {
         if (e == cudaSuccess)
           e = outer_sum(X, dn + (ta - t0) * step_k, na, K, K, part_a, stats, add, st);
       }
-      if (e == cudaSuccess && F > 0) {
-        const long long nr = (long long)(t1 - t0) * B;
-        const float* Y = src + (size_t)t0 * B * D;
-        if (kind != fbc::FEATS_ARRAY) {
-          e = build_feats(kind, Y, yf, nr, D, F, st);
-          Y = yf;
-        }
-        if (e == cudaSuccess) e = outer_sum(gw, Y, nr, K, F, part_e, stats + K * K, add, st);
-      }
+      if (e == cudaSuccess && F > 0)
+        e = outer_sum(gw, Y, nr, K, F, part_e, stats + K * K, add, st);
       if (e != cudaSuccess) return e;
     }
     return cudaSuccess;

@@ -36,15 +36,17 @@
 //
 // Features wider than FMAX (the fused pair's WF instances): W's column k no
 // longer fits a thread's registers, nor W beside A~ in shared memory (at KP =
-// 256 A~'s shared rows take 192 of 227 KB). So each step reads it from
-// device memory, where L2 keeps it (F K floats, 0.3 MB at F = 300, K = 256):
-// thread k the words W[f][k], a warp 128 contiguous bytes a feature, each
-// word feeding S chains (WGlobal). The feature slots take 4 ceil(F / 4)
-// floats a sequence, and the rows are moved by a strided loop
+// 256 A~'s shared rows take 192 of 227 KB). So each step of the forward
+// reads it from device memory, where L2 keeps it (F K floats, 0.3 MB at F =
+// 300, K = 256): thread k the words W[f][k], a warp 128 contiguous bytes a
+// feature, each word feeding S chains (WGlobal). The feature slots take 4
+// ceil(F / 4) floats a sequence, and the rows are moved by a strided loop
 // (feat_rows<..., true>). ll_t is summed in blocks of 64 features, as the
 // K <= 64 WF instances sum it (fb_seqs_wf.cuh): the first block's fmaf
-// chain, then each later block's own chain added in order; in the forward
-// and the backward alike.
+// chain, then each later block's own chain added in order. The backward
+// (LL) takes those F products a state and step off its serial chain: it
+// reads each window's likelihoods, which fbs::ll_tile sums beforehand in
+// the same order, as the split backward reads ll.
 
 #pragma once
 
@@ -467,9 +469,14 @@ __device__ void seqs_forward(const float* __restrict__ pi, const float* __restri
 // observations) and, MODES, as fbseq::seq_stats_backward: alpha16 (alpha
 // stored as bf16, widened where read) and the time pick sel (B,), gamma0
 // then each sequence's ungated gamma at t = sel[b] (zeros for a pick
-// outside 0 .. T-1) in place of w_0 gamma_0. WF as seqs_forward's.
+// outside 0 .. T-1) in place of w_0 gamma_0. LL (with FEATS: the WF
+// instance, F > FMAX) reads ll_t from src, the window's likelihoods (t1 -
+// t0, B, K) from t0 that fbs::ll_tile summed as the forward's chain sums
+// them, instead of computing f_t . W: the FEATS outputs from the split
+// backward's ll reads, so the chain holds neither W nor a feature row
+// (src the likelihoods, W and F unused, KIND the array's) and takes any F.
 template <int KP, int S, bool FEATS, bool GATED, int KIND = fbc::FEATS_ARRAY,
-          bool MODES = false, bool WF = false>
+          bool MODES = false, bool LL = false>
 __device__ void seqs_backward(const float* __restrict__ A, const float* __restrict__ W,
                               const float* __restrict__ src, const float* __restrict__ alpha,
                               const float* __restrict__ s_in, const float* __restrict__ sh_in,
@@ -481,7 +488,10 @@ __device__ void seqs_backward(const float* __restrict__ A, const float* __restri
                               const int* __restrict__ sel = nullptr) {
   using TT = Tier<KP>;
   constexpr int NW = TT::NWARP;
-  const int fs = slot_stride<WF>(F);   // floats of a sequence's feature row
+  constexpr bool CALC = FEATS && !LL;   // ll_t computed from the feature rows
+  constexpr bool READ = !CALC;          // ll_t read a step ahead
+  static_assert(!LL || (FEATS && KIND == fbc::FEATS_ARRAY), "LL: the fused outputs only");
+  constexpr int fs = FMAX;              // floats of a sequence's feature row
   float* M_s = smem;                     // A~^T rows RR..KP-1
   float* d_s = M_s + TT::SR * KP;        // d_t in slot t & 1, [S][KP] each
   float* f_s = d_s + 2 * S * KP;         // f_t in slot t & 1, [S][fs] each
@@ -493,12 +503,13 @@ __device__ void seqs_backward(const float* __restrict__ A, const float* __restri
 
   MatCol<KP> col;
   col.load(A, M_s, K, true, k);
-  typename std::conditional<WF, WGlobal, WCol>::type wc;
-  if (FEATS) wc.load(W, K, F, k);
+  WCol wc;
+  if (CALC) wc.load(W, K, F, k);
   const int D = fbc::obs_dim(KIND, F);  // built kinds: the observations' width
-  const int in_w = FEATS ? D : K;       // floats of a (t, b) row of src
+  const int in_w = CALC ? D : K;        // floats of a (t, b) row of src
   const size_t step_f = (size_t)B * in_w, step_k = (size_t)B * K;
   const float* fb = src + (size_t)b0 * in_w;
+  const int tl = LL ? t0 : 0;  // LL: src holds the window's rows only, from t0
   const float* ab = MODES && alpha16 != nullptr ? nullptr : alpha + (size_t)b0 * K + k;
   const __nv_bfloat16* ab16 = MODES && alpha16 != nullptr ? alpha16 + (size_t)b0 * K + k
                                                                    : nullptr;
@@ -509,9 +520,9 @@ __device__ void seqs_backward(const float* __restrict__ A, const float* __restri
   };
   for (int i = k; i < 2 * S * fs; i += KP) f_s[i] = 0.f;
   __syncthreads();
-  if (FEATS)
-    feat_rows<S, KIND, WF>(f_s + ((t1 - 1) & 1) * S * fs, fb + (size_t)(t1 - 1) * step_f, ns,
-                           F, k, KP, D, fs);
+  if (CALC)
+    feat_rows<S, KIND>(f_s + ((t1 - 1) & 1) * S * fs, fb + (size_t)(t1 - 1) * step_f, ns, F, k,
+                       KP, D);
   __syncthreads();
 
   // per sequence: a_t, b'_t (an idle state's is 0 in the one recursion: its
@@ -529,7 +540,7 @@ __device__ void seqs_backward(const float* __restrict__ A, const float* __restri
                             : (active ? carry[(size_t)b * K + k] : 0.f);
     g_cur[s] = GATED ? (ok ? g[(size_t)(t1 - 1) * B + b] : 0.f) : 1.f;
   }
-  // not FEATS: ll_t, sh_t, s_{t-1} and (gated) w_{t-1} of the step to come,
+  // not FEATS, or LL: ll_t, sh_t, s_{t-1} and (gated) w_{t-1} of the step to come,
   // read in the step before it (the window's first step's here): the
   // kept-mask misses every cache (its stride is B), and read in its own step
   // it made the one-sequence gated instance at KP = 256 take 26 % longer at
@@ -540,20 +551,20 @@ __device__ void seqs_backward(const float* __restrict__ A, const float* __restri
     for (int s = 0; s < S; ++s) {
       const bool ok = s < ns;
       const int b = b0 + s;
-      l_nx[s] = (ok && active) ? fb[(size_t)t * step_k + s * K + k] : 0.f;
+      l_nx[s] = (ok && active) ? fb[(size_t)(t - tl) * step_k + s * K + k] : 0.f;
       sh_nx[s] = ok ? sh_in[(size_t)b * T + t] : 0.f;
       sp_nx[s] = (ok && t >= 1) ? s_in[(size_t)b * T + t - 1] : 1.f;
       if (GATED) gp_nx[s] = (ok && t >= 1) ? g[(size_t)(t - 1) * B + b] : 0.f;
     }
   };
-  if constexpr (!FEATS) read_ahead(t1 - 1);
+  if constexpr (READ) read_ahead(t1 - 1);
   // one step; Z (t == 0) is a compile-time flag, so that the steps t >= 1
   // run without a branch on t (step 0 is peeled off the loop)
   auto step = [&](const int t, auto z) {
     constexpr bool Z = decltype(z)::value;
     const int p = t & 1;
     float ll[S], shs[S], sps[S], gps[S];
-    if constexpr (FEATS) {
+    if constexpr (CALC) {
       wc.template lls<S>(ll, f_s + p * S * fs, fs, nf4);
     } else {
 #pragma unroll
@@ -563,7 +574,7 @@ __device__ void seqs_backward(const float* __restrict__ A, const float* __restri
         sps[s] = sp_nx[s];
         gps[s] = gp_nx[s];
       }
-      if (!Z) read_ahead(t - 1);
+      if (!Z && (!LL || t > t0)) read_ahead(t - 1);  // LL: the window's rows only
     }
     float a_prev[S], g_prev[S], graw[S], d[S], gs[S];
 #pragma unroll
@@ -571,10 +582,10 @@ __device__ void seqs_backward(const float* __restrict__ A, const float* __restri
       const bool ok = s < ns;
       const int b = b0 + s;
       a_prev[s] = (ok && active && !Z) ? a_at(t - 1, s) : 0.f;
-      g_prev[s] = (GATED && !Z) ? (!FEATS ? gps[s] : ok ? g[(size_t)(t - 1) * B + b] : 0.f)
+      g_prev[s] = (GATED && !Z) ? (READ ? gps[s] : ok ? g[(size_t)(t - 1) * B + b] : 0.f)
                                 : 1.f;
-      const float sh = !FEATS ? shs[s] : ok ? sh_in[(size_t)b * T + t] : 0.f;
-      const float sp = !FEATS ? sps[s] : (ok && !Z) ? s_in[(size_t)b * T + t - 1] : 1.f;
+      const float sh = READ ? shs[s] : ok ? sh_in[(size_t)b * T + t] : 0.f;
+      const float sp = READ ? sps[s] : (ok && !Z) ? s_in[(size_t)b * T + t - 1] : 1.f;
       const float lik = active ? expf(ll[s] - sh) : 0.f;
       graw[s] = a_cur[s] * beta[s];
       d[s] = !Z ? (lik * (1.f / fmaxf(sp, SUM_FLOOR))) * beta[s] : 0.f;
@@ -586,9 +597,9 @@ __device__ void seqs_backward(const float* __restrict__ A, const float* __restri
 #pragma unroll
       for (int s = 0; s < S; ++s) red[(p * S + s) * NW + warp] = gs[s];
     }
-    if (FEATS && !Z)
-      feat_rows<S, KIND, WF>(f_s + (p ^ 1) * S * fs, fb + (size_t)(t - 1) * step_f, ns, F, k,
-                             KP, D, fs);
+    if (CALC && !Z)
+      feat_rows<S, KIND>(f_s + (p ^ 1) * S * fs, fb + (size_t)(t - 1) * step_f, ns, F, k, KP,
+                         D);
     __syncthreads();  // d_t, the partial sums and f_{t-1} are complete
 
 #pragma unroll

@@ -31,7 +31,8 @@
 //     drive the chain like kept ones, and the gamma written out is the
 //     ungated one.
 //     Every per-sequence sum is floored at SUM_FLOOR (pallas_fb.py:82).
-//     beta, xi and the (T, B, K) likelihood array never reach device memory.
+//     beta, xi and (at F <= FMAX) the (T, B, K) likelihood array never reach
+//     device memory.
 //
 // Numerics shared with duplex_fb.cu: ll_t is the fmaf chain over f = 0..F-1
 // in order, the matvec the fmaf chain over i = 0..K-1 in order, s_t the warp
@@ -117,23 +118,28 @@
 // Features wider than FMAX = 64 (a Gaussian-NIW at D >= 10, a multinomial
 // of 65-256 symbols; JAX's fused kernels take any F) run the WF instances,
 // F a run-time loop bound (fused_fb_kernels.cuh; built by fused_fb_wide.cu
-// and fused_fb_wide_modes.cu). Up to K = 64 (fb_seqs_wf.cuh) the forward
-// holds W^T in shared memory (the groups of features beyond what fits
-// there, from L2) and its rows arrive by cp.async two steps ahead. The
-// backward's tiled tier (up to about F = 310) runs the chain beside two or
-// four tile warps, which compute ll a window of steps ahead and add eacc a
-// window behind in shared memory, one launch over T, a row of acc
-// partials a chain group and of eacc a block; its window tier (wider F) has eacc
-// leave the chain as the large-K statistics' does (w_t gamma_t a window of
-// time steps a launch, the 3xTF32 outer sums), while acc stays in
-// registers, carried between the windows through the blocks' rows of
-// partials. Above
-// K = 64 (fb_wide.cuh's WF flag) A~ fills shared memory and W is read from
-// device memory (L2) at each step. Either way ll_t is summed in blocks of
-// 64 features (one fmaf chain a block, the blocks added in order), the
-// forward's and the backward's alike. Which S fit depends on
-// F there (the feature slots grow with it): the occupancy query reports no
-// resident block for an S whose shared memory the card cannot give.
+// and fused_fb_wide_modes.cu). The likelihoods leave both serial chains
+// there: ll_tile_kernel (fb_stats.cuh, a float32 FFMA tile, the ll half of
+// the TPU kernels' tile matmul) sums them from the feature rows (a built
+// kind's built as they are staged) and the chains read them. Up to K = 64
+// the forward sums ll over all T B rows into its scratch and runs the split
+// forward's chain on it (fb_seqs.cuh's seq_forward in its ll mode); the
+// backward's tiled tier (fb_seqs_wf.cuh, up to about F = 310) runs its
+// chain beside two or four tile warps, which compute ll a window of steps
+// ahead and add eacc a window behind in shared memory, one launch over T,
+// a row of acc partials a chain group and of eacc a block; its window tier
+// (wider F) has eacc leave the chain as the large-K statistics' does (w_t
+// gamma_t a window of time steps a launch, the 3xTF32 outer sums), while
+// acc stays in registers, carried between the windows through the blocks'
+// rows of partials. Above K = 64 the forward (fb_wide.cuh's WF flag: A~
+// fills shared memory) reads W from device memory (L2) at each step, and
+// the backward's chain reads each window's likelihoods, which ll_tile_kernel
+// sums from the window's feature rows before it (fb_wide.cuh's LL). Either
+// way ll_t is summed in blocks of 64 features (one fmaf chain a block, the
+// blocks added in order), in the chains and the tile alike, so the forward
+// and the backward see the same lik_t. Which S fit depends on F where the
+// feature slots grow with it: the occupancy query reports no resident
+// block for an S whose shared memory the card cannot give.
 //
 // Above K = 64 the launchers take the large-K instances instead
 // (fused_fwd_wide_kernel<KP, S>, fused_bwd_wide_kernel<KP, S, GATED>, KP =
@@ -197,6 +203,11 @@ int groups_of(int which, int S, int K, int F) {
   return which != 0 && fbf::wf_tiled(S, K, F) ? fbf::wf_tiled_plan(S, F).groups : 1;
 }
 
+// Whether the forward (K, F) sums its likelihoods first (fbs::ll_tile over
+// all T B rows, into the scratch) and runs its chain on them: the WF
+// instance up to K = 64.
+bool forward_reads_ll(int K, int F) { return K <= KMAX && F > FMAX; }
+
 // Launches of the backward's chain kernels since the count was last
 // cleared (fused_fb_backward_launches).
 long long backward_launch_count = 0;
@@ -226,9 +237,9 @@ cudaError_t launch(int which, int S, int T, int B, int K, int F, int kind, bool 
 // block (at F > FMAX the same in the tiled tier, and in the window tier a
 // row of acc partials a block beside a window's gw, the carry, eacc's
 // outer-sum partials and a built kind's feature rows); above,
-// a window's dn and gw, the carry, the outer sums' partials and (bf16
+// a window's dn and gw, the carry, the outer sums' partials, (bf16
 // alpha, a built kind) the window's widened alpha and built feature rows
-// (fbs::WideStats).
+// and (F > FMAX) its likelihoods (fbs::WideStats).
 long long scratch_floats(int T, int B, int K, int F, int S, int kind, bool abf) {
   const int blocks = (B + S - 1) / S;
   if (K <= KMAX && F <= FMAX) return (long long)blocks * (K * K + K * F);
@@ -238,7 +249,7 @@ long long scratch_floats(int T, int B, int K, int F, int S, int kind, bool abf) 
     return nb * G * K * K + nb * K * F;
   }
   if (K <= KMAX) return fbs::WideStats::floats(T, B, K, F, kind, abf, blocks);
-  return fbs::WideStats::floats(T, B, K, F, kind, abf);
+  return fbs::WideStats::floats(T, B, K, F, kind, abf, 0, F > FMAX);
 }
 
 }  // namespace
@@ -251,6 +262,14 @@ int fused_fb_kmax() { return fbw::KWIDE; }
 
 const char* fused_fb_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// *out = the floats of scratch fused_fb_forward takes at these shapes: T B
+// K, the likelihoods, for the WF instance up to K = 64, else none.
+int fused_fb_forward_scratch(int T, int B, int K, int F, int kind, long long* out) {
+  if (bad_shape(T, B, K, F) || bad_kind(kind, F)) return static_cast<int>(cudaErrorInvalidValue);
+  *out = forward_reads_ll(K, F) ? (long long)T * B * K : 0;
+  return 0;
 }
 
 // *out = the floats of scratch fused_fb_backward takes at these shapes, for
@@ -271,18 +290,28 @@ int fused_fb_scratch(int T, int B, int K, int F, int S, int kind, int abf, long 
 // feat_width(kind, D) wide (FEATS_NIW, FEATS_NIG); an F no D gives is
 // refused, and so is an S whose shared memory at this F the card cannot
 // give (the launch's error). alpha is stored float32 into alpha or, where
-// alpha16 is not null (alpha then null), as bf16 into alpha16.
+// alpha16 is not null (alpha then null), as bf16 into alpha16. scratch
+// holds fused_fb_forward_scratch floats: up to K = 64 at F > FMAX the
+// likelihoods of every (t, b) row, which ll_tile sums before the chain
+// reads them.
 int fused_fb_forward(const float* pi, const float* A, const float* W, const float* src,
-                     float* alpha, void* alpha16, float* s, float* sh, int T, int B, int K,
-                     int F, int S, int kind, int device, void* stream) {
+                     float* alpha, void* alpha16, float* s, float* sh, float* scratch, int T,
+                     int B, int K, int F, int S, int kind, int device, void* stream) {
   if (bad_shape(T, B, K, F) || bad_kind(kind, F) || (alpha == nullptr) == (alpha16 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   __nv_bfloat16* a16 = static_cast<__nv_bfloat16*>(alpha16);
+  if (forward_reads_ll(K, F)) {
+    e = fbs::ll_tile(src, W, scratch, (long long)T * B, F, K, kind, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const float* ll = scratch;
+    void* args[] = {&pi, &A, &ll, &alpha, &a16, &s, &sh, &T, &B, &K};
+    return static_cast<int>(launch(0, S, T, B, K, F, kind, a16 != nullptr, st, args));
+  }
   void* args[] = {&pi, &A, &W, &src, &alpha, &a16, &s, &sh, &T, &B, &K, &F};
-  return static_cast<int>(
-      launch(0, S, T, B, K, F, kind, a16 != nullptr, static_cast<cudaStream_t>(stream), args));
+  return static_cast<int>(launch(0, S, T, B, K, F, kind, a16 != nullptr, st, args));
 }
 
 // w is null for the ungated launch, else the (T, B) kept-mask; the kernel
@@ -336,6 +365,20 @@ int fused_fb_backward(const float* A, const float* W, const float* src, const fl
     });
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(fbs::sum_partials(part, blocks, K * K, stats, st));
+  }
+  if (F > FMAX) {  // the chain on each window's likelihoods, which ll_tile sums first
+    const fbs::WideStats ws(scratch, T, B, K, F, kind, a16 != nullptr, 0, true);
+    float *dn = ws.dn, *gw = ws.gw, *carry = ws.carry, *ll = ws.ll;
+    return static_cast<int>(ws.run(
+        alpha, a16, src, stats, st,
+        [&](int t0, int t1) {
+          void* args[] = {&A,      &ll, &alpha, &a16,   &s, &sh, &w,  &sel, &gamma,
+                          &gamma0, &dn, &gw,    &carry, &T, &B,  &K,  &t0,  &t1};
+          return launch(which, S, T, B, K, F, kind, modes, st, args);
+        },
+        [&](const float* rows, long long n) {  // the window's feature rows
+          return fbs::ll_tile(rows, W, ll, n, F, K, fbc::FEATS_ARRAY, st);
+        }));
   }
   const fbs::WideStats ws(scratch, T, B, K, F, kind, a16 != nullptr);
   float *dn = ws.dn, *gw = ws.gw, *carry = ws.carry;
@@ -413,8 +456,24 @@ int fused_fb_wf_tiled(int S, int K, int F) {
   return fbf::wf_tiled(S, K, F) ? 1 : 0;
 }
 
-// Launches of build_feats_kernel (which = 0) or widen_kernel (1) by this
-// library (the large-K backward and the two entry points above) since the
+// The WF instances' likelihood tile alone (fbs::ll_tile, which the forward
+// up to K = 64 runs over all rows and the backward above K = 64 over each
+// window): out (N, K) = the feature rows of src . W (F, K), row-major, each
+// element summed as the chain kernels sum ll_t; src the (N, F) feature
+// array, or the (N, D) raw observations of a built kind.
+int fused_fb_ll_tile(const float* src, const float* W, float* out, long long N, int F, int K,
+                     int kind, int device, void* stream) {
+  if (N < 1 || F < 1 || K < 1 || bad_kind(kind, F))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(
+      fbs::ll_tile(src, W, out, N, F, K, kind, static_cast<cudaStream_t>(stream)));
+}
+
+// Launches of build_feats_kernel (which = 0), widen_kernel (1) or
+// ll_tile_kernel's 64- (2) or 128-state tile (3) by this library (the WF
+// instances, the large-K backward and the entry points above) since the
 // count was last cleared; clears it when `clear`.
 int fused_fb_prep_launches(int which, int clear) {
   return fbs::prep_launches(which, clear != 0);

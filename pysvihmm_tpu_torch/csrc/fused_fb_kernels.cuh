@@ -87,24 +87,26 @@ fused_bwd_wide_kernel(const float* __restrict__ A, const float* __restrict__ W,
                                                       t0, t1, blockIdx.x, smem, alpha16, sel);
 }
 
-// The WF instances, at any F. Up to K = 64: fbwf's forward, which takes the
-// forward's arguments, and its backward in two tiers (fb_seqs_wf.cuh):
+// The WF instances, at any F. Up to K = 64: the forward's chain on the
+// likelihoods fbs::ll_tile summed beforehand (fb_seqs.cuh's seq_forward in
+// its ll mode, the split forward's: (pi, A, ll) in place of (pi, A, W, src)),
+// and fbwf's backward in two tiers (fb_seqs_wf.cuh):
 // the tiled one, which takes the F <= FMAX backward's arguments (one launch;
 // a row of acc partials a chain group, of eacc a block) in blocks of
 // fbwf::tiled_plan, and the window one over a window [t0, t1) of time steps, which
 // takes the large-K backward's (its `part` in the place of dn: the block's
 // rows of acc partials, read back and written each window; gw the window's
 // w_t gamma_t; carry b'_{t0-1}).
-template <int S, int KIND, bool ABF>
+constexpr int LL_FP = 4;  // seq_forward's FP in its ll mode, which reads no feature
+
+template <int S, bool ABF>
 __global__ void __launch_bounds__(NT)
 fused_fwd_wf_kernel(const float* __restrict__ pi, const float* __restrict__ A,
-                    const float* __restrict__ W, const float* __restrict__ src,
-                    float* __restrict__ alpha, __nv_bfloat16* __restrict__ alpha16,
-                    float* __restrict__ s_out, float* __restrict__ sh_out, int T, int B, int K,
-                    int F) {
-  extern __shared__ __align__(16) float smem[];
-  fbwf::seq_forward_wf<S, KIND, ABF>(pi, A, W, src, alpha, s_out, sh_out, T, B, K, F,
-                                     blockIdx.x, smem, alpha16);
+                    const float* __restrict__ ll, float* __restrict__ alpha,
+                    __nv_bfloat16* __restrict__ alpha16, float* __restrict__ s_out,
+                    float* __restrict__ sh_out, int T, int B, int K) {
+  fbseq::seq_forward<S, LL_FP, false, fbc::FEATS_ARRAY, ABF>(
+      pi, A, nullptr, ll, alpha, s_out, sh_out, T, B, K, 0, blockIdx.x, alpha16);
 }
 
 template <int S, bool GATED, int KIND, bool MODES>
@@ -139,8 +141,11 @@ fused_bwd_wf_window_kernel(const float* __restrict__ A, const float* __restrict_
                                                F, t0, t1, blockIdx.x, smem);
 }
 
-// Above K = 64: the large-K pair with the WF flag (W read from device
-// memory, the feature slots F wide).
+// Above K = 64: the large-K forward with the WF flag (W read from device
+// memory, the feature slots F wide), and the backward's chain on a window's
+// likelihoods, which fbs::ll_tile sums beforehand from the window's feature
+// rows (fbs::WideStats; fb_wide.cuh's LL): it holds neither W nor a feature
+// row, so one instance serves every feature kind and width.
 template <int KP, int S, int KIND, bool ABF>
 __global__ void __launch_bounds__(KP)
 fused_fwd_wide_wf_kernel(const float* __restrict__ pi, const float* __restrict__ A,
@@ -153,22 +158,20 @@ fused_fwd_wide_wf_kernel(const float* __restrict__ pi, const float* __restrict__
                                                   F, blockIdx.x, smem, alpha16);
 }
 
-template <int KP, int S, bool GATED, int KIND, bool MODES>
+template <int KP, int S, bool GATED, bool MODES>
 __global__ void __launch_bounds__(KP)
-fused_bwd_wide_wf_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                         const float* __restrict__ src, const float* __restrict__ alpha,
+fused_bwd_wide_wf_kernel(const float* __restrict__ A, const float* __restrict__ ll,
+                         const float* __restrict__ alpha,
                          const __nv_bfloat16* __restrict__ alpha16,
                          const float* __restrict__ s_in, const float* __restrict__ sh_in,
                          const float* __restrict__ w_in, const int* __restrict__ sel,
                          float* __restrict__ gamma, float* __restrict__ gamma0,
                          float* __restrict__ dn, float* __restrict__ gw,
-                         float* __restrict__ carry, int T, int B, int K, int F, int t0,
-                         int t1) {
+                         float* __restrict__ carry, int T, int B, int K, int t0, int t1) {
   extern __shared__ __align__(16) float smem[];
-  fbw::seqs_backward<KP, S, true, GATED, KIND, MODES, true>(A, W, src, alpha, s_in, sh_in, w_in,
-                                                            gamma, gamma0, dn, gw, carry, T, B,
-                                                            K, F, t0, t1, blockIdx.x, smem,
-                                                            alpha16, sel);
+  fbw::seqs_backward<KP, S, true, GATED, fbc::FEATS_ARRAY, MODES, true>(
+      A, nullptr, ll, alpha, s_in, sh_in, w_in, gamma, gamma0, dn, gw, carry, T, B, K,
+      fbc::FMAX, t0, t1, blockIdx.x, smem, alpha16, sel);
 }
 
 // The WF instance of (which, S, K, F, KIND, M) and its dynamic shared memory
@@ -177,9 +180,9 @@ fused_bwd_wide_wf_kernel(const float* __restrict__ A, const float* __restrict__ 
 // S not built.
 template <int S, int KIND, bool M>
 const void* wf_at(int which, int F, int* smem) {
-  if (which == 0) {
-    *smem = fbwf::forward_smem<S, KIND>(F);
-    return reinterpret_cast<const void*>(fused_fwd_wf_kernel<S, KIND, M>);
+  if (which == 0) {  // every kind: the chain reads the likelihoods
+    *smem = 0;
+    return reinterpret_cast<const void*>(fused_fwd_wf_kernel<S, M>);
   }
   if (fbwf::tiled_fits<S>(F)) {
     *smem = fbwf::tiled_smem<S>(F);
@@ -206,11 +209,13 @@ inline fbwf::TiledPlan wf_tiled_plan(int S, int F) {
 
 template <int KP, int S, int KIND, bool M>
 const void* wf_wide_at(int which, int F, int* smem) {
-  *smem = fbw::chain_smem_bytes_wf<KP, S>(F);
-  if (which == 0) return reinterpret_cast<const void*>(fused_fwd_wide_wf_kernel<KP, S, KIND, M>);
-  return which == 1
-             ? reinterpret_cast<const void*>(fused_bwd_wide_wf_kernel<KP, S, false, KIND, M>)
-             : reinterpret_cast<const void*>(fused_bwd_wide_wf_kernel<KP, S, true, KIND, M>);
+  if (which == 0) {
+    *smem = fbw::chain_smem_bytes_wf<KP, S>(F);
+    return reinterpret_cast<const void*>(fused_fwd_wide_wf_kernel<KP, S, KIND, M>);
+  }
+  *smem = fbw::chain_smem_bytes<KP, S>();
+  return which == 1 ? reinterpret_cast<const void*>(fused_bwd_wide_wf_kernel<KP, S, false, M>)
+                    : reinterpret_cast<const void*>(fused_bwd_wide_wf_kernel<KP, S, true, M>);
 }
 
 template <int KP, int KIND, bool M>

@@ -27,11 +27,16 @@ above), F a run-time bound: every F whose instance's shared memory the card
 gives, as JAX's fused kernels take any F (up to K = 64 the groups of W^T
 beyond what shared memory holds are read from L2, so only the feature
 slots bound F: about 6,100 there, 4,200 at K = 256). Up to K = 64 the WF
-backward has two tiers (:func:`wf_backward_tier`): the tiled one (up to
-about F = 310) computes ll a window of steps ahead of the chain and adds
-eacc a window behind it on two or four more warps a block, eacc in shared memory,
-one launch over T; past it the window tier has eacc leave the chain as the
-large-K statistics' does. For 65 <= K <= 256 they launch the large-K instances
+forward sums the likelihoods of all T B rows with :func:`likelihood_tile`'s
+kernel into a scratch of T B K floats (the size of alpha) and runs the
+split forward's chain on them; the WF backward has two tiers
+(:func:`wf_backward_tier`): the tiled one (up to about F = 310) computes
+ll a window of steps ahead of its chain and adds eacc a window behind it
+on two or four more warps a block, eacc in shared memory, one launch over
+T, and past it the window tier has eacc leave the chain as the large-K
+statistics' does. Above K = 64 the WF backward's chain reads each window's
+likelihoods, which the same kernel sums from the window's feature rows
+before it. For 65 <= K <= 256 they launch the large-K instances
 (``fused_fwd_wide_kernel<KP, S>``, ``fused_bwd_wide_kernel<KP, S, GATED>``,
 KP = 128 or 256 padded states, S in :data:`WIDE_SEQS`): S sequences a block
 over one copy of A~, one thread a state, S by the same rule, and the
@@ -53,7 +58,9 @@ libraries run on each window; :func:`outer_launches` reads the libraries'
 counts of that kernel's launches. :func:`feature_rows` and
 :func:`widen_alpha` run the two kernels that make those sums' operands in
 the modes below (a window's built feature rows, its bf16 alpha widened),
-and :func:`prep_launches` reads their counts.
+:func:`likelihood_tile` (twin :func:`likelihood_tile_reference`) the WF
+instances' likelihoods, and :func:`prep_launches` reads the three kernels'
+counts.
 
 Modes, all of ``pallas_estep_fused``'s: ungated and gated, ``emit_gamma``
 True and False, and
@@ -180,7 +187,8 @@ def _library():
 
     return bind(
         load_library(_LIB),
-        {"fused_fb_forward": "pppppppp" "iiiiiii" "p",
+        {"fused_fb_forward": "ppppppppp" "iiiiiii" "p",
+         "fused_fb_forward_scratch": "iiiiip",
          "fused_fb_backward": "ppppppppppppp" "iiiiiii" "p",
          "fused_fb_scratch": "iiiiiiip",
          "fused_fb_kernel_info": "iiiiiiip",
@@ -192,6 +200,7 @@ def _library():
          "fused_fb_prep_launches": "ii",
          "fused_fb_backward_launches": "i",
          "fused_fb_wf_tiled": "iii",
+         "fused_fb_ll_tile": "ppp" "l" "iiii" "p",
          "fused_fb_kmax": ""},
         "fused_fb_error_string",
     )
@@ -343,7 +352,9 @@ def fused_forward(
     """Forward kernel launcher; contract of :func:`forward_reference`.
 
     Inputs are float32 and contiguous on one device. CPU tensors run the
-    plain twin; CUDA tensors launch ``fused_fwd_kernel`` or raise."""
+    plain twin; CUDA tensors launch ``fused_fwd_kernel`` or raise. Up to
+    K = 64 at F > 64 the launch takes a scratch of T B K floats, the
+    likelihoods, which ``ll_tile_kernel`` sums before the chain reads them."""
     return _launch_forward(None, pi_t, A_t, W, feats, in_kernel_feats, alpha_dtype)
 
 
@@ -370,8 +381,10 @@ def _launch_forward(S: int | None, pi_t, A_t, W, feats, in_kernel_feats=None,
     a32, a16 = (alpha, None) if alpha_dtype == torch.float32 else (None, alpha)
     s = torch.empty((B, T), dtype=torch.float32, device=dev)
     sh = torch.empty((B, T), dtype=torch.float32, device=dev)
+    work = scratch(lib, "fused_fb_forward_scratch", lib.fused_fb_error_string, dev, T, B, K, F,
+                   kind)
     code = lib.fused_fb_forward(
-        ptr(pi_t), ptr(A_t), ptr(W), ptr(feats), ptr(a32), ptr(a16), ptr(s), ptr(sh),
+        ptr(pi_t), ptr(A_t), ptr(W), ptr(feats), ptr(a32), ptr(a16), ptr(s), ptr(sh), ptr(work),
         T, B, K, F, S, kind, index, stream(dev),
     )
     fused_forward.launches += 1
@@ -482,7 +495,8 @@ def fused_backward(
     (B K) and the sums' partials, whatever T: about 0.28 GB at B = 1024,
     K = 256, F = 45 (the statistics a window of time steps a launch,
     csrc/fb_stats.cuh); bf16 alpha and a built kind add a window's widened
-    alpha and feature rows."""
+    alpha and feature rows, F > 64 a window's likelihoods (0.13 GB at
+    K = 256)."""
     return _launch_backward(None, A_t, W, feats, alpha, s, sh, emit_gamma, weights,
                             in_kernel_feats, gamma_sel)
 
@@ -583,6 +597,7 @@ def reset_launch_counts() -> None:
     outer_sum.launches = 0
     feature_rows.launches = 0
     widen_alpha.launches = 0
+    likelihood_tile.launches = 0
 
 
 # ------------------------------------------------------------- outer sums
@@ -656,10 +671,14 @@ def outer_launches(clear: bool = False) -> int:
 
 # ----------------------------------------------- the large-K operand kernels
 
-# the operand kernels of the large-K statistics (csrc/fb_stats.cuh), by the
-# libraries' index, and the libraries that run them: the fused backward both,
-# the duplex combine the feature build, the split backward the widening
-PREP_KERNELS = {"build_feats_kernel": 0, "widen_kernel": 1}
+# the operand kernels of the large-K statistics and the WF likelihoods
+# (csrc/fb_stats.cuh), by the libraries' index, and the libraries that run
+# them: the fused pair all of them (the likelihood tile at F > 64: the
+# forward up to K = 64 on its 64-state tile, the backward above on its
+# 128-state one), the duplex combine the feature build, the split backward
+# the widening
+PREP_KERNELS = {"build_feats_kernel": 0, "widen_kernel": 1, "ll_tile_kernel<64>": 2,
+                "ll_tile_kernel<128>": 3}
 PREP_LIBS = ("fused_fb", "duplex_fb", "split_fb")
 
 
@@ -712,6 +731,64 @@ def widen_alpha(alpha: torch.Tensor) -> torch.Tensor:
 
 feature_rows.launches = 0
 widen_alpha.launches = 0
+
+LL_BLOCK = 64  # features a block of ll's sum (fbc::FMAX): the chain kernels' order
+
+
+def likelihood_tile_reference(X: torch.Tensor, W: torch.Tensor,
+                              in_kernel_feats: str | None = None) -> torch.Tensor:
+    """Plain twin of the likelihood tile: the feature rows of X (N, F) --
+    with ``in_kernel_feats`` "niw" or "nig" the raw observations (N, D),
+    whose ``ell_features`` it builds -- times W (F, K), summed in blocks of
+    :data:`LL_BLOCK` features, each block's product added to the blocks'
+    before in order."""
+    X = build_features(X, in_kernel_feats)
+    out = X[:, :LL_BLOCK] @ W[:LL_BLOCK]
+    for f0 in range(LL_BLOCK, X.shape[1], LL_BLOCK):
+        out = out + X[:, f0:f0 + LL_BLOCK] @ W[f0:f0 + LL_BLOCK]
+    return out
+
+
+def likelihood_tile(X: torch.Tensor, W: torch.Tensor,
+                    in_kernel_feats: str | None = None) -> torch.Tensor:
+    """The fused WF instances' likelihoods alone: the feature rows of X
+    (N, F) -- or with ``in_kernel_feats`` "niw" / "nig" of the raw
+    observations (N, D), built where they are staged -- times W (F, K),
+    float32 (N, K), for contiguous float32 X and W on one device.
+
+    The kernel (``csrc/fb_stats.cuh::ll_tile_kernel``, the ll half of
+    ``_fwd_kernel_fused`` and ``_bwd_kernel_fused``, pallas_fb.py:516 and
+    :577) is the one the fused forward runs over all rows up to K = 64 at
+    F > 64, before the chain that reads its output, and the fused backward
+    over each window of its statistics above K = 64 at F > 64: each element
+    the chain kernels' own sum (a fmaf chain over each block of 64
+    features, from zero, in feature order, the blocks added in order),
+    float32 FFMA. CPU tensors run :func:`likelihood_tile_reference`; CUDA
+    tensors launch the kernel or raise."""
+    if X.dim() != 2 or W.dim() != 2:
+        raise ValueError(f"likelihood_tile takes X (N, F) and W (F, K), got {tuple(X.shape)} "
+                         f"and {tuple(W.shape)}")
+    (N, Fin), K = X.shape, W.shape[1]
+    F = feature_width(in_kernel_feats, Fin)
+    dev = X.device
+    check("X", X, (N, Fin), dev)
+    check("W", W, (F, K), dev)
+    if N < 1 or K < 1:
+        raise ValueError(f"likelihood_tile takes non-empty X and W, got {tuple(X.shape)}, "
+                         f"{tuple(W.shape)}")
+    if runs_plain_twin(X):
+        return likelihood_tile_reference(X, W, in_kernel_feats)
+    lib = _library()
+    out = torch.empty((N, K), dtype=torch.float32, device=dev)
+    index = device_index(dev)
+    code = lib.fused_fb_ll_tile(ptr(X), ptr(W), ptr(out), N, F, K, kind_code(in_kernel_feats),
+                                index, stream(dev))
+    likelihood_tile.launches += 1
+    raise_on(lib.fused_fb_error_string, code, "ll_tile_kernel")
+    return out
+
+
+likelihood_tile.launches = 0
 
 
 def prep_launches(kernel: str, clear: bool = False) -> int:

@@ -11,14 +11,20 @@ backward's outer sums alone (``fused_fb.outer_sum``, where the checkout
 has it) beside torch.matmul on the same products, float32 and TF32.
 
 Given feature widths (a comma-separated list of ``niw:D``, a Gaussian-NIW
-at D dimensions, F = 1 + D + D (D + 1) / 2, and ``onehot:V``, the one-hot
-rows of V symbols, F = V), it times instead, at K (up to 64) and each
-width: the pair and the backward gated, each backward's kernels by
-torch.profiler, and the digests of the forward's outputs and, at S = 2 and
-4 (acc's grouping follows S), of the backward's gamma and gamma0, acc and
-eacc (ungated and gated), each S with eacc's largest difference from the
-float64 twin on the same inputs, relative to the largest |eacc| (eacc's
-bits follow the summation's grouping, which a redesign may change). Last,
+at D dimensions, F = 1 + D + D (D + 1) / 2, ``nig:D``, a diagonal Gaussian,
+F = 1 + 2 D, and ``onehot:V``, the one-hot rows of V symbols, F = V), it
+times instead, at K (any the kernels take) and each width: the pair and the
+backward gated, and each kernel of the forward and the backward by
+torch.profiler (``reps`` 0: no times); before, the digests at every built
+S whose instances the card
+holds at that F: the forward's alpha, s and sh on the feature array, on a
+built kind's raw observations and with bf16 alpha (up to K = 64 beside the
+duplex WF chain's, which must be the same bits), and the backward's gamma,
+gamma0, acc and eacc, ungated and gated, on the array and the raw rows,
+with the gamma pick and with bf16 alpha; up to K = 64, at S = 2 and 4
+(acc's grouping follows S), eacc's largest difference from the float64 twin
+on the same inputs, relative to the largest |eacc| (eacc's bits follow the
+summation's grouping, which a redesign may change). Last,
 either way, ``fused_fb.widen_alpha`` (where the checkout has it) beside
 ``.to(torch.float32)`` on the large-K SVI step's window of bf16 alpha (69 x
 1024 rows of 128).
@@ -116,12 +122,12 @@ def onehot_inputs(dev: torch.device, K: int, V: int):
 
 
 def parse_widths(arg: str) -> list[tuple[str, int]]:
-    """``niw:10,onehot:100`` -> [("niw", 10), ("onehot", 100)]."""
+    """``niw:10,nig:32,onehot:100`` -> [("niw", 10), ("nig", 32), ("onehot", 100)]."""
     out = []
     for item in arg.split(","):
         kind, size = item.split(":")
-        if kind not in ("niw", "onehot"):
-            raise ValueError(f"a width is niw:D or onehot:V, got {item!r}")
+        if kind not in ("niw", "nig", "onehot"):
+            raise ValueError(f"a width is niw:D, nig:D or onehot:V, got {item!r}")
         out.append((kind, int(size)))
     return out
 
@@ -157,6 +163,7 @@ def digest(*xs: torch.Tensor) -> str:
     same inputs compare bit for bit by their digests."""
     h = hashlib.sha256()
     for x in xs:
+        x = x.view(torch.int16) if x.dtype == torch.bfloat16 else x  # numpy has no bf16
         h.update(x.detach().cpu().contiguous().numpy().tobytes())
     return h.hexdigest()[:16]
 
@@ -188,30 +195,123 @@ def outer_products(alpha: torch.Tensor, feats: torch.Tensor, reps: int) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def nig_inputs(dev: torch.device, K: int, D: int):
+    """Diagonal-Gaussian inputs at D dimensions (F = 1 + 2 D): the raw
+    observations and W of a NIG posterior near the generating states
+    (chip_smoke.py's mode_problem), the rest as :func:`inputs`'."""
+    from pysvihmm_tpu_torch.distributions import diag_gaussian
+
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    obs, _, truth = gen_gaussian_dataset(gen, K, D, B, T, mean_scale=0.5, cov_scale=1.0)
+
+    def u(*shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    q = diag_gaussian.NIG(mean=truth.theta[0] + 0.3 * torch.randn(truth.theta[0].shape,
+                                                                  generator=gen, device=dev),
+                          kappa=u(K, D, lo=2.0, hi=20.0), a=u(K, D, lo=3.0, hi=20.0),
+                          b=u(K, D, lo=2.0, hi=10.0))
+    W = diag_gaussian.ell_feature_matrix(q).to(torch.float32).contiguous()
+    raw = obs.transpose(0, 1).to(torch.float32).contiguous()
+    log_pi = dirichlet.expected_log_probs(u(K, lo=1.0, hi=3.0))
+    log_A = dirichlet.expected_log_probs(u(K, K, lo=1.0, hi=3.0) + 5.0 * torch.eye(K, device=dev))
+    offs = torch.randint(0, T - (5 * T) // 7 + 1, (B,), generator=gen, device=dev)
+    t = torch.arange(T, device=dev)[:, None]
+    w = ((t >= offs) & (t < offs + (5 * T) // 7)).to(torch.float32).contiguous()
+    return log_pi, log_A, W, diag_gaussian.ell_features(raw).contiguous(), w, raw
+
+
+def width_inputs(dev: torch.device, k: int, kind: str, size: int):
+    """(log_pi, log_A, W, feats, w, src, in_kernel_feats) at one width: src
+    the raw (T, B, D) observations of a built kind ("niw", "nig"), else the
+    feature array itself (in_kernel_feats None)."""
+    if kind == "onehot":
+        log_pi, log_A, W, feats, w = onehot_inputs(dev, k, size)
+        return log_pi, log_A, W, feats, w, feats, None
+    if kind == "nig":
+        return (*nig_inputs(dev, k, size), "nig")
+    log_pi, log_A, W, feats, w = inputs(dev, k, size)
+    gen = torch.Generator(device=dev).manual_seed(1234)  # inputs()' observations again
+    obs = gen_gaussian_dataset(gen, k, size, B, T, mean_scale=0.5, cov_scale=1.0)[0]
+    return log_pi, log_A, W, feats, w, obs.transpose(0, 1).contiguous(), "niw"
+
+
+def fitting_seqs(which: str, k: int, F: int, ik: str | None, modes: bool) -> list[int]:
+    """The S this checkout builds at K whose instance the card holds a block
+    of at F (a WF instance's shared memory may grow with F)."""
+    dev = torch.device("cuda", 0)
+    return [S for S in fused_fb.built_seqs(k)
+            if fused_fb.kernel_info(which, S, F, dev, K=k, in_kernel_feats=ik,
+                                    modes=modes)["blocks_per_sm"] > 0]
+
+
+def width_digests(tag: str, k: int, pi_t, A_t, W, feats, w, src, ik) -> None:
+    """The digests of one width at every S that fits: the forward's (alpha,
+    s, sh) on the array and the kind's raw rows and with bf16 alpha; the
+    backward's (gamma, gamma0, acc, eacc) ungated and gated on the array and
+    the raw rows, with the pick and with bf16 alpha (gated); at K <= 64 the
+    duplex WF chain's alpha, s and sh against the fused forward's."""
+    from pysvihmm_tpu_torch.messages import duplex_fb
+
+    F = W.shape[0]
+    gen = torch.Generator(device=feats.device).manual_seed(77)
+    offs = torch.randint(0, T, (B,), generator=gen, device=feats.device)
+    for S in fitting_seqs("forward", k, F, ik, True):
+        fwd = fused_fb._launch_forward(S, pi_t, A_t, W, feats)
+        line = f"{tag}: forward S={S}: alpha, s, sh sha256 {digest(*fwd)}"
+        if ik is not None:
+            line += f", {ik} {digest(*fused_fb._launch_forward(S, pi_t, A_t, W, src, ik))}"
+        fwd16 = fused_fb._launch_forward(S, pi_t, A_t, W, src, ik, torch.bfloat16)
+        line += f", bf16 alpha {digest(*fwd16)}"
+        if k <= 64 and S in duplex_fb.built_seqs(k):
+            chain = duplex_fb._launch_chain(S, pi_t, A_t, W, feats)
+            line += (", the duplex WF chain's alpha, s, sh the same bits: "
+                     f"{all(torch.equal(x, r) for x, r in zip(chain[:3], fwd))}")
+            del chain
+        print(line, flush=True)
+        if S not in fitting_seqs("gated backward", k, F, ik, True):
+            continue
+        for name, weights in (("ungated", None), ("gated", w)):
+            out = fused_fb._launch_backward(S, A_t, W, feats, *fwd, True, weights)
+            line = f"{tag}: backward S={S}, {name}: gamma, gamma0, acc, eacc sha256 {digest(*out)}"
+            if ik is not None:
+                out = fused_fb._launch_backward(S, A_t, W, src, *fwd, True, weights, ik)
+                line += f", {ik} {digest(*out)}"
+            print(line, flush=True)
+            del out
+        picked = fused_fb._launch_backward(S, A_t, W, src, *fwd, False, w, ik, offs)
+        b16 = fused_fb._launch_backward(S, A_t, W, src, *fwd16, False, w, ik)
+        print(f"{tag}: backward S={S}, gated: the pick's gamma0, acc, eacc sha256 "
+              f"{digest(*picked[1:])}; bf16 alpha's {digest(*b16[1:])}", flush=True)
+        del fwd, fwd16, picked, b16
+
+
 def wide_width(dev: torch.device, k: int, kind: str, size: int, reps: int) -> None:
-    """The fused pair at one feature width above 64 (``kind`` "niw" at D =
-    size, "onehot" at V = size): digests, eacc against float64, times and
-    each backward's kernels (the module docstring)."""
-    make = inputs if kind == "niw" else onehot_inputs
-    log_pi, log_A, W, feats, w = make(dev, k, size)
+    """The fused pair at one feature width above 64 (``kind`` "niw" or "nig"
+    at D = size, "onehot" at V = size): digests (:func:`width_digests`), up to
+    K = 64 eacc against float64, and with ``reps`` > 0 the times and each
+    backward's kernels (the module docstring)."""
+    log_pi, log_A, W, feats, w, src, ik = width_inputs(dev, k, kind, size)
     pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
     F = feats.shape[-1]
-    alpha, s, sh = fused_fb.fused_forward(pi_t, A_t, W, feats)
     tag = f"{kind}:{size} (F = {F}), K = {k}"
-    print(f"{tag}: fused_fwd_kernel's alpha, s, sh: sha256 {digest(alpha, s, sh)}", flush=True)
+    width_digests(tag, k, pi_t, A_t, W, feats, w, src, ik)
+    alpha, s, sh = fused_fb.fused_forward(pi_t, A_t, W, feats)
     d = lambda x: None if x is None else x.double()  # noqa: E731
-    for name, weights in (("fused_bwd_kernel", None), ("fused_bwd_kernel, gated", w)):
-        ref = fused_fb.backward_reference(d(A_t), d(W), d(feats), d(alpha), d(s), d(sh), False,
-                                          d(weights))[3]
-        for S in (2, 4):  # acc's and eacc's grouping follow S: compare at each
-            g, g0, acc, eacc = fused_fb._launch_backward(S, A_t, W, feats, alpha, s, sh, True,
-                                                         weights)
-            rel = ((eacc.double() - ref).abs().max() / ref.abs().max()).item()
-            print(f"{tag}: {name}, S={S}: gamma, gamma0 sha256 {digest(g, g0)}, acc "
-                  f"{digest(acc)}, eacc {digest(eacc)}; max |eacc - float64| / max |float64| "
-                  f"= {rel:.3e}", flush=True)
-            del g, g0, acc, eacc
-        del ref
+    if k <= 64:  # eacc's grouping follows S there: against float64
+        for name, weights in (("fused_bwd_kernel", None), ("fused_bwd_kernel, gated", w)):
+            ref = fused_fb.backward_reference(d(A_t), d(W), d(feats), d(alpha), d(s), d(sh),
+                                              False, d(weights))[3]
+            for S in (2, 4):
+                eacc = fused_fb._launch_backward(S, A_t, W, feats, alpha, s, sh, True,
+                                                 weights)[3]
+                rel = ((eacc.double() - ref).abs().max() / ref.abs().max()).item()
+                print(f"{tag}: {name}, S={S}: max |eacc - float64| / max |float64| = {rel:.3e}",
+                      flush=True)
+                del eacc
+            del ref
+    if reps < 1:
+        return
     runs = {
         "fused_fwd_kernel": lambda: fused_fb.fused_forward(pi_t, A_t, W, feats),
         "fused_bwd_kernel": lambda: fused_fb.fused_backward(A_t, W, feats, alpha, s, sh),
@@ -220,7 +320,7 @@ def wide_width(dev: torch.device, k: int, kind: str, size: int, reps: int) -> No
     }
     for name, fn in runs.items():
         report(f"{tag}: {name}", [cuda_ms(fn, 20, warmup=3) for _ in range(reps)])
-    for name in ("fused_bwd_kernel", "fused_bwd_kernel, gated"):
+    for name in runs:
         profile_call(f"{tag}: {name}", runs[name])
 
 
@@ -276,7 +376,8 @@ def main(argv: list[str]) -> int:
         for kind, size in parse_widths(argv[2]):
             wide_width(dev, k, kind, size, reps)
             torch.cuda.empty_cache()
-        widen_window(dev, reps)
+        if reps > 0:
+            widen_window(dev, reps)
         return card_line()
     log_pi, log_A, W, feats, w = inputs(dev, k)
     pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()

@@ -62,9 +62,11 @@ def kernel_work(name: str, B: int, T: int, K: int, F: int = 0, gated: bool = Fal
     read by the backward. The fused pair's counts hold at any F: above F =
     64 its instances (WF) up to K = 64 compute ll on tile warps a window of
     steps ahead of the chain and add eacc in shared memory a window behind
-    it, reading each window's feature rows once (the backward's tiled tier,
-    up to about F = 310); past that width, and above K = 64, they write w_t
-    gamma_t to a scratch window and read it back for eacc's sums, traffic
+    it, reading each window's feature rows once (the tiled tiers: the
+    backward's up to about F = 310, the forward's to about 580); past that
+    width, and above K = 64, they write w_t gamma_t to a scratch window and
+    read it back for eacc's sums, and above K = 64 the backward's chain
+    reads the window's likelihoods that ``ll_tile_kernel`` wrote, traffic
     of the method and not of the function, which the bound does not
     count.
 
@@ -72,12 +74,16 @@ def kernel_work(name: str, B: int, T: int, K: int, F: int = 0, gated: bool = Fal
     rows (t, b) of one window: "build_feats_kernel" reads D floats a row,
     writes its F features and does their F - 1 - D products;
     "widen_kernel" reads K bf16 words a row and writes K float32 ones
-    (no arithmetic)."""
+    (no arithmetic); "ll_tile_kernel" (the large-K WF backward's
+    likelihoods) reads F features a row and W, writes K likelihoods a row
+    and does 2 K F flops a row."""
     n, k2 = B * T, K * K
     if name == "build_feats_kernel":
         return 4.0 * n * (D + F), float(n * (F - 1 - D)), F32_FLOP_PER_S
     if name == "widen_kernel":
         return 6.0 * n * K, 0.0, F32_FLOP_PER_S
+    if name == "ll_tile_kernel":
+        return 4.0 * (n * F + F * K + n * K), 2.0 * n * K * F, F32_FLOP_PER_S
     if name == "outer_sums":
         rows_a, rows_e = (T - 1) * B, (T * B if F > 0 else 0)
         words = 2 * rows_a * K + rows_e * (K + F) + k2 + K * F

@@ -149,15 +149,20 @@ def test_fused_block_layout_matches_twins(cuda_device, B, T, K, F):
 
 
 @pytest.mark.parametrize("B", [1, 3, 32, 1024, 2048])
-@pytest.mark.parametrize("K", [33, 64, 65, 128, 129, 256])
-def test_duplex_chain_is_the_fused_forward_bit_for_bit(cuda_device, B, K):
+@pytest.mark.parametrize("K,D", [(33, 8), (64, 8), (65, 8), (128, 8), (129, 8), (256, 8),
+                                 (64, 10), (64, 16), (64, 23), (128, 10), (128, 16), (128, 23)])
+def test_duplex_chain_is_the_fused_forward_bit_for_bit(cuda_device, B, K, D):
     """The chain at every built S (sequences a block; B = 1 and 3 leave the
     last block short, 2048 takes more than a wave; K = 65-256 the large-K
     instances) gives the fused forward's alpha, s and sh at that S bit for
     bit, and its beta agrees with the twin's; every S gives the same beta
-    bits (each sequence's arithmetic does not depend on S)."""
-    gen = torch.Generator(device=cuda_device).manual_seed(300 + K + B)
-    log_pi, log_A, W, feats = random_problem(gen, B, 40, K, 8)
+    bits (each sequence's arithmetic does not depend on S). NIW features at
+    D = 8 (F = 45) and, above 64 features, D = 10, 16, 23 (F = 66, 153,
+    300): there up to K = 64 the duplex chain runs fbwf::seq_forward_wf, so
+    the fused forward's tiled tier (its likelihoods on tile warps) is held
+    to that unchanged chain."""
+    gen = torch.Generator(device=cuda_device).manual_seed(300 + K + B + (0 if D == 8 else D))
+    log_pi, log_A, W, feats = random_problem(gen, B, 40, K, D)
     pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
     ref_beta = duplex_fb.duplex_chain_reference(pi_t, A_t, W, feats)[3]
     first = duplex_fb.duplex_chain(pi_t, A_t, W, feats)
@@ -1063,7 +1068,7 @@ def test_mode_launchers_refuse_bad_combinations(cuda_device):
                                      stream)
         assert code != 0
     assert lib.fused_fb_forward(p(A[0]), p(A), p(W), p(obs), p(alpha), p(alpha), p(s), p(sh),
-                                T, B, K, F, 2, 1, idx, stream) != 0
+                                p(work), T, B, K, F, 2, 1, idx, stream) != 0
     assert duplex_fb._library().duplex_fb_chain(p(A[0]), p(A), p(W), p(obs), p(alpha), p(s),
                                                 p(sh), p(alpha), T, B, K, 44, 2, 1, idx,
                                                 stream) != 0
@@ -1088,11 +1093,120 @@ def test_operand_kernels_are_their_twins_bits(cuda_device, kernel):
     assert fused_fb.prep_launches(name) == 1
 
 
+@pytest.mark.parametrize("N,D,K,kind", [(1, 65, 65, None), (7, 66, 128, None),
+                                        (131072, 66, 256, None), (1000, 300, 129, None),
+                                        (333, 130, 67, None), (4097, 820, 256, None),
+                                        (1024000, 66, 64, None), (999, 100, 33, None),
+                                        (5000, 10, 64, "niw"), (777, 23, 128, "niw"),
+                                        (3001, 32, 64, "nig")])
+def test_ll_tile_kernel_matches_its_twin(cuda_device, N, D, K, kind):
+    """ll_tile_kernel (``fused_fb.likelihood_tile``) against its float64
+    twin: rows and states not multiples of its tiles (128 rows by 64 states
+    up to K = 64, by 128 above), K not a multiple of 4 (its scalar stores),
+    F up to 820 (13 blocks of 64 features), the K = 64 forward's 1,024,000
+    rows, and the built kinds' raw rows (NIW at D = 10 and 23, F = 66 and
+    300; NIG at D = 32, F = 65), their features the twin's ell_features;
+    float32 sums of F products, within 1e-5 of the largest |ll| and 1e-4
+    absolute; the same bits on a second call, one launch of its tile a
+    call."""
+    g = torch.Generator(device=cuda_device).manual_seed(N + D + K)
+    X = torch.randn((N, D), generator=g, device=cuda_device)
+    F = fused_fb.feature_width(kind, D)
+    W = torch.randn((F, K), generator=g, device=cuda_device) / math.sqrt(F)
+    name = "ll_tile_kernel<64>" if K <= 64 else "ll_tile_kernel<128>"
+    for n in fused_fb.PREP_KERNELS:
+        fused_fb.prep_launches(n, clear=True)
+    got = fused_fb.likelihood_tile(X, W, kind)
+    torch.cuda.synchronize()
+    assert {n: fused_fb.prep_launches(n) for n in fused_fb.PREP_KERNELS} == {
+        n: int(n == name) for n in fused_fb.PREP_KERNELS}
+    feats = fused_fb.build_features(X, kind)
+    ref = fused_fb.likelihood_tile_reference(feats.double(), W.double())
+    torch.testing.assert_close(got.double(), ref, rtol=0,
+                               atol=1e-4 + 1e-5 * ref.abs().max().item())
+    assert torch.equal(got, fused_fb.likelihood_tile(X, W, kind))
+    if kind is not None:  # the rows built where staged: the feature array's bits
+        assert torch.equal(got, fused_fb.likelihood_tile(feats, W))
+
+
+@pytest.mark.parametrize("K", [128, 256])
+@pytest.mark.parametrize("kind,size", [("niw", 10), ("niw", 23), ("onehot", 100)])
+def test_large_k_wf_backward_reads_the_forwards_likelihoods(cuda_device, kind, size, K):
+    """Above K = 64 at F > 64 (F = 66, 300, 100) the fused backward's chain
+    reads each window's likelihoods from ll_tile_kernel, one tile and one
+    chain launch a window of 2^17 / B steps. The tile's likelihoods are the
+    forward's own bits: fed to the split pair (which reads ll through the
+    same large-K chains) they give the fused forward's alpha, s and sh and
+    the fused backward's gamma bit for bit. The backward gives the same
+    bits at every S that fits and over a second call, gated and not."""
+    B_, T_ = 1024, 150
+    g = torch.Generator(device=cuda_device).manual_seed(K + size)
+    log_pi, log_A, W, src, feats, ik = wf_problem(g, B_, T_, K, kind, size)
+    F = W.shape[0]
+    pi_t, A_t = split_fb.exp_params(log_pi, log_A)
+    w = svi_masks(g, B_, T_, (5 * T_) // 7)
+    ll = fused_fb.likelihood_tile(feats.view(-1, F), W).view(T_, B_, K)
+    fwd = fused_fb.fused_forward(pi_t, A_t, W, feats)
+    for x, r in zip(split_fb.split_forward(pi_t, A_t, ll), fwd):
+        assert torch.equal(x, r)
+    windows = -(-T_ // ((1 << 17) // B_))
+    seqs = [S for S in fused_fb.built_seqs(K)
+            if fused_fb.kernel_info("gated backward", S, F, cuda_device, K=K)["blocks_per_sm"] > 0]
+    assert seqs == list(fused_fb.built_seqs(K))  # the chain's shared memory does not grow with F
+    first = {}
+    for S in seqs:
+        for wg in (None, w):
+            fused_fb.backward_launches(clear=True)
+            fused_fb.prep_launches("ll_tile_kernel<128>", clear=True)
+            out = fused_fb._launch_backward(S, A_t, W, feats, *fwd, True, wg)
+            torch.cuda.synchronize()
+            assert (fused_fb.backward_launches(),
+                    fused_fb.prep_launches("ll_tile_kernel<128>")) == (windows, windows)
+            again = fused_fb._launch_backward(S, A_t, W, feats, *fwd, True, wg)
+            ref = first.setdefault(wg is None, out)
+            for x, y, r in zip(out, again, ref):
+                assert torch.equal(x, y) and torch.equal(x, r)
+    gamma = split_fb.split_backward(A_t, ll, *fwd)[0]
+    assert torch.equal(gamma, first[True][0])
+
+
+@pytest.mark.parametrize("kind,size", [("niw", 10), ("nig", 32), ("onehot", 100), ("niw", 23),
+                                       ("niw", 39)])
+def test_wf_forward_runs_the_split_chain_on_its_likelihood_tile(cuda_device, kind, size):
+    """Up to K = 64 at F > 64 (F = 66, 65, 100, 300, 820) the fused forward
+    sums its likelihoods with ll_tile_kernel's 64-state tile (one launch a
+    call, on the array and on a built kind's raw rows) and runs the split
+    forward's chain on them: its alpha, s and sh are the split forward's on
+    ``likelihood_tile``'s output, bit for bit, at every S, float32 and bf16
+    alpha; the backward reads no tile at K = 64."""
+    B_, T_ = 300, 40
+    g = torch.Generator(device=cuda_device).manual_seed(size)
+    log_pi, log_A, W, src, feats, ik = wf_problem(g, B_, T_, 64, kind, size)
+    F = W.shape[0]
+    pi_t, A_t = split_fb.exp_params(log_pi, log_A)
+    ll = fused_fb.likelihood_tile(src.view(-1, src.shape[-1]), W, ik).view(T_, B_, 64)
+    for S in fused_fb.built_seqs(64):
+        for x, mode in ((feats, None), (src, ik)):
+            for dtype in (torch.float32, torch.bfloat16):
+                for n in fused_fb.PREP_KERNELS:
+                    fused_fb.prep_launches(n, clear=True)
+                got = fused_fb._launch_forward(S, pi_t, A_t, W, x, mode, dtype)
+                torch.cuda.synchronize()
+                assert fused_fb.prep_launches("ll_tile_kernel<64>") == 1
+                ref = split_fb.split_forward(pi_t, A_t, ll, S, dtype)
+                for a, r in zip(got, ref):
+                    assert torch.equal(a, r), (S, mode, dtype)
+    fused_fb.prep_launches("ll_tile_kernel<64>", clear=True)
+    fused_fb.fused_backward(A_t, W, feats, *fused_fb.fused_forward(pi_t, A_t, W, feats))
+    torch.cuda.synchronize()
+    assert fused_fb.prep_launches("ll_tile_kernel<64>") == 1  # the forward's only
+
+
 def test_large_k_modes_launch_the_operand_kernels(cuda_device):
     """Above K = 64 the fused backward in a built kind with bf16 alpha
     builds each window's feature rows and widens its alpha (one launch each
     a window), the duplex combine builds the rows; the default instances'
-    launches launch neither."""
+    launches launch neither; at F <= 64 no likelihood tile runs."""
     K, B, T = 128, 2048, 150  # windows of 64, 64 and 22 steps
     g = torch.Generator(device=cuda_device).manual_seed(6)
     log_pi = torch.log_softmax(torch.randn(K, generator=g, device=cuda_device), 0)
@@ -1102,12 +1216,12 @@ def test_large_k_modes_launch_the_operand_kernels(cuda_device):
     for name in fused_fb.PREP_KERNELS:
         fused_fb.prep_launches(name, clear=True)
     fused_fb.estep_fused(log_pi, log_A, W, fused_fb.build_features(obs, "niw"))
-    assert [fused_fb.prep_launches(n) for n in fused_fb.PREP_KERNELS] == [0, 0]
+    assert [fused_fb.prep_launches(n) for n in fused_fb.PREP_KERNELS] == [0, 0, 0, 0]
     fused_fb.estep_fused(log_pi, log_A, W, obs, in_kernel_feats="niw",
                          alpha_dtype=torch.bfloat16)
-    assert [fused_fb.prep_launches(n, clear=True) for n in fused_fb.PREP_KERNELS] == [3, 3]
+    assert [fused_fb.prep_launches(n, clear=True) for n in fused_fb.PREP_KERNELS] == [3, 3, 0, 0]
     duplex_fb.estep_duplex(log_pi, log_A, W, obs, in_kernel_feats="niw")
-    assert [fused_fb.prep_launches(n) for n in fused_fb.PREP_KERNELS] == [3, 0]
+    assert [fused_fb.prep_launches(n) for n in fused_fb.PREP_KERNELS] == [3, 0, 0, 0]
 
 
 @pytest.mark.parametrize("K", [64, 128])

@@ -189,3 +189,56 @@ def test_the_bound_counts_any_feature_width(name):
     assert (step > 0).all()
     for lo, hi in ((45, 64), (65, 66), (66, 300)):
         np.testing.assert_allclose(work[hi] - work[lo], (hi - lo) * step, rtol=1e-12)
+
+
+def _niw_problem(D, K, N, seed):
+    """NumPy-made NIW parameters (K states, near unit-scale observations)
+    and N observations of D dimensions, float32."""
+    rng = np.random.default_rng(seed)
+    psi = 5.0 * (rng.uniform(0.5, 2.0, (K, 1, 1)) * np.eye(D) + 0.1)
+    q = dict(mean=rng.normal(scale=0.5, size=(K, D)), kappa=rng.uniform(2.0, 20.0, K),
+             nu=D + 2.0 + rng.uniform(3.0, 20.0, K), psi=psi)
+    q = {k: v.astype(np.float32) for k, v in q.items()}
+    return q, rng.normal(size=(N, D)).astype(np.float32)
+
+
+@pytest.mark.parametrize("D", [10, 13])
+def test_likelihood_tile_twin_is_jax_expected_log_likelihood(D):
+    """The large-K WF backward's likelihoods (``fused_fb.likelihood_tile``'s
+    plain twin, which the CPU runs: the port's ``ell_features`` times
+    ``ell_feature_matrix`` summed in blocks of 64 features) against JAX's
+    ``niw.expected_log_likelihood`` (const - quad / 2 + lin, the quadratic
+    form on the full D^2 products) on the same NumPy inputs, NIW at D = 10
+    (F = 66) and 13 (F = 105), K = 128, float32 on both sides. Two float32
+    evaluations of one sum of about F terms of magnitude up to max |ll|:
+    within 1e-5 of the largest |ll| and 1e-4 absolute (a few float32 ulps of
+    it; the largest difference seen is about 6e-7 of it)."""
+    from pysvihmm_tpu.distributions import niw as jniw
+    from pysvihmm_tpu_torch.distributions import niw as tniw
+    from pysvihmm_tpu_torch.messages import fused_fb
+
+    K, N = 128, 400
+    q, y = _niw_problem(D, K, N, 900 + D)
+    ref = np.asarray(jniw.expected_log_likelihood(
+        jniw.NIW(**{k: jnp.asarray(v) for k, v in q.items()}), jnp.asarray(y)))
+    tq = tniw.NIW(**{k: torch.from_numpy(v) for k, v in q.items()})
+    X = tniw.ell_features(torch.from_numpy(y)).contiguous()
+    W = tniw.ell_feature_matrix(tq).to(torch.float32).contiguous()
+    assert X.shape == (N, 1 + D + D * (D + 1) // 2) and W.shape == (X.shape[1], K)
+    got = fused_fb.likelihood_tile(X, W)
+    assert got.dtype == torch.float32 and got.shape == (N, K)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-4 + 1e-5 * np.abs(ref).max())
+
+
+def test_likelihood_tile_refuses_bad_shapes():
+    """``fused_fb.likelihood_tile`` takes X (N, F) and W (F, K), float32 and
+    contiguous, N >= 1: mismatched widths, another dtype, a strided X and
+    no rows raise ValueError on the CPU as on the card."""
+    from pysvihmm_tpu_torch.messages import fused_fb
+
+    X, W = torch.ones((5, 70)), torch.ones((70, 3))
+    for x, w in ((X, torch.ones((69, 3))), (X.double(), W), (torch.ones((70, 5)).T, W),
+                 (torch.ones((0, 70)), W), (X[None], W)):
+        with pytest.raises(ValueError):
+            fused_fb.likelihood_tile(x, w)
+    torch.testing.assert_close(fused_fb.likelihood_tile(X, W), X @ W)

@@ -4099,6 +4099,7 @@ WF_TIMED = ((64, "niw", 10), (64, "onehot", 100), (64, "niw", 16), (64, "onehot"
             (64, "niw", 23), (128, "niw", 10), (128, "onehot", 256),
             (256, "niw", 10), (256, "onehot", 256))
 WF_INKERNEL_D = (10, 16, 23)  # the in-kernel NIW timed (F = 66, 153, 300)
+WF_TILE_F = (66, 153, 256, 300)  # the likelihood tile alone: NIW D = 10, 16, V = 256, D = 23
 WF_V, WF_BIG_V = 100, 1000  # the multinomials of the main path: the fused pair, the split pair
 WF_SVI_STEPS = 5  # windowed SVI steps a variant on the main path
 # the kernels line's rows of phase 15: (row, launcher, tier, mode, source, replaces)
@@ -4109,7 +4110,7 @@ WF_ROWS = (
      "pallas_fb.py:577"),
     ("fused_bwd_wf_window_kernel", "fused_bwd_kernel", "window", None, "fused_fb_wide.cu",
      "pallas_fb.py:577"),
-    ("fused_fwd_wide_wf_kernel<KP=256>", "fused_fwd_kernel", 256, None, "fused_fb_wide.cu",
+    ("fused_fwd_wide_ll_kernel<KP=256>", "fused_fwd_kernel", 256, None, "fused_fb_wide.cu",
      "pallas_fb.py:516"),
     ("fused_bwd_wide_wf_kernel<KP=256>", "fused_bwd_kernel", 256, None, "fused_fb_wide.cu",
      "pallas_fb.py:577"),
@@ -4166,9 +4167,10 @@ def wf_main_path(dev) -> tuple[dict, float]:
     gathering gamma and as many with the pick and bf16 alpha. Each K = 64
     E-step at F > 64 on the tiled tier launches one backward chain kernel,
     no outer sum and no feature build; the F = 820 one a chain kernel and
-    an outer sum for each window of 2^17 / B steps; the K = 256 one a
-    likelihood tile (128 states) and a chain kernel a window; every forward
-    at K = 64, F > 64 one likelihood tile (64 states). Then each E-step
+    an outer sum for each window of 2^17 / B steps; at K = 256 the forward
+    and the backward each a likelihood tile (128 states) and a chain kernel
+    a window; every forward at K = 64, F > 64 one likelihood tile (64
+    states). Then each E-step
     against "scan" and every SVI parameter finite. Returns the launches
     (wf_counts) and the set-up seconds."""
     import torch
@@ -4212,15 +4214,18 @@ def wf_main_path(dev) -> tuple[dict, float]:
 
     reset_kernel_counts()
     ff.backward_launches(clear=True)
+    ff.forward_launches(clear=True)
     stats, per_case = [], []
     for _, fam, obs, p, kw, _ in cases:
         tiles = ("ll_tile_kernel<64>", "ll_tile_kernel<128>")
         before = (ff.backward_launches(), ff.outer_launches(),
-                  ff.prep_launches("build_feats_kernel"), *map(ff.prep_launches, tiles))
+                  ff.prep_launches("build_feats_kernel"), *map(ff.prep_launches, tiles),
+                  ff.forward_launches())
         stats.append(batch_local_step(p, fam, obs, "auto", need_gamma=False, **kw)[0])
         per_case.append((ff.backward_launches() - before[0], ff.outer_launches() - before[1],
                          ff.prep_launches("build_feats_kernel") - before[2],
-                         *(ff.prep_launches(n) - b for n, b in zip(tiles, before[3:]))))
+                         *(ff.prep_launches(n) - b for n, b in zip(tiles, before[3:5])),
+                         ff.forward_launches() - before[5]))
     finals = {}
     for modes in ({}, {"gamma_sel": True, "bf16_alpha": True}):
         step = svi.make_step(MultinomialDirichlet, cfg, SVI_T, "auto", **modes)
@@ -4231,15 +4236,18 @@ def wf_main_path(dev) -> tuple[dict, float]:
     torch.cuda.synchronize()
     counts = wf_counts()
     log(f"  the main path: launches {counts}")
-    for (label, _, obs, _, _, chain), (n_chain, n_outer, n_build, n64, n128) in zip(cases,
-                                                                                   per_case):
-        log(f"   {label}: backward chain launches {n_chain}, outer sums {n_outer}, feature "
-            f"builds {n_build}, likelihood tiles {n64} (64 states) and {n128} (128)")
-        if "K=256" in label:  # a likelihood tile and a chain launch a window (obs (B, T, D))
+    for (label, _, obs, _, _, chain), (n_chain, n_outer, n_build, n64, n128, n_fwd) in zip(
+            cases, per_case):
+        log(f"   {label}: forward chain launches {n_fwd}, backward chain launches {n_chain}, "
+            f"outer sums {n_outer}, feature builds {n_build}, likelihood tiles {n64} (64 "
+            f"states) and {n128} (128)")
+        if "K=256" in label:
+            # the forward and the backward each a likelihood tile and a chain launch a
+            # window (obs (B, T, D))
             windows = -(-obs.shape[1] // ((1 << 17) // obs.shape[0]))
-            require((n64, n128, n_chain) == (0, windows, windows),
-                    f"(main path) {label}: {n64} + {n128} likelihood tiles and {n_chain} chain "
-                    f"launches over {windows} windows")
+            require((n64, n128, n_fwd, n_chain) == (0, 2 * windows, windows, windows),
+                    f"(main path) {label}: {n64} + {n128} likelihood tiles, {n_fwd} forward "
+                    f"and {n_chain} backward chain launches over {windows} windows")
         else:  # the forward's tile at F > 64 (not the V = 1000 case: the split pair)
             want = 0 if "V=1000" in label else 1
             require((n64, n128) == (want, 0),
@@ -4275,7 +4283,8 @@ def wf_time(dev) -> tuple[dict, list[str]]:
     split-route E-steps there beside the duplex one); at F = 66 the
     likelihood tile on the K = 64 forward's rows and on one window of the
     K = 256 backward, against its float64 twin (to 1e-5 of the largest
-    |ll|) and beside torch.matmul; the in-kernel NIW at
+    |ll|) and beside torch.matmul, and alone at every WF_TILE_F on those
+    rows (its bits repeating over a second call); the in-kernel NIW at
     WF_INKERNEL_D; the pick at W = SVI_W against
     emit_gamma and the gather; bf16 alpha against float32 on the fused pair
     at F = 66 and the split pair at K = 64 and 256. Returns the rows' numbers
@@ -4310,10 +4319,11 @@ def wf_time(dev) -> tuple[dict, list[str]]:
         S_f = ff.default_seqs("forward", B, F_, dev, K=K_)
         S_b = ff.default_seqs("backward", B, F_, dev, K=K_)
         tier = "" if K_ <= 64 else f"<KP={K_}>"
-        name = "fused_{}_wf_kernel" if K_ <= 64 else "fused_{}_wide_wf_kernel"
-        fr = row(name.format("fwd") + tier + f" F={F_}", t_f, p_f,
+        names = (("fused_fwd_wf_kernel", "fused_bwd_wf_kernel") if K_ <= 64 else
+                 ("fused_fwd_wide_ll_kernel", "fused_bwd_wide_wf_kernel"))
+        fr = row(names[0] + tier + f" F={F_}", t_f, p_f,
                  kernel_work("fused_fwd_kernel", B, T, K_, F_))
-        br = row(name.format("bwd") + tier + f" F={F_}", t_b, p_b,
+        br = row(names[1] + tier + f" F={F_}", t_b, p_b,
                  kernel_work("fused_bwd_kernel", B, T, K_, F_))
         b_g, by_g = bound(*kernel_work("fused_bwd_kernel", B, T, K_, F_, gated=True))
         line = (f"K={K_}, F={F_} ({kind} {size}), S={S_f}/{S_b}: forward {fr}; backward {br}; "
@@ -4351,6 +4361,30 @@ def wf_time(dev) -> tuple[dict, list[str]]:
         log(f"  {lines[-1]}")
         del fwd, feats, src
         torch.cuda.empty_cache()
+
+    # the likelihood tile alone at every WF_TILE_F: the K = 64 forward's T B rows
+    # and one window of the K = 256 chains' (2^17 rows), beside torch.matmul on
+    # the same rows, its share of the bound and its bits over a second call
+    for F_ in WF_TILE_F:
+        for K_, N_ in ((K, B * T), (256, 1 << 17)):
+            X = torch.randn((N_, F_), generator=gen, device=dev)
+            W = torch.randn((F_, K_), generator=gen, device=dev) / F_ ** 0.5
+            got = ff.likelihood_tile(X, W)
+            require(torch.equal(got, ff.likelihood_tile(X, W)),
+                    f"(d) ll_tile_kernel at F={F_}, K={K_}: another call gave other bits")
+            err = compare(f"ll_tile_kernel at F={F_}, K={K_}, N={N_} against float64", got,
+                          ff.likelihood_tile_reference(X.double(), W.double()), 1e-5, 1e-4)
+            t_ll = median_ms(lambda: ff.likelihood_tile(X, W))
+            lib_ll = median_ms(lambda: torch.matmul(X, W))
+            b_ms, b_by = bound(*kernel_work("ll_tile_kernel", N_, 1, K_, F_))
+            lines.append(f"ll_tile_kernel<{64 if K_ <= 64 else 128}> F={F_}, K={K_} over {N_} "
+                         f"rows: {t_ll:.4f} ms, torch.matmul {lib_ll:.4f} ms "
+                         f"({t_ll / lib_ll:.3f}x), "
+                         f"bound {b_ms:.4f} ms ({b_by}, {100 * b_ms / t_ll:.1f} %), max_abs_err "
+                         f"{err:.3e}, the same bits twice")
+            log(f"  {lines[-1]}")
+            del X, W, got
+    torch.cuda.empty_cache()
 
     # the WF backward's window tier, at F = 820 (NIW D = 39), K = 64
     log_pi, log_A, W, src, feats, _ = wf_problem(gen, B, T, K, "niw", 39)
@@ -4495,7 +4529,7 @@ def wide_f_phase(dev) -> tuple[list[dict], list[str]]:
                "ll_tile_kernel<64>": times["ll_tile_kernel<64>"]["max_abs_err"],
                "ll_tile_kernel<128>": times["ll_tile_kernel<128>"]["max_abs_err"],
                "fused_bwd_wf_window_kernel": errs["niw", 39, K, B]["bwd"],
-               "fused_fwd_wide_wf_kernel<KP=256>": errs["niw", 10, 256, B]["fwd"],
+               "fused_fwd_wide_ll_kernel<KP=256>": errs["niw", 10, 256, B]["fwd"],
                "fused_bwd_wide_wf_kernel<KP=256>": errs["niw", 10, 256, B]["bwd"],
                "fused_fwd_wf_kernel<niw>": e66["fwd"], "fused_bwd_wf_kernel<niw>": e66["bwd"],
                "fused_bwd_wf_kernel<gamma_sel>": errs["onehot", WF_V, K, B]["pick"],
@@ -4506,7 +4540,7 @@ def wide_f_phase(dev) -> tuple[list[dict], list[str]]:
     timed = {"fused_fwd_wf_kernel": "fused_fwd_wf_kernel F=66",
              "fused_bwd_wf_kernel": "fused_bwd_wf_kernel F=66",
              "fused_bwd_wf_window_kernel": "fused_bwd_wf_window_kernel F=820",
-             "fused_fwd_wide_wf_kernel<KP=256>": "fused_fwd_wide_wf_kernel<KP=256> F=66",
+             "fused_fwd_wide_ll_kernel<KP=256>": "fused_fwd_wide_ll_kernel<KP=256> F=66",
              "fused_bwd_wide_wf_kernel<KP=256>": "fused_bwd_wide_wf_kernel<KP=256> F=66"}
     rows = []
     for name, kernel, tier, mode, src, replaces in WF_ROWS:

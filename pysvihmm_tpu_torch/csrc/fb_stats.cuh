@@ -24,6 +24,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <climits>
 
 #include "fb_common.cuh"
 
@@ -515,181 +516,247 @@ inline cudaError_t widen(const __nv_bfloat16* a16, float* out, long long n, cuda
 // F) . W (F, K), W row-major, X the feature rows of N (t, b) rows: the
 // array's, or for a built kind (fbc::FEATS_NIW, FEATS_NIG) each feature
 // built from the raw observation rows (N, D) where it is staged (fbc::
-// feat_at: ell_features' float32 bits). It is the ll half of the TPU's
+// feat_of: ell_features' float32 bits). It is the ll half of the TPU's
 // fused kernels, where ll is one tile matmul of a block of steps
 // (pysvihmm_tpu/messages/pallas_fb.py:516 _fwd_kernel_fused, :577
 // _bwd_kernel_fused; their pallas_calls :958, :1060 are the chains'): the
-// forward up to K = 64 sums the likelihoods of all T steps with it and its
-// chain reads them as the split forward does (fbseq::seq_forward's ll
-// mode), and the backward above K = 64 those of each window of its
-// statistics (fbs::WideStats), read by fbw::seqs_backward's LL chain. Both
-// chains thus keep F products a state and step off their serial path,
-// where up to K = 64 tile warps beside the chain (slower, as measured:
-// PERF.md) and at KP = 256 shared memory (A~ takes 192 of 227 KB) could
-// not hold them.
+// forward up to K = 64 sums the likelihoods of all T steps with it, above
+// K = 64 those of each window of fbs::WideStats::window(T, B) steps, and its
+// chain reads them as the split forward does (fbseq::seq_forward's ll mode,
+// fbw::seqs_forward without FEATS); the backward above K = 64 sums those of
+// each window of its statistics (fbs::WideStats), read by
+// fbw::seqs_backward's LL chain. The chains thus keep F products a state
+// and step off their serial path.
 //
 // Each element is the chains' own sum (fbw::WGlobal::lls, fbwf::ll_from):
 // over f = 0 .. 4 ceil(F / 4) - 1 (zero beyond F) in blocks of 64 features,
 // each block's fmaf chain from zero in feature order, the blocks added in
 // order; so lik_t is the fused kernels' own bits and every output theirs.
+// Any schedule that keeps each element's order gives these bits; tensor
+// cores (TF32 operands, another order of sums) would not.
 //
-// What bounds it on this card: 2 N K F flops in float32 FFMA (tensor cores
-// would round the features below float32) against 4 (N F + F K + N K)
-// bytes; at K = 256, F = 66 on a window of 2^17 rows, 4.4 GFLOP (0.066 ms
-// at 67 TFLOP/s) against 168 MB (0.050 ms at 3.35 TB/s), so the FMA pipe.
-// The design is a register-blocked SGEMM tile: blocks of LT_BM rows by BN
-// states (64 up to K = 64, else 128), 256 threads each computing 8 rows by
-// BN / 16 states (groups of 4 states 64 apart, so that a warp's float4
-// reads of W are free of bank conflicts), so that every float4 of X or of
-// W read from shared memory feeds 16 or 32 FMAs; the features pass in
-// chunks of LT_BK, staged in two shared-memory slots (X transposed, its row
-// pitch 4 words past LT_BM) from registers loaded a chunk ahead. Each
-// 64-feature block sums into `part` in registers, which at the block's end
-// goes into the running total, kept in shared memory (a thread's values,
-// LT_NT apart) so that registers hold one set of sums.
-constexpr int LT_BM = 128, LT_BK = 16, LT_NT = 256;
-constexpr int LT_XP = LT_BM + 4;  // the pitch of X's transposed rows in shared memory
-constexpr int LT_BLK = 64;        // features a block of ll's sum (fbc::FMAX)
-
-// The tile's states a block at K states, and its dynamic shared memory.
-__host__ __device__ constexpr int lt_bn(int K) { return K <= 64 ? 64 : 128; }
-
+// What bounds it on this card: 2 N K F flops in float32 FFMA against 4 (N F
+// + F K + N K) bytes. At K = 256, F = 66 on a window of 2^17 rows, 4.4 GFLOP
+// (0.066 ms at 67 TFLOP/s) against 168 MB (0.050 ms at 3.35 TB/s): the FMA
+// pipe, with the output's 134 MB written beside it. At K = 64 over all T B
+// = 1,024,000 rows, 532 MB (0.159 ms) against 8.6 GFLOP (0.129 ms): device
+// memory.
+//
+// The design: a register-blocked SGEMM tile of BM rows by BN states (BN =
+// 64 up to K = 64, else 128), 256 threads each computing 8 rows by 8 states
+// (two groups of 4 states BN / 2 apart, so that a warp's float4 reads of W
+// are free of bank conflicts), so that every float4 of X or of W read from
+// shared memory feeds 32 FMAs; both the 64-feature block being summed
+// (`part`) and the running total (`tot`) stay in registers (128 of them,
+// one block an SM). Persistent blocks (one an SM) walk the tiles, the
+// states' tiles of a row tile on neighbouring blocks; each block's (tile,
+// chunk of BK features) items form one sequence, which a ring of ST slots
+// in shared memory stages ST - 1 items ahead by cp.async (X transposed, its
+// row pitch 4 words past BM, 4 bytes a copy, so that any 4-byte-aligned
+// base and any F take the same path; W's chunk beside it). So the next
+// tile's first chunks arrive while this tile's last ones and its stores
+// run. The cursors over the items move by increments: a division a tile,
+// none an item. A built kind's features are built where its chunk is
+// staged, from the raw rows loaded by the block's threads (no cp.async: the
+// products need the values). Measured on the H100 against other plans of
+// this tile (rows and states a thread, stages, chunk, the loop's unrolling,
+// totals in shared memory and two blocks an SM; PERF.md): BM = 256
+// and 3 stages of 16 features, fully unrolled, at BN = 64; BM = 128 and 4
+// stages of 32, a loop over groups of 4, at BN = 128.
 template <int BN>
-__host__ __device__ constexpr int lt_smem() {
-  return 4 * (2 * LT_BK * LT_XP + 2 * LT_BK * BN + 8 * (BN / 16) * LT_NT);
-}
+struct LtPlan {
+  static constexpr int NT = 256;                // threads a block
+  static constexpr int SX = BN / 8;             // threads across the states
+  static constexpr int BM = 8 * (NT / SX);      // rows a tile
+  static constexpr int XP = BM + 4;             // the pitch of X's transposed rows
+  static constexpr int GS = BN / 2;             // states between a thread's two groups
+  static constexpr int ST = BN == 64 ? 3 : 4;  // slots in the ring
+  static constexpr int BK = BN == 64 ? 16 : 32; // features an item
+  static constexpr bool K4 = BN != 64;          // an item's features as a loop over groups of 4
+  static constexpr int XL = BM * BK / NT, WL = BK * BN / NT;  // copies a thread an item
+  static constexpr int STAGE = BK * (XP + BN);  // floats a slot
+  static constexpr int SMEM = 4 * ST * STAGE;   // bytes of the ring
+};
+constexpr int LT_BLK = 64;  // features a block of ll's sum (fbc::FMAX)
+
+// The tile's states a block at K states.
+__host__ __device__ constexpr int lt_bn(int K) { return K <= 64 ? 64 : 128; }
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
 template <int KIND, int BN>
-__global__ void __launch_bounds__(LT_NT, 2)
+__global__ void __launch_bounds__(LtPlan<BN>::NT, 1)
 ll_tile_kernel(const float* __restrict__ X, const float* __restrict__ W, float* __restrict__ out,
                long long N, int F, int K, int D, bool vec) {
-  constexpr int H = BN / 64;                                       // groups of 4 states a thread
-  constexpr int XL = LT_BM * LT_BK / LT_NT, WL = LT_BK * BN / LT_NT;  // loads a thread
+  using P = LtPlan<BN>;
+  constexpr int NT = P::NT, BM = P::BM, XP = P::XP, BK = P::BK, ST = P::ST;
+  constexpr int XR = NT / BK, WR = NT / BN;  // rows (features) between a thread's X (W) copies
+  constexpr bool BUILT = KIND != fbc::FEATS_ARRAY;
   extern __shared__ __align__(16) float lt_smem_[];
-  float* xs = lt_smem_;                 // [2][LT_BK][LT_XP]
-  float* ws = xs + 2 * LT_BK * LT_XP;   // [2][LT_BK][BN]
-  float* tots = ws + 2 * LT_BK * BN;    // [8 * 4 H][LT_NT]: the running totals
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const long long r0 = (long long)blockIdx.x * LT_BM;
-  const int n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x, tx = tid % P::SX, ty = tid / P::SX;
   const int fend = 4 * ((F + 3) / 4);  // the chains' padded end
-  const int chunks = (fend + LT_BK - 1) / LT_BK;
-  // this thread's loads: X rows xrow + 16 i (feature xf of each), W rows
-  // wf + (LT_NT / BN) i (state wn of each)
-  const int xrow = tid / LT_BK, xf = tid % LT_BK, wf = tid / BN, wn = n0 + tid % BN;
-  float xr[XL], wr[WL];
-#define LT_FETCH(c)                                                                   \
-  {                                                                                   \
-    const int f_ = (c) * LT_BK + xf;                                                  \
-    int ia = -1, ja = -1; /* a built feature's factors */                             \
-    if (KIND != fbc::FEATS_ARRAY && f_ < F) fbc::feat_src(KIND, D, f_, ia, ja);       \
-    _Pragma("unroll") for (int i = 0; i < XL; ++i) {                                  \
-      const long long r = r0 + xrow + i * (LT_NT / LT_BK);                            \
-      float v = 0.f;                                                                  \
-      if (r < N && f_ < F) {                                                          \
-        if (KIND == fbc::FEATS_ARRAY) {                                               \
-          v = X[r * F + f_];                                                          \
-        } else {                                                                      \
-          const float* y = X + r * D;                                                 \
-          v = ia < 0 ? 1.f : fbc::feat_of(y[ia], ja < 0 ? 0.f : y[ja], ja >= 0);      \
-        }                                                                             \
-      }                                                                               \
-      xr[i] = v;                                                                      \
-    }                                                                                 \
-    _Pragma("unroll") for (int i = 0; i < WL; ++i) {                                  \
-      const int f = (c) * LT_BK + wf + i * (LT_NT / BN);                              \
-      wr[i] = (f < F && wn < K) ? W[(size_t)f * K + wn] : 0.f;                        \
-    }                                                                                 \
-  }
-#define LT_STAGE(slot)                                                                \
-  {                                                                                   \
-    _Pragma("unroll") for (int i = 0; i < XL; ++i)                                    \
-        xs[(slot) * LT_BK * LT_XP + xf * LT_XP + xrow + i * (LT_NT / LT_BK)] = xr[i]; \
-    _Pragma("unroll") for (int i = 0; i < WL; ++i)                                    \
-        ws[(slot) * LT_BK * BN + tid + i * LT_NT] = wr[i];                            \
-  }
+  const int chunks = (fend + BK - 1) / BK;
+  const int col_tiles = (K + BN - 1) / BN;
+  // 32-bit counters (the launcher refuses more tiles): 64-bit ones cost the
+  // item loop its time
+  const int tiles = static_cast<int>((N + BM - 1) / BM) * col_tiles;
+  const int b0 = blockIdx.x, nb = gridDim.x;
+  const int mine = tiles > b0 ? (tiles - 1 - b0) / nb + 1 : 0;
+  const int items = mine * chunks;  // this block's (tile, chunk) pairs, in order
+  // this thread's copies: X rows xrow + XR q (feature xf of each), W rows
+  // wf + WR q (state wn of each)
+  const int xrow = tid / BK, xf = tid % BK, wf = tid / BN, wn = tid % BN;
+  const int in_w = BUILT ? D : F;  // floats of an input row
 
-  float part[8][4 * H];
-  LT_FETCH(0)
-  LT_STAGE(0)
-  __syncthreads();
-  for (int c = 0; c < chunks; ++c) {
-    const int f0 = c * LT_BK, kk_end = min(LT_BK, fend - f0);
-    if (c + 1 < chunks) LT_FETCH(c + 1)
+  // The fill cursor: the next item to stage, its tile's rows and states.
+  int f_tile = b0, f_c = 0, f_slot = 0, x_rows = 0;
+  const float* xt = nullptr;  // row r0 + xrow of the tile
+  const float* wt = nullptr;  // W[wf][n0 + wn]
+  bool w_ok = false;
+  auto f_start = [&]() {
+    const int rt = f_tile / col_tiles, n0 = (f_tile - rt * col_tiles) * BN;
+    const long long left = N - (long long)rt * BM - xrow;
+    xt = X + ((long long)rt * BM + xrow) * in_w;
+    x_rows = static_cast<int>(left < BM ? left : BM);
+    wt = W + (size_t)wf * K + n0 + wn;
+    w_ok = n0 + wn < K;
+  };
+  auto fill = [&]() {
+    float* xs = lt_smem_ + f_slot * P::STAGE;
+    float* ws = xs + BK * XP;
+    const int f0 = f_c * BK;
+#pragma unroll
+    for (int q = 0; q < P::WL; ++q) {
+      const bool ok = f0 + wf + q * WR < F && w_ok;
+      fbs::cp_async<1>(ws + (wf + q * WR) * BN + wn, ok ? wt + (size_t)(f0 + q * WR) * K : W,
+                       ok);
+    }
+    const int f = f0 + xf;
+    if constexpr (BUILT) {  // the features of this thread's rows, built where staged
+      int ia = -1, ja = -1;
+      if (f < F) fbc::feat_src(KIND, D, f, ia, ja);
+#pragma unroll
+      for (int q = 0; q < P::XL; ++q) {
+        const float* y = xt + (size_t)q * XR * D;
+        float v = 0.f;
+        if (f < F && q * XR < x_rows)
+          v = ia < 0 ? 1.f : fbc::feat_of(y[ia], ja < 0 ? 0.f : y[ja], ja >= 0);
+        xs[xf * XP + xrow + q * XR] = v;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < P::XL; ++q) {
+        const bool ok = f < F && q * XR < x_rows;
+        fbs::cp_async<1>(xs + xf * XP + xrow + q * XR, ok ? xt + (size_t)q * XR * F + f : X, ok);
+      }
+    }
+    if (++f_slot == ST) f_slot = 0;
+    if (++f_c == chunks) {
+      f_c = 0;
+      f_tile += nb;
+      f_start();
+    }
+  };
+
+  f_start();
+  for (int p = 0; p < ST - 1; ++p) {
+    if (p < items) fill();
+    fbs::cp_commit();
+  }
+  int c_tile = b0, c_c = 0, c_slot = 0;  // the compute cursor
+  float part[8][8], tot[8][8];
+  for (int i = 0; i < items; ++i) {
+    fbs::cp_wait<ST - 2>();  // this thread's copies of item i have landed
+    __syncthreads();         // everyone's (and a built kind's stores); item i - 1's slot is free
+    if (i + ST - 1 < items) fill();
+    fbs::cp_commit();
+    const int f0 = c_c * BK, kk_end = min(BK, fend - f0);
     if (f0 % LT_BLK == 0) {
 #pragma unroll
       for (int r = 0; r < 8; ++r)
 #pragma unroll
-        for (int j = 0; j < 4 * H; ++j) part[r][j] = 0.f;
+        for (int j = 0; j < 8; ++j) part[r][j] = 0.f;
     }
-    const float* xp = xs + (c & 1) * LT_BK * LT_XP + ty * 8;
-    const float* wp = ws + (c & 1) * LT_BK * BN + tx * 4;
-#pragma unroll
-    for (int kk = 0; kk < LT_BK; ++kk) {
-      if (kk % 4 == 0 && kk >= kk_end) break;  // kk_end is a multiple of 4
-      const float4 xa = ld4(xp + kk * LT_XP), xb = ld4(xp + kk * LT_XP + 4);
+    const float* xp = lt_smem_ + c_slot * P::STAGE + ty * 8;
+    const float* wp = lt_smem_ + c_slot * P::STAGE + BK * XP + tx * 4;
+    auto step = [&](int kk) {  // feature f0 + kk of the 8 rows and 8 states
+      const float4 xa = ld4(xp + kk * XP), xb = ld4(xp + kk * XP + 4);
+      const float4 wa = ld4(wp + kk * BN), wb = ld4(wp + kk * BN + P::GS);
       const float x[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
-      float w[4 * H];
+      const float w[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
 #pragma unroll
-      for (int h = 0; h < H; ++h) {
-        const float4 wv = ld4(wp + kk * BN + 64 * h);
-        w[4 * h] = wv.x;
-        w[4 * h + 1] = wv.y;
-        w[4 * h + 2] = wv.z;
-        w[4 * h + 3] = wv.w;
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) part[r][j] = fmaf(x[r], w[j], part[r][j]);
+    };
+    if constexpr (P::K4) {  // kk_end is a multiple of 4
+#pragma unroll 1
+      for (int k4 = 0; k4 < kk_end; k4 += 4) {
+#pragma unroll
+        for (int d = 0; d < 4; ++d) step(k4 + d);
       }
+    } else {
 #pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int j = 0; j < 4 * H; ++j) part[r][j] = fmaf(x[r], w[j], part[r][j]);
+      for (int kk = 0; kk < BK; ++kk) {
+        if (kk % 4 == 0 && kk >= kk_end) break;
+        step(kk);
+      }
     }
-    if ((f0 + LT_BK) % LT_BLK == 0 || c + 1 == chunks) {  // a block's end: into the totals
+    const bool last = c_c + 1 == chunks;
+    if ((f0 + BK) % LT_BLK == 0 || last) {  // a block's end: into the total
 #pragma unroll
       for (int r = 0; r < 8; ++r)
 #pragma unroll
-        for (int j = 0; j < 4 * H; ++j) {
-          float* t = tots + (4 * H * r + j) * LT_NT + tid;
-          *t = f0 < LT_BLK ? part[r][j] : *t + part[r][j];
+        for (int j = 0; j < 8; ++j)
+          tot[r][j] = f0 < LT_BLK ? part[r][j] : tot[r][j] + part[r][j];
+    }
+    if (last) {  // the tile's end: its rows out
+      const int rt = c_tile / col_tiles, n0 = (c_tile - rt * col_tiles) * BN;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const long long row = (long long)rt * BM + ty * 8 + r;
+        if (row >= N) break;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = n0 + P::GS * h + tx * 4;
+          float* o = out + row * K + n;
+          if (vec && n + 3 < K) {
+            *reinterpret_cast<float4*>(o) =
+                make_float4(tot[r][4 * h], tot[r][4 * h + 1], tot[r][4 * h + 2], tot[r][4 * h + 3]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (n + j < K) o[j] = tot[r][4 * h + j];
+          }
         }
-    }
-    if (c + 1 < chunks) LT_STAGE((c + 1) & 1)
-    __syncthreads();
-  }
-#undef LT_FETCH
-#undef LT_STAGE
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const long long row = r0 + ty * 8 + r;
-    if (row >= N) break;
-#pragma unroll
-    for (int h = 0; h < H; ++h) {
-      const int n = n0 + 64 * h + tx * 4;
-      const float* t = tots + (4 * H * r + 4 * h) * LT_NT + tid;
-      float* o = out + row * K + n;
-      if (vec && n + 3 < K) {
-        *reinterpret_cast<float4*>(o) = make_float4(t[0], t[LT_NT], t[2 * LT_NT], t[3 * LT_NT]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (n + j < K) o[j] = t[j * LT_NT];
       }
+      c_c = 0;
+      c_tile += nb;
+    } else {
+      ++c_c;
     }
+    if (++c_slot == ST) c_slot = 0;
   }
+  fbs::cp_wait<0>();
 }
 
 template <int KIND, int BN>
 cudaError_t ll_tile_launch(const float* X, const float* W, float* out, long long N, int F, int K,
                            int D, bool vec, cudaStream_t st) {
+  using P = LtPlan<BN>;
   const void* fn = reinterpret_cast<const void*>(ll_tile_kernel<KIND, BN>);
-  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       lt_smem<BN>());
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+  int dev = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  const dim3 grid(static_cast<unsigned>((N + LT_BM - 1) / LT_BM), (K + BN - 1) / BN);
-  ll_tile_kernel<KIND, BN><<<grid, LT_NT, lt_smem<BN>(), st>>>(X, W, out, N, F, K, D, vec);
+  const long long tiles = (N + P::BM - 1) / P::BM * ((K + BN - 1) / BN);
+  if (tiles > INT_MAX) return cudaErrorInvalidValue;
+  const unsigned grid =
+      static_cast<unsigned>(std::max<long long>(1, std::min<long long>(tiles, sms)));
+  ll_tile_kernel<KIND, BN><<<grid, P::NT, P::SMEM, st>>>(X, W, out, N, F, K, D, vec);
   return cudaGetLastError();
 }
 

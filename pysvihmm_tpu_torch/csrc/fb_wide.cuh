@@ -326,14 +326,23 @@ __device__ __forceinline__ void feat_rows(float* slot, const float* __restrict__
 // with a built KIND reads the raw (T, B, D) observations (feat_rows); ABF
 // stores alpha rounded to bf16 into alpha16, the chain carrying float32,
 // and s sums the rounded values (as seq_forward). WF takes any F (W read
-// from device memory, WGlobal; slots F wide).
+// from device memory, WGlobal; slots F wide); it serves only the duplex WF
+// chain, the fused WF forward above K = 64 reading ll instead.
+// Not FEATS, the recursion may run a window t0 <= t < t1 of the T steps a
+// launch (t1 <= 0: all of them), ll then holding the window's rows only,
+// (t1 - t0, B, K): a window above 0 starts from the float32 state that the
+// window before it left in carry, a_{t0-1} (B, K) and then 1 / s_{t0-1}
+// (B), and one below T leaves its own there, so the windows run the one
+// recursion over all T bit for bit (the stored alpha, bf16 or not, is not
+// the chain's state).
 template <int KP, int S, bool FEATS, int KIND = fbc::FEATS_ARRAY, bool ABF = false,
           bool WF = false>
 __device__ void seqs_forward(const float* __restrict__ pi, const float* __restrict__ A,
                              const float* __restrict__ W, const float* __restrict__ src,
                              float* __restrict__ alpha, float* __restrict__ s_out,
                              float* __restrict__ sh_out, int T, int B, int K, int F, int blk,
-                             float* smem, __nv_bfloat16* __restrict__ alpha16 = nullptr) {
+                             float* smem, __nv_bfloat16* __restrict__ alpha16 = nullptr,
+                             int t0 = 0, int t1 = 0, float* __restrict__ carry = nullptr) {
   using TT = Tier<KP>;
   constexpr int NW = TT::NWARP;
   const int fs = slot_stride<WF>(F);     // floats of a sequence's feature row
@@ -347,6 +356,7 @@ __device__ void seqs_forward(const float* __restrict__ pi, const float* __restri
   const bool active = k < K;
   const int b0 = blk * S, ns = S == 1 ? 1 : min(S, B - b0);  // sequences held
   const int nf4 = (F + 3) / 4;
+  if (FEATS || t1 <= 0) t0 = 0, t1 = T;
 
   MatCol<KP> col;
   col.load(A, M_s, K, false, k);
@@ -360,6 +370,19 @@ __device__ void seqs_forward(const float* __restrict__ pi, const float* __restri
   const size_t a_base = (size_t)b0 * K + k;
   for (int i = k; i < 2 * S * KP; i += KP) a_s[i] = 0.f;
   for (int i = k; i < 2 * S * fs; i += KP) f_s[i] = 0.f;
+  float inv[S];  // 1 / s_{t-1}
+#pragma unroll
+  for (int s = 0; s < S; ++s) inv[s] = 1.f;
+  if (!FEATS && t0 > 0) {  // the state the window before left: a_{t0-1}, 1 / s_{t0-1}
+    const float* c_inv = carry + step_k;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (s < ns) {
+        if (active) a_s[(((t0 - 1) & 1) * S + s) * KP + k] = carry[a_base + (size_t)s * K];
+        inv[s] = c_inv[b0 + s];
+      }
+    }
+  }
   __syncthreads();
   if (FEATS) feat_rows<S, KIND, WF>(f_s, fb, ns, F, k, KP, D, fs);
   float l_next[S];  // not FEATS: ll_t, read a step ahead
@@ -368,10 +391,7 @@ __device__ void seqs_forward(const float* __restrict__ pi, const float* __restri
     l_next[s] = (!FEATS && active && s < ns) ? fb[(size_t)s * K + k] : 0.f;
   __syncthreads();
 
-  float inv[S];  // 1 / s_{t-1}
-#pragma unroll
-  for (int s = 0; s < S; ++s) inv[s] = 1.f;
-  for (int t = 0; t < T; ++t) {
+  for (int t = t0; t < t1; ++t) {
     const int p = t & 1;
     float ll[S];
     if (FEATS) {
@@ -380,7 +400,8 @@ __device__ void seqs_forward(const float* __restrict__ pi, const float* __restri
 #pragma unroll
       for (int s = 0; s < S; ++s) {
         ll[s] = l_next[s];
-        if (t + 1 < T && active && s < ns) l_next[s] = fb[(size_t)(t + 1) * step_k + s * K + k];
+        if (t + 1 < t1 && active && s < ns)
+          l_next[s] = fb[(size_t)(t + 1 - t0) * step_k + s * K + k];
       }
     }
     float u[S];
@@ -444,6 +465,16 @@ __device__ void seqs_forward(const float* __restrict__ pi, const float* __restri
         s_out[(size_t)(b0 + s) * T + t] =
             ABF ? block_sum<NW>(red_sr + (p * S + s) * NW) : sum;
         sh_out[(size_t)(b0 + s) * T + t] = m[s];
+      }
+    }
+  }
+  if (!FEATS && t1 < T) {  // the state for the next window (each thread's own a_s words)
+    float* c_inv = carry + step_k;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (s < ns) {
+        if (active) carry[a_base + (size_t)s * K] = a_s[(((t1 - 1) & 1) * S + s) * KP + k];
+        if (k == s) c_inv[b0 + s] = inv[s];
       }
     }
   }

@@ -131,11 +131,12 @@
 // (wider F) has eacc leave the chain as the large-K statistics' does (w_t
 // gamma_t a window of time steps a launch, the 3xTF32 outer sums), while
 // acc stays in registers, carried between the windows through the blocks'
-// rows of partials. Above K = 64 the forward (fb_wide.cuh's WF flag: A~
-// fills shared memory) reads W from device memory (L2) at each step, and
-// the backward's chain reads each window's likelihoods, which ll_tile_kernel
-// sums from the window's feature rows before it (fb_wide.cuh's LL). Either
-// way ll_t is summed in blocks of 64 features (one fmaf chain a block, the
+// rows of partials. Above K = 64 both chains read each window's
+// likelihoods (fbs::WideStats::window(T, B) steps), which ll_tile_kernel
+// sums from the window's feature rows before it: the forward's is the split
+// forward's chain (fb_wide.cuh's seqs_forward without FEATS), carrying its
+// float32 state from a window to the next, the backward's fb_wide.cuh's LL.
+// ll_t is summed in blocks of 64 features (one fmaf chain a block, the
 // blocks added in order), in the chains and the tile alike, so the forward
 // and the backward see the same lik_t. Which S fit depends on F where the
 // feature slots grow with it: the occupancy query reports no resident
@@ -203,13 +204,24 @@ int groups_of(int which, int S, int K, int F) {
   return which != 0 && fbf::wf_tiled(S, K, F) ? fbf::wf_tiled_plan(S, F).groups : 1;
 }
 
-// Whether the forward (K, F) sums its likelihoods first (fbs::ll_tile over
-// all T B rows, into the scratch) and runs its chain on them: the WF
-// instance up to K = 64.
-bool forward_reads_ll(int K, int F) { return K <= KMAX && F > FMAX; }
+// Whether the forward at F sums its likelihoods first (fbs::ll_tile) and
+// runs its chain on them: the WF instances, up to K = 64 over all T B rows
+// at once, above over each window of fbs::WideStats::window(T, B) steps.
+bool forward_reads_ll(int F) { return F > FMAX; }
 
-// Launches of the backward's chain kernels since the count was last
-// cleared (fused_fb_backward_launches).
+// Floats of scratch the forward takes: the likelihoods it reads (all T B K
+// up to K = 64, a window's above, then the carry between windows: a_{t0-1}
+// (B, K) and 1 / s_{t0-1} (B)).
+long long forward_scratch_floats(int T, int B, int K, int F) {
+  if (!forward_reads_ll(F)) return 0;
+  if (K <= KMAX) return (long long)T * B * K;
+  return (long long)fbs::WideStats::window(T, B) * B * K + (long long)B * K + B;
+}
+
+// Launches of the forward's and of the backward's chain kernels since each
+// count was last cleared (fused_fb_forward_launches,
+// fused_fb_backward_launches).
+long long forward_launch_count = 0;
 long long backward_launch_count = 0;
 
 // The chain kernel of (which, S, K, kind): ceil(B / (S G)) blocks of
@@ -229,7 +241,7 @@ cudaError_t launch(int which, int S, int T, int B, int K, int F, int kind, bool 
     e = cudaLaunchKernel(fn, grid, dim3(nt), args, smem, st);
     if (e == cudaSuccess) e = cudaGetLastError();
   }
-  if (e == cudaSuccess && which != 0) ++backward_launch_count;
+  if (e == cudaSuccess) ++(which != 0 ? backward_launch_count : forward_launch_count);
   return e;
 }
 
@@ -264,11 +276,12 @@ const char* fused_fb_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// *out = the floats of scratch fused_fb_forward takes at these shapes: T B
-// K, the likelihoods, for the WF instance up to K = 64, else none.
+// *out = the floats of scratch fused_fb_forward takes at these shapes: at F
+// > FMAX the likelihoods (T B K up to K = 64; above, a window's and the
+// carry between windows), else none.
 int fused_fb_forward_scratch(int T, int B, int K, int F, int kind, long long* out) {
   if (bad_shape(T, B, K, F) || bad_kind(kind, F)) return static_cast<int>(cudaErrorInvalidValue);
-  *out = forward_reads_ll(K, F) ? (long long)T * B * K : 0;
+  *out = forward_scratch_floats(T, B, K, F);
   return 0;
 }
 
@@ -291,9 +304,10 @@ int fused_fb_scratch(int T, int B, int K, int F, int S, int kind, int abf, long 
 // refused, and so is an S whose shared memory at this F the card cannot
 // give (the launch's error). alpha is stored float32 into alpha or, where
 // alpha16 is not null (alpha then null), as bf16 into alpha16. scratch
-// holds fused_fb_forward_scratch floats: up to K = 64 at F > FMAX the
-// likelihoods of every (t, b) row, which ll_tile sums before the chain
-// reads them.
+// holds fused_fb_forward_scratch floats: at F > FMAX the likelihoods, which
+// ll_tile sums before the chain reads them, up to K = 64 of every (t, b)
+// row, above of a window of steps at a time, one tile and one chain launch
+// a window.
 int fused_fb_forward(const float* pi, const float* A, const float* W, const float* src,
                      float* alpha, void* alpha16, float* s, float* sh, float* scratch, int T,
                      int B, int K, int F, int S, int kind, int device, void* stream) {
@@ -303,12 +317,27 @@ int fused_fb_forward(const float* pi, const float* A, const float* W, const floa
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   __nv_bfloat16* a16 = static_cast<__nv_bfloat16*>(alpha16);
-  if (forward_reads_ll(K, F)) {
+  if (forward_reads_ll(F) && K <= KMAX) {
     e = fbs::ll_tile(src, W, scratch, (long long)T * B, F, K, kind, st);
     if (e != cudaSuccess) return static_cast<int>(e);
     const float* ll = scratch;
     void* args[] = {&pi, &A, &ll, &alpha, &a16, &s, &sh, &T, &B, &K};
     return static_cast<int>(launch(0, S, T, B, K, F, kind, a16 != nullptr, st, args));
+  }
+  if (forward_reads_ll(F)) {  // a window at a time: its tile, then its chain
+    const int steps = fbs::WideStats::window(T, B), D = fbc::obs_dim(kind, F);
+    float* ll = scratch;
+    float* carry = scratch + (size_t)steps * B * K;
+    for (int t0 = 0; t0 < T; t0 += steps) {
+      int t1 = std::min(T, t0 + steps);
+      e = fbs::ll_tile(src + (size_t)t0 * B * D, W, ll, (long long)(t1 - t0) * B, F, K, kind,
+                       st);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      void* args[] = {&pi, &A, &ll, &alpha, &a16, &s, &sh, &carry, &T, &B, &K, &t0, &t1};
+      e = launch(0, S, T, B, K, F, kind, a16 != nullptr, st, args);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    return 0;
   }
   void* args[] = {&pi, &A, &W, &src, &alpha, &a16, &s, &sh, &T, &B, &K, &F};
   return static_cast<int>(launch(0, S, T, B, K, F, kind, a16 != nullptr, st, args));
@@ -438,6 +467,15 @@ int fused_fb_widen(const void* a16, float* out, long long n, int device, void* s
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(fbs::widen(static_cast<const __nv_bfloat16*>(a16), out, n,
                                      static_cast<cudaStream_t>(stream)));
+}
+
+// Launches of the forward's chain kernels (one a call, one a window above K
+// = 64 at F > FMAX) since the count was last cleared; clears it when
+// `clear`.
+int fused_fb_forward_launches(int clear) {
+  const long long n = forward_launch_count;
+  if (clear != 0) forward_launch_count = 0;
+  return static_cast<int>(n);
 }
 
 // Launches of the backward's chain kernels (every tier, one a window where

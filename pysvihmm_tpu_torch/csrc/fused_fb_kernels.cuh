@@ -4,7 +4,8 @@
 // instances, fused_fb_modes.cu the modes' instances (the forward's bf16 alpha
 // store, the backward's run-time bf16 alpha and pick), fused_fb_wide.cu and
 // fused_fb_wide_modes.cu the same two sets for features wider than FMAX (the
-// WF instances: fb_seqs_wf.cuh up to K = 64, fb_wide.cuh's WF flag above).
+// WF instances: fb_seqs_wf.cuh up to K = 64, fb_wide.cuh's chains on read
+// likelihoods above).
 // A unit compiles only the instances it names, so the library's instances
 // build at once, one nvcc a unit (_build.py).
 
@@ -141,21 +142,24 @@ fused_bwd_wf_window_kernel(const float* __restrict__ A, const float* __restrict_
                                                F, t0, t1, blockIdx.x, smem);
 }
 
-// Above K = 64: the large-K forward with the WF flag (W read from device
-// memory, the feature slots F wide), and the backward's chain on a window's
+// Above K = 64: the forward's and the backward's chains on a window's
 // likelihoods, which fbs::ll_tile sums beforehand from the window's feature
-// rows (fbs::WideStats; fb_wide.cuh's LL): it holds neither W nor a feature
+// rows (a built kind's built as staged): the forward the split forward's
+// chain (fb_wide.cuh's seqs_forward without FEATS) over the window [t0, t1),
+// carrying its float32 state between windows in `carry`; the backward
+// fbs::WideStats' windows (fb_wide.cuh's LL). Neither holds W nor a feature
 // row, so one instance serves every feature kind and width.
-template <int KP, int S, int KIND, bool ABF>
+template <int KP, int S, bool ABF>
 __global__ void __launch_bounds__(KP)
-fused_fwd_wide_wf_kernel(const float* __restrict__ pi, const float* __restrict__ A,
-                         const float* __restrict__ W, const float* __restrict__ src,
-                         float* __restrict__ alpha, __nv_bfloat16* __restrict__ alpha16,
-                         float* __restrict__ s_out, float* __restrict__ sh_out, int T, int B,
-                         int K, int F) {
+fused_fwd_wide_ll_kernel(const float* __restrict__ pi, const float* __restrict__ A,
+                         const float* __restrict__ ll, float* __restrict__ alpha,
+                         __nv_bfloat16* __restrict__ alpha16, float* __restrict__ s_out,
+                         float* __restrict__ sh_out, float* __restrict__ carry, int T, int B,
+                         int K, int t0, int t1) {
   extern __shared__ __align__(16) float smem[];
-  fbw::seqs_forward<KP, S, true, KIND, ABF, true>(pi, A, W, src, alpha, s_out, sh_out, T, B, K,
-                                                  F, blockIdx.x, smem, alpha16);
+  fbw::seqs_forward<KP, S, false, fbc::FEATS_ARRAY, ABF>(pi, A, nullptr, ll, alpha, s_out,
+                                                         sh_out, T, B, K, 0, blockIdx.x, smem,
+                                                         alpha16, t0, t1, carry);
 }
 
 template <int KP, int S, bool GATED, bool MODES>
@@ -207,24 +211,22 @@ inline fbwf::TiledPlan wf_tiled_plan(int S, int F) {
   return S == 2 ? fbwf::tiled_plan<2>(F) : fbwf::tiled_plan<4>(F);
 }
 
-template <int KP, int S, int KIND, bool M>
-const void* wf_wide_at(int which, int F, int* smem) {
-  if (which == 0) {
-    *smem = fbw::chain_smem_bytes_wf<KP, S>(F);
-    return reinterpret_cast<const void*>(fused_fwd_wide_wf_kernel<KP, S, KIND, M>);
-  }
+// Above K = 64 one instance a (which, KP, S, M) serves every kind and F.
+template <int KP, int S, bool M>
+const void* wf_wide_at(int which, int* smem) {
   *smem = fbw::chain_smem_bytes<KP, S>();
+  if (which == 0) return reinterpret_cast<const void*>(fused_fwd_wide_ll_kernel<KP, S, M>);
   return which == 1 ? reinterpret_cast<const void*>(fused_bwd_wide_wf_kernel<KP, S, false, M>)
                     : reinterpret_cast<const void*>(fused_bwd_wide_wf_kernel<KP, S, true, M>);
 }
 
-template <int KP, int KIND, bool M>
-const void* wf_wide_of(int which, int S, int F, int* smem) {
+template <int KP, bool M>
+const void* wf_wide_of(int which, int S, int* smem) {
   switch (S) {
-    case 1: return wf_wide_at<KP, 1, KIND, M>(which, F, smem);
-    case 2: return wf_wide_at<KP, 2, KIND, M>(which, F, smem);
-    case 4: return wf_wide_at<KP, 4, KIND, M>(which, F, smem);
-    case 8: return wf_wide_at<KP, 8, KIND, M>(which, F, smem);
+    case 1: return wf_wide_at<KP, 1, M>(which, smem);
+    case 2: return wf_wide_at<KP, 2, M>(which, smem);
+    case 4: return wf_wide_at<KP, 4, M>(which, smem);
+    case 8: return wf_wide_at<KP, 8, M>(which, smem);
     default: *smem = 0; return nullptr;
   }
 }
@@ -237,8 +239,8 @@ const void* wf_instance_of(int which, int S, int K, int F, int* smem) {
     *smem = 0;
     return nullptr;
   }
-  return fbw::tier_of(K) == 128 ? wf_wide_of<128, KIND, M>(which, S, F, smem)
-                                : wf_wide_of<256, KIND, M>(which, S, F, smem);
+  return fbw::tier_of(K) == 128 ? wf_wide_of<128, M>(which, S, smem)
+                                : wf_wide_of<256, M>(which, S, smem);
 }
 
 template <bool M>

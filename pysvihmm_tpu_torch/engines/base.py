@@ -58,9 +58,10 @@ def wider_than_fused_kernels(emission, emit_params, obs: torch.Tensor) -> bool:
     the split kernels. Every other family runs the fused pair on "fused"
     and the duplex pair on "duplex" at any F (above ``fused_fb.FMAX`` = 64
     on their WF instances, up to a ceiling set by their feature rows in
-    shared memory: about F = 4,200 at K = 256, 6,100 up to K = 64 for the
-    fused pair, ``duplex_fb.max_feature_width`` for the duplex, where the
-    launchers raise). Decided before any launch, on every device."""
+    shared memory: about F = 6,100 up to K = 64 for the fused pair, whose
+    chains above read likelihood tiles and hold no feature row,
+    ``duplex_fb.max_feature_width`` for the duplex, where the launchers
+    raise). Decided before any launch, on every device."""
     return emission is MultinomialDirichlet and emit_params.shape[-1] > ONE_HOT_MAX_V
 
 

@@ -22,11 +22,11 @@ state, each thread running its state of all S as interleaved chains; the
 launchers take S from :func:`seqs_per_block`, a plain function of B and the
 blocks of each instance the card holds at once (the library's occupancy
 query). Features wider than :data:`FMAX` run the WF instances of either
-tier (``csrc/fb_seqs_wf.cuh`` up to K = 64, ``fb_wide.cuh``'s WF flag
-above), F a run-time bound: every F whose instance's shared memory the card
-gives, as JAX's fused kernels take any F (up to K = 64 the groups of W^T
-beyond what shared memory holds are read from L2, so only the feature
-slots bound F: about 6,100 there, 4,200 at K = 256). Up to K = 64 the WF
+tier (``csrc/fb_seqs_wf.cuh`` up to K = 64, ``fb_wide.cuh``'s chains on
+read likelihoods above), F a run-time bound: every F whose instance's
+shared memory the card gives, as JAX's fused kernels take any F (up to
+K = 64 the groups of W^T beyond what shared memory holds are read from L2,
+so only the feature slots bound F: about 6,100 there). Up to K = 64 the WF
 forward sums the likelihoods of all T B rows with :func:`likelihood_tile`'s
 kernel into a scratch of T B K floats (the size of alpha) and runs the
 split forward's chain on them; the WF backward has two tiers
@@ -34,9 +34,11 @@ split forward's chain on them; the WF backward has two tiers
 ll a window of steps ahead of its chain and adds eacc a window behind it
 on two or four more warps a block, eacc in shared memory, one launch over
 T, and past it the window tier has eacc leave the chain as the large-K
-statistics' does. Above K = 64 the WF backward's chain reads each window's
-likelihoods, which the same kernel sums from the window's feature rows
-before it. For 65 <= K <= 256 they launch the large-K instances
+statistics' does. Above K = 64 the WF forward's and backward's chains read
+each window's likelihoods (2^17 / B steps), which the same kernel sums
+from the window's feature rows before each: the forward the split
+forward's large-K chain, its float32 state carried from a window to the
+next. For 65 <= K <= 256 they launch the large-K instances
 (``fused_fwd_wide_kernel<KP, S>``, ``fused_bwd_wide_kernel<KP, S, GATED>``,
 KP = 128 or 256 padded states, S in :data:`WIDE_SEQS`): S sequences a block
 over one copy of A~, one thread a state, S by the same rule, and the
@@ -198,6 +200,7 @@ def _library():
          "fused_fb_build_feats": "pp" "l" "iiii" "p",
          "fused_fb_widen": "pp" "l" "i" "p",
          "fused_fb_prep_launches": "ii",
+         "fused_fb_forward_launches": "i",
          "fused_fb_backward_launches": "i",
          "fused_fb_wf_tiled": "iii",
          "fused_fb_ll_tile": "ppp" "l" "iiii" "p",
@@ -352,9 +355,12 @@ def fused_forward(
     """Forward kernel launcher; contract of :func:`forward_reference`.
 
     Inputs are float32 and contiguous on one device. CPU tensors run the
-    plain twin; CUDA tensors launch ``fused_fwd_kernel`` or raise. Up to
-    K = 64 at F > 64 the launch takes a scratch of T B K floats, the
-    likelihoods, which ``ll_tile_kernel`` sums before the chain reads them."""
+    plain twin; CUDA tensors launch ``fused_fwd_kernel`` or raise. At F > 64
+    the launch takes a scratch of the likelihoods, which ``ll_tile_kernel``
+    sums before the chain reads them: up to K = 64 T B K floats, one tile
+    and one chain launch; above, a window of ``WideStats::window(T, B)``
+    steps (2^17 / B) and the chain's carry between windows, one tile and one
+    chain launch a window (:func:`forward_launches`)."""
     return _launch_forward(None, pi_t, A_t, W, feats, in_kernel_feats, alpha_dtype)
 
 
@@ -570,6 +576,21 @@ def wf_backward_tier(S: int, K: int, F: int) -> str:
 @functools.cache
 def _wf_backward_tier(S: int, K: int, F: int) -> str:
     return "tiled" if _library().fused_fb_wf_tiled(S, K, F) else "window"
+
+
+def forward_launches(clear: bool = False) -> int:
+    """Launches of the forward's chain kernels by the library since the
+    count was last cleared: one a call, one a window of time steps above
+    K = 64 at F > 64. Clears the count when ``clear``. 0 before the library
+    is loaded."""
+    from .._build import loaded_library
+
+    lib = loaded_library(_LIB)
+    if lib is None:
+        return 0
+    fn = lib.fused_fb_forward_launches
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(int(clear))
 
 
 def backward_launches(clear: bool = False) -> int:

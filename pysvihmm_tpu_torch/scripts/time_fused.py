@@ -15,7 +15,10 @@ at D dimensions, F = 1 + D + D (D + 1) / 2, ``nig:D``, a diagonal Gaussian,
 F = 1 + 2 D, and ``onehot:V``, the one-hot rows of V symbols, F = V), it
 times instead, at K (any the kernels take) and each width: the pair and the
 backward gated, and each kernel of the forward and the backward by
-torch.profiler (``reps`` 0: no times); before, the digests at every built
+torch.profiler, then the likelihood tile alone (where the checkout has
+``likelihood_tile``) on the rows the pair gives it (all T B up to K = 64,
+one window of 2^17 above) beside torch.matmul, with its output's digest
+(``reps`` 0: no times); before, the digests at every built
 S whose instances the card
 holds at that F: the forward's alpha, s and sh on the feature array, on a
 built kind's raw observations and with bf16 alpha (up to K = 64 beside the
@@ -322,6 +325,15 @@ def wide_width(dev: torch.device, k: int, kind: str, size: int, reps: int) -> No
         report(f"{tag}: {name}", [cuda_ms(fn, 20, warmup=3) for _ in range(reps)])
     for name in runs:
         profile_call(f"{tag}: {name}", runs[name])
+    if hasattr(fused_fb, "likelihood_tile"):  # the tile alone, on the rows the pair gives it
+        X = feats.reshape(-1, F) if k <= 64 else feats[:(1 << 17) // B].reshape(-1, F)
+        print(f"{tag}: ll_tile_kernel over {X.shape[0]} rows: sha256 "
+              f"{digest(fused_fb.likelihood_tile(X, W))}", flush=True)
+        for name, fn in (("ll_tile_kernel", lambda: fused_fb.likelihood_tile(X, W)),
+                         ("torch.matmul", lambda: torch.matmul(X, W))):
+            report(f"{tag}: {name} over {X.shape[0]} rows",
+                   [cuda_ms(fn, 20, warmup=3) for _ in range(reps)])
+        del X
 
 
 def widen_window(dev: torch.device, reps: int) -> None:

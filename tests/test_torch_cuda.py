@@ -1093,24 +1093,32 @@ def test_operand_kernels_are_their_twins_bits(cuda_device, kernel):
     assert fused_fb.prep_launches(name) == 1
 
 
-@pytest.mark.parametrize("N,D,K,kind", [(1, 65, 65, None), (7, 66, 128, None),
-                                        (131072, 66, 256, None), (1000, 300, 129, None),
-                                        (333, 130, 67, None), (4097, 820, 256, None),
-                                        (1024000, 66, 64, None), (999, 100, 33, None),
-                                        (5000, 10, 64, "niw"), (777, 23, 128, "niw"),
-                                        (3001, 32, 64, "nig")])
-def test_ll_tile_kernel_matches_its_twin(cuda_device, N, D, K, kind):
+# (N, D, K, kind, X's base past a 16-byte boundary in floats)
+LL_TILE_CASES = [(1, 65, 65, None, 0), (7, 66, 128, None, 0), (131072, 66, 256, None, 0),
+                 (1000, 300, 129, None, 0), (333, 130, 67, None, 0), (4097, 820, 256, None, 0),
+                 (1024000, 66, 64, None, 0), (999, 100, 33, None, 0), (5000, 10, 64, "niw", 0),
+                 (777, 23, 128, "niw", 0), (3001, 32, 64, "nig", 0)]
+LL_TILE_CASES += [(1000, D, K, kind, off) for off in (1, 2) for K in (64, 100, 128, 256)
+                  for D, kind in ((66, None), (10, "niw"), (32, "nig"))]
+
+
+@pytest.mark.parametrize("N,D,K,kind,offset", LL_TILE_CASES)
+def test_ll_tile_kernel_matches_its_twin(cuda_device, N, D, K, kind, offset):
     """ll_tile_kernel (``fused_fb.likelihood_tile``) against its float64
-    twin: rows and states not multiples of its tiles (128 rows by 64 states
-    up to K = 64, by 128 above), K not a multiple of 4 (its scalar stores),
-    F up to 820 (13 blocks of 64 features), the K = 64 forward's 1,024,000
-    rows, and the built kinds' raw rows (NIW at D = 10 and 23, F = 66 and
-    300; NIG at D = 32, F = 65), their features the twin's ell_features;
+    twin: rows and states not multiples of its tiles (256 rows by 64 states
+    up to K = 64, 128 by 128 above), K not a multiple of 4 (its scalar
+    stores), F up to 820 (13 blocks of 64 features), the K = 64 forward's
+    1,024,000 rows, the built kinds' raw rows (NIW at D = 10 and 23, F = 66
+    and 300; NIG at D = 32, F = 65), their features the twin's
+    ell_features, and X's base 4 or 8 bytes past a 16-byte boundary (its
+    copies move 4 bytes each) at K = 64, 100, 128 and 256 for every kind;
     float32 sums of F products, within 1e-5 of the largest |ll| and 1e-4
-    absolute; the same bits on a second call, one launch of its tile a
-    call."""
-    g = torch.Generator(device=cuda_device).manual_seed(N + D + K)
-    X = torch.randn((N, D), generator=g, device=cuda_device)
+    absolute; the same bits on a second call and on an aligned copy of X,
+    one launch of its tile a call."""
+    g = torch.Generator(device=cuda_device).manual_seed(N + D + K + offset)
+    X = torch.randn((N * D + 4,), generator=g, device=cuda_device)[offset:offset + N * D]
+    X = X.view(N, D)
+    assert X.data_ptr() % 16 == 4 * offset
     F = fused_fb.feature_width(kind, D)
     W = torch.randn((F, K), generator=g, device=cuda_device) / math.sqrt(F)
     name = "ll_tile_kernel<64>" if K <= 64 else "ll_tile_kernel<128>"
@@ -1125,8 +1133,44 @@ def test_ll_tile_kernel_matches_its_twin(cuda_device, N, D, K, kind):
     torch.testing.assert_close(got.double(), ref, rtol=0,
                                atol=1e-4 + 1e-5 * ref.abs().max().item())
     assert torch.equal(got, fused_fb.likelihood_tile(X, W, kind))
+    assert torch.equal(got, fused_fb.likelihood_tile(X.clone(), W, kind))
     if kind is not None:  # the rows built where staged: the feature array's bits
         assert torch.equal(got, fused_fb.likelihood_tile(feats, W))
+
+
+@pytest.mark.parametrize("K", [128, 256])
+@pytest.mark.parametrize("kind,size,in_kernel", [("niw", 10, False), ("niw", 10, True),
+                                                 ("nig", 32, True), ("onehot", 100, False)])
+def test_large_k_wf_forward_runs_the_split_chain_a_window_at_a_time(cuda_device, K, kind, size,
+                                                                     in_kernel):
+    """Above K = 64 at F > 64 (F = 66, 65, 100) the fused forward sums each
+    window's likelihoods with ll_tile_kernel's 128-state tile and runs the
+    split forward's large-K chain on them, carrying the chain's float32
+    state between windows: at T = 1000, B = 1024 8 windows of 128 steps, 8
+    tiles and 8 chain launches a call, and its alpha, s and sh are the
+    split forward's on ``likelihood_tile`` over all T B rows at once, bit
+    for bit, at every built S, float32 and bf16 alpha, on the feature array
+    and on a built kind's raw rows."""
+    B_, T_ = 1024, 1000
+    g = torch.Generator(device=cuda_device).manual_seed(K + size)
+    log_pi, log_A, W, src, feats, ik = wf_problem(g, B_, T_, K, kind, size)
+    x, mode = (src, ik) if in_kernel else (feats, None)
+    F = W.shape[0]
+    pi_t, A_t = split_fb.exp_params(log_pi, log_A)
+    ll = fused_fb.likelihood_tile(feats.view(-1, F), W).view(T_, B_, K)
+    windows = -(-T_ // ((1 << 17) // B_))
+    assert windows == 8
+    for S in fused_fb.built_seqs(K):
+        for dtype in (torch.float32, torch.bfloat16):
+            fused_fb.forward_launches(clear=True)
+            fused_fb.prep_launches("ll_tile_kernel<128>", clear=True)
+            got = fused_fb._launch_forward(S, pi_t, A_t, W, x, mode, dtype)
+            torch.cuda.synchronize()
+            assert (fused_fb.forward_launches(),
+                    fused_fb.prep_launches("ll_tile_kernel<128>")) == (windows, windows)
+            ref = split_fb.split_forward(pi_t, A_t, ll, S, dtype)
+            for a, r in zip(got, ref):
+                assert torch.equal(a, r), (S, dtype)
 
 
 @pytest.mark.parametrize("K", [128, 256])

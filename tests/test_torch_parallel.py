@@ -56,6 +56,12 @@ from pysvihmm_tpu_torch.utils.checkpoint import DistributedCheckpointer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLDS = (1, 2, 4)
+# How long a spawned group may take before spawn_local kills it (also its
+# collectives' timeout): a guard against a hang, not a check of speed. The
+# groups start while JAX computes its references in this process, so on a
+# loaded host (the suite's other workers beside them, or two cores) they
+# took over 120 s; 600 s stays well inside the suite's time limit.
+GROUP_TIMEOUT = 600.0
 STEPS = 3  # SVI and metaobs steps fed JAX's draws
 SVI_CFG = dict(batch_size=4, subchain_len=24, buffer=0, tau=1.0, kappa=0.6)
 META_CFG = dict(minibatch=8, block_len=100, buffer=10, tau=10.0, kappa=0.6)
@@ -365,7 +371,7 @@ def results(tmp_path_factory):
     size runs every case while JAX runs its steps in this process."""
     inp, jinp = _inputs(str(tmp_path_factory.mktemp("parallel")))
     with ThreadPoolExecutor(len(WORLDS)) as pool:
-        groups = {w: pool.submit(spawn_local, _rank_cases, w, inp, timeout=120.0)
+        groups = {w: pool.submit(spawn_local, _rank_cases, w, inp, timeout=GROUP_TIMEOUT)
                   for w in WORLDS}
         ref = {w: _jax_cases(w, inp, jinp) for w in WORLDS}
         return {w: (groups[w].result(), ref[w]) for w in WORLDS}

@@ -53,6 +53,12 @@ from pysvihmm_tpu_torch.parallel import (
 from pysvihmm_tpu_torch.parallel.state_parallel import make_ss_vb_step
 
 WORLDS = (1, 2, 4)
+# How long a spawned group may take before spawn_local kills it (also its
+# collectives' timeout): a guard against a hang, not a check of speed. The
+# groups start while JAX computes its references in this process, so on a
+# loaded host (the suite's other workers beside them, or two cores) they
+# took over 120 s; 600 s stays well inside the suite's time limit.
+GROUP_TIMEOUT = 600.0
 F64 = torch.float64
 MESH_2D = {1: (1, 1), 2: (1, 2), 4: (2, 2)}  # (data, time) axis sizes a world
 
@@ -428,7 +434,7 @@ def results():
 
     inp, jinit = _inputs()
     with ThreadPoolExecutor(len(WORLDS)) as pool:  # the groups run while JAX computes
-        groups = {w: pool.submit(spawn_local, _rank_cases, w, inp, timeout=120.0)
+        groups = {w: pool.submit(spawn_local, _rank_cases, w, inp, timeout=GROUP_TIMEOUT)
                   for w in WORLDS}
         jax.config.update("jax_enable_x64", True)
         try:

@@ -118,6 +118,29 @@ def test_wide_features_match_jax_fused(jax_fused, name, route, gated):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=3e-3, atol=2e-3)
 
 
+
+def test_wide_features_above_k64_match_jax_fused(jax_fused):
+    """The wide path above K = 64: batch_local_step on "fused" at K = 128
+    for the Gaussian-NIW at D = 10 (F = 66; on the card the likelihood
+    tiles and the large-K chains a window at a time) against JAX's fused
+    route, at the tolerances of the test above."""
+    B, T, K = 2, 6, 128
+    fam, jfam, size = WIDE["niw_d10"]
+    obs = _data("niw_d10", B, T, K, seed=K)
+    jprior = jhmm.make_prior(K, jfam, dtype=jnp.float32, obs_dim=size)
+    jp0 = jhmm.init_params(jax.random.PRNGKey(K), jprior, jfam, jnp.asarray(obs))
+    params = convert.params_from_numpy(jp0, device="cpu")
+    assert base.feature_width(fam, params.emit, torch.from_numpy(obs)) > FMAX
+    js, jg = jax_fused(("niw_d10", K, False, "fused"), jp0, jfam, obs, None)
+    ts, tg = base.batch_local_step(params, fam, torch.from_numpy(obs), "fused")
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=5e-5)
+    np.testing.assert_allclose(ts.init.numpy(), np.asarray(js.init), atol=5e-5)
+    np.testing.assert_allclose(ts.trans.numpy(), np.asarray(js.trans), atol=1e-3)
+    np.testing.assert_allclose(ts.log_z.item(), float(js.log_z), rtol=2e-6)
+    for a, b in zip(ts.emit, js.emit):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=3e-3, atol=2e-3)
+
+
 # family, size (D, or V for the multinomial), F at that size
 WIDTHS = [(GaussianNIW, 9, 55), (GaussianNIW, 10, 66),
           (DiagonalGaussianNIG, 31, 63), (DiagonalGaussianNIG, 32, 65),

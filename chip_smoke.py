@@ -264,25 +264,30 @@ fails:
             E-steps in phase 16 (c)); in-kernel NIW at D = 10, 16, 23; the pick at W =
             70; bf16 against float32 (the fused pair at F = 66, the split
             pair at K = 64 and 256).
-16. wide duplex: the duplex pair at F > 64 (its WF instances: the chain's
+16. wide duplex: the duplex pair at F > 64 (its WF instances, on the
+            likelihoods ll_tile_kernel sums once an E-step: the chain's
             forward the fused WF forward's own function, the raw backward
-            and the combine reading W as it does, eacc summed off the
-            combine a window at a time). (a) At phase 15's widths and
-            shapes, every S that fits: the chain's alpha, s and sh the fused
-            forward's at that S, beta the same at every S, every output over
-            a second call and a built kind's the array mode's, the combine
+            and the combine reading the same likelihoods, eacc summed off
+            the combine a window at a time). (a) At phase 15's widths and
+            shapes, every built S: the chain's alpha, s and sh the fused
+            forward's at that S, beta the same at every S, every output
+            over a second call, on the likelihoods given and summed by the
+            launcher, and a built kind's the array mode's, the combine
             gated and not, emit_gamma both ways, bit for bit; the default S
-            against the float64 twins; the ceiling
-            (``duplex_fb.max_feature_width``) at K = 64, 128, 256 and the
-            ValueError past it. (b) The main path on "duplex" at B=1024,
-            T=1000: 5 VB iterations for the Gaussian-NIW at D=10 at K = 64
-            and 256 and in-kernel at 64 (ELBOs non-decreasing and within
-            1e-5 relative of "fused"'s, in-kernel the array's bits), 5
-            windowed SVI steps at V=100, W=70 (params finite); the WF
-            instances once an E-step, no split launch. (c) Times: the chain
-            and the combine (gated and not) at F = 66-300 (K = 64) and 66,
-            256 (K = 128, 256) and in-kernel at D = 10, beside twins,
-            bounds and the duplex, fused and split-route E-steps.
+            against the float64 twins; past the first design's ceilings
+            (F = 6,700 at K = 64, 4,300 at K = 256) against the float64
+            twins, and S = 8 at K = 256, F = 300. (b) The main path on
+            "duplex" at B=1024, T=1000: 5 VB iterations for the
+            Gaussian-NIW at D=10 at K = 64 and 256 and in-kernel at 64
+            (ELBOs non-decreasing and within 1e-5 relative of "fused"'s,
+            in-kernel the array's bits), 5 windowed SVI steps at V=100,
+            W=70 (params finite); the WF instances and the tile once an
+            E-step, no split launch. (c) Times: the chain and the combine
+            as called without the likelihoods (each its tile and its
+            launch) and on the E-step's, the combine gated, the tile alone
+            beside torch.matmul, at F = 66-300 (K = 64) and 66, 256 (K =
+            128, 256) and in-kernel at D = 10, beside twins, bounds and the
+            duplex, fused and split-route E-steps.
 
 The last lines are the card line, one JSON line describing the kernels (every
 kernel and instance tier: K <= 64, KP = 128, KP = 256, the split and duplex
@@ -4555,38 +4560,40 @@ def wide_f_phase(dev) -> tuple[list[dict], list[str]]:
 
 
 # ---------------------------------------------------------------- phase 16
-# The duplex pair at every feature width (its WF instances, F > 64), at phase
-# 15's widths (WF_CASES) and shapes, timed at WF_TIMED.
+# The duplex pair at every feature width (its WF instances, F > 64, on the
+# likelihoods ll_tile_kernel sums once an E-step), at phase 15's widths
+# (WF_CASES) and shapes, timed at WF_TIMED.
 DWF_VB_ITERS = 5  # (b): VB iterations a case on "duplex"
-# the kernels line's rows of phase 16: (row, launcher, tier or mode, replaces)
+# the kernels line's rows of phase 16: (row, launcher, tier or mode, source, replaces)
 DWF_ROWS = (
-    ("duplex_chain_wf_kernel", "duplex_chain_kernel", 64, "pallas_duplex.py:82"),
-    ("duplex_combine_wf_kernel", "duplex_combine_kernel", 64, "pallas_duplex.py:175"),
-    ("duplex_chain_wide_kernel<KP=256, WF>", "duplex_chain_kernel", 256, "pallas_duplex.py:82"),
-    ("duplex_combine_wf_kernel<KP=256>", "duplex_combine_kernel", 256, "pallas_duplex.py:175"),
-    ("duplex_chain_wf_kernel<niw>", "duplex_chain_kernel", "niw", "pallas_duplex.py:82"),
-    ("duplex_combine_wf_kernel<niw>", "duplex_combine_kernel", "niw", "pallas_duplex.py:175"),
+    ("duplex_chain_ll_kernel", "duplex_chain_kernel", 64, "duplex_fb_wide.cu",
+     "pallas_duplex.py:82"),
+    ("duplex_combine_ll_kernel", "duplex_combine_kernel", 64, "duplex_fb_wide.cu",
+     "pallas_duplex.py:175"),
+    ("duplex_chain_wide_ll_kernel<KP=256>", "duplex_chain_kernel", 256, "duplex_fb_wide.cu",
+     "pallas_duplex.py:82"),
+    ("duplex_combine_ll_kernel<KP=256>", "duplex_combine_kernel", 256, "duplex_fb_wide.cu",
+     "pallas_duplex.py:175"),
+    ("ll_tile_kernel<64> (duplex)", "ll_tile_kernel", 64, "fb_stats.cuh", "pallas_duplex.py:82"),
+    ("ll_tile_kernel<128> (duplex)", "ll_tile_kernel", 256, "fb_stats.cuh", "pallas_duplex.py:82"),
+    ("ll_tile_kernel<64, niw> (duplex)", "ll_tile_kernel", "niw", "fb_stats.cuh",
+     "pallas_duplex.py:82"),
 )
-
-
-def duplex_wf_seqs(K_, F_, ik, dev) -> list[int]:
-    """The built S of the duplex chain at (K, F) whose instance the card
-    holds a block of: the WF chain's shared memory grows with F."""
-    from pysvihmm_tpu_torch.messages import duplex_fb as df
-
-    return [S for S in df.built_seqs(K_)
-            if df.kernel_info("chain", S, F_, dev, K=K_, in_kernel_feats=ik)["blocks_per_sm"] > 0]
+# phase 16 (a)'s widths past the first design's shared-memory ceilings (6,652
+# features of the array up to K = 64, 4,200 at K = 256 on the H100): (K, F)
+DWF_PAST = ((64, 6700), (256, 4300))
 
 
 def check_duplex_wf(gen, K_, kind, size, B_, T_=WF_T, twins: bool = True) -> dict[str, float]:
     """Phase 16 (a) at one shape: the duplex pair's WF instances. Bit for
-    bit: the chain at every S that fits, its alpha, s and sh the fused
-    forward's at that S (the fused WF forward's own function), beta the same
-    at every S, every output over a second call and, for a built kind, on
-    the raw observations; the combine gated and not, emit_gamma both ways,
-    over a second call and on the raw observations, gamma0, acc and eacc
-    the same without gamma. With ``twins`` the default S against the plain
-    twins run in float64 on the same inputs (tests/test_pallas.py's
+    bit: the chain at every built S, its alpha, s and sh the fused forward's
+    at that S (the fused WF forward's own function), beta the same at every
+    S, every output over a second call, on the likelihoods given and
+    summed by the launcher, and, for a built kind, on the raw observations;
+    the combine gated and not, emit_gamma both ways, over a second call, on
+    the likelihoods given and not and on the raw observations, gamma0, acc
+    and eacc the same without gamma. With ``twins`` the default S against
+    the plain twins run in float64 on the same inputs (tests/test_pallas.py's
     tolerances). Returns the chain's log_c and the combine's gamma errors
     (a built kind's instances give the array's bits, so the same)."""
     import torch
@@ -4600,9 +4607,11 @@ def check_duplex_wf(gen, K_, kind, size, B_, T_=WF_T, twins: bool = True) -> dic
     F_ = W.shape[0]
     pi_t, A_t = exp_params(log_pi, log_A)
     w = svi_masks(gen, B_, T_, max(1, (5 * T_) // 7))
-    seqs = duplex_wf_seqs(K_, F_, ik, dev)
+    seqs = df.built_seqs(K_)
     what = f"(a) {kind} F={F_} K={K_} B={B_}"
-    require(len(seqs) > 0, f"{what}: no S of the duplex chain fits the card")
+    ll = df.likelihoods(W, feats)
+    if ik:
+        require_same(f"{what} likelihoods in-kernel", df.likelihoods(W, src, ik), ll)
     first = None
     for S in seqs:
         ch = df._launch_chain(S, pi_t, A_t, W, feats)
@@ -4610,6 +4619,8 @@ def check_duplex_wf(gen, K_, kind, size, B_, T_=WF_T, twins: bool = True) -> dic
                      ff._launch_forward(S, pi_t, A_t, W, feats))
         require_same(f"{what} chain S={S}: a second call", ch,
                      df._launch_chain(S, pi_t, A_t, W, feats))
+        require_same(f"{what} chain S={S}: on the likelihoods given", ch,
+                     df._launch_chain(S, pi_t, A_t, W, feats, None, ll))
         first = ch if first is None else first
         require_same(f"{what} chain S={S}: beta against S={seqs[0]}", ch[3:], first[3:])
         if ik:
@@ -4623,6 +4634,8 @@ def check_duplex_wf(gen, K_, kind, size, B_, T_=WF_T, twins: bool = True) -> dic
             tag = f"{what} combine gated={wg is not None} emit_gamma={emit}"
             require_same(f"{tag}: a second call", out,
                          df.duplex_combine(W, feats, alpha, beta, sh, emit, wg))
+            require_same(f"{tag}: on the likelihoods given", out,
+                         df.duplex_combine(W, feats, alpha, beta, sh, emit, wg, None, ll))
             if ik:
                 require_same(f"{tag} in-kernel", out,
                              df.duplex_combine(W, src, alpha, beta, sh, emit, wg, ik))
@@ -4637,9 +4650,24 @@ def check_duplex_wf(gen, K_, kind, size, B_, T_=WF_T, twins: bool = True) -> dic
         return errs
     log(f"   {what} T={T_}: the chain at S in {seqs} bit for bit; the default S against the "
         "twins")
+    errs.update(duplex_wf_twins(pi_t, A_t, W, feats, w))
+    return errs
+
+
+def duplex_wf_twins(pi_t, A_t, W, feats, w) -> dict[str, float]:
+    """The duplex pair at F > 64 on the default S against its plain twins
+    run in float64 on the same inputs (the twins forming ll = feats @ W
+    themselves), ungated and gated (w): the chain's alpha and beta to 5e-5,
+    log_c to 2e-6 relative, the combine's outputs to tests/test_pallas.py's
+    tolerances. Returns the chain's log_c and the combine's gamma errors."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import duplex_fb as df
+
     d = lambda *xs: [None if x is None else x.double() for x in xs]  # noqa: E731
     a_k, s_k, sh_k, b_k = df.duplex_chain(pi_t, A_t, W, feats)
     a_o, s_o, sh_o, b_o = df.duplex_chain_reference(*d(pi_t, A_t, W, feats))
+    errs = {}
     compare("alpha", a_k, a_o, 0.0, 5e-5)
     compare("beta", b_k, b_o, 0.0, 5e-5)
     errs["chain"] = compare("log_c", torch.log(s_k) + sh_k, torch.log(s_o) + sh_o, 2e-6, 1e-4)
@@ -4654,58 +4682,48 @@ def check_duplex_wf(gen, K_, kind, size, B_, T_=WF_T, twins: bool = True) -> dic
     return errs
 
 
-def check_duplex_ceiling(dev) -> dict[str, int]:
-    """Phase 16 (a): the widest F the duplex kernels take on the card
-    (``duplex_fb.max_feature_width``) at K = 64, 128, 256 for the array and
-    the built kinds, and past it the chain and the combine raise
-    ``ValueError`` naming it (no fallback); an S that does not fit (S = 8
-    at K = 256, F = 300) raises too. Returns the ceilings."""
+def check_duplex_past_old_ceiling(dev) -> dict[str, float]:
+    """Phase 16 (a): no instance of the duplex pair at F > 64 holds W or a
+    feature row, so none has a ceiling of F. At DWF_PAST (past the first
+    design's ceilings) the chain and the combine run on the card, gated and
+    not, and match their float64 twins; S = 8 at K = 256, F = 300 (which
+    did not fit there) gives the same bits as S = 1. Returns the errors by
+    (K, F)."""
     import torch
 
     from pysvihmm_tpu_torch.messages import duplex_fb as df
 
-    ceil = {f"{ik or 'array'} K={K_}": df.max_feature_width(K_, dev, ik)
-            for K_ in (K, 128, 256) for ik in (None, "niw", "nig")}
-    log(f"   the widest F the duplex kernels take on this card: {ceil}")
-    for K_ in (K, 256):
-        F_ = ceil[f"array K={K_}"] + 1
-        g = torch.Generator(device=dev).manual_seed(K_)
-        A_t = torch.rand((K_, K_), generator=g, device=dev)
-        W = torch.rand((F_, K_), generator=g, device=dev)
-        feats = torch.rand((2, 1, F_), generator=g, device=dev)
-        alpha = torch.rand((2, 1, K_), generator=g, device=dev)
-        sh = torch.rand((1, 2), generator=g, device=dev)
-        for name, call in (("chain", lambda: df.duplex_chain(A_t[0], A_t, W, feats)),
-                           ("combine", lambda: df.duplex_combine(W, feats, alpha, alpha, sh))):
-            try:
-                call()
-            except ValueError as e:
-                require(str(F_ - 1) in str(e), f"(a) the {name}'s raise at F={F_} does not name "
-                        f"the ceiling: {e}")
-            else:
-                raise RuntimeError(f"(a) the duplex {name} took F={F_} past its ceiling at K={K_}")
+    errs = {}
+    for K_, F_ in DWF_PAST:
+        g = torch.Generator(device=dev).manual_seed(K_ + F_)
+        T_, B_ = 6, 3
+        log_pi = torch.log_softmax(torch.randn(K_, generator=g, device=dev), 0)
+        log_A = torch.log_softmax(torch.randn((K_, K_), generator=g, device=dev)
+                                  + 4.0 * torch.eye(K_, device=dev), 1)
+        W = (torch.randn((F_, K_), generator=g, device=dev) / F_ ** 0.5).contiguous()
+        feats = torch.randn((T_, B_, F_), generator=g, device=dev).contiguous()
+        w = svi_masks(g, B_, T_, 4)
+        errs[K_, F_] = duplex_wf_twins(torch.exp(log_pi).contiguous(),
+                                       torch.exp(log_A).contiguous(), W, feats, w)
+        log(f"   K={K_}, F={F_} (past the first design's ceiling): the chain and the combine "
+            f"against their float64 twins, errors {errs[K_, F_]}")
     log_pi, log_A, W, src, feats, _ = wf_problem(torch.Generator(device=dev).manual_seed(3), 3,
                                                  4, 256, "niw", 23)
-    try:
-        df._launch_chain(8, torch.exp(log_pi), torch.exp(log_A), W, feats)
-    except ValueError:
-        pass
-    else:
-        require(8 in duplex_wf_seqs(256, W.shape[0], None, dev),
-                "(a) S = 8 ran at K = 256, F = 300, where it does not fit")
-    log("   past the ceiling the chain and the combine raise ValueError naming it; an S that "
-        "does not fit raises")
-    return ceil
+    pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+    require_same("(a) K = 256, F = 300: the chain at S = 8 against S = 1",
+                 df._launch_chain(8, pi_t, A_t, W, feats), df._launch_chain(1, pi_t, A_t, W, feats))
+    return errs
 
 
 def duplex_wf_counts() -> dict:
-    """Launches of the duplex pair's WF instances since the last reset, by
-    (kernel, tier) and (kernel, mode)."""
+    """Launches of the duplex pair's WF instances and of its likelihood
+    tile since the last reset, by (kernel, tier) and (kernel, mode)."""
     from pysvihmm_tpu_torch.messages import duplex_fb as df
 
     counts = {}
     for name, fn in (("duplex_chain_kernel", df.duplex_chain),
-                     ("duplex_combine_kernel", df.duplex_combine)):
+                     ("duplex_combine_kernel", df.duplex_combine),
+                     ("ll_tile_kernel", df.likelihoods)):
         counts.update({(name, t): n for t, n in fn.wf_launches.items()})
         counts.update({(name, m): n for m, n in fn.wf_mode_launches.items()})
     return counts
@@ -4718,8 +4736,9 @@ def duplex_wf_main_path(dev) -> tuple[dict, float]:
     D = 10 (F = 66) at K = 64 and 256 and with in-kernel features at K = 64
     on the same data, and WF_SVI_STEPS windowed SVI steps for the
     multinomial at V = WF_V, K = 64, W = SVI_W, B = 1024 (the gated
-    combine). Then: no split kernel launched, each WF instance once an
-    E-step (and no instance for F <= 64); each VB's ELBOs non-decreasing
+    combine). Then: no split kernel launched, each WF instance and the
+    likelihood tile once an E-step (and no instance for F <= 64); each VB's
+    ELBOs non-decreasing
     and within ELBO_RTOL relative of "fused"'s from the same init, the
     in-kernel ones the array mode's bits; every SVI parameter finite after
     every step. Returns the WF launches (duplex_wf_counts) and the set-up
@@ -4731,6 +4750,7 @@ def duplex_wf_main_path(dev) -> tuple[dict, float]:
     from pysvihmm_tpu_torch.engines import batch_vb, svi
     from pysvihmm_tpu_torch.engines.base import prepare_fused_obs
     from pysvihmm_tpu_torch.messages import duplex_fb as df
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
     from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
 
     t0 = time.perf_counter()
@@ -4771,12 +4791,13 @@ def duplex_wf_main_path(dev) -> tuple[dict, float]:
         f"{ {k: n for k, n in calls.items() if n} }")
     n64 = 2 * DWF_VB_ITERS + WF_SVI_STEPS
     want = {64: n64, 256: DWF_VB_ITERS, "niw": DWF_VB_ITERS}
-    for kernel in ROUTE_KERNELS["duplex"]:
+    for kernel in (*ROUTE_KERNELS["duplex"], "ll_tile_kernel"):
         for key, n in want.items():
             require(counts.get((kernel, key), 0) == n,
                     f"(b) {kernel}'s WF instances at {key}: {counts}, expected {n}")
-        require(calls[kernel] == n64 + DWF_VB_ITERS,
-                f"(b) {kernel} launched {calls[kernel]} times, not once an E-step")
+    tiles = ff.prep_launches("ll_tile_kernel<64>") + ff.prep_launches("ll_tile_kernel<128>")
+    for kernel, n in (*((k, calls[k]) for k in ROUTE_KERNELS["duplex"]), ("ll_tile_kernel", tiles)):
+        require(n == n64 + DWF_VB_ITERS, f"(b) {kernel} launched {n} times, not once an E-step")
     require(all(n == 0 for k, n in calls.items() if k not in ROUTE_KERNELS["duplex"]),
             f"(b) another kernel than the duplex pair ran on duplex: {calls}")
     for (K_, ik, obs, prior, p), e in zip(cases, elbos):
@@ -4798,11 +4819,14 @@ def duplex_wf_main_path(dev) -> tuple[dict, float]:
 
 def duplex_wf_time(dev) -> tuple[dict, list[str]]:
     """Phase 16 (c), by CUDA events (median_ms) at B = 1024, T = 1000: the
-    duplex pair's WF instances at every WF_TIMED shape, the combine
-    ungated and gated, beside their twins (2 calls), their bounds
-    (``roofline.kernel_work``) and, on the same inputs, the duplex, fused
-    and split-route E-steps; the in-kernel NIW at D = 10. Returns the rows'
-    numbers (DWF_ROWS) and the log lines."""
+    duplex pair's WF instances at every WF_TIMED shape and the in-kernel NIW
+    at D = 10. Each launcher as a caller without the likelihoods runs it
+    (the chain and the combine summing their own tile: the functions whose
+    work ``roofline.kernel_work`` bounds, ll counted), each kernel on the
+    likelihoods the E-step hands it, the combine gated too, and the tile
+    alone beside one float32 torch.matmul; their twins (2 calls); the
+    duplex, fused and split-route E-steps on the same inputs. Returns the
+    rows' numbers (DWF_ROWS) and the log lines."""
     import torch
 
     from pysvihmm_tpu_torch.messages import duplex_fb as df
@@ -4830,12 +4854,17 @@ def duplex_wf_time(dev) -> tuple[dict, list[str]]:
         log_pi, log_A, W, src, feats, _ = wf_problem(gen, B, T, K_, "niw" if ik else kind, size)
         x = src if ik else feats  # what the kernels read
         F_ = W.shape[0]
+        D_ = src.shape[-1] if ik else 0
         pi_t, A_t = exp_params(log_pi, log_A)
         w = svi_masks(gen, B, T, (5 * T) // 7)
-        a, s, sh, beta = df.duplex_chain(pi_t, A_t, W, x, ik)
+        ll = df.likelihoods(W, x, ik)
+        a, s, sh, beta = df.duplex_chain(pi_t, A_t, W, x, ik, ll)
+        t_l = median_ms(lambda: df.likelihoods(W, x, ik))
         t_c = median_ms(lambda: df.duplex_chain(pi_t, A_t, W, x, ik))
+        t_cl = median_ms(lambda: df.duplex_chain(pi_t, A_t, W, x, ik, ll))
         t_m = median_ms(lambda: df.duplex_combine(W, x, a, beta, sh, False, None, ik))
-        t_g = median_ms(lambda: df.duplex_combine(W, x, a, beta, sh, False, w, ik))
+        t_ml = median_ms(lambda: df.duplex_combine(W, x, a, beta, sh, False, None, ik, ll))
+        t_gl = median_ms(lambda: df.duplex_combine(W, x, a, beta, sh, False, w, ik, ll))
         p_c = cuda_ms(lambda: df.duplex_chain_reference(pi_t, A_t, W, x, ik), 2, warmup=1)
         p_m = cuda_ms(lambda: df.duplex_combine_reference(W, x, a, beta, sh, False, None, ik), 2,
                       warmup=1)
@@ -4844,18 +4873,37 @@ def duplex_wf_time(dev) -> tuple[dict, list[str]]:
         e_s = median_ms(lambda: split_route(log_pi, log_A, W, feats))
         S = df.default_seqs(B, F_, dev, K=K_, in_kernel_feats=ik)
         tier = "" if K_ <= 64 else f"<KP={K_}>"
-        cname = "duplex_chain_wf_kernel" if K_ <= 64 else f"duplex_chain_wide_kernel<KP={K_}, WF>"
-        suffix = "<niw>" if ik else f" F={F_}"
-        D_ = src.shape[-1] if ik else 0
+        cname = "duplex_chain_ll_kernel" if K_ <= 64 else f"duplex_chain_wide_ll_kernel<KP={K_}>"
+        suffix = " niw" if ik else f" F={F_}"
         cr = row(cname + suffix, t_c, p_c, kernel_work("duplex_chain_kernel", B, T, K_, F_, D=D_))
-        mr = row("duplex_combine_wf_kernel" + tier + suffix, t_m, p_m,
+        mr = row("duplex_combine_ll_kernel" + tier + suffix, t_m, p_m,
                  kernel_work("duplex_combine_kernel", B, T, K_, F_, D=D_))
         b_g, by_g = bound(*kernel_work("duplex_combine_kernel", B, T, K_, F_, gated=True, D=D_))
-        lines.append(f"K={K_}, F={F_} ({kind} {size}), S={S}: chain {cr}; combine {mr}; gated "
-                     f"combine {t_g:.4f} ms (bound {b_g:.4f} ms, {by_g}); the E-step duplex "
-                     f"{e_d:.4f} ms, fused {e_f:.4f} ms, split route {e_s:.4f} ms")
+        line = (f"K={K_}, F={F_} ({kind} {size}), S={S}: chain (its tile and launch) {cr}, on "
+                f"the E-step's likelihoods {t_cl:.4f} ms; combine (its tile and launch) {mr}, on "
+                f"the E-step's likelihoods {t_ml:.4f} ms, gated {t_gl:.4f} ms (bound "
+                f"{b_g:.4f} ms, {by_g}); the E-step duplex {e_d:.4f} ms, fused {e_f:.4f} ms, "
+                f"split route {e_s:.4f} ms")
+        if K_ in (64, 256) and size == 10 and kind in ("niw", "niw_in_kernel"):
+            # the tile alone, on all T B rows: the E-step's one sum of ll
+            X = x.reshape(T * B, -1)
+            tname = ("ll_tile_kernel<64, niw> (duplex)" if ik else
+                     f"ll_tile_kernel<{64 if K_ <= 64 else 128}> (duplex)")
+            p_l = cuda_ms(lambda: ff.likelihood_tile_reference(X, W, ik), 2, warmup=1)
+            Xf = feats.reshape(T * B, F_)  # the built kind's features: its float64 twin's rows
+            lib_l = median_ms(lambda: torch.matmul(Xf, W))
+            lr = row(tname, t_l, p_l, kernel_work("ll_tile_kernel", T * B, 1, K_, F_, D=D_))
+            got = ll.view(T * B, K_)
+            rows[tname].update(library_ms=lib_l, max_abs_err=compare(
+                f"{tname} against its twin in float64", got,
+                ff.likelihood_tile_reference(Xf.double(), W.double()), 1e-5, 1e-4))
+            line += f"; {tname} {lr}, torch.matmul {lib_l:.4f} ms"
+            del X, Xf, got
+        else:
+            line += f"; the tile {t_l:.4f} ms"
+        lines.append(line)
         log(f"  {lines[-1]}")
-        del a, s, sh, beta, feats, src, x
+        del a, s, sh, beta, feats, src, x, ll
         torch.cuda.empty_cache()
     return rows, lines
 
@@ -4863,10 +4911,10 @@ def duplex_wf_time(dev) -> tuple[dict, list[str]]:
 def duplex_wf_phase(dev) -> tuple[list[dict], list[str]]:
     """Phase 16: the duplex pair at every feature width. (a) the WF
     instances (check_duplex_wf) at every WF_CASES width, K = 64 and 256 at
-    B = 1024 and K = 4 and 128 at B = 3, and the ceiling
-    (check_duplex_ceiling); (b) the main path on "duplex"
-    (duplex_wf_main_path); (c) the times (duplex_wf_time). Returns the
-    kernels line's rows and the timing lines."""
+    B = 1024 and K = 4 and 128 at B = 3, and past the first design's
+    ceilings (check_duplex_past_old_ceiling); (b) the main path on
+    "duplex" (duplex_wf_main_path); (c) the times (duplex_wf_time). Returns
+    the kernels line's rows and the timing lines."""
     t_phase = time.perf_counter()
     import torch
 
@@ -4877,27 +4925,28 @@ def duplex_wf_phase(dev) -> tuple[list[dict], list[str]]:
     for kind, size in WF_CASES:
         for K_, B_ in ((K, B), (256, B), (4, 3), (128, 3)):
             errs[kind, size, K_, B_] = check_duplex_wf(gen, K_, kind, size, B_)
-    check_duplex_ceiling(dev)
+    check_duplex_past_old_ceiling(dev)
     log(f"  (a) took {time.perf_counter() - t_phase:.1f} s")
     counts, setup_s = duplex_wf_main_path(dev)
     log(f"  (a) and (b) took {time.perf_counter() - t_phase:.1f} s ({setup_s:.1f} s of it the "
         "data on the card)")
     times, lines = duplex_wf_time(dev)
     e64, e256 = errs["niw", 10, K, B], errs["niw", 10, 256, B]
-    max_err = {"duplex_chain_wf_kernel": e64["chain"], "duplex_combine_wf_kernel": e64["combine"],
-               "duplex_chain_wide_kernel<KP=256, WF>": e256["chain"],
-               "duplex_combine_wf_kernel<KP=256>": e256["combine"],
-               "duplex_chain_wf_kernel<niw>": e64["chain"],
-               "duplex_combine_wf_kernel<niw>": e64["combine"]}
+    max_err = {"duplex_chain_ll_kernel": e64["chain"], "duplex_combine_ll_kernel": e64["combine"],
+               "duplex_chain_wide_ll_kernel<KP=256>": e256["chain"],
+               "duplex_combine_ll_kernel<KP=256>": e256["combine"]}
+    timed = {"ll_tile_kernel<64, niw> (duplex)": "ll_tile_kernel<64, niw> (duplex)",
+             "ll_tile_kernel<64> (duplex)": "ll_tile_kernel<64> (duplex)",
+             "ll_tile_kernel<128> (duplex)": "ll_tile_kernel<128> (duplex)"}
     rows = []
-    for name, kernel, key, replaces in DWF_ROWS:
+    for name, kernel, key, src, replaces in DWF_ROWS:
         n = counts.get((kernel, key), 0)
         require(n > 0, f"phase 16: {name} was not launched on the main path")
-        timed = name if name.endswith("<niw>") else f"{name} F=66"
-        rows.append({"name": name, "route": "cuda",
-                     "source": "pysvihmm_tpu_torch/csrc/duplex_fb_wide.cu",
-                     "replaces": f"pysvihmm_tpu/messages/{replaces}", "launches": n,
-                     "max_abs_err": max_err[name], **times[timed], "library_ms": None})
+        t = dict(times[timed.get(name, f"{name} F=66")])
+        t.setdefault("library_ms", None)
+        t.setdefault("max_abs_err", max_err.get(name))
+        rows.append({"name": name, "route": "cuda", "source": f"pysvihmm_tpu_torch/csrc/{src}",
+                     "replaces": f"pysvihmm_tpu/messages/{replaces}", "launches": n, **t})
     log(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s")
     return rows, lines
 
@@ -5614,7 +5663,9 @@ def main() -> int:
         f"16): launches over its main-path run on duplex (VB for the NIW at D = 10, K = 64 and "
         f"256 and in-kernel at 64, {DWF_VB_ITERS} iterations each; {WF_SVI_STEPS} SVI steps at V "
         f"= {WF_V}), max_abs_err against the float64 twins at B = {B}, T = {WF_T}, F = 66 (the "
-        f"chain's log_c, the combine's gamma), ms at (B, T) = ({B}, {T}), F = 66")
+        f"chain's log_c, the combine's gamma; the tiles' ll), ms at (B, T) = ({B}, {T}), F = 66 "
+        f"(the chain and the combine as called without the likelihoods: each its tile and its "
+        f"launch; the tiles over all {B * T} rows, library_ms one float32 torch.matmul)")
     log(card)
     log(json.dumps({"kernels": kernels, "note": "the long-chain tiers (phase 12) are plain "
                     "PyTorch, as JAX's are plain XLA: they add no kernel to this line"}))

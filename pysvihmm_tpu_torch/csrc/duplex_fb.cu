@@ -6,7 +6,8 @@
 // The host wrapper and the plain PyTorch twin of both kernels live in
 // pysvihmm_tpu_torch/messages/duplex_fb.py; the kernels and their instance
 // tables in duplex_fb_kernels.cuh, this unit holding the launchers and the
-// instances for F <= FMAX, duplex_fb_wide.cu the WF instances (below).
+// instances for F <= FMAX, duplex_fb_wide.cu those for wider features,
+// which read likelihood tiles (below).
 //
 // What is computed (the TPU kernels' math, without their time tiles, lane
 // packing and tile-edge carries); lik_t = exp(ll_t - max_k ll_t) with
@@ -103,27 +104,29 @@
 //
 // Features wider than FMAX = 64 (a Gaussian-NIW at D >= 10, a diagonal
 // Gaussian at D >= 32, a multinomial of 65-256 symbols; JAX's duplex
-// kernels take any F) run the WF instances, F a run-time loop bound,
-// compiled by duplex_fb_wide.cu. The chain: up to K = 64
-// duplex_chain_wf_kernel<S, KIND>, whose forward block runs fbwf::
-// seq_forward_wf (whose alpha, s and sh are the fused WF forward's bits:
-// that forward sums the same ll_t by fbs::ll_tile, then runs the same
-// recursion) and whose backward block runs the raw
-// backward on the same layout (W^T's first groups in shared memory, the rest
-// from L2, the rows two steps ahead by cp.async, row k of A~ in registers),
-// ll_t summed as the forward sums it, in blocks of 64 features; above,
-// duplex_chain_wide_kernel<KP, S, KIND, WF> (fb_wide.cuh's WF forward and
-// seqs_raw_backward with W read from L2, slots F wide). beta is the same
-// bits at every S. The combine: duplex_combine_wf_kernel<KP, GATED, KIND>
-// (duplex_fb_kernels.cuh says how), ll_t in the chain's blocks of 64
-// features so that d_t is the e_t and scale that built b_{t-1}; eacc leaves
+// kernels take any F) run the instances of duplex_fb_wide.cu, which read
+// the likelihoods instead of forming f_t . W: ll_tile_kernel (fb_stats.cuh,
+// fbs::ll_tile, the fused WF pair's tile; duplex_fb_ll_tile) sums ll_t of
+// all T B rows once into a (T, B, K) array, each element the chains' own sum
+// (a fmaf chain over each block of 64 features, the blocks added in order),
+// and both kernels read it, so the serial chains hold no F-wide product and
+// no kernel stages W or a feature row. The chain: up to K = 64
+// duplex_chain_ll_kernel<S>, whose forward block runs fb_seqs.cuh's
+// seq_forward in its ll mode (the fused WF forward's own function, so
+// alpha, s and sh are its bits at the same S) and whose backward block the
+// raw backward on the same layout reading ll_t through the same cp.async
+// ring; above, duplex_chain_wide_ll_kernel<KP, S> (fb_wide.cuh's
+// seqs_forward without FEATS over all T, the fused large-K WF forward's
+// recursion, and seqs_raw_backward reading ll_t a step ahead). beta is the
+// same bits at every S. The combine: duplex_combine_ll_kernel<KP, GATED>
+// (duplex_fb_kernels.cuh says how) takes lik_t = exp(ll_t - sh_t) from the
+// same array, so d_t is the e_t and scale that built b_{t-1}; eacc leaves
 // the kernel as w_t gamma_t a window of time steps, summed by the 3xTF32
-// outer sums (fbs::WideStats), while up to K = 64 acc stays in registers,
-// a block's row of partials carried across the windows. Which S fit depends
-// on F (the feature slots grow with it): the occupancy query reports no
-// resident block for an instance whose shared memory the card cannot give,
-// and the launch of one fails; the wrapper finds from that query the widest
-// F the kernels take on the card and raises above it.
+// outer sums against the window's feature rows (fbs::WideStats), while up
+// to K = 64 acc stays in registers, a block's row of partials carried
+// across the windows. None of them depends on the feature kind or width,
+// nor does their shared memory grow with F: they take any F, the tile's
+// (T, B, K) array beside alpha and beta in device memory.
 
 #include "fb_common.cuh"
 #include "fb_seqs.cuh"
@@ -153,8 +156,8 @@ bool bad_kind(int kind, int F) {
   return kind < fbc::FEATS_ARRAY || kind > fbc::FEATS_NIG || fbc::obs_dim(kind, F) < 1;
 }
 
-// The WF combine's blocks a window up to K = 64: the rows of acc's partials
-// it carries across the windows of the statistics.
+// The combine's blocks a window up to K = 64 at F > FMAX: the rows of acc's
+// partials it carries across the windows of the statistics.
 int wf_blocks(int T, int B) {
   const int steps = fbs::WideStats::window(T, B);
   const int chunk = combine_chunk(steps, B, CTT);
@@ -220,9 +223,10 @@ const void* chain_kind(int S, int K, int F, int* smem) {
   }
 }
 
-// F > FMAX: the WF instances (duplex_fb_wide.cu).
+// F > FMAX: the instances on read likelihoods (duplex_fb_wide.cu), one a
+// (S, K) whatever the kind.
 const void* chain_of(int S, int K, int F, int kind, int* smem) {
-  if (F > FMAX) return wf_chain_instance(S, K, F, kind, smem);
+  if (F > FMAX) return ll_chain_instance(S, K, smem);
   switch (kind) {
     case fbc::FEATS_ARRAY: return chain_kind<fbc::FEATS_ARRAY>(S, K, F, smem);
     case fbc::FEATS_NIW: return chain_kind<fbc::FEATS_NIW>(S, K, F, smem);
@@ -272,7 +276,10 @@ const void* combine_kind(int K, int F, bool gated, int* smem) {
 }
 
 const void* combine_of(int K, int F, bool gated, int kind, int* smem) {
-  if (F > FMAX) return wf_combine_instance(K, F, gated, kind, smem);
+  if (F > FMAX) {
+    *smem = 0;
+    return ll_combine_instance(K, gated);
+  }
   switch (kind) {
     case fbc::FEATS_ARRAY: return combine_kind<fbc::FEATS_ARRAY>(K, F, gated, smem);
     case fbc::FEATS_NIW: return combine_kind<fbc::FEATS_NIW>(K, F, gated, smem);
@@ -289,8 +296,8 @@ using namespace fbd;
 extern "C" {
 
 // The largest K the launchers take (the large-K instances'), and the widest
-// F of the instances for F <= FMAX: wider features run the WF instances, up
-// to the F whose shared memory the card can give (duplex_fb_kernel_info).
+// F of the instances for F <= FMAX: wider features run the instances on read
+// likelihoods, which take any F.
 int duplex_fb_kmax() { return fbw::KWIDE; }
 int duplex_fb_fmax() { return FMAX; }
 
@@ -305,28 +312,49 @@ int duplex_fb_scratch(int T, int B, int K, int F, int kind, long long* out) {
   return 0;
 }
 
+// The likelihoods the instances at F > FMAX read (fbs::ll_tile, one launch
+// of ll_tile_kernel, counted): out (N, K) = the feature rows of src . W (F,
+// K), row-major, each element the chains' own sum; src the (N, F) feature
+// array, or the (N, D) raw observations of a built kind.
+int duplex_fb_ll_tile(const float* src, const float* W, float* out, long long N, int F, int K,
+                      int kind, int device, void* stream) {
+  if (N < 1 || F < 1 || K < 1 || bad_kind(kind, F))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(
+      fbs::ll_tile(src, W, out, N, F, K, kind, static_cast<cudaStream_t>(stream)));
+}
+
 // Each launcher returns the launch's CUDA error right after it (0 = ok).
 // Pointers are device pointers of contiguous float32 tensors; the kernels
 // run on `stream` and do not synchronise. S is the sequences a block of the
 // chain: 2 or 4 up to K = 64, 1, 2, 4 or 8 above; any other is refused.
 // kind names what feats holds, as fused_fb.cu's launchers take it: the
 // (T, B, F) feature array, or the raw (T, B, D) observations of a built
-// kind, F its width at D (an F no D gives is refused). An S whose shared
-// memory at this F the card cannot give is refused (the launch's error).
+// kind, F its width at D (an F no D gives is refused). ll is the (T, B, K)
+// likelihoods of duplex_fb_ll_tile at F > FMAX, where the kernels read them
+// (W and feats unused by the chain), and must be null at F <= FMAX, where
+// the kernels form them.
 int duplex_fb_chain(const float* pi, const float* A, const float* W, const float* feats,
-                    float* alpha, float* s, float* sh, float* beta, int T, int B, int K,
-                    int F, int S, int kind, int device, void* stream) {
-  if (bad_shape(T, B, K, F) || bad_kind(kind, F)) return static_cast<int>(cudaErrorInvalidValue);
+                    const float* ll, float* alpha, float* s, float* sh, float* beta, int T,
+                    int B, int K, int F, int S, int kind, int device, void* stream) {
+  if (bad_shape(T, B, K, F) || bad_kind(kind, F) || (ll != nullptr) != (F > FMAX))
+    return static_cast<int>(cudaErrorInvalidValue);
   int smem = 0;
   const void* fn = chain_of(S, K, F, kind, &smem);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  void* args[] = {&pi, &A, &W, &feats, &alpha, &s, &sh, &beta, &T, &B, &K, &F};
   const dim3 grid((B + S - 1) / S, 2);
-  if (K > KMAX) return static_cast<int>(fbw::launch_dyn(fn, grid, fbw::tier_of(K), smem, st, args));
-  if (F > FMAX) return static_cast<int>(fbw::launch_dyn(fn, grid, NT, smem, st, args));
+  const int nt = K > KMAX ? fbw::tier_of(K) : NT;
+  if (F > FMAX) {
+    void* args[] = {&pi, &A, &ll, &alpha, &s, &sh, &beta, &T, &B, &K};
+    return static_cast<int>(fbw::launch_dyn(fn, grid, nt, smem, st, args));
+  }
+  void* args[] = {&pi, &A, &W, &feats, &alpha, &s, &sh, &beta, &T, &B, &K, &F};
+  if (K > KMAX) return static_cast<int>(fbw::launch_dyn(fn, grid, nt, smem, st, args));
   e = cudaLaunchKernel(fn, grid, dim3(NT), args, 0, st);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
@@ -337,25 +365,29 @@ int duplex_fb_outer_launches(int clear) {
   return fbs::outer_launches(clear != 0);
 }
 
-// Launches of the large-K combine's operand kernels (fbs::build_feats,
-// which = 0; fbs::widen, 1, which this library never runs) since the count
-// was last cleared; clears it when `clear`.
+// Launches of the operand kernels of this library (fbs::build_feats, which
+// = 0, in the combine's windows; fbs::widen, 1, which it never runs;
+// ll_tile_kernel's 64- (2) or 128-state tile (3), duplex_fb_ll_tile) since
+// the count was last cleared; clears it when `clear`.
 int duplex_fb_prep_launches(int which, int clear) {
   return fbs::prep_launches(which, clear != 0);
 }
 
 // w is null for the ungated launch, else the (T, B) kept-mask. stats
 // receives acc (K, K) and then eacc (K, F), summed in a fixed order
-// (fb_stats.cuh); scratch holds duplex_fb_scratch floats. Above K = 64, and
-// at F > FMAX, the combine runs a window of time steps a launch
-// (fbs::WideStats), its blocks' chunks cut from the window; at F > FMAX up
-// to K = 64 acc's rows of partials are carried from a window to the next
-// and added in block order after the last.
-int duplex_fb_combine(const float* W, const float* feats, const float* alpha,
+// (fb_stats.cuh); scratch holds duplex_fb_scratch floats. ll as
+// duplex_fb_chain's: at F > FMAX the kernel reads lik_t from it, feats then
+// only the operand of eacc's outer sums. Above K = 64, and at F > FMAX, the
+// combine runs a window of time steps a launch (fbs::WideStats), its
+// blocks' chunks cut from the window; at F > FMAX up to K = 64 acc's rows of
+// partials are carried from a window to the next and added in block order
+// after the last.
+int duplex_fb_combine(const float* W, const float* feats, const float* ll, const float* alpha,
                       const float* beta, const float* sh, const float* w, float* gamma,
                       float* gamma0, float* stats, float* scratch, int T, int B, int K, int F,
                       int kind, int device, void* stream) {
-  if (bad_shape(T, B, K, F) || bad_kind(kind, F)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(T, B, K, F) || bad_kind(kind, F) || (ll != nullptr) != (F > FMAX))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -379,8 +411,8 @@ int duplex_fb_combine(const float* W, const float* feats, const float* alpha,
     float *part = ws.part_a, *dn = nullptr, *gw = ws.gw;
     int chunk = combine_chunk(ws.steps, B, CTT);
     e = ws.run(alpha, nullptr, feats, stats, st, [&](int t0, int t1) {
-      void* args[] = {&W,  &feats, &alpha, &beta, &sh, &w, &gamma, &gamma0, &part,
-                      &dn, &gw,    &T,     &B,    &K,  &F, &chunk, &t0,     &t1};
+      void* args[] = {&ll, &alpha, &beta, &sh, &w,     &gamma, &gamma0, &part,
+                      &dn, &gw,    &T,    &B,  &K,     &chunk, &t0,     &t1};
       return fbw::launch_dyn(fn, dim3(groups, (t1 - t0 + chunk - 1) / chunk), CNT, smem, st,
                              args);
     });
@@ -391,6 +423,12 @@ int duplex_fb_combine(const float* W, const float* feats, const float* alpha,
   float *dn = ws.dn, *gw = ws.gw, *part = nullptr;
   int chunk = combine_chunk(ws.steps, B, 2);
   return static_cast<int>(ws.run(alpha, nullptr, feats, stats, st, [&](int t0, int t1) {
+    if (F > FMAX) {
+      void* args[] = {&ll, &alpha, &beta, &sh, &w,     &gamma, &gamma0, &part,
+                      &dn, &gw,    &T,    &B,  &K,     &chunk, &t0,     &t1};
+      return fbw::launch_dyn(fn, dim3(groups, (t1 - t0 + chunk - 1) / chunk), CNT, smem, st,
+                             args);
+    }
     void* args[] = {&W,  &feats, &alpha, &beta, &sh, &w, &gamma, &gamma0, &part,
                     &dn, &gw,    &T,     &B,    &K,  &F, &chunk, &t0,     &t1};
     return fbw::launch_dyn(fn, dim3(groups, (t1 - t0 + chunk - 1) / chunk), CNT, smem, st, args);
@@ -404,8 +442,8 @@ int duplex_fb_combine(const float* W, const float* feats, const float* alpha,
 // out[5] the device's SMs, out[6] threads a block. which = 0 the chain (S
 // sequences a block), 1 the combine, 2 the gated combine (S unused); K > 64
 // names the large-K instance of its KP; kind the feature kind; F > FMAX the
-// WF instance, whose shared memory grows with F: out[4] is 0 where the card
-// cannot give it.
+// instance on read likelihoods, the same for every such F and kind. out[4]
+// is 0 where the card cannot give an instance its shared memory.
 int duplex_fb_kernel_info(int which, int S, int K, int F, int kind, int device, int* out) {
   if (bad_shape(1, 1, K, F) || bad_kind(kind, F) || which < 0 || which > 2)
     return static_cast<int>(cudaErrorInvalidValue);

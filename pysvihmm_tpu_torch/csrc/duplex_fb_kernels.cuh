@@ -1,17 +1,16 @@
 // The duplex pair's kernels and the device code they share (duplex_fb.cu's
 // head describes the kernels), for the two translation units of the
 // duplex_fb library: duplex_fb.cu holds the launchers and the instances for
-// features up to fbc::FMAX, duplex_fb_wide.cu the WF instances for wider
-// ones (the chain on fb_seqs_wf.cuh's forward up to K = 64 and fb_wide.cuh's
-// WF flag above, the combine with W^T's first groups in shared memory and
-// the rest from L2). A unit compiles only the instances it names, so the two
+// features up to fbc::FMAX, duplex_fb_wide.cu the instances for wider ones,
+// which read the likelihoods that fbs::ll_tile sums beforehand (the chain on
+// fb_seqs.cuh's layout up to K = 64 and fb_wide.cuh's above, the combine
+// beside them). A unit compiles only the instances it names, so the two
 // build at once, one nvcc each (_build.py).
 
 #pragma once
 
 #include "fb_common.cuh"
 #include "fb_seqs.cuh"
-#include "fb_seqs_wf.cuh"
 #include "fb_stats.cuh"
 #include "fb_wide.cuh"
 
@@ -40,21 +39,27 @@ __device__ __forceinline__ float back_scale(float bsum) {
 }
 
 // The raw backward recursion of the S sequences of block blk (the layout of
-// fbseq::seq_forward, reversed in time): f_t in slot t & 1, e_t in slot
-// t & 1, the partial sums of b_t in slot t & 1 and the partial maxima of
-// ll_t in slot t & 1. feats holds the feature array, or for a built KIND the
-// raw observations (the rows built as seq_forward's). Writes beta (T, B,
-// K). Every thread of the block calls it.
-template <int S, int FP, int KIND>
+// fbseq::seq_forward, reversed in time): e_t in slot t & 1, the partial
+// sums of b_t in slot t & 1 and the partial maxima of ll_t in slot t & 1.
+// FEATS: ll_t = f_t . W in the kernel, f_t in slot t & 1, feats the feature
+// array or for a built KIND the raw observations (the rows built as
+// seq_forward's); else ll_t read from ll (T, B, K), `src`, through a ring of
+// FWD_AHEAD slots in shared memory that each thread fills with its own
+// elements by cp.async, FWD_AHEAD steps before they are read, as
+// seq_forward's ll mode reads them (W and F unused, FP no width: no feature
+// is read). Writes beta (T, B, K). Every thread of the block calls it.
+template <int S, int FP, bool FEATS, int KIND = fbc::FEATS_ARRAY>
 __device__ __forceinline__ void seq_backward(const float* __restrict__ A,
                                              const float* __restrict__ W,
-                                             const float* __restrict__ feats,
+                                             const float* __restrict__ src,
                                              float* __restrict__ beta, int T, int B, int K,
                                              int F, int blk) {
-  __shared__ __align__(16) float f_s[2][S * FP];    // f_t in slot t & 1
+  constexpr int AHEAD = fbseq::FWD_AHEAD;
+  __shared__ __align__(16) float f_s[2][FEATS ? S * FP : 4];  // f_t in slot t & 1
   __shared__ __align__(16) float e_s[2][S * KMAX];  // e_t in slot t & 1, zero beyond K
   __shared__ float red_max[2][NWARP * S];           // partial max of ll_t, slot t & 1
   __shared__ float red_sum[2][NWARP * S];           // partial sum of b_t, slot t & 1
+  __shared__ float l_s[FEATS ? 1 : AHEAD * S * KMAX];  // ll of place q in slot q % AHEAD
 
   const int b0 = blk * S;
   const int ns = min(S, B - b0);
@@ -63,28 +68,53 @@ __device__ __forceinline__ void seq_backward(const float* __restrict__ A,
   const bool active = k < K;
 
   float Arow[KMAX];  // row k of A~
-  float Wcol[FP];    // column k of W
+  float Wcol[FP];    // column k of W (FEATS)
 #pragma unroll
   for (int i = 0; i < KMAX; ++i) Arow[i] = (active && i < K) ? A[k * K + i] : 0.f;
+  if constexpr (FEATS) {
 #pragma unroll
-  for (int f = 0; f < FP; ++f) Wcol[f] = (active && f < F) ? W[f * K + k] : 0.f;
-
-  for (int i = k; i < 2 * S * FP; i += NT) f_s[i / (S * FP)][i % (S * FP)] = 0.f;
-  for (int i = k; i < 2 * S * KMAX; i += NT) e_s[i / (S * KMAX)][i % (S * KMAX)] = 0.f;
-  const int in_w = fbc::obs_dim(KIND, F);  // floats of a (t, b) row of feats
-  const size_t step_f = (size_t)B * in_w;  // feats stride of one time step
-  const size_t step_k = (size_t)B * K;  // beta stride of one time step
-  const float* fb = feats + (size_t)b0 * in_w;
-  float* bb = beta + (size_t)b0 * K + k;
-  fbseq::RowsOf<S, FP, true, KIND> rows(k, ns, F);
-  __syncthreads();  // the zeroed slots before the rows land in them
-  rows.load(fb + (size_t)(T - 1) * step_f);
-  rows.store(f_s[(T - 1) & 1]);
-  if (T > 1) {
-    rows.load(fb + (size_t)(T - 2) * step_f);
-    rows.store(f_s[(T - 2) & 1]);
+    for (int f = 0; f < FP; ++f) Wcol[f] = (active && f < F) ? W[f * K + k] : 0.f;
+    for (int i = k; i < 2 * S * FP; i += NT) f_s[i / (S * FP)][i % (S * FP)] = 0.f;
   }
-  if (T > 2) rows.load(fb + (size_t)(T - 3) * step_f);  // f_{T-3}, stored in step T-1
+  for (int i = k; i < 2 * S * KMAX; i += NT) e_s[i / (S * KMAX)][i % (S * KMAX)] = 0.f;
+  const int in_w = FEATS ? fbc::obs_dim(KIND, F) : K;  // floats of a (t, b) row of src
+  const size_t step_f = (size_t)B * in_w;  // src stride of one time step
+  const size_t step_k = (size_t)B * K;  // beta stride of one time step
+  const float* fb = src + (size_t)b0 * in_w;
+  float* bb = beta + (size_t)b0 * K + k;
+  // the ll mode: ll_t of the block's sequences at place q = T - 1 - t (state
+  // k of each, 0 before t = 0), asked for AHEAD places before it is read,
+  // one cp.async group a place
+  auto ll_ask = [&](int q) {
+    const int t = T - 1 - q;
+    float* slot = l_s + (q % AHEAD) * S * KMAX + k;
+    const float* row = fb + (size_t)(t > 0 ? t : 0) * step_k + k;
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      fbs::cp_async<1>(slot + s * KMAX, row + (size_t)s * K, t >= 0 && active && s < ns);
+    fbs::cp_commit();
+  };
+  auto ll_row = [&](float (&v)[S], int q) {  // ll of place q, then ask for q + AHEAD
+    fbs::cp_wait<AHEAD - 1>();
+    const float* slot = l_s + (q % AHEAD) * S * KMAX + k;
+#pragma unroll
+    for (int s = 0; s < S; ++s) v[s] = slot[s * KMAX];
+    ll_ask(q + AHEAD);
+  };
+  if constexpr (!FEATS) {
+    for (int q = 0; q < AHEAD; ++q) ll_ask(q);
+  }
+  fbseq::RowsOf<S, FP, FEATS, KIND> rows(k, ns, F);
+  __syncthreads();  // the zeroed slots before the rows land in them
+  if constexpr (FEATS) {
+    rows.load(fb + (size_t)(T - 1) * step_f);
+    rows.store(f_s[(T - 1) & 1]);
+    if (T > 1) {
+      rows.load(fb + (size_t)(T - 2) * step_f);
+      rows.store(f_s[(T - 2) & 1]);
+    }
+    if (T > 2) rows.load(fb + (size_t)(T - 3) * step_f);  // f_{T-3}, stored in step T-1
+  }
   __syncthreads();
 
   float ll[S];   // ll_{t-1} in the loop
@@ -95,13 +125,17 @@ __device__ __forceinline__ void seq_backward(const float* __restrict__ A,
   // step T-1 (b_{T-1} = 1, lik_{T-1}), then ll_{T-2}; the loop runs the steps
   // t <= T-1, each forming b_{t-1}, so that the matvec and the next ll are
   // both live in every iteration
+  if constexpr (FEATS) {
 #pragma unroll
-  for (int s = 0; s < S; ++s) ll[s] = 0.f;
+    for (int s = 0; s < S; ++s) ll[s] = 0.f;
 #pragma unroll
-  for (int f4 = 0; f4 < FP / 4; ++f4) {
-    float4 y[S];
-    ld4s<S>(y, f_s[(T - 1) & 1] + 4 * f4, FP);
-    fma4<S>(ll, y, Wcol[4 * f4], Wcol[4 * f4 + 1], Wcol[4 * f4 + 2], Wcol[4 * f4 + 3]);
+    for (int f4 = 0; f4 < FP / 4; ++f4) {
+      float4 y[S];
+      ld4s<S>(y, f_s[(T - 1) & 1] + 4 * f4, FP);
+      fma4<S>(ll, y, Wcol[4 * f4], Wcol[4 * f4 + 1], Wcol[4 * f4 + 2], Wcol[4 * f4 + 3]);
+    }
+  } else {
+    ll_row(ll, 0);
   }
 #pragma unroll
   for (int s = 0; s < S; ++s) mx[s] = active ? ll[s] : -INFINITY;
@@ -123,11 +157,15 @@ __device__ __forceinline__ void seq_backward(const float* __restrict__ A,
     if (active && s < ns) bb[(size_t)(T - 1) * step_k + (size_t)s * K] = b[s];
     ll[s] = 0.f;
   }
+  if constexpr (FEATS) {
 #pragma unroll
-  for (int f4 = 0; f4 < FP / 4; ++f4) {  // ll_{T-2} (a stale row when T = 1: unused)
-    float4 y[S];
-    ld4s<S>(y, f_s[(T - 2) & 1] + 4 * f4, FP);
-    fma4<S>(ll, y, Wcol[4 * f4], Wcol[4 * f4 + 1], Wcol[4 * f4 + 2], Wcol[4 * f4 + 3]);
+    for (int f4 = 0; f4 < FP / 4; ++f4) {  // ll_{T-2} (a stale row when T = 1: unused)
+      float4 y[S];
+      ld4s<S>(y, f_s[(T - 2) & 1] + 4 * f4, FP);
+      fma4<S>(ll, y, Wcol[4 * f4], Wcol[4 * f4 + 1], Wcol[4 * f4 + 2], Wcol[4 * f4 + 3]);
+    }
+  } else {
+    ll_row(ll, 1);  // ll_{T-2} (0 when T = 1: unused)
   }
 
   for (int t = T - 1; t >= 1; --t) {
@@ -148,7 +186,7 @@ __device__ __forceinline__ void seq_backward(const float* __restrict__ A,
         red_max[p ^ 1][warp * S + s] = mx[s];
       }
     }
-    if (t >= 2) {  // f_{t-2} into f_t's slot; f_{t-3} into registers
+    if (FEATS && t >= 2) {  // f_{t-2} into f_t's slot; f_{t-3} into registers
       rows.store(f_s[p]);
       if (t >= 3) rows.load(fb + (size_t)(t - 3) * step_f);
     }
@@ -162,8 +200,9 @@ __device__ __forceinline__ void seq_backward(const float* __restrict__ A,
       lik[s] = active ? expf(ll[s] - m) : 0.f;           // lik_{t-1}
     }
 
-    // u = A~ e_t (row k, j = 0..KMAX-1 in order) and ll_{t-2} = f_{t-2} . W:
-    // 2S independent fmaf chains in one loop (at t < 2 a stale row: unused)
+    // u = A~ e_t (row k, j = 0..KMAX-1 in order) and (FEATS) ll_{t-2} =
+    // f_{t-2} . W: 2S independent fmaf chains in one loop (at t < 2 a stale
+    // row: unused)
     float u[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) u[s] = ll[s] = 0.f;
@@ -173,7 +212,7 @@ __device__ __forceinline__ void seq_backward(const float* __restrict__ A,
     for (int i4 = 0; i4 < KMAX / 4; ++i4) {
       float4 x[S];
       ld4s<S>(x, ep + 4 * i4, KMAX);
-      if (4 * i4 < FP) {
+      if (FEATS && 4 * i4 < FP) {
         float4 y[S];
         ld4s<S>(y, fp + 4 * i4, FP);
         fma4<S>(ll, y, Wcol[4 * i4], Wcol[4 * i4 + 1], Wcol[4 * i4 + 2], Wcol[4 * i4 + 3]);
@@ -185,7 +224,9 @@ __device__ __forceinline__ void seq_backward(const float* __restrict__ A,
       b[s] = active ? u[s] * scale[s] : 0.f;  // b_{t-1}
       if (active && s < ns) bb[(size_t)(t - 1) * step_k + (size_t)s * K] = b[s];
     }
+    if constexpr (!FEATS) ll_row(ll, T + 1 - t);  // ll_{t-2} (0 at t < 2: unused)
   }
+  if constexpr (!FEATS) fbs::cp_wait<0>();  // the copies asked for before t = 0
 }
 
 template <int S, int FP, int KIND>
@@ -199,183 +240,56 @@ duplex_chain_kernel(const float* __restrict__ pi, const float* __restrict__ A,
     fbseq::seq_forward<S, FP, true, KIND>(pi, A, W, feats, alpha, s_out, sh_out, T, B, K, F,
                                           blockIdx.x);
   else
-    seq_backward<S, FP, KIND>(A, W, feats, beta, T, B, K, F, blockIdx.x);
+    seq_backward<S, FP, true, KIND>(A, W, feats, beta, T, B, K, F, blockIdx.x);
 }
 
-// seq_backward at any F > FMAX (the WF chain up to K = 64): the same
-// recursion, barrier and outputs on fbwf::seq_forward_wf's layout, the
-// forward's loop with row k of A~ in the place of its column k and the rows
-// in backward order (WideRows, place q the time step T-1-q, so the copies
-// run two steps ahead as the forward's do). Row k of A~ and W's first KMAX
-// rows of column k in registers, W^T's first groups in dynamic shared memory
-// and the rest from L2, as the forward holds them (the same layout and
-// bytes, forward_fixed); ll_t summed as the forward sums it (fbwf::ll_all,
-// blocks of 64 features), so lik_t is the forward's and the max of ll_t its
-// sh_t. e_t, the partial sums of b_t and the maxima of ll_t in static
-// shared memory, slot t & 1. Every thread of the block calls it.
-template <int S, int KIND>
-__device__ __forceinline__ void seq_raw_backward_wf(const float* __restrict__ A,
-                                                    const float* __restrict__ W,
-                                                    const float* __restrict__ src,
-                                                    float* __restrict__ beta, int T, int B, int K,
-                                                    int F, int blk, float* smem) {
-  __shared__ __align__(16) float e_s[2][S * KMAX];  // e_t in slot t & 1, zero beyond K
-  __shared__ float red_max[2][NWARP * S];           // partial max of ll_t, slot t & 1
-  __shared__ float red_sum[2][NWARP * S];           // partial sum of b_t, slot t & 1
-
-  const int nf4 = fbwf::groups(F), fpr = 4 * nf4;
-  const int nws = fbwf::smem_groups(F, fbwf::forward_fixed<S, KIND>(F));
-  const int wst = fbwf::w_stride(nws);
-  const int b0 = blk * S;
-  const int ns = min(S, B - b0);
-  const int k = threadIdx.x;
-  const int lane = k & 31, warp = k >> 5;
-  const bool active = k < K;
-  float* W_s = smem;
-  const float* wk = W_s + k * wst;
-  const fbwf::WTail wc{active ? W + k : nullptr, K, F, nws, nf4};
-  const int in_w = fbc::obs_dim(KIND, F);  // F for the array
-  const fbwf::WideRows<S, KIND> rows(W_s + KMAX * wst, src + (size_t)b0 * in_w, B, F, ns, T);
-
-  // row k of A~ and column k of W's first KMAX rows, read once
-  float Arow[KMAX], Wcol[KMAX];
-#pragma unroll
-  for (int i = 0; i < KMAX; ++i) {
-    Arow[i] = (active && i < K) ? fbwf::ld_once(A + k * K + i) : 0.f;
-    Wcol[i] = active ? fbwf::ld_once(W + i * K + k) : 0.f;
-  }
-  fbwf::load_W(W, W_s, K, F, nws, wst);
-  rows.init();
-  for (int i = k; i < 2 * S * KMAX; i += NT) e_s[i / (S * KMAX)][i % (S * KMAX)] = 0.f;
-  const size_t step_k = (size_t)B * K;
-  float* bb = beta + (size_t)b0 * K + k;
-  auto row_of = [T](int q) { return T - 1 - q; };
-  __syncthreads();  // W^T, the zeroed slots and the table
-  rows.prime(2, row_of);
-
-  float ll[S], lik[S], b[S], sm[S], mx[S];
-  // step T-1 (b_{T-1} = 1, lik_{T-1}), then ll_{T-2}, as seq_backward's
-#pragma unroll
-  for (int s = 0; s < S; ++s) ll[s] = 0.f;
-  fbwf::ll_all<S>(ll, Wcol, wk, wc, rows.slot(0), fpr);
-#pragma unroll
-  for (int s = 0; s < S; ++s) mx[s] = active ? ll[s] : -INFINITY;
-  fbc::warp_maxes<S>(mx);
-  if (lane == 0) {
-#pragma unroll
-    for (int s = 0; s < S; ++s) red_max[(T - 1) & 1][warp * S + s] = mx[s];
-  }
-  __syncthreads();
-  rows.build(2);  // a built kind's place 2, into place 0's slot (read above)
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const float m = block_max<S>(red_max[(T - 1) & 1], s);
-    lik[s] = active ? expf(ll[s] - m) : 0.f;
-    b[s] = active ? 1.f : 0.f;
-    if (active && s < ns) bb[(size_t)(T - 1) * step_k + (size_t)s * K] = b[s];
-    ll[s] = 0.f;
-  }
-  fbwf::ll_all<S>(ll, Wcol, wk, wc, rows.slot(1), fpr);  // ll_{T-2} (unused when T = 1)
-
-  for (int t = T - 1; t >= 1; --t) {
-    const int p = t & 1;
-    const int q = T - 1 - t;  // the step's place: it reads place q + 2 (time t - 2)
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      e_s[p][s * KMAX + k] = pair_e(lik[s], b[s]);
-      sm[s] = b[s];
-      mx[s] = active ? ll[s] : -INFINITY;
-    }
-    warp_sums_maxes<S>(sm, mx);
-    if (lane == 0) {
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        red_sum[p][warp * S + s] = sm[s];
-        red_max[p ^ 1][warp * S + s] = mx[s];
-      }
-    }
-    fbs::cp_wait<1>();  // this thread's copies of place q + 2 (q + 3 built) have landed
-    __syncthreads();    // e_t, place q + 2 and both partials are complete
-    rows.advance(q + 2, row_of);
-
-    float scale[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      scale[s] = back_scale(block_sum<S>(red_sum[p], s));
-      const float m = block_max<S>(red_max[p ^ 1], s);  // sh_{t-1}
-      lik[s] = active ? expf(ll[s] - m) : 0.f;           // lik_{t-1}
-    }
-
-    // u = A~ e_t (row k, j = 0..KMAX-1 in order) and ll_{t-2}: 2S chains in
-    // one loop over the first 64 features, then the rest of ll's chain
-    float u[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) u[s] = ll[s] = 0.f;
-    const float* ep = e_s[p];
-    const float* fp = rows.slot(q + 2);
-#pragma unroll
-    for (int i4 = 0; i4 < KMAX / 4; ++i4) {
-      float4 x[S], y[S];
-      ld4s<S>(x, ep + 4 * i4, KMAX);
-      ld4s<S>(y, fp + 4 * i4, fpr);
-      fma4<S>(ll, y, Wcol[4 * i4], Wcol[4 * i4 + 1], Wcol[4 * i4 + 2], Wcol[4 * i4 + 3]);
-      fma4<S>(u, x, Arow[4 * i4], Arow[4 * i4 + 1], Arow[4 * i4 + 2], Arow[4 * i4 + 3]);
-    }
-    fbwf::ll_from<S>(ll, wk, wc, fp, fpr, KMAX / 4);
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      b[s] = active ? u[s] * scale[s] : 0.f;  // b_{t-1}
-      if (active && s < ns) bb[(size_t)(t - 1) * step_k + (size_t)s * K] = b[s];
-    }
-  }
-  fbs::cp_wait<0>();  // the copies asked for past t = 0
-}
-
-// The WF chain up to K = 64 on a grid of (ceil(B/S), 2) blocks of NT
-// threads: blockIdx.y = 0 runs fbwf::seq_forward_wf (the fused WF forward's
-// bits at the same S), 1 the raw backward above; both halves take
-// the forward's dynamic shared memory (fbwf::forward_smem).
-template <int S, int KIND>
+// The chain at F > FMAX up to K = 64, on the likelihoods ll (T, B, K) that
+// fbs::ll_tile summed beforehand, on a grid of (ceil(B/S), 2) blocks of NT
+// threads: blockIdx.y = 0 runs fbseq::seq_forward in its ll mode (the fused
+// WF forward's own function, fused_fwd_wf_kernel, so alpha, s and sh are its
+// bits at the same S), 1 the raw backward above in its ll mode. Neither
+// holds W nor a feature row, so one instance a S serves every feature kind
+// and width.
+template <int S>
 __global__ void __launch_bounds__(NT)
-duplex_chain_wf_kernel(const float* __restrict__ pi, const float* __restrict__ A,
-                       const float* __restrict__ W, const float* __restrict__ feats,
-                       float* __restrict__ alpha, float* __restrict__ s_out,
-                       float* __restrict__ sh_out, float* __restrict__ beta, int T, int B, int K,
-                       int F) {
-  extern __shared__ __align__(16) float smem[];
+duplex_chain_ll_kernel(const float* __restrict__ pi, const float* __restrict__ A,
+                       const float* __restrict__ ll, float* __restrict__ alpha,
+                       float* __restrict__ s_out, float* __restrict__ sh_out,
+                       float* __restrict__ beta, int T, int B, int K) {
   if (blockIdx.y == 0)
-    fbwf::seq_forward_wf<S, KIND, false>(pi, A, W, feats, alpha, s_out, sh_out, T, B, K, F,
-                                         blockIdx.x, smem, nullptr);
+    fbseq::seq_forward<S, fbseq::LL_FP, false>(pi, A, nullptr, ll, alpha, s_out, sh_out, T, B,
+                                               K, 0, blockIdx.x);
   else
-    seq_raw_backward_wf<S, KIND>(A, W, feats, beta, T, B, K, F, blockIdx.x, smem);
+    seq_backward<S, fbseq::LL_FP, false>(A, nullptr, ll, beta, T, B, K, 0, blockIdx.x);
 }
 
 // The raw backward recursion of the S sequences of block blk on
 // fb_wide.cuh's layout (65 <= K <= 256; the layout of fbw::seqs_backward,
 // blocks and missing sequences as fbw::seqs_forward), t = T-1 .. 1:
 // b_{T-1} = 1, e_t = lik_t b_t, b_{t-1} = (A~ e_t) * back_scale(sum_k b_t),
-// with ll_t = f_t . W by the forward's chain (WCol) and lik_t = exp(ll_t -
-// max_k ll_t), the max taken here over the same numbers as the forward's sh_t.
-// Writes beta (T, B, K). Thread k runs state k of all S sequences on column
-// k of A~^T (MatCol, rows in registers and shared memory): each word of A~^T
-// and of W it reads in a step feeds S chains, one a sequence, and each chain
-// is the one-sequence arithmetic (the matvec over i = 0..KP-1 in order, the
+// with lik_t = exp(ll_t - max_k ll_t), the max taken here over the same
+// numbers as the forward's sh_t. FEATS: ll_t = f_t . W by the forward's
+// chain (WCol; a built KIND reads the raw observations, fbw::feat_rows);
+// else ll_t read from ll (T, B, K), `src`, a step before it is needed, as
+// fbw::seqs_forward reads it without FEATS (W and F unused). Writes beta
+// (T, B, K). Thread k runs state k of all S sequences on column k of A~^T
+// (MatCol, rows in registers and shared memory): each word of A~^T (and of
+// W) it reads in a step feeds S chains, one a sequence, and each chain is
+// the one-sequence arithmetic (the matvec over i = 0..KP-1 in order, the
 // sums and maxima each warp's butterfly, then the warps in order), so beta
-// does not depend on S. Two barriers a step. A built KIND reads the raw
-// observations (fbw::feat_rows). WF takes any F, as fbw::seqs_forward's WF:
-// W read from device memory (WGlobal, ll summed in blocks of 64 features),
-// the feature slots F wide. Every thread of the block calls it.
-template <int KP, int S, int KIND, bool WF = false>
+// does not depend on S. Two barriers a step. Every thread of the block
+// calls it.
+template <int KP, int S, bool FEATS, int KIND = fbc::FEATS_ARRAY>
 __device__ void seqs_raw_backward(const float* __restrict__ A, const float* __restrict__ W,
-                                  const float* __restrict__ feats, float* __restrict__ beta,
+                                  const float* __restrict__ src, float* __restrict__ beta,
                                   int T, int B, int K, int F, int blk, float* smem) {
   using TT = fbw::Tier<KP>;
   constexpr int NW = TT::NWARP;
-  float* M_s = smem;                     // A~^T rows RR..KP-1
-  float* e_s = M_s + TT::SR * KP;        // e_t in slot t & 1, [S][KP] each
-  const int fs = fbw::slot_stride<WF>(F);  // floats of a sequence's feature row
-  float* f_s = e_s + 2 * S * KP;         // f_t in slot t & 1, [S][fs] each
-  float* red_max = f_s + 2 * S * fs;     // partial maxima of ll_t, [t & 1][S][warp]
+  constexpr int fs = FMAX;                // floats of a sequence's feature row
+  float* M_s = smem;                      // A~^T rows RR..KP-1
+  float* e_s = M_s + TT::SR * KP;         // e_t in slot t & 1, [S][KP] each
+  float* f_s = e_s + 2 * S * KP;          // f_t in slot t & 1, [S][fs] each (FEATS)
+  float* red_max = f_s + 2 * S * fs;      // partial maxima of ll_t, [t & 1][S][warp]
   float* red_sum = red_max + 2 * S * NW;  // partial sums of b_t, [t & 1][S][warp]
   const int k = threadIdx.x, lane = k & 31, warp = k >> 5;
   const bool active = k < K;
@@ -384,16 +298,24 @@ __device__ void seqs_raw_backward(const float* __restrict__ A, const float* __re
 
   fbw::MatCol<KP> col;
   col.load(A, M_s, K, true, k);
-  typename std::conditional<WF, fbw::WGlobal, fbw::WCol>::type wc;
-  wc.load(W, K, F, k);
-  const int D = fbc::obs_dim(KIND, F);  // floats of a (t, b) row of feats
-  const size_t step_f = (size_t)B * D, step_k = (size_t)B * K;
-  const float* fb = feats + (size_t)b0 * D;
+  fbw::WCol wc;
+  if (FEATS) wc.load(W, K, F, k);
+  const int D = fbc::obs_dim(KIND, F);    // built kinds: the observations' width
+  const int in_w = FEATS ? D : K;         // floats of a (t, b) row of src
+  const size_t step_f = (size_t)B * in_w, step_k = (size_t)B * K;
+  const float* fb = src + (size_t)b0 * in_w;
   float* bb = beta + (size_t)b0 * K + k;
-  for (int i = k; i < 2 * S * fs; i += KP) f_s[i] = 0.f;
+  if (FEATS) {
+    for (int i = k; i < 2 * S * fs; i += KP) f_s[i] = 0.f;
+  }
   __syncthreads();
-  fbw::feat_rows<S, KIND, WF>(f_s + ((T - 1) & 1) * S * fs, fb + (size_t)(T - 1) * step_f, ns,
-                              F, k, KP, D, fs);
+  if (FEATS)
+    fbw::feat_rows<S, KIND>(f_s + ((T - 1) & 1) * S * fs, fb + (size_t)(T - 1) * step_f, ns, F,
+                            k, KP, D);
+  float l_next[S];  // not FEATS: ll_t, read a step ahead
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+    l_next[s] = (!FEATS && active && s < ns) ? fb[(size_t)(T - 1) * step_k + s * K + k] : 0.f;
   __syncthreads();
 
   float bt[S];  // b_t
@@ -405,7 +327,15 @@ __device__ void seqs_raw_backward(const float* __restrict__ A, const float* __re
   for (int t = T - 1; t >= 1; --t) {
     const int p = t & 1;
     float ll[S], wm[S], ws[S];
-    wc.template lls<S>(ll, f_s + p * S * fs, fs, nf4);
+    if (FEATS) {
+      wc.template lls<S>(ll, f_s + p * S * fs, fs, nf4);
+    } else {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        ll[s] = l_next[s];
+        if (active && s < ns) l_next[s] = fb[(size_t)(t - 1) * step_k + s * K + k];
+      }
+    }
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       wm[s] = active ? ll[s] : -INFINITY;
@@ -420,8 +350,9 @@ __device__ void seqs_raw_backward(const float* __restrict__ A, const float* __re
         red_sum[(p * S + s) * NW + warp] = ws[s];
       }
     }
-    fbw::feat_rows<S, KIND, WF>(f_s + (p ^ 1) * S * fs, fb + (size_t)(t - 1) * step_f, ns, F, k,
-                                KP, D, fs);
+    if (FEATS)
+      fbw::feat_rows<S, KIND>(f_s + (p ^ 1) * S * fs, fb + (size_t)(t - 1) * step_f, ns, F, k,
+                              KP, D);
     __syncthreads();  // f_t is read; the maxima and sums are complete
 
     float scale[S];
@@ -447,8 +378,8 @@ __device__ void seqs_raw_backward(const float* __restrict__ A, const float* __re
 // The large-K chain on a grid of (ceil(B/S), 2) blocks of KP threads, S
 // sequences a block: blockIdx.y = 0 runs the forward (fbw::seqs_forward, the
 // fused large-K forward's own function at the same S), 1 the raw backward
-// above; WF at F > FMAX (the fused large-K WF forward's at the same S).
-template <int KP, int S, int KIND, bool WF = false>
+// above.
+template <int KP, int S, int KIND>
 __global__ void __launch_bounds__(KP)
 duplex_chain_wide_kernel(const float* __restrict__ pi, const float* __restrict__ A,
                          const float* __restrict__ W, const float* __restrict__ feats,
@@ -457,10 +388,30 @@ duplex_chain_wide_kernel(const float* __restrict__ pi, const float* __restrict__
                          int K, int F) {
   extern __shared__ __align__(16) float smem[];
   if (blockIdx.y == 0)
-    fbw::seqs_forward<KP, S, true, KIND, false, WF>(pi, A, W, feats, alpha, s_out, sh_out, T, B,
-                                                    K, F, blockIdx.x, smem);
+    fbw::seqs_forward<KP, S, true, KIND>(pi, A, W, feats, alpha, s_out, sh_out, T, B, K, F,
+                                         blockIdx.x, smem);
   else
-    seqs_raw_backward<KP, S, KIND, WF>(A, W, feats, beta, T, B, K, F, blockIdx.x, smem);
+    seqs_raw_backward<KP, S, true, KIND>(A, W, feats, beta, T, B, K, F, blockIdx.x, smem);
+}
+
+// The large-K chain at F > FMAX, on the likelihoods ll (T, B, K) that
+// fbs::ll_tile summed beforehand, over all T in one launch: the forward
+// fused_fwd_wide_ll_kernel's (fbw::seqs_forward without FEATS, whose
+// windows run this one recursion bit for bit), the backward the raw one
+// above reading ll. Neither holds W nor a feature row, so one instance a
+// (KP, S) serves every feature kind and width, in fbw::chain_smem_bytes.
+template <int KP, int S>
+__global__ void __launch_bounds__(KP)
+duplex_chain_wide_ll_kernel(const float* __restrict__ pi, const float* __restrict__ A,
+                            const float* __restrict__ ll, float* __restrict__ alpha,
+                            float* __restrict__ s_out, float* __restrict__ sh_out,
+                            float* __restrict__ beta, int T, int B, int K) {
+  extern __shared__ __align__(16) float smem[];
+  if (blockIdx.y == 0)
+    fbw::seqs_forward<KP, S, false>(pi, A, nullptr, ll, alpha, s_out, sh_out, T, B, K, 0,
+                                    blockIdx.x, smem);
+  else
+    seqs_raw_backward<KP, S, false>(A, nullptr, ll, beta, T, B, K, 0, blockIdx.x, smem);
 }
 
 // ----------------------------------------------------------------- combine
@@ -604,8 +555,9 @@ __device__ __forceinline__ void store_feats(const RowLoad<KP, FP>& in, const Lan
 
 // What the combine makes of the rows' ll = f . W[:, lane + 32 j] (the chain's
 // sums): gamma and gamma0 written, dn and gw into `out`, ginv and w carried.
-template <int KP, bool GATED, int FP>
-__device__ __forceinline__ void row_finish(RowPair<KP>& out, const RowLoad<KP, FP>& in,
+// Rows: RowLoad or RowLoadLL (the rows' a, bv, sh, w and valid).
+template <int KP, bool GATED, class Rows>
+__device__ __forceinline__ void row_finish(RowPair<KP>& out, const Rows& in,
                                            const float (&ll)[2][KP / 32],
                                            float* __restrict__ gamma, float* __restrict__ gamma0,
                                            int t, int b, int B, int K, float& ginv_prev,
@@ -874,213 +826,91 @@ duplex_combine_kernel(const float* __restrict__ W, const float* __restrict__ fea
   }
 }
 
-// ------------------------------------------------------- the WF combine
+// ------------------------------------------------- the combine on read ll
 //
-// At F > FMAX neither W's columns (KP rows of F + 4 floats) nor eacc (4 x F
-// / 16 a thread) fit where the instances above keep them. So:
-//   * W^T's first nws groups of four features lie in shared memory as rows of
-//     wst = fbwf::w_stride(nws) floats (an odd number of 16-byte groups, so
-//     that the float4 reads of a warp's 32 states are free of bank
-//     conflicts), as many as fit within the block's budget beside its other
-//     arrays; the groups beyond are read from device memory (L2) in the same
-//     order, so the sums do not depend on where a word lies;
-//   * ll_t is summed as the chain sums it (fbwf::ll_from, fbw::WGlobal::lls):
-//     in blocks of 64 features, the first block's fmaf chain, then each later
-//     block's own from zero, added in order, over the zero padding to 4
-//     ceil(F / 4) features. A warp stages its two rows a block of 64 features
-//     at a time in shared memory (two rows of KMAX floats a warp): the first
-//     block comes with the rows' other loads, a pair ahead (RowLoad at FP =
-//     KMAX), the later ones are read where they are summed;
-//   * eacc leaves the kernel: the rows write w_t gamma_t for a window of time
-//     steps (fbs::WideStats), and the outer sums (3xTF32) add the windows. Up
-//     to K = 64 acc stays in registers as above, a block's row of partials
-//     read back and written each window (WideStats with blocks > 0); above,
-//     dn goes out with gw as in the instances above.
-// A built kind's features f >= 64 come from the raw observation row through
-// a table of their sources (F ints, fbc::feat_src).
-constexpr int COMBINE_CAP_64 = 110 * 1024;  // the WF combine's shared bytes up to K = 64
-                                            // (two blocks an SM), and above (one)
+// At F > FMAX the combine reads ll_t (T, B, K), which fbs::ll_tile summed
+// for the chain beforehand, where the instances above form f_t . W: the
+// chain's own sums (each element a fmaf chain over each block of 64
+// features, the blocks added in order), so d_t is the e_t and scale that
+// built b_{t-1}. A warp loads the K-wide ll row of (t, b) beside its alpha
+// and beta rows, a pair of rows ahead, and neither W nor a feature row
+// reaches the kernel: one instance a (KP, GATED) serves every feature kind
+// and width. eacc leaves the kernel: the rows write w_t gamma_t for a window
+// of time steps (fbs::WideStats), and the outer sums (3xTF32) add the
+// windows against the window's feature rows (a built kind's built there).
+// Up to K = 64 acc stays in registers as in duplex_combine_kernel, a block's
+// row of partials read back and written each window (WideStats with blocks
+// > 0); above, dn goes out with gw as there.
 
-// The WF combine's shared memory at (KP, F, kind), in floats: W^T's nws
-// groups (KP rows of wst), the warps' feature blocks, up to K = 64 the
-// stage's a_{t-1} and dn rows, and a built kind's sources (F ints, last).
-struct CombineWF {
-  int nf4, nws, wst, fixed;  // fixed: the floats beside W^T
-  __host__ __device__ CombineWF(int KP, int F, int kind) {
-    nf4 = fbwf::groups(F);
-    fixed = 2 * CW * KMAX + (KP == KMAX ? (2 * CTT + 1) * CW * KMAX : 0) +
-            (kind != fbc::FEATS_ARRAY ? F : 0);
-    const int cap = (KP == KMAX ? COMBINE_CAP_64 : fbwf::SMEM_CAP) / 4 - fixed;
-    const int m = cap / (4 * KP);  // the largest (nws | 1) that fits
-    const int fit = (m & 1) ? m : m - 1;
-    nws = fit < 0 ? 0 : fit < nf4 ? fit : nf4;
-    wst = fbwf::w_stride(nws);
-  }
-  __host__ __device__ int floats(int KP) const { return KP * wst + fixed; }
+// What a warp reads of two consecutive rows (t, b) and (t + 1, b) of one
+// sequence (valid when okb and t + r < t_end): lane l holds the states
+// l + 32 j of a_t, b_t and ll_t.
+template <int KP>
+struct RowLoadLL {
+  static constexpr int J = KP / 32;
+  bool valid[2];
+  float a[2][J], bv[2][J], l[2][J], sh[2], w[2];
 };
 
-// acc[r][j] += the groups [g0, g1) of f_{t+r} . W[:, lane + 32 j]: the
-// rows' features in fr[r] from group gb on, W^T's rows from shared memory
-// below nws and W's columns from device memory from there on, each group's
-// four features in order.
-template <int J>
-__device__ __forceinline__ void wf_span(float (&acc)[2][J], float* const (&fr)[2], int gb,
-                                        const float* W_s, int wst, int nws,
-                                        const float* __restrict__ W, int K, int F, int g0,
-                                        int g1) {
+template <int KP, bool GATED>
+__device__ __forceinline__ void load_rows_ll(RowLoadLL<KP>& in, const float* __restrict__ ll,
+                                             const float* __restrict__ alpha,
+                                             const float* __restrict__ beta,
+                                             const float* __restrict__ sh_in,
+                                             const float* __restrict__ w_in, int t, int t_end,
+                                             bool okb, int b, int T, int B, int K) {
   const int lane = threadIdx.x & 31;
-  for (int g = g0; g < min(g1, nws); ++g) {
-    float4 y[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) y[r] = ld4(fr[r] + 4 * (g - gb));
+  for (int r = 0; r < 2; ++r) {
+    const int tr = t + r;
+    const bool valid = okb && tr < t_end;
+    in.valid[r] = valid;
+    const size_t row = ((size_t)tr * B + b) * K;
 #pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const float4 wv = ld4(W_s + (lane + 32 * j) * wst + 4 * g);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        acc[r][j] = fmaf(y[r].x, wv.x, acc[r][j]);
-        acc[r][j] = fmaf(y[r].y, wv.y, acc[r][j]);
-        acc[r][j] = fmaf(y[r].z, wv.z, acc[r][j]);
-        acc[r][j] = fmaf(y[r].w, wv.w, acc[r][j]);
-      }
-    }
-  }
-  for (int g = max(g0, nws); g < g1; ++g) {
-    float4 y[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) y[r] = ld4(fr[r] + 4 * (g - gb));
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
+    for (int j = 0; j < RowLoadLL<KP>::J; ++j) {
       const int k = lane + 32 * j;
-      float c[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        c[e] = (k < K && 4 * g + e < F) ? __ldg(W + (size_t)(4 * g + e) * K + k) : 0.f;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        acc[r][j] = fmaf(y[r].x, c[0], acc[r][j]);
-        acc[r][j] = fmaf(y[r].y, c[1], acc[r][j]);
-        acc[r][j] = fmaf(y[r].z, c[2], acc[r][j]);
-        acc[r][j] = fmaf(y[r].w, c[3], acc[r][j]);
-      }
+      const bool ok = valid && k < K;
+      in.a[r][j] = ok ? alpha[row + k] : 0.f;
+      in.bv[r][j] = ok ? beta[row + k] : 0.f;
+      in.l[r][j] = ok ? ll[row + k] : 0.f;
     }
+    in.sh[r] = valid ? sh_in[(size_t)b * T + tr] : 0.f;
+    in.w[r] = GATED ? (valid ? w_in[(size_t)tr * B + b] : 0.f) : 1.f;
   }
 }
 
-// ll[r][j] = f_{t+r} . W[:, lane + 32 j] for the two rows of `in` at F >
-// FMAX, summed as the chain sums it (above). fr[r] is the warp's shared row
-// of KMAX floats; `in` holds the first block's features (RowLoad<KP, KMAX>),
-// the later blocks are read here from feats (a built KIND: the observations,
-// through the sources in tab).
-template <int KP, int KIND>
-__device__ __forceinline__ void wf_lls(float (&ll)[2][KP / 32], const RowLoad<KP, KMAX>& in,
-                                       const LaneFeats<KMAX>& lf, float* const (&fr)[2],
-                                       const float* W_s, const CombineWF& lay,
-                                       const float* __restrict__ W,
-                                       const float* __restrict__ feats, const int* tab, int t,
-                                       int b, int B, int K, int F, int D) {
-  constexpr int J = KP / 32;
-  constexpr int BLK = fbwf::BLK;  // groups a block
-  const int lane = threadIdx.x & 31;
-  __syncwarp();  // the previous pair's rows are read
-  store_feats<KP, KMAX, KIND>(in, lf, fr);
-  __syncwarp();  // the first block's rows are complete
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int j = 0; j < J; ++j) ll[r][j] = 0.f;
-  wf_span<J>(ll, fr, 0, W_s, lay.wst, lay.nws, W, K, F, 0, BLK);
-  for (int g0 = BLK; g0 < lay.nf4; g0 += BLK) {
-    float v[2][2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const size_t row = (size_t)(t + r) * B + b;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int f = 4 * g0 + lane + 32 * i;
-        float x = 0.f;
-        if (in.valid[r] && f < F) {
-          if constexpr (KIND == fbc::FEATS_ARRAY) {
-            x = feats[row * F + f];
-          } else {
-            const float* y = feats + row * D;
-            const int ia = (tab[f] & 0xffff) - 1, ja = (tab[f] >> 16) - 1;
-            x = ia < 0 ? 1.f : fbc::feat_of(y[ia], ja < 0 ? 0.f : y[ja], ja >= 0);
-          }
-        }
-        v[r][i] = x;
-      }
-    }
-    __syncwarp();  // the block before is read
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) fr[r][lane + 32 * i] = v[r][i];
-    __syncwarp();
-    float part[2][J];
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int j = 0; j < J; ++j) part[r][j] = 0.f;
-    wf_span<J>(part, fr, g0, W_s, lay.wst, lay.nws, W, K, F, g0, min(g0 + BLK, lay.nf4));
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int j = 0; j < J; ++j) ll[r][j] += part[r][j];
-  }
-}
-
-// duplex_combine_kernel at F > FMAX (the WF instances), over the rows t0 <= t
-// < t1 of a window of the statistics, the blocks as there: KP = 64 keeps acc
-// in registers, starting from the block's row of partials in `part` (rows of
-// K K, read back when t1 < T, the windows running last first) and writing it
-// back, and writes gw for the window into gw_out; KP = 128, 256 write dn and
-// gw, (t1 - t0, B, K) each from t0.
-template <int KP, bool GATED, int KIND>
+// The combine on read ll over the rows t0 <= t < t1 of a window of the
+// statistics, the blocks as duplex_combine_kernel's: KP = 64 keeps acc in
+// registers, starting from the block's row of partials in `part` (rows of
+// K K, read back when t1 < T, the windows running last first) and writing
+// it back, and writes gw for the window into gw_out; KP = 128, 256 write dn
+// and gw, (t1 - t0, B, K) each from t0.
+template <int KP, bool GATED>
 __global__ void __launch_bounds__(CNT, KP == KMAX ? 2 : 1)
-duplex_combine_wf_kernel(const float* __restrict__ W, const float* __restrict__ feats,
-                         const float* __restrict__ alpha, const float* __restrict__ beta,
-                         const float* __restrict__ sh_in, const float* __restrict__ w_in,
-                         float* __restrict__ gamma, float* __restrict__ gamma0,
-                         float* __restrict__ part, float* __restrict__ dn_out,
-                         float* __restrict__ gw_out, int T, int B, int K, int F, int chunk, int t0,
-                         int t1) {
+duplex_combine_ll_kernel(const float* __restrict__ ll, const float* __restrict__ alpha,
+                         const float* __restrict__ beta, const float* __restrict__ sh_in,
+                         const float* __restrict__ w_in, float* __restrict__ gamma,
+                         float* __restrict__ gamma0, float* __restrict__ part,
+                         float* __restrict__ dn_out, float* __restrict__ gw_out, int T, int B,
+                         int K, int chunk, int t0, int t1) {
   constexpr int J = KP / 32;
-  extern __shared__ __align__(16) float smem[];
-  const CombineWF lay(KP, F, KIND);
-  float* W_s = smem;                          // W^T's first nws groups, row k at k * wst
-  float* fb_s = W_s + KP * lay.wst;           // two feature rows of KMAX a warp
-  float* a_s = fb_s + 2 * CW * KMAX;          // KP = 64: a_{t-1} of stage row i at (i CW + warp) KMAX
-  float* dn_s = a_s + (CTT + 1) * CW * KMAX;  // KP = 64: dn_t at (i CW + warp) KMAX
-  int* tab = reinterpret_cast<int*>(W_s + lay.floats(KP) - (KIND != fbc::FEATS_ARRAY ? F : 0));
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.x * CW + warp;
   const bool okb = b < B;
   const int t_begin = t0 + blockIdx.y * chunk;
   const int t_end = min(t1, t_begin + chunk);
-  const int D = fbc::obs_dim(KIND, F);  // floats of a (t, b) row of feats
-  const LaneFeats<KMAX> lf(KIND, D, F);  // the first block's sources
-  float* const fr[2] = {fb_s + (2 * warp) * KMAX, fb_s + (2 * warp + 1) * KMAX};
-
-  for (int idx = tid; idx < 4 * lay.nws * KP; idx += CNT) {  // W's reads coalesced, k fastest
-    const int f = idx / KP, k = idx % KP;
-    W_s[k * lay.wst + f] = (k < K && f < F) ? W[(size_t)f * K + k] : 0.f;
-  }
-  if constexpr (KIND != fbc::FEATS_ARRAY) {
-    for (int f = tid; f < F; f += CNT) {
-      int ia, ja;
-      fbc::feat_src(KIND, D, f, ia, ja);
-      tab[f] = (ia + 1) | ((ja + 1) << 16);
-    }
-  }
   float a_prev[J], ginv_prev = 0.f, w_prev = 0.f;
 #pragma unroll
   for (int j = 0; j < J; ++j) a_prev[j] = 0.f;
   if (t_begin >= 1)
     halo_row<KP, GATED>(a_prev, ginv_prev, w_prev, alpha, beta, w_in, t_begin - 1, okb, b, B, K);
 
-  RowLoad<KP, KMAX> cur, nxt;
+  RowLoadLL<KP> cur, nxt;
+  load_rows_ll<KP, GATED>(cur, ll, alpha, beta, sh_in, w_in, t_begin, t_end, okb, b, T, B, K);
   if constexpr (KP == KMAX) {
+    __shared__ __align__(16) float a_s[(CTT + 1) * CW * KMAX];  // a_{t-1} of stage row i at
+                                                               // (i CW + warp) KMAX
+    __shared__ __align__(16) float dn_s[CTT * CW * KMAX];       // dn_t at (i CW + warp) KMAX
     const int ty = tid / 16, tx = tid % 16;
     float* pb = part + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * K * K;
     float acc[4][4];
@@ -1091,20 +921,15 @@ duplex_combine_wf_kernel(const float* __restrict__ W, const float* __restrict__ 
         const int i = 4 * ty + a, j = 4 * tx + c;
         acc[a][c] = (t1 < T && i < K && j < K) ? pb[i * K + j] : 0.f;
       }
-    __syncthreads();  // W_s and the sources are complete
-
-    load_rows<KP, KMAX, GATED, KIND>(cur, lf, feats, alpha, beta, sh_in, w_in, t_begin, t_end,
-                                     okb, b, T, B, K, F, D);
     for (int ts = t_begin; ts < t_end; ts += CTT) {
 #pragma unroll
       for (int j = 0; j < J; ++j) a_s[warp * KMAX + lane + 32 * j] = a_prev[j];
+#pragma unroll
       for (int i = 0; i < CTT; i += 2) {
-        load_rows<KP, KMAX, GATED, KIND>(nxt, lf, feats, alpha, beta, sh_in, w_in, ts + i + 2,
-                                         t_end, okb, b, T, B, K, F, D);
-        float ll[2][J];
-        wf_lls<KP, KIND>(ll, cur, lf, fr, W_s, lay, W, feats, tab, ts + i, b, B, K, F, D);
+        load_rows_ll<KP, GATED>(nxt, ll, alpha, beta, sh_in, w_in, ts + i + 2, t_end, okb, b, T,
+                                B, K);
         RowPair<KP> rp;
-        row_finish<KP, GATED>(rp, cur, ll, gamma, gamma0, ts + i, b, B, K, ginv_prev, w_prev);
+        row_finish<KP, GATED>(rp, cur, cur.l, gamma, gamma0, ts + i, b, B, K, ginv_prev, w_prev);
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int o = ((i + r) * CW + warp) * KMAX + lane;
@@ -1144,16 +969,10 @@ duplex_combine_wf_kernel(const float* __restrict__ W, const float* __restrict__ 
         if (i < K && j < K) pb[i * K + j] = acc[a][c];
       }
   } else {
-    __syncthreads();  // W_s and the sources are complete
-    load_rows<KP, KMAX, GATED, KIND>(cur, lf, feats, alpha, beta, sh_in, w_in, t_begin, t_end,
-                                     okb, b, T, B, K, F, D);
     for (int t = t_begin; t < t_end; t += 2) {
-      load_rows<KP, KMAX, GATED, KIND>(nxt, lf, feats, alpha, beta, sh_in, w_in, t + 2, t_end,
-                                       okb, b, T, B, K, F, D);
-      float ll[2][J];
-      wf_lls<KP, KIND>(ll, cur, lf, fr, W_s, lay, W, feats, tab, t, b, B, K, F, D);
+      load_rows_ll<KP, GATED>(nxt, ll, alpha, beta, sh_in, w_in, t + 2, t_end, okb, b, T, B, K);
       RowPair<KP> rp;
-      row_finish<KP, GATED>(rp, cur, ll, gamma, gamma0, t, b, B, K, ginv_prev, w_prev);
+      row_finish<KP, GATED>(rp, cur, cur.l, gamma, gamma0, t, b, B, K, ginv_prev, w_prev);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         if (!cur.valid[r]) continue;
@@ -1172,61 +991,12 @@ duplex_combine_wf_kernel(const float* __restrict__ W, const float* __restrict__ 
   }
 }
 
-// The WF chain instance of (S, K, F, KIND) and its dynamic shared bytes at
-// F: S in {2, 4} up to K = 64 (fbwf's forward), {1, 2, 4, 8} at KP =
-// tier_of(K) above (fb_wide.cuh's WF). Null for an S not built.
-template <int KIND>
-const void* wf_chain_of(int S, int K, int F, int* smem) {
-  if (K <= KMAX) {
-    if (S == 2) {
-      *smem = fbwf::forward_smem<2, KIND>(F);
-      return reinterpret_cast<const void*>(duplex_chain_wf_kernel<2, KIND>);
-    }
-    if (S == 4) {
-      *smem = fbwf::forward_smem<4, KIND>(F);
-      return reinterpret_cast<const void*>(duplex_chain_wf_kernel<4, KIND>);
-    }
-    *smem = 0;
-    return nullptr;
-  }
-  const bool k128 = fbw::tier_of(K) == 128;
-  switch (S) {
-#define DFB_CASE(SS)                                                                          \
-  case SS:                                                                                    \
-    *smem = k128 ? fbw::chain_smem_bytes_wf<128, SS>(F) : fbw::chain_smem_bytes_wf<256, SS>(F); \
-    return k128 ? reinterpret_cast<const void*>(duplex_chain_wide_kernel<128, SS, KIND, true>)  \
-                : reinterpret_cast<const void*>(duplex_chain_wide_kernel<256, SS, KIND, true>);
-    DFB_CASE(1)
-    DFB_CASE(2)
-    DFB_CASE(4)
-    DFB_CASE(8)
-#undef DFB_CASE
-    default: *smem = 0; return nullptr;
-  }
-}
-
-// The WF combine instance of (K, F, gated, KIND) and its dynamic shared
-// bytes at F: KP = 64 up to K = 64, KP = tier_of(K) above.
-template <int KP, int KIND>
-const void* wf_combine_at(bool gated, int F, int* smem) {
-  *smem = 4 * CombineWF(KP, F, KIND).floats(KP);
-  return gated ? reinterpret_cast<const void*>(duplex_combine_wf_kernel<KP, true, KIND>)
-               : reinterpret_cast<const void*>(duplex_combine_wf_kernel<KP, false, KIND>);
-}
-
-template <int KIND>
-const void* wf_combine_of(int K, int F, bool gated, int* smem) {
-  if (K <= KMAX) return wf_combine_at<KMAX, KIND>(gated, F, smem);
-  return fbw::tier_of(K) == 128 ? wf_combine_at<128, KIND>(gated, F, smem)
-                                : wf_combine_at<256, KIND>(gated, F, smem);
-}
-
 }  // namespace
 
-// The WF instances at F > FMAX (wf_chain_of and wf_combine_of by kind,
-// defined in duplex_fb_wide.cu), their dynamic shared bytes in *smem; null
-// for an S or a kind not built.
-const void* wf_chain_instance(int S, int K, int F, int kind, int* smem);
-const void* wf_combine_instance(int K, int F, bool gated, int kind, int* smem);
+// The instances at F > FMAX (defined in duplex_fb_wide.cu, which alone
+// instantiates them), the chain's dynamic shared bytes in *smem; null for
+// an S not built.
+const void* ll_chain_instance(int S, int K, int* smem);
+const void* ll_combine_instance(int K, bool gated);
 
 }  // namespace fbd

@@ -55,6 +55,10 @@ constexpr int BWD_AREG = 48;
 // The padded feature width an instance is built for.
 constexpr int pad_f(int F) { return F <= 16 ? 16 : F <= 32 ? 32 : F <= 48 ? 48 : 64; }
 
+// FP of the ll mode (FEATS = false), which reads no feature: the split pair's
+// instances and the fused and duplex pairs' at F > FMAX.
+constexpr int LL_FP = 4;
+
 // One step's feature rows of a block's sequences, feats[t, b0 .. b0+ns-1, :]
 // (ns * F contiguous floats), through registers into a shared slot
 // [S][FP] (zero beyond F, and for missing sequences). Thread k moves the

@@ -1,26 +1,20 @@
-// The fused pair's chain kernels up to K = 64 at any feature width F (the
-// backward's instances fused_fb_wide*.cu build for F > fbc::FMAX, and the
-// forward the duplex WF chain runs; fb_seqs.cuh holds the layout this
-// follows, and its instances for F <= FMAX). The fused forward itself at F
-// > FMAX sums ll with fbs::ll_tile first and runs fb_seqs.cuh's seq_forward
-// on it (its ll mode, the split forward's): seq_forward_wf's bits, so the
-// duplex WF chain's alpha, s and sh stay the fused forward's.
+// The fused pair's backward up to K = 64 at any feature width F (the
+// instances fused_fb_wide*.cu build for F > fbc::FMAX; fb_seqs.cuh holds the
+// layout this follows, and its instances for F <= FMAX). The fused forward
+// at F > FMAX, like the duplex pair there, reads the likelihoods that
+// fbs::ll_tile sums first (fb_seqs.cuh's seq_forward in its ll mode).
 //
-// What changes with the width. fb_seqs.cuh keeps column k of W (the
-// forward) and row k of eacc (the backward) in registers and pads F to one
-// of four compiled widths; neither scales past 64 features. Here F is a
-// run-time loop bound over groups of four features (nf4 = ceil(F / 4)).
-//
-// The forward (seq_forward_wf, the duplex WF chain's):
+// What changes with the width. fb_seqs.cuh keeps row k of eacc (the
+// backward) in registers and pads F to one of four compiled widths, which
+// does not scale past 64 features. Here F is a run-time loop bound over
+// groups of four features (nf4 = ceil(F / 4)):
 //   * W lies in dynamic shared memory, k-major, row k of W^T at k * wst with
 //     wst = 4 (nws | 1): an odd number of 16-byte groups a row, so that the
-//     float4 reads of 32 threads at 32 rows are free of bank conflicts. 64 x
-//     260 floats at F = 256. Its first nws groups, that is: as many as fit
-//     beside the block's other arrays within SMEM_CAP; the groups beyond,
-//     column k of W, are read from device memory (L2) at each step, in the
-//     same order, so that the chain and its bits do not depend on where a
-//     word lies. What bounds F is then the feature slots (S = 4 runs the
-//     array to F = 3,020, S = 2 to 6,108).
+//     float4 reads of 32 threads at 32 rows are free of bank conflicts. Its
+//     first nws groups, that is: as many as fit beside the block's other
+//     arrays within SMEM_CAP; the groups beyond, column k of W, are read from
+//     device memory (L2) at each step, in the same order, so that the chain
+//     and its bits do not depend on where a word lies.
 //   * The feature rows of a step (S F floats a block) reach shared memory by
 //     cp.async, several steps before they are read (WideRows below), as a
 //     ring of slots [S][4 nf4] whose padding stays zero; a built kind
@@ -30,8 +24,7 @@
 //   * ll_t is summed in blocks of 64 features (ll_from): the fmaf chain over
 //     the first block, then each further block's own chain from zero, added
 //     in order, over zero padding, so that a built kind's rows give the
-//     array's bits and the backward, which sums ll the same way, the same
-//     lik_t.
+//     array's bits and the sums are ll_tile's, the forward's lik_t.
 //
 // The backward has two tiers, chosen before launch from (S, F) alone
 // (tiled_fits; the launchers count each):
@@ -66,7 +59,7 @@
 //   * the window tier (seq_backward_wf, wider F, where W and eacc (KMAX x F
 //     each) no longer fit beside the rings, and past F = 440 not even
 //     alone within SMEM_CAP): the chain computes ll_{t-1}
-//     itself, W^T as the forward holds it; eacc leaves the chain: the
+//     itself, W^T in shared memory as above; eacc leaves the chain: the
 //     backward writes w_t gamma_t for a window of time steps a launch
 //     (fbs::WideStats, with acc kept in the chain), and the eacc outer sums
 //     (3xTF32, fb_stats.cuh) add
@@ -79,9 +72,7 @@
 // fb_seqs.cuh's arithmetic, line for line, so gamma, gamma0 and acc are the
 // same bits in both tiers. The instances run only at F > FMAX (nf4 > 16
 // groups), so the loop that interleaves ll's chain with the matvec's 16
-// groups needs no guard, and the forward keeps W's first 64 rows of column k
-// in registers, as the F = 64 instance does (the same words as W^T's in
-// shared memory, so the same bits as the backward's).
+// groups needs no guard.
 
 #pragma once
 
@@ -109,7 +100,7 @@ __host__ __device__ constexpr int groups(int F) { return (F + 3) / 4; }
 __host__ __device__ constexpr int w_stride(int nws) { return 4 * (nws | 1); }
 
 // The dynamic shared memory a WF block takes at most, in bytes: within the
-// H100's 227 KB a block (opt-in) beside the forward's static arrays.
+// H100's 227 KB a block (opt-in) beside the backward's static arrays.
 constexpr int SMEM_CAP = 220 * 1024;
 
 // W^T's groups held in shared memory beside `fixed` bytes of the block's
@@ -127,7 +118,7 @@ __host__ __device__ inline int smem_groups(int F, int fixed) {
 
 // The feature rows of a block's S sequences for the chain, in shared memory.
 // Rows are named by their place q in the order the chain reads them (the
-// forward's q is t, the backward's t1 - 1 - t); slot(q) holds row q as [S]
+// backward's q is t1 - 1 - t); slot(q) holds row q as [S]
 // [fpr] floats, zero beyond F and for missing sequences. A step's copies are
 // one cp.async group, committed even when empty, so that every thread counts
 // the same groups.
@@ -241,13 +232,11 @@ struct WideRows {
     }
   }
 
-  // Before the chain's first barrier: rows 0 .. first - 1 ready to read (and
-  // seen, after the caller's sync), and the copies the steps before r =
-  // first would have asked for in flight. first is 1 (the backward reads row
-  // 0 before its loop) or 2 (the forward reads rows 0 and 1); the forward's
-  // row 2 of a built kind is built by build(2) after its peeled step.
+  // Before the chain's first barrier: row 0 ready to read (and seen, after
+  // the caller's sync; the backward reads it before its loop), and the
+  // copies the step before r = 1 would have asked for in flight.
   template <class RowOf>
-  __device__ void prime(int first, RowOf row_of) const {
+  __device__ void prime(RowOf row_of) const {
     if constexpr (BUILT) {
       for (int q = 0; q < 3; ++q) ask(q, row_of(q));
       fbs::cp_wait<0>();
@@ -255,9 +244,9 @@ struct WideRows {
       build(0);
       build(1);
       __syncthreads();  // raw slots 0 and 1 are free
-      for (int q = 3; q < first + 3; ++q) ask(q, row_of(q));
+      ask(3, row_of(3));
     } else {
-      for (int q = 0; q < first + 2; ++q) ask(q, row_of(q));
+      for (int q = 0; q < 3; ++q) ask(q, row_of(q));
       fbs::cp_wait<0>();
       __syncthreads();
     }
@@ -323,21 +312,6 @@ __device__ __forceinline__ void ll_from(float (&ll)[S], const float* wk, const W
   }
 }
 
-// ll[s] over every group: the first block (KMAX / 4 groups) with W's rows
-// from registers (wr, column k of W's first KMAX rows), the rest as
-// ll_from's: the same sums over the same words as ll_from(..., 0).
-template <int S>
-__device__ __forceinline__ void ll_all(float (&ll)[S], const float (&wr)[KMAX], const float* wk,
-                                       const WTail& wc, const float* slot, int fpr) {
-#pragma unroll
-  for (int f4 = 0; f4 < KMAX / 4; ++f4) {
-    float4 y[S];
-    ld4s<S>(y, slot + 4 * f4, fpr);
-    fma4<S>(ll, y, wr[4 * f4], wr[4 * f4 + 1], wr[4 * f4 + 2], wr[4 * f4 + 3]);
-  }
-  ll_from<S>(ll, wk, wc, slot, fpr, KMAX / 4);
-}
-
 // *p by a load the compiler may not repeat or move.
 __device__ __forceinline__ float ld_once(const float* p) {
   return *reinterpret_cast<const volatile float*>(p);
@@ -353,173 +327,18 @@ __device__ __forceinline__ void load_W(const float* __restrict__ W, float* W_s, 
   }
 }
 
-// The bytes of the forward's and the backward's dynamic shared memory
-// beside W^T's rows, and W^T's groups there (smem_groups), at (S, F).
-template <int S, int KIND>
-__host__ __device__ inline int forward_fixed(int F) {
-  return 4 * WideRows<S, KIND>::floats(F);
-}
-
+// The bytes of the backward's dynamic shared memory beside W^T's rows, and
+// W^T's groups there (smem_groups), at (S, F).
 template <int S, int KIND>
 __host__ __device__ inline int backward_fixed(int F) {
   return 4 * (KMAX * AST + 4 * S * KMAX + 2 * NWARP * S + WideRows<S, KIND>::floats(F));
 }
 
-// Dynamic shared memory, in bytes, of the forward and the backward at (S, F).
-template <int S, int KIND>
-__host__ __device__ inline int forward_smem(int F) {
-  const int fixed = forward_fixed<S, KIND>(F);
-  return fixed + 4 * KMAX * w_stride(smem_groups(F, fixed));
-}
-
+// Dynamic shared memory, in bytes, of the backward at (S, F).
 template <int S, int KIND>
 __host__ __device__ inline int backward_smem(int F) {
   const int fixed = backward_fixed<S, KIND>(F);
   return fixed + 4 * KMAX * w_stride(smem_groups(F, fixed));
-}
-
-// fbseq::seq_forward with FEATS at any F: the same recursion, barriers and
-// outputs (raw alpha, float32 or with ABF bf16 into alpha16; s of the stored
-// values; sh), W^T in smem and the rows through WideRows. Every thread of
-// the block calls it.
-template <int S, int KIND, bool ABF>
-__device__ __forceinline__ void seq_forward_wf(const float* __restrict__ pi,
-                                               const float* __restrict__ A,
-                                               const float* __restrict__ W,
-                                               const float* __restrict__ src,
-                                               float* __restrict__ alpha,
-                                               float* __restrict__ s_out,
-                                               float* __restrict__ sh_out, int T, int B, int K,
-                                               int F, int blk, float* smem,
-                                               __nv_bfloat16* __restrict__ alpha16) {
-  __shared__ __align__(16) float a_s[2][S * KMAX];  // a_t in slot t & 1, zero beyond K
-  __shared__ float red_max[2][NWARP * S];
-  __shared__ float red_sum[2][NWARP * S];
-  __shared__ float red_sr[2][NWARP * S];
-
-  const int nf4 = groups(F), fpr = 4 * nf4;
-  const int nws = smem_groups(F, forward_fixed<S, KIND>(F)), wst = w_stride(nws);
-  const int b0 = blk * S;
-  const int ns = min(S, B - b0);
-  const int k = threadIdx.x;
-  const int lane = k & 31, warp = k >> 5;
-  const bool active = k < K;
-  float* W_s = smem;
-  const float* wk = W_s + k * wst;
-  const WTail wc{active ? W + k : nullptr, K, F, nws, nf4};
-  const int in_w = fbc::obs_dim(KIND, F);  // F for the array
-  const WideRows<S, KIND> rows(W_s + KMAX * wst, src + (size_t)b0 * in_w, B, F, ns, T);
-
-  // column k of A~ and of W's first KMAX rows (F > KMAX), read once: as
-  // volatile loads, which ptxas may not repeat in the loop to free registers
-  float Acol[KMAX], Wcol[KMAX];
-#pragma unroll
-  for (int i = 0; i < KMAX; ++i) {
-    Acol[i] = (active && i < K) ? ld_once(A + i * K + k) : 0.f;
-    Wcol[i] = active ? ld_once(W + i * K + k) : 0.f;
-  }
-  const float pik = active ? pi[k] : 0.f;
-  load_W(W, W_s, K, F, nws, wst);
-  rows.init();
-  for (int i = k; i < 2 * S * KMAX; i += NT) a_s[i / (S * KMAX)][i % (S * KMAX)] = 0.f;
-  const size_t step_k = (size_t)B * K;
-  const size_t a_base = (size_t)b0 * K + k;
-  auto row_of = [](int q) { return q; };
-  __syncthreads();  // W^T, the zeroed slots and the table
-  rows.prime(2, row_of);
-
-  float ll[S], m[S], inv[S], a[S], sm[S], mx[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) ll[s] = 0.f;
-  ll_all<S>(ll, Wcol, wk, wc, rows.slot(0), fpr);
-#pragma unroll
-  for (int s = 0; s < S; ++s) mx[s] = active ? ll[s] : -INFINITY;
-  fbc::warp_maxes<S>(mx);
-  if (lane == 0) {
-#pragma unroll
-    for (int s = 0; s < S; ++s) red_max[0][warp * S + s] = mx[s];
-  }
-  __syncthreads();
-  rows.build(2);  // a built kind's row 2, into row 0's slot (read above)
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    m[s] = block_max<S>(red_max[0], s);
-    a[s] = active ? pik * expf(ll[s] - m[s]) : 0.f;
-    ll[s] = 0.f;
-  }
-  ll_all<S>(ll, Wcol, wk, wc, rows.slot(1), fpr);  // ll_1 (unused when T = 1)
-
-  for (int t = 0;; ++t) {
-    const int p = t & 1;
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      a_s[p][s * KMAX + k] = a[s];
-      if (active && s < ns) {
-        const size_t o = a_base + (size_t)t * step_k + (size_t)s * K;
-        if constexpr (ABF)
-          alpha16[o] = __float2bfloat16_rn(a[s]);
-        else
-          alpha[o] = a[s];
-      }
-      sm[s] = a[s];
-      mx[s] = active ? ll[s] : -INFINITY;
-    }
-    fbc::warp_sums_maxes<S>(sm, mx);
-    if (lane == 0) {
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        red_sum[p][warp * S + s] = sm[s];
-        red_max[p ^ 1][warp * S + s] = mx[s];
-      }
-    }
-    if constexpr (ABF) {
-      float sr[S];
-#pragma unroll
-      for (int s = 0; s < S; ++s) sr[s] = fbc::bf16_round(a[s]);
-      fbc::warp_sums<S>(sr);
-      if (lane == 0) {
-#pragma unroll
-        for (int s = 0; s < S; ++s) red_sr[p][warp * S + s] = sr[s];
-      }
-    }
-    fbs::cp_wait<1>();  // this thread's copies of row t + 2 (t + 3 built) have landed
-    __syncthreads();    // a_t, row t + 2 and both partials are complete
-    rows.advance(t + 2, row_of);
-
-    float lik[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const float sum = block_sum<S>(red_sum[p], s);
-      inv[s] = 1.f / fmaxf(sum, SUM_FLOOR);
-      if (k == s && s < ns) {
-        s_out[(size_t)(b0 + s) * T + t] = ABF ? block_sum<S>(red_sr[p], s) : sum;
-        sh_out[(size_t)(b0 + s) * T + t] = m[s];
-      }
-      m[s] = block_max<S>(red_max[p ^ 1], s);  // sh_{t+1}
-      lik[s] = expf(ll[s] - m[s]);
-    }
-    if (t + 1 == T) break;
-
-    // u_{t+1} = a_t @ A~ and ll_{t+2} = f_{t+2} . W: 2S chains in one loop
-    // over the first 64 features, then the rest of ll's chain
-    float u[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) u[s] = ll[s] = 0.f;
-    const float* ap = a_s[p];
-    const float* fp = rows.slot(t + 2);
-#pragma unroll
-    for (int i4 = 0; i4 < KMAX / 4; ++i4) {
-      float4 x[S], y[S];
-      ld4s<S>(x, ap + 4 * i4, KMAX);
-      ld4s<S>(y, fp + 4 * i4, fpr);
-      fma4<S>(ll, y, Wcol[4 * i4], Wcol[4 * i4 + 1], Wcol[4 * i4 + 2], Wcol[4 * i4 + 3]);
-      fma4<S>(u, x, Acol[4 * i4], Acol[4 * i4 + 1], Acol[4 * i4 + 2], Acol[4 * i4 + 3]);
-    }
-    ll_from<S>(ll, wk, wc, fp, fpr, KMAX / 4);
-#pragma unroll
-    for (int s = 0; s < S; ++s) a[s] = active ? u[s] * (lik[s] * inv[s]) : 0.f;
-  }
-  fbs::cp_wait<0>();  // the copies asked for past T
 }
 
 // fbseq::seq_stats_backward with FEATS at any F, over the window t = t1-1 ..
@@ -598,7 +417,7 @@ __device__ __forceinline__ void seq_backward_wf(
   }
   auto row_of = [t1](int q) { return t1 - 1 - q; };
   __syncthreads();  // A~, W^T, the zeroed slots and the table
-  rows.prime(1, row_of);
+  rows.prime(row_of);
 
   float ll[S];  // ll_{t1-1}: the forward's chain
 #pragma unroll

@@ -512,9 +512,9 @@ inline cudaError_t widen(const __nv_bfloat16* a16, float* out, long long n, cuda
 }
 
 // ---------------------------------------------------------------------------
-// The likelihood tile of the fused pair's WF instances: out (N, K) = X (N,
-// F) . W (F, K), W row-major, X the feature rows of N (t, b) rows: the
-// array's, or for a built kind (fbc::FEATS_NIW, FEATS_NIG) each feature
+// The likelihood tile of the fused and duplex pairs' WF instances: out (N,
+// K) = X (N, F) . W (F, K), W row-major, X the feature rows of N (t, b)
+// rows: the array's, or for a built kind (fbc::FEATS_NIW, FEATS_NIG) each feature
 // built from the raw observation rows (N, D) where it is staged (fbc::
 // feat_of: ell_features' float32 bits). It is the ll half of the TPU's
 // fused kernels, where ll is one tile matmul of a block of steps
@@ -525,13 +525,15 @@ inline cudaError_t widen(const __nv_bfloat16* a16, float* out, long long n, cuda
 // chain reads them as the split forward does (fbseq::seq_forward's ll mode,
 // fbw::seqs_forward without FEATS); the backward above K = 64 sums those of
 // each window of its statistics (fbs::WideStats), read by
-// fbw::seqs_backward's LL chain. The chains thus keep F products a state
-// and step off their serial path.
+// fbw::seqs_backward's LL chain. The duplex pair sums those of all T B rows
+// once an E-step, and both its chain and its combine read them
+// (duplex_fb.cu). The chains thus keep F products a state and step off
+// their serial path.
 //
-// Each element is the chains' own sum (fbw::WGlobal::lls, fbwf::ll_from):
-// over f = 0 .. 4 ceil(F / 4) - 1 (zero beyond F) in blocks of 64 features,
-// each block's fmaf chain from zero in feature order, the blocks added in
-// order; so lik_t is the fused kernels' own bits and every output theirs.
+// Each element is the chains' own sum (fbwf::ll_from, the fused K <= 64 WF
+// backward's): over f = 0 .. 4 ceil(F / 4) - 1 (zero beyond F) in blocks of
+// 64 features, each block's fmaf chain from zero in feature order, the
+// blocks added in order; so lik_t is the fused kernels' own bits and every output theirs.
 // Any schedule that keeps each element's order gives these bits; tensor
 // cores (TF32 operands, another order of sums) would not.
 //
@@ -786,8 +788,8 @@ inline cudaError_t ll_tile(const float* src, const float* W, float* out, long lo
 
 // The count of build_feats_kernel (which = 0), widen_kernel (1) or
 // ll_tile_kernel's 64- (2) or 128-state tile (3), cleared when `clear` (the
-// fused, duplex and split libraries export this; only the fused one
-// launches the last two).
+// fused, duplex and split libraries export this; the fused and duplex ones
+// launch the last two).
 inline int prep_launches(int which, bool clear) {
   long long& c = prep_launch_count[which < 0 || which > 3 ? 0 : which];
   const long long n = c;

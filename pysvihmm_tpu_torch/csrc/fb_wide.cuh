@@ -34,19 +34,14 @@
 // and outer products summed in a fixed order form acc and eacc, an order
 // that depends on (T, B, K, F) alone, not on S.
 //
-// Features wider than FMAX (the fused pair's WF instances): W's column k no
-// longer fits a thread's registers, nor W beside A~ in shared memory (at KP =
-// 256 A~'s shared rows take 192 of 227 KB). So each step of the forward
-// reads it from device memory, where L2 keeps it (F K floats, 0.3 MB at F =
-// 300, K = 256): thread k the words W[f][k], a warp 128 contiguous bytes a
-// feature, each word feeding S chains (WGlobal). The feature slots take 4
-// ceil(F / 4) floats a sequence, and the rows are moved by a strided loop
-// (feat_rows<..., true>). ll_t is summed in blocks of 64 features, as the
-// K <= 64 WF instances sum it (fb_seqs_wf.cuh): the first block's fmaf
-// chain, then each later block's own chain added in order. The backward
-// (LL) takes those F products a state and step off its serial chain: it
-// reads each window's likelihoods, which fbs::ll_tile sums beforehand in
-// the same order, as the split backward reads ll.
+// Features wider than FMAX (the fused and duplex pairs' WF instances): W's
+// column k no longer fits a thread's registers, nor W beside A~ in shared
+// memory (at KP = 256 A~'s shared rows take 192 of 227 KB). So no chain
+// forms ll_t there: fbs::ll_tile sums the likelihoods beforehand (in blocks
+// of 64 features, the first block's fmaf chain, then each later block's own
+// chain added in order), and the chains read them, as the split pair reads
+// ll: seqs_forward without FEATS, seqs_backward's LL and the duplex chain's
+// raw backward (duplex_fb_kernels.cuh).
 
 #pragma once
 
@@ -186,64 +181,6 @@ struct WCol {
   }
 };
 
-// Column k of W (F, K) row-major read from device memory at each use (the
-// WF instances), zero beyond F (or K).
-struct WGlobal {
-  const float* __restrict__ w;  // W + k, null for an idle state
-  int K, F;
-  __device__ void load(const float* __restrict__ W, int K_, int F_, int k) {
-    w = k < K_ ? W + k : nullptr;
-    K = K_;
-    F = F_;
-  }
-  __device__ __forceinline__ float at(int f) const {
-    return (w != nullptr && f < F) ? __ldg(w + (size_t)f * K) : 0.f;
-  }
-  // acc[s] += the groups [f0, f1) of f_s[s] . W[:, k], each word of W
-  // feeding S chains.
-  template <int S>
-  __device__ __forceinline__ void span(float (&acc)[S], const float* f_s, int fstride, int f0,
-                                       int f1) const {
-#pragma unroll 4
-    for (int f4 = f0; f4 < f1; ++f4) {
-      const float c0 = at(4 * f4), c1 = at(4 * f4 + 1), c2 = at(4 * f4 + 2), c3 = at(4 * f4 + 3);
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const float4 y = ld4(f_s + s * fstride + 4 * f4);
-        acc[s] = fmaf(y.x, c0, acc[s]);
-        acc[s] = fmaf(y.y, c1, acc[s]);
-        acc[s] = fmaf(y.z, c2, acc[s]);
-        acc[s] = fmaf(y.w, c3, acc[s]);
-      }
-    }
-  }
-  // out[s] = f_s[s] . W[:, k] over f = 0 .. 4 nf4 - 1 (to the padded width)
-  // in blocks of 16 groups: the first block's chain in out, each later
-  // block's from zero, added in order.
-  template <int S>
-  __device__ __forceinline__ void lls(float (&out)[S], const float* f_s, int fstride,
-                                      int nf4) const {
-    constexpr int BLK = FMAX / 4;
-#pragma unroll
-    for (int s = 0; s < S; ++s) out[s] = 0.f;
-    span<S>(out, f_s, fstride, 0, min(BLK, nf4));
-    for (int b = BLK; b < nf4; b += BLK) {
-      float part[S];
-#pragma unroll
-      for (int s = 0; s < S; ++s) part[s] = 0.f;
-      span<S>(part, f_s, fstride, b, min(b + BLK, nf4));
-#pragma unroll
-      for (int s = 0; s < S; ++s) out[s] += part[s];
-    }
-  }
-};
-
-// The feature slot's stride a sequence: FMAX, or (WF) F padded to a group of 4.
-template <bool WF>
-__host__ __device__ constexpr int slot_stride(int F) {
-  return WF ? 4 * ((F + 3) / 4) : FMAX;
-}
-
 // The block's sum (max) of the per-warp partials red[0 .. NW-1], in warp order.
 template <int NW>
 __device__ __forceinline__ float block_sum(const float* red) {
@@ -271,13 +208,6 @@ constexpr int chain_smem_bytes() {
   return 4 * (Tier<KP>::SR * KP + 2 * S * KP + 2 * S * FMAX + 6 * S * Tier<KP>::NWARP);
 }
 
-// The same for the WF instances at F features: their slots are F wide.
-template <int KP, int S>
-inline int chain_smem_bytes_wf(int F) {
-  return 4 * (Tier<KP>::SR * KP + 2 * S * KP + 2 * S * slot_stride<true>(F) +
-              6 * S * Tier<KP>::NWARP);
-}
-
 // The feature rows of step t of a block's sequences, feats[t, b0 .. b0+ns-1, :]
 // (ns * F contiguous floats from row), into a slot [S][FMAX] whose padding
 // (beyond F, and the missing sequences') stays zero. One sequence takes one
@@ -287,18 +217,9 @@ inline int chain_smem_bytes_wf(int F) {
 // KIND (fbc::FEATS_NIW, FEATS_NIG) reads the raw observation rows (ns * D
 // floats from row) and builds each feature where it is stored
 // (fbc::feat_at: ell_features' float32 bits).
-// WF: any F, slots `stride` floats a sequence, by a strided loop at every S.
-template <int S, int KIND = fbc::FEATS_ARRAY, bool WF = false>
+template <int S, int KIND = fbc::FEATS_ARRAY>
 __device__ __forceinline__ void feat_rows(float* slot, const float* __restrict__ row, int ns,
-                                          int F, int k, int nt, int D = 0, int stride = FMAX) {
-  if (WF) {
-    for (int e = k; e < ns * F; e += nt) {
-      const int s = e / F;
-      slot[s * stride + e - s * F] =
-          KIND == fbc::FEATS_ARRAY ? row[e] : fbc::feat_at<KIND>(row + s * D, D, e - s * F);
-    }
-    return;
-  }
+                                          int F, int k, int nt, int D = 0) {
   if (S == 1) {
     if (k < F) slot[k] = KIND == fbc::FEATS_ARRAY ? row[k] : fbc::feat_at<KIND>(row, D, k);
     return;
@@ -325,9 +246,7 @@ __device__ __forceinline__ void feat_rows(float* slot, const float* __restrict__
 // S = 1 backward at KP = 256 took 26 % longer on the H100 (PERF.md). FEATS
 // with a built KIND reads the raw (T, B, D) observations (feat_rows); ABF
 // stores alpha rounded to bf16 into alpha16, the chain carrying float32,
-// and s sums the rounded values (as seq_forward). WF takes any F (W read
-// from device memory, WGlobal; slots F wide); it serves only the duplex WF
-// chain, the fused WF forward above K = 64 reading ll instead.
+// and s sums the rounded values (as seq_forward).
 // Not FEATS, the recursion may run a window t0 <= t < t1 of the T steps a
 // launch (t1 <= 0: all of them), ll then holding the window's rows only,
 // (t1 - t0, B, K): a window above 0 starts from the float32 state that the
@@ -335,8 +254,7 @@ __device__ __forceinline__ void feat_rows(float* slot, const float* __restrict__
 // (B), and one below T leaves its own there, so the windows run the one
 // recursion over all T bit for bit (the stored alpha, bf16 or not, is not
 // the chain's state).
-template <int KP, int S, bool FEATS, int KIND = fbc::FEATS_ARRAY, bool ABF = false,
-          bool WF = false>
+template <int KP, int S, bool FEATS, int KIND = fbc::FEATS_ARRAY, bool ABF = false>
 __device__ void seqs_forward(const float* __restrict__ pi, const float* __restrict__ A,
                              const float* __restrict__ W, const float* __restrict__ src,
                              float* __restrict__ alpha, float* __restrict__ s_out,
@@ -345,7 +263,7 @@ __device__ void seqs_forward(const float* __restrict__ pi, const float* __restri
                              int t0 = 0, int t1 = 0, float* __restrict__ carry = nullptr) {
   using TT = Tier<KP>;
   constexpr int NW = TT::NWARP;
-  const int fs = slot_stride<WF>(F);     // floats of a sequence's feature row
+  constexpr int fs = FMAX;                 // floats of a sequence's feature row
   float* M_s = smem;                       // A~ rows RR..KP-1
   float* a_s = M_s + TT::SR * KP;          // a_t in slot t & 1, [S][KP] each
   float* f_s = a_s + 2 * S * KP;           // f_t in slot t & 1, [S][fs] each
@@ -360,7 +278,7 @@ __device__ void seqs_forward(const float* __restrict__ pi, const float* __restri
 
   MatCol<KP> col;
   col.load(A, M_s, K, false, k);
-  typename std::conditional<WF, WGlobal, WCol>::type wc;
+  WCol wc;
   if (FEATS) wc.load(W, K, F, k);
   const float pik = active ? pi[k] : 0.f;
   const int D = fbc::obs_dim(KIND, F);         // built kinds: the observations' width
@@ -384,7 +302,7 @@ __device__ void seqs_forward(const float* __restrict__ pi, const float* __restri
     }
   }
   __syncthreads();
-  if (FEATS) feat_rows<S, KIND, WF>(f_s, fb, ns, F, k, KP, D, fs);
+  if (FEATS) feat_rows<S, KIND>(f_s, fb, ns, F, k, KP, D);
   float l_next[S];  // not FEATS: ll_t, read a step ahead
 #pragma unroll
   for (int s = 0; s < S; ++s)
@@ -420,8 +338,7 @@ __device__ void seqs_forward(const float* __restrict__ pi, const float* __restri
       for (int s = 0; s < S; ++s) red_max[(p * S + s) * NW + warp] = wm[s];
     }
     if (FEATS && t + 1 < T)
-      feat_rows<S, KIND, WF>(f_s + (p ^ 1) * S * fs, fb + (size_t)(t + 1) * step_f, ns, F, k,
-                             KP, D, fs);
+      feat_rows<S, KIND>(f_s + (p ^ 1) * S * fs, fb + (size_t)(t + 1) * step_f, ns, F, k, KP, D);
     __syncthreads();  // a_{t-1} and f_t are read; the maxima are complete
 
     float m[S], ws[S];

@@ -98,7 +98,7 @@ fused_bwd_wide_kernel(const float* __restrict__ A, const float* __restrict__ W,
 // takes the large-K backward's (its `part` in the place of dn: the block's
 // rows of acc partials, read back and written each window; gw the window's
 // w_t gamma_t; carry b'_{t0-1}).
-constexpr int LL_FP = 4;  // seq_forward's FP in its ll mode, which reads no feature
+using fbseq::LL_FP;
 
 template <int S, bool ABF>
 __global__ void __launch_bounds__(NT)

@@ -91,9 +91,7 @@ namespace {
 using fbc::KMAX;
 using fbc::NT;
 
-// The feature width the ll-mode instances of fb_seqs.cuh are built for: they
-// read no feature, so it sizes nothing that is used.
-constexpr int LL_FP = 4;
+using fbseq::LL_FP;
 
 template <int S, bool ABF>
 __global__ void __launch_bounds__(NT)

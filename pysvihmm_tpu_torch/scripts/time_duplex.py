@@ -6,9 +6,11 @@ and the whole duplex E-step, each with its share of the kernel's bound
 (``utils/roofline.py``); then each call's kernels by device time
 (torch.profiler), which parts the combine at K > 64 into its row phase and
 its outer sums. At K = 64 also the SVI shape (the first W=70 steps, kept
-runs of L=50, the combine gated with ``emit_gamma``). At K > 64, where the
-checkout's chain is built for several sequences a block above 64 states
-(``duplex_fb.built_seqs``), the chain at every built S too.
+runs of L=50, the combine gated with ``emit_gamma``). Where the checkout's
+chain is built for several S (``duplex_fb.built_seqs``), the chain at
+every built S too. Where the checkout sums the WF instances' likelihoods
+apart (``duplex_fb.likelihoods``, at F > 64), the combine also on the
+likelihoods the E-step hands it, and the tile alone.
 
 Usage, on a machine with an NVIDIA GPU and nvcc, from the repository root::
 
@@ -22,9 +24,12 @@ with the signatures they have had since the duplex route was ported, with
 two checkouts are compared in one call, in turns. Each line gives ms per
 launch by CUDA events, 20 launches after 3 warm-ups, ``reps`` times
 (default 3), and their median and minimum; the first lines of each K the
-sha256 of the chain's outputs (at every built S above K = 64) and of
-``estep_duplex``'s, so that two checkouts' bits compare; the last line is
-the card's name and power limit. Without a card it raises.
+sha256 of the chain's outputs (at every built S) and of ``estep_duplex``'s
+(ungated and gated, gamma emitted and not; at D > 8 also with the
+Gaussian-NIW's features built in the kernels, and at F > 64 the diagonal
+Gaussian's at D = 32, F = 65, built and not), so that two checkouts' bits
+compare; the last line is the card's name and power limit. Without a card
+it raises.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ import torch
 import pysvihmm_tpu_torch
 from pysvihmm_tpu_torch.messages import duplex_fb
 from pysvihmm_tpu_torch.scripts.debug_split import card_line, cuda_ms
-from pysvihmm_tpu_torch.scripts.time_fused import B, T, inputs, profile_call
+from pysvihmm_tpu_torch.scripts.time_fused import B, T, inputs, profile_call, width_inputs
 from pysvihmm_tpu_torch.utils.roofline import bound, kernel_work
 
 SVI_W, SVI_L = 70, 50  # chip_smoke.py's SVI window and kept run
@@ -62,13 +67,31 @@ def report(name: str, times: list[float], bound_ms: float) -> None:
           f"{100 * bound_ms / med:.1f} % of it)", flush=True)
 
 
-def chain_seqs(k: int) -> tuple[int, ...]:
-    """The chain's built S at K = k above 64 states where the checkout has
-    them (``duplex_fb.built_seqs``; an earlier one ran a sequence a block
-    there), else none."""
-    if k <= 64 or not hasattr(duplex_fb, "built_seqs"):
+def chain_seqs(k: int, F: int, dev: torch.device) -> tuple[int, ...]:
+    """The chain's built S at K = k where the checkout has them
+    (``duplex_fb.built_seqs``; an earlier one ran a sequence a block above
+    64 states), else none; of those, the S the card holds a block of at F
+    (an earlier checkout's WF chain took shared memory that grew with F)."""
+    if not hasattr(duplex_fb, "built_seqs"):
         return ()
-    return duplex_fb.built_seqs(k)
+    return tuple(S for S in duplex_fb.built_seqs(k)
+                 if duplex_fb.kernel_info("chain", S, F, dev, K=k)["blocks_per_sm"] > 0)
+
+
+def estep_digests(tag: str, log_pi, log_A, W, x, w, ik=None) -> None:
+    """The digests of ``estep_duplex`` on x (the feature array, or with
+    ``ik`` a built kind's raw observations), ungated and gated, gamma
+    emitted and not: log_c, log_z, trans_stats, init_stats, emit_stats and
+    gamma."""
+    kw = {} if ik is None else {"in_kernel_feats": ik}
+    for name, weights in (("ungated", None), ("gated", w)):
+        for emit in (False, True):
+            fb, eacc = duplex_fb.estep_duplex(log_pi, log_A, W, x, emit, weights, **kw)
+            outs = [fb.log_c, fb.log_z, fb.trans_stats, fb.init_stats, eacc]
+            print(f"estep_duplex {tag}{name}, emit_gamma={emit}: log_c, log_z, trans_stats, "
+                  f"init_stats, emit_stats{', gamma' if emit else ''}: sha256 "
+                  f"{digest(*outs, *([fb.gamma] if emit else []))}", flush=True)
+            del fb, eacc, outs
 
 
 def time_at(k: int, reps: int, dev: torch.device, d: int = 8) -> None:
@@ -79,10 +102,16 @@ def time_at(k: int, reps: int, dev: torch.device, d: int = 8) -> None:
     print(f"package {pysvihmm_tpu_torch.__file__}; (B, T, K, F) = ({B}, {T}, {k}, {F}); "
           f"duplex_chain_kernel's alpha, s, sh: sha256 {digest(a, s, sh)}, beta: "
           f"{digest(beta)}", flush=True)
-    fb, eacc = duplex_fb.estep_duplex(log_pi, log_A, W, feats)
-    print(f"estep_duplex's log_c, log_z, trans_stats, init_stats, emit_stats: sha256 "
-          f"{digest(fb.log_c, fb.log_z, fb.trans_stats, fb.init_stats, eacc)}", flush=True)
-    del fb, eacc
+    estep_digests("", log_pi, log_A, W, feats, w)
+    if d > 8:  # the same observations, their features built in the kernels
+        src = width_inputs(dev, k, "niw", d)[5]
+        estep_digests("niw in-kernel ", log_pi, log_A, W, src, w, "niw")
+        del src
+    if F > 64:  # the diagonal Gaussian at D = 32 (F = 65), built and not
+        nlp, nlA, nW, nfeats, nw, nsrc, _ = width_inputs(dev, k, "nig", 32)
+        estep_digests("nig D=32 ", nlp, nlA, nW, nfeats, nw)
+        estep_digests("nig D=32 in-kernel ", nlp, nlA, nW, nsrc, nw, "nig")
+        del nlp, nlA, nW, nfeats, nw, nsrc
     # a small batch (the first SMALL_B sequences): the default S is the
     # smallest built, a block a sequence above 64 states
     fs = feats[:, :SMALL_B].contiguous()
@@ -91,7 +120,7 @@ def time_at(k: int, reps: int, dev: torch.device, d: int = 8) -> None:
             for _ in range(reps)], bound(*kernel_work("duplex_chain_kernel", SMALL_B, T, k, F))[0])
     del fs
     chain_b = bound(*kernel_work("duplex_chain_kernel", B, T, k, F))[0]
-    for S in chain_seqs(k):
+    for S in chain_seqs(k, F, dev):
         out = duplex_fb._launch_chain(S, pi_t, A_t, W, feats)
         print(f"duplex_chain_kernel S={S}: alpha, s, sh: sha256 {digest(*out[:3])}, beta: "
               f"{digest(out[3])}", flush=True)
@@ -106,9 +135,19 @@ def time_at(k: int, reps: int, dev: torch.device, d: int = 8) -> None:
             lambda: duplex_fb.duplex_combine(W, feats, a, beta, sh, False, w), {"gated": True}),
         "estep_duplex": (lambda: duplex_fb.estep_duplex(log_pi, log_A, W, feats), None),
     }
+    if F > 64 and hasattr(duplex_fb, "likelihoods"):  # the E-step's one sum of ll
+        ll = duplex_fb.likelihoods(W, feats)
+        runs["ll_tile_kernel"] = (lambda: duplex_fb.likelihoods(W, feats), None)
+        runs["duplex_combine_kernel on the E-step's ll"] = (
+            lambda: duplex_fb.duplex_combine(W, feats, a, beta, sh, False, None, None, ll), {})
+        runs["duplex_combine_kernel, gated, on the E-step's ll"] = (
+            lambda: duplex_fb.duplex_combine(W, feats, a, beta, sh, False, w, None, ll),
+            {"gated": True})
     for name, (fn, kw) in runs.items():
-        if kw is not None:
-            b_ms = bound(*kernel_work(name.split(",")[0], B, T, k, F, **kw))[0]
+        if name == "ll_tile_kernel":
+            b_ms = bound(*kernel_work(name, B * T, 1, k, F))[0]
+        elif kw is not None:
+            b_ms = bound(*kernel_work(name.split(",")[0].split(" ")[0], B, T, k, F, **kw))[0]
         else:  # the E-step: both kernels' bounds
             b_ms = sum(bound(*kernel_work(n, B, T, k, F))[0]
                        for n in ("duplex_chain_kernel", "duplex_combine_kernel"))

@@ -74,16 +74,19 @@ def kernel_work(name: str, B: int, T: int, K: int, F: int = 0, gated: bool = Fal
     rows (t, b) of one window: "build_feats_kernel" reads D floats a row,
     writes its F features and does their F - 1 - D products;
     "widen_kernel" reads K bf16 words a row and writes K float32 ones
-    (no arithmetic); "ll_tile_kernel" (the large-K WF backward's
-    likelihoods) reads F features a row and W, writes K likelihoods a row
-    and does 2 K F flops a row."""
+    (no arithmetic); "ll_tile_kernel" (the WF instances' likelihoods)
+    reads F features a row and W, writes K likelihoods a row and does 2 K F
+    flops a row, with D > 0 (a built kind) the D-wide observation rows in
+    place of the features and the build's F - 1 - D products a row."""
     n, k2 = B * T, K * K
     if name == "build_feats_kernel":
         return 4.0 * n * (D + F), float(n * (F - 1 - D)), F32_FLOP_PER_S
     if name == "widen_kernel":
         return 6.0 * n * K, 0.0, F32_FLOP_PER_S
     if name == "ll_tile_kernel":
-        return 4.0 * (n * F + F * K + n * K), 2.0 * n * K * F, F32_FLOP_PER_S
+        rows = n * (D if D > 0 else F)
+        build = n * (F - 1 - D) if D > 0 else 0
+        return 4.0 * (rows + F * K + n * K), 2.0 * n * K * F + build, F32_FLOP_PER_S
     if name == "outer_sums":
         rows_a, rows_e = (T - 1) * B, (T * B if F > 0 else 0)
         words = 2 * rows_a * K + rows_e * (K + F) + k2 + K * F

@@ -29,14 +29,15 @@ def test_both_kernel_sources_share_the_header():
     the three route sources also the fixed-order statistics and the
     S-sequences-a-block layout of their K <= 64 chains (one forward for all
     three, one backward for the fused and split pairs); the fused and duplex
-    libraries' units also their kernels' tables and the any-width K <= 64
-    layout."""
+    libraries' units also their kernels' tables, and the fused library's
+    the any-width K <= 64 backward (the duplex pair's WF instances read
+    likelihood tiles and take no feature row)."""
     names = ("fused_fb", "split_fb", "duplex_fb", "split_probe")
+    wf = {"fused_fb": ["fb_seqs_wf.cuh"], "duplex_fb": []}
     for name in names:
         seqs = ["fb_seqs.cuh"] if name != "split_probe" else []
         stats = [] if name == "split_probe" else ["fb_stats.cuh"]
-        own = ([f"{name}_kernels.cuh", "fb_seqs_wf.cuh"] if name in ("fused_fb", "duplex_fb")
-               else [])
+        own = [f"{name}_kernels.cuh", *wf[name]] if name in wf else []
         assert _build.sources(name) == [f"{name}.cu", "fb_common.cuh", *seqs, *stats,
                                         "fb_wide.cuh", *own]
     assert len({_build.library_path(n) for n in names}) == len(names)
@@ -47,7 +48,7 @@ def test_both_kernel_sources_share_the_header():
         for unit in _build.units(name)[1:]:
             assert _build.sources(unit) == [
                 f"{unit}.cu", f"{name}_kernels.cuh", "fb_common.cuh", "fb_seqs.cuh",
-                "fb_seqs_wf.cuh", "fb_stats.cuh", "fb_wide.cuh"]
+                *wf[name], "fb_stats.cuh", "fb_wide.cuh"]
 
 
 def test_library_path_follows_every_unit(tmp_path, monkeypatch):

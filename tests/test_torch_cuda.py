@@ -39,7 +39,7 @@ from chip_smoke import (
     WF_CASES,
     WF_KS,
     check_bf16_alpha,
-    check_duplex_ceiling,
+    check_duplex_past_old_ceiling,
     check_duplex_wf,
     check_gamma_sel,
     check_mode_features,
@@ -158,9 +158,8 @@ def test_duplex_chain_is_the_fused_forward_bit_for_bit(cuda_device, B, K, D):
     bit, and its beta agrees with the twin's; every S gives the same beta
     bits (each sequence's arithmetic does not depend on S). NIW features at
     D = 8 (F = 45) and, above 64 features, D = 10, 16, 23 (F = 66, 153,
-    300): there up to K = 64 the duplex chain runs fbwf::seq_forward_wf, so
-    the fused forward's tiled tier (its likelihoods on tile warps) is held
-    to that unchanged chain."""
+    300): there both chains read the likelihoods ll_tile_kernel sums, the
+    duplex chain's backward half beside the fused forward's own function."""
     gen = torch.Generator(device=cuda_device).manual_seed(300 + K + B + (0 if D == 8 else D))
     log_pi, log_A, W, feats = random_problem(gen, B, 40, K, D)
     pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
@@ -656,11 +655,13 @@ def test_duplex_kernels_match_plain_twins(cuda_device, B, T, K, D, gated):
     torch.testing.assert_close(Sk, Sr, rtol=3e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("K,F", [(257, 10), (8, 65)])
+@pytest.mark.parametrize("K,F", [(257, 10), (8, 65), (64, 6700)])
 def test_duplex_wider_than_the_kernels_raises(cuda_device, K, F):
     """Above K = 256 both launchers raise; at F = 65 (past the first
-    instances' 64) they run the WF instances, held to the twins in float64
-    (phase 15's WF checks' tolerances)."""
+    instances' 64) they run the WF instances, and at F = 6,700 at K = 64
+    (past the first WF design's ceiling of 6,652: the instances on read
+    likelihoods have none), held to the twins in float64 (phase 15's WF
+    checks' tolerances)."""
     gen = torch.Generator(device=cuda_device).manual_seed(K + F)
     if K > 256:
         A_t = torch.rand((K, K), generator=gen, device=cuda_device)
@@ -1069,8 +1070,8 @@ def test_mode_launchers_refuse_bad_combinations(cuda_device):
         assert code != 0
     assert lib.fused_fb_forward(p(A[0]), p(A), p(W), p(obs), p(alpha), p(alpha), p(s), p(sh),
                                 p(work), T, B, K, F, 2, 1, idx, stream) != 0
-    assert duplex_fb._library().duplex_fb_chain(p(A[0]), p(A), p(W), p(obs), p(alpha), p(s),
-                                                p(sh), p(alpha), T, B, K, 44, 2, 1, idx,
+    assert duplex_fb._library().duplex_fb_chain(p(A[0]), p(A), p(W), p(obs), None, p(alpha),
+                                                p(s), p(sh), p(alpha), T, B, K, 44, 2, 1, idx,
                                                 stream) != 0
 
 
@@ -1374,11 +1375,13 @@ def test_duplex_wf_instances_match_twins(cuda_device, kind, size, K, B):
 
 
 def test_duplex_wf_raises_past_the_ceiling(cuda_device):
-    """Phase 16 (a): past ``duplex_fb.max_feature_width`` the chain and the
-    combine raise ValueError naming it, and an S that does not fit (S = 8
-    at K = 256, F = 300) raises; the ceilings hold thousands of features."""
-    ceil = check_duplex_ceiling(cuda_device)
-    assert min(ceil.values()) > 1000
+    """Phase 16 (a): the duplex pair at F > 64 reads likelihood tiles and
+    holds no feature row, so it has no ceiling of F left: past the first
+    design's (F = 6,700 at K = 64, 4,300 at K = 256) the chain and the
+    combine run and match their float64 twins, and S = 8 at K = 256, F =
+    300 (which did not fit there) gives S = 1's bits."""
+    errs = check_duplex_past_old_ceiling(cuda_device)
+    assert set(errs) == {(64, 6700), (256, 4300)}
 
 
 @pytest.mark.parametrize("B", [3, 1024])

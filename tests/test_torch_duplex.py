@@ -439,3 +439,66 @@ def test_wide_launchers_take_any_width(K):
     gamma, gamma0, acc, eacc = duplex_fb.duplex_combine(args[2], args[3], alpha, beta, sh, True,
                                                         None, kind)
     assert gamma.shape == (6, 2, K) and acc.shape == (K, K) and eacc.shape == (K, 66)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("K", [8, 70])
+@pytest.mark.parametrize("case", ["niw_d10", "inkernel_niw_d10"])
+def test_wide_likelihood_tile_through_the_twins_matches_jax_duplex(case, K, gated):
+    """At F > 64 ``estep_duplex`` sums the likelihoods once
+    (``duplex_fb.likelihoods``: ``ll_tile_kernel`` on the card, its twin
+    here, in blocks of 64 features) and hands them to both launchers, as
+    the card path does; K = 70 is the wide tier's on the card. The E-step
+    is the launchers' composition on that ll bit for bit, and matches
+    ``pallas_estep_duplex`` in interpret mode at tests/test_duplex.py's
+    parity measure; each launcher given no ll gives its outputs on feats @ W
+    (the twin's own likelihoods, bit for bit) within float32 rounding of
+    the tile's."""
+    B, T = 3, 16
+    log_pi, log_A, W, feats, kind = _wide(case, B, T, K, seed=K + 2 * gated)
+    w = _mask(T, B, seed=11) if gated else None
+    jout = pallas_estep_duplex(*(jnp.asarray(a) for a in (log_pi, log_A, W, feats)),
+                               interpret=True, emit_gamma=True, in_kernel_feats=kind,
+                               weights=None if w is None else jnp.asarray(w))
+    lp, lA, tW, tx = (torch.from_numpy(a) for a in (log_pi, log_A, W, feats))
+    tw = None if w is None else torch.from_numpy(w)
+    ll = duplex_fb.likelihoods(tW, tx, kind)
+    X = fused_fb.build_features(tx, kind)
+    torch.testing.assert_close(ll, fused_fb.likelihood_tile_reference(X.view(T * B, -1), tW)
+                               .view(T, B, K), rtol=0, atol=0)
+    tout = duplex_fb.estep_duplex(lp, lA, tW, tx, True, tw, in_kernel_feats=kind)
+    _assert_parity(tout, jout)
+    pi_t, A_t = torch.exp(lp), torch.exp(lA)
+    chain = duplex_fb.duplex_chain(pi_t, A_t, tW, tx, kind, ll)
+    comb = duplex_fb.duplex_combine(tW, tx, chain[0], chain[3], chain[2], True, tw, kind, ll)
+    composed = fused_fb.assemble(A_t, chain[1], chain[2], *comb)
+    for x, y in zip(list(tout[0]) + [tout[1]], list(composed[0]) + [composed[1]]):
+        assert torch.equal(x, y)
+    own = X @ tW  # the twins' likelihoods where none is given
+    for ll_, exact in ((own, True), (ll, False)):
+        bare = duplex_fb.duplex_chain(pi_t, A_t, tW, tx, kind)
+        given = duplex_fb.duplex_chain(pi_t, A_t, tW, tx, kind, ll_)
+        cb = duplex_fb.duplex_combine(tW, tx, bare[0], bare[3], bare[2], True, tw, kind)
+        cg = duplex_fb.duplex_combine(tW, tx, bare[0], bare[3], bare[2], True, tw, kind, ll_)
+        for x, y in zip(bare + cb, given + cg):
+            torch.testing.assert_close(x, y, rtol=0 if exact else 1e-5, atol=0 if exact else 1e-6)
+
+
+def test_likelihoods_are_read_above_64_features_only():
+    """``ll`` reaches the kernels only at F > 64 (the WF instances): a
+    launcher given it at F <= 64, or of another shape, raises ValueError on
+    every device before anything runs; ``likelihoods`` itself takes any F."""
+    lp, lA, W, feats = (torch.from_numpy(a) for a in _problem(4, 2, 6, 3, seed=5))
+    pi_t, A_t = torch.exp(lp), torch.exp(lA)
+    ll = duplex_fb.likelihoods(W, feats)
+    torch.testing.assert_close(ll, feats @ W)
+    alpha, s, sh, beta = duplex_fb.duplex_chain(pi_t, A_t, W, feats)
+    with pytest.raises(ValueError, match="F > 64"):
+        duplex_fb.duplex_chain(pi_t, A_t, W, feats, None, ll)
+    with pytest.raises(ValueError, match="F > 64"):
+        duplex_fb.duplex_combine(W, feats, alpha, beta, sh, ll=ll)
+    log_pi, log_A, W2, f2, _ = _wide("niw_d10", 3, 6, 5, seed=1)  # K = 5: ll's K is 4
+    tW2, tf2 = torch.from_numpy(W2), torch.from_numpy(f2)
+    with pytest.raises(ValueError, match="ll"):
+        duplex_fb.duplex_chain(torch.exp(torch.from_numpy(log_pi)),
+                               torch.exp(torch.from_numpy(log_A)), tW2, tf2, None, ll)

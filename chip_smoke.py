@@ -2423,6 +2423,7 @@ def kineto_busy(fn) -> tuple[float, float, int]:
 
 
 PROFILER_TRIES = 3  # device_ms: profiler runs before it falls back to CUDA events
+WINDOW_CALLS = 5  # window_parts: the calls a profiled run takes
 
 
 def device_ms(fn, calls: int = 50) -> float:
@@ -3677,16 +3678,27 @@ def time_modes(dev) -> tuple[dict, dict, dict, list[str]]:
 OPERAND_ROWS = (("build_feats_kernel", "pallas_fb.py:287"), ("widen_kernel", "pallas_fb.py:656"))
 
 
+# build_feats_kernel's second timed window: 2^17 rows of the NIW at D = 39
+# (F = 820), one window of the K = 64 WF backward's window tier on raw rows
+BUILD_WIDE_ROWS, BUILD_WIDE_D = 1 << 17, 39
+
+
 def operand_kernels(dev) -> tuple[dict, list[str]]:
     """Phase 14 (d): the large-K statistics' two operand kernels at the
     shapes the main path's K = MODE_WIDE_K SVI step gives them (one window:
     B = 1024 windows of W = SVI_W steps): build_feats_kernel over the W B
-    observation rows of D = MODE_D for both kinds, widen_kernel over the
-    (W - 1) B rows of K bf16 alphas (acc's rows t >= 1). Each output is its
-    twin's bit for bit; timed by CUDA events (NIW for the build) beside the
-    twin and, for the widening, the one PyTorch call that computes it
+    observation rows of D = MODE_D for both kinds, and over BUILD_WIDE_ROWS
+    rows of the NIW at D = BUILD_WIDE_D (a window of the K = 64 WF
+    backward's window tier on raw rows), widen_kernel over the (W - 1) B
+    rows of K bf16 alphas (acc's rows t >= 1). Each output is its twin's bit
+    for bit. Both kernels take less device time than their launch takes on
+    the host at the SVI window, so each is timed on the card
+    (torch.profiler's kernel time, the median of MODE_REPS runs; CUDA
+    events around the launches too), beside its bound, the twin (CUDA
+    events) and, for the widening, the one PyTorch call that computes it
     (``.to(torch.float32)``, which is also its twin). Returns the kernels
-    line's numbers by kernel and the log lines."""
+    line's numbers by kernel (the build's at the SVI window, NIW) and the
+    log lines."""
     import torch
 
     from pysvihmm_tpu_torch.messages import fused_fb as ff
@@ -3703,31 +3715,44 @@ def operand_kernels(dev) -> tuple[dict, list[str]]:
         errs[kind] = (got - ref).abs().max().item()
     wide = ff.widen_alpha(a16)
     require_same("(d) widen_kernel", (wide,), (a16.to(torch.float32),))
-    F_ = ff.feature_width("niw", MODE_D)
-    build = {"ms": median_ms(lambda: ff.feature_rows(obs, "niw")),
-             "plain_ms": median_ms(lambda: ff.build_features(obs, "niw")), "library_ms": None,
-             "max_abs_err": max(errs.values())}
-    build["bound_ms"], build["bound_by"] = bound(*kernel_work("build_feats_kernel", rows, 1, 0,
-                                                              F_, D=MODE_D))
-    # the widening takes less device time than its launch takes on the host,
-    # so both it and .to are timed on the card (torch.profiler's kernel time,
-    # the median of MODE_REPS runs); CUDA events around their launches too
-    lib_ms = sorted(device_ms(lambda: a16.to(torch.float32)) for _ in range(MODE_REPS))
-    lib_ms = lib_ms[len(lib_ms) // 2]
-    wide_ms = sorted(device_ms(lambda: ff.widen_alpha(a16)) for _ in range(MODE_REPS))
-    widen = {"ms": wide_ms[len(wide_ms) // 2], "plain_ms": lib_ms, "library_ms": lib_ms,
+
+    def on_card(fn) -> float:  # the median device ms of MODE_REPS runs
+        xs = sorted(device_ms(fn) for _ in range(MODE_REPS))
+        return xs[len(xs) // 2]
+
+    lines = []
+    build = None
+    for n_, d_ in ((rows, MODE_D), (BUILD_WIDE_ROWS, BUILD_WIDE_D)):
+        y = obs if n_ == rows else torch.randn((n_, d_), generator=gen, device=dev)
+        F_ = ff.feature_width("niw", d_)
+        if n_ != rows:
+            require_same(f"(d) build_feats_kernel niw D={d_}", (ff.feature_rows(y, "niw"),),
+                         (ff.build_features(y, "niw"),))
+        t_dev = on_card(lambda: ff.feature_rows(y, "niw"))
+        t_ev = median_ms(lambda: ff.feature_rows(y, "niw"))
+        t_twin = median_ms(lambda: ff.build_features(y, "niw"))
+        b_ms, b_by = bound(*kernel_work("build_feats_kernel", n_, 1, 0, F_, D=d_))
+        lines.append(f"build_feats_kernel over {n_} rows (NIW, D = {d_} -> F = {F_}; the twin's "
+                     f"bits), device time: {t_dev:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                     f"{100 * b_ms / t_dev:.0f} % of it); CUDA events around the launches "
+                     f"{t_ev:.4f} ms, twin {t_twin:.4f} ms")
+        if build is None:
+            build = {"ms": t_dev, "plain_ms": t_twin, "library_ms": None,
+                     "max_abs_err": max(errs.values()), "bound_ms": b_ms, "bound_by": b_by}
+        del y
+    lib_ms = on_card(lambda: a16.to(torch.float32))
+    widen = {"ms": on_card(lambda: ff.widen_alpha(a16)), "plain_ms": lib_ms,
+             "library_ms": lib_ms,
              "max_abs_err": (wide - a16.to(torch.float32)).abs().max().item()}
     widen["bound_ms"], widen["bound_by"] = bound(*kernel_work("widen_kernel", a_rows, 1,
                                                               MODE_WIDE_K))
     ev = (median_ms(lambda: ff.widen_alpha(a16)), median_ms(lambda: a16.to(torch.float32)))
-    lines = [f"build_feats_kernel over one window's {rows} rows (NIW, D = {MODE_D} -> F = {F_}; "
-             f"both kinds the twin's bits): {build['ms']:.4f} ms, twin {build['plain_ms']:.4f} "
-             f"ms, bound {build['bound_ms']:.4f} ms ({build['bound_by']})",
-             f"widen_kernel over one window's {a_rows} x {MODE_WIDE_K} bf16 alphas (the twin's "
-             f"bits), device time: {widen['ms']:.4f} ms, .to(torch.float32) {lib_ms:.4f} ms "
-             f"({widen['ms'] / lib_ms:.2f}x its time), bound {widen['bound_ms']:.4f} ms "
-             f"({widen['bound_by']}; {100 * widen['bound_ms'] / widen['ms']:.0f} % of it); CUDA "
-             f"events around the launches {ev[0]:.4f} / {ev[1]:.4f} ms"]
+    lines.append(f"widen_kernel over one window's {a_rows} x {MODE_WIDE_K} bf16 alphas (the "
+                 f"twin's bits), device time: {widen['ms']:.4f} ms, .to(torch.float32) "
+                 f"{lib_ms:.4f} ms ({widen['ms'] / lib_ms:.2f}x its time), bound "
+                 f"{widen['bound_ms']:.4f} ms ({widen['bound_by']}; "
+                 f"{100 * widen['bound_ms'] / widen['ms']:.0f} % of it); CUDA events around the "
+                 f"launches {ev[0]:.4f} / {ev[1]:.4f} ms")
     for line in lines:
         log(f"  {line}")
     return {"build_feats_kernel": build, "widen_kernel": widen}, lines
@@ -3810,8 +3835,8 @@ def kernel_modes_phase(dev) -> tuple[list[dict], list[str]]:
 # split pair's bf16 alpha. The widths: (kind, D or V) -> F = 65 (NIG D = 32),
 # 66 (NIW D = 10), 100 (one-hot V = 100), 153 (NIW D = 16), 256 (one-hot V =
 # 256), 300 (NIW D = 23), 820 (NIW D = 39, full-covariance 39-dim MFCCs: up
-# to K = 64 W^T no longer fits shared memory, and its last groups come from
-# L2).
+# to K = 64 the backward's window tier, a likelihood tile and the chain on it
+# a window).
 WF_CASES = (("nig", 32), ("niw", 10), ("onehot", 100), ("niw", 16), ("onehot", 256),
             ("niw", 23), ("niw", 39))
 WF_KS = (4, 64, 128, 256)
@@ -3989,6 +4014,53 @@ def check_wide_f(gen, K_, kind, size, B_, T_=WF_T, twins: bool = True) -> dict[s
     return errs
 
 
+def check_fused_past_old_ceiling(dev) -> dict[tuple[int, int], float]:
+    """Phase 15 (a): the fused pair at F > 64 holds W and feature rows in
+    shared memory only in the K <= 64 backward's tiled tier, which gives way
+    to the window tier (a likelihood tile a window, the chain on it) where
+    they do not fit, so it has no ceiling of F left. At DWF_PAST (past the
+    first design's ceilings: about 6,100 features up to K = 64, 4,200 at
+    K = 256) the forward and the backward run on the card, gated and not,
+    and match their twins run in float64 on the same inputs
+    (tests/test_pallas.py's tolerances). Returns the backward's gamma
+    errors by (K, F)."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+
+    d = lambda *xs: [None if x is None else x.double() for x in xs]  # noqa: E731
+    errs = {}
+    for K_, F_ in DWF_PAST:
+        g = torch.Generator(device=dev).manual_seed(K_ + F_)
+        T_, B_ = 6, 3
+        log_pi = torch.log_softmax(torch.randn(K_, generator=g, device=dev), 0)
+        log_A = torch.log_softmax(torch.randn((K_, K_), generator=g, device=dev)
+                                  + 4.0 * torch.eye(K_, device=dev), 1)
+        W = (torch.randn((F_, K_), generator=g, device=dev) / F_ ** 0.5).contiguous()
+        feats = torch.randn((T_, B_, F_), generator=g, device=dev).contiguous()
+        w = svi_masks(g, B_, T_, 4)
+        pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+        if K_ <= 64:
+            S_ = ff.default_seqs("backward", B_, F_, dev)
+            require(ff.wf_backward_tier(S_, K_, F_) == "window",
+                    f"(a) K={K_}, F={F_}: the backward is not on the window tier")
+        alpha, s, sh = ff.fused_forward(pi_t, A_t, W, feats)
+        a_o, s_o, sh_o = ff.forward_reference(*d(pi_t, A_t, W, feats))
+        compare("alpha", alpha, a_o, 0.0, 5e-5)
+        compare("log_c", torch.log(s) + sh, torch.log(s_o) + sh_o, 2e-6, 1e-4)
+        for wg in (None, w):
+            got = ff.fused_backward(A_t, W, feats, alpha, s, sh, True, wg)
+            ref = ff.backward_reference(*d(A_t, W, feats, alpha, s, sh), True, *d(wg))
+            for name, x, r, rtol, atol in zip(("gamma", "gamma0", "acc", "eacc"), got, ref,
+                                              (0.0, 0.0, 1e-4, 3e-3), (5e-5, 5e-5, 1e-3, 2e-3)):
+                e = compare(f"{name} gated={wg is not None}", x, r, rtol, atol)
+                if name == "gamma":
+                    errs[K_, F_] = max(errs.get((K_, F_), 0.0), e)
+        log(f"   K={K_}, F={F_} (past the first design's ceiling): the fused forward and "
+            f"backward against their float64 twins, gamma within {errs[K_, F_]:.3e}")
+    return errs
+
+
 SPLIT_BF16_KS = (64, 128, 256)
 
 
@@ -4105,6 +4177,7 @@ WF_TIMED = ((64, "niw", 10), (64, "onehot", 100), (64, "niw", 16), (64, "onehot"
             (256, "niw", 10), (256, "onehot", 256))
 WF_INKERNEL_D = (10, 16, 23)  # the in-kernel NIW timed (F = 66, 153, 300)
 WF_TILE_F = (66, 153, 256, 300)  # the likelihood tile alone: NIW D = 10, 16, V = 256, D = 23
+WF_WINDOW_D = (24, 39)  # the WF backward's window tier timed: NIW F = 325, 820
 WF_V, WF_BIG_V = 100, 1000  # the multinomials of the main path: the fused pair, the split pair
 WF_SVI_STEPS = 5  # windowed SVI steps a variant on the main path
 # the kernels line's rows of phase 15: (row, launcher, tier, mode, source, replaces)
@@ -4171,8 +4244,9 @@ def wf_main_path(dev) -> tuple[dict, float]:
     on the V = WF_V multinomial at W = SVI_W, B = 1024, WF_SVI_STEPS steps
     gathering gamma and as many with the pick and bf16 alpha. Each K = 64
     E-step at F > 64 on the tiled tier launches one backward chain kernel,
-    no outer sum and no feature build; the F = 820 one a chain kernel and
-    an outer sum for each window of 2^17 / B steps; at K = 256 the forward
+    no outer sum and no feature build; the F = 820 one a likelihood tile (64
+    states), a chain kernel and an outer sum for each window of 2^17 / B
+    steps; at K = 256 the forward
     and the backward each a likelihood tile (128 states) and a chain kernel
     a window; every forward at K = 64, F > 64 one likelihood tile (64
     states). Then each E-step
@@ -4253,8 +4327,10 @@ def wf_main_path(dev) -> tuple[dict, float]:
             require((n64, n128, n_fwd, n_chain) == (0, 2 * windows, windows, windows),
                     f"(main path) {label}: {n64} + {n128} likelihood tiles, {n_fwd} forward "
                     f"and {n_chain} backward chain launches over {windows} windows")
-        else:  # the forward's tile at F > 64 (not the V = 1000 case: the split pair)
-            want = 0 if "V=1000" in label else 1
+        else:  # the forward's tile at F > 64 (not the V = 1000 case: the split pair),
+            # and the window tier's one a window
+            want = 0 if "V=1000" in label else 1 + (chain if chain is not None and chain > 1
+                                                    else 0)
             require((n64, n128) == (want, 0),
                     f"(main path) {label}: {n64} + {n128} likelihood tiles, expected {want}")
         if chain is None:
@@ -4279,6 +4355,54 @@ def wf_main_path(dev) -> tuple[dict, float]:
     log(f"   {WF_SVI_STEPS} SVI steps at V={WF_V}, W={SVI_W}, B={B} with and without the pick "
         "and bf16 alpha: every parameter finite")
     return counts, setup_s
+
+
+def window_parts(call, A_t, W, feats, fwd) -> str:
+    """Where the device time of one call of the WF backward's window tier
+    goes: ll_tile_kernel, the chain (fused_bwd_wf_window_kernel),
+    outer_partial_kernel and sum_partials_kernel, each the mean ms of a
+    launch over torch.profiler's raw events of WINDOW_CALLS calls (after a
+    warm-up) times its launches a call (one a window of 2^17 / B steps, the
+    partial sums one more): the profiler at times drops some of a run's
+    kernels, which a mean a launch survives. Where it records none in
+    PROFILER_TRIES runs, the tile and the outer sums are timed alone by CUDA
+    events on the call's windows (fused_fb.likelihood_tile, outer_sum) and
+    the chain is the call's time less theirs, which the line says."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+
+    T_, B_, F_ = feats.shape
+    steps = max(1, min(T_, (1 << 17) // B_))
+    windows = -(-T_ // steps)
+    names = {"tile": ("ll_tile_kernel", windows),
+             "chain": ("fused_bwd_wf_window_kernel", windows),
+             "outer sums": ("outer_partial_kernel", windows),
+             "partial sums": ("sum_partials_kernel", windows + 1)}
+    call()
+    for _ in range(PROFILER_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(WINDOW_CALLS):
+                call()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+        if evs:
+            ms = {}
+            for k, (n, launches) in names.items():
+                d = [e.duration_ns() for e in evs if n in e.name()]
+                ms[k] = sum(d) / len(d) / 1e6 * launches if d else float("nan")
+            return (f"{sum(ms.values()):.4f} ms (torch.profiler, {windows} windows): "
+                    + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+    wins = [feats[max(0, t1 - steps):t1].reshape(-1, F_) for t1 in range(T_, 0, -steps)]
+    G = torch.rand((wins[0].shape[0], A_t.shape[0]), device=feats.device)
+    tile = median_ms(lambda: [ff.likelihood_tile(x, W) for x in wins])
+    outer = median_ms(lambda: [ff.outer_sum(G[:x.shape[0]], x) for x in wins])
+    total = median_ms(call)
+    return (f"{total:.4f} ms (CUDA events; the profiler recorded no kernel): tile {tile:.4f}, "
+            f"outer sums {outer:.4f}, the chain and the rest {total - tile - outer:.4f}")
 
 
 def wf_time(dev) -> tuple[dict, list[str]]:
@@ -4391,22 +4515,50 @@ def wf_time(dev) -> tuple[dict, list[str]]:
             del X, W, got
     torch.cuda.empty_cache()
 
-    # the WF backward's window tier, at F = 820 (NIW D = 39), K = 64
-    log_pi, log_A, W, src, feats, _ = wf_problem(gen, B, T, K, "niw", 39)
-    F_ = W.shape[0]
-    pi_t, A_t = exp_params(log_pi, log_A)
-    fwd = ff.fused_forward(pi_t, A_t, W, feats)
-    t_f = median_ms(lambda: ff.fused_forward(pi_t, A_t, W, feats))
-    t_b = median_ms(lambda: ff.fused_backward(A_t, W, feats, *fwd))
-    p_b = cuda_ms(lambda: ff.backward_reference(A_t, W, feats, *fwd), 2, warmup=1)
-    br = row(f"fused_bwd_wf_window_kernel F={F_}", t_b, p_b,
-             kernel_work("fused_bwd_kernel", B, T, K, F_))
-    S_b = ff.default_seqs("backward", B, F_, dev, K=K)
-    lines.append(f"K={K}, F={F_} (niw 39), S={S_b}: the forward {t_f:.4f} ms; the backward's "
-                 f"{ff.wf_backward_tier(S_b, K, F_)} tier {br}")
-    log(f"  {lines[-1]}")
-    del fwd, feats, src
-    torch.cuda.empty_cache()
+    # the WF backward's window tier at F = 325 and 820 (NIW D = 24, 39), K = 64:
+    # the call beside its twin and bound, its tiles, chains and outer sums
+    # apart, the chain's instance from the occupancy query
+    for D_ in WF_WINDOW_D:
+        log_pi, log_A, W, src, feats, _ = wf_problem(gen, B, T, K, "niw", D_)
+        F_ = W.shape[0]
+        pi_t, A_t = exp_params(log_pi, log_A)
+        fwd = ff.fused_forward(pi_t, A_t, W, feats)
+        t_f = median_ms(lambda: ff.fused_forward(pi_t, A_t, W, feats))
+        t_b = median_ms(lambda: ff.fused_backward(A_t, W, feats, *fwd))
+        w = svi_masks(gen, B, T, (5 * T) // 7)
+        t_g = median_ms(lambda: ff.fused_backward(A_t, W, feats, *fwd, False, w))
+        name = f"fused_bwd_wf_window_kernel F={F_}"
+        if F_ == 820:  # the kernels line's row
+            p_b = cuda_ms(lambda: ff.backward_reference(A_t, W, feats, *fwd), 2, warmup=1)
+            br = row(name, t_b, p_b, kernel_work("fused_bwd_kernel", B, T, K, F_))
+        else:
+            b_ms, b_by = bound(*kernel_work("fused_bwd_kernel", B, T, K, F_))
+            br = f"{t_b:.4f} ms (bound {b_ms:.4f} ms, {b_by})"
+        S_b = ff.default_seqs("backward", B, F_, dev, K=K)
+        parts = window_parts(lambda: ff.fused_backward(A_t, W, feats, *fwd), A_t, W, feats, fwd)
+
+        def split_route():  # ll by torch.matmul, the split pair, eacc by torch.matmul
+            res = sf.estep_split(log_pi, log_A, torch.matmul(feats.view(-1, F_), W).view(T, B, K))
+            return res.gamma.reshape(-1, K).T @ feats.view(-1, F_)
+
+        t_e, t_sr = (median_ms(lambda: ff.estep_fused(log_pi, log_A, W, feats)),
+                     median_ms(split_route))
+        infos = []
+        for S_ in ff.built_seqs(K):
+            for kern, modes in (("backward", False), ("gated backward", False),
+                                ("backward", True)):
+                i = ff.kernel_info(kern, S_, F_, dev, modes=modes)
+                infos.append(f"S={S_} {kern}{' (modes)' if modes else ''}: {i['registers']} "
+                             f"registers, {i['local_bytes']} spilled bytes, {i['dynamic_smem']} "
+                             f"shared bytes, {i['blocks_per_sm']} blocks an SM")
+        lines.append(f"K={K}, F={F_} (niw {D_}), S={S_b}: the forward {t_f:.4f} ms; the "
+                     f"backward's {ff.wf_backward_tier(S_b, K, F_)} tier {br}, gated "
+                     f"{t_g:.4f} ms; of its device time {parts}; the E-step on \"fused\" "
+                     f"{t_e:.4f} ms, on the split route {t_sr:.4f} ms; the chain's instances: "
+                     + "; ".join(infos))
+        log(f"  {lines[-1]}")
+        del fwd, feats, src, w
+        torch.cuda.empty_cache()
 
     for D_ in WF_INKERNEL_D:
         log_pi, log_A, W, obs = mode_problem(gen, B, T, K, D_, "niw")
@@ -4505,7 +4657,8 @@ def wf_time(dev) -> tuple[dict, list[str]]:
 def wide_f_phase(dev) -> tuple[list[dict], list[str]]:
     """Phase 15: the fused pair at every feature width and the split pair's
     bf16 alpha. (a) the WF instances (check_wide_f) at every WF_CASES width,
-    K = 64 and 256 at B = 1024 and K = 4 and 128 at B = 3; (b) the split
+    K = 64 and 256 at B = 1024 and K = 4 and 128 at B = 3, and past the
+    first design's ceilings of F (check_fused_past_old_ceiling); (b) the split
     pair's bf16 alpha at K = 64, 128, 256 (check_split_bf16) and exact=True
     (check_split_exact); the main path at full width (wf_main_path); (d)
     the times (wf_time). Returns the kernels line's rows and the timing
@@ -4521,6 +4674,7 @@ def wide_f_phase(dev) -> tuple[list[dict], list[str]]:
         for K_, B_ in ((K, B), (256, B), (4, 3), (128, 3)):
             e = check_wide_f(gen, K_, kind, size, B_)
             errs[kind, size, K_, B_] = e
+    check_fused_past_old_ceiling(dev)
     log(f"  (a) took {time.perf_counter() - t_phase:.1f} s")
     log(f"  (b) the split pair's bf16 alpha at K = {SPLIT_BF16_KS}, B = {B}, T = {WF_T}")
     split_errs = {K_: check_split_bf16(gen, K_, B, WF_T) for K_ in SPLIT_BF16_KS}

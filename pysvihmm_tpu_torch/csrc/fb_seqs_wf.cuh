@@ -6,25 +6,11 @@
 //
 // What changes with the width. fb_seqs.cuh keeps row k of eacc (the
 // backward) in registers and pads F to one of four compiled widths, which
-// does not scale past 64 features. Here F is a run-time loop bound over
-// groups of four features (nf4 = ceil(F / 4)):
-//   * W lies in dynamic shared memory, k-major, row k of W^T at k * wst with
-//     wst = 4 (nws | 1): an odd number of 16-byte groups a row, so that the
-//     float4 reads of 32 threads at 32 rows are free of bank conflicts. Its
-//     first nws groups, that is: as many as fit beside the block's other
-//     arrays within SMEM_CAP; the groups beyond, column k of W, are read from
-//     device memory (L2) at each step, in the same order, so that the chain
-//     and its bits do not depend on where a word lies.
-//   * The feature rows of a step (S F floats a block) reach shared memory by
-//     cp.async, several steps before they are read (WideRows below), as a
-//     ring of slots [S][4 nf4] whose padding stays zero; a built kind
-//     (fbc::FEATS_NIW, FEATS_NIG) copies the raw observation rows (S D
-//     floats) instead and builds each feature in the step before it is read
-//     (each product one __fmul_rn, ell_features' bits, as fbseq::ObsRows).
-//   * ll_t is summed in blocks of 64 features (ll_from): the fmaf chain over
-//     the first block, then each further block's own chain from zero, added
-//     in order, over zero padding, so that a built kind's rows give the
-//     array's bits and the sums are ll_tile's, the forward's lik_t.
+// does not scale past 64 features. ll_t is summed in blocks of 64 features
+// (BLK groups of four): the fmaf chain over the first block, then each
+// further block's own chain from zero, added in order, over zero padding to
+// a whole group of four, so that a built kind's rows give the array's bits
+// and the sums are ll_tile's, the forward's lik_t.
 //
 // The backward has two tiers, chosen before launch from (S, F) alone
 // (tiled_fits; the launchers count each):
@@ -56,23 +42,23 @@
 //     one a group, so that no group waits for another) and "w gamma ready"
 //     (chains to tile). eacc's grouping then follows the block's S and
 //     groups, as acc's follows S.
-//   * the window tier (seq_backward_wf, wider F, where W and eacc (KMAX x F
-//     each) no longer fit beside the rings, and past F = 440 not even
-//     alone within SMEM_CAP): the chain computes ll_{t-1}
-//     itself, W^T in shared memory as above; eacc leaves the chain: the
-//     backward writes w_t gamma_t for a window of time steps a launch
-//     (fbs::WideStats, with acc kept in the chain), and the eacc outer sums
-//     (3xTF32, fb_stats.cuh) add
-//     the windows in an order fixed by (T, B, K, F). acc stays in registers,
-//     a column a thread, and a window ends by writing it to the block's row
-//     of partials, which the next window reads back and goes on summing
-//     into: the same fmaf chain as in one launch. The windows carry
-//     b'_{t0-1} in `carry`, as the large-K backward's do.
+//   * the window tier (seq_backward_window, wider F, where W and eacc (KMAX x
+//     F each) no longer fit beside the rings): both F-wide products leave
+//     the chain, as in the large-K backward (fbs::WideStats). For each
+//     window of 2^17 / B time steps, the last first, ll_tile_kernel sums the
+//     window's likelihoods from its feature rows (a built kind's rows built
+//     first by build_feats_kernel), the chain runs over the window reading
+//     them, and writes w_t gamma_t, whose outer sums with the same rows
+//     (3xTF32, fb_stats.cuh) add eacc in an order fixed by (T, B, K, F).
+//     The chain holds neither W nor a feature row, so the tier takes any F.
+//     acc stays in registers, a column a thread summed over the block's
+//     sequences, and a window ends by writing it to the block's row of
+//     partials, which the next window reads back and goes on summing into:
+//     the same fmaf chain as in one launch. The windows carry b'_{t0-1} in
+//     `carry`, as the large-K backward's do.
 // Everything else -- the matvec, the sums and maxima, the modes -- is
 // fb_seqs.cuh's arithmetic, line for line, so gamma, gamma0 and acc are the
-// same bits in both tiers. The instances run only at F > FMAX (nf4 > 16
-// groups), so the loop that interleaves ll's chain with the matvec's 16
-// groups needs no guard.
+// same bits in both tiers.
 
 #pragma once
 
@@ -82,308 +68,103 @@
 
 namespace fbwf {
 
-using fbc::FULL;
 using fbc::KMAX;
 using fbc::NT;
 using fbc::NWARP;
 using fbc::SUM_FLOOR;
 using fbseq::AST;
-using fbseq::block_max;
 using fbseq::block_sum;
 using fbseq::fma4;
 using fbseq::ld4;
 using fbseq::ld4s;
 
-// Groups of four features, and the row stride of W^T in shared memory for
-// nws groups held there.
+// Groups of four features.
 __host__ __device__ constexpr int groups(int F) { return (F + 3) / 4; }
-__host__ __device__ constexpr int w_stride(int nws) { return 4 * (nws | 1); }
 
 // The dynamic shared memory a WF block takes at most, in bytes: within the
 // H100's 227 KB a block (opt-in) beside the backward's static arrays.
 constexpr int SMEM_CAP = 220 * 1024;
 
-// W^T's groups held in shared memory beside `fixed` bytes of the block's
-// other arrays: all nf4 where they fit within SMEM_CAP, else as many as fit,
-// but at least KMAX / 4 (the loops interleaved with the matvec read those
-// from shared memory; a block that then exceeds the card's limit reports no
-// resident block and is not launched).
-__host__ __device__ inline int smem_groups(int F, int fixed) {
-  const int nf4 = groups(F);
-  const int m = (SMEM_CAP - fixed) / (16 * KMAX);  // the largest (nws | 1) that fits
-  const int fit = (m & 1) ? m : m - 1;
-  const int g = fit < nf4 ? fit : nf4;
-  return g > KMAX / 4 ? g : KMAX / 4;
-}
-
-// The feature rows of a block's S sequences for the chain, in shared memory.
-// Rows are named by their place q in the order the chain reads them (the
-// backward's q is t1 - 1 - t); slot(q) holds row q as [S]
-// [fpr] floats, zero beyond F and for missing sequences. A step's copies are
-// one cp.async group, committed even when empty, so that every thread counts
-// the same groups.
-//   * The feature array (ARRAY): a ring of 4 slots that the copies fill
-//     directly; in the step that reads row r the copies of row r + 2 are
-//     asked for.
-//   * A built kind: a ring of 3 slots of raw rows (S D floats) and 2 feature
-//     slots; in the step that reads row r, row r + 1 is built from its raw
-//     slot and the raw copies of row r + 3 are asked for.
-// The chain waits for all but the latest group just before its barrier, so a
-// row asked for in one step has landed before the barrier two steps on.
-template <int S, int KIND>
-struct WideRows {
-  static constexpr bool BUILT = KIND != fbc::FEATS_ARRAY;
-  static constexpr int NF = BUILT ? 2 : 4;  // feature slots
-  static constexpr int NR = BUILT ? 3 : 0;  // raw slots
-
-  float* feat;  // NF slots of S fpr floats
-  float* raw;   // NR slots of S D floats (built kinds)
-  int* tab;     // F sources, (ia + 1) | (ja + 1) << 16 (built kinds; fbc::feat_src)
-  const float* src;  // the block's first row: src + b0 in_w
-  size_t step;       // floats from one time step's rows to the next
-  int F, D, fpr, in_w, ns, k, T;
-
-  // Floats of shared memory at (S, F) for KIND: the slots and the table.
-  __host__ __device__ static int floats(int F_) {
-    const int fp = 4 * groups(F_);
-    const int d = fbc::obs_dim(KIND, F_);
-    return NF * S * fp + (BUILT ? NR * S * d + F_ : 0);
-  }
-
-  __device__ WideRows(float* mem, const float* src_, int B, int F_, int ns_, int T_)
-      : F(F_), D(fbc::obs_dim(KIND, F_)), fpr(4 * groups(F_)), ns(ns_), k(threadIdx.x), T(T_) {
-    in_w = BUILT ? D : F;
-    feat = mem;
-    raw = feat + NF * S * fpr;
-    tab = reinterpret_cast<int*>(raw + NR * S * D);
-    src = src_;
-    step = (size_t)B * in_w;
-  }
-
-  // Zero the slots and fill the table; the caller syncs before any copy.
-  __device__ void init() const {
-    for (int i = k; i < NF * S * fpr + NR * S * D; i += NT) feat[i] = 0.f;
-    if constexpr (BUILT) {
-      for (int f = k; f < F; f += NT) {
-        int ia, ja;
-        fbc::feat_src(KIND, D, f, ia, ja);
-        tab[f] = (ia + 1) | ((ja + 1) << 16);
-      }
-    }
-  }
-
-  __device__ __forceinline__ float* slot(int q) const { return feat + (q % NF) * S * fpr; }
-
-  // The sequence of element e of a block's row of S F floats, without a
-  // division (S <= 4).
-  __device__ __forceinline__ int seq_of(int e) const {
-    int s = 0;
-#pragma unroll
-    for (int j = 1; j < S; ++j) s += e >= j * F;
-    return s;
-  }
-
-  // Ask for the rows of time step `row` (any int: outside 0 .. T-1 the slot
-  // is zero-filled and nothing is read) into the slot of q; one group.
-  __device__ __forceinline__ void ask(int q, int row) const {
-    const bool in_t = row >= 0 && row < T;
-    const float* r = src + (in_t ? (size_t)row * step : 0);
-    if constexpr (BUILT) {
-      float* dst = raw + (q % NR) * S * D;
-      for (int e = k; e < S * D; e += NT) {
-        const bool ok = in_t && e < ns * D;
-        fbs::cp_async<1>(dst + e, ok ? r + e : src, ok);
-      }
-    } else {
-      float* dst = slot(q);
-      for (int e = k; e < S * F; e += NT) {
-        const int s = seq_of(e);
-        const bool ok = in_t && s < ns;
-        fbs::cp_async<1>(dst + s * fpr + (e - s * F), ok ? r + e : src, ok);
-      }
-    }
-    fbs::cp_commit();
-  }
-
-  // A built kind: the features of row q from its raw slot (landed and seen
-  // by every thread: the caller's barrier since its copies were waited for).
-  __device__ __forceinline__ void build(int q) const {
-    if constexpr (BUILT) {
-      const float* y = raw + (q % NR) * S * D;
-      float* dst = slot(q);
-      for (int e = k; e < S * F; e += NT) {
-        const int s = seq_of(e), f = e - s * F;
-        const int ia = (tab[f] & 0xffff) - 1, ja = (tab[f] >> 16) - 1;
-        const float* ys = y + s * D;
-        dst[s * fpr + f] = ia < 0 ? 1.f : fbc::feat_of(ys[ia], ja < 0 ? 0.f : ys[ja], ja >= 0);
-      }
-    }
-  }
-
-  // In the step that reads row r, after its barrier: the work for the steps
-  // to come. row_of maps a place q to its time step.
-  template <class RowOf>
-  __device__ __forceinline__ void advance(int r, RowOf row_of) const {
-    if constexpr (BUILT) {
-      build(r + 1);
-      ask(r + 3, row_of(r + 3));
-    } else {
-      ask(r + 2, row_of(r + 2));
-    }
-  }
-
-  // Before the chain's first barrier: row 0 ready to read (and seen, after
-  // the caller's sync; the backward reads it before its loop), and the
-  // copies the step before r = 1 would have asked for in flight.
-  template <class RowOf>
-  __device__ void prime(RowOf row_of) const {
-    if constexpr (BUILT) {
-      for (int q = 0; q < 3; ++q) ask(q, row_of(q));
-      fbs::cp_wait<0>();
-      __syncthreads();
-      build(0);
-      build(1);
-      __syncthreads();  // raw slots 0 and 1 are free
-      ask(3, row_of(3));
-    } else {
-      for (int q = 0; q < 3; ++q) ask(q, row_of(q));
-      fbs::cp_wait<0>();
-      __syncthreads();
-    }
-  }
-};
-
-// ll[s] = sum over f4 in [f0, f1) of the four features of row s of the slot
-// times W^T's row k (wk), each in order: the chain of fbseq's FEATS rows.
-template <int S>
-__device__ __forceinline__ void ll_groups(float (&ll)[S], const float* wk, const float* slot,
-                                          int fpr, int f0, int f1) {
-  for (int f4 = f0; f4 < f1; ++f4) {
-    const float4 wv = ld4(wk + 4 * f4);
-    float4 y[S];
-    ld4s<S>(y, slot + 4 * f4, fpr);
-    fma4<S>(ll, y, wv.x, wv.y, wv.z, wv.w);
-  }
-}
-
-// Column k of W: its groups [nws, nf4) from device memory (wg = W + k, null
-// for an idle state), zero beyond F, in the chain's order.
-struct WTail {
-  const float* __restrict__ wg;
-  int K, F, nws, nf4;
-  __device__ __forceinline__ float at(int f) const {
-    return (wg != nullptr && f < F) ? __ldg(wg + (size_t)f * K) : 0.f;
-  }
-};
-
-// acc[s] += the groups [f0, f1) of ll's chain: W^T's row k (wk) in shared
-// memory below wc.nws, column k of W from device memory from there on, the
-// same chain over the same words wherever they lie.
-template <int S>
-__device__ __forceinline__ void ll_span(float (&acc)[S], const float* wk, const WTail& wc,
-                                        const float* slot, int fpr, int f0, int f1) {
-  ll_groups<S>(acc, wk, slot, fpr, f0, min(f1, wc.nws));
-#pragma unroll 4
-  for (int f4 = max(f0, wc.nws); f4 < f1; ++f4) {
-    const int f = 4 * f4;
-    float4 y[S];
-    ld4s<S>(y, slot + f, fpr);
-    fma4<S>(acc, y, wc.at(f), wc.at(f + 1), wc.at(f + 2), wc.at(f + 3));
-  }
-}
-
-// ll[s] over the groups from f0 (0 or BLK) on, in blocks of BLK groups (64
-// features): the first block's chain runs in ll itself, each later one in a
-// chain of its own from zero, added to ll in order. A float32 sum over F
-// features then errs by about 64 + F / 64 roundings, not F.
+// The groups of four features in a block of ll's sum (64 features).
 constexpr int BLK = KMAX / 4;
-
-template <int S>
-__device__ __forceinline__ void ll_from(float (&ll)[S], const float* wk, const WTail& wc,
-                                        const float* slot, int fpr, int f0) {
-  if (f0 == 0) ll_span<S>(ll, wk, wc, slot, fpr, 0, BLK);
-  for (int b = BLK; b < wc.nf4; b += BLK) {
-    float part[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) part[s] = 0.f;
-    ll_span<S>(part, wk, wc, slot, fpr, b, min(b + BLK, wc.nf4));
-#pragma unroll
-    for (int s = 0; s < S; ++s) ll[s] += part[s];
-  }
-}
 
 // *p by a load the compiler may not repeat or move.
 __device__ __forceinline__ float ld_once(const float* p) {
   return *reinterpret_cast<const volatile float*>(p);
 }
 
-// W (F, K) row-major into W_s as W^T rows of wst floats, its first nws
-// groups, zero beyond (K, F); the global reads are coalesced (k fastest).
-__device__ __forceinline__ void load_W(const float* __restrict__ W, float* W_s, int K, int F,
-                                       int nws, int wst) {
-  for (int idx = threadIdx.x; idx < 4 * nws * KMAX; idx += NT) {
-    const int f = idx / KMAX, r = idx % KMAX;
-    W_s[r * wst + f] = (r < K && f < F) ? W[f * K + r] : 0.f;
-  }
+// ---------------------------------------------------------------------------
+// The window tier of the backward (the head of this file describes it).
+//
+// What bounds it on this card: the chain is fb_seqs.cuh's ll-mode backward
+// (the split backward's) with one column of acc a thread in place of S, so
+// a step runs S K FMAs a thread for b'_{t-1} from d_t broadcast from shared
+// memory and S K for acc from a_{t-1}; a step's ll_t, a_{t-1} and w_t
+// come through a ring that each thread fills with its own elements by
+// cp.async WIN_AHEAD steps ahead (the split backward's depth), so no global
+// load and no barrier but the step's own sits on the chain. Row k of A~
+// lives in registers as far as S sequences' state leaves room beside acc
+// (its first 48 entries at S = 2, 32 at S = 4), the rest read from shared
+// memory: all 64 at S = 2 took 254 registers and spilled 152 bytes on the
+// H100 (PERF.md).
+constexpr int WIN_AHEAD = fbseq::BWD_AHEAD;
+
+// The entries of row k of A~ a thread of the window tier keeps in registers.
+template <int S>
+__host__ __device__ constexpr int window_areg() {
+  return S <= 2 ? 48 : 32;
 }
 
-// The bytes of the backward's dynamic shared memory beside W^T's rows, and
-// W^T's groups there (smem_groups), at (S, F).
-template <int S, int KIND>
-__host__ __device__ inline int backward_fixed(int F) {
-  return 4 * (KMAX * AST + 4 * S * KMAX + 2 * NWARP * S + WideRows<S, KIND>::floats(F));
+// Bytes of the window tier's dynamic shared memory at S: A~'s rows, two
+// slots each of d_t, a_{t-1} and the partial sums of g_t, and the ring of
+// WIN_AHEAD slots of ll, alpha and kept-mask rows ([3][S][KMAX] a slot). It
+// does not depend on F.
+template <int S>
+__host__ __device__ constexpr int window_smem() {
+  return 4 * (KMAX * AST + 4 * S * KMAX + 2 * NWARP * S + 3 * WIN_AHEAD * S * KMAX);
 }
 
-// Dynamic shared memory, in bytes, of the backward at (S, F).
-template <int S, int KIND>
-__host__ __device__ inline int backward_smem(int F) {
-  const int fixed = backward_fixed<S, KIND>(F);
-  return fixed + 4 * KMAX * w_stride(smem_groups(F, fixed));
-}
-
-// fbseq::seq_stats_backward with FEATS at any F, over the window t = t1-1 ..
-// t0 (b'_{T-1} = 1 / s_{T-1} when t1 = T, else the carry the window above
-// left): the same recursion, with row k of A~ and W^T from shared memory and
-// the rows through WideRows. acc (column k, summed over the block's
-// sequences) starts from zero at t1 = T, else from the block's row of
-// partials `part`, and is written back there; eacc leaves the chain: w_t
-// gamma_t goes to gw (t1 - t0, B, K) from t0. The window above 0 leaves
-// b'_{t0-1} in carry (B, K). gamma0, gamma and the modes (alpha16, sel) as
-// seq_stats_backward's. Every thread of the block calls it.
-template <int S, bool GATED, int KIND, bool MODES>
-__device__ __forceinline__ void seq_backward_wf(
-    const float* __restrict__ A, const float* __restrict__ W, const float* __restrict__ src,
-    const float* __restrict__ alpha, const __nv_bfloat16* __restrict__ alpha16,
-    const float* __restrict__ s_in, const float* __restrict__ sh_in,
-    const float* __restrict__ w_in, const int* __restrict__ sel, float* __restrict__ gamma,
-    float* __restrict__ gamma0, float* __restrict__ gw_out, float* __restrict__ carry,
-    float* __restrict__ part, int T, int B, int K, int F, int t0, int t1, int blk,
-    float* smem) {
-  const int nf4 = groups(F), fpr = 4 * nf4;
-  const int nws = smem_groups(F, backward_fixed<S, KIND>(F)), wst = w_stride(nws);
-  float* A_s = smem;                      // A~[k][j] at k * AST + j
-  float* W_s = A_s + KMAX * AST;          // W^T rows
-  float* d_s = W_s + KMAX * wst;          // d_t in slot t & 1, [S][KMAX] each
-  float* a_s = d_s + 2 * S * KMAX;        // a_{t-1} in slot t & 1
-  float* red = a_s + 2 * S * KMAX;        // partial sums of g_t in slot t & 1, [NWARP][S]
-  float* rmem = red + 2 * NWARP * S;      // WideRows' slots
+// fbseq::seq_stats_backward at any F over the window t = t1-1 .. t0 of a
+// launch (b'_{T-1} = 1 / s_{T-1} when t1 = T, else the carry the window
+// above left), on the window's likelihoods ll (t1 - t0, B, K), which
+// fbs::ll_tile summed from its feature rows: the same recursion, with ll_t,
+// a_{t-1} and (gated) w_t read WIN_AHEAD steps ahead through the ring as
+// the ll mode reads them. acc (column k, summed over the block's sequences)
+// starts from zero at t1 = T, else from the block's row of partials `part`,
+// and is written back there; w_t gamma_t goes to gw (t1 - t0, B, K) from
+// t0, the window above 0 leaves b'_{t0-1} in carry (B, K). gamma0, gamma and
+// the modes as seq_stats_backward's with FEATS: alpha16 (bf16 alpha, read
+// through the ring as the aligned 32-bit word that holds each element) and
+// sel, both run-time pointers under MODES, either null. Every thread of the
+// block calls it.
+template <int S, bool GATED, bool MODES>
+__device__ __forceinline__ void seq_backward_window(
+    const float* __restrict__ A, const float* __restrict__ ll, const float* __restrict__ alpha,
+    const __nv_bfloat16* __restrict__ alpha16, const float* __restrict__ s_in,
+    const float* __restrict__ sh_in, const float* __restrict__ w_in, const int* __restrict__ sel,
+    float* __restrict__ gamma, float* __restrict__ gamma0, float* __restrict__ gw_out,
+    float* __restrict__ carry, float* __restrict__ part, int T, int B, int K, int t0, int t1,
+    int blk, float* smem) {
+  constexpr int AREG = window_areg<S>();
+  float* A_s = smem;                 // A~[k][j] at k * AST + j (j >= AREG read from here)
+  float* d_s = A_s + KMAX * AST;     // d_t in slot t & 1, [S][KMAX] each
+  float* a_s = d_s + 2 * S * KMAX;   // a_{t-1} in slot t & 1
+  float* red = a_s + 2 * S * KMAX;  // partial sums of g_t in slot t & 1, [NWARP][S]
+  float* q_s = red + 2 * NWARP * S;  // the ring, [3][S][KMAX] a slot
 
   const int b0 = blk * S;
   const int ns = min(S, B - b0);
   const int k = threadIdx.x;
   const int lane = k & 31, warp = k >> 5;
   const bool active = k < K;
-  const float* wk = W_s + k * wst;
-  const WTail wc{active ? W + k : nullptr, K, F, nws, nf4};
-  const int in_w = fbc::obs_dim(KIND, F);  // F for the array
-  const WideRows<S, KIND> rows(rmem, src + (size_t)b0 * in_w, B, F, ns, T);
 
   for (int idx = k; idx < KMAX * KMAX; idx += NT) {
     const int r = idx / KMAX, c = idx % KMAX;
     A_s[r * AST + c] = (r < K && c < K) ? A[r * K + c] : 0.f;
   }
-  load_W(W, W_s, K, F, nws, wst);
-  rows.init();
+  float Arow[AREG];  // row k of A~'s first AREG entries
+#pragma unroll
+  for (int j = 0; j < AREG; ++j) Arow[j] = (active && j < K) ? ld_once(A + k * K + j) : 0.f;
 
   float* pb = part + (size_t)blk * K * K;  // the block's row of partials
   float acc[KMAX];  // column k of sum_t outer(a_{t-1}, d_t n_t pg_t) over the block
@@ -391,16 +172,18 @@ __device__ __forceinline__ void seq_backward_wf(
   for (int i = 0; i < KMAX; ++i) acc[i] = (t1 < T && active && i < K) ? pb[i * K + k] : 0.f;
 
   const size_t step_k = (size_t)B * K;
-  const float* ab = MODES && alpha16 != nullptr ? nullptr : alpha + (size_t)b0 * K + k;
-  const __nv_bfloat16* ab16 = MODES && alpha16 != nullptr ? alpha16 + (size_t)b0 * K + k
-                                                                   : nullptr;
+  const bool a16 = MODES && alpha16 != nullptr;
+  const float* ab = a16 ? nullptr : alpha + (size_t)b0 * K + k;
+  const __nv_bfloat16* ab16 = a16 ? alpha16 + (size_t)b0 * K + k : nullptr;
+  const size_t n_alpha = (size_t)T * step_k;  // alpha's elements (the ring's bf16 words)
+  const float* lb = ll + (size_t)b0 * K + k;   // the window's row t at (t - t0) step_k
   auto a_at = [&](int t, int s) {
     const size_t o = (size_t)t * step_k + (size_t)s * K;
-    if constexpr (MODES) return ab16 != nullptr ? __bfloat162float(ab16[o]) : ab[o];
+    if constexpr (MODES) return a16 ? __bfloat162float(ab16[o]) : ab[o];
     return ab[o];
   };
 
-  float a_cur[S], a_prev[S], s_prev[S], sh_cur[S], beta[S], w_cur[S];
+  float a_cur[S], a_prev[S], s_prev[S], sh_cur[S], beta[S], w_cur[S], lcur[S];
   int pick[S];
 #pragma unroll
   for (int s = 0; s < S; ++s) {
@@ -414,37 +197,72 @@ __device__ __forceinline__ void seq_backward_wf(
     beta[s] = t1 == T ? 1.f / fmaxf(ok ? sb[T - 1] : 1.f, SUM_FLOOR)
                       : ((ok && active) ? carry[(size_t)(b0 + s) * K + k] : 0.f);
     w_cur[s] = GATED ? (ok ? w_in[(size_t)(t1 - 1) * B + b0 + s] : 0.f) : 1.f;
+    lcur[s] = (ok && active) ? lb[(size_t)(t1 - 1 - t0) * step_k + (size_t)s * K] : 0.f;
   }
-  auto row_of = [t1](int q) { return t1 - 1 - q; };
-  __syncthreads();  // A~, W^T, the zeroed slots and the table
-  rows.prime(row_of);
 
-  float ll[S];  // ll_{t1-1}: the forward's chain
+  // the rows of step j = t1-2-i: ll_j (j >= t0), a_{j-1} (j >= 1) and (gated)
+  // w_j (j >= 0: the pair gate at t0 takes w_{t0-1}), zero where missing; the
+  // i-th group in slot i % WIN_AHEAD. Each thread copies its own elements.
+  auto ask = [&](int i) {
+    const int j = t1 - 2 - i;
+    float* slot = q_s + (i % WIN_AHEAD) * 3 * S * KMAX + k;
 #pragma unroll
-  for (int s = 0; s < S; ++s) ll[s] = 0.f;
-  ll_from<S>(ll, wk, wc, rows.slot(0), fpr, 0);
+    for (int s = 0; s < S; ++s) {
+      const bool ok = s < ns && active;
+      const bool in_l = ok && j >= t0, in_a = ok && j >= 1;
+      fbs::cp_async<1>(slot + s * KMAX,
+                       in_l ? lb + (size_t)(j - t0) * step_k + (size_t)s * K : ll, in_l);
+      if (a16) {  // the word of a_{j-1}'s bf16 element
+        const size_t o = (size_t)(j - 1) * step_k + (size_t)(b0 + s) * K + k;
+        fbs::cp_async_n(slot + (S + s) * KMAX, in_a ? alpha16 + (o & ~(size_t)1) : alpha16,
+                        !in_a ? 0 : (o | 1) < n_alpha ? 4 : 2);
+      } else {
+        fbs::cp_async<1>(slot + (S + s) * KMAX,
+                         in_a ? ab + (size_t)(j - 1) * step_k + (size_t)s * K : ll, in_a);
+      }
+      if (GATED) {
+        const bool in_w = s < ns && j >= 0;
+        fbs::cp_async<1>(slot + (2 * S + s) * KMAX,
+                         in_w ? w_in + (size_t)j * B + b0 + s : ll, in_w);
+      }
+    }
+    fbs::cp_commit();
+  };
+  for (int i = 0; i < WIN_AHEAD; ++i) ask(i);
+  __syncthreads();  // A~'s rows
 
   for (int t = t1 - 1; t >= t0; --t) {
     const int p = t & 1;
-    const int i = t1 - 1 - t;  // the step's place: it reads row i + 1 (time t - 1)
+    const int i = t1 - 1 - t;  // the step's place
     float* dp = d_s + p * S * KMAX;
     float* ap = a_s + p * S * KMAX;
     float* rp = red + p * NWARP * S;
 
-    float a_n[S], s_n[S], sh_n[S], w_n[S];
+    // operands of step t-1, from the ring (asked for WIN_AHEAD steps ago),
+    // so that their latency hides behind step t; s and sh from L1
+    float a_n[S], s_n[S], sh_n[S], w_n[S], l_n[S];
+    fbs::cp_wait<WIN_AHEAD - 1>();
+    const float* slot = q_s + (i % WIN_AHEAD) * 3 * S * KMAX + k;
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       const bool ok = s < ns;
-      a_n[s] = (ok && active && t >= 2) ? a_at(t - 2, s) : 0.f;
-      w_n[s] = GATED ? ((ok && t >= 1) ? w_in[(size_t)(t - 1) * B + b0 + s] : 0.f) : 1.f;
+      l_n[s] = slot[s * KMAX];
+      a_n[s] = slot[(S + s) * KMAX];
+      if (a16) {  // a_{t-2}: its half of the word, widened
+        const size_t o = (size_t)(t - 2) * step_k + (size_t)(b0 + s) * K + k;
+        const unsigned u = __float_as_uint(a_n[s]);
+        a_n[s] = __uint_as_float((o & 1) ? (u & 0xffff0000u) : (u << 16));
+      }
+      w_n[s] = GATED ? slot[(2 * S + s) * KMAX] : 1.f;
       s_n[s] = (ok && t >= 2) ? s_in[(size_t)(b0 + s) * T + t - 2] : 1.f;
       sh_n[s] = (ok && t >= 1) ? sh_in[(size_t)(b0 + s) * T + t - 1] : 0.f;
     }
+    ask(i + WIN_AHEAD);
 
     float graw[S], d[S], gs[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      const float lik = active ? expf(ll[s] - sh_cur[s]) : 0.f;
+      const float lik = active ? expf(lcur[s] - sh_cur[s]) : 0.f;
       graw[s] = a_cur[s] * beta[s];
       d[s] = t >= 1 ? (lik * (1.f / fmaxf(s_prev[s], SUM_FLOOR))) * beta[s] : 0.f;
       dp[s * KMAX + k] = d[s];
@@ -456,9 +274,7 @@ __device__ __forceinline__ void seq_backward_wf(
 #pragma unroll
       for (int s = 0; s < S; ++s) rp[warp * S + s] = gs[s];
     }
-    fbs::cp_wait<1>();  // this thread's copies of row i + 1 (i + 2 built) have landed
-    __syncthreads();    // d_t, a_{t-1}, the partial sums and row i + 1 are complete
-    rows.advance(i + 1, row_of);
+    __syncthreads();  // d_t, a_{t-1} and the partial sums are complete
 
     float dn[S];
 #pragma unroll
@@ -481,20 +297,18 @@ __device__ __forceinline__ void seq_backward_wf(
       dn[s] = GATED ? (d[s] * n) * (w_n[s] * w_cur[s]) : d[s] * n;
     }
 
-    // b'_{t-1} and ll_{t-1} (2S chains in one loop over the first 64
-    // features, then the rest of ll's), beside acc += outer(a_{t-1}, dn_t)
-    const float* fn = rows.slot(i + 1);
+    // b'_{t-1} beside acc += outer(a_{t-1}, dn_t)
     float bn[S];
 #pragma unroll
-    for (int s = 0; s < S; ++s) bn[s] = ll[s] = 0.f;
+    for (int s = 0; s < S; ++s) bn[s] = 0.f;
 #pragma unroll
     for (int i4 = 0; i4 < KMAX / 4; ++i4) {
-      const float4 av = ld4(A_s + k * AST + 4 * i4);
-      const float4 wv = ld4(wk + 4 * i4);
-      float4 x[S], z[S];
+      const int j = 4 * i4 % AREG;  // the registers' column, when 4 i4 < AREG
+      const float4 av = 4 * i4 >= AREG
+                            ? ld4(A_s + k * AST + 4 * i4)
+                            : make_float4(Arow[j], Arow[j + 1], Arow[j + 2], Arow[j + 3]);
+      float4 x[S];
       ld4s<S>(x, dp + 4 * i4, KMAX);
-      ld4s<S>(z, fn + 4 * i4, fpr);
-      fma4<S>(ll, z, wv.x, wv.y, wv.z, wv.w);
       fma4<S>(bn, x, av.x, av.y, av.z, av.w);
       float4 y[S];
       ld4s<S>(y, ap + 4 * i4, KMAX);
@@ -506,7 +320,6 @@ __device__ __forceinline__ void seq_backward_wf(
         acc[4 * i4 + 3] = fmaf(y[s].w, dn[s], acc[4 * i4 + 3]);
       }
     }
-    ll_from<S>(ll, wk, wc, fn, fpr, KMAX / 4);
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       beta[s] = bn[s];
@@ -515,6 +328,7 @@ __device__ __forceinline__ void seq_backward_wf(
       s_prev[s] = s_n[s];
       sh_cur[s] = sh_n[s];
       w_cur[s] = w_n[s];
+      lcur[s] = l_n[s];
     }
   }
   fbs::cp_wait<0>();  // the copies asked for past the window
@@ -647,7 +461,7 @@ struct TileWarps {
   float* eacc;  // eacc^T, fpr rows of KMAX
   float* feat;  // TILE_FEATS slots of rows x fst
   float* raw;   // rows x D (built kinds)
-  int* tab;     // F sources (built kinds; as WideRows' table)
+  int* tab;     // F sources, (ia + 1) | (ja + 1) << 16 (built kinds; fbc::feat_src)
   size_t step;  // floats from one time step's rows to the next (B D)
   int T, K, F, D, fpr, fst, nf4, sg, ns, tw, rows, tt, nt;
   // D: the floats of an input row (F for the array); sg: the block's
@@ -722,7 +536,7 @@ struct TileWarps {
   }
 
   // The likelihood tile of window j into ring slot j & 1: ll[r][k] = row r
-  // of slot(j) . column k of W, ll_from's sum (each block of BLK
+  // of slot(j) . column k of W, ll_tile's sum (each block of BLK
   // groups its own fmaf chain from zero, in feature order, the blocks added
   // in order), so lik_t is the forward's bits.
   template <int CC, int RP>

@@ -413,17 +413,130 @@ inline cudaError_t outer_sum(const float* X, const float* Y, long long N, int I,
 constexpr long long WIDE_ROWS = 1 << 17;  // (t, b) rows a window of the large-K statistics
 constexpr int PREP_NT = 256;              // threads of the operand kernels below
 
-// out (rows, F) = the built features of the observation rows obs (rows, D),
-// one thread a feature (fbc::feat_at: the same float32 bits as the chain
-// kernels' rows and ell_features').
+// out (rows, F) = the built features of the observation rows obs (rows, D)
+// (fbc::feat_of: the same float32 bits as the chain kernels' rows and
+// ell_features', each product one __fmul_rn). It replaces the TPU kernels'
+// _build_feats (pysvihmm_tpu/messages/pallas_fb.py:287) where the large-K
+// fused backward, the K <= 64 fused WF backward's window tier and the
+// duplex combine need a window's rows in device memory for the outer sums.
+//
+// What bounds it on this card: bytes, 4 (D + F) a row against F - 1 - D
+// multiplies (0.0045 ms on the SVI step's window of 71,680 rows at D = 8,
+// F = 45; 0.134 ms on a window of 2^17 rows at D = 39, F = 820). The design:
+// a block walks chunks of bf_rows(F) rows (about BF_ELEMS features, 16 KB of
+// output) over a grid sized to the card; each chunk's observations are
+// loaded once into shared memory, by cp.async a chunk ahead (two slots), and
+// each feature's factors come from a table of F (i, j) entries the block
+// makes once, so no element searches for its pair. A thread writes four
+// consecutive features with one 16-byte store (the chunk's head before the
+// first 16-byte boundary of out and its tail after the last whole vector a
+// feature a thread): it reads the first one's entry and walks to the next
+// three (bf_next), and its cursor (row and feature in the chunk, 32-bit)
+// moves 4 PREP_NT features a step by an addition, with no division past
+// the first. Only the chunk's base is 64-bit.
+constexpr int BF_ELEMS = 4096;       // features a chunk of rows aims at
+constexpr int BF_BLOCKS_PER_SM = 8;  // the build's grid: blocks an SM at most
+
+// Rows a chunk at F features.
+__host__ __device__ inline int bf_rows(int F) { return F >= BF_ELEMS ? 1 : BF_ELEMS / F; }
+
+// Bytes of build_feats_kernel's dynamic shared memory at (D, F): the table
+// and two slots of a chunk's observations.
+inline int bf_smem(int D, int F) { return 4 * (F + 2 * bf_rows(F) * D); }
+
+// The entry (ia, ja) of feature f + 1 from feature f's in ell_features'
+// order (fbc::feat_src), moving to the next row's feature 0 past F - 1.
+template <int KIND>
+__device__ __forceinline__ void bf_next(int& f, int& r, int& ia, int& ja, int F, int D) {
+  if (++f == F) {
+    f = 0;
+    ++r;
+    ia = ja = -1;
+  } else if (f <= D) {
+    ia = f - 1;
+    ja = -1;
+  } else if (KIND == fbc::FEATS_NIG) {
+    ia = ja = f - 1 - D;
+  } else if (f == D + 1) {
+    ia = ja = 0;
+  } else if (++ja == D) {  // the next row of triu(y y^T)
+    ja = ++ia;
+  }
+}
+
+__device__ __forceinline__ float bf_value(const float* y, int ia, int ja) {
+  return ia < 0 ? 1.f : fbc::feat_of(y[ia], ja < 0 ? 0.f : y[ja], ja >= 0);
+}
+
 template <int KIND>
 __global__ void __launch_bounds__(PREP_NT)
 build_feats_kernel(const float* __restrict__ obs, float* __restrict__ out, long long rows, int D,
                    int F) {
-  const long long e = (long long)blockIdx.x * PREP_NT + threadIdx.x;
-  if (e >= rows * F) return;
-  const long long r = e / F;
-  out[e] = fbc::feat_at<KIND>(obs + r * D, D, static_cast<int>(e - r * F));
+  extern __shared__ __align__(16) float bf_smem_[];
+  const int R = bf_rows(F), tid = threadIdx.x;
+  int* tab = reinterpret_cast<int*>(bf_smem_);  // F entries, (ia + 1) | (ja + 1) << 16
+  float* ybuf = bf_smem_ + F;                   // two slots of R D observations
+  for (int f = tid; f < F; f += PREP_NT) {
+    int ia, ja;
+    fbc::feat_src(KIND, D, f, ia, ja);
+    tab[f] = (ia + 1) | ((ja + 1) << 16);
+  }
+  const long long chunks = (rows + R - 1) / R;
+  const int sr = 4 * PREP_NT / F, sf = 4 * PREP_NT - sr * F;  // a step's rows and features
+  auto ask = [&](long long c, int slot) {  // chunk c's observations into the slot
+    if (c < chunks) {
+      const long long r0 = c * R;
+      const int nd = static_cast<int>(rows - r0 < R ? rows - r0 : R) * D;
+      const float* y = obs + r0 * D;
+      float* dst = ybuf + slot * R * D;
+      for (int i = tid; i < nd; i += PREP_NT) cp_async<1>(dst + i, y + i, true);
+    }
+    cp_commit();
+  };
+  int slot = 0;
+  ask(blockIdx.x, 0);
+  for (long long c = blockIdx.x; c < chunks; c += gridDim.x, slot ^= 1) {
+    ask(c + gridDim.x, slot ^ 1);
+    cp_wait<1>();     // this thread's copies of chunk c have landed
+    __syncthreads();  // everyone's (and the table)
+    const long long r0 = c * R;
+    const int n = static_cast<int>(rows - r0 < R ? rows - r0 : R) * F;  // the chunk's features
+    const float* ys = ybuf + slot * R * D;
+    float* o = out + r0 * F;
+    const int head =
+        min(n, static_cast<int>((16 - (reinterpret_cast<unsigned long long>(o) & 15)) & 15) / 4);
+    const int nv = (n - head) / 4, tail = head + 4 * nv;
+    auto one = [&](int l) {  // feature l of the chunk alone
+      const int r = l / F, f = l - r * F, e = tab[f];
+      o[l] = bf_value(ys + r * D, (e & 0xffff) - 1, (e >> 16) - 1);
+    };
+    if (tid < head) one(tid);
+    if (tid < n - tail) one(tail + tid);
+    if (tid < nv) {
+      int r = (head + 4 * tid) / F, f = head + 4 * tid - r * F;
+      for (int v = tid; v < nv; v += PREP_NT) {
+        int rr = r, ff = f;
+        const int e = tab[ff];
+        int ia = (e & 0xffff) - 1, ja = (e >> 16) - 1;
+        float x[4];
+        x[0] = bf_value(ys + rr * D, ia, ja);
+#pragma unroll
+        for (int q = 1; q < 4; ++q) {
+          bf_next<KIND>(ff, rr, ia, ja, F, D);
+          x[q] = bf_value(ys + rr * D, ia, ja);
+        }
+        *reinterpret_cast<float4*>(o + head + 4 * v) = make_float4(x[0], x[1], x[2], x[3]);
+        f += sf;
+        r += sr;
+        if (f >= F) {
+          f -= F;
+          ++r;
+        }
+      }
+    }
+    __syncthreads();  // the slot read by every thread before its next copies
+  }
+  cp_wait<0>();
 }
 
 // out[e] = a16[e] widened to float32, e < n: exact, so every bit is the
@@ -478,16 +591,31 @@ inline unsigned prep_blocks(long long n) { return static_cast<unsigned>((n + PRE
 
 // The window's eacc operand built from the observations (kind FEATS_NIW or
 // FEATS_NIG), rows (t, b) of obs (rows, D) into out (rows, F).
+template <int KIND>
+cudaError_t build_feats_launch(const float* obs, float* out, long long rows, int D, int F,
+                               cudaStream_t st) {
+  const void* fn = reinterpret_cast<const void*>(build_feats_kernel<KIND>);
+  const int smem = bf_smem(D, F);
+  cudaError_t e = cudaSuccess;
+  if (smem > 48 * 1024)  // past the default a block may take (F above about 12,000)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const long long chunks = (rows + bf_rows(F) - 1) / bf_rows(F);
+  const unsigned grid =
+      static_cast<unsigned>(std::min<long long>(chunks, (long long)sms * BF_BLOCKS_PER_SM));
+  build_feats_kernel<KIND><<<grid, PREP_NT, smem, st>>>(obs, out, rows, D, F);
+  return cudaGetLastError();
+}
+
 inline cudaError_t build_feats(int kind, const float* obs, float* out, long long rows, int D,
                                int F, cudaStream_t st) {
   if (rows <= 0) return cudaSuccess;
-  if (kind == fbc::FEATS_NIW)
-    build_feats_kernel<fbc::FEATS_NIW><<<prep_blocks(rows * F), PREP_NT, 0, st>>>(obs, out, rows,
-                                                                                D, F);
-  else
-    build_feats_kernel<fbc::FEATS_NIG><<<prep_blocks(rows * F), PREP_NT, 0, st>>>(obs, out, rows,
-                                                                                D, F);
-  const cudaError_t e = cudaGetLastError();
+  const cudaError_t e = kind == fbc::FEATS_NIW
+                            ? build_feats_launch<fbc::FEATS_NIW>(obs, out, rows, D, F, st)
+                            : build_feats_launch<fbc::FEATS_NIG>(obs, out, rows, D, F, st);
   if (e == cudaSuccess) ++prep_launch_count[0];
   return e;
 }
@@ -530,8 +658,8 @@ inline cudaError_t widen(const __nv_bfloat16* a16, float* out, long long n, cuda
 // (duplex_fb.cu). The chains thus keep F products a state and step off
 // their serial path.
 //
-// Each element is the chains' own sum (fbwf::ll_from, the fused K <= 64 WF
-// backward's): over f = 0 .. 4 ceil(F / 4) - 1 (zero beyond F) in blocks of
+// Each element is the chains' own sum (the fused K <= 64 WF backward's tiled
+// tier sums ll_t the same way): over f = 0 .. 4 ceil(F / 4) - 1 (zero beyond F) in blocks of
 // 64 features, each block's fmaf chain from zero in feature order, the
 // blocks added in order; so lik_t is the fused kernels' own bits and every output theirs.
 // Any schedule that keeps each element's order gives these bits; tensor
@@ -814,17 +942,17 @@ inline int prep_launches(int which, bool clear) {
 // feature rows are built from the observations (build_feats), the rows the
 // chain kernels build, so the sums see the array mode's operands bit for bit.
 //
-// With `lls` (the fused backward above K = 64 at F > FMAX) the scratch
-// holds a window's likelihoods too (n K floats, `ll`), which the caller's
-// `prep` sums from the window's feature rows (built first, for a built
-// kind) before the launch (fbs::ll_tile), its chain then reading them;
-// eacc's sums take the same rows.
+// With `lls` (the fused backward at F > FMAX: above K = 64, and up to it in
+// the WF window tier) the scratch holds a window's likelihoods too (n K
+// floats, `ll`), which the caller's `prep` sums from the window's feature
+// rows (built first, for a built kind) before the launch (fbs::ll_tile),
+// its chain then reading them; eacc's sums take the same rows.
 //
-// With `blocks` > 0 (the fused backward up to K = 64 at F > FMAX) acc stays
-// in the chain, a row of partials a block (`part_a`, blocks rows of K K
-// floats, which the kernel reads back and writes each window and the caller
-// adds in block order after the last): then there is no dn, no acc sum and
-// no widened alpha, and only eacc's sums run here.
+// With `blocks` > 0 (the fused backward's WF window tier up to K = 64) acc
+// stays in the chain, a row of partials a block (`part_a`, blocks rows of K
+// K floats, which the kernel reads back and writes each window and the
+// caller adds in block order after the last): then there is no dn, no acc
+// sum and no widened alpha, and only eacc's sums run here.
 struct WideStats {
   int T, B, K, F, steps, kind, blocks;
   bool abf;

@@ -128,19 +128,21 @@
 // chain beside two or four tile warps, which compute ll a window of steps
 // ahead and add eacc a window behind in shared memory, one launch over T,
 // a row of acc partials a chain group and of eacc a block; its window tier
-// (wider F) has eacc leave the chain as the large-K statistics' does (w_t
-// gamma_t a window of time steps a launch, the 3xTF32 outer sums), while
-// acc stays in registers, carried between the windows through the blocks'
-// rows of partials. Above K = 64 both chains read each window's
-// likelihoods (fbs::WideStats::window(T, B) steps), which ll_tile_kernel
-// sums from the window's feature rows before it: the forward's is the split
-// forward's chain (fb_wide.cuh's seqs_forward without FEATS), carrying its
-// float32 state from a window to the next, the backward's fb_wide.cuh's LL.
-// ll_t is summed in blocks of 64 features (one fmaf chain a block, the
-// blocks added in order), in the chains and the tile alike, so the forward
-// and the backward see the same lik_t. Which S fit depends on F where the
-// feature slots grow with it: the occupancy query reports no resident
-// block for an S whose shared memory the card cannot give.
+// (wider F) has both F-wide products leave the chain as the large-K
+// backward's do: for each window of fbs::WideStats::window(T, B) steps,
+// ll_tile_kernel sums its likelihoods, the chain reads them and writes w_t
+// gamma_t, and the 3xTF32 outer sums add eacc, while acc stays in
+// registers, carried between the windows through the blocks' rows of
+// partials. Above K = 64 both chains read each window's likelihoods, which
+// ll_tile_kernel sums from the window's feature rows before it: the
+// forward's is the split forward's chain (fb_wide.cuh's seqs_forward
+// without FEATS), carrying its float32 state from a window to the next, the
+// backward's fb_wide.cuh's LL. ll_t is summed in blocks of 64 features (one
+// fmaf chain a block, the blocks added in order), in the chains and the
+// tile alike, so the forward and the backward see the same lik_t. Only the
+// tiled tier holds W and feature rows in shared memory, and the launchers
+// leave it for the window tier where they no longer fit, so the pair takes
+// any F.
 //
 // Above K = 64 the launchers take the large-K instances instead
 // (fused_fwd_wide_kernel<KP, S>, fused_bwd_wide_kernel<KP, S, GATED>, KP =
@@ -247,9 +249,9 @@ cudaError_t launch(int which, int S, int T, int B, int K, int F, int kind, bool 
 
 // Floats of scratch the backward takes: K <= KMAX, a row of partials a
 // block (at F > FMAX the same in the tiled tier, and in the window tier a
-// row of acc partials a block beside a window's gw, the carry, eacc's
-// outer-sum partials and a built kind's feature rows); above,
-// a window's dn and gw, the carry, the outer sums' partials, (bf16
+// row of acc partials a block beside a window's gw, likelihoods and, for a
+// built kind, feature rows, the carry and eacc's outer-sum partials);
+// above, a window's dn and gw, the carry, the outer sums' partials, (bf16
 // alpha, a built kind) the window's widened alpha and built feature rows
 // and (F > FMAX) its likelihoods (fbs::WideStats).
 long long scratch_floats(int T, int B, int K, int F, int S, int kind, bool abf) {
@@ -260,8 +262,7 @@ long long scratch_floats(int T, int B, int K, int F, int S, int kind, bool abf) 
     const long long nb = (B + S * G - 1) / (S * G);
     return nb * G * K * K + nb * K * F;
   }
-  if (K <= KMAX) return fbs::WideStats::floats(T, B, K, F, kind, abf, blocks);
-  return fbs::WideStats::floats(T, B, K, F, kind, abf, 0, F > FMAX);
+  return fbs::WideStats::floats(T, B, K, F, kind, abf, K <= KMAX ? blocks : 0, F > FMAX);
 }
 
 }  // namespace
@@ -269,7 +270,7 @@ long long scratch_floats(int T, int B, int K, int F, int S, int kind, bool abf) 
 extern "C" {
 
 // The largest K the launchers take (the large-K instances'). They take any
-// F whose instance's shared memory the card can give.
+// F.
 int fused_fb_kmax() { return fbw::KWIDE; }
 
 const char* fused_fb_error_string(int code) {
@@ -383,22 +384,13 @@ int fused_fb_backward(const float* A, const float* W, const float* src, const fl
     return static_cast<int>(fbs::sum_partials(scratch + (size_t)nb * G * K * K, nb, K * F,
                                               stats + K * K, st));
   }
-  if (K <= KMAX) {  // the WF window tier: acc in the chain, eacc a window at a time
-    const int blocks = (B + S - 1) / S;
-    const fbs::WideStats ws(scratch, T, B, K, F, kind, a16 != nullptr, blocks);
-    float *part = ws.part_a, *gw = ws.gw, *carry = ws.carry;
-    e = ws.run(alpha, a16, src, stats, st, [&](int t0, int t1) {
-      void* args[] = {&A, &W, &src, &alpha, &a16, &s, &sh, &w, &sel, &gamma, &gamma0, &part, &gw,
-                      &carry, &T, &B, &K, &F, &t0, &t1};
-      return launch(which, S, T, B, K, F, kind, modes, st, args);
-    });
-    if (e != cudaSuccess) return static_cast<int>(e);
-    return static_cast<int>(fbs::sum_partials(part, blocks, K * K, stats, st));
-  }
-  if (F > FMAX) {  // the chain on each window's likelihoods, which ll_tile sums first
-    const fbs::WideStats ws(scratch, T, B, K, F, kind, a16 != nullptr, 0, true);
-    float *dn = ws.dn, *gw = ws.gw, *carry = ws.carry, *ll = ws.ll;
-    return static_cast<int>(ws.run(
+  if (F > FMAX) {  // a window's likelihoods, which ll_tile sums first, then its chain
+    // up to K = 64 (the WF window tier) acc stays in the chain, a row of
+    // partials a block, which the kernel takes in the place of dn
+    const int blocks = K <= KMAX ? (B + S - 1) / S : 0;
+    const fbs::WideStats ws(scratch, T, B, K, F, kind, a16 != nullptr, blocks, true);
+    float *dn = blocks > 0 ? ws.part_a : ws.dn, *gw = ws.gw, *carry = ws.carry, *ll = ws.ll;
+    e = ws.run(
         alpha, a16, src, stats, st,
         [&](int t0, int t1) {
           void* args[] = {&A,      &ll, &alpha, &a16,   &s, &sh, &w,  &sel, &gamma,
@@ -407,7 +399,9 @@ int fused_fb_backward(const float* A, const float* W, const float* src, const fl
         },
         [&](const float* rows, long long n) {  // the window's feature rows
           return fbs::ll_tile(rows, W, ll, n, F, K, fbc::FEATS_ARRAY, st);
-        }));
+        });
+    if (e != cudaSuccess || blocks == 0) return static_cast<int>(e);
+    return static_cast<int>(fbs::sum_partials(ws.part_a, blocks, K * K, stats, st));
   }
   const fbs::WideStats ws(scratch, T, B, K, F, kind, a16 != nullptr);
   float *dn = ws.dn, *gw = ws.gw, *carry = ws.carry;
@@ -525,8 +519,9 @@ int fused_fb_prep_launches(int which, int clear) {
 // sequences a block (G in the WF backward's tiled tier, else 1). which = 0
 // forward, 1 backward, 2 gated backward; K > 64 names the large-K instance
 // of its KP; modes the modes' instance (the launchers' with bf16 alpha or
-// the pick), else the default one; F > FMAX the WF instance, whose shared
-// memory grows with F: out[4] is 0 where the card cannot give it.
+// the pick), else the default one; F > FMAX the WF instance (out[4] would be
+// 0 for an instance whose shared memory the card cannot give; the tiled
+// tier, whose shared memory grows with F, is taken only where it fits).
 int fused_fb_kernel_info(int which, int S, int K, int F, int kind, int modes, int device,
                          int* out) {
   if (bad_shape(1, 1, K, F) || bad_kind(kind, F) || which < 0 || which > 2)

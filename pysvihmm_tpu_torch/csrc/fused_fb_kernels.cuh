@@ -91,13 +91,14 @@ fused_bwd_wide_kernel(const float* __restrict__ A, const float* __restrict__ W,
 // The WF instances, at any F. Up to K = 64: the forward's chain on the
 // likelihoods fbs::ll_tile summed beforehand (fb_seqs.cuh's seq_forward in
 // its ll mode, the split forward's: (pi, A, ll) in place of (pi, A, W, src)),
-// and fbwf's backward in two tiers (fb_seqs_wf.cuh):
-// the tiled one, which takes the F <= FMAX backward's arguments (one launch;
-// a row of acc partials a chain group, of eacc a block) in blocks of
-// fbwf::tiled_plan, and the window one over a window [t0, t1) of time steps, which
-// takes the large-K backward's (its `part` in the place of dn: the block's
+// and fbwf's backward in two tiers (fb_seqs_wf.cuh): the tiled one, which
+// takes the F <= FMAX backward's arguments (one launch; a row of acc partials
+// a chain group, of eacc a block) in blocks of fbwf::tiled_plan, and the
+// window one over a window [t0, t1) of time steps, which takes the large-K
+// backward's on read likelihoods (its `part` in the place of dn: the block's
 // rows of acc partials, read back and written each window; gw the window's
-// w_t gamma_t; carry b'_{t0-1}).
+// w_t gamma_t; carry b'_{t0-1}) and, holding neither W nor a feature row,
+// serves every feature kind and width.
 using fbseq::LL_FP;
 
 template <int S, bool ABF>
@@ -125,21 +126,20 @@ fused_bwd_wf_kernel(const float* __restrict__ A, const float* __restrict__ W,
                                                   blockIdx.x, smem);
 }
 
-template <int S, bool GATED, int KIND, bool MODES>
+template <int S, bool GATED, bool MODES>
 __global__ void __launch_bounds__(NT)
-fused_bwd_wf_window_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                           const float* __restrict__ src, const float* __restrict__ alpha,
+fused_bwd_wf_window_kernel(const float* __restrict__ A, const float* __restrict__ ll,
+                           const float* __restrict__ alpha,
                            const __nv_bfloat16* __restrict__ alpha16,
                            const float* __restrict__ s_in, const float* __restrict__ sh_in,
                            const float* __restrict__ w_in, const int* __restrict__ sel,
                            float* __restrict__ gamma, float* __restrict__ gamma0,
                            float* __restrict__ part, float* __restrict__ gw,
-                           float* __restrict__ carry, int T, int B, int K, int F, int t0,
-                           int t1) {
+                           float* __restrict__ carry, int T, int B, int K, int t0, int t1) {
   extern __shared__ __align__(16) float smem[];
-  fbwf::seq_backward_wf<S, GATED, KIND, MODES>(A, W, src, alpha, alpha16, s_in, sh_in, w_in,
-                                               sel, gamma, gamma0, gw, carry, part, T, B, K,
-                                               F, t0, t1, blockIdx.x, smem);
+  fbwf::seq_backward_window<S, GATED, MODES>(A, ll, alpha, alpha16, s_in, sh_in, w_in, sel, gamma,
+                                             gamma0, gw, carry, part, T, B, K, t0, t1,
+                                             blockIdx.x, smem);
 }
 
 // Above K = 64: the forward's and the backward's chains on a window's
@@ -180,8 +180,8 @@ fused_bwd_wide_wf_kernel(const float* __restrict__ A, const float* __restrict__ 
 
 // The WF instance of (which, S, K, F, KIND, M) and its dynamic shared memory
 // at F: S in {2, 4} up to K = 64, {1, 2, 4, 8} above, as the instances for F
-// <= FMAX; up to K = 64 the backward's tier by fbwf::tiled_fits. Null for an
-// S not built.
+// <= FMAX; up to K = 64 the backward's tier by fbwf::tiled_fits (the window
+// tier's shared memory does not grow with F). Null for an S not built.
 template <int S, int KIND, bool M>
 const void* wf_at(int which, int F, int* smem) {
   if (which == 0) {  // every kind: the chain reads the likelihoods
@@ -193,10 +193,9 @@ const void* wf_at(int which, int F, int* smem) {
     return which == 1 ? reinterpret_cast<const void*>(fused_bwd_wf_kernel<S, false, KIND, M>)
                       : reinterpret_cast<const void*>(fused_bwd_wf_kernel<S, true, KIND, M>);
   }
-  *smem = fbwf::backward_smem<S, KIND>(F);
-  return which == 1
-             ? reinterpret_cast<const void*>(fused_bwd_wf_window_kernel<S, false, KIND, M>)
-             : reinterpret_cast<const void*>(fused_bwd_wf_window_kernel<S, true, KIND, M>);
+  *smem = fbwf::window_smem<S>();
+  return which == 1 ? reinterpret_cast<const void*>(fused_bwd_wf_window_kernel<S, false, M>)
+                    : reinterpret_cast<const void*>(fused_bwd_wf_window_kernel<S, true, M>);
 }
 
 // Whether the backward (S, K, F) is the WF instance's tiled tier (up to K =

@@ -57,11 +57,9 @@ def wider_than_fused_kernels(emission, emit_params, obs: torch.Tensor) -> bool:
     gathered likelihoods; its "fused" (and "auto") and "duplex" routes run
     the split kernels. Every other family runs the fused pair on "fused"
     and the duplex pair on "duplex" at any F (above ``fused_fb.FMAX`` = 64
-    on their WF instances: the fused pair up to a ceiling set by its
-    backward's feature rows in shared memory, about F = 6,100 up to K = 64,
-    where its launchers raise, its chains above reading likelihood tiles;
-    the duplex pair at any F, both its kernels reading likelihood tiles).
-    Decided before any launch, on every device."""
+    on their WF instances, whose chains read likelihood tiles wherever F
+    outgrows shared memory: both pairs at any F). Decided before any
+    launch, on every device."""
     return emission is MultinomialDirichlet and emit_params.shape[-1] > ONE_HOT_MAX_V
 
 

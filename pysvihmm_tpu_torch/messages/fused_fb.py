@@ -23,22 +23,22 @@ launchers take S from :func:`seqs_per_block`, a plain function of B and the
 blocks of each instance the card holds at once (the library's occupancy
 query). Features wider than :data:`FMAX` run the WF instances of either
 tier (``csrc/fb_seqs_wf.cuh`` up to K = 64, ``fb_wide.cuh``'s chains on
-read likelihoods above), F a run-time bound: every F whose instance's
-shared memory the card gives, as JAX's fused kernels take any F (up to
-K = 64 the groups of W^T beyond what shared memory holds are read from L2,
-so only the feature slots bound F: about 6,100 there). Up to K = 64 the WF
-forward sums the likelihoods of all T B rows with :func:`likelihood_tile`'s
-kernel into a scratch of T B K floats (the size of alpha) and runs the
-split forward's chain on them; the WF backward has two tiers
-(:func:`wf_backward_tier`): the tiled one (up to about F = 310) computes
-ll a window of steps ahead of its chain and adds eacc a window behind it
-on two or four more warps a block, eacc in shared memory, one launch over
-T, and past it the window tier has eacc leave the chain as the large-K
-statistics' does. Above K = 64 the WF forward's and backward's chains read
-each window's likelihoods (2^17 / B steps), which the same kernel sums
-from the window's feature rows before each: the forward the split
-forward's large-K chain, its float32 state carried from a window to the
-next. For 65 <= K <= 256 they launch the large-K instances
+read likelihoods above), F a run-time bound, at any F, as JAX's fused
+kernels take any F. Up to K = 64 the WF forward sums the likelihoods of all
+T B rows with :func:`likelihood_tile`'s kernel into a scratch of T B K
+floats (the size of alpha) and runs the split forward's chain on them; the
+WF backward has two tiers (:func:`wf_backward_tier`): the tiled one (up to
+about F = 310) computes ll a window of steps ahead of its chain and adds
+eacc a window behind it on two or four more warps a block, eacc in shared
+memory, one launch over T; past it the window tier runs, for each window
+of 2^17 / B steps, the same tile kernel on the window's feature rows and
+then its chain on the tile, acc in the chain's registers and eacc by the
+outer sums, so neither W nor a feature row is in its shared memory. Above
+K = 64 the WF forward's and backward's chains read each window's
+likelihoods (2^17 / B steps), which the same kernel sums from the window's
+feature rows before each: the forward the split forward's large-K chain,
+its float32 state carried from a window to the next. For 65 <= K <= 256
+they launch the large-K instances
 (``fused_fwd_wide_kernel<KP, S>``, ``fused_bwd_wide_kernel<KP, S, GATED>``,
 KP = 128 or 256 padded states, S in :data:`WIDE_SEQS`): S sequences a block
 over one copy of A~, one thread a state, S by the same rule, and the
@@ -502,7 +502,12 @@ def fused_backward(
     K = 256, F = 45 (the statistics a window of time steps a launch,
     csrc/fb_stats.cuh); bf16 alpha and a built kind add a window's widened
     alpha and feature rows, F > 64 a window's likelihoods (0.13 GB at
-    K = 256)."""
+    K = 256). Up to K = 64 past the tiled tier (:func:`wf_backward_tier`
+    "window") it takes a window's w_t gamma_t and likelihoods, n K floats
+    each for n = min(T B, max(B, 2^17)) rows (32 MiB each at K = 64,
+    B = 1024), a row of acc partials a block, the carried beta, eacc's
+    outer-sum partials and, for a built kind, a window's feature rows
+    (n F floats: 0.43 GB at F = 820)."""
     return _launch_backward(None, A_t, W, feats, alpha, s, sh, emit_gamma, weights,
                             in_kernel_feats, gamma_sel)
 
@@ -565,7 +570,8 @@ def wf_backward_tier(S: int, K: int, F: int) -> str:
     library chooses it before launch from (S, F) alone: "tiled" where its
     shared memory (eacc, the feature and likelihood rings beside the
     chain's arrays) fits a block (up to F = 316 at S = 4, 308 at S = 2),
-    else "window"; the launches count under it in
+    else "window" (a likelihood tile, a chain launch and eacc's outer sums
+    a window of 2^17 / B steps, at any F); the launches count under it in
     ``fused_backward.wf_launches``. Needs the library (the card's build)."""
     if K > KMAX_SEQS or F <= FMAX:
         raise ValueError(f"the WF backward's tiers are for K <= {KMAX_SEQS} and F > {FMAX}, "
@@ -706,10 +712,11 @@ PREP_LIBS = ("fused_fb", "duplex_fb", "split_fb")
 def feature_rows(obs: torch.Tensor, in_kernel_feats: str) -> torch.Tensor:
     """The built features of observation rows obs (N, D), float32 (N, F):
     ``csrc/fb_stats.cuh::build_feats_kernel``, which the large-K fused
-    backward and duplex combine run on each window of their statistics in
-    a built kind, there the eacc sums' feature operand. One thread a
-    feature, each product one float32 multiply kept as it is, so the rows
-    are :func:`build_features`' (its plain twin's) bits. CPU tensors run the
+    backward, the K <= 64 fused WF backward's window tier and the duplex
+    combine run on each window of their statistics in a built kind, there
+    the eacc sums' feature operand (and the window tier's likelihood tile's
+    rows). Each product one float32 multiply kept as it is, so the rows are
+    :func:`build_features`' (its plain twin's) bits. CPU tensors run the
     twin; CUDA tensors launch the kernel or raise."""
     if in_kernel_feats is None or obs.dim() != 2:
         raise ValueError(f"feature_rows takes a built kind and (N, D) rows, got "

@@ -30,7 +30,9 @@ on the same inputs, relative to the largest |eacc| (eacc's bits follow the
 summation's grouping, which a redesign may change). Last,
 either way, ``fused_fb.widen_alpha`` (where the checkout has it) beside
 ``.to(torch.float32)`` on the large-K SVI step's window of bf16 alpha (69 x
-1024 rows of 128).
+1024 rows of 128), and ``fused_fb.feature_rows`` (build_feats_kernel) beside
+``build_features`` on the SVI step's window of NIW rows (70 x 1024 at D = 8)
+and on a window of 2^17 rows at D = 39, with its output's digest.
 
 Usage, on a machine with an NVIDIA GPU and nvcc, from the repository root::
 
@@ -200,12 +202,15 @@ def outer_products(alpha: torch.Tensor, feats: torch.Tensor, reps: int) -> None:
 
 def nig_inputs(dev: torch.device, K: int, D: int):
     """Diagonal-Gaussian inputs at D dimensions (F = 1 + 2 D): the raw
-    observations and W of a NIG posterior near the generating states
-    (chip_smoke.py's mode_problem), the rest as :func:`inputs`'."""
+    observations of diagonal Gaussian states (``gen_diag_gaussian_dataset``,
+    so that a wide D needs no D x D factor a row) and W of a NIG posterior
+    near the generating states (chip_smoke.py's mode_problem), the rest as
+    :func:`inputs`'."""
+    from pysvihmm_tpu_torch.data.synthetic import gen_diag_gaussian_dataset
     from pysvihmm_tpu_torch.distributions import diag_gaussian
 
     gen = torch.Generator(device=dev).manual_seed(1234)
-    obs, _, truth = gen_gaussian_dataset(gen, K, D, B, T, mean_scale=0.5, cov_scale=1.0)
+    obs, _, truth = gen_diag_gaussian_dataset(gen, K, D, B, T, mean_scale=0.5, var_scale=1.0)
 
     def u(*shape, lo, hi):
         return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
@@ -357,6 +362,37 @@ def widen_window(dev: torch.device, reps: int) -> None:
                      lambda fn=fn: [fn() for _ in range(50)])
 
 
+# build_feats_kernel's windows: (rows, D) of the K = 128 SVI step's window
+# (B = 1024, W = 70; NIW D = 8, F = 45) and of one window of 2^17 rows at the
+# NIW D = 39 (F = 820), the K = 64 WF backward's window tier on raw rows
+BUILD_WINDOWS = ((70 * 1024, 8), (1 << 17, 39))
+
+
+def build_windows(dev: torch.device, reps: int) -> None:
+    """feature_rows (where the checkout has it) on BUILD_WINDOWS for the NIW:
+    its digest and whether it is ``build_features``' bits, then its time by
+    CUDA events around runs of launches and its device time over 50 calls
+    (torch.profiler), beside ``build_features`` (the twin)."""
+    if not hasattr(fused_fb, "feature_rows"):
+        return
+    for rows, d in BUILD_WINDOWS:
+        obs = torch.randn((rows, d), generator=torch.Generator(device=dev).manual_seed(rows + d),
+                          device=dev)
+        got = fused_fb.feature_rows(obs, "niw")
+        tag = f"build_feats_kernel over {rows} rows, NIW D={d} (F = {got.shape[1]})"
+        same = torch.equal(got.view(torch.int32),
+                           fused_fb.build_features(obs, "niw").view(torch.int32))
+        print(f"{tag}: sha256 {digest(got)}, build_features' bits: {same}", flush=True)
+        del got
+        if reps < 1:
+            continue
+        for name, fn in (("feature_rows", lambda: fused_fb.feature_rows(obs, "niw")),
+                         ("build_features", lambda: fused_fb.build_features(obs, "niw"))):
+            report(f"{tag}: {name}, CUDA events", [cuda_ms(fn, 50, warmup=5) for _ in range(reps)])
+            profile_call(f"{tag}: {name}, 50 calls", lambda fn=fn: [fn() for _ in range(50)])
+        del obs
+
+
 def svi_steps(dev: torch.device, reps: int) -> None:
     """ms per windowed SVI step on "auto" and "split", as chip_smoke.py's
     phase 5 times it (its chain of overlapping states)."""
@@ -390,6 +426,7 @@ def main(argv: list[str]) -> int:
             torch.cuda.empty_cache()
         if reps > 0:
             widen_window(dev, reps)
+        build_windows(dev, reps)
         return card_line()
     log_pi, log_A, W, feats, w = inputs(dev, k)
     pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
@@ -426,6 +463,7 @@ def main(argv: list[str]) -> int:
     if k == K:
         svi_steps(dev, reps)
     widen_window(dev, reps)
+    build_windows(dev, reps)
     return card_line()
 
 

@@ -10,8 +10,9 @@ world of one, two gloo ranks); the fused and duplex kernels' modes (in-kernel
 NIW and NIG features, the gamma pick, bf16-stored alpha) at one small shape
 a tier, by chip_smoke.py phase 14's checks; the fused pair's instances at
 features wider than 64 (F = 65 to 820) in every kind and mode, and the
-split pair's bf16-stored alpha, by phase 15's; the duplex pair's at the
-same widths, array and in-kernel, and its ceiling, by phase 16's.
+split pair's bf16-stored alpha, by phase 15's, and the fused pair past its
+first design's ceiling of F; the duplex pair's at the same widths, array and
+in-kernel, and its ceiling, by phase 16's.
 
 Imports neither JAX nor the JAX package, so it runs on a machine that has
 only PyTorch for CUDA and nvcc:
@@ -41,6 +42,7 @@ from chip_smoke import (
     check_bf16_alpha,
     check_duplex_past_old_ceiling,
     check_duplex_wf,
+    check_fused_past_old_ceiling,
     check_gamma_sel,
     check_mode_features,
     check_split_bf16,
@@ -1078,20 +1080,40 @@ def test_mode_launchers_refuse_bad_combinations(cuda_device):
 @pytest.mark.parametrize("kernel", ["niw", "nig", "widen"])
 def test_operand_kernels_are_their_twins_bits(cuda_device, kernel):
     """The large-K statistics' operand kernels alone: build_feats_kernel's
-    rows are ``ell_features``' bits, widen_kernel's floats the bf16 values;
-    each launch counted by its library."""
+    rows are ``ell_features``' bits at D = 8, 24 and 39 on 3001 rows (a
+    chunk of rows cut short at the end), written by ``feature_rows`` and,
+    through the library's entry point, at outputs 4, 8 and 12 bytes past a
+    16-byte boundary (its head and tail a feature a thread, 16-byte stores
+    between), nothing written outside; widen_kernel's floats the bf16
+    values; each launch counted by its library."""
     g = torch.Generator(device=cuda_device).manual_seed(5)
     fused_fb.prep_launches("build_feats_kernel", clear=True)
     fused_fb.prep_launches("widen_kernel", clear=True)
     if kernel == "widen":
         a = torch.rand((1000, 130), generator=g, device=cuda_device).to(torch.bfloat16)
-        got, want, name = fused_fb.widen_alpha(a), a.float(), "widen_kernel"
-    else:
-        y = torch.randn((3001, 8), generator=g, device=cuda_device)
-        got, want = fused_fb.feature_rows(y, kernel), fused_fb.build_features(y, kernel)
-        name = "build_feats_kernel"
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    assert fused_fb.prep_launches(name) == 1
+        got, want = fused_fb.widen_alpha(a), a.float()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert fused_fb.prep_launches("widen_kernel") == 1
+        return
+    lib, p = fused_fb._library(), lambda x: x.data_ptr()
+    idx, stream = cuda_device.index or 0, torch.cuda.current_stream().cuda_stream
+    calls = 0
+    for D in (8, 24, 39):
+        y = torch.randn((3001, D), generator=g, device=cuda_device)
+        want = fused_fb.build_features(y, kernel)
+        got = fused_fb.feature_rows(y, kernel)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), D
+        for off in (1, 2, 3):
+            buf = torch.full((want.numel() + 4,), float("nan"), device=cuda_device)
+            out = buf[off:off + want.numel()].view(want.shape)
+            assert out.data_ptr() % 16 == 4 * off
+            assert lib.fused_fb_build_feats(p(y), p(out), 3001, D, want.shape[1],
+                                            fused_fb.kind_code(kernel), idx, stream) == 0
+            torch.cuda.synchronize()
+            assert torch.equal(out.view(torch.int32), want.view(torch.int32)), (D, off)
+            assert torch.isnan(buf[:off]).all() and torch.isnan(buf[off + want.numel():]).all()
+        calls += 4
+    assert fused_fb.prep_launches("build_feats_kernel") == calls
 
 
 # (N, D, K, kind, X's base past a 16-byte boundary in floats)
@@ -1223,7 +1245,8 @@ def test_wf_forward_runs_the_split_chain_on_its_likelihood_tile(cuda_device, kin
     call, on the array and on a built kind's raw rows) and runs the split
     forward's chain on them: its alpha, s and sh are the split forward's on
     ``likelihood_tile``'s output, bit for bit, at every S, float32 and bf16
-    alpha; the backward reads no tile at K = 64."""
+    alpha; the backward's tiled tier reads no tile, its window tier (F =
+    820) sums one a window of 2^17 / B steps (one at T = 40)."""
     B_, T_ = 300, 40
     g = torch.Generator(device=cuda_device).manual_seed(size)
     log_pi, log_A, W, src, feats, ik = wf_problem(g, B_, T_, 64, kind, size)
@@ -1241,10 +1264,12 @@ def test_wf_forward_runs_the_split_chain_on_its_likelihood_tile(cuda_device, kin
                 ref = split_fb.split_forward(pi_t, A_t, ll, S, dtype)
                 for a, r in zip(got, ref):
                     assert torch.equal(a, r), (S, mode, dtype)
+    S = fused_fb.default_seqs("backward", B_, F, cuda_device)
+    windows = int(fused_fb.wf_backward_tier(S, 64, F) == "window")  # the backward's tiles
     fused_fb.prep_launches("ll_tile_kernel<64>", clear=True)
     fused_fb.fused_backward(A_t, W, feats, *fused_fb.fused_forward(pi_t, A_t, W, feats))
     torch.cuda.synchronize()
-    assert fused_fb.prep_launches("ll_tile_kernel<64>") == 1  # the forward's only
+    assert fused_fb.prep_launches("ll_tile_kernel<64>") == 1 + windows
 
 
 def test_large_k_modes_launch_the_operand_kernels(cuda_device):
@@ -1314,10 +1339,11 @@ def test_wf_backward_makes_one_chain_launch_and_no_operand_round_trip(cuda_devic
     """Up to K = 64 the WF backward's tiled tier (F = 66, 256, and 300 on
     its windows of 8 rows) makes one
     chain launch a call over all of T and launches no outer_partial_kernel,
-    no build_feats_kernel and no widen_kernel, ungated and gated, with bf16
-    alpha and, for the NIW, on the raw observations; the window tier (F =
-    820) one chain launch and one outer sum a window of 2^17 / B steps (two
-    at T = 150), a feature build a window on the raw observations."""
+    no build_feats_kernel, no widen_kernel and no likelihood tile, ungated
+    and gated, with bf16 alpha and, for the NIW, on the raw observations;
+    the window tier (F = 820) one ll_tile_kernel<64>, one chain launch and
+    one outer sum a window of 2^17 / B steps (two at T = 150), a feature
+    build a window on the raw observations."""
     B_, K_ = 1024, 64
     g = torch.Generator(device=cuda_device).manual_seed(size)
     log_pi, log_A, W, src, feats, ik = wf_problem(g, B_, T, K_, kind, size)
@@ -1341,8 +1367,10 @@ def test_wf_backward_makes_one_chain_launch_and_no_operand_round_trip(cuda_devic
         fused_fb.fused_backward(A_t, W, x, *f, False, wg, mode)
         torch.cuda.synchronize()
         got = (fused_fb.backward_launches(), fused_fb.outer_launches(),
-               fused_fb.prep_launches("build_feats_kernel"), fused_fb.prep_launches("widen_kernel"))
-        want = (1, 0, 0, 0) if tiled else (windows, windows, windows if mode else 0, 0)
+               fused_fb.prep_launches("build_feats_kernel"), fused_fb.prep_launches("widen_kernel"),
+               fused_fb.prep_launches("ll_tile_kernel<64>"))
+        want = ((1, 0, 0, 0, 0) if tiled else
+                (windows, windows, windows if mode else 0, 0, windows))
         assert got == want, (kind, size, wg is not None, f[0].dtype, mode)
 
 
@@ -1358,6 +1386,27 @@ def test_wide_f_instances_match_twins(cuda_device, kind, size, K, B):
     built kind's the array mode's, the pick emit_gamma's gamma, bf16 alpha
     float32's rounded; the backward at every S against the twins."""
     check_wide_f(torch.Generator(device=cuda_device).manual_seed(K + B + size), K, kind, size, B)
+
+
+@pytest.mark.parametrize("size", [24, 39])
+def test_wf_window_tier_matches_twins(cuda_device, size):
+    """The K <= 64 WF backward's window tier (the NIW at D = 24 and 39, F =
+    325 and 820, B = 1024, where every built S takes it) by phase 15 (a)'s
+    check: gated and not, with bf16 alpha, with the pick and on the raw
+    observations, the same bits at every S and over a second call, and at
+    every S against the float64 twins."""
+    F = fused_fb.feature_width("niw", size)
+    assert all(fused_fb.wf_backward_tier(S, 64, F) == "window" for S in fused_fb.built_seqs(64))
+    check_wide_f(torch.Generator(device=cuda_device).manual_seed(size), 64, "niw", size, 1024)
+
+
+def test_fused_wf_runs_past_the_old_ceiling(cuda_device):
+    """Phase 15 (a): the fused pair at F > 64 has no ceiling of F left
+    (the window tier holds no W and no feature row): at F = 6,700 for K =
+    64 (past the first design's 6,100) and 4,300 at K = 256 the forward and
+    the backward run, gated and not, and match their float64 twins."""
+    errs = check_fused_past_old_ceiling(cuda_device)
+    assert set(errs) == {(64, 6700), (256, 4300)}
 
 
 @pytest.mark.parametrize("B", WF_BS)

@@ -592,8 +592,10 @@ def test_operand_launchers_run_their_twins(kernel):
     """The large-K statistics' operand launchers (``feature_rows``,
     ``widen_alpha``) run their twins on CPU tensors: the built rows are the
     JAX family's ``ell_features`` of the same observations (float32, the
-    same products), the widened alpha the bf16 values as float32. Each
-    refuses what its kernel does not take."""
+    same products) at D = 4 and at D = 24 and 39, the widths of the WF
+    backward's window tier that the build serves (NIW F = 325 and 820); the
+    widened alpha the bf16 values as float32. Each refuses what its kernel
+    does not take."""
     from pysvihmm_tpu.distributions import diag_gaussian as jdiag
     from pysvihmm_tpu.distributions import niw as jniw
 
@@ -603,10 +605,11 @@ def test_operand_launchers_run_their_twins(kernel):
         torch.testing.assert_close(fused_fb.widen_alpha(a), a.float(), rtol=0, atol=0)
         _raises(lambda: fused_fb.widen_alpha(a.float()), "bf16")
         return
-    y = rng.normal(size=(50, 4)).astype(np.float32)
-    got = fused_fb.feature_rows(torch.from_numpy(y), kernel)
-    want = (jniw if kernel == "niw" else jdiag).ell_features(jnp.asarray(y))
-    assert got.shape == (50, fused_fb.feature_width(kernel, 4))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=0)
+    for D in (4, 24, 39):
+        y = rng.normal(size=(50, D)).astype(np.float32)
+        got = fused_fb.feature_rows(torch.from_numpy(y), kernel)
+        want = (jniw if kernel == "niw" else jdiag).ell_features(jnp.asarray(y))
+        assert got.shape == (50, fused_fb.feature_width(kernel, D))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=0)
     _raises(lambda: fused_fb.feature_rows(torch.from_numpy(y), None), "built kind")
     _raises(lambda: fused_fb.feature_rows(torch.from_numpy(y[None]), kernel), "built kind")

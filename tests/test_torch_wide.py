@@ -42,6 +42,9 @@ torch.set_num_threads(1)
 # name -> (port family, JAX family, D or V)
 WIDE = {"niw_d10": (GaussianNIW, jem.GaussianNIW, 10),
         "multinomial_v100": (MultinomialDirichlet, jem.MultinomialDirichlet, 100)}
+# a width of the fused WF backward's window tier on the card (F above about
+# 310): the Gaussian-NIW at D = 24, F = 325
+WINDOW_WIDE = {"niw_d24": (GaussianNIW, jem.GaussianNIW, 24)}
 
 
 # JAX's E-step by (shape name, gated, route): its interpret-mode compile is
@@ -80,8 +83,8 @@ def _data(name, B, T, K, seed):
     z[:, 0] = rng.integers(0, K, size=B)
     for t in range(1, T):
         z[:, t] = np.where(rng.random(B) < 0.85, z[:, t - 1], rng.integers(0, K, size=B))
-    size = WIDE[name][2]
-    if name == "niw_d10":
+    fam, _, size = {**WIDE, **WINDOW_WIDE}[name]
+    if fam is GaussianNIW:
         return (rng.normal(scale=3.0, size=(K, size))[z]
                 + rng.normal(size=(B, T, size))).astype(np.float32)
     probs = rng.dirichlet(np.full(size, 0.3), size=K)
@@ -95,8 +98,24 @@ def test_wide_features_match_jax_fused(jax_fused, name, route, gated):
     """batch_local_step on the port's route against JAX's route of the same
     name (the fused one, or the duplex one under ``PYSVIHMM_DUPLEX=1``),
     gamma included, ungated and gated by a kept-mask."""
+    _check_against_jax(jax_fused, name, route, gated)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_window_tier_width_matches_jax_fused(jax_fused, gated):
+    """The fused route at a width of the WF backward's window tier (the
+    Gaussian-NIW at D = 24, F = 325, where on the card each window of 2^17 /
+    B steps runs a likelihood tile, the chain on it and eacc's outer sums)
+    against JAX's fused route, ungated and gated, at the tolerances above:
+    the twin the card holds the window tier's kernels to."""
+    _check_against_jax(jax_fused, "niw_d24", "fused", gated)
+
+
+def _check_against_jax(jax_fused, name, route, gated):
+    """batch_local_step on ``route`` against JAX's route of that name at
+    B = 3, T = 8, K = 4, float32 on both sides."""
     B, T, K = 3, 8, 4
-    fam, jfam, size = WIDE[name]
+    fam, jfam, size = {**WIDE, **WINDOW_WIDE}[name]
     obs = _data(name, B, T, K, seed=size)
     kw = dict(num_symbols=size) if fam is MultinomialDirichlet else dict(obs_dim=size)
     jprior = jhmm.make_prior(K, jfam, dtype=jnp.float32, **kw)

@@ -9,9 +9,10 @@ fails:
 1. device:  the card's name and power limit from nvidia-smi; the float32
             matmul policy.
 2. build:   compile ``pysvihmm_tpu_torch/csrc/fused_fb.cu``,
-            ``split_fb.cu``, ``duplex_fb.cu`` and ``split_probe.cu`` with
-            nvcc, all at once; ptxas's registers, shared memory and spills
-            for every kernel.
+            ``split_fb.cu``, ``duplex_fb.cu`` and ``split_probe.cu`` (and
+            the other units of each library, ``_build.UNITS``) with nvcc,
+            all at once; ptxas's registers, shared memory and spills for
+            every kernel.
 3. kernels: both fused E-step kernels against their plain PyTorch twins on
             the card, at a small shape and at B=1024, T=1000, K=64, D=8,
             with ``emit_gamma`` True and False and the backward gated and
@@ -288,6 +289,30 @@ fails:
             beside torch.matmul, at F = 66-300 (K = 64) and 66, 256 (K =
             128, 256) and in-kernel at D = 10, beside twins, bounds and the
             duplex, fused and split-route E-steps.
+17. K above 256: the fused and split pairs' XL instances (KP = 512 and
+            1024, A~ read from the L2 every step; csrc/fb_xl.cuh): their
+            registers, spills and blocks an SM. (a), (b) At K = 257, 384,
+            512, 513 and 1024 and (B, T) = (5, 40) and (2048, 150), NIW data
+            at D = 8: the split forward at every built S on the tile's
+            likelihoods, the fused forward at every S those same alpha, s
+            and sh, in-kernel NIW the array's bits; the split and the fused
+            backward, gated and not (the fused one with gamma emitted both
+            ways and in-kernel NIW), the same bits at every S and over a
+            second call; the default S against the float64 twins; the XL
+            launches counted. A multinomial at V = 300, K = 300 on "auto"
+            (the split pair) against "scan", gated and not. (c) The outer
+            sums' 3xTF32 gate (phase 3's) at K = 512 and 1024. (d) The main
+            path at B = 1024, T = 1000, K = 512, D = 8: 3 batch-VB
+            iterations on "auto" (ELBO non-decreasing), 5 windowed SVI steps
+            on "auto" at W = 70 (parameters finite, every psi factorisable),
+            one E-step on "split", one E-step at K = 1024 on "auto" and on
+            "split", each XL instance launched once a call and no other
+            E-step kernel; the routes' statistics against each other. (e)
+            Times: the E-step on "auto" and "split" at K = 512 (device time
+            by kernel) and 1024, the SVI step, each XL kernel at K = 512 and
+            1024 beside its twin and bound, the split pair at every S, the
+            tile of one window and the outer sums of one backward beside
+            torch.matmul.
 
 The last lines are the card line, one JSON line describing the kernels (every
 kernel and instance tier: K <= 64, KP = 128, KP = 256, the split and duplex
@@ -893,9 +918,10 @@ def outer_errors(X, Y) -> tuple[float, float, float]:
     return err / scale, (mm.double() - ref).abs().max().item() / scale, err
 
 
-def check_outer_sums(gen) -> dict[int, float]:
+def check_outer_sums(gen, ks=LARGE_K) -> dict[int, float]:
     """Phase 3, the precision gate of the large-K outer sums (3xTF32 on the
-    tensor cores), at B=1024, T=1000, D=8 (F=45) for each K of LARGE_K, on
+    tensor cores), at B=1024, T=1000, D=8 (F=45) for each K of ``ks``
+    (phase 17: the XL tiers' 512 and 1024), on
     the windows one backward sums (:func:`stat_windows` of the fused
     forward's outputs): on every window, acc's and eacc's max |err| / max
     |ref| against float64 at most OUTER_RATIO times float32 torch.matmul's
@@ -906,7 +932,7 @@ def check_outer_sums(gen) -> dict[int, float]:
     from pysvihmm_tpu_torch.messages import fused_fb as ff
 
     errs = {}
-    for K_ in LARGE_K:
+    for K_ in ks:
         log_pi, log_A, W, feats = random_problem(gen, B, T, K_, D)
         pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
         wins = stat_windows(A_t, W, feats, *ff.fused_forward(pi_t, A_t, W, feats))
@@ -936,10 +962,10 @@ def check_outer_sums(gen) -> dict[int, float]:
     return errs
 
 
-def time_outer_sums(gen) -> tuple[dict, dict, dict, dict]:
+def time_outer_sums(gen, ks=LARGE_K) -> tuple[dict, dict, dict, dict]:
     """Phase 5: the outer sums alone over every window of one backward (acc
     and eacc, :func:`stat_windows`) at B=1024, T=1000, F=45 for each K of
-    LARGE_K, by CUDA events, beside their twin and one torch.matmul(X.T, Y)
+    ``ks`` (phase 17: 512 and 1024), by CUDA events, beside their twin and one torch.matmul(X.T, Y)
     a window in float32 (TF32 off, the yardstick; TF32 on is logged for
     reference). Returns (ms, twin ms, matmul ms, bounds) by K."""
     import torch
@@ -950,7 +976,7 @@ def time_outer_sums(gen) -> tuple[dict, dict, dict, dict]:
     from pysvihmm_tpu_torch.utils.roofline import bound, kernel_work
 
     ms, plain_ms, lib_ms, bounds = {}, {}, {}, {}
-    for K_ in LARGE_K:
+    for K_ in ks:
         log_pi, log_A, W, feats = random_problem(gen, B, T, K_, D)
         pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
         wins = stat_windows(A_t, W, feats, *ff.fused_forward(pi_t, A_t, W, feats))
@@ -2402,12 +2428,11 @@ def synced_s(fn):
     return out, time.perf_counter() - t0
 
 
-def kineto_busy(fn) -> tuple[float, float, int]:
-    """:func:`device_busy` for calls of some 10^5 kernels: one call of fn
-    under torch.profiler (the card's activity only), the device time summed
-    over the profiler's raw events instead of its parsed function events,
-    which take about a minute to build at 3 x 10^5 kernels. (wall ms, device
-    busy ms, kernel launches)."""
+def device_events(fn) -> tuple[float, list]:
+    """One call of fn under torch.profiler (the card's activity only): (wall
+    ms, the profiler's raw device events), read instead of its parsed
+    function events, which take about a minute to build at 3 x 10^5
+    kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2417,12 +2442,19 @@ def kineto_busy(fn) -> tuple[float, float, int]:
         fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    dev = [e for e in prof.profiler.kineto_results.events()
-           if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return wall, [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
+def kineto_busy(fn) -> tuple[float, float, int]:
+    """:func:`device_busy` for calls of some 10^5 kernels, over
+    device_events: (wall ms, device busy ms, kernel launches)."""
+    wall, dev = device_events(fn)
     return wall, sum(e.duration_ns() for e in dev) / 1e6, len(dev)
 
 
-PROFILER_TRIES = 3  # device_ms: profiler runs before it falls back to CUDA events
+PROFILER_TRIES = 3  # device_ms, window_parts, kernel_split: profiler runs before they give up
+PROFILED_SHARE = 0.5  # kernel_split: the least device share of a call's CUDA-event time it keeps
 WINDOW_CALLS = 5  # window_parts: the calls a profiled run takes
 
 
@@ -4369,7 +4401,6 @@ def window_parts(call, A_t, W, feats, fwd) -> str:
     events on the call's windows (fused_fb.likelihood_tile, outer_sum) and
     the chain is the call's time less theirs, which the line says."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from pysvihmm_tpu_torch.messages import fused_fb as ff
 
@@ -4382,13 +4413,7 @@ def window_parts(call, A_t, W, feats, fwd) -> str:
              "partial sums": ("sum_partials_kernel", windows + 1)}
     call()
     for _ in range(PROFILER_TRIES):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(WINDOW_CALLS):
-                call()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.profiler.kineto_results.events()
-               if e.device_type() == torch.autograd.DeviceType.CUDA]
+        _, evs = device_events(lambda: [call() for _ in range(WINDOW_CALLS)])
         if evs:
             ms = {}
             for k, (n, launches) in names.items():
@@ -5105,6 +5130,488 @@ def duplex_wf_phase(dev) -> tuple[list[dict], list[str]]:
     return rows, lines
 
 
+# ---------------------------------------------------------------- phase 17
+# The fused and split pairs above 256 states: the XL instances
+# (csrc/fb_xl.cuh; KP = 512 and 1024, S = 1, 2, 4, 8), A~ read from the L2
+# every step, the fused pair on likelihood tiles a window at a time.
+XL_KS = (257, 384, 512, 513, 1024)  # both ends of both XL tiers
+XL_SHAPES = ((5, 40), (2048, 150))  # (B, T); at B = 2048 the statistics take windows of 64, 64, 22
+XL_MAIN_K = 512  # the main path's K: bench.py's shape (B=1024, T=1000, D=8, F=45) at K = 512
+XL_VB_ITERS = 3  # (d): batch-VB iterations on "auto"
+XL_SVI_STEPS = 5  # (d): windowed SVI steps on "auto" (W = SVI_W, B = 1024)
+XL_V = 300  # (a): the multinomial whose "auto" runs the split pair (above 256 symbols)
+XL_TIME_ITERS = 3  # (e): calls a kernel's mean time takes (CUDA events, after a warm-up)
+# the kernels line's rows of phase 17: (row, launcher, tier, source, replaces)
+XL_ROWS = tuple(
+    (f"{name}<{kp}>", launcher, kp, src, replaces)
+    for kp in (512, 1024)
+    for name, launcher, src, replaces in (
+        ("fused_fwd_xl_kernel", "fused_fwd_kernel", "fused_fb_xl.cu", "pallas_fb.py:516"),
+        ("fused_bwd_xl_kernel", "fused_bwd_kernel", "fused_fb_xl.cu", "pallas_fb.py:577"),
+        ("split_fwd_xl_kernel", "split_fwd_kernel", "split_fb_xl.cu", "pallas_fb.py:339"),
+        ("split_bwd_xl_kernel", "split_bwd_kernel", "split_fb_xl.cu", "pallas_fb.py:406")))
+
+
+def xl_launchers() -> dict:
+    """The launchers of the XL instances, by the kernel names of kernel_counts."""
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.messages import split_fb as sf
+
+    return {"fused_fwd_kernel": ff.fused_forward, "fused_bwd_kernel": ff.fused_backward,
+            "split_fwd_kernel": sf.split_forward, "split_bwd_kernel": sf.split_backward}
+
+
+def xl_counts() -> dict:
+    """Launches of the XL instances since the last reset, by (kernel, KP)."""
+    return {(name, kp): n for name, fn in xl_launchers().items()
+            for kp, n in fn.xl_launches.items()}
+
+
+def check_xl(gen, K_, B_, T_) -> None:
+    """Phase 17 (a) and (b) at one shape: NIW data at D = 8 (F = 45). Bit for
+    bit: the split forward at every built S on the tile's likelihoods (all
+    rows at once), the fused forward at every S (its own tiles, a window at
+    a time) those same alpha, s and sh, and in-kernel NIW the array's; the
+    split backward and the fused backward (emit_gamma both ways, gated and
+    not) the same bits at every S, in-kernel NIW the array's, and acc and
+    eacc over a second call. The default S against the float64 twins
+    (compare_estep's tolerances). Each launch counted as an XL instance."""
+    import torch
+
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.messages import split_fb as sf
+    from pysvihmm_tpu_torch.messages.split_fb import exp_params
+
+    log_pi, log_A, W, obs, feats, _ = wf_problem(gen, B_, T_, K_, "niw", D)
+    F_ = W.shape[0]
+    pi_t, A_t = exp_params(log_pi, log_A)
+    w = svi_masks(gen, B_, T_, max(1, (5 * T_) // 7))
+    ll = ff.likelihood_tile(feats.view(T_ * B_, F_), W).view(T_, B_, K_)
+    d64 = [x.double() for x in (pi_t, A_t, W, feats, ll, w)]
+    pi64, A64, W64, f64, ll64, w64 = d64
+    seqs = ff.built_seqs(K_)
+    before = xl_counts()
+
+    def close(name, got, ref, rtol, atol):
+        return compare(name, got.double(), ref, rtol, atol)
+
+    fwd = {S: sf.split_forward(pi_t, A_t, ll, S=S) for S in seqs}
+    for S in seqs:
+        require_same(f"K={K_} split forward S={S} against S={seqs[0]}", fwd[S], fwd[seqs[0]])
+        require_same(f"K={K_} fused forward S={S} against the split forward",
+                     ff._launch_forward(S, pi_t, A_t, W, feats), fwd[S])
+    require_same(f"K={K_} fused forward, in-kernel NIW, against the array's",
+                 ff.fused_forward(pi_t, A_t, W, obs, "niw"), fwd[seqs[0]])
+    a, s, sh = fwd[sf.default_seqs("forward", B_, gen.device, K=K_)]
+    ra, rs, rsh = sf.split_forward_reference(pi64, A64, ll64)
+    close("split forward alpha against its float64 twin", a, ra, 1e-5, 1e-6)
+    close("log_c against the float64 twin", torch.log(s) + sh, torch.log(rs) + rsh, 2e-6, 1e-4)
+    for gated in (False, True):
+        wk, wr = (w, w64) if gated else (None, None)
+        bwd = {S: sf.split_backward(A_t, ll, a, s, sh, wk, S=S) for S in seqs}
+        for S in seqs:
+            require_same(f"K={K_} split backward gated={gated} S={S}", bwd[S], bwd[seqs[0]])
+        require_same(f"K={K_} split backward gated={gated}, a second call",
+                     sf.split_backward(A_t, ll, a, s, sh, wk), bwd[seqs[0]])
+        rg, racc = sf.split_backward_reference(A64, ll64, a.double(), s.double(), sh.double(), wr)
+        close(f"split backward gated={gated} gamma against its float64 twin", bwd[seqs[0]][0], rg,
+              0.0, 5e-5)
+        close("acc", bwd[seqs[0]][1], racc, 1e-4, 1e-3)
+        fb = {S: ff._launch_backward(S, A_t, W, feats, a, s, sh, True, wk) for S in seqs}
+        for S in seqs:
+            require_same(f"K={K_} fused backward gated={gated} S={S}", fb[S], fb[seqs[0]])
+            require_same(f"K={K_} fused backward gated={gated} S={S}, no gamma",
+                         ff._launch_backward(S, A_t, W, feats, a, s, sh, False, wk),
+                         (None, *fb[S][1:]))
+        require_same(f"K={K_} fused backward gated={gated}, in-kernel NIW",
+                     ff.fused_backward(A_t, W, obs, a, s, sh, True, wk, "niw"), fb[seqs[0]])
+        require_same(f"K={K_} fused backward gated={gated}, a second call",
+                     ff.fused_backward(A_t, W, feats, a, s, sh, True, wk), fb[seqs[0]])
+        ref = ff.backward_reference(A64, W64, f64, a.double(), s.double(), sh.double(), True, wr)
+        got = fb[seqs[0]]
+        close(f"fused backward gated={gated} gamma against its float64 twin", got[0], ref[0],
+              0.0, 5e-5)
+        close("gamma0", got[1], ref[1], 0.0, 5e-5)
+        close("acc", got[2], ref[2], 1e-4, 1e-3)
+        close("eacc", got[3], ref[3], 3e-3, 2e-3)
+        del bwd, fb, ref, got
+    torch.cuda.synchronize()
+    after = xl_counts()
+    kp = 512 if K_ <= 512 else 1024
+    ran = {k: after.get(k, 0) - before.get(k, 0) for k in after if k[1] == kp}
+    require(all(ran.get((name, kp), 0) > 0 for name in xl_launchers()),
+            f"K={K_}: an XL instance at KP={kp} did not run: {ran}")
+    log(f"   K={K_}, (B, T) = ({B_}, {T_}): every output the same bits at S = {seqs}, the fused "
+        f"forward the split forward's, in-kernel NIW the array's; XL launches {ran}")
+    del fwd, ll, feats, obs, d64
+    torch.cuda.empty_cache()
+
+
+def check_xl_multinomial(dev) -> None:
+    """Phase 17 (a): a multinomial at V = XL_V symbols and K = XL_V states on
+    "auto", which runs the split pair (JAX's rule above 256 symbols) at its
+    XL tier: batch_local_step against "scan", gated and not, and the split
+    pair's XL instances launched once each a call."""
+    import torch
+
+    from pysvihmm_tpu_torch.data.synthetic import gen_multinomial_dataset
+    from pysvihmm_tpu_torch.distributions import MultinomialDirichlet
+    from pysvihmm_tpu_torch.engines.base import batch_local_step
+    from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
+
+    gen = torch.Generator(device=dev).manual_seed(92)
+    obs = gen_multinomial_dataset(gen, XL_V, XL_V, 64, 200)[0]
+    prior = make_prior(XL_V, MultinomialDirichlet, num_symbols=XL_V, device=dev)
+    params = init_params(gen, prior, MultinomialDirichlet, obs)
+    w = svi_masks(gen, 64, 200, 140).transpose(0, 1).contiguous()
+    for weights in (None, w):
+        ss, _ = batch_local_step(params, MultinomialDirichlet, obs, "scan", weights=weights,
+                                 need_gamma=False)
+        reset_kernel_counts()
+        sk, _ = batch_local_step(params, MultinomialDirichlet, obs, "auto", weights=weights,
+                                 need_gamma=False)
+        torch.cuda.synchronize()
+        counts = xl_counts()
+        log(f"   multinomial V={XL_V}, K={XL_V} on auto vs scan, gated={weights is not None}: "
+            f"XL launches {counts}")
+        require(counts == {("split_fwd_kernel", 512): 1, ("split_bwd_kernel", 512): 1},
+                f"the multinomial at V={XL_V} on auto did not run the split pair's XL tier once")
+        compare_local_stats(sk, ss)
+
+
+def xl_main_path(dev) -> tuple[dict, dict, dict]:
+    """Phase 17 (d), the main path at full width, the counts set to 0 just
+    before and read just after: XL_VB_ITERS batch-VB iterations on "auto" at
+    B = 1024, T = 1000, K = XL_MAIN_K, D = 8 (ELBO non-decreasing);
+    XL_SVI_STEPS windowed SVI steps on "auto" at K = XL_MAIN_K, W = SVI_W,
+    B = 1024 on a T = SVI_T chain (every parameter finite, every NIW psi
+    factorisable, after every step); one E-step on "split" at K = XL_MAIN_K;
+    one E-step at K = 1024 on "auto" and one on "split" on the same data.
+    Then: each XL instance launched as often as its route's calls, no other
+    E-step kernel, the tiles, outer sums and chain launches counted; the
+    split route's statistics against "auto"'s at both K (compare_local_stats,
+    outside the counted run). Returns (XL launches by (kernel, KP), the
+    library's counts by KP, the E-step inputs for (e))."""
+    import torch
+
+    from pysvihmm_tpu_torch.data.synthetic import gen_gaussian_dataset
+    from pysvihmm_tpu_torch.distributions import GaussianNIW
+    from pysvihmm_tpu_torch.engines import batch_vb, svi
+    from pysvihmm_tpu_torch.engines.base import batch_local_step
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.models.hmm import init_params, make_prior
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(90)
+    obs = gen_gaussian_dataset(gen, XL_MAIN_K, D, B, T, mean_scale=0.5, cov_scale=1.0)[0]
+    prior = make_prior(XL_MAIN_K, GaussianNIW, obs_dim=D, device=dev)
+    p0 = init_params(gen, prior, GaussianNIW, obs)
+    prior_x = make_prior(1024, GaussianNIW, obs_dim=D, device=dev)
+    p_x = init_params(gen, prior_x, GaussianNIW, obs)
+    chain = gen_gaussian_dataset(gen, XL_MAIN_K, D, 1, SVI_T, mean_scale=0.5, cov_scale=1.0)[0][0]
+    p_c = init_params(gen, prior, GaussianNIW, chain)
+    cfg = svi.SVIConfig(batch_size=B, subchain_len=SVI_L, buffer=SVI_BUF)
+    step = svi.make_step(GaussianNIW, cfg, SVI_T, method="auto")
+    state = svi.init_state(p_c, torch.Generator(device=dev).manual_seed(91))
+    torch.cuda.synchronize()
+    log(f"  (d) data and inits on the card in {time.perf_counter() - t0:.1f} s (set-up)")
+
+    reset_kernel_counts()
+    ff.forward_launches(clear=True)
+    ff.backward_launches(clear=True)
+    t1 = time.perf_counter()
+    params, elbos = batch_vb.fit(p0, prior, obs, GaussianNIW, num_iters=XL_VB_ITERS,
+                                 method="auto")
+    for i in range(XL_SVI_STEPS):
+        state, m = step(state, prior, chain)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(m["noisy_elbo"])) and bool(torch.isfinite(m["rho"])),
+                f"(d) SVI step {i} at K={XL_MAIN_K}: non-finite noisy ELBO or rho")
+        require_sane_params(state.params, f"(d) SVI step {i} at K={XL_MAIN_K}")
+    split_512, _ = batch_local_step(params, GaussianNIW, obs, "split", need_gamma=False)
+    torch.cuda.synchronize()
+    mid = {"tiles": ff.prep_launches("ll_tile_kernel<128>"), "outer": ff.outer_launches()}
+    auto_1024, _ = batch_local_step(p_x, GaussianNIW, obs, "auto", need_gamma=False)
+    split_1024, _ = batch_local_step(p_x, GaussianNIW, obs, "split", need_gamma=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts, calls = xl_counts(), kernel_counts()
+    lib = {"fused forward chain launches": ff.forward_launches(),
+           "fused backward chain launches": ff.backward_launches(),
+           ("ll_tile_kernel<128>", 512): mid["tiles"],
+           ("ll_tile_kernel<128>", 1024): ff.prep_launches("ll_tile_kernel<128>") - mid["tiles"],
+           ("outer_partial_kernel", 512): mid["outer"],
+           ("outer_partial_kernel", 1024): ff.outer_launches() - mid["outer"]}
+    log(f"  (d) the main path in {wall:.1f} s: XL launches {counts}; all launches "
+        f"{ {k: n for k, n in calls.items() if n} }; the libraries' {lib}")
+    n_auto = XL_VB_ITERS + XL_SVI_STEPS
+    want = {("fused_fwd_kernel", 512): n_auto, ("fused_bwd_kernel", 512): n_auto,
+            ("split_fwd_kernel", 512): 1, ("split_bwd_kernel", 512): 1,
+            ("fused_fwd_kernel", 1024): 1, ("fused_bwd_kernel", 1024): 1,
+            ("split_fwd_kernel", 1024): 1, ("split_bwd_kernel", 1024): 1}
+    require(counts == want, f"(d) XL launches {counts}, expected {want}")
+    require(all(n == 0 for k, n in calls.items() if k not in {k for k, _ in want}),
+            f"(d) a kernel other than the fused and split pairs ran: {calls}")
+    require(all(n > 0 for n in lib.values()), f"(d) a tile, outer sum or chain did not run: {lib}")
+
+    def windows(T_):  # the chain launches of one fused call: fbs::WideStats' windows
+        return -(-T_ // max(1, min(T_, WIDE_ROWS // B)))
+    chains = (XL_VB_ITERS + 1) * windows(T) + XL_SVI_STEPS * windows(SVI_W)
+    require(lib["fused forward chain launches"] == lib["fused backward chain launches"] == chains,
+            f"(d) the fused chains launched {lib}, expected {chains} each (one a window)")
+    require_ascending(elbos, f"(d) VB at K={XL_MAIN_K}")
+    log("   ELBO per iteration: " + ", ".join(f"{x:.6e}" for x in elbos.double().cpu().tolist())
+        + f"; {XL_SVI_STEPS} SVI steps: every parameter finite, every psi factorisable")
+    for K_, p, sk in ((XL_MAIN_K, params, split_512), (1024, p_x, split_1024)):
+        sa, _ = batch_local_step(p, GaussianNIW, obs, "auto", need_gamma=False)
+        torch.cuda.synchronize()
+        log(f"   K={K_}: batch_local_step on split vs auto")
+        compare_local_stats(sk, sa)
+    del auto_1024, split_1024, split_512
+    return counts, lib, {"obs": obs, "params": params, "p_x": p_x, "prior": prior,
+                         "state": state, "step": step, "chain": chain}
+
+
+def xl_twin_err(got, ref) -> float:
+    """An XL launcher's outputs against its twin's on the same inputs, at
+    phase 3's full-width tolerances: a forward's (alpha, s, sh), the fused
+    backward's (gamma, gamma0, acc, eacc) or the split backward's (gamma,
+    acc). Returns the forwards' log_c error, the backwards' gamma error."""
+    import torch
+
+    if len(got) == 3:
+        compare("alpha", got[0], ref[0], 0.0, 5e-5)
+        return compare("log_c", torch.log(got[1]) + got[2], torch.log(ref[1]) + ref[2], 2e-6, 1e-4)
+    tol = {"gamma": (0.0, 5e-5), "gamma0": (0.0, 5e-5), "acc": (1e-4, 1e-3), "eacc": (3e-3, 2e-3)}
+    names = ("gamma", "gamma0", "acc", "eacc") if len(got) == 4 else ("gamma", "acc")
+    return [compare(n, x, r, *tol[n]) for n, x, r in zip(names, got, ref)][0]
+
+
+def kernel_split(fn, ms: float) -> str:
+    """Where the device time of one call of fn goes, by kernel name, from
+    torch.profiler's raw events (device_events) of one call after a warm-up.
+    ms is the call's time by CUDA events. The profiler at times records
+    few or no kernels of a run: a run whose device time is under
+    PROFILED_SHARE of ms is made again, up to PROFILER_TRIES times, and
+    after that the line says the split was not measured."""
+    fn()
+    busy = 0.0
+    for _ in range(PROFILER_TRIES):
+        _, evs = device_events(fn)
+        busy = sum(e.duration_ns() for e in evs) / 1e6
+        if busy >= PROFILED_SHARE * ms:
+            split = {}
+            for e in evs:
+                split[e.name()] = split.get(e.name(), 0.0) + e.duration_ns() / 1e6
+            top = sorted(split.items(), key=lambda kv: -kv[1])[:6]
+            return (f"device {busy:.3f} ms (torch.profiler): "
+                    + ", ".join(f"{n[:48]} {t:.3f}" for n, t in top))
+    return (f"device split not measured: the profiler recorded {busy:.3f} of {ms:.3f} ms "
+            f"in each of {PROFILER_TRIES} runs")
+
+
+def xl_time(dev, main: dict) -> tuple[dict, list[str]]:
+    """Phase 17 (d)'s and (e)'s times, by CUDA events (XL_TIME_ITERS calls
+    after a warm-up): the E-step at B = 1024, T = 1000, K = XL_MAIN_K on
+    "auto" and "split" with a device-time split by kernel (torch.profiler)
+    and at K = 1024; the SVI step at K = XL_MAIN_K; each XL kernel as its
+    launcher runs it (the fused ones with their tiles and, the backward, its
+    transposed A~ and outer sums) at K = 512 and 1024, each first held to
+    its float32 twin on the same inputs at that shape (xl_twin_err; the
+    backwards with gamma, gated and not), every S of the split pair at
+    K = 512, twins (2 calls) and bounds; the outer sums of one backward and
+    the tile of one window at K = 512 beside torch.matmul. Returns the
+    rows' numbers (max_abs_err among them) by name and the log lines."""
+    import torch
+
+    from pysvihmm_tpu_torch.distributions import GaussianNIW
+    from pysvihmm_tpu_torch.engines.base import batch_local_step
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.messages import split_fb as sf
+    from pysvihmm_tpu_torch.messages.split_fb import exp_params
+    from pysvihmm_tpu_torch.scripts.debug_split import cuda_ms
+    from pysvihmm_tpu_torch.utils.roofline import bound, kernel_work
+
+    rows, lines = {}, []
+
+    def say(line):
+        lines.append(line)
+        log(f"  {line}")
+
+    obs = main["obs"]
+    for K_, p in ((XL_MAIN_K, main["params"]), (1024, main["p_x"])):
+        for route in ("auto", "split"):
+            def estep():
+                st, _ = batch_local_step(p, GaussianNIW, obs, route, need_gamma=False)
+                return st.log_z
+            ms = cuda_ms(estep, XL_TIME_ITERS if K_ == XL_MAIN_K else 1, warmup=1)
+            line = (f"E-step on {route} at (B, T, K, D) = ({B}, {T}, {K_}, {D}): {ms:.3f} ms, "
+                    f"{B / (ms / 1e3):.1f} seq/s")
+            if K_ == XL_MAIN_K:
+                line += "; " + kernel_split(estep, ms)
+            say(line)
+    state = main["state"]
+
+    def svi_one():
+        nonlocal state
+        state, _ = main["step"](state, main["prior"], main["chain"])
+
+    say(f"SVI step on auto at K={XL_MAIN_K}, W={SVI_W}, B={B}: "
+        f"{cuda_ms(svi_one, XL_SVI_STEPS):.3f} ms")
+    require_sane_params(state.params, "the timed SVI steps")
+
+    gen = torch.Generator(device=dev).manual_seed(93)
+    for K_ in (XL_MAIN_K, 1024):
+        log_pi, log_A, W, feats = random_problem(gen, B, T, K_, D)
+        F_ = W.shape[0]
+        pi_t, A_t = exp_params(log_pi, log_A)
+        ll = ff.likelihood_tile(feats.view(T * B, F_), W).view(T, B, K_)
+        a, s, sh = sf.split_forward(pi_t, A_t, ll)
+        w = svi_masks(gen, B, T, (5 * T) // 7)
+        timed = {
+            "fused_fwd_xl_kernel": (lambda: ff.fused_forward(pi_t, A_t, W, feats),
+                                    lambda: ff.forward_reference(pi_t, A_t, W, feats),
+                                    "fused_fwd_kernel"),
+            "fused_bwd_xl_kernel": (lambda: ff.fused_backward(A_t, W, feats, a, s, sh),
+                                    lambda: ff.backward_reference(A_t, W, feats, a, s, sh),
+                                    "fused_bwd_kernel"),
+            "split_fwd_xl_kernel": (lambda: sf.split_forward(pi_t, A_t, ll),
+                                    lambda: sf.split_forward_reference(pi_t, A_t, ll),
+                                    "split_fwd_kernel"),
+            "split_bwd_xl_kernel": (lambda: sf.split_backward(A_t, ll, a, s, sh),
+                                    lambda: sf.split_backward_reference(A_t, ll, a, s, sh),
+                                    "split_bwd_kernel"),
+        }
+        # each launcher against its float32 twin at this shape (128 blocks of 8, the
+        # statistics' 8 windows and the forward's carry through all of them), as phase 3
+        # holds K = 128 and 256 at full width: the backwards with gamma, gated and not
+        checked = {
+            "fused_bwd_xl_kernel": lambda wk: (
+                ff.fused_backward(A_t, W, feats, a, s, sh, True, wk),
+                ff.backward_reference(A_t, W, feats, a, s, sh, True, wk)),
+            "split_bwd_xl_kernel": lambda wk: (
+                sf.split_backward(A_t, ll, a, s, sh, wk),
+                sf.split_backward_reference(A_t, ll, a, s, sh, wk)),
+        }
+        for name, (kernel, plain, work) in timed.items():
+            log(f"   {name}<{K_}> against its twin at (B, T, K, F) = ({B}, {T}, {K_}, {F_})")
+            err = 0.0
+            for wk in ((None, w) if name in checked else (None,)):
+                got, ref = checked[name](wk) if name in checked else (kernel(), plain())
+                err = max(err, xl_twin_err(got, ref))
+                del got, ref
+            torch.cuda.empty_cache()
+            ms = cuda_ms(kernel, XL_TIME_ITERS, warmup=1)
+            p_ms = cuda_ms(plain, 2, warmup=1)
+            b_ms, b_by = bound(*kernel_work(work, B, T, K_, F_))
+            rows[f"{name}<{K_}>"] = {"ms": ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                                     "bound_by": b_by, "library_ms": None, "max_abs_err": err}
+            which = "forward" if "fwd" in name else "backward"
+            S = (ff.default_seqs(which, B, F_, dev, K=K_) if name.startswith("fused")
+                 else sf.default_seqs(which, B, dev, K=K_))
+            say(f"{name}<{K_}> (S={S}) at (B, T, K, F) = ({B}, {T}, {K_}, {F_}): {ms:.3f} ms, "
+                f"twin {p_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), {100 * b_ms / ms:.1f} % of it")
+        if K_ == XL_MAIN_K:
+            say(f"fused backward at K={K_}: " + kernel_split(
+                lambda: ff.fused_backward(A_t, W, feats, a, s, sh),
+                rows[f"fused_bwd_xl_kernel<{K_}>"]["ms"]))
+            for S in sf.built_seqs("forward", K_):
+                t_f = cuda_ms(lambda: sf.split_forward(pi_t, A_t, ll, S=S), 2, warmup=1)
+                t_b = cuda_ms(lambda: sf.split_backward(A_t, ll, a, s, sh, S=S), 2, warmup=1)
+                info = {k: sf.kernel_info(k, S, dev, K=K_) for k in ("forward", "backward")}
+                say(f"split pair at K={K_}, S={S}: forward {t_f:.3f} ms, backward {t_b:.3f} ms; "
+                    + "; ".join(f"{k} {i['registers']} registers, {i['local_bytes']} bytes "
+                                f"spilled, {i['blocks_per_sm']} blocks an SM"
+                                for k, i in info.items()))
+            # the tile of one window and the outer sums of one backward
+            n = (WIDE_ROWS // B) * B
+            X = feats.view(T * B, F_)[:n]
+            t_l = cuda_ms(lambda: ff.likelihood_tile(X, W), 20, warmup=2)
+            p_l = cuda_ms(lambda: ff.likelihood_tile_reference(X, W), 2, warmup=1)
+            lib_l = cuda_ms(lambda: torch.matmul(X, W), 20, warmup=2)
+            err = compare("the tile against its float64 twin", ff.likelihood_tile(X, W).double(),
+                          ff.likelihood_tile_reference(X.double(), W.double()), 1e-5, 1e-4)
+            b_ms, b_by = bound(*kernel_work("ll_tile_kernel", n, 1, K_, F_))
+            rows[f"ll_tile_kernel<128> (K={K_})"] = {
+                "ms": t_l, "plain_ms": p_l, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib_l, "max_abs_err": err}
+            say(f"ll_tile_kernel<128> over one window ({n} rows, F={F_}, K={K_}): {t_l:.4f} ms, "
+                f"twin {p_l:.3f} ms, torch.matmul {lib_l:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        del a, s, sh, ll, feats, timed
+        torch.cuda.empty_cache()
+    o_ms, o_plain, o_lib, o_bounds = time_outer_sums(torch.Generator(device=dev).manual_seed(94),
+                                                     (XL_MAIN_K, 1024))
+    for K_ in (XL_MAIN_K, 1024):
+        rows[f"outer_partial_kernel (K={K_})"] = {
+            "ms": o_ms[K_], "plain_ms": o_plain[K_], "bound_ms": o_bounds[K_][0],
+            "bound_by": o_bounds[K_][1], "library_ms": o_lib[K_]}
+        say(f"outer sums of one backward at K={K_}: {o_ms[K_]:.3f} ms, torch.matmul "
+            f"{o_lib[K_]:.3f} ms, bound {o_bounds[K_][0]:.3f} ms ({o_bounds[K_][1]})")
+    return rows, lines
+
+
+def xl_phase(dev) -> tuple[list[dict], list[str]]:
+    """Phase 17: the fused and split pairs above 256 states. (a) and (b)
+    the XL instances against their twins and bit for bit (check_xl) at
+    every K of XL_KS and (B, T) of XL_SHAPES, and the multinomial at V =
+    XL_V on "auto" (check_xl_multinomial); (c) the outer sums' 3xTF32 gate
+    at K = 512 and 1024 (check_outer_sums); (d) the main path at K =
+    XL_MAIN_K (xl_main_path); (e) the times and, at the timed shape, each
+    XL kernel against its twin (xl_time). Returns the kernels
+    line's rows and the timing lines."""
+    import torch
+
+    t_phase = time.perf_counter()
+    log("  the XL instances (registers, spilled bytes, blocks an SM):")
+    from pysvihmm_tpu_torch.messages import fused_fb as ff
+    from pysvihmm_tpu_torch.messages import split_fb as sf
+
+    for kp in (512, 1024):
+        for S in ff.WIDE_SEQS:
+            info = [("fused " + k, ff.kernel_info(k, S, ff.feature_width("niw", D), dev, K=kp))
+                    for k in ("forward", "backward", "gated backward")]
+            info += [("split " + k, sf.kernel_info(k, S, dev, K=kp))
+                     for k in ("forward", "backward", "gated backward")]
+            log(f"    KP={kp}, S={S}: " + "; ".join(
+                f"{k} {i['registers']}/{i['local_bytes']}/{i['blocks_per_sm']}" for k, i in info))
+    gen = torch.Generator(device=dev).manual_seed(95)
+    log(f"  (a), (b) the XL instances at K = {XL_KS}, (B, T) = {XL_SHAPES}, every S")
+    for K_ in XL_KS:
+        for B_, T_ in XL_SHAPES:
+            check_xl(gen, K_, B_, T_)
+    check_xl_multinomial(dev)
+    log(f"  (a), (b) took {time.perf_counter() - t_phase:.1f} s")
+    log(f"  (c) the outer sums at K = {XL_MAIN_K} and 1024 against float64: at most "
+        f"{OUTER_RATIO} x float32 torch.matmul's error")
+    outer_errs = check_outer_sums(gen, (XL_MAIN_K, 1024))
+    log(f"  (d) the main path at K={XL_MAIN_K} (and one E-step each at K=1024) on auto and split")
+    counts, lib, main = xl_main_path(dev)
+    log(f"  (a)-(d) took {time.perf_counter() - t_phase:.1f} s")
+    times, lines = xl_time(dev, main)
+    del main
+    torch.cuda.empty_cache()
+    rows = []
+    for name, kernel, kp, src, replaces in XL_ROWS:
+        n = counts.get((kernel, kp), 0)
+        require(n > 0, f"phase 17: {name} was not launched on the main path")
+        rows.append({"name": name, "route": "cuda", "source": f"pysvihmm_tpu_torch/csrc/{src}",
+                     "replaces": f"pysvihmm_tpu/messages/{replaces}", "launches": n,
+                     **times[name]})
+    for kp in (XL_MAIN_K, 1024):
+        name = f"outer_partial_kernel (K={kp})"
+        rows.append({"name": name, "route": "cuda",
+                     "source": "pysvihmm_tpu_torch/csrc/fb_stats.cuh",
+                     "replaces": "pysvihmm_tpu/messages/pallas_fb.py:664",
+                     "launches": lib["outer_partial_kernel", kp], "max_abs_err": outer_errs[kp],
+                     **times[name]})
+    name = f"ll_tile_kernel<128> (K={XL_MAIN_K})"
+    rows.append({"name": name, "route": "cuda", "source": "pysvihmm_tpu_torch/csrc/fb_stats.cuh",
+                 "replaces": "pysvihmm_tpu/messages/pallas_fb.py:516",
+                 "launches": lib["ll_tile_kernel<128>", XL_MAIN_K], **times[name]})
+    log(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return rows, lines
+
+
 def time_route_kernels(gen) -> tuple[dict, dict, dict]:
     """Phase 5: each route kernel at K = 64, 128 and 256 (B=1024, T=1000,
     F=45, ungated) by CUDA events, its twin, its bound and share. Returns
@@ -5718,6 +6225,14 @@ def main() -> int:
     for line in dwf_lines:
         log(f"    {line}")
 
+    log(f"== phase 17: K above 256: the fused and split pairs' XL instances at K = 257-1024, "
+        f"the main path at K={XL_MAIN_K} ({card})")
+    xl_rows, xl_lines = xl_phase(dev)
+    log(f"  phase 17 times (CUDA events, the mean of {XL_TIME_ITERS} calls after a warm-up; "
+        f"twins 2 calls; {card}):")
+    for line in xl_lines:
+        log(f"    {line}")
+
     errs = {"fused_fwd_kernel": fwd_err, "fused_bwd_kernel": bwd_err, **split_err,
             "duplex_chain_kernel": chain_err, "duplex_combine_kernel": comb_err}
     kernels = []
@@ -5788,6 +6303,7 @@ def main() -> int:
     kernels.extend(mode_rows)
     kernels.extend(wf_rows)
     kernels.extend(dwf_rows)
+    kernels.extend(xl_rows)
     log(f"total {time.perf_counter() - t_start:.1f} s, the build's {build_s:.1f} s included; in "
         f"the kernels line: launches over the {SVI_STEPS} SVI steps of each kernel's route "
         f"(phase 6) for the K={K} instances, over phase 9's runs for the large-K ones (VB at "
@@ -5819,7 +6335,16 @@ def main() -> int:
         f"= {WF_V}), max_abs_err against the float64 twins at B = {B}, T = {WF_T}, F = 66 (the "
         f"chain's log_c, the combine's gamma; the tiles' ll), ms at (B, T) = ({B}, {T}), F = 66 "
         f"(the chain and the combine as called without the likelihoods: each its tile and its "
-        f"launch; the tiles over all {B * T} rows, library_ms one float32 torch.matmul)")
+        f"launch; the tiles over all {B * T} rows, library_ms one float32 torch.matmul); the XL "
+        f"rows (phase 17): launches over its main-path run (XL_MAIN_K = {XL_MAIN_K}: "
+        f"{XL_VB_ITERS} VB iterations and {XL_SVI_STEPS} SVI steps on auto, one E-step on split; "
+        f"one E-step at K = 1024 on auto and on split; the outer sums and the tiles by K), "
+        f"max_abs_err against the twins at (B, T) = ({B}, {T}) and K = 512 / 1024, where they "
+        f"are timed (the forwards' log_c, the backwards' gamma, gated and not; the outer sums' "
+        f"acc at B = {B}, T = {T}; "
+        f"the tile's ll on one window), ms at (B, T, F) = ({B}, {T}, 45), the fused kernels "
+        f"with their tiles, the outer sums over one backward's products, the tile over one "
+        f"window, library_ms one float32 torch.matmul")
     log(card)
     log(json.dumps({"kernels": kernels, "note": "the long-chain tiers (phase 12) are plain "
                     "PyTorch, as JAX's are plain XLA: they add no kernel to this line"}))

@@ -45,8 +45,12 @@ LINK_FLAGS = ("-shared", *GENCODE)
 # instances for features wider than 64 (fused_fb_wide.cu, and their modes'
 # in fused_fb_wide_modes.cu) add as many again; as units of their own they
 # build beside the default ones instead of after them (PERF.md); the duplex
-# pair's instances for features wider than 64 (duplex_fb_wide.cu) the same
-UNITS = {"fused_fb": ("fused_fb", "fused_fb_modes", "fused_fb_wide", "fused_fb_wide_modes"),
+# pair's instances for features wider than 64 (duplex_fb_wide.cu) the same,
+# and the fused and split pairs' instances above 256 states (fused_fb_xl.cu,
+# split_fb_xl.cu)
+UNITS = {"fused_fb": ("fused_fb", "fused_fb_modes", "fused_fb_wide", "fused_fb_wide_modes",
+                      "fused_fb_xl"),
+         "split_fb": ("split_fb", "split_fb_xl"),
          "duplex_fb": ("duplex_fb", "duplex_fb_wide")}
 
 _INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)

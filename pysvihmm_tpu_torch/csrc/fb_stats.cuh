@@ -328,14 +328,28 @@ struct OuterPlan {
 // The tile that takes J columns: 128 x 64 up to 64 (eacc), else 128 x 128.
 inline bool narrow_tile(int J) { return J <= NarrowTile::TJ; }
 
+constexpr int OUTER_WAVE_I = 257;  // the fewest columns of X whose chunks fit one wave
+
 // Chunks wanted along N: OUTER_BLOCKS blocks over the output tiles, at most
-// one a stage of ON rows.
+// one a stage of ON rows. Up to 256 columns of X the chunks are rounded up,
+// which where the tiles do not divide 132 leaves a short second wave of
+// blocks (one block an SM); from OUTER_WAVE_I (the XL tiers' acc and eacc)
+// they are rounded down to fit one wave: at K = 512 the 16 tiles of acc
+// then take 8 chunks, not 9 (144 blocks, a second wave of 12), which took
+// the outer sums of one backward at B = 1024, T = 1000 from 18.35 to 10.89
+// ms (11.73 in torch.matmul; at K = 1024 54.18 to 40.22) on an NVIDIA H100
+// 80GB HBM3 at 700 W (chip_smoke.py phase 17, PERF.md). The widths up to
+// 256 keep their chunks so that their sums keep their bits, not for speed:
+// rounding down was level or faster at every width timed
+// (scripts/time_outer.py), and one rule for all widths is left to a change
+// that re-checks those widths' digests (ROADMAP).
 inline long long outer_want(long long N, int I, int J) {
   const int ti = narrow_tile(J) ? NarrowTile::TI : WideTile::TI;
   const int tj = narrow_tile(J) ? NarrowTile::TJ : WideTile::TJ;
   const long long tiles = (long long)((I + ti - 1) / ti) * ((J + tj - 1) / tj);
   const long long stages = (N + ON - 1) / ON;
-  long long want = (OUTER_BLOCKS + tiles - 1) / tiles;
+  long long want = I >= OUTER_WAVE_I ? std::max<long long>(1, OUTER_BLOCKS / tiles)
+                                     : (OUTER_BLOCKS + tiles - 1) / tiles;
   if (want > stages) want = stages;
   return want > 65535 ? 65535 : want;
 }

@@ -159,11 +159,22 @@
 // waves at B = 1024; S sequences interleave S chains, and S is picked so
 // that B = 1024 runs in one wave (S = 8 at KP = 256: 128 blocks, one an SM),
 // while a small B keeps S = 1 and its blocks.
+//
+// Above KWIDE = 256 states (to fbw::KXL = 1024) the launchers take the XL
+// instances (fused_fb_xl.cu, fb_xl.cuh): fused_fwd_xl_kernel<KP, S> and
+// fused_bwd_xl_kernel<KP, S, GATED>, KP = 512 or 1024, at every F and kind,
+// F <= FMAX too, since no room is left for W beside A~: for each window of
+// fbs::WideStats::window(T, B) steps ll_tile_kernel sums the likelihoods,
+// then the chain reads them, as the WF instances above K = 64 do; A~ (and
+// for the backward a transposed copy, xl_transpose_kernel, made once a call)
+// is read from device memory each step. bf16 alpha and the pick have no XL
+// instance: the launchers refuse them there.
 
 #include "fb_common.cuh"
 #include "fb_seqs.cuh"
 #include "fb_stats.cuh"
 #include "fb_wide.cuh"
+#include "fb_xl.cuh"
 #include "fused_fb_kernels.cuh"
 
 namespace {
@@ -173,7 +184,7 @@ using fbc::KMAX;
 using fbc::NT;
 
 bool bad_shape(int T, int B, int K, int F) {
-  return T < 1 || B < 1 || K < 1 || K > fbw::KWIDE || F < 1;
+  return T < 1 || B < 1 || K < 1 || K > fbw::KXL || F < 1;
 }
 
 // A feature kind the kernels take, whose width F is (a built kind's F must
@@ -183,8 +194,12 @@ bool bad_kind(int kind, int F) {
 }
 
 // modes: the forward stores bf16 alpha, or the backward takes bf16 alpha or
-// the pick. F > FMAX: the WF instances.
+// the pick. F > FMAX: the WF instances. K > KWIDE: the XL ones (no modes).
 const void* instance(int which, int S, int K, int F, int kind, bool modes, int* smem) {
+  if (K > fbw::KWIDE) {
+    if (modes) return *smem = 0, nullptr;
+    return fbf::xl_instance(which, S, K, smem);
+  }
   if (F > FMAX)
     return modes ? fbf::wf_modes_instance(which, S, K, F, kind, smem)
                  : fbf::wf_default_instance(which, S, K, F, kind, smem);
@@ -196,7 +211,7 @@ const void* instance(int which, int S, int K, int F, int kind, bool modes, int* 
 // states (the chain groups' and the tile warps' in the WF backward's tiled
 // tier), KP above.
 int threads_of(int which, int S, int K, int F) {
-  if (K > KMAX) return fbw::tier_of(K);
+  if (K > KMAX) return fbw::chain_tier(K);
   return which != 0 && fbf::wf_tiled(S, K, F) ? fbf::wf_tiled_plan(S, F).threads() : NT;
 }
 
@@ -206,16 +221,17 @@ int groups_of(int which, int S, int K, int F) {
   return which != 0 && fbf::wf_tiled(S, K, F) ? fbf::wf_tiled_plan(S, F).groups : 1;
 }
 
-// Whether the forward at F sums its likelihoods first (fbs::ll_tile) and
-// runs its chain on them: the WF instances, up to K = 64 over all T B rows
-// at once, above over each window of fbs::WideStats::window(T, B) steps.
-bool forward_reads_ll(int F) { return F > FMAX; }
+// Whether the forward at (K, F) sums its likelihoods first (fbs::ll_tile)
+// and runs its chain on them: the WF instances, up to K = 64 over all T B
+// rows at once, above over each window of fbs::WideStats::window(T, B)
+// steps; the XL instances (K > KWIDE) at every F, a window at a time.
+bool forward_reads_ll(int K, int F) { return F > FMAX || K > fbw::KWIDE; }
 
 // Floats of scratch the forward takes: the likelihoods it reads (all T B K
 // up to K = 64, a window's above, then the carry between windows: a_{t0-1}
 // (B, K) and 1 / s_{t0-1} (B)).
 long long forward_scratch_floats(int T, int B, int K, int F) {
-  if (!forward_reads_ll(F)) return 0;
+  if (!forward_reads_ll(K, F)) return 0;
   if (K <= KMAX) return (long long)T * B * K;
   return (long long)fbs::WideStats::window(T, B) * B * K + (long long)B * K + B;
 }
@@ -253,8 +269,11 @@ cudaError_t launch(int which, int S, int T, int B, int K, int F, int kind, bool 
 // built kind, feature rows, the carry and eacc's outer-sum partials);
 // above, a window's dn and gw, the carry, the outer sums' partials, (bf16
 // alpha, a built kind) the window's widened alpha and built feature rows
-// and (F > FMAX) its likelihoods (fbs::WideStats).
+// and (F > FMAX) its likelihoods (fbs::WideStats); above KWIDE a window's
+// likelihoods at every F and then A~^T (K K floats), the XL chain's matrix.
 long long scratch_floats(int T, int B, int K, int F, int S, int kind, bool abf) {
+  if (K > fbw::KWIDE)
+    return fbs::WideStats::floats(T, B, K, F, kind, abf, 0, true) + (long long)K * K;
   const int blocks = (B + S - 1) / S;
   if (K <= KMAX && F <= FMAX) return (long long)blocks * (K * K + K * F);
   if (fbf::wf_tiled(S, K, F)) {  // a row of acc a chain group, of eacc a block
@@ -269,9 +288,8 @@ long long scratch_floats(int T, int B, int K, int F, int S, int kind, bool abf) 
 
 extern "C" {
 
-// The largest K the launchers take (the large-K instances'). They take any
-// F.
-int fused_fb_kmax() { return fbw::KWIDE; }
+// The largest K the launchers take (the XL instances'). They take any F.
+int fused_fb_kmax() { return fbw::KXL; }
 
 const char* fused_fb_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -318,14 +336,14 @@ int fused_fb_forward(const float* pi, const float* A, const float* W, const floa
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   __nv_bfloat16* a16 = static_cast<__nv_bfloat16*>(alpha16);
-  if (forward_reads_ll(F) && K <= KMAX) {
+  if (forward_reads_ll(K, F) && K <= KMAX) {
     e = fbs::ll_tile(src, W, scratch, (long long)T * B, F, K, kind, st);
     if (e != cudaSuccess) return static_cast<int>(e);
     const float* ll = scratch;
     void* args[] = {&pi, &A, &ll, &alpha, &a16, &s, &sh, &T, &B, &K};
     return static_cast<int>(launch(0, S, T, B, K, F, kind, a16 != nullptr, st, args));
   }
-  if (forward_reads_ll(F)) {  // a window at a time: its tile, then its chain
+  if (forward_reads_ll(K, F)) {  // a window at a time: its tile, then its chain
     const int steps = fbs::WideStats::window(T, B), D = fbc::obs_dim(kind, F);
     float* ll = scratch;
     float* carry = scratch + (size_t)steps * B * K;
@@ -384,16 +402,24 @@ int fused_fb_backward(const float* A, const float* W, const float* src, const fl
     return static_cast<int>(fbs::sum_partials(scratch + (size_t)nb * G * K * K, nb, K * F,
                                               stats + K * K, st));
   }
-  if (F > FMAX) {  // a window's likelihoods, which ll_tile sums first, then its chain
-    // up to K = 64 (the WF window tier) acc stays in the chain, a row of
+  if (F > FMAX || K > fbw::KWIDE) {
+    // a window's likelihoods, which ll_tile sums first, then its chain; up
+    // to K = 64 (the WF window tier) acc stays in the chain, a row of
     // partials a block, which the kernel takes in the place of dn
     const int blocks = K <= KMAX ? (B + S - 1) / S : 0;
     const fbs::WideStats ws(scratch, T, B, K, F, kind, a16 != nullptr, blocks, true);
     float *dn = blocks > 0 ? ws.part_a : ws.dn, *gw = ws.gw, *carry = ws.carry, *ll = ws.ll;
+    const float* M = A;  // the chain's matrix: A~, or above KWIDE its transposed copy
+    if (K > fbw::KWIDE) {
+      float* AT = scratch + fbs::WideStats::floats(T, B, K, F, kind, a16 != nullptr, 0, true);
+      e = fbw::xl_transpose(A, AT, K, st);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      M = AT;
+    }
     e = ws.run(
         alpha, a16, src, stats, st,
         [&](int t0, int t1) {
-          void* args[] = {&A,      &ll, &alpha, &a16,   &s, &sh, &w,  &sel, &gamma,
+          void* args[] = {&M,      &ll, &alpha, &a16,   &s, &sh, &w,  &sel, &gamma,
                           &gamma0, &dn, &gw,    &carry, &T, &B,  &K,  &t0,  &t1};
           return launch(which, S, T, B, K, F, kind, modes, st, args);
         },
@@ -518,7 +544,8 @@ int fused_fb_prep_launches(int which, int clear) {
 // out[5] the device's SMs, out[6] threads a block, out[7] chain groups of S
 // sequences a block (G in the WF backward's tiled tier, else 1). which = 0
 // forward, 1 backward, 2 gated backward; K > 64 names the large-K instance
-// of its KP; modes the modes' instance (the launchers' with bf16 alpha or
+// of its KP (the XL one above 256, which has no modes' instance); modes
+// the modes' instance (the launchers' with bf16 alpha or
 // the pick), else the default one; F > FMAX the WF instance (out[4] would be
 // 0 for an instance whose shared memory the card cannot give; the tiled
 // tier, whose shared memory grows with F, is taken only where it fits).

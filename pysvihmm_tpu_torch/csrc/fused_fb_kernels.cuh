@@ -1,11 +1,12 @@
 // The fused pair's kernels and the tables of their instances (fused_fb.cu's
-// head describes the kernels), shared by the four translation units of the
+// head describes the kernels), shared by the five translation units of the
 // fused_fb library: fused_fb.cu holds the launchers and the default
 // instances, fused_fb_modes.cu the modes' instances (the forward's bf16 alpha
 // store, the backward's run-time bf16 alpha and pick), fused_fb_wide.cu and
 // fused_fb_wide_modes.cu the same two sets for features wider than FMAX (the
 // WF instances: fb_seqs_wf.cuh up to K = 64, fb_wide.cuh's chains on read
-// likelihoods above).
+// likelihoods above), fused_fb_xl.cu the XL instances above 256 states
+// (fb_xl.cuh).
 // A unit compiles only the instances it names, so the library's instances
 // build at once, one nvcc a unit (_build.py).
 
@@ -350,5 +351,10 @@ const void* modes_instance(int which, int S, int K, int F, int kind, int* smem);
 // and <true>, defined in fused_fb_wide.cu and fused_fb_wide_modes.cu).
 const void* wf_default_instance(int which, int S, int K, int F, int kind, int* smem);
 const void* wf_modes_instance(int which, int S, int K, int F, int kind, int* smem);
+
+// The XL instances above fbw::KWIDE states (fused_fb_xl.cu): one a (which,
+// KP, S) for every kind and F, the default mode only; null for an S not
+// built.
+const void* xl_instance(int which, int S, int K, int* smem);
 
 }  // namespace fbf

@@ -56,6 +56,11 @@
 //     memory, its first 64 rows in registers at KP = 256), acc off the chain
 //     as outer products summed in an order fixed by (T, B, K), so every
 //     output is the same bits at every S.
+//   K = 257..1024: split_fwd_xl_kernel<KP, S> and split_bwd_xl_kernel<KP, S,
+//     GATED> (KP = 512 or 1024, S = 1, 2, 4, 8; split_fb_xl.cu, fb_xl.cuh)
+//     run the same two chains with A~ read from device memory (L2) each
+//     step, the backward from a transposed copy the launcher makes once a
+//     call; acc as above. bf16 alpha has no XL instance.
 // The launchers take S from the caller (the wrapper picks it by the one-wave
 // rule of fused_fb.py from split_fb_kernel_info's occupancy) and refuse an S
 // not built.
@@ -85,6 +90,11 @@
 #include "fb_seqs.cuh"
 #include "fb_stats.cuh"
 #include "fb_wide.cuh"
+#include "fb_xl.cuh"
+
+// The XL instances (split_fb_xl.cu): which = 0 forward, 1 backward, 2 gated
+// backward, S = 1, 2, 4 or 8; null for an S not built.
+const void* split_xl_instance(int which, int S, int K, int* smem);
 
 namespace {
 
@@ -148,8 +158,8 @@ split_bwd_wide_kernel(const float* __restrict__ A, const float* __restrict__ ll,
 
 // The instance of (which, S, K, ABF): which = 0 forward, 1 backward, 2 gated
 // backward; its dynamic shared memory in *smem. Up to KMAX states S = 2 or 4
-// (forward) and 2 (backward); above, S = 1, 2, 4 or 8 at KP = tier_of(K).
-// Null for an S not built.
+// (forward) and 2 (backward); above, S = 1, 2, 4 or 8 at KP = tier_of(K),
+// and above KWIDE at KP = xl_tier_of(K) (no ABF). Null for an S not built.
 template <bool ABF>
 const void* narrow_of(int which, int S, int* smem) {
   *smem = which == 0 ? 0 : fbseq::stats_smem_bytes(S, LL_FP, false);
@@ -190,40 +200,46 @@ const void* instance_abf(int which, int S, int K, int* smem) {
 }
 
 const void* instance(int which, int S, int K, bool abf, int* smem) {
+  if (K > fbw::KWIDE) {
+    if (abf) return *smem = 0, nullptr;
+    return split_xl_instance(which, S, K, smem);
+  }
   return abf ? instance_abf<true>(which, S, K, smem) : instance_abf<false>(which, S, K, smem);
 }
 
 // The kernel of (which, S, K, abf) on ceil(B / S) blocks of KMAX threads up
-// to KMAX states (under 48 KB of shared memory), of KP threads above; an S
-// not built is refused.
+// to KMAX states (under 48 KB of shared memory), of KP threads above (512 or
+// 1024 in the XL tiers); an S not built is refused.
 cudaError_t launch(int which, int S, int B, int K, bool abf, cudaStream_t st, void** args) {
   int smem = 0;
   const void* fn = instance(which, S, K, abf, &smem);
   if (fn == nullptr) return cudaErrorInvalidValue;
   const dim3 grid((B + S - 1) / S);
-  if (K > KMAX) return fbw::launch_dyn(fn, grid, fbw::tier_of(K), smem, st, args);
+  if (K > KMAX) return fbw::launch_dyn(fn, grid, fbw::chain_tier(K), smem, st, args);
   const cudaError_t e = cudaLaunchKernel(fn, grid, dim3(NT), args, smem, st);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 bool bad_shape(int T, int B, int K) {
-  return T < 1 || B < 1 || K < 1 || K > fbw::KWIDE;
+  return T < 1 || B < 1 || K < 1 || K > fbw::KXL;
 }
 
 // Floats of scratch the backward takes: K <= KMAX, a row of partials a
 // sequence (whatever S); above, a window's dn, the carry, the outer sum's
-// partials and (abf) the window's widened alpha (fbs::WideStats).
+// partials and (abf) the window's widened alpha (fbs::WideStats), and above
+// KWIDE after them A~^T (K K floats), the XL chain's matrix.
 long long scratch_floats(int T, int B, int K, bool abf) {
   if (K <= KMAX) return (long long)B * K * K;
-  return fbs::WideStats::floats(T, B, K, 0, fbc::FEATS_ARRAY, abf);
+  return fbs::WideStats::floats(T, B, K, 0, fbc::FEATS_ARRAY, abf) +
+         (K > fbw::KWIDE ? (long long)K * K : 0);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The largest K the launchers take (the large-K instances').
-int split_fb_kmax() { return fbw::KWIDE; }
+// The largest K the launchers take (the XL instances').
+int split_fb_kmax() { return fbw::KXL; }
 
 // *out = the floats of scratch split_fb_backward takes at these shapes, for
 // alpha's storage (abf: bf16).
@@ -242,7 +258,8 @@ const char* split_fb_error_string(int code) {
 // run on `stream` and do not synchronise. S is the sequences a block: 2 or 4
 // (forward) and 2 (backward) up to K = 64, 1, 2, 4 or 8 above; any other is
 // refused. alpha is stored float32 into alpha or, where alpha16 is not null
-// (alpha then null), as bf16 into alpha16.
+// (alpha then null), as bf16 into alpha16 (up to K = 256 only: above, bf16
+// alpha is refused).
 int split_fb_forward(const float* pi, const float* A, const float* ll, float* alpha,
                      void* alpha16, float* s, float* sh, int T, int B, int K, int S, int device,
                      void* stream) {
@@ -291,8 +308,15 @@ int split_fb_backward(const float* A, const float* ll, const float* alpha, const
     return static_cast<int>(cudaErrorInvalidValue);
   const fbs::WideStats ws(scratch, T, B, K, 0, fbc::FEATS_ARRAY, abf);
   float *dn = ws.dn, *carry = ws.carry;
+  const float* M = A;  // the chain's matrix: A~, or above KWIDE its transposed copy
+  if (K > fbw::KWIDE) {
+    float* AT = scratch + fbs::WideStats::floats(T, B, K, 0, fbc::FEATS_ARRAY, abf);
+    e = fbw::xl_transpose(A, AT, K, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    M = AT;
+  }
   return static_cast<int>(ws.run(alpha, a16, nullptr, acc, st, [&](int t0, int t1) {
-    void* args[] = {&A, &ll, &alpha, &a16, &s, &sh, &w, &gamma, &dn, &carry, &T, &B, &K, &t0,
+    void* args[] = {&M, &ll, &alpha, &a16, &s, &sh, &w, &gamma, &dn, &carry, &T, &B, &K, &t0,
                     &t1};
     return launch(which, S, B, K, abf, st, args);
   }));
@@ -309,14 +333,15 @@ int split_fb_prep_launches(int which, int clear) {
 // block, out[3] local (spilled) bytes a thread, out[4] resident blocks an SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[5] the device's SMs,
 // out[6] threads a block. which = 0 forward, 1 backward, 2 gated backward;
-// K > 64 names the large-K instance of its KP; abf the bf16-alpha one.
+// K > 64 names the large-K instance of its KP (the XL one above 256); abf
+// the bf16-alpha one (none above 256).
 int split_fb_kernel_info(int which, int S, int K, int abf, int device, int* out) {
   if (bad_shape(1, 1, K) || which < 0 || which > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   int smem = 0;
   const void* fn = instance(which, S, K, abf != 0, &smem);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const int nt = K > KMAX ? fbw::tier_of(K) : NT;
+  const int nt = K > KMAX ? fbw::chain_tier(K) : NT;
   cudaError_t e = cudaSetDevice(device);
   if (e == cudaSuccess && smem > 0)
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -9,11 +9,54 @@ import ctypes
 import torch
 
 
+# the padded state counts of the instances above 64 states: the large-K
+# tiers (csrc/fb_wide.cuh), then the fused and split pairs' XL tiers
+# (csrc/fb_xl.cuh)
+STATE_TIERS = (128, 256, 512, 1024)
+
+
 def instance_tier(K: int) -> int:
     """The K a library's ``*_kernel_info`` knows the instance that takes K
     states by: 64 up to 64 (the S-sequence instances), else the padded state
-    count of the large-K instance, 128 or 256 (csrc/fb_wide.cuh)."""
-    return 64 if K <= 64 else 128 if K <= 128 else 256
+    count of the instance above, 128 or 256 (the large-K tiers,
+    csrc/fb_wide.cuh) or 512 or 1024 (the XL tiers, csrc/fb_xl.cuh); K
+    itself past the last tier (which no library takes)."""
+    if K <= 64:
+        return 64
+    return next((kp for kp in STATE_TIERS if K <= kp), K)
+
+
+XL_MIN = 257  # the fewest states of the XL instances (csrc/fb_xl.cuh)
+
+
+def check_xl_modes(K: int, route: str, **modes: bool) -> None:
+    """Raise ``NotImplementedError`` where a kernel mode that has no XL
+    instance (bf16 alpha, the gamma pick) is asked for at K >= XL_MIN; the
+    launchers check it before a launch, ``modes`` naming each mode and
+    whether it is on."""
+    if K >= XL_MIN:
+        for mode, on in modes.items():
+            if on:
+                raise NotImplementedError(
+                    f"the {route} CUDA kernels have no {mode} instance above 256 states, "
+                    f"got K={K}")
+
+
+def resident_blocks(info: dict, K: int) -> int:
+    """Blocks of one instance the card runs at once, for the one-wave rule:
+    blocks an SM times SMs, where at the XL tiers (K, the padded state
+    count, above 256) one an SM counts, since each block reads all of A~
+    from L2 every step and a second block on an SM would read it again."""
+    per_sm = min(info["blocks_per_sm"], 1) if K >= XL_MIN else info["blocks_per_sm"]
+    return per_sm * info["sms"]
+
+
+def count_xl(fn, K: int) -> None:
+    """A call of a launcher at K >= XL_MIN: one more in its ``xl_launches``
+    under the XL tier's padded state count (512 or 1024)."""
+    if K >= XL_MIN:
+        tier = instance_tier(K)
+        fn.xl_launches[tier] = fn.xl_launches.get(tier, 0) + 1
 
 
 def check(name: str, x: torch.Tensor, shape: tuple[int, ...], device: torch.device,

@@ -43,7 +43,13 @@ they launch the large-K instances
 KP = 128 or 256 padded states, S in :data:`WIDE_SEQS`): S sequences a block
 over one copy of A~, one thread a state, S by the same rule, and the
 statistics summed off the chain in an order that does not depend on S, so
-every output is the same bits at every S. Above 256 states they raise.
+every output is the same bits at every S. For 257 <= K <= 1024 the XL
+instances (``fused_fwd_xl_kernel<KP, S>``, ``fused_bwd_xl_kernel<KP, S,
+GATED>``, KP = 512 or 1024; ``csrc/fb_xl.cuh``) run the same chains with
+A~ read from device memory (L2) every step, at every F on likelihoods that
+the tile kernel sums a window at a time, as above K = 64 at F > 64; bf16
+alpha and ``gamma_sel`` have no XL instance and raise
+``NotImplementedError`` there. Above 1024 states the launchers raise.
 
 Each kernel has a launcher (:func:`fused_forward`, :func:`fused_backward`)
 and a plain PyTorch twin (:func:`forward_reference`,
@@ -98,10 +104,13 @@ import torch
 from ._launch import (
     bind,
     check,
+    check_xl_modes,
+    count_xl,
     device_index,
     instance_tier,
     ptr,
     raise_on,
+    resident_blocks,
     runs_plain_twin,
     scratch,
     stream,
@@ -211,8 +220,8 @@ def _library():
 
 def _check_kernel_limits(K: int) -> None:
     """K the CUDA kernels take (K <= 64 on the S-sequence instances, 65-256
-    on the large-K ones, at any F): raise on a larger one instead of falling
-    back."""
+    on the large-K ones, 257-1024 on the XL ones, at any F): raise on a
+    larger one instead of falling back."""
     kmax = _library().fused_fb_kmax()
     if K > kmax:
         raise NotImplementedError(f"the fused CUDA kernels take K <= {kmax}, got K={K}")
@@ -271,7 +280,8 @@ def kernel_info(kernel: str, S: int, F: int, device: torch.device | None = None,
     block, F the feature width and K the states (up to 64 the instance built
     for F padded to 16, 32, 48 or 64, or above 64 the WF instance at F;
     above, the large-K instance of K's padded state count, 128 or 256, WF
-    above F = 64), for the feature kind
+    above F = 64; above 256 the XL instance of 512 or 1024, one for every F
+    and kind, the default mode only), for the feature kind
     ``in_kernel_feats``; ``modes`` names the modes' instance (the forward
     that stores bf16 alpha, the backward that takes it or the gamma pick),
     else the default one. Returns registers (a thread), static_smem and
@@ -317,7 +327,7 @@ def _default_seqs(kernel: str, B: int, F: int, K: int, index: int, kind: int = 0
     # resident chain groups of S sequences (a block runs several in the WF
     # backward's tiled tier)
     return seqs_per_block(
-        B, {S: i["blocks_per_sm"] * i["groups"] * i["sms"] for S, i in info.items()}, seqs=seqs)
+        B, {S: resident_blocks(i, K) * i["groups"] for S, i in info.items()}, seqs=seqs)
 
 
 def _seqs(kernel: str, S: int | None, B: int, K: int, F: int, index: int, kind: int = 0,
@@ -360,7 +370,9 @@ def fused_forward(
     sums before the chain reads them: up to K = 64 T B K floats, one tile
     and one chain launch; above, a window of ``WideStats::window(T, B)``
     steps (2^17 / B) and the chain's carry between windows, one tile and one
-    chain launch a window (:func:`forward_launches`)."""
+    chain launch a window (:func:`forward_launches`); above K = 256 (the XL
+    instances) the same at every F. bf16 alpha above 256 states raises
+    ``NotImplementedError``."""
     return _launch_forward(None, pi_t, A_t, W, feats, in_kernel_feats, alpha_dtype)
 
 
@@ -379,6 +391,7 @@ def _launch_forward(S: int | None, pi_t, A_t, W, feats, in_kernel_feats=None,
     if runs_plain_twin(feats):
         return forward_reference(pi_t, A_t, W, feats, in_kernel_feats, alpha_dtype)
     _check_kernel_limits(K)
+    check_xl_modes(K, "fused", bf16_alpha=alpha_dtype == torch.bfloat16)
     lib = _library()
     index = device_index(dev)
     kind = kind_code(in_kernel_feats)
@@ -394,6 +407,7 @@ def _launch_forward(S: int | None, pi_t, A_t, W, feats, in_kernel_feats=None,
         T, B, K, F, S, kind, index, stream(dev),
     )
     fused_forward.launches += 1
+    count_xl(fused_forward, K)
     count_mode(fused_forward, in_kernel_feats, alpha_dtype=alpha_dtype)
     count_wide(fused_forward, K, F, in_kernel_feats, alpha_dtype=alpha_dtype)
     raise_on(lib.fused_fb_error_string, code, "fused_fwd_kernel")
@@ -433,6 +447,7 @@ def count_wide(fn, K, F, in_kernel_feats, gamma_sel=None, alpha_dtype=torch.floa
 fused_forward.mode_launches = {}
 fused_forward.wf_launches = {}
 fused_forward.wf_mode_launches = {}
+fused_forward.xl_launches = {}
 
 
 # ---------------------------------------------------------------- backward
@@ -507,7 +522,13 @@ def fused_backward(
     each for n = min(T B, max(B, 2^17)) rows (32 MiB each at K = 64,
     B = 1024), a row of acc partials a block, the carried beta, eacc's
     outer-sum partials and, for a built kind, a window's feature rows
-    (n F floats: 0.43 GB at F = 820)."""
+    (n F floats: 0.43 GB at F = 820). Above K = 256 (the XL instances, at
+    every F) it takes a window's dn, w_t gamma_t and likelihoods, n K floats
+    each (0.54 GB each at K = 1024, B = 1024), the carried beta, the sums'
+    partials and A~^T (K K floats); alpha and gamma are T B K floats each
+    (4.2 GB each at K = 1024, B = 1024, T = 1000), all of which fits the
+    H100's 80 GB. bf16 alpha and ``gamma_sel`` above 256 states raise
+    ``NotImplementedError``."""
     return _launch_backward(None, A_t, W, feats, alpha, s, sh, emit_gamma, weights,
                             in_kernel_feats, gamma_sel)
 
@@ -532,6 +553,8 @@ def _launch_backward(S: int | None, A_t, W, feats, alpha, s, sh, emit_gamma=Fals
         return backward_reference(A_t, W, feats, alpha, s, sh, emit_gamma, weights,
                                   in_kernel_feats, sel)
     _check_kernel_limits(K)
+    check_xl_modes(K, "fused", bf16_alpha=alpha.dtype == torch.bfloat16,
+                   gamma_sel=sel is not None)
     lib = _library()
     kernel = "backward" if weights is None else "gated backward"
     index = device_index(dev)
@@ -551,6 +574,7 @@ def _launch_backward(S: int | None, A_t, W, feats, alpha, s, sh, emit_gamma=Fals
     )
     acc, eacc = stats[: K * K].view(K, K), stats[K * K:].view(K, F)
     fused_backward.launches += 1
+    count_xl(fused_backward, K)
     count_mode(fused_backward, in_kernel_feats, sel, alpha.dtype)
     width_tier = _wf_backward_tier(S, K, F) if F > FMAX and K <= KMAX_SEQS else None
     count_wide(fused_backward, K, F, in_kernel_feats, sel, alpha.dtype, width_tier)
@@ -562,6 +586,7 @@ fused_backward.launches = 0
 fused_backward.mode_launches = {}
 fused_backward.wf_launches = {}
 fused_backward.wf_mode_launches = {}
+fused_backward.xl_launches = {}
 
 
 def wf_backward_tier(S: int, K: int, F: int) -> str:
@@ -621,6 +646,7 @@ def reset_launch_counts() -> None:
         fn.mode_launches.clear()
         fn.wf_launches.clear()
         fn.wf_mode_launches.clear()
+        fn.xl_launches.clear()
     outer_sum.launches = 0
     feature_rows.launches = 0
     widen_alpha.launches = 0
@@ -629,7 +655,7 @@ def reset_launch_counts() -> None:
 
 # ------------------------------------------------------------- outer sums
 
-OUTER_MAX = 256  # the widest X: K states (acc and eacc); Y takes any F (eacc's features)
+OUTER_MAX = 1024  # the widest X: K states (acc and eacc); Y takes any F (eacc's features)
 # the libraries whose large-K launchers run the outer sums (csrc/fb_stats.cuh)
 OUTER_LIBS = ("fused_fb", "split_fb", "duplex_fb")
 
@@ -642,7 +668,8 @@ def outer_sum_reference(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
 def outer_sum(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     """The large-K statistics' outer sums alone: sum over the rows n of
     outer(X[n], Y[n]) = X^T Y, (I, J), for float32 X (N, I) and Y (N, J),
-    contiguous on one device, N >= 1, 1 <= I <= 256 and J >= 1.
+    contiguous on one device, N >= 1, 1 <= I <= :data:`OUTER_MAX` (1024, the
+    XL tiers' K) and J >= 1.
 
     The kernel (``csrc/fb_stats.cuh::outer_partial_kernel``) is the one the
     large-K backward kernels and the duplex combine run on each window of

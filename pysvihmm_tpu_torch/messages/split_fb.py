@@ -19,7 +19,10 @@ Kernels (``csrc/split_fb.cu``; the source notes what bounds them):
 A block of either kernel carries S sequences, one thread per state, each
 thread running its state of all S as interleaved chains over one copy of A~
 (the fused pair's layouts: ``fb_seqs.cuh`` up to K = 64, ``fb_wide.cuh``
-above). The launchers take S from :func:`default_seqs`, the fused pair's
+above; for 257 <= K <= 1024 the XL instances of ``fb_xl.cuh``, the same
+chains with A~ read from device memory (L2) every step, the backward's
+from a transposed copy made once a call). The launchers take S from
+:func:`default_seqs`, the fused pair's
 one-wave rule (``fused_fb.seqs_per_block``) over this library's own
 instances (:func:`built_seqs`) and the card's occupancy
 (:func:`kernel_info`), or from the caller (``S=``); an S not built raises
@@ -27,7 +30,8 @@ instances (:func:`built_seqs`) and the card's occupancy
 B: each sequence's arithmetic does not depend on S, and acc is summed in an
 order fixed by (T, B, K) (up to K = 64 each sequence keeps its own partial
 sums, added in sequence order; above, outer products over windows of time
-steps). Above 256 states the launchers raise.
+steps). Above 1024 states the launchers raise, and so does bf16 alpha
+above 256 (no XL instance stores it).
 
 Each kernel has a launcher (:func:`split_forward`, :func:`split_backward`)
 with a launch counter and a plain PyTorch twin
@@ -59,10 +63,13 @@ import torch
 from ._launch import (
     bind,
     check,
+    check_xl_modes,
+    count_xl,
     device_index,
     instance_tier,
     ptr,
     raise_on,
+    resident_blocks,
     runs_plain_twin,
     scratch,
     stream,
@@ -93,7 +100,8 @@ def _library():
 
 def _check_kernel_limits(K: int) -> None:
     """Raise on a K the CUDA kernels do not take (K <= 64 on the first
-    instances, 65-256 on the large-K ones) instead of falling back."""
+    instances, 65-256 on the large-K ones, 257-1024 on the XL ones) instead
+    of falling back."""
     kmax = _library().split_fb_kmax()
     if K > kmax:
         raise NotImplementedError(f"the split CUDA kernels take K <= {kmax}, got K={K}")
@@ -120,8 +128,9 @@ def kernel_info(kernel: str, S: int, device: torch.device | None = None,
     """What one instance of the kernels takes on the card, from the library:
     ``kernel`` is "forward", "backward" or "gated backward", S the sequences a
     block and K the states (up to 64 the K <= 64 instance; above, the
-    large-K instance of K's padded state count, 128 or 256); ``bf16`` the
-    instance that stores (reads) bf16 alpha. Returns
+    large-K instance of K's padded state count, 128 or 256, and above 256
+    the XL one of 512 or 1024); ``bf16`` the instance that stores (reads)
+    bf16 alpha (none at the XL tiers). Returns
     registers (a thread), static_smem and dynamic_smem (bytes a block),
     local_bytes (spills, a thread), blocks_per_sm (resident, by the CUDA
     occupancy calculator), sms (the card's) and threads (a block)."""
@@ -147,7 +156,8 @@ def default_seqs(kernel: str, B: int, device: torch.device, K: int = KMAX_SEQS,
     """The launchers' S: ``fused_fb.seqs_per_block`` (the smallest built S
     whose ceil(B / S) blocks run in one wave) over this library's instances
     for ``kernel`` at K (:func:`built_seqs`; ``bf16`` alpha's) on the card's
-    own occupancy."""
+    own occupancy, one block an SM at the XL tiers
+    (``_launch.resident_blocks``)."""
     return _default_seqs(kernel, B, instance_tier(K), device_index(device), bf16)
 
 
@@ -157,8 +167,7 @@ def _default_seqs(kernel: str, B: int, K: int, index: int, bf16: bool = False) -
 
     seqs = built_seqs(kernel, K)
     info = {S: dict(_kernel_info(kernel, S, K, index, bf16)) for S in seqs}
-    return seqs_per_block(B, {S: i["blocks_per_sm"] * i["sms"] for S, i in info.items()},
-                          seqs=seqs)
+    return seqs_per_block(B, {S: resident_blocks(i, K) for S, i in info.items()}, seqs=seqs)
 
 
 def check_seqs(kernel: str, S: int | None, K: int) -> None:
@@ -239,7 +248,8 @@ def split_forward(
 
     Inputs are float32 and contiguous on one device. CPU tensors run the
     plain twin; CUDA tensors launch ``split_fwd_kernel`` (its bf16-alpha
-    instance for ``alpha_dtype=torch.bfloat16``) with S sequences a block
+    instance for ``alpha_dtype=torch.bfloat16``, which above 256 states
+    raises ``NotImplementedError``) with S sequences a block
     (:func:`default_seqs` when None; one of :func:`built_seqs`, else
     ``ValueError``) or raise. The outputs do not depend on S."""
     T, B, K = ll.shape
@@ -251,6 +261,7 @@ def split_forward(
     if runs_plain_twin(ll):
         return split_forward_reference(pi_t, A_t, ll, alpha_dtype)
     _check_kernel_limits(K)
+    check_xl_modes(K, "split", bf16_alpha=alpha_dtype == torch.bfloat16)
     lib = _library()
     index = device_index(dev)
     bf16 = alpha_dtype == torch.bfloat16
@@ -265,12 +276,14 @@ def split_forward(
     )
     split_forward.launches += 1
     split_forward.bf16_launches += bf16
+    count_xl(split_forward, K)
     raise_on(lib.split_fb_error_string, code, "split_fwd_kernel")
     return alpha, s, sh
 
 
 split_forward.launches = 0
 split_forward.bf16_launches = 0  # of them, the bf16-alpha instance's
+split_forward.xl_launches = {}  # of them, the XL instances', by padded state count
 
 
 # ---------------------------------------------------------------- backward
@@ -335,7 +348,9 @@ def split_backward(
     scratch of min(T B, max(B, 2^17)) K floats beside the carried beta (B K)
     and the sum's partials, whatever T: about 0.14 GB at B = 1024, K = 256
     (acc a window of time steps a launch; with bf16 alpha a window's alpha
-    widened beside it)."""
+    widened beside it); above K = 256 also A~^T (K K floats), which the XL
+    chain reads (0.54 GB of dn at K = 1024, B = 1024; gamma 4.2 GB at T =
+    1000). bf16 alpha above 256 states raises ``NotImplementedError``."""
     T, B, K = ll.shape
     dev = ll.device
     args = [("A_t", A_t, (K, K)), ("ll", ll, (T, B, K)), ("s", s, (B, T)), ("sh", sh, (B, T))]
@@ -350,6 +365,7 @@ def split_backward(
     if runs_plain_twin(ll):
         return split_backward_reference(A_t, ll, alpha, s, sh, w)
     _check_kernel_limits(K)
+    check_xl_modes(K, "split", bf16_alpha=alpha.dtype == torch.bfloat16)
     lib = _library()
     index = device_index(dev)
     bf16 = alpha.dtype == torch.bfloat16
@@ -364,12 +380,14 @@ def split_backward(
     )
     split_backward.launches += 1
     split_backward.bf16_launches += bf16
+    count_xl(split_backward, K)
     raise_on(lib.split_fb_error_string, code, "split_bwd_kernel")
     return gamma, acc
 
 
 split_backward.launches = 0
 split_backward.bf16_launches = 0  # of them, the bf16-alpha instance's
+split_backward.xl_launches = {}  # of them, the XL instances', by padded state count
 
 
 def reset_launch_counts() -> None:
@@ -377,6 +395,8 @@ def reset_launch_counts() -> None:
     split_backward.launches = 0
     split_forward.bf16_launches = 0
     split_backward.bf16_launches = 0
+    split_forward.xl_launches.clear()
+    split_backward.xl_launches.clear()
 
 
 # ------------------------------------------------------------------ E-step

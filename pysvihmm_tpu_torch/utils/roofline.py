@@ -68,7 +68,11 @@ def kernel_work(name: str, B: int, T: int, K: int, F: int = 0, gated: bool = Fal
     read it back for eacc's sums, and above K = 64 the backward's chain
     reads the window's likelihoods that ``ll_tile_kernel`` wrote, traffic
     of the method and not of the function, which the bound does not
-    count.
+    count, except above 256 states: there the fused pair's XL instances
+    sum a tile a window at every F (no room is left for W beside A~), so
+    each fused kernel's launcher writes the T B K likelihoods and its chain
+    reads them back, 8 n K bytes more for the forward and for the backward
+    each.
 
     The large-K statistics' operand kernels of those modes, over the B T
     rows (t, b) of one window: "build_feats_kernel" reads D floats a row,
@@ -146,6 +150,8 @@ def kernel_work(name: str, B: int, T: int, K: int, F: int = 0, gated: bool = Fal
     if bf16_alpha and name in ("fused_fwd_kernel", "fused_bwd_kernel", "split_fwd_kernel",
                                "split_bwd_kernel"):
         nbytes -= 2.0 * n * K
+    if K > 256 and name in ("fused_fwd_kernel", "fused_bwd_kernel"):
+        nbytes += 8.0 * n * K  # the XL tile's write of ll and the chain's read
     if name == "probe_fwd_nos_kernel":
         flops += B * renorms * 2 * K  # a sum and a division per state
     elif name == "probe_fwd_stack_kernel":

@@ -28,27 +28,34 @@ def test_both_kernel_sources_share_the_header():
     """Every source includes the shared device code and the large-K layout;
     the three route sources also the fixed-order statistics and the
     S-sequences-a-block layout of their K <= 64 chains (one forward for all
-    three, one backward for the fused and split pairs); the fused and duplex
+    three, one backward for the fused and split pairs), the fused and split
+    sources also the XL layout above 256 states; the fused and duplex
     libraries' units also their kernels' tables, and the fused library's
     the any-width K <= 64 backward (the duplex pair's WF instances read
-    likelihood tiles and take no feature row)."""
+    likelihood tiles and take no feature row); the fused and split pairs'
+    XL units the XL layout (the fused one beside its kernels' tables)."""
     names = ("fused_fb", "split_fb", "duplex_fb", "split_probe")
     wf = {"fused_fb": ["fb_seqs_wf.cuh"], "duplex_fb": []}
     for name in names:
         seqs = ["fb_seqs.cuh"] if name != "split_probe" else []
         stats = [] if name == "split_probe" else ["fb_stats.cuh"]
+        xl = ["fb_xl.cuh"] if name in ("fused_fb", "split_fb") else []
         own = [f"{name}_kernels.cuh", *wf[name]] if name in wf else []
         assert _build.sources(name) == [f"{name}.cu", "fb_common.cuh", *seqs, *stats,
-                                        "fb_wide.cuh", *own]
+                                        "fb_wide.cuh", *xl, *own]
     assert len({_build.library_path(n) for n in names}) == len(names)
     assert _build.units("fused_fb") == ("fused_fb", "fused_fb_modes", "fused_fb_wide",
-                                        "fused_fb_wide_modes")
+                                        "fused_fb_wide_modes", "fused_fb_xl")
+    assert _build.units("split_fb") == ("split_fb", "split_fb_xl")
     assert _build.units("duplex_fb") == ("duplex_fb", "duplex_fb_wide")
     for name in ("fused_fb", "duplex_fb"):
         for unit in _build.units(name)[1:]:
+            xl = ["fb_xl.cuh"] if unit.endswith("_xl") else []
             assert _build.sources(unit) == [
-                f"{unit}.cu", f"{name}_kernels.cuh", "fb_common.cuh", "fb_seqs.cuh",
+                f"{unit}.cu", f"{name}_kernels.cuh", *xl, "fb_common.cuh", "fb_seqs.cuh",
                 *wf[name], "fb_stats.cuh", "fb_wide.cuh"]
+    assert _build.sources("split_fb_xl") == [
+        "split_fb_xl.cu", "fb_xl.cuh", "fb_common.cuh", "fb_wide.cuh"]
 
 
 def test_library_path_follows_every_unit(tmp_path, monkeypatch):

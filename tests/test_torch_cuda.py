@@ -24,7 +24,8 @@ inputs are chip_smoke.py's: overlapping states, so posteriors spread. The
 kernels and twins compute the same float32 recursion in another summation
 order, and acc and eacc are sums over all sequences in another grouping, so the
 tolerances are those of tests/test_pallas.py:246-251, relative for those
-sums. The kernels take K up to 256 (the large-K instances above 64); the
+sums. The kernels take K up to 256 (the large-K instances above 64), the
+fused and split pairs up to 1024 (their XL instances above 256); the
 large-K statistics' outer sums run on the tensor cores at 3xTF32 and are
 held to float64 beside float32 torch.matmul.
 """
@@ -244,23 +245,148 @@ def test_fused_pair_runs_b1024_in_one_wave(cuda_device):
 
 
 def test_wider_than_the_kernels_raises(cuda_device):
-    """Just above the large-K instances' 256 states every launcher refuses
-    (no fallback to "scan" or a twin)."""
+    """Just above each library's ceiling every launcher refuses (no fallback
+    to "scan" or a twin): the fused and split pairs above their XL
+    instances' 1024 states, the duplex pair and the probes above their
+    large-K instances' 256."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    K = 257
-    pi_t, A_t, W, feats = _random_fused_inputs(gen, 2, 8, K, 5)
-    alpha = torch.rand((8, 2, K), generator=gen, device=cuda_device)
-    s = torch.rand((2, 8), generator=gen, device=cuda_device)
-    ll = torch.rand((8, 2, K), generator=gen, device=cuda_device)
+
+    def inputs(K):
+        pi_t, A_t, W, feats = _random_fused_inputs(gen, 2, 8, K, 5)
+        alpha = torch.rand((8, 2, K), generator=gen, device=cuda_device)
+        s = torch.rand((2, 8), generator=gen, device=cuda_device)
+        ll = torch.rand((8, 2, K), generator=gen, device=cuda_device)
+        return pi_t, A_t, W, feats, alpha, s, ll
+
+    pi_t, A_t, W, feats, alpha, s, ll = inputs(1025)
     for call in (lambda: fused_fb.fused_forward(pi_t, A_t, W, feats),
                  lambda: fused_fb.fused_backward(A_t, W, feats, alpha, s, s),
                  lambda: split_fb.split_forward(pi_t, A_t, ll),
-                 lambda: split_fb.split_backward(A_t, ll, alpha, s, s),
-                 lambda: duplex_fb.duplex_chain(pi_t, A_t, W, feats),
+                 lambda: split_fb.split_backward(A_t, ll, alpha, s, s)):
+        with pytest.raises(NotImplementedError, match="K <= 1024"):
+            call()
+    pi_t, A_t, W, feats, alpha, s, ll = inputs(257)
+    for call in (lambda: duplex_fb.duplex_chain(pi_t, A_t, W, feats),
                  lambda: duplex_fb.duplex_combine(W, feats, alpha, alpha, s),
                  lambda: split_probe.probe_fwd_nos(pi_t, A_t, ll, 4)):
         with pytest.raises(NotImplementedError, match="K <= 256"):
             call()
+
+
+@pytest.mark.parametrize("B,T", [(5, 40), (2048, 150)])
+@pytest.mark.parametrize("K", [257, 512, 1024])
+@pytest.mark.parametrize("gated", [False, True])
+def test_xl_kernels_match_plain_twins_at_every_s(cuda_device, B, T, K, gated):
+    """The fused and split pairs' XL instances (K > 256, A~ read from the L2
+    every step) at every built S against their twins, emit_gamma both ways:
+    every output the same bits at every S, the fused forward the split
+    forward on the tile's likelihoods, each launch counted as an XL
+    instance of its tier. At B = 2048 the statistics take three windows."""
+    gen = torch.Generator(device=cuda_device).manual_seed(900 + K + B)
+    log_pi, log_A, W, feats = random_problem(gen, B, T, K, 3)
+    F = W.shape[0]
+    w = svi_masks(gen, B, T, (3 * T) // 4) if gated else None
+    pi_t, A_t = torch.exp(log_pi).contiguous(), torch.exp(log_A).contiguous()
+    ll = fused_fb.likelihood_tile(feats.view(T * B, F), W).view(T, B, K)
+    a_r, s_r, sh_r = split_fb.split_forward_reference(pi_t, A_t, ll)
+    g_r, acc_r = split_fb.split_backward_reference(A_t, ll, a_r, s_r, sh_r, w)
+    ref = fused_fb.backward_reference(A_t, W, feats, a_r, s_r, sh_r, True, w)
+    tier = 512 if K <= 512 else 1024
+    before = [dict(fn.xl_launches) for fn in (fused_fb.fused_forward, fused_fb.fused_backward,
+                                               split_fb.split_forward, split_fb.split_backward)]
+    first = None
+    for S in fused_fb.WIDE_SEQS:
+        fwd = split_fb.split_forward(pi_t, A_t, ll, S=S)
+        for x, r in zip(fwd, (a_r, s_r)):
+            torch.testing.assert_close(x, r, rtol=0, atol=5e-5)
+        torch.testing.assert_close(fwd[2], sh_r, rtol=2e-6, atol=1e-4)
+        bwd = split_fb.split_backward(A_t, ll, *fwd, w, S=S)
+        torch.testing.assert_close(bwd[0], g_r, rtol=0, atol=5e-5)
+        torch.testing.assert_close(bwd[1], acc_r, rtol=1e-4, atol=1e-3)
+        fused = [fused_fb._launch_forward(S, pi_t, A_t, W, feats)]
+        for emit in (True, False):
+            got = fused_fb._launch_backward(S, A_t, W, feats, *fwd, emit, w)
+            assert (got[0] is None) != emit
+            fused.append(got)
+        torch.testing.assert_close(fused[1][0], ref[0], rtol=0, atol=5e-5)
+        torch.testing.assert_close(fused[1][1], ref[1], rtol=0, atol=5e-5)
+        torch.testing.assert_close(fused[1][2], ref[2], rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(fused[1][3], ref[3], rtol=3e-3, atol=2e-3)
+        outs = [*fwd, *bwd, *fused[0], *fused[1], *fused[2][1:]]
+        if first is None:
+            first = outs
+        for x, y in zip(outs, first):
+            assert torch.equal(x, y), S
+        for x, y in zip(fused[0], fwd):
+            assert torch.equal(x, y), S
+        for x, y in zip(fused[2][1:], fused[1][1:]):
+            assert torch.equal(x, y), S
+    torch.cuda.synchronize()
+    n = len(fused_fb.WIDE_SEQS)
+    for fn, b, calls in zip((fused_fb.fused_forward, fused_fb.fused_backward,
+                             split_fb.split_forward, split_fb.split_backward), before,
+                            (n, 2 * n, n, n)):
+        assert fn.xl_launches.get(tier, 0) - b.get(tier, 0) == calls
+
+
+@pytest.mark.parametrize("kind,size", [("niw", 10), ("onehot", 100)])
+@pytest.mark.parametrize("B,T", [(5, 40), (1024, 150)])
+def test_xl_fused_pair_at_features_wider_than_64(cuda_device, kind, size, B, T):
+    """Above 256 states the fused pair takes every F through its likelihood
+    tile: at K = 300 and F = 66 (NIW D = 10, also built in-kernel) or the
+    one-hot of V = 100, every built S the same bits (the forward the split
+    forward's on the tile's likelihoods, a built kind the array's), gated
+    and not, against the twins run in float64 (chip_smoke.py phase 15's
+    tolerances). At B = 1024 the statistics take two windows."""
+    K = 300
+    gen = torch.Generator(device=cuda_device).manual_seed(950 + size + B)
+    log_pi, log_A, W, src, feats, ik = wf_problem(gen, B, T, K, kind, size)
+    F = W.shape[0]
+    pi_t, A_t = split_fb.exp_params(log_pi, log_A)
+    w = svi_masks(gen, B, T, (3 * T) // 4)
+    ll = fused_fb.likelihood_tile(feats.view(T * B, F), W).view(T, B, K)
+    fwd = split_fb.split_forward(pi_t, A_t, ll)
+    d = lambda *xs: [None if x is None else x.double() for x in xs]  # noqa: E731
+    a_o, s_o, sh_o = fused_fb.forward_reference(*d(pi_t, A_t, W, feats))
+    torch.testing.assert_close(fwd[0].double(), a_o, rtol=0, atol=5e-5)
+    torch.testing.assert_close((torch.log(fwd[1]) + fwd[2]).double(), torch.log(s_o) + sh_o,
+                               rtol=2e-6, atol=1e-4)
+    for wg in (None, w):
+        ref = fused_fb.backward_reference(*d(A_t, W, feats, *fwd), True, *d(wg))
+        first = None
+        for S in fused_fb.WIDE_SEQS:
+            assert all(torch.equal(x, y) for x, y in zip(
+                fused_fb._launch_forward(S, pi_t, A_t, W, src, ik), fwd)), S
+            got = fused_fb._launch_backward(S, A_t, W, src, *fwd, True, wg, ik)
+            first = got if first is None else first
+            assert all(torch.equal(x, y) for x, y in zip(got, first)), S
+        for x, r, rtol, atol in zip(first, ref, (0.0, 0.0, 1e-4, 3e-3), (5e-5, 5e-5, 1e-3, 2e-3)):
+            torch.testing.assert_close(x.double(), r, rtol=rtol, atol=atol)
+
+
+def test_xl_ceilings_and_left_out_modes(cuda_device):
+    """The libraries' ceilings: 1024 states for the fused and split pairs
+    (their XL instances), 256 for the duplex pair and the probes. At K =
+    257 bf16 alpha and the gamma pick raise NotImplementedError on the
+    fused pair, bf16 alpha on the split pair; at 256 they run."""
+    assert fused_fb._library().fused_fb_kmax() == split_fb._library().split_fb_kmax() == 1024
+    assert duplex_fb._library().duplex_fb_kmax() == split_probe._library().split_probe_kmax() == 256
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    for K in (256, 257):
+        pi_t, A_t, W, feats = _random_fused_inputs(gen, 3, 8, K, 5)
+        ll = (feats @ W).contiguous()
+        sel = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+        calls = (lambda: fused_fb.fused_forward(pi_t, A_t, W, feats, alpha_dtype=torch.bfloat16),
+                 lambda: fused_fb.fused_backward(A_t, W, feats, *fused_fb.fused_forward(
+                     pi_t, A_t, W, feats), gamma_sel=sel),
+                 lambda: split_fb.split_forward(pi_t, A_t, ll, alpha_dtype=torch.bfloat16))
+        for call in calls:
+            if K == 256:
+                call()
+            else:
+                with pytest.raises(NotImplementedError, match="K=257"):
+                    call()
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("B,T", [(5, 40), (2048, 150)])

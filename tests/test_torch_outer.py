@@ -47,7 +47,7 @@ def test_cpu_tensors_run_the_twin():
     (torch.zeros(8, 4), torch.zeros(8, 4, dtype=torch.int32)),      # dtype
     (torch.zeros(4, 8).T, torch.zeros(8, 4)),                       # not contiguous
     (torch.zeros(0, 4), torch.zeros(0, 4)),                         # no rows
-    (torch.zeros(8, 257), torch.zeros(8, 4)),                       # I > 256
+    (torch.zeros(8, 1025), torch.zeros(8, 4)),                      # I > 1024
     (torch.zeros(8, 4), torch.zeros(8, 0)),                         # J = 0
 ])
 def test_refuses_bad_operands(X, Y):
